@@ -1,0 +1,128 @@
+"""Build and load the port's CUDA kernels (picasso_torch/csrc).
+
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
+library with a plain C interface, which ``ctypes`` loads. The build runs
+at first use, into ``picasso_torch/.build/<hash of the sources>/``, so a
+checkout builds itself and an edited source rebuilds. There is no
+prebuilt fallback: without ``nvcc`` the build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / ".build"
+CUDA_ROOT = "/usr/local/cuda"
+LIB_NAME = "libpicasso_torch_kernels.so"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_I = ctypes.c_int
+_F = ctypes.c_float
+#: C signatures of the entries in csrc/*.cu (all return cudaError_t)
+SIGNATURES = {
+    "picasso_mle_fit": [
+        _P, _LL, _I, _F, _I, _I, _LL,          # spots, n, box, eps, k, mode, n_valid
+        _P, _P, _P, _P, _P,                    # carry: theta old done iters max_step
+        _P, _P, _P, _P,                        # out: theta, crlb, ll, iters
+        _P,                                    # stream
+    ],
+    "picasso_identify_tiles": [
+        _P, _I, _LL, _LL, _LL, _I, _F,         # frames, dtype, B, Y, X, box, min_ng
+        _P, _P, _P,                            # tile mask, loc, ng
+        _P,                                    # stream
+    ],
+}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for path in sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else under CUDA_HOME or
+    CUDA_ROOT. Raises if there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), CUDA_ROOT):
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError(
+        f"nvcc not found (PATH, CUDA_HOME, {CUDA_ROOT}): the CUDA "
+        "kernels of picasso_torch cannot be built"
+    )
+
+
+def build() -> tuple[Path, float]:
+    """Compile the kernels unless this source hash is built already.
+    Returns (library path, seconds spent compiling; 0 when cached). The
+    ptxas report (registers, spills) is kept in ``build.log`` beside the
+    library."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.is_file():
+        return lib, 0.0
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        tmp_lib = Path(tmp) / LIB_NAME
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp_lib),
+               *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        (out_dir / "build.log").write_text(
+            " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
+            )
+        os.replace(tmp_lib, lib)
+    return lib, time.perf_counter() - t0
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use) with its C
+    signatures declared."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.picasso_error_string.argtypes = [ctypes.c_int]
+    lib.picasso_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry."""
+    if status != 0:
+        msg = library().picasso_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({msg})")

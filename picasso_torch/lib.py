@@ -1,0 +1,113 @@
+"""Shared utilities of the port: metadata access, the locs sanity filter
+on numpy structured arrays, progress reporting and device resolution.
+
+Counterpart of the parts of picasso_tpu/lib.py that the localize path
+uses (get_from_metadata :41, ensure_sanity :82, MockProgress :670,
+progress_reporter :731). Locs are numpy structured arrays with the
+record layout of the HDF5 ``"locs"`` dataset.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Any, Callable, Literal
+
+import numpy as np
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; raises if it names CUDA and no card
+    is visible (the port never moves work to the CPU by itself)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' (CLI: --device cpu) to run the "
+            "plain PyTorch versions on the CPU"
+        )
+    return device
+
+
+def get_from_metadata(info: list[dict] | dict, key: Any, default=None):
+    """``key`` from a metadata dict or an info chain (list of dicts,
+    searched newest to oldest, skipping falsy values like the
+    reference, picasso/lib.py:878)."""
+    if isinstance(info, dict):
+        return info.get(key, default)
+    if isinstance(info, list):
+        for block in info[::-1]:
+            if val := block.get(key):
+                return val
+        return default
+    raise ValueError("info must be a dict or a list of dicts.")
+
+
+_NONNEGATIVE_COLUMNS = (
+    "x", "y", "lpx", "lpy", "lpz", "photons", "ellipticity", "sx", "sy",
+)
+
+
+def ensure_sanity(locs: np.ndarray, info: list[dict]) -> np.ndarray:
+    """Drop rows with a non-finite value, rows outside the field of view
+    and rows with a negative precision/photon/width column
+    (picasso/lib.py:1786)."""
+    for key in ("Width", "Height", "Frames"):
+        if get_from_metadata(info, key) is None:
+            raise KeyError(f"Metadata is missing required key: '{key}'")
+    keep = np.ones(len(locs), dtype=bool)
+    for name in locs.dtype.names:
+        if np.issubdtype(locs.dtype[name], np.floating):
+            keep &= np.isfinite(locs[name])
+    keep &= locs["x"] < get_from_metadata(info, "Width")
+    keep &= locs["y"] < get_from_metadata(info, "Height")
+    for name in _NONNEGATIVE_COLUMNS:
+        if name in locs.dtype.names:
+            keep &= locs[name] >= 0
+    return locs[keep]
+
+
+class MockProgress:
+    """No-op progress reporter (picasso/lib.py:426)."""
+
+    def set_value(self, value):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+class ConsoleProgress(MockProgress):
+    """Progress as one rewritten line on stderr."""
+
+    def __init__(self, total: int, description: str = ""):
+        self.total = max(int(total), 1)
+        self.description = description
+        self.value = 0
+
+    def set_value(self, value):
+        self.value = int(value)
+        sys.stderr.write(
+            f"\r{self.description}: {self.value}/{self.total}"
+        )
+        sys.stderr.flush()
+
+    def __exit__(self, *exc):
+        sys.stderr.write("\n")
+        sys.stderr.flush()
+        return False
+
+
+def progress_reporter(
+    progress: Callable[[int], None] | Literal["console"] | None,
+    total: int,
+    description: str = "",
+):
+    """The reference's progress_callback convention ("console" |
+    callable | None) as a reporter object."""
+    if progress == "console":
+        return ConsoleProgress(total, description)
+    return MockProgress()

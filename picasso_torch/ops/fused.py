@@ -1,0 +1,184 @@
+"""Device-resident localize per frame chunk: identify -> hit list ->
+ROI cut -> photon conversion -> MLE fit, with only the hit list and the
+fit results read back.
+
+Counterpart of picasso_tpu/ops/fused.py (identify_cut_fit :654,
+identify_cut_fit_packed :750, localize_fused :1103) for the MLE rows.
+Frames upload once in their native dtype. The hit list has exactly as
+many rows as hits (torch.nonzero knows the count), so there are no
+padded buckets and no overflow retry, and a short last chunk is just a
+shorter chunk. The ROI cut is one advanced-index gather from the chunk,
+straight into the lanes-last (S, S, N) layout of the fit.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Literal
+
+import numpy as np
+import torch
+
+from picasso_torch.ops import mle_cuda
+from picasso_torch.ops.mle import _check_method as check_method
+from picasso_torch.ops.identify import compact, upload_frames
+from picasso_torch.ops.identify_cuda import identify_tiles
+
+_LQ_TODO = (
+    "the LQ fitters are not ported yet (ROADMAP queue 1 item 4 and "
+    "queue 2 K3/K6); use fitting_method='gaussmle'"
+)
+
+
+def cut_rois_t(frames: torch.Tensor, f, y, x, box: int) -> torch.Tensor:
+    """Raw (box, box, N) ROIs [y, x, n] around hit centres (f, y, x)
+    from a (B, Y, X) chunk, in the chunk's dtype (u16 comes back as
+    int32). Hits are >= box//2 from every border, so windows stay
+    inside the frame."""
+    r = box // 2
+    offs = torch.arange(-r, r + 1, device=frames.device)
+    src = frames.view(torch.int16) if frames.dtype == torch.uint16 else frames
+    rows = y[None, :] + offs[:, None]  # (S, N)
+    cols = x[None, :] + offs[:, None]
+    roi = src[f[None, None, :], rows[:, None, :], cols[None, :, :]]
+    if frames.dtype == torch.uint16:
+        roi = roi.to(torch.int32) & 0xFFFF
+    return roi
+
+
+def identify_cut_fit(frames, minimum_ng, baseline: float, factor: float,
+                     *, box: int, eps: float, max_it: int,
+                     method: str = "sigmaxy"):
+    """One frame chunk on its device. Returns (f, y, x, ng, theta (6, n),
+    crlb (6, n), ll (n,), iters (n,)) with n the hit count; a chunk
+    without hits launches no fit."""
+    f, y, x, ng = compact(*identify_tiles(frames, minimum_ng, box), box)
+    spots_t = (cut_rois_t(frames, f, y, x, box).to(torch.float32)
+               - baseline) * factor
+    theta, crlb, ll, iters = mle_cuda.fit_boundary_t(
+        spots_t.contiguous(), eps, max_it, method
+    )
+    return f, y, x, ng, theta, crlb, ll, iters
+
+
+def identify_cut_fit_packed(frames, minimum_ng, baseline: float,
+                            factor: float, *, box: int, eps: float,
+                            max_it: int, method: str = "sigmaxy"):
+    """:func:`identify_cut_fit` as one (18, n) f32 payload with rows
+    [f, y, x, ng, theta(6), crlb(6), ll, iters] — one readback per chunk
+    (f/y/x/iters are integers far below 2^24, exact in f32)."""
+    f, y, x, ng, theta, crlb, ll, iters = identify_cut_fit(
+        frames, minimum_ng, baseline, factor, box=box, eps=eps,
+        max_it=max_it, method=method,
+    )
+    rows = [f[None], y[None], x[None], ng[None], theta, crlb, ll[None],
+            iters[None]]
+    return torch.cat([r.to(torch.float32) for r in rows], dim=0)
+
+
+_IDS_DTYPE = [
+    ("frame", np.int64), ("x", np.int64), ("y", np.int64),
+    ("net_gradient", np.float32),
+]
+
+
+def localize_fused(
+    movie,
+    minimum_ng: float,
+    box: int,
+    camera_info: dict,
+    *,
+    fitting_method: Literal["gausslq", "gausslq-gpu", "gaussmle"] = "gaussmle",
+    eps: float = 0.001,
+    max_it: int = 100,
+    mle_method: Literal["sigma", "sigmaxy"] = "sigmaxy",
+    roi: tuple[tuple[int, int], tuple[int, int]] | None = None,
+    frame_bounds: tuple[int, int] | None = None,
+    progress_callback: Callable[[int], None] | Literal["console"] | None = None,
+    device="cuda",
+):
+    """Localize a (possibly lazy) movie chunk by chunk on ``device``.
+
+    A background thread decodes the next chunk while the device works on
+    the current one. Returns ``(identifications, (theta, crlb, ll,
+    iters))``: identifications a structured array (frame, x, y,
+    net_gradient), theta/crlb (n, 6), rows aligned."""
+    from picasso_torch import lib
+    from picasso_torch.localize import _id_frame_chunk
+    from picasso_torch.stream import ChunkPrefetcher
+
+    if fitting_method != "gaussmle":
+        raise NotImplementedError(_LQ_TODO)
+    check_method(mle_method)
+    device = lib.resolve_device(device)
+    baseline = float(np.float32(float(camera_info["Baseline"])))
+    factor = float(np.float32(
+        float(camera_info["Sensitivity"]) / float(camera_info["Gain"])
+    ))
+
+    n_frames = len(movie)
+    lo_b, hi_b = 0, n_frames
+    if frame_bounds is not None:
+        # the reference's upper bound is inclusive (localize.py:394-401)
+        if frame_bounds[0] is not None:
+            lo_b = max(frame_bounds[0], 0)
+        if frame_bounds[1] is not None:
+            hi_b = min(frame_bounds[1], n_frames)
+    frames_idx = [f for f in range(n_frames) if lo_b <= f <= hi_b]
+    if not frames_idx:
+        z6 = np.zeros((0, 6), np.float32)
+        return np.zeros(0, dtype=_IDS_DTYPE), (
+            z6, z6, np.zeros(0, np.float32), np.zeros(0, np.int32)
+        )
+
+    height, width = np.asarray(movie[0]).shape[-2:]
+    if roi is not None:
+        (y0, x0), (y1, x1) = roi
+        height, width = y1 - y0, x1 - x0
+    # chunks of ~64 MB of f32 frames, evened out and rounded to 32
+    base = _id_frame_chunk(height, width)
+    n_chunks = max(1, -(-len(frames_idx) // base))
+    frame_chunk = -(-len(frames_idx) // n_chunks)
+    if n_chunks > 1:
+        frame_chunk = -(-frame_chunk // 32) * 32
+    bounds = [
+        (frames_idx[s], frames_idx[min(s + frame_chunk, len(frames_idx)) - 1] + 1)
+        for s in range(0, len(frames_idx), frame_chunk)
+    ]
+
+    blocks = []
+    prefetcher = ChunkPrefetcher(movie, bounds)
+    try:
+        with lib.progress_reporter(
+            progress_callback, len(frames_idx), "Localizing"
+        ) as rep:
+            done = 0
+            for offset, batch in prefetcher:
+                if roi is not None:
+                    batch = batch[:, y0:y1, x0:x1]
+                payload = identify_cut_fit_packed(
+                    upload_frames(batch, device), minimum_ng, baseline,
+                    factor, box=box, eps=eps, max_it=max_it,
+                    method=mle_method,
+                ).cpu().numpy()
+                blocks.append((offset, payload))
+                done += len(batch)
+                rep.set_value(done)
+                if callable(progress_callback):
+                    progress_callback(done)
+    finally:
+        prefetcher.close()
+    block = np.concatenate([p for _, p in blocks], axis=1)
+    ids = np.empty(block.shape[1], dtype=_IDS_DTYPE)
+    ids["frame"] = np.concatenate(
+        [p[0].astype(np.int64) + off for off, p in blocks]
+    )
+    ids["y"] = block[1]
+    ids["x"] = block[2]
+    if roi is not None:
+        ids["y"] += roi[0][0]
+        ids["x"] += roi[0][1]
+    ids["net_gradient"] = block[3]
+    return ids, (
+        block[4:10].T.copy(), block[10:16].T.copy(), block[16].copy(),
+        block[17].astype(np.int32),
+    )

@@ -1,0 +1,114 @@
+"""The CUDA kernels of picasso_torch against their plain PyTorch versions
+on the card, at small shapes. Marked ``cuda``: they skip where no card
+is visible.
+
+This file imports no JAX (the machine with the card has none), so run it
+without the suite's conftest:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
+
+Tolerances: tests/torch_parity.py; chip_smoke.py repeats these checks
+at the main path's full shapes.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from bench import make_bench_movie, make_spots
+from picasso_torch import localize
+from picasso_torch.ops import fused, identify, identify_cuda, mle, mle_cuda
+from torch_parity import compare_fits, compare_hits
+
+pytestmark = pytest.mark.cuda
+EPS, MAX_IT = 1e-3, 100
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def _np(out):
+    return [a.cpu().numpy() for a in out]
+
+
+@pytest.mark.parametrize("box", [5, 7, 9, 11, 13, 15])
+def test_fit_kernel_matches_plain(dev, box):
+    sp = torch.from_numpy(np.ascontiguousarray(
+        make_spots(4096, box, seed=box).transpose(1, 2, 0)
+    )).to(dev)
+    plain = _np(mle._fit_core(sp, EPS, MAX_IT))
+    k1 = _np(mle_cuda.fit_t(sp, EPS, MAX_IT))
+    k2 = _np(mle_cuda.fit_boundary_t(sp, EPS, MAX_IT))
+    compare_fits(plain, k1, MAX_IT)
+    for a, b in zip(k1, k2):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_fit_kernel_refuses_box3(dev):
+    """At box 3 the sigmaxy fit mostly does not converge (six parameters,
+    nine pixels), so no box-3 kernel is built; the wrapper raises."""
+    sp = torch.ones((3, 3, 64), device=dev)
+    with pytest.raises(ValueError, match="boxes"):
+        mle_cuda.fit_t(sp, EPS, MAX_IT)
+    with pytest.raises(ValueError, match="boxes"):
+        mle_cuda.fit_boundary_t(sp, EPS, MAX_IT)
+
+
+def test_fit_kernel_n_valid_and_resume(dev):
+    sp = torch.from_numpy(np.ascontiguousarray(
+        make_spots(1000, seed=1).transpose(1, 2, 0)
+    )).to(dev)
+    sp[:, :, 900:] = 1.0
+    a = _np(mle_cuda.fit_t(sp, EPS, 12, n_valid=900))
+    b = _np(mle_cuda._fit_phases(sp, EPS, 12, "sigmaxy", 900, (3, 7)))
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    assert a[3][900:].max() == 0
+
+
+@pytest.mark.parametrize("box", [3, 5, 7, 9, 15])
+def test_identify_kernel_matches_plain(dev, box):
+    movie = make_bench_movie(16, 96, 60, 0.5, np.random.default_rng(3))
+    movie = np.ascontiguousarray(movie[:, :82, :])  # Y not a multiple of T
+    for frames in (movie, movie.astype(np.float32)):
+        chunk = identify.upload_frames(frames, dev)
+        p_t = identify.identify_tiles_plain(chunk, 3000.0, box)
+        k_t = identify_cuda.identify_tiles(chunk, 3000.0, box)
+        p, k = _np(p_t), _np(k_t)
+        np.testing.assert_array_equal(p[0], k[0])
+        np.testing.assert_array_equal(p[1], k[1])
+        np.testing.assert_allclose(k[2], p[2], rtol=1e-5, atol=0)
+        compare_hits(_np(identify.compact(*p_t, box)),
+                     _np(identify.compact(*k_t, box)), 3000.0)
+
+
+def test_chunk_without_hits_launches_no_fit(dev):
+    before = mle_cuda.fit_t.launches, mle_cuda.fit_boundary_t.launches
+    out = fused.identify_cut_fit(
+        torch.zeros((4, 64, 64), dtype=torch.uint16, device=dev), 1000.0,
+        0.0, 1.0, box=7, eps=EPS, max_it=MAX_IT,
+    )
+    assert out[0].numel() == 0 and out[4].shape == (6, 0)
+    assert (mle_cuda.fit_t.launches,
+            mle_cuda.fit_boundary_t.launches) == before
+
+
+def test_slice_on_the_card_matches_the_cpu(dev):
+    movie = make_bench_movie(32, 64, 40, 0.5, np.random.default_rng(7))
+    cam = {"Baseline": 0, "Sensitivity": 1, "Gain": 1, "Pixelsize": 130}
+    par = {"Min. Net Gradient": 4000, "Box Size": 7}
+    g = localize.localize(movie, dict(cam), par, fitting_method="gaussmle",
+                          device=dev)
+    c = localize.localize(movie, dict(cam), par, fitting_method="gaussmle",
+                          device="cpu")
+    np.testing.assert_array_equal(g["frame"], c["frame"])
+    same = (g["iterations"] == c["iterations"]) & (c["iterations"] < MAX_IT)
+    assert same.mean() >= 0.95
+    for name in ("x", "y"):
+        np.testing.assert_allclose(g[name][same], c[name][same], atol=1e-3)

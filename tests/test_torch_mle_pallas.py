@@ -1,0 +1,63 @@
+"""The port's plain MLE fit held against the JAX package's Pallas fit
+kernels K1 (fit_pallas_t) and K2 (fit_pallas_boundary_t), run in the
+Pallas interpreter on the CPU, on bench.make_spots(1024).
+
+Tolerances: tests/torch_parity.py.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bench import make_spots
+from picasso_tpu.ops import mle_pallas
+from picasso_torch.ops import mle as tmle
+from picasso_torch.ops import mle_cuda
+from torch_parity import compare_fits
+
+EPS, MAX_IT = 1e-3, 100
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _np(out):
+    return [np.asarray(a) for a in out]
+
+
+@pytest.fixture(scope="module")
+def spots_t():
+    return np.ascontiguousarray(make_spots(1024).transpose(1, 2, 0))
+
+
+@pytest.fixture(scope="module")
+def plain_fit(spots_t):
+    return _np(tmle._fit_core(torch.from_numpy(spots_t), EPS, MAX_IT))
+
+
+def test_plain_fit_matches_pallas_tile_kernel(spots_t, plain_fit):
+    """K1 in the Pallas interpreter (bit-identical to _fit_core)."""
+    p = _np(mle_pallas.fit_pallas_t(
+        jnp.asarray(spots_t), EPS, MAX_IT, interpret=True
+    ))
+    compare_fits(p, plain_fit, MAX_IT)
+
+
+def test_plain_schedule_matches_pallas_boundary_kernels(spots_t, plain_fit):
+    """K2 (phase kernels 16/50/100) in the Pallas interpreter against the
+    port's K2 schedule over the plain phases."""
+    p = _np(mle_pallas.fit_pallas_boundary_t(
+        jnp.asarray(spots_t), EPS, MAX_IT, interpret=True
+    ))
+    t = _np(mle_cuda.fit_boundary_t(torch.from_numpy(spots_t), EPS, MAX_IT))
+    compare_fits(p, t, MAX_IT)
+    for a, b in zip(t, plain_fit):
+        np.testing.assert_array_equal(a, b)

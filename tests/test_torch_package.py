@@ -1,0 +1,102 @@
+"""picasso_torch as a package: it never imports JAX or picasso_tpu, its
+kernels build only from source with nvcc, and its kernel wrappers never
+fall back to the plain versions for a tensor that is not on the CPU."""
+
+from __future__ import annotations
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import picasso_torch
+from picasso_torch import _build
+from picasso_torch.ops import identify_cuda, mle_cuda
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages(
+            picasso_torch.__path__, "picasso_torch."
+        )
+    )
+
+
+def test_every_module_imports_without_jax():
+    mods = _modules()
+    assert "picasso_torch.ops.mle_cuda" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
+        "('jax.', 'jaxlib', 'picasso_tpu'))]\n"
+        "assert not bad, bad\n"
+        "assert 'triton' not in sys.modules\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_import_touches_no_cuda():
+    code = (
+        "import torch, picasso_torch, picasso_torch.ops.fused\n"
+        "assert not torch.cuda.is_initialized()\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "CUDA_ROOT", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert not any((tmp_path / "build").rglob(_build.LIB_NAME))
+
+
+def test_sources_hash_and_cover_every_entry():
+    names = [p.name for p in _build.sources()]
+    assert {"mle_fit.cu", "identify.cu"} <= set(names)
+    text = "".join(p.read_text() for p in _build.sources())
+    for entry in _build.SIGNATURES:
+        assert f'extern "C" int {entry}(' in text
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert len(_build.source_hash()) == 16
+
+
+@pytest.mark.parametrize("wrapper", ["fit_t", "fit_boundary_t", "identify"])
+def test_wrappers_do_not_fall_back_off_the_cpu(wrapper):
+    """A tensor on any device but the CPU goes to the kernel or raises;
+    the plain version is never taken for it."""
+    if wrapper == "identify":
+        frames = torch.empty((2, 32, 32), dtype=torch.uint16, device="meta")
+        call = lambda: identify_cuda.identify_tiles(frames, 100.0, 7)  # noqa: E731
+    else:
+        spots = torch.empty((7, 7, 16), device="meta")
+        fn = getattr(mle_cuda, wrapper)
+        call = lambda: fn(spots, 1e-3, 10)  # noqa: E731
+    with pytest.raises(ValueError, match="meta"):
+        call()
+
+
+def test_cpu_tensors_take_the_plain_versions_without_counting():
+    before = (mle_cuda.fit_t.launches, mle_cuda.fit_boundary_t.launches,
+              identify_cuda.identify_tiles.launches)
+    spots = torch.rand((7, 7, 8)) * 100 + 10
+    mle_cuda.fit_boundary_t(spots, 1e-3, 20)
+    identify_cuda.identify_tiles(torch.zeros((1, 16, 16)), 100.0, 7)
+    after = (mle_cuda.fit_t.launches, mle_cuda.fit_boundary_t.launches,
+             identify_cuda.identify_tiles.launches)
+    assert before == after
