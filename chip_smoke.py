@@ -5,27 +5,42 @@
 
 Phases, each of which raises on failure (exit code != 0):
 1. environment: torch/CUDA versions, the card's name and power limit;
-2. build: the CUDA kernels from picasso_torch/csrc (nvcc, sm_90a);
+2. build: the CUDA kernels from picasso_torch/csrc (one nvcc per source,
+   sm_90a), with ptxas' registers and spills per kernel instance;
 3. kernels against their plain PyTorch versions on the card, at the
-   main path's shapes: the MLE fit kernel in its single-pass mode (K1)
-   and in the phase schedule (K2) on 131,072 spots of bench.make_spots,
-   K2 == K1 bit for bit, the identify kernel (K4) on one 256-frame
-   256x256 u16 chunk; times are medians of 5 CUDA-event runs;
-4. the slice: picasso_torch.localize.localize (MLE sigmaxy, box 7) on a
-   2048-frame 256x256 u16 movie of bench.make_bench_movie, with the
-   launch count of every kernel on its path (K4, K2) checked; then its
-   first chunk re-run through the plain versions on the card and held
-   to the tolerances of tests/torch_parity.py, K1 against K2 on that
-   chunk's ROIs, and the time of each stage of one chunk.
-The line before the last is the JSON record of the kernels on the main
-path; the last line is {"ok": true, "device": {...}}. Without a CUDA
-device it exits non-zero and prints no result.
+   main paths' shapes, on 131,072 spots of tests/torch_data.make_spots
+   (box 7): the MLE fit kernel in its single-pass mode (K1) and in the
+   phase schedule (K2), for the methods sigmaxy and sigma, K2 == K1 bit
+   for bit; the LM fit kernel in its single-pass mode (K3) and in the
+   phase schedule (K6), K6 == K3 bit for bit; the identify kernel (K4)
+   on one 256-frame 256x256 u16 chunk; times are medians of 5 CUDA-event
+   runs;
+4. the MLE slice: picasso_torch.localize.localize (MLE sigmaxy, box 7)
+   on a 2048-frame 256x256 u16 movie of tests/torch_data.make_bench_movie
+   with the launch count of every kernel on its path (K4, K2) checked;
+   then its first chunk re-run through the plain versions on the card
+   and held to the tolerances of tests/torch_parity.py, K1 against K2 on
+   that chunk's ROIs, and the time of each stage of one chunk;
+5. the MLE slice with mle_method="sigma" on the same movie: K4 and K2
+   launched on it (K1, K3, K6 not), sx == sy in every loc, its first
+   chunk equal to a re-run and held against the plain sigma fit;
+6. the LQ slice: localize(fitting_method="gausslq") on the same movie,
+   with K4 and K3 launched on it (K6 not); its first chunk re-run
+   through the plain versions on the card and held with
+   compare_lq_fits; K3 against K6 on that chunk's ROIs (the main path
+   takes K3, the faster, see ops/fused.py); the chunk's stages.
+The line before the last is the JSON record of every kernel (bound_ms:
+the larger of the FLOPs over 67 TFLOP/s f32 and the bytes read once and
+written once over 3.35 TB/s, NVIDIA's H100 SXM peaks); the last line is
+{"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
+and prints no result.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -36,10 +51,13 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BOX = 7
 EPS = 1e-3
+FTOL = 1e-6
 MAX_IT = 100
 MIN_NG = 4000
 N_SPOTS = 131072
 CHUNK = 256  # frames per chunk that localize_fused forms at 256x256
+PEAK_F32 = 67e12  # FLOP/s, f32 outside the tensor cores (H100 SXM)
+PEAK_BYTES = 3.35e12  # B/s, HBM3 (H100 SXM)
 
 
 def _median_ms(fn, reps: int = 5) -> float:
@@ -59,6 +77,76 @@ def _median_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def mle_flops_per_spot_iter(box: int) -> float:
+    """FLOPs of one Newton step of one spot (the analytic count of
+    bench.py:136, exp/erfc at 8 FLOPs each)."""
+    s = box
+    return float(s * s * 29 + 17 * 2 * s + 2 * (s + 1) * 2 * 8
+                 + 2 * s * 24 + 90)
+
+
+def lq_flops_per_spot_iter(box: int) -> float:
+    """FLOPs of one LM iteration of one spot as csrc/lq_fit.cu computes
+    it, exp at 8 FLOPs: the J^T r pass (10 a pixel, 12 a row), the trial
+    cost (5 a pixel, 2 a row), the axis factors (19 a point with the
+    derivatives, 13 without, for both axes), the 20 1D dot products of
+    J^T J (2 a point) and its 21 scaled entries, the damped 6x6 Cholesky
+    solve and the update (~295 in all). (bench.py:154 counts 27 FMAs a
+    pixel for a dense J^T J assembly; the separable form needs none.)"""
+    s = box
+    return float(15 * s * s + 118 * s + 295)
+
+
+def _bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time (ms) the card could take, and what sets it."""
+    t_ops = flops / PEAK_F32 * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _fit_bound(n: int, iters_sum: float, per_iter: float, out_bytes: int):
+    """Bound of a fit of n box-7 spots: the iterations these spots need
+    plus one for the initialiser and the final pass, each spot's ROI read
+    once and its results written once."""
+    return _bound((iters_sum + n) * per_iter(BOX),
+                  n * (BOX * BOX * 4 + out_bytes))
+
+
+def _lq_iters(spots_t, max_it: int):
+    """LM iterations each spot takes in the plain version (the LQ
+    kernels return theta only)."""
+    import torch
+
+    from picasso_torch.ops import lq
+
+    carry = lq._lm_init(spots_t)
+    iters = torch.zeros(spots_t.shape[-1], device=spots_t.device)
+    for _ in range(max_it):
+        iters += (carry[3][0] < 0.5).float()
+        carry = lq._lm_rounds(spots_t, *carry, 1, FTOL)
+    return iters.cpu().numpy()
+
+
+def _ptxas_table(log: str) -> list[str]:
+    """One line per compiled kernel instance: template arguments,
+    registers and spill bytes, from nvcc's -Xptxas -v report."""
+    rows, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"entry function '.*?((?:identify|lq_fit|mle_fit)"
+                      r"_kernel)I(\w+?)EEv", line)
+        if m:
+            name, spill = f"{m.group(1)}<{m.group(2)}>", ""
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = f"spill {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append(f"{name}: {m.group(1)} registers, {spill}")
+            name = None
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -68,12 +156,15 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from bench import make_bench_movie, make_spots
-    from picasso_torch import _build, gaussmle, localize
-    from picasso_torch.ops import fused, identify, identify_cuda, mle, mle_cuda
-    from torch_parity import compare_fits, compare_hits
+    from picasso_torch import _build, gausslq, gaussmle, localize
+    from picasso_torch.ops import (
+        fused, identify, identify_cuda, lq, lq_cuda, mle, mle_cuda,
+    )
+    from torch_data import make_bench_movie, make_spots
+    from torch_parity import compare_fits, compare_hits, compare_lq_fits
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     # 1. environment -----------------------------------------------------
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -89,9 +180,8 @@ def main() -> int:
     # 2. build -----------------------------------------------------------
     lib_path, build_s = _build.build()
     print(f"build: {build_s:.1f} s -> {lib_path}")
-    for line in (lib_path.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    for row in _ptxas_table((lib_path.parent / "build.log").read_text()):
+        print("  ptxas:", row)
     _build.library()
 
     # 3. kernels against their plain versions ----------------------------
@@ -99,25 +189,59 @@ def main() -> int:
     spots_t = torch.from_numpy(
         np.ascontiguousarray(spots.transpose(1, 2, 0))
     ).to(dev)
+    spots_np = spots_t.cpu().numpy()
     as_np = lambda out: [a.cpu().numpy() for a in out]  # noqa: E731
-    plain = as_np(mle._fit_core(spots_t, EPS, MAX_IT))
-    k1 = as_np(mle_cuda.fit_t(spots_t, EPS, MAX_IT))
+    ms, stats, bounds = {}, {}, {}
+    for method in ("sigmaxy", "sigma"):
+        tag = "" if method == "sigmaxy" else " sigma"
+        plain = as_np(mle._fit_core(spots_t, EPS, MAX_IT, method))
+        k1 = as_np(mle_cuda.fit_t(spots_t, EPS, MAX_IT, method))
+        torch.cuda.synchronize()
+        stats["K1" + tag] = compare_fits(plain, k1, MAX_IT, f"K1{tag} vs plain")
+        k2 = as_np(mle_cuda.fit_boundary_t(spots_t, EPS, MAX_IT, method))
+        for a, b, name in zip(k1, k2, ("theta", "crlb", "ll", "iters")):
+            if not np.array_equal(a, b, equal_nan=True):
+                raise AssertionError(f"K2{tag} != K1{tag} bit for bit ({name})")
+        stats["K2" + tag] = compare_fits(plain, k2, MAX_IT, f"K2{tag} vs plain")
+        print(f"K1{tag} vs plain:", json.dumps(stats["K1" + tag]))
+        print(f"K2{tag} vs plain:", json.dumps(stats["K2" + tag]),
+              f"| K2{tag} == K1{tag} bit for bit")
+        ms["plain_fit" + tag] = _median_ms(
+            lambda: mle._fit_core(spots_t, EPS, MAX_IT, method))
+        ms["K1" + tag] = _median_ms(
+            lambda: mle_cuda.fit_t(spots_t, EPS, MAX_IT, method))
+        ms["K2" + tag] = _median_ms(
+            lambda: mle_cuda.fit_boundary_t(spots_t, EPS, MAX_IT, method))
+        bounds["K1" + tag] = bounds["K2" + tag] = _fit_bound(
+            N_SPOTS, float(k1[3].sum()), mle_flops_per_spot_iter, 56)
+        print(f"K1{tag}/K2{tag} fit {N_SPOTS} spots (iterations mean "
+              f"{k1[3].mean():.2f}): K1 {ms['K1' + tag]:.3f} ms, K2 "
+              f"{ms['K2' + tag]:.3f} ms, plain {ms['plain_fit' + tag]:.3f} "
+              f"ms, bound {bounds['K1' + tag][0]:.4f} ms "
+              f"({bounds['K1' + tag][1]})")
+
+    plain_lq = lq._lm_core(spots_t, MAX_IT, FTOL).cpu().numpy()
+    k3 = lq_cuda.fit_t(spots_t, MAX_IT, FTOL).cpu().numpy()
     torch.cuda.synchronize()
-    k1_stats = compare_fits(plain, k1, MAX_IT, "K1 vs plain")
-    k2 = as_np(mle_cuda.fit_boundary_t(spots_t, EPS, MAX_IT))
-    for a, b, name in zip(k1, k2, ("theta", "crlb", "ll", "iters")):
-        if not np.array_equal(a, b, equal_nan=True):
-            raise AssertionError(f"K2 != K1 bit for bit ({name})")
-    k2_stats = compare_fits(plain, k2, MAX_IT, "K2 vs plain")
-    print("K1 vs plain:", json.dumps(k1_stats))
-    print("K2 vs plain:", json.dumps(k2_stats), "| K2 == K1 bit for bit")
-    ms = {
-        "plain_fit": _median_ms(lambda: mle._fit_core(spots_t, EPS, MAX_IT)),
-        "K1": _median_ms(lambda: mle_cuda.fit_t(spots_t, EPS, MAX_IT)),
-        "K2": _median_ms(
-            lambda: mle_cuda.fit_boundary_t(spots_t, EPS, MAX_IT)
-        ),
-    }
+    stats["K3"] = compare_lq_fits(plain_lq, k3, spots_np, "K3 vs plain")
+    k6 = lq_cuda.fit_boundary_t(spots_t, MAX_IT, FTOL).cpu().numpy()
+    if not np.array_equal(k3, k6, equal_nan=True):
+        raise AssertionError("K6 != K3 bit for bit")
+    stats["K6"] = compare_lq_fits(plain_lq, k6, spots_np, "K6 vs plain")
+    print("K3 vs plain:", json.dumps(stats["K3"]))
+    print("K6 vs plain:", json.dumps(stats["K6"]), "| K6 == K3 bit for bit")
+    lq_it = _lq_iters(spots_t, MAX_IT)
+    ms["plain_lq"] = _median_ms(lambda: lq._lm_core(spots_t, MAX_IT, FTOL))
+    ms["K3"] = _median_ms(lambda: lq_cuda.fit_t(spots_t, MAX_IT, FTOL))
+    ms["K6"] = _median_ms(lambda: lq_cuda.fit_boundary_t(spots_t, MAX_IT,
+                                                          FTOL))
+    bounds["K3"] = bounds["K6"] = _fit_bound(
+        N_SPOTS, float(lq_it.sum()), lq_flops_per_spot_iter, 24)
+    print(f"K3/K6 fit {N_SPOTS} spots (LM iterations p50 "
+          f"{np.percentile(lq_it, 50):.0f} p90 {np.percentile(lq_it, 90):.0f}"
+          f" max {lq_it.max():.0f}): K3 {ms['K3']:.3f} ms, K6 "
+          f"{ms['K6']:.3f} ms, plain {ms['plain_lq']:.3f} ms, bound "
+          f"{bounds['K3'][0]:.4f} ms ({bounds['K3'][1]})")
 
     t0 = time.perf_counter()
     movie = make_bench_movie(2048, 256, 1200, 0.5, np.random.default_rng(13))
@@ -142,36 +266,51 @@ def main() -> int:
     ms["K4"] = _median_ms(
         lambda: identify_cuda.identify_tiles(chunk, MIN_NG, BOX)
     )
-    print(f"K1 fit {N_SPOTS} spots: kernel {ms['K1']:.3f} ms, "
-          f"plain {ms['plain_fit']:.3f} ms")
-    print(f"K2 fit {N_SPOTS} spots: kernel {ms['K2']:.3f} ms, "
-          f"plain {ms['plain_fit']:.3f} ms")
+    # per pixel: box^2-1 compares, 2 (box^2-1) FMAs of the net gradient,
+    # 2 gradient differences; u16 in, (mask u8, loc i32, ng f32) per tile
+    px = chunk.numel()
+    bounds["K4"] = _bound(px * ((BOX * BOX - 1) * 5 + 2),
+                          px * 2 + tiles_k[0].size * 9)
     print(f"K4 identify ({CHUNK}, 256, 256) u16: kernel {ms['K4']:.3f} ms, "
-          f"plain {ms['plain_identify']:.3f} ms")
+          f"plain {ms['plain_identify']:.3f} ms, bound "
+          f"{bounds['K4'][0]:.4f} ms ({bounds['K4'][1]})")
 
-    # 4. the slice -------------------------------------------------------
-    counters = (mle_cuda.fit_t, mle_cuda.fit_boundary_t,
-                identify_cuda.identify_tiles)
-    for c in counters:
-        c.launches = 0
     camera = {"Baseline": 0, "Sensitivity": 1, "Gain": 1, "Pixelsize": 130}
     params = {"Min. Net Gradient": MIN_NG, "Box Size": BOX}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    locs = localize.localize(movie, camera, params,
-                             fitting_method="gaussmle", device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {c.__name__: c.launches for c in counters}
-    print(f"slice: {len(locs)} locs from {len(movie)} frames in {wall:.3f} s "
-          f"= {len(movie) / wall:.1f} frames/s, {len(locs) / wall:.0f} "
-          f"spots/s; launches {launches}")
+    counters = {"K1": mle_cuda.fit_t, "K2": mle_cuda.fit_boundary_t,
+                "K3": lq_cuda.fit_t, "K6": lq_cuda.fit_boundary_t,
+                "K4": identify_cuda.identify_tiles}
+
+    def run_slice(fitting_method: str, **kw):
+        """One localize call on the card with every count set to 0 just
+        before it; returns (locs, wall seconds, launches)."""
+        what = " ".join([fitting_method, *map(str, kw.values())])
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        locs = localize.localize(movie, dict(camera), params,
+                                 fitting_method=fitting_method, device="cuda",
+                                 **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        print(f"{what} slice: {len(locs)} locs from {len(movie)} "
+              f"frames in {wall:.3f} s = {len(movie) / wall:.1f} frames/s, "
+              f"{len(locs) / wall:.0f} spots/s; launches {launches}")
+        # diverged LQ fits may leave the box; >= 99% stay finite
+        for name in ("x", "y", "photons", "sx", "sy", "bg"):
+            if np.isfinite(locs[name]).mean() < 0.99:
+                raise AssertionError(f"{what} slice: non-finite {name}")
+        return locs, wall, launches
+
+    # 4. the MLE slice ---------------------------------------------------
+    locs, wall, launches_mle = run_slice("gaussmle")
     # the main path fits through the phase schedule (K2), as the JAX
     # package does; the single-pass mode (K1) is not on it
-    on_path = ("fit_boundary_t", "identify_tiles")
-    if min(launches[k] for k in on_path) <= 0 or len(locs) == 0:
-        raise AssertionError(f"slice did not run through every kernel: "
-                             f"{launches}, {len(locs)} locs")
+    if min(launches_mle["K2"], launches_mle["K4"]) <= 0 or len(locs) == 0:
+        raise AssertionError(f"MLE slice did not run through every kernel: "
+                             f"{launches_mle}, {len(locs)} locs")
     for name in ("x", "y", "photons", "sx", "sy", "bg"):
         if not np.isfinite(locs[name]).all():
             raise AssertionError(f"slice: non-finite {name}")
@@ -183,7 +322,7 @@ def main() -> int:
     t1 = time.perf_counter()
     gaussmle.locs_from_fits(ids, *fits, BOX)
     t2 = time.perf_counter()
-    print(f"slice split: localize_fused {t1 - t0:.3f} s, locs_from_fits "
+    print(f"MLE slice split: localize_fused {t1 - t0:.3f} s, locs_from_fits "
           f"{t2 - t1:.3f} s")
 
     # the first chunk again: kernels (same calls as the slice) and plain
@@ -198,8 +337,9 @@ def main() -> int:
         *identify.identify_tiles_plain(chunk, MIN_NG, BOX), BOX
     )
     roi = fused.cut_rois_t(chunk, f, y, x, BOX).to(torch.float32)
+    dense = roi.contiguous()
     pl = [a.cpu().numpy() for a in
-          (f, y, x, ng, *mle._fit_core(roi.contiguous(), EPS, MAX_IT))]
+          (f, y, x, ng, *mle._fit_core(dense, EPS, MAX_IT))]
     pairs = compare_hits(pl[:4], ker[:4], MIN_NG, "slice chunk 0 hits")
     pi, ki = pairs[:, 0], pairs[:, 1]
     chunk_stats = compare_fits(
@@ -207,12 +347,12 @@ def main() -> int:
         [ker[4][:, ki], ker[5][:, ki], ker[6][ki], ker[7][ki]],
         MAX_IT, "slice chunk 0 fits",
     )
-    print(f"slice chunk 0 vs plain: {len(pl[0])} plain hits, {len(ker[0])} "
-          f"kernel hits, {len(pairs)} matched;", json.dumps(chunk_stats))
+    print(f"MLE slice chunk 0 vs plain: {len(pl[0])} plain hits, "
+          f"{len(ker[0])} kernel hits, {len(pairs)} matched;",
+          json.dumps(chunk_stats))
 
     # K1 against K2 on the chunk's real ROIs, where some spots run to
     # max_it: same results, and the time the phase schedule saves
-    dense = roi.contiguous()
     k1d = as_np(mle_cuda.fit_t(dense, EPS, MAX_IT))
     k2d = as_np(mle_cuda.fit_boundary_t(dense, EPS, MAX_IT))
     for a, b, name in zip(k1d, k2d, ("theta", "crlb", "ll", "iters")):
@@ -230,6 +370,25 @@ def main() -> int:
           f"{np.mean(it == MAX_IT):.4f} at max_it): K2 == K1 bit for bit; "
           f"ms in turn K1 {dense_ms[0]:.3f}, K2 {dense_ms[1]:.3f}, "
           f"K2 {dense_ms[2]:.3f}, K1 {dense_ms[3]:.3f}")
+    # the same for the sigma method (mle_method="sigma" of the MLE path)
+    k1s = as_np(mle_cuda.fit_t(dense, EPS, MAX_IT, "sigma"))
+    k2s = as_np(mle_cuda.fit_boundary_t(dense, EPS, MAX_IT, "sigma"))
+    for a, b, name in zip(k1s, k2s, ("theta", "crlb", "ll", "iters")):
+        if not np.array_equal(a, b, equal_nan=True):
+            raise AssertionError(f"chunk 0: K2 sigma != K1 sigma ({name})")
+    sig_ms = [
+        _median_ms(lambda: mle_cuda.fit_t(dense, EPS, MAX_IT, "sigma")),
+        _median_ms(lambda: mle_cuda.fit_boundary_t(dense, EPS, MAX_IT,
+                                                   "sigma")),
+        _median_ms(lambda: mle_cuda.fit_boundary_t(dense, EPS, MAX_IT,
+                                                   "sigma")),
+        _median_ms(lambda: mle_cuda.fit_t(dense, EPS, MAX_IT, "sigma")),
+    ]
+    it = k1s[3]
+    print(f"chunk 0 ROIs sigma (iterations p50 {np.percentile(it, 50):.0f} "
+          f"p90 {np.percentile(it, 90):.0f}, {np.mean(it == MAX_IT):.4f} at "
+          f"max_it): K2 == K1 bit for bit; ms in turn K1 {sig_ms[0]:.3f}, "
+          f"K2 {sig_ms[1]:.3f}, K2 {sig_ms[2]:.3f}, K1 {sig_ms[3]:.3f}")
 
     # the stages of one chunk on the card, each alone
     fk, yk, xk, _ = identify.compact(
@@ -247,30 +406,141 @@ def main() -> int:
             chunk, MIN_NG, 0.0, 1.0, box=BOX, eps=EPS, max_it=MAX_IT,
         ).cpu(),
     }
-    print("chunk stages (ms, median of 5):", json.dumps(
+    print("MLE chunk stages (ms, median of 5):", json.dumps(
         {k: round(_median_ms(fn), 4) for k, fn in stages.items()}))
 
-    # K1 is built and checked in phase 3 but is not on the main path
-    print("off the main path:", json.dumps({
-        "name": "K1 mle_fit (single pass)", "route": "cuda",
-        "source": "picasso_torch/csrc/mle_fit.cu",
-        "replaces": "picasso_tpu/ops/mle_pallas.py:36",
-        "launches": launches["fit_t"],
-        "max_abs_err": k1_stats["xy_max_all"],
-        "ms": ms["K1"], "plain_ms": ms["plain_fit"]}))
-    kernels = [
-        {"name": "K2 mle_fit (phases 16/50/100)", "route": "cuda",
-         "source": "picasso_torch/csrc/mle_fit.cu",
-         "replaces": "picasso_tpu/ops/mle_pallas.py:256",
-         "launches": launches["fit_boundary_t"],
-         "max_abs_err": k2_stats["xy_max_all"],
-         "ms": ms["K2"], "plain_ms": ms["plain_fit"]},
-        {"name": "K4 identify_tiles", "route": "cuda",
-         "source": "picasso_torch/csrc/identify.cu",
-         "replaces": "picasso_tpu/ops/identify_pallas.py:58",
-         "launches": launches["identify_tiles"], "max_abs_err": k4_err,
-         "ms": ms["K4"], "plain_ms": ms["plain_identify"]},
+    # 5. the MLE slice with mle_method="sigma" ---------------------------
+    locs_sig, _, launches_sig = run_slice("gaussmle", mle_method="sigma")
+    # the same route as sigmaxy: K4, then K2 in its sigma mode
+    if (min(launches_sig["K2"], launches_sig["K4"]) <= 0 or not len(locs_sig)
+            or launches_sig["K1"] or launches_sig["K3"] or launches_sig["K6"]):
+        raise AssertionError(f"sigma slice did not run through K4 and K2 "
+                             f"only: {launches_sig}, {len(locs_sig)} locs")
+    if not np.array_equal(locs_sig["sx"], locs_sig["sy"]):
+        raise AssertionError("sigma slice: sx != sy, not the sigma fit")
+    ker_s = [a.cpu().numpy() for a in fused.identify_cut_fit(
+        chunk, MIN_NG, 0.0, 1.0, box=BOX, eps=EPS, max_it=MAX_IT,
+        method="sigma")]
+    first = locs_sig[locs_sig["frame"] < CHUNK]
+    if len(first) != ker_s[0].shape[0] or not np.array_equal(
+        first["x"], (ker_s[4][0] + ker_s[2] - BOX // 2).astype(np.float32)
+    ):
+        raise AssertionError("sigma slice's first chunk differs from a re-run")
+    pls = [a.cpu().numpy() for a in mle._fit_core(dense, EPS, MAX_IT, "sigma")]
+    pairs = compare_hits(pl[:4], ker_s[:4], MIN_NG, "sigma slice chunk 0 hits")
+    pi, ki = pairs[:, 0], pairs[:, 1]
+    sig_chunk_stats = compare_fits(
+        [pls[0][:, pi], pls[1][:, pi], pls[2][pi], pls[3][pi]],
+        [ker_s[4][:, ki], ker_s[5][:, ki], ker_s[6][ki], ker_s[7][ki]],
+        MAX_IT, "sigma slice chunk 0 fits",
+    )
+    print(f"sigma slice chunk 0 vs plain: {len(pairs)} matched hits;",
+          json.dumps(sig_chunk_stats))
+
+    # 6. the LQ slice ----------------------------------------------------
+    locs_lq, wall_lq, launches_lq = run_slice("gausslq")
+    # the LQ route is K3 (ops/fused.py); K6 is off the main path
+    if (min(launches_lq["K3"], launches_lq["K4"]) <= 0 or launches_lq["K6"]
+            or not len(locs_lq)):
+        raise AssertionError(f"LQ slice did not run through K4 and K3 only: "
+                             f"{launches_lq}, {len(locs_lq)} locs")
+    t0 = time.perf_counter()
+    ids, fits = fused.localize_fused(movie, MIN_NG, BOX, camera,
+                                     fitting_method="gausslq", device="cuda")
+    t1 = time.perf_counter()
+    gausslq.locs_from_fits(ids, fits[0], BOX, False)
+    t2 = time.perf_counter()
+    print(f"LQ slice split: localize_fused {t1 - t0:.3f} s, locs_from_fits "
+          f"{t2 - t1:.3f} s")
+
+    ker = [a.cpu().numpy() for a in fused.identify_cut_fit(
+        chunk, MIN_NG, 0.0, 1.0, box=BOX, eps=EPS, max_it=MAX_IT,
+        method="lq")]
+    first = locs_lq[locs_lq["frame"] < CHUNK]
+    if len(first) != ker[0].shape[0] or not np.array_equal(
+        first["x"], (ker[4][0] + ker[2]).astype(np.float32)
+    ):
+        raise AssertionError("LQ slice's first chunk differs from a re-run")
+    plain_chunk = lq._lm_core(dense, MAX_IT, FTOL).cpu().numpy()
+    pairs = compare_hits(pl[:4], ker[:4], MIN_NG, "LQ slice chunk 0 hits")
+    pi, ki = pairs[:, 0], pairs[:, 1]
+    dense_np = dense.cpu().numpy()
+    lq_chunk_stats = compare_lq_fits(plain_chunk[:, pi], ker[4][:, ki],
+                                     dense_np[:, :, pi], "LQ slice chunk 0")
+    print(f"LQ slice chunk 0 vs plain: {len(pairs)} matched hits;",
+          json.dumps(lq_chunk_stats))
+
+    # K3 against K6 on the chunk's real ROIs, in turns
+    k3d = lq_cuda.fit_t(dense, MAX_IT, FTOL).cpu().numpy()
+    k6d = lq_cuda.fit_boundary_t(dense, MAX_IT, FTOL).cpu().numpy()
+    if not np.array_equal(k3d, k6d, equal_nan=True):
+        raise AssertionError("chunk 0: K6 != K3 bit for bit")
+    lq_dense_ms = [
+        _median_ms(lambda: lq_cuda.fit_t(dense, MAX_IT, FTOL)),
+        _median_ms(lambda: lq_cuda.fit_boundary_t(dense, MAX_IT, FTOL)),
+        _median_ms(lambda: lq_cuda.fit_boundary_t(dense, MAX_IT, FTOL)),
+        _median_ms(lambda: lq_cuda.fit_t(dense, MAX_IT, FTOL)),
     ]
+    it = _lq_iters(dense, MAX_IT)
+    chunk_bound = _fit_bound(dense.shape[-1], float(it.sum()),
+                             lq_flops_per_spot_iter, 24)
+    print(f"chunk 0 ROIs ({dense.shape[-1]} spots, LM iterations p50 "
+          f"{np.percentile(it, 50):.0f} p90 {np.percentile(it, 90):.0f} p99 "
+          f"{np.percentile(it, 99):.0f}, {np.mean(it == MAX_IT):.4f} at "
+          f"max_it, mean {it.mean():.2f}): K6 == K3 bit for bit; ms in turn "
+          f"K3 {lq_dense_ms[0]:.3f}, K6 {lq_dense_ms[1]:.3f}, K6 "
+          f"{lq_dense_ms[2]:.3f}, K3 {lq_dense_ms[3]:.3f}; bound "
+          f"{chunk_bound[0]:.4f} ms ({chunk_bound[1]})")
+    stages = {
+        "K4 identify": lambda: identify_cuda.identify_tiles(
+            chunk, MIN_NG, BOX),
+        "compact": lambda: identify.compact(*tiles, BOX),
+        "cut+photons": lambda: fused.cut_rois_t(
+            chunk, fk, yk, xk, BOX).to(torch.float32).contiguous(),
+        "K3 fit": lambda: lq_cuda.fit_t(dense, MAX_IT, FTOL),
+        "packed chunk + readback": lambda: fused.identify_cut_fit_packed(
+            chunk, MIN_NG, 0.0, 1.0, box=BOX, eps=EPS, max_it=MAX_IT,
+            method="lq").cpu(),
+    }
+    print("LQ chunk stages (ms, median of 5):", json.dumps(
+        {k: round(_median_ms(fn), 4) for k, fn in stages.items()}))
+
+    # the kernels line -----------------------------------------------------
+    def entry(key, name, source, replaces, launches, path, err, plain):
+        b_ms, b_by = bounds[key]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches, "path": path,
+                "max_abs_err": err, "ms": ms[key], "plain_ms": ms[plain],
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    mle_src, lq_src = ("picasso_torch/csrc/mle_fit.cu",
+                       "picasso_torch/csrc/lq_fit.cu")
+    kernels = [
+        entry("K2", "K2 mle_fit sigmaxy (phases 16/50/100)", mle_src,
+              "picasso_tpu/ops/mle_pallas.py:256", launches_mle["K2"],
+              "mle", stats["K2"]["xy_max_all"], "plain_fit"),
+        entry("K2 sigma", "K2 mle_fit sigma (phases 16/50/100)", mle_src,
+              "picasso_tpu/ops/mle_pallas.py:256", launches_sig["K2"],
+              "mle-sigma", stats["K2 sigma"]["xy_max_all"],
+              "plain_fit sigma"),
+        entry("K4", "K4 identify_tiles", "picasso_torch/csrc/identify.cu",
+              "picasso_tpu/ops/identify_pallas.py:58",
+              launches_mle["K4"] + launches_sig["K4"] + launches_lq["K4"],
+              "mle+mle-sigma+lq", k4_err, "plain_identify"),
+        entry("K3", "K3 lq_fit (single pass)", lq_src,
+              "picasso_tpu/ops/lq_pallas.py:25", launches_lq["K3"], "lq",
+              stats["K3"]["xy_p100"], "plain_lq"),
+        entry("K6", "K6 lq_fit (phases 16/50/100)", lq_src,
+              "picasso_tpu/ops/lq_pallas.py:93", launches_lq["K6"], "off",
+              stats["K6"]["xy_p100"], "plain_lq"),
+        entry("K1", "K1 mle_fit sigmaxy (single pass)", mle_src,
+              "picasso_tpu/ops/mle_pallas.py:36", launches_mle["K1"], "off",
+              stats["K1"]["xy_max_all"], "plain_fit"),
+        entry("K1 sigma", "K1 mle_fit sigma (single pass)", mle_src,
+              "picasso_tpu/ops/mle_pallas.py:36", launches_sig["K1"], "off",
+              stats["K1 sigma"]["xy_max_all"], "plain_fit sigma"),
+    ]
+    print(f"smoke: {time.perf_counter() - t_start:.1f} s after the start")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

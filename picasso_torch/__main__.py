@@ -2,7 +2,8 @@
 
 Counterpart of picasso_tpu/__main__.py for the verbs ported so far:
 
-    python -m picasso_torch localize movie.raw -d 0 [--device cuda|cpu]
+    python -m picasso_torch localize movie.raw -d 0 [-a mle|lq|lq-gpu]
+        [--device cuda|cpu]
 
 ``localize`` takes the JAX CLI's flags and defaults plus ``--device``
 (default ``cuda``; without a card it raises rather than run on the CPU).
@@ -15,6 +16,9 @@ import contextlib
 import glob
 import os
 
+# -a choices to localize's fitting_method (picasso_tpu/__main__.py:69-77);
+# avg and the -3d methods are not ported yet
+_METHOD_MAP = {"mle": "gaussmle", "lq": "gausslq", "lq-gpu": "gausslq-gpu"}
 _UNDRIFT_TODO = (
     "RCC undrift (-d/--drift > 0) is not ported yet (ROADMAP queue 1, "
     "next: RCC undrift for the CLI default -d 1000); pass -d 0"
@@ -24,10 +28,10 @@ _UNDRIFT_TODO = (
 def _localize(args, parser):
     if args.drift > 0:
         parser.error(_UNDRIFT_TODO)
-    if args.fit_method != "mle":
+    if args.fit_method not in _METHOD_MAP:
         parser.error(
             f"-a {args.fit_method} is not ported yet (ROADMAP queue 1 "
-            "items 4 and 8); this slice fits with -a mle"
+            "items 4 and 8); use -a mle, lq or lq-gpu"
         )
     if args.database:
         parser.error(
@@ -67,7 +71,7 @@ def _localize(args, parser):
             roi=roi,
             frame_bounds=frame_bounds,
             movie_info=info,
-            fitting_method="gaussmle",
+            fitting_method=_METHOD_MAP[args.fit_method],
             identification_progress_callback="console",
             fit_progress_callback="console",
             return_info=True,

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (picasso_torch/csrc).
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per
+source, all started together) and links the objects into one shared
 library with a plain C interface, which ``ctypes`` loads. The build runs
 at first use, into ``picasso_torch/.build/<hash of the sources>/``, so a
 checkout builds itself and an edited source rebuilds. There is no
@@ -26,7 +27,7 @@ CUDA_ROOT = "/usr/local/cuda"
 LIB_NAME = "libpicasso_torch_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -38,8 +39,14 @@ _F = ctypes.c_float
 SIGNATURES = {
     "picasso_mle_fit": [
         _P, _LL, _I, _F, _I, _I, _LL,          # spots, n, box, eps, k, mode, n_valid
+        _I,                                    # method: 0 sigmaxy, 1 sigma
         _P, _P, _P, _P, _P,                    # carry: theta old done iters max_step
         _P, _P, _P, _P,                        # out: theta, crlb, ll, iters
+        _P,                                    # stream
+    ],
+    "picasso_lq_fit": [
+        _P, _LL, _I, _F, _I, _I, _LL,          # spots, n, box, ftol, k, mode, n_valid
+        _P, _P, _P, _P,                        # theta (carry or out), lam, cost, done
         _P,                                    # stream
     ],
     "picasso_identify_tiles": [
@@ -92,16 +99,29 @@ def build() -> tuple[Path, float]:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         tmp_lib = Path(tmp) / LIB_NAME
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp_lib),
-               *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (out_dir / "build.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-            )
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o",
+                   str(Path(tmp) / f"{src.stem}.o"), str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp_lib),
+                *[cmd[-2] for cmd, _ in jobs]]
+        log, failed = [], []
+        for cmd, proc in jobs:
+            out, err = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + out + err)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err[-4000:]}")
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        (out_dir / "build.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
         os.replace(tmp_lib, lib)
     return lib, time.perf_counter() - t0
 

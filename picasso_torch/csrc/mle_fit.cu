@@ -4,13 +4,18 @@
 //   K1  _tile_kernel                       (fit_pallas_t)
 //   K2  _start_phase_kernel, _resume_phase_kernel, _finish_phase_kernel
 //                                          (fit_pallas_boundary_t)
-// Both run picasso_tpu/ops/mle._fit_core for the "sigmaxy" method: moment
-// initialiser, up to max_it Newton steps with per-parameter max_step
-// clamps, per-spot convergence on rows (0, 1, 4, 5) against `old`, lanes
-// at or above n_valid starting converged, then the CRLB from the
-// equilibrated Fisher matrix and the Poisson log-likelihood. One kernel
-// body serves all four modes (FULL = K1; START/RESUME/FINISH = K2's
-// phases), so a phase schedule reproduces FULL bit for bit.
+// Both run picasso_tpu/ops/mle._fit_core: moment initialiser, up to
+// max_it Newton steps with per-parameter max_step clamps, per-spot
+// convergence against `old`, lanes at or above n_valid starting
+// converged, then the CRLB from the equilibrated Fisher matrix and the
+// Poisson log-likelihood. Two methods, as template instances: "sigmaxy"
+// (R = 6 parameters [x, y, photons, bg, sx, sy], convergence on rows
+// 0, 1, 4, 5) and "sigma" (R = 5, [x, y, photons, bg, sigma],
+// convergence on rows 0, 1, with the reference's two quirks: a zero
+// denominator steps by sign(num * max_step) = +-1, and photons multiply
+// only the first term of d2udt2_sigma; theta and CRLB padded to 6 rows).
+// One kernel body serves all four modes (FULL = K1; START/RESUME/FINISH
+// = K2's phases), so a phase schedule reproduces FULL bit for bit.
 //
 // What bounds it on the card: issued FP32 instructions, not bytes. Each
 // Newton step reads the spot's box*box floats once (coalesced: the
@@ -38,6 +43,8 @@ namespace {
 
 constexpr float kSqrt2Pi = 2.5066282746310002f;
 constexpr float kInvSqrt2 = 0.70710678118654757f;
+constexpr float kSqrtPi = 1.7724538509055159f;
+constexpr float kInvSqrtPi = 0.56418958354775628f;  // 1 / sqrt(pi)
 
 enum Mode { kFull = 0, kStart = 1, kResume = 2, kFinish = 3 };
 
@@ -69,8 +76,9 @@ __device__ __forceinline__ float erfc_from_exp(float a, float e) {
 
 // Per-axis factors (psf, dmu, d2mu, dsig, d2sig) on the grid k - mu,
 // k = 0..S-1, from the S+1 shared exponentials (ops/gaussian.py
-// fused_axis_terms).
-template <int S>
+// fused_axis_terms); with ISO the last two are the isotropic model's
+// dPSF and d2PSF (fused_axis_terms_iso).
+template <int S, bool ISO>
 __device__ __forceinline__ void axis_terms(float mu, float sigma, float* psf,
                                            float* dmu, float* d2mu,
                                            float* dsig, float* d2sig) {
@@ -98,9 +106,18 @@ __device__ __forceinline__ void axis_terms(float mu, float sigma, float* psf,
     dmu[k] = (eb - ea) * norm;
     const float g1 = (dm * eb - dp * ea) * norm;
     d2mu[k] = g1 * inv_s * inv_s;
-    dsig[k] = g1 * inv_s;
-    const float g3 = (dm * dm * dm * eb - dp * dp * dp * ea) * norm;
-    d2sig[k] = (g3 * inv_s * inv_s - 2.0f * g1) * inv_s * inv_s;
+    if constexpr (ISO) {
+      const float F = (am * eb - ap * ea) * kInvSqrt2;
+      dsig[k] = F / (kSqrtPi * sigma);
+      const float dF =
+          ((ap * ea) * (1.0f - ap * ap) - (am * eb) * (1.0f - am * am)) *
+          kInvSqrt2 * inv_s;
+      d2sig[k] = kInvSqrtPi * ((-F * inv_s) * inv_s + dF * inv_s);
+    } else {
+      dsig[k] = g1 * inv_s;
+      const float g3 = (dm * dm * dm * eb - dp * dp * dp * ea) * norm;
+      d2sig[k] = (g3 * inv_s * inv_s - 2.0f * g1) * inv_s * inv_s;
+    }
   }
 }
 
@@ -111,8 +128,9 @@ __device__ __forceinline__ float pixel(const float* __restrict__ spots,
   return __ldg(spots + (long long)(y * S + x) * N + n);
 }
 
-// Moment initialiser (ops/mle.py initial_theta_sigmaxy_t) and max_step.
-template <int S>
+// Moment initialiser (ops/mle.py initial_theta_sigmaxy_t, _init_state)
+// and max_step.
+template <int S, bool SIG>
 __device__ void init_theta(const float* __restrict__ spots, long long n,
                            long long N, float* th, float* ms) {
   float total = 0.0f, ysum = 0.0f, xsum = 0.0f;
@@ -173,39 +191,50 @@ __device__ void init_theta(const float* __restrict__ spots, long long n,
   th[1] = y_com;
   th[2] = photons;
   th[3] = bg;
-  th[4] = sx;
-  th[5] = sy;
-  ms[0] = sx;
-  ms[1] = sx;
   ms[2] = 0.1f * photons;
   ms[3] = 0.1f * bg;
-  ms[4] = 0.2f * sx;
-  ms[5] = 0.2f * sy;
+  if constexpr (SIG) {
+    const float s0 = (sx + sy) / 2.0f;
+    th[4] = s0;
+    ms[0] = s0;
+    ms[1] = s0;
+    ms[4] = 0.2f * s0;
+  } else {
+    th[4] = sx;
+    th[5] = sy;
+    ms[0] = sx;
+    ms[1] = sx;
+    ms[4] = 0.2f * sx;
+    ms[5] = 0.2f * sy;
+  }
 }
 
-// One Newton update of the six parameters (ops/mle.py
-// _newton_step_sigmaxy). Outer loop over rows y = j; each row's sums
-// over the columns i are the JAX package's row accumulators Tc/Td[j],
-// formed in the same order, then folded into the row dots.
-template <int S>
+// One Newton update (ops/mle.py _newton_step_sigmaxy, or with SIG
+// _newton_step_sigma). Outer loop over rows y = j; each row's sums over
+// the columns i are the JAX package's row accumulators Tc/Td[j], formed
+// in the same order, then folded into the row dots. With SIG, dsig/d2sig
+// hold the isotropic dPSF/d2PSF and the fifth parameter is sigma.
+template <int S, bool SIG>
 __device__ void newton_step(const float* __restrict__ spots, long long n,
                             long long N, float* th, const float* ms) {
+  constexpr int R = SIG ? 5 : 6;
   const float ph = th[2], bg = th[3];
   float psf_x[S], dmu_x[S], d2mu_x[S], dsig_x[S], d2sig_x[S];
   float psf_y[S], dmu_y[S], d2mu_y[S], dsig_y[S], d2sig_y[S];
-  axis_terms<S>(th[0], th[4], psf_x, dmu_x, d2mu_x, dsig_x, d2sig_x);
-  axis_terms<S>(th[1], th[5], psf_y, dmu_y, d2mu_y, dsig_y, d2sig_y);
+  axis_terms<S, SIG>(th[0], th[4], psf_x, dmu_x, d2mu_x, dsig_x, d2sig_x);
+  axis_terms<S, SIG>(th[1], th[SIG ? 4 : 5], psf_y, dmu_y, d2mu_y, dsig_y,
+                     d2sig_y);
   const float ph2 = ph * ph;
 
   // row dots: sum_j A[j] * T[j]
   float a_py_c0 = 0, a_dy_c1 = 0, a_py_c1 = 0, a_c5 = 0, a_py_c2 = 0,
         a_sy_c1 = 0, a_py_c3 = 0, a_py2_d0 = 0, a_d2y_c1 = 0,
         a_dy2_d1 = 0, a_py2_d1 = 0, a_d3 = 0, a_py_c4 = 0, a_py2_d2 = 0,
-        a_s2y_c1 = 0, a_sy2_d1 = 0;
+        a_s2y_c1 = 0, a_sy2_d1 = 0, a_sy_c2 = 0, a_pys_d3 = 0, a_d4 = 0;
 #pragma unroll
   for (int j = 0; j < S; ++j) {
     float c0 = 0, c1 = 0, c2 = 0, c3 = 0, c4 = 0, c5 = 0;
-    float d0 = 0, d1 = 0, d2 = 0, d3 = 0;
+    float d0 = 0, d1 = 0, d2 = 0, d3 = 0, d4 = 0;
 #pragma unroll
     for (int i = 0; i < S; ++i) {
       const float data = pixel<S>(spots, n, N, j, i);
@@ -215,6 +244,8 @@ __device__ void newton_step(const float* __restrict__ spots, long long n,
       const float dr = data * r;
       const float cf = nmin(valid ? dr - 1.0f : 0.0f, 10e4f);
       const float df = nmin(valid ? dr * r : 0.0f, 10e4f);
+      // sigmaxy: d3 = df; sigma: d3 = df * dPSF*psf, d4 = df
+      const float e3 = SIG ? df * (dsig_x[i] * psf_x[i]) : df;
       if (i == 0) {
         c0 = cf * dmu_x[i];
         c1 = cf * psf_x[i];
@@ -225,7 +256,8 @@ __device__ void newton_step(const float* __restrict__ spots, long long n,
         d0 = df * (dmu_x[i] * dmu_x[i]);
         d1 = df * (psf_x[i] * psf_x[i]);
         d2 = df * (dsig_x[i] * dsig_x[i]);
-        d3 = df;
+        d3 = e3;
+        d4 = df;
       } else {
         c0 = c0 + cf * dmu_x[i];
         c1 = c1 + cf * psf_x[i];
@@ -236,11 +268,13 @@ __device__ void newton_step(const float* __restrict__ spots, long long n,
         d0 = d0 + df * (dmu_x[i] * dmu_x[i]);
         d1 = d1 + df * (psf_x[i] * psf_x[i]);
         d2 = d2 + df * (dsig_x[i] * dsig_x[i]);
-        d3 = d3 + df;
+        d3 = d3 + e3;
+        d4 = d4 + df;
       }
     }
     const float py = psf_y[j], py2 = psf_y[j] * psf_y[j];
     const float dy2 = dmu_y[j] * dmu_y[j], sy2 = dsig_y[j] * dsig_y[j];
+    const float pys = psf_y[j] * dsig_y[j];
     if (j == 0) {
       a_py_c0 = py * c0;
       a_dy_c1 = dmu_y[j] * c1;
@@ -258,6 +292,9 @@ __device__ void newton_step(const float* __restrict__ spots, long long n,
       a_py2_d2 = py2 * d2;
       a_s2y_c1 = d2sig_y[j] * c1;
       a_sy2_d1 = sy2 * d1;
+      a_sy_c2 = dsig_y[j] * c2;
+      a_pys_d3 = pys * d3;
+      a_d4 = d4;
     } else {
       a_py_c0 = a_py_c0 + py * c0;
       a_dy_c1 = a_dy_c1 + dmu_y[j] * c1;
@@ -275,51 +312,76 @@ __device__ void newton_step(const float* __restrict__ spots, long long n,
       a_py2_d2 = a_py2_d2 + py2 * d2;
       a_s2y_c1 = a_s2y_c1 + d2sig_y[j] * c1;
       a_sy2_d1 = a_sy2_d1 + sy2 * d1;
+      a_sy_c2 = a_sy_c2 + dsig_y[j] * c2;
+      a_pys_d3 = a_pys_d3 + pys * d3;
+      a_d4 = a_d4 + d4;
     }
   }
-  const float num[6] = {ph * a_py_c0, ph * a_dy_c1, a_py_c1,
-                        a_c5,         ph * a_py_c2, ph * a_sy_c1};
-  const float den[6] = {ph * a_py_c3 - ph2 * a_py2_d0,
-                        ph * a_d2y_c1 - ph2 * a_dy2_d1,
-                        -a_py2_d1,
-                        -a_d3,
-                        ph * a_py_c4 - ph2 * a_py2_d2,
-                        ph * a_s2y_c1 - ph2 * a_sy2_d1};
+  float num[R], den[R];
+  num[0] = ph * a_py_c0;
+  num[1] = ph * a_dy_c1;
+  num[2] = a_py_c1;
+  num[3] = a_c5;
+  den[0] = ph * a_py_c3 - ph2 * a_py2_d0;
+  den[1] = ph * a_d2y_c1 - ph2 * a_dy2_d1;
+  den[2] = -a_py2_d1;
+  if constexpr (SIG) {
+    den[3] = -a_d4;
+    num[4] = ph * (a_py_c2 + a_sy_c1);
+    // d2udt2_sigma: photons multiply only the first term (reference quirk)
+    const float cf_sig = (ph * a_py_c4 + 2.0f * a_sy_c2) + a_s2y_c1;
+    const float df_sig = ph2 * ((a_py2_d2 + 2.0f * a_pys_d3) + a_sy2_d1);
+    den[4] = cf_sig - df_sig;
+  } else {
+    den[3] = -a_d3;
+    num[4] = ph * a_py_c2;
+    num[5] = ph * a_sy_c1;
+    den[4] = ph * a_py_c4 - ph2 * a_py2_d2;
+    den[5] = ph * a_s2y_c1 - ph2 * a_sy2_d1;
+  }
 #pragma unroll
-  for (int p = 0; p < 6; ++p) {
+  for (int p = 0; p < R; ++p) {
+    // sigma's zero-denominator step is sign(num * max_step), i.e. +-1
+    const float zero_step =
+        SIG ? nsign(num[p] * ms[p]) : nsign(num[p]) * ms[p];
     const float upd = den[p] == 0.0f
-                          ? nsign(num[p]) * ms[p]
+                          ? zero_step
                           : nmin(nmax(num[p] / den[p], -ms[p]), ms[p]);
     th[p] = th[p] - upd;
   }
   // constraints (picasso/gaussmle.py:880-884)
   th[2] = nmax(th[2], 1.0f);
   th[3] = nmax(th[3], 0.01f);
-  th[4] = nmax(th[4], 0.01f);
-  th[5] = nmax(th[5], 0.01f);
+  if constexpr (SIG) {
+    th[4] = nmin(nmax(th[4], 0.01f), (float)S);
+  } else {
+    th[4] = nmax(th[4], 0.01f);
+    th[5] = nmax(th[5], 0.01f);
+  }
 }
 
 // Up to k Newton steps from a carried state (ops/mle.py
 // _run_newton_rounds, for one lane): iters counts before the
-// convergence test, which compares rows (0, 1, 4, 5) against `old`;
-// a converged lane keeps its theta and old.
-template <int S>
+// convergence test, which compares rows (0, 1, 4, 5) (sigma: 0, 1)
+// against `old`; a converged lane keeps its theta and old.
+template <int S, bool SIG>
 __device__ void run_rounds(const float* __restrict__ spots, long long n,
                            long long N, float* th, float* old, float& done,
                            float& iters, const float* ms, float eps, int k) {
+  constexpr int R = SIG ? 5 : 6;
   for (int kk = 0; kk < k; ++kk) {
     if (done > 0.5f) break;
-    newton_step<S>(spots, n, N, th, ms);
+    newton_step<S, SIG>(spots, n, N, th, ms);
     iters = iters + (1.0f - done);
-    const bool conv = fabsf(old[0] - th[0]) < eps &&
-                      fabsf(old[1] - th[1]) < eps &&
-                      fabsf(old[4] - th[4]) < eps &&
-                      fabsf(old[5] - th[5]) < eps;
+    bool conv = fabsf(old[0] - th[0]) < eps && fabsf(old[1] - th[1]) < eps;
+    if constexpr (!SIG)
+      conv = conv && fabsf(old[4] - th[4]) < eps &&
+             fabsf(old[5] - th[5]) < eps;
     if (conv) {
       done = 1.0f;
     } else {
 #pragma unroll
-      for (int p = 0; p < 6; ++p) old[p] = th[p];
+      for (int p = 0; p < R; ++p) old[p] = th[p];
     }
   }
 }
@@ -332,17 +394,21 @@ __device__ __forceinline__ int bcol(int p) {
   return p == 0 ? 0 : (p == 3 ? 2 : (p == 4 ? 3 : 1));
 }
 
-template <int S>
+template <int S, bool SIG>
 __device__ void crlb_ll(const float* __restrict__ spots, long long n,
                         long long N, const float* th, float* crlb,
                         float& ll) {
+  constexpr int P = SIG ? 5 : 6;
   const float ph = th[2], bg = th[3];
   float psf_x[S], dmu_x[S], d2mu_x[S], dsig_x[S], d2sig_x[S];
   float psf_y[S], dmu_y[S], d2mu_y[S], dsig_y[S], d2sig_y[S];
-  axis_terms<S>(th[0], th[4], psf_x, dmu_x, d2mu_x, dsig_x, d2sig_x);
-  axis_terms<S>(th[1], th[5], psf_y, dmu_y, d2mu_y, dsig_y, d2sig_y);
-  // distinct column factors: 0 dmu_x, 1 psf_x, 2 ones, 3 dsig_x;
-  // parameter p uses row factor A[p] and column factor bcol(p)
+  axis_terms<S, SIG>(th[0], th[4], psf_x, dmu_x, d2mu_x, dsig_x, d2sig_x);
+  axis_terms<S, SIG>(th[1], th[SIG ? 4 : 5], psf_y, dmu_y, d2mu_y, dsig_y,
+                     d2sig_y);
+  // Separable first-derivative terms t = 0..5: row factor A[t], column
+  // factor bcol(t), scale sc[t]. sigmaxy: term t is parameter t. sigma:
+  // terms 4 and 5 are the two halves of d/dsigma (parameter 4). Distinct
+  // column factors: 0 dmu_x, 1 psf_x, 2 ones, 3 dsig_x.
   float m[6][6];
   float ll_acc = 0.0f;
 #pragma unroll
@@ -383,29 +449,39 @@ __device__ void crlb_ll(const float* __restrict__ spots, long long n,
     ll_acc = j == 0 ? ll_row : ll_acc + ll_row;
   }
   const float sc[6] = {ph, ph, 1.0f, 1.0f, ph, ph};
-  float dinv[6];
+  // Fisher matrix (upper triangle): sum over the term pairs of each
+  // parameter pair, in the order of ops/mle.py _crlb_and_likelihood
+  float M[P][P];
 #pragma unroll
-  for (int p = 0; p < 6; ++p)
+  for (int p = 0; p < P; ++p)
 #pragma unroll
-    for (int q = p; q < 6; ++q) m[p][q] = (sc[p] * sc[q]) * m[p][q];
+    for (int q = p; q < P; ++q) M[p][q] = (sc[p] * sc[q]) * m[p][q];
+  if constexpr (SIG) {
 #pragma unroll
-  for (int p = 0; p < 6; ++p)
-    dinv[p] = m[p][p] > 0.0f ? 1.0f / sqrtf(m[p][p]) : 1.0f;
+    for (int p = 0; p < 4; ++p)
+      M[p][4] = (sc[p] * ph) * m[p][4] + (sc[p] * ph) * m[p][5];
+    const float pp = ph * ph;
+    M[4][4] = ((pp * m[4][4] + pp * m[4][5]) + pp * m[4][5]) + pp * m[5][5];
+  }
+  float dinv[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    dinv[p] = M[p][p] > 0.0f ? 1.0f / sqrtf(M[p][p]) : 1.0f;
   // lower triangle of the equilibrated matrix, then Cholesky
-  float L[6][6];
+  float L[P][P];
 #pragma unroll
-  for (int i = 0; i < 6; ++i)
+  for (int i = 0; i < P; ++i)
 #pragma unroll
-    for (int j = 0; j <= i; ++j) L[i][j] = (m[j][i] * dinv[i]) * dinv[j];
+    for (int j = 0; j <= i; ++j) L[i][j] = (M[j][i] * dinv[i]) * dinv[j];
 #pragma unroll
-  for (int j = 0; j < 6; ++j) {
+  for (int j = 0; j < P; ++j) {
     float s = L[j][j];
 #pragma unroll
     for (int k = 0; k < j; ++k) s = s - L[j][k] * L[j][k];
     L[j][j] = sqrtf(s);
     const float inv_d = 1.0f / L[j][j];
 #pragma unroll
-    for (int i = j + 1; i < 6; ++i) {
+    for (int i = j + 1; i < P; ++i) {
       float si = L[i][j];
 #pragma unroll
       for (int k = 0; k < j; ++k) si = si - L[i][k] * L[j][k];
@@ -413,12 +489,12 @@ __device__ void crlb_ll(const float* __restrict__ spots, long long n,
     }
   }
 #pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    float z[6];
+  for (int k = 0; k < P; ++k) {
+    float z[P];
     z[k] = 1.0f / L[k][k];
     float acc = z[k] * z[k];
 #pragma unroll
-    for (int j = k + 1; j < 6; ++j) {
+    for (int j = k + 1; j < P; ++j) {
       float s = -(L[j][k] * z[k]);
 #pragma unroll
       for (int mm = k + 1; mm < j; ++mm) s = s - L[j][mm] * z[mm];
@@ -427,28 +503,30 @@ __device__ void crlb_ll(const float* __restrict__ spots, long long n,
     }
     crlb[k] = acc * (dinv[k] * dinv[k]);
   }
+  if constexpr (SIG) crlb[5] = crlb[4];
   ll = ll_acc;
 }
 
-template <int S>
+template <int S, bool SIG>
 __global__ void __launch_bounds__(128)
     mle_fit_kernel(const float* __restrict__ spots, long long N, float eps,
                    int k, int mode, long long n_valid, float* theta_c,
                    float* old_c, float* done_c, float* iters_c, float* ms_c,
                    float* theta_out, float* crlb_out, float* ll_out,
                    int* iters_out) {
+  constexpr int R = SIG ? 5 : 6;
   const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   float th[6], old[6], ms[6], done, iters;
   if (mode == kFull || mode == kStart) {
-    init_theta<S>(spots, n, N, th, ms);
+    init_theta<S, SIG>(spots, n, N, th, ms);
 #pragma unroll
-    for (int p = 0; p < 6; ++p) old[p] = th[p];
+    for (int p = 0; p < R; ++p) old[p] = th[p];
     done = n >= n_valid ? 1.0f : 0.0f;
     iters = 0.0f;
   } else {
 #pragma unroll
-    for (int p = 0; p < 6; ++p) {
+    for (int p = 0; p < R; ++p) {
       th[p] = theta_c[p * N + n];
       old[p] = old_c[p * N + n];
       ms[p] = ms_c[p * N + n];
@@ -456,10 +534,10 @@ __global__ void __launch_bounds__(128)
     done = done_c[n];
     iters = iters_c[n];
   }
-  run_rounds<S>(spots, n, N, th, old, done, iters, ms, eps, k);
+  run_rounds<S, SIG>(spots, n, N, th, old, done, iters, ms, eps, k);
   if (mode == kStart || mode == kResume) {
 #pragma unroll
-    for (int p = 0; p < 6; ++p) {
+    for (int p = 0; p < R; ++p) {
       theta_c[p * N + n] = th[p];
       old_c[p * N + n] = old[p];
       ms_c[p * N + n] = ms[p];
@@ -469,7 +547,8 @@ __global__ void __launch_bounds__(128)
     return;
   }
   float crlb[6], ll;
-  crlb_ll<S>(spots, n, N, th, crlb, ll);
+  crlb_ll<S, SIG>(spots, n, N, th, crlb, ll);
+  if (SIG) th[5] = th[4];
 #pragma unroll
   for (int p = 0; p < 6; ++p) {
     theta_out[p * N + n] = th[p];
@@ -479,34 +558,35 @@ __global__ void __launch_bounds__(128)
   iters_out[n] = (int)iters;
 }
 
-template <int S>
+template <int S, bool SIG>
 void launch(const float* spots, long long n, float eps, int k, int mode,
             long long n_valid, float* theta_c, float* old_c, float* done_c,
             float* iters_c, float* ms_c, float* theta_out, float* crlb_out,
             float* ll_out, int* iters_out, cudaStream_t stream) {
   const int threads = 128;
   const unsigned int blocks = (unsigned int)((n + threads - 1) / threads);
-  mle_fit_kernel<S><<<blocks, threads, 0, stream>>>(
+  mle_fit_kernel<S, SIG><<<blocks, threads, 0, stream>>>(
       spots, n, eps, k, mode, n_valid, theta_c, old_c, done_c, iters_c, ms_c,
       theta_out, crlb_out, ll_out, iters_out);
 }
 
 }  // namespace
 
-// Fit n spots, lanes-last (box, box, n) f32. mode 0 FULL: init, k
-// iterations, outputs. 1 START: init, k iterations, carry out. 2 RESUME:
-// carry in, k iterations, carry out (in place). 3 FINISH: carry in, k
-// iterations, outputs. Carry: theta/old/max_step (6, n), done/iters (n,)
-// f32. Outputs: theta/crlb (6, n) f32, ll (n,) f32, iters (n,) i32.
-// Returns cudaGetLastError() after the launch.
+// Fit n spots, lanes-last (box, box, n) f32. method 0 sigmaxy (R = 6),
+// 1 sigma (R = 5). mode 0 FULL: init, k iterations, outputs. 1 START:
+// init, k iterations, carry out. 2 RESUME: carry in, k iterations, carry
+// out (in place). 3 FINISH: carry in, k iterations, outputs. Carry:
+// theta/old/max_step (R, n), done/iters (n,) f32. Outputs: theta/crlb
+// (6, n) f32, ll (n,) f32, iters (n,) i32. Returns cudaGetLastError()
+// after the launch.
 extern "C" int picasso_mle_fit(const void* spots, long long n, int box,
                                float eps, int k, int mode, long long n_valid,
-                               void* theta_c, void* old_c, void* done_c,
-                               void* iters_c, void* ms_c, void* theta_out,
-                               void* crlb_out, void* ll_out, void* iters_out,
-                               void* stream) {
+                               int method, void* theta_c, void* old_c,
+                               void* done_c, void* iters_c, void* ms_c,
+                               void* theta_out, void* crlb_out, void* ll_out,
+                               void* iters_out, void* stream) {
   if (n <= 0 || n > (long long)0x7fffffff * 128 || mode < kFull ||
-      mode > kFinish)
+      mode > kFinish || method < 0 || method > 1)
     return (int)cudaErrorInvalidValue;
   const float* s = static_cast<const float*>(spots);
   float* tc = static_cast<float*>(theta_c);
@@ -520,10 +600,14 @@ extern "C" int picasso_mle_fit(const void* spots, long long n, int box,
   int* io = static_cast<int*>(iters_out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (box) {
-#define PICASSO_FIT_CASE(S)                                                \
-  case S:                                                                  \
-    launch<S>(s, n, eps, k, mode, n_valid, tc, oc, dc, ic, mc, to, co, lo, \
-              io, st);                                                     \
+#define PICASSO_FIT_CASE(S)                                                  \
+  case S:                                                                    \
+    if (method == 1)                                                         \
+      launch<S, true>(s, n, eps, k, mode, n_valid, tc, oc, dc, ic, mc, to,   \
+                      co, lo, io, st);                                       \
+    else                                                                     \
+      launch<S, false>(s, n, eps, k, mode, n_valid, tc, oc, dc, ic, mc, to,  \
+                       co, lo, io, st);                                      \
     break;
     PICASSO_FIT_CASE(5)
     PICASSO_FIT_CASE(7)

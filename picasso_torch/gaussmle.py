@@ -106,15 +106,4 @@ def locs_from_fits(
     if "n_id" in (identifications.dtype.names or ()):
         cols.append(("n_id", np.uint32, identifications["n_id"]))
         key = "n_id"
-    # Every column is 4 bytes wide: fill them as contiguous rows of one
-    # (n_cols, n) buffer and transpose once into the record layout, which
-    # is ~5x faster than writing record fields (or gathering records)
-    # one at a time at a million rows.
-    buf = np.empty((len(cols), len(theta)), dtype=np.float32)
-    for row, (_, dt, values) in zip(buf, cols):
-        row.view(dt)[:] = values
-    k = buf[[name for name, _, _ in cols].index(key)].view(np.uint32)
-    if np.any(k[1:] < k[:-1]):
-        buf = buf[:, np.argsort(k, kind="stable")]
-    dtype = np.dtype([(name, dt) for name, dt, _ in cols])
-    return np.ascontiguousarray(buf.T).view(dtype)[:, 0]
+    return lib.locs_table(cols, key)

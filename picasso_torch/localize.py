@@ -3,7 +3,9 @@
 Counterpart of picasso_tpu/localize.py (localize :516, fused branch;
 _id_frame_chunk :60). The chain per frame chunk (ops/fused.py) runs on
 ``device``: on a CUDA device through the hand-written kernels, on the
-CPU through their plain PyTorch versions.
+CPU through their plain PyTorch versions. The fitters: ``gausslq`` and
+``gausslq-gpu`` (the LM fit, the default) and ``gaussmle`` (methods
+``sigmaxy`` and ``sigma``).
 """
 
 from __future__ import annotations
@@ -13,17 +15,11 @@ from typing import Literal
 
 import numpy as np
 
-from picasso_torch import __version__, gaussmle
+from picasso_torch import __version__, gausslq, gaussmle
 
 # f32 bytes per identification batch; frames per chunk adapt to the
 # frame size (a 256x256 movie takes 244-frame chunks, evened to 256)
 _ID_CHUNK_BYTES = 64e6
-
-_TODO = {
-    "gausslq": "ROADMAP queue 1 item 4 (ops/lq.py + gausslq.py, K3/K6)",
-    "gausslq-gpu": "ROADMAP queue 1 item 4 (ops/lq.py + gausslq.py, K3/K6)",
-    "avg": "ROADMAP queue 1 item 4 (avgroi.py)",
-}
 
 
 def _id_frame_chunk(height: int, width: int) -> int:
@@ -52,13 +48,13 @@ def localize(
     """Identify and fit spots in 2D on ``device`` (picasso/localize.py
     :1682). ``parameters`` holds "Min. Net Gradient" and "Box Size".
     Returns the locs structured array, with the info chain when
-    ``return_info``. Only ``fitting_method="gaussmle"`` is ported."""
+    ``return_info``. ``fitting_method="avg"`` is not ported yet."""
     from picasso_torch.ops import fused as _fused
 
-    if fitting_method in _TODO:
+    if fitting_method == "avg":
         raise NotImplementedError(
-            f"fitting_method={fitting_method!r} is not ported yet "
-            f"({_TODO[fitting_method]}); use 'gaussmle'"
+            "fitting_method='avg' is not ported yet (ROADMAP queue 1 item "
+            "4: avgroi.py); use 'gausslq' or 'gaussmle'"
         )
     if movie_info is None:
         movie_info = []
@@ -92,8 +88,12 @@ def localize(
     )
     theta, crlb, ll, iters = fits
     box = parameters["Box Size"]
-    locs = gaussmle.locs_from_fits(identifications, theta, crlb, ll, iters,
-                                   box)
+    if fitting_method == "gaussmle":
+        locs = gaussmle.locs_from_fits(identifications, theta, crlb, ll,
+                                       iters, box)
+    else:
+        locs = gausslq.locs_from_fits(identifications, theta, box,
+                                      camera_info["Gain"] > 1)
     if callable(fit_progress_callback):
         fit_progress_callback(len(identifications))
     identify_info = {
@@ -106,9 +106,10 @@ def localize(
     fit_info = {
         "Generated by": f"Picasso: v{__version__} Fit 2D",
         "Fit method": fitting_method,
-        "Convergence criterion": eps,
-        "Max iterations": max_it,
     }
+    if fitting_method == "gaussmle":
+        fit_info["Convergence criterion"] = eps
+        fit_info["Max iterations"] = max_it
     info = movie_info + [identify_info] + [fit_info | camera_info]
     if return_info:
         return locs, info

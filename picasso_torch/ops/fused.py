@@ -1,9 +1,9 @@
 """Device-resident localize per frame chunk: identify -> hit list ->
-ROI cut -> photon conversion -> MLE fit, with only the hit list and the
-fit results read back.
+ROI cut -> photon conversion -> MLE or LQ fit, with only the hit list
+and the fit results read back.
 
 Counterpart of picasso_tpu/ops/fused.py (identify_cut_fit :654,
-identify_cut_fit_packed :750, localize_fused :1103) for the MLE rows.
+identify_cut_fit_packed :750, localize_fused :1103).
 Frames upload once in their native dtype. The hit list has exactly as
 many rows as hits (torch.nonzero knows the count), so there are no
 padded buckets and no overflow retry, and a short last chunk is just a
@@ -18,15 +18,14 @@ from typing import Callable, Literal
 import numpy as np
 import torch
 
-from picasso_torch.ops import mle_cuda
-from picasso_torch.ops.mle import _check_method as check_method
+from picasso_torch.ops import lq_cuda, mle_cuda
+from picasso_torch.ops.mle import _check_method
 from picasso_torch.ops.identify import compact, upload_frames
 from picasso_torch.ops.identify_cuda import identify_tiles
 
-_LQ_TODO = (
-    "the LQ fitters are not ported yet (ROADMAP queue 1 item 4 and "
-    "queue 2 K3/K6); use fitting_method='gaussmle'"
-)
+#: the LM fit's convergence tolerance in the fused chain (the JAX
+#: package's, picasso_tpu/ops/fused.py:707)
+LQ_FTOL = 1e-6
 
 
 def cut_rois_t(frames: torch.Tensor, f, y, x, box: int) -> torch.Tensor:
@@ -48,31 +47,35 @@ def cut_rois_t(frames: torch.Tensor, f, y, x, box: int) -> torch.Tensor:
 def identify_cut_fit(frames, minimum_ng, baseline: float, factor: float,
                      *, box: int, eps: float, max_it: int,
                      method: str = "sigmaxy"):
-    """One frame chunk on its device. Returns (f, y, x, ng, theta (6, n),
-    crlb (6, n), ll (n,), iters (n,)) with n the hit count; a chunk
-    without hits launches no fit."""
+    """One frame chunk on its device. ``method`` is ``"lq"`` (the LM fit,
+    ftol :data:`LQ_FTOL`) or an MLE method (``"sigmaxy"``, ``"sigma"``).
+    Returns (f, y, x, ng, theta (6, n), crlb (6, n), ll (n,), iters (n,))
+    with n the hit count; for ``"lq"`` it stops after theta (the LM fit
+    has no crlb, ll or iters: its precision comes from Mortensen's
+    formula on the host). A chunk without hits launches no fit."""
     f, y, x, ng = compact(*identify_tiles(frames, minimum_ng, box), box)
-    spots_t = (cut_rois_t(frames, f, y, x, box).to(torch.float32)
-               - baseline) * factor
-    theta, crlb, ll, iters = mle_cuda.fit_boundary_t(
-        spots_t.contiguous(), eps, max_it, method
-    )
-    return f, y, x, ng, theta, crlb, ll, iters
+    spots_t = ((cut_rois_t(frames, f, y, x, box).to(torch.float32)
+                - baseline) * factor).contiguous()
+    if method != "lq":
+        return (f, y, x, ng,
+                *mle_cuda.fit_boundary_t(spots_t, eps, max_it, method))
+    # K3, the single pass, is the faster LM route on the H100: the K6
+    # phase schedule's permutes cost more than its compaction saves
+    # (chip_smoke.py times both on the same ROIs; PERF.md)
+    return f, y, x, ng, lq_cuda.fit_t(spots_t, max_it, LQ_FTOL)
 
 
 def identify_cut_fit_packed(frames, minimum_ng, baseline: float,
                             factor: float, *, box: int, eps: float,
                             max_it: int, method: str = "sigmaxy"):
-    """:func:`identify_cut_fit` as one (18, n) f32 payload with rows
-    [f, y, x, ng, theta(6), crlb(6), ll, iters] — one readback per chunk
-    (f/y/x/iters are integers far below 2^24, exact in f32)."""
-    f, y, x, ng, theta, crlb, ll, iters = identify_cut_fit(
-        frames, minimum_ng, baseline, factor, box=box, eps=eps,
-        max_it=max_it, method=method,
-    )
-    rows = [f[None], y[None], x[None], ng[None], theta, crlb, ll[None],
-            iters[None]]
-    return torch.cat([r.to(torch.float32) for r in rows], dim=0)
+    """:func:`identify_cut_fit` as one f32 payload, one readback per
+    chunk: (18, n) rows [f, y, x, ng, theta(6), crlb(6), ll, iters] for
+    MLE, (10, n) rows [f, y, x, ng, theta(6)] for LQ (f/y/x/iters are
+    integers far below 2^24, exact in f32)."""
+    out = identify_cut_fit(frames, minimum_ng, baseline, factor, box=box,
+                           eps=eps, max_it=max_it, method=method)
+    return torch.cat([torch.atleast_2d(r).to(torch.float32) for r in out],
+                     dim=0)
 
 
 _IDS_DTYPE = [
@@ -106,9 +109,13 @@ def localize_fused(
     from picasso_torch.localize import _id_frame_chunk
     from picasso_torch.stream import ChunkPrefetcher
 
-    if fitting_method != "gaussmle":
-        raise NotImplementedError(_LQ_TODO)
-    check_method(mle_method)
+    if fitting_method in ("gausslq", "gausslq-gpu"):
+        method = "lq"
+    elif fitting_method == "gaussmle":
+        _check_method(mle_method)
+        method = mle_method
+    else:
+        raise ValueError(f"no fused chain for {fitting_method!r}")
     device = lib.resolve_device(device)
     baseline = float(np.float32(float(camera_info["Baseline"])))
     factor = float(np.float32(
@@ -158,7 +165,7 @@ def localize_fused(
                 payload = identify_cut_fit_packed(
                     upload_frames(batch, device), minimum_ng, baseline,
                     factor, box=box, eps=eps, max_it=max_it,
-                    method=mle_method,
+                    method=method,
                 ).cpu().numpy()
                 blocks.append((offset, payload))
                 done += len(batch)
@@ -178,6 +185,11 @@ def localize_fused(
         ids["y"] += roi[0][0]
         ids["x"] += roi[0][1]
     ids["net_gradient"] = block[3]
+    n = block.shape[1]
+    if method == "lq":
+        # the JAX package's LQ tuple: crlb, ll and iters are zeros
+        return ids, (block[4:10].T.copy(), np.zeros((n, 6), np.float32),
+                     np.zeros(n, np.float32), np.zeros(n, np.int32))
     return ids, (
         block[4:10].T.copy(), block[10:16].T.copy(), block[16].copy(),
         block[17].astype(np.int32),

@@ -14,6 +14,7 @@ import torch
 
 _SQRT_2PI = 2.5066282746310002
 _INV_SQRT2 = 0.70710678118654757
+_SQRT_PI = 1.7724538509055159
 
 # Abramowitz & Stegun 7.1.26 coefficients
 _P = 0.3275911
@@ -81,3 +82,22 @@ def fused_axis_terms(d: torch.Tensor, sigma: torch.Tensor):
     g3 = (dm * dm * dm * eb - dp * dp * dp * ea) * norm
     d2sig = (g3 * inv_s * inv_s - 2.0 * g1) * inv_s * inv_s
     return psf, dmu, d2mu, dsig, d2sig
+
+
+def fused_axis_terms_iso(d: torch.Tensor, sigma: torch.Tensor):
+    """(psf, dmu, d2mu, dPSF, d2PSF) per-axis factors of the isotropic
+    model from the same shared exponentials: with a = (d +- 0.5)/sigma,
+    exp(-a^2/2) is e (picasso/gaussmle.py:339). Same grid contract as
+    :func:`fused_axis_terms`."""
+    inv_s = 1.0 / sigma
+    ap, am, ea, eb, qa, qb = _shared_exp_erfc(d, inv_s)
+    psf = _psf_from_erfc(ap, am, qa, qb)
+    norm = inv_s / _SQRT_2PI
+    dmu = (eb - ea) * norm
+    d2mu = ((d - 0.5) * eb - (d + 0.5) * ea) * norm * inv_s * inv_s
+    F = (am * eb - ap * ea) * _INV_SQRT2
+    dpsf = F / (_SQRT_PI * sigma)
+    dF = (ap * ea * (1.0 - ap * ap) - am * eb * (1.0 - am * am)) \
+        * _INV_SQRT2 * inv_s
+    d2psf = (1.0 / _SQRT_PI) * (-F * inv_s * inv_s + dF * inv_s)
+    return psf, dmu, d2mu, dpsf, d2psf

@@ -3,8 +3,9 @@
 Counterpart of picasso_tpu/ops/linalg.py. The batch index N sits on the
 last axis and ``A[p][q]`` is a list-of-lists of (N,) tensors, so every
 step is an elementwise op over the batch. Used by the MLE CRLB (the
-float32 inverse of the equilibrated Fisher matrix); the CUDA fit kernel
-runs the same recurrences per spot.
+float32 inverse of the equilibrated Fisher matrix) and the LM step of
+the LQ fit (the damped 6x6 normal equations); the CUDA fit kernels run
+the same recurrences per spot.
 """
 
 from __future__ import annotations
@@ -36,6 +37,31 @@ def chol_factor(A: torch.Tensor) -> list[list[torch.Tensor]]:
                 s = s - L[i][k] * L[j][k]
             L[i][j] = s * inv_d
     return L  # type: ignore[return-value]
+
+
+def chol_solve(L: list[list[torch.Tensor]], b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b given L = chol(A); b is (P, N), returns (P, N).
+    Forward then backward substitution, dividing by the diagonal."""
+    P = len(L)
+    y: list[torch.Tensor | None] = [None] * P
+    for i in range(P):
+        s = b[i]
+        for k in range(i):
+            s = s - L[i][k] * y[k]
+        y[i] = s / L[i][i]
+    x: list[torch.Tensor | None] = [None] * P
+    for i in reversed(range(P)):
+        s = y[i]
+        for k in range(i + 1, P):
+            s = s - L[k][i] * x[k]
+        x[i] = s / L[i][i]
+    return torch.stack(x)
+
+
+def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve SPD A x = b for (P, P, N) / (P, N) batches; a non-SPD A
+    gives NaNs."""
+    return chol_solve(chol_factor(A), b)
 
 
 def chol_inv_diag(L: list[list[torch.Tensor]]) -> torch.Tensor:

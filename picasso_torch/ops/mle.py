@@ -1,13 +1,16 @@
 """Batched MLE Gaussian fitting (Smith et al., Nat. Methods 2010): the
 plain PyTorch version of the fit that csrc/mle_fit.cu runs on the card.
 
-Counterpart of picasso_tpu/ops/mle.py for the ``sigmaxy`` method: the
-same moment initialiser, the same Newton update of the six parameters
-[x, y, photons, bg, sx, sy] on the integrated-Gaussian pixel model with
-a Poisson likelihood, per-spot convergence on rows (0, 1, 4, 5), and the
-CRLB from the equilibrated Fisher matrix. Layouts match the JAX
-package: spots lanes-last (S, S, N) f32 indexed [y, x, n]; theta, crlb,
-old and max_step (6, N); done and iters (1, N) f32.
+Counterpart of picasso_tpu/ops/mle.py: the same moment initialiser,
+the same Newton update on the integrated-Gaussian pixel model with a
+Poisson likelihood, and the CRLB from the equilibrated Fisher matrix,
+for both methods: ``sigmaxy`` (six parameters [x, y, photons, bg, sx,
+sy], convergence on rows (0, 1, 4, 5)) and ``sigma`` (five, [x, y,
+photons, bg, sigma], convergence on rows (0, 1); its theta and CRLB are
+padded to six rows by repeating sigma). Layouts match the JAX package:
+spots lanes-last (S, S, N) f32 indexed [y, x, n]; theta, crlb (6, N);
+the carry's theta, old and max_step (R, N) with R = 6 or 5; done and
+iters (1, N) f32.
 
 Every sum over a box axis is written out as a sequential sum of rows.
 That keeps each spot's arithmetic independent of where its lane sits
@@ -21,20 +24,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from picasso_torch.ops.gaussian import fused_axis_terms
+from picasso_torch.ops.gaussian import fused_axis_terms, fused_axis_terms_iso
 from picasso_torch.ops.linalg import spd_inv_diag
 
-_CONV_ROWS = (0, 1, 4, 5)
-_SIGMA_TODO = (
-    "the 'sigma' MLE method is not ported yet (ROADMAP queue 2: the "
-    "sigma method of K1/K2); use method='sigmaxy'"
-)
+_CONV_ROWS = {"sigmaxy": (0, 1, 4, 5), "sigma": (0, 1)}
 
 
 def _check_method(method: str) -> None:
-    if method == "sigma":
-        raise NotImplementedError(_SIGMA_TODO)
-    if method != "sigmaxy":
+    if method not in _CONV_ROWS:
         raise ValueError("Method not available.")
 
 
@@ -208,6 +205,113 @@ def _newton_step_sigmaxy(theta, spots_t, max_step):
     )
 
 
+def _axis_factors_sigma(x, y, sigma, s: int):
+    """Per-axis (S, N) factors of the 5-parameter isotropic model."""
+    idx = torch.arange(s, dtype=x.dtype, device=x.device)[:, None]
+    sg = sigma[None, :]
+    psf_x, dmu_x, d2mu_x, dpsf_x, d2psf_x = fused_axis_terms_iso(
+        idx - x[None, :], sg
+    )
+    psf_y, dmu_y, d2mu_y, dpsf_y, d2psf_y = fused_axis_terms_iso(
+        idx - y[None, :], sg
+    )
+    return (
+        psf_x, psf_y, dmu_x, d2mu_x, dmu_y, d2mu_y,
+        dpsf_x, d2psf_x, dpsf_y, d2psf_y,
+    )
+
+
+def _newton_step_sigma(theta, spots_t, max_step):
+    """One Newton update of the five parameters [x, y, photons, bg,
+    sigma] (picasso/gaussmle.py:574-670), in the JAX package's "rowacc"
+    form. Two quirks of the reference are kept: a zero denominator steps
+    by sign(num * max_step), i.e. +-1, and photons multiply only the
+    first term of d2udt2_sigma."""
+    s = spots_t.shape[0]
+    x, y, photons, bg, sigma = theta
+    (
+        psf_x, psf_y, dmu_x, d2mu_x, dmu_y, d2mu_y,
+        dpsf_x, d2psf_x, dpsf_y, d2psf_y,
+    ) = _axis_factors_sigma(x, y, sigma, s)
+    ph = photons
+    ph2 = photons * photons
+
+    cf_cols = (dmu_x, psf_x, dpsf_x, d2mu_x, d2psf_x)
+    Tc: list = [None] * 6  # 5 factors + plain sum
+    Td: list = [None] * 5  # dmu_x^2, psf_x^2, dpsf_x^2, dpsf_x*psf_x, plain
+    for i in range(s):
+        data_i = spots_t[:, i, :]
+        model_i = ph[None, :] * psf_y * psf_x[i][None, :] + bg[None, :]
+        valid = model_i > 10e-3
+        r_i = 1.0 / model_i
+        dr_i = data_i * r_i
+        cf_i = torch.clamp(torch.where(valid, dr_i - 1.0, 0.0), max=10e4)
+        df_i = torch.clamp(torch.where(valid, dr_i * r_i, 0.0), max=10e4)
+        for k, B in enumerate(cf_cols):
+            v = cf_i * B[i][None, :]
+            Tc[k] = v if Tc[k] is None else Tc[k] + v
+        Tc[5] = cf_i if Tc[5] is None else Tc[5] + cf_i
+        dsq = (
+            df_i * (dmu_x[i] * dmu_x[i])[None, :],
+            df_i * (psf_x[i] * psf_x[i])[None, :],
+            df_i * (dpsf_x[i] * dpsf_x[i])[None, :],
+            df_i * (dpsf_x[i] * psf_x[i])[None, :],
+            df_i,
+        )
+        for k, v in enumerate(dsq):
+            Td[k] = v if Td[k] is None else Td[k] + v
+
+    psf_y2 = psf_y * psf_y
+    num_sigma = ph * (_rowdot(psf_y, Tc[2]) + _rowdot(dpsf_y, Tc[1]))
+    den_sigma_cf = (
+        ph * _rowdot(psf_y, Tc[4])
+        + 2 * _rowdot(dpsf_y, Tc[2])
+        + _rowdot(d2psf_y, Tc[1])
+    )
+    den_sigma_df = ph2 * (
+        _rowdot(psf_y2, Td[2])
+        + 2 * _rowdot(psf_y * dpsf_y, Td[3])
+        + _rowdot(dpsf_y * dpsf_y, Td[1])
+    )
+    num = torch.stack(
+        [
+            ph * _rowdot(psf_y, Tc[0]),
+            ph * _rowdot(dmu_y, Tc[1]),
+            _rowdot(psf_y, Tc[1]),
+            _rowsum(Tc[5]),
+            num_sigma,
+        ]
+    )
+    den = torch.stack(
+        [
+            ph * _rowdot(psf_y, Tc[3]) - ph2 * _rowdot(psf_y2, Td[0]),
+            ph * _rowdot(d2mu_y, Tc[1])
+            - ph2 * _rowdot(dmu_y * dmu_y, Td[1]),
+            -_rowdot(psf_y2, Td[1]),
+            -_rowsum(Td[4]),
+            den_sigma_cf - den_sigma_df,
+        ]
+    )
+    update = torch.where(
+        den == 0.0,
+        _nan_sign(num * max_step),
+        torch.minimum(torch.maximum(num / den, -max_step), max_step),
+    )
+    theta = theta - update
+    return torch.stack(
+        [
+            theta[0],
+            theta[1],
+            torch.clamp(theta[2], min=1.0),
+            torch.clamp(theta[3], min=0.01),
+            torch.clamp(theta[4], min=0.01, max=float(s)),
+        ]
+    )
+
+
+_STEPS = {"sigmaxy": _newton_step_sigmaxy, "sigma": _newton_step_sigma}
+
+
 # ---------------------------------------------------------------------------
 # CRLB + log-likelihood
 # ---------------------------------------------------------------------------
@@ -231,6 +335,27 @@ def _fisher_terms_sigmaxy(theta, s: int):
         [(one, ones, ones)],
         [(ph, psf_y, dsig_x)],
         [(ph, dsig_y, psf_x)],
+    ]
+    return terms, psf_x, psf_y
+
+
+def _fisher_terms_sigma(theta, s: int):
+    """As :func:`_fisher_terms_sigmaxy` for the isotropic model, whose
+    sigma derivative is the sum of two separable terms."""
+    x, y, photons, bg, sigma = theta
+    (
+        psf_x, psf_y, dmu_x, _, dmu_y, _,
+        dpsf_x, _, dpsf_y, _,
+    ) = _axis_factors_sigma(x, y, sigma, s)
+    ones = torch.ones_like(psf_x)
+    ph = photons
+    one = torch.ones_like(ph)
+    terms = [
+        [(ph, psf_y, dmu_x)],
+        [(ph, dmu_y, psf_x)],
+        [(one, psf_y, psf_x)],
+        [(one, ones, ones)],
+        [(ph, psf_y, dpsf_x), (ph, dpsf_y, psf_x)],
     ]
     return terms, psf_x, psf_y
 
@@ -305,15 +430,21 @@ def _crlb_and_likelihood(terms, psf_x, psf_y, photons, bg, spots_t):
 
 
 def _init_state(spots_t: torch.Tensor, method: str):
-    """Initial carry (theta, old, done, iters, max_step). max_step comes
-    from the INITIAL parameters (picasso/gaussmle.py:770-773), so it is
-    carried across resumed phases."""
+    """Initial carry (theta, old, done, iters, max_step), theta/old/
+    max_step with 6 rows (sigmaxy) or 5 (sigma). max_step comes from the
+    INITIAL parameters (picasso/gaussmle.py:770-773), so it is carried
+    across resumed phases."""
     _check_method(method)
     x0, y0, ph0, bg0, sx0, sy0 = initial_theta_sigmaxy_t(spots_t)
-    theta0 = torch.stack([x0, y0, ph0, bg0, sx0, sy0])
-    max_step = torch.stack(
-        [sx0, sx0, 0.1 * ph0, 0.1 * bg0, 0.2 * sx0, 0.2 * sy0]
-    )
+    if method == "sigmaxy":
+        theta0 = torch.stack([x0, y0, ph0, bg0, sx0, sy0])
+        max_step = torch.stack(
+            [sx0, sx0, 0.1 * ph0, 0.1 * bg0, 0.2 * sx0, 0.2 * sy0]
+        )
+    else:
+        s0 = (sx0 + sy0) / 2
+        theta0 = torch.stack([x0, y0, ph0, bg0, s0])
+        max_step = torch.stack([s0, s0, 0.1 * ph0, 0.1 * bg0, 0.2 * s0])
     zero = torch.zeros_like(theta0[:1])
     return theta0, theta0, zero, zero.clone(), max_step
 
@@ -327,16 +458,17 @@ def _run_newton_rounds(
     iterations equals one call with a + b. A converged spot's theta and
     ``old`` freeze; ``iters`` counts the steps each spot took."""
     _check_method(method)
+    step = _STEPS[method]
     eps = float(eps)
     kk = 0
     while kk < n_iters and bool((done < 0.5).any()):
         kk += 1
         frozen = done > 0.5
-        new_theta = _newton_step_sigmaxy(theta, spots_t, max_step)
+        new_theta = step(theta, spots_t, max_step)
         theta = torch.where(frozen, theta, new_theta)
         iters = iters + (1.0 - done)
         conv = torch.ones_like(done)
-        for r in _CONV_ROWS:
+        for r in _CONV_ROWS[method]:
             conv = conv * (
                 torch.abs(old[r:r + 1] - theta[r:r + 1]) < eps
             )
@@ -346,28 +478,35 @@ def _run_newton_rounds(
 
 
 def _crlb_ll_for(theta, spots_t, method: str):
+    """CRLB and log-likelihood at theta; for ``sigma`` theta and CRLB
+    are padded to 6 rows by repeating sigma (gaussmle.py:641-642)."""
     _check_method(method)
-    terms, fpx, fpy = _fisher_terms_sigmaxy(theta, spots_t.shape[0])
+    s = spots_t.shape[0]
+    if method == "sigmaxy":
+        terms, fpx, fpy = _fisher_terms_sigmaxy(theta, s)
+    else:
+        terms, fpx, fpy = _fisher_terms_sigma(theta, s)
     crlb, ll = _crlb_and_likelihood(
         terms, fpx, fpy, theta[2], theta[3], spots_t
     )
+    if method == "sigma":
+        theta = torch.cat([theta, theta[4:5]])
+        crlb = torch.cat([crlb, crlb[4:5]])
     return theta, crlb, ll
 
 
-def _freeze_tail(done0: torch.Tensor, n_valid, lane0=None):
-    """Lanes at global index >= n_valid start converged."""
+def _freeze_tail(done0: torch.Tensor, n_valid):
+    """Lanes at index >= n_valid start converged."""
     lane = torch.arange(done0.shape[-1], device=done0.device)
-    if lane0 is not None:
-        lane = lane + lane0
     return torch.maximum(done0, (lane >= n_valid).to(done0.dtype))
 
 
-def _fit_start(spots_t, eps, k, method, n_valid=None, lane0=None):
+def _fit_start(spots_t, eps, k, method, n_valid=None):
     """Phase entry: init + up to ``k`` Newton iterations. Returns the
     resumable carry (theta, old, done, iters, max_step)."""
     theta0, old0, done0, iters0, max_step = _init_state(spots_t, method)
     if n_valid is not None:
-        done0 = _freeze_tail(done0, n_valid, lane0)
+        done0 = _freeze_tail(done0, n_valid)
     theta, old, done, iters = _run_newton_rounds(
         spots_t, theta0, old0, done0, iters0, max_step, eps, k, method,
     )
@@ -396,20 +535,22 @@ def _fit_finish(spots_t, theta, old, done, iters, max_step, eps, k,
 
 
 def _fit_core(spots_t, eps: float, max_it: int, method: str = "sigmaxy",
-              n_valid=None, lane0=None):
+              n_valid=None):
     """Fit a (S, S, N) f32 spot batch. Returns (theta (6, N),
     crlb (6, N), ll (N,), iters (N,) i32)."""
-    carry = _fit_start(spots_t, eps, max_it, method, n_valid, lane0)
+    carry = _fit_start(spots_t, eps, max_it, method, n_valid)
     return _fit_finish(spots_t, *carry, eps, 0, method)
 
 
 def state_from_numpy(theta, old, done, iters, max_step, device="cpu"):
     """The fit's resumable carry as returned (converted to numpy) by
     ``picasso_tpu.ops.mle._fit_start``, as the port's f32 tensors:
-    theta/old/max_step (6, N), done/iters (1, N)."""
+    theta/old/max_step (R, N) with R = 6 (sigmaxy) or 5 (sigma),
+    done/iters (1, N)."""
+    r = np.shape(theta)[0]
     out = []
-    for a, rows in ((theta, 6), (old, 6), (done, 1), (iters, 1),
-                    (max_step, 6)):
+    for a, rows in ((theta, r), (old, r), (done, 1), (iters, 1),
+                    (max_step, r)):
         a = np.asarray(a, dtype=np.float32).reshape(rows, -1)
         out.append(torch.from_numpy(a.copy()).to(device))
     return tuple(out)

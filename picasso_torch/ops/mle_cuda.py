@@ -1,6 +1,7 @@
 """Wrappers of the CUDA MLE fit kernel (csrc/mle_fit.cu): K1, the
 single-pass fit, and K2, the same fit split into resumable phases with
-stragglers-first lane order between them.
+stragglers-first lane order between them; both for the methods
+``sigmaxy`` and ``sigma``.
 
 Counterpart of picasso_tpu/ops/mle_pallas.py (fit_pallas_t,
 fit_pallas_boundary_t). A CUDA tensor launches the kernel or raises; a
@@ -18,29 +19,13 @@ import torch
 
 from picasso_torch import _build
 from picasso_torch.ops import mle as _mle
+from picasso_torch.ops._fit_common import (
+    check_spots, default_boundaries, on_cuda, stragglers_first,
+)
 
-BOXES = (5, 7, 9, 11, 13, 15)  # box 3: see csrc/mle_fit.cu
 _FULL, _START, _RESUME, _FINISH = 0, 1, 2, 3
-
-
-def _on_cuda(t: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"no MLE fit for tensors on {t.device}")
-
-
-def _check_spots(spots_t: torch.Tensor) -> None:
-    if spots_t.ndim != 3 or spots_t.shape[0] != spots_t.shape[1]:
-        raise ValueError(f"spots must be (S, S, N), got {tuple(spots_t.shape)}")
-    if spots_t.shape[0] not in BOXES:
-        raise ValueError(
-            f"the CUDA fit kernel takes boxes {BOXES}, got {spots_t.shape[0]}"
-        )
-    if spots_t.dtype != torch.float32 or not spots_t.is_contiguous():
-        raise ValueError("spots must be contiguous float32")
+_METHOD_ID = {"sigmaxy": 0, "sigma": 1}
+_ROWS = {"sigmaxy": 6, "sigma": 5}  # carry rows (parameters)
 
 
 def _empty_fit(n: int, device):
@@ -52,7 +37,8 @@ def _empty_fit(n: int, device):
     )
 
 
-def _launch(mode: int, spots_t, eps: float, k: int, n_valid, carry=None):
+def _launch(mode: int, spots_t, eps: float, k: int, n_valid, method: str,
+            carry=None):
     """One launch of the fit kernel on ``spots_t``'s card. START/RESUME
     return the carry (RESUME updates it in place); FULL/FINISH return
     (theta, crlb, ll, iters)."""
@@ -60,11 +46,12 @@ def _launch(mode: int, spots_t, eps: float, k: int, n_valid, carry=None):
     s, _, n = spots_t.shape
     dev = spots_t.device
     f32 = dict(dtype=torch.float32, device=dev)
+    r = _ROWS[method]
     if mode == _START:
         carry = (
-            torch.empty((6, n), **f32), torch.empty((6, n), **f32),
+            torch.empty((r, n), **f32), torch.empty((r, n), **f32),
             torch.empty((1, n), **f32), torch.empty((1, n), **f32),
-            torch.empty((6, n), **f32),
+            torch.empty((r, n), **f32),
         )
     outs = None
     if mode in (_FULL, _FINISH):
@@ -86,7 +73,8 @@ def _launch(mode: int, spots_t, eps: float, k: int, n_valid, carry=None):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.picasso_mle_fit(
             spots_t.data_ptr(), n, s, float(eps), int(k), mode,
-            n if n_valid is None else int(n_valid), *ptrs, *optrs, stream,
+            n if n_valid is None else int(n_valid), _METHOD_ID[method],
+            *ptrs, *optrs, stream,
         )
     _build.check(status, "mle_fit")
     return carry if outs is None else outs
@@ -98,31 +86,17 @@ def fit_t(spots_t: torch.Tensor, eps: float, max_it: int,
     (theta (6, N), crlb (6, N), ll (N,), iters (N,) i32). Lanes at index
     >= ``n_valid`` start converged."""
     _mle._check_method(method)
-    if not _on_cuda(spots_t):
+    if not on_cuda(spots_t):
         return _mle._fit_core(spots_t, eps, max_it, method, n_valid)
-    _check_spots(spots_t)
+    check_spots(spots_t)
     if spots_t.shape[-1] == 0:
         return _empty_fit(0, spots_t.device)
-    out = _launch(_FULL, spots_t, eps, max_it, n_valid)
+    out = _launch(_FULL, spots_t, eps, max_it, n_valid, method)
     fit_t.launches += 1
     return out
 
 
 fit_t.launches = 0
-
-
-def default_boundaries(max_it: int) -> tuple[int, ...]:
-    """The JAX package's two phase boundaries (~max_it/6 and /2):
-    (16, 50) at max_it 100."""
-    return tuple(sorted({
-        b for b in (max(max_it // 6, 4), max_it // 2) if b < max_it
-    }))
-
-
-def _stragglers_first(done: torch.Tensor) -> torch.Tensor:
-    """Stable permutation (new position -> old lane) putting the lanes
-    that have not converged first."""
-    return torch.argsort(done[0], stable=True)
 
 
 def fit_boundary_t(spots_t: torch.Tensor, eps: float, max_it: int,
@@ -140,9 +114,9 @@ def fit_boundary_t(spots_t: torch.Tensor, eps: float, max_it: int,
 def _fit_phases(spots_t, eps, max_it, method, n_valid, boundaries):
     """The K2 schedule with phases ending at ``boundaries``."""
     _mle._check_method(method)
-    cuda = _on_cuda(spots_t)
+    cuda = on_cuda(spots_t)
     if cuda:
-        _check_spots(spots_t)
+        check_spots(spots_t)
     n = spots_t.shape[-1]
     bs = sorted({int(b) for b in boundaries if 0 < int(b) < max_it})
     if not bs:
@@ -152,7 +126,7 @@ def _fit_phases(spots_t, eps, max_it, method, n_valid, boundaries):
 
     def phase(mode, spots, k, carry=None):
         if cuda:
-            out = _launch(mode, spots, eps, k, n_valid, carry)
+            out = _launch(mode, spots, eps, k, n_valid, method, carry)
             fit_boundary_t.launches += 1
             return out
         if mode == _START:
@@ -165,7 +139,7 @@ def _fit_phases(spots_t, eps, max_it, method, n_valid, boundaries):
     orig = torch.arange(n, device=spots_t.device)
     ks = [b - a for a, b in zip(bs, bs[1:])] + [max_it - bs[-1]]
     for i, k in enumerate(ks):
-        perm = _stragglers_first(carry[2])
+        perm = stragglers_first(carry[2])
         spots_t = spots_t[:, :, perm].contiguous()
         carry = tuple(c[:, perm].contiguous() for c in carry)
         orig = orig[perm]

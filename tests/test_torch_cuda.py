@@ -17,13 +17,15 @@ import numpy as np
 import pytest
 import torch
 
-from bench import make_bench_movie, make_spots
+from torch_data import make_bench_movie, make_spots
 from picasso_torch import localize
-from picasso_torch.ops import fused, identify, identify_cuda, mle, mle_cuda
-from torch_parity import compare_fits, compare_hits
+from picasso_torch.ops import (
+    fused, identify, identify_cuda, lq, lq_cuda, mle, mle_cuda,
+)
+from torch_parity import compare_fits, compare_hits, compare_lq_fits
 
 pytestmark = pytest.mark.cuda
-EPS, MAX_IT = 1e-3, 100
+EPS, MAX_IT, FTOL = 1e-3, 100, 1e-6
 
 
 @pytest.fixture
@@ -48,6 +50,45 @@ def test_fit_kernel_matches_plain(dev, box):
     compare_fits(plain, k1, MAX_IT)
     for a, b in zip(k1, k2):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("box", [5, 7, 9, 11, 13, 15])
+def test_sigma_fit_kernel_matches_plain(dev, box):
+    sp = torch.from_numpy(np.ascontiguousarray(
+        make_spots(4096, box, seed=box + 1).transpose(1, 2, 0)
+    )).to(dev)
+    plain = _np(mle._fit_core(sp, EPS, MAX_IT, "sigma"))
+    k1 = _np(mle_cuda.fit_t(sp, EPS, MAX_IT, "sigma"))
+    k2 = _np(mle_cuda.fit_boundary_t(sp, EPS, MAX_IT, "sigma"))
+    compare_fits(plain, k1, MAX_IT)
+    for a, b in zip(k1, k2):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(k1[0][5], k1[0][4])
+
+
+@pytest.mark.parametrize("box", [5, 7, 9, 11, 13, 15])
+def test_lq_kernel_matches_plain(dev, box):
+    sp = torch.from_numpy(np.ascontiguousarray(
+        make_spots(4096, box, seed=box + 2).transpose(1, 2, 0)
+    )).to(dev)
+    plain = lq._lm_core(sp, MAX_IT, FTOL).cpu().numpy()
+    k3 = lq_cuda.fit_t(sp, MAX_IT, FTOL).cpu().numpy()
+    k6 = lq_cuda.fit_boundary_t(sp, MAX_IT, FTOL).cpu().numpy()
+    compare_lq_fits(plain, k3, sp.cpu().numpy())
+    np.testing.assert_array_equal(k3, k6)
+
+
+def test_lq_kernel_n_valid_and_resume(dev):
+    sp = torch.from_numpy(np.ascontiguousarray(
+        make_spots(1000, seed=1).transpose(1, 2, 0)
+    )).to(dev)
+    sp[:, :, 900:] = 1.0  # degenerate: zero width, NaN cost
+    a = lq_cuda.fit_t(sp, 12, FTOL, n_valid=900).cpu().numpy()
+    b = lq_cuda._fit_phases(sp, 12, FTOL, 900, (3, 7)).cpu().numpy()
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(
+        a[:, 900:], lq.initial_parameters_t(sp).cpu().numpy()[:, 900:])
+    assert np.isfinite(a[:, :900]).all()
 
 
 def test_fit_kernel_refuses_box3(dev):
@@ -99,6 +140,16 @@ def test_chunk_without_hits_launches_no_fit(dev):
             mle_cuda.fit_boundary_t.launches) == before
 
 
+def test_chunk_without_hits_launches_no_lq_fit(dev):
+    before = lq_cuda.fit_t.launches, lq_cuda.fit_boundary_t.launches
+    out = fused.identify_cut_fit_packed(
+        torch.zeros((4, 64, 64), dtype=torch.uint16, device=dev), 1000.0,
+        0.0, 1.0, box=7, eps=EPS, max_it=MAX_IT, method="lq",
+    )
+    assert out.shape == (10, 0)
+    assert (lq_cuda.fit_t.launches, lq_cuda.fit_boundary_t.launches) == before
+
+
 def test_slice_on_the_card_matches_the_cpu(dev):
     movie = make_bench_movie(32, 64, 40, 0.5, np.random.default_rng(7))
     cam = {"Baseline": 0, "Sensitivity": 1, "Gain": 1, "Pixelsize": 130}
@@ -112,3 +163,37 @@ def test_slice_on_the_card_matches_the_cpu(dev):
     assert same.mean() >= 0.95
     for name in ("x", "y"):
         np.testing.assert_allclose(g[name][same], c[name][same], atol=1e-3)
+
+
+def test_sigma_slice_on_the_card_matches_the_cpu(dev):
+    movie = make_bench_movie(32, 64, 40, 0.5, np.random.default_rng(7))
+    cam = {"Baseline": 0, "Sensitivity": 1, "Gain": 1, "Pixelsize": 130}
+    par = {"Min. Net Gradient": 4000, "Box Size": 7}
+    before = mle_cuda.fit_t.launches, mle_cuda.fit_boundary_t.launches
+    g = localize.localize(movie, dict(cam), par, fitting_method="gaussmle",
+                          mle_method="sigma", device=dev)
+    assert mle_cuda.fit_t.launches == before[0]
+    assert mle_cuda.fit_boundary_t.launches > before[1]
+    c = localize.localize(movie, dict(cam), par, fitting_method="gaussmle",
+                          mle_method="sigma", device="cpu")
+    np.testing.assert_array_equal(g["frame"], c["frame"])
+    np.testing.assert_array_equal(g["sx"], g["sy"])
+    same = (g["iterations"] == c["iterations"]) & (c["iterations"] < MAX_IT)
+    assert same.mean() >= 0.95
+    for name in ("x", "y", "sx"):
+        np.testing.assert_allclose(g[name][same], c[name][same], atol=1e-3)
+
+
+def test_lq_slice_on_the_card_matches_the_cpu(dev):
+    movie = make_bench_movie(32, 64, 40, 0.5, np.random.default_rng(7))
+    cam = {"Baseline": 0, "Sensitivity": 1, "Gain": 1, "Pixelsize": 130}
+    par = {"Min. Net Gradient": 4000, "Box Size": 7}
+    g = localize.localize(movie, dict(cam), par, fitting_method="gausslq",
+                          device=dev)
+    c = localize.localize(movie, dict(cam), par, fitting_method="gausslq",
+                          device="cpu")
+    np.testing.assert_array_equal(g["frame"], c["frame"])
+    np.testing.assert_allclose(g["net_gradient"], c["net_gradient"],
+                               rtol=1e-5)
+    d = np.maximum(np.abs(g["x"] - c["x"]), np.abs(g["y"] - c["y"]))
+    assert np.mean(d <= 1e-3) >= 0.99

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from bench import make_bench_movie
+from torch_data import make_bench_movie
 from picasso_tpu.ops import identify as jid
 from picasso_tpu.ops import identify_pallas as jidp
 from picasso_torch.ops import identify as tid

@@ -17,7 +17,7 @@ import pandas as pd
 import pytest
 import torch
 
-from bench import make_bench_movie
+from torch_data import make_bench_movie
 from picasso_tpu import io as jio
 from picasso_tpu import lib as jlib
 from picasso_tpu import localize as jloc
@@ -165,7 +165,7 @@ def test_cli_profile_writes_a_trace(tmp_path, movie):
     assert (tmp_path / "x_locs.hdf5").exists()
 
 
-@pytest.mark.parametrize("method", ["lq", "avg"])
+@pytest.mark.parametrize("method", ["lq-3d", "avg"])
 def test_cli_unported_fit_methods_exit_2(tmp_path, method):
     with pytest.raises(SystemExit) as exc:
         cli.main(["localize", str(tmp_path / "x.raw"), "-d", "0",
@@ -186,10 +186,11 @@ def test_cuda_without_a_card_raises(tmp_path, movie):
 
 def test_localize_unported_methods_raise(movie):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloc.localize(movie, dict(CAMERA), PARAMS, device="cpu")
+        tloc.localize(movie, dict(CAMERA), PARAMS, fitting_method="avg",
+                      device="cpu")
+    per_pixel = dict(CAMERA, Baseline=np.zeros(movie.shape[1:]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloc.localize(movie, dict(CAMERA), PARAMS, fitting_method="gaussmle",
-                      mle_method="sigma", device="cpu")
+        tloc.localize(movie, per_pixel, PARAMS, device="cpu")
 
 
 @pytest.mark.parametrize("key", ["frame", "n_id"])

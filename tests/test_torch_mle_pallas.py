@@ -1,6 +1,6 @@
 """The port's plain MLE fit held against the JAX package's Pallas fit
 kernels K1 (fit_pallas_t) and K2 (fit_pallas_boundary_t), run in the
-Pallas interpreter on the CPU, on bench.make_spots(1024).
+Pallas interpreter on the CPU, on tests/torch_data.make_spots(1024).
 
 Tolerances: tests/torch_parity.py.
 """
@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from bench import make_spots
+from torch_data import make_spots
 from picasso_tpu.ops import mle_pallas
 from picasso_torch.ops import mle as tmle
 from picasso_torch.ops import mle_cuda

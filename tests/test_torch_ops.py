@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from bench import make_spots
+from torch_data import make_spots
 from picasso_tpu.ops import gaussian as jgauss
 from picasso_tpu.ops import linalg as jlinalg
 from picasso_tpu.ops import mle as jmle
@@ -45,7 +45,7 @@ def _np(out):
 
 @pytest.fixture(scope="module")
 def spots_t():
-    """bench.make_spots(1024) in the lanes-last (7, 7, N) layout."""
+    """make_spots(1024) in the lanes-last (7, 7, N) layout."""
     return np.ascontiguousarray(make_spots(1024).transpose(1, 2, 0))
 
 
@@ -208,11 +208,17 @@ def test_state_from_numpy_resumes_a_jax_carry(spots_t, jax_fit):
 
 
 def test_sigma_method_not_ported():
-    sp = torch.ones((7, 7, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mle_cuda.fit_boundary_t(sp, EPS, MAX_IT, method="sigma")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmle._fit_core(sp, EPS, MAX_IT, method="sigma")
+    """The sigma method is ported now (tests/test_torch_sigma.py): both
+    entries take it and pad its theta/CRLB to 6 rows. A method that
+    neither package has still raises."""
+    sp = torch.from_numpy(np.ascontiguousarray(
+        make_spots(8, seed=2).transpose(1, 2, 0)))
+    theta, crlb, _, _ = mle_cuda.fit_boundary_t(sp, EPS, MAX_IT,
+                                                method="sigma")
+    assert theta.shape == crlb.shape == (6, 8)
+    for fn in (mle_cuda.fit_boundary_t, tmle._fit_core):
+        with pytest.raises(ValueError, match="Method not available"):
+            fn(sp, EPS, MAX_IT, method="sigmaz")
 
 
 @pytest.mark.parametrize("raw", [False, True])

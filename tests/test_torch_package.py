@@ -1,20 +1,25 @@
-"""picasso_torch as a package: it never imports JAX or picasso_tpu, its
-kernels build only from source with nvcc, and its kernel wrappers never
-fall back to the plain versions for a tensor that is not on the CPU."""
+"""picasso_torch as a package: it and chip_smoke.py never import JAX,
+picasso_tpu or the JAX package's bench, its kernels build only from
+source with nvcc, and its kernel wrappers never fall back to the plain
+versions for a tensor that is not on the CPU."""
 
 from __future__ import annotations
 
+import ast
 import os
 import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
+import bench
 import picasso_torch
+import torch_data
 from picasso_torch import _build
-from picasso_torch.ops import identify_cuda, mle_cuda
+from picasso_torch.ops import identify_cuda, lq_cuda, mle_cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -27,18 +32,36 @@ def _modules():
     )
 
 
+def _smoke_imports() -> list[str]:
+    """Every module chip_smoke.py imports, at any depth of its code."""
+    tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module)
+    return names
+
+
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert "picasso_torch.ops.mle_cuda" in mods
+    assert "picasso_torch.ops.lq_cuda" in mods
+    smoke = _smoke_imports()
+    assert "torch_data" in smoke and "torch_parity" in smoke
+    top = {m.split(".")[0] for m in smoke}
+    assert not top & {"jax", "jaxlib", "picasso_tpu", "bench"}, smoke
     code = (
         "import importlib, sys\n"
-        f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
-        "('jax.', 'jaxlib', 'picasso_tpu'))]\n"
+        f"for m in {mods + smoke!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'bench') or "
+        "m.startswith(('jax.', 'jaxlib', 'picasso_tpu'))]\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"
     )
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([ROOT, os.path.join(ROOT, "tests")]))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -67,7 +90,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_sources_hash_and_cover_every_entry():
     names = [p.name for p in _build.sources()]
-    assert {"mle_fit.cu", "identify.cu"} <= set(names)
+    assert {"mle_fit.cu", "identify.cu", "lq_fit.cu"} <= set(names)
     text = "".join(p.read_text() for p in _build.sources())
     for entry in _build.SIGNATURES:
         assert f'extern "C" int {entry}(' in text
@@ -76,13 +99,18 @@ def test_sources_hash_and_cover_every_entry():
     assert len(_build.source_hash()) == 16
 
 
-@pytest.mark.parametrize("wrapper", ["fit_t", "fit_boundary_t", "identify"])
+@pytest.mark.parametrize("wrapper", ["fit_t", "fit_boundary_t", "identify",
+                                     "lq_fit_t", "lq_fit_boundary_t"])
 def test_wrappers_do_not_fall_back_off_the_cpu(wrapper):
     """A tensor on any device but the CPU goes to the kernel or raises;
     the plain version is never taken for it."""
     if wrapper == "identify":
         frames = torch.empty((2, 32, 32), dtype=torch.uint16, device="meta")
         call = lambda: identify_cuda.identify_tiles(frames, 100.0, 7)  # noqa: E731
+    elif wrapper.startswith("lq_"):
+        spots = torch.empty((7, 7, 16), device="meta")
+        fn = getattr(lq_cuda, wrapper[3:])
+        call = lambda: fn(spots, 10)  # noqa: E731
     else:
         spots = torch.empty((7, 7, 16), device="meta")
         fn = getattr(mle_cuda, wrapper)
@@ -91,12 +119,31 @@ def test_wrappers_do_not_fall_back_off_the_cpu(wrapper):
         call()
 
 
+def _counts():
+    return (mle_cuda.fit_t.launches, mle_cuda.fit_boundary_t.launches,
+            lq_cuda.fit_t.launches, lq_cuda.fit_boundary_t.launches,
+            identify_cuda.identify_tiles.launches)
+
+
 def test_cpu_tensors_take_the_plain_versions_without_counting():
-    before = (mle_cuda.fit_t.launches, mle_cuda.fit_boundary_t.launches,
-              identify_cuda.identify_tiles.launches)
+    before = _counts()
     spots = torch.rand((7, 7, 8)) * 100 + 10
     mle_cuda.fit_boundary_t(spots, 1e-3, 20)
+    mle_cuda.fit_t(spots, 1e-3, 20, "sigma")
+    lq_cuda.fit_t(spots, 20)
+    lq_cuda.fit_boundary_t(spots, 20)
     identify_cuda.identify_tiles(torch.zeros((1, 16, 16)), 100.0, 7)
-    after = (mle_cuda.fit_t.launches, mle_cuda.fit_boundary_t.launches,
-             identify_cuda.identify_tiles.launches)
-    assert before == after
+    assert before == _counts()
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_data_copies_equal_bench(seed):
+    """tests/torch_data.py makes the same arrays as the JAX package's
+    bench.py from the same seeds."""
+    for box in (5, 7):
+        np.testing.assert_array_equal(torch_data.make_spots(64, box, seed),
+                                      bench.make_spots(64, box, seed))
+    args = (6, 48, 20, 0.5)
+    np.testing.assert_array_equal(
+        torch_data.make_bench_movie(*args, np.random.default_rng(seed)),
+        bench.make_bench_movie(*args, np.random.default_rng(seed)))

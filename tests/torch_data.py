@@ -1,0 +1,57 @@
+"""Synthetic inputs of the port's tests and of chip_smoke.py, made from a
+seed with numpy only: DNA-PAINT-like spots and movies.
+
+Copies of bench.make_spots and bench.make_bench_movie (the JAX package's
+benchmark, whose other functions reach JAX), so that the port's smoke
+run imports nothing of the JAX side. tests/test_torch_package.py holds
+them equal to bench's for the same seeds.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def make_spots(n: int, box: int = 7, seed: int = 0) -> np.ndarray:
+    """(n, box, box) f32 Poisson samples of elliptic Gaussian spots:
+    centre within +-0.5 px of the box centre, widths 0.9-1.4 px, 2000-8000
+    photons over a background of 5-30 photons/pixel."""
+    rng = np.random.default_rng(seed)
+    half = box // 2
+    grid = np.arange(-half, half + 1, dtype=np.float64)
+    x0 = rng.uniform(-0.5, 0.5, n)
+    y0 = rng.uniform(-0.5, 0.5, n)
+    sx = rng.uniform(0.9, 1.4, n)
+    sy = rng.uniform(0.9, 1.4, n)
+    photons = rng.uniform(2000.0, 8000.0, n)
+    bg = rng.uniform(5.0, 30.0, n)
+    gx = np.exp(
+        -0.5 * ((grid[None, :] - x0[:, None]) / sx[:, None]) ** 2
+    ) / (sx[:, None] * np.sqrt(2 * np.pi))
+    gy = np.exp(
+        -0.5 * ((grid[None, :] - y0[:, None]) / sy[:, None]) ** 2
+    ) / (sy[:, None] * np.sqrt(2 * np.pi))
+    clean = (
+        photons[:, None, None] * gy[:, :, None] * gx[:, None, :]
+        + bg[:, None, None]
+    )
+    return rng.poisson(clean).astype(np.float32)
+
+
+def make_bench_movie(n_frames, size, n_sites, p_on, rng):
+    """(n_frames, size, size) u16 DNA-PAINT movie: Poisson(30) camera
+    background, ``n_sites`` binding sites each on with probability
+    ``p_on`` per frame, ~900-photon 7x7 spots of width 1.1 px."""
+    movie = rng.poisson(
+        30, (n_frames, size, size)
+    ).astype(np.uint16)
+    yy, xx = np.mgrid[-3:4, -3:4]
+    psf = np.exp(-(yy**2 + xx**2) / (2 * 1.1**2))
+    sites = rng.uniform(8, size - 8, (n_sites, 2)).astype(int)
+    for fidx in range(n_frames):
+        on = rng.random(n_sites) < p_on
+        for sy, sx in sites[on]:
+            movie[fidx, sy - 3:sy + 4, sx - 3:sx + 4] += (
+                rng.poisson(psf * 900).astype(np.uint16)
+            )
+    return movie
