@@ -12,23 +12,34 @@ Phases, each of which raises on failure (exit code != 0):
    (box 7): the MLE fit kernel in its single-pass mode (K1) and in the
    phase schedule (K2), for the methods sigmaxy and sigma, K2 == K1 bit
    for bit; the LM fit kernel in its single-pass mode (K3) and in the
-   phase schedule (K6), K6 == K3 bit for bit; the identify kernel (K4)
-   on one 256-frame 256x256 u16 chunk; times are medians of 5 CUDA-event
-   runs;
+   phase schedule (K6), K6 == K3 bit for bit; the fused cut+fit kernel
+   (K5: MLE sigmaxy and sigma in one pass and in the phase schedule, LM
+   in one pass) on the same spots laid out as a u16 and an f32 frame
+   chunk, K5 == K1/K2/K3 bit for bit there; the sigmaxy fit in rounds
+   of 8 (K7, a schedule of K2's modes), K7 == K1 bit for bit; the
+   identify kernel (K4) on one 256-frame 256x256 u16 chunk; times are
+   medians of 5 CUDA-event runs;
 4. the MLE slice: picasso_torch.localize.localize (MLE sigmaxy, box 7)
    on a 2048-frame 256x256 u16 movie of tests/torch_data.make_bench_movie
-   with the launch count of every kernel on its path (K4, K2) checked;
-   then its first chunk re-run through the plain versions on the card
-   and held to the tolerances of tests/torch_parity.py, K1 against K2 on
-   that chunk's ROIs, and the time of each stage of one chunk;
-5. the MLE slice with mle_method="sigma" on the same movie: K4 and K2
-   launched on it (K1, K3, K6 not), sx == sy in every loc, its first
-   chunk equal to a re-run and held against the plain sigma fit;
+   with the launch count of every kernel checked: K4 and K5 in phases
+   launched, every other fit not; then its first chunk re-run through
+   the plain versions on the card and held to the tolerances of
+   tests/torch_parity.py; on that chunk K5 == the gather route (cut,
+   photons, K2 or K1) bit for bit from u16 and f32 frames, K7 == K1 and
+   K2 == K1 bit for bit, the routes timed in turns, and the time of
+   each stage of one chunk;
+5. the MLE slice with mle_method="sigma" on the same movie: K4 and K5
+   in phases launched on it (no other fit), sx == sy in every loc, its
+   first chunk equal to a re-run and held against the plain sigma fit;
 6. the LQ slice: localize(fitting_method="gausslq") on the same movie,
-   with K4 and K3 launched on it (K6 not); its first chunk re-run
-   through the plain versions on the card and held with
-   compare_lq_fits; K3 against K6 on that chunk's ROIs (the main path
-   takes K3, the faster, see ops/fused.py); the chunk's stages.
+   with K4 and K5 (LM) launched on it (no other fit); its first chunk
+   re-run through the plain versions on the card and held with
+   compare_lq_fits; K5 == cut + photons + K3 bit for bit; the routes and
+   K3 against K6 on that chunk, in turns; the chunk's stages;
+7. RCC undrift on the card: postprocess.undrift(device="cuda") of the
+   MLE slice's locs with a known drift added, its residual against that
+   drift, its agreement with the same call on the CPU, and its wall
+   split (render, pair FFTs, peak fits).
 The line before the last is the JSON record of every kernel (bound_ms:
 the larger of the FLOPs over 67 TFLOP/s f32 and the bytes read once and
 written once over 3.35 TB/s, NVIDIA's H100 SXM peaks); the last line is
@@ -56,6 +67,10 @@ MAX_IT = 100
 MIN_NG = 4000
 N_SPOTS = 131072
 CHUNK = 256  # frames per chunk that localize_fused forms at 256x256
+ROUND_IT = 8  # K7's iterations a round
+SEGMENTATION = 128  # frames an RCC segment: 16 segments of the movie
+DRIFT_RESID = 0.1  # px, RMS residual of the recovered drift
+DRIFT_AGREE = 1e-2  # px, undrift on the card against the CPU
 PEAK_F32 = 67e12  # FLOP/s, f32 outside the tensor cores (H100 SXM)
 PEAK_BYTES = 3.35e12  # B/s, HBM3 (H100 SXM)
 
@@ -104,12 +119,45 @@ def _bound(flops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _fit_bound(n: int, iters_sum: float, per_iter: float, out_bytes: int):
+def _fit_bound(n: int, iters_sum: float, per_iter, out_bytes: int,
+               in_bytes: int = BOX * BOX * 4):
     """Bound of a fit of n box-7 spots: the iterations these spots need
-    plus one for the initialiser and the final pass, each spot's ROI read
-    once and its results written once."""
+    plus one for the initialiser and the final pass, each spot's input
+    read once (by default its f32 ROI; K5 reads a u16 window and three
+    i32 hit indices) and its results written once."""
     return _bound((iters_sum + n) * per_iter(BOX),
-                  n * (BOX * BOX * 4 + out_bytes))
+                  n * (in_bytes + out_bytes))
+
+
+K5_IN_BYTES = BOX * BOX * 2 + 3 * 4  # u16 window + (f, y, x) int32
+
+
+def _turns(fns) -> list[float]:
+    """Median times of ``fns`` taken in the given order (A, B, B, A),
+    so that a drift of the card's clock shows."""
+    return [_median_ms(fn) for fn in fns]
+
+
+def _assert_equal(a, b, what: str) -> None:
+    """Equal bit for bit, NaN where NaN, output by output."""
+    for x, y, name in zip(a, b, ("theta", "crlb", "ll", "iters")):
+        if not np.array_equal(x, y, equal_nan=True):
+            raise AssertionError(f"{what}: not equal bit for bit ({name})")
+
+
+def _plain_multiround(spots_t, max_it: int):
+    """The plain version of K7 on the spots' device: the schedule of
+    ops/mle_cuda.fit_multiround_t over the plain phases of ops/mle.py."""
+    from picasso_torch.ops import mle
+    from picasso_torch.ops._fit_common import FINISH, phase_ends, run_phases
+
+    def phase(mode, spots, k, carry):
+        return mle._fit_phase(mode, spots, EPS, k, "sigmaxy", None, carry)
+
+    (theta, crlb, ll, iters), inv = run_phases(
+        phase, spots_t, max_it,
+        phase_ends(range(ROUND_IT, max_it, ROUND_IT), max_it), 2, FINISH)
+    return theta[:, inv], crlb[:, inv], ll[inv], iters[inv]
 
 
 def _lq_iters(spots_t, max_it: int):
@@ -132,8 +180,8 @@ def _ptxas_table(log: str) -> list[str]:
     registers and spill bytes, from nvcc's -Xptxas -v report."""
     rows, name = [], None
     for line in log.splitlines():
-        m = re.search(r"entry function '.*?((?:identify|lq_fit|mle_fit)"
-                      r"_kernel)I(\w+?)EEv", line)
+        m = re.search(r"entry function '.*?((?:identify|lq_fit|mle_fit|"
+                      r"winfit_mle|winfit_lq)_kernel)I(\w+?)EEv", line)
         if m:
             name, spill = f"{m.group(1)}<{m.group(2)}>", ""
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -156,11 +204,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from picasso_torch import _build, gausslq, gaussmle, localize
+    from picasso_torch import (
+        _build, gausslq, gaussmle, imageprocess, localize, postprocess,
+    )
     from picasso_torch.ops import (
         fused, identify, identify_cuda, lq, lq_cuda, mle, mle_cuda,
+        winfit_cuda,
     )
-    from torch_data import make_bench_movie, make_spots
+    from torch_data import make_bench_movie, make_spots, spots_chunk
     from torch_parity import compare_fits, compare_hits, compare_lq_fits
 
     dev = torch.device("cuda")
@@ -192,6 +243,7 @@ def main() -> int:
     spots_np = spots_t.cpu().numpy()
     as_np = lambda out: [a.cpu().numpy() for a in out]  # noqa: E731
     ms, stats, bounds = {}, {}, {}
+    ref = {}  # method -> (plain, K1, K2) on make_spots
     for method in ("sigmaxy", "sigma"):
         tag = "" if method == "sigmaxy" else " sigma"
         plain = as_np(mle._fit_core(spots_t, EPS, MAX_IT, method))
@@ -199,10 +251,9 @@ def main() -> int:
         torch.cuda.synchronize()
         stats["K1" + tag] = compare_fits(plain, k1, MAX_IT, f"K1{tag} vs plain")
         k2 = as_np(mle_cuda.fit_boundary_t(spots_t, EPS, MAX_IT, method))
-        for a, b, name in zip(k1, k2, ("theta", "crlb", "ll", "iters")):
-            if not np.array_equal(a, b, equal_nan=True):
-                raise AssertionError(f"K2{tag} != K1{tag} bit for bit ({name})")
+        _assert_equal(k1, k2, f"K2{tag} vs K1{tag}")
         stats["K2" + tag] = compare_fits(plain, k2, MAX_IT, f"K2{tag} vs plain")
+        ref[method] = plain, k1, k2
         print(f"K1{tag} vs plain:", json.dumps(stats["K1" + tag]))
         print(f"K2{tag} vs plain:", json.dumps(stats["K2" + tag]),
               f"| K2{tag} == K1{tag} bit for bit")
@@ -243,6 +294,90 @@ def main() -> int:
           f"{ms['K6']:.3f} ms, plain {ms['plain_lq']:.3f} ms, bound "
           f"{bounds['K3'][0]:.4f} ms ({bounds['K3'][1]})")
 
+    # K5 on the same spots laid out as u16 and f32 frame chunks: with
+    # baseline 0 and factor 1 its photons are the spots themselves, so it
+    # equals K1 (one pass), K2 (phases) and K3 bit for bit
+    def upload_chunk(dtype):
+        frames, hits = spots_chunk(spots, dtype)
+        return (torch.from_numpy(frames).to(dev),
+                [torch.from_numpy(h).to(dev) for h in hits])
+
+    for dt in (np.uint16, np.float32):
+        win, hits = upload_chunk(dt)
+        name = np.dtype(dt).name
+        for method in ("sigmaxy", "sigma"):
+            tag = "" if method == "sigmaxy" else " sigma"
+            kw = dict(box=BOX, eps=EPS, max_it=MAX_IT, method=method)
+            plain, k1, k2 = ref[method]
+            _assert_equal(as_np(winfit_cuda.fit_mle_t(win, *hits, 0.0, 1.0,
+                                                      **kw)),
+                          k1, f"K5{tag} one pass ({name}) vs K1{tag}")
+            k5 = as_np(winfit_cuda.fit_mle_boundary_t(win, *hits, 0.0, 1.0,
+                                                      **kw))
+            _assert_equal(k5, k2, f"K5{tag} phases ({name}) vs K2{tag}")
+            stats["K5" + tag] = compare_fits(plain, k5, MAX_IT,
+                                             f"K5{tag} ({name}) vs plain")
+        k5lq = winfit_cuda.fit_lq_t(win, *hits, 0.0, 1.0, box=BOX,
+                                    max_it=MAX_IT, ftol=FTOL).cpu().numpy()
+        if not np.array_equal(k5lq, k3, equal_nan=True):
+            raise AssertionError(f"K5 lq ({name}) != K3 bit for bit")
+        stats["K5 lq"] = compare_lq_fits(plain_lq, k5lq, spots_np,
+                                         f"K5 lq ({name}) vs plain")
+        print(f"K5 on make_spots as a {name} chunk {tuple(win.shape)}: "
+              "== K1 and K2 (sigmaxy, sigma) and K3 bit for bit")
+    for key in ("K5", "K5 sigma", "K5 lq"):
+        print(f"{key} vs plain:", json.dumps(stats[key]))
+    win, hits = upload_chunk(np.uint16)
+    for method in ("sigmaxy", "sigma"):
+        tag = "" if method == "sigmaxy" else " sigma"
+        kw = dict(box=BOX, eps=EPS, max_it=MAX_IT, method=method)
+        ms["K5" + tag] = _median_ms(
+            lambda: winfit_cuda.fit_mle_boundary_t(win, *hits, 0.0, 1.0, **kw))
+        ms["K5 one pass" + tag] = _median_ms(
+            lambda: winfit_cuda.fit_mle_t(win, *hits, 0.0, 1.0, **kw))
+        ms["plain K5" + tag] = _median_ms(lambda: mle._fit_core(
+            winfit_cuda.photons_t(win, *hits, BOX, 0.0, 1.0), EPS, MAX_IT,
+            method))
+        bounds["K5" + tag] = _fit_bound(
+            N_SPOTS, float(ref[method][1][3].sum()), mle_flops_per_spot_iter,
+            56, K5_IN_BYTES)
+        bounds["K5 one pass" + tag] = bounds["K5" + tag]
+        print(f"K5{tag} fit {N_SPOTS} spots from the u16 chunk: phases "
+              f"{ms['K5' + tag]:.3f} ms, one pass "
+              f"{ms['K5 one pass' + tag]:.3f} ms, plain (cut + photons + "
+              f"plain fit) {ms['plain K5' + tag]:.3f} ms, bound "
+              f"{bounds['K5' + tag][0]:.4f} ms ({bounds['K5' + tag][1]})")
+    ms["K5 lq"] = _median_ms(lambda: winfit_cuda.fit_lq_t(
+        win, *hits, 0.0, 1.0, box=BOX, max_it=MAX_IT, ftol=FTOL))
+    ms["plain K5 lq"] = _median_ms(lambda: lq._lm_core(
+        winfit_cuda.photons_t(win, *hits, BOX, 0.0, 1.0), MAX_IT, FTOL))
+    bounds["K5 lq"] = _fit_bound(N_SPOTS, float(lq_it.sum()),
+                                 lq_flops_per_spot_iter, 24, K5_IN_BYTES)
+    print(f"K5 lq fit {N_SPOTS} spots from the u16 chunk: {ms['K5 lq']:.3f}"
+          f" ms, plain {ms['plain K5 lq']:.3f} ms, bound "
+          f"{bounds['K5 lq'][0]:.4f} ms ({bounds['K5 lq'][1]})")
+    del win, hits
+
+    # K7: the sigmaxy fit in rounds of ROUND_IT, a schedule of K2's modes
+    before = mle_cuda.fit_multiround_t.launches
+    k7 = as_np(mle_cuda.fit_multiround_t(spots_t, EPS, MAX_IT, ROUND_IT))
+    k7_calls = mle_cuda.fit_multiround_t.launches - before
+    _assert_equal(k7, ref["sigmaxy"][1], "K7 vs K1")
+    _assert_equal(as_np(_plain_multiround(spots_t, MAX_IT)),
+                  ref["sigmaxy"][0], "plain K7 vs the plain fit")
+    stats["K7"] = compare_fits(ref["sigmaxy"][0], k7, MAX_IT, "K7 vs plain")
+    if k7_calls != 13:
+        raise AssertionError(f"K7 took {k7_calls} launches, not 13")
+    ms["K7"] = _median_ms(
+        lambda: mle_cuda.fit_multiround_t(spots_t, EPS, MAX_IT, ROUND_IT))
+    ms["plain K7"] = _median_ms(lambda: _plain_multiround(spots_t, MAX_IT))
+    bounds["K7"] = bounds["K1"]
+    print(f"K7 (rounds of {ROUND_IT}, {k7_calls} launches a fit) == K1 bit "
+          f"for bit, plain K7 == plain fit; fit {N_SPOTS} spots: K7 "
+          f"{ms['K7']:.3f} ms, plain {ms['plain K7']:.3f} ms, bound "
+          f"{bounds['K7'][0]:.4f} ms ({bounds['K7'][1]}); K7 vs plain:",
+          json.dumps(stats["K7"]))
+
     t0 = time.perf_counter()
     movie = make_bench_movie(2048, 256, 1200, 0.5, np.random.default_rng(13))
     print(f"movie {movie.shape} {movie.dtype}: "
@@ -279,7 +414,18 @@ def main() -> int:
     params = {"Min. Net Gradient": MIN_NG, "Box Size": BOX}
     counters = {"K1": mle_cuda.fit_t, "K2": mle_cuda.fit_boundary_t,
                 "K3": lq_cuda.fit_t, "K6": lq_cuda.fit_boundary_t,
-                "K4": identify_cuda.identify_tiles}
+                "K4": identify_cuda.identify_tiles,
+                "K5 mle one pass": winfit_cuda.fit_mle_t,
+                "K5 mle phases": winfit_cuda.fit_mle_boundary_t,
+                "K5 lq": winfit_cuda.fit_lq_t,
+                "K7": mle_cuda.fit_multiround_t}
+
+    def check_route(what: str, launches: dict, fit: str) -> None:
+        """K4 and the fit ``fit`` launched on the slice, no other fit."""
+        idle = [k for k, v in launches.items() if v and k not in ("K4", fit)]
+        if min(launches["K4"], launches[fit]) <= 0 or idle:
+            raise AssertionError(f"{what} slice did not run through K4 and "
+                                 f"{fit} only: {launches}")
 
     def run_slice(fitting_method: str, **kw):
         """One localize call on the card with every count set to 0 just
@@ -306,11 +452,11 @@ def main() -> int:
 
     # 4. the MLE slice ---------------------------------------------------
     locs, wall, launches_mle = run_slice("gaussmle")
-    # the main path fits through the phase schedule (K2), as the JAX
-    # package does; the single-pass mode (K1) is not on it
-    if min(launches_mle["K2"], launches_mle["K4"]) <= 0 or len(locs) == 0:
-        raise AssertionError(f"MLE slice did not run through every kernel: "
-                             f"{launches_mle}, {len(locs)} locs")
+    # the main path fits through K5 in the phase schedule (ops/fused.py);
+    # the gather route's K1/K2 and K5's single pass are not on it
+    check_route("MLE", launches_mle, "K5 mle phases")
+    if len(locs) == 0:
+        raise AssertionError("MLE slice found no locs")
     for name in ("x", "y", "photons", "sx", "sy", "bg"):
         if not np.isfinite(locs[name]).all():
             raise AssertionError(f"slice: non-finite {name}")
@@ -336,8 +482,7 @@ def main() -> int:
     f, y, x, ng = identify.compact(
         *identify.identify_tiles_plain(chunk, MIN_NG, BOX), BOX
     )
-    roi = fused.cut_rois_t(chunk, f, y, x, BOX).to(torch.float32)
-    dense = roi.contiguous()
+    dense = winfit_cuda.photons_t(chunk, f, y, x, BOX, 0.0, 1.0)
     pl = [a.cpu().numpy() for a in
           (f, y, x, ng, *mle._fit_core(dense, EPS, MAX_IT))]
     pairs = compare_hits(pl[:4], ker[:4], MIN_NG, "slice chunk 0 hits")
@@ -351,57 +496,71 @@ def main() -> int:
           f"{len(ker[0])} kernel hits, {len(pairs)} matched;",
           json.dumps(chunk_stats))
 
-    # K1 against K2 on the chunk's real ROIs, where some spots run to
-    # max_it: same results, and the time the phase schedule saves
-    k1d = as_np(mle_cuda.fit_t(dense, EPS, MAX_IT))
-    k2d = as_np(mle_cuda.fit_boundary_t(dense, EPS, MAX_IT))
-    for a, b, name in zip(k1d, k2d, ("theta", "crlb", "ll", "iters")):
-        if not np.array_equal(a, b, equal_nan=True):
-            raise AssertionError(f"chunk 0: K2 != K1 bit for bit ({name})")
-    dense_ms = [
-        _median_ms(lambda: mle_cuda.fit_t(dense, EPS, MAX_IT)),
-        _median_ms(lambda: mle_cuda.fit_boundary_t(dense, EPS, MAX_IT)),
-        _median_ms(lambda: mle_cuda.fit_boundary_t(dense, EPS, MAX_IT)),
-        _median_ms(lambda: mle_cuda.fit_t(dense, EPS, MAX_IT)),
-    ]
-    it = k1d[3]
-    print(f"chunk 0 ROIs ({dense.shape[-1]} spots, iterations p50 "
-          f"{np.percentile(it, 50):.0f} p90 {np.percentile(it, 90):.0f}, "
-          f"{np.mean(it == MAX_IT):.4f} at max_it): K2 == K1 bit for bit; "
-          f"ms in turn K1 {dense_ms[0]:.3f}, K2 {dense_ms[1]:.3f}, "
-          f"K2 {dense_ms[2]:.3f}, K1 {dense_ms[3]:.3f}")
-    # the same for the sigma method (mle_method="sigma" of the MLE path)
-    k1s = as_np(mle_cuda.fit_t(dense, EPS, MAX_IT, "sigma"))
-    k2s = as_np(mle_cuda.fit_boundary_t(dense, EPS, MAX_IT, "sigma"))
-    for a, b, name in zip(k1s, k2s, ("theta", "crlb", "ll", "iters")):
-        if not np.array_equal(a, b, equal_nan=True):
-            raise AssertionError(f"chunk 0: K2 sigma != K1 sigma ({name})")
-    sig_ms = [
-        _median_ms(lambda: mle_cuda.fit_t(dense, EPS, MAX_IT, "sigma")),
-        _median_ms(lambda: mle_cuda.fit_boundary_t(dense, EPS, MAX_IT,
-                                                   "sigma")),
-        _median_ms(lambda: mle_cuda.fit_boundary_t(dense, EPS, MAX_IT,
-                                                   "sigma")),
-        _median_ms(lambda: mle_cuda.fit_t(dense, EPS, MAX_IT, "sigma")),
-    ]
-    it = k1s[3]
-    print(f"chunk 0 ROIs sigma (iterations p50 {np.percentile(it, 50):.0f} "
-          f"p90 {np.percentile(it, 90):.0f}, {np.mean(it == MAX_IT):.4f} at "
-          f"max_it): K2 == K1 bit for bit; ms in turn K1 {sig_ms[0]:.3f}, "
-          f"K2 {sig_ms[1]:.3f}, K2 {sig_ms[2]:.3f}, K1 {sig_ms[3]:.3f}")
+    # K5 against the gather route on the chunk's real hits, where some
+    # spots run to max_it: K5 in phases from the u16 and the f32 chunk
+    # and in one pass equal cut + photons + K2 (== K1) bit for bit, at
+    # the slice's camera constants and at baseline 1.5, factor 0.8; then
+    # the routes in turns: (A) cut + photons + K2, (B) K5 in phases, (C)
+    # K5 in one pass
+    hits_k = identify.compact(
+        *identify_cuda.identify_tiles(chunk, MIN_NG, BOX), BOX)[:3]
+    chunk32 = chunk.to(torch.float32)
+    rois = {}
+    for method in ("sigmaxy", "sigma"):
+        kw = dict(box=BOX, eps=EPS, max_it=MAX_IT, method=method)
+        for b, c in ((0.0, 1.0), (1.5, 0.8)):
+            what = f"chunk 0 {method} (baseline {b}, factor {c})"
+            r = winfit_cuda.photons_t(chunk, *hits_k, BOX, b, c)
+            k2g = as_np(mle_cuda.fit_boundary_t(r, EPS, MAX_IT, method))
+            _assert_equal(as_np(mle_cuda.fit_t(r, EPS, MAX_IT, method)), k2g,
+                          f"{what}: K1 vs K2")
+            _assert_equal(as_np(winfit_cuda.fit_mle_t(chunk, *hits_k, b, c,
+                                                      **kw)),
+                          k2g, f"{what}: K5 one pass vs cut + photons + K1")
+            for src in (chunk, chunk32):
+                _assert_equal(as_np(winfit_cuda.fit_mle_boundary_t(
+                    src, *hits_k, b, c, **kw)), k2g,
+                    f"{what}: K5 phases ({src.dtype}) vs cut + photons + K2")
+            if b == 0.0:
+                rois[method], it = r, k2g[3]
+        routes = (
+            lambda: mle_cuda.fit_boundary_t(winfit_cuda.photons_t(
+                chunk, *hits_k, BOX, 0.0, 1.0), EPS, MAX_IT, method),
+            lambda: winfit_cuda.fit_mle_boundary_t(chunk, *hits_k, 0.0, 1.0,
+                                                   **kw),
+            lambda: winfit_cuda.fit_mle_t(chunk, *hits_k, 0.0, 1.0, **kw),
+        )
+        route_ms = _turns(routes[i] for i in (0, 1, 2, 2, 1, 0))
+        print(f"chunk 0 {method} ({len(it)} hits, iterations p50 "
+              f"{np.percentile(it, 50):.0f} p90 {np.percentile(it, 90):.0f}, "
+              f"{np.mean(it == MAX_IT):.4f} at max_it): K5 (u16, f32, one "
+              f"pass, phases) == cut + photons + K2 == K1 bit for bit; route "
+              f"ms in turn A gather+K2, B K5 phases, C K5 one pass, C, B, A: "
+              f"{[round(t, 4) for t in route_ms]}")
+
+    # K7 on the chunk's ROIs: == K1 bit for bit, timed in turns with K2
+    k7d = as_np(mle_cuda.fit_multiround_t(rois["sigmaxy"], EPS, MAX_IT,
+                                          ROUND_IT))
+    _assert_equal(k7d, as_np(mle_cuda.fit_t(rois["sigmaxy"], EPS, MAX_IT)),
+                  "chunk 0: K7 vs K1")
+    routes = (
+        lambda: mle_cuda.fit_boundary_t(rois["sigmaxy"], EPS, MAX_IT),
+        lambda: mle_cuda.fit_multiround_t(rois["sigmaxy"], EPS, MAX_IT,
+                                          ROUND_IT),
+    )
+    k7_ms = _turns(routes[i] for i in (0, 1, 1, 0))
+    print(f"chunk 0 ROIs: K7 == K1 bit for bit; ms in turn K2, K7, K7, K2: "
+          f"{[round(t, 4) for t in k7_ms]}")
 
     # the stages of one chunk on the card, each alone
-    fk, yk, xk, _ = identify.compact(
-        *identify_cuda.identify_tiles(chunk, MIN_NG, BOX), BOX)
     tiles = identify_cuda.identify_tiles(chunk, MIN_NG, BOX)
     stages = {
         "upload": lambda: identify.upload_frames(movie[:CHUNK], dev),
         "K4 identify": lambda: identify_cuda.identify_tiles(
             chunk, MIN_NG, BOX),
         "compact": lambda: identify.compact(*tiles, BOX),
-        "cut+photons": lambda: fused.cut_rois_t(
-            chunk, fk, yk, xk, BOX).to(torch.float32).contiguous(),
-        "K2 fit": lambda: mle_cuda.fit_boundary_t(dense, EPS, MAX_IT),
+        "K5 fit (phases)": lambda: winfit_cuda.fit_mle_boundary_t(
+            chunk, *hits_k, 0.0, 1.0, box=BOX, eps=EPS, max_it=MAX_IT),
         "packed chunk + readback": lambda: fused.identify_cut_fit_packed(
             chunk, MIN_NG, 0.0, 1.0, box=BOX, eps=EPS, max_it=MAX_IT,
         ).cpu(),
@@ -411,11 +570,8 @@ def main() -> int:
 
     # 5. the MLE slice with mle_method="sigma" ---------------------------
     locs_sig, _, launches_sig = run_slice("gaussmle", mle_method="sigma")
-    # the same route as sigmaxy: K4, then K2 in its sigma mode
-    if (min(launches_sig["K2"], launches_sig["K4"]) <= 0 or not len(locs_sig)
-            or launches_sig["K1"] or launches_sig["K3"] or launches_sig["K6"]):
-        raise AssertionError(f"sigma slice did not run through K4 and K2 "
-                             f"only: {launches_sig}, {len(locs_sig)} locs")
+    # the same route as sigmaxy: K4, then K5 in phases in its sigma mode
+    check_route("sigma", launches_sig, "K5 mle phases")
     if not np.array_equal(locs_sig["sx"], locs_sig["sy"]):
         raise AssertionError("sigma slice: sx != sy, not the sigma fit")
     ker_s = [a.cpu().numpy() for a in fused.identify_cut_fit(
@@ -439,11 +595,10 @@ def main() -> int:
 
     # 6. the LQ slice ----------------------------------------------------
     locs_lq, wall_lq, launches_lq = run_slice("gausslq")
-    # the LQ route is K3 (ops/fused.py); K6 is off the main path
-    if (min(launches_lq["K3"], launches_lq["K4"]) <= 0 or launches_lq["K6"]
-            or not len(locs_lq)):
-        raise AssertionError(f"LQ slice did not run through K4 and K3 only: "
-                             f"{launches_lq}, {len(locs_lq)} locs")
+    # the LQ route is K5 in one pass (ops/fused.py); K3 and K6 are off it
+    check_route("LQ", launches_lq, "K5 lq")
+    if not len(locs_lq):
+        raise AssertionError("LQ slice found no locs")
     t0 = time.perf_counter()
     ids, fits = fused.localize_fused(movie, MIN_NG, BOX, camera,
                                      fitting_method="gausslq", device="cuda")
@@ -470,40 +625,108 @@ def main() -> int:
     print(f"LQ slice chunk 0 vs plain: {len(pairs)} matched hits;",
           json.dumps(lq_chunk_stats))
 
-    # K3 against K6 on the chunk's real ROIs, in turns
-    k3d = lq_cuda.fit_t(dense, MAX_IT, FTOL).cpu().numpy()
-    k6d = lq_cuda.fit_boundary_t(dense, MAX_IT, FTOL).cpu().numpy()
-    if not np.array_equal(k3d, k6d, equal_nan=True):
+    # K5 against the gather route (cut + photons + K3) on the chunk's
+    # hits, from u16 and f32 frames, at two camera constants; then the
+    # routes in turns, and K3 against K6, on the chunk's ROIs
+    lq_kw = dict(box=BOX, max_it=MAX_IT, ftol=FTOL)
+    for b, c in ((0.0, 1.0), (1.5, 0.8)):
+        k3g = lq_cuda.fit_t(winfit_cuda.photons_t(chunk, *hits_k, BOX, b, c),
+                            MAX_IT, FTOL).cpu().numpy()
+        for src in (chunk, chunk32):
+            k5g = winfit_cuda.fit_lq_t(src, *hits_k, b, c, **lq_kw)
+            if not np.array_equal(k5g.cpu().numpy(), k3g, equal_nan=True):
+                raise AssertionError(f"chunk 0 lq (baseline {b}, factor {c})"
+                                     f": K5 ({src.dtype}) != cut + photons +"
+                                     " K3 bit for bit")
+    r = rois["sigmaxy"]
+    k6d = lq_cuda.fit_boundary_t(r, MAX_IT, FTOL).cpu().numpy()
+    if not np.array_equal(lq_cuda.fit_t(r, MAX_IT, FTOL).cpu().numpy(), k6d,
+                          equal_nan=True):
         raise AssertionError("chunk 0: K6 != K3 bit for bit")
-    lq_dense_ms = [
-        _median_ms(lambda: lq_cuda.fit_t(dense, MAX_IT, FTOL)),
-        _median_ms(lambda: lq_cuda.fit_boundary_t(dense, MAX_IT, FTOL)),
-        _median_ms(lambda: lq_cuda.fit_boundary_t(dense, MAX_IT, FTOL)),
-        _median_ms(lambda: lq_cuda.fit_t(dense, MAX_IT, FTOL)),
-    ]
-    it = _lq_iters(dense, MAX_IT)
-    chunk_bound = _fit_bound(dense.shape[-1], float(it.sum()),
-                             lq_flops_per_spot_iter, 24)
-    print(f"chunk 0 ROIs ({dense.shape[-1]} spots, LM iterations p50 "
+    routes = (
+        lambda: lq_cuda.fit_t(winfit_cuda.photons_t(
+            chunk, *hits_k, BOX, 0.0, 1.0), MAX_IT, FTOL),
+        lambda: winfit_cuda.fit_lq_t(chunk, *hits_k, 0.0, 1.0, **lq_kw),
+        lambda: lq_cuda.fit_t(r, MAX_IT, FTOL),
+        lambda: lq_cuda.fit_boundary_t(r, MAX_IT, FTOL),
+    )
+    lq_route_ms = _turns(routes[i] for i in (0, 1, 1, 0))
+    k6_ms = _turns(routes[i] for i in (2, 3, 3, 2))
+    it = _lq_iters(r, MAX_IT)
+    chunk_bound = _fit_bound(r.shape[-1], float(it.sum()),
+                             lq_flops_per_spot_iter, 24, K5_IN_BYTES)
+    print(f"chunk 0 lq ({r.shape[-1]} hits, LM iterations p50 "
           f"{np.percentile(it, 50):.0f} p90 {np.percentile(it, 90):.0f} p99 "
           f"{np.percentile(it, 99):.0f}, {np.mean(it == MAX_IT):.4f} at "
-          f"max_it, mean {it.mean():.2f}): K6 == K3 bit for bit; ms in turn "
-          f"K3 {lq_dense_ms[0]:.3f}, K6 {lq_dense_ms[1]:.3f}, K6 "
-          f"{lq_dense_ms[2]:.3f}, K3 {lq_dense_ms[3]:.3f}; bound "
-          f"{chunk_bound[0]:.4f} ms ({chunk_bound[1]})")
+          f"max_it, mean {it.mean():.2f}): K5 (u16, f32) == cut + photons + "
+          f"K3 bit for bit, K6 == K3 bit for bit; route ms in turn A "
+          f"gather+K3, B K5, B, A: {[round(t, 4) for t in lq_route_ms]}; "
+          f"on the ROIs K3, K6, K6, K3: {[round(t, 4) for t in k6_ms]}; K5 "
+          f"bound {chunk_bound[0]:.4f} ms ({chunk_bound[1]})")
     stages = {
         "K4 identify": lambda: identify_cuda.identify_tiles(
             chunk, MIN_NG, BOX),
         "compact": lambda: identify.compact(*tiles, BOX),
-        "cut+photons": lambda: fused.cut_rois_t(
-            chunk, fk, yk, xk, BOX).to(torch.float32).contiguous(),
-        "K3 fit": lambda: lq_cuda.fit_t(dense, MAX_IT, FTOL),
+        "K5 fit": lambda: winfit_cuda.fit_lq_t(chunk, *hits_k, 0.0, 1.0,
+                                               **lq_kw),
         "packed chunk + readback": lambda: fused.identify_cut_fit_packed(
             chunk, MIN_NG, 0.0, 1.0, box=BOX, eps=EPS, max_it=MAX_IT,
             method="lq").cpu(),
     }
     print("LQ chunk stages (ms, median of 5):", json.dumps(
         {k: round(_median_ms(fn), 4) for k, fn in stages.items()}))
+
+    # 7. RCC undrift on the card -----------------------------------------
+    # the MLE slice's locs with a known drift added: +0.8 px linear in x
+    # and a 0.5 px sine in y over the movie; segments of SEGMENTATION
+    # frames (16 segments, 120 pairs at 256x256)
+    n_frames = len(movie)
+    info = [{"Frames": n_frames, "Height": movie.shape[1],
+             "Width": movie.shape[2]}]
+    t_frame = np.arange(n_frames, dtype=np.float64)
+    inj = {"x": 0.8 * t_frame / (n_frames - 1),
+           "y": 0.5 * np.sin(2 * np.pi * t_frame / (n_frames - 1))}
+    drifted = locs.copy()
+    for c in ("x", "y"):
+        drifted[c] += inj[c][locs["frame"]].astype(np.float32)
+    # the wall split: the steps of postprocess.undrift one by one (the
+    # first run on the card, so it includes cuFFT's plan)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, segs = postprocess.segment(
+        drifted, info, SEGMENTATION,
+        {"blur_method": "gaussian", "min_blur_width": 1}, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    crops, offsets = imageprocess.pair_xcorrs(segs, 32)
+    t2 = time.perf_counter()
+    empty = (segs.sum(dim=(1, 2)) == 0).cpu().numpy()
+    imageprocess.peak_shifts(crops, offsets, tuple(segs.shape[1:]), empty)
+    t3 = time.perf_counter()
+    drift_g, undrifted = postprocess.undrift(drifted, info, SEGMENTATION,
+                                             device="cuda")
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    drift_c, _ = postprocess.undrift(drifted, info, SEGMENTATION,
+                                     device="cpu")
+    t5 = time.perf_counter()
+    wall_g, wall_c = t4 - t3, t5 - t4
+    resid, agree = {}, {}
+    for c in ("x", "y"):
+        d = drift_g[c] - inj[c]
+        resid[c] = float(np.sqrt(np.mean((d - d.mean()) ** 2)))
+        agree[c] = float(np.abs(drift_g[c] - drift_c[c]).max())
+    print(f"undrift {len(drifted)} locs, {len(segs)} segments of "
+          f"{SEGMENTATION} frames, {len(crops)} pairs: card {wall_g:.3f} s "
+          f"(render {t1 - t0:.3f} s, pair FFTs {t2 - t1:.3f} s, peak fits "
+          f"{t3 - t2:.3f} s), CPU {wall_c:.3f} s; residual RMS after the "
+          f"offset x {resid['x']:.5f} y {resid['y']:.5f} px; card vs CPU "
+          f"max |d drift| x {agree['x']:.3g} y {agree['y']:.3g} px")
+    if max(resid.values()) > DRIFT_RESID or max(agree.values()) > DRIFT_AGREE:
+        raise AssertionError("undrift did not recover the injected drift or "
+                             "disagrees with the CPU")
+    if not (np.isfinite(undrifted["x"]).all() and len(undrifted) == len(locs)):
+        raise AssertionError("undrift: locs lost or not finite")
 
     # the kernels line -----------------------------------------------------
     def entry(key, name, source, replaces, launches, path, err, plain):
@@ -515,21 +738,42 @@ def main() -> int:
 
     mle_src, lq_src = ("picasso_torch/csrc/mle_fit.cu",
                        "picasso_torch/csrc/lq_fit.cu")
+    win_src = "picasso_torch/csrc/winfit_mle.cu"
     kernels = [
-        entry("K2", "K2 mle_fit sigmaxy (phases 16/50/100)", mle_src,
-              "picasso_tpu/ops/mle_pallas.py:256", launches_mle["K2"],
-              "mle", stats["K2"]["xy_max_all"], "plain_fit"),
-        entry("K2 sigma", "K2 mle_fit sigma (phases 16/50/100)", mle_src,
-              "picasso_tpu/ops/mle_pallas.py:256", launches_sig["K2"],
-              "mle-sigma", stats["K2 sigma"]["xy_max_all"],
-              "plain_fit sigma"),
+        entry("K5", "K5 winfit_mle sigmaxy (phases 16/50/100)", win_src,
+              "picasso_tpu/ops/winfit_pallas.py:108",
+              launches_mle["K5 mle phases"], "mle",
+              stats["K5"]["xy_max_all"], "plain K5"),
+        entry("K5 sigma", "K5 winfit_mle sigma (phases 16/50/100)", win_src,
+              "picasso_tpu/ops/winfit_pallas.py:108",
+              launches_sig["K5 mle phases"], "mle-sigma",
+              stats["K5 sigma"]["xy_max_all"], "plain K5 sigma"),
+        entry("K5 lq", "K5 winfit_lq (single pass)",
+              "picasso_torch/csrc/winfit_lq.cu",
+              "picasso_tpu/ops/winfit_pallas.py:96", launches_lq["K5 lq"],
+              "lq", stats["K5 lq"]["xy_p100"], "plain K5 lq"),
         entry("K4", "K4 identify_tiles", "picasso_torch/csrc/identify.cu",
               "picasso_tpu/ops/identify_pallas.py:58",
               launches_mle["K4"] + launches_sig["K4"] + launches_lq["K4"],
               "mle+mle-sigma+lq", k4_err, "plain_identify"),
+        entry("K5 one pass", "K5 winfit_mle sigmaxy (single pass)", win_src,
+              "picasso_tpu/ops/winfit_pallas.py:108",
+              launches_mle["K5 mle one pass"], "off",
+              stats["K1"]["xy_max_all"], "plain K5"),
+        entry("K5 one pass sigma", "K5 winfit_mle sigma (single pass)",
+              win_src, "picasso_tpu/ops/winfit_pallas.py:108",
+              launches_sig["K5 mle one pass"], "off",
+              stats["K1 sigma"]["xy_max_all"], "plain K5 sigma"),
+        entry("K2", "K2 mle_fit sigmaxy (phases 16/50/100)", mle_src,
+              "picasso_tpu/ops/mle_pallas.py:256", launches_mle["K2"],
+              "off (gather route)", stats["K2"]["xy_max_all"], "plain_fit"),
+        entry("K2 sigma", "K2 mle_fit sigma (phases 16/50/100)", mle_src,
+              "picasso_tpu/ops/mle_pallas.py:256", launches_sig["K2"],
+              "off (gather route)", stats["K2 sigma"]["xy_max_all"],
+              "plain_fit sigma"),
         entry("K3", "K3 lq_fit (single pass)", lq_src,
-              "picasso_tpu/ops/lq_pallas.py:25", launches_lq["K3"], "lq",
-              stats["K3"]["xy_p100"], "plain_lq"),
+              "picasso_tpu/ops/lq_pallas.py:25", launches_lq["K3"],
+              "off (gather route)", stats["K3"]["xy_p100"], "plain_lq"),
         entry("K6", "K6 lq_fit (phases 16/50/100)", lq_src,
               "picasso_tpu/ops/lq_pallas.py:93", launches_lq["K6"], "off",
               stats["K6"]["xy_p100"], "plain_lq"),
@@ -539,6 +783,9 @@ def main() -> int:
         entry("K1 sigma", "K1 mle_fit sigma (single pass)", mle_src,
               "picasso_tpu/ops/mle_pallas.py:36", launches_sig["K1"], "off",
               stats["K1 sigma"]["xy_max_all"], "plain_fit sigma"),
+        entry("K7", f"K7 mle_fit sigmaxy (rounds of {ROUND_IT})", mle_src,
+              "picasso_tpu/ops/mle_pallas.py:511", launches_mle["K7"], "off",
+              stats["K7"]["xy_max_all"], "plain K7"),
     ]
     print(f"smoke: {time.perf_counter() - t_start:.1f} s after the start")
     print(json.dumps({"kernels": kernels}))

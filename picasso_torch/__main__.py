@@ -2,11 +2,15 @@
 
 Counterpart of picasso_tpu/__main__.py for the verbs ported so far:
 
-    python -m picasso_torch localize movie.raw -d 0 [-a mle|lq|lq-gpu]
+    python -m picasso_torch localize movie.raw [-d 1000] [-a mle|lq|lq-gpu]
         [--device cuda|cpu]
 
 ``localize`` takes the JAX CLI's flags and defaults plus ``--device``
 (default ``cuda``; without a card it raises rather than run on the CPU).
+After saving ``<movie>_locs.hdf5`` it runs RCC drift correction with
+segments of ``-d`` frames (default 1000, 0 to skip), writing
+``<movie>_locs_drift.txt`` and ``<movie>_locs_undrift.hdf5``, as the JAX
+CLI does.
 """
 
 from __future__ import annotations
@@ -19,15 +23,9 @@ import os
 # -a choices to localize's fitting_method (picasso_tpu/__main__.py:69-77);
 # avg and the -3d methods are not ported yet
 _METHOD_MAP = {"mle": "gaussmle", "lq": "gausslq", "lq-gpu": "gausslq-gpu"}
-_UNDRIFT_TODO = (
-    "RCC undrift (-d/--drift > 0) is not ported yet (ROADMAP queue 1, "
-    "next: RCC undrift for the CLI default -d 1000); pass -d 0"
-)
 
 
 def _localize(args, parser):
-    if args.drift > 0:
-        parser.error(_UNDRIFT_TODO)
     if args.fit_method not in _METHOD_MAP:
         parser.error(
             f"-a {args.fit_method} is not ported yet (ROADMAP queue 1 "
@@ -40,7 +38,7 @@ def _localize(args, parser):
     if args.files is None:
         parser.error("localize needs a movie file or pattern")
 
-    from picasso_torch import io, lib, localize
+    from picasso_torch import io, lib, localize, postprocess
 
     device = lib.resolve_device(args.device)
     camera_info = {
@@ -80,6 +78,33 @@ def _localize(args, parser):
         out = os.path.splitext(path)[0] + "_locs" + args.suffix + ".hdf5"
         io.save_locs(out, locs, new_info)
         print(f"Saved {len(locs)} locs to {out}")
+        if args.drift > 0:
+            # The JAX CLI prints every exception of its undrift and goes
+            # on; the port only the movie shorter than two segments, so
+            # that a fault of the card cannot end in exit 0.
+            try:
+                postprocess.n_segments(new_info, args.drift)
+            except ValueError as e:
+                print(f"RCC undrift failed: {e}")
+            else:
+                _undrift_rcc_single(out, args.drift, device)
+
+
+def _undrift_rcc_single(path: str, segmentation: int, device):
+    """RCC undrift of a saved locs file (picasso_tpu/__main__.py:166):
+    ``<base>_drift.txt`` and ``<base>_undrift.hdf5`` beside it."""
+    from picasso_torch import io, postprocess
+
+    locs, info = io.load_locs(path)
+    drift, locs = postprocess.undrift(locs, info, segmentation,
+                                      device=device)
+    base = os.path.splitext(path)[0]
+    io.save_drift(base + "_drift.txt", drift)
+    new_info = info + [{"Generated by": "Picasso Undrift RCC",
+                        "Segmentation": segmentation}]
+    out = base + "_undrift.hdf5"
+    io.save_locs(out, locs, new_info)
+    print(f"Undrifted -> {out}")
 
 
 @contextlib.contextmanager

@@ -49,6 +49,21 @@ SIGNATURES = {
         _P, _P, _P, _P,                        # theta (carry or out), lam, cost, done
         _P,                                    # stream
     ],
+    "picasso_winfit_mle": [
+        _P, _I, _LL, _LL, _LL,                 # frames, dtype, B, Y, X
+        _P, _LL, _I, _F, _F,                   # hits, n, box, baseline, factor
+        _F, _I, _I, _I,                        # eps, k, mode, method
+        _P, _P, _P, _P, _P,                    # carry: theta old done iters max_step
+        _P, _P, _P, _P,                        # out: theta, crlb, ll, iters
+        _P,                                    # stream
+    ],
+    "picasso_winfit_lq": [
+        _P, _I, _LL, _LL, _LL,                 # frames, dtype, B, Y, X
+        _P, _LL, _I, _F, _F,                   # hits, n, box, baseline, factor
+        _F, _I,                                # ftol, k
+        _P,                                    # theta out
+        _P,                                    # stream
+    ],
     "picasso_identify_tiles": [
         _P, _I, _LL, _LL, _LL, _I, _F,         # frames, dtype, B, Y, X, box, min_ng
         _P, _P, _P,                            # tile mask, loc, ng

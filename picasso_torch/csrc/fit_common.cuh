@@ -1,0 +1,93 @@
+// What the fit kernels share (sm_90a): the kernel modes, NaN-propagating
+// max / min / sign, and the two pixel sources a fit body reads through.
+//
+// A fit body (fit_mle.cuh, fit_lq.cuh) reads its spot's box x box photons
+// only as src(y, x). Two sources exist:
+//   LanesLast  the (S, S, N) f32 batch of mle_fit.cu / lq_fit.cu (K1/K2,
+//              K3/K6): neighbouring spots on neighbouring addresses, so
+//              a warp's read of one pixel coalesces;
+//   Staged     the window that the fused cut+fit kernels (K5,
+//              winfit_mle.cu / winfit_lq.cu) load once from the frame
+//              chunk, convert to photons and keep in shared memory as
+//              [pixel][thread]: a warp's read of one pixel touches 32
+//              consecutive banks.
+// The body is the same template for both, so a source changes where a
+// pixel comes from and nothing of the arithmetic.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+enum Mode { kFull = 0, kStart = 1, kResume = 2, kFinish = 3 };
+
+// NaN-propagating max / min / sign, as jnp.maximum / jnp.minimum /
+// jnp.sign (fmaxf would drop a NaN operand).
+__device__ __forceinline__ float nmax(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return a > b ? a : b;
+}
+__device__ __forceinline__ float nmin(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return a < b ? a : b;
+}
+__device__ __forceinline__ float nsign(float a) {
+  return a > 0.0f ? 1.0f : (a < 0.0f ? -1.0f : a);
+}
+
+template <int S>
+struct LanesLast {
+  const float* p;  // spots + n
+  long long N;
+  __device__ __forceinline__ float operator()(int y, int x) const {
+    return __ldg(p + (long long)(y * S + x) * N);
+  }
+};
+
+template <int S, int T>
+struct Staged {
+  const float* p;  // stage + threadIdx.x
+  __device__ __forceinline__ float operator()(int y, int x) const {
+    return p[(y * S + x) * T];
+  }
+};
+
+// Threads a block of a staging kernel: the stage (S*S*T*4 bytes) stays
+// within the 48 KB of static shared memory (41,472 B at box 9, 43,264 at
+// 13, 28,800 at 15).
+template <int S>
+constexpr int stage_threads() {
+  return S <= 9 ? 128 : (S <= 13 ? 64 : 32);
+}
+
+// Load spot n's box x box window from a (B, Y, X) chunk once and stage its
+// photons (raw - baseline) * factor at dst[(y*S + x) * T]. The hit list
+// is (3, N) int32 rows f, y, x; the centre is clamped as the JAX
+// package's gather_wincols clamps it (f to [0, B-1], y to [r, Y-r-1], x
+// to [r, X-r-1]), so the window never leaves the chunk. The conversion
+// is two correctly rounded f32 operations, as the gather route's
+// elementwise subtract and multiply: no contraction to an FMA.
+template <int S, int T, typename Tin>
+__device__ __forceinline__ void stage_window(
+    const Tin* __restrict__ frames, long long B, long long Y, long long X,
+    const int* __restrict__ hits, long long N, long long n, float baseline,
+    float factor, float* dst) {
+  constexpr int r = S / 2;
+  const long long f = min(max((long long)hits[n], 0LL), B - 1);
+  const long long y = min(max((long long)hits[N + n], (long long)r), Y - r - 1);
+  const long long x =
+      min(max((long long)hits[2 * N + n], (long long)r), X - r - 1);
+  const Tin* src = frames + (f * Y + (y - r)) * X + (x - r);
+#pragma unroll
+  for (int yy = 0; yy < S; ++yy)
+#pragma unroll
+    for (int xx = 0; xx < S; ++xx)
+      dst[(yy * S + xx) * T] = __fmul_rn(
+          __fsub_rn(static_cast<float>(src[yy * X + xx]), baseline), factor);
+}
+
+}  // namespace

@@ -1,0 +1,161 @@
+"""FFT image correlation for drift correction: the redundant
+cross-correlation (RCC) of rendered segments.
+
+Counterpart of picasso_tpu/imageprocess.py (xcorr :29, _fit_peak :39,
+_crop_center :80, get_image_shift :97, rcc :129). Each segment is FFT'd
+once on its torch device; the pair correlations run there in chunks of
+pairs, in f64 (numpy 2 transforms the JAX package's f32 segments in
+complex64), and only the centre that the peak search reads (max_shift
+wide) comes back to the host, where the 5x5 Gaussian peak fits run with
+scipy's curve_fit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from scipy.optimize import curve_fit
+
+from picasso_torch import lib
+
+
+def _as_tensor(image) -> torch.Tensor:
+    return image if isinstance(image, torch.Tensor) else torch.from_numpy(
+        np.asarray(image))
+
+
+def xcorr(imageA, imageB) -> np.ndarray:
+    """FFT cross-correlation fftshift(Re(ifft2(FA * conj(FB)))) /
+    sqrt(size) (picasso/imageprocess.py:27), on the images' device (the
+    CPU for numpy arrays)."""
+    a = _as_tensor(imageA).to(torch.float64)
+    b = _as_tensor(imageB).to(a.device, torch.float64)
+    out = torch.fft.ifft2(torch.fft.fft2(a) * torch.conj(torch.fft.fft2(b)))
+    out = torch.fft.fftshift(out.real) / np.sqrt(a.numel())
+    return out.cpu().numpy()
+
+
+def _fit_peak(XCorr: np.ndarray, box: int, X_: int, Y_: int,
+              shape: tuple[int, int]) -> tuple[float, float]:
+    """5x5 (box x box) Gaussian sub-pixel fit of the correlation peak
+    (picasso/imageprocess.py:119-135). Returns (yc, xc) relative to the
+    image centre."""
+    Y, X = shape
+    fit_X = int(box / 2)
+    y, x = np.mgrid[-fit_X:fit_X + 1, -fit_X:fit_X + 1]
+    y_max_, x_max_ = np.unravel_index(XCorr.argmax(), XCorr.shape)
+    FitROI = XCorr[
+        y_max_ - fit_X:y_max_ + fit_X + 1,
+        x_max_ - fit_X:x_max_ + fit_X + 1,
+    ]
+    dims = FitROI.shape
+    if 0 in dims or dims[0] != dims[1]:
+        return 0.0, 0.0
+
+    def flat_2d_gaussian(coords, a, xc, yc, s, b):
+        xg, yg = coords
+        A = a * np.exp(-0.5 * ((xg - xc) ** 2 + (yg - yc) ** 2) / s**2) + b
+        return A.flatten()
+
+    p0 = [FitROI.max(), 0, 0, 1, FitROI.min()]
+    bounds = ([0, -np.inf, -np.inf, 0, 0],
+              [np.inf, np.inf, np.inf, np.inf, np.inf])
+    try:
+        popt, _ = curve_fit(flat_2d_gaussian, (x, y), FitROI.flatten(),
+                            p0=p0, bounds=bounds)
+    except RuntimeError:
+        return 0.0, 0.0
+    xc = popt[1] + X_ + x_max_ - np.floor(X / 2)
+    yc = popt[2] + Y_ + y_max_ - np.floor(Y / 2)
+    return yc, xc
+
+
+def _crop_offsets(shape: tuple[int, int], roi: int | None):
+    """The rows/columns (Y_, X_) that :func:`_crop_center` cuts from each
+    side."""
+    Y, X = shape
+    if roi is None:
+        return 0, 0
+    return max(int((Y - roi) / 2), 0), max(int((X - roi) / 2), 0)
+
+
+def _crop_center(XCorr, roi: int | None):
+    """The centre of a correlation image, ``roi`` wide (all of it for
+    None), and the offsets (Y_, X_) cut from each side."""
+    Y_, X_ = _crop_offsets(XCorr.shape[-2:], roi)
+    Y, X = XCorr.shape[-2:]
+    return XCorr[..., Y_:Y - Y_, X_:X - X_], Y_, X_
+
+
+def get_image_shift(imageA, imageB, box: int, roi: int | None = None,
+                    display: bool = False) -> tuple[float, float]:
+    """Shift from imageA to imageB by correlation peak fitting
+    (picasso/imageprocess.py:53). Returns (-yc, -xc)."""
+    if float(_as_tensor(imageA).sum()) == 0 or float(
+            _as_tensor(imageB).sum()) == 0:
+        return 0, 0
+    XCorr = xcorr(imageA, imageB)
+    shape = XCorr.shape
+    XCorr, Y_, X_ = _crop_center(XCorr, roi)
+    yc, xc = _fit_peak(XCorr, box, X_, Y_, shape)
+    return -yc, -xc
+
+
+def segment_pairs(n: int) -> list[tuple[int, int]]:
+    """All pairs (i, j), i < j, in the reference's order."""
+    return [(i, j) for i in range(n - 1) for j in range(i + 1, n)]
+
+
+def pair_xcorrs(segments: torch.Tensor, max_shift: int | None):
+    """The cross-correlations of every segment pair, cropped to the
+    ``max_shift`` centre: each (Y, X) segment is FFT'd once in f64 on its
+    device, the pair products and inverse FFTs run in chunks of pairs
+    (as picasso_tpu's rcc :165), and the crops come back as one numpy
+    (n_pairs, h, w) array. Returns (crops, (Y_, X_))."""
+    n, Y, X = segments.shape
+    F = torch.fft.fft2(segments.to(torch.float64))
+    Y_, X_ = _crop_offsets((Y, X), max_shift)
+    pairs = segment_pairs(n)
+    chunk = max(1, int(256e6 / (Y * X * 4)))
+    crops = []
+    for start in range(0, len(pairs), chunk):
+        batch = pairs[start:start + chunk]
+        ii = torch.tensor([p[0] for p in batch], device=F.device)
+        jj = torch.tensor([p[1] for p in batch], device=F.device)
+        xc = torch.fft.ifft2(F[ii] * torch.conj(F[jj])).real / np.sqrt(Y * X)
+        xc = torch.fft.fftshift(xc, dim=(1, 2))
+        crops.append(xc[:, Y_:Y - Y_, X_:X - X_].cpu())
+    return torch.cat(crops).numpy(), (Y_, X_)
+
+
+def peak_shifts(crops: np.ndarray, offsets, shape, empty: np.ndarray):
+    """Pair shifts (shifts_y, shifts_x) (n, n) from the cropped pair
+    correlations by 5x5 peak fits on the host; a pair with an empty
+    segment (``empty[i]``) has shift 0."""
+    n = len(empty)
+    shifts_x = np.zeros((n, n))
+    shifts_y = np.zeros((n, n))
+    Y_, X_ = offsets
+    for (i, j), XCorr in zip(segment_pairs(n), crops):
+        if empty[i] or empty[j]:
+            yc = xc = 0.0
+        else:
+            yc, xc = _fit_peak(XCorr, 5, X_, Y_, shape)
+        shifts_y[i, j] = -yc
+        shifts_x[i, j] = -xc
+    return shifts_y, shifts_x
+
+
+def rcc(segments, max_shift: int | None = None):
+    """Redundant cross-correlation (Wang, Schnitzbauer et al., Opt.
+    Express 2014; picasso/imageprocess.py:160) of (n, Y, X) segments (a
+    tensor on its device, or arrays): all pair shifts, solved to
+    per-segment drift by least squares. Returns (shift_y, shift_x)."""
+    seg = segments if isinstance(segments, torch.Tensor) else (
+        torch.from_numpy(np.stack(segments).astype(np.float32)))
+    seg = seg.to(torch.float32)
+    empty = (seg.sum(dim=(1, 2)) == 0).cpu().numpy()
+    crops, offsets = pair_xcorrs(seg, max_shift)
+    shifts_y, shifts_x = peak_shifts(crops, offsets, tuple(seg.shape[1:]),
+                                     empty)
+    return lib.minimize_shifts(shifts_x, shifts_y)

@@ -2,8 +2,9 @@
 YAML info chain, and the HDF5 ``"locs"`` table.
 
 Counterpart of picasso_tpu/io.py (load_info :48, save_info :60,
-save_locs :81, load_raw :447, load_movie :1472). The files written are
-byte-compatible with picasso_tpu.io.save_locs. ``h5py`` and ``yaml`` are
+save_locs :81, load_locs :102, save_drift :282, load_raw :447,
+load_movie :1472). The files written are byte-compatible with
+picasso_tpu.io's. ``h5py`` and ``yaml`` are
 imported inside the functions that need them, so the localize path
 itself needs only numpy, torch and scipy.
 """
@@ -76,3 +77,23 @@ def save_locs(path: str, locs: np.ndarray, info: list[dict]) -> None:
     with h5py.File(path, "w") as f:
         f.create_dataset("locs", data=locs)
     save_info(os.path.splitext(path)[0] + ".yaml", info)
+
+
+def load_locs(path: str):
+    """A locs table (.hdf5 ``"locs"`` dataset) and its info chain, after
+    ``ensure_sanity`` (picasso/io.py:2113)."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        if "locs" not in f:
+            raise KeyError(f"File {path} does not contain a 'locs' dataset.")
+        locs = f["locs"][()]
+    info = load_info(path)
+    return lib.ensure_sanity(locs, info), info
+
+
+def save_drift(path: str, drift: np.ndarray) -> None:
+    """Per-frame drift (fields x, y) as CRLF-terminated text, one row
+    "x y" per frame (picasso/io.py:514)."""
+    np.savetxt(path, np.column_stack([drift[n] for n in drift.dtype.names]),
+               newline="\r\n")

@@ -2,8 +2,8 @@
 on numpy structured arrays, progress reporting and device resolution.
 
 Counterpart of the parts of picasso_tpu/lib.py that the localize path
-uses (get_from_metadata :41, ensure_sanity :82, MockProgress :670,
-progress_reporter :731). Locs are numpy structured arrays with the
+uses (get_from_metadata :41, ensure_sanity :82, minimize_shifts :445,
+MockProgress :670, progress_reporter :731). Locs are numpy structured arrays with the
 record layout of the HDF5 ``"locs"`` dataset.
 """
 
@@ -85,6 +85,27 @@ def locs_table(cols: list, sort_key: str) -> np.ndarray:
         buf = buf[:, np.argsort(k, kind="stable")]
     dtype = np.dtype([(name, dt) for name, dt, _ in cols])
     return np.ascontiguousarray(buf.T).view(dtype)[:, 0]
+
+
+def minimize_shifts(shifts_x: np.ndarray, shifts_y: np.ndarray):
+    """Per-segment shifts from all-pairs relative shifts (n, n) by least
+    squares, the RCC "redundancy" step (picasso/lib.py:2034): the pair ->
+    interval incidence matrix solved with pinv, then cumulative sums from
+    the first segment. Returns (shift_y, shift_x)."""
+    n = shifts_x.shape[0]
+    rij = np.zeros((n * (n - 1) // 2, 2))
+    A = np.zeros((n * (n - 1) // 2, n - 1))
+    k = 0
+    for i in range(n - 1):
+        for j in range(i + 1, n):
+            rij[k, 0] = shifts_y[i, j]
+            rij[k, 1] = shifts_x[i, j]
+            A[k, i:j] = 1
+            k += 1
+    Dj = np.linalg.pinv(A) @ rij
+    shift_y = np.insert(np.cumsum(Dj[:, 0]), 0, 0)
+    shift_x = np.insert(np.cumsum(Dj[:, 1]), 0, 0)
+    return shift_y, shift_x
 
 
 class MockProgress:

@@ -1,13 +1,15 @@
-"""What the two fit wrappers share (ops/mle_cuda.py, ops/lq_cuda.py):
-the boxes their kernels are built for, the check of a spot batch, and
-the phase schedule of K2 and K6 (the phase boundaries and the
-stragglers-first lane order between phases)."""
+"""What the fit wrappers share (ops/mle_cuda.py, ops/lq_cuda.py,
+ops/winfit_cuda.py): the boxes their kernels are built for, the check of
+a spot batch, and the phase schedule of K2, K5, K6 and K7 (the phase
+boundaries and the stragglers-first lane order between phases)."""
 
 from __future__ import annotations
 
 import torch
 
 BOXES = (5, 7, 9, 11, 13, 15)  # box 3: see csrc/mle_fit.cu
+# the kernels' modes (csrc/fit_common.cuh)
+FULL, START, RESUME, FINISH = 0, 1, 2, 3
 
 
 def on_cuda(t: torch.Tensor) -> bool:
@@ -44,3 +46,37 @@ def stragglers_first(done: torch.Tensor) -> torch.Tensor:
     """Stable permutation (new position -> old lane) putting the lanes
     that have not converged first."""
     return torch.argsort(done[0], stable=True)
+
+
+def phase_ends(boundaries, max_it: int) -> list[int]:
+    """The distinct boundaries strictly inside (0, max_it), ascending."""
+    return sorted({int(b) for b in boundaries if 0 < int(b) < max_it})
+
+
+def run_phases(phase, src: torch.Tensor, max_it: int, ends: list[int],
+               done_row: int, last_mode: int):
+    """A fit run as phases that end at ``ends`` (non-empty, from
+    :func:`phase_ends`) and at max_it. ``phase(mode, src, k, carry)`` runs
+    up to k iterations of every lane in mode START (``carry`` None),
+    RESUME or ``last_mode`` and returns the carry (or, from FINISH, the
+    outputs). ``src`` is what the lanes read, lane axis last: the (S, S,
+    N) ROI batch, or the (3, N) hit list of the fused cut+fit. Before each
+    later phase, ``src`` and the carry are stably reordered stragglers
+    first by carry row ``done_row``, so the warps of converged spots
+    retire together. Every lane's trajectory is independent of its
+    position, so the schedule equals one pass bit for bit. Returns (the
+    last phase's output, inv) with ``out[..., inv]`` in the input order."""
+    n = src.shape[-1]
+    carry = phase(START, src, ends[0], None)
+    orig = torch.arange(n, device=src.device)
+    ks = [b - a for a, b in zip(ends, ends[1:])] + [max_it - ends[-1]]
+    for i, k in enumerate(ks):
+        perm = stragglers_first(carry[done_row])
+        src = src[..., perm].contiguous()
+        carry = tuple(c[:, perm].contiguous() for c in carry)
+        orig = orig[perm]
+        carry = phase(last_mode if i == len(ks) - 1 else RESUME, src, k,
+                      carry)
+    inv = torch.empty_like(orig)
+    inv[orig] = torch.arange(n, device=orig.device)
+    return carry, inv

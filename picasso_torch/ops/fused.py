@@ -1,14 +1,14 @@
 """Device-resident localize per frame chunk: identify -> hit list ->
-ROI cut -> photon conversion -> MLE or LQ fit, with only the hit list
-and the fit results read back.
+fused ROI cut + photon conversion + MLE or LQ fit, with only the hit
+list and the fit results read back.
 
 Counterpart of picasso_tpu/ops/fused.py (identify_cut_fit :654,
 identify_cut_fit_packed :750, localize_fused :1103).
 Frames upload once in their native dtype. The hit list has exactly as
 many rows as hits (torch.nonzero knows the count), so there are no
 padded buckets and no overflow retry, and a short last chunk is just a
-shorter chunk. The ROI cut is one advanced-index gather from the chunk,
-straight into the lanes-last (S, S, N) layout of the fit.
+shorter chunk. The fit kernel reads each spot's window from the chunk
+itself, so no ROI batch is written between the stages.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Callable, Literal
 import numpy as np
 import torch
 
-from picasso_torch.ops import lq_cuda, mle_cuda
+from picasso_torch.ops import winfit_cuda
 from picasso_torch.ops.mle import _check_method
 from picasso_torch.ops.identify import compact, upload_frames
 from picasso_torch.ops.identify_cuda import identify_tiles
@@ -26,22 +26,6 @@ from picasso_torch.ops.identify_cuda import identify_tiles
 #: the LM fit's convergence tolerance in the fused chain (the JAX
 #: package's, picasso_tpu/ops/fused.py:707)
 LQ_FTOL = 1e-6
-
-
-def cut_rois_t(frames: torch.Tensor, f, y, x, box: int) -> torch.Tensor:
-    """Raw (box, box, N) ROIs [y, x, n] around hit centres (f, y, x)
-    from a (B, Y, X) chunk, in the chunk's dtype (u16 comes back as
-    int32). Hits are >= box//2 from every border, so windows stay
-    inside the frame."""
-    r = box // 2
-    offs = torch.arange(-r, r + 1, device=frames.device)
-    src = frames.view(torch.int16) if frames.dtype == torch.uint16 else frames
-    rows = y[None, :] + offs[:, None]  # (S, N)
-    cols = x[None, :] + offs[:, None]
-    roi = src[f[None, None, :], rows[:, None, :], cols[None, :, :]]
-    if frames.dtype == torch.uint16:
-        roi = roi.to(torch.int32) & 0xFFFF
-    return roi
 
 
 def identify_cut_fit(frames, minimum_ng, baseline: float, factor: float,
@@ -52,17 +36,22 @@ def identify_cut_fit(frames, minimum_ng, baseline: float, factor: float,
     Returns (f, y, x, ng, theta (6, n), crlb (6, n), ll (n,), iters (n,))
     with n the hit count; for ``"lq"`` it stops after theta (the LM fit
     has no crlb, ll or iters: its precision comes from Mortensen's
-    formula on the host). A chunk without hits launches no fit."""
+    formula on the host). A chunk without hits launches no fit.
+
+    The fit is K5, the fused cut + photon conversion + fit
+    (ops/winfit_cuda.py), which reads each window straight from the
+    chunk; on the CPU its plain version cuts the ROI batch first. The MLE
+    fit runs in K2's phase schedule, the LM fit in one pass; chip_smoke.py
+    times these routes against the gather route on the same chunk
+    (PERF.md)."""
     f, y, x, ng = compact(*identify_tiles(frames, minimum_ng, box), box)
-    spots_t = ((cut_rois_t(frames, f, y, x, box).to(torch.float32)
-                - baseline) * factor).contiguous()
     if method != "lq":
-        return (f, y, x, ng,
-                *mle_cuda.fit_boundary_t(spots_t, eps, max_it, method))
-    # K3, the single pass, is the faster LM route on the H100: the K6
-    # phase schedule's permutes cost more than its compaction saves
-    # (chip_smoke.py times both on the same ROIs; PERF.md)
-    return f, y, x, ng, lq_cuda.fit_t(spots_t, max_it, LQ_FTOL)
+        return (f, y, x, ng, *winfit_cuda.fit_mle_boundary_t(
+            frames, f, y, x, baseline, factor, box=box, eps=eps,
+            max_it=max_it, method=method))
+    return f, y, x, ng, winfit_cuda.fit_lq_t(
+        frames, f, y, x, baseline, factor, box=box, max_it=max_it,
+        ftol=LQ_FTOL)
 
 
 def identify_cut_fit_packed(frames, minimum_ng, baseline: float,

@@ -19,10 +19,9 @@ import torch
 from picasso_torch import _build
 from picasso_torch.ops import lq as _lq
 from picasso_torch.ops._fit_common import (
-    check_spots, default_boundaries, on_cuda, stragglers_first,
+    FULL, RESUME, START, check_spots, default_boundaries, on_cuda, phase_ends,
+    run_phases,
 )
-
-_FULL, _START, _RESUME = 0, 1, 2
 
 
 def _launch(mode: int, spots_t, ftol: float, k: int, n_valid, carry=None):
@@ -33,14 +32,14 @@ def _launch(mode: int, spots_t, ftol: float, k: int, n_valid, carry=None):
     s, _, n = spots_t.shape
     dev = spots_t.device
     f32 = dict(dtype=torch.float32, device=dev)
-    if mode == _RESUME:
+    if mode == RESUME:
         for c in carry:
             if (c.device != dev or c.dtype != torch.float32
                     or not c.is_contiguous()):
                 raise ValueError(
                     "LM carry must be contiguous float32 on the spots' device"
                 )
-    elif mode == _START:
+    elif mode == START:
         carry = (torch.empty((6, n), **f32), torch.empty((1, n), **f32),
                  torch.empty((1, n), **f32), torch.empty((1, n), **f32))
     else:
@@ -53,7 +52,7 @@ def _launch(mode: int, spots_t, ftol: float, k: int, n_valid, carry=None):
             n if n_valid is None else int(n_valid), *ptrs, stream,
         )
     _build.check(status, "lq_fit")
-    return carry[0] if mode == _FULL else carry
+    return carry[0] if mode == FULL else carry
 
 
 def fit_t(spots_t: torch.Tensor, max_it: int, ftol: float = 1e-6,
@@ -66,7 +65,7 @@ def fit_t(spots_t: torch.Tensor, max_it: int, ftol: float = 1e-6,
     check_spots(spots_t)
     if spots_t.shape[-1] == 0:
         return torch.zeros((6, 0), dtype=torch.float32, device=spots_t.device)
-    out = _launch(_FULL, spots_t, ftol, max_it, n_valid)
+    out = _launch(FULL, spots_t, ftol, max_it, n_valid)
     fit_t.launches += 1
     return out
 
@@ -90,32 +89,22 @@ def _fit_phases(spots_t, max_it, ftol, n_valid, boundaries):
     cuda = on_cuda(spots_t)
     if cuda:
         check_spots(spots_t)
-    n = spots_t.shape[-1]
-    bs = sorted({int(b) for b in boundaries if 0 < int(b) < max_it})
-    if not bs:
+    ends = phase_ends(boundaries, max_it)
+    if not ends:
         return fit_t(spots_t, max_it, ftol, n_valid)
-    if n == 0:
+    if spots_t.shape[-1] == 0:
         return torch.zeros((6, 0), dtype=torch.float32, device=spots_t.device)
 
-    def phase(mode, spots, k, carry=None):
+    def phase(mode, spots, k, carry):
         if cuda:
             out = _launch(mode, spots, ftol, k, n_valid, carry)
             fit_boundary_t.launches += 1
             return out
-        if mode == _START:
+        if mode == START:
             carry = _lq._lm_init(spots, n_valid)
         return _lq._lm_rounds(spots, *carry, k, ftol)
 
-    carry = phase(_START, spots_t, bs[0])
-    orig = torch.arange(n, device=spots_t.device)
-    for k in [b - a for a, b in zip(bs, bs[1:])] + [max_it - bs[-1]]:
-        perm = stragglers_first(carry[3])
-        spots_t = spots_t[:, :, perm].contiguous()
-        carry = tuple(c[:, perm].contiguous() for c in carry)
-        orig = orig[perm]
-        carry = phase(_RESUME, spots_t, k, carry)
-    inv = torch.empty_like(orig)
-    inv[orig] = torch.arange(n, device=orig.device)
+    carry, inv = run_phases(phase, spots_t, max_it, ends, 3, RESUME)
     return carry[0][:, inv]
 
 

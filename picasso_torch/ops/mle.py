@@ -534,6 +534,19 @@ def _fit_finish(spots_t, theta, old, done, iters, max_step, eps, k,
     return theta6, crlb6, ll, iters[0].to(torch.int32)
 
 
+def _fit_phase(mode: int, spots_t, eps, k, method, n_valid=None,
+               carry=None):
+    """One phase of a phase schedule, the plain version of one phase
+    launch of the fit kernel: ``mode`` 1 :func:`_fit_start`, 2
+    :func:`_fit_resume`, 3 :func:`_fit_finish` (the kernels' mode
+    numbers)."""
+    if mode == 1:
+        return _fit_start(spots_t, eps, k, method, n_valid)
+    if mode == 2:
+        return _fit_resume(spots_t, *carry, eps, k, method)
+    return _fit_finish(spots_t, *carry, eps, k, method)
+
+
 def _fit_core(spots_t, eps: float, max_it: int, method: str = "sigmaxy",
               n_valid=None):
     """Fit a (S, S, N) f32 spot batch. Returns (theta (6, N),

@@ -1,16 +1,18 @@
 """Wrappers of the CUDA MLE fit kernel (csrc/mle_fit.cu): K1, the
 single-pass fit, and K2, the same fit split into resumable phases with
-stragglers-first lane order between them; both for the methods
-``sigmaxy`` and ``sigma``.
+stragglers-first lane order between them, both for the methods
+``sigmaxy`` and ``sigma``; and K7, the sigmaxy fit in fixed rounds, as a
+schedule of K2's phase modes.
 
 Counterpart of picasso_tpu/ops/mle_pallas.py (fit_pallas_t,
-fit_pallas_boundary_t). A CUDA tensor launches the kernel or raises; a
+fit_pallas_boundary_t, fit_pallas_multiround). A CUDA tensor launches the kernel or raises; a
 CPU tensor runs the plain PyTorch version of the same phases
 (ops/mle.py). Nothing here falls back from one to the other.
 
 Launch counts (plain integers): ``fit_t.launches`` counts the kernel's
 single-pass (FULL) launches, ``fit_boundary_t.launches`` the phase
-(START/RESUME/FINISH) launches of the K2 schedule.
+(START/RESUME/FINISH) launches of the K2 schedule,
+``fit_multiround_t.launches`` those of the K7 schedule.
 """
 
 from __future__ import annotations
@@ -20,10 +22,10 @@ import torch
 from picasso_torch import _build
 from picasso_torch.ops import mle as _mle
 from picasso_torch.ops._fit_common import (
-    check_spots, default_boundaries, on_cuda, stragglers_first,
+    FINISH, FULL, START, check_spots, default_boundaries, on_cuda, phase_ends,
+    run_phases,
 )
 
-_FULL, _START, _RESUME, _FINISH = 0, 1, 2, 3
 _METHOD_ID = {"sigmaxy": 0, "sigma": 1}
 _ROWS = {"sigmaxy": 6, "sigma": 5}  # carry rows (parameters)
 
@@ -47,14 +49,14 @@ def _launch(mode: int, spots_t, eps: float, k: int, n_valid, method: str,
     dev = spots_t.device
     f32 = dict(dtype=torch.float32, device=dev)
     r = _ROWS[method]
-    if mode == _START:
+    if mode == START:
         carry = (
             torch.empty((r, n), **f32), torch.empty((r, n), **f32),
             torch.empty((1, n), **f32), torch.empty((1, n), **f32),
             torch.empty((r, n), **f32),
         )
     outs = None
-    if mode in (_FULL, _FINISH):
+    if mode in (FULL, FINISH):
         outs = (
             torch.empty((6, n), **f32), torch.empty((6, n), **f32),
             torch.empty((n,), **f32),
@@ -91,7 +93,7 @@ def fit_t(spots_t: torch.Tensor, eps: float, max_it: int,
     check_spots(spots_t)
     if spots_t.shape[-1] == 0:
         return _empty_fit(0, spots_t.device)
-    out = _launch(_FULL, spots_t, eps, max_it, n_valid, method)
+    out = _launch(FULL, spots_t, eps, max_it, n_valid, method)
     fit_t.launches += 1
     return out
 
@@ -111,44 +113,48 @@ def fit_boundary_t(spots_t: torch.Tensor, eps: float, max_it: int,
                        default_boundaries(max_it))
 
 
-def _fit_phases(spots_t, eps, max_it, method, n_valid, boundaries):
-    """The K2 schedule with phases ending at ``boundaries``."""
+fit_boundary_t.launches = 0
+
+
+def fit_multiround_t(spots_t: torch.Tensor, eps: float, max_it: int,
+                     round_it: int = 8):
+    """K7: the sigmaxy fit of :func:`fit_t` in rounds of ``round_it``
+    iterations with the lanes stably reordered stragglers first between
+    rounds (the argsort of ``done`` of picasso_tpu's
+    fit_pallas_multiround), then the CRLB and log-likelihood: a schedule
+    of the phase modes of K2, 1 START, RESUMEs and 1 FINISH (13 launches
+    at max_it 100), which does the last round and the CRLB pass in one
+    launch. Equals :func:`fit_t` bit for bit. A fit of max_it <=
+    round_it is one pass of :func:`fit_t`. Nothing in the port routes to
+    it, as nothing in the JAX package does."""
+    return _fit_phases(spots_t, eps, max_it, "sigmaxy", None,
+                       range(round_it, max_it, round_it), fit_multiround_t)
+
+
+fit_multiround_t.launches = 0
+
+
+def _fit_phases(spots_t, eps, max_it, method, n_valid, boundaries,
+                counter=fit_boundary_t):
+    """The phase schedule with phases ending at ``boundaries``; its
+    launches count on ``counter.launches``."""
     _mle._check_method(method)
     cuda = on_cuda(spots_t)
     if cuda:
         check_spots(spots_t)
-    n = spots_t.shape[-1]
-    bs = sorted({int(b) for b in boundaries if 0 < int(b) < max_it})
-    if not bs:
+    ends = phase_ends(boundaries, max_it)
+    if not ends:
         return fit_t(spots_t, eps, max_it, method, n_valid)
-    if n == 0:
+    if spots_t.shape[-1] == 0:
         return _empty_fit(0, spots_t.device)
 
-    def phase(mode, spots, k, carry=None):
+    def phase(mode, spots, k, carry):
         if cuda:
             out = _launch(mode, spots, eps, k, n_valid, method, carry)
-            fit_boundary_t.launches += 1
+            counter.launches += 1
             return out
-        if mode == _START:
-            return _mle._fit_start(spots, eps, k, method, n_valid)
-        if mode == _RESUME:
-            return _mle._fit_resume(spots, *carry, eps, k, method)
-        return _mle._fit_finish(spots, *carry, eps, k, method)
+        return _mle._fit_phase(mode, spots, eps, k, method, n_valid, carry)
 
-    carry = phase(_START, spots_t, bs[0])
-    orig = torch.arange(n, device=spots_t.device)
-    ks = [b - a for a, b in zip(bs, bs[1:])] + [max_it - bs[-1]]
-    for i, k in enumerate(ks):
-        perm = stragglers_first(carry[2])
-        spots_t = spots_t[:, :, perm].contiguous()
-        carry = tuple(c[:, perm].contiguous() for c in carry)
-        orig = orig[perm]
-        mode = _FINISH if i == len(ks) - 1 else _RESUME
-        carry = phase(mode, spots_t, k, carry)
-    theta, crlb, ll, iters = carry
-    inv = torch.empty_like(orig)
-    inv[orig] = torch.arange(n, device=orig.device)
+    (theta, crlb, ll, iters), inv = run_phases(phase, spots_t, max_it, ends,
+                                               2, FINISH)
     return theta[:, inv], crlb[:, inv], ll[inv], iters[inv]
-
-
-fit_boundary_t.launches = 0

@@ -1,0 +1,218 @@
+"""K5, the fused ROI cut + photon conversion + fit, for the MLE fit
+(csrc/winfit_mle.cu, winfit_mle_f32.cu; methods ``sigmaxy`` and
+``sigma``) and the LM fit (csrc/winfit_lq.cu), and its plain version, the
+gather route: cut the (S, S, N) ROI batch out of the chunk, convert it to
+photons, fit it.
+
+Counterpart of picasso_tpu/ops/winfit_pallas.py (fit_mle_t :186,
+fit_lq_t :140) together with the window gather that feeds it
+(picasso_tpu/ops/fused.gather_wincols :609). The kernels take the
+uploaded (B, Y, X) chunk in its own dtype (u16 or f32,
+ops/identify.upload_frames) and the hit list (f, y, x), not a ROI batch:
+each thread loads its window from the chunk once. A CUDA chunk launches
+the kernel or raises; a CPU chunk takes the gather route. Nothing here
+falls back from one to the other.
+
+Launch counts (plain integers): ``fit_mle_t.launches`` counts the MLE
+kernel's single-pass (FULL) launches, ``fit_mle_boundary_t.launches``
+its phase launches (the K2 schedule run on K5), ``fit_lq_t.launches``
+the LM kernel's launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from picasso_torch import _build
+from picasso_torch.ops import lq as _lq
+from picasso_torch.ops import mle as _mle
+from picasso_torch.ops._fit_common import (
+    BOXES, FINISH, FULL, START, default_boundaries, on_cuda, phase_ends,
+    run_phases,
+)
+
+_DTYPE_ID = {torch.uint16: 0, torch.float32: 1}
+_METHOD_ID = {"sigmaxy": 0, "sigma": 1}
+_ROWS = {"sigmaxy": 6, "sigma": 5}  # carry rows (parameters)
+
+
+def cut_rois_t(frames: torch.Tensor, f, y, x, box: int) -> torch.Tensor:
+    """Raw (box, box, N) ROIs [y, x, n] around hit centres (f, y, x)
+    from a (B, Y, X) chunk, in the chunk's dtype (u16 comes back as
+    int32). The centre is clamped as picasso_tpu's gather_wincols clamps
+    it (f to [0, B-1], y to [r, Y-r-1], x to [r, X-r-1]), so a window
+    never leaves the chunk and a negative index never wraps."""
+    r = box // 2
+    B, Y, X = frames.shape
+    f = f.long().clamp(0, B - 1)
+    y = y.long().clamp(r, Y - r - 1)
+    x = x.long().clamp(r, X - r - 1)
+    offs = torch.arange(-r, r + 1, device=frames.device)
+    src = frames.view(torch.int16) if frames.dtype == torch.uint16 else frames
+    rows = y[None, :] + offs[:, None]  # (S, N)
+    cols = x[None, :] + offs[:, None]
+    roi = src[f[None, None, :], rows[:, None, :], cols[None, :, :]]
+    if frames.dtype == torch.uint16:
+        roi = roi.to(torch.int32) & 0xFFFF
+    return roi
+
+
+def photons_t(frames, f, y, x, box: int, baseline: float,
+              factor: float) -> torch.Tensor:
+    """The gather route's ROI batch: :func:`cut_rois_t`, then (raw -
+    baseline) * factor in f32, contiguous (S, S, N)."""
+    return ((cut_rois_t(frames, f, y, x, box).to(torch.float32) - baseline)
+            * factor).contiguous()
+
+
+def _hit_list(frames, f, y, x, box: int, cuda: bool) -> torch.Tensor:
+    """The (3, N) hit list rows f, y, x; on the card int32 and
+    contiguous (the kernels' layout), after the checks of a launch."""
+    hits = torch.stack([f, y, x])
+    if not cuda:
+        return hits
+    if frames.ndim != 3 or frames.dtype not in _DTYPE_ID:
+        raise ValueError("the fused cut+fit kernels take a (B, Y, X) u16 or "
+                         f"f32 chunk, got {frames.dtype} {tuple(frames.shape)}")
+    if not frames.is_contiguous():
+        raise ValueError("the frame chunk must be contiguous")
+    if box not in BOXES:
+        raise ValueError(f"the CUDA fit kernels take boxes {BOXES}, got {box}")
+    if min(frames.shape[1:]) < box:
+        raise ValueError(f"frames {tuple(frames.shape)} smaller than the box")
+    if hits.device != frames.device:
+        raise ValueError("hits and frames must be on one device")
+    return hits.to(torch.int32).contiguous()
+
+
+def _launch_mle(mode: int, frames, hits, baseline, factor, box, eps, k,
+                method, carry=None):
+    """One launch of the K5 MLE kernel. START/RESUME return the carry
+    (RESUME updates it in place); FULL/FINISH return (theta, crlb, ll,
+    iters)."""
+    lib = _build.library()
+    n = hits.shape[1]
+    dev = frames.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    r = _ROWS[method]
+    if mode == START:
+        carry = (torch.empty((r, n), **f32), torch.empty((r, n), **f32),
+                 torch.empty((1, n), **f32), torch.empty((1, n), **f32),
+                 torch.empty((r, n), **f32))
+    outs = None
+    if mode in (FULL, FINISH):
+        outs = (torch.empty((6, n), **f32), torch.empty((6, n), **f32),
+                torch.empty((n,), **f32),
+                torch.empty((n,), dtype=torch.int32, device=dev))
+    ptrs = [c.data_ptr() for c in carry] if carry is not None else [None] * 5
+    optrs = [o.data_ptr() for o in outs] if outs is not None else [None] * 4
+    B, Y, X = frames.shape
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.picasso_winfit_mle(
+            frames.data_ptr(), _DTYPE_ID[frames.dtype], B, Y, X,
+            hits.data_ptr(), n, box, float(baseline), float(factor),
+            float(eps), int(k), mode, _METHOD_ID[method], *ptrs, *optrs,
+            stream,
+        )
+    _build.check(status, "winfit_mle")
+    return carry if outs is None else outs
+
+
+def _empty_fit(device):
+    return (torch.zeros((6, 0), dtype=torch.float32, device=device),
+            torch.zeros((6, 0), dtype=torch.float32, device=device),
+            torch.zeros((0,), dtype=torch.float32, device=device),
+            torch.zeros((0,), dtype=torch.int32, device=device))
+
+
+def fit_mle_t(frames, f, y, x, baseline: float, factor: float, *, box: int,
+              eps: float, max_it: int, method: str = "sigmaxy"):
+    """K5 MLE in one pass: fit the box x box windows around the hits (f,
+    y, x) of the (B, Y, X) chunk ``frames``, converted to photons (raw -
+    baseline) * factor. Returns (theta (6, N), crlb (6, N), ll (N,),
+    iters (N,) i32), as :func:`ops.mle_cuda.fit_t` on
+    :func:`photons_t`, bit for bit."""
+    _mle._check_method(method)
+    cuda = on_cuda(frames)
+    hits = _hit_list(frames, f, y, x, box, cuda)
+    if not cuda:
+        return _mle._fit_core(photons_t(frames, *hits, box, baseline, factor),
+                              eps, max_it, method)
+    if hits.shape[1] == 0:
+        return _empty_fit(frames.device)
+    out = _launch_mle(FULL, frames, hits, baseline, factor, box, eps, max_it,
+                      method)
+    fit_mle_t.launches += 1
+    return out
+
+
+fit_mle_t.launches = 0
+
+
+def fit_mle_boundary_t(frames, f, y, x, baseline: float, factor: float, *,
+                       box: int, eps: float, max_it: int,
+                       method: str = "sigmaxy"):
+    """K5 MLE in the phase schedule of K2 (phases ending at
+    ``default_boundaries(max_it)``): between phases the carry and the
+    (3, N) hit list, not a ROI batch, are reordered stragglers first, and
+    each phase loads its windows anew. Equals :func:`fit_mle_t` bit for
+    bit. On the CPU each phase takes the gather route (cut, photons, the
+    plain phase)."""
+    _mle._check_method(method)
+    cuda = on_cuda(frames)
+    hits = _hit_list(frames, f, y, x, box, cuda)
+    ends = phase_ends(default_boundaries(max_it), max_it)
+    if not ends:
+        return fit_mle_t(frames, f, y, x, baseline, factor, box=box, eps=eps,
+                         max_it=max_it, method=method)
+    if hits.shape[1] == 0:
+        return _empty_fit(frames.device)
+
+    def phase(mode, hits, k, carry):
+        if cuda:
+            out = _launch_mle(mode, frames, hits, baseline, factor, box, eps,
+                              k, method, carry)
+            fit_mle_boundary_t.launches += 1
+            return out
+        spots = photons_t(frames, *hits, box, baseline, factor)
+        return _mle._fit_phase(mode, spots, eps, k, method, None, carry)
+
+    (theta, crlb, ll, iters), inv = run_phases(phase, hits, max_it, ends, 2,
+                                               FINISH)
+    return theta[:, inv], crlb[:, inv], ll[inv], iters[inv]
+
+
+fit_mle_boundary_t.launches = 0
+
+
+def fit_lq_t(frames, f, y, x, baseline: float, factor: float, *, box: int,
+             max_it: int, ftol: float = 1e-6) -> torch.Tensor:
+    """K5 LM fit in one pass of the windows around the hits (f, y, x),
+    converted to photons. Returns theta (6, N), x/y relative to the box
+    centre, as :func:`ops.lq_cuda.fit_t` on :func:`photons_t`, bit for
+    bit."""
+    cuda = on_cuda(frames)
+    hits = _hit_list(frames, f, y, x, box, cuda)
+    if not cuda:
+        return _lq._lm_core(photons_t(frames, *hits, box, baseline, factor),
+                            max_it, ftol)
+    n = hits.shape[1]
+    theta = torch.empty((6, n), dtype=torch.float32, device=frames.device)
+    if n == 0:
+        return theta
+    lib = _build.library()
+    B, Y, X = frames.shape
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream(frames.device).cuda_stream
+        status = lib.picasso_winfit_lq(
+            frames.data_ptr(), _DTYPE_ID[frames.dtype], B, Y, X,
+            hits.data_ptr(), n, box, float(baseline), float(factor),
+            float(ftol), int(max_it), theta.data_ptr(), stream,
+        )
+    _build.check(status, "winfit_lq")
+    fit_lq_t.launches += 1
+    return theta
+
+
+fit_lq_t.launches = 0

@@ -17,15 +17,16 @@ import numpy as np
 import pytest
 import torch
 
-from torch_data import make_bench_movie, make_spots
-from picasso_torch import localize
+from torch_data import make_bench_movie, make_spots, spots_chunk
+from picasso_torch import localize, postprocess
 from picasso_torch.ops import (
-    fused, identify, identify_cuda, lq, lq_cuda, mle, mle_cuda,
+    fused, identify, identify_cuda, lq, lq_cuda, mle, mle_cuda, winfit_cuda,
 )
 from torch_parity import compare_fits, compare_hits, compare_lq_fits
 
 pytestmark = pytest.mark.cuda
 EPS, MAX_IT, FTOL = 1e-3, 100, 1e-6
+BASELINE, FACTOR = 1.5, 0.8
 
 
 @pytest.fixture
@@ -129,25 +130,124 @@ def test_identify_kernel_matches_plain(dev, box):
                      _np(identify.compact(*k_t, box)), 3000.0)
 
 
+def _fit_launches():
+    return (mle_cuda.fit_t.launches, mle_cuda.fit_boundary_t.launches,
+            lq_cuda.fit_t.launches, lq_cuda.fit_boundary_t.launches,
+            winfit_cuda.fit_mle_t.launches,
+            winfit_cuda.fit_mle_boundary_t.launches,
+            winfit_cuda.fit_lq_t.launches)
+
+
 def test_chunk_without_hits_launches_no_fit(dev):
-    before = mle_cuda.fit_t.launches, mle_cuda.fit_boundary_t.launches
+    before = _fit_launches()
     out = fused.identify_cut_fit(
         torch.zeros((4, 64, 64), dtype=torch.uint16, device=dev), 1000.0,
         0.0, 1.0, box=7, eps=EPS, max_it=MAX_IT,
     )
     assert out[0].numel() == 0 and out[4].shape == (6, 0)
-    assert (mle_cuda.fit_t.launches,
-            mle_cuda.fit_boundary_t.launches) == before
+    assert _fit_launches() == before
 
 
 def test_chunk_without_hits_launches_no_lq_fit(dev):
-    before = lq_cuda.fit_t.launches, lq_cuda.fit_boundary_t.launches
+    before = _fit_launches()
     out = fused.identify_cut_fit_packed(
         torch.zeros((4, 64, 64), dtype=torch.uint16, device=dev), 1000.0,
         0.0, 1.0, box=7, eps=EPS, max_it=MAX_IT, method="lq",
     )
     assert out.shape == (10, 0)
-    assert (lq_cuda.fit_t.launches, lq_cuda.fit_boundary_t.launches) == before
+    assert _fit_launches() == before
+
+
+def _chunk(spots, dtype, dev):
+    frames, hits = spots_chunk(spots, dtype)
+    return (torch.from_numpy(frames).to(dev),
+            [torch.from_numpy(h).to(dev) for h in hits])
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.float32])
+@pytest.mark.parametrize("box", [5, 7, 9, 11, 13, 15])
+def test_winfit_kernel_matches_plain_and_the_gather_route(dev, box, dtype):
+    """K5 (MLE sigmaxy and sigma, one pass and phases; LM) from a u16 or
+    f32 chunk against its plain version (cut, photons, plain fit) within
+    the tolerances, and equal to cut + photons + K1/K2/K3 bit for bit."""
+    frames, hits = _chunk(make_spots(2048, box, seed=box + 3), dtype, dev)
+    rois = winfit_cuda.photons_t(frames, *hits, box, BASELINE, FACTOR)
+    for method in ("sigmaxy", "sigma"):
+        kw = dict(box=box, eps=EPS, max_it=MAX_IT, method=method)
+        k5 = _np(winfit_cuda.fit_mle_t(frames, *hits, BASELINE, FACTOR, **kw))
+        compare_fits(_np(mle._fit_core(rois, EPS, MAX_IT, method)), k5,
+                     MAX_IT)
+        for other in (
+            winfit_cuda.fit_mle_boundary_t(frames, *hits, BASELINE, FACTOR,
+                                           **kw),
+            mle_cuda.fit_t(rois, EPS, MAX_IT, method),
+            mle_cuda.fit_boundary_t(rois, EPS, MAX_IT, method),
+        ):
+            for a, b in zip(k5, _np(other)):
+                np.testing.assert_array_equal(a, b)
+    k5lq = winfit_cuda.fit_lq_t(frames, *hits, BASELINE, FACTOR, box=box,
+                                max_it=MAX_IT, ftol=FTOL).cpu().numpy()
+    compare_lq_fits(lq._lm_core(rois, MAX_IT, FTOL).cpu().numpy(), k5lq,
+                    rois.cpu().numpy())
+    np.testing.assert_array_equal(
+        k5lq, lq_cuda.fit_t(rois, MAX_IT, FTOL).cpu().numpy())
+
+
+def test_winfit_kernel_clamps_the_centre(dev):
+    """Hits on and beyond the border read the window of the clamped
+    centre, as the plain cut does."""
+    rng = np.random.default_rng(4)
+    frames = torch.from_numpy(rng.poisson(
+        50, (3, 40, 48)).astype(np.uint16)).to(dev)
+    f, y, x = (torch.tensor(v, device=dev) for v in (
+        [0, 2, 1, -1, 5, 1], [0, 39, 2, 20, 50, -4], [0, 47, 46, -3, 9, 30]))
+    kw = dict(box=7, max_it=20, ftol=FTOL)
+    got = winfit_cuda.fit_lq_t(frames, f, y, x, BASELINE, FACTOR, **kw)
+    clamped = winfit_cuda.fit_lq_t(frames, f.clamp(0, 2), y.clamp(3, 36),
+                                   x.clamp(3, 44), BASELINE, FACTOR, **kw)
+    gather = lq_cuda.fit_t(winfit_cuda.photons_t(frames, f, y, x, 7,
+                                                 BASELINE, FACTOR), 20, FTOL)
+    np.testing.assert_array_equal(got.cpu().numpy(), clamped.cpu().numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(), gather.cpu().numpy())
+
+
+def test_winfit_kernel_refuses_other_dtypes(dev):
+    frames = torch.zeros((2, 32, 32), dtype=torch.int32, device=dev)
+    hit = torch.zeros(1, dtype=torch.int64, device=dev) + 10
+    with pytest.raises(ValueError, match="u16 or f32"):
+        winfit_cuda.fit_lq_t(frames, hit, hit, hit, 0.0, 1.0, box=7,
+                             max_it=10)
+
+
+def test_multiround_schedule_equals_the_single_pass(dev):
+    """K7 (rounds of 4 over 20 iterations, some spots still running at
+    each boundary) equals K1 bit for bit."""
+    sp = torch.from_numpy(np.ascontiguousarray(
+        make_spots(4096, seed=12).transpose(1, 2, 0))).to(dev)
+    before = mle_cuda.fit_multiround_t.launches
+    k7 = _np(mle_cuda.fit_multiround_t(sp, EPS, 20, round_it=4))
+    assert mle_cuda.fit_multiround_t.launches - before == 5
+    k1 = _np(mle_cuda.fit_t(sp, EPS, 20))
+    assert (k1[3] > 4).any() and (k1[3] <= 4).any()
+    for a, b in zip(k7, k1):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_undrift_on_the_card_matches_the_cpu(dev):
+    movie = make_bench_movie(128, 64, 60, 0.5, np.random.default_rng(5))
+    cam = {"Baseline": 0, "Sensitivity": 1, "Gain": 1, "Pixelsize": 130}
+    par = {"Min. Net Gradient": 4000, "Box Size": 7}
+    locs = localize.localize(movie, dict(cam), par, fitting_method="gaussmle",
+                             device="cpu")
+    f = locs["frame"].astype(np.float64)
+    locs["x"] += (0.8 * f / 127).astype(np.float32)
+    locs["y"] += (0.5 * np.sin(2 * np.pi * f / 127)).astype(np.float32)
+    info = [{"Frames": 128, "Height": 64, "Width": 64}]
+    d_g, l_g = postprocess.undrift(locs, info, 16, device=dev)
+    d_c, l_c = postprocess.undrift(locs, info, 16, device="cpu")
+    for c in ("x", "y"):
+        np.testing.assert_allclose(d_g[c], d_c[c], rtol=0, atol=1e-3)
+        np.testing.assert_allclose(l_g[c], l_c[c], rtol=0, atol=1e-3)
 
 
 def test_slice_on_the_card_matches_the_cpu(dev):
@@ -169,11 +269,13 @@ def test_sigma_slice_on_the_card_matches_the_cpu(dev):
     movie = make_bench_movie(32, 64, 40, 0.5, np.random.default_rng(7))
     cam = {"Baseline": 0, "Sensitivity": 1, "Gain": 1, "Pixelsize": 130}
     par = {"Min. Net Gradient": 4000, "Box Size": 7}
-    before = mle_cuda.fit_t.launches, mle_cuda.fit_boundary_t.launches
+    before = _fit_launches()
     g = localize.localize(movie, dict(cam), par, fitting_method="gaussmle",
                           mle_method="sigma", device=dev)
-    assert mle_cuda.fit_t.launches == before[0]
-    assert mle_cuda.fit_boundary_t.launches > before[1]
+    # the chain's route: K5 in phases, no other fit
+    after = _fit_launches()
+    assert after[5] > before[5]
+    assert after[:5] + after[6:] == before[:5] + before[6:]
     c = localize.localize(movie, dict(cam), par, fitting_method="gaussmle",
                           mle_method="sigma", device="cpu")
     np.testing.assert_array_equal(g["frame"], c["frame"])

@@ -149,12 +149,16 @@ def test_cli_localize_writes_the_jax_locs_layout(tmp_path, movie,
 
 
 def test_cli_undrift_exits_2_before_any_work(tmp_path, movie, capsys):
+    """A movie shorter than two segments at the default -d 1000: the
+    undrift is refused with the JAX CLI's message before any of its work,
+    the locs stay and the run ends normally, with no drift written."""
     _write_raw(tmp_path / "x.raw", movie[:2])
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["localize", str(tmp_path / "x.raw"), "--device", "cpu"])
-    assert exc.value.code == 2
-    assert "-d 0" in capsys.readouterr().err
-    assert not (tmp_path / "x_locs.hdf5").exists()
+    cli.main(["localize", str(tmp_path / "x.raw"), "--device", "cpu"])
+    assert "RCC undrift failed: Segmentation 1000 gives 0 segment(s)" in (
+        capsys.readouterr().out)
+    assert (tmp_path / "x_locs.hdf5").exists()
+    assert not (tmp_path / "x_locs_drift.txt").exists()
+    assert not (tmp_path / "x_locs_undrift.hdf5").exists()
 
 
 def test_cli_profile_writes_a_trace(tmp_path, movie):

@@ -29,6 +29,7 @@ from picasso_tpu.ops import fused as jfused
 from picasso_torch import io as tio
 from picasso_torch import localize as tloc
 from picasso_torch.ops import fused as tfused
+from picasso_torch.ops import winfit_cuda
 from torch_data import make_bench_movie
 from torch_parity import compare_hits, compare_lq_fits
 
@@ -66,7 +67,7 @@ def port_fused(movie):
 def _rois(movie, ids):
     """The fits' (7, 7, n) photon ROIs, cut around the hits."""
     t = torch.from_numpy(movie)
-    return tfused.cut_rois_t(
+    return winfit_cuda.cut_rois_t(
         t, *(torch.from_numpy(np.ascontiguousarray(ids[c], np.int64))
              for c in ("frame", "y", "x")), 7,
     ).to(torch.float32).numpy()

@@ -1,6 +1,7 @@
 """The port's plain MLE fit held against the JAX package's Pallas fit
-kernels K1 (fit_pallas_t) and K2 (fit_pallas_boundary_t), run in the
-Pallas interpreter on the CPU, on tests/torch_data.make_spots(1024).
+kernels K1 (fit_pallas_t), K2 (fit_pallas_boundary_t) and K7
+(fit_pallas_multiround), run in the Pallas interpreter on the CPU, on
+tests/torch_data.make_spots(1024).
 
 Tolerances: tests/torch_parity.py.
 """
@@ -61,3 +62,24 @@ def test_plain_schedule_matches_pallas_boundary_kernels(spots_t, plain_fit):
     compare_fits(p, t, MAX_IT)
     for a, b in zip(t, plain_fit):
         np.testing.assert_array_equal(a, b)
+
+
+def test_multiround_schedule_equals_the_single_pass(spots_t, plain_fit):
+    """K7 as the port's schedule (rounds of 8, stable argsort of done
+    between them, 13 phases at max_it 100) over the plain phases equals
+    mle._fit_core bit for bit."""
+    t = _np(mle_cuda.fit_multiround_t(torch.from_numpy(spots_t), EPS, MAX_IT))
+    for a, b in zip(t, plain_fit):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_multiround_schedule_matches_pallas_multiround(spots_t):
+    """K7 (fit_pallas_multiround) in the Pallas interpreter, at max_it 16
+    (two rounds of 8, the size tests/test_mle_pallas.py runs it at)."""
+    p = _np(mle_pallas.fit_pallas_multiround(
+        jnp.asarray(spots_t.transpose(2, 0, 1)), EPS, 16, round_it=8,
+        interpret=True,
+    ))
+    t = _np(mle_cuda.fit_multiround_t(torch.from_numpy(spots_t), EPS, 16,
+                                      round_it=8))
+    compare_fits([p[0].T, p[1].T, p[2], p[3]], t, 16)

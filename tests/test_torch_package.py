@@ -19,7 +19,7 @@ import bench
 import picasso_torch
 import torch_data
 from picasso_torch import _build
-from picasso_torch.ops import identify_cuda, lq_cuda, mle_cuda
+from picasso_torch.ops import identify_cuda, lq_cuda, mle_cuda, winfit_cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -46,8 +46,9 @@ def _smoke_imports() -> list[str]:
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert "picasso_torch.ops.mle_cuda" in mods
-    assert "picasso_torch.ops.lq_cuda" in mods
+    for m in ("ops.mle_cuda", "ops.lq_cuda", "ops.winfit_cuda",
+              "ops.render_ops", "render", "imageprocess", "postprocess"):
+        assert "picasso_torch." + m in mods
     smoke = _smoke_imports()
     assert "torch_data" in smoke and "torch_parity" in smoke
     top = {m.split(".")[0] for m in smoke}
@@ -90,7 +91,9 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_sources_hash_and_cover_every_entry():
     names = [p.name for p in _build.sources()]
-    assert {"mle_fit.cu", "identify.cu", "lq_fit.cu"} <= set(names)
+    assert {"mle_fit.cu", "identify.cu", "lq_fit.cu", "winfit_mle.cu",
+            "winfit_mle_f32.cu", "winfit_lq.cu", "fit_common.cuh",
+            "fit_mle.cuh", "fit_lq.cuh"} <= set(names)
     text = "".join(p.read_text() for p in _build.sources())
     for entry in _build.SIGNATURES:
         assert f'extern "C" int {entry}(' in text
@@ -99,12 +102,23 @@ def test_sources_hash_and_cover_every_entry():
     assert len(_build.source_hash()) == 16
 
 
-@pytest.mark.parametrize("wrapper", ["fit_t", "fit_boundary_t", "identify",
-                                     "lq_fit_t", "lq_fit_boundary_t"])
+@pytest.mark.parametrize("wrapper", ["fit_t", "fit_boundary_t",
+                                     "fit_multiround_t", "identify",
+                                     "lq_fit_t", "lq_fit_boundary_t",
+                                     "winfit_fit_mle_t",
+                                     "winfit_fit_mle_boundary_t",
+                                     "winfit_fit_lq_t"])
 def test_wrappers_do_not_fall_back_off_the_cpu(wrapper):
     """A tensor on any device but the CPU goes to the kernel or raises;
     the plain version is never taken for it."""
-    if wrapper == "identify":
+    if wrapper.startswith("winfit_"):
+        frames = torch.empty((2, 32, 32), dtype=torch.uint16, device="meta")
+        hit = torch.full((4,), 10, device="meta")
+        fn = getattr(winfit_cuda, wrapper[len("winfit_"):])
+        kw = dict(box=7, max_it=10) | ({} if "lq" in wrapper else
+                                       dict(eps=1e-3))
+        call = lambda: fn(frames, hit, hit, hit, 0.0, 1.0, **kw)  # noqa: E731
+    elif wrapper == "identify":
         frames = torch.empty((2, 32, 32), dtype=torch.uint16, device="meta")
         call = lambda: identify_cuda.identify_tiles(frames, 100.0, 7)  # noqa: E731
     elif wrapper.startswith("lq_"):
@@ -121,8 +135,12 @@ def test_wrappers_do_not_fall_back_off_the_cpu(wrapper):
 
 def _counts():
     return (mle_cuda.fit_t.launches, mle_cuda.fit_boundary_t.launches,
+            mle_cuda.fit_multiround_t.launches,
             lq_cuda.fit_t.launches, lq_cuda.fit_boundary_t.launches,
-            identify_cuda.identify_tiles.launches)
+            identify_cuda.identify_tiles.launches,
+            winfit_cuda.fit_mle_t.launches,
+            winfit_cuda.fit_mle_boundary_t.launches,
+            winfit_cuda.fit_lq_t.launches)
 
 
 def test_cpu_tensors_take_the_plain_versions_without_counting():
@@ -130,9 +148,17 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     spots = torch.rand((7, 7, 8)) * 100 + 10
     mle_cuda.fit_boundary_t(spots, 1e-3, 20)
     mle_cuda.fit_t(spots, 1e-3, 20, "sigma")
+    mle_cuda.fit_multiround_t(spots, 1e-3, 20)
     lq_cuda.fit_t(spots, 20)
     lq_cuda.fit_boundary_t(spots, 20)
     identify_cuda.identify_tiles(torch.zeros((1, 16, 16)), 100.0, 7)
+    frames = (torch.rand((2, 16, 16)) * 100).to(torch.uint16)
+    hit = torch.tensor([1, 8])
+    winfit_cuda.fit_mle_t(frames, hit, hit, hit, 0.0, 1.0, box=7, eps=1e-3,
+                          max_it=20)
+    winfit_cuda.fit_mle_boundary_t(frames, hit, hit, hit, 0.0, 1.0, box=7,
+                                   eps=1e-3, max_it=20)
+    winfit_cuda.fit_lq_t(frames, hit, hit, hit, 0.0, 1.0, box=7, max_it=20)
     assert before == _counts()
 
 

@@ -1,5 +1,6 @@
 """Synthetic inputs of the port's tests and of chip_smoke.py, made from a
-seed with numpy only: DNA-PAINT-like spots and movies.
+seed with numpy only: DNA-PAINT-like spots and movies, and spots laid out
+as a frame chunk for the fused cut+fit.
 
 Copies of bench.make_spots and bench.make_bench_movie (the JAX package's
 benchmark, whose other functions reach JAX), so that the port's smoke
@@ -55,3 +56,19 @@ def make_bench_movie(n_frames, size, n_sites, p_on, rng):
                 rng.poisson(psf * 900).astype(np.uint16)
             )
     return movie
+
+
+def spots_chunk(spots: np.ndarray, dtype, cells: int = 36):
+    """The (n, S, S) spots laid out as S x S cells, ``cells`` x ``cells``
+    a frame: a (B, cells * S, cells * S) chunk of ``dtype`` (zeros where
+    no spot is) and the hit list (f, y, x) int64 of the cell centres, so
+    that each hit's window is its spot."""
+    n, s, _ = spots.shape
+    per = cells * cells
+    grid = np.zeros((-(-n // per) * per, s, s), np.float32)
+    grid[:n] = spots
+    frames = (grid.reshape(-1, cells, cells, s, s).transpose(0, 1, 3, 2, 4)
+              .reshape(-1, cells * s, cells * s))
+    i = np.arange(n)
+    hits = (i // per, (i % per) // cells * s + s // 2, i % cells * s + s // 2)
+    return np.ascontiguousarray(frames.astype(dtype)), hits
