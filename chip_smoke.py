@@ -13,23 +13,28 @@ Phases, each of which raises on failure (exit code != 0):
    phase schedule (K2), for the methods sigmaxy and sigma, K2 == K1 bit
    for bit; the LM fit kernel in its single-pass mode (K3) and in the
    phase schedule (K6), K6 == K3 bit for bit; the fused cut+fit kernel
-   (K5: MLE sigmaxy and sigma in one pass and in the phase schedule, LM
-   in one pass) on the same spots laid out as a u16 and an f32 frame
-   chunk, K5 == K1/K2/K3 bit for bit there; the sigmaxy fit in rounds
-   of 8 (K7, a schedule of K2's modes), K7 == K1 bit for bit; the
-   identify kernel (K4) on one 256-frame 256x256 u16 chunk; times are
-   medians of 5 CUDA-event runs;
+   (K5: MLE sigmaxy and sigma as the work queue with its CRLB/LL pass,
+   in one pass and in the phase schedule, LM in one pass) on the same
+   spots laid out as a u16 and an f32 frame chunk, K5 == K1/K2/K3 bit
+   for bit there, with the queue's time, share of its bound, registers,
+   spills and resident blocks per SM; the sigmaxy fit in rounds of 8
+   (K7, a schedule of K2's modes), K7 == K1 bit for bit; the identify
+   kernel (K4) on one 256-frame 256x256 u16 chunk; times are medians of
+   5 CUDA-event runs;
 4. the MLE slice: picasso_torch.localize.localize (MLE sigmaxy, box 7)
    on a 2048-frame 256x256 u16 movie of tests/torch_data.make_bench_movie
-   with the launch count of every kernel checked: K4 and K5 in phases
-   launched, every other fit not; then its first chunk re-run through
-   the plain versions on the card and held to the tolerances of
-   tests/torch_parity.py; on that chunk K5 == the gather route (cut,
-   photons, K2 or K1) bit for bit from u16 and f32 frames, K7 == K1 and
-   K2 == K1 bit for bit, the routes timed in turns, and the time of
-   each stage of one chunk;
-5. the MLE slice with mle_method="sigma" on the same movie: K4 and K5
-   in phases launched on it (no other fit), sx == sy in every loc, its
+   with the launch count of every kernel checked: K4 and K5's work queue
+   (2 launches a chunk) launched, every other fit not; then its first
+   chunk re-run through the plain versions on the card and held to the
+   tolerances of tests/torch_parity.py; on that chunk K5 (queue, phases,
+   one pass) == the gather route (cut, photons, K2 or K1) bit for bit
+   from u16 and f32 frames at two camera-constant pairs, K7 == K1 and
+   K2 == K1 bit for bit, the routes timed in turns, the queue's time
+   without the spots that run to max_it and on those spots alone, and
+   the time of each stage of one chunk;
+5. the MLE slice with mle_method="sigma" on the same movie: K4 and K5 in
+   phases (3 launches a chunk; the chain's sigma route, ops/fused.py
+   MLE_FITS) launched on it, no other fit, sx == sy in every loc, its
    first chunk equal to a re-run and held against the plain sigma fit;
 6. the LQ slice: localize(fitting_method="gausslq") on the same movie,
    with K4 and K5 (LM) launched on it (no other fit); its first chunk
@@ -56,6 +61,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -132,10 +138,10 @@ def _fit_bound(n: int, iters_sum: float, per_iter, out_bytes: int,
 K5_IN_BYTES = BOX * BOX * 2 + 3 * 4  # u16 window + (f, y, x) int32
 
 
-def _turns(fns) -> list[float]:
+def _turns(fns, reps: int = 5) -> list[float]:
     """Median times of ``fns`` taken in the given order (A, B, B, A),
     so that a drift of the card's clock shows."""
-    return [_median_ms(fn) for fn in fns]
+    return [_median_ms(fn, reps) for fn in fns]
 
 
 def _assert_equal(a, b, what: str) -> None:
@@ -181,7 +187,8 @@ def _ptxas_table(log: str) -> list[str]:
     rows, name = [], None
     for line in log.splitlines():
         m = re.search(r"entry function '.*?((?:identify|lq_fit|mle_fit|"
-                      r"winfit_mle|winfit_lq)_kernel)I(\w+?)EEv", line)
+                      r"winfit_mle_queue|winfit_mle|winfit_lq)_kernel)"
+                      r"I(\w+?)EEv", line)
         if m:
             name, spill = f"{m.group(1)}<{m.group(2)}>", ""
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -211,6 +218,7 @@ def main() -> int:
         fused, identify, identify_cuda, lq, lq_cuda, mle, mle_cuda,
         winfit_cuda,
     )
+    from picasso_torch.ops._fit_common import FINISH
     from torch_data import make_bench_movie, make_spots, spots_chunk
     from torch_parity import compare_fits, compare_hits, compare_lq_fits
 
@@ -228,7 +236,16 @@ def main() -> int:
     print("card (nvidia-smi name, power.limit):")
     print(smi)
 
-    # 2. build -----------------------------------------------------------
+    # 2. build, with the slices' movie made alongside (nvcc runs in
+    # processes of its own, numpy's sampler without the GIL) -------------
+    def make_movie():
+        t0 = time.perf_counter()
+        movie = make_bench_movie(2048, 256, 1200, 0.5,
+                                 np.random.default_rng(13))
+        return movie, time.perf_counter() - t0
+
+    movie_pool = ThreadPoolExecutor(1)
+    movie_job = movie_pool.submit(make_movie)
     lib_path, build_s = _build.build()
     print(f"build: {build_s:.1f} s -> {lib_path}")
     for row in _ptxas_table((lib_path.parent / "build.log").read_text()):
@@ -317,6 +334,12 @@ def main() -> int:
             _assert_equal(k5, k2, f"K5{tag} phases ({name}) vs K2{tag}")
             stats["K5" + tag] = compare_fits(plain, k5, MAX_IT,
                                              f"K5{tag} ({name}) vs plain")
+            kq = as_np(winfit_cuda.fit_mle_queue_t(win, *hits, 0.0, 1.0,
+                                                   **kw))
+            _assert_equal(kq, k1, f"K5 queue{tag} ({name}) vs K1{tag}")
+            _assert_equal(kq, k2, f"K5 queue{tag} ({name}) vs K2{tag}")
+            stats["K5 queue" + tag] = compare_fits(
+                plain, kq, MAX_IT, f"K5 queue{tag} ({name}) vs plain")
         k5lq = winfit_cuda.fit_lq_t(win, *hits, 0.0, 1.0, box=BOX,
                                     max_it=MAX_IT, ftol=FTOL).cpu().numpy()
         if not np.array_equal(k5lq, k3, equal_nan=True):
@@ -324,8 +347,9 @@ def main() -> int:
         stats["K5 lq"] = compare_lq_fits(plain_lq, k5lq, spots_np,
                                          f"K5 lq ({name}) vs plain")
         print(f"K5 on make_spots as a {name} chunk {tuple(win.shape)}: "
-              "== K1 and K2 (sigmaxy, sigma) and K3 bit for bit")
-    for key in ("K5", "K5 sigma", "K5 lq"):
+              "queue, one pass and phases == K1 and K2 (sigmaxy, sigma), "
+              "LM == K3, bit for bit")
+    for key in ("K5 queue", "K5 queue sigma", "K5", "K5 sigma", "K5 lq"):
         print(f"{key} vs plain:", json.dumps(stats[key]))
     win, hits = upload_chunk(np.uint16)
     for method in ("sigmaxy", "sigma"):
@@ -342,11 +366,31 @@ def main() -> int:
             N_SPOTS, float(ref[method][1][3].sum()), mle_flops_per_spot_iter,
             56, K5_IN_BYTES)
         bounds["K5 one pass" + tag] = bounds["K5" + tag]
-        print(f"K5{tag} fit {N_SPOTS} spots from the u16 chunk: phases "
-              f"{ms['K5' + tag]:.3f} ms, one pass "
+        # the queue: the same work as K5, so the same bound
+        ms["K5 queue" + tag] = _median_ms(
+            lambda: winfit_cuda.fit_mle_queue_t(win, *hits, 0.0, 1.0, **kw))
+        bounds["K5 queue" + tag] = bounds["K5" + tag]
+        h32 = torch.stack(hits).to(torch.int32).contiguous()
+        carry = winfit_cuda._launch_queue(_build.library(), win, h32, 0.0,
+                                          1.0, BOX, EPS, MAX_IT, method)
+        ms["K5 queue pass" + tag] = _median_ms(
+            lambda: winfit_cuda._launch_queue(_build.library(), win, h32, 0.0,
+                                              1.0, BOX, EPS, MAX_IT, method))
+        ms["K5 finish pass" + tag] = _median_ms(
+            lambda: winfit_cuda._launch_mle(FINISH, win, h32, 0.0, 1.0, BOX,
+                                            EPS, 0, method, carry))
+        info = {dt: winfit_cuda.queue_info(dt, BOX, method)
+                for dt in (torch.uint16, torch.float32)}
+        b_ms = bounds["K5" + tag][0]
+        print(f"K5{tag} fit {N_SPOTS} spots from the u16 chunk: queue "
+              f"{ms['K5 queue' + tag]:.3f} ms (queue launch "
+              f"{ms['K5 queue pass' + tag]:.3f}, CRLB/LL pass "
+              f"{ms['K5 finish pass' + tag]:.3f}; "
+              f"{b_ms / ms['K5 queue' + tag]:.1%} of the bound), phases {ms['K5' + tag]:.3f} ms, one pass "
               f"{ms['K5 one pass' + tag]:.3f} ms, plain (cut + photons + "
               f"plain fit) {ms['plain K5' + tag]:.3f} ms, bound "
-              f"{bounds['K5' + tag][0]:.4f} ms ({bounds['K5' + tag][1]})")
+              f"{b_ms:.4f} ms ({bounds['K5' + tag][1]}); queue kernel "
+              f"(u16, f32): {info[torch.uint16]}, {info[torch.float32]}")
     ms["K5 lq"] = _median_ms(lambda: winfit_cuda.fit_lq_t(
         win, *hits, 0.0, 1.0, box=BOX, max_it=MAX_IT, ftol=FTOL))
     ms["plain K5 lq"] = _median_ms(lambda: lq._lm_core(
@@ -378,10 +422,10 @@ def main() -> int:
           f"{bounds['K7'][0]:.4f} ms ({bounds['K7'][1]}); K7 vs plain:",
           json.dumps(stats["K7"]))
 
-    t0 = time.perf_counter()
-    movie = make_bench_movie(2048, 256, 1200, 0.5, np.random.default_rng(13))
-    print(f"movie {movie.shape} {movie.dtype}: "
-          f"{time.perf_counter() - t0:.1f} s to generate")
+    movie, movie_s = movie_job.result()
+    movie_pool.shutdown()
+    print(f"movie {movie.shape} {movie.dtype}: {movie_s:.1f} s to generate "
+          "(alongside the build)")
     chunk = identify.upload_frames(movie[:CHUNK], dev)
     tiles_p = [a.cpu().numpy() for a in
                identify.identify_tiles_plain(chunk, MIN_NG, BOX)]
@@ -417,13 +461,19 @@ def main() -> int:
                 "K4": identify_cuda.identify_tiles,
                 "K5 mle one pass": winfit_cuda.fit_mle_t,
                 "K5 mle phases": winfit_cuda.fit_mle_boundary_t,
+                "K5 mle queue": winfit_cuda.fit_mle_queue_t,
                 "K5 lq": winfit_cuda.fit_lq_t,
                 "K7": mle_cuda.fit_multiround_t}
 
-    def check_route(what: str, launches: dict, fit: str) -> None:
-        """K4 and the fit ``fit`` launched on the slice, no other fit."""
+    n_chunks = -(-len(movie) // CHUNK)
+
+    def check_route(what: str, launches: dict, fit: str,
+                    per_chunk: int = 1) -> None:
+        """K4 and the fit ``fit`` launched on the slice, ``per_chunk``
+        launches a chunk, no other fit."""
         idle = [k for k, v in launches.items() if v and k not in ("K4", fit)]
-        if min(launches["K4"], launches[fit]) <= 0 or idle:
+        if (launches["K4"] != n_chunks
+                or launches[fit] != per_chunk * n_chunks or idle):
             raise AssertionError(f"{what} slice did not run through K4 and "
                                  f"{fit} only: {launches}")
 
@@ -452,9 +502,10 @@ def main() -> int:
 
     # 4. the MLE slice ---------------------------------------------------
     locs, wall, launches_mle = run_slice("gaussmle")
-    # the main path fits through K5 in the phase schedule (ops/fused.py);
-    # the gather route's K1/K2 and K5's single pass are not on it
-    check_route("MLE", launches_mle, "K5 mle phases")
+    # the main path fits through K5's work queue, 2 launches a chunk
+    # (ops/fused.py); the gather route's K1/K2 and K5's phases and single
+    # pass are not on it
+    check_route("MLE", launches_mle, "K5 mle queue", 2)
     if len(locs) == 0:
         raise AssertionError("MLE slice found no locs")
     for name in ("x", "y", "photons", "sx", "sy", "bg"):
@@ -497,11 +548,12 @@ def main() -> int:
           json.dumps(chunk_stats))
 
     # K5 against the gather route on the chunk's real hits, where some
-    # spots run to max_it: K5 in phases from the u16 and the f32 chunk
-    # and in one pass equal cut + photons + K2 (== K1) bit for bit, at
-    # the slice's camera constants and at baseline 1.5, factor 0.8; then
-    # the routes in turns: (A) cut + photons + K2, (B) K5 in phases, (C)
-    # K5 in one pass
+    # spots run to max_it: K5's queue and phases from the u16 and the f32
+    # chunk and K5 in one pass equal cut + photons + K2 (== K1) bit for
+    # bit, at the slice's camera constants and at baseline 1.5, factor
+    # 0.8; then the routes in turns: (A) cut + photons + K2, (B) K5 in
+    # phases, (D) K5's queue, (C) K5 in one pass; then the queue without
+    # the spots that run to max_it, and on those alone
     hits_k = identify.compact(
         *identify_cuda.identify_tiles(chunk, MIN_NG, BOX), BOX)[:3]
     chunk32 = chunk.to(torch.float32)
@@ -521,6 +573,9 @@ def main() -> int:
                 _assert_equal(as_np(winfit_cuda.fit_mle_boundary_t(
                     src, *hits_k, b, c, **kw)), k2g,
                     f"{what}: K5 phases ({src.dtype}) vs cut + photons + K2")
+                _assert_equal(as_np(winfit_cuda.fit_mle_queue_t(
+                    src, *hits_k, b, c, **kw)), k2g,
+                    f"{what}: K5 queue ({src.dtype}) vs cut + photons + K2")
             if b == 0.0:
                 rois[method], it = r, k2g[3]
         routes = (
@@ -529,14 +584,25 @@ def main() -> int:
             lambda: winfit_cuda.fit_mle_boundary_t(chunk, *hits_k, 0.0, 1.0,
                                                    **kw),
             lambda: winfit_cuda.fit_mle_t(chunk, *hits_k, 0.0, 1.0, **kw),
+            lambda: winfit_cuda.fit_mle_queue_t(chunk, *hits_k, 0.0, 1.0,
+                                                **kw),
         )
-        route_ms = _turns(routes[i] for i in (0, 1, 2, 2, 1, 0))
+        route_ms = _turns((routes[i] for i in (0, 1, 3, 2, 2, 3, 1, 0)), 9)
+        at_max = torch.from_numpy(it == MAX_IT).to(dev)
+        parts = ([h[~at_max] for h in hits_k], [h[at_max] for h in hits_k])
+        tail_ms = _turns(
+            (lambda h=h: winfit_cuda.fit_mle_queue_t(chunk, *h, 0.0, 1.0,
+                                                     **kw))
+            for h in (*parts, *parts[::-1]))
         print(f"chunk 0 {method} ({len(it)} hits, iterations p50 "
               f"{np.percentile(it, 50):.0f} p90 {np.percentile(it, 90):.0f}, "
-              f"{np.mean(it == MAX_IT):.4f} at max_it): K5 (u16, f32, one "
-              f"pass, phases) == cut + photons + K2 == K1 bit for bit; route "
-              f"ms in turn A gather+K2, B K5 phases, C K5 one pass, C, B, A: "
-              f"{[round(t, 4) for t in route_ms]}")
+              f"{np.mean(it == MAX_IT):.4f} at max_it, mean {it.mean():.2f})"
+              f": K5 (queue, phases from u16 and f32; one pass) == cut + "
+              f"photons + K2 == K1 bit for bit; route ms in turn A "
+              f"gather+K2, B K5 phases, D K5 queue, C K5 one pass, C, D, B, "
+              f"A: {[round(t, 4) for t in route_ms]}; queue without the "
+              f"{int(at_max.sum())} max_it spots, on them alone, alone, "
+              f"without: {[round(t, 4) for t in tail_ms]}")
 
     # K7 on the chunk's ROIs: == K1 bit for bit, timed in turns with K2
     k7d = as_np(mle_cuda.fit_multiround_t(rois["sigmaxy"], EPS, MAX_IT,
@@ -559,6 +625,8 @@ def main() -> int:
         "K4 identify": lambda: identify_cuda.identify_tiles(
             chunk, MIN_NG, BOX),
         "compact": lambda: identify.compact(*tiles, BOX),
+        "K5 fit (queue)": lambda: winfit_cuda.fit_mle_queue_t(
+            chunk, *hits_k, 0.0, 1.0, box=BOX, eps=EPS, max_it=MAX_IT),
         "K5 fit (phases)": lambda: winfit_cuda.fit_mle_boundary_t(
             chunk, *hits_k, 0.0, 1.0, box=BOX, eps=EPS, max_it=MAX_IT),
         "packed chunk + readback": lambda: fused.identify_cut_fit_packed(
@@ -570,8 +638,9 @@ def main() -> int:
 
     # 5. the MLE slice with mle_method="sigma" ---------------------------
     locs_sig, _, launches_sig = run_slice("gaussmle", mle_method="sigma")
-    # the same route as sigmaxy: K4, then K5 in phases in its sigma mode
-    check_route("sigma", launches_sig, "K5 mle phases")
+    # the sigma route: K4, then K5 in phases in its sigma mode, which beat
+    # the work queue on the dense chunk (ops/fused.py MLE_FITS)
+    check_route("sigma", launches_sig, "K5 mle phases", 3)
     if not np.array_equal(locs_sig["sx"], locs_sig["sy"]):
         raise AssertionError("sigma slice: sx != sy, not the sigma fit")
     ker_s = [a.cpu().numpy() for a in fused.identify_cut_fit(
@@ -739,10 +808,21 @@ def main() -> int:
     mle_src, lq_src = ("picasso_torch/csrc/mle_fit.cu",
                        "picasso_torch/csrc/lq_fit.cu")
     win_src = "picasso_torch/csrc/winfit_mle.cu"
+    queue_src = "picasso_torch/csrc/winfit_mle_queue.cu"
     kernels = [
+        entry("K5 queue", "K5 winfit_mle_queue sigmaxy (work queue + "
+              "CRLB/LL pass)", queue_src,
+              "picasso_tpu/ops/winfit_pallas.py:108",
+              launches_mle["K5 mle queue"], "mle",
+              stats["K5 queue"]["xy_max_all"], "plain K5"),
+        entry("K5 queue sigma", "K5 winfit_mle_queue sigma (work queue + "
+              "CRLB/LL pass)", queue_src,
+              "picasso_tpu/ops/winfit_pallas.py:108",
+              launches_sig["K5 mle queue"], "off",
+              stats["K5 queue sigma"]["xy_max_all"], "plain K5 sigma"),
         entry("K5", "K5 winfit_mle sigmaxy (phases 16/50/100)", win_src,
               "picasso_tpu/ops/winfit_pallas.py:108",
-              launches_mle["K5 mle phases"], "mle",
+              launches_mle["K5 mle phases"], "off",
               stats["K5"]["xy_max_all"], "plain K5"),
         entry("K5 sigma", "K5 winfit_mle sigma (phases 16/50/100)", win_src,
               "picasso_tpu/ops/winfit_pallas.py:108",

@@ -57,6 +57,16 @@ SIGNATURES = {
         _P, _P, _P, _P,                        # out: theta, crlb, ll, iters
         _P,                                    # stream
     ],
+    "picasso_winfit_mle_queue": [
+        _P, _I, _LL, _LL, _LL,                 # frames, dtype, B, Y, X
+        _P, _LL, _I, _F, _F,                   # hits, n, box, baseline, factor
+        _F, _I, _I, _P,                        # eps, max_it, method, counter
+        _P, _P, _P, _P, _P,                    # carry: theta old done iters max_step
+        _P,                                    # stream
+    ],
+    "picasso_winfit_mle_queue_info": [
+        _I, _I, _I, _P,                        # dtype, box, method, int info[7]
+    ],
     "picasso_winfit_lq": [
         _P, _I, _LL, _LL, _LL,                 # frames, dtype, B, Y, X
         _P, _LL, _I, _F, _F,                   # hits, n, box, baseline, factor

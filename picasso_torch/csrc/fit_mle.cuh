@@ -327,28 +327,37 @@ __device__ void newton_step(const Src& px, float* th, const float* ms) {
   }
 }
 
-// Up to k Newton steps from a carried state (ops/mle.py
-// _run_newton_rounds, for one lane): iters counts before the
-// convergence test, which compares rows (0, 1, 4, 5) (sigma: 0, 1)
+// One Newton step of a lane that has not converged (ops/mle.py
+// _run_newton_rounds, one iteration of one lane): iters counts before
+// the convergence test, which compares rows (0, 1, 4, 5) (sigma: 0, 1)
 // against `old`; a converged lane keeps its theta and old.
+template <int S, bool SIG, class Src>
+__device__ __forceinline__ void newton_trip(const Src& px, float* th,
+                                            float* old, float& done,
+                                            float& iters, const float* ms,
+                                            float eps) {
+  constexpr int R = SIG ? 5 : 6;
+  newton_step<S, SIG>(px, th, ms);
+  iters = iters + (1.0f - done);
+  bool conv = fabsf(old[0] - th[0]) < eps && fabsf(old[1] - th[1]) < eps;
+  if constexpr (!SIG)
+    conv = conv && fabsf(old[4] - th[4]) < eps && fabsf(old[5] - th[5]) < eps;
+  if (conv) {
+    done = 1.0f;
+  } else {
+#pragma unroll
+    for (int p = 0; p < R; ++p) old[p] = th[p];
+  }
+}
+
+// Up to k Newton steps from a carried state (ops/mle.py
+// _run_newton_rounds, for one lane).
 template <int S, bool SIG, class Src>
 __device__ void run_rounds(const Src& px, float* th, float* old, float& done,
                            float& iters, const float* ms, float eps, int k) {
-  constexpr int R = SIG ? 5 : 6;
   for (int kk = 0; kk < k; ++kk) {
     if (done > 0.5f) break;
-    newton_step<S, SIG>(px, th, ms);
-    iters = iters + (1.0f - done);
-    bool conv = fabsf(old[0] - th[0]) < eps && fabsf(old[1] - th[1]) < eps;
-    if constexpr (!SIG)
-      conv = conv && fabsf(old[4] - th[4]) < eps &&
-             fabsf(old[5] - th[5]) < eps;
-    if (conv) {
-      done = 1.0f;
-    } else {
-#pragma unroll
-      for (int p = 0; p < R; ++p) old[p] = th[p];
-    }
+    newton_trip<S, SIG>(px, th, old, done, iters, ms, eps);
   }
 }
 

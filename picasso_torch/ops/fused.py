@@ -27,6 +27,15 @@ from picasso_torch.ops.identify_cuda import identify_tiles
 #: package's, picasso_tpu/ops/fused.py:707)
 LQ_FTOL = 1e-6
 
+#: K5's MLE route for each method, the faster in chip_smoke.py's turns on
+#: the smoke movie's dense first chunk (PERF.md): the work queue (one
+#: persistent launch with lane refill, then the CRLB/LL pass) for
+#: sigmaxy; sigma keeps K2's phase schedule, because its fits are short
+#: and the queue's straggler tail (a spot claimed late that runs to
+#: max_it) then outweighs what the queue saves.
+MLE_FITS = {"sigmaxy": winfit_cuda.fit_mle_queue_t,
+            "sigma": winfit_cuda.fit_mle_boundary_t}
+
 
 def identify_cut_fit(frames, minimum_ng, baseline: float, factor: float,
                      *, box: int, eps: float, max_it: int,
@@ -41,12 +50,12 @@ def identify_cut_fit(frames, minimum_ng, baseline: float, factor: float,
     The fit is K5, the fused cut + photon conversion + fit
     (ops/winfit_cuda.py), which reads each window straight from the
     chunk; on the CPU its plain version cuts the ROI batch first. The MLE
-    fit runs in K2's phase schedule, the LM fit in one pass; chip_smoke.py
-    times these routes against the gather route on the same chunk
-    (PERF.md)."""
+    fit takes the route of :data:`MLE_FITS`, the LM fit one pass;
+    chip_smoke.py times these routes against each other and the gather
+    route on the same chunk (PERF.md)."""
     f, y, x, ng = compact(*identify_tiles(frames, minimum_ng, box), box)
     if method != "lq":
-        return (f, y, x, ng, *winfit_cuda.fit_mle_boundary_t(
+        return (f, y, x, ng, *MLE_FITS[method](
             frames, f, y, x, baseline, factor, box=box, eps=eps,
             max_it=max_it, method=method))
     return f, y, x, ng, winfit_cuda.fit_lq_t(

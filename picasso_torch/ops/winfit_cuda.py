@@ -1,25 +1,37 @@
 """K5, the fused ROI cut + photon conversion + fit, for the MLE fit
-(csrc/winfit_mle.cu, winfit_mle_f32.cu; methods ``sigmaxy`` and
-``sigma``) and the LM fit (csrc/winfit_lq.cu), and its plain version, the
-gather route: cut the (S, S, N) ROI batch out of the chunk, convert it to
-photons, fit it.
+(methods ``sigmaxy`` and ``sigma``: the work-queue kernel
+csrc/winfit_mle_queue.cu + winfit_mle_queue_f32.cu, and the single-pass
+and phase modes of csrc/winfit_mle.cu + winfit_mle_f32.cu) and the LM
+fit (csrc/winfit_lq.cu), and its plain version, the gather route: cut
+the (S, S, N) ROI batch out of the chunk, convert it to photons, fit it.
 
 Counterpart of picasso_tpu/ops/winfit_pallas.py (fit_mle_t :186,
 fit_lq_t :140) together with the window gather that feeds it
 (picasso_tpu/ops/fused.gather_wincols :609). The kernels take the
 uploaded (B, Y, X) chunk in its own dtype (u16 or f32,
 ops/identify.upload_frames) and the hit list (f, y, x), not a ROI batch:
-each thread loads its window from the chunk once. A CUDA chunk launches
-the kernel or raises; a CPU chunk takes the gather route. Nothing here
-falls back from one to the other.
+each thread loads its window from the chunk itself. A CUDA chunk
+launches the kernel or raises; a CPU chunk takes the gather route.
+Nothing here falls back from one to the other.
 
-Launch counts (plain integers): ``fit_mle_t.launches`` counts the MLE
-kernel's single-pass (FULL) launches, ``fit_mle_boundary_t.launches``
-its phase launches (the K2 schedule run on K5), ``fit_lq_t.launches``
+The chain (ops/fused.identify_cut_fit, MLE_FITS) fits the sigmaxy
+method through :func:`fit_mle_queue_t` (one persistent launch in which a
+lane whose spot has converged takes the next hit, then one CRLB/LL pass)
+and the sigma method through :func:`fit_mle_boundary_t` (K2's phase
+schedule run on K5), the faster of the two for each on the card (PERF.md).
+:func:`fit_mle_t` (one pass, one thread per spot) is off the main path;
+chip_smoke.py holds all three against each other.
+
+Launch counts (plain integers): ``fit_mle_queue_t.launches`` counts the
+queue kernel's launches and its CRLB/LL pass (2 a fit),
+``fit_mle_t.launches`` the MLE kernel's single-pass (FULL) launches,
+``fit_mle_boundary_t.launches`` its phase launches, ``fit_lq_t.launches``
 the LM kernel's launches.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -158,7 +170,7 @@ def fit_mle_boundary_t(frames, f, y, x, baseline: float, factor: float, *,
     (3, N) hit list, not a ROI batch, are reordered stragglers first, and
     each phase loads its windows anew. Equals :func:`fit_mle_t` bit for
     bit. On the CPU each phase takes the gather route (cut, photons, the
-    plain phase)."""
+    plain phase). The chain's route for the sigma method."""
     _mle._check_method(method)
     cuda = on_cuda(frames)
     hits = _hit_list(frames, f, y, x, box, cuda)
@@ -184,6 +196,83 @@ def fit_mle_boundary_t(frames, f, y, x, baseline: float, factor: float, *,
 
 
 fit_mle_boundary_t.launches = 0
+
+
+QUEUE_INFO = ("threads", "blocks_per_sm", "registers", "local_bytes",
+              "refill", "min_blocks", "sms")
+
+
+def queue_info(dtype: torch.dtype, box: int, method: str = "sigmaxy",
+               lib=None) -> dict:
+    """What the queue kernel's instance for a ``dtype`` chunk, ``box``
+    and ``method`` is on the current card: the :data:`QUEUE_INFO` fields
+    (threads a block, resident blocks per SM, registers and local spill
+    bytes a thread, the refill threshold, the launch bounds' minimum
+    blocks, the card's SMs)."""
+    lib = lib or _build.library()
+    info = (ctypes.c_int * len(QUEUE_INFO))()
+    _build.check(lib.picasso_winfit_mle_queue_info(
+        _DTYPE_ID[dtype], box, _METHOD_ID[method], info),
+        "winfit_mle_queue_info")
+    return dict(zip(QUEUE_INFO, info))
+
+
+def _launch_queue(lib, frames, hits, baseline, factor, box, eps, max_it,
+                  method):
+    """One launch of the queue kernel of ``lib`` over the (3, N) hit
+    list, with its counter zeroed here; returns the carry (theta, old,
+    done, iters, max_step) in input order."""
+    n = hits.shape[1]
+    dev = frames.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    r = _ROWS[method]
+    carry = (torch.empty((r, n), **f32), torch.empty((r, n), **f32),
+             torch.empty((1, n), **f32), torch.empty((1, n), **f32),
+             torch.empty((r, n), **f32))
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    B, Y, X = frames.shape
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.picasso_winfit_mle_queue(
+            frames.data_ptr(), _DTYPE_ID[frames.dtype], B, Y, X,
+            hits.data_ptr(), n, box, float(baseline), float(factor),
+            float(eps), int(max_it), _METHOD_ID[method], counter.data_ptr(),
+            *[c.data_ptr() for c in carry], stream,
+        )
+    _build.check(status, "winfit_mle_queue")
+    return carry
+
+
+def fit_mle_queue_t(frames, f, y, x, baseline: float, factor: float, *,
+                    box: int, eps: float, max_it: int,
+                    method: str = "sigmaxy"):
+    """K5 MLE as a work queue, the chain's sigmaxy route: one persistent
+    launch in which each lane of a warp takes the next hit from a device
+    counter once its spot has converged or reached max_it, and writes
+    the spot's carry at the spot's index; then K5's FINISH mode at k = 0
+    computes the CRLB and log-likelihood of all N spots (2 launches).
+    Arguments and returns as :func:`fit_mle_t`, and equal to it (and to
+    :func:`fit_mle_boundary_t`) bit for bit: each spot runs the same
+    steps, only the lane that runs them differs. On the CPU it is the
+    gather route (cut, photons, the plain fit)."""
+    _mle._check_method(method)
+    cuda = on_cuda(frames)
+    hits = _hit_list(frames, f, y, x, box, cuda)
+    if not cuda:
+        return _mle._fit_core(photons_t(frames, *hits, box, baseline, factor),
+                              eps, max_it, method)
+    if hits.shape[1] == 0:
+        return _empty_fit(frames.device)
+    carry = _launch_queue(_build.library(), frames, hits, baseline, factor,
+                          box, eps, max_it, method)
+    fit_mle_queue_t.launches += 1
+    out = _launch_mle(FINISH, frames, hits, baseline, factor, box, eps, 0,
+                      method, carry)
+    fit_mle_queue_t.launches += 1
+    return out
+
+
+fit_mle_queue_t.launches = 0
 
 
 def fit_lq_t(frames, f, y, x, baseline: float, factor: float, *, box: int,

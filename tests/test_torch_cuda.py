@@ -135,7 +135,8 @@ def _fit_launches():
             lq_cuda.fit_t.launches, lq_cuda.fit_boundary_t.launches,
             winfit_cuda.fit_mle_t.launches,
             winfit_cuda.fit_mle_boundary_t.launches,
-            winfit_cuda.fit_lq_t.launches)
+            winfit_cuda.fit_lq_t.launches,
+            winfit_cuda.fit_mle_queue_t.launches)
 
 
 def test_chunk_without_hits_launches_no_fit(dev):
@@ -219,6 +220,98 @@ def test_winfit_kernel_refuses_other_dtypes(dev):
                              max_it=10)
 
 
+def _assert_same(a, b):
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.float32])
+@pytest.mark.parametrize("box", [5, 7, 9, 11, 13, 15])
+def test_queue_kernel_equals_k1(dev, box, dtype):
+    """K5's work queue (both methods) from a u16 or f32 chunk equals K1
+    on the gather route's ROIs and K5's single pass bit for bit."""
+    frames, hits = _chunk(make_spots(2048, box, seed=box + 5), dtype, dev)
+    rois = winfit_cuda.photons_t(frames, *hits, box, BASELINE, FACTOR)
+    for method in ("sigmaxy", "sigma"):
+        kw = dict(box=box, eps=EPS, max_it=MAX_IT, method=method)
+        q = _np(winfit_cuda.fit_mle_queue_t(frames, *hits, BASELINE, FACTOR,
+                                            **kw))
+        _assert_same(q, _np(mle_cuda.fit_t(rois, EPS, MAX_IT, method)))
+        _assert_same(q, _np(winfit_cuda.fit_mle_t(frames, *hits, BASELINE,
+                                                  FACTOR, **kw)))
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 131072])
+def test_queue_kernel_at_any_hit_count(dev, n):
+    """Fewer hits than a warp, one more than a warp, and the smoke's
+    131,072: the queue kernel equals K1; no hit launches nothing."""
+    frames, hits = _chunk(make_spots(max(n, 1), 7, seed=n), np.uint16, dev)
+    hits = [h[:n] for h in hits]
+    before = winfit_cuda.fit_mle_queue_t.launches
+    q = _np(winfit_cuda.fit_mle_queue_t(frames, *hits, BASELINE, FACTOR,
+                                        box=7, eps=EPS, max_it=MAX_IT))
+    assert q[0].shape == (6, n) and q[3].dtype == np.int32
+    assert winfit_cuda.fit_mle_queue_t.launches - before == (2 if n else 0)
+    rois = winfit_cuda.photons_t(frames, *hits, 7, BASELINE, FACTOR)
+    if n:
+        _assert_same(q, _np(mle_cuda.fit_t(rois, EPS, MAX_IT)))
+
+
+@pytest.mark.parametrize("max_it", [12, MAX_IT])
+def test_queue_kernel_with_max_it_stragglers(dev, max_it):
+    """A dense chunk where spots run to max_it (many at 12): the queue
+    equals cut + photons + K2 and K1 bit for bit, both methods, at two
+    camera-constant pairs."""
+    movie = make_bench_movie(48, 128, 300, 0.5, np.random.default_rng(13))
+    chunk = identify.upload_frames(movie, dev)
+    f, y, x, _ = identify.compact(
+        *identify_cuda.identify_tiles(chunk, 4000.0, 7), 7)
+    for method in ("sigmaxy", "sigma"):
+        for b, c in ((0.0, 1.0), (BASELINE, FACTOR)):
+            q = _np(winfit_cuda.fit_mle_queue_t(chunk, f, y, x, b, c, box=7,
+                                                eps=EPS, max_it=max_it,
+                                                method=method))
+            rois = winfit_cuda.photons_t(chunk, f, y, x, 7, b, c)
+            _assert_same(q, _np(mle_cuda.fit_boundary_t(rois, EPS, max_it,
+                                                        method)))
+            _assert_same(q, _np(mle_cuda.fit_t(rois, EPS, max_it, method)))
+            if max_it == 12:
+                assert (q[3] == max_it).any() and (q[3] < max_it).any()
+
+
+def test_queue_kernel_repeats_and_launches_twice(dev):
+    """Two calls in a row give equal results (the counter starts at 0
+    each time); each call is the queue launch and the CRLB/LL pass."""
+    frames, hits = _chunk(make_spots(5000, 7, seed=21), np.uint16, dev)
+    kw = dict(box=7, eps=EPS, max_it=MAX_IT)
+    before = winfit_cuda.fit_mle_queue_t.launches
+    a = _np(winfit_cuda.fit_mle_queue_t(frames, *hits, 0.0, 1.0, **kw))
+    assert winfit_cuda.fit_mle_queue_t.launches - before == 2
+    b = _np(winfit_cuda.fit_mle_queue_t(frames, *hits, 0.0, 1.0, **kw))
+    assert winfit_cuda.fit_mle_queue_t.launches - before == 4
+    _assert_same(a, b)
+
+
+def test_queue_kernel_refuses_other_dtypes_and_boxes(dev):
+    hit = torch.zeros(1, dtype=torch.int64, device=dev) + 10
+    kw = dict(eps=EPS, max_it=10)
+    frames = torch.zeros((2, 32, 32), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="u16 or f32"):
+        winfit_cuda.fit_mle_queue_t(frames, hit, hit, hit, 0.0, 1.0, box=7,
+                                    **kw)
+    frames = torch.zeros((2, 32, 32), dtype=torch.uint16, device=dev)
+    with pytest.raises(ValueError, match="boxes"):
+        winfit_cuda.fit_mle_queue_t(frames, hit, hit, hit, 0.0, 1.0, box=3,
+                                    **kw)
+
+
+def test_queue_kernel_at_box_7_does_not_spill(dev):
+    for method in ("sigmaxy", "sigma"):
+        for dtype in (torch.uint16, torch.float32):
+            info = winfit_cuda.queue_info(dtype, 7, method)
+            assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2
+
+
 def test_multiround_schedule_equals_the_single_pass(dev):
     """K7 (rounds of 4 over 20 iterations, some spots still running at
     each boundary) equals K1 bit for bit."""
@@ -254,8 +347,13 @@ def test_slice_on_the_card_matches_the_cpu(dev):
     movie = make_bench_movie(32, 64, 40, 0.5, np.random.default_rng(7))
     cam = {"Baseline": 0, "Sensitivity": 1, "Gain": 1, "Pixelsize": 130}
     par = {"Min. Net Gradient": 4000, "Box Size": 7}
+    before = _fit_launches()
     g = localize.localize(movie, dict(cam), par, fitting_method="gaussmle",
                           device=dev)
+    # the chain's route: K5's work queue, no other fit
+    after = _fit_launches()
+    assert after[7] > before[7]
+    assert after[:7] == before[:7]
     c = localize.localize(movie, dict(cam), par, fitting_method="gaussmle",
                           device="cpu")
     np.testing.assert_array_equal(g["frame"], c["frame"])

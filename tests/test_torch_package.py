@@ -93,7 +93,8 @@ def test_sources_hash_and_cover_every_entry():
     names = [p.name for p in _build.sources()]
     assert {"mle_fit.cu", "identify.cu", "lq_fit.cu", "winfit_mle.cu",
             "winfit_mle_f32.cu", "winfit_lq.cu", "fit_common.cuh",
-            "fit_mle.cuh", "fit_lq.cuh"} <= set(names)
+            "fit_mle.cuh", "fit_lq.cuh", "winfit_mle_queue.cu",
+            "winfit_mle_queue_f32.cu", "winfit_mle_queue.cuh"} <= set(names)
     text = "".join(p.read_text() for p in _build.sources())
     for entry in _build.SIGNATURES:
         assert f'extern "C" int {entry}(' in text
@@ -107,6 +108,7 @@ def test_sources_hash_and_cover_every_entry():
                                      "lq_fit_t", "lq_fit_boundary_t",
                                      "winfit_fit_mle_t",
                                      "winfit_fit_mle_boundary_t",
+                                     "winfit_fit_mle_queue_t",
                                      "winfit_fit_lq_t"])
 def test_wrappers_do_not_fall_back_off_the_cpu(wrapper):
     """A tensor on any device but the CPU goes to the kernel or raises;
@@ -140,7 +142,8 @@ def _counts():
             identify_cuda.identify_tiles.launches,
             winfit_cuda.fit_mle_t.launches,
             winfit_cuda.fit_mle_boundary_t.launches,
-            winfit_cuda.fit_lq_t.launches)
+            winfit_cuda.fit_lq_t.launches,
+            winfit_cuda.fit_mle_queue_t.launches)
 
 
 def test_cpu_tensors_take_the_plain_versions_without_counting():
@@ -158,6 +161,8 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
                           max_it=20)
     winfit_cuda.fit_mle_boundary_t(frames, hit, hit, hit, 0.0, 1.0, box=7,
                                    eps=1e-3, max_it=20)
+    winfit_cuda.fit_mle_queue_t(frames, hit, hit, hit, 0.0, 1.0, box=7,
+                                eps=1e-3, max_it=20)
     winfit_cuda.fit_lq_t(frames, hit, hit, hit, 0.0, 1.0, box=7, max_it=20)
     assert before == _counts()
 

@@ -146,6 +146,38 @@ def test_k5_phase_schedule_equals_one_pass_and_the_gather_route(
         np.testing.assert_array_equal(a, c)
 
 
+@pytest.mark.parametrize("dtype", [np.uint16, np.float32])
+@pytest.mark.parametrize("method", ["sigmaxy", "sigma"])
+def test_queue_equals_phases_and_one_pass(frames, hits, method, dtype):
+    """K5's work queue, the chain's MLE route, equals K5 in phases and in
+    one pass bit for bit on the CPU (all three are the gather route
+    there), from a u16 and an f32 chunk. max_it is cut so that some
+    spots run to it and some converge before."""
+    frames_t = torch.from_numpy(frames.astype(dtype))
+    max_it = {"sigmaxy": 8, "sigma": 3}[method]
+    kw = dict(box=BOX, eps=EPS, max_it=max_it, method=method)
+    queue = _np(winfit_cuda.fit_mle_queue_t(frames_t, *hits, BASELINE,
+                                            FACTOR, **kw))
+    assert (queue[3] == max_it).any() and (queue[3] < max_it).any()
+    for other in (winfit_cuda.fit_mle_boundary_t, winfit_cuda.fit_mle_t):
+        for a, b in zip(queue, _np(other(frames_t, *hits, BASELINE, FACTOR,
+                                         **kw))):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("method", ["sigmaxy", "sigma"])
+def test_queue_matches_jax_winfit(frames, hits, method):
+    n = len(hits[0])
+    cols, xoff = _jax_rows(frames, *hits)
+    j = _np(winfit_pallas.fit_mle_t(cols, xoff, BASELINE, FACTOR, box=BOX,
+                                    eps=EPS, max_it=100, method=method,
+                                    interpret=True, n_valid=n))
+    t = _np(winfit_cuda.fit_mle_queue_t(torch.from_numpy(frames), *hits,
+                                        BASELINE, FACTOR, box=BOX, eps=EPS,
+                                        max_it=100, method=method))
+    compare_fits([j[0][:, :n], j[1][:, :n], j[2][:n], j[3][:n]], t, 100)
+
+
 def test_cut_clamps_the_centre_as_gather_wincols(frames):
     """Hits on and beyond the border: the window is the one
     gather_wincols gives (centre clamped into the frame), and no index
