@@ -19,8 +19,11 @@ Phases, each of which raises on failure (exit code != 0):
    for bit there, with the queue's time, share of its bound, registers,
    spills and resident blocks per SM; the sigmaxy fit in rounds of 8
    (K7, a schedule of K2's modes), K7 == K1 bit for bit; the identify
-   kernel (K4) on one 256-frame 256x256 u16 chunk; times are medians of
-   5 CUDA-event runs;
+   kernel (K4) on one 256-frame 256x256 u16 chunk and on a (32, 2048,
+   2048) chunk tiled 8x8 from its frames (torch_parity.compare_tiles),
+   also timed per call in runs of 20 back-to-back calls, with its ptxas
+   rows and resident blocks; times are medians of 5 CUDA-event runs of
+   one call;
 4. the MLE slice: picasso_torch.localize.localize (MLE sigmaxy, box 7)
    on a 2048-frame 256x256 u16 movie of tests/torch_data.make_bench_movie
    with the launch count of every kernel checked: K4 and K5's work queue
@@ -81,8 +84,10 @@ PEAK_F32 = 67e12  # FLOP/s, f32 outside the tensor cores (H100 SXM)
 PEAK_BYTES = 3.35e12  # B/s, HBM3 (H100 SXM)
 
 
-def _median_ms(fn, reps: int = 5) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after a warm-up."""
+def _median_ms(fn, reps: int = 5, calls: int = 1) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` after a warm-up,
+    each of ``calls`` back-to-back calls, per call (with calls > 1 one
+    call's host work hides behind the previous call's kernel)."""
     import torch
 
     fn()
@@ -91,10 +96,11 @@ def _median_ms(fn, reps: int = 5) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -136,6 +142,9 @@ def _fit_bound(n: int, iters_sum: float, per_iter, out_bytes: int,
 
 
 K5_IN_BYTES = BOX * BOX * 2 + 3 * 4  # u16 window + (f, y, x) int32
+
+
+K4_CALLS = 20  # back-to-back K4 calls of its extra timing
 
 
 def _turns(fns, reps: int = 5) -> list[float]:
@@ -219,8 +228,12 @@ def main() -> int:
         winfit_cuda,
     )
     from picasso_torch.ops._fit_common import FINISH
-    from torch_data import make_bench_movie, make_spots, spots_chunk
-    from torch_parity import compare_fits, compare_hits, compare_lq_fits
+    from torch_data import (
+        make_bench_movie, make_spots, spots_chunk, tiled_chunk,
+    )
+    from torch_parity import (
+        compare_fits, compare_hits, compare_lq_fits, compare_tiles,
+    )
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -426,33 +439,50 @@ def main() -> int:
     movie_pool.shutdown()
     print(f"movie {movie.shape} {movie.dtype}: {movie_s:.1f} s to generate "
           "(alongside the build)")
+    # K4 on chunk 0 and on a (32, 2048, 2048) chunk tiled 8x8 from its
+    # frames; one call at a time (as every kernel here), and per call in
+    # runs of K4_CALLS back-to-back calls
     chunk = identify.upload_frames(movie[:CHUNK], dev)
-    tiles_p = [a.cpu().numpy() for a in
-               identify.identify_tiles_plain(chunk, MIN_NG, BOX)]
-    tiles_k = [a.cpu().numpy() for a in
-               identify_cuda.identify_tiles(chunk, MIN_NG, BOX)]
-    if not (np.array_equal(tiles_p[0], tiles_k[0])
-            and np.array_equal(tiles_p[1], tiles_k[1])):
-        raise AssertionError("K4: tile mask/loc differ from the plain version")
-    if not np.allclose(tiles_k[2], tiles_p[2], rtol=1e-5, atol=0):
-        raise AssertionError("K4: tile ng beyond rtol 1e-5")
-    k4_err = float(np.abs(tiles_k[2] - tiles_p[2]).max())
-    print(f"K4 vs plain: {int(tiles_k[0].sum())} hit tiles equal, "
-          f"ng max abs err {k4_err}")
-    ms["plain_identify"] = _median_ms(
-        lambda: identify.identify_tiles_plain(chunk, MIN_NG, BOX)
-    )
-    ms["K4"] = _median_ms(
-        lambda: identify_cuda.identify_tiles(chunk, MIN_NG, BOX)
-    )
-    # per pixel: box^2-1 compares, 2 (box^2-1) FMAs of the net gradient,
-    # 2 gradient differences; u16 in, (mask u8, loc i32, ng f32) per tile
-    px = chunk.numel()
-    bounds["K4"] = _bound(px * ((BOX * BOX - 1) * 5 + 2),
-                          px * 2 + tiles_k[0].size * 9)
-    print(f"K4 identify ({CHUNK}, 256, 256) u16: kernel {ms['K4']:.3f} ms, "
-          f"plain {ms['plain_identify']:.3f} ms, bound "
-          f"{bounds['K4'][0]:.4f} ms ({bounds['K4'][1]})")
+    k4_inputs = {"chunk 0": chunk, "tiled": tiled_chunk(chunk)}
+    k4_err, k4_hits = 0.0, {}
+    for what, frames in k4_inputs.items():
+        tiles_p = [a.cpu().numpy() for a in
+                   identify.identify_tiles_plain(frames, MIN_NG, BOX)]
+        tiles_k = [a.cpu().numpy() for a in
+                   identify_cuda.identify_tiles(frames, MIN_NG, BOX)]
+        compare_tiles(tiles_k, tiles_p, f"K4 on {what}")
+        k4_err = max(k4_err, float(np.abs(tiles_k[2] - tiles_p[2]).max()))
+        k4_hits[what] = int(tiles_k[0].sum())
+        key = "K4" if what == "chunk 0" else "K4 tiled"
+        ms["plain " + key] = _median_ms(
+            lambda: identify.identify_tiles_plain(frames, MIN_NG, BOX))
+        ms[key] = _median_ms(
+            lambda: identify_cuda.identify_tiles(frames, MIN_NG, BOX))
+        ms[key + " runs"] = _median_ms(
+            lambda: identify_cuda.identify_tiles(frames, MIN_NG, BOX),
+            calls=K4_CALLS)
+        # per pixel: box^2-1 compares, 2 (box^2-1) FMAs of the net
+        # gradient, 2 gradient differences; u16 in, (mask u8, loc i32, ng
+        # f32) per tile
+        px = frames.numel()
+        bounds[key] = _bound(px * ((BOX * BOX - 1) * 5 + 2),
+                             px * 2 + tiles_k[0].size * 9)
+    del k4_inputs, frames
+    print(f"K4 vs plain (compare_tiles): hit tiles {k4_hits} equal, ng max "
+          f"abs err {k4_err}")
+    for what, key in (("(256, 256, 256)", "K4"),
+                      ("(32, 2048, 2048)", "K4 tiled")):
+        print(f"K4 identify {what} u16: kernel {ms[key]:.4f} ms, plain "
+              f"{ms['plain ' + key]:.3f} ms, bound {bounds[key][0]:.4f} ms "
+              f"({bounds[key][1]}, {bounds[key][0] / ms[key]:.1%} of it)")
+        print(f"  K4 {what} per call in runs of {K4_CALLS} calls: "
+              f"{ms[key + ' runs']:.4f} ms ({bounds[key][0] / ms[key + ' runs']:.1%}"
+              " of the bound)")
+    for row in _ptxas_table((lib_path.parent / "build.log").read_text()):
+        if row.startswith(f"identify_kernel<Li{BOX}E"):
+            print("  K4 ptxas:", row)
+    for dt in (torch.uint16, torch.float32):
+        print(f"  K4 box {BOX} {dt}: {identify_cuda.kernel_info(dt, BOX)}")
 
     camera = {"Baseline": 0, "Sensitivity": 1, "Gain": 1, "Pixelsize": 130}
     params = {"Min. Net Gradient": MIN_NG, "Box Size": BOX}
@@ -835,7 +865,7 @@ def main() -> int:
         entry("K4", "K4 identify_tiles", "picasso_torch/csrc/identify.cu",
               "picasso_tpu/ops/identify_pallas.py:58",
               launches_mle["K4"] + launches_sig["K4"] + launches_lq["K4"],
-              "mle+mle-sigma+lq", k4_err, "plain_identify"),
+              "mle+mle-sigma+lq", k4_err, "plain K4"),
         entry("K5 one pass", "K5 winfit_mle sigmaxy (single pass)", win_src,
               "picasso_tpu/ops/winfit_pallas.py:108",
               launches_mle["K5 mle one pass"], "off",

@@ -100,7 +100,10 @@ def tile_reduce(mask: torch.Tensor, ng: torch.Tensor, box: int):
     )
     tile_mask = m.any(dim=4).any(dim=2)
     tile_loc = (m * loc[None, None, :, None, :]).sum(dim=(2, 4))
-    tile_ng = (m * g).sum(dim=(2, 4))
+    # a select, not m * g: a NaN net gradient beside a hit (from a NaN
+    # pixel near it) must not reach the hit's tile (XLA rewrites JAX's
+    # mask product into this select)
+    tile_ng = torch.where(m, g, 0.0).sum(dim=(2, 4))
     return tile_mask, tile_loc.to(torch.int32), tile_ng
 
 

@@ -2,12 +2,16 @@
 
 Counterpart of picasso_tpu/ops/identify_pallas.identify_tiles_pallas: per
 frame batch, the (T, T)-tile (mask, loc, ng) arrays that the compaction
-reads. A CUDA tensor launches the kernel or raises; a CPU tensor runs the
-plain version (ops/identify.identify_tiles_plain). ``identify_tiles
-.launches`` counts kernel launches.
+reads. The kernel walks column strips (one thread a column of R centre
+rows, see the note in csrc/identify.cu). A CUDA tensor launches the
+kernel or raises; a CPU tensor runs the plain version
+(ops/identify.identify_tiles_plain). ``identify_tiles.launches`` counts
+kernel launches; ``kernel_info`` describes a kernel instance.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -18,6 +22,9 @@ from picasso_torch.ops.identify import identify_tiles_plain
 BOXES = (3, 5, 7, 9, 11, 13, 15)
 _DTYPES = {torch.uint16: 0, torch.float32: 1}
 _MAX_FRAMES = 65535  # grid.z of one launch
+#: fields of kernel_info, in csrc/identify.cu's picasso_identify_info order
+KERNEL_INFO = ("threads", "rows", "columns", "shared_bytes", "registers",
+               "local_bytes", "blocks_per_sm")
 
 
 def identify_tiles(frames: torch.Tensor, minimum_ng, box: int):
@@ -61,3 +68,21 @@ def identify_tiles(frames: torch.Tensor, minimum_ng, box: int):
 
 
 identify_tiles.launches = 0
+
+
+def kernel_info(dtype: torch.dtype, box: int, lib=None) -> dict:
+    """What the identify kernel's instance for ``dtype`` frames and
+    ``box`` is on the current card: the :data:`KERNEL_INFO` fields
+    (threads a block, centre rows and columns a block, static shared
+    bytes, registers and local spill bytes a thread, resident blocks per
+    SM). ``lib``: a library built from csrc/identify.cu, by default the
+    package's."""
+    lib = lib or _build.library()
+    fn = lib.picasso_identify_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * len(KERNEL_INFO))()
+    status = fn(_DTYPES[dtype], box, info)
+    if status != 0:
+        raise RuntimeError(f"identify_info: CUDA error {status}")
+    return dict(zip(KERNEL_INFO, info))

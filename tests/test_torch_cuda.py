@@ -17,12 +17,16 @@ import numpy as np
 import pytest
 import torch
 
-from torch_data import make_bench_movie, make_spots, spots_chunk
+from torch_data import (
+    K4_SHAPES, make_bench_movie, make_spots, small_frames, spots_chunk,
+)
 from picasso_torch import localize, postprocess
 from picasso_torch.ops import (
     fused, identify, identify_cuda, lq, lq_cuda, mle, mle_cuda, winfit_cuda,
 )
-from torch_parity import compare_fits, compare_hits, compare_lq_fits
+from torch_parity import (
+    compare_fits, compare_hits, compare_lq_fits, compare_tiles,
+)
 
 pytestmark = pytest.mark.cuda
 EPS, MAX_IT, FTOL = 1e-3, 100, 1e-6
@@ -122,12 +126,51 @@ def test_identify_kernel_matches_plain(dev, box):
         chunk = identify.upload_frames(frames, dev)
         p_t = identify.identify_tiles_plain(chunk, 3000.0, box)
         k_t = identify_cuda.identify_tiles(chunk, 3000.0, box)
-        p, k = _np(p_t), _np(k_t)
-        np.testing.assert_array_equal(p[0], k[0])
-        np.testing.assert_array_equal(p[1], k[1])
-        np.testing.assert_allclose(k[2], p[2], rtol=1e-5, atol=0)
+        compare_tiles(_np(k_t), _np(p_t), f"box {box} {frames.dtype}")
         compare_hits(_np(identify.compact(*p_t, box)),
                      _np(identify.compact(*k_t, box)), 3000.0)
+
+
+@pytest.mark.parametrize("box", [3, 5, 7, 9, 11, 13, 15])
+def test_identify_kernel_at_any_shape(dev, box):
+    """K4 against its plain version (compare_tiles) at every shape of
+    K4_SHAPES, from u16 frames and from f32 frames with NaN pixels, one
+    launch a call."""
+    rng = np.random.default_rng(box)
+    hits = 0
+    for shape in K4_SHAPES:
+        frames = small_frames(shape, rng, spots=3, nan=2e-3)
+        for x in (np.nan_to_num(frames).astype(np.uint16), frames):
+            chunk = identify.upload_frames(x, dev)
+            before = identify_cuda.identify_tiles.launches
+            k = _np(identify_cuda.identify_tiles(chunk, 3000.0, box))
+            assert identify_cuda.identify_tiles.launches - before == 1
+            compare_tiles(k, _np(identify.identify_tiles_plain(chunk, 3000.0,
+                                                               box)),
+                          f"box {box} {shape} {x.dtype}")
+            hits += int(k[0].sum())
+    assert hits > 50
+
+
+def test_identify_kernel_blocks_are_whole_warps(dev):
+    """Every instance: whole warps a block, strips and block columns of
+    whole tiles, no spills."""
+    for box in identify_cuda.BOXES:
+        T = box // 2 + 1
+        for dtype in (torch.uint16, torch.float32):
+            info = identify_cuda.kernel_info(dtype, box)
+            assert info["threads"] % 32 == 0
+            assert info["rows"] % T == 0 and info["columns"] % T == 0
+            assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1
+
+
+def test_identify_kernel_refuses_other_inputs(dev):
+    frames = torch.zeros((2, 32, 32), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="uint16 or float32"):
+        identify_cuda.identify_tiles(frames, 3000.0, 7)
+    frames = torch.zeros((2, 32, 32), dtype=torch.uint16, device=dev)
+    with pytest.raises(ValueError, match="boxes"):
+        identify_cuda.identify_tiles(frames, 3000.0, 17)
 
 
 def _fit_launches():

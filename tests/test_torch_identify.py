@@ -146,3 +146,51 @@ def test_float_frames_match_u16_frames():
     b = _port_hits(movie.astype(np.float32), 7)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("box", [5, 7])
+def test_nan_pixels_match_jax(box):
+    """f32 frames with NaN pixels: a NaN in a window means "not a
+    maximum" in both, so the maxima are equal, and so are the hits; a
+    hit's ng is its own, also where a NaN net gradient shares its tile
+    (the tile reduction selects the hit, it does not multiply)."""
+    movie = _movie(8, 64, 64, seed=5).astype(np.float32)
+    rng = np.random.default_rng(6)
+    movie[rng.random(movie.shape) < 2e-3] = np.nan
+    jmax, jng = (np.asarray(a) for a in jid.identify_maps(
+        jnp.asarray(movie), box))
+    tmax, tng = (a.numpy() for a in tid.identify_maps(
+        torch.from_numpy(movie), box))
+    np.testing.assert_array_equal(tmax, jmax)
+    assert np.isnan(tng).sum() > 50 and np.isnan(jng).sum() > 50
+    ref, got = _jax_hits(movie, box), _port_hits(movie, box)
+    assert len(ref[0]) > 20
+    assert_hits_equal(ref, got)
+    # hits whose tile holds a NaN net gradient elsewhere
+    T = box // 2 + 1
+    f, y, x = (np.asarray(a) for a in got[:3])
+    nan_ng = np.isnan(tng)
+    shared = [nan_ng[b, y0 // T * T:y0 // T * T + T,
+                     x0 // T * T:x0 // T * T + T].any()
+              for b, y0, x0 in zip(f, y, x)]
+    assert sum(shared) >= 3
+
+
+@pytest.mark.parametrize("shape,n_hits", [
+    ((2, 6, 40), 0), ((2, 1, 40), 0), ((2, 9, 9), 0), ((2, 40, 7), 0),
+    ((2, 10, 13), 1),
+])
+def test_frames_smaller_than_the_window(shape, n_hits):
+    """At box 7 a frame needs 8 rows and columns for an eligible centre
+    (h <= y < Y-h-1): smaller frames give no hits in both; a 10x13 frame
+    with one planted spot gives one."""
+    B, Y, X = shape
+    movie = np.random.default_rng(7).poisson(30, shape).astype(np.uint16)
+    if n_hits:
+        yy, xx = np.mgrid[-3:4, -3:4]
+        movie[0, 1:8, 3:10] += (900 * np.exp(-(yy**2 + xx**2) / 2.42)
+                                ).astype(np.uint16)
+    ref, got = _jax_hits(movie, 7), _port_hits(movie, 7)
+    assert len(ref[0]) == len(got[0]) == n_hits
+    if n_hits:
+        assert_hits_equal(ref, got)

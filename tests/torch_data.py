@@ -74,3 +74,48 @@ def spots_chunk(spots: np.ndarray, dtype, cells: int = 36):
     i = np.arange(n)
     hits = (i // per, (i % per) // cells * s + s // 2, i % cells * s + s // 2)
     return np.ascontiguousarray(frames.astype(dtype)), hits
+
+
+# frame shapes (B, Y, X) that hold K4 (csrc/identify.cu) to its plain
+# version at its edges: Y and X off multiples of the tile, of the strip
+# rows and of the block width; odd X; frames smaller than the halo, down
+# to one row; B = 1 and 300
+K4_SHAPES = [(1, 97, 131), (300, 20, 23), (2, 1, 40), (2, 6, 40), (2, 9, 9),
+             (2, 40, 7), (3, 8, 300), (2, 10, 13), (1, 257, 255),
+             (4, 130, 67)]
+
+
+def small_frames(shape, rng, spots: int = 2, nan: float = 0.0) -> np.ndarray:
+    """(B, Y, X) f32 frames of any size, down to one row: Poisson(30)
+    background, ``spots`` ~900-photon spots of width 1.1 px a frame at
+    uniform centres (cut at the frame's edges), and a share ``nan`` of
+    the pixels set to NaN. Integer-valued apart from the NaNs."""
+    B, Y, X = shape
+    frames = rng.poisson(30, shape).astype(np.float32)
+    yy, xx = np.mgrid[-3:4, -3:4]
+    psf = np.exp(-(yy**2 + xx**2) / (2 * 1.1**2))
+    for f in range(B):
+        for cy, cx in zip(rng.integers(0, Y, spots), rng.integers(0, X, spots)):
+            spot = rng.poisson(psf * 900).astype(np.float32)
+            y0, x0 = max(cy - 3, 0), max(cx - 3, 0)
+            y1, x1 = min(cy + 4, Y), min(cx + 4, X)
+            frames[f, y0:y1, x0:x1] += spot[y0 - cy + 3:y1 - cy + 3,
+                                            x0 - cx + 3:x1 - cx + 3]
+    if nan:
+        frames[rng.random(shape) < nan] = np.nan
+    return frames
+
+
+def tiled_chunk(chunk, frames: int = 32, k: int = 8):
+    """A (frames, k*Y, k*X) torch chunk whose (i, j) tile of frame f is
+    frame (f*k*k + i*k + j) mod B of the (B, Y, X) torch ``chunk``, on
+    its device and in its dtype."""
+    import torch
+
+    B, Y, X = chunk.shape
+    idx = torch.arange(frames * k * k, device=chunk.device) % B
+    # torch.uint16 has few kernels: gather through a 16-bit integer view
+    src = chunk.view(torch.int16) if chunk.dtype == torch.uint16 else chunk
+    out = (src[idx].view(frames, k, k, Y, X).permute(0, 1, 3, 2, 4)
+           .reshape(frames, k * Y, k * X).contiguous())
+    return out.view(chunk.dtype)

@@ -113,6 +113,18 @@ def compare_hits(ref, got, thresh: float, what: str = "hits") -> np.ndarray:
     return pairs
 
 
+def compare_tiles(got, plain, what: str = "tiles") -> None:
+    """Hold K4's (tile mask, loc, ng) ``got`` to the plain version's
+    ``plain`` (numpy): mask and loc equal, ng within rtol 1e-5 (the
+    kernel's FMA order against the plain version's separate products
+    and sums)."""
+    if not (np.array_equal(got[0], plain[0])
+            and np.array_equal(got[1], plain[1])):
+        raise AssertionError(f"{what}: tile mask/loc differ from plain")
+    if not np.allclose(got[2], plain[2], rtol=1e-5, atol=0):
+        raise AssertionError(f"{what}: tile ng beyond rtol 1e-5")
+
+
 # LQ: percentile -> bound over the spots that are sane on both sides
 LQ_XY = {50: 1e-6, 90: 1e-4, 99: 2e-3, 100: 1.0}  # px
 LQ_REL_P99 = 2e-3  # photons, sx, sy
