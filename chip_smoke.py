@@ -14,10 +14,11 @@ Phases, each of which raises on failure (exit code != 0):
    for bit; the LM fit kernel in its single-pass mode (K3) and in the
    phase schedule (K6), K6 == K3 bit for bit; the fused cut+fit kernel
    (K5: MLE sigmaxy and sigma as the work queue with its CRLB/LL pass,
-   in one pass and in the phase schedule, LM in one pass) on the same
-   spots laid out as a u16 and an f32 frame chunk, K5 == K1/K2/K3 bit
-   for bit there, with the queue's time, share of its bound, registers,
-   spills and resident blocks per SM; the sigmaxy fit in rounds of 8
+   in one pass and in the phase schedule, LM as the work queue with its
+   cooperative tail) on the same spots laid out as a u16 and an f32
+   frame chunk, K5 == K1/K2/K3 bit for bit there, with
+   the queues' times, shares of their bounds, registers, spills and
+   resident blocks per SM; the sigmaxy fit in rounds of 8
    (K7, a schedule of K2's modes), K7 == K1 bit for bit; the identify
    kernel (K4) on one 256-frame 256x256 u16 chunk and on a (32, 2048,
    2048) chunk tiled 8x8 from its frames (torch_parity.compare_tiles),
@@ -40,17 +41,22 @@ Phases, each of which raises on failure (exit code != 0):
    MLE_FITS) launched on it, no other fit, sx == sy in every loc, its
    first chunk equal to a re-run and held against the plain sigma fit;
 6. the LQ slice: localize(fitting_method="gausslq") on the same movie,
-   with K4 and K5 (LM) launched on it (no other fit); its first chunk
-   re-run through the plain versions on the card and held with
-   compare_lq_fits; K5 == cut + photons + K3 bit for bit; the routes and
-   K3 against K6 on that chunk, in turns; the chunk's stages;
+   with K4 and K5 LM's work queue launched on it, no other fit; its
+   first chunk re-run through the plain versions on the card and held
+   with compare_lq_fits; on that chunk K5 LM (from u16 and f32 frames,
+   at two camera-constant pairs) == cut + photons + K3 bit for bit, its
+   cooperative steps (> 0), the plain version's step counts
+   (lq_step_stats), K5 against the gather route and K3 against K6 in
+   turns, the tail split (lq_tail_split) and one max_it hit alone; the
+   chunk's stages;
 7. RCC undrift on the card: postprocess.undrift(device="cuda") of the
    MLE slice's locs with a known drift added, its residual against that
    drift, its agreement with the same call on the CPU, and its wall
    split (render, pair FFTs, peak fits).
 The line before the last is the JSON record of every kernel (bound_ms:
-the larger of the FLOPs over 67 TFLOP/s f32 and the bytes read once and
-written once over 3.35 TB/s, NVIDIA's H100 SXM peaks); the last line is
+the larger of the FLOPs this run's inputs need over 67 TFLOP/s f32 and
+the bytes read once and written once over 3.35 TB/s, NVIDIA's H100 SXM
+peaks); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -124,6 +130,17 @@ def lq_flops_per_spot_iter(box: int) -> float:
     return float(15 * s * s + 118 * s + 295)
 
 
+def lq_normal_flops(box: int) -> float:
+    """The part of :func:`lq_flops_per_spot_iter` that forms the normal
+    equations: the J^T r pass (10 a pixel, 12 a row), the axis factors
+    with their derivatives (38 a point), the 20 dot products (40 a
+    point) and the 21 scaled entries (63). A rejected step leaves theta
+    as it was, so the LM kernels (csrc/fit_lq.cuh) reuse these numbers
+    at the step after it."""
+    s = box
+    return float(10 * s * s + 90 * s + 63)
+
+
 def _bound(flops: float, nbytes: float) -> tuple[float, str]:
     """The least time (ms) the card could take, and what sets it."""
     t_ops = flops / PEAK_F32 * 1e3
@@ -142,6 +159,18 @@ def _fit_bound(n: int, iters_sum: float, per_iter, out_bytes: int,
 
 
 K5_IN_BYTES = BOX * BOX * 2 + 3 * 4  # u16 window + (f, y, x) int32
+
+
+def lq_fit_bound(n: int, steps: float, reused: float,
+                 in_bytes: int = BOX * BOX * 4):
+    """Bound of an LM fit of n box-7 spots that takes ``steps`` steps in
+    all, ``reused`` of them right after a rejected step of the same spot
+    (:func:`lq_iters`): a full step each and one more a spot for the
+    initialiser, less the normal equations of each reused step, which
+    the function need not form again; each spot's input read once and
+    its theta (24 B) written once."""
+    return _bound((steps + n) * lq_flops_per_spot_iter(BOX)
+                  - reused * lq_normal_flops(BOX), n * (in_bytes + 24))
 
 
 K4_CALLS = 20  # back-to-back K4 calls of its extra timing
@@ -175,19 +204,82 @@ def _plain_multiround(spots_t, max_it: int):
     return theta[:, inv], crlb[:, inv], ll[inv], iters[inv]
 
 
-def _lq_iters(spots_t, max_it: int):
-    """LM iterations each spot takes in the plain version (the LQ
-    kernels return theta only)."""
+def lq_iters(spots_t, max_it: int, ftol: float = FTOL):
+    """The plain version's LM steps on each spot (the LQ kernels return
+    theta only): (steps, rejected steps, steps after a rejected step of
+    the same spot, whose normal equations a kernel may reuse), numpy f32
+    (N,) each."""
     import torch
 
     from picasso_torch.ops import lq
 
     carry = lq._lm_init(spots_t)
-    iters = torch.zeros(spots_t.shape[-1], device=spots_t.device)
+    n = spots_t.shape[-1]
+    steps, rejected, reused = (torch.zeros(n, device=spots_t.device)
+                               for _ in range(3))
+    last_rejected = torch.zeros(n, dtype=torch.bool, device=spots_t.device)
     for _ in range(max_it):
-        iters += (carry[3][0] < 0.5).float()
-        carry = lq._lm_rounds(spots_t, *carry, 1, FTOL)
-    return iters.cpu().numpy()
+        active = carry[3][0] < 0.5
+        if not bool(active.any()):
+            break
+        old = carry[2][0]
+        reused += (active & last_rejected).float()
+        carry = lq._lm_rounds(spots_t, *carry, 1, ftol)
+        new = carry[2][0]
+        rej = active & ((new == old) | (new.isnan() & old.isnan()))
+        steps += active.float()
+        rejected += rej.float()
+        last_rejected = torch.where(active, rej, last_rejected)
+    return tuple(a.cpu().numpy() for a in (steps, rejected, reused))
+
+
+LONG_FIT = 30  # steps: the straggler tail of the LM fit
+
+
+def lq_step_stats(steps, max_it: int, rejected=None, reused=None,
+                  warp: int = 32) -> dict:
+    """The distribution of the LM steps over the spots in input order:
+    percentiles, the count at max_it, the share of all spot-steps in fits
+    of more than LONG_FIT steps, and warp max / mean: for each run of
+    ``warp`` consecutive spots the slowest one's steps, summed over the
+    runs, times ``warp``, over the total steps (what divergence costs a
+    kernel of one thread a spot); with ``rejected``/``reused``, their
+    shares of all steps."""
+    it = np.asarray(steps, np.float64)
+    total = max(it.sum(), 1.0)
+    runs = np.concatenate([it, np.zeros(-len(it) % warp)]).reshape(-1, warp)
+    out = {"spots": len(it), "mean": round(float(it.mean()), 3) if len(it)
+           else 0.0}
+    for q in (50, 90, 99, 100):
+        out[f"p{q}"] = float(np.percentile(it, q)) if len(it) else 0.0
+    out["at_max_it"] = int((it == max_it).sum())
+    out[f"share_over_{LONG_FIT}"] = round(float(it[it > LONG_FIT].sum()
+                                                / total), 4)
+    out["warp_max_over_mean"] = round(float(runs.max(1).sum() * warp
+                                            / total), 3)
+    if rejected is not None:
+        out["rejected"] = round(float(np.sum(rejected) / total), 4)
+    if reused is not None:
+        out["reusable"] = round(float(np.sum(reused) / total), 4)
+    return out
+
+
+def lq_tail_split(fit, frames, hits, steps) -> dict:
+    """The straggler tail of an LM fit: ``fit(frames, hits)`` timed (ms,
+    median of 5) on the hits that run to MAX_IT alone, on those of more
+    than LONG_FIT steps alone and on the rest alone, in turns (A B C C B
+    A); ``steps`` are the plain version's steps of each hit."""
+    import torch
+
+    it = torch.from_numpy(np.asarray(steps)).to(frames.device)
+    masks = {"max_it": it == MAX_IT, f"> {LONG_FIT}": it > LONG_FIT,
+             f"<= {LONG_FIT}": it <= LONG_FIT}
+    sub = {k: [h[m] for h in hits] for k, m in masks.items()}
+    order = [*sub, *reversed(sub)]
+    t = _turns(lambda k=k: fit(frames, sub[k]) for k in order)
+    return {k: {"hits": int(masks[k].sum()),
+                "ms": [round(t[i], 4), round(t[len(order) - 1 - i], 4)]}
+            for i, k in enumerate(sub)}
 
 
 def _ptxas_table(log: str) -> list[str]:
@@ -196,7 +288,7 @@ def _ptxas_table(log: str) -> list[str]:
     rows, name = [], None
     for line in log.splitlines():
         m = re.search(r"entry function '.*?((?:identify|lq_fit|mle_fit|"
-                      r"winfit_mle_queue|winfit_mle|winfit_lq)_kernel)"
+                      r"winfit_mle_queue|winfit_mle|winfit_lq_queue)_kernel)"
                       r"I(\w+?)EEv", line)
         if m:
             name, spill = f"{m.group(1)}<{m.group(2)}>", ""
@@ -311,13 +403,13 @@ def main() -> int:
     stats["K6"] = compare_lq_fits(plain_lq, k6, spots_np, "K6 vs plain")
     print("K3 vs plain:", json.dumps(stats["K3"]))
     print("K6 vs plain:", json.dumps(stats["K6"]), "| K6 == K3 bit for bit")
-    lq_it = _lq_iters(spots_t, MAX_IT)
+    lq_it, _, lq_reused = lq_iters(spots_t, MAX_IT)
     ms["plain_lq"] = _median_ms(lambda: lq._lm_core(spots_t, MAX_IT, FTOL))
     ms["K3"] = _median_ms(lambda: lq_cuda.fit_t(spots_t, MAX_IT, FTOL))
     ms["K6"] = _median_ms(lambda: lq_cuda.fit_boundary_t(spots_t, MAX_IT,
                                                           FTOL))
-    bounds["K3"] = bounds["K6"] = _fit_bound(
-        N_SPOTS, float(lq_it.sum()), lq_flops_per_spot_iter, 24)
+    bounds["K3"] = bounds["K6"] = lq_fit_bound(
+        N_SPOTS, float(lq_it.sum()), float(lq_reused.sum()))
     print(f"K3/K6 fit {N_SPOTS} spots (LM iterations p50 "
           f"{np.percentile(lq_it, 50):.0f} p90 {np.percentile(lq_it, 90):.0f}"
           f" max {lq_it.max():.0f}): K3 {ms['K3']:.3f} ms, K6 "
@@ -353,16 +445,21 @@ def main() -> int:
             _assert_equal(kq, k2, f"K5 queue{tag} ({name}) vs K2{tag}")
             stats["K5 queue" + tag] = compare_fits(
                 plain, kq, MAX_IT, f"K5 queue{tag} ({name}) vs plain")
-        k5lq = winfit_cuda.fit_lq_t(win, *hits, 0.0, 1.0, box=BOX,
-                                    max_it=MAX_IT, ftol=FTOL).cpu().numpy()
-        if not np.array_equal(k5lq, k3, equal_nan=True):
-            raise AssertionError(f"K5 lq ({name}) != K3 bit for bit")
-        stats["K5 lq"] = compare_lq_fits(plain_lq, k5lq, spots_np,
-                                         f"K5 lq ({name}) vs plain")
+        coop = torch.zeros(1, dtype=torch.int32, device=dev)
+        k5lqq = winfit_cuda.fit_lq_queue_t(
+            win, *hits, 0.0, 1.0, box=BOX, max_it=MAX_IT, ftol=FTOL,
+            coop_steps=coop).cpu().numpy()
+        if not np.array_equal(k5lqq, k3, equal_nan=True):
+            raise AssertionError(f"K5 lq queue ({name}) != K3 bit for bit")
+        stats["K5 lq queue"] = compare_lq_fits(
+            plain_lq, k5lqq, spots_np, f"K5 lq queue ({name}) vs plain")
+        coop_make_spots = int(coop.item())
         print(f"K5 on make_spots as a {name} chunk {tuple(win.shape)}: "
               "queue, one pass and phases == K1 and K2 (sigmaxy, sigma), "
-              "LM == K3, bit for bit")
-    for key in ("K5 queue", "K5 queue sigma", "K5", "K5 sigma", "K5 lq"):
+              "LM queue == K3, bit for bit; LM queue cooperative steps "
+              f"{coop_make_spots}")
+    for key in ("K5 queue", "K5 queue sigma", "K5", "K5 sigma",
+                "K5 lq queue"):
         print(f"{key} vs plain:", json.dumps(stats[key]))
     win, hits = upload_chunk(np.uint16)
     for method in ("sigmaxy", "sigma"):
@@ -404,15 +501,26 @@ def main() -> int:
               f"plain fit) {ms['plain K5' + tag]:.3f} ms, bound "
               f"{b_ms:.4f} ms ({bounds['K5' + tag][1]}); queue kernel "
               f"(u16, f32): {info[torch.uint16]}, {info[torch.float32]}")
-    ms["K5 lq"] = _median_ms(lambda: winfit_cuda.fit_lq_t(
-        win, *hits, 0.0, 1.0, box=BOX, max_it=MAX_IT, ftol=FTOL))
     ms["plain K5 lq"] = _median_ms(lambda: lq._lm_core(
         winfit_cuda.photons_t(win, *hits, BOX, 0.0, 1.0), MAX_IT, FTOL))
-    bounds["K5 lq"] = _fit_bound(N_SPOTS, float(lq_it.sum()),
-                                 lq_flops_per_spot_iter, 24, K5_IN_BYTES)
-    print(f"K5 lq fit {N_SPOTS} spots from the u16 chunk: {ms['K5 lq']:.3f}"
-          f" ms, plain {ms['plain K5 lq']:.3f} ms, bound "
-          f"{bounds['K5 lq'][0]:.4f} ms ({bounds['K5 lq'][1]})")
+    bounds["K5 lq queue"] = lq_fit_bound(
+        N_SPOTS, float(lq_it.sum()), float(lq_reused.sum()), K5_IN_BYTES)
+    # the bound of earlier PERF.md rows: a full step for every step
+    full_step = lq_fit_bound(N_SPOTS, float(lq_it.sum()), 0.0, K5_IN_BYTES)
+    ms["K5 lq queue"] = _median_ms(lambda: winfit_cuda.fit_lq_queue_t(
+        win, *hits, 0.0, 1.0, box=BOX, max_it=MAX_IT, ftol=FTOL))
+    b_ms = bounds["K5 lq queue"][0]
+    print(f"K5 lq fit {N_SPOTS} spots from the u16 chunk: queue "
+          f"{ms['K5 lq queue']:.3f} ms, plain {ms['plain K5 lq']:.3f} ms, "
+          f"bound {b_ms:.4f} ms ({bounds['K5 lq queue'][1]}; "
+          f"{b_ms / ms['K5 lq queue']:.1%} of it; full-step bound "
+          f"{full_step[0]:.4f} ms, {lq_reused.sum() / lq_it.sum():.1%} of "
+          "the steps reuse the normal equations); LM queue kernel "
+          f"(u16, f32): {winfit_cuda.lq_queue_info(torch.uint16, BOX)}, "
+          f"{winfit_cuda.lq_queue_info(torch.float32, BOX)}")
+    for row in _ptxas_table((lib_path.parent / "build.log").read_text()):
+        if row.startswith("winfit_lq_queue"):
+            print("  K5 lq ptxas:", row)
     del win, hits
 
     # K7: the sigmaxy fit in rounds of ROUND_IT, a schedule of K2's modes
@@ -492,7 +600,7 @@ def main() -> int:
                 "K5 mle one pass": winfit_cuda.fit_mle_t,
                 "K5 mle phases": winfit_cuda.fit_mle_boundary_t,
                 "K5 mle queue": winfit_cuda.fit_mle_queue_t,
-                "K5 lq": winfit_cuda.fit_lq_t,
+                "K5 lq queue": winfit_cuda.fit_lq_queue_t,
                 "K7": mle_cuda.fit_multiround_t}
 
     n_chunks = -(-len(movie) // CHUNK)
@@ -694,8 +802,8 @@ def main() -> int:
 
     # 6. the LQ slice ----------------------------------------------------
     locs_lq, wall_lq, launches_lq = run_slice("gausslq")
-    # the LQ route is K5 in one pass (ops/fused.py); K3 and K6 are off it
-    check_route("LQ", launches_lq, "K5 lq")
+    # the LQ route is K5's work queue (ops/fused.py); K3 and K6 are off it
+    check_route("LQ", launches_lq, "K5 lq queue")
     if not len(locs_lq):
         raise AssertionError("LQ slice found no locs")
     t0 = time.perf_counter()
@@ -725,49 +833,72 @@ def main() -> int:
           json.dumps(lq_chunk_stats))
 
     # K5 against the gather route (cut + photons + K3) on the chunk's
-    # hits, from u16 and f32 frames, at two camera constants; then the
-    # routes in turns, and K3 against K6, on the chunk's ROIs
+    # hits, from u16 and f32 frames, at two camera constants; the plain
+    # version's steps there; then the routes in turns, the tail split,
+    # and K3 against K6 on the chunk's ROIs
     lq_kw = dict(box=BOX, max_it=MAX_IT, ftol=FTOL)
+    coop_chunk = torch.zeros(1, dtype=torch.int32, device=dev)
     for b, c in ((0.0, 1.0), (1.5, 0.8)):
         k3g = lq_cuda.fit_t(winfit_cuda.photons_t(chunk, *hits_k, BOX, b, c),
                             MAX_IT, FTOL).cpu().numpy()
         for src in (chunk, chunk32):
-            k5g = winfit_cuda.fit_lq_t(src, *hits_k, b, c, **lq_kw)
+            count = coop_chunk if (b, src.dtype) == (0.0, torch.uint16) \
+                else None
+            k5g = winfit_cuda.fit_lq_queue_t(src, *hits_k, b, c,
+                                             coop_steps=count, **lq_kw)
             if not np.array_equal(k5g.cpu().numpy(), k3g, equal_nan=True):
-                raise AssertionError(f"chunk 0 lq (baseline {b}, factor {c})"
-                                     f": K5 ({src.dtype}) != cut + photons +"
-                                     " K3 bit for bit")
+                raise AssertionError(
+                    f"chunk 0 lq (baseline {b}, factor {c}): K5 queue "
+                    f"({src.dtype}) != cut + photons + K3 bit for bit")
+    if coop_chunk.item() <= 0:
+        raise AssertionError("chunk 0 lq: the queue took no cooperative "
+                             "step")
     r = rois["sigmaxy"]
     k6d = lq_cuda.fit_boundary_t(r, MAX_IT, FTOL).cpu().numpy()
     if not np.array_equal(lq_cuda.fit_t(r, MAX_IT, FTOL).cpu().numpy(), k6d,
                           equal_nan=True):
         raise AssertionError("chunk 0: K6 != K3 bit for bit")
+    it, rejected, reused = lq_iters(r, MAX_IT)
+    print(f"chunk 0 lq ({r.shape[-1]} hits): K5 queue (u16, f32) == cut "
+          f"+ photons + K3 bit for bit, K6 == K3 bit for bit; "
+          f"queue cooperative steps {int(coop_chunk.item())}; plain LM "
+          f"steps {json.dumps(lq_step_stats(it, MAX_IT, rejected, reused))}")
+
+    def queue(fr, h):
+        return winfit_cuda.fit_lq_queue_t(fr, *h, 0.0, 1.0, **lq_kw)
+
     routes = (
         lambda: lq_cuda.fit_t(winfit_cuda.photons_t(
             chunk, *hits_k, BOX, 0.0, 1.0), MAX_IT, FTOL),
-        lambda: winfit_cuda.fit_lq_t(chunk, *hits_k, 0.0, 1.0, **lq_kw),
+        lambda: queue(chunk, hits_k),
         lambda: lq_cuda.fit_t(r, MAX_IT, FTOL),
         lambda: lq_cuda.fit_boundary_t(r, MAX_IT, FTOL),
     )
     lq_route_ms = _turns(routes[i] for i in (0, 1, 1, 0))
     k6_ms = _turns(routes[i] for i in (2, 3, 3, 2))
-    it = _lq_iters(r, MAX_IT)
-    chunk_bound = _fit_bound(r.shape[-1], float(it.sum()),
-                             lq_flops_per_spot_iter, 24, K5_IN_BYTES)
-    print(f"chunk 0 lq ({r.shape[-1]} hits, LM iterations p50 "
-          f"{np.percentile(it, 50):.0f} p90 {np.percentile(it, 90):.0f} p99 "
-          f"{np.percentile(it, 99):.0f}, {np.mean(it == MAX_IT):.4f} at "
-          f"max_it, mean {it.mean():.2f}): K5 (u16, f32) == cut + photons + "
-          f"K3 bit for bit, K6 == K3 bit for bit; route ms in turn A "
-          f"gather+K3, B K5, B, A: {[round(t, 4) for t in lq_route_ms]}; "
-          f"on the ROIs K3, K6, K6, K3: {[round(t, 4) for t in k6_ms]}; K5 "
-          f"bound {chunk_bound[0]:.4f} ms ({chunk_bound[1]})")
+    ms["K5 lq queue chunk 0"] = _median_ms(lambda: queue(chunk, hits_k))
+    chunk_bound = lq_fit_bound(r.shape[-1], float(it.sum()),
+                               float(reused.sum()), K5_IN_BYTES)
+    full_step = lq_fit_bound(r.shape[-1], float(it.sum()), 0.0, K5_IN_BYTES)
+    print(f"chunk 0 lq route ms in turn A gather+K3, B K5 queue, B, A: "
+          f"{[round(t, 4) for t in lq_route_ms]}; on the ROIs K3, K6, K6, "
+          f"K3: {[round(t, 4) for t in k6_ms]}; K5 queue "
+          f"{ms['K5 lq queue chunk 0']:.4f} ms, bound {chunk_bound[0]:.4f} "
+          f"ms ({chunk_bound[1]}; "
+          f"{chunk_bound[0] / ms['K5 lq queue chunk 0']:.1%} of it; "
+          f"full-step bound {full_step[0]:.4f} ms)")
+    print(f"chunk 0 lq tail split, queue (ms alone, in turns): "
+          f"{json.dumps(lq_tail_split(queue, chunk, hits_k, it))}")
+    slow = [h[torch.from_numpy(it == MAX_IT).to(dev)][:1] for h in hits_k]
+    if slow[0].numel():
+        lat = _median_ms(lambda: queue(chunk, slow))
+        print(f"one max_it hit alone ({MAX_IT} steps), queue (cooperative at"
+              f" once): {lat:.4f} ms, {lat / MAX_IT * 1e3:.3f} us a step")
     stages = {
         "K4 identify": lambda: identify_cuda.identify_tiles(
             chunk, MIN_NG, BOX),
         "compact": lambda: identify.compact(*tiles, BOX),
-        "K5 fit": lambda: winfit_cuda.fit_lq_t(chunk, *hits_k, 0.0, 1.0,
-                                               **lq_kw),
+        "K5 fit (queue)": lambda: queue(chunk, hits_k),
         "packed chunk + readback": lambda: fused.identify_cut_fit_packed(
             chunk, MIN_NG, 0.0, 1.0, box=BOX, eps=EPS, max_it=MAX_IT,
             method="lq").cpu(),
@@ -858,10 +989,11 @@ def main() -> int:
               "picasso_tpu/ops/winfit_pallas.py:108",
               launches_sig["K5 mle phases"], "mle-sigma",
               stats["K5 sigma"]["xy_max_all"], "plain K5 sigma"),
-        entry("K5 lq", "K5 winfit_lq (single pass)",
-              "picasso_torch/csrc/winfit_lq.cu",
-              "picasso_tpu/ops/winfit_pallas.py:96", launches_lq["K5 lq"],
-              "lq", stats["K5 lq"]["xy_p100"], "plain K5 lq"),
+        entry("K5 lq queue", "K5 winfit_lq_queue (work queue, cooperative "
+              "tail)", "picasso_torch/csrc/winfit_lq_queue.cu",
+              "picasso_tpu/ops/winfit_pallas.py:96",
+              launches_lq["K5 lq queue"], "lq",
+              stats["K5 lq queue"]["xy_p100"], "plain K5 lq"),
         entry("K4", "K4 identify_tiles", "picasso_torch/csrc/identify.cu",
               "picasso_tpu/ops/identify_pallas.py:58",
               launches_mle["K4"] + launches_sig["K4"] + launches_lq["K4"],
@@ -897,6 +1029,10 @@ def main() -> int:
               "picasso_tpu/ops/mle_pallas.py:511", launches_mle["K7"], "off",
               stats["K7"]["xy_max_all"], "plain K7"),
     ]
+    for k in kernels:  # the LM kernel's time on chunk 0 too
+        if k["name"].startswith("K5 winfit_lq"):
+            k["chunk0_ms"] = ms["K5 lq queue chunk 0"]
+            k["chunk0_bound_ms"] = chunk_bound[0]
     print(f"smoke: {time.perf_counter() - t_start:.1f} s after the start")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

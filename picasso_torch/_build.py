@@ -67,12 +67,15 @@ SIGNATURES = {
     "picasso_winfit_mle_queue_info": [
         _I, _I, _I, _P,                        # dtype, box, method, int info[7]
     ],
-    "picasso_winfit_lq": [
+    "picasso_winfit_lq_queue": [
         _P, _I, _LL, _LL, _LL,                 # frames, dtype, B, Y, X
         _P, _LL, _I, _F, _F,                   # hits, n, box, baseline, factor
-        _F, _I,                                # ftol, k
-        _P,                                    # theta out
+        _F, _I, _P,                            # ftol, max_it, counter
+        _P, _P,                                # theta out, coop steps or null
         _P,                                    # stream
+    ],
+    "picasso_winfit_lq_queue_info": [
+        _I, _I, _P,                            # dtype, box, int info[7]
     ],
     "picasso_identify_tiles": [
         _P, _I, _LL, _LL, _LL, _I, _F,         # frames, dtype, B, Y, X, box, min_ng

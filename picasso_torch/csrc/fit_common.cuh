@@ -7,7 +7,7 @@
 //              K3/K6): neighbouring spots on neighbouring addresses, so
 //              a warp's read of one pixel coalesces;
 //   Staged     the window that the fused cut+fit kernels (K5,
-//              winfit_mle.cu / winfit_lq.cu) load once from the frame
+//              winfit_mle*.cu / winfit_lq_queue.cuh) load once from the frame
 //              chunk, convert to photons and keep in shared memory as
 //              [pixel][thread]: a warp's read of one pixel touches 32
 //              consecutive banks.

@@ -1,8 +1,11 @@
 // Least-squares fit of the plain elliptic 2D Gaussian by
-// Levenberg-Marquardt for one spot, one thread per spot (sm_90a): the
-// body of the K3/K6 kernels (lq_fit.cu) and of the fused cut+fit kernel
-// K5 (winfit_lq.cu), templated on the source the spot's pixels come from
-// (fit_common.cuh).
+// Levenberg-Marquardt for one spot (sm_90a): the body of the K3/K6
+// kernels (lq_fit.cu, one thread a spot) and of the fused cut+fit kernel
+// K5 (winfit_lq_queue.cuh, a work queue), templated on the source the
+// spot's pixels come from (fit_common.cuh). Its pieces
+// (an axis point, a row of J^T r, a row of the cost, the fold of a row,
+// the damped step) are the units the work queue's cooperative tail
+// spreads over a group of lanes.
 //
 // It runs picasso_tpu/ops/lq._lm_core: moment initialiser, then up to
 // max_it LM iterations on the damped 6x6 normal equations (Marquardt
@@ -21,7 +24,11 @@
 // run row by row (outer loop over y), so each row's column sums are
 // scalars folded into six accumulators, and J^T J is built from 1D dot
 // products of the separable axis factors (the model's Jacobian columns
-// are row factor x column factor).
+// are row factor x column factor). The normal equations (J^T r and the
+// undamped lower triangle of J^T J, 27 values, ~64% of a box-7 step's
+// FLOPs) are kept in registers across steps and formed anew only after
+// a step that moved theta: a rejected step leaves theta, and so them,
+// as they were.
 //
 // Numerics follow the JAX package: sums in its order (per-row sums over
 // the columns, then over the rows), IEEE division and sqrt, expf without
@@ -35,43 +42,178 @@ namespace {
 
 constexpr float kNorm = 0.3989422804014327f;  // 1 / sqrt(2 pi)
 
-// Axis factor g(k) = norm/sigma * exp(-u^2/2), u = (k - S/2 - mu)/sigma,
-// and, when D, its derivatives d/dmu and d/dsigma (ops/lq._axis_factors).
+// The arithmetic below is written with the correctly rounded intrinsics
+// (__fmul_rn, __fadd_rn, __fsub_rn, __fmaf_rn, __fdiv_rn), which the
+// compiler never contracts or reorders. The same numbers are formed in
+// three places: one thread a spot (K3, K6, a slot of K5's work queue),
+// the work queue's cooperative tail (winfit_lq_queue.cuh), whose lanes
+// form one row each and fold the rows by shuffles, and a cache that carries the normal
+// equations across steps. Contraction of a product into a later add
+// would depend on what the compiler sees of both, and so on the place.
+
+// Point k of an axis factor (ops/lq._axis_factors): g = norm/sigma *
+// exp(-u^2/2), u = (k - S/2 - mu)/sigma, inv = 1/sigma; when D, its
+// derivatives dg = d/dmu and ds = d/dsigma.
 template <int S, bool D>
-__device__ __forceinline__ void axis(float mu, float sigma, float* g,
-                                     float* dg, float* ds) {
-  constexpr int half = S / 2;
-  const float inv = 1.0f / sigma;
+__device__ __forceinline__ void axis_point(int k, float mu, float inv,
+                                           float& g, float& dg, float& ds) {
+  const float d = __fsub_rn((float)(k - S / 2), mu);
+  const float u = __fmul_rn(d, inv);
+  const float uu = __fmul_rn(u, u);
+  g = __fmul_rn(__fmul_rn(kNorm, inv), expf(__fmul_rn(-0.5f, uu)));
+  if constexpr (D) {
+    dg = __fmul_rn(__fmul_rn(__fmul_rn(g, d), inv), inv);
+    ds = __fmul_rn(__fmul_rn(g, inv), __fsub_rn(uu, 1.0f));
+  }
+}
+
+// Row j of the J^T r pass: the column sums over i, in order, of r *
+// dgx, r * gx, r * dsx and r, r = px(j, i) - (pg * gx[i] + bg).
+template <int S, class Src>
+__device__ __forceinline__ void jtr_row(const Src& px, int j, float pg,
+                                        float bg, const float* gx,
+                                        const float* dgx, const float* dsx,
+                                        float* c) {
 #pragma unroll
-  for (int k = 0; k < S; ++k) {
-    const float d = (float)(k - half) - mu;
-    const float u = d * inv;
-    g[k] = (kNorm * inv) * expf(-0.5f * (u * u));
-    if constexpr (D) {
-      dg[k] = ((g[k] * d) * inv) * inv;
-      ds[k] = (g[k] * inv) * (u * u - 1.0f);
+  for (int i = 0; i < S; ++i) {
+    const float r = __fsub_rn(px(j, i), __fmaf_rn(pg, gx[i], bg));
+    if (i == 0) {
+      c[0] = __fmul_rn(r, dgx[i]);
+      c[1] = __fmul_rn(r, gx[i]);
+      c[2] = __fmul_rn(r, dsx[i]);
+      c[3] = r;
+    } else {
+      c[0] = __fmaf_rn(r, dgx[i], c[0]);
+      c[1] = __fmaf_rn(r, gx[i], c[1]);
+      c[2] = __fmaf_rn(r, dsx[i], c[2]);
+      c[3] = __fadd_rn(c[3], r);
     }
   }
 }
 
-// Sum of squared residuals (ops/lq._cost).
+// Fold row j's column sums c into the six row dots, rows in order.
+__device__ __forceinline__ void jtr_fold(bool first, float gy, float dgy,
+                                         float dsy, const float* c,
+                                         float* jd) {
+  if (first) {
+    jd[0] = __fmul_rn(gy, c[0]);
+    jd[1] = __fmul_rn(dgy, c[1]);
+    jd[2] = __fmul_rn(gy, c[1]);
+    jd[3] = c[3];
+    jd[4] = __fmul_rn(gy, c[2]);
+    jd[5] = __fmul_rn(dsy, c[1]);
+  } else {
+    jd[0] = __fmaf_rn(gy, c[0], jd[0]);
+    jd[1] = __fmaf_rn(dgy, c[1], jd[1]);
+    jd[2] = __fmaf_rn(gy, c[1], jd[2]);
+    jd[3] = __fadd_rn(jd[3], c[3]);
+    jd[4] = __fmaf_rn(gy, c[2], jd[4]);
+    jd[5] = __fmaf_rn(dsy, c[1], jd[5]);
+  }
+}
+
+// J^T r from the row dots, and the undamped lower triangle of J^T J
+// (a[p * (p + 1) / 2 + q], q <= p) from 1D dot products of the axis
+// factors. Row factors (over y): 0 gy, 1 dgy, 2 ones, 3 dsy; column
+// factors (over x): 0 dgx, 1 gx, 2 ones, 3 dsx. Parameter p uses row
+// factor ar[p], column factor bc[p] and scale photons (x, y, sx, sy) or
+// 1 (photons, bg).
+template <int S>
+__device__ __forceinline__ void normal_matrix(
+    const float* gx, const float* dgx, const float* dsx, const float* gy,
+    const float* dgy, const float* dsy, float ph, const float* jd, float* a,
+    float* jtr) {
+  jtr[0] = __fmul_rn(ph, jd[0]);
+  jtr[1] = __fmul_rn(ph, jd[1]);
+  jtr[2] = jd[2];
+  jtr[3] = jd[3];
+  jtr[4] = __fmul_rn(ph, jd[4]);
+  jtr[5] = __fmul_rn(ph, jd[5]);
+  float sa[4][4], sb[4][4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int v = u; v < 4; ++v) {
+      float acc_a = 0.0f, acc_b = 0.0f;
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        const float ra[4] = {gy[k], dgy[k], 1.0f, dsy[k]};
+        const float cb[4] = {dgx[k], gx[k], 1.0f, dsx[k]};
+        acc_a = k == 0 ? __fmul_rn(ra[u], ra[v])
+                       : __fmaf_rn(ra[u], ra[v], acc_a);
+        acc_b = k == 0 ? __fmul_rn(cb[u], cb[v])
+                       : __fmaf_rn(cb[u], cb[v], acc_b);
+      }
+      sa[u][v] = sa[v][u] = acc_a;
+      sb[u][v] = sb[v][u] = acc_b;
+    }
+  const int ar[6] = {0, 1, 0, 2, 0, 3};
+  const int bc[6] = {0, 1, 1, 2, 3, 1};
+  const float sc[6] = {ph, ph, 1.0f, 1.0f, ph, ph};
+#pragma unroll
+  for (int p = 0; p < 6; ++p)
+#pragma unroll
+    for (int q = 0; q <= p; ++q)
+      a[p * (p + 1) / 2 + q] =
+          __fmul_rn(__fmul_rn(__fmul_rn(sc[q], sc[p]), sa[ar[q]][ar[p]]),
+                    sb[bc[q]][bc[p]]);
+}
+
+// The normal equations of one spot at theta th, one thread
+// (ops/lq._normal_equations): J^T r (6) and the undamped lower triangle
+// of J^T J (21). The J^T r sums run row by row, so each row's column
+// sums are scalars folded into six accumulators.
+template <int S, class Src>
+__device__ __forceinline__ void normal_equations(const Src& px,
+                                                 const float* th, float* a,
+                                                 float* jtr) {
+  float gx[S], gy[S], dgx[S], dgy[S], dsx[S], dsy[S];
+  const float ix = __fdiv_rn(1.0f, th[4]), iy = __fdiv_rn(1.0f, th[5]);
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    axis_point<S, true>(k, th[0], ix, gx[k], dgx[k], dsx[k]);
+    axis_point<S, true>(k, th[1], iy, gy[k], dgy[k], dsy[k]);
+  }
+  const float ph = th[2], bg = th[3];
+  float jd[6];
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    float c[4];
+    jtr_row<S>(px, j, __fmul_rn(ph, gy[j]), bg, gx, dgx, dsx, c);
+    jtr_fold(j == 0, gy[j], dgy[j], dsy[j], c, jd);
+  }
+  normal_matrix<S>(gx, dgx, dsx, gy, dgy, dsy, ph, jd, a, jtr);
+}
+
+// Row j of the sum of squared residuals: over i in order.
+template <int S, class Src>
+__device__ __forceinline__ float cost_row(const Src& px, int j, float pg,
+                                          float bg, const float* gx) {
+  float row = 0.0f;
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const float r = __fsub_rn(px(j, i), __fmaf_rn(pg, gx[i], bg));
+    row = i == 0 ? __fmul_rn(r, r) : __fmaf_rn(r, r, row);
+  }
+  return row;
+}
+
+// Sum of squared residuals (ops/lq._cost): the rows' sums, rows in
+// order.
 template <int S, class Src>
 __device__ float cost(const Src& px, const float* th) {
-  float gx[S], gy[S];
-  axis<S, false>(th[0], th[4], gx, nullptr, nullptr);
-  axis<S, false>(th[1], th[5], gy, nullptr, nullptr);
-  const float ph = th[2], bg = th[3];
+  float gx[S], gy[S], unused;
+  const float ix = __fdiv_rn(1.0f, th[4]), iy = __fdiv_rn(1.0f, th[5]);
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    axis_point<S, false>(k, th[0], ix, gx[k], unused, unused);
+    axis_point<S, false>(k, th[1], iy, gy[k], unused, unused);
+  }
   float total = 0.0f;
 #pragma unroll
   for (int j = 0; j < S; ++j) {
-    const float pg = ph * gy[j];
-    float row = 0.0f;
-#pragma unroll
-    for (int i = 0; i < S; ++i) {
-      const float r = px(j, i) - (pg * gx[i] + bg);
-      row = i == 0 ? r * r : row + r * r;
-    }
-    total = j == 0 ? row : total + row;
+    const float row = cost_row<S>(px, j, __fmul_rn(th[2], gy[j]), th[3], gx);
+    total = j == 0 ? row : __fadd_rn(total, row);
   }
   return total;
 }
@@ -123,99 +265,36 @@ __device__ void lq_init_theta(const Src& px, float* th) {
   th[5] = sqrtf(syy / total);
 }
 
-// One LM iteration of a lane that is not done (ops/lq._lm_step).
-template <int S, class Src>
-__device__ void lm_step(const Src& px, float* th, float& lam, float& cst,
-                        float& done, float ftol) {
-  float gx[S], gy[S], dgx[S], dgy[S], dsx[S], dsy[S];
-  axis<S, true>(th[0], th[4], gx, dgx, dsx);
-  axis<S, true>(th[1], th[5], gy, dgy, dsy);
-  const float ph = th[2], bg = th[3];
-
-  // J^T r: per row j the column sums over i, folded into the row dots
-  float j0 = 0, j1 = 0, j2 = 0, j3 = 0, j4 = 0, j5 = 0;
-#pragma unroll
-  for (int j = 0; j < S; ++j) {
-    const float pg = ph * gy[j];
-    float c0 = 0, c1 = 0, c2 = 0, c3 = 0;
-#pragma unroll
-    for (int i = 0; i < S; ++i) {
-      const float r = px(j, i) - (pg * gx[i] + bg);
-      if (i == 0) {
-        c0 = r * dgx[i];
-        c1 = r * gx[i];
-        c2 = r * dsx[i];
-        c3 = r;
-      } else {
-        c0 = c0 + r * dgx[i];
-        c1 = c1 + r * gx[i];
-        c2 = c2 + r * dsx[i];
-        c3 = c3 + r;
-      }
-    }
-    if (j == 0) {
-      j0 = gy[j] * c0;
-      j1 = dgy[j] * c1;
-      j2 = gy[j] * c1;
-      j3 = c3;
-      j4 = gy[j] * c2;
-      j5 = dsy[j] * c1;
-    } else {
-      j0 = j0 + gy[j] * c0;
-      j1 = j1 + dgy[j] * c1;
-      j2 = j2 + gy[j] * c1;
-      j3 = j3 + c3;
-      j4 = j4 + gy[j] * c2;
-      j5 = j5 + dsy[j] * c1;
-    }
-  }
-  const float jtr[6] = {ph * j0, ph * j1, j2, j3, ph * j4, ph * j5};
-
-  // J^T J from dot products of the axis factors. Row factors (over y):
-  // 0 gy, 1 dgy, 2 ones, 3 dsy; column factors (over x): 0 dgx, 1 gx,
-  // 2 ones, 3 dsx. Parameter p uses row factor ar[p], column factor
-  // bc[p] and scale photons (x, y, sx, sy) or 1 (photons, bg).
-  float sa[4][4], sb[4][4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int v = u; v < 4; ++v) {
-      float acc_a = 0.0f, acc_b = 0.0f;
-#pragma unroll
-      for (int k = 0; k < S; ++k) {
-        const float a[4] = {gy[k], dgy[k], 1.0f, dsy[k]};
-        const float b[4] = {dgx[k], gx[k], 1.0f, dsx[k]};
-        acc_a = k == 0 ? a[u] * a[v] : acc_a + a[u] * a[v];
-        acc_b = k == 0 ? b[u] * b[v] : acc_b + b[u] * b[v];
-      }
-      sa[u][v] = sa[v][u] = acc_a;
-      sb[u][v] = sb[v][u] = acc_b;
-    }
-  const int ar[6] = {0, 1, 0, 2, 0, 3};
-  const int bc[6] = {0, 1, 1, 2, 3, 1};
-  const float sc[6] = {ph, ph, 1.0f, 1.0f, ph, ph};
-  // lower triangle of the damped matrix, then Cholesky (ops/linalg.py)
+// The damped step from the normal equations (a, jtr) and the damping
+// lam (ops/lq._lm_step): Marquardt damping of the diagonal, Cholesky
+// factorisation (ops/linalg.py), forward and back solve, trial theta.
+// Returns whether the step is finite; a non-finite step is dropped.
+__device__ __forceinline__ bool damped_trial(const float* a,
+                                             const float* jtr,
+                                             const float* th, float lam,
+                                             float* trial) {
   float L[6][6];
+  const float damp = __fadd_rn(1.0f, lam);
 #pragma unroll
   for (int p = 0; p < 6; ++p)
 #pragma unroll
     for (int q = 0; q <= p; ++q) {
-      const float v = ((sc[q] * sc[p]) * sa[ar[q]][ar[p]]) * sb[bc[q]][bc[p]];
-      L[p][q] = p == q ? v * (1.0f + lam) : v;
+      const float v = a[p * (p + 1) / 2 + q];
+      L[p][q] = p == q ? __fmul_rn(v, damp) : v;
     }
 #pragma unroll
   for (int j = 0; j < 6; ++j) {
     float s = L[j][j];
 #pragma unroll
-    for (int k = 0; k < j; ++k) s = s - L[j][k] * L[j][k];
-    L[j][j] = sqrtf(s);
-    const float inv_d = 1.0f / L[j][j];
+    for (int k = 0; k < j; ++k) s = __fmaf_rn(-L[j][k], L[j][k], s);
+    L[j][j] = __fsqrt_rn(s);
+    const float inv_d = __fdiv_rn(1.0f, L[j][j]);
 #pragma unroll
     for (int i = j + 1; i < 6; ++i) {
       float si = L[i][j];
 #pragma unroll
-      for (int k = 0; k < j; ++k) si = si - L[i][k] * L[j][k];
-      L[i][j] = si * inv_d;
+      for (int k = 0; k < j; ++k) si = __fmaf_rn(-L[i][k], L[j][k], si);
+      L[i][j] = __fmul_rn(si, inv_d);
     }
   }
   float z[6], delta[6];
@@ -223,35 +302,61 @@ __device__ void lm_step(const Src& px, float* th, float& lam, float& cst,
   for (int i = 0; i < 6; ++i) {
     float s = jtr[i];
 #pragma unroll
-    for (int k = 0; k < i; ++k) s = s - L[i][k] * z[k];
-    z[i] = s / L[i][i];
+    for (int k = 0; k < i; ++k) s = __fmaf_rn(-L[i][k], z[k], s);
+    z[i] = __fdiv_rn(s, L[i][i]);
   }
 #pragma unroll
   for (int i = 5; i >= 0; --i) {
     float s = z[i];
 #pragma unroll
-    for (int k = i + 1; k < 6; ++k) s = s - L[k][i] * delta[k];
-    delta[i] = s / L[i][i];
+    for (int k = i + 1; k < 6; ++k) s = __fmaf_rn(-L[k][i], delta[k], s);
+    delta[i] = __fdiv_rn(s, L[i][i]);
   }
   bool finite = true;
 #pragma unroll
   for (int p = 0; p < 6; ++p) finite = finite && isfinite(delta[p]);
-  float trial[6];
 #pragma unroll
-  for (int p = 0; p < 6; ++p) trial[p] = th[p] + (finite ? delta[p] : 0.0f);
-  const float tc = cost<S>(px, trial);
+  for (int p = 0; p < 6; ++p)
+    trial[p] = __fadd_rn(th[p], finite ? delta[p] : 0.0f);
+  return finite;
+}
+
+// Take the trial theta if its cost tc is lower, and update the damping
+// and done. Returns whether the step was taken (theta moved).
+__device__ __forceinline__ bool lm_accept(float tc, bool finite,
+                                          const float* trial, float* th,
+                                          float& lam, float& cst,
+                                          float& done, float ftol) {
   const bool improved = finite && tc < cst;
   if (improved) {
-    const float rel = fabsf(cst - tc) / nmax(cst, 1e-20f);
+    const float rel = __fdiv_rn(fabsf(__fsub_rn(cst, tc)), nmax(cst, 1e-20f));
 #pragma unroll
     for (int p = 0; p < 6; ++p) th[p] = trial[p];
     cst = tc;
-    lam = nmax(lam * 0.1f, 1e-9f);
+    lam = nmax(__fmul_rn(lam, 0.1f), 1e-9f);
     if (rel < ftol) done = 1.0f;
   } else {
-    lam = nmin(lam * 10.0f, 1e7f);
+    lam = nmin(__fmul_rn(lam, 10.0f), 1e7f);
   }
   if (lam >= 1e7f) done = 1.0f;
+  return improved;
+}
+
+// One LM iteration of a lane that is not done (ops/lq._lm_step), one
+// thread. The normal equations (a, jtr) are formed anew when fresh (the
+// first step, or the previous step was taken) and reused otherwise:
+// after a rejected step theta is unchanged, so they are the same
+// numbers. fresh is updated for the next step.
+template <int S, class Src>
+__device__ __forceinline__ void lm_step(const Src& px, float* th,
+                                        float& lam, float& cst, float& done,
+                                        float ftol, float* a, float* jtr,
+                                        bool& fresh) {
+  if (fresh) normal_equations<S>(px, th, a, jtr);
+  float trial[6];
+  const bool finite = damped_trial(a, jtr, th, lam, trial);
+  fresh = lm_accept(cost<S>(px, trial), finite, trial, th, lam, cst, done,
+                    ftol);
 }
 
 // The LM fit of spot n in one mode. FULL/START initialise from the
@@ -276,9 +381,11 @@ __device__ __forceinline__ void lq_fit_spot(const Src& px, long long n,
     lam = 1e-3f;
     done = n >= n_valid ? 1.0f : 0.0f;
   }
+  float a[21], jtr[6];
+  bool fresh = true;
   for (int kk = 0; kk < k; ++kk) {
     if (done > 0.5f) break;
-    lm_step<S>(px, th, lam, cst, done, ftol);
+    lm_step<S>(px, th, lam, cst, done, ftol, a, jtr, fresh);
   }
 #pragma unroll
   for (int p = 0; p < 6; ++p) theta[p * N + n] = th[p];

@@ -50,15 +50,16 @@ def identify_cut_fit(frames, minimum_ng, baseline: float, factor: float,
     The fit is K5, the fused cut + photon conversion + fit
     (ops/winfit_cuda.py), which reads each window straight from the
     chunk; on the CPU its plain version cuts the ROI batch first. The MLE
-    fit takes the route of :data:`MLE_FITS`, the LM fit one pass;
-    chip_smoke.py times these routes against each other and the gather
-    route on the same chunk (PERF.md)."""
+    fit takes the route of :data:`MLE_FITS`, the LM fit K5's work queue
+    (winfit_cuda.fit_lq_queue_t); chip_smoke.py times these routes
+    against each other and the gather route on the same chunk
+    (PERF.md)."""
     f, y, x, ng = compact(*identify_tiles(frames, minimum_ng, box), box)
     if method != "lq":
         return (f, y, x, ng, *MLE_FITS[method](
             frames, f, y, x, baseline, factor, box=box, eps=eps,
             max_it=max_it, method=method))
-    return f, y, x, ng, winfit_cuda.fit_lq_t(
+    return f, y, x, ng, winfit_cuda.fit_lq_queue_t(
         frames, f, y, x, baseline, factor, box=box, max_it=max_it,
         ftol=LQ_FTOL)
 

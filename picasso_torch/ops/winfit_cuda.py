@@ -2,8 +2,9 @@
 (methods ``sigmaxy`` and ``sigma``: the work-queue kernel
 csrc/winfit_mle_queue.cu + winfit_mle_queue_f32.cu, and the single-pass
 and phase modes of csrc/winfit_mle.cu + winfit_mle_f32.cu) and the LM
-fit (csrc/winfit_lq.cu), and its plain version, the gather route: cut
-the (S, S, N) ROI batch out of the chunk, convert it to photons, fit it.
+fit (the work-queue kernel csrc/winfit_lq_queue.cu +
+winfit_lq_queue_f32.cu), and its plain version, the gather route: cut the (S, S, N) ROI batch out of
+the chunk, convert it to photons, fit it.
 
 Counterpart of picasso_tpu/ops/winfit_pallas.py (fit_mle_t :186,
 fit_lq_t :140) together with the window gather that feeds it
@@ -20,13 +21,16 @@ lane whose spot has converged takes the next hit, then one CRLB/LL pass)
 and the sigma method through :func:`fit_mle_boundary_t` (K2's phase
 schedule run on K5), the faster of the two for each on the card (PERF.md).
 :func:`fit_mle_t` (one pass, one thread per spot) is off the main path;
-chip_smoke.py holds all three against each other.
+chip_smoke.py holds all three against each other. The LM fit is
+:func:`fit_lq_queue_t` (one persistent launch with lane refill and a
+cooperative straggler tail), equal to K3 (ops/lq_cuda.fit_t) on the
+gather route's ROIs bit for bit.
 
 Launch counts (plain integers): ``fit_mle_queue_t.launches`` counts the
 queue kernel's launches and its CRLB/LL pass (2 a fit),
 ``fit_mle_t.launches`` the MLE kernel's single-pass (FULL) launches,
-``fit_mle_boundary_t.launches`` its phase launches, ``fit_lq_t.launches``
-the LM kernel's launches.
+``fit_mle_boundary_t.launches`` its phase launches,
+``fit_lq_queue_t.launches`` the LM queue kernel's (1 a fit).
 """
 
 from __future__ import annotations
@@ -275,33 +279,73 @@ def fit_mle_queue_t(frames, f, y, x, baseline: float, factor: float, *,
 fit_mle_queue_t.launches = 0
 
 
-def fit_lq_t(frames, f, y, x, baseline: float, factor: float, *, box: int,
-             max_it: int, ftol: float = 1e-6) -> torch.Tensor:
-    """K5 LM fit in one pass of the windows around the hits (f, y, x),
-    converted to photons. Returns theta (6, N), x/y relative to the box
-    centre, as :func:`ops.lq_cuda.fit_t` on :func:`photons_t`, bit for
-    bit."""
+LQ_QUEUE_INFO = ("threads", "blocks_per_sm", "registers", "local_bytes",
+                 "refill", "group", "sms")
+
+
+def lq_queue_info(dtype: torch.dtype, box: int, lib=None) -> dict:
+    """What the LM queue kernel's instance for a ``dtype`` chunk and
+    ``box`` is on the current card: the :data:`LQ_QUEUE_INFO` fields
+    (threads a block, resident blocks per SM, registers and local spill
+    bytes a thread, the refill threshold R, the lanes G of a cooperative
+    group, the card's SMs)."""
+    lib = lib or _build.library()
+    info = (ctypes.c_int * len(LQ_QUEUE_INFO))()
+    _build.check(lib.picasso_winfit_lq_queue_info(_DTYPE_ID[dtype], box,
+                                                  info),
+                 "winfit_lq_queue_info")
+    return dict(zip(LQ_QUEUE_INFO, info))
+
+
+def _launch_lq_queue(lib, frames, hits, baseline, factor, box, max_it, ftol,
+                     coop_steps=None):
+    """One launch of the LM queue kernel of ``lib`` over the (3, N) hit
+    list, with its counter zeroed here; returns theta (6, N) in input
+    order. ``coop_steps``, one int32 on the card, gains the spot-steps
+    taken in the cooperative tail."""
+    n = hits.shape[1]
+    theta = torch.empty((6, n), dtype=torch.float32, device=frames.device)
+    counter = torch.zeros(1, dtype=torch.int32, device=frames.device)
+    B, Y, X = frames.shape
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream(frames.device).cuda_stream
+        status = lib.picasso_winfit_lq_queue(
+            frames.data_ptr(), _DTYPE_ID[frames.dtype], B, Y, X,
+            hits.data_ptr(), n, box, float(baseline), float(factor),
+            float(ftol), int(max_it), counter.data_ptr(), theta.data_ptr(),
+            None if coop_steps is None else coop_steps.data_ptr(), stream,
+        )
+    _build.check(status, "winfit_lq_queue")
+    return theta
+
+
+def fit_lq_queue_t(frames, f, y, x, baseline: float, factor: float, *,
+                   box: int, max_it: int, ftol: float = 1e-6,
+                   coop_steps=None) -> torch.Tensor:
+    """K5 LM fit of the windows around the hits (f, y, x) of the (B, Y,
+    X) chunk ``frames``, converted to photons (raw - baseline) * factor,
+    as a work queue: one persistent launch in which each lane of a warp
+    takes the next hit from a device counter once its spot is done, and
+    a drained warp's lanes run its last spots in groups (the cooperative
+    tail). Returns theta (6, N), x/y relative to the box centre, as
+    :func:`ops.lq_cuda.fit_t` on :func:`photons_t`, bit for bit: each
+    spot runs the same steps with the same arithmetic, only the lanes
+    that run them differ. ``coop_steps`` (one int32 on the card, or None) gains the spot-steps
+    taken in the cooperative tail. On the CPU it is the gather route."""
     cuda = on_cuda(frames)
     hits = _hit_list(frames, f, y, x, box, cuda)
     if not cuda:
         return _lq._lm_core(photons_t(frames, *hits, box, baseline, factor),
                             max_it, ftol)
-    n = hits.shape[1]
-    theta = torch.empty((6, n), dtype=torch.float32, device=frames.device)
-    if n == 0:
-        return theta
-    lib = _build.library()
-    B, Y, X = frames.shape
-    with torch.cuda.device(frames.device):
-        stream = torch.cuda.current_stream(frames.device).cuda_stream
-        status = lib.picasso_winfit_lq(
-            frames.data_ptr(), _DTYPE_ID[frames.dtype], B, Y, X,
-            hits.data_ptr(), n, box, float(baseline), float(factor),
-            float(ftol), int(max_it), theta.data_ptr(), stream,
-        )
-    _build.check(status, "winfit_lq")
-    fit_lq_t.launches += 1
+    if coop_steps is not None and (coop_steps.device != frames.device
+                                   or coop_steps.dtype != torch.int32):
+        raise ValueError("coop_steps must be an int32 tensor on the card")
+    if hits.shape[1] == 0:
+        return torch.empty((6, 0), dtype=torch.float32, device=frames.device)
+    theta = _launch_lq_queue(_build.library(), frames, hits, baseline, factor,
+                             box, max_it, ftol, coop_steps)
+    fit_lq_queue_t.launches += 1
     return theta
 
 
-fit_lq_t.launches = 0
+fit_lq_queue_t.launches = 0

@@ -178,8 +178,8 @@ def _fit_launches():
             lq_cuda.fit_t.launches, lq_cuda.fit_boundary_t.launches,
             winfit_cuda.fit_mle_t.launches,
             winfit_cuda.fit_mle_boundary_t.launches,
-            winfit_cuda.fit_lq_t.launches,
-            winfit_cuda.fit_mle_queue_t.launches)
+            winfit_cuda.fit_mle_queue_t.launches,
+            winfit_cuda.fit_lq_queue_t.launches)
 
 
 def test_chunk_without_hits_launches_no_fit(dev):
@@ -229,8 +229,9 @@ def test_winfit_kernel_matches_plain_and_the_gather_route(dev, box, dtype):
         ):
             for a, b in zip(k5, _np(other)):
                 np.testing.assert_array_equal(a, b)
-    k5lq = winfit_cuda.fit_lq_t(frames, *hits, BASELINE, FACTOR, box=box,
-                                max_it=MAX_IT, ftol=FTOL).cpu().numpy()
+    k5lq = winfit_cuda.fit_lq_queue_t(frames, *hits, BASELINE, FACTOR,
+                                      box=box, max_it=MAX_IT,
+                                      ftol=FTOL).cpu().numpy()
     compare_lq_fits(lq._lm_core(rois, MAX_IT, FTOL).cpu().numpy(), k5lq,
                     rois.cpu().numpy())
     np.testing.assert_array_equal(
@@ -246,9 +247,10 @@ def test_winfit_kernel_clamps_the_centre(dev):
     f, y, x = (torch.tensor(v, device=dev) for v in (
         [0, 2, 1, -1, 5, 1], [0, 39, 2, 20, 50, -4], [0, 47, 46, -3, 9, 30]))
     kw = dict(box=7, max_it=20, ftol=FTOL)
-    got = winfit_cuda.fit_lq_t(frames, f, y, x, BASELINE, FACTOR, **kw)
-    clamped = winfit_cuda.fit_lq_t(frames, f.clamp(0, 2), y.clamp(3, 36),
-                                   x.clamp(3, 44), BASELINE, FACTOR, **kw)
+    got = winfit_cuda.fit_lq_queue_t(frames, f, y, x, BASELINE, FACTOR, **kw)
+    clamped = winfit_cuda.fit_lq_queue_t(frames, f.clamp(0, 2),
+                                         y.clamp(3, 36), x.clamp(3, 44),
+                                         BASELINE, FACTOR, **kw)
     gather = lq_cuda.fit_t(winfit_cuda.photons_t(frames, f, y, x, 7,
                                                  BASELINE, FACTOR), 20, FTOL)
     np.testing.assert_array_equal(got.cpu().numpy(), clamped.cpu().numpy())
@@ -259,8 +261,8 @@ def test_winfit_kernel_refuses_other_dtypes(dev):
     frames = torch.zeros((2, 32, 32), dtype=torch.int32, device=dev)
     hit = torch.zeros(1, dtype=torch.int64, device=dev) + 10
     with pytest.raises(ValueError, match="u16 or f32"):
-        winfit_cuda.fit_lq_t(frames, hit, hit, hit, 0.0, 1.0, box=7,
-                             max_it=10)
+        winfit_cuda.fit_mle_t(frames, hit, hit, hit, 0.0, 1.0, box=7,
+                              eps=EPS, max_it=10)
 
 
 def _assert_same(a, b):
@@ -355,6 +357,137 @@ def test_queue_kernel_at_box_7_does_not_spill(dev):
             assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2
 
 
+def _lq_all(frames, hits, box, b, c, max_it, coop=None):
+    """K5 LM's queue, and K3 and K6 on the gather route's ROIs, as
+    numpy."""
+    kw = dict(box=box, max_it=max_it, ftol=FTOL)
+    rois = winfit_cuda.photons_t(frames, *hits, box, b, c)
+    return [t.cpu().numpy() for t in (
+        winfit_cuda.fit_lq_queue_t(frames, *hits, b, c, coop_steps=coop,
+                                   **kw),
+        lq_cuda.fit_t(rois, max_it, FTOL),
+        lq_cuda.fit_boundary_t(rois, max_it, FTOL))]
+
+
+def _assert_lq_equal(outs):
+    for other in outs[1:]:
+        np.testing.assert_array_equal(outs[0], other)
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.float32])
+@pytest.mark.parametrize("box", [5, 7, 9, 11, 13, 15])
+def test_lq_queue_kernel_equals_k3(dev, box, dtype):
+    """K5 LM's work queue from a u16 or f32 chunk equals K3 on the gather
+    route's ROIs and K6 bit for bit; its last spots run in the
+    cooperative tail."""
+    frames, hits = _chunk(make_spots(2048, box, seed=box + 7), dtype, dev)
+    coop = torch.zeros(1, dtype=torch.int32, device=dev)
+    _assert_lq_equal(_lq_all(frames, hits, box, BASELINE, FACTOR, MAX_IT,
+                             coop))
+    assert coop.item() > 0
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 131072])
+def test_lq_queue_kernel_at_any_hit_count(dev, n):
+    """Fewer hits than a warp (its lanes go cooperative at once), one more
+    than a warp, and the smoke's 131,072: the queue equals K3; one
+    launch a fit, none without hits."""
+    frames, hits = _chunk(make_spots(max(n, 1), 7, seed=n), np.uint16, dev)
+    hits = [h[:n] for h in hits]
+    before = winfit_cuda.fit_lq_queue_t.launches
+    q = winfit_cuda.fit_lq_queue_t(frames, *hits, BASELINE, FACTOR, box=7,
+                                   max_it=MAX_IT, ftol=FTOL)
+    assert q.shape == (6, n)
+    assert winfit_cuda.fit_lq_queue_t.launches - before == (1 if n else 0)
+    if n:
+        rois = winfit_cuda.photons_t(frames, *hits, 7, BASELINE, FACTOR)
+        np.testing.assert_array_equal(
+            q.cpu().numpy(), lq_cuda.fit_t(rois, MAX_IT, FTOL).cpu().numpy())
+
+
+def _dense_hits(dev):
+    movie = make_bench_movie(48, 128, 300, 0.5, np.random.default_rng(13))
+    chunk = identify.upload_frames(movie, dev)
+    f, y, x, _ = identify.compact(
+        *identify_cuda.identify_tiles(chunk, 4000.0, 7), 7)
+    return chunk, [f, y, x]
+
+
+@pytest.mark.parametrize("max_it", [12, MAX_IT])
+def test_lq_queue_kernel_with_max_it_stragglers(dev, max_it):
+    """A dense chunk where spots run to max_it: the queue equals K3 and
+    K6 bit for bit at two camera-constant pairs, from u16 and f32
+    frames, with steps taken in the cooperative tail."""
+    chunk, hits = _dense_hits(dev)
+    for b, c in ((0.0, 1.0), (BASELINE, FACTOR)):
+        rois = winfit_cuda.photons_t(chunk, *hits, 7, b, c)
+        carry = lq._lm_rounds(rois, *lq._lm_init(rois), max_it, FTOL)
+        running = (carry[3][0] < 0.5).cpu().numpy()
+        assert running.any() and not running.all()
+        for src in (chunk, chunk.to(torch.float32)):
+            coop = torch.zeros(1, dtype=torch.int32, device=dev)
+            _assert_lq_equal(_lq_all(src, hits, 7, b, c, max_it, coop))
+            assert coop.item() > 0
+
+
+def test_lq_queue_kernel_when_every_hit_runs_to_max_it(dev):
+    """Only hits that are still running after max_it steps: every slot
+    ends at max_it (slots claimed together end together, so a warp may
+    drain without a cooperative step), and the queue still equals K3 and
+    K6."""
+    chunk, hits = _dense_hits(dev)
+    rois = winfit_cuda.photons_t(chunk, *hits, 7, 0.0, 1.0)
+    carry = lq._lm_rounds(rois, *lq._lm_init(rois), 3, FTOL)
+    keep = carry[3][0] < 0.5
+    long_hits = [h[keep] for h in hits]
+    assert len(long_hits[0]) > 1000
+    _assert_lq_equal(_lq_all(chunk, long_hits, 7, 0.0, 1.0, 3))
+
+
+def test_lq_queue_kernel_repeats_and_launches_once(dev):
+    """Two calls in a row give equal results (the counter starts at 0
+    each time); each call is one launch."""
+    frames, hits = _chunk(make_spots(5000, 7, seed=21), np.uint16, dev)
+    kw = dict(box=7, max_it=MAX_IT, ftol=FTOL)
+    before = winfit_cuda.fit_lq_queue_t.launches
+    a = winfit_cuda.fit_lq_queue_t(frames, *hits, 0.0, 1.0, **kw)
+    b = winfit_cuda.fit_lq_queue_t(frames, *hits, 0.0, 1.0, **kw)
+    assert winfit_cuda.fit_lq_queue_t.launches - before == 2
+    np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+def test_lq_queue_kernel_refuses_other_dtypes_and_boxes(dev):
+    hit = torch.zeros(1, dtype=torch.int64, device=dev) + 10
+    frames = torch.zeros((2, 32, 32), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="u16 or f32"):
+        winfit_cuda.fit_lq_queue_t(frames, hit, hit, hit, 0.0, 1.0, box=7,
+                                   max_it=10)
+    frames = torch.zeros((2, 32, 32), dtype=torch.uint16, device=dev)
+    with pytest.raises(ValueError, match="boxes"):
+        winfit_cuda.fit_lq_queue_t(frames, hit, hit, hit, 0.0, 1.0, box=3,
+                                   max_it=10)
+
+
+def test_lq_queue_kernel_at_box_7_does_not_spill(dev):
+    for dtype in (torch.uint16, torch.float32):
+        info = winfit_cuda.lq_queue_info(dtype, 7)
+        assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2
+        assert info["group"] >= 7
+
+
+def test_lq_one_thread_kernels_equal_after_the_split(dev):
+    """K3 and K6 (the fit_lq.cuh body with the normal equations reused
+    after a rejected step, one thread a spot) equal each other bit for
+    bit on a dense chunk whose spots run to max_it, and the plain version
+    within compare_lq_fits."""
+    chunk, hits = _dense_hits(dev)
+    outs = _lq_all(chunk, hits, 7, BASELINE, FACTOR, MAX_IT)
+    _assert_lq_equal(outs[1:])
+    rois = winfit_cuda.photons_t(chunk, *hits, 7, BASELINE, FACTOR)
+    compare_lq_fits(lq._lm_core(rois, MAX_IT, FTOL).cpu().numpy(), outs[1],
+                    rois.cpu().numpy())
+
+
 def test_multiround_schedule_equals_the_single_pass(dev):
     """K7 (rounds of 4 over 20 iterations, some spots still running at
     each boundary) equals K1 bit for bit."""
@@ -395,8 +528,8 @@ def test_slice_on_the_card_matches_the_cpu(dev):
                           device=dev)
     # the chain's route: K5's work queue, no other fit
     after = _fit_launches()
-    assert after[7] > before[7]
-    assert after[:7] == before[:7]
+    assert after[6] > before[6]
+    assert after[:6] + after[7:] == before[:6] + before[7:]
     c = localize.localize(movie, dict(cam), par, fitting_method="gaussmle",
                           device="cpu")
     np.testing.assert_array_equal(g["frame"], c["frame"])
@@ -431,8 +564,13 @@ def test_lq_slice_on_the_card_matches_the_cpu(dev):
     movie = make_bench_movie(32, 64, 40, 0.5, np.random.default_rng(7))
     cam = {"Baseline": 0, "Sensitivity": 1, "Gain": 1, "Pixelsize": 130}
     par = {"Min. Net Gradient": 4000, "Box Size": 7}
+    before = _fit_launches()
     g = localize.localize(movie, dict(cam), par, fitting_method="gausslq",
                           device=dev)
+    # the chain's route: K5 LM's work queue, no other fit
+    after = _fit_launches()
+    assert after[7] > before[7]
+    assert after[:7] == before[:7]
     c = localize.localize(movie, dict(cam), par, fitting_method="gausslq",
                           device="cpu")
     np.testing.assert_array_equal(g["frame"], c["frame"])

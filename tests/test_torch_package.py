@@ -92,7 +92,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_sources_hash_and_cover_every_entry():
     names = [p.name for p in _build.sources()]
     assert {"mle_fit.cu", "identify.cu", "lq_fit.cu", "winfit_mle.cu",
-            "winfit_mle_f32.cu", "winfit_lq.cu", "fit_common.cuh",
+            "winfit_mle_f32.cu", "winfit_lq_queue.cu",
+            "winfit_lq_queue_f32.cu", "winfit_lq_queue.cuh", "fit_common.cuh",
             "fit_mle.cuh", "fit_lq.cuh", "winfit_mle_queue.cu",
             "winfit_mle_queue_f32.cu", "winfit_mle_queue.cuh"} <= set(names)
     text = "".join(p.read_text() for p in _build.sources())
@@ -109,7 +110,7 @@ def test_sources_hash_and_cover_every_entry():
                                      "winfit_fit_mle_t",
                                      "winfit_fit_mle_boundary_t",
                                      "winfit_fit_mle_queue_t",
-                                     "winfit_fit_lq_t"])
+                                     "winfit_fit_lq_queue_t"])
 def test_wrappers_do_not_fall_back_off_the_cpu(wrapper):
     """A tensor on any device but the CPU goes to the kernel or raises;
     the plain version is never taken for it."""
@@ -142,7 +143,7 @@ def _counts():
             identify_cuda.identify_tiles.launches,
             winfit_cuda.fit_mle_t.launches,
             winfit_cuda.fit_mle_boundary_t.launches,
-            winfit_cuda.fit_lq_t.launches,
+            winfit_cuda.fit_lq_queue_t.launches,
             winfit_cuda.fit_mle_queue_t.launches)
 
 
@@ -163,7 +164,8 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
                                    eps=1e-3, max_it=20)
     winfit_cuda.fit_mle_queue_t(frames, hit, hit, hit, 0.0, 1.0, box=7,
                                 eps=1e-3, max_it=20)
-    winfit_cuda.fit_lq_t(frames, hit, hit, hit, 0.0, 1.0, box=7, max_it=20)
+    winfit_cuda.fit_lq_queue_t(frames, hit, hit, hit, 0.0, 1.0, box=7,
+                               max_it=20)
     assert before == _counts()
 
 

@@ -20,7 +20,7 @@ import torch
 from picasso_tpu.ops import fused as jfused
 from picasso_tpu.ops import winfit_pallas
 from picasso_torch.ops import fused as tfused
-from picasso_torch.ops import identify, mle, mle_cuda, winfit_cuda
+from picasso_torch.ops import identify, lq, mle, mle_cuda, winfit_cuda
 from picasso_torch.ops._fit_common import default_boundaries
 from torch_parity import compare_fits, compare_hits, compare_lq_fits
 
@@ -91,11 +91,52 @@ def test_plain_k5_lq_matches_jax_winfit(frames, hits):
                                           box=BOX, max_it=100, interpret=True,
                                           n_valid=n))[:, :n]
     frames_t = torch.from_numpy(frames)
-    t = winfit_cuda.fit_lq_t(frames_t, *hits, BASELINE, FACTOR, box=BOX,
-                             max_it=100).numpy()
+    t = winfit_cuda.fit_lq_queue_t(frames_t, *hits, BASELINE, FACTOR,
+                                   box=BOX, max_it=100).numpy()
     spots = winfit_cuda.photons_t(frames_t, *hits, BOX, BASELINE,
                                   FACTOR).numpy()
     compare_lq_fits(j, t, spots)
+
+
+def test_plain_k5_lq_queue_matches_jax_winfit(frames, hits):
+    """K5 LM's work queue on the CPU (its plain version) from an f32
+    chunk against JAX's LM winfit kernel in the interpreter on the f32
+    rows."""
+    n = len(hits[0])
+    f32 = frames.astype(np.float32)
+    cols, xoff = _jax_rows(f32, *hits)
+    j = np.asarray(winfit_pallas.fit_lq_t(cols, xoff, BASELINE, FACTOR,
+                                          box=BOX, max_it=100, interpret=True,
+                                          n_valid=n))[:, :n]
+    frames_t = torch.from_numpy(f32)
+    t = winfit_cuda.fit_lq_queue_t(frames_t, *hits, BASELINE, FACTOR,
+                                   box=BOX, max_it=100).numpy()
+    spots = winfit_cuda.photons_t(frames_t, *hits, BOX, BASELINE,
+                                  FACTOR).numpy()
+    compare_lq_fits(j, t, spots)
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.float32])
+@pytest.mark.parametrize("max_it", [3, 100])
+def test_lq_queue_plain_route_is_the_gather_route(frames, hits, dtype,
+                                                  max_it):
+    """On the CPU the LM queue is cut, photons, lq._lm_core, bit for bit,
+    from a u16 and an f32 chunk; at max_it 3 some spots stop at
+    max_it."""
+    frames_t = torch.from_numpy(frames.astype(dtype))
+    kw = dict(box=BOX, max_it=max_it)
+    got = winfit_cuda.fit_lq_queue_t(frames_t, *hits, BASELINE, FACTOR, **kw)
+    want = lq._lm_core(winfit_cuda.photons_t(frames_t, *hits, BOX, BASELINE,
+                                             FACTOR), max_it, 1e-6)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_lq_queue_without_hits_returns_empty():
+    f = torch.zeros(0, dtype=torch.int64)
+    out = winfit_cuda.fit_lq_queue_t(torch.zeros((2, 32, 32),
+                                                 dtype=torch.uint16),
+                                     f, f, f, 0.0, 1.0, box=BOX, max_it=10)
+    assert out.shape == (6, 0) and out.dtype == torch.float32
 
 
 def test_plain_k5_f32_chunk_matches_jax_winfit(frames, hits):
@@ -115,10 +156,10 @@ def test_plain_k5_f32_chunk_matches_jax_winfit(frames, hits):
     compare_fits([j[0][:, :n], j[1][:, :n], j[2][:n], j[3][:n]], t32, 100)
     for a, b in zip(t32, t16):
         np.testing.assert_array_equal(a, b)
-    lq32 = winfit_cuda.fit_lq_t(torch.from_numpy(f32), *hits, BASELINE,
-                                FACTOR, box=BOX, max_it=100)
-    lq16 = winfit_cuda.fit_lq_t(torch.from_numpy(frames), *hits, BASELINE,
-                                FACTOR, box=BOX, max_it=100)
+    lq32 = winfit_cuda.fit_lq_queue_t(torch.from_numpy(f32), *hits,
+                                      BASELINE, FACTOR, box=BOX, max_it=100)
+    lq16 = winfit_cuda.fit_lq_queue_t(torch.from_numpy(frames), *hits,
+                                      BASELINE, FACTOR, box=BOX, max_it=100)
     np.testing.assert_array_equal(lq32.numpy(), lq16.numpy())
 
 
@@ -194,9 +235,9 @@ def test_cut_clamps_the_centre_as_gather_wincols(frames):
                      for i, o in enumerate(np.asarray(xoff))], axis=-1)
     np.testing.assert_array_equal(got, want.astype(np.int32))
     # the fit reads the same clamped windows
-    fit = winfit_cuda.fit_lq_t(torch.from_numpy(frames), f, y, x, BASELINE,
-                               FACTOR, box=BOX, max_it=20)
-    ref = winfit_cuda.fit_lq_t(
+    fit = winfit_cuda.fit_lq_queue_t(torch.from_numpy(frames), f, y, x,
+                                     BASELINE, FACTOR, box=BOX, max_it=20)
+    ref = winfit_cuda.fit_lq_queue_t(
         torch.from_numpy(frames), f.clamp(0, 7), y.clamp(3, 60),
         x.clamp(3, 60), BASELINE, FACTOR, box=BOX, max_it=20)
     np.testing.assert_array_equal(fit.numpy(), ref.numpy())
