@@ -52,7 +52,30 @@ Phases, each of which raises on failure (exit code != 0):
 7. RCC undrift on the card: postprocess.undrift(device="cuda") of the
    MLE slice's locs with a known drift added, its residual against that
    drift, its agreement with the same call on the CPU, and its wall
-   split (render, pair FFTs, peak fits).
+   split (render, pair FFTs, peak fits);
+8. the TIFF series: the movie written as movie.ome.tif + movie_1.ome.tif
+   (tests/torch_data.write_tiff, 1024 frames each, in a folder of the
+   checkout removed at the end), read back by io.load_movie (decode rate
+   from the page cache), the MLE slice on it equal to the in-RAM slice
+   bit for bit, K4 and K5's queue launched on it, the walls of both in
+   turns;
+9. avg: localize(fitting_method="avg") on the movie in RAM and on the
+   TIFF series (K4 only), hit lists equal to the MLE slice's, the two
+   movies' locs equal, chunk 0's photons equal to the CPU run and within
+   torch_parity.compare_avg_photons of the f32 pairwise sum;
+10. identify + fit2D: identify == the fused slice's hit list; fit2D
+   gaussmle runs K2 (3 launches a 262,144-spot block) and equals the MLE
+   slice (K5's queue) bit for bit; fit2D gausslq runs K3 at max_it 30
+   and equals K5's LM queue at max_it 30 bit for bit, and the LQ slice
+   on the spots that converge within 30 steps;
+11. astigmatic 3D: localize_3D (MLE and LQ) on the astigmatic recipe of
+   tests/torch_data.py (2048 frames of 256x256, made alongside the
+   build) with K4 and K5 launched, zfit's wall on the card, the card's
+   z fit equal to the CPU's on chunk 0's locs bit for bit, the share of
+   2D locs kept and z against the truth under bounds from the CPU run,
+   and an RCC undrift that keeps z, d_zcalib and lpz.
+IMS and STK movies are checked on the CPU only (tests/test_torch_io.py):
+the machine with the card has no h5py.
 The line before the last is the JSON record of every kernel (bound_ms:
 the larger of the FLOPs this run's inputs need over 67 TFLOP/s f32 and
 the bytes read once and written once over 3.35 TB/s, NVIDIA's H100 SXM
@@ -69,6 +92,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -88,6 +112,11 @@ DRIFT_RESID = 0.1  # px, RMS residual of the recovered drift
 DRIFT_AGREE = 1e-2  # px, undrift on the card against the CPU
 PEAK_F32 = 67e12  # FLOP/s, f32 outside the tensor cores (H100 SXM)
 PEAK_BYTES = 3.35e12  # B/s, HBM3 (H100 SXM)
+# localize_3D on the astigmatic movie: (least share of the 2D locs kept,
+# z RMS nm, median |z - truth| nm against the truth), from the CPU run
+# of tests/torch_data.make_astig_movie at this density (PERF.md): MLE
+# kept 0.911, RMS 102.7, median 13.2; LQ 0.989, 118.2, 11.4
+Z_BOUNDS = {"gaussmle": (0.88, 130.0, 20.0), "gausslq": (0.96, 150.0, 18.0)}
 
 
 def _median_ms(fn, reps: int = 5, calls: int = 1) -> float:
@@ -313,7 +342,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from picasso_torch import (
-        _build, gausslq, gaussmle, imageprocess, localize, postprocess,
+        _build, avgroi, gausslq, gaussmle, imageprocess, io, localize,
+        postprocess, zfit,
     )
     from picasso_torch.ops import (
         fused, identify, identify_cuda, lq, lq_cuda, mle, mle_cuda,
@@ -321,10 +351,12 @@ def main() -> int:
     )
     from picasso_torch.ops._fit_common import FINISH
     from torch_data import (
-        make_bench_movie, make_spots, spots_chunk, tiled_chunk,
+        CALIB_3D, make_astig_movie, make_bench_movie, make_spots,
+        spots_chunk, tiled_chunk, write_tiff,
     )
     from torch_parity import (
-        compare_fits, compare_hits, compare_lq_fits, compare_tiles,
+        compare_avg_photons, compare_fits, compare_hits, compare_lq_fits,
+        compare_tiles,
     )
 
     dev = torch.device("cuda")
@@ -349,8 +381,15 @@ def main() -> int:
                                  np.random.default_rng(13))
         return movie, time.perf_counter() - t0
 
-    movie_pool = ThreadPoolExecutor(1)
+    def make_astig():
+        t0 = time.perf_counter()
+        out = make_astig_movie(2048, 256, 1200, 0.5,
+                               np.random.default_rng(17))
+        return out, time.perf_counter() - t0
+
+    movie_pool = ThreadPoolExecutor(2)
     movie_job = movie_pool.submit(make_movie)
+    astig_job = movie_pool.submit(make_astig)
     lib_path, build_s = _build.build()
     print(f"build: {build_s:.1f} s -> {lib_path}")
     for row in _ptxas_table((lib_path.parent / "build.log").read_text()):
@@ -544,7 +583,6 @@ def main() -> int:
           json.dumps(stats["K7"]))
 
     movie, movie_s = movie_job.result()
-    movie_pool.shutdown()
     print(f"movie {movie.shape} {movie.dtype}: {movie_s:.1f} s to generate "
           "(alongside the build)")
     # K4 on chunk 0 and on a (32, 2048, 2048) chunk tiled 8x8 from its
@@ -605,30 +643,40 @@ def main() -> int:
 
     n_chunks = -(-len(movie) // CHUNK)
 
-    def check_route(what: str, launches: dict, fit: str,
-                    per_chunk: int = 1) -> None:
-        """K4 and the fit ``fit`` launched on the slice, ``per_chunk``
-        launches a chunk, no other fit."""
+    def check_route(what: str, launches: dict, fit: str | None,
+                    per_chunk: int = 1, fit_launches: int | None = None
+                    ) -> None:
+        """K4 launched once a chunk and the fit ``fit`` ``per_chunk``
+        times a chunk (or ``fit_launches`` times), no other fit."""
         idle = [k for k, v in launches.items() if v and k not in ("K4", fit)]
-        if (launches["K4"] != n_chunks
-                or launches[fit] != per_chunk * n_chunks or idle):
-            raise AssertionError(f"{what} slice did not run through K4 and "
+        want = per_chunk * n_chunks if fit_launches is None else fit_launches
+        if (launches["K4"] != n_chunks or idle
+                or (fit is not None and launches[fit] != want)):
+            raise AssertionError(f"{what} did not run through K4 and "
                                  f"{fit} only: {launches}")
 
-    def run_slice(fitting_method: str, **kw):
-        """One localize call on the card with every count set to 0 just
-        before it; returns (locs, wall seconds, launches)."""
-        what = " ".join([fitting_method, *map(str, kw.values())])
+    def counted(fn):
+        """``fn()`` on the card with every count set to 0 just before it;
+        returns (result, wall seconds, launches)."""
         for c in counters.values():
             c.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        locs = localize.localize(movie, dict(camera), params,
-                                 fitting_method=fitting_method, device="cuda",
-                                 **kw)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k: c.launches for k, c in counters.items()}
+        return out, wall, {k: c.launches for k, c in counters.items()}
+
+    def run_slice(fitting_method: str, src=None, **kw):
+        """One localize call on the card (on ``src``, the in-RAM movie by
+        default) with every count set to 0 just before it; returns (locs,
+        wall seconds, launches)."""
+        what = " ".join([fitting_method, *map(str, kw.values())])
+        if src is not None:
+            what += " (TIFF series)"
+        locs, wall, launches = counted(lambda: localize.localize(
+            movie if src is None else src, dict(camera), params,
+            fitting_method=fitting_method, device="cuda", **kw))
         print(f"{what} slice: {len(locs)} locs from {len(movie)} "
               f"frames in {wall:.3f} s = {len(movie) / wall:.1f} frames/s, "
               f"{len(locs) / wall:.0f} spots/s; launches {launches}")
@@ -643,7 +691,7 @@ def main() -> int:
     # the main path fits through K5's work queue, 2 launches a chunk
     # (ops/fused.py); the gather route's K1/K2 and K5's phases and single
     # pass are not on it
-    check_route("MLE", launches_mle, "K5 mle queue", 2)
+    check_route("MLE slice", launches_mle, "K5 mle queue", 2)
     if len(locs) == 0:
         raise AssertionError("MLE slice found no locs")
     for name in ("x", "y", "photons", "sx", "sy", "bg"):
@@ -652,10 +700,10 @@ def main() -> int:
 
     # the slice's wall split: the chunk loop, then the locs table
     t0 = time.perf_counter()
-    ids, fits = fused.localize_fused(movie, MIN_NG, BOX, camera,
-                                     device="cuda")
+    mle_ids, mle_fits = fused.localize_fused(movie, MIN_NG, BOX, camera,
+                                             device="cuda")
     t1 = time.perf_counter()
-    gaussmle.locs_from_fits(ids, *fits, BOX)
+    gaussmle.locs_from_fits(mle_ids, *mle_fits, BOX)
     t2 = time.perf_counter()
     print(f"MLE slice split: localize_fused {t1 - t0:.3f} s, locs_from_fits "
           f"{t2 - t1:.3f} s")
@@ -778,7 +826,7 @@ def main() -> int:
     locs_sig, _, launches_sig = run_slice("gaussmle", mle_method="sigma")
     # the sigma route: K4, then K5 in phases in its sigma mode, which beat
     # the work queue on the dense chunk (ops/fused.py MLE_FITS)
-    check_route("sigma", launches_sig, "K5 mle phases", 3)
+    check_route("sigma slice", launches_sig, "K5 mle phases", 3)
     if not np.array_equal(locs_sig["sx"], locs_sig["sy"]):
         raise AssertionError("sigma slice: sx != sy, not the sigma fit")
     ker_s = [a.cpu().numpy() for a in fused.identify_cut_fit(
@@ -803,7 +851,7 @@ def main() -> int:
     # 6. the LQ slice ----------------------------------------------------
     locs_lq, wall_lq, launches_lq = run_slice("gausslq")
     # the LQ route is K5's work queue (ops/fused.py); K3 and K6 are off it
-    check_route("LQ", launches_lq, "K5 lq queue")
+    check_route("LQ slice", launches_lq, "K5 lq queue")
     if not len(locs_lq):
         raise AssertionError("LQ slice found no locs")
     t0 = time.perf_counter()
@@ -958,11 +1006,224 @@ def main() -> int:
     if not (np.isfinite(undrifted["x"]).all() and len(undrifted) == len(locs)):
         raise AssertionError("undrift: locs lost or not finite")
 
+    # 8. the TIFF series -------------------------------------------------
+    # the movie as MicroManager writes a long series, movie.ome.tif +
+    # movie_1.ome.tif (1024 frames each), in a folder of the checkout
+    # removed at the end; the decode rate is read from the page cache
+    # right after the write
+    tiff_dir = tempfile.TemporaryDirectory(prefix=".smoke-tiff-", dir=ROOT)
+    half = len(movie) // 2
+    t0 = time.perf_counter()
+    write_tiff(os.path.join(tiff_dir.name, "movie.ome.tif"), movie[:half])
+    write_tiff(os.path.join(tiff_dir.name, "movie_1.ome.tif"), movie[half:])
+    t1 = time.perf_counter()
+    lazy, lazy_info = io.load_movie(os.path.join(tiff_dir.name,
+                                                 "movie.ome.tif"))
+    decoded = lazy[0:len(lazy)]
+    t2 = time.perf_counter()
+    if not np.array_equal(decoded, movie) or lazy_info[0]["Frames"] != len(
+            movie):
+        raise AssertionError("TIFF series: frames differ from the movie")
+    del decoded
+    mb = movie.nbytes / 1e6
+    locs_tif, wall_tif, launches_tif = run_slice("gaussmle", src=lazy)
+    check_route("MLE slice (TIFF series)", launches_tif, "K5 mle queue", 2)
+    for name in locs.dtype.names:
+        if not np.array_equal(locs_tif[name], locs[name], equal_nan=True):
+            raise AssertionError(f"TIFF series slice: {name} differs from "
+                                 "the in-RAM slice")
+    # the in-RAM and the TIFF slice in turns (A B B A)
+    tif_walls = [run_slice("gaussmle", src=s)[1]
+                 for s in (None, lazy, lazy, None)]
+    print(f"TIFF series (2 files, {mb:.1f} MB): write {t1 - t0:.3f} s, "
+          f"decode {t2 - t1:.3f} s = {mb / (t2 - t1):.0f} MB/s; MLE slice "
+          f"on it == the in-RAM slice bit for bit ({len(locs_tif)} locs); "
+          f"walls in turn RAM, TIFF, TIFF, RAM: "
+          f"{[round(w, 3) for w in tif_walls]} s")
+
+    # 9. avg on the in-RAM movie and on the TIFF series ------------------
+    avg_runs = {}
+    for what, src in (("RAM", movie), ("TIFF", lazy)):
+        avg_runs[what] = counted(lambda src=src: localize.localize(
+            src, dict(camera), params, fitting_method="avg", device="cuda"))
+        check_route(f"avg ({what})", avg_runs[what][2], None)
+    locs_avg = avg_runs["RAM"][0]
+    for c in ("frame", "x", "y", "net_gradient"):
+        if not np.array_equal(locs_avg[c], mle_ids[c]):
+            raise AssertionError(f"avg: hit list ({c}) differs from the MLE "
+                                 "slice's")
+    for name in locs_avg.dtype.names:
+        if not np.array_equal(avg_runs["TIFF"][0][name], locs_avg[name],
+                              equal_nan=True):
+            raise AssertionError(f"avg: {name} differs between the in-RAM "
+                                 "movie and the TIFF series")
+    # chunk 0 on the CPU: the same sums (f64, rounded once) from the
+    # same ROIs, and within compare_avg_photons of the f32 pairwise sum
+    # picasso_tpu takes
+    first = locs_avg["frame"] < CHUNK
+    ids0 = mle_ids[mle_ids["frame"] < CHUNK]
+    spots0 = localize.get_spots(movie, ids0, BOX, dict(camera), device="cpu")
+    cpu0 = avgroi.fit_spots(spots0, device="cpu")[:, 2]
+    if not np.array_equal(locs_avg["photons"][first], cpu0):
+        raise AssertionError("avg: chunk 0 photons differ from the CPU run")
+    avg_err = compare_avg_photons(
+        np.sum(spots0, axis=(1, 2)), locs_avg["photons"][first], spots0,
+        "avg chunk 0 vs the f32 pairwise sum")
+    print(f"avg: {len(locs_avg)} locs, hit list == the MLE slice's, TIFF "
+          f"series == in RAM bit for bit, chunk 0 photons == the CPU run "
+          f"({first.sum()} spots; |d| / sum|pixel| against the f32 pairwise "
+          f"sum {avg_err:.3g}); walls RAM {avg_runs['RAM'][1]:.3f} s, TIFF "
+          f"{avg_runs['TIFF'][1]:.3f} s; launches {avg_runs['RAM'][2]}")
+    del spots0
+
+    # 10. identify + fit2D (K2 for MLE, K3 for LM) -------------------------
+    ids, wall_id, launches_id = counted(
+        lambda: localize.identify(movie, MIN_NG, BOX, device="cuda"))
+    check_route("identify", launches_id, None)
+    for c in ids.dtype.names:
+        if not np.array_equal(ids[c], mle_ids[c]):
+            raise AssertionError(f"identify: {c} differs from the fused "
+                                 "slice's hit list")
+    info2d = [{"Frames": len(movie), "Height": movie.shape[1],
+               "Width": movie.shape[2]}]
+    (fit_mle, _), wall_k2, launches_k2 = counted(lambda: localize.fit2D(
+        movie, info2d, dict(camera), ids, BOX, fitting_method="gaussmle",
+        device="cuda"))
+    n_k2 = 3 * -(-len(ids) // gaussmle._CHUNK)
+    if (launches_k2["K2"] != n_k2
+            or any(v for k, v in launches_k2.items() if k != "K2")):
+        raise AssertionError(f"fit2D MLE did not run through K2 only: "
+                             f"{launches_k2}")
+    for name in locs.dtype.names:
+        if not np.array_equal(fit_mle[name], locs[name], equal_nan=True):
+            raise AssertionError(f"fit2D MLE (K2): {name} differs from the "
+                                 "fused MLE slice (K5 queue)")
+    (fit_lq, _), wall_k3, launches_k3 = counted(lambda: localize.fit2D(
+        movie, info2d, dict(camera), ids, BOX, fitting_method="gausslq",
+        device="cuda"))
+    n_k3 = -(-len(ids) // lq._CHUNK)
+    if (launches_k3["K3"] != n_k3
+            or any(v for k, v in launches_k3.items() if k != "K3")):
+        raise AssertionError(f"fit2D LQ did not run through K3 only: "
+                             f"{launches_k3}")
+    # K3 at picasso_tpu's fit2D max_it 30 against K5's LM queue at 30 on
+    # the same hits (one chunk of the whole movie), and against the LQ
+    # slice (max_it 100) on the spots that converge within 30 steps
+    whole = identify.upload_frames(movie, dev)
+    hits_all = [torch.from_numpy(np.ascontiguousarray(ids[c])).to(dev)
+                for c in ("frame", "y", "x")]
+    lq30, lq100 = (winfit_cuda.fit_lq_queue_t(
+        whole, *hits_all, 0.0, 1.0, box=BOX, max_it=m, ftol=FTOL
+    ).cpu().numpy() for m in (30, MAX_IT))
+    del whole, hits_all
+    ref30 = gausslq.locs_from_fits(ids, lq30.T, BOX, False)
+    for name in ref30.dtype.names:
+        if not np.array_equal(fit_lq[name], ref30[name], equal_nan=True):
+            raise AssertionError(f"fit2D LQ (K3): {name} differs from K5's "
+                                 "LM queue at max_it 30")
+    conv = np.all((lq30 == lq100) | (np.isnan(lq30) & np.isnan(lq100)), 0)
+    if not (conv.mean() >= 0.98 and all(np.array_equal(
+            fit_lq[c][conv], locs_lq[c][conv], equal_nan=True)
+            for c in ("x", "y", "photons", "sx", "sy", "bg"))):
+        raise AssertionError("fit2D LQ: differs from the LQ slice on the "
+                             "spots that converge within 30 steps")
+    print(f"identify ({wall_id:.3f} s, launches {launches_id}) == the fused "
+          f"slice's {len(ids)} hits; fit2D gaussmle (K2, {launches_k2['K2']} "
+          f"launches, {wall_k2:.3f} s) == the fused MLE slice bit for bit; "
+          f"fit2D gausslq (K3, {launches_k3['K3']} launches, {wall_k3:.3f} s, "
+          f"max_it 30) == K5 LM queue at max_it 30 bit for bit, == the LQ "
+          f"slice on the {conv.mean():.4%} of spots that converge within 30 "
+          "steps")
+    del fit_mle, fit_lq, locs_tif
+
+    # 11. astigmatic 3D ---------------------------------------------------
+    (astig, sites, z_true), astig_s = astig_job.result()
+    movie_pool.shutdown()
+    print(f"astigmatic movie {astig.shape}: {astig_s:.1f} s to generate "
+          "(alongside the build)")
+    from scipy.spatial import cKDTree
+
+    tree = cKDTree(sites[:, ::-1].astype(np.float64))
+    info3d = [{"Frames": len(astig), "Height": astig.shape[1],
+               "Width": astig.shape[2], "Pixelsize": camera["Pixelsize"]}]
+    paths3d = {}
+    for method, fit, per_chunk in (("gaussmle", "K5 mle queue", 2),
+                                   ("gausslq", "K5 lq queue", 1)):
+        (locs3d, info_out), wall3d, launches3d = counted(
+            lambda method=method: localize.localize_3D(
+                astig, movie_info=info3d, camera_info=dict(camera), box=BOX,
+                minimum_ng=MIN_NG, calibration_3d=CALIB_3D,
+                fitting_method=method, device="cuda"))
+        check_route(f"localize_3D {method}", launches3d, fit, per_chunk)
+        paths3d[method] = launches3d
+        locs2d = localize.localize(astig, dict(camera), params,
+                                   fitting_method=method, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zfit.zfit(locs2d, info3d, calibration=CALIB_3D,
+                  fitting_method=method, filter=0, device="cuda")
+        wall_z = time.perf_counter() - t0
+        # the card against the CPU on chunk 0's locs, filter off
+        rows = locs2d[locs2d["frame"] < CHUNK]
+        z_card, z_cpu = (zfit.zfit(rows, info3d, calibration=CALIB_3D,
+                                   fitting_method=method, filter=0,
+                                   device=d)[0] for d in ("cuda", "cpu"))
+        for name in z_card.dtype.names:
+            if not np.array_equal(z_card[name], z_cpu[name], equal_nan=True):
+                raise AssertionError(f"zfit {method}: {name} on the card "
+                                     "differs from the CPU")
+        kept = len(locs3d) / len(locs2d)
+        dist, k = tree.query(np.stack([locs3d["x"], locs3d["y"]], 1),
+                             distance_upper_bound=1.0)
+        near = np.isfinite(dist)
+        err = locs3d["z"][near] - z_true[k[near]]
+        rms, med = float(np.sqrt(np.mean(err**2))), float(
+            np.median(np.abs(err)))
+        # bounds from the CPU run at this density (PERF.md): kept MLE
+        # 0.911 / LQ 0.989, z RMS 102.7 / 118.2 nm, median 13.2 / 11.4
+        bound = Z_BOUNDS[method]
+        if not (kept >= bound[0] and rms < bound[1] and med < bound[2]
+                and np.isfinite(locs3d["z"]).all()):
+            raise AssertionError(
+                f"localize_3D {method}: kept {kept:.4f}, z RMS {rms:.1f} nm, "
+                f"median {med:.1f} nm against the bounds {bound}")
+        if info_out[-1]["Generated by"] != "Picasso v0.1.0 Fit Z":
+            raise AssertionError("localize_3D: no Fit Z block in the info")
+        # RCC undrift keeps z, d_zcalib and lpz of every loc
+        _, und = postprocess.undrift(locs3d, info3d, SEGMENTATION,
+                                     device="cuda")
+        if not (len(und) == len(locs3d) and all(
+                np.array_equal(und[c], locs3d[c], equal_nan=True)
+                for c in ("frame", "z", "d_zcalib", "lpz"))):
+            raise AssertionError("undrift of the 3D locs lost z")
+        print(f"localize_3D {method}: {len(locs3d)} locs of {len(locs2d)} "
+              f"({kept:.4f}) in {wall3d:.3f} s, launches {launches3d}; zfit "
+              f"of {len(locs2d)} locs on the card {wall_z:.3f} s (rows a "
+              f"block {zfit.Z_ROWS}); chunk 0's {len(rows)} locs: card == "
+              f"CPU bit for bit; z against the truth ({near.sum()} locs "
+              f"within 1 px of a site): RMS {rms:.1f} nm, median |d| "
+              f"{med:.1f} nm; undrift keeps z, d_zcalib, lpz")
+    tiff_dir.cleanup()
+    paths = {"mle": launches_mle, "mle-sigma": launches_sig,
+             "lq": launches_lq, "tiff": launches_tif,
+             "avg": avg_runs["RAM"][2], "avg-tiff": avg_runs["TIFF"][2],
+             "identify": launches_id, "fit2D-mle": launches_k2,
+             "fit2D-lq": launches_k3, "3d-mle": paths3d["gaussmle"],
+             "3d-lq": paths3d["gausslq"]}
+    print("launches by path:", json.dumps(paths))
+
     # the kernels line -----------------------------------------------------
-    def entry(key, name, source, replaces, launches, path, err, plain):
+    def entry(key, name, source, replaces, counter, err, plain,
+              method=None):
+        """One kernel's record; its launches are those of ``counter`` on
+        every path, or, for an MLE fit of one ``method``, on the paths
+        of that method (the counters are shared by both methods)."""
+        on = {p: v[counter] for p, v in paths.items()
+              if method is None or (p == "mle-sigma") == (method == "sigma")}
         b_ms, b_by = bounds[key]
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches, "path": path,
+                "replaces": replaces, "launches": sum(on.values()),
+                "path": "+".join(p for p, v in on.items() if v) or "off",
                 "max_abs_err": err, "ms": ms[key], "plain_ms": ms[plain],
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
@@ -970,64 +1231,55 @@ def main() -> int:
                        "picasso_torch/csrc/lq_fit.cu")
     win_src = "picasso_torch/csrc/winfit_mle.cu"
     queue_src = "picasso_torch/csrc/winfit_mle_queue.cu"
+    win_tpu = "picasso_tpu/ops/winfit_pallas.py:108"
     kernels = [
         entry("K5 queue", "K5 winfit_mle_queue sigmaxy (work queue + "
-              "CRLB/LL pass)", queue_src,
-              "picasso_tpu/ops/winfit_pallas.py:108",
-              launches_mle["K5 mle queue"], "mle",
-              stats["K5 queue"]["xy_max_all"], "plain K5"),
+              "CRLB/LL pass)", queue_src, win_tpu, "K5 mle queue",
+              stats["K5 queue"]["xy_max_all"], "plain K5", "sigmaxy"),
         entry("K5 queue sigma", "K5 winfit_mle_queue sigma (work queue + "
-              "CRLB/LL pass)", queue_src,
-              "picasso_tpu/ops/winfit_pallas.py:108",
-              launches_sig["K5 mle queue"], "off",
-              stats["K5 queue sigma"]["xy_max_all"], "plain K5 sigma"),
+              "CRLB/LL pass)", queue_src, win_tpu, "K5 mle queue",
+              stats["K5 queue sigma"]["xy_max_all"], "plain K5 sigma",
+              "sigma"),
         entry("K5", "K5 winfit_mle sigmaxy (phases 16/50/100)", win_src,
-              "picasso_tpu/ops/winfit_pallas.py:108",
-              launches_mle["K5 mle phases"], "off",
-              stats["K5"]["xy_max_all"], "plain K5"),
+              win_tpu, "K5 mle phases", stats["K5"]["xy_max_all"],
+              "plain K5", "sigmaxy"),
         entry("K5 sigma", "K5 winfit_mle sigma (phases 16/50/100)", win_src,
-              "picasso_tpu/ops/winfit_pallas.py:108",
-              launches_sig["K5 mle phases"], "mle-sigma",
-              stats["K5 sigma"]["xy_max_all"], "plain K5 sigma"),
+              win_tpu, "K5 mle phases", stats["K5 sigma"]["xy_max_all"],
+              "plain K5 sigma", "sigma"),
         entry("K5 lq queue", "K5 winfit_lq_queue (work queue, cooperative "
               "tail)", "picasso_torch/csrc/winfit_lq_queue.cu",
-              "picasso_tpu/ops/winfit_pallas.py:96",
-              launches_lq["K5 lq queue"], "lq",
+              "picasso_tpu/ops/winfit_pallas.py:96", "K5 lq queue",
               stats["K5 lq queue"]["xy_p100"], "plain K5 lq"),
         entry("K4", "K4 identify_tiles", "picasso_torch/csrc/identify.cu",
-              "picasso_tpu/ops/identify_pallas.py:58",
-              launches_mle["K4"] + launches_sig["K4"] + launches_lq["K4"],
-              "mle+mle-sigma+lq", k4_err, "plain K4"),
+              "picasso_tpu/ops/identify_pallas.py:58", "K4", k4_err,
+              "plain K4"),
         entry("K5 one pass", "K5 winfit_mle sigmaxy (single pass)", win_src,
-              "picasso_tpu/ops/winfit_pallas.py:108",
-              launches_mle["K5 mle one pass"], "off",
-              stats["K1"]["xy_max_all"], "plain K5"),
+              win_tpu, "K5 mle one pass", stats["K1"]["xy_max_all"],
+              "plain K5", "sigmaxy"),
         entry("K5 one pass sigma", "K5 winfit_mle sigma (single pass)",
-              win_src, "picasso_tpu/ops/winfit_pallas.py:108",
-              launches_sig["K5 mle one pass"], "off",
-              stats["K1 sigma"]["xy_max_all"], "plain K5 sigma"),
+              win_src, win_tpu, "K5 mle one pass",
+              stats["K1 sigma"]["xy_max_all"], "plain K5 sigma", "sigma"),
         entry("K2", "K2 mle_fit sigmaxy (phases 16/50/100)", mle_src,
-              "picasso_tpu/ops/mle_pallas.py:256", launches_mle["K2"],
-              "off (gather route)", stats["K2"]["xy_max_all"], "plain_fit"),
+              "picasso_tpu/ops/mle_pallas.py:256", "K2",
+              stats["K2"]["xy_max_all"], "plain_fit", "sigmaxy"),
         entry("K2 sigma", "K2 mle_fit sigma (phases 16/50/100)", mle_src,
-              "picasso_tpu/ops/mle_pallas.py:256", launches_sig["K2"],
-              "off (gather route)", stats["K2 sigma"]["xy_max_all"],
-              "plain_fit sigma"),
+              "picasso_tpu/ops/mle_pallas.py:256", "K2",
+              stats["K2 sigma"]["xy_max_all"], "plain_fit sigma", "sigma"),
         entry("K3", "K3 lq_fit (single pass)", lq_src,
-              "picasso_tpu/ops/lq_pallas.py:25", launches_lq["K3"],
-              "off (gather route)", stats["K3"]["xy_p100"], "plain_lq"),
+              "picasso_tpu/ops/lq_pallas.py:25", "K3",
+              stats["K3"]["xy_p100"], "plain_lq"),
         entry("K6", "K6 lq_fit (phases 16/50/100)", lq_src,
-              "picasso_tpu/ops/lq_pallas.py:93", launches_lq["K6"], "off",
+              "picasso_tpu/ops/lq_pallas.py:93", "K6",
               stats["K6"]["xy_p100"], "plain_lq"),
         entry("K1", "K1 mle_fit sigmaxy (single pass)", mle_src,
-              "picasso_tpu/ops/mle_pallas.py:36", launches_mle["K1"], "off",
-              stats["K1"]["xy_max_all"], "plain_fit"),
+              "picasso_tpu/ops/mle_pallas.py:36", "K1",
+              stats["K1"]["xy_max_all"], "plain_fit", "sigmaxy"),
         entry("K1 sigma", "K1 mle_fit sigma (single pass)", mle_src,
-              "picasso_tpu/ops/mle_pallas.py:36", launches_sig["K1"], "off",
-              stats["K1 sigma"]["xy_max_all"], "plain_fit sigma"),
+              "picasso_tpu/ops/mle_pallas.py:36", "K1",
+              stats["K1 sigma"]["xy_max_all"], "plain_fit sigma", "sigma"),
         entry("K7", f"K7 mle_fit sigmaxy (rounds of {ROUND_IT})", mle_src,
-              "picasso_tpu/ops/mle_pallas.py:511", launches_mle["K7"], "off",
-              stats["K7"]["xy_max_all"], "plain K7"),
+              "picasso_tpu/ops/mle_pallas.py:511", "K7",
+              stats["K7"]["xy_max_all"], "plain K7", "sigmaxy"),
     ]
     for k in kernels:  # the LM kernel's time on chunk 0 too
         if k["name"].startswith("K5 winfit_lq"):

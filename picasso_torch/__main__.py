@@ -2,15 +2,20 @@
 
 Counterpart of picasso_tpu/__main__.py for the verbs ported so far:
 
-    python -m picasso_torch localize movie.raw [-d 1000] [-a mle|lq|lq-gpu]
+    python -m picasso_torch localize movie.ome.tif [-d 1000]
+        [-a mle|lq|lq-gpu|avg|mle-3d|lq-3d|lq-gpu-3d -zc calib.yaml]
         [--device cuda|cpu]
+    python -m picasso_torch toraw "*.tif"
 
-``localize`` takes the JAX CLI's flags and defaults plus ``--device``
-(default ``cuda``; without a card it raises rather than run on the CPU).
-After saving ``<movie>_locs.hdf5`` it runs RCC drift correction with
-segments of ``-d`` frames (default 1000, 0 to skip), writing
-``<movie>_locs_drift.txt`` and ``<movie>_locs_undrift.hdf5``, as the JAX
-CLI does.
+``localize`` reads .raw, .tif/.tiff series, .ims, .stk and .nd2 movies
+and takes the JAX CLI's flags and defaults plus ``--device`` (default
+``cuda``; without a card it raises rather than run on the CPU). The
+``-3d`` methods fit z with the calibration YAML of ``-zc``. After saving
+``<movie>_locs.hdf5`` it runs RCC drift correction with segments of
+``-d`` frames (default 1000, 0 to skip), writing ``<movie>_locs_drift.txt``
+and ``<movie>_locs_undrift.hdf5``, as the JAX CLI does. ``toraw``
+converts TIFF movies matching a pattern to .raw + .yaml, one file per
+multi-file series.
 """
 
 from __future__ import annotations
@@ -20,23 +25,28 @@ import contextlib
 import glob
 import os
 
-# -a choices to localize's fitting_method (picasso_tpu/__main__.py:69-77);
-# avg and the -3d methods are not ported yet
-_METHOD_MAP = {"mle": "gaussmle", "lq": "gausslq", "lq-gpu": "gausslq-gpu"}
+# -a choices to localize's fitting_method (picasso_tpu/__main__.py:69-77)
+_METHOD_MAP = {"mle": "gaussmle", "lq": "gausslq", "lq-gpu": "gausslq-gpu",
+               "avg": "avg", "lq-3d": "gausslq", "lq-gpu-3d": "gausslq-gpu",
+               "mle-3d": "gaussmle"}
+
+
+def _toraw(args):
+    from picasso_torch import io
+
+    io.to_raw(args.files)
 
 
 def _localize(args, parser):
-    if args.fit_method not in _METHOD_MAP:
-        parser.error(
-            f"-a {args.fit_method} is not ported yet (ROADMAP queue 1 "
-            "items 4 and 8); use -a mle, lq or lq-gpu"
-        )
     if args.database:
         parser.error(
             "-db is not ported yet (ROADMAP queue 1 item 14: server)"
         )
     if args.files is None:
         parser.error("localize needs a movie file or pattern")
+    is_3d = args.fit_method.endswith("-3d")
+    if is_3d and not args.zc:
+        parser.error(f"-a {args.fit_method} needs a calibration: -zc FILE")
 
     from picasso_torch import io, lib, localize, postprocess
 
@@ -59,22 +69,19 @@ def _localize(args, parser):
     for path in paths:
         print(f"Localizing {path}")
         movie, info = io.load_movie(path)
-        locs, new_info = localize.localize(
-            movie,
-            camera_info,
-            {
-                "Min. Net Gradient": args.gradient,
-                "Box Size": args.box_side_length,
-            },
-            roi=roi,
-            frame_bounds=frame_bounds,
-            movie_info=info,
-            fitting_method=_METHOD_MAP[args.fit_method],
-            identification_progress_callback="console",
-            fit_progress_callback="console",
-            return_info=True,
-            device=device,
-        )
+        kw = dict(roi=roi, frame_bounds=frame_bounds, movie_info=info,
+                  fitting_method=_METHOD_MAP[args.fit_method],
+                  identification_progress_callback="console",
+                  fit_progress_callback="console", device=device)
+        if is_3d:
+            locs, new_info = localize.localize_3D(
+                movie, camera_info=camera_info, box=args.box_side_length,
+                minimum_ng=args.gradient, calibration_3d=args.zc, **kw)
+        else:
+            locs, new_info = localize.localize(
+                movie, camera_info, {"Min. Net Gradient": args.gradient,
+                                     "Box Size": args.box_side_length},
+                return_info=True, **kw)
         out = os.path.splitext(path)[0] + "_locs" + args.suffix + ".hdf5"
         io.save_locs(out, locs, new_info)
         print(f"Saved {len(locs)} locs to {out}")
@@ -131,6 +138,10 @@ def main(argv=None):
     )
     subparsers = parser.add_subparsers(dest="command")
     p = subparsers.add_parser(
+        "toraw", help="convert TIFF movies into raw format"
+    )
+    p.add_argument("files", help="path pattern of movie files")
+    p = subparsers.add_parser(
         "localize", help="identify and fit single molecule spots"
     )
     p.add_argument("files", nargs="?", help="movie file or pattern")
@@ -171,6 +182,9 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.command is None:
         parser.print_help()
+        return
+    if args.command == "toraw":
+        _toraw(args)
         return
     with _profile(args.profile):
         _localize(args, p)

@@ -2,8 +2,8 @@
 2010).
 
 Counterpart of picasso_tpu/gaussmle.py (gaussmle :21, locs_from_fits
-:66). Fits run through the K2 phase schedule of ops/mle_cuda on
-``device``. Locs tables are numpy structured arrays with the columns and
+:66, sigma_uncertainty :119). Fits run through the K2 phase schedule of
+ops/mle_cuda on ``device``. Locs tables are numpy structured arrays with the columns and
 dtypes of the JAX package's DataFrame.
 """
 
@@ -107,3 +107,14 @@ def locs_from_fits(
         cols.append(("n_id", np.uint32, identifications["n_id"]))
         key = "n_id"
     return lib.locs_table(cols, key)
+
+
+def sigma_uncertainty(sigma, sigma_orth, photons, bg) -> np.ndarray:
+    """Standard error of a fitted sigma of the MLE model (Rieger &
+    Stallinga, ChemPhysChem 2014; picasso/gaussmle.py:1040)."""
+    sa2 = sigma**2 + 1 / 12
+    tau = (2 * np.pi * sa2 * bg) / photons
+    delta_sigma_sq = (sigma**2 / (4 * photons)) * (
+        1 + 8 * tau + np.sqrt((8 * tau) / (1 + 2 * tau))
+    )
+    return np.sqrt(delta_sigma_sq)

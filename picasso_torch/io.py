@@ -1,21 +1,30 @@
-"""Movie and localization-table I/O of the port: raw movies with their
-YAML info chain, and the HDF5 ``"locs"`` table.
+"""Movie and localization-table I/O of the port: the lazy movie readers
+(raw, TIFF series, MetaMorph STK, Bitplane IMS, Nikon ND2), raw
+conversion, the YAML info chain and the HDF5 ``"locs"`` table.
 
 Counterpart of picasso_tpu/io.py (load_info :48, save_info :60,
-save_locs :81, load_locs :102, save_drift :282, load_raw :447,
-load_movie :1472). The files written are byte-compatible with
-picasso_tpu.io's. ``h5py`` and ``yaml`` are
-imported inside the functions that need them, so the localize path
-itself needs only numpy, torch and scipy.
+save_locs :81, load_locs :102, save_drift :282, AbstractPicassoMovie
+:397, load_raw :447, TiffMap :476, STKMovie :661, STKMultiMovie :689,
+TiffMultiMap :760, load_tif :846, IMSMovie :862, load_ims :992,
+load_ims_all :1007, the ND2 metadata helpers :1232-:1376, ND2Movie :1380,
+load_stk :1460, load_movie :1472, the raw conversion :1493-:1540,
+save_raw :1696). The files written are byte-compatible with
+picasso_tpu.io's, and the readers return the same frames and info.
+``h5py``, ``yaml`` and ``nd2`` are imported inside the functions that
+need them, so the localize path itself needs only numpy, torch and
+scipy.
 """
 
 from __future__ import annotations
 
+import glob
 import os
+import re
+import struct
 
 import numpy as np
 
-from picasso_torch import lib
+from picasso_torch import __version__, lib
 
 
 class NoMetadataFileError(FileNotFoundError):
@@ -43,6 +52,45 @@ def save_info(path: str, info: list[dict],
         yaml.dump_all(info, f, default_flow_style=default_flow_style)
 
 
+# --- movies -----------------------------------------------------------------
+
+
+class AbstractPicassoMovie:
+    """A lazy, frame-indexable movie (picasso/io.py:632). Subclasses give
+    ``__len__``, ``get_frame``, ``dtype``, ``shape``, ``info`` and
+    ``close``; indexing by an int, a slice or a list of frames is
+    shared."""
+
+    def __len__(self) -> int:
+        raise NotImplementedError
+
+    def get_frame(self, index: int) -> np.ndarray:
+        raise NotImplementedError
+
+    def _read_into(self, index: int, out: np.ndarray) -> None:
+        out[...] = self.get_frame(index)
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self.get_frame(i)
+
+    def __getitem__(self, it):
+        if isinstance(it, slice):
+            it = range(*it.indices(len(self)))
+        if isinstance(it, (range, tuple, list, np.ndarray)):
+            out = np.empty((len(it), *self.shape[1:]), self.dtype)
+            for k, i in enumerate(it):
+                self._read_into(int(i), out[k])
+            return out
+        it = int(it)
+        return self.get_frame(it + len(self) if it < 0 else it)
+
+    def tofile(self, file_handle, byte_order: str = "<"):
+        for frame in self:
+            frame.astype(np.dtype(self.dtype).newbyteorder(byte_order)).tofile(
+                file_handle)
+
+
 def load_raw(path: str):
     """A raw movie as a read-only memmap plus its info chain
     (picasso/io.py:50)."""
@@ -56,15 +104,689 @@ def load_raw(path: str):
     return movie, info
 
 
-def load_movie(path: str):
-    """Load a movie by extension. Only ``.raw`` is ported so far."""
+_TIFF_SAMPLE_FORMATS = {1: "u", 2: "i", 3: "f"}
+_TIFF_TYPE_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4,
+                    10: 8, 11: 4, 12: 8, 16: 8, 17: 8, 18: 8}
+_TIFF_TYPE_FMTS = {1: "B", 3: "H", 4: "I", 8: "h", 9: "i", 11: "f", 12: "d",
+                   16: "Q", 17: "q"}
+
+
+class TiffMap(AbstractPicassoMovie):
+    """Lazy TIFF reader with ``struct`` only: classic and BigTIFF, either
+    byte order, uncompressed grayscale frames in strips. A frame whose
+    strips lie back to back is read with one ``readinto`` into its
+    output; big-endian frames come back little-endian."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._file = open(path, "rb")
+        header = self._file.read(8)
+        self._bo = {b"II": "<", b"MM": ">"}.get(header[:2])
+        if self._bo is None:
+            self._file.close()
+            raise ValueError(f"{path} is not a TIFF file")
+        magic = struct.unpack(self._bo + "H", header[2:4])[0]
+        if magic == 42:
+            self._big = False
+            first_ifd = struct.unpack(self._bo + "I", header[4:8])[0]
+        elif magic == 43:
+            self._big = True
+            first_ifd = struct.unpack(self._bo + "Q", self._file.read(8))[0]
+        else:
+            self._file.close()
+            raise ValueError(f"{path}: unknown TIFF magic {magic}")
+        self._frame_offsets: list[list[tuple[int, int]]] = []
+        self._parse_ifds(first_ifd)
+        if not self._frame_offsets:
+            raise ValueError(f"{path}: no image frames found")
+        self.first_ifd_description = self._description
+
+    def _unpack(self, fmt: str, data: bytes):
+        return struct.unpack(self._bo + fmt, data)
+
+    def _read_ifd(self, offset: int) -> tuple[dict, dict, int]:
+        """(tags, element count per tag, next IFD offset)."""
+        f = self._file
+        f.seek(offset)
+        ofmt = "Q" if self._big else "I"
+        osize = 8 if self._big else 4
+        (n_entries,) = self._unpack(ofmt if self._big else "H",
+                                    f.read(8 if self._big else 2))
+        entry_size = 4 + 2 * osize
+        raw = f.read(entry_size * n_entries)
+        (next_ifd,) = self._unpack(ofmt, f.read(osize))
+        tags, counts = {}, {}
+        for i in range(n_entries):
+            entry = raw[i * entry_size:(i + 1) * entry_size]
+            tag, typ, count = self._unpack("HH" + ofmt, entry[:4 + osize])
+            counts[tag] = count
+            field = entry[4 + osize:]
+            size = _TIFF_TYPE_SIZES.get(typ, 1) * count
+            if size <= len(field):
+                data = field[:size]
+            else:
+                (at,) = self._unpack(ofmt, field[:osize])
+                pos = f.tell()
+                f.seek(at)
+                data = f.read(size)
+                f.seek(pos)
+            if typ == 2:
+                tags[tag] = data.rstrip(b"\0").decode("latin-1", "replace")
+            elif typ in _TIFF_TYPE_FMTS:
+                vals = self._unpack(_TIFF_TYPE_FMTS[typ] * count, data)
+                tags[tag] = vals if count > 1 else vals[0]
+            elif typ == 5:  # rational
+                vals = self._unpack("II" * count, data)
+                rat = tuple(vals[2 * k] / max(vals[2 * k + 1], 1)
+                            for k in range(count))
+                tags[tag] = rat if count > 1 else rat[0]
+        return tags, counts, next_ifd
+
+    def _parse_ifds(self, offset: int):
+        self._description = ""
+        shape = None
+        while offset:
+            tags, counts, offset = self._read_ifd(offset)
+            if not self._frame_offsets:
+                self._first_tag_counts = counts
+            width, height = tags.get(256), tags.get(257)
+            bits = tags.get(258, 16)
+            bits = bits[0] if isinstance(bits, tuple) else bits
+            fmt = tags.get(339, 1)
+            fmt = fmt[0] if isinstance(fmt, tuple) else fmt
+            dtype = np.dtype(
+                f"{self._bo}{_TIFF_SAMPLE_FORMATS.get(fmt, 'u')}{bits // 8}")
+            strip_offsets, strip_counts = tags.get(273), tags.get(279)
+            if strip_offsets is None:
+                continue
+            if not isinstance(strip_offsets, tuple):
+                strip_offsets = (strip_offsets,)
+            if strip_counts is None:
+                strip_counts = (width * height * dtype.itemsize,)
+            elif not isinstance(strip_counts, tuple):
+                strip_counts = (strip_counts,)
+            if tags.get(259, 1) != 1:
+                raise ValueError(f"{self.path}: compressed TIFF not supported")
+            if shape is None:
+                shape = (height, width)
+                self._dtype = dtype
+                self._description = tags.get(270, "")
+            self._frame_offsets.append(list(zip(strip_offsets, strip_counts)))
+        if shape is None:
+            raise ValueError(f"{self.path}: no frames")
+        self._frame_shape = shape
+
+    def __len__(self) -> int:
+        return len(self._frame_offsets)
+
+    @property
+    def dtype(self):
+        return np.dtype(self._dtype.str.lstrip("<>=|"))
+
+    @property
+    def shape(self):
+        return (len(self), *self._frame_shape)
+
+    def _read_into(self, index: int, out: np.ndarray) -> None:
+        """Frame ``index`` into ``out`` (C-contiguous, self.dtype)."""
+        strips = self._frame_offsets[index]
+        raw = out.view(np.uint8).reshape(-1)
+        f, pos = self._file, 0
+        for k, (offset, count) in enumerate(strips):
+            count = min(count, raw.size - pos)
+            if k == 0 or offset != strips[k - 1][0] + strips[k - 1][1]:
+                f.seek(offset)
+            if f.readinto(raw[pos:pos + count]) != count:
+                raise ValueError(f"{self.path}: frame {index} is truncated")
+            pos += count
+        if pos != raw.size:
+            raise ValueError(f"{self.path}: frame {index} is truncated")
+        if self._bo == ">":
+            out.byteswap(inplace=True)
+
+    def get_frame(self, index: int) -> np.ndarray:
+        out = np.empty(self._frame_shape, self.dtype)
+        self._read_into(index, out)
+        return out
+
+    def info(self) -> dict:
+        return {
+            "Byte Order": "<",
+            "Data Type": self.dtype.name,
+            "File": self.path,
+            "Frames": len(self),
+            "Height": self._frame_shape[0],
+            "Width": self._frame_shape[1],
+        }
+
+    def close(self):
+        self._file.close()
+
+
+_UIC2_TAG = 33629  # MetaMorph STK: its count is the number of planes
+
+
+class STKMovie(TiffMap):
+    """MetaMorph STK (picasso/io.py:1447): a TIFF with one IFD whose
+    planes follow the first plane's pixels back to back; the plane count
+    is the element count of the UIC2 tag."""
+
+    def __init__(self, path: str):
+        super().__init__(path)
+        n_planes = int(self._first_tag_counts.get(_UIC2_TAG,
+                                                  len(self._frame_offsets)))
+        if len(self._frame_offsets) == 1 and n_planes > 1:
+            first = self._frame_offsets[0][0][0]
+            nbytes = (self._frame_shape[0] * self._frame_shape[1]
+                      * self._dtype.itemsize)
+            self._frame_offsets = [[(first + i * nbytes, nbytes)]
+                                   for i in range(n_planes)]
+
+
+class _Series(AbstractPicassoMovie):
+    """Movies of several files read as one, in the order of ``maps``."""
+
+    def __init__(self, maps):
+        self.maps = maps
+        self._cum = np.cumsum([0] + [len(m) for m in maps])
+
+    def __len__(self):
+        return int(self._cum[-1])
+
+    @property
+    def dtype(self):
+        return self.maps[0].dtype
+
+    @property
+    def shape(self):
+        return (len(self), *self.maps[0].shape[1:])
+
+    def _locate(self, index: int):
+        i = int(np.searchsorted(self._cum, index, side="right")) - 1
+        return self.maps[i], index - int(self._cum[i])
+
+    def get_frame(self, index: int) -> np.ndarray:
+        m, k = self._locate(index)
+        return m.get_frame(k)
+
+    def _read_into(self, index: int, out: np.ndarray) -> None:
+        m, k = self._locate(index)
+        m._read_into(k, out)
+
+    def info(self) -> dict:
+        info = self.maps[0].info()
+        info["Frames"] = len(self)
+        return info
+
+    def close(self):
+        for m in self.maps:
+            m.close()
+
+
+def _numbered_siblings(folder: str, pattern: re.Pattern) -> list:
+    """(number, path) of the files in ``folder`` whose full path matches
+    ``pattern`` (group 1 the number), in numeric order: a lexicographic
+    order would put _10 before _2."""
+    pairs = []
+    for name in os.listdir(folder):
+        full = os.path.abspath(os.path.join(folder, name))
+        m = pattern.match(full)
+        if m:
+            pairs.append((int(m.group(1)), full))
+    return sorted(pairs)
+
+
+class STKMultiMovie(_Series):
+    """Numbered STK files as one movie (picasso/io.py:1630): a name with
+    a numeric suffix joins every sibling of equal or higher suffix, in
+    numeric order; a name without one is a single file."""
+
+    def __init__(self, path: str):
+        self.path = os.path.abspath(path)
+        base, ext = os.path.splitext(self.path)
+        m0 = re.match(r"^(.+)_(\d+)$", base)
+        paths = [self.path]
+        if m0:
+            pattern = re.compile(re.escape(m0.group(1)) + r"_(\d+)"
+                                 + re.escape(ext) + "$", re.IGNORECASE)
+            paths = [p for i, p in _numbered_siblings(
+                os.path.dirname(self.path), pattern)
+                if i >= int(m0.group(2))] or paths
+        super().__init__([STKMovie(p) for p in paths])
+
+
+class TiffMultiMap(_Series):
+    """Numbered TIFF files as one movie (picasso/io.py:1759), named as
+    their writers split them: MicroManager's base.ome.tif +
+    base_1.ome.tif + ...; NDTiffStack's base.tif + base_1.tif + ...;
+    other TIFFs base_N with one extension, where a suffixed name joins
+    only the later parts."""
+
+    def __init__(self, path: str):
+        self.path = os.path.abspath(path)
+        filename = os.path.basename(self.path)
+        start = None
+        if filename.lower().endswith(".ome.tif"):
+            pattern = re.compile(re.escape(self.path[:-len(".ome.tif")])
+                                 + r"_(\d+)\.ome\.tif$", re.IGNORECASE)
+        else:
+            stem, ext = os.path.splitext(self.path)
+            if "NDTiffStack" not in filename:
+                m0 = re.match(r"^(.+)_(\d+)$", stem)
+                if m0:
+                    stem, start = m0.group(1), int(m0.group(2))
+            pattern = re.compile(re.escape(stem) + r"_(\d+)"
+                                 + re.escape(ext) + "$", re.IGNORECASE)
+        pairs = [(i, p) for i, p in _numbered_siblings(
+            os.path.dirname(self.path), pattern)
+            if p != self.path and (start is None or i > start)]
+        super().__init__([TiffMap(p) for p in
+                          [self.path] + [p for _, p in pairs]])
+
+
+def load_tif(path: str):
+    """A (possibly multi-file) TIFF movie and its info chain
+    (picasso/io.py:305)."""
+    movie = TiffMultiMap(path)
+    return movie, [movie.info()]
+
+
+def load_stk(path: str):
+    """A MetaMorph STK movie, numbered siblings joined
+    (picasso/io.py:1447/1630)."""
+    movie = STKMultiMovie(path)
+    if len(movie.maps) == 1:
+        movie = movie.maps[0]
+    return movie, [movie.info()]
+
+
+def _ims_image_attr(file, name):
+    """A DataSetInfo/Image attribute stored as a byte array
+    (picasso/ext/bitplane.py:135-239)."""
+    raw = file["DataSetInfo"]["Image"].attrs[name]
+    return "".join(c.decode() if isinstance(c, bytes) else str(c)
+                   for c in raw)
+
+
+class IMSMovie(AbstractPicassoMovie):
+    """Bitplane Imaris .ims movie read with h5py, in both layouts the
+    reference reads (picasso/ext/bitplane.py:25/:60): one ``TimePoint``
+    group a frame with ``Data`` (1, Y, X), or every frame in one ``Data``
+    (Z, Y, X) under ``TimePoint 0``. Frames are cropped to the declared
+    (Y, X); the pixel size comes from the image extents
+    (bitplane.py:240-248)."""
+
+    _RL = "ResolutionLevel 0"
+
+    def __init__(self, path: str, channel: str | None = None):
+        import h5py
+
+        self.path = os.path.abspath(path)
+        self._f = h5py.File(path, "r")
+        try:
+            level = self._f["DataSet"][self._RL]
+            self._timepoints = sorted(
+                level.keys(), key=lambda k: int(k.split("TimePoint ")[1]))
+            self.channels = sorted(
+                level[self._timepoints[0]].keys(),
+                key=lambda k: int(k.split("Channel ")[1]))
+            self.set_channel(channel or self.channels[0])
+        except Exception as e:
+            self._f.close()
+            if isinstance(e, ValueError) and "channels" in str(e):
+                raise
+            raise ValueError(f"{path}: unrecognized IMS layout") from e
+
+    def set_channel(self, channel: str):
+        if channel not in self.channels:
+            raise ValueError(
+                f"{channel!r} not in available channels {self.channels}")
+        self.channel = channel
+        data = self._f["DataSet"][self._RL][self._timepoints[0]][channel][
+            "Data"]
+        self._dtype = data.dtype
+        try:
+            z = int(_ims_image_attr(self._f, "Z"))
+        except KeyError:
+            z = data.shape[0]
+        try:
+            self._x = int(_ims_image_attr(self._f, "X"))
+            self._y = int(_ims_image_attr(self._f, "Y"))
+        except KeyError:
+            self._y, self._x = data.shape[1], data.shape[2]
+        self._stacked = z > 1 and len(self._timepoints) == 1
+        self._n_frames = z if self._stacked else len(self._timepoints)
+        self.pixelsize = None
+        self.extents = {}
+        try:
+            for key in ("ExtMin0", "ExtMin1", "ExtMin2",
+                        "ExtMax0", "ExtMax1", "ExtMax2"):
+                self.extents[key] = float(_ims_image_attr(self._f, key))
+            e = self.extents
+            px_x = (e["ExtMax0"] - e["ExtMin0"]) / self._x * 1000
+            px_y = (e["ExtMax1"] - e["ExtMin1"]) / self._y * 1000
+            self.pixelsize = (px_x + px_y) / 2
+        except KeyError:
+            self.extents = {}
+
+    def __len__(self):
+        return self._n_frames
+
+    @property
+    def dtype(self):
+        return self._dtype
+
+    @property
+    def shape(self):
+        return (self._n_frames, self._y, self._x)
+
+    def get_frame(self, index):
+        level = self._f["DataSet"][self._RL]
+        if self._stacked:
+            data = level[self._timepoints[0]][self.channel]["Data"]
+            return np.asarray(data[index][:self._y, :self._x])
+        data = level[self._timepoints[index]][self.channel]["Data"]
+        return np.asarray(data[0][:self._y, :self._x])
+
+    def info(self) -> dict:
+        """The reference's load_ims info block (picasso/io.py:137-157),
+        Height/Width from the frame's rows/columns."""
+        info = {
+            "Byte Order": "<",
+            "Data Type": str(np.dtype(self._dtype)),
+            "File": self.path,
+            "Frames": self._n_frames,
+            "Height": self._y,
+            "Width": self._x,
+            "Channel": self.channel,
+        }
+        if self.pixelsize is not None:
+            info["Pixelsize"] = self.pixelsize
+        for key, value in self.extents.items():
+            info["Global" + key] = value
+        info["Generated by"] = "IMS Metadata"
+        return info
+
+    def close(self):
+        self._f.close()
+
+
+def load_ims(path: str, prompt_info=None):
+    """A Bitplane Imaris .ims movie (picasso/io.py:99); on several
+    channels ``prompt_info(channels)`` picks one, else ``Channel 0``."""
+    movie = IMSMovie(path)
+    if len(movie.channels) > 1:
+        channel = ("Channel 0" if prompt_info is None
+                   else prompt_info(movie.channels))
+        print(f"Setting channel to {channel}")
+        movie.set_channel(channel)
+    return movie, [movie.info()]
+
+
+def load_ims_all(path: str):
+    """Every channel of an .ims movie (picasso/io.py:162): one movie and
+    one info chain a channel, extents under the channel's ``Ext*``
+    keys."""
+    first = IMSMovie(path)
+    movies, infos = [], []
+    for channel in first.channels:
+        movie = (first if channel == first.channel
+                 else IMSMovie(path, channel=channel))
+        info = movie.info()
+        for key in list(info):
+            if key.startswith("GlobalExt"):
+                info[key[len("Global"):]] = info.pop(key)
+        movies.append(movie)
+        infos.append([info])
+    return movies, infos
+
+
+def _set_nested(d: dict, keys: list, val) -> None:
+    """Set a value deep in a nested dict, making levels as needed
+    (picasso/io.py:966)."""
+    for key in keys[:-1]:
+        if not isinstance(d.get(key), dict):
+            d[key] = {}
+        d = d[key]
+    d[keys[-1]] = val
+
+
+def nikontext_to_dict(text: str) -> dict:
+    """Nikon colon/newline metadata text as a nested dict
+    (picasso/io.py:888): a colon-free line opens a level, 'k: v' sets a
+    leaf there, 'k: k2: v' opens level k and sets k2, a longer chain
+    opens level k and keeps the raw line under k2."""
+    out: dict = {}
+    curr_keys: list = []
+    for item in text.split("\r\n"):
+        parts = [p.strip() for p in item.split(":") if p.strip()]
+        if len(parts) == 1:
+            curr_keys.append(parts[0])
+            _set_nested(out, curr_keys, {})
+        elif len(parts) == 2:
+            _set_nested(out, curr_keys + [parts[0]], parts[1])
+        elif len(parts) >= 3:
+            curr_keys.append(parts[0])
+            _set_nested(out, curr_keys, {})
+            _set_nested(out, curr_keys + [parts[1]],
+                        parts[2] if len(parts) == 3 else item)
+    return out
+
+
+def nd2_meta_from_text_info(path: str, sizes: dict, dtype_name: str,
+                            text_info: dict) -> dict:
+    """The movie info of an ND2 file from its ``text_info``
+    (picasso/io.py:754-841): the Nikon description text parsed, and the
+    camera settings under the 'Picasso Metadata' and 'Micro-Manager
+    Metadata' keys that the camera parameters read."""
+    mm_info: dict = {}
+    for key in ("capturing", "description", "optics"):
+        if key in text_info:
+            try:
+                mm_info[key] = nikontext_to_dict(text_info[key])
+            except Exception:
+                pass
+    if "date" in text_info:
+        mm_info["AcquisitionDate"] = text_info["date"]
+    meta = mm_info.get("description", {}).get("Metadata", {})
+    cam = meta.get("Camera Settings", {})
+    camera_name = str(meta.get("Camera Name", "None"))
+    readout_rate = str(cam.get("Readout Rate", "None"))
+    readout_mode = str(cam.get("Readout Mode", "None"))
+    conversion_gain = str(cam.get("Conversion Gain", "None"))
+    filter_ = str(cam.get("Microscope Settings", {}).get(
+        "Nikon Ti2, FilterChanger(Turret-Lo)", "None"))
+    return {
+        "File": path,
+        "Height": sizes["Y"],
+        "Width": sizes["X"],
+        "Data Type": dtype_name,
+        "Frames": sizes["T"],
+        "Acquisition Comments": "",
+        "Camera": camera_name,
+        "Micro-Manager Metadata": {
+            camera_name + "-PixelReadoutRate": readout_rate,
+            camera_name + "-Sensitivity/DynamicRange": (
+                readout_mode + " " + conversion_gain),
+            "Filter": filter_,
+        },
+        "Picasso Metadata": {
+            "Camera": camera_name,
+            "PixelReadoutRate": readout_rate,
+            "ReadoutMode": readout_mode,
+            "ConversionGain": conversion_gain,
+            "Filter": filter_,
+        },
+        "nd2 Metadata": mm_info,
+    }
+
+
+def nd2_camera_parameters(meta: dict, config: dict) -> dict:
+    """Gain/QE/wavelength/sensitivity settings of an ND2 movie from the
+    camera config (picasso/io.py:1028): the config needs 'Cameras' and
+    the metadata 'Camera', one listed in the other; without 'Picasso
+    Metadata' unit gain and QE; 'Sensitivity Categories' read from the
+    Picasso Metadata; 'Quantum Efficiency' + 'Filter Wavelengths' map
+    the active filter to its wavelength and QE."""
+    if "Cameras" not in config or "Camera" not in meta:
+        raise KeyError("'camera' key not found in metadata or config.")
+    cameras = config["Cameras"]
+    camera = meta["Camera"]
+    if camera not in cameras:
+        raise KeyError("camera from metadata not found in config.")
+    parameters: dict = {"cam_index": sorted(cameras).index(camera),
+                        "camera": camera}
+    if "Picasso Metadata" not in meta:
+        return {"gain": [1], "qe": [1], "wavelength": [0], "cam_index": 0}
+    pm_info = meta["Picasso Metadata"]
+    cam_config = cameras[camera]
+    if "Gain Property Name" in cam_config:
+        raise NotImplementedError(
+            "Extracting Gain from nd2 files is not implemented yet.")
+    parameters["gain"] = [1]
+    parameters["Sensitivity"] = {
+        c: pm_info[c] for c in cam_config.get("Sensitivity Categories", [])}
+    if "Quantum Efficiency" in cam_config:
+        channel = pm_info.get("Filter")
+        wavelengths = cam_config.get("Filter Wavelengths", {})
+        if channel in wavelengths:
+            wavelength = wavelengths[channel]
+            parameters["wavelength"] = str(wavelength)
+            parameters["qe"] = cam_config["Quantum Efficiency"][wavelength]
+    parameters.setdefault("qe", [1])
+    parameters.setdefault("wavelength", [0])
+    return parameters
+
+
+class ND2Movie(AbstractPicassoMovie):
+    """Nikon .nd2 movie through the optional ``nd2`` package
+    (picasso/io.py:713), of exactly the dimensions (T, Y, X). Raises
+    ImportError when ``nd2`` is not installed."""
+
+    def __init__(self, path: str):
+        try:
+            import nd2
+        except ImportError as e:
+            raise ImportError(
+                "ND2 support requires the optional 'nd2' package, which is "
+                "not installed in this environment.") from e
+        self.path = os.path.abspath(path)
+        self._file = nd2.ND2File(path)
+        self._sizes = dict(self._file.sizes)
+        if set(self._sizes) != {"T", "Y", "X"}:
+            self._file.close()
+            raise KeyError(f"File {self.path} has dimensions "
+                           f"{list(self._sizes)} but should have exactly "
+                           "['T', 'Y', 'X'].")
+        self._meta = None
+
+    def __len__(self):
+        return self._sizes["T"]
+
+    @property
+    def dtype(self):
+        return self._file.dtype
+
+    @property
+    def shape(self):
+        return (self._sizes["T"], self._sizes["Y"], self._sizes["X"])
+
+    def get_frame(self, index):
+        return np.asarray(self._file.read_frame(int(index)))
+
+    def info(self) -> dict:
+        return self.meta
+
+    @property
+    def meta(self) -> dict:
+        if self._meta is None:
+            try:
+                text_info = dict(self._file.text_info)
+            except Exception:
+                text_info = {}
+            self._meta = nd2_meta_from_text_info(
+                self.path, self._sizes, np.dtype(self.dtype).name, text_info)
+        return self._meta
+
+    def camera_parameters(self, config: dict) -> dict:
+        return nd2_camera_parameters(self.meta, config)
+
+    def close(self):
+        self._file.close()
+
+
+def load_nd2(path: str):
+    """A Nikon .nd2 movie (picasso/io.py:967); needs ``nd2``."""
+    movie = ND2Movie(path)
+    return movie, [movie.info()]
+
+
+def load_movie(path: str, prompt_info=None):
+    """A movie and its info chain, by extension (picasso/io.py:336)."""
     ext = os.path.splitext(path)[1].lower()
-    if ext == ".raw":
-        return load_raw(path)
-    raise NotImplementedError(
-        f"{ext} movies are not ported yet (ROADMAP queue 1 item 14: "
-        "io); convert to .raw with `python -m picasso_tpu toraw`"
-    )
+    loaders = {".raw": load_raw, ".tif": load_tif, ".tiff": load_tif,
+               ".ims": lambda p: load_ims(p, prompt_info=prompt_info),
+               ".nd2": load_nd2, ".stk": load_stk}
+    if ext not in loaders:
+        raise ValueError(f"Unsupported movie format: {ext}")
+    return loaders[ext](path)
+
+
+# --- raw conversion ---------------------------------------------------------
+
+
+def save_raw(path: str, movie: np.ndarray, info: list[dict]) -> None:
+    """A movie as flat raw binary plus its YAML sidecar."""
+    np.ascontiguousarray(movie).tofile(path)
+    save_info(os.path.splitext(path)[0] + ".yaml", info)
+
+
+def get_movie_groups(paths: list[str]) -> dict[str, list[str]]:
+    """TIFF paths grouped into their multi-file series, keyed by the
+    name without the numeric suffix."""
+    groups: dict[str, list[str]] = {}
+    for path in sorted(paths):
+        base = re.sub(r"_(\d+)(?=\.[^.]+$)", "", path)
+        groups.setdefault(base, []).append(path)
+    return groups
+
+
+def to_raw_combined(basename: str, paths: list[str]) -> None:
+    """The TIFF files ``paths`` concatenated into one ``.ome.raw`` +
+    YAML named after ``basename``; each file is read alone, since a
+    TiffMultiMap would join the whole series again for every member."""
+    raw_path = os.path.splitext(basename)[0] + ".ome.raw"
+    info, n_frames = None, 0
+    with open(raw_path, "wb") as fh:
+        for path in paths:
+            movie = TiffMap(path)
+            try:
+                movie.tofile(fh, "<")
+                minfo = movie.info()
+            finally:
+                movie.close()
+            n_frames += minfo["Frames"]
+            info = info or minfo
+    info["Frames"] = n_frames
+    info["Generated by"] = f"Picasso v{__version__} ToRaw"
+    info["Byte Order"] = "<"
+    info["Raw File"] = raw_path
+    save_info(os.path.splitext(raw_path)[0] + ".yaml", [info])
+
+
+def to_raw(path: str, verbose: bool = True) -> None:
+    """Convert the TIFF files matching a pattern to raw, one file per
+    series (picasso/io.py:2043)."""
+    groups = get_movie_groups(glob.glob(path))
+    for i, (basename, group) in enumerate(groups.items()):
+        if verbose:
+            print(f"Converting movie {i + 1}/{len(groups)}...", end="\r")
+        to_raw_combined(basename, group)
+    if verbose and groups:
+        print()
+
+
+# --- localization tables ----------------------------------------------------
 
 
 def save_locs(path: str, locs: np.ndarray, info: list[dict]) -> None:

@@ -29,16 +29,22 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def get_from_metadata(info: list[dict] | dict, key: Any, default=None):
+def get_from_metadata(info: list[dict] | dict, key: Any, default=None, *,
+                      raise_error: bool = False):
     """``key`` from a metadata dict or an info chain (list of dicts,
     searched newest to oldest, skipping falsy values like the
-    reference, picasso/lib.py:878)."""
+    reference, picasso/lib.py:878); with ``raise_error`` a key that is
+    not found raises KeyError."""
     if isinstance(info, dict):
+        if raise_error and key not in info:
+            raise KeyError(f"Key '{key}' not found in metadata.")
         return info.get(key, default)
     if isinstance(info, list):
         for block in info[::-1]:
             if val := block.get(key):
                 return val
+        if raise_error:
+            raise KeyError(f"Key '{key}' not found in metadata.")
         return default
     raise ValueError("info must be a dict or a list of dicts.")
 

@@ -1,29 +1,261 @@
-"""Identify + fit spots in 2D: the ``localize`` entry point of the port.
+"""Identify + fit spots: the ``identify``, ``fit2D``, ``localize`` and
+``localize_3D`` entry points of the port.
 
-Counterpart of picasso_tpu/localize.py (localize :516, fused branch;
-_id_frame_chunk :60). The chain per frame chunk (ops/fused.py) runs on
-``device``: on a CUDA device through the hand-written kernels, on the
-CPU through their plain PyTorch versions. The fitters: ``gausslq`` and
-``gausslq-gpu`` (the LM fit, the default) and ``gaussmle`` (methods
-``sigmaxy`` and ``sigma``).
+Counterpart of picasso_tpu/localize.py (_id_frame_chunk :60, identify
+:134, get_spots :290, get_spots_raw :326, fit2D :346, localize :516,
+localize_3D :668). ``localize`` with a Gaussian fitter runs the fused
+chain per frame chunk (ops/fused.py) on ``device``: on a CUDA device
+through the hand-written kernels, on the CPU through their plain PyTorch
+versions. ``avg`` identifies (K4), cuts the ROIs and sums them
+(avgroi.py); a lazy movie does so in one pass (stream.identify_and_cut).
+The fitters: ``gausslq`` and ``gausslq-gpu`` (the LM fit, the default),
+``gaussmle`` (methods ``sigmaxy`` and ``sigma``) and ``avg``.
+
+Identifications are numpy structured arrays (frame, x, y, net_gradient;
+ops/fused._IDS_DTYPE), in the column order of the JAX package's
+DataFrame.
+
+Photon conversion follows picasso_tpu per route: the fused chain and the
+fitters' raw-ROI route convert as (raw - baseline) * f32(sensitivity /
+gain); ``get_spots`` of a u16 array as (raw - baseline) * (f32
+sensitivity / f32 gain), picasso_tpu's native cut; every other route
+(lazy movies, other dtypes, pre-cut ROIs for ``avg``) as ((raw -
+baseline) * sensitivity) / gain, rounded after each step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import warnings
-from typing import Literal
+from typing import Callable, Literal
 
 import numpy as np
 
-from picasso_torch import __version__, gausslq, gaussmle
+from picasso_torch import __version__, avgroi, gausslq, gaussmle, lib
 
 # f32 bytes per identification batch; frames per chunk adapt to the
 # frame size (a 256x256 movie takes 244-frame chunks, evened to 256)
 _ID_CHUNK_BYTES = 64e6
 
+_GAUSS_METHODS = ("gausslq", "gausslq-gpu", "gaussmle")
+
 
 def _id_frame_chunk(height: int, width: int) -> int:
     return int(np.clip(_ID_CHUNK_BYTES / (height * width * 4), 16, 1024))
+
+
+def _identify_info(minimum_ng, box, roi, frame_bounds) -> dict:
+    return {
+        "Generated by": f"Picasso: v{__version__} Identify",
+        "Min. Net Gradient": minimum_ng,
+        "Box Size": box,
+        "ROI": roi,
+        "Frame Bounds": frame_bounds,
+    }
+
+
+def _is_array(movie) -> bool:
+    return isinstance(movie, np.ndarray) or hasattr(movie, "__array__")
+
+
+def _scalar_camera(camera_info: dict) -> bool:
+    return all(np.isscalar(camera_info.get(k, 0))
+               for k in ("Baseline", "Sensitivity", "Gain"))
+
+
+def _check_camera(camera_info: dict) -> None:
+    if not _scalar_camera(camera_info):
+        raise NotImplementedError(
+            "per-pixel camera calibration is not ported yet (ROADMAP "
+            "queue 1 item 6: localize/fit2D)"
+        )
+    if "Pixelsize" not in camera_info:
+        warnings.warn(
+            "Camera info in fit2D does not contain 'Pixelsize'; "
+            "assuming 130."
+        )
+        camera_info["Pixelsize"] = 130
+
+
+def identify(
+    movie,
+    minimum_ng: float,
+    box: int,
+    *,
+    roi: tuple[tuple[int, int], tuple[int, int]] | None = None,
+    frame_bounds: tuple[int, int] | None = None,
+    threaded: bool = True,
+    progress_callback: Callable[[int], None] | Literal["console"] | None = None,
+    abort_callback: Callable[[], bool] | None = None,
+    return_info: bool = False,
+    device="cuda",
+):
+    """Identify spots in a (possibly lazy) movie on ``device``
+    (picasso/localize.py:639): chunks of frames through K4 and the
+    compaction, the next chunk decoding in the background. Returns the
+    frame-sorted identifications (with the identify info block when
+    ``return_info``), or None if ``abort_callback()`` turns true. The
+    upper frame bound is inclusive; ``threaded`` is accepted for the
+    reference's signature."""
+    from picasso_torch.ops.fused import make_ids
+    from picasso_torch.ops.identify import compact
+    from picasso_torch.ops.identify_cuda import identify_tiles
+    from picasso_torch.stream import device_chunks
+
+    device = lib.resolve_device(device)
+    hits = []
+    with contextlib.closing(device_chunks(
+            movie, device, roi=roi, frame_bounds=frame_bounds,
+            progress_callback=progress_callback,
+            description="Identifying spots")) as chunks:
+        for offset, chunk in chunks:
+            if abort_callback is not None and abort_callback():
+                return None
+            hits.append((offset, *(a.cpu().numpy() for a in compact(
+                *identify_tiles(chunk, minimum_ng, box), box))))
+    ids = make_ids(hits, roi)
+    if return_info:
+        return ids, _identify_info(minimum_ng, box, roi, frame_bounds)
+    return ids
+
+
+def _cut_on_device(movie, identifications, box: int, device) -> np.ndarray:
+    """Raw (N, box, box) ROIs of an in-RAM movie, cut on ``device``
+    (winfit_cuda.cut_rois_t) from chunks of frames uploaded once each,
+    in the identifications' row order; u16 for a u16 movie, f32
+    otherwise (ops/identify.upload_frames)."""
+    import torch
+
+    from picasso_torch.ops.identify import upload_frames
+    from picasso_torch.ops.winfit_cuda import cut_rois_t
+
+    movie = np.asarray(movie)
+    frame = np.asarray(identifications["frame"], np.int64)
+    n = len(frame)
+    dtype = np.uint16 if movie.dtype == np.uint16 else np.float32
+    out = np.empty((n, box, box), dtype)
+    if not n:
+        return out
+    order = np.argsort(frame, kind="stable")
+    step = _id_frame_chunk(*movie.shape[1:])
+    groups = np.searchsorted(frame[order] // step,
+                             np.unique(frame[order] // step))
+    for lo, hi in zip(groups, [*groups[1:], n]):
+        rows = order[lo:hi]
+        first, last = frame[rows[0]], frame[rows[-1]]
+        chunk = upload_frames(movie[first:last + 1], device)
+        hit = [frame[rows] - first] + [np.asarray(identifications[c])[rows]
+                                       for c in ("y", "x")]
+        f, y, x = (torch.from_numpy(a.astype(np.int64)).to(device)
+                   for a in hit)
+        out[rows] = cut_rois_t(chunk, f, y, x, box).permute(
+            2, 0, 1).cpu().numpy()
+    return out
+
+
+def get_spots(movie, identifications: np.ndarray, box: int,
+              camera_info: dict, device="cuda") -> np.ndarray:
+    """(N, box, box) ROIs in photons (picasso/localize.py:1115): from an
+    in-RAM movie cut on ``device``, from a lazy one on the host. A
+    C-contiguous u16 array converts with one factor (picasso_tpu's
+    native cut), anything else in three roundings
+    (ops/identify.to_photons)."""
+    from picasso_torch.ops.identify import to_photons, to_photons_one_factor
+
+    raw = get_spots_raw(movie, identifications, box, device=device)
+    if (_is_array(movie) and np.asarray(movie).dtype == np.uint16
+            and np.asarray(movie).flags.c_contiguous):
+        return to_photons_one_factor(raw, camera_info)
+    return to_photons(raw, camera_info)
+
+
+def get_spots_raw(movie, identifications: np.ndarray, box: int,
+                  device="cuda") -> np.ndarray:
+    """(N, box, box) raw ROIs without photon conversion
+    (picasso_tpu/localize.py:326): from an in-RAM movie cut on
+    ``device`` (u16 or f32), from a lazy one on the host in its dtype
+    (ops/identify.cut_spots_numpy)."""
+    from picasso_torch.ops.identify import cut_spots_numpy
+
+    if _is_array(movie):
+        return _cut_on_device(movie, identifications, box,
+                              lib.resolve_device(device))
+    return cut_spots_numpy(
+        movie, *(np.asarray(identifications[c], np.int64)
+                 for c in ("frame", "x", "y")), box)
+
+
+def fit2D(
+    movie,
+    movie_info: list[dict],
+    camera_info: dict,
+    identifications: np.ndarray,
+    box: int,
+    fitting_method: Literal[
+        "gausslq", "gausslq-gpu", "gaussmle", "avg"
+    ] = "gausslq",
+    eps: float = 0.001,
+    max_it: int = 100,
+    mle_method: Literal["sigma", "sigmaxy"] = "sigmaxy",
+    multiprocess: bool = True,
+    progress_callback: Callable[[int], None] | Literal["console"] | None = None,
+    abort_callback: Callable[[], bool] | None = None,
+    spots: np.ndarray | None = None,
+    device="cuda",
+):
+    """Fit the identified spots in 2D on ``device``
+    (picasso/localize.py:1344): MLE through K2 (gaussmle.gaussmle), LM
+    through K3 (gausslq.fit_spots, max_it 30 as in picasso_tpu), avg by
+    a device sum (avgroi.fit_spots). ``spots`` are pre-cut raw ROIs (from
+    stream.identify_and_cut), so the movie is not read again. Returns
+    (locs, fit info block | camera_info), or (None, {}) if aborted;
+    ``multiprocess`` is accepted for the reference's signature."""
+    from picasso_torch.ops.identify import to_photons
+
+    assert isinstance(movie_info, list), "movie_info must be a list"
+    assert isinstance(camera_info, dict), "camera_info must be a dict"
+    assert isinstance(box, int) and box > 0, "box must be a positive integer"
+    assert fitting_method in (*_GAUSS_METHODS, "avg")
+    assert eps > 0 and max_it > 0
+    assert mle_method in ("sigma", "sigmaxy")
+    device = lib.resolve_device(device)
+    _check_camera(camera_info)
+    gauss = fitting_method in _GAUSS_METHODS
+    conversion = (float(camera_info["Baseline"]),
+                  float(camera_info["Sensitivity"])
+                  / float(camera_info["Gain"]))
+    if spots is not None:
+        if not (gauss and spots.dtype == np.uint16):
+            spots, conversion = to_photons(spots, camera_info), None
+    elif gauss and (movie if isinstance(movie, np.ndarray)
+                    else np.asarray(movie[0])).dtype == np.uint16:
+        spots = get_spots_raw(movie, identifications, box, device=device)
+    else:
+        spots = get_spots(movie, identifications, box, camera_info,
+                          device=device)
+        conversion = None
+    if abort_callback is not None and abort_callback():
+        return None, {}
+    em = camera_info["Gain"] > 1
+    if fitting_method in ("gausslq", "gausslq-gpu"):
+        theta = gausslq.fit_spots(spots, progress_callback,
+                                  photon_conversion=conversion, device=device)
+        locs = gausslq.locs_from_fits(identifications, theta, box, em)
+    elif fitting_method == "gaussmle":
+        locs = gaussmle.locs_from_fits(identifications, *gaussmle.gaussmle(
+            spots, eps, max_it, mle_method, progress_callback,
+            photon_conversion=conversion, device=device), box)
+    else:
+        theta = avgroi.fit_spots(spots, progress_callback, device=device)
+        locs = avgroi.locs_from_fits(identifications, theta, box, em)
+    fit_info = {
+        "Generated by": f"Picasso: v{__version__} Fit 2D",
+        "Fit method": fitting_method,
+    }
+    if fitting_method == "gaussmle":
+        fit_info["Convergence criterion"] = eps
+        fit_info["Max iterations"] = max_it
+    return locs, fit_info | camera_info
 
 
 def localize(
@@ -40,6 +272,7 @@ def localize(
     eps: float = 0.001,
     max_it: int = 100,
     mle_method: Literal["sigma", "sigmaxy"] = "sigmaxy",
+    threaded: bool = True,
     identification_progress_callback=None,
     fit_progress_callback=None,
     return_info: bool = False,
@@ -48,69 +281,110 @@ def localize(
     """Identify and fit spots in 2D on ``device`` (picasso/localize.py
     :1682). ``parameters`` holds "Min. Net Gradient" and "Box Size".
     Returns the locs structured array, with the info chain when
-    ``return_info``. ``fitting_method="avg"`` is not ported yet."""
+    ``return_info``. The Gaussian fitters run the fused chain;
+    ``avg`` runs ``identify`` + ``fit2D``, or one pass of
+    stream.identify_and_cut + ``fit2D`` on a lazy movie."""
     from picasso_torch.ops import fused as _fused
 
-    if fitting_method == "avg":
-        raise NotImplementedError(
-            "fitting_method='avg' is not ported yet (ROADMAP queue 1 item "
-            "4: avgroi.py); use 'gausslq' or 'gaussmle'"
-        )
     if movie_info is None:
         movie_info = []
-    if not all(
-        np.isscalar(camera_info.get(k, 0))
-        for k in ("Baseline", "Sensitivity", "Gain")
-    ):
-        raise NotImplementedError(
-            "per-pixel camera calibration is not ported yet (ROADMAP "
-            "queue 1 item 6: localize/fit2D)"
-        )
-    if "Pixelsize" not in camera_info:
-        warnings.warn(
-            "Camera info in fit2D does not contain 'Pixelsize'; "
-            "assuming 130."
-        )
-        camera_info["Pixelsize"] = 130
-    identifications, fits = _fused.localize_fused(
-        movie,
-        parameters["Min. Net Gradient"],
-        parameters["Box Size"],
-        camera_info,
-        fitting_method=fitting_method,
-        eps=eps,
-        max_it=max_it,
-        mle_method=mle_method,
-        roi=roi,
-        frame_bounds=frame_bounds,
-        progress_callback=identification_progress_callback,
-        device=device,
-    )
-    theta, crlb, ll, iters = fits
-    box = parameters["Box Size"]
-    if fitting_method == "gaussmle":
-        locs = gaussmle.locs_from_fits(identifications, theta, crlb, ll,
-                                       iters, box)
+    _check_camera(camera_info)
+    minimum_ng, box = parameters["Min. Net Gradient"], parameters["Box Size"]
+    if fitting_method == "avg":
+        device = lib.resolve_device(device)
+        spots = None
+        if _is_array(movie):
+            identifications = identify(
+                movie, minimum_ng, box, roi=roi, frame_bounds=frame_bounds,
+                progress_callback=identification_progress_callback,
+                device=device)
+        else:
+            from picasso_torch import stream
+
+            identifications, spots = stream.identify_and_cut(
+                movie, minimum_ng, box, roi=roi, frame_bounds=frame_bounds,
+                progress_callback=identification_progress_callback,
+                device=device)
+        locs, fit_info = fit2D(
+            movie, movie_info, camera_info, identifications, box,
+            fitting_method="avg", progress_callback=fit_progress_callback,
+            spots=spots, device=device)
     else:
-        locs = gausslq.locs_from_fits(identifications, theta, box,
-                                      camera_info["Gain"] > 1)
-    if callable(fit_progress_callback):
-        fit_progress_callback(len(identifications))
-    identify_info = {
-        "Generated by": f"Picasso: v{__version__} Identify",
-        "Min. Net Gradient": parameters["Min. Net Gradient"],
-        "Box Size": box,
-        "ROI": roi,
-        "Frame Bounds": frame_bounds,
-    }
-    fit_info = {
-        "Generated by": f"Picasso: v{__version__} Fit 2D",
-        "Fit method": fitting_method,
-    }
-    if fitting_method == "gaussmle":
-        fit_info["Convergence criterion"] = eps
-        fit_info["Max iterations"] = max_it
-    info = movie_info + [identify_info] + [fit_info | camera_info]
+        identifications, fits = _fused.localize_fused(
+            movie, minimum_ng, box, camera_info,
+            fitting_method=fitting_method, eps=eps, max_it=max_it,
+            mle_method=mle_method, roi=roi, frame_bounds=frame_bounds,
+            progress_callback=identification_progress_callback,
+            device=device,
+        )
+        theta, crlb, ll, iters = fits
+        if fitting_method == "gaussmle":
+            locs = gaussmle.locs_from_fits(identifications, theta, crlb, ll,
+                                           iters, box)
+        else:
+            locs = gausslq.locs_from_fits(identifications, theta, box,
+                                          camera_info["Gain"] > 1)
+        if callable(fit_progress_callback):
+            fit_progress_callback(len(identifications))
+        fit_info = {
+            "Generated by": f"Picasso: v{__version__} Fit 2D",
+            "Fit method": fitting_method,
+        }
+        if fitting_method == "gaussmle":
+            fit_info["Convergence criterion"] = eps
+            fit_info["Max iterations"] = max_it
+        fit_info = fit_info | camera_info
+    info = movie_info + [_identify_info(minimum_ng, box, roi, frame_bounds),
+                         fit_info]
     if return_info:
         return locs, info
     return locs
+
+
+def localize_3D(
+    movie,
+    *,
+    movie_info: list[dict],
+    camera_info: dict,
+    box: int,
+    minimum_ng: float,
+    calibration_3d,
+    roi=None,
+    frame_bounds=None,
+    fitting_method: Literal["gausslq", "gausslq-gpu", "gaussmle"] = "gausslq",
+    eps: float = 0.001,
+    max_it: int = 100,
+    mle_method: Literal["sigma", "sigmaxy"] = "sigmaxy",
+    multiprocess: bool = True,
+    identification_progress_callback=None,
+    fit_progress_callback=None,
+    fit_z_progress_callback=None,
+    device="cuda",
+):
+    """2D localization, then the astigmatic z fit of each loc (Huang et
+    al., Science 2008; picasso/localize.py:1818), both on ``device``.
+    ``calibration_3d`` is the calibration dict or the path of its YAML.
+    Returns (locs with z, d_zcalib and lpz, info chain)."""
+    from picasso_torch import zfit
+
+    locs, info = localize(
+        movie, camera_info, {"Min. Net Gradient": minimum_ng, "Box Size": box},
+        roi=roi, frame_bounds=frame_bounds, movie_info=movie_info,
+        fitting_method=fitting_method, eps=eps, max_it=max_it,
+        mle_method=mle_method, threaded=multiprocess,
+        identification_progress_callback=identification_progress_callback,
+        fit_progress_callback=fit_progress_callback, return_info=True,
+        device=device,
+    )
+    if isinstance(calibration_3d, str):
+        import yaml
+
+        with open(calibration_3d) as f:
+            calibration_3d = yaml.full_load(f)
+    return zfit.zfit(
+        locs, info, calibration=calibration_3d,
+        pixelsize=camera_info.get("Pixelsize", 130),
+        fitting_method="gaussmle" if fitting_method == "gaussmle"
+        else "gausslq",
+        progress_callback=fit_z_progress_callback, device=device,
+    )

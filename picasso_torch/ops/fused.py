@@ -13,6 +13,7 @@ itself, so no ROI batch is written between the stages.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Literal
 
 import numpy as np
@@ -20,7 +21,7 @@ import torch
 
 from picasso_torch.ops import winfit_cuda
 from picasso_torch.ops.mle import _check_method
-from picasso_torch.ops.identify import compact, upload_frames
+from picasso_torch.ops.identify import compact
 from picasso_torch.ops.identify_cuda import identify_tiles
 
 #: the LM fit's convergence tolerance in the fused chain (the JAX
@@ -83,6 +84,25 @@ _IDS_DTYPE = [
 ]
 
 
+def make_ids(hits, roi=None) -> np.ndarray:
+    """The identifications (structured, :data:`_IDS_DTYPE`) of per-chunk
+    hit rows ``[(first_frame, f, y, x, ng), ...]`` (numpy, f relative to
+    the chunk), in chunk order; y/x shifted back by the ``roi``'s
+    corner."""
+    n = sum(len(h[1]) for h in hits)
+    ids = np.empty(n, dtype=_IDS_DTYPE)
+    if not n:
+        return ids
+    ids["frame"] = np.concatenate(
+        [np.asarray(h[1]).astype(np.int64) + h[0] for h in hits])
+    for name, k in (("y", 2), ("x", 3), ("net_gradient", 4)):
+        ids[name] = np.concatenate([h[k] for h in hits])
+    if roi is not None:
+        ids["y"] += roi[0][0]
+        ids["x"] += roi[0][1]
+    return ids
+
+
 def localize_fused(
     movie,
     minimum_ng: float,
@@ -101,12 +121,11 @@ def localize_fused(
     """Localize a (possibly lazy) movie chunk by chunk on ``device``.
 
     A background thread decodes the next chunk while the device works on
-    the current one. Returns ``(identifications, (theta, crlb, ll,
-    iters))``: identifications a structured array (frame, x, y,
-    net_gradient), theta/crlb (n, 6), rows aligned."""
+    the current one (stream.device_chunks). Returns ``(identifications,
+    (theta, crlb, ll, iters))``: identifications a structured array
+    (frame, x, y, net_gradient), theta/crlb (n, 6), rows aligned."""
     from picasso_torch import lib
-    from picasso_torch.localize import _id_frame_chunk
-    from picasso_torch.stream import ChunkPrefetcher
+    from picasso_torch.stream import device_chunks
 
     if fitting_method in ("gausslq", "gausslq-gpu"):
         method = "lq"
@@ -120,70 +139,19 @@ def localize_fused(
     factor = float(np.float32(
         float(camera_info["Sensitivity"]) / float(camera_info["Gain"])
     ))
-
-    n_frames = len(movie)
-    lo_b, hi_b = 0, n_frames
-    if frame_bounds is not None:
-        # the reference's upper bound is inclusive (localize.py:394-401)
-        if frame_bounds[0] is not None:
-            lo_b = max(frame_bounds[0], 0)
-        if frame_bounds[1] is not None:
-            hi_b = min(frame_bounds[1], n_frames)
-    frames_idx = [f for f in range(n_frames) if lo_b <= f <= hi_b]
-    if not frames_idx:
-        z6 = np.zeros((0, 6), np.float32)
-        return np.zeros(0, dtype=_IDS_DTYPE), (
-            z6, z6, np.zeros(0, np.float32), np.zeros(0, np.int32)
-        )
-
-    height, width = np.asarray(movie[0]).shape[-2:]
-    if roi is not None:
-        (y0, x0), (y1, x1) = roi
-        height, width = y1 - y0, x1 - x0
-    # chunks of ~64 MB of f32 frames, evened out and rounded to 32
-    base = _id_frame_chunk(height, width)
-    n_chunks = max(1, -(-len(frames_idx) // base))
-    frame_chunk = -(-len(frames_idx) // n_chunks)
-    if n_chunks > 1:
-        frame_chunk = -(-frame_chunk // 32) * 32
-    bounds = [
-        (frames_idx[s], frames_idx[min(s + frame_chunk, len(frames_idx)) - 1] + 1)
-        for s in range(0, len(frames_idx), frame_chunk)
-    ]
-
     blocks = []
-    prefetcher = ChunkPrefetcher(movie, bounds)
-    try:
-        with lib.progress_reporter(
-            progress_callback, len(frames_idx), "Localizing"
-        ) as rep:
-            done = 0
-            for offset, batch in prefetcher:
-                if roi is not None:
-                    batch = batch[:, y0:y1, x0:x1]
-                payload = identify_cut_fit_packed(
-                    upload_frames(batch, device), minimum_ng, baseline,
-                    factor, box=box, eps=eps, max_it=max_it,
-                    method=method,
-                ).cpu().numpy()
-                blocks.append((offset, payload))
-                done += len(batch)
-                rep.set_value(done)
-                if callable(progress_callback):
-                    progress_callback(done)
-    finally:
-        prefetcher.close()
-    block = np.concatenate([p for _, p in blocks], axis=1)
-    ids = np.empty(block.shape[1], dtype=_IDS_DTYPE)
-    ids["frame"] = np.concatenate(
-        [p[0].astype(np.int64) + off for off, p in blocks]
-    )
-    ids["y"] = block[1]
-    ids["x"] = block[2]
-    if roi is not None:
-        ids["y"] += roi[0][0]
-        ids["x"] += roi[0][1]
-    ids["net_gradient"] = block[3]
+    with contextlib.closing(device_chunks(
+            movie, device, roi=roi, frame_bounds=frame_bounds,
+            progress_callback=progress_callback,
+            description="Localizing")) as chunks:
+        for offset, chunk in chunks:
+            blocks.append((offset, identify_cut_fit_packed(
+                chunk, minimum_ng, baseline, factor, box=box, eps=eps,
+                max_it=max_it, method=method).cpu().numpy()))
+    rows = 10 if method == "lq" else 18
+    block = np.concatenate([np.zeros((rows, 0), np.float32)]
+                           + [p for _, p in blocks], axis=1)
+    ids = make_ids([(off, p[0], p[1], p[2], p[3]) for off, p in blocks], roi)
     n = block.shape[1]
     if method == "lq":
         # the JAX package's LQ tuple: crlb, ll and iters are zeros

@@ -158,3 +158,44 @@ def upload_frames(frames: np.ndarray, device: torch.device) -> torch.Tensor:
     if frames.dtype != np.uint16:
         frames = frames.astype(np.float32)
     return torch.from_numpy(frames).to(device)
+
+
+def cut_spots_numpy(movie, ids_frame: np.ndarray, ids_x: np.ndarray,
+                    ids_y: np.ndarray, box: int) -> np.ndarray:
+    """(N, box, box) ROIs around the centres on the host, in the movie's
+    dtype (picasso_tpu/ops/identify.py:732): one fancy-index gather from
+    an array, frame by frame from a lazy movie. Centres are not clamped;
+    identify never yields one within box // 2 of an edge."""
+    r = box // 2
+    if isinstance(movie, np.ndarray) or hasattr(movie, "__array__"):
+        offs = np.arange(-r, r + 1)
+        yy = ids_y[:, None, None] + offs[None, :, None]
+        xx = ids_x[:, None, None] + offs[None, None, :]
+        return np.asarray(movie)[ids_frame[:, None, None], yy, xx]
+    n = len(ids_frame)
+    spots = np.zeros((n, box, box), dtype=movie.dtype)
+    order = np.argsort(ids_frame, kind="stable")
+    frames, starts = np.unique(ids_frame[order], return_index=True)
+    for frame_number, lo, hi in zip(frames, starts, [*starts[1:], n]):
+        frame = np.asarray(movie[int(frame_number)])
+        for k in order[lo:hi]:
+            yc, xc = ids_y[k], ids_x[k]
+            spots[k] = frame[yc - r:yc + r + 1, xc - r:xc + r + 1]
+    return spots
+
+
+def to_photons(spots: np.ndarray, camera_info: dict) -> np.ndarray:
+    """(raw - baseline) * sensitivity / gain in f32, rounded after each
+    step (picasso_tpu/ops/identify.py:769)."""
+    spots = np.float32(spots)
+    return ((spots - camera_info["Baseline"]) * camera_info["Sensitivity"]
+            / camera_info["Gain"])
+
+
+def to_photons_one_factor(spots: np.ndarray, camera_info: dict) -> np.ndarray:
+    """(raw - baseline) * (sensitivity / gain) in f32, the factor from
+    the f32 sensitivity and gain: picasso_tpu's native cut of u16 arrays
+    (native.cut_spots_to_photons, picasso_native.cpp:140)."""
+    scale = (np.float32(camera_info["Sensitivity"])
+             / np.float32(camera_info["Gain"]))
+    return (np.float32(spots) - np.float32(camera_info["Baseline"])) * scale

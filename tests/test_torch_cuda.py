@@ -578,3 +578,106 @@ def test_lq_slice_on_the_card_matches_the_cpu(dev):
                                rtol=1e-5)
     d = np.maximum(np.abs(g["x"] - c["x"]), np.abs(g["y"] - c["y"]))
     assert np.mean(d <= 1e-3) >= 0.99
+
+
+# --- the rest of the localize verb: TIFF, identify + fit2D, avg, 3D ------
+
+CAM = {"Baseline": 0, "Sensitivity": 1, "Gain": 1, "Pixelsize": 130}
+PAR = {"Min. Net Gradient": 4000, "Box Size": 7}
+
+
+@pytest.fixture
+def tiff_movie(tmp_path):
+    """A 64-frame bench movie in RAM and as a two-file TIFF series."""
+    from picasso_torch import io
+    from torch_data import write_tiff
+
+    movie = make_bench_movie(64, 64, 40, 0.5, np.random.default_rng(9))
+    write_tiff(str(tmp_path / "m.ome.tif"), movie[:32])
+    write_tiff(str(tmp_path / "m_1.ome.tif"), movie[32:])
+    return movie, io.load_movie(str(tmp_path / "m.ome.tif"))[0]
+
+
+@pytest.mark.parametrize("method", ["gaussmle", "gausslq", "avg"])
+def test_tiff_slice_equals_the_ram_slice(dev, tiff_movie, method):
+    movie, lazy = tiff_movie
+    ram = localize.localize(movie, dict(CAM), PAR, fitting_method=method,
+                            device=dev)
+    tif = localize.localize(lazy, dict(CAM), PAR, fitting_method=method,
+                            device=dev)
+    assert len(ram) > 300
+    for name in ram.dtype.names:
+        np.testing.assert_array_equal(tif[name], ram[name], err_msg=name)
+
+
+def test_identify_and_fit2d_run_k2_and_k3(dev):
+    """identify on the card == the fused slice's hit list; fit2D's MLE
+    (K2) == the fused slice's fits (K5's queue) bit for bit; fit2D's LM
+    (K3, max_it 30) == K5's LM queue at max_it 30 bit for bit."""
+    movie = make_bench_movie(32, 64, 40, 0.5, np.random.default_rng(7))
+    ids = localize.identify(movie, 4000, 7, device=dev)
+    f_ids, fits = fused.localize_fused(movie, 4000, 7, dict(CAM),
+                                       device=dev)
+    for name in ids.dtype.names:
+        np.testing.assert_array_equal(ids[name], f_ids[name])
+    info = [{"Frames": 32, "Height": 64, "Width": 64}]
+    k2, k3 = mle_cuda.fit_boundary_t.launches, lq_cuda.fit_t.launches
+    mle_locs, _ = localize.fit2D(movie, info, dict(CAM), ids, 7,
+                                 fitting_method="gaussmle", device=dev)
+    assert mle_cuda.fit_boundary_t.launches > k2
+    from picasso_torch import gaussmle, gausslq
+
+    ref = gaussmle.locs_from_fits(f_ids, *fits, 7)
+    for name in ref.dtype.names:
+        np.testing.assert_array_equal(mle_locs[name], ref[name], err_msg=name)
+    lq_locs, _ = localize.fit2D(movie, info, dict(CAM), ids, 7,
+                                fitting_method="gausslq", device=dev)
+    assert lq_cuda.fit_t.launches > k3
+    chunk = identify.upload_frames(movie, dev)
+    hits = [torch.from_numpy(np.ascontiguousarray(ids[c])).to(dev)
+            for c in ("frame", "y", "x")]
+    theta = winfit_cuda.fit_lq_queue_t(chunk, *hits, 0.0, 1.0, box=7,
+                                       max_it=30, ftol=FTOL).cpu().numpy()
+    ref = gausslq.locs_from_fits(ids, theta.T, 7, False)
+    for name in ref.dtype.names:
+        np.testing.assert_array_equal(lq_locs[name], ref[name], err_msg=name)
+
+
+def test_avg_and_cut_on_the_card_equal_the_cpu(dev):
+    movie = make_bench_movie(32, 64, 40, 0.5, np.random.default_rng(7))
+    cam = {"Baseline": 100, "Sensitivity": 0.45, "Gain": 7, "Pixelsize": 130}
+    g = localize.localize(movie + np.uint16(100), dict(cam), PAR,
+                          fitting_method="avg", device=dev)
+    c = localize.localize(movie + np.uint16(100), dict(cam), PAR,
+                          fitting_method="avg", device="cpu")
+    np.testing.assert_array_equal(g["frame"], c["frame"])
+    for name in ("x", "y", "photons", "bg", "lpx"):
+        np.testing.assert_array_equal(g[name], c[name], err_msg=name)
+    ids = localize.identify(movie, 4000, 7, device="cpu")
+    np.testing.assert_array_equal(
+        localize.get_spots_raw(movie, ids, 7, device=dev),
+        localize.get_spots_raw(movie, ids, 7, device="cpu"))
+
+
+@pytest.mark.parametrize("method", ["gaussmle", "gausslq"])
+def test_zfit_on_the_card_equals_the_cpu(dev, method):
+    """The z-grid scan rounds every step alike on the card and the CPU:
+    z, d_zcalib and lpz equal bit for bit on the same locs."""
+    from picasso_torch import zfit
+    from torch_data import CALIB_3D, make_astig_movie
+
+    movie = make_astig_movie(64, 96, 40, 0.5, np.random.default_rng(3))[0]
+    locs = localize.localize(movie, dict(CAM), PAR, fitting_method=method,
+                             device="cpu")
+    info = [{"Frames": 64, "Height": 96, "Width": 96, "Pixelsize": 130}]
+    g = zfit.zfit(locs, info, calibration=CALIB_3D, fitting_method=method,
+                  filter=0, device=dev)[0]
+    c = zfit.zfit(locs, info, calibration=CALIB_3D, fitting_method=method,
+                  filter=0, device="cpu")[0]
+    for name in g.dtype.names:
+        np.testing.assert_array_equal(g[name], c[name], err_msg=name)
+    z_g = zfit.fit_z_grid(locs["sx"], locs["sy"], CALIB_3D, device=dev,
+                          rows=100)
+    z_c = zfit.fit_z_grid(locs["sx"], locs["sy"], CALIB_3D, device="cpu")
+    for a, b in zip(z_g, z_c):
+        np.testing.assert_array_equal(a, b)

@@ -47,7 +47,8 @@ def _smoke_imports() -> list[str]:
 def test_every_module_imports_without_jax():
     mods = _modules()
     for m in ("ops.mle_cuda", "ops.lq_cuda", "ops.winfit_cuda",
-              "ops.render_ops", "render", "imageprocess", "postprocess"):
+              "ops.render_ops", "render", "imageprocess", "postprocess",
+              "io", "stream", "avgroi", "zfit"):
         assert "picasso_torch." + m in mods
     smoke = _smoke_imports()
     assert "torch_data" in smoke and "torch_parity" in smoke

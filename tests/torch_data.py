@@ -1,16 +1,40 @@
 """Synthetic inputs of the port's tests and of chip_smoke.py, made from a
-seed with numpy only: DNA-PAINT-like spots and movies, and spots laid out
-as a frame chunk for the fused cut+fit.
+seed with numpy only: DNA-PAINT-like spots and movies (2D and
+astigmatic 3D), spots laid out as a frame chunk for the fused cut+fit,
+and a TIFF writer.
 
 Copies of bench.make_spots and bench.make_bench_movie (the JAX package's
 benchmark, whose other functions reach JAX), so that the port's smoke
 run imports nothing of the JAX side. tests/test_torch_package.py holds
-them equal to bench's for the same seeds.
+them equal to bench's for the same seeds. Importable without jax, h5py
+or yaml: the machine with the card has none of them.
 """
 
 from __future__ import annotations
 
+import struct
+
 import numpy as np
+
+#: a measured astigmatic 3D calibration (the suite's conftest CALIB_3D,
+#: from the reference's test data): sx, sy in px as polynomials of z in
+#: nm of the calibration stage; the z fit reports z times the
+#: magnification factor
+CALIB_3D = {
+    "X Coefficients": [
+        -1.6680708772714857e-18, 2.4038209829154137e-15,
+        2.1771067332017187e-12, -3.0324788231238476e-09,
+        3.5433326085494675e-06, 0.0023039289366630425, 1.2026032603707493,
+    ],
+    "Y Coefficients": [
+        -1.7708672355491796e-18, 9.808249540501714e-16,
+        2.10653248543535e-12, 2.228026137415219e-11, 3.628007433361433e-06,
+        -0.001646865504353452, 1.2257249554338714,
+    ],
+    "Step size in nm": 5.0,
+    "Number of frames": 201,
+    "Magnification factor": 0.79,
+}
 
 
 def make_spots(n: int, box: int = 7, seed: int = 0) -> np.ndarray:
@@ -119,3 +143,99 @@ def tiled_chunk(chunk, frames: int = 32, k: int = 8):
     out = (src[idx].view(frames, k, k, Y, X).permute(0, 1, 3, 2, 4)
            .reshape(frames, k * Y, k * X).contiguous())
     return out.view(chunk.dtype)
+
+
+def make_astig_movie(n_frames, size, n_sites, p_on, rng, z_max=400.0,
+                     calibration=CALIB_3D):
+    """The recipe of :func:`make_bench_movie` with astigmatic spots:
+    each site draws z uniform in +-``z_max`` nm, and its spot has the
+    widths sx, sy = the calibration's polynomials at z (11x11 px, peak
+    900 photons). Returns (movie (n_frames, size, size) u16, sites (n, 2)
+    [y, x] px, z (n,) as the z fit reports it, z times the magnification
+    factor)."""
+    movie = rng.poisson(30, (n_frames, size, size)).astype(np.uint16)
+    yy, xx = np.mgrid[-5:6, -5:6]
+    sites = rng.uniform(8, size - 8, (n_sites, 2)).astype(int)
+    z = rng.uniform(-z_max, z_max, n_sites)
+    sx = np.polyval(calibration["X Coefficients"], z)
+    sy = np.polyval(calibration["Y Coefficients"], z)
+    psf = 900 * np.exp(-(xx[None] ** 2 / (2 * sx[:, None, None] ** 2)
+                         + yy[None] ** 2 / (2 * sy[:, None, None] ** 2)))
+    for fidx in range(n_frames):
+        on = rng.random(n_sites) < p_on
+        spots = rng.poisson(psf[on]).astype(np.uint16)
+        s = sites[on]
+        np.add.at(movie[fidx], (s[:, :1, None] + yy, s[:, 1:, None] + xx),
+                  spots)
+    return movie, sites, z * calibration["Magnification factor"]
+
+
+_TIFF_FORMAT = {"u": 1, "i": 2, "f": 3}
+
+
+def write_tiff(path, frames: np.ndarray, *, bigtiff: bool = False,
+               byteorder: str = "<", rows_per_strip: int | None = None,
+               description: str | None = None) -> None:
+    """Write (n, Y, X) ``frames`` as an uncompressed grayscale TIFF with
+    ``struct``: classic or BigTIFF, little (``"<"``) or big-endian
+    (``">"``), one IFD a frame, each frame in strips of
+    ``rows_per_strip`` rows (default: one strip). All pixel data comes
+    first, back to back, then the IFDs."""
+    frames = np.ascontiguousarray(frames)
+    n, h, w = frames.shape
+    dt = frames.dtype.newbyteorder(byteorder)
+    rows = rows_per_strip or h
+    strip_rows = [min(rows, h - r) for r in range(0, h, rows)]
+    row_bytes = w * dt.itemsize
+    frame_bytes = h * row_bytes
+    bo = byteorder
+    off_fmt, off_type = ("Q", 16) if bigtiff else ("I", 4)
+    osize = 8 if bigtiff else 4
+    header = 16 if bigtiff else 8
+    with open(path, "wb") as f:
+        f.write(b"II" if bo == "<" else b"MM")
+        if bigtiff:
+            f.write(struct.pack(bo + "HHHQ", 43, 8, 0, 0))
+        else:
+            f.write(struct.pack(bo + "HI", 42, 0))
+        frames.astype(dt, copy=False).tofile(f)
+        ifd_pos = header + n * frame_bytes
+        f.seek(4 if not bigtiff else 8)
+        f.write(struct.pack(bo + off_fmt, ifd_pos))
+        f.seek(ifd_pos)
+        for i in range(n):
+            base = header + i * frame_bytes
+            offsets = [base + sum(strip_rows[:k]) * row_bytes
+                       for k in range(len(strip_rows))]
+            counts = [r * row_bytes for r in strip_rows]
+            entries = [
+                (256, 4, [w]), (257, 4, [h]), (258, 3, [dt.itemsize * 8]),
+                (259, 3, [1]), (262, 3, [1]), (273, off_type, offsets),
+                (277, 3, [1]), (278, 4, [rows]), (279, off_type, counts),
+                (339, 3, [_TIFF_FORMAT[dt.kind]]),
+            ]
+            if description is not None and i == 0:
+                entries.insert(4, (270, 2, description.encode() + b"\0"))
+            n_fmt = "Q" if bigtiff else "H"
+            entry_size = 4 + 2 * osize
+            ifd_size = struct.calcsize(bo + n_fmt) + len(entries) * entry_size \
+                + osize
+            extra_pos = f.tell() + ifd_size
+            body, extra = b"", b""
+            for tag, typ, vals in entries:
+                if typ == 2:
+                    data = bytes(vals)
+                else:
+                    fmt = {3: "H", 4: "I", 16: "Q"}[typ]
+                    data = struct.pack(bo + fmt * len(vals), *vals)
+                count = len(vals)
+                body += struct.pack(bo + "HH" + off_fmt, tag, typ, count)
+                if len(data) <= osize:
+                    body += data + b"\0" * (osize - len(data))
+                else:
+                    body += struct.pack(bo + off_fmt,
+                                        extra_pos + len(extra))
+                    extra += data + b"\0" * (len(data) % 2)
+            next_ifd = 0 if i == n - 1 else extra_pos + len(extra)
+            f.write(struct.pack(bo + n_fmt, len(entries)) + body
+                    + struct.pack(bo + off_fmt, next_ifd) + extra)

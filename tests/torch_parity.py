@@ -27,6 +27,14 @@ these bounds hold the port to the spread of the fit itself.
 
 LQ fits (theta (6, N) rows [x, y, photons, bg, sx, sy], x/y relative to
 the box centre): see :func:`compare_lq_fits`.
+
+avg photons (ROI sums): see :func:`compare_avg_photons`. Movie readers,
+raw conversion, identify's hit lists through the port's chunking, the
+ROI cuts and each photon-conversion route equal picasso_tpu bit for bit
+(tests/test_torch_io.py, tests/test_torch_localize.py). The z fit
+(picasso_torch/zfit.py) equals picasso_tpu bit for bit on the same locs,
+and the card the CPU; end to end, z differs only where a 2D fit's width
+does, by at most tests/test_torch_zfit.Z_DIFF_NM.
 """
 
 from __future__ import annotations
@@ -244,3 +252,27 @@ def compare_lq_fits(ref, got, spots_t, what: str = "lq fits") -> dict:
     if not good:
         raise AssertionError(f"{what}: out of tolerance: {stats}")
     return stats
+
+
+# avg photons: |d| <= AVG_PHOTONS_REL * sum |pixel| of the ROI
+AVG_PHOTONS_REL = 1e-6
+
+
+def compare_avg_photons(ref, got, spots, what: str = "avg photons") -> float:
+    """Hold the ``avg`` method's photons ``got`` (N,) to ``ref`` on the
+    photon-converted (N, S, S) ``spots``. The port sums each ROI in f64
+    and rounds once (the correctly rounded sum, up to 2^-53); picasso_tpu
+    sums in f32 in numpy's pairwise order, which for S^2 <= 225 terms
+    rounds about 8 times, each error at most half an f32 ulp (6e-8) of a
+    partial sum no larger than the sum of the |pixels|. So |d| <=
+    AVG_PHOTONS_REL * sum |pixel| bounds the reference's own error with
+    margin (measured: <= 2.4e-7 relative on the test movies, PERF.md).
+    Returns the largest |d| / sum |pixel|."""
+    scale = np.abs(np.asarray(spots, np.float64)).sum(axis=(1, 2))
+    d = np.abs(np.asarray(got, np.float64) - np.asarray(ref, np.float64))
+    rel = d / np.maximum(scale, np.finfo(np.float32).tiny)
+    worst = float(rel.max(initial=0.0))
+    if worst > AVG_PHOTONS_REL:
+        raise AssertionError(f"{what}: |d| / sum|pixel| {worst} > "
+                             f"{AVG_PHOTONS_REL}")
+    return worst
