@@ -53,6 +53,20 @@ Phases, each of which raises on failure (exit code != 0):
    MLE slice's locs with a known drift added, its residual against that
    drift, its agreement with the same call on the CPU, and its wall
    split (render, pair FFTs, peak fits);
+7a. a drift file: the RCC drift through io.save_drift and
+   io.load_drift, applied again, equal to undrift's locs bit for bit;
+7b. AIM 2D: aim.aim (segments of 100 frames, two rounds) on the drifted
+   locs on the card, its wall split into the device counts and the host
+   rest, equal to the CPU run bit for bit, the residual against the
+   injected drift;
+7c. fiducials: 16 fiducial tracks away from the slice's locs added with
+   the same drift; imageprocess.find_fiducials (the smooth render and K4,
+   the path "fiducials") finds all 16 on the card, the picks equal the
+   CPU's, and the drift from them (postprocess.undrift_from_fiducials)
+   agrees with the CPU's and recovers the injected one;
+7d. render: the undrifted (f64) locs at oversampling 10 (2560 x 2560)
+   with every blur, timed on the card against one CPU call, the
+   histogram equal to the CPU's and every blur within RENDER_AGREE;
 8. the TIFF series: the movie written as movie.ome.tif + movie_1.ome.tif
    (tests/torch_data.write_tiff, 1024 frames each, in a folder of the
    checkout removed at the end), read back by io.load_movie (decode rate
@@ -73,7 +87,10 @@ Phases, each of which raises on failure (exit code != 0):
    build) with K4 and K5 launched, zfit's wall on the card, the card's
    z fit equal to the CPU's on chunk 0's locs bit for bit, the share of
    2D locs kept and z against the truth under bounds from the CPU run,
-   and an RCC undrift that keeps z, d_zcalib and lpz.
+   and an RCC undrift that keeps z, d_zcalib and lpz;
+12. AIM 3D: aim.aim on the localize_3D MLE locs with the x/y drift and a
+   40 nm z sine, equal to the CPU run bit for bit, the z residual under
+   AIM_Z_RESID (from the CPU run of tests/torch_aim_z_bound.py).
 IMS and STK movies are checked on the CPU only (tests/test_torch_io.py):
 the machine with the card has no h5py.
 The line before the last is the JSON record of every kernel (bound_ms:
@@ -110,6 +127,22 @@ ROUND_IT = 8  # K7's iterations a round
 SEGMENTATION = 128  # frames an RCC segment: 16 segments of the movie
 DRIFT_RESID = 0.1  # px, RMS residual of the recovered drift
 DRIFT_AGREE = 1e-2  # px, undrift on the card against the CPU
+AIM_SEGMENTATION = 100  # frames an AIM segment, the CLI's default
+N_FIDUCIALS = 16
+FID_RESID = 0.05  # px, RMS residual of the drift from fiducials
+FID_AGREE = 1e-9  # px, drift from fiducials on the card against the CPU
+RENDER_OVERSAMPLING = 10.0  # a 2560 x 2560 image of the 256 x 256 movie
+# max |card - CPU| / max of the CPU image per blur: the counts and the
+# filters' f64 terms are exact; the splats sum f32 windows in any order
+# and take the card's exp
+# AIM 3D: the z drift injected into the localize_3D locs (nm, a sine
+# over the movie) and the bound on AIM's z residual RMS, about twice the
+# 2.29 nm of the CPU run of the same recipe on 512 frames
+# (tests/torch_aim_z_bound.py, PERF.md)
+AIM_Z_DRIFT = 40.0
+AIM_Z_RESID = 5.0
+RENDER_AGREE = {"None": 0.0, "smooth": 1e-6, "convolve": 1e-6,
+                "gaussian": 1e-5, "gaussian_iso": 1e-5}
 PEAK_F32 = 67e12  # FLOP/s, f32 outside the tensor cores (H100 SXM)
 PEAK_BYTES = 3.35e12  # B/s, HBM3 (H100 SXM)
 # localize_3D on the astigmatic movie: (least share of the 2D locs kept,
@@ -342,8 +375,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from picasso_torch import (
-        _build, avgroi, gausslq, gaussmle, imageprocess, io, localize,
-        postprocess, zfit,
+        _build, aim, avgroi, gausslq, gaussmle, imageprocess, io, localize,
+        postprocess, render, zfit,
     )
     from picasso_torch.ops import (
         fused, identify, identify_cuda, lq, lq_cuda, mle, mle_cuda,
@@ -351,8 +384,8 @@ def main() -> int:
     )
     from picasso_torch.ops._fit_common import FINISH
     from torch_data import (
-        CALIB_3D, make_astig_movie, make_bench_movie, make_spots,
-        spots_chunk, tiled_chunk, write_tiff,
+        CALIB_3D, fiducial_tracks, free_positions, make_astig_movie,
+        make_bench_movie, make_spots, spots_chunk, tiled_chunk, write_tiff,
     )
     from torch_parity import (
         compare_avg_photons, compare_fits, compare_hits, compare_lq_fits,
@@ -1006,6 +1039,154 @@ def main() -> int:
     if not (np.isfinite(undrifted["x"]).all() and len(undrifted) == len(locs)):
         raise AssertionError("undrift: locs lost or not finite")
 
+    # 7a. a drift file ---------------------------------------------------
+    # the RCC drift through save_drift and load_drift, applied again:
+    # equal to undrift's own locs bit for bit
+    drift_dir = tempfile.TemporaryDirectory(prefix=".smoke-drift-", dir=ROOT)
+    drift_path = os.path.join(drift_dir.name, "movie_locs_drift.txt")
+    io.save_drift(drift_path, drift_g)
+    from_file = postprocess.apply_drift(drifted, info,
+                                        drift=io.load_drift(drift_path))
+    drift_dir.cleanup()
+    for name in undrifted.dtype.names:
+        if not np.array_equal(from_file[name], undrifted[name]):
+            raise AssertionError(f"drift file: {name} differs from undrift")
+    print("drift file: save_drift + load_drift + apply_drift == undrift's "
+          "locs bit for bit")
+
+    # 7b. AIM 2D -----------------------------------------------------------
+    # aim.aim on the drifted MLE locs (segments of AIM_SEGMENTATION frames,
+    # two rounds) on the card, then split into the device counts (each
+    # segment's unique + searchsorted over all shifts, through
+    # _point_intersect_2d) and the host rest, and on the CPU
+    info_aim = [dict(info[0], Pixelsize=camera["Pixelsize"])]
+    aim_out, wall_aim, launches_aim = counted(lambda: aim.aim(
+        drifted, info_aim, segmentation=AIM_SEGMENTATION, device="cuda"))
+    counts_s = [0.0]
+    point_2d = aim._point_intersect_2d
+
+    def timed_counts(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = point_2d(*args)
+        torch.cuda.synchronize()
+        counts_s[0] += time.perf_counter() - t0
+        return out
+
+    aim._point_intersect_2d = timed_counts
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aim_split = aim.aim(drifted, info_aim, segmentation=AIM_SEGMENTATION,
+                        device="cuda")
+    wall_split = time.perf_counter() - t0
+    aim._point_intersect_2d = point_2d
+    t0 = time.perf_counter()
+    aim_cpu = aim.aim(drifted, info_aim, segmentation=AIM_SEGMENTATION,
+                      device="cpu")
+    wall_aim_cpu = time.perf_counter() - t0
+    n_seg = -(-n_frames // AIM_SEGMENTATION)
+    for got in (aim_out, aim_split):
+        for a, b in ((got[0], aim_cpu[0]), (got[2], aim_cpu[2])):
+            for name in a.dtype.names:
+                if not np.array_equal(a[name], b[name]):
+                    raise AssertionError(f"AIM 2D: {name} on the card differs "
+                                         "from the CPU")
+    resid_aim = {}
+    for c in ("x", "y"):
+        d = aim_out[2][c] - inj[c]
+        resid_aim[c] = float(np.sqrt(np.mean((d - d.mean()) ** 2)))
+    if max(resid_aim.values()) > DRIFT_RESID or any(launches_aim.values()):
+        raise AssertionError(f"AIM 2D: residual {resid_aim} or a kernel of "
+                             f"the localize path launched {launches_aim}")
+    print(f"AIM 2D {len(drifted)} locs, {n_seg} segments of "
+          f"{AIM_SEGMENTATION} frames, 2 rounds: card {wall_aim:.3f} s "
+          f"(again with the split: {wall_split:.3f} s, device counts "
+          f"{counts_s[0]:.3f} s, host rest {wall_split - counts_s[0]:.3f} "
+          f"s), CPU {wall_aim_cpu:.3f} s; card == CPU bit for bit (drift "
+          f"and locs, f32); residual RMS after the offset x "
+          f"{resid_aim['x']:.5f} y {resid_aim['y']:.5f} px")
+
+    # 7c. fiducials --------------------------------------------------------
+    # N_FIDUCIALS tracks (one loc a frame, 0.01 px) at least 6 px from
+    # every loc of the slice, with the same drift, added to the drifted
+    # locs; find_fiducials (K4 on the smooth render) and the drift from
+    # their picks on the card and the CPU
+    centres = free_positions(locs["x"], locs["y"], movie.shape[1],
+                             N_FIDUCIALS, 6.0)
+    tracks = fiducial_tracks(centres, n_frames, np.random.default_rng(23),
+                             dtype=locs.dtype)
+    for c in ("x", "y"):
+        tracks[c] += inj[c][tracks["frame"]].astype(np.float32)
+    with_fid = np.concatenate([drifted, tracks])
+    with_fid = with_fid[np.argsort(with_fid["frame"], kind="stable")]
+    (picks_g, box_g), wall_find, launches_fid = counted(
+        lambda: imageprocess.find_fiducials(with_fid, info_aim,
+                                            device="cuda"))
+    if launches_fid["K4"] != 1 or sum(launches_fid.values()) != 1:
+        raise AssertionError(f"find_fiducials did not run K4 once: "
+                             f"{launches_fid}")
+    picks_c, _ = imageprocess.find_fiducials(with_fid, info_aim,
+                                             device="cpu")
+    found = sum(bool(picks_g) and np.hypot(
+        *(np.asarray(picks_g, float) - c).T).min() < 1.5 for c in centres)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fid_g = postprocess.undrift_from_fiducials(with_fid, info_aim,
+                                               device="cuda")
+    wall_fid = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fid_c = postprocess.undrift_from_fiducials(with_fid, info_aim,
+                                               device="cpu")
+    wall_fid_cpu = time.perf_counter() - t0
+    agree_fid = max(float(np.abs(fid_g[2][c] - fid_c[2][c]).max())
+                    for c in ("x", "y"))
+    resid_fid = {}
+    for c in ("x", "y"):
+        d = fid_g[2][c] - inj[c]
+        resid_fid[c] = float(np.sqrt(np.mean((d - d.mean()) ** 2)))
+    print(f"fiducials: {N_FIDUCIALS} tracks added ({len(with_fid)} locs); "
+          f"find_fiducials {wall_find:.3f} s on the card, {len(picks_g)} "
+          f"picks (box {box_g}), {found} of {N_FIDUCIALS} fiducials among "
+          f"them, picks card == CPU {picks_g == picks_c}; undrift from "
+          f"fiducials card {wall_fid:.3f} s, CPU {wall_fid_cpu:.3f} s; card "
+          f"vs CPU max |d drift| {agree_fid:.3g} px; residual RMS after the "
+          f"offset x {resid_fid['x']:.5f} y {resid_fid['y']:.5f} px")
+    if (found != N_FIDUCIALS or picks_g != picks_c or agree_fid > FID_AGREE
+            or max(resid_fid.values()) > FID_RESID):
+        raise AssertionError("fiducials: not all found, card and CPU "
+                             "disagree, or the drift is not recovered")
+
+    # 7d. render -----------------------------------------------------------
+    # the undrifted (f64) locs at oversampling RENDER_OVERSAMPLING with
+    # every blur: the card's ms (median of 5 render calls, upload and
+    # readback included; and render_t alone on the columns on the card)
+    # against one CPU call; the histogram equal to the CPU's, every blur
+    # within RENDER_AGREE of the CPU image's max
+    render_ms = {}
+    on_card = render.columns(undrifted, ("x", "y", "lpx", "lpy"), dev)
+    for blur in (None, "gaussian", "gaussian_iso", "smooth", "convolve"):
+        def card(blur=blur):
+            return render.render(undrifted, info, RENDER_OVERSAMPLING,
+                                 blur_method=blur, device="cuda")
+
+        n_g, img_g = card()
+        render_ms[str(blur)] = _median_ms(card)
+        device_ms = _median_ms(lambda blur=blur: render.render_t(
+            on_card, info, RENDER_OVERSAMPLING, blur_method=blur))
+        t0 = time.perf_counter()
+        n_c, img_c = render.render(undrifted, info, RENDER_OVERSAMPLING,
+                                   blur_method=blur, device="cpu")
+        wall_c = time.perf_counter() - t0
+        rel = float(np.abs(img_g - img_c).max() / img_c.max())
+        print(f"render {blur}: {n_g} locs into {img_g.shape}: card "
+              f"{render_ms[str(blur)]:.3f} ms (render_t on the card's "
+              f"columns {device_ms:.3f} ms), CPU {wall_c:.3f} s; max|d|/max "
+              f"{rel:.3g}, equal {np.array_equal(img_g, img_c)}")
+        if n_g != n_c or not np.isfinite(img_g).all() or (
+                rel > RENDER_AGREE[str(blur)]):
+            raise AssertionError(f"render {blur}: the card differs from the "
+                                 "CPU")
+
     # 8. the TIFF series -------------------------------------------------
     # the movie as MicroManager writes a long series, movie.ome.tif +
     # movie_1.ome.tif (1024 frames each), in a folder of the checkout
@@ -1146,7 +1327,7 @@ def main() -> int:
     tree = cKDTree(sites[:, ::-1].astype(np.float64))
     info3d = [{"Frames": len(astig), "Height": astig.shape[1],
                "Width": astig.shape[2], "Pixelsize": camera["Pixelsize"]}]
-    paths3d = {}
+    paths3d, locs3d_by = {}, {}
     for method, fit, per_chunk in (("gaussmle", "K5 mle queue", 2),
                                    ("gausslq", "K5 lq queue", 1)):
         (locs3d, info_out), wall3d, launches3d = counted(
@@ -1156,6 +1337,7 @@ def main() -> int:
                 fitting_method=method, device="cuda"))
         check_route(f"localize_3D {method}", launches3d, fit, per_chunk)
         paths3d[method] = launches3d
+        locs3d_by[method] = locs3d
         locs2d = localize.localize(astig, dict(camera), params,
                                    fitting_method=method, device="cuda")
         torch.cuda.synchronize()
@@ -1203,11 +1385,45 @@ def main() -> int:
               f"CPU bit for bit; z against the truth ({near.sum()} locs "
               f"within 1 px of a site): RMS {rms:.1f} nm, median |d| "
               f"{med:.1f} nm; undrift keeps z, d_zcalib, lpz")
+    # 12. AIM 3D ---------------------------------------------------------
+    # aim.aim on the localize_3D MLE locs with the x/y drift of phase 7
+    # and a z drift of AIM_Z_DRIFT nm (a sine over the movie), on the card
+    # and the CPU; the z residual under the bound from the CPU run
+    locs3d = locs3d_by["gaussmle"]
+    inj_z = AIM_Z_DRIFT * np.sin(2 * np.pi * t_frame / (n_frames - 1))
+    drifted3d = locs3d.copy()
+    for c, d in (("x", inj["x"]), ("y", inj["y"]), ("z", inj_z)):
+        drifted3d[c] += d[locs3d["frame"]].astype(np.float32)
+    aim3d, wall_aim3d, launches_aim3d = counted(lambda: aim.aim(
+        drifted3d, info3d, segmentation=AIM_SEGMENTATION, device="cuda"))
+    t0 = time.perf_counter()
+    aim3d_cpu = aim.aim(drifted3d, info3d, segmentation=AIM_SEGMENTATION,
+                        device="cpu")
+    wall_aim3d_cpu = time.perf_counter() - t0
+    for a, b in ((aim3d[0], aim3d_cpu[0]), (aim3d[2], aim3d_cpu[2])):
+        for name in a.dtype.names:
+            if not np.array_equal(a[name], b[name], equal_nan=True):
+                raise AssertionError(f"AIM 3D: {name} on the card differs "
+                                     "from the CPU")
+    resid3d = {}
+    for c, want in (("x", inj["x"]), ("y", inj["y"]), ("z", inj_z)):
+        d = aim3d[2][c] - want
+        resid3d[c] = float(np.sqrt(np.mean((d - d.mean()) ** 2)))
+    print(f"AIM 3D {len(drifted3d)} locs (localize_3D MLE), z drift "
+          f"{AIM_Z_DRIFT} nm sine: card {wall_aim3d:.3f} s, CPU "
+          f"{wall_aim3d_cpu:.3f} s; card == CPU bit for bit; residual RMS "
+          f"after the offset x {resid3d['x']:.5f} y {resid3d['y']:.5f} px, "
+          f"z {resid3d['z']:.3f} nm")
+    if (max(resid3d["x"], resid3d["y"]) > DRIFT_RESID
+            or resid3d["z"] > AIM_Z_RESID or any(launches_aim3d.values())):
+        raise AssertionError(f"AIM 3D: residual {resid3d} against the "
+                             f"bounds ({DRIFT_RESID} px, {AIM_Z_RESID} nm)")
     tiff_dir.cleanup()
     paths = {"mle": launches_mle, "mle-sigma": launches_sig,
              "lq": launches_lq, "tiff": launches_tif,
              "avg": avg_runs["RAM"][2], "avg-tiff": avg_runs["TIFF"][2],
-             "identify": launches_id, "fit2D-mle": launches_k2,
+             "identify": launches_id, "fiducials": launches_fid,
+             "fit2D-mle": launches_k2,
              "fit2D-lq": launches_k3, "3d-mle": paths3d["gaussmle"],
              "3d-lq": paths3d["gausslq"]}
     print("launches by path:", json.dumps(paths))

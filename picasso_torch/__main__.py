@@ -6,6 +6,10 @@ Counterpart of picasso_tpu/__main__.py for the verbs ported so far:
         [-a mle|lq|lq-gpu|avg|mle-3d|lq-3d|lq-gpu-3d -zc calib.yaml]
         [--device cuda|cpu]
     python -m picasso_torch toraw "*.tif"
+    python -m picasso_torch undrift "*_locs.hdf5" [-s 1000 | -f drift.txt]
+    python -m picasso_torch aim "*_locs.hdf5" [-s 100 -i 0.154 -r 0.462]
+    python -m picasso_torch undrift_fiducials "*_locs.hdf5"
+    python -m picasso_torch render "*_locs.hdf5" [-o 1 -b convolve -c hot]
 
 ``localize`` reads .raw, .tif/.tiff series, .ims, .stk and .nd2 movies
 and takes the JAX CLI's flags and defaults plus ``--device`` (default
@@ -15,7 +19,11 @@ and takes the JAX CLI's flags and defaults plus ``--device`` (default
 ``-d`` frames (default 1000, 0 to skip), writing ``<movie>_locs_drift.txt``
 and ``<movie>_locs_undrift.hdf5``, as the JAX CLI does. ``toraw``
 converts TIFF movies matching a pattern to .raw + .yaml, one file per
-multi-file series.
+multi-file series. ``undrift`` (RCC, or ``-f`` a drift file), ``aim``
+and ``undrift_fiducials`` correct the drift of saved locs files and
+write ``<base>_undrift.hdf5`` (``_aim.hdf5`` for AIM) with the drift as
+text beside it; ``render`` writes ``<base>.png`` through matplotlib. The
+post-localize verbs take ``--device`` too.
 """
 
 from __future__ import annotations
@@ -29,6 +37,17 @@ import os
 _METHOD_MAP = {"mle": "gaussmle", "lq": "gausslq", "lq-gpu": "gausslq-gpu",
                "avg": "avg", "lq-3d": "gausslq", "lq-gpu-3d": "gausslq-gpu",
                "mle-3d": "gaussmle"}
+
+
+def _iter_files(pattern: str) -> list[str]:
+    paths = sorted(glob.glob(pattern))
+    if not paths:
+        print(f"No files matching {pattern}")
+    return paths
+
+
+def _out_path(path: str, suffix: str) -> str:
+    return os.path.splitext(path)[0] + suffix + ".hdf5"
 
 
 def _toraw(args):
@@ -63,10 +82,7 @@ def _localize(args, parser):
         y0, x0, y1, x1 = args.roi
         roi = ((y0, x0), (y1, x1))
     frame_bounds = tuple(args.frame_bounds) if args.frame_bounds else None
-    paths = sorted(glob.glob(args.files))
-    if not paths:
-        print(f"No files matching {args.files}")
-    for path in paths:
+    for path in _iter_files(args.files):
         print(f"Localizing {path}")
         movie, info = io.load_movie(path)
         kw = dict(roi=roi, frame_bounds=frame_bounds, movie_info=info,
@@ -82,7 +98,7 @@ def _localize(args, parser):
                 movie, camera_info, {"Min. Net Gradient": args.gradient,
                                      "Box Size": args.box_side_length},
                 return_info=True, **kw)
-        out = os.path.splitext(path)[0] + "_locs" + args.suffix + ".hdf5"
+        out = _out_path(path, "_locs" + args.suffix)
         io.save_locs(out, locs, new_info)
         print(f"Saved {len(locs)} locs to {out}")
         if args.drift > 0:
@@ -97,21 +113,90 @@ def _localize(args, parser):
                 _undrift_rcc_single(out, args.drift, device)
 
 
-def _undrift_rcc_single(path: str, segmentation: int, device):
-    """RCC undrift of a saved locs file (picasso_tpu/__main__.py:166):
-    ``<base>_drift.txt`` and ``<base>_undrift.hdf5`` beside it."""
+def _undrift_rcc_single(path: str, segmentation, device, fromfile=None):
+    """RCC undrift of a saved locs file, or the drift of ``fromfile``
+    applied to it (picasso_tpu/__main__.py:166): ``<base>_undrift.hdf5``
+    beside it, and for RCC ``<base>_drift.txt``. The info records
+    ``segmentation`` as given."""
     from picasso_torch import io, postprocess
 
     locs, info = io.load_locs(path)
-    drift, locs = postprocess.undrift(locs, info, segmentation,
-                                      device=device)
-    base = os.path.splitext(path)[0]
-    io.save_drift(base + "_drift.txt", drift)
-    new_info = info + [{"Generated by": "Picasso Undrift RCC",
-                        "Segmentation": segmentation}]
-    out = base + "_undrift.hdf5"
+    if fromfile:
+        locs = postprocess.apply_drift(locs, info,
+                                       drift=io.load_drift(fromfile))
+        new_info = info + [{"Generated by": "Picasso Undrift (from file)"}]
+    else:
+        drift, locs = postprocess.undrift(locs, info, int(segmentation),
+                                          device=device)
+        io.save_drift(os.path.splitext(path)[0] + "_drift.txt", drift)
+        new_info = info + [{"Generated by": "Picasso Undrift RCC",
+                            "Segmentation": segmentation}]
+    out = _out_path(path, "_undrift")
     io.save_locs(out, locs, new_info)
     print(f"Undrifted -> {out}")
+
+
+def _undrift(args):
+    from picasso_torch import lib
+
+    device = lib.resolve_device(args.device)
+    for path in _iter_files(args.files):
+        _undrift_rcc_single(path, args.segmentation, device, args.fromfile)
+
+
+def _aim(args):
+    from picasso_torch import aim, io, lib
+
+    device = lib.resolve_device(args.device)
+    for path in _iter_files(args.files):
+        locs, info = io.load_locs(path)
+        locs, new_info, drift = aim.aim(
+            locs, info, segmentation=int(args.segmentation),
+            intersect_d=args.intersectdist, roi_r=args.roiradius,
+            device=device)
+        io.save_drift(os.path.splitext(path)[0] + "_aimdrift.txt", drift)
+        out = _out_path(path, "_aim")
+        io.save_locs(out, locs, new_info)
+        print(f"AIM undrifted -> {out}")
+
+
+def _undrift_fiducials(args):
+    from picasso_torch import io, lib, postprocess
+
+    device = lib.resolve_device(args.device)
+    for path in _iter_files(args.files):
+        locs, info = io.load_locs(path)
+        locs, new_info, drift = postprocess.undrift_from_fiducials(
+            locs, info, device=device)
+        io.save_drift(os.path.splitext(path)[0] + "_fiducialdrift.txt",
+                      drift)
+        out = _out_path(path, "_undrift")
+        io.save_locs(out, locs, new_info)
+        print(f"Fiducial undrifted -> {out}")
+
+
+def _render(args):
+    from picasso_torch import io, lib, render
+
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise ImportError("the render verb writes its PNG with matplotlib, "
+                          "which is not installed") from e
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    device = lib.resolve_device(args.device)
+    for path in _iter_files(args.files):
+        locs, info = io.load_locs(path)
+        _, image = render.render(
+            locs, info, oversampling=args.oversampling,
+            blur_method=None if args.blur_method == "none"
+            else args.blur_method, device=device)
+        out = os.path.splitext(path)[0] + ".png"
+        plt.imsave(out, render.scale_contrast(image, autoscale=True),
+                   cmap=args.cmap, vmin=0, vmax=1)
+        print(f"Rendered {path} -> {out}")
 
 
 @contextlib.contextmanager
@@ -174,20 +259,62 @@ def main(argv=None):
     p.add_argument("-zc", "--zc", type=str, default="")
     p.add_argument("-sf", "--suffix", type=str, default="")
     p.add_argument("-db", "--database", action="store_true")
+    _device_arg(p)
+    localize_parser = p
+
+    p = subparsers.add_parser(
+        "render", help="render localization based images"
+    )
+    p.add_argument("files", nargs="?")
+    p.add_argument("-o", "--oversampling", type=float, default=1.0)
+    p.add_argument(
+        "-b", "--blur-method",
+        choices=["none", "convolve", "gaussian", "gaussian_iso", "smooth"],
+        default="convolve",
+    )
+    p.add_argument("-c", "--cmap", default="hot")
+    _device_arg(p)
+
+    p = subparsers.add_parser("undrift", help="drift correction by RCC")
+    p.add_argument("files")
+    p.add_argument("-s", "--segmentation", type=float, default=1000)
+    p.add_argument("-f", "--fromfile", type=str)
+    p.add_argument("-d", "--display", action="store_true",
+                   help="accepted and ignored (no display)")
+    _device_arg(p)
+
+    p = subparsers.add_parser("aim", help="drift correction by AIM")
+    p.add_argument("files")
+    p.add_argument("-s", "--segmentation", type=float, default=100)
+    p.add_argument("-i", "--intersectdist", type=float, default=20 / 130)
+    p.add_argument("-r", "--roiradius", type=float, default=60 / 130)
+    _device_arg(p)
+
+    p = subparsers.add_parser(
+        "undrift_fiducials", help="drift correction from fiducials"
+    )
+    p.add_argument("files")
+    _device_arg(p)
+
+    args = parser.parse_args(argv)
+    if args.command is None:
+        parser.print_help()
+        return
+    verbs = {"toraw": _toraw, "render": _render, "undrift": _undrift,
+             "aim": _aim, "undrift_fiducials": _undrift_fiducials}
+    if args.command in verbs:
+        verbs[args.command](args)
+        return
+    with _profile(args.profile):
+        _localize(args, localize_parser)
+
+
+def _device_arg(p) -> None:
     p.add_argument(
         "--device", default="cuda",
         help="torch device (default cuda); cpu runs the plain PyTorch "
         "versions of the kernels",
     )
-    args = parser.parse_args(argv)
-    if args.command is None:
-        parser.print_help()
-        return
-    if args.command == "toraw":
-        _toraw(args)
-        return
-    with _profile(args.profile):
-        _localize(args, p)
 
 
 if __name__ == "__main__":

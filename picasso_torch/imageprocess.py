@@ -1,13 +1,14 @@
 """FFT image correlation for drift correction: the redundant
-cross-correlation (RCC) of rendered segments.
+cross-correlation (RCC) of rendered segments; and the search for
+fiducial markers.
 
 Counterpart of picasso_tpu/imageprocess.py (xcorr :29, _fit_peak :39,
-_crop_center :80, get_image_shift :97, rcc :129). Each segment is FFT'd
-once on its torch device; the pair correlations run there in chunks of
-pairs, in f64 (numpy 2 transforms the JAX package's f32 segments in
-complex64), and only the centre that the peak search reads (max_shift
-wide) comes back to the host, where the 5x5 Gaussian peak fits run with
-scipy's curve_fit.
+_crop_center :80, get_image_shift :97, rcc :129, find_fiducials :197).
+Each segment is FFT'd once on its torch device; the pair correlations
+run there in chunks of pairs, in f64 (numpy 2 transforms the JAX
+package's f32 segments in complex64), and only the centre that the peak
+search reads (max_shift wide) comes back to the host, where the 5x5
+Gaussian peak fits run with scipy's curve_fit.
 """
 
 from __future__ import annotations
@@ -159,3 +160,54 @@ def rcc(segments, max_shift: int | None = None):
     shifts_y, shifts_x = peak_shifts(crops, offsets, tuple(seg.shape[1:]),
                                      empty)
     return lib.minimize_shifts(shifts_x, shifts_y)
+
+
+def percentile_linear(values: torch.Tensor, q: float):
+    """np.percentile(values, q) (linear interpolation) of a float tensor
+    on its device, as a numpy scalar of its dtype: the two neighbours
+    from a sort on the device, then numpy's own interpolation in that
+    dtype (q / 100 and the index as numpy forms them)."""
+    s = torch.sort(values.reshape(-1)).values
+    n = len(s)
+    dt = torch.empty(0, dtype=s.dtype).numpy().dtype
+    vi = np.asanyarray((n - 1) * np.asanyarray(np.true_divide(
+        q, dt.type(100))))
+    lo = np.floor(vi)
+    if vi >= n - 1:
+        i = j = n - 1
+    elif vi < 0:
+        i = j = 0
+    else:
+        i, j = int(lo), int(lo) + 1
+    if bool(torch.isnan(s[-1])):
+        return s[-1].cpu().numpy()[()]
+    a, b = (v.cpu().numpy()[()] for v in (s[i], s[j]))
+    gamma = np.asanyarray(vi - lo, dtype=vi.dtype)
+    diff = np.subtract(b, a)
+    out = np.asanyarray(np.add(a, diff * gamma))
+    np.subtract(b, diff * (1 - gamma), out=out, where=gamma >= 0.5,
+                casting="unsafe", dtype=type(out.dtype))
+    return out[()]
+
+
+def find_fiducials(locs: np.ndarray, info: list[dict], *, device="cuda"):
+    """Positions of fiducial markers (picasso/imageprocess.py:220): the
+    ``smooth`` render at oversampling 1 on ``device``, its local maxima
+    above the 99th percentile through K4 (localize.identify_in_image, box
+    900 nm in pixels, odd), kept where a circle of half the box holds
+    more locs than 0.8 x Frames. Returns (picks [(x, y)], box)."""
+    from picasso_torch import localize, postprocess, render
+
+    device = lib.resolve_device(device)
+    _, image = render.render_t(render.columns(locs, ("x", "y"), device),
+                               info, oversampling=1, blur_method="smooth")
+    threshold = percentile_linear(image, 99)
+    pixelsize = lib.get_from_metadata(info, "Pixelsize", default=130)
+    box = int(np.round(900 / pixelsize))
+    box = box + 1 if box % 2 == 0 else box
+    y, x, _ = localize.identify_in_image(image, threshold, box)
+    picks = [(int(xi), int(yi)) for xi, yi in zip(x, y)]
+    min_n = 0.8 * lib.get_from_metadata(info, "Frames", default=0)
+    picked = postprocess.picked_locs(locs, info, picks, "Circle",
+                                     pick_size=box / 2, add_group=False)
+    return [p for p, g in zip(picks, picked) if len(g) > min_n], box

@@ -3,12 +3,12 @@
 conversion, the YAML info chain and the HDF5 ``"locs"`` table.
 
 Counterpart of picasso_tpu/io.py (load_info :48, save_info :60,
-save_locs :81, load_locs :102, save_drift :282, AbstractPicassoMovie
-:397, load_raw :447, TiffMap :476, STKMovie :661, STKMultiMovie :689,
-TiffMultiMap :760, load_tif :846, IMSMovie :862, load_ims :992,
-load_ims_all :1007, the ND2 metadata helpers :1232-:1376, ND2Movie :1380,
-load_stk :1460, load_movie :1472, the raw conversion :1493-:1540,
-save_raw :1696). The files written are byte-compatible with
+save_locs :81, load_locs :102, save_drift :282, load_drift :288,
+AbstractPicassoMovie :397, load_raw :447, TiffMap :476, STKMovie :661,
+STKMultiMovie :689, TiffMultiMap :760, load_tif :846, IMSMovie :862,
+load_ims :992, load_ims_all :1007, the ND2 metadata helpers :1232-:1376,
+ND2Movie :1380, load_stk :1460, load_movie :1472, the raw conversion
+:1493-:1540, save_raw :1696). The files written are byte-compatible with
 picasso_tpu.io's, and the readers return the same frames and info.
 ``h5py``, ``yaml`` and ``nd2`` are imported inside the functions that
 need them, so the localize path itself needs only numpy, torch and
@@ -819,3 +819,23 @@ def save_drift(path: str, drift: np.ndarray) -> None:
     "x y" per frame (picasso/io.py:514)."""
     np.savetxt(path, np.column_stack([drift[n] for n in drift.dtype.names]),
                newline="\r\n")
+
+
+def load_drift(path: str) -> np.ndarray:
+    """Per-frame drift from a text file of 2 or 3 columns (picasso/
+    io.py:528): a structured array with fields x, y (and z), f64. Raises
+    ValueError for a name that does not end in ``.txt`` or another
+    shape."""
+    if not path.endswith(".txt"):
+        raise ValueError("Drift file must end with .txt")
+    drift = np.loadtxt(path, delimiter=" ")
+    if drift.ndim != 2 or drift.shape[1] not in (2, 3):
+        raise ValueError(
+            "Drift must be a 2D array with 2 or 3 columns (x, y, (z)). "
+            f"Loaded array has shape {drift.shape}."
+        )
+    out = np.empty(len(drift), [(c, np.float64) for c in ("x", "y", "z")
+                                [:drift.shape[1]]])
+    for i, c in enumerate(out.dtype.names):
+        out[c] = drift[:, i]
+    return out

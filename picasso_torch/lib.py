@@ -2,9 +2,12 @@
 on numpy structured arrays, progress reporting and device resolution.
 
 Counterpart of the parts of picasso_tpu/lib.py that the localize path
-uses (get_from_metadata :41, ensure_sanity :82, minimize_shifts :445,
-MockProgress :670, progress_reporter :731). Locs are numpy structured arrays with the
-record layout of the HDF5 ``"locs"`` dataset.
+and the picks use (get_from_metadata :41, ensure_sanity :82,
+check_if_in_polygon :148, check_if_in_rectangle :170,
+get_pick_rectangle_corners :213, minimize_shifts :445, MockProgress
+:670, progress_reporter :731, get_pick_polygon_corners :828). Locs are
+numpy structured arrays with the record layout of the HDF5 ``"locs"``
+dataset.
 """
 
 from __future__ import annotations
@@ -112,6 +115,52 @@ def minimize_shifts(shifts_x: np.ndarray, shifts_y: np.ndarray):
     shift_y = np.insert(np.cumsum(Dj[:, 0]), 0, 0)
     shift_x = np.insert(np.cumsum(Dj[:, 1]), 0, 0)
     return shift_y, shift_x
+
+
+def check_if_in_polygon(x, y, X, Y) -> np.ndarray:
+    """Ray-casting point-in-polygon test, vectorized over the points
+    (picasso/lib.py:1885), in f64."""
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    X = np.asarray(X, dtype=np.float64)
+    Y = np.asarray(Y, dtype=np.float64)
+    inside = np.zeros(len(x), dtype=bool)
+    j = len(X) - 1
+    for i in range(len(X)):
+        cond = (Y[i] > y) != (Y[j] > y)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            xint = (X[j] - X[i]) * (y - Y[i]) / (Y[j] - Y[i]) + X[i]
+        inside ^= cond & (x < xint)
+        j = i
+    return inside
+
+
+def check_if_in_rectangle(x, y, X, Y) -> np.ndarray:
+    """Point-in-(rotated)-rectangle test through the polygon test
+    (picasso/lib.py:1956)."""
+    return check_if_in_polygon(x, y, X, Y)
+
+
+def get_pick_rectangle_corners(start_x: float, start_y: float, end_x: float,
+                               end_y: float, width: float):
+    """The 4 corners ([x1..x4], [y1..y4]) of a rectangle pick given by
+    its centre line and width."""
+    if end_x == start_x:
+        alpha = np.pi / 2
+    else:
+        alpha = np.arctan((end_y - start_y) / (end_x - start_x))
+    dx = width * np.sin(alpha) / 2
+    dy = width * np.cos(alpha) / 2
+    return ([start_x - dx, start_x + dx, end_x + dx, end_x - dx],
+            [start_y + dy, start_y - dy, end_y - dy, end_y + dy])
+
+
+def get_pick_polygon_corners(pick):
+    """X and Y corner coordinates of a closed pick polygon, or (None,
+    None) if the pick is not closed (picasso/lib.py:2158)."""
+    if len(pick) < 3 or pick[0] != pick[-1]:
+        return None, None
+    return [p[0] for p in pick], [p[1] for p in pick]
 
 
 class MockProgress:

@@ -1,13 +1,14 @@
 """Identify + fit spots: the ``identify``, ``fit2D``, ``localize`` and
-``localize_3D`` entry points of the port.
+``localize_3D`` entry points of the port, and ``identify_in_image``.
 
-Counterpart of picasso_tpu/localize.py (_id_frame_chunk :60, identify
-:134, get_spots :290, get_spots_raw :326, fit2D :346, localize :516,
-localize_3D :668). ``localize`` with a Gaussian fitter runs the fused
-chain per frame chunk (ops/fused.py) on ``device``: on a CUDA device
-through the hand-written kernels, on the CPU through their plain PyTorch
-versions. ``avg`` identifies (K4), cuts the ROIs and sums them
-(avgroi.py); a lazy movie does so in one pass (stream.identify_and_cut).
+Counterpart of picasso_tpu/localize.py (_id_frame_chunk :60,
+identify_in_image :71, identify :134, get_spots :290, get_spots_raw
+:326, fit2D :346, localize :516, localize_3D :668). ``localize`` with
+a Gaussian fitter runs the fused chain per frame chunk (ops/fused.py) on
+``device``: on a CUDA device through the hand-written kernels, on the
+CPU through their plain PyTorch versions. ``avg`` identifies (K4), cuts
+the ROIs and sums them (avgroi.py); a lazy movie does so in one pass
+(stream.identify_and_cut).
 The fitters: ``gausslq`` and ``gausslq-gpu`` (the LM fit, the default),
 ``gaussmle`` (methods ``sigmaxy`` and ``sigma``) and ``avg``.
 
@@ -117,6 +118,26 @@ def identify(
     if return_info:
         return ids, _identify_info(minimum_ng, box, roi, frame_bounds)
     return ids
+
+
+def identify_in_image(image, minimum_ng: float, box: int, *, device="cuda"):
+    """Local maxima and net gradients of one image through K4
+    (picasso/localize.py:248): a 2D array, or a tensor, which stays on
+    its own device. Returns numpy (y, x, net_gradient)."""
+    import torch
+
+    from picasso_torch.ops.identify import compact
+    from picasso_torch.ops.identify_cuda import identify_tiles
+
+    if isinstance(image, torch.Tensor):
+        frames = image.to(torch.float32)[None].contiguous()
+    else:
+        frames = torch.from_numpy(np.ascontiguousarray(
+            image, np.float32)[None]).to(lib.resolve_device(device))
+    _, y, x, ng = compact(*identify_tiles(frames, minimum_ng, box), box)
+    return (y.cpu().numpy().astype(np.int64),
+            x.cpu().numpy().astype(np.int64),
+            ng.cpu().numpy().astype(np.float32))
 
 
 def _cut_on_device(movie, identifications, box: int, device) -> np.ndarray:

@@ -20,7 +20,7 @@ import torch
 from torch_data import (
     K4_SHAPES, make_bench_movie, make_spots, small_frames, spots_chunk,
 )
-from picasso_torch import localize, postprocess
+from picasso_torch import imageprocess, localize, postprocess
 from picasso_torch.ops import (
     fused, identify, identify_cuda, lq, lq_cuda, mle, mle_cuda, winfit_cuda,
 )
@@ -681,3 +681,108 @@ def test_zfit_on_the_card_equals_the_cpu(dev, method):
     z_c = zfit.fit_z_grid(locs["sx"], locs["sy"], CALIB_3D, device="cpu")
     for a, b in zip(z_g, z_c):
         np.testing.assert_array_equal(a, b)
+
+
+def _drifted_locs(seed: int, n_frames: int = 300, size: int = 64,
+                  n_fid: int = 3):
+    """Locs of 60 sites (4 a frame, 0.05 px) and ``n_fid`` fiducial
+    tracks away from them, all with +0.8 px linear drift in x and a 0.5
+    px sine in y, frame-sorted; and the info."""
+    from torch_data import FIDUCIAL_DTYPE, fiducial_tracks, free_positions
+
+    rng = np.random.default_rng(seed)
+    sites = rng.uniform(4, size - 4, (60, 2))
+    frame = np.repeat(np.arange(n_frames), 4)
+    s = rng.integers(0, len(sites), len(frame))
+    locs = np.zeros(len(frame), FIDUCIAL_DTYPE)
+    locs["frame"] = frame
+    locs["x"] = sites[s, 0] + rng.normal(0, 0.05, len(frame))
+    locs["y"] = sites[s, 1] + rng.normal(0, 0.05, len(frame))
+    locs["lpx"] = locs["lpy"] = 0.05
+    fid = fiducial_tracks(free_positions(sites[:, 0], sites[:, 1], size,
+                                         n_fid, 6.0), n_frames, rng)
+    locs = np.concatenate([locs, fid])
+    locs = locs[np.argsort(locs["frame"], kind="stable")]
+    t = locs["frame"] / (n_frames - 1)
+    locs["x"] += (0.8 * t).astype(np.float32)
+    locs["y"] += (0.5 * np.sin(2 * np.pi * t)).astype(np.float32)
+    info = [{"Frames": n_frames, "Height": size, "Width": size,
+             "Pixelsize": 130}]
+    return locs, info
+
+
+@pytest.mark.parametrize("z", [False, True])
+def test_aim_on_the_card_equals_the_cpu(dev, z):
+    """The count maps are integers and every division takes a tensor,
+    so the drift and the locs equal the CPU's bit for bit."""
+    from numpy.lib import recfunctions
+
+    from picasso_torch import aim
+
+    locs, info = _drifted_locs(4)
+    if z:
+        rng = np.random.default_rng(5)
+        zc = rng.uniform(-300, 300, len(locs))
+        locs = recfunctions.append_fields(locs, "z", zc.astype(np.float32),
+                                          usemask=False)
+    g = aim.aim(locs, info, segmentation=50, device=dev)
+    c = aim.aim(locs, info, segmentation=50, device="cpu")
+    for a, b in ((g[0], c[0]), (g[2], c[2])):
+        for name in a.dtype.names:
+            np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+    assert g[1] == c[1]
+
+
+@pytest.mark.parametrize("n", [20_000, 80_000])
+@pytest.mark.parametrize("blur", [None, "gaussian", "gaussian_iso", "smooth",
+                                  "convolve"])
+def test_render_on_the_card_matches_the_cpu(dev, blur, n):
+    """Histogram, smooth and convolve equal (counts, and the filter's
+    f64 terms in one order); the splats within 1e-5 of the image max
+    (atomic sums in any order, the card's exp), on both routes."""
+    from picasso_torch import render
+
+    rng = np.random.default_rng(6)
+    locs = np.zeros(n, [("frame", np.uint32), ("x", np.float64),
+                        ("y", np.float64), ("lpx", np.float32),
+                        ("lpy", np.float32)])
+    locs["x"], locs["y"] = rng.uniform(-1, 65, (2, n))
+    locs["lpx"], locs["lpy"] = rng.uniform(0.02, 0.3, (2, n))
+    info = [{"Frames": 10, "Height": 64, "Width": 64}]
+    kw = dict(oversampling=7.3, viewport=((3.3, 2.7), (60.1, 61.9)),
+              blur_method=blur)
+    ng, g = render.render(locs, info, device=dev, **kw)
+    nc, c = render.render(locs, info, device="cpu", **kw)
+    assert ng == nc
+    if blur in (None, "smooth", "convolve"):
+        np.testing.assert_array_equal(g, c)
+    else:
+        assert np.abs(g - c).max() <= 1e-5 * c.max()
+
+
+def test_identify_in_image_runs_k4(dev):
+    """On a tensor on the card identify_in_image launches K4 once; its
+    hits equal the plain version's, ng within compare_tiles' rtol."""
+    rng = np.random.default_rng(7)
+    image = rng.normal(10, 2, (96, 128)).astype(np.float32)
+    for yc, xc in ((10, 12), (40, 60), (30, 100), (80, 20)):
+        image[yc - 2:yc + 3, xc - 2:xc + 3] += rng.uniform(200, 400)
+    before = identify_cuda.identify_tiles.launches
+    g = localize.identify_in_image(torch.from_numpy(image).to(dev), 500.0, 7)
+    assert identify_cuda.identify_tiles.launches == before + 1
+    c = localize.identify_in_image(image, 500.0, 7, device="cpu")
+    assert len(g[0]) == 4
+    np.testing.assert_array_equal(g[0], c[0])
+    np.testing.assert_array_equal(g[1], c[1])
+    np.testing.assert_allclose(g[2], c[2], rtol=1e-5, atol=0)
+
+
+def test_fiducials_on_the_card_equal_the_cpu(dev):
+    locs, info = _drifted_locs(8)
+    picks_g, box = imageprocess.find_fiducials(locs, info, device=dev)
+    picks_c, _ = imageprocess.find_fiducials(locs, info, device="cpu")
+    assert picks_g == picks_c and len(picks_g) == 3 and box == 7
+    g = postprocess.undrift_from_fiducials(locs, info, device=dev)
+    c = postprocess.undrift_from_fiducials(locs, info, device="cpu")
+    for name in g[2].dtype.names:
+        assert np.abs(g[2][name] - c[2][name]).max() <= 1e-9

@@ -18,7 +18,7 @@ import torch
 import bench
 import picasso_torch
 import torch_data
-from picasso_torch import _build
+from picasso_torch import _build, localize
 from picasso_torch.ops import identify_cuda, lq_cuda, mle_cuda, winfit_cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,7 +48,7 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     for m in ("ops.mle_cuda", "ops.lq_cuda", "ops.winfit_cuda",
               "ops.render_ops", "render", "imageprocess", "postprocess",
-              "io", "stream", "avgroi", "zfit"):
+              "io", "stream", "avgroi", "zfit", "aim"):
         assert "picasso_torch." + m in mods
     smoke = _smoke_imports()
     assert "torch_data" in smoke and "torch_parity" in smoke
@@ -111,7 +111,8 @@ def test_sources_hash_and_cover_every_entry():
                                      "winfit_fit_mle_t",
                                      "winfit_fit_mle_boundary_t",
                                      "winfit_fit_mle_queue_t",
-                                     "winfit_fit_lq_queue_t"])
+                                     "winfit_fit_lq_queue_t",
+                                     "identify_in_image"])
 def test_wrappers_do_not_fall_back_off_the_cpu(wrapper):
     """A tensor on any device but the CPU goes to the kernel or raises;
     the plain version is never taken for it."""
@@ -125,6 +126,10 @@ def test_wrappers_do_not_fall_back_off_the_cpu(wrapper):
     elif wrapper == "identify":
         frames = torch.empty((2, 32, 32), dtype=torch.uint16, device="meta")
         call = lambda: identify_cuda.identify_tiles(frames, 100.0, 7)  # noqa: E731
+    elif wrapper == "identify_in_image":
+        image = torch.empty((32, 32), device="meta")
+        call = lambda: localize.identify_in_image(  # noqa: E731
+            image, 100.0, 7)
     elif wrapper.startswith("lq_"):
         spots = torch.empty((7, 7, 16), device="meta")
         fn = getattr(lq_cuda, wrapper[3:])
@@ -181,3 +186,39 @@ def test_data_copies_equal_bench(seed):
     np.testing.assert_array_equal(
         torch_data.make_bench_movie(*args, np.random.default_rng(seed)),
         bench.make_bench_movie(*args, np.random.default_rng(seed)))
+
+
+def test_post_localize_entry_points_need_the_card_or_cpu(tmp_path):
+    """Without device="cpu" and without a card the drift corrections,
+    the renders and their verbs raise; none falls back to the CPU."""
+    from picasso_torch import __main__ as cli
+    from picasso_torch import aim, imageprocess, io, postprocess, render
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    locs = np.zeros(4, [("frame", np.uint32), ("x", np.float32),
+                        ("y", np.float32), ("lpx", np.float32),
+                        ("lpy", np.float32)])
+    locs["frame"] = np.arange(4)
+    locs["x"] = locs["y"] = 3.0
+    locs["lpx"] = locs["lpy"] = 0.1
+    info = [{"Frames": 4, "Width": 8, "Height": 8, "Pixelsize": 130}]
+    path = str(tmp_path / "x_locs.hdf5")
+    io.save_locs(path, locs, info)
+    calls = [
+        lambda: render.render(locs, info, blur_method="convolve"),
+        lambda: render.render_hist(locs, 1.0, 0, 0, 8, 8),
+        lambda: aim.aim(locs, info, segmentation=2),
+        lambda: aim.intersection_max(locs["x"], locs["y"], locs["x"],
+                                     locs["y"], locs["frame"] + 1,
+                                     np.array([0, 2, 4]), 0.2, 0.5, 8),
+        lambda: imageprocess.find_fiducials(locs, info),
+        lambda: postprocess.undrift_from_fiducials(locs, info),
+        lambda: localize.identify_in_image(np.zeros((16, 16)), 1.0, 7),
+    ] + [lambda verb=verb: cli.main([verb, path]) for verb in (
+        "undrift", "aim", "undrift_fiducials", "render")]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "x_locs.hdf5", "x_locs.yaml"]

@@ -1,6 +1,10 @@
-"""RCC drift correction of the port (picasso_torch.render,
-imageprocess, lib.minimize_shifts, postprocess, io.save_drift and the
-CLI's default ``-d 1000``) held against picasso_tpu on the CPU.
+"""Drift correction of the port held against picasso_tpu on the CPU:
+RCC (picasso_torch.render, imageprocess, lib.minimize_shifts,
+postprocess, io.save_drift and the CLI's default ``-d 1000``), drift
+files (io.load_drift), picks and fiducials (postprocess.picked_locs,
+undrift_from_picked, undrift_from_fiducials, imageprocess.find_fiducials,
+localize.identify_in_image), and the CLI verbs ``undrift``, ``aim``,
+``undrift_fiducials`` and ``render`` against the JAX CLI.
 
 Tolerances, with the spread measured on the CPU (numpy 2, torch 2.13):
 - histograms equal; Gaussian-blurred images within rtol 1e-5 + atol
@@ -15,7 +19,17 @@ Tolerances, with the spread measured on the CPU (numpy 2, torch 2.13):
   one);
 - drifts within 1e-5 px (measured 3e-8 px on the 16-segment movie
   below), and both recover the injected drift to a residual RMS of
-  0.1 px after removing the constant offset (measured 0.03 px).
+  0.1 px after removing the constant offset (measured 0.03 px);
+- picks and fiducial drifts equal (numpy on the same numbers); the
+  positions of identify_in_image equal and its net gradients within
+  rtol 1e-5, as everywhere for identify (JAX's XLA program and K4 fuse
+  multiply-adds, the plain version rounds each product); picks compare
+  rows within a frame as sets (the port sorts stably, JAX with pandas'
+  quicksort); the fiducials sit apart from other locs, since JAX's drift
+  of a frame with two locs in a pick depends on that order;
+- the PNGs of the render verb equal pixel for pixel, for every blur (the
+  Gaussian splats differ from JAX's by a few f32 ulps, which no 8-bit
+  level of these images straddles).
 """
 
 from __future__ import annotations
@@ -33,6 +47,7 @@ import torch
 from picasso_tpu import imageprocess as jimage
 from picasso_tpu import io as jio
 from picasso_tpu import lib as jlib
+from picasso_tpu import localize as jloc
 from picasso_tpu import postprocess as jpost
 from picasso_tpu import render as jrender
 from picasso_torch import imageprocess as timage
@@ -122,9 +137,11 @@ def test_render_matches_jax(blur, oversampling, viewport):
 
 
 def test_render_unported_blur_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Rotated views (ang=) are the one part of render left to port."""
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
         trender.render(_random_locs(10, 8, 0), _info(100, 8),
-                       blur_method="smooth", device="cpu")
+                       blur_method="gaussian", ang=(0.1, 0.2, 0.0),
+                       device="cpu")
 
 
 def test_xcorr_image_shift_and_minimize_shifts_match_jax():
@@ -250,3 +267,257 @@ def test_cli_default_drift_matches_the_jax_cli(tmp_path):
     info_j = tio.load_info(str(j / "x_locs_undrift.hdf5"))
     assert info_t[-1] == info_j[-1] == {
         "Generated by": "Picasso Undrift RCC", "Segmentation": 1000}
+
+
+# ---------------------------------------------------------------------------
+# drift files, picks, fiducials and the post-localize verbs
+# ---------------------------------------------------------------------------
+
+FID_FRAMES, FID_SIZE = 400, 64
+
+
+def _fiducial_locs(seed: int = 0, n_fid: int = 4) -> np.ndarray:
+    """DNA-PAINT-like locs of 150 sites (3 locs a frame, 0.05 px) and
+    ``n_fid`` fiducials (one loc a frame, 0.01 px) 6 px or more from any
+    site, with the drift of :func:`_injected` over FID_FRAMES frames."""
+    rng = np.random.default_rng(seed)
+    span = FID_SIZE - 16
+    fid = np.array([[8.3 + span * (i % 2), 8.6 + span * (i // 2 % 2)]
+                    for i in range(n_fid)])
+    sites = rng.uniform(3, FID_SIZE - 3, (600, 2))
+    far = np.hypot(*(sites[:, None] - fid[None]).transpose(2, 0, 1)).min(1)
+    sites = sites[far > 6][:150]
+    f1 = np.repeat(np.arange(FID_FRAMES), 3)
+    s = rng.integers(0, len(sites), len(f1))
+    f2 = np.tile(np.arange(FID_FRAMES), n_fid)
+    k = np.repeat(np.arange(n_fid), FID_FRAMES)
+    frame = np.concatenate([f1, f2])
+    x = np.concatenate([sites[s, 0], fid[k, 0]])
+    y = np.concatenate([sites[s, 1], fid[k, 1]])
+    lp = np.concatenate([np.full(len(f1), 0.05), np.full(len(f2), 0.01)])
+    t = frame / (FID_FRAMES - 1)
+    x = x + 0.8 * t + rng.normal(0, 1, len(x)) * lp
+    y = y + 0.5 * np.sin(2 * np.pi * t) + rng.normal(0, 1, len(x)) * lp
+    o = np.argsort(frame, kind="stable")
+    locs = np.zeros(len(x), [("frame", np.uint32), ("x", np.float32),
+                             ("y", np.float32), ("photons", np.float32),
+                             ("lpx", np.float32), ("lpy", np.float32)])
+    locs["frame"], locs["x"], locs["y"] = frame[o], x[o], y[o]
+    locs["photons"] = 1000
+    locs["lpx"] = locs["lpy"] = lp[o]
+    return locs
+
+
+def _fid_info():
+    return [{"Byte Order": "<", "Data Type": "uint16",
+             "Frames": FID_FRAMES, "Height": FID_SIZE, "Width": FID_SIZE,
+             "Pixelsize": 130}]
+
+
+def _as_set(rec: np.ndarray) -> np.ndarray:
+    """Rows sorted by every field: rows within a frame as a set."""
+    return rec[np.lexsort([rec[n] for n in rec.dtype.names[::-1]])]
+
+
+def test_load_drift_matches_jax_and_rejects_other_files(tmp_path):
+    rng = np.random.default_rng(8)
+    for cols in (2, 3):
+        path = str(tmp_path / f"d{cols}.txt")
+        np.savetxt(path, rng.normal(size=(50, cols)), newline="\r\n")
+        t, j = tio.load_drift(path), jio.load_drift(path)
+        assert t.dtype.names == tuple(j.columns) == ("x", "y", "z")[:cols]
+        for c in t.dtype.names:
+            assert t.dtype[c] == np.float64
+            np.testing.assert_array_equal(t[c], j[c].to_numpy())
+    with pytest.raises(ValueError, match=".txt"):
+        tio.load_drift(str(tmp_path / "d2.csv"))
+    for shape in ((50, 1), (50, 4), (2,)):
+        path = str(tmp_path / "bad.txt")
+        np.savetxt(path, np.ones(shape))
+        with pytest.raises(ValueError, match="2 or 3 columns"):
+            tio.load_drift(path)
+        with pytest.raises(AssertionError):
+            jio.load_drift(path)
+
+
+@pytest.mark.parametrize("shape", ["Circle", "Rectangle", "Polygon",
+                                   "Square"])
+def test_picked_locs_match_jax(shape):
+    locs = _random_locs(6000, 40, seed=11)
+    locs["frame"] = locs["frame"] // 4
+    info = _info(100, 40)
+    picks, size = {
+        "Circle": ([(10.5, 12.25), (30.0, 5.0), (0.4, 39.5)], 2.5),
+        "Rectangle": ([((5.0, 5.0), (20.0, 30.0)), ((30.5, 10.0),
+                                                    (30.5, 35.0))], 3.0),
+        "Polygon": ([[(5, 5), (20, 8), (12, 25), (5, 5)],
+                     [(30, 30), (35, 30), (33, 38)],
+                     [(20.5, 20.5), (38, 21), (30, 39), (20.5, 20.5)]], None),
+        "Square": ([(10.0, 10.0), (25.5, 30.25)], 4.0),
+    }[shape]
+    df = pd.DataFrame.from_records(locs)
+    for add_group in (True, False):
+        t = tpost.picked_locs(locs, info, picks, shape, pick_size=size,
+                              add_group=add_group)
+        j = jpost.picked_locs(df, info, picks, shape, pick_size=size,
+                              add_group=add_group)
+        assert len(t) == len(j) == (2 if shape == "Polygon" else len(picks))
+        for pt, pj in zip(t, j):
+            rj = pj.to_records(index=False)
+            assert pt.dtype == rj.dtype and len(pt) == len(rj) > 10
+            assert np.all(np.diff(pt["frame"].astype(np.int64)) >= 0)
+            np.testing.assert_array_equal(_as_set(pt), _as_set(
+                np.asarray(rj, pt.dtype)))
+            if shape == "Rectangle":
+                assert "x_pick_rot" in pt.dtype.names
+
+
+def test_undrift_from_picked_fills_frames_no_pick_covers():
+    """Two picks (with z) that miss frames 40-59 and 90-99: those drifts
+    are interpolated, and the last frames take the last value."""
+    rng = np.random.default_rng(12)
+    picked = []
+    for k in range(2):
+        frames = np.array([f for f in range(100)
+                           if not 40 <= f < 60 and f < 90 and f % (k + 2)])
+        p = np.zeros(len(frames), [("frame", np.uint32), ("x", np.float32),
+                                   ("y", np.float32), ("z", np.float32)])
+        p["frame"] = frames
+        for c in ("x", "y", "z"):
+            p[c] = 5 + 3 * k + rng.normal(0, 0.1, len(frames))
+        picked.append(p)
+    info = _info(100, 16)
+    t = tpost.undrift_from_picked(picked, info)
+    j = jpost.undrift_from_picked(
+        [pd.DataFrame.from_records(p) for p in picked], info)
+    assert t.dtype.names == tuple(j.columns) == ("x", "y", "z")
+    for c in t.dtype.names:
+        np.testing.assert_array_equal(t[c], j[c].to_numpy())
+        assert np.isfinite(t[c]).all()
+
+
+def test_identify_in_image_matches_jax():
+    rng = np.random.default_rng(13)
+    image = rng.normal(10, 2, (64, 80)).astype(np.float32)
+    for yc, xc in ((10, 12), (40, 60), (30, 30)):
+        image[yc - 2:yc + 3, xc - 2:xc + 3] += 300
+    t = tloc.identify_in_image(image, 500.0, 7, device="cpu")
+    j = jloc.identify_in_image(image, 500.0, 7)
+    assert len(t[0]) == 3
+    for a, b in zip(t, j):
+        assert a.dtype == b.dtype
+    np.testing.assert_array_equal(t[0], j[0])
+    np.testing.assert_array_equal(t[1], j[1])
+    np.testing.assert_allclose(t[2], j[2], rtol=1e-5, atol=0)
+    ts = tloc.identify_in_image(torch.from_numpy(image), 500.0, 7)
+    for a, b in zip(ts, t):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_fiducials_match_jax_and_recover_the_drift():
+    locs = _fiducial_locs(n_fid=4)
+    info = _fid_info()
+    df = pd.DataFrame.from_records(locs)
+    picks_t, box_t = timage.find_fiducials(locs, info, device="cpu")
+    picks_j, box_j = jimage.find_fiducials(df, info)
+    assert picks_t == picks_j and box_t == box_j == 7 and len(picks_t) == 4
+    lt, it, dt = tpost.undrift_from_fiducials(locs, info, device="cpu")
+    lj, ij, dj = jpost.undrift_from_fiducials(df, info)
+    assert it == ij and dt.dtype.names == tuple(dj.columns) == ("x", "y")
+    rj = lj.to_records(index=False)
+    assert lt.dtype == rj.dtype
+    for name in lt.dtype.names:
+        np.testing.assert_array_equal(lt[name], rj[name])
+    inj = (0.8 * np.arange(FID_FRAMES) / (FID_FRAMES - 1),
+           0.5 * np.sin(2 * np.pi * np.arange(FID_FRAMES) / (FID_FRAMES - 1)))
+    for c, want in zip(("x", "y"), inj):
+        np.testing.assert_array_equal(dt[c], dj[c].to_numpy())
+        r = dt[c] - want
+        assert np.sqrt(np.mean((r - r.mean()) ** 2)) < 0.05
+    with pytest.raises(ValueError, match="pick_size"):
+        tpost.undrift_from_fiducials(locs, info, picks=picks_t, device="cpu")
+    given = tpost.undrift_from_fiducials(locs, info, picks=picks_t,
+                                         pick_size=3.5, device="cpu")
+    np.testing.assert_array_equal(given[2], dt)
+
+
+def _verb_files(tmp_path, locs, info):
+    """The same _locs.hdf5 (+ .yaml) in t/ (port) and j/ (JAX)."""
+    paths = {}
+    for d in ("t", "j"):
+        (tmp_path / d).mkdir()
+        paths[d] = str(tmp_path / d / "x_locs.hdf5")
+        jio.save_locs(paths[d], pd.DataFrame.from_records(locs), info)
+    return paths
+
+
+def _outputs(folder):
+    return sorted(p.name for p in folder.iterdir())
+
+
+_VERBS = {
+    "undrift-s": (["undrift", "{f}", "-s", "100"], ["x_locs_undrift.hdf5",
+                                                     "x_locs_drift.txt"]),
+    "undrift-f": (["undrift", "{f}", "-f", "{drift}", "-d"],
+                  ["x_locs_undrift.hdf5"]),
+    "aim": (["aim", "{f}", "-s", "50"], ["x_locs_aim.hdf5",
+                                         "x_locs_aimdrift.txt"]),
+    "undrift_fiducials": (["undrift_fiducials", "{f}"],
+                          ["x_locs_undrift.hdf5", "x_locs_fiducialdrift.txt"]),
+    "render": (["render", "{f}"], ["x_locs.png"]),
+    "render-gaussian": (["render", "{f}", "-b", "gaussian", "-o", "5"],
+                        ["x_locs.png"]),
+    "render-none": (["render", "{f}", "-b", "none", "-o", "2.5", "-c",
+                     "viridis"], ["x_locs.png"]),
+    "render-iso": (["render", "{f}", "-b", "gaussian_iso", "-o", "3"],
+                   ["x_locs.png"]),
+    "render-smooth": (["render", "{f}", "-b", "smooth"], ["x_locs.png"]),
+}
+
+
+@pytest.mark.parametrize("verb", list(_VERBS))
+def test_cli_verbs_match_the_jax_cli(tmp_path, verb):
+    """The port's verb (--device cpu) and the JAX CLI's on the same
+    _locs.hdf5: the same files; HDF5 fields and YAML equal (RCC's drift
+    within DRIFT_AGREE); the PNG's pixels equal."""
+    import matplotlib.image as mpimg
+
+    from picasso_torch import __main__ as tmain
+    from picasso_tpu import __main__ as jmain
+
+    locs = _fiducial_locs(seed=3)
+    paths = _verb_files(tmp_path, locs, _fid_info())
+    drift = tmp_path / "drift.txt"
+    np.savetxt(drift, np.random.default_rng(4).normal(
+        size=(FID_FRAMES, 2)), newline="\r\n")
+    argv, produced = _VERBS[verb]
+    for d, main, extra in (("t", tmain.main, ["--device", "cpu"]),
+                           ("j", jmain.main, [])):
+        main([a.format(f=paths[d], drift=drift) for a in argv] + extra)
+    t, j = tmp_path / "t", tmp_path / "j"
+    assert _outputs(t) == _outputs(j)
+    assert set(produced) <= set(_outputs(t))
+    for name in produced:
+        if name.endswith(".hdf5"):
+            lt, lj = _read(t / name), _read(j / name)
+            assert lt.dtype == lj.dtype and len(lt) == len(lj)
+            for c in lt.dtype.names:
+                tol = DRIFT_AGREE if verb == "undrift-s" else 0
+                np.testing.assert_allclose(lt[c], lj[c], rtol=0, atol=tol)
+            assert tio.load_info(str(t / name)) == tio.load_info(
+                str(j / name))
+        elif name.endswith(".txt"):
+            tol = DRIFT_AGREE if verb == "undrift-s" else 0
+            np.testing.assert_allclose(np.loadtxt(t / name),
+                                       np.loadtxt(j / name), rtol=0,
+                                       atol=tol)
+        else:
+            np.testing.assert_array_equal(mpimg.imread(t / name),
+                                          mpimg.imread(j / name))
+
+
+def test_cli_verbs_report_no_files(tmp_path, capsys):
+    from picasso_torch import __main__ as tmain
+
+    tmain.main(["aim", str(tmp_path / "*.hdf5"), "--device", "cpu"])
+    assert f"No files matching {tmp_path}" in capsys.readouterr().out

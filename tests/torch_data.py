@@ -1,7 +1,7 @@
 """Synthetic inputs of the port's tests and of chip_smoke.py, made from a
 seed with numpy only: DNA-PAINT-like spots and movies (2D and
 astigmatic 3D), spots laid out as a frame chunk for the fused cut+fit,
-and a TIFF writer.
+fiducial markers for drift correction, and a TIFF writer.
 
 Copies of bench.make_spots and bench.make_bench_movie (the JAX package's
 benchmark, whose other functions reach JAX), so that the port's smoke
@@ -168,6 +168,54 @@ def make_astig_movie(n_frames, size, n_sites, p_on, rng, z_max=400.0,
         np.add.at(movie[fidx], (s[:, :1, None] + yy, s[:, 1:, None] + xx),
                   spots)
     return movie, sites, z * calibration["Magnification factor"]
+
+
+def free_positions(x, y, size: int, n: int, min_dist: float,
+                   margin: float = 8.0) -> np.ndarray:
+    """``n`` positions (x, y) of a grid over the field, each at least
+    ``min_dist`` px from every point (x, y) and from the others, at
+    least ``margin`` px inside the field; the ones farthest from the
+    points first. Raises ValueError if fewer are free."""
+    from scipy.spatial import cKDTree
+
+    g = np.arange(margin + 0.3, size - margin, 2.0)
+    cand = np.stack(np.meshgrid(g, g), -1).reshape(-1, 2)
+    dist, _ = cKDTree(np.stack([x, y], 1)).query(cand)
+    cand, dist = cand[dist >= min_dist], dist[dist >= min_dist]
+    chosen = []
+    for c in cand[np.argsort(-dist, kind="stable")]:
+        if all(np.hypot(*(c - o)) >= min_dist for o in chosen):
+            chosen.append(c)
+            if len(chosen) == n:
+                return np.array(chosen)
+    raise ValueError(f"only {len(chosen)} of {n} free positions")
+
+
+FIDUCIAL_DTYPE = np.dtype([(n, np.uint32 if n == "frame" else np.float32)
+                           for n in ("frame", "x", "y", "photons", "sx",
+                                     "sy", "bg", "lpx", "lpy")])
+
+
+def fiducial_tracks(centres, n_frames: int, rng, lp: float = 0.01,
+                    dtype=FIDUCIAL_DTYPE) -> np.ndarray:
+    """Fiducial markers: one loc a frame at each (x, y) centre with
+    Gaussian noise of ``lp`` px, lpx = lpy = ``lp``, 20,000 photons,
+    sx = sy = 1, bg 30 and 0 in any other field of ``dtype``, sorted by
+    frame."""
+    centres = np.asarray(centres, np.float64)
+    frame = np.tile(np.arange(n_frames), len(centres))
+    k = np.repeat(np.arange(len(centres)), n_frames)
+    order = np.argsort(frame, kind="stable")
+    frame, k = frame[order], k[order]
+    locs = np.zeros(len(frame), dtype)
+    values = {"frame": frame, "photons": 20000.0, "sx": 1.0, "sy": 1.0,
+              "bg": 30.0, "lpx": lp, "lpy": lp,
+              "x": centres[k, 0] + rng.normal(0, lp, len(k)),
+              "y": centres[k, 1] + rng.normal(0, lp, len(k))}
+    for n, v in values.items():
+        if n in locs.dtype.names:
+            locs[n] = v
+    return locs
 
 
 _TIFF_FORMAT = {"u": 1, "i": 2, "f": 3}
