@@ -90,7 +90,20 @@ Phases, each of which raises on failure (exit code != 0):
    and an RCC undrift that keeps z, d_zcalib and lpz;
 12. AIM 3D: aim.aim on the localize_3D MLE locs with the x/y drift and a
    40 nm z sine, equal to the CPU run bit for bit, the z residual under
-   AIM_Z_RESID (from the CPU run of tests/torch_aim_z_bound.py).
+   AIM_Z_RESID (from the CPU run of tests/torch_aim_z_bound.py);
+13. link -> dark -> groupprops on the undrifted MLE locs picked in
+   circles of 0.5 px on the movie's sites (make_bench_movie's
+   return_sites), at the link verb's defaults, with the host walk
+   (csrc/link_walk.cu) launched once and no kernel; the card's CSR and
+   chain ids equal the CPU's (the walk's Python twin), the events within
+   one f32 ulp, the dark times equal, groupprops within one ulp; link's
+   wall split into the candidates on the card, the CSR readback, the
+   walk and the aggregation, beside the CPU's;
+14. statistics: NeNA on the undrifted locs (histogram == the CPU's), FRC
+   of the full field (card == CPU within 1e-9 on a 32 x 32 px
+   viewport), the local density at 0.5 px (== cKDTree.query_ball_point),
+   the pair correlation of phase 13's events at -b 0.1 -r 10 (== the CPU
+   on a 48 px crop) and their nearest neighbours (== cKDTree.query).
 IMS and STK movies are checked on the CPU only (tests/test_torch_io.py):
 the machine with the card has no h5py.
 The line before the last is the JSON record of every kernel (bound_ms:
@@ -150,6 +163,12 @@ PEAK_BYTES = 3.35e12  # B/s, HBM3 (H100 SXM)
 # of tests/torch_data.make_astig_movie at this density (PERF.md): MLE
 # kept 0.911, RMS 102.7, median 13.2; LQ 0.989, 118.2, 11.4
 Z_BOUNDS = {"gaussmle": (0.88, 130.0, 20.0), "gausslq": (0.96, 150.0, 18.0)}
+PICK_RADIUS = 0.5  # px, the circles picked on the movie's sites
+LINK_D_MAX, LINK_TOL = 1.0, 1  # the link verb's defaults
+DENSITY_R = 0.5  # px
+PC_BIN, PC_RMAX = 0.1, 10.0  # the pc verb's defaults
+CROP = 48  # px, the crop of the events on which pc is held to the CPU
+FRC_VIEW = ((112.0, 112.0), (144.0, 144.0))  # 32 x 32 px, card vs CPU
 
 
 def _median_ms(fn, reps: int = 5, calls: int = 1) -> float:
@@ -365,6 +384,213 @@ def _ptxas_table(log: str) -> list[str]:
     return rows
 
 
+def link_phase(locs, info, sites, counted, smi: str):
+    """13. link -> dark -> groupprops on the card: the locs in circles of
+    PICK_RADIUS px on the movie's sites (one group a site), linked with
+    the link verb's defaults, their dark times and group properties,
+    through the entry points with every count set to 0 just before (the
+    host walk of csrc/link_walk.cu launched once, no kernel of the
+    localize path); then link's split (candidates on the card, the CSR
+    read back, the walk, the aggregation) and the same pieces on the CPU
+    (the walk's Python twin): CSR and chain ids equal, the events within
+    one f32 ulp, the dark times equal, groupprops within one ulp. Returns
+    (events, launches, walls)."""
+    import torch
+
+    from picasso_torch import postprocess
+    from picasso_torch.ops import link as link_ops
+    from torch_parity import compare_tables_ulps
+
+    picks = [(float(c), float(r)) for r, c in sites]
+    t0 = time.perf_counter()
+    picked = np.concatenate(postprocess.picked_locs(
+        locs, info, picks, "Circle", pick_size=PICK_RADIUS))
+    picked = picked[np.argsort(picked["frame"], kind="stable")]
+    pick_s = time.perf_counter() - t0
+
+    steps = {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t0
+        return out
+
+    def main_path():
+        linked = step("link", lambda: postprocess.link(
+            picked, info, r_max=LINK_D_MAX, max_dark_time=LINK_TOL,
+            device="cuda"))
+        dark = step("dark", lambda: postprocess.compute_dark_times(
+            linked, device="cuda"))
+        return linked, dark, step("groupprops", lambda: postprocess.groupprops(
+            dark, device="cuda"))
+
+    (linked, dark, groups), wall, launches = counted(main_path)
+    if launches["link walk"] != 1 or any(
+            v for k, v in launches.items() if k != "link walk"):
+        raise AssertionError(f"link -> dark -> groupprops launched {launches}")
+    cols = (picked["frame"].astype(np.int64), picked["x"], picked["y"],
+            picked["group"].astype(np.int64))
+
+    def t(a, d="cpu"):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(d)
+
+    sync = torch.cuda.synchronize
+    sync()
+    t0 = time.perf_counter()
+    off, succ = link_ops.successors(*(t(a, "cuda") for a in cols),
+                                    LINK_D_MAX, LINK_TOL)
+    sync()
+    t1 = time.perf_counter()
+    off_h, succ_h = off.cpu().numpy(), succ.cpu().numpy()
+    t2 = time.perf_counter()
+    ids = link_ops.walk_host(off_h, succ_h)
+    t3 = time.perf_counter()
+    events = postprocess._link_loc_groups(picked, info, t(ids, "cuda"))
+    sync()
+    t4 = time.perf_counter()
+    off_c, succ_c = link_ops.successors(*(t(a) for a in cols), LINK_D_MAX,
+                                        LINK_TOL)
+    t5 = time.perf_counter()
+    ids_c = link_ops.walk_plain(off_c.numpy(), succ_c.numpy())
+    t6 = time.perf_counter()
+    events_c = postprocess._link_loc_groups(picked, info, t(ids_c))
+    t7 = time.perf_counter()
+    if not (np.array_equal(off_h, off_c.numpy())
+            and np.array_equal(succ_h, succ_c.numpy())
+            and np.array_equal(ids, ids_c)):
+        raise AssertionError("link: the card's CSR or chain ids differ from "
+                             "the CPU's")
+    ulp_link = compare_tables_ulps(linked, events_c, 1, "link card vs CPU")
+    compare_tables_ulps(events, events_c, 1, "link split vs CPU")
+    dark_c = postprocess.dark_times(linked, device="cpu")
+    if not np.array_equal(dark["dark"], dark_c[dark_c != -1]):
+        raise AssertionError("dark times: card differs from the CPU")
+    ulp_gp = compare_tables_ulps(groups, postprocess.groupprops(
+        dark, device="cpu"), 1, "groupprops card vs CPU")
+    walls = {"link": t4 - t0, "candidates": t1 - t0, "readback": t2 - t1,
+             "walk": t3 - t2, "aggregation": t4 - t3, "cpu": t7 - t4,
+             "cpu walk": t6 - t5}
+    print(f"link -> dark -> groupprops ({smi}): {len(picked)} locs in "
+          f"{len(picks)} picks of {PICK_RADIUS} px ({pick_s:.3f} s to pick) "
+          f"-> {len(linked)} events (d_max {LINK_D_MAX} px, tolerance "
+          f"{LINK_TOL}; mean len {linked['len'].mean():.3f} frames, mean n "
+          f"{linked['n'].mean():.3f}) -> {len(dark)} with a dark time -> "
+          f"{len(groups)} groups: card {wall:.3f} s (link "
+          f"{steps['link']:.3f} s, dark {steps['dark']:.3f} s, groupprops "
+          f"{steps['groupprops']:.3f} s), launches {launches}")
+    print(f"  link split on the card: candidates {t1 - t0:.3f} s "
+          f"({len(succ_h)} successors of {len(picked)} locs), CSR readback "
+          f"{t2 - t1:.3f} s, walk (csrc/link_walk.cu) {t3 - t2:.3f} s, "
+          f"aggregation {t4 - t3:.3f} s = {t4 - t0:.3f} s; CPU: candidates "
+          f"{t5 - t4:.3f} s, walk (Python twin) {t6 - t5:.3f} s, aggregation "
+          f"{t7 - t6:.3f} s = {t7 - t4:.3f} s")
+    print(f"  card == CPU: CSR and chain ids equal; events within one f32 "
+          f"ulp ({ulp_link} cells differ); dark times equal; groupprops "
+          f"within one ulp ({ulp_gp} cells differ)")
+    return linked, launches, walls
+
+
+def stats_phase(locs, info, events, smi: str):
+    """14. the statistics on the card, each wall with the card's name and
+    power limit: NeNA on the locs (histogram == the CPU's), FRC on the
+    full field (card against the CPU on the FRC_VIEW viewport), the local
+    density at DENSITY_R px (== cKDTree.query_ball_point), the pair
+    correlation of the events at the pc verb's defaults (== the CPU on a
+    CROP px crop) and their nearest neighbours (== cKDTree.query).
+    Returns the walls."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    from picasso_torch import lib, postprocess
+
+    dev = "cuda"
+    walls = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    res, s = timed("nena", lambda: postprocess.nena(locs, device=dev))
+    _, h_c = timed("nena hist cpu", lambda:
+                   postprocess._next_frame_neighbor_distance_histogram(
+                       locs, device="cpu"))
+    if not np.array_equal(res["data"], h_c):
+        raise AssertionError("NeNA histogram: card differs from the CPU")
+    info_px = [dict(info[0], Pixelsize=130)]
+    full = ((0, 0), (info[0]["Height"], info[0]["Width"]))
+    torch.cuda.reset_peak_memory_stats()
+    frc_full = timed("frc", lambda: postprocess.frc(locs, info_px, full,
+                                                    device=dev))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    frc_px = frc_full.pop("images")[0].shape[0]
+    fg = timed("frc view", lambda: postprocess.frc(locs, info_px, FRC_VIEW,
+                                                   device=dev))
+    fc = timed("frc view cpu", lambda: postprocess.frc(locs, info_px,
+                                                       FRC_VIEW,
+                                                       device="cpu"))
+    frc_err = float(np.abs(fg["frc_curve"] - fc["frc_curve"]).max())
+    if frc_err > 1e-9 or fc["resolution"] is None or abs(
+            fg["resolution"] / fc["resolution"] - 1) > 1e-6:
+        raise AssertionError(f"FRC on the viewport: card differs from the "
+                             f"CPU ({frc_err}, {fg['resolution']}, "
+                             f"{fc['resolution']})")
+    if frc_full["resolution"] is None or not np.isfinite(
+            frc_full["frc_curve"]).all():
+        raise AssertionError("FRC of the full field: no resolution")
+    dens = timed("density", lambda: postprocess.compute_local_density(
+        locs, info, DENSITY_R, device=dev))
+    sane = lib.ensure_sanity(locs, info)
+    pts = np.column_stack([sane["x"], sane["y"]])
+    want = timed("density kdtree", lambda: cKDTree(pts).query_ball_point(
+        pts, DENSITY_R, return_length=True, workers=-1) - 1)
+    if not np.array_equal(dens["density"], want):
+        raise AssertionError("density differs from cKDTree")
+    bins, pc = timed("pc", lambda: postprocess.pair_correlation(
+        events, info, PC_BIN, PC_RMAX, device=dev))
+    crop = events[(events["x"] < CROP) & (events["y"] < CROP)]
+    if not np.array_equal(
+            postprocess.distance_histogram(crop, info, PC_BIN, PC_RMAX,
+                                           device=dev),
+            postprocess.distance_histogram(crop, info, PC_BIN, PC_RMAX,
+                                           device="cpu")):
+        raise AssertionError("pair histogram of the crop: card differs from "
+                             "the CPU")
+    X = np.column_stack([events["x"], events["y"]])
+    nn = timed("nn", lambda: postprocess.nn_analysis(X, X, 1, device=dev))
+    want_nn = timed("nn kdtree", lambda: cKDTree(X).query(
+        X, 2, workers=-1)[0][:, 1:])
+    if not np.array_equal(nn, want_nn):
+        raise AssertionError("nn_analysis differs from cKDTree")
+    n_pairs = int(np.round(pc * np.pi * PC_BIN * (2 * bins + PC_BIN)).sum())
+    print(f"NeNA ({smi}): {len(locs)} locs, {int(res['data'].sum())} "
+          f"next-frame pairs, s {s:.5f} px: card {walls['nena']:.3f} s "
+          f"(histogram == the CPU's, {walls['nena hist cpu']:.3f} s)")
+    print(f"FRC ({smi}): full field {full} at bins of NeNA / 2 "
+          f"({frc_px} px square), resolution "
+          f"{frc_full['resolution']:.3f} nm: card {walls['frc']:.3f} s, peak "
+          f"{peak:.2f} GiB; {FRC_VIEW} viewport ({fg['images'][0].shape[0]} "
+          f"px): card {walls['frc view']:.3f} s, CPU "
+          f"{walls['frc view cpu']:.3f} s, curve max |d| {frc_err:.3g}, "
+          f"resolution {fg['resolution']:.4f} vs {fc['resolution']:.4f} nm")
+    print(f"density ({smi}): r {DENSITY_R} px on {len(dens)} locs (mean "
+          f"{dens['density'].mean():.1f} neighbours): card "
+          f"{walls['density']:.3f} s == cKDTree.query_ball_point "
+          f"({walls['density kdtree']:.3f} s on the host)")
+    print(f"pc ({smi}): -b {PC_BIN} -r {PC_RMAX} on {len(events)} events "
+          f"({n_pairs} pairs): card {walls['pc']:.3f} s; the {CROP} px crop "
+          f"({len(crop)} events) == the CPU")
+    print(f"nn_analysis ({smi}): k 1 on {len(events)} events: card "
+          f"{walls['nn']:.3f} s == cKDTree.query ({walls['nn kdtree']:.3f} s "
+          f"on the host)")
+    return walls
+
+
 def main() -> int:
     import torch
 
@@ -379,7 +605,7 @@ def main() -> int:
         postprocess, render, zfit,
     )
     from picasso_torch.ops import (
-        fused, identify, identify_cuda, lq, lq_cuda, mle, mle_cuda,
+        fused, identify, identify_cuda, link, lq, lq_cuda, mle, mle_cuda,
         winfit_cuda,
     )
     from picasso_torch.ops._fit_common import FINISH
@@ -411,7 +637,7 @@ def main() -> int:
     def make_movie():
         t0 = time.perf_counter()
         movie = make_bench_movie(2048, 256, 1200, 0.5,
-                                 np.random.default_rng(13))
+                                 np.random.default_rng(13), return_sites=True)
         return movie, time.perf_counter() - t0
 
     def make_astig():
@@ -615,7 +841,7 @@ def main() -> int:
           f"{bounds['K7'][0]:.4f} ms ({bounds['K7'][1]}); K7 vs plain:",
           json.dumps(stats["K7"]))
 
-    movie, movie_s = movie_job.result()
+    (movie, bench_sites), movie_s = movie_job.result()
     print(f"movie {movie.shape} {movie.dtype}: {movie_s:.1f} s to generate "
           "(alongside the build)")
     # K4 on chunk 0 and on a (32, 2048, 2048) chunk tiled 8x8 from its
@@ -672,7 +898,7 @@ def main() -> int:
                 "K5 mle phases": winfit_cuda.fit_mle_boundary_t,
                 "K5 mle queue": winfit_cuda.fit_mle_queue_t,
                 "K5 lq queue": winfit_cuda.fit_lq_queue_t,
-                "K7": mle_cuda.fit_multiround_t}
+                "K7": mle_cuda.fit_multiround_t, "link walk": link.walk}
 
     n_chunks = -(-len(movie) // CHUNK)
 
@@ -1418,6 +1644,21 @@ def main() -> int:
             or resid3d["z"] > AIM_Z_RESID or any(launches_aim3d.values())):
         raise AssertionError(f"AIM 3D: residual {resid3d} against the "
                              f"bounds ({DRIFT_RESID} px, {AIM_Z_RESID} nm)")
+    # 13. link -> dark -> groupprops, on the undrifted MLE locs ----------
+    t13 = time.perf_counter()
+    events, launches_link, _ = link_phase(undrifted, info, bench_sites,
+                                          counted, smi)
+    # 14. the statistics (the FFTs of the full field want the memory that
+    # earlier phases left reserved) ------------------------------------------
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    stats_phase(undrifted, info, events, smi)
+    print(f"phases 13-14: {t14 - t13:.1f} s and "
+          f"{time.perf_counter() - t14:.1f} s ({smi})")
+    print("host code (no kernel):", json.dumps({
+        "name": "link_walk", "source": "picasso_torch/csrc/link_walk.cu",
+        "replaces": "picasso_tpu/native/picasso_native.cpp:38",
+        "launches": launches_link["link walk"]}))
     tiff_dir.cleanup()
     paths = {"mle": launches_mle, "mle-sigma": launches_sig,
              "lq": launches_lq, "tiff": launches_tif,
@@ -1425,7 +1666,7 @@ def main() -> int:
              "identify": launches_id, "fiducials": launches_fid,
              "fit2D-mle": launches_k2,
              "fit2D-lq": launches_k3, "3d-mle": paths3d["gaussmle"],
-             "3d-lq": paths3d["gausslq"]}
+             "3d-lq": paths3d["gausslq"], "link": launches_link}
     print("launches by path:", json.dumps(paths))
 
     # the kernels line -----------------------------------------------------

@@ -10,6 +10,16 @@ Counterpart of picasso_tpu/__main__.py for the verbs ported so far:
     python -m picasso_torch aim "*_locs.hdf5" [-s 100 -i 0.154 -r 0.462]
     python -m picasso_torch undrift_fiducials "*_locs.hdf5"
     python -m picasso_torch render "*_locs.hdf5" [-o 1 -b convolve -c hot]
+    python -m picasso_torch link "*_locs.hdf5" [-d 1.0 -t 1]
+    python -m picasso_torch dark "*_link.hdf5"
+    python -m picasso_torch groupprops "*_dark.hdf5"
+    python -m picasso_torch density "*_locs.hdf5" RADIUS
+    python -m picasso_torch pc "*_locs.hdf5" [-b 0.1 -r 10]
+    python -m picasso_torch nneighbor "*_clusters.hdf5"
+    python -m picasso_torch clusterfilter "*.hdf5" PARAMETER MIN MAX
+    python -m picasso_torch join a.hdf5 b.hdf5 [-k]
+    python -m picasso_torch cluster_combine "*.hdf5"
+    python -m picasso_torch cluster_combine_dist "*_comb.hdf5"
 
 ``localize`` reads .raw, .tif/.tiff series, .ims, .stk and .nd2 movies
 and takes the JAX CLI's flags and defaults plus ``--device`` (default
@@ -22,8 +32,15 @@ converts TIFF movies matching a pattern to .raw + .yaml, one file per
 multi-file series. ``undrift`` (RCC, or ``-f`` a drift file), ``aim``
 and ``undrift_fiducials`` correct the drift of saved locs files and
 write ``<base>_undrift.hdf5`` (``_aim.hdf5`` for AIM) with the drift as
-text beside it; ``render`` writes ``<base>.png`` through matplotlib. The
-post-localize verbs take ``--device`` too.
+text beside it; ``render`` writes ``<base>.png`` through matplotlib.
+``link`` (``_link.hdf5``), ``dark`` (``_dark.hdf5``), ``groupprops``
+(``_groupprops.hdf5``, dataset ``groups``), ``density`` (``_density.hdf5``),
+``pc`` (``_pc.csv``), ``nneighbor`` (``_nn.csv``), ``clusterfilter``
+(``_filter.hdf5``), ``join`` (``<first>_join.hdf5``), ``cluster_combine``
+(``_comb.hdf5``) and ``cluster_combine_dist`` (``_cdist.hdf5``) write the
+JAX CLI's files with its info blocks and messages. Every verb after
+localize but ``toraw``, ``join`` and ``clusterfilter`` takes ``--device``
+too.
 """
 
 from __future__ import annotations
@@ -199,6 +216,151 @@ def _render(args):
         print(f"Rendered {path} -> {out}")
 
 
+def _link(args):
+    from picasso_torch import io, lib, postprocess
+
+    device = lib.resolve_device(args.device)
+    for path in _iter_files(args.files):
+        locs, info = io.load_locs(path)
+        linked = postprocess.link(locs, info, r_max=args.distance,
+                                  max_dark_time=args.tolerance, device=device)
+        new_info = info + [{"Generated by": "Picasso Link",
+                            "Maximum distance": args.distance,
+                            "Maximum transient dark time": args.tolerance}]
+        out = _out_path(path, "_link")
+        io.save_locs(out, linked, new_info)
+        print(f"Linked {len(locs)} -> {len(linked)} events: {out}")
+
+
+def _dark(args):
+    from picasso_torch import io, lib, postprocess
+
+    device = lib.resolve_device(args.device)
+    for path in _iter_files(args.files):
+        locs, info = io.load_locs(path)
+        out_locs = postprocess.compute_dark_times(locs, device=device)
+        out = _out_path(path, "_dark")
+        io.save_locs(out, out_locs, info + [{"Generated by": "Picasso Dark"}])
+        print(f"Dark times -> {out}")
+
+
+def _nneighbor(args):
+    import numpy as np
+
+    from picasso_torch import io, lib, postprocess
+
+    device = lib.resolve_device(args.device)
+    for path in _iter_files(args.files):
+        clusters = io.load_clusters(path)
+        cols = ["x", "y"] + (["z"] if "z" in clusters.dtype.names else [])
+        X = np.stack([clusters[c] for c in cols], 1)
+        nn = postprocess.nn_analysis(X, X, 1, device=device)
+        out = os.path.splitext(path)[0] + "_nn.csv"
+        np.savetxt(out, nn, delimiter=",")
+        print(f"Nearest neighbors -> {out}")
+
+
+def _density(args):
+    from picasso_torch import io, lib, postprocess
+
+    device = lib.resolve_device(args.device)
+    for path in _iter_files(args.files):
+        locs, info = io.load_locs(path)
+        locs = postprocess.compute_local_density(locs, info, args.radius,
+                                                 device=device)
+        out = _out_path(path, "_density")
+        io.save_locs(out, locs, info + [{"Generated by": "Picasso Density"}])
+        print(f"Density -> {out}")
+
+
+def _clusterfilter(args):
+    from picasso_torch import io
+
+    for path in _iter_files(args.files):
+        locs, info = io.load_locs(path)
+        vals = locs[args.parameter]
+        kept = locs[(vals >= args.minval) & (vals <= args.maxval)]
+        out = _out_path(path, "_filter")
+        io.save_locs(out, kept, info + [{
+            "Generated by": "Picasso Filter", "Parameter": args.parameter,
+            "Min": args.minval, "Max": args.maxval}])
+        print(f"Filter {len(locs)} -> {len(kept)}: {out}")
+
+
+def _join(args):
+    from picasso_torch import io, lib
+
+    paths = []
+    for pattern in args.files:
+        paths.extend(sorted(glob.glob(pattern)))
+    locs_list, infos = [], []
+    for p in paths:
+        locs, info = io.load_locs(p)
+        locs_list.append(locs)
+        infos.append(info)
+    joined = lib.merge_locs(locs_list, increment_frames=not args.keep_frames)
+    out = _out_path(paths[0], "_join")
+    io.save_locs(out, joined, infos[0] + [{"Generated by": "Picasso Join"}])
+    print(f"Joined {len(paths)} files -> {out}")
+
+
+def _groupprops(args):
+    from picasso_torch import io, lib, postprocess
+
+    device = lib.resolve_device(args.device)
+    for path in _iter_files(args.files):
+        locs, info = io.load_locs(path)
+        groups = postprocess.groupprops(locs, device=device)
+        out = _out_path(path, "_groupprops")
+        io.save_datasets(out, info, groups=groups)
+        print(f"Group properties -> {out}")
+
+
+def _pc(args):
+    import numpy as np
+
+    from picasso_torch import io, lib, postprocess
+
+    device = lib.resolve_device(args.device)
+    for path in _iter_files(args.files):
+        locs, info = io.load_locs(path)
+        bins, pc = postprocess.pair_correlation(locs, info, args.binsize,
+                                                args.rmax, device=device)
+        out = os.path.splitext(path)[0] + "_pc.csv"
+        np.savetxt(out, np.column_stack([bins, pc]), delimiter=",")
+        print(f"Pair correlation -> {out}")
+
+
+def _cluster_combine(args):
+    from picasso_torch import io, lib, postprocess
+
+    device = lib.resolve_device(args.device)
+    for path in _iter_files(args.files):
+        locs, info = io.load_locs(path)
+        combined = postprocess.cluster_combine(locs, device=device)
+        out = _out_path(path, "_comb")
+        io.save_locs(out, combined,
+                     info + [{"Generated by": "Picasso Combine"}])
+        print(f"Cluster combine -> {out}")
+
+
+def _cluster_combine_dist(args):
+    from picasso_torch import io, lib, postprocess
+
+    device = lib.resolve_device(args.device)
+    for path in _iter_files(args.files):
+        locs, info = io.load_locs(path)
+        px = None
+        for block in info:
+            if isinstance(block, dict) and "Pixelsize" in block:
+                px = block["Pixelsize"]
+        combined = postprocess.cluster_combine_dist(locs, px, device=device)
+        out = _out_path(path, "_cdist")
+        io.save_locs(out, combined,
+                     info + [{"Generated by": "Picasso CombineDist"}])
+        print(f"Cluster combine dist -> {out}")
+
+
 @contextlib.contextmanager
 def _profile(trace_dir: str | None):
     """torch.profiler trace of the command into ``trace_dir``."""
@@ -296,12 +458,71 @@ def main(argv=None):
     p.add_argument("files")
     _device_arg(p)
 
+    p = subparsers.add_parser(
+        "link", help="link localizations in consecutive frames")
+    p.add_argument("files")
+    p.add_argument("-d", "--distance", type=float, default=1.0)
+    p.add_argument("-t", "--tolerance", type=int, default=1)
+    _device_arg(p)
+
+    p = subparsers.add_parser(
+        "dark", help="compute dark times for linked localizations")
+    p.add_argument("files")
+    _device_arg(p)
+
+    p = subparsers.add_parser(
+        "nneighbor", help="nearest neighbors of clustered data")
+    p.add_argument("files", nargs="?")
+    _device_arg(p)
+
+    p = subparsers.add_parser("density", help="local density computation")
+    p.add_argument("files")
+    p.add_argument("radius", type=float)
+    _device_arg(p)
+
+    p = subparsers.add_parser(
+        "clusterfilter", help="filter locs by a parameter range")
+    p.add_argument("files")
+    p.add_argument("parameter")
+    p.add_argument("minval", type=float)
+    p.add_argument("maxval", type=float)
+
+    p = subparsers.add_parser("join", help="join hdf5 files")
+    p.add_argument("files", nargs="+")
+    p.add_argument("-k", "--keep-frames", action="store_true")
+
+    p = subparsers.add_parser("groupprops", help="per-group statistics")
+    p.add_argument("files")
+    _device_arg(p)
+
+    p = subparsers.add_parser("pc", help="pair correlation")
+    p.add_argument("files")
+    p.add_argument("-b", "--binsize", type=float, default=0.1)
+    p.add_argument("-r", "--rmax", type=float, default=10.0)
+    _device_arg(p)
+
+    p = subparsers.add_parser(
+        "cluster_combine", help="combine clustered localizations")
+    p.add_argument("files")
+    _device_arg(p)
+
+    p = subparsers.add_parser(
+        "cluster_combine_dist",
+        help="combine clusters + nearest cluster distances")
+    p.add_argument("files")
+    _device_arg(p)
+
     args = parser.parse_args(argv)
     if args.command is None:
         parser.print_help()
         return
     verbs = {"toraw": _toraw, "render": _render, "undrift": _undrift,
-             "aim": _aim, "undrift_fiducials": _undrift_fiducials}
+             "aim": _aim, "undrift_fiducials": _undrift_fiducials,
+             "link": _link, "dark": _dark, "nneighbor": _nneighbor,
+             "density": _density, "clusterfilter": _clusterfilter,
+             "join": _join, "groupprops": _groupprops, "pc": _pc,
+             "cluster_combine": _cluster_combine,
+             "cluster_combine_dist": _cluster_combine_dist}
     if args.command in verbs:
         verbs[args.command](args)
         return

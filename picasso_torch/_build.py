@@ -82,6 +82,9 @@ SIGNATURES = {
         _P, _P, _P,                            # tile mask, loc, ng
         _P,                                    # stream
     ],
+    "picasso_link_walk": [
+        _P, _P, _LL, _P,                       # offsets, succ, n, out (host)
+    ],
 }
 
 

@@ -3,7 +3,8 @@ cross-correlation (RCC) of rendered segments; and the search for
 fiducial markers.
 
 Counterpart of picasso_tpu/imageprocess.py (xcorr :29, _fit_peak :39,
-_crop_center :80, get_image_shift :97, rcc :129, find_fiducials :197).
+_crop_center :80, get_image_shift :97, rcc :129, find_fiducials :197,
+radial_sum :228).
 Each segment is FFT'd once on its torch device; the pair correlations
 run there in chunks of pairs, in f64 (numpy 2 transforms the JAX
 package's f32 segments in complex64), and only the centre that the peak
@@ -211,3 +212,42 @@ def find_fiducials(locs: np.ndarray, info: list[dict], *, device="cuda"):
     picked = postprocess.picked_locs(locs, info, picks, "Circle",
                                      pick_size=box / 2, add_group=False)
     return [p for p, g in zip(picks, picked) if len(g) > min_n], box
+
+
+def ring_of(fy: torch.Tensor, fx: torch.Tensor) -> torch.Tensor:
+    """floor(sqrt(fy^2 + fx^2)) of integer tensors (broadcast), int64, as
+    numpy takes it: the f64 root, then one integer step that makes it
+    exact (torch's root on the CPU may be off by an ulp)."""
+    q = fy * fy + fx * fx
+    ring = torch.floor(torch.sqrt(q.to(torch.float64))).to(torch.int64)
+    return ring + ((ring + 1) * (ring + 1) <= q).to(torch.int64) - (
+        ring * ring > q).to(torch.int64)
+
+
+def radial_sum(image: torch.Tensor) -> torch.Tensor:
+    """Sums of a square, odd-sized image over rings of integer radius
+    floor(distance from the centre), out to the centre's index
+    (picasso/imageprocess.py:283), on the image's device: f64 sums in
+    the pixels' row-major order (index_add_; on the CPU that is
+    np.bincount's order, on a card the atomics' order), real and
+    imaginary parts apart for a complex image; in the image's dtype."""
+    if image.ndim != 2 or image.shape[0] != image.shape[1] or (
+            image.shape[0] % 2 != 1):
+        raise ValueError("radial_sum needs a square image of odd size, "
+                         f"got {tuple(image.shape)}")
+    center = image.shape[0] // 2
+    r = torch.arange(image.shape[0], device=image.device) - center
+    r_idx = ring_of(r[:, None], r[None, :]).reshape(-1)
+    keep = r_idx < center + 1
+    idx = r_idx[keep]
+
+    def ring(values):
+        out = torch.zeros(center + 1, dtype=torch.float64,
+                          device=image.device)
+        return out.index_add_(0, idx, values.reshape(-1)[keep].to(
+            torch.float64))
+
+    if image.is_complex():
+        return torch.complex(ring(image.real), ring(image.imag)).to(
+            image.dtype)
+    return ring(image).to(image.dtype)

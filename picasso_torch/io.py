@@ -3,7 +3,8 @@
 conversion, the YAML info chain and the HDF5 ``"locs"`` table.
 
 Counterpart of picasso_tpu/io.py (load_info :48, save_info :60,
-save_locs :81, load_locs :102, save_drift :282, load_drift :288,
+save_locs :81, load_locs :102, load_clusters :131, save_datasets :140,
+save_drift :282, load_drift :288,
 AbstractPicassoMovie :397, load_raw :447, TiffMap :476, STKMovie :661,
 STKMultiMovie :689, TiffMultiMap :760, load_tif :846, IMSMovie :862,
 load_ims :992, load_ims_all :1007, the ND2 metadata helpers :1232-:1376,
@@ -812,6 +813,29 @@ def load_locs(path: str):
         locs = f["locs"][()]
     info = load_info(path)
     return lib.ensure_sanity(locs, info), info
+
+
+def load_clusters(path: str) -> np.ndarray:
+    """A clusters table saved under a ``"clusters"`` or, failing that, a
+    ``"locs"`` dataset (picasso/io.py:2234), without a sanity filter."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        for key in ("clusters", "locs"):
+            if key in f:
+                return f[key][()]
+    raise KeyError(f"File {path} does not contain a 'locs' dataset.")
+
+
+def save_datasets(path: str, info: list[dict], **kwargs) -> None:
+    """Several structured arrays as named HDF5 datasets of one file, plus
+    the YAML info chain (picasso/io.py:2065)."""
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        for key, val in kwargs.items():
+            f.create_dataset(key, data=val)
+    save_info(os.path.splitext(path)[0] + ".yaml", info)
 
 
 def save_drift(path: str, drift: np.ndarray) -> None:

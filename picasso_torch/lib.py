@@ -3,8 +3,8 @@ on numpy structured arrays, progress reporting and device resolution.
 
 Counterpart of the parts of picasso_tpu/lib.py that the localize path
 and the picks use (get_from_metadata :41, ensure_sanity :82,
-check_if_in_polygon :148, check_if_in_rectangle :170,
-get_pick_rectangle_corners :213, minimize_shifts :445, MockProgress
+check_if_in_polygon :148, merge_locs :110, check_if_in_rectangle
+:170, get_pick_rectangle_corners :213, minimize_shifts :445, MockProgress
 :670, progress_reporter :731, get_pick_polygon_corners :828). Locs are
 numpy structured arrays with the record layout of the HDF5 ``"locs"``
 dataset.
@@ -94,6 +94,41 @@ def locs_table(cols: list, sort_key: str) -> np.ndarray:
         buf = buf[:, np.argsort(k, kind="stable")]
     dtype = np.dtype([(name, dt) for name, dt, _ in cols])
     return np.ascontiguousarray(buf.T).view(dtype)[:, 0]
+
+
+def merge_locs(locs_list: list[np.ndarray],
+               increment_frames: bool = False) -> np.ndarray:
+    """Concatenate locs tables (picasso/lib.py:1700); with
+    ``increment_frames`` each table's frames start after the previous
+    table's last (in the frame column's own dtype, as pandas adds the
+    offset). The tables must have the same fields; the result takes the
+    first table's field order and each field's common dtype, as
+    pd.concat does."""
+    if not locs_list:
+        raise ValueError("No objects to concatenate")
+    names = locs_list[0].dtype.names
+    for locs in locs_list[1:]:
+        if set(locs.dtype.names) != set(names):
+            raise ValueError(
+                f"merge_locs needs tables of the same fields: {names} and "
+                f"{locs.dtype.names}")
+    if increment_frames:
+        shifted, offset = [], 0
+        for locs in locs_list:
+            locs = locs.copy()
+            locs["frame"] = locs["frame"] + offset
+            offset = int(locs["frame"].max()) + 1 if len(locs) else offset
+            shifted.append(locs)
+        locs_list = shifted
+    dtype = [(n, np.result_type(*[locs.dtype[n] for locs in locs_list]))
+             for n in names]
+    out = np.empty(sum(len(locs) for locs in locs_list), dtype)
+    start = 0
+    for locs in locs_list:
+        for n in names:
+            out[n][start:start + len(locs)] = locs[n]
+        start += len(locs)
+    return out
 
 
 def minimize_shifts(shifts_x: np.ndarray, shifts_y: np.ndarray):

@@ -1,19 +1,30 @@
 """Drift correction on a torch device: by redundant cross-correlation
 (RCC) of temporal segments, from a drift file, and from picked fiducial
-markers; and the picks themselves.
+markers; the picks themselves; linking into binding events, dark times,
+group statistics and the localization statistics.
 
 Counterpart of picasso_tpu/postprocess.py (get_index_blocks :58,
 get_block_locs_at :84, picked_locs :106, n_segments :1159, segment
 :1171, undrift :1204, undrift_from_picked :1246 with
 _undrift_from_picked_coordinate :1261, undrift_from_fiducials :1299,
-apply_drift :1351). Locs are numpy structured arrays. For RCC their
-columns go to ``device`` once, each segment is rendered there with the
-Gaussian blur (render.render_t), the pair correlations run there
+apply_drift :1351; and the statistics and linking: distance_histogram
+:540, pair_correlation :584, compute_local_density :600,
+_next_frame_neighbor_distance_histogram :632, nena :677, frc :724, _frc
+:773, dark_times :826, compute_dark_times :856, link :920 with the
+native link_groups, _link_loc_groups :979, cluster_combine :1067,
+cluster_combine_dist :1109, groupprops :1579, nn_analysis :1661). Locs
+are numpy structured arrays. For RCC their columns go to ``device``
+once, each segment is rendered there with the Gaussian blur
+(render.render_t), the pair correlations run there
 (imageprocess.pair_xcorrs), and the peak fits, the least squares and
 the spline run on the host. The picks and the drift from them run on
 the host in numpy, as in JAX (a few hundred picks, one trace each); only
 the fiducial search renders and identifies on ``device``. AIM is
-aim.py.
+aim.py. Linking finds its candidates on ``device`` (ops/link.py) and
+walks them on the host; the pair statistics run on ``device`` by cell
+lists or blocked tiles (ops/neighbors.py), held to JAX's cKDTree route;
+roots that must equal numpy's are taken on the host (torch's f64 sqrt
+on the CPU is not always correctly rounded).
 """
 
 from __future__ import annotations
@@ -21,8 +32,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 from scipy import interpolate
+from scipy.optimize import curve_fit
 
-from picasso_torch import imageprocess, lib, render
+from picasso_torch import imageprocess, lib, masking, render
+from picasso_torch.ops import link as link_ops
+from picasso_torch.ops import neighbors
 
 DRIFT_DTYPE = np.dtype([("x", np.float64), ("y", np.float64)])
 
@@ -157,8 +171,8 @@ def get_block_locs_at(x: float, y: float, index_blocks) -> np.ndarray:
 def _with_fields(locs: np.ndarray, fields: list) -> np.ndarray:
     """``locs`` with the (name, values) of ``fields`` appended as new
     fields, in their values' dtypes."""
-    out = np.empty(len(locs), locs.dtype.descr + [
-        (name, np.asarray(v).dtype) for name, v in fields])
+    out = np.empty(len(locs), [(n, locs.dtype[n]) for n in locs.dtype.names]
+                   + [(name, np.asarray(v).dtype) for name, v in fields])
     for name in locs.dtype.names:
         out[name] = locs[name]
     for name, v in fields:
@@ -317,3 +331,675 @@ def undrift_from_fiducials(locs: np.ndarray, info: list[dict],
         "Pick radius (nm)": pick_radius * pixelsize,
     }]
     return apply_drift(locs, info, drift=drift), new_info, drift
+
+
+# ---------------------------------------------------------------------------
+# Localization statistics: pair distances, local density, NeNA, FRC,
+# nearest neighbours
+# ---------------------------------------------------------------------------
+
+
+def _set_field(locs: np.ndarray, name: str, values) -> np.ndarray:
+    """``locs`` with the field ``name`` set to ``values`` in their dtype:
+    in place of an existing field of that name (its position kept, as a
+    pandas column assignment does), else appended."""
+    values = np.asarray(values)
+    if name not in locs.dtype.names:
+        return _with_fields(locs, [(name, values)])
+    out = np.empty(len(locs), [(n, values.dtype if n == name else
+                                locs.dtype[n]) for n in locs.dtype.names])
+    for n in locs.dtype.names:
+        out[n] = values if n == name else locs[n]
+    return out
+
+
+def _xy(locs: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:
+    return tuple(torch.from_numpy(np.ascontiguousarray(locs[c])).to(
+        device, torch.float64) for c in ("x", "y"))
+
+
+def distance_histogram(locs: np.ndarray, info: list[dict], bin_size: float,
+                       r_max: float, *, device="cuda") -> np.ndarray:
+    """Histogram (uint32) of the distances of every pair of sane locs
+    below n_bins * bin_size, n_bins = int(uint32(r_max / bin_size)), each
+    pair counted once (picasso/postprocess.py:1002). As in JAX, all
+    pairs count (the reference's 2 x 2 block scan misses some), and the
+    bins are those of JAX's cKDTree route: edge_k <= d < edge_k+1 for
+    the linspace edges, tested as squares
+    (ops/neighbors.histogram_thresholds)."""
+    device = lib.resolve_device(device)
+    locs = lib.ensure_sanity(locs, info)
+    n_bins = int(np.uint32(r_max / bin_size))
+    x, y = _xy(locs, device)
+    dh = neighbors.pairwise_distance_histogram(x, y, bin_size, n_bins)
+    return dh.cpu().numpy().astype(np.uint32)
+
+
+def pair_correlation(locs: np.ndarray, info: list[dict], bin_size: float,
+                     r_max: float, *, device="cuda"):
+    """Ring-area-normalized pair correlation (picasso/postprocess.py:
+    1505): (lower bin edges, histogram / ring area)."""
+    dh = distance_histogram(locs, info, bin_size, r_max, device=device)
+    bins_lower = np.arange(bin_size, r_max + bin_size, bin_size)
+    if len(bins_lower) > len(dh):
+        bins_lower = bins_lower[:len(dh)]
+    area = np.pi * bin_size * (2 * bins_lower + bin_size)
+    return bins_lower, dh / area
+
+
+def compute_local_density(locs: np.ndarray, info: list[dict], radius: float,
+                          *, device="cuda") -> np.ndarray:
+    """The sane locs with ``density`` (uint32): the other locs within
+    ``radius`` of each (picasso/postprocess.py:1582; d^2 <= radius^2 in
+    f64, as cKDTree.query_ball_point)."""
+    device = lib.resolve_device(device)
+    locs = lib.ensure_sanity(locs, info)
+    x, y = _xy(locs, device)
+    counts = neighbors.radius_count(x, y, radius)
+    return _set_field(locs, "density", counts.cpu().numpy().astype(np.uint32))
+
+
+def nn_analysis(X1: np.ndarray, X2: np.ndarray, nn_count: int, *,
+                device="cuda") -> np.ndarray:
+    """The ``nn_count`` nearest-neighbour distances (n, nn_count) f64 from
+    the rows of X1 into X2 (picasso/postprocess.py:3704); when X1 equals
+    X2 the nearest (the point itself) is left out, as the reference
+    drops the first of nn_count + 1."""
+    if X1.shape[1] != X2.shape[1]:
+        raise ValueError("X1 and X2 must have the same number of dimensions.")
+    device = lib.resolve_device(device)
+    same = np.array_equal(X1, X2)
+    a = torch.from_numpy(np.ascontiguousarray(X1)).to(device, torch.float64)
+    b = a if same else torch.from_numpy(np.ascontiguousarray(X2)).to(
+        device, torch.float64)
+    d2 = neighbors.knn_d2(a, b, nn_count + same)
+    return np.sqrt(d2[:, int(same):].cpu().numpy()).reshape(-1, nn_count)
+
+
+def _sqrt_bins(dtype, bin_size: float, n_bins: int, d_max: float):
+    """The bins of d = sqrt(s) as JAX's numpy forms them in ``dtype``
+    (int(d / bin_size), d <= d_max), as thresholds on s itself: (T, s_max)
+    with int(d / bin_size) >= k exactly when s >= T[k - 1], and d <=
+    d_max exactly when s <= s_max. Both sides are monotone in s, so a
+    bisection over the bit patterns of ``dtype`` with numpy's correctly
+    rounded sqrt finds them; on the device no root is taken (torch's on
+    the CPU goes through MKL and is not always correctly rounded)."""
+    ft = np.dtype(dtype).type
+    it = np.uint32 if ft == np.float32 else np.uint64
+    b, top = ft(bin_size), ft(max(d_max, n_bins * bin_size)) ** 2 * 4
+
+    def first(pred, m):
+        lo = np.zeros(m, it)
+        hi = np.full(m, np.array(top, ft).view(it))
+        while np.any(lo < hi):
+            mid = lo + (hi - lo) // 2
+            ok = pred(mid.view(ft))
+            hi, lo = np.where(ok, mid, hi), np.where(ok, lo, mid + 1)
+        return lo.view(ft)
+
+    k = np.arange(1, n_bins + 1)
+    T = first(lambda s: np.trunc(np.sqrt(s) / b) >= k, n_bins)
+    above = first(lambda s: np.sqrt(s) > ft(d_max), 1)[0]
+    return T, np.nextafter(above, ft(0))
+
+
+def _next_frame_neighbor_distance_histogram(locs: np.ndarray, callback=None,
+                                            *, device="cuda"):
+    """Histogram of the distances between locs of one group in
+    consecutive frames, 1000 bins of 0.001 px (picasso/postprocess.py:
+    1179). The pairs come from ops/link.window_pairs (window one frame,
+    cells of side a little over 1 px); they are measured as JAX's numpy
+    measures them, in the columns' own dtype (under NumPy 2 an f32
+    column keeps dx, dx^2, d and d / 0.001 in f32): |dx| and |dy| <= 1,
+    d <= 1, bin int(d / 0.001), the last two through :func:`_sqrt_bins`.
+    Returns (bin centres, counts f64)."""
+    device = lib.resolve_device(device)
+    bin_size, d_max = 0.001, 1.0
+    bins = np.arange(0, d_max, bin_size)
+    dnfl = np.zeros(len(bins))
+    if len(locs):
+        frame = torch.from_numpy(locs["frame"].astype(np.int64)).to(device)
+        group = torch.from_numpy(
+            locs["group"].astype(np.int64) if "group" in locs.dtype.names
+            else np.zeros(len(locs), np.int64)).to(device)
+        x = torch.from_numpy(np.ascontiguousarray(locs["x"])).to(device)
+        y = torch.from_numpy(np.ascontiguousarray(locs["y"])).to(device)
+        counts = torch.zeros(len(bins), dtype=torch.int64, device=device)
+        dt = torch.promote_types(x.dtype, y.dtype)
+        T, s_max = _sqrt_bins(torch.empty(0, dtype=dt).numpy().dtype,
+                              bin_size, len(bins), d_max)
+        T = torch.from_numpy(T).to(device)
+        for i, j in link_ops.window_pairs(frame, x.to(torch.float64),
+                                          y.to(torch.float64), group, d_max,
+                                          1):
+            dx = x[i] - x[j]
+            dy = y[i] - y[j]
+            ok = (dx * dx <= d_max**2) & (dy * dy <= d_max**2)
+            dx, dy = dx[ok], dy[ok]
+            sq = dx * dx + dy * dy
+            idx = torch.searchsorted(T, sq[sq <= float(s_max)], side="right")
+            counts += torch.bincount(idx[idx < len(bins)],
+                                     minlength=len(bins))
+        dnfl += counts.cpu().numpy()
+    if callback is not None:
+        callback(100)
+    return bins + bin_size / 2, dnfl
+
+
+def nena(locs: np.ndarray, info=None, callback=None, *, device="cuda"):
+    """NeNA experimental localization precision (Endesfelder et al.,
+    Histochem. Cell Biol. 2014; picasso/postprocess.py:1058): the
+    next-frame distance histogram on ``device``, the fit of the single
+    and short-range terms with scipy's curve_fit on the host. Returns
+    (result dict, s)."""
+    bin_centers, dnfl = _next_frame_neighbor_distance_histogram(
+        locs, callback, device=device)
+
+    def func(d, delta_a, s, ac, dc, sc):
+        a = ac + delta_a
+        p_single = a * (d / (2 * s**2)) * np.exp(-(d**2) / (4 * s**2))
+        p_short = (ac / (sc * np.sqrt(2 * np.pi))
+                   * np.exp(-0.5 * ((d - dc) / sc) ** 2))
+        return p_single + p_short
+
+    area = np.trapezoid(dnfl, bin_centers)
+    median_lp = np.mean([np.median(locs["lpx"]), np.median(locs["lpy"])])
+    p0 = [0.8 * area, median_lp, 0.1 * area, 2 * median_lp, median_lp]
+    bounds = ([0, 0, 0, 0, 0], [np.inf] * 5)
+    popt, _ = curve_fit(func, bin_centers, dnfl, p0=p0, bounds=bounds)
+    result = {
+        "d": bin_centers,
+        "data": dnfl,
+        "best_fit": func(bin_centers, *popt),
+        "best_values": {"delta_a": popt[0], "s": popt[1], "ac": popt[2],
+                        "dc": popt[3], "sc": popt[4]},
+    }
+    return result, popt[1]
+
+
+def frc(locs: np.ndarray, info: list[dict], viewport, *,
+        random_seed: int = 42, device="cuda") -> dict:
+    """Fourier ring correlation resolution (Nieuwenhuizen et al., Nat.
+    Methods 2013; picasso/postprocess.py:1320): the viewport squared
+    about its centre, the locs in it split at random into halves
+    (np.random.RandomState(random_seed).permutation, the stream of JAX's
+    np.random.seed + np.random.permutation without its global state),
+    each rendered at bins of NeNA / 2 on ``device``, then :func:`_frc`.
+    Returns the curve, its LOESS, the frequencies, the resolution (nm,
+    None without a 1/7 crossing) and the two masked images (numpy)."""
+    device = lib.resolve_device(device)
+    pixelsize = lib.get_from_metadata(info, "Pixelsize", raise_error=True)
+    lp = nena(locs, info, device=device)[1]
+    vw = viewport[1][1] - viewport[0][1]
+    vh = viewport[1][0] - viewport[0][0]
+    if vw < vh:
+        yc = 0.5 * (viewport[0][0] + viewport[1][0])
+        viewport = ((yc - vw / 2, viewport[0][1]), (yc + vw / 2,
+                                                    viewport[1][1]))
+    elif vh < vw:
+        xc = 0.5 * (viewport[0][1] + viewport[1][1])
+        viewport = ((viewport[0][0], xc - vh / 2), (viewport[1][0],
+                                                    xc + vh / 2))
+    (y_min, x_min), (y_max, x_max) = viewport
+    in_view = ((locs["x"] > x_min) & (locs["y"] > y_min)
+               & (locs["x"] < x_max) & (locs["y"] < y_max))
+    locs = locs[in_view]
+    r_idx = np.random.RandomState(random_seed).permutation(len(locs))
+    half = len(r_idx) // 2
+    cols = render.columns(locs, ("x", "y"), device)
+    idx = torch.from_numpy(r_idx).to(device)
+    halves = [{k: v[i] for k, v in cols.items()}
+              for i in (idx[:half], idx[half:])]
+    curve, smooth, freqs, res, images = _frc(*halves, pixelsize, lp,
+                                             viewport)
+    return {"frc_curve": curve, "frc_curve_smooth": smooth,
+            "frequencies": freqs, "resolution": res, "images": images}
+
+
+#: spectrum pixels whose ring sums are formed at once
+_RING_BLOCK = 1 << 24
+
+
+def _frc(cols1: dict, cols2: dict, pixelsize, lp, viewport):
+    """FRC of two halves given as columns on a device (render.columns):
+    histograms at bins of lp / 2 (cut to odd size), the Tukey mask, f64
+    FFTs and the ring sums on the device; the curve's LOESS and its 1/7
+    crossing on the host (picasso_tpu/postprocess.py:773). For the full
+    field (some 30k px square at NeNA / 2 of 0.02 px) the masked image is
+    formed in place a block of rows at a time, and the spectra are the
+    half planes of rfft2 (a real image's spectrum is Hermitian, and the
+    ring sums' terms are equal at k and -k), made by blocks of rows and
+    then of columns: the columns kx > 0 count twice, and no fftshift is
+    made (the rings are taken on the signed frequencies). JAX transforms
+    and sums the full shifted plane in row order, so the sums agree to
+    rounding."""
+    binsize = lp / 2
+    oversampling = 1 / binsize
+    info = [{"Pixelsize": pixelsize}]
+    images = [render.render_t(c, info, oversampling, viewport, None)[1]
+              for c in (cols1, cols2)]
+    if images[0].shape[0] % 2 == 0:
+        images = [im[:-1, :-1] for im in images]
+    # masking.threshold_tukey of the first image, w[n - 1 - i] * w[j],
+    # formed a block of rows at a time
+    w = masking.tukey_window(images[0].shape[1], images[0].device)
+    w_rev = w.flip(0)
+
+    def spectrum(im):
+        x = im.to(torch.float64)
+        n = x.shape[0]
+        rows = max(1, _RING_BLOCK // n)
+        for r0 in range(0, n, rows):
+            x[r0:r0 + rows] *= w_rev[r0:r0 + rows, None] * w[None, :]
+        image = x.cpu().numpy()
+        # rfft2 as its two passes, by blocks: a 2D plan of an awkward
+        # size asks cuFFT for several times the image as workspace
+        half = torch.empty((n, n // 2 + 1), dtype=torch.complex128,
+                           device=x.device)
+        for r0 in range(0, n, rows):
+            half[r0:r0 + rows] = torch.fft.rfft(x[r0:r0 + rows], dim=1)
+        del x
+        for k0 in range(0, n // 2 + 1, rows):
+            half[:, k0:k0 + rows] = torch.fft.fft(half[:, k0:k0 + rows],
+                                                  dim=0)
+        return half, image
+
+    f1, im1 = spectrum(images.pop(0))
+    f2, im2 = spectrum(images.pop(0))
+    n = im1.shape[0]
+    n_r = n // 2 + 1
+    dev = f1.device
+    fy = torch.arange(n, device=dev)
+    fy = torch.where(fy < n_r, fy, fy - n)
+    fx = torch.arange(n_r, device=dev)
+    ring = imageprocess.ring_of(fy[:, None], fx[None, :]).reshape(-1)
+    twice = (fx > 0).expand(n, n_r).reshape(-1)
+    sums = torch.zeros((3, n_r), dtype=torch.float64, device=dev)
+    f1, f2 = f1.reshape(-1), f2.reshape(-1)
+    for p0 in range(0, len(ring), _RING_BLOCK):
+        blk = slice(p0, p0 + _RING_BLOCK)
+        keep = ring[blk] < n_r
+        idx, a, b = ring[blk][keep], f1[blk][keep], f2[blk][keep]
+        scale = torch.where(twice[blk][keep], 2.0, 1.0).to(torch.float64)
+        # FRC(q) = Re sum_ring F1 F2* / sqrt(sum_ring |F1|^2 sum_ring
+        # |F2|^2), the real part taken per pixel as in JAX
+        sums[0].index_add_(0, idx, (a.real * b.real + a.imag * b.imag)
+                           * scale)
+        sums[1].index_add_(0, idx, (a.real * a.real + a.imag * a.imag)
+                           * scale)
+        sums[2].index_add_(0, idx, (b.real * b.real + b.imag * b.imag)
+                           * scale)
+    del f1, f2
+    cross, power1, power2 = sums.cpu().numpy()
+    with np.errstate(divide="ignore", invalid="ignore"):
+        frc_curve = np.nan_to_num(cross / np.sqrt(power1 * power2), nan=0.0,
+                                  posinf=0.0, neginf=0.0)
+    sspan = max(int(np.ceil(int(n / 2) / 20)), 5)
+    frc_smooth = masking.loess_smooth(frc_curve, sspan)
+    freqs = np.arange(len(frc_curve)) / n / (pixelsize * binsize)
+    threshold = 1 / 7
+    resolution = None
+    for i in range(1, len(frc_smooth)):
+        if frc_smooth[i - 1] >= threshold and frc_smooth[i] < threshold:
+            f1_, f2_ = freqs[i - 1], freqs[i]
+            r1, r2 = frc_smooth[i - 1], frc_smooth[i]
+            resolution = 1 / (f1_ + (threshold - r1) * (f2_ - f1_) / (r2 - r1))
+            break
+    return frc_curve, frc_smooth, freqs, resolution, (im1, im2)
+
+
+# ---------------------------------------------------------------------------
+# Linking and dark times
+# ---------------------------------------------------------------------------
+
+
+def _sorted_by_frame(locs: np.ndarray) -> np.ndarray:
+    """``locs`` sorted stably by frame (rows within a frame keep their
+    order; JAX's pandas quicksort may reorder them)."""
+    f = locs["frame"]
+    if len(f) > 1 and np.any(f[1:] < f[:-1]):
+        return locs[np.argsort(f, kind="stable")]
+    return locs
+
+
+def link_groups_t(frame, x, y, group, d_max: float, max_dark_time: int, *,
+                  device="cuda") -> torch.Tensor:
+    """Chain ids (n,) int32 on ``device`` of locs sorted by frame: the
+    candidate successors on the device (ops/link.successors), then the
+    greedy walk (ops/link.walk)."""
+    device = lib.resolve_device(device)
+    cols = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (
+        np.asarray(frame, np.int64), x, y, np.asarray(group, np.int64))]
+    offsets, succ = link_ops.successors(cols[0], cols[1], cols[2], cols[3],
+                                        d_max, max_dark_time)
+    return link_ops.walk(offsets, succ)
+
+
+def link_groups(frame, x, y, group, d_max: float, max_dark_time: int, *,
+                device="cuda") -> np.ndarray:
+    """Greedy chain ids (n,) int32 of locs sorted by frame, the port's
+    counterpart of picasso_tpu.native.link_groups (equal to it on the
+    same rows)."""
+    return link_groups_t(frame, x, y, group, d_max, max_dark_time,
+                         device=device).cpu().numpy()
+
+
+def link(locs: np.ndarray, info: list[dict], r_max: float = 0.05,
+         max_dark_time: int = 3, combine_mode: str = "average",
+         remove_ambiguous_lengths: bool = True, *, device="cuda"
+         ) -> np.ndarray:
+    """Group locs into binding events by spatiotemporal proximity
+    (picasso/postprocess.py:2007): locs of one group in frames up to
+    ``max_dark_time + 1`` apart within ``r_max`` chain greedily
+    (:func:`link_groups`), and each chain becomes one event
+    (:func:`_link_loc_groups`). The locs are sorted by frame stably, so
+    rows within a frame keep their order; JAX's pandas quicksort may
+    reorder them, and with them which successor a chain claims."""
+    device = lib.resolve_device(device)
+    if len(locs) == 0:
+        extra = []
+        if "frame" in locs.dtype.names:
+            extra += [("len", np.array([], np.int32)),
+                      ("n", np.array([], np.int32))]
+        if "photons" in locs.dtype.names:
+            extra.append(("photon_rate", np.array([], np.float32)))
+        out = locs
+        for name, v in extra:
+            out = _set_field(out, name, v)
+        return out
+    if combine_mode != "average":
+        raise NotImplementedError(
+            "Refit mode is not implemented yet. Please use 'average'.")
+    locs = _sorted_by_frame(locs)
+    group = (locs["group"] if "group" in locs.dtype.names
+             else np.zeros(len(locs), np.int32))
+    link_group = link_groups_t(locs["frame"], locs["x"], locs["y"], group,
+                               r_max, max_dark_time, device=device)
+    return _link_loc_groups(locs, info, link_group, remove_ambiguous_lengths)
+
+
+def _link_loc_groups(locs: np.ndarray, info: list[dict],
+                     link_group: torch.Tensor,
+                     remove_ambiguous_lengths: bool = True) -> np.ndarray:
+    """Aggregate linked locs into binding events on ``link_group``'s
+    device (picasso/postprocess.py:2680): weighted means of the positions
+    (weights 1 / lp^2 in the lp column's dtype), sums of photons and bg,
+    means elsewhere, all as f64 segment sums (index_add_; on the CPU in
+    index order, as np.bincount sums), first and last frames by
+    scatter_reduce. The columns, their order and dtypes are JAX's;
+    ``remove_ambiguous_lengths`` drops events that start at frame 0 or
+    end at the last frame."""
+    dev = link_group.device
+    lg = link_group.to(torch.int64)
+    n_groups = int(lg.max()) + 1
+    names = locs.dtype.names
+
+    def col(name):
+        return torch.from_numpy(np.ascontiguousarray(locs[name])).to(dev)
+
+    def segsum(v):
+        out = torch.zeros(n_groups, dtype=torch.float64, device=dev)
+        return out.index_add_(0, lg, v.to(torch.float64))
+
+    n_ = torch.bincount(lg, minlength=n_groups)
+    n_f = n_.to(torch.float64)
+
+    def seg_mean(name):
+        return (segsum(col(name)) / n_f).to(torch.float32)
+
+    frame = col("frame").to(torch.int64)
+    first = torch.zeros(n_groups, dtype=torch.int64, device=dev).scatter_reduce(
+        0, lg, frame, "amin", include_self=False)
+    last = torch.zeros(n_groups, dtype=torch.int64, device=dev).scatter_reduce(
+        0, lg, frame, "amax", include_self=False)
+    cols = {"frame": first}
+    sw = {}
+    for c in ("x", "y"):
+        if c in names:
+            lp = col("lp" + c)
+            w = torch.reciprocal(lp * lp)
+            sw[c] = segsum(w)
+            cols[c] = (segsum(col(c) * w) / sw[c]).to(torch.float32)
+    if "photons" in names:
+        cols["photons"] = segsum(col("photons")).to(torch.float32)
+    for name in ("sx", "sy"):
+        if name in names:
+            cols[name] = seg_mean(name)
+    if "bg" in names:
+        cols["bg"] = segsum(col("bg")).to(torch.float32)
+    # lp = sqrt(1 / sum w), the root on the host (below)
+    for c in ("x", "y"):
+        if c in names:
+            cols["lp" + c] = sw[c]
+    for name in ("ellipticity", "net_gradient", "likelihood",
+                 "log_likelihood", "iterations"):
+        if name in names:
+            cols[name] = seg_mean(name)
+    if "z" in names:
+        if "lpz" in names:
+            lpz = col("lpz")
+            wz = torch.reciprocal(lpz * lpz)
+            swz = segsum(wz)
+            cols["z"] = (segsum(col("z") * wz) / swz).to(torch.float32)
+            cols["lpz"] = swz
+        else:
+            cols["z"] = seg_mean("z")
+    if "d_zcalib" in names:
+        cols["d_zcalib"] = seg_mean("d_zcalib")
+    if "group" in names:
+        # a chain never crosses groups: any member's group is the chain's
+        g = col("group")
+        cols["group"] = torch.zeros(n_groups, dtype=g.dtype,
+                                    device=dev).scatter_(0, lg, g)
+    cols["len"] = last - first + 1
+    cols["n"] = n_
+    if "photons" in names:
+        cols["photon_rate"] = (cols["photons"].to(torch.float64) / n_f).to(
+            torch.float32)
+    if remove_ambiguous_lengths:
+        valid = (first > 0) & (last < info[0]["Frames"])
+        cols = {k: v[valid] for k, v in cols.items()}
+    host = {k: v.cpu().numpy() for k, v in cols.items()}
+    for k in ("lpx", "lpy", "lpz"):
+        if k in host:
+            host[k] = np.sqrt(1 / host[k]).astype(np.float32)
+    out = np.empty(len(host["frame"]), [(k, v.dtype) for k, v in
+                                        host.items()])
+    for k, v in host.items():
+        out[k] = v
+    return out
+
+
+def dark_times(locs: np.ndarray, group=None, *, device="cuda") -> np.ndarray:
+    """Dark time before each event (int32): its frame minus the latest
+    earlier last frame (frame + len - 1) of an event of its group, -1
+    if there is none (picasso/postprocess.py:1952). One device sort by
+    (group, last frame) and a searchsorted."""
+    device = lib.resolve_device(device)
+    n = len(locs)
+    if n == 0:
+        return np.zeros(0, np.int32)
+    if group is None:
+        group = (locs["group"] if "group" in locs.dtype.names
+                 else np.zeros(n, np.int64))
+    frame = torch.from_numpy(locs["frame"].astype(np.int64)).to(device)
+    last = frame + torch.from_numpy(locs["len"].astype(np.int64)).to(
+        device) - 1
+    g = torch.unique(torch.from_numpy(np.asarray(group).astype(
+        np.int64)).to(device), return_inverse=True)[1]
+    base = int(torch.minimum(frame.min(), last.min()))
+    S = int(torch.maximum(frame.max(), last.max())) - base + 1
+    if (int(g.max()) + 1) * S >= 2**62:
+        raise ValueError("dark_times: (group, frame) key exceeds 62 bits")
+    keys = torch.sort(g * S + (last - base)).values
+    query = g * S + (frame - base)
+    pos = torch.searchsorted(keys, query, side="left") - 1
+    prev = keys[pos.clamp_min(0)]
+    has = (pos >= 0) & (torch.div(prev, S, rounding_mode="floor") == g)
+    dark = torch.where(has, query - prev, torch.full_like(query, -1))
+    return dark.cpu().numpy().astype(np.int32)
+
+
+def compute_dark_times(locs: np.ndarray, group=None, *, device="cuda"
+                       ) -> np.ndarray:
+    """The events with their ``dark`` column (int32), those without a
+    predecessor dropped (picasso/postprocess.py:1920)."""
+    if "len" not in locs.dtype.names:
+        raise AttributeError(
+            "Length not found. Please link localizations first.")
+    dark = dark_times(locs, group, device=device)
+    return _set_field(locs, "dark", dark)[dark != -1]
+
+
+# ---------------------------------------------------------------------------
+# Group statistics and combined clusters
+# ---------------------------------------------------------------------------
+
+
+def _segments(keys: np.ndarray, device):
+    """Rows sorted stably by ``keys`` (a structured or plain array,
+    compared as numpy sorts it): (segment id of each row on ``device``,
+    the number of segments, the sorted order, the first row of each
+    segment in that order)."""
+    order = np.argsort(keys, kind="stable")
+    k = keys[order]
+    new = np.ones(len(k), bool)
+    new[1:] = k[1:] != k[:-1]
+    seg = np.cumsum(new) - 1
+    return (torch.from_numpy(seg).to(device), int(new.sum()), order,
+            np.nonzero(new)[0])
+
+
+def _seg_moments(values: torch.Tensor, seg: torch.Tensor, n_seg: int):
+    """Per segment of the rows of ``values`` (n, C) f64: (sums, counts,
+    sample variance with ddof 1, NaN for one row), two passes in f64 on
+    the values' device; the callers take the root with numpy."""
+    C = values.shape[1]
+    sums = torch.zeros((n_seg, C), dtype=torch.float64,
+                       device=values.device).index_add_(0, seg, values)
+    cnt = torch.bincount(seg, minlength=n_seg).to(torch.float64)
+    dev = values - (sums / cnt[:, None])[seg]
+    ss = torch.zeros_like(sums).index_add_(0, seg, dev * dev)
+    return sums, cnt, ss / (cnt[:, None] - 1)
+
+
+def groupprops(locs: np.ndarray, callback=None, *, device="cuda"
+               ) -> np.ndarray:
+    """Mean and std (ddof 1) of every column per group, groups in sorted
+    order, plus the qPAINT index 1 / dark_mean (picasso/postprocess.py:
+    3580). Events with dark -1 are left out. Segment sums on ``device``
+    in f64, cast to f32 (pandas sums an f32 column's mean in f32 with
+    Kahan compensation and its std by Welford in f64: the two agree to a
+    few f32 ulps, tests/test_torch_stats.py)."""
+    device = lib.resolve_device(device)
+    if "dark" in locs.dtype.names:
+        locs = locs[locs["dark"] != -1]
+    seg, n_seg, order, starts = _segments(locs["group"], device)
+    srt = locs[order]
+    ids = srt["group"][starts]
+    others = [n for n in locs.dtype.names if n != "group"]
+    values = torch.from_numpy(np.stack(
+        [srt[n].astype(np.float64) for n in others], 1)).to(device)
+    sums, cnt, var = _seg_moments(values, seg, n_seg)
+    mean = (sums / cnt[:, None]).to(torch.float32).cpu().numpy()
+    std = np.sqrt(var.cpu().numpy()).astype(np.float32)
+    cols = [("group", ids.astype(np.int32)),
+            ("n_events", cnt.cpu().numpy().astype(np.int32))]
+    for name in locs.dtype.names:
+        if name == "group":
+            # the key's mean is the id itself and its std 0, as the
+            # reference's per-group loop gives
+            cols += [("group_mean", ids.astype(np.float32)),
+                     ("group_std", np.zeros(n_seg, np.float32))]
+            continue
+        k = others.index(name)
+        cols += [(name + "_mean", mean[:, k]), (name + "_std", std[:, k])]
+    if callable(callback):
+        callback(n_seg)
+    if "dark_mean" in dict(cols):
+        cols.append(("qpaint_idx", 1 / dict(cols)["dark_mean"]))
+    out = np.empty(n_seg, [(n, v.dtype) for n, v in cols])
+    for n, v in cols:
+        out[n] = v
+    return out
+
+
+def cluster_combine(locs: np.ndarray, *, device="cuda") -> np.ndarray:
+    """Per (group, cluster), in sorted order: the photon-weighted centre
+    of mass, the mean and std of the frame, the standard errors of the
+    coordinates and the number of locs (picasso/postprocess.py:2174).
+    Segment sums on ``device`` in f64; the weighted sums and the photon
+    sums are rounded to their columns' dtype before the ratio, as pandas
+    forms them."""
+    device = lib.resolve_device(device)
+    has_z = "z" in locs.dtype.names
+    keys = np.empty(len(locs), [("group", locs.dtype["group"]),
+                                ("cluster", locs.dtype["cluster"])])
+    keys["group"], keys["cluster"] = locs["group"], locs["cluster"]
+    seg, n_seg, order, starts = _segments(keys, device)
+    srt = locs[order]
+    coords = ["x", "y"] + (["z"] if has_z else [])
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    w = t(srt["photons"])
+    weighted = [t(srt[c]) * w for c in coords]
+    values = torch.stack([t(srt["frame"]).to(torch.float64), w.to(
+        torch.float64)] + [v.to(torch.float64) for v in weighted] + [
+        t(srt[c]).to(torch.float64) for c in coords], 1)
+    sums, cnt, var = _seg_moments(values, seg, n_seg)
+    std = np.sqrt(var.cpu().numpy())
+    n_host = cnt.cpu().numpy()
+    nc = len(coords)
+    psum = sums[:, 1].to(w.dtype)
+    out_cols = [("group", srt["group"][starts]),
+                ("cluster", srt["cluster"][starts]),
+                ("mean_frame", (sums[:, 0] / cnt).to(torch.float32))]
+    for k, c in enumerate(coords):
+        out_cols.append((c, (sums[:, 2 + k].to(weighted[k].dtype) / psum).to(
+            torch.float32)))
+    out_cols.append(("std_frame", std[:, 0].astype(np.float32)))
+    for k, c in enumerate(coords):
+        # pandas' std of a column keeps its dtype before the division
+        s = std[:, 2 + nc + k].astype(srt.dtype[c])
+        out_cols.append(("lp" + c[-1], (s / np.sqrt(n_host)).astype(
+            np.float32)))
+    out_cols.append(("n", cnt.to(torch.int32)))
+    host = [(n, v if isinstance(v, np.ndarray) else v.cpu().numpy())
+            for n, v in out_cols]
+    out = np.empty(n_seg, [(n, v.dtype) for n, v in host])
+    for n, v in host:
+        out[n] = v
+    return out
+
+
+def cluster_combine_dist(locs: np.ndarray, pixelsize: float | None = None, *,
+                         device="cuda") -> np.ndarray:
+    """Combined clusters (:func:`cluster_combine`'s output) with the
+    distance of each to the nearest other cluster of its group: 2D adds
+    ``min_dist``; 3D scales z by the pixel size (130 nm by default) and
+    adds ``min_dist`` (xyz) and ``mind_dist_xy`` (the reference's column
+    name) (picasso/postprocess.py:2291). The 2-NN runs on ``device`` in
+    f64 from the columns, masked to one group, and is rounded to f32
+    once; a group with one cluster gets inf."""
+    device = lib.resolve_device(device)
+    has_z = "z" in locs.dtype.names
+    if has_z and pixelsize is None:
+        pixelsize = 130
+    group = torch.from_numpy(locs["group"].astype(np.int64)).to(device)
+
+    def nn2(cols):
+        pts = torch.from_numpy(np.stack(cols, 1)).to(device)
+        d2 = neighbors.knn_d2(pts, pts, 2, labels_a=group, labels_b=group)
+        return np.sqrt(d2[:, 1].cpu().numpy()).astype(np.float32)
+
+    xy = [locs["x"], locs["y"]]
+    out = locs
+    if has_z:
+        z = locs["z"] / np.asarray(pixelsize).astype(locs["z"].dtype)
+        out = _set_field(out, "min_dist", nn2(xy + [z]))
+        out = _set_field(out, "mind_dist_xy", nn2(xy))
+    else:
+        out = _set_field(out, "min_dist", nn2(xy))
+    return out

@@ -786,3 +786,97 @@ def test_fiducials_on_the_card_equal_the_cpu(dev):
     c = postprocess.undrift_from_fiducials(locs, info, device="cpu")
     for name in g[2].dtype.names:
         assert np.abs(g[2][name] - c[2][name]).max() <= 1e-9
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("d_max,tol", [(1.0, 1), (0.05, 3)])
+def test_link_and_dark_on_the_card_equal_the_cpu(dev, d_max, tol):
+    """Chain ids equal (the same CSR walked by the library and by its
+    Python twin); the events within one f32 ulp (f64 atomic sums), the
+    dark times equal."""
+    from picasso_torch.ops import link
+    from torch_data import make_event_locs
+    from torch_parity import compare_tables_ulps
+
+    locs, info = make_event_locs(3, n_sites=60, frames=2000)
+    args = (locs["frame"], locs["x"], locs["y"], locs["group"], d_max, tol)
+    before = link.walk.launches
+    ids_g = postprocess.link_groups(*args, device=dev)
+    assert link.walk.launches == before + 1
+    np.testing.assert_array_equal(ids_g,
+                                  postprocess.link_groups(*args, device="cpu"))
+    g = postprocess.link(locs, info, r_max=d_max, max_dark_time=tol,
+                         device=dev)
+    c = postprocess.link(locs, info, r_max=d_max, max_dark_time=tol,
+                         device="cpu")
+    compare_tables_ulps(g, c, 1, "link")
+    np.testing.assert_array_equal(postprocess.dark_times(c, device=dev),
+                                  postprocess.dark_times(c, device="cpu"))
+
+
+def test_link_walk_library_equals_its_python_twin(dev):
+    from picasso_torch.ops import link
+    from torch_data import make_event_locs
+
+    locs, _ = make_event_locs(4, n_sites=80, frames=1000)
+    off, succ = link.successors(*(_t(a).to(dev) for a in (
+        locs["frame"].astype(np.int64), locs["x"], locs["y"],
+        locs["group"].astype(np.int64))), 2.0, 4)
+    off_c, succ_c = link.successors(*(_t(a) for a in (
+        locs["frame"].astype(np.int64), locs["x"], locs["y"],
+        locs["group"].astype(np.int64))), 2.0, 4)
+    np.testing.assert_array_equal(off.cpu().numpy(), off_c.numpy())
+    np.testing.assert_array_equal(succ.cpu().numpy(), succ_c.numpy())
+    o, s = off_c.numpy(), succ_c.numpy()
+    np.testing.assert_array_equal(link.walk_host(o, s), link.walk_plain(o, s))
+
+
+def test_statistics_on_the_card_equal_the_cpu(dev):
+    """NeNA's histogram, the density, the pair histogram, the nearest
+    neighbours and cluster_combine_dist equal; groupprops and
+    cluster_combine within one f32 ulp (f64 atomic sums); the FRC curve
+    within 1e-9 (cuFFT against torch's CPU FFT)."""
+    from torch_data import make_event_locs
+    from torch_parity import compare_tables_ulps
+
+    locs, info = make_event_locs(5, n_sites=60, frames=2000, size=48)
+    for f in (postprocess._next_frame_neighbor_distance_histogram,):
+        np.testing.assert_array_equal(f(locs, device=dev)[1],
+                                      f(locs, device="cpu")[1])
+    np.testing.assert_array_equal(
+        postprocess.compute_local_density(locs, info, 0.5, device=dev),
+        postprocess.compute_local_density(locs, info, 0.5, device="cpu"))
+    np.testing.assert_array_equal(
+        postprocess.distance_histogram(locs, info, 0.1, 5.0, device=dev),
+        postprocess.distance_histogram(locs, info, 0.1, 5.0, device="cpu"))
+    X = np.stack([locs["x"], locs["y"]], 1)[:3000]
+    np.testing.assert_array_equal(postprocess.nn_analysis(X, X, 2, device=dev),
+                                  postprocess.nn_analysis(X, X, 2,
+                                                          device="cpu"))
+    linked = postprocess.link(locs, info, r_max=1.0, max_dark_time=1,
+                              device="cpu")
+    dark = postprocess.compute_dark_times(linked, device="cpu")
+    compare_tables_ulps(postprocess.groupprops(dark, device=dev),
+                        postprocess.groupprops(dark, device="cpu"), 1,
+                        "groupprops")
+    clusters = dark.copy()
+    clusters["group"] = clusters["group"] % 5
+    cl = np.empty(len(clusters), clusters.dtype.descr + [("cluster", "<i4")])
+    for n in clusters.dtype.names:
+        cl[n] = clusters[n]
+    cl["cluster"] = dark["group"]
+    comb = postprocess.cluster_combine(cl, device="cpu")
+    compare_tables_ulps(postprocess.cluster_combine(cl, device=dev), comb, 1,
+                        "cluster_combine")
+    np.testing.assert_array_equal(
+        postprocess.cluster_combine_dist(comb, device=dev),
+        postprocess.cluster_combine_dist(comb, device="cpu"))
+    vp = ((4.0, 4.0), (36.0, 36.0))
+    fg = postprocess.frc(locs, info, vp, device=dev)
+    fc = postprocess.frc(locs, info, vp, device="cpu")
+    np.testing.assert_allclose(fg["frc_curve"], fc["frc_curve"], rtol=0,
+                               atol=1e-9)
+    assert abs(fg["resolution"] / fc["resolution"] - 1) <= 1e-6

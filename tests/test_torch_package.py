@@ -19,7 +19,9 @@ import bench
 import picasso_torch
 import torch_data
 from picasso_torch import _build, localize
-from picasso_torch.ops import identify_cuda, lq_cuda, mle_cuda, winfit_cuda
+from picasso_torch.ops import (
+    identify_cuda, link, lq_cuda, mle_cuda, winfit_cuda,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -48,17 +50,18 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     for m in ("ops.mle_cuda", "ops.lq_cuda", "ops.winfit_cuda",
               "ops.render_ops", "render", "imageprocess", "postprocess",
-              "io", "stream", "avgroi", "zfit", "aim"):
+              "io", "stream", "avgroi", "zfit", "aim", "ops.neighbors",
+              "ops.link", "masking"):
         assert "picasso_torch." + m in mods
     smoke = _smoke_imports()
     assert "torch_data" in smoke and "torch_parity" in smoke
     top = {m.split(".")[0] for m in smoke}
-    assert not top & {"jax", "jaxlib", "picasso_tpu", "bench"}, smoke
+    assert not top & {"jax", "jaxlib", "picasso_tpu", "bench", "pandas"}, smoke
     code = (
         "import importlib, sys\n"
         f"for m in {mods + smoke!r}: importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m in ('jax', 'bench') or "
-        "m.startswith(('jax.', 'jaxlib', 'picasso_tpu'))]\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'bench', 'pandas') "
+        "or m.startswith(('jax.', 'jaxlib', 'picasso_tpu', 'pandas.'))]\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"
     )
@@ -96,7 +99,8 @@ def test_sources_hash_and_cover_every_entry():
             "winfit_mle_f32.cu", "winfit_lq_queue.cu",
             "winfit_lq_queue_f32.cu", "winfit_lq_queue.cuh", "fit_common.cuh",
             "fit_mle.cuh", "fit_lq.cuh", "winfit_mle_queue.cu",
-            "winfit_mle_queue_f32.cu", "winfit_mle_queue.cuh"} <= set(names)
+            "winfit_mle_queue_f32.cu", "winfit_mle_queue.cuh",
+            "link_walk.cu"} <= set(names)
     text = "".join(p.read_text() for p in _build.sources())
     for entry in _build.SIGNATURES:
         assert f'extern "C" int {entry}(' in text
@@ -112,7 +116,7 @@ def test_sources_hash_and_cover_every_entry():
                                      "winfit_fit_mle_boundary_t",
                                      "winfit_fit_mle_queue_t",
                                      "winfit_fit_lq_queue_t",
-                                     "identify_in_image"])
+                                     "identify_in_image", "link_walk"])
 def test_wrappers_do_not_fall_back_off_the_cpu(wrapper):
     """A tensor on any device but the CPU goes to the kernel or raises;
     the plain version is never taken for it."""
@@ -126,6 +130,9 @@ def test_wrappers_do_not_fall_back_off_the_cpu(wrapper):
     elif wrapper == "identify":
         frames = torch.empty((2, 32, 32), dtype=torch.uint16, device="meta")
         call = lambda: identify_cuda.identify_tiles(frames, 100.0, 7)  # noqa: E731
+    elif wrapper == "link_walk":
+        off = torch.zeros(3, dtype=torch.int64, device="meta")
+        call = lambda: link.walk(off, off)  # noqa: E731
     elif wrapper == "identify_in_image":
         image = torch.empty((32, 32), device="meta")
         call = lambda: localize.identify_in_image(  # noqa: E731
@@ -150,7 +157,7 @@ def _counts():
             winfit_cuda.fit_mle_t.launches,
             winfit_cuda.fit_mle_boundary_t.launches,
             winfit_cuda.fit_lq_queue_t.launches,
-            winfit_cuda.fit_mle_queue_t.launches)
+            winfit_cuda.fit_mle_queue_t.launches, link.walk.launches)
 
 
 def test_cpu_tensors_take_the_plain_versions_without_counting():
@@ -172,6 +179,8 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
                                 eps=1e-3, max_it=20)
     winfit_cuda.fit_lq_queue_t(frames, hit, hit, hit, 0.0, 1.0, box=7,
                                max_it=20)
+    ids = link.walk(torch.tensor([0, 1, 1]), torch.tensor([1]))
+    assert ids.tolist() == [0, 0]
     assert before == _counts()
 
 
@@ -190,7 +199,8 @@ def test_data_copies_equal_bench(seed):
 
 def test_post_localize_entry_points_need_the_card_or_cpu(tmp_path):
     """Without device="cpu" and without a card the drift corrections,
-    the renders and their verbs raise; none falls back to the CPU."""
+    the renders, linking, the statistics and their verbs raise; none
+    falls back to the CPU."""
     from picasso_torch import __main__ as cli
     from picasso_torch import aim, imageprocess, io, postprocess, render
 
@@ -198,7 +208,9 @@ def test_post_localize_entry_points_need_the_card_or_cpu(tmp_path):
         pytest.skip("a CUDA card is present")
     locs = np.zeros(4, [("frame", np.uint32), ("x", np.float32),
                         ("y", np.float32), ("lpx", np.float32),
-                        ("lpy", np.float32)])
+                        ("lpy", np.float32), ("len", np.int64),
+                        ("group", np.int32), ("cluster", np.int32),
+                        ("photons", np.float32)])
     locs["frame"] = np.arange(4)
     locs["x"] = locs["y"] = 3.0
     locs["lpx"] = locs["lpy"] = 0.1
@@ -215,8 +227,25 @@ def test_post_localize_entry_points_need_the_card_or_cpu(tmp_path):
         lambda: imageprocess.find_fiducials(locs, info),
         lambda: postprocess.undrift_from_fiducials(locs, info),
         lambda: localize.identify_in_image(np.zeros((16, 16)), 1.0, 7),
+        lambda: postprocess.link(locs, info),
+        lambda: postprocess.link_groups(locs["frame"], locs["x"], locs["y"],
+                                        locs["group"], 1.0, 1),
+        lambda: postprocess.dark_times(locs),
+        lambda: postprocess.compute_dark_times(locs),
+        lambda: postprocess.groupprops(locs),
+        lambda: postprocess.nena(locs, info),
+        lambda: postprocess.frc(locs, info, ((0, 0), (8, 8))),
+        lambda: postprocess.compute_local_density(locs, info, 1.0),
+        lambda: postprocess.distance_histogram(locs, info, 0.1, 1.0),
+        lambda: postprocess.pair_correlation(locs, info, 0.1, 1.0),
+        lambda: postprocess.nn_analysis(np.zeros((3, 2)), np.zeros((3, 2)),
+                                        1),
+        lambda: postprocess.cluster_combine(locs),
+        lambda: postprocess.cluster_combine_dist(locs),
     ] + [lambda verb=verb: cli.main([verb, path]) for verb in (
-        "undrift", "aim", "undrift_fiducials", "render")]
+        "undrift", "aim", "undrift_fiducials", "render", "link", "dark",
+        "nneighbor", "groupprops", "pc", "cluster_combine",
+        "cluster_combine_dist")] + [lambda: cli.main(["density", path, "1"])]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
             call()

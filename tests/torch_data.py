@@ -63,10 +63,12 @@ def make_spots(n: int, box: int = 7, seed: int = 0) -> np.ndarray:
     return rng.poisson(clean).astype(np.float32)
 
 
-def make_bench_movie(n_frames, size, n_sites, p_on, rng):
+def make_bench_movie(n_frames, size, n_sites, p_on, rng, return_sites=False):
     """(n_frames, size, size) u16 DNA-PAINT movie: Poisson(30) camera
     background, ``n_sites`` binding sites each on with probability
-    ``p_on`` per frame, ~900-photon 7x7 spots of width 1.1 px."""
+    ``p_on`` per frame, ~900-photon 7x7 spots of width 1.1 px. With
+    ``return_sites`` also the sites (n_sites, 2) int (row, column) of the
+    spot centres, from the same draws."""
     movie = rng.poisson(
         30, (n_frames, size, size)
     ).astype(np.uint16)
@@ -81,7 +83,68 @@ def make_bench_movie(n_frames, size, n_sites, p_on, rng):
         spots = rng.poisson(psf * 900, (len(on), 7, 7)).astype(np.uint16)
         np.add.at(movie[fidx], (on[:, :1, None] + yy, on[:, 1:, None] + xx),
                   spots)
-    return movie
+    return (movie, sites) if return_sites else movie
+
+
+#: the fields of :func:`make_event_locs`' locs, as localize writes them
+EVENT_DTYPE = np.dtype([
+    ("frame", np.uint32), ("x", np.float32), ("y", np.float32),
+    ("photons", np.float32), ("sx", np.float32), ("sy", np.float32),
+    ("bg", np.float32), ("lpx", np.float32), ("lpy", np.float32),
+    ("net_gradient", np.float32), ("likelihood", np.float32),
+    ("iterations", np.int32), ("group", np.int32),
+])
+
+
+def make_event_locs(seed: int = 0, n_sites: int = 24, frames: int = 300,
+                    size: int = 32):
+    """Linked-to-be DNA-PAINT locs and their info: ``n_sites`` sites, each
+    bound in events of 1-8 frames, with one-frame gaps inside an event
+    and dark times of 1-30 frames between events (within and beyond a
+    tolerance of 1), a second loc in some frames, precisions 0.03-0.1
+    px; sites 0 and 1 lie 0.36 px apart in one group, sites 2 and 3 0.41
+    px apart in two groups; site 0 binds at frame 0 and the last site
+    until frame ``frames`` (one past the movie, as an event that ends at
+    Frames). Sorted by frame, rows within a frame in site order."""
+    rng = np.random.default_rng(seed)
+    sites = rng.uniform(2, size - 2, (n_sites, 2))
+    sites[1] = sites[0] + (0.3, 0.2)
+    sites[3] = sites[2] + (-0.4, 0.1)
+    group = np.arange(n_sites) // 2
+    group[3] = n_sites
+    rows = []
+    for s in range(n_sites):
+        f = 0 if s == 0 else int(rng.integers(0, 6))
+        while f < frames:
+            length = int(rng.integers(1, 9))
+            for k in range(length):
+                if f + k >= frames or (0 < k < length - 1
+                                       and rng.random() < 0.2):
+                    continue
+                rows += [(f + k, s)] * (2 if rng.random() < 0.05 else 1)
+            f += length + int(rng.choice([1, 1, 2, 3, 5, 12, 30]))
+    last = n_sites - 1
+    rows += [(frames - 2, last), (frames - 1, last), (frames, last)]
+    rows = np.array(sorted(rows, key=lambda r: r[0]))
+    n = len(rows)
+    locs = np.zeros(n, EVENT_DTYPE)
+    site = rows[:, 1]
+    lp = rng.uniform(0.03, 0.1, (n, 2))
+    locs["frame"] = rows[:, 0]
+    locs["x"] = sites[site, 0] + rng.normal(0, 1, n) * lp[:, 0]
+    locs["y"] = sites[site, 1] + rng.normal(0, 1, n) * lp[:, 1]
+    locs["lpx"], locs["lpy"] = lp[:, 0], lp[:, 1]
+    locs["photons"] = rng.uniform(500, 5000, n)
+    locs["bg"] = rng.uniform(10, 50, n)
+    locs["sx"] = rng.uniform(0.9, 1.3, n)
+    locs["sy"] = rng.uniform(0.9, 1.3, n)
+    locs["net_gradient"] = rng.uniform(4000, 20000, n)
+    locs["likelihood"] = rng.uniform(-300, -100, n)
+    locs["iterations"] = rng.integers(3, 40, n)
+    locs["group"] = group[site]
+    info = [{"Frames": frames, "Width": size, "Height": size,
+             "Pixelsize": 130}]
+    return locs, info
 
 
 def spots_chunk(spots: np.ndarray, dtype, cells: int = 36):

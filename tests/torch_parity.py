@@ -276,3 +276,31 @@ def compare_avg_photons(ref, got, spots, what: str = "avg photons") -> float:
         raise AssertionError(f"{what}: |d| / sum|pixel| {worst} > "
                              f"{AVG_PHOTONS_REL}")
     return worst
+
+
+def compare_tables_ulps(got: np.ndarray, ref: np.ndarray, ulps: int = 1,
+                        what: str = "table") -> int:
+    """Hold a locs table ``got`` to ``ref`` (same fields and dtypes):
+    integer fields equal, float fields within ``ulps`` of their dtype's
+    spacing at ``ref`` (NaN where ``ref`` has NaN). Where the card sums
+    f64 with atomics (postprocess._link_loc_groups, groupprops) the order
+    differs from the CPU's index order, and a sum rounded to f32 may move
+    by one ulp. Returns the number of float cells that differ."""
+    if got.dtype != ref.dtype or len(got) != len(ref):
+        raise AssertionError(f"{what}: dtype or length differ: {got.dtype} "
+                             f"{len(got)} vs {ref.dtype} {len(ref)}")
+    differ = 0
+    for name in ref.dtype.names:
+        a, b = got[name], ref[name]
+        if ref.dtype[name].kind != "f":
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{what}: {name} differs")
+            continue
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            raise AssertionError(f"{what}: {name} NaN differ")
+        ok = ~np.isnan(b)
+        d = np.abs(a[ok].astype(np.float64) - b[ok])
+        if np.any(d > ulps * np.spacing(np.abs(b[ok]))):
+            raise AssertionError(f"{what}: {name} beyond {ulps} ulp(s)")
+        differ += int(np.count_nonzero(d))
+    return differ
