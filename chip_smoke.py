@@ -12,7 +12,13 @@ Phases, each of which raises on failure (exit code != 0):
    (box 7): the MLE fit kernel in its single-pass mode (K1) and in the
    phase schedule (K2), for the methods sigmaxy and sigma, K2 == K1 bit
    for bit; the LM fit kernel in its single-pass mode (K3) and in the
-   phase schedule (K6), K6 == K3 bit for bit; the fused cut+fit kernel
+   phase schedule (K6), K6 == K3 bit for bit; K2 and K3 as work queues
+   on the ROIs (csrc/roi_mle_queue.cu + the CRLB/LL pass,
+   csrc/roi_lq_queue.cu; lane refill and a warp-cooperative straggler
+   tail) == K1/K2 (sigmaxy, sigma) and K3/K6 bit for bit there and on
+   make_spots at boxes 5, 9, 11, 13 and 15, with their times, bounds,
+   cooperative steps, registers, spills and resident blocks (none may
+   spill at box 7); the fused cut+fit kernel
    (K5: MLE sigmaxy and sigma as the work queue with its CRLB/LL pass,
    in one pass and in the phase schedule, LM as the work queue with its
    cooperative tail) on the same spots laid out as a u16 and an f32
@@ -78,10 +84,17 @@ Phases, each of which raises on failure (exit code != 0):
    movies' locs equal, chunk 0's photons equal to the CPU run and within
    torch_parity.compare_avg_photons of the f32 pairwise sum;
 10. identify + fit2D: identify == the fused slice's hit list; fit2D
-   gaussmle runs K2 (3 launches a 262,144-spot block) and equals the MLE
-   slice (K5's queue) bit for bit; fit2D gausslq runs K3 at max_it 30
-   and equals K5's LM queue at max_it 30 bit for bit, and the LQ slice
-   on the spots that converge within 30 steps;
+   gaussmle runs K2 on the route of ops/mle_cuda.ROI_FITS (the work
+   queue: 2 launches a 262,144-spot block; K2's phases: 3) and equals
+   the MLE slice (K5's queue) bit for bit; fit2D gausslq runs K3 at
+   max_it 30 on the route of ops/lq_cuda.ROI_FIT (1 launch a block) and
+   equals K5's LM queue at max_it 30 bit for bit, and the LQ slice on
+   the spots that converge within 30 steps; on the first 262,144-ROI
+   block the ROI queues == the one-thread kernels bit for bit (MLE at
+   max_it 100 and 6, where most fits are stragglers; LM at 30 and 100),
+   the routes timed in 5 alternating turns (the rule behind the route
+   constants), each kernel's ms, bound and plain ms there, and the MLE
+   tail split (the spots at max_it alone, K2's phases and the queue);
 11. astigmatic 3D: localize_3D (MLE and LQ) on the astigmatic recipe of
    tests/torch_data.py (2048 frames of 256x256, made alongside the
    build) with K4 and K5 launched, zfit's wall on the card, the card's
@@ -255,6 +268,29 @@ def lq_fit_bound(n: int, steps: float, reused: float,
 
 
 K4_CALLS = 20  # back-to-back K4 calls of its extra timing
+ROUTE_TURNS = 5  # alternating turns a route of fit2D is timed in
+STRAGGLER_IT = 6  # a max_it at which most fit2D MLE fits are stragglers
+
+
+def _alternate(fns, turns: int = ROUTE_TURNS) -> list[list[float]]:
+    """``turns`` CUDA-event timings of one call of each of ``fns``, taken
+    in turn (A B A B ...) after a warm-up call of each; returns each
+    function's times (ms)."""
+    import torch
+
+    for fn in fns:
+        fn()
+    out = [[] for _ in fns]
+    for _ in range(turns):
+        for times, fn in zip(out, fns):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+    return out
 
 
 def _turns(fns, reps: int = 5) -> list[float]:
@@ -369,10 +405,13 @@ def _ptxas_table(log: str) -> list[str]:
     rows, name = [], None
     for line in log.splitlines():
         m = re.search(r"entry function '.*?((?:identify|lq_fit|mle_fit|"
-                      r"winfit_mle_queue|winfit_mle|winfit_lq_queue)_kernel)"
+                      r"mle_queue|winfit_mle|lq_queue)_kernel)"
                       r"I(\w+?)EEv", line)
         if m:
-            name, spill = f"{m.group(1)}<{m.group(2)}>", ""
+            args = re.sub(r"NS_\d+ChunkWindowsI(\w)EE", r"Chunk<\1>",
+                          m.group(2))
+            args = re.sub(r"NS_\d+RoiBatchE", "RoiBatch", args)
+            name, spill = f"{m.group(1)}<{args}>", ""
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and name:
@@ -714,6 +753,76 @@ def main() -> int:
           f"{ms['K6']:.3f} ms, plain {ms['plain_lq']:.3f} ms, bound "
           f"{bounds['K3'][0]:.4f} ms ({bounds['K3'][1]})")
 
+    # K2 and K3 as work queues on the same ROIs (csrc/roi_mle_queue.cu +
+    # mle_fit.cu's CRLB/LL pass, csrc/roi_lq_queue.cu): == K1/K2 and K3/K6
+    # bit for bit, with their cooperative steps; the same work as the
+    # one-thread kernels, so the same bounds
+    for method in ("sigmaxy", "sigma"):
+        tag = "" if method == "sigmaxy" else " sigma"
+        plain, k1, k2 = ref[method]
+        coop = torch.zeros(1, dtype=torch.int32, device=dev)
+        q = as_np(mle_cuda.fit_queue_t(spots_t, EPS, MAX_IT, method,
+                                       coop_steps=coop))
+        _assert_equal(q, k1, f"K2 queue{tag} vs K1{tag}")
+        _assert_equal(q, k2, f"K2 queue{tag} vs K2{tag}")
+        stats["K2 queue" + tag] = compare_fits(plain, q, MAX_IT,
+                                               f"K2 queue{tag} vs plain")
+        ms["K2 queue" + tag] = _median_ms(
+            lambda: mle_cuda.fit_queue_t(spots_t, EPS, MAX_IT, method))
+        bounds["K2 queue" + tag] = bounds["K1" + tag]
+        b_ms = bounds["K1" + tag][0]
+        print(f"K2 queue{tag} (roi_mle_queue + CRLB/LL pass) == K1 == K2 "
+              f"bit for bit; fit {N_SPOTS} spots: {ms['K2 queue' + tag]:.3f}"
+              f" ms ({b_ms / ms['K2 queue' + tag]:.1%} of the bound "
+              f"{b_ms:.4f} ms), K2 {ms['K2' + tag]:.3f} ms, plain "
+              f"{ms['plain_fit' + tag]:.3f} ms; cooperative steps "
+              f"{int(coop.item())}; kernel {mle_cuda.queue_info(BOX, method)}")
+    coop = torch.zeros(1, dtype=torch.int32, device=dev)
+    k3q = lq_cuda.fit_queue_t(spots_t, MAX_IT, FTOL,
+                              coop_steps=coop).cpu().numpy()
+    if not (np.array_equal(k3q, k3, equal_nan=True)
+            and np.array_equal(k3q, k6, equal_nan=True)):
+        raise AssertionError("K3 queue != K3, K6 bit for bit")
+    stats["K3 queue"] = compare_lq_fits(plain_lq, k3q, spots_np,
+                                        "K3 queue vs plain")
+    ms["K3 queue"] = _median_ms(lambda: lq_cuda.fit_queue_t(spots_t, MAX_IT,
+                                                            FTOL))
+    bounds["K3 queue"] = bounds["K3"]
+    print(f"K3 queue (roi_lq_queue) == K3 == K6 bit for bit; fit {N_SPOTS} "
+          f"spots: {ms['K3 queue']:.3f} ms ({bounds['K3'][0] / ms['K3 queue']:.1%}"
+          f" of the bound), K3 {ms['K3']:.3f} ms, plain {ms['plain_lq']:.3f} "
+          f"ms; cooperative steps {int(coop.item())}; kernel "
+          f"{lq_cuda.queue_info(BOX)}")
+    # the ROI queues at the other boxes, == the one-thread kernels
+    for box in (5, 9, 11, 13, 15):
+        sp = torch.from_numpy(np.ascontiguousarray(
+            make_spots(8192, box, seed=box).transpose(1, 2, 0))).to(dev)
+        for method in ("sigmaxy", "sigma"):
+            q = as_np(mle_cuda.fit_queue_t(sp, EPS, MAX_IT, method))
+            _assert_equal(q, as_np(mle_cuda.fit_t(sp, EPS, MAX_IT, method)),
+                          f"box {box} K2 queue {method} vs K1")
+            _assert_equal(q, as_np(mle_cuda.fit_boundary_t(sp, EPS, MAX_IT,
+                                                           method)),
+                          f"box {box} K2 queue {method} vs K2")
+        q = lq_cuda.fit_queue_t(sp, MAX_IT, FTOL).cpu().numpy()
+        for other in (lq_cuda.fit_t, lq_cuda.fit_boundary_t):
+            if not np.array_equal(q, other(sp, MAX_IT, FTOL).cpu().numpy(),
+                                  equal_nan=True):
+                raise AssertionError(f"box {box} K3 queue != {other.__name__}")
+    print("boxes 5, 9, 11, 13, 15 (8192 make_spots each): K2 queue == K1 == "
+          "K2 (sigmaxy, sigma), K3 queue == K3 == K6, bit for bit")
+    for box in (5, 7, 9, 11, 13, 15):
+        rows = {m: mle_cuda.queue_info(box, m) for m in ("sigmaxy", "sigma")}
+        rows["lq"] = lq_cuda.queue_info(box)
+        print(f"  ROI queues box {box} (registers, local bytes, blocks a SM):",
+              json.dumps({k: (v["registers"], v["local_bytes"],
+                              v["blocks_per_sm"]) for k, v in rows.items()}))
+        if box == BOX and any(v["local_bytes"] for v in rows.values()):
+            raise AssertionError(f"a ROI queue spills at box {BOX}: {rows}")
+    for row in _ptxas_table((lib_path.parent / "build.log").read_text()):
+        if "RoiBatch" in row:
+            print("  ROI queue ptxas:", row)
+
     # K5 on the same spots laid out as u16 and f32 frame chunks: with
     # baseline 0 and factor 1 its photons are the spots themselves, so it
     # equals K1 (one pass), K2 (phases) and K3 bit for bit
@@ -817,7 +926,7 @@ def main() -> int:
           f"(u16, f32): {winfit_cuda.lq_queue_info(torch.uint16, BOX)}, "
           f"{winfit_cuda.lq_queue_info(torch.float32, BOX)}")
     for row in _ptxas_table((lib_path.parent / "build.log").read_text()):
-        if row.startswith("winfit_lq_queue"):
+        if row.startswith("lq_queue") and "Chunk" in row:
             print("  K5 lq ptxas:", row)
     del win, hits
 
@@ -892,7 +1001,9 @@ def main() -> int:
     camera = {"Baseline": 0, "Sensitivity": 1, "Gain": 1, "Pixelsize": 130}
     params = {"Min. Net Gradient": MIN_NG, "Box Size": BOX}
     counters = {"K1": mle_cuda.fit_t, "K2": mle_cuda.fit_boundary_t,
+                "K2 queue": mle_cuda.fit_queue_t,
                 "K3": lq_cuda.fit_t, "K6": lq_cuda.fit_boundary_t,
+                "K3 queue": lq_cuda.fit_queue_t,
                 "K4": identify_cuda.identify_tiles,
                 "K5 mle one pass": winfit_cuda.fit_mle_t,
                 "K5 mle phases": winfit_cuda.fit_mle_boundary_t,
@@ -1496,22 +1607,28 @@ def main() -> int:
     (fit_mle, _), wall_k2, launches_k2 = counted(lambda: localize.fit2D(
         movie, info2d, dict(camera), ids, BOX, fitting_method="gaussmle",
         device="cuda"))
-    n_k2 = 3 * -(-len(ids) // gaussmle._CHUNK)
-    if (launches_k2["K2"] != n_k2
-            or any(v for k, v in launches_k2.items() if k != "K2")):
-        raise AssertionError(f"fit2D MLE did not run through K2 only: "
-                             f"{launches_k2}")
+    # the launches follow the routes of ops/mle_cuda.ROI_FITS and
+    # ops/lq_cuda.ROI_FIT: the MLE queue 2 a block, K2's phases 3, the LM
+    # (queue or one pass) 1
+    mle_queue = mle_cuda.ROI_FITS["sigmaxy"] is mle_cuda.fit_queue_t
+    k2_key = "K2 queue" if mle_queue else "K2"
+    n_k2 = (2 if mle_queue else 3) * -(-len(ids) // gaussmle._CHUNK)
+    if (launches_k2[k2_key] != n_k2
+            or any(v for k, v in launches_k2.items() if k != k2_key)):
+        raise AssertionError(f"fit2D MLE did not run through {k2_key} only:"
+                             f" {launches_k2}")
     for name in locs.dtype.names:
         if not np.array_equal(fit_mle[name], locs[name], equal_nan=True):
-            raise AssertionError(f"fit2D MLE (K2): {name} differs from the "
-                                 "fused MLE slice (K5 queue)")
+            raise AssertionError(f"fit2D MLE ({k2_key}): {name} differs from"
+                                 " the fused MLE slice (K5 queue)")
     (fit_lq, _), wall_k3, launches_k3 = counted(lambda: localize.fit2D(
         movie, info2d, dict(camera), ids, BOX, fitting_method="gausslq",
         device="cuda"))
+    k3_key = "K3 queue" if lq_cuda.ROI_FIT is lq_cuda.fit_queue_t else "K3"
     n_k3 = -(-len(ids) // lq._CHUNK)
-    if (launches_k3["K3"] != n_k3
-            or any(v for k, v in launches_k3.items() if k != "K3")):
-        raise AssertionError(f"fit2D LQ did not run through K3 only: "
+    if (launches_k3[k3_key] != n_k3
+            or any(v for k, v in launches_k3.items() if k != k3_key)):
+        raise AssertionError(f"fit2D LQ did not run through {k3_key} only: "
                              f"{launches_k3}")
     # K3 at picasso_tpu's fit2D max_it 30 against K5's LM queue at 30 on
     # the same hits (one chunk of the whole movie), and against the LQ
@@ -1535,12 +1652,137 @@ def main() -> int:
         raise AssertionError("fit2D LQ: differs from the LQ slice on the "
                              "spots that converge within 30 steps")
     print(f"identify ({wall_id:.3f} s, launches {launches_id}) == the fused "
-          f"slice's {len(ids)} hits; fit2D gaussmle (K2, {launches_k2['K2']} "
-          f"launches, {wall_k2:.3f} s) == the fused MLE slice bit for bit; "
-          f"fit2D gausslq (K3, {launches_k3['K3']} launches, {wall_k3:.3f} s, "
-          f"max_it 30) == K5 LM queue at max_it 30 bit for bit, == the LQ "
-          f"slice on the {conv.mean():.4%} of spots that converge within 30 "
-          "steps")
+          f"slice's {len(ids)} hits; fit2D gaussmle ({k2_key}, "
+          f"{launches_k2[k2_key]} launches, {wall_k2:.3f} s) == the fused "
+          f"MLE slice bit for bit; fit2D gausslq ({k3_key}, "
+          f"{launches_k3[k3_key]} launches, {wall_k3:.3f} s, max_it 30) == "
+          f"K5 LM queue at max_it 30 bit for bit, == the LQ slice on the "
+          f"{conv.mean():.4%} of spots that converge within 30 steps")
+
+    # the first fit2D block (262,144 ROIs, cut and converted as
+    # gaussmle.gaussmle does): the ROI queues == the one-thread kernels
+    # bit for bit (MLE at max_it MAX_IT and STRAGGLER_IT, LM at 30 and
+    # MAX_IT); the routes in ROUTE_TURNS alternating turns, which set
+    # ops/mle_cuda.ROI_FITS and ops/lq_cuda.ROI_FIT (the queue iff its
+    # median is lower); each kernel's ms, bound and plain ms; the MLE
+    # straggler tail: the max_it spots alone against the whole
+    raw = localize.get_spots_raw(movie, ids[:gaussmle._CHUNK], BOX,
+                                 device="cuda")
+    block = identify.as_float32(torch.from_numpy(raw).to(dev)).permute(
+        1, 2, 0).contiguous()
+    nb = block.shape[-1]
+    del raw
+    fit2d = {}
+    for method in ("sigmaxy", "sigma"):
+        tag = "" if method == "sigmaxy" else " sigma"
+        coop = {}
+        for m in (MAX_IT, STRAGGLER_IT):
+            c = torch.zeros(1, dtype=torch.int32, device=dev)
+            q = as_np(mle_cuda.fit_queue_t(block, EPS, m, method,
+                                           coop_steps=c))
+            k1b = as_np(mle_cuda.fit_t(block, EPS, m, method))
+            _assert_equal(q, k1b, f"fit2D block {method} max_it {m}: K2 "
+                          "queue vs K1")
+            _assert_equal(q, as_np(mle_cuda.fit_boundary_t(block, EPS, m,
+                                                           method)),
+                          f"fit2D block {method} max_it {m}: K2 queue vs K2")
+            coop[m] = (int(c.item()), float(np.mean(k1b[3] == m)))
+            if m == MAX_IT:
+                it_b = k1b[3]
+                plain_b = as_np(mle._fit_core(block, EPS, MAX_IT, method))
+                what = f"fit2D block {method}: K2 queue vs plain"
+                if method == "sigmaxy":  # fit2D's method
+                    stats["K2 queue fit2D"] = compare_fits(plain_b, q,
+                                                           MAX_IT, what)
+                else:
+                    # the one-thread sigma fits of the commit before the
+                    # ROI queues were as far from the plain fit on these
+                    # ROIs (PERF.md, ROADMAP queue 3): shown, not held
+                    try:
+                        compare_fits(plain_b, q, MAX_IT, what)
+                        print(f"{what}: within compare_fits")
+                    except AssertionError as e:
+                        print(f"{what}: open fault (ROADMAP queue 3): {e}")
+        fns = (lambda: mle_cuda.fit_boundary_t(block, EPS, MAX_IT, method),
+               lambda: mle_cuda.fit_queue_t(block, EPS, MAX_IT, method))
+        turns = _alternate(fns, ROUTE_TURNS)
+        ms["K2 fit2D" + tag], ms["K2 queue fit2D" + tag] = (
+            statistics.median(t) for t in turns)
+        bounds["fit2D" + tag] = _fit_bound(nb, float(it_b.sum()),
+                                           mle_flops_per_spot_iter, 56)
+        ms["plain fit2D" + tag] = _median_ms(
+            lambda: mle._fit_core(block, EPS, MAX_IT, method))
+        at_max = torch.from_numpy(it_b == MAX_IT).to(dev)
+        stuck = block[:, :, at_max].contiguous()
+        tail = [round(t, 4) for t in _turns(
+            [(lambda f=f: f(stuck, EPS, MAX_IT, method))
+             for f in (mle_cuda.fit_boundary_t, mle_cuda.fit_queue_t,
+                       mle_cuda.fit_queue_t, mle_cuda.fit_boundary_t)])]
+        fit2d[method] = {
+            "turns_ms": {"K2 phases": [round(t, 4) for t in turns[0]],
+                         "K2 queue": [round(t, 4) for t in turns[1]]},
+            "route": ("queue" if ms["K2 queue fit2D" + tag]
+                      < ms["K2 fit2D" + tag] else "phases"),
+            "route_set": ("queue" if mle_cuda.ROI_FITS[method]
+                          is mle_cuda.fit_queue_t else "phases"),
+            "tail_split_ms": {"spots at max_it": int(at_max.sum()),
+                              "alone K2, queue, queue, K2": tail},
+        }
+        b_ms = bounds["fit2D" + tag][0]
+        print(f"fit2D block {method} ({nb} ROIs, iterations mean "
+              f"{it_b.mean():.2f}, {np.mean(it_b == MAX_IT):.4f} at max_it): "
+              f"K2 queue == K1 == K2 bit for bit at max_it {MAX_IT} and "
+              f"{STRAGGLER_IT} (cooperative steps, share at max_it: "
+              f"{coop}); K2 phases {ms['K2 fit2D' + tag]:.4f} ms, queue "
+              f"{ms['K2 queue fit2D' + tag]:.4f} ms (medians of "
+              f"{ROUTE_TURNS} turns), bound {b_ms:.4f} ms "
+              f"({b_ms / ms['K2 queue fit2D' + tag]:.1%} of the queue, "
+              f"{b_ms / ms['K2 fit2D' + tag]:.1%} of the phases), plain "
+              f"{ms['plain fit2D' + tag]:.3f} ms;", json.dumps(fit2d[method]))
+    for m in (30, MAX_IT):
+        c = torch.zeros(1, dtype=torch.int32, device=dev)
+        q = lq_cuda.fit_queue_t(block, m, FTOL, coop_steps=c).cpu().numpy()
+        for other in (lq_cuda.fit_t, lq_cuda.fit_boundary_t):
+            if not np.array_equal(q, other(block, m, FTOL).cpu().numpy(),
+                                  equal_nan=True):
+                raise AssertionError(f"fit2D block max_it {m}: K3 queue != "
+                                     f"{other.__name__}")
+        if m == 30:
+            coop_lq = int(c.item())
+            stats["K3 queue fit2D"] = compare_lq_fits(
+                lq._lm_core(block, 30, FTOL).cpu().numpy(), q,
+                block.cpu().numpy(), "fit2D block: K3 queue vs plain")
+    fns = (lambda: lq_cuda.fit_t(block, 30, FTOL),
+           lambda: lq_cuda.fit_queue_t(block, 30, FTOL))
+    turns = _alternate(fns, ROUTE_TURNS)
+    ms["K3 fit2D"], ms["K3 queue fit2D"] = (statistics.median(t)
+                                            for t in turns)
+    it30, _, reused30 = lq_iters(block, 30)
+    bounds["fit2D lq"] = lq_fit_bound(nb, float(it30.sum()),
+                                      float(reused30.sum()))
+    ms["plain fit2D lq"] = _median_ms(lambda: lq._lm_core(block, 30, FTOL))
+    fit2d["lq"] = {
+        "turns_ms": {"K3": [round(t, 4) for t in turns[0]],
+                     "K3 queue": [round(t, 4) for t in turns[1]]},
+        "route": ("queue" if ms["K3 queue fit2D"] < ms["K3 fit2D"]
+                  else "one pass"),
+        "route_set": ("queue" if lq_cuda.ROI_FIT is lq_cuda.fit_queue_t
+                      else "one pass"),
+        "steps": lq_step_stats(it30, 30)}
+    b_ms = bounds["fit2D lq"][0]
+    print(f"fit2D block LM at max_it 30: K3 queue == K3 == K6 bit for bit "
+          f"at max_it 30 and {MAX_IT} (cooperative steps at 30: {coop_lq});"
+          f" K3 {ms['K3 fit2D']:.4f} ms, queue {ms['K3 queue fit2D']:.4f} ms"
+          f" (medians of {ROUTE_TURNS} turns), bound {b_ms:.4f} ms "
+          f"({b_ms / ms['K3 queue fit2D']:.1%} of the queue, "
+          f"{b_ms / ms['K3 fit2D']:.1%} of K3), plain "
+          f"{ms['plain fit2D lq']:.3f} ms;", json.dumps(fit2d["lq"]))
+    for what, r in fit2d.items():
+        if r["route"] != r["route_set"]:
+            print(f"note: fit2D {what}: this run's turns favour the "
+                  f"{r['route']}, the route constant takes the "
+                  f"{r['route_set']}")
+    del block, stuck
     del fit_mle, fit_lq, locs_tif
 
     # 11. astigmatic 3D ---------------------------------------------------
@@ -1716,6 +1958,21 @@ def main() -> int:
         entry("K5 one pass sigma", "K5 winfit_mle sigma (single pass)",
               win_src, win_tpu, "K5 mle one pass",
               stats["K1 sigma"]["xy_max_all"], "plain K5 sigma", "sigma"),
+        entry("K2 queue", "K2 roi_mle_queue sigmaxy (work queue, "
+              "cooperative tail, + CRLB/LL pass)",
+              "picasso_torch/csrc/roi_mle_queue.cu",
+              "picasso_tpu/ops/mle_pallas.py:256", "K2 queue",
+              stats["K2 queue"]["xy_max_all"], "plain_fit", "sigmaxy"),
+        entry("K2 queue sigma", "K2 roi_mle_queue sigma (work queue, "
+              "cooperative tail, + CRLB/LL pass)",
+              "picasso_torch/csrc/roi_mle_queue.cu",
+              "picasso_tpu/ops/mle_pallas.py:256", "K2 queue",
+              stats["K2 queue sigma"]["xy_max_all"], "plain_fit sigma",
+              "sigma"),
+        entry("K3 queue", "K3 roi_lq_queue (work queue, cooperative tail)",
+              "picasso_torch/csrc/roi_lq_queue.cu",
+              "picasso_tpu/ops/lq_pallas.py:25", "K3 queue",
+              stats["K3 queue"]["xy_p100"], "plain_lq"),
         entry("K2", "K2 mle_fit sigmaxy (phases 16/50/100)", mle_src,
               "picasso_tpu/ops/mle_pallas.py:256", "K2",
               stats["K2"]["xy_max_all"], "plain_fit", "sigmaxy"),
@@ -1742,6 +1999,19 @@ def main() -> int:
         if k["name"].startswith("K5 winfit_lq"):
             k["chunk0_ms"] = ms["K5 lq queue chunk 0"]
             k["chunk0_bound_ms"] = chunk_bound[0]
+    # the fit kernels of fit2D on its first 262,144-ROI block too
+    for name, key, block_key in (
+            ("K2 roi_mle_queue sigmaxy (", "K2 queue fit2D", "fit2D"),
+            ("K2 roi_mle_queue sigma (", "K2 queue fit2D sigma",
+             "fit2D sigma"),
+            ("K2 mle_fit sigmaxy (", "K2 fit2D", "fit2D"),
+            ("K2 mle_fit sigma (", "K2 fit2D sigma", "fit2D sigma"),
+            ("K3 roi_lq_queue", "K3 queue fit2D", "fit2D lq"),
+            ("K3 lq_fit (single", "K3 fit2D", "fit2D lq")):
+        k = next(k for k in kernels if k["name"].startswith(name))
+        k["fit2d_block_ms"] = ms[key]
+        k["fit2d_block_bound_ms"] = bounds[block_key][0]
+        k["fit2d_block_plain_ms"] = ms["plain " + block_key]
     print(f"smoke: {time.perf_counter() - t_start:.1f} s after the start")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -65,7 +65,7 @@ SIGNATURES = {
         _P,                                    # stream
     ],
     "picasso_winfit_mle_queue_info": [
-        _I, _I, _I, _P,                        # dtype, box, method, int info[7]
+        _I, _I, _I, _P,                        # dtype, box, method, int info[8]
     ],
     "picasso_winfit_lq_queue": [
         _P, _I, _LL, _LL, _LL,                 # frames, dtype, B, Y, X
@@ -76,6 +76,24 @@ SIGNATURES = {
     ],
     "picasso_winfit_lq_queue_info": [
         _I, _I, _P,                            # dtype, box, int info[7]
+    ],
+    "picasso_roi_mle_queue": [
+        _P, _LL, _I, _F, _I, _LL,              # spots, n, box, eps, max_it, n_valid
+        _I, _P,                                # method, counter
+        _P, _P, _P, _P, _P,                    # carry: theta old done iters max_step
+        _P,                                    # coop steps or null
+        _P,                                    # stream
+    ],
+    "picasso_roi_mle_queue_info": [
+        _I, _I, _P,                            # box, method, int info[8]
+    ],
+    "picasso_roi_lq_queue": [
+        _P, _LL, _I, _F, _I, _LL,              # spots, n, box, ftol, max_it, n_valid
+        _P, _P, _P,                            # counter, theta out, coop steps or null
+        _P,                                    # stream
+    ],
+    "picasso_roi_lq_queue_info": [
+        _I, _P,                                # box, int info[7]
     ],
     "picasso_identify_tiles": [
         _P, _I, _LL, _LL, _LL, _I, _F,         # frames, dtype, B, Y, X, box, min_ng

@@ -6,11 +6,12 @@
 //   LanesLast  the (S, S, N) f32 batch of mle_fit.cu / lq_fit.cu (K1/K2,
 //              K3/K6): neighbouring spots on neighbouring addresses, so
 //              a warp's read of one pixel coalesces;
-//   Staged     the window that the fused cut+fit kernels (K5,
-//              winfit_mle*.cu / winfit_lq_queue.cuh) load once from the frame
-//              chunk, convert to photons and keep in shared memory as
-//              [pixel][thread]: a warp's read of one pixel touches 32
-//              consecutive banks.
+//   Staged     a spot staged once in shared memory as [pixel][thread]
+//              (a warp's read of one pixel touches 32 consecutive
+//              banks): by the fused cut+fit kernels (K5, winfit_mle*.cu,
+//              winfit_*_queue.cu) from the frame chunk, converted to
+//              photons, and by the ROI work queues (roi_*_queue.cu) from
+//              the (S, S, N) batch.
 // The body is the same template for both, so a source changes where a
 // pixel comes from and nothing of the arithmetic.
 
@@ -89,5 +90,48 @@ __device__ __forceinline__ void stage_window(
       dst[(yy * S + xx) * T] = __fmul_rn(
           __fsub_rn(static_cast<float>(src[yy * X + xx]), baseline), factor);
 }
+
+// Where a slot of a work queue (mle_queue.cuh, lq_queue.cuh) takes its
+// spot from, as a source policy: stage<S, T>(n, dst) writes spot n's
+// box x box photons at dst[(y*S + x) * T] (its column of the block's
+// stage), and starts_done(n) says whether the spot starts converged.
+// The queue body is the same template for both sources.
+
+// K5: the window of a (B, Y, X) chunk around hit n (stage_window).
+template <typename Tin>
+struct ChunkWindows {
+  const Tin* frames;
+  long long B, Y, X;
+  const int* hits;  // (3, N) rows f, y, x
+  long long N;
+  float baseline, factor;
+  static constexpr bool kMayStartDone = false;
+  template <int S, int T>
+  __device__ __forceinline__ void stage(long long n, float* dst) const {
+    stage_window<S, T>(frames, B, Y, X, hits, N, n, baseline, factor, dst);
+  }
+  __device__ __forceinline__ bool starts_done(long long) const {
+    return false;
+  }
+};
+
+// K2/K3 as work queues: spot n of the lanes-last (S, S, N) f32 photon
+// batch, copied as it is. A refill claims consecutive spot indices, so
+// the claiming lanes of a warp read each pixel from neighbouring
+// addresses. Spots at or above n_valid start converged, as in K1/K3.
+struct RoiBatch {
+  const float* spots;
+  long long N, n_valid;
+  static constexpr bool kMayStartDone = true;
+  template <int S, int T>
+  __device__ __forceinline__ void stage(long long n, float* dst) const {
+#pragma unroll
+    for (int p = 0; p < S * S; ++p)
+      dst[p * T] = __ldg(spots + (long long)p * N + n);
+  }
+  __device__ __forceinline__ bool starts_done(long long n) const {
+    return n >= n_valid;
+  }
+};
 
 }  // namespace

@@ -1,7 +1,7 @@
 // Least-squares fit of the plain elliptic 2D Gaussian by
 // Levenberg-Marquardt for one spot (sm_90a): the body of the K3/K6
-// kernels (lq_fit.cu, one thread a spot) and of the fused cut+fit kernel
-// K5 (winfit_lq_queue.cuh, a work queue), templated on the source the
+// kernels (lq_fit.cu, one thread a spot) and of the LM work queues
+// (lq_queue.cuh: K5's and K3's), templated on the source the
 // spot's pixels come from (fit_common.cuh). Its pieces
 // (an axis point, a row of J^T r, a row of the cost, the fold of a row,
 // the damped step) are the units the work queue's cooperative tail
@@ -45,8 +45,8 @@ constexpr float kNorm = 0.3989422804014327f;  // 1 / sqrt(2 pi)
 // The arithmetic below is written with the correctly rounded intrinsics
 // (__fmul_rn, __fadd_rn, __fsub_rn, __fmaf_rn, __fdiv_rn), which the
 // compiler never contracts or reorders. The same numbers are formed in
-// three places: one thread a spot (K3, K6, a slot of K5's work queue),
-// the work queue's cooperative tail (winfit_lq_queue.cuh), whose lanes
+// three places: one thread a spot (K3, K6, a slot of a work queue),
+// the work queues' cooperative tail (lq_queue.cuh), whose lanes
 // form one row each and fold the rows by shuffles, and a cache that carries the normal
 // equations across steps. Contraction of a product into a later add
 // would depend on what the compiler sees of both, and so on the place.

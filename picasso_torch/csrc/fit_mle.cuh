@@ -1,7 +1,11 @@
 // MLE fit of the integrated 2D Gaussian for one spot, one thread per
-// spot (sm_90a): the body of the K1/K2 kernels (mle_fit.cu) and of the
-// fused cut+fit kernel K5 (winfit_mle.cu), templated on the source the
-// spot's pixels come from (fit_common.cuh).
+// spot (sm_90a): the body of the K1/K2 kernels (mle_fit.cu), of the
+// fused cut+fit kernel K5 (winfit_mle.cu) and of the MLE work queues
+// (mle_queue.cuh: K5's and K2's), templated on the source the spot's
+// pixels come from (fit_common.cuh). Its pieces (an edge and a point of
+// an axis, a row of the Newton sums, the fold of a row, the update) are
+// the units the work queues' cooperative tail spreads over a group of
+// lanes.
 //
 // It runs picasso_tpu/ops/mle._fit_core: moment initialiser, up to
 // max_it Newton steps with per-parameter max_step clamps, per-spot
@@ -40,14 +44,98 @@ constexpr float kInvSqrt2 = 0.70710678118654757f;
 constexpr float kSqrtPi = 1.7724538509055159f;
 constexpr float kInvSqrtPi = 0.56418958354775628f;  // 1 / sqrt(pi)
 
+// The Newton step's arithmetic below never leaves the compiler a product
+// that it could contract into a later add (nvcc contracts a * b + c to
+// an FMA by default): every sum of products is an explicit __fmaf_rn,
+// and a product that meets an add is either __fmul_rn or meets an
+// __fadd_rn / __fsub_rn (explicitly rounded operations are never fused).
+// One thread a spot (K1, K2, K7, a slot of a work queue) and the work
+// queues' cooperative tail (mle_queue.cuh), whose lanes form one axis
+// point and one row each and fold the rows by shuffles, then form the
+// same numbers: a contraction would depend on what the compiler sees of
+// both operations, and so on the place. The other products and sums stay
+// plain operators (correctly rounded, never reordered without fast math):
+// ptxas schedules explicitly rounded ones conservatively, and pinning the
+// pixel loop's whole arithmetic that way made K5's queue ~20% slower
+// (PERF.md). A reciprocal is __frcp_rn, correctly rounded as IEEE 1 / x
+// (and the instruction nvcc picks for 1.0f / x): __fdiv_rn(1.0f, x) gives
+// the same number through the general division's longer sequence, ~20%
+// more again.
+
 __device__ __forceinline__ float erfc_from_exp(float a, float e) {
-  const float x = fabsf(a) * kInvSqrt2;
-  const float t = 1.0f / (1.0f + 0.3275911f * x);
-  const float poly =
-      t * (0.254829592f +
-           t * (-0.284496736f +
-                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  return poly * e;
+  const float x = __fmul_rn(fabsf(a), kInvSqrt2);
+  const float t = __frcp_rn(__fmaf_rn(0.3275911f, x, 1.0f));
+  float p = __fmaf_rn(t, 1.061405429f, -1.453152027f);
+  p = __fmaf_rn(t, p, 1.421413741f);
+  p = __fmaf_rn(t, p, -0.284496736f);
+  p = __fmaf_rn(t, p, 0.254829592f);
+  return __fmul_rn(__fmul_rn(t, p), e);
+}
+
+// Edge k = 0..S of an axis (ops/gaussian.py fused_axis_terms): the
+// standardised edge a = (k - mu - 1/2) / sigma (the last, k = S, is
+// (S - 1 - mu + 1/2) / sigma), its exponential and its erfc.
+template <int S>
+__device__ __forceinline__ void mle_edge(int k, float mu, float inv_s,
+                                         float& a, float& e, float& q) {
+  a = k < S ? __fmul_rn(__fsub_rn(__fsub_rn((float)k, mu), 0.5f), inv_s)
+            : __fmul_rn(__fadd_rn(__fsub_rn((float)(S - 1), mu), 0.5f),
+                        inv_s);
+  e = expf(__fmul_rn(__fmul_rn(-0.5f, a), a));
+  q = erfc_from_exp(a, e);
+}
+
+// Point k = 0..S-1 of an axis from its two edges (am, eb, qb at k; ap,
+// ea, qa at k + 1): psf, dmu, d2mu, and dsig, d2sig (with ISO the
+// isotropic model's dPSF and d2PSF, fused_axis_terms_iso).
+template <bool ISO>
+__device__ __forceinline__ void mle_point(int k, float mu, float sigma,
+                                          float inv_s, float norm, float am,
+                                          float ap, float eb, float ea,
+                                          float qb, float qa, float& psf,
+                                          float& dmu, float& d2mu,
+                                          float& dsig, float& d2sig) {
+  psf = 0.5f * (am >= 0.0f ? qb - qa : (ap <= 0.0f ? qa - qb
+                                                     : (2.0f - qa) - qb));
+  const float d = __fsub_rn((float)k, mu);
+  const float dm = __fsub_rn(d, 0.5f), dp = __fadd_rn(d, 0.5f);
+  dmu = __fmul_rn(__fsub_rn(eb, ea), norm);
+  // u * eb - v * ea, the product of eb fused into the difference
+  auto edge_diff = [&](float u, float v) {
+    return __fmaf_rn(u, eb, -__fmul_rn(v, ea));
+  };
+  const float g1 = __fmul_rn(edge_diff(dm, dp), norm);
+  d2mu = __fmul_rn(__fmul_rn(g1, inv_s), inv_s);
+  if constexpr (ISO) {
+    const float F = __fmul_rn(edge_diff(am, ap), kInvSqrt2);
+    dsig = __fdiv_rn(F, __fmul_rn(kSqrtPi, sigma));
+    const float dF = __fmul_rn(
+        __fmul_rn(__fsub_rn(__fmul_rn(__fmul_rn(ap, ea),
+                                      __fmaf_rn(-ap, ap, 1.0f)),
+                            __fmul_rn(__fmul_rn(am, eb),
+                                      __fmaf_rn(-am, am, 1.0f))),
+                  kInvSqrt2),
+        inv_s);
+    d2sig = __fmul_rn(kInvSqrtPi, __fmaf_rn(__fmul_rn(-F, inv_s), inv_s,
+                                            __fmul_rn(dF, inv_s)));
+  } else {
+    dsig = __fmul_rn(g1, inv_s);
+    const float g3 = __fmul_rn(edge_diff(__fmul_rn(__fmul_rn(dm, dm), dm),
+                                         __fmul_rn(__fmul_rn(dp, dp), dp)),
+                               norm);
+    d2sig = __fmul_rn(
+        __fmul_rn(__fmaf_rn(__fmul_rn(g3, inv_s), inv_s,
+                            -__fmul_rn(2.0f, g1)),
+                  inv_s),
+        inv_s);
+  }
+}
+
+// 1 / sigma and the Gaussian's norm 1 / (sigma sqrt(2 pi)) of an axis.
+__device__ __forceinline__ void axis_scale(float sigma, float& inv_s,
+                                           float& norm) {
+  inv_s = __frcp_rn(sigma);
+  norm = __fdiv_rn(inv_s, kSqrt2Pi);
 }
 
 // Per-axis factors (psf, dmu, d2mu, dsig, d2sig) on the grid k - mu,
@@ -58,43 +146,16 @@ template <int S, bool ISO>
 __device__ __forceinline__ void axis_terms(float mu, float sigma, float* psf,
                                            float* dmu, float* d2mu,
                                            float* dsig, float* d2sig) {
-  const float inv_s = 1.0f / sigma;
+  float inv_s, norm;
+  axis_scale(sigma, inv_s, norm);
   float a8[S + 1], e8[S + 1], q8[S + 1];
 #pragma unroll
-  for (int k = 0; k < S; ++k) a8[k] = (((float)k - mu) - 0.5f) * inv_s;
-  a8[S] = (((float)(S - 1) - mu) + 0.5f) * inv_s;
+  for (int k = 0; k <= S; ++k) mle_edge<S>(k, mu, inv_s, a8[k], e8[k], q8[k]);
 #pragma unroll
-  for (int k = 0; k <= S; ++k) {
-    e8[k] = expf(-0.5f * a8[k] * a8[k]);
-    q8[k] = erfc_from_exp(a8[k], e8[k]);
-  }
-  const float norm = inv_s / kSqrt2Pi;
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    const float ap = a8[k + 1], am = a8[k];
-    const float ea = e8[k + 1], eb = e8[k];
-    const float qa = q8[k + 1], qb = q8[k];
-    psf[k] = am >= 0.0f ? 0.5f * (qb - qa)
-                        : (ap <= 0.0f ? 0.5f * (qa - qb)
-                                      : 0.5f * (2.0f - qa - qb));
-    const float d = (float)k - mu;
-    const float dm = d - 0.5f, dp = d + 0.5f;
-    dmu[k] = (eb - ea) * norm;
-    const float g1 = (dm * eb - dp * ea) * norm;
-    d2mu[k] = g1 * inv_s * inv_s;
-    if constexpr (ISO) {
-      const float F = (am * eb - ap * ea) * kInvSqrt2;
-      dsig[k] = F / (kSqrtPi * sigma);
-      const float dF =
-          ((ap * ea) * (1.0f - ap * ap) - (am * eb) * (1.0f - am * am)) *
-          kInvSqrt2 * inv_s;
-      d2sig[k] = kInvSqrtPi * ((-F * inv_s) * inv_s + dF * inv_s);
-    } else {
-      dsig[k] = g1 * inv_s;
-      const float g3 = (dm * dm * dm * eb - dp * dp * dp * ea) * norm;
-      d2sig[k] = (g3 * inv_s * inv_s - 2.0f * g1) * inv_s * inv_s;
-    }
-  }
+  for (int k = 0; k < S; ++k)
+    mle_point<ISO>(k, mu, sigma, inv_s, norm, a8[k], a8[k + 1], e8[k],
+                   e8[k + 1], q8[k], q8[k + 1], psf[k], dmu[k], d2mu[k],
+                   dsig[k], d2sig[k]);
 }
 
 // Moment initialiser (ops/mle.py initial_theta_sigmaxy_t, _init_state)
@@ -177,146 +238,143 @@ __device__ void init_theta(const Src& px, float* th, float* ms) {
   }
 }
 
-// One Newton update (ops/mle.py _newton_step_sigmaxy, or with SIG
-// _newton_step_sigma). Outer loop over rows y = j; each row's sums over
-// the columns i are the JAX package's row accumulators Tc/Td[j], formed
-// in the same order, then folded into the row dots. With SIG, dsig/d2sig
-// hold the isotropic dPSF/d2PSF and the fifth parameter is sigma.
-template <int S, bool SIG, class Src>
-__device__ void newton_step(const Src& px, float* th, const float* ms) {
-  constexpr int R = SIG ? 5 : 6;
-  const float ph = th[2], bg = th[3];
-  float psf_x[S], dmu_x[S], d2mu_x[S], dsig_x[S], d2sig_x[S];
-  float psf_y[S], dmu_y[S], d2mu_y[S], dsig_y[S], d2sig_y[S];
-  axis_terms<S, SIG>(th[0], th[4], psf_x, dmu_x, d2mu_x, dsig_x, d2sig_x);
-  axis_terms<S, SIG>(th[1], th[SIG ? 4 : 5], psf_y, dmu_y, d2mu_y, dsig_y,
-                     d2sig_y);
-  const float ph2 = ph * ph;
+// The column factors of the Newton sums, over i = 0..S-1, formed once a
+// step from the x axis's: rows dmu, psf, dsig, d2mu, d2sig, then the
+// products dmu^2, psf^2, dsig^2 and dsig * psf (sigma's d3 factor).
+constexpr int kCols = 9;
+template <int S>
+__device__ __forceinline__ void mle_columns(const float* psf_x,
+                                            const float* dmu_x,
+                                            const float* d2mu_x,
+                                            const float* dsig_x,
+                                            const float* d2sig_x,
+                                            float (&f)[kCols][S]) {
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    f[0][i] = dmu_x[i];
+    f[1][i] = psf_x[i];
+    f[2][i] = dsig_x[i];
+    f[3][i] = d2mu_x[i];
+    f[4][i] = d2sig_x[i];
+    f[5][i] = dmu_x[i] * dmu_x[i];
+    f[6][i] = psf_x[i] * psf_x[i];
+    f[7][i] = dsig_x[i] * dsig_x[i];
+    f[8][i] = dsig_x[i] * psf_x[i];
+  }
+}
 
-  // row dots: sum_j A[j] * T[j]
-  float a_py_c0 = 0, a_dy_c1 = 0, a_py_c1 = 0, a_c5 = 0, a_py_c2 = 0,
-        a_sy_c1 = 0, a_py_c3 = 0, a_py2_d0 = 0, a_d2y_c1 = 0,
-        a_dy2_d1 = 0, a_py2_d1 = 0, a_d3 = 0, a_py_c4 = 0, a_py2_d2 = 0,
-        a_s2y_c1 = 0, a_sy2_d1 = 0, a_sy_c2 = 0, a_pys_d3 = 0, a_d4 = 0;
+// Row j of the Newton sums (the JAX package's row accumulators
+// Tc/Td[j]): the eleven column sums c0..c5, d0..d4 over i = 0..S-1, in
+// order, with pg = photons * psf_y[j] and the column factors f
+// (mle_columns). sigmaxy: d3 = d4 = sum df; sigma: d3 = sum df * dPSF *
+// psf.
+template <int S, bool SIG, class Src>
+__device__ __forceinline__ void mle_row(const Src& px, int j, float pg,
+                                        float bg,
+                                        const float (&f)[kCols][S],
+                                        float* c) {
 #pragma unroll
-  for (int j = 0; j < S; ++j) {
-    float c0 = 0, c1 = 0, c2 = 0, c3 = 0, c4 = 0, c5 = 0;
-    float d0 = 0, d1 = 0, d2 = 0, d3 = 0, d4 = 0;
+  for (int i = 0; i < S; ++i) {
+    const float data = px(j, i);
+    const float model = __fmaf_rn(pg, f[1][i], bg);
+    const bool valid = model > 10e-3f;
+    const float r = __frcp_rn(model);
+    const float dr = data * r;
+    const float cf = nmin(valid ? __fsub_rn(dr, 1.0f) : 0.0f, 10e4f);
+    const float df = nmin(valid ? dr * r : 0.0f, 10e4f);
+    const float e3 = SIG ? __fmul_rn(df, f[8][i]) : df;
 #pragma unroll
-    for (int i = 0; i < S; ++i) {
-      const float data = px(j, i);
-      const float model = ph * psf_y[j] * psf_x[i] + bg;
-      const bool valid = model > 10e-3f;
-      const float r = 1.0f / model;
-      const float dr = data * r;
-      const float cf = nmin(valid ? dr - 1.0f : 0.0f, 10e4f);
-      const float df = nmin(valid ? dr * r : 0.0f, 10e4f);
-      // sigmaxy: d3 = df; sigma: d3 = df * dPSF*psf, d4 = df
-      const float e3 = SIG ? df * (dsig_x[i] * psf_x[i]) : df;
-      if (i == 0) {
-        c0 = cf * dmu_x[i];
-        c1 = cf * psf_x[i];
-        c2 = cf * dsig_x[i];
-        c3 = cf * d2mu_x[i];
-        c4 = cf * d2sig_x[i];
-        c5 = cf;
-        d0 = df * (dmu_x[i] * dmu_x[i]);
-        d1 = df * (psf_x[i] * psf_x[i]);
-        d2 = df * (dsig_x[i] * dsig_x[i]);
-        d3 = e3;
-        d4 = df;
-      } else {
-        c0 = c0 + cf * dmu_x[i];
-        c1 = c1 + cf * psf_x[i];
-        c2 = c2 + cf * dsig_x[i];
-        c3 = c3 + cf * d2mu_x[i];
-        c4 = c4 + cf * d2sig_x[i];
-        c5 = c5 + cf;
-        d0 = d0 + df * (dmu_x[i] * dmu_x[i]);
-        d1 = d1 + df * (psf_x[i] * psf_x[i]);
-        d2 = d2 + df * (dsig_x[i] * dsig_x[i]);
-        d3 = d3 + e3;
-        d4 = d4 + df;
-      }
-    }
-    const float py = psf_y[j], py2 = psf_y[j] * psf_y[j];
-    const float dy2 = dmu_y[j] * dmu_y[j], sy2 = dsig_y[j] * dsig_y[j];
-    const float pys = psf_y[j] * dsig_y[j];
-    if (j == 0) {
-      a_py_c0 = py * c0;
-      a_dy_c1 = dmu_y[j] * c1;
-      a_py_c1 = py * c1;
-      a_c5 = c5;
-      a_py_c2 = py * c2;
-      a_sy_c1 = dsig_y[j] * c1;
-      a_py_c3 = py * c3;
-      a_py2_d0 = py2 * d0;
-      a_d2y_c1 = d2mu_y[j] * c1;
-      a_dy2_d1 = dy2 * d1;
-      a_py2_d1 = py2 * d1;
-      a_d3 = d3;
-      a_py_c4 = py * c4;
-      a_py2_d2 = py2 * d2;
-      a_s2y_c1 = d2sig_y[j] * c1;
-      a_sy2_d1 = sy2 * d1;
-      a_sy_c2 = dsig_y[j] * c2;
-      a_pys_d3 = pys * d3;
-      a_d4 = d4;
-    } else {
-      a_py_c0 = a_py_c0 + py * c0;
-      a_dy_c1 = a_dy_c1 + dmu_y[j] * c1;
-      a_py_c1 = a_py_c1 + py * c1;
-      a_c5 = a_c5 + c5;
-      a_py_c2 = a_py_c2 + py * c2;
-      a_sy_c1 = a_sy_c1 + dsig_y[j] * c1;
-      a_py_c3 = a_py_c3 + py * c3;
-      a_py2_d0 = a_py2_d0 + py2 * d0;
-      a_d2y_c1 = a_d2y_c1 + d2mu_y[j] * c1;
-      a_dy2_d1 = a_dy2_d1 + dy2 * d1;
-      a_py2_d1 = a_py2_d1 + py2 * d1;
-      a_d3 = a_d3 + d3;
-      a_py_c4 = a_py_c4 + py * c4;
-      a_py2_d2 = a_py2_d2 + py2 * d2;
-      a_s2y_c1 = a_s2y_c1 + d2sig_y[j] * c1;
-      a_sy2_d1 = a_sy2_d1 + sy2 * d1;
-      a_sy_c2 = a_sy_c2 + dsig_y[j] * c2;
-      a_pys_d3 = a_pys_d3 + pys * d3;
-      a_d4 = a_d4 + d4;
+    for (int t = 0; t < 11; ++t) {
+      // c0..c4 and d0..d2 take a column factor (rows 0-4 and 5-7 of f);
+      // c5, d3, d4 are plain sums (of cf, e3, df)
+      const float v = t < 6 ? cf : (t == 9 ? e3 : df);
+      const float fa = f[t < 5 ? t : t - 1][i];
+      if (t == 5 || t >= 9)
+        c[t] = i == 0 ? v : c[t] + v;
+      else
+        c[t] = i == 0 ? v * fa : __fmaf_rn(v, fa, c[t]);
     }
   }
+}
+
+// The nineteen row dots sum_j A[j] * T[j], folded row by row in order:
+// row j's column sums c (mle_row) and its y factors (psf, dmu, d2mu,
+// dsig, d2sig at j). The y factors' squares are formed here, from the
+// operands.
+constexpr int kDots = 19;
+__device__ __forceinline__ void mle_fold(bool first, float py, float dy,
+                                         float d2y, float sy, float s2y,
+                                         const float* c, float* a) {
+  const float py2 = py * py, dy2 = dy * dy, sy2 = sy * sy, pys = py * sy;
+  // (row factor, column sum); a factor 0 marks a plain sum
+  const float fa[kDots] = {py,  dy,  py, 0.0f, py,  sy,  py,  py2, d2y, dy2,
+                           py2, 0.0f, py, py2, s2y, sy2, sy,  pys, 0.0f};
+  const int ci[kDots] = {0, 1, 1, 5, 2, 1, 3, 6, 1, 7,
+                         7, 9, 4, 8, 1, 7, 2, 9, 10};
+  const bool plain[kDots] = {false, false, false, true,  false, false, false,
+                             false, false, false, false, true,  false, false,
+                             false, false, false, false, true};
+#pragma unroll
+  for (int t = 0; t < kDots; ++t) {
+    const float v = c[ci[t]];
+    if (plain[t])
+      a[t] = first ? v : a[t] + v;
+    else
+      a[t] = first ? fa[t] * v : __fmaf_rn(fa[t], v, a[t]);
+  }
+}
+
+// The update from the row dots (ops/mle.py _newton_step_sigmaxy, or
+// with SIG _newton_step_sigma): numerators and denominators, the clamped
+// step, the constraints (picasso/gaussmle.py:880-884).
+template <int S, bool SIG>
+__device__ __forceinline__ void mle_update(const float* a, float* th,
+                                           const float* ms) {
+  constexpr int R = SIG ? 5 : 6;
+  enum {
+    py_c0, dy_c1, py_c1, c5, py_c2, sy_c1, py_c3, py2_d0, d2y_c1, dy2_d1,
+    py2_d1, d3, py_c4, py2_d2, s2y_c1, sy2_d1, sy_c2, pys_d3, d4
+  };
+  const float ph = th[2];
+  const float ph2 = __fmul_rn(ph, ph);
+  auto diff = [&](float u, int p, float v, int q) {
+    return __fmaf_rn(u, a[p], -__fmul_rn(v, a[q]));
+  };
   float num[R], den[R];
-  num[0] = ph * a_py_c0;
-  num[1] = ph * a_dy_c1;
-  num[2] = a_py_c1;
-  num[3] = a_c5;
-  den[0] = ph * a_py_c3 - ph2 * a_py2_d0;
-  den[1] = ph * a_d2y_c1 - ph2 * a_dy2_d1;
-  den[2] = -a_py2_d1;
+  num[0] = __fmul_rn(ph, a[py_c0]);
+  num[1] = __fmul_rn(ph, a[dy_c1]);
+  num[2] = a[py_c1];
+  num[3] = a[c5];
+  den[0] = diff(ph, py_c3, ph2, py2_d0);
+  den[1] = diff(ph, d2y_c1, ph2, dy2_d1);
+  den[2] = -a[py2_d1];
   if constexpr (SIG) {
-    den[3] = -a_d4;
-    num[4] = ph * (a_py_c2 + a_sy_c1);
+    den[3] = -a[d4];
+    num[4] = __fmul_rn(ph, __fadd_rn(a[py_c2], a[sy_c1]));
     // d2udt2_sigma: photons multiply only the first term (reference quirk)
-    const float cf_sig = (ph * a_py_c4 + 2.0f * a_sy_c2) + a_s2y_c1;
-    const float df_sig = ph2 * ((a_py2_d2 + 2.0f * a_pys_d3) + a_sy2_d1);
-    den[4] = cf_sig - df_sig;
+    const float cf_sig = __fadd_rn(
+        __fmaf_rn(ph, a[py_c4], __fmul_rn(2.0f, a[sy_c2])), a[s2y_c1]);
+    const float df_sig = __fmul_rn(
+        ph2, __fadd_rn(__fadd_rn(a[py2_d2], __fmul_rn(2.0f, a[pys_d3])),
+                       a[sy2_d1]));
+    den[4] = __fsub_rn(cf_sig, df_sig);
   } else {
-    den[3] = -a_d3;
-    num[4] = ph * a_py_c2;
-    num[5] = ph * a_sy_c1;
-    den[4] = ph * a_py_c4 - ph2 * a_py2_d2;
-    den[5] = ph * a_s2y_c1 - ph2 * a_sy2_d1;
+    den[3] = -a[d3];
+    num[4] = __fmul_rn(ph, a[py_c2]);
+    num[5] = __fmul_rn(ph, a[sy_c1]);
+    den[4] = diff(ph, py_c4, ph2, py2_d2);
+    den[5] = diff(ph, s2y_c1, ph2, sy2_d1);
   }
 #pragma unroll
   for (int p = 0; p < R; ++p) {
     // sigma's zero-denominator step is sign(num * max_step), i.e. +-1
-    const float zero_step =
-        SIG ? nsign(num[p] * ms[p]) : nsign(num[p]) * ms[p];
-    const float upd = den[p] == 0.0f
-                          ? zero_step
-                          : nmin(nmax(num[p] / den[p], -ms[p]), ms[p]);
-    th[p] = th[p] - upd;
+    const float zero_step = SIG ? nsign(__fmul_rn(num[p], ms[p]))
+                                : __fmul_rn(nsign(num[p]), ms[p]);
+    const float upd =
+        den[p] == 0.0f ? zero_step
+                       : nmin(nmax(__fdiv_rn(num[p], den[p]), -ms[p]), ms[p]);
+    th[p] = __fsub_rn(th[p], upd);
   }
-  // constraints (picasso/gaussmle.py:880-884)
   th[2] = nmax(th[2], 1.0f);
   th[3] = nmax(th[3], 0.01f);
   if constexpr (SIG) {
@@ -327,27 +385,62 @@ __device__ void newton_step(const Src& px, float* th, const float* ms) {
   }
 }
 
-// One Newton step of a lane that has not converged (ops/mle.py
+// One Newton update, one thread: both axes' factors, then row by row
+// (outer loop over y = j) the column sums, folded straight into the
+// nineteen row dots, so the (S, S) C/D grids are never stored. With SIG,
+// dsig/d2sig hold the isotropic dPSF/d2PSF and the fifth parameter is
+// sigma.
+template <int S, bool SIG, class Src>
+__device__ void newton_step(const Src& px, float* th, const float* ms) {
+  float psf_x[S], dmu_x[S], d2mu_x[S], dsig_x[S], d2sig_x[S];
+  float psf_y[S], dmu_y[S], d2mu_y[S], dsig_y[S], d2sig_y[S];
+  axis_terms<S, SIG>(th[0], th[4], psf_x, dmu_x, d2mu_x, dsig_x, d2sig_x);
+  axis_terms<S, SIG>(th[1], th[SIG ? 4 : 5], psf_y, dmu_y, d2mu_y, dsig_y,
+                     d2sig_y);
+  float f[kCols][S];
+  mle_columns<S>(psf_x, dmu_x, d2mu_x, dsig_x, d2sig_x, f);
+  float a[kDots];
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    float c[11];
+    mle_row<S, SIG>(px, j, th[2] * psf_y[j], th[3], f, c);
+    mle_fold(j == 0, psf_y[j], dmu_y[j], d2mu_y[j], dsig_y[j], d2sig_y[j], c,
+             a);
+  }
+  mle_update<S, SIG>(a, th, ms);
+}
+
+// After a Newton step of a lane that has not converged (ops/mle.py
 // _run_newton_rounds, one iteration of one lane): iters counts before
 // the convergence test, which compares rows (0, 1, 4, 5) (sigma: 0, 1)
 // against `old`; a converged lane keeps its theta and old.
-template <int S, bool SIG, class Src>
-__device__ __forceinline__ void newton_trip(const Src& px, float* th,
-                                            float* old, float& done,
-                                            float& iters, const float* ms,
-                                            float eps) {
+template <bool SIG>
+__device__ __forceinline__ void mle_converge(const float* th, float* old,
+                                             float& done, float& iters,
+                                             float eps) {
   constexpr int R = SIG ? 5 : 6;
-  newton_step<S, SIG>(px, th, ms);
   iters = iters + (1.0f - done);
-  bool conv = fabsf(old[0] - th[0]) < eps && fabsf(old[1] - th[1]) < eps;
+  bool conv = fabsf(__fsub_rn(old[0], th[0])) < eps &&
+              fabsf(__fsub_rn(old[1], th[1])) < eps;
   if constexpr (!SIG)
-    conv = conv && fabsf(old[4] - th[4]) < eps && fabsf(old[5] - th[5]) < eps;
+    conv = conv && fabsf(__fsub_rn(old[4], th[4])) < eps &&
+           fabsf(__fsub_rn(old[5], th[5])) < eps;
   if (conv) {
     done = 1.0f;
   } else {
 #pragma unroll
     for (int p = 0; p < R; ++p) old[p] = th[p];
   }
+}
+
+// One Newton step of a lane that has not converged, one thread.
+template <int S, bool SIG, class Src>
+__device__ __forceinline__ void newton_trip(const Src& px, float* th,
+                                            float* old, float& done,
+                                            float& iters, const float* ms,
+                                            float eps) {
+  newton_step<S, SIG>(px, th, ms);
+  mle_converge<SIG>(th, old, done, iters, eps);
 }
 
 // Up to k Newton steps from a carried state (ops/mle.py

@@ -4,8 +4,8 @@
 // Replaces the Pallas TPU kernels of picasso_tpu/ops/lq_pallas.py:
 //   K3  _tile_kernel                        (fit_pallas_t)
 //   K6  _lm_start_kernel, _lm_resume_kernel (fit_pallas_boundary_t)
-// The fit itself is fit_lq.cuh (shared with the fused cut+fit kernel
-// K5, winfit_lq_queue.cuh); this file reads the spots from the (S, S, N) f32
+// The fit itself is fit_lq.cuh (shared with the work queues of K5 and of
+// K3, lq_queue.cuh); this file reads the spots from the (S, S, N) f32
 // batch, where neighbouring spots sit on neighbouring addresses, so
 // each iteration's box*box reads coalesce. The phase schedule (host
 // side) stops threads of converged spots from sitting idle in warps that

@@ -9,7 +9,9 @@
 //                                          (fit_pallas_multiround), as a
 //       schedule of the START/RESUME/FINISH modes (ops/mle_cuda.py)
 // The fit itself is fit_mle.cuh (shared with the fused cut+fit kernel
-// K5, winfit_mle.cu); this file reads the spots from the (S, S, N) f32
+// K5, winfit_mle.cu, and the work queues of mle_queue.cuh, whose K2
+// queue, roi_mle_queue.cu, ends with this file's FINISH mode); this file
+// reads the spots from the (S, S, N) f32
 // batch, where neighbouring spots sit on neighbouring addresses, so
 // each Newton step's box*box reads coalesce. The phase schedules (host
 // side) stop threads of converged spots from sitting idle in warps that

@@ -34,10 +34,10 @@ extern "C" int picasso_winfit_lq_queue(
       max_it < 0)
     return (int)cudaErrorInvalidValue;
   const WinfitLqQueueArgs a{
-      B, Y, X, static_cast<const int*>(hits), (int)n, baseline, factor, ftol,
-      max_it, static_cast<int*>(next), static_cast<float*>(theta),
-      static_cast<int*>(coop_steps), nullptr,
-      static_cast<cudaStream_t>(stream)};
+      B, Y, X, static_cast<const int*>(hits), baseline, factor,
+      LqQueueArgs{(int)n, ftol, max_it, static_cast<int*>(next),
+                  static_cast<float*>(theta), static_cast<int*>(coop_steps),
+                  nullptr, static_cast<cudaStream_t>(stream)}};
   return lq_queue_entry(frames, dtype, box, a);
 }
 
@@ -48,6 +48,6 @@ extern "C" int picasso_winfit_lq_queue(
 extern "C" int picasso_winfit_lq_queue_info(int dtype, int box, void* info) {
   if (info == nullptr) return (int)cudaErrorInvalidValue;
   WinfitLqQueueArgs a{};
-  a.info = static_cast<int*>(info);
+  a.q.info = static_cast<int*>(info);
   return lq_queue_entry(nullptr, dtype, box, a);
 }

@@ -34,23 +34,25 @@ extern "C" int picasso_winfit_mle_queue(
       method < 0 || method > 1)
     return (int)cudaErrorInvalidValue;
   const WinfitMleQueueArgs a{
-      B, Y, X, static_cast<const int*>(hits), n, baseline, factor, eps,
-      max_it, static_cast<int*>(next), static_cast<float*>(theta_c),
-      static_cast<float*>(old_c), static_cast<float*>(done_c),
-      static_cast<float*>(iters_c), static_cast<float*>(ms_c), nullptr,
-      static_cast<cudaStream_t>(stream)};
+      B, Y, X, static_cast<const int*>(hits), baseline, factor,
+      MleQueueArgs{n, eps, max_it, static_cast<int*>(next),
+                   static_cast<float*>(theta_c), static_cast<float*>(old_c),
+                   static_cast<float*>(done_c), static_cast<float*>(iters_c),
+                   static_cast<float*>(ms_c), nullptr, nullptr,
+                   static_cast<cudaStream_t>(stream)}};
   return queue_entry(frames, dtype, box, method, a);
 }
 
 // Describe the queue kernel's instance for (dtype, box, method) on the
-// current device: info[0..6] = threads a block, resident blocks per SM,
+// current device: info[0..7] = threads a block, resident blocks per SM,
 // registers a thread, local (spill) bytes a thread, refill threshold,
-// __launch_bounds__ min blocks, SMs. Launches nothing.
+// __launch_bounds__ min blocks, SMs, lanes of a cooperative group (0
+// without the tail). Launches nothing.
 extern "C" int picasso_winfit_mle_queue_info(int dtype, int box, int method,
                                              void* info) {
   if (method < 0 || method > 1 || info == nullptr)
     return (int)cudaErrorInvalidValue;
   WinfitMleQueueArgs a{};
-  a.info = static_cast<int*>(info);
+  a.q.info = static_cast<int*>(info);
   return queue_entry(nullptr, dtype, box, method, a);
 }

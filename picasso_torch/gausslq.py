@@ -5,7 +5,7 @@ fit_spots_parallel :54, fit_spots_gpufit :84, locs_from_fits :100,
 locs_from_fits_gpufit :145, localization_precision :187,
 sigma_uncertainty :211). The reference's scipy, process-pool and Gpufit
 paths are one batched LM fit here (ops/lq.fit_spots_batched), run on
-``device`` through K3, the single-pass LM kernel of ops/lq_cuda. Locs
+``device`` through K3 on the route of ops/lq_cuda.ROI_FIT. Locs
 tables are numpy structured arrays with the columns and dtypes of the
 JAX package's DataFrame, sorted stably by frame (by n_id when the
 identifications carry it).

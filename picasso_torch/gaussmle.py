@@ -2,8 +2,9 @@
 2010).
 
 Counterpart of picasso_tpu/gaussmle.py (gaussmle :21, locs_from_fits
-:66, sigma_uncertainty :119). Fits run through the K2 phase schedule of
-ops/mle_cuda on ``device``. Locs tables are numpy structured arrays with the columns and
+:66, sigma_uncertainty :119). Fits run on ``device`` through the route
+of ops/mle_cuda.ROI_FITS for the method (K2 as a work queue, or K2's
+phase schedule). Locs tables are numpy structured arrays with the columns and
 dtypes of the JAX package's DataFrame.
 """
 
@@ -50,7 +51,7 @@ def gaussmle(
             if photon_conversion is not None:
                 baseline, factor = photon_conversion
                 t = (t - float(np.float32(baseline))) * float(np.float32(factor))
-            fit = mle_cuda.fit_boundary_t(
+            fit = mle_cuda.ROI_FITS[method](
                 t.permute(1, 2, 0).contiguous(), eps, max_it, method
             )
             for acc, a in zip(out, fit):

@@ -98,20 +98,17 @@ def locs_table(cols: list, sort_key: str) -> np.ndarray:
 
 def merge_locs(locs_list: list[np.ndarray],
                increment_frames: bool = False) -> np.ndarray:
-    """Concatenate locs tables (picasso/lib.py:1700); with
-    ``increment_frames`` each table's frames start after the previous
-    table's last (in the frame column's own dtype, as pandas adds the
-    offset). The tables must have the same fields; the result takes the
-    first table's field order and each field's common dtype, as
-    pd.concat does."""
+    """Concatenate locs tables as pd.concat does (picasso/lib.py:1700);
+    with ``increment_frames`` each table's frames start after the
+    previous table's last (in the frame column's own dtype, as pandas
+    adds the offset). The fields are the union: the first table's in its
+    order, then each new one in order of appearance. A field missing from
+    a table is NaN there; its dtype is the common dtype of the tables
+    that have it (``np.result_type``), made float64 when that is an
+    integer dtype and some table lacks the field, as pandas fills a gap
+    in an integer column."""
     if not locs_list:
         raise ValueError("No objects to concatenate")
-    names = locs_list[0].dtype.names
-    for locs in locs_list[1:]:
-        if set(locs.dtype.names) != set(names):
-            raise ValueError(
-                f"merge_locs needs tables of the same fields: {names} and "
-                f"{locs.dtype.names}")
     if increment_frames:
         shifted, offset = [], 0
         for locs in locs_list:
@@ -120,14 +117,27 @@ def merge_locs(locs_list: list[np.ndarray],
             offset = int(locs["frame"].max()) + 1 if len(locs) else offset
             shifted.append(locs)
         locs_list = shifted
-    dtype = [(n, np.result_type(*[locs.dtype[n] for locs in locs_list]))
-             for n in names]
+    names = list(dict.fromkeys(n for locs in locs_list
+                               for n in locs.dtype.names))
+    dtype = []
+    for n in names:
+        have = [locs.dtype[n] for locs in locs_list if n in locs.dtype.names]
+        dt = np.result_type(*have)
+        if len(have) < len(locs_list) and dt.kind != "f":
+            if dt.kind not in "iu":
+                raise ValueError(
+                    f"merge_locs: field {n!r} ({dt}) is missing from a "
+                    "table, and pandas would make it an object column")
+            dt = np.dtype(np.float64)
+        dtype.append((n, dt))
     out = np.empty(sum(len(locs) for locs in locs_list), dtype)
     start = 0
     for locs in locs_list:
+        stop = start + len(locs)
         for n in names:
-            out[n][start:start + len(locs)] = locs[n]
-        start += len(locs)
+            out[n][start:stop] = (locs[n] if n in locs.dtype.names
+                                  else np.nan)
+        start = stop
     return out
 
 

@@ -23,14 +23,20 @@ def tukey_window(width: int, device="cpu") -> torch.Tensor:
     return torch.from_numpy(w).to(device)
 
 
+def check_square(image) -> None:
+    """Raise ValueError unless ``image`` is a square 2D image (where
+    picasso_tpu's threshold_tukey asserts)."""
+    if image.ndim != 2 or image.shape[0] != image.shape[1]:
+        raise ValueError(f"image must be square, got {tuple(image.shape)}")
+
+
 def threshold_tukey(image: torch.Tensor) -> torch.Tensor:
     """Tukey window mask (n, n) f64 on ``image``'s device that tapers
     the edges of a square image before an FFT (picasso/masking.py:649).
     JAX tiles the 1D window w over the rows and multiplies the mask by
     its rot90, so mask[i, j] = w[j] * w[n - 1 - i]: here that product of
     the same two f64 numbers, as an outer product."""
-    if image.ndim != 2 or image.shape[0] != image.shape[1]:
-        raise ValueError(f"image must be square, got {tuple(image.shape)}")
+    check_square(image)
     w = tukey_window(image.shape[1], image.device)
     return w.flip(0)[:, None] * w[None, :]
 

@@ -33,7 +33,9 @@ LQ_FTOL = 1e-6
 #: persistent launch with lane refill, then the CRLB/LL pass) for
 #: sigmaxy; sigma keeps K2's phase schedule, because its fits are short
 #: and the queue's straggler tail (a spot claimed late that runs to
-#: max_it) then outweighs what the queue saves.
+#: max_it) then outweighed what the queue saved. The queue has taken its
+#: stragglers cooperatively since (csrc/mle_queue.cuh); the route is to
+#: be timed again (ROADMAP).
 MLE_FITS = {"sigmaxy": winfit_cuda.fit_mle_queue_t,
             "sigma": winfit_cuda.fit_mle_boundary_t}
 

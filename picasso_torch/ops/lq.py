@@ -245,7 +245,8 @@ def fit_spots_batched(spots: np.ndarray, max_it: int = 30,
         if photon_conversion is not None:
             baseline, factor = photon_conversion
             t = (t - float(np.float32(baseline))) * float(np.float32(factor))
-        theta = lq_cuda.fit_t(t.permute(1, 2, 0).contiguous(), max_it, 1e-6)
+        theta = lq_cuda.ROI_FIT(t.permute(1, 2, 0).contiguous(), max_it,
+                                1e-6)
         out.append(theta.cpu().numpy().T)
         if callable(progress_callback):
             progress_callback(start + len(part))

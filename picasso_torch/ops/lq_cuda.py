@@ -1,6 +1,9 @@
-"""Wrappers of the CUDA LM fit kernel (csrc/lq_fit.cu): K3, the
-single-pass fit, and K6, the same fit split into resumable phases with
-stragglers-first lane order between them.
+"""Wrappers of the CUDA LM fit kernels on a cut ROI batch:
+csrc/lq_fit.cu's K3, the single-pass fit, and K6, the same fit split
+into resumable phases with stragglers-first lane order between them;
+and K3 as a work queue (csrc/roi_lq_queue.cu, one persistent launch with
+lane refill and a cooperative straggler tail). :data:`ROI_FIT` is
+fit2D's route (ops/lq.fit_spots_batched).
 
 Counterpart of picasso_tpu/ops/lq_pallas.py (fit_pallas_t,
 fit_pallas_boundary_t). A CUDA tensor launches the kernel or raises; a
@@ -9,10 +12,13 @@ CPU tensor runs the plain PyTorch version of the same phases
 
 Launch counts (plain integers): ``fit_t.launches`` counts the kernel's
 single-pass (FULL) launches, ``fit_boundary_t.launches`` the phase
-(START/RESUME) launches of the K6 schedule.
+(START/RESUME) launches of the K6 schedule, ``fit_queue_t.launches``
+the work queue's (1 a fit).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -109,3 +115,63 @@ def _fit_phases(spots_t, max_it, ftol, n_valid, boundaries):
 
 
 fit_boundary_t.launches = 0
+
+
+QUEUE_INFO = ("threads", "blocks_per_sm", "registers", "local_bytes",
+              "refill", "group", "sms")
+
+
+def queue_info(box: int, lib=None) -> dict:
+    """What the ROI LM queue kernel's instance for ``box`` is on the
+    current card: the :data:`QUEUE_INFO` fields (threads a block,
+    resident blocks per SM, registers and local spill bytes a thread, the
+    refill threshold, the lanes of a cooperative group, the card's
+    SMs)."""
+    lib = lib or _build.library()
+    info = (ctypes.c_int * len(QUEUE_INFO))()
+    _build.check(lib.picasso_roi_lq_queue_info(box, info),
+                 "roi_lq_queue_info")
+    return dict(zip(QUEUE_INFO, info))
+
+
+def fit_queue_t(spots_t: torch.Tensor, max_it: int, ftol: float = 1e-6,
+                n_valid=None, coop_steps=None) -> torch.Tensor:
+    """K3 as a work queue: LM-fit a lanes-last (S, S, N) f32 batch in one
+    persistent launch in which each lane of a warp takes the next spot
+    from a device counter once its spot is done, and a drained warp's
+    lanes run its last spots in groups (the cooperative tail). Arguments
+    and returns as :func:`fit_t`, and equal to it and to
+    :func:`fit_boundary_t` bit for bit. ``coop_steps`` (one int32 on the
+    card, or None) gains the spot-steps taken in the cooperative tail. On
+    the CPU it is the plain fit, uncounted."""
+    if not on_cuda(spots_t):
+        return _lq._lm_core(spots_t, max_it, ftol, n_valid)
+    check_spots(spots_t)
+    if coop_steps is not None and (coop_steps.device != spots_t.device
+                                   or coop_steps.dtype != torch.int32):
+        raise ValueError("coop_steps must be an int32 tensor on the card")
+    s, _, n = spots_t.shape
+    theta = torch.empty((6, n), dtype=torch.float32, device=spots_t.device)
+    if n == 0:
+        return theta
+    counter = torch.zeros(1, dtype=torch.int32, device=spots_t.device)
+    with torch.cuda.device(spots_t.device):
+        stream = torch.cuda.current_stream(spots_t.device).cuda_stream
+        status = _build.library().picasso_roi_lq_queue(
+            spots_t.data_ptr(), n, s, float(ftol), int(max_it),
+            n if n_valid is None else int(n_valid), counter.data_ptr(),
+            theta.data_ptr(),
+            None if coop_steps is None else coop_steps.data_ptr(), stream,
+        )
+    _build.check(status, "roi_lq_queue")
+    fit_queue_t.launches += 1
+    return theta
+
+
+fit_queue_t.launches = 0
+
+#: fit2D's LM route (ops/lq.fit_spots_batched): the work queue
+#: (:func:`fit_queue_t`) or the one pass (:func:`fit_t`), the one with
+#: the lower median in chip_smoke.py's turns at max_it 30 on the first
+#: 262,144-ROI block of its movie (PERF.md). Both equal K6 bit for bit.
+ROI_FIT = fit_queue_t

@@ -17,7 +17,8 @@ Nothing here falls back from one to the other.
 
 The chain (ops/fused.identify_cut_fit, MLE_FITS) fits the sigmaxy
 method through :func:`fit_mle_queue_t` (one persistent launch in which a
-lane whose spot has converged takes the next hit, then one CRLB/LL pass)
+lane whose spot has converged takes the next hit and a drained warp's
+lanes run its last spots in groups, then one CRLB/LL pass)
 and the sigma method through :func:`fit_mle_boundary_t` (K2's phase
 schedule run on K5), the faster of the two for each on the card (PERF.md).
 :func:`fit_mle_t` (one pass, one thread per spot) is off the main path;
@@ -102,11 +103,11 @@ def _hit_list(frames, f, y, x, box: int, cuda: bool) -> torch.Tensor:
 
 
 def _launch_mle(mode: int, frames, hits, baseline, factor, box, eps, k,
-                method, carry=None):
-    """One launch of the K5 MLE kernel. START/RESUME return the carry
-    (RESUME updates it in place); FULL/FINISH return (theta, crlb, ll,
-    iters)."""
-    lib = _build.library()
+                method, carry=None, lib=None):
+    """One launch of the K5 MLE kernel (of ``lib``, by default the
+    package's). START/RESUME return the carry (RESUME updates it in
+    place); FULL/FINISH return (theta, crlb, ll, iters)."""
+    lib = lib or _build.library()
     n = hits.shape[1]
     dev = frames.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -203,7 +204,7 @@ fit_mle_boundary_t.launches = 0
 
 
 QUEUE_INFO = ("threads", "blocks_per_sm", "registers", "local_bytes",
-              "refill", "min_blocks", "sms")
+              "refill", "min_blocks", "sms", "group")
 
 
 def queue_info(dtype: torch.dtype, box: int, method: str = "sigmaxy",
@@ -212,7 +213,8 @@ def queue_info(dtype: torch.dtype, box: int, method: str = "sigmaxy",
     and ``method`` is on the current card: the :data:`QUEUE_INFO` fields
     (threads a block, resident blocks per SM, registers and local spill
     bytes a thread, the refill threshold, the launch bounds' minimum
-    blocks, the card's SMs)."""
+    blocks, the card's SMs, the lanes of a cooperative group or 0
+    without the tail)."""
     lib = lib or _build.library()
     info = (ctypes.c_int * len(QUEUE_INFO))()
     _build.check(lib.picasso_winfit_mle_queue_info(
@@ -252,8 +254,9 @@ def fit_mle_queue_t(frames, f, y, x, baseline: float, factor: float, *,
                     method: str = "sigmaxy"):
     """K5 MLE as a work queue, the chain's sigmaxy route: one persistent
     launch in which each lane of a warp takes the next hit from a device
-    counter once its spot has converged or reached max_it, and writes
-    the spot's carry at the spot's index; then K5's FINISH mode at k = 0
+    counter once its spot has converged or reached max_it, a drained
+    warp's lanes run its last spots in groups (the cooperative tail), and
+    each spot's carry is written at its index; then K5's FINISH mode at k = 0
     computes the CRLB and log-likelihood of all N spots (2 launches).
     Arguments and returns as :func:`fit_mle_t`, and equal to it (and to
     :func:`fit_mle_boundary_t`) bit for bit: each spot runs the same

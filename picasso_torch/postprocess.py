@@ -580,6 +580,9 @@ def _frc(cols1: dict, cols2: dict, pixelsize, lp, viewport):
               for c in (cols1, cols2)]
     if images[0].shape[0] % 2 == 0:
         images = [im[:-1, :-1] for im in images]
+    # a squared viewport can still render to two pixel counts: raise as
+    # masking.threshold_tukey of the first image does
+    masking.check_square(images[0])
     # masking.threshold_tukey of the first image, w[n - 1 - i] * w[j],
     # formed a block of rows at a time
     w = masking.tukey_window(images[0].shape[1], images[0].device)

@@ -475,6 +475,141 @@ def test_lq_queue_kernel_at_box_7_does_not_spill(dev):
         assert info["group"] >= 7
 
 
+def _rois(n, box, seed, dev):
+    """n make_spots as a lanes-last (S, S, n) f32 batch on the card."""
+    return torch.from_numpy(np.ascontiguousarray(
+        make_spots(max(n, 1), box, seed=seed)[:n].transpose(1, 2, 0))).to(dev)
+
+
+def _roi_mle_all(sp, max_it, method, eps=EPS, n_valid=None, coop=None):
+    """K2 as a work queue, K1 and K2's phases on the ROI batch sp."""
+    return [_np(f(sp, eps, max_it, method, n_valid, **kw)) for f, kw in (
+        (mle_cuda.fit_queue_t, dict(coop_steps=coop)), (mle_cuda.fit_t, {}),
+        (mle_cuda.fit_boundary_t, {}))]
+
+
+def _roi_lq_all(sp, max_it, n_valid=None, coop=None):
+    """K3 as a work queue, K3 and K6 on the ROI batch sp."""
+    return [f(sp, max_it, FTOL, n_valid, **kw).cpu().numpy() for f, kw in (
+        (lq_cuda.fit_queue_t, dict(coop_steps=coop)), (lq_cuda.fit_t, {}),
+        (lq_cuda.fit_boundary_t, {}))]
+
+
+def _assert_all_same(outs):
+    for other in outs[1:]:
+        _assert_same(outs[0], other)
+
+
+@pytest.mark.parametrize("box", [5, 7, 9, 11, 13, 15])
+def test_roi_queue_kernels_equal_k1_k2_and_k3_k6(dev, box):
+    """K2 as a work queue (sigmaxy and sigma) equals K1 and K2's phases,
+    and K3 as a work queue equals K3 and K6, bit for bit on make_spots;
+    the last spots of each warp run in the cooperative tail."""
+    sp = _rois(2048, box, box + 9, dev)
+    for method in ("sigmaxy", "sigma"):
+        coop = torch.zeros(1, dtype=torch.int32, device=dev)
+        _assert_all_same(_roi_mle_all(sp, MAX_IT, method, coop=coop))
+        assert coop.item() > 0
+    coop = torch.zeros(1, dtype=torch.int32, device=dev)
+    _assert_lq_equal(_roi_lq_all(sp, MAX_IT, coop=coop))
+    assert coop.item() > 0
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 262145])
+def test_roi_queue_kernels_at_any_spot_count(dev, n):
+    """Fewer spots than a warp (its lanes go cooperative at once), one
+    more than a warp, and one more than fit2D's block of 262,144: the
+    queues equal the one-thread kernels; the MLE queue is 2 launches a
+    fit, the LM queue 1, and no spot launches nothing."""
+    sp = _rois(n, 7, n + 1, dev)
+    before = mle_cuda.fit_queue_t.launches, lq_cuda.fit_queue_t.launches
+    outs = _roi_mle_all(sp, MAX_IT, "sigmaxy")
+    lq_outs = _roi_lq_all(sp, MAX_IT)
+    assert outs[0][0].shape == (6, n) and outs[0][3].dtype == np.int32
+    assert lq_outs[0].shape == (6, n)
+    assert (mle_cuda.fit_queue_t.launches - before[0],
+            lq_cuda.fit_queue_t.launches - before[1]) == ((2, 1) if n
+                                                          else (0, 0))
+    _assert_all_same(outs)
+    _assert_lq_equal(lq_outs)
+
+
+@pytest.mark.parametrize("max_it", [12, MAX_IT])
+def test_roi_queue_kernels_on_a_dense_chunk(dev, max_it):
+    """The ROIs of a dense chunk, where spots run to max_it (many at 12):
+    both queues equal the one-thread kernels bit for bit, both MLE
+    methods, at two camera-constant pairs, with cooperative steps."""
+    chunk, hits = _dense_hits(dev)
+    for b, c in ((0.0, 1.0), (BASELINE, FACTOR)):
+        rois = winfit_cuda.photons_t(chunk, *hits, 7, b, c)
+        for method in ("sigmaxy", "sigma"):
+            coop = torch.zeros(1, dtype=torch.int32, device=dev)
+            outs = _roi_mle_all(rois, max_it, method, coop=coop)
+            _assert_all_same(outs)
+            assert coop.item() > 0
+            if max_it == 12:
+                assert (outs[0][3] == 12).any() and (outs[0][3] < 12).any()
+        coop = torch.zeros(1, dtype=torch.int32, device=dev)
+        _assert_lq_equal(_roi_lq_all(rois, max_it, coop=coop))
+        assert coop.item() > 0
+
+
+def test_roi_queue_kernels_when_every_spot_runs_to_max_it(dev):
+    """At eps 0 no MLE fit converges, so every spot runs to max_it; with
+    2051 spots the last warp to claim holds 3 of them, whose lanes go
+    cooperative at once: the queue equals K1 and K2's phases, with
+    cooperative steps. The LM queue likewise on the chunk's spots still
+    running after 3 steps."""
+    sp = _rois(2051, 7, 40, dev)
+    for method in ("sigmaxy", "sigma"):
+        coop = torch.zeros(1, dtype=torch.int32, device=dev)
+        outs = _roi_mle_all(sp, 20, method, eps=0.0, coop=coop)
+        _assert_all_same(outs)
+        assert (outs[0][3] == 20).all() and coop.item() >= 3 * 20
+    chunk, hits = _dense_hits(dev)
+    rois = winfit_cuda.photons_t(chunk, *hits, 7, 0.0, 1.0)
+    carry = lq._lm_rounds(rois, *lq._lm_init(rois), 3, FTOL)
+    keep = (carry[3][0] < 0.5).nonzero()[:, 0]
+    _assert_lq_equal(_roi_lq_all(rois[:, :, keep].contiguous(), 3))
+
+
+def test_roi_queue_kernels_n_valid_and_nan(dev):
+    """Spots at or above n_valid start converged (their initial theta,
+    0 iterations), and a NaN ROI gives the one-thread kernels' NaNs: the
+    queues equal K1/K2 and K3/K6 bit for bit."""
+    sp = _rois(500, 7, 41, dev)
+    sp[:, :, 17] = float("nan")
+    sp[3, 2, 250] = float("nan")
+    for method in ("sigmaxy", "sigma"):
+        outs = _roi_mle_all(sp, MAX_IT, method, n_valid=300)
+        _assert_all_same(outs)
+        assert (outs[0][3][300:] == 0).all() and np.isnan(outs[0][0][:, 17]).all()
+    _assert_lq_equal(_roi_lq_all(sp, MAX_IT, n_valid=300))
+
+
+def test_roi_queue_kernels_refuse_other_boxes_and_dtypes(dev):
+    for bad, match in ((torch.zeros((3, 3, 8), device=dev), "boxes"),
+                       (torch.zeros((7, 7, 8), dtype=torch.float64,
+                                    device=dev), "float32"),
+                       (torch.zeros((7, 8, 7), device=dev).transpose(1, 2),
+                        "contiguous"),
+                       (torch.zeros((7, 5, 8), device=dev), "S, S, N")):
+        with pytest.raises(ValueError, match=match):
+            mle_cuda.fit_queue_t(bad, EPS, 10)
+        with pytest.raises(ValueError, match=match):
+            lq_cuda.fit_queue_t(bad, 10)
+
+
+def test_roi_queue_kernels_at_box_7_do_not_spill(dev):
+    for method in ("sigmaxy", "sigma"):
+        info = mle_cuda.queue_info(7, method)
+        assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2
+        assert info["group"] == 8
+    info = lq_cuda.queue_info(7)
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2
+    assert info["group"] >= 7
+
+
 def test_lq_one_thread_kernels_equal_after_the_split(dev):
     """K3 and K6 (the fit_lq.cuh body with the normal equations reused
     after a rejected step, one thread a spot) equal each other bit for
@@ -612,8 +747,9 @@ def test_tiff_slice_equals_the_ram_slice(dev, tiff_movie, method):
 
 def test_identify_and_fit2d_run_k2_and_k3(dev):
     """identify on the card == the fused slice's hit list; fit2D's MLE
-    (K2) == the fused slice's fits (K5's queue) bit for bit; fit2D's LM
-    (K3, max_it 30) == K5's LM queue at max_it 30 bit for bit."""
+    (K2 on its route, mle_cuda.ROI_FITS) == the fused slice's fits (K5's
+    queue) bit for bit; fit2D's LM (K3 on its route, lq_cuda.ROI_FIT,
+    max_it 30) == K5's LM queue at max_it 30 bit for bit."""
     movie = make_bench_movie(32, 64, 40, 0.5, np.random.default_rng(7))
     ids = localize.identify(movie, 4000, 7, device=dev)
     f_ids, fits = fused.localize_fused(movie, 4000, 7, dict(CAM),
@@ -621,10 +757,11 @@ def test_identify_and_fit2d_run_k2_and_k3(dev):
     for name in ids.dtype.names:
         np.testing.assert_array_equal(ids[name], f_ids[name])
     info = [{"Frames": 32, "Height": 64, "Width": 64}]
-    k2, k3 = mle_cuda.fit_boundary_t.launches, lq_cuda.fit_t.launches
+    k2 = mle_cuda.ROI_FITS["sigmaxy"].launches
+    k3 = lq_cuda.ROI_FIT.launches
     mle_locs, _ = localize.fit2D(movie, info, dict(CAM), ids, 7,
                                  fitting_method="gaussmle", device=dev)
-    assert mle_cuda.fit_boundary_t.launches > k2
+    assert mle_cuda.ROI_FITS["sigmaxy"].launches > k2
     from picasso_torch import gaussmle, gausslq
 
     ref = gaussmle.locs_from_fits(f_ids, *fits, 7)
@@ -632,7 +769,7 @@ def test_identify_and_fit2d_run_k2_and_k3(dev):
         np.testing.assert_array_equal(mle_locs[name], ref[name], err_msg=name)
     lq_locs, _ = localize.fit2D(movie, info, dict(CAM), ids, 7,
                                 fitting_method="gausslq", device=dev)
-    assert lq_cuda.fit_t.launches > k3
+    assert lq_cuda.ROI_FIT.launches > k3
     chunk = identify.upload_frames(movie, dev)
     hits = [torch.from_numpy(np.ascontiguousarray(ids[c])).to(dev)
             for c in ("frame", "y", "x")]

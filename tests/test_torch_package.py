@@ -100,7 +100,11 @@ def test_sources_hash_and_cover_every_entry():
             "winfit_lq_queue_f32.cu", "winfit_lq_queue.cuh", "fit_common.cuh",
             "fit_mle.cuh", "fit_lq.cuh", "winfit_mle_queue.cu",
             "winfit_mle_queue_f32.cu", "winfit_mle_queue.cuh",
-            "link_walk.cu"} <= set(names)
+            "link_walk.cu", "mle_queue.cuh", "lq_queue.cuh",
+            "roi_mle_queue.cu", "roi_lq_queue.cu"} <= set(names)
+    assert {"picasso_roi_mle_queue", "picasso_roi_mle_queue_info",
+            "picasso_roi_lq_queue",
+            "picasso_roi_lq_queue_info"} <= set(_build.SIGNATURES)
     text = "".join(p.read_text() for p in _build.sources())
     for entry in _build.SIGNATURES:
         assert f'extern "C" int {entry}(' in text
@@ -110,8 +114,9 @@ def test_sources_hash_and_cover_every_entry():
 
 
 @pytest.mark.parametrize("wrapper", ["fit_t", "fit_boundary_t",
-                                     "fit_multiround_t", "identify",
-                                     "lq_fit_t", "lq_fit_boundary_t",
+                                     "fit_multiround_t", "fit_queue_t",
+                                     "identify", "lq_fit_t",
+                                     "lq_fit_boundary_t", "lq_fit_queue_t",
                                      "winfit_fit_mle_t",
                                      "winfit_fit_mle_boundary_t",
                                      "winfit_fit_mle_queue_t",
@@ -151,8 +156,9 @@ def test_wrappers_do_not_fall_back_off_the_cpu(wrapper):
 
 def _counts():
     return (mle_cuda.fit_t.launches, mle_cuda.fit_boundary_t.launches,
-            mle_cuda.fit_multiround_t.launches,
+            mle_cuda.fit_multiround_t.launches, mle_cuda.fit_queue_t.launches,
             lq_cuda.fit_t.launches, lq_cuda.fit_boundary_t.launches,
+            lq_cuda.fit_queue_t.launches,
             identify_cuda.identify_tiles.launches,
             winfit_cuda.fit_mle_t.launches,
             winfit_cuda.fit_mle_boundary_t.launches,
@@ -166,8 +172,10 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     mle_cuda.fit_boundary_t(spots, 1e-3, 20)
     mle_cuda.fit_t(spots, 1e-3, 20, "sigma")
     mle_cuda.fit_multiround_t(spots, 1e-3, 20)
+    mle_cuda.fit_queue_t(spots, 1e-3, 20, "sigma")
     lq_cuda.fit_t(spots, 20)
     lq_cuda.fit_boundary_t(spots, 20)
+    lq_cuda.fit_queue_t(spots, 20)
     identify_cuda.identify_tiles(torch.zeros((1, 16, 16)), 100.0, 7)
     frames = (torch.rand((2, 16, 16)) * 100).to(torch.uint16)
     hit = torch.tensor([1, 8])
@@ -181,6 +189,38 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
                                max_it=20)
     ids = link.walk(torch.tensor([0, 1, 1]), torch.tensor([1]))
     assert ids.tolist() == [0, 0]
+    assert before == _counts()
+
+
+@pytest.mark.parametrize("route", ["phases", "queue"])
+def test_fit2d_routes_on_the_cpu_match_jax(monkeypatch, route):
+    """gaussmle.gaussmle (both methods) and lq.fit_spots_batched on the
+    CPU equal picasso_tpu's fits within compare_fits / compare_lq_fits
+    whichever route constant (mle_cuda.ROI_FITS, lq_cuda.ROI_FIT) is
+    set: a CPU tensor takes the plain fit on every route, uncounted."""
+    from picasso_torch import gaussmle
+    from picasso_torch.ops import lq
+    from picasso_tpu import gaussmle as jmle
+    from picasso_tpu.ops import lq as jlq
+    from torch_parity import compare_fits, compare_lq_fits
+
+    mle_fit = (mle_cuda.fit_boundary_t if route == "phases"
+               else mle_cuda.fit_queue_t)
+    monkeypatch.setattr(mle_cuda, "ROI_FITS",
+                        {"sigmaxy": mle_fit, "sigma": mle_fit})
+    monkeypatch.setattr(lq_cuda, "ROI_FIT", lq_cuda.fit_t if route ==
+                        "phases" else lq_cuda.fit_queue_t)
+    spots = torch_data.make_spots(300, 7, seed=11)
+    before = _counts()
+    for method in ("sigmaxy", "sigma"):
+        got = gaussmle.gaussmle(spots, 1e-3, 100, method, device="cpu")
+        want = jmle.gaussmle(spots, 1e-3, 100, method)
+        compare_fits([np.asarray(a).T if np.ndim(a) == 2 else np.asarray(a)
+                      for a in want],
+                     [a.T if a.ndim == 2 else a for a in got], 100)
+    got = lq.fit_spots_batched(spots, 30, device="cpu")
+    want = np.asarray(jlq.fit_spots_batched(spots, 30))
+    compare_lq_fits(want.T, got.T, spots.transpose(1, 2, 0))
     assert before == _counts()
 
 

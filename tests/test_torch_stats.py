@@ -206,6 +206,21 @@ def test_frc_matches_jax(f64, viewport, seed):
         np.testing.assert_array_equal(a, b)
 
 
+def test_frc_non_square_render_raises(monkeypatch):
+    """A viewport that squares by float arithmetic to ((7.715, 3.24),
+    (15.815, 11.34)), an 82 x 81 image at 0.1 px bins (81 x 80 after
+    the cut to odd size): JAX asserts in masking.threshold_tukey, the
+    port raises its ValueError before the FFTs."""
+    locs, info = make_event_locs(23, n_sites=40, frames=400, size=24)
+    viewport = ((7.64, 3.24), (15.89, 11.34))
+    monkeypatch.setattr(jpost, "nena", lambda *a, **k: (None, 0.2))
+    monkeypatch.setattr(tpost, "nena", lambda *a, **k: (None, 0.2))
+    with pytest.raises(AssertionError):
+        jpost.frc(_df(locs), info, viewport)
+    with pytest.raises(ValueError, match="image must be square"):
+        tpost.frc(locs, info, viewport, device="cpu")
+
+
 # --- groupprops and the combines ------------------------------------------
 
 
@@ -266,19 +281,46 @@ def test_cluster_combine_and_dist_match_jax(z):
 # --- I/O ----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("increment", [False, True])
-def test_merge_locs_matches_jax(increment):
-    a, _ = make_event_locs(25, n_sites=4, frames=50)
+def _merge_inputs(case):
+    """Tables for merge_locs: the same fields in another order, a _link
+    table (extra int and f32 fields) beside a plain one in both orders,
+    and a table of zero rows with extra fields between two plain ones."""
+    a, info = make_event_locs(25, n_sites=4, frames=50)
     b, _ = make_event_locs(26, n_sites=5, frames=70)
-    b = b[list(reversed(b.dtype.names))]
-    got = tlib.merge_locs([a, b, a[:0]], increment_frames=increment)
-    want = jlib.merge_locs([_df(a), _df(b), _df(a[:0])],
+    if case == "same":
+        return [a, b[list(reversed(b.dtype.names))], a[:0]]
+    linked = jpost.link(_df(b), info, r_max=1.0, max_dark_time=1)
+    linked = linked.to_records(index=False)
+    if case == "link+plain":
+        return [linked, a]
+    if case == "plain+link":
+        return [a[list(reversed(a.dtype.names))], linked]
+    extra = np.zeros(0, [("frame", np.uint32), ("z", np.float32),
+                         ("group", np.int32), ("x", np.float64)])
+    return [a, extra, b]
+
+
+@pytest.mark.parametrize("case,increment", [
+    # the cases of the same fields keep their ids of before
+    pytest.param(case, inc, id=str(inc) if case == "same" else
+                 f"{case}-{inc}")
+    for case in ("same", "link+plain", "plain+link",
+                 "empty with extra fields")
+    for inc in (False, True)])
+def test_merge_locs_matches_jax(case, increment):
+    """merge_locs == pd.concat field by field: the union of the fields
+    in pandas' order, NaN in a gap, an int field with a gap as f64, an
+    f32 one as f32."""
+    tables = _merge_inputs(case)
+    got = tlib.merge_locs(tables, increment_frames=increment)
+    want = jlib.merge_locs([_df(t) for t in tables],
                            increment_frames=increment).to_records(index=False)
     assert got.dtype.descr == want.dtype.descr
     for n in got.dtype.names:
-        np.testing.assert_array_equal(got[n], want[n])
-    with pytest.raises(ValueError, match="same fields"):
-        tlib.merge_locs([a, a[["x", "y"]]])
+        np.testing.assert_array_equal(got[n], want[n], err_msg=n)
+    if case != "same":
+        assert any(np.isnan(got[n]).any() for n in got.dtype.names
+                   if got.dtype[n].kind == "f")
 
 
 def test_load_clusters_and_save_datasets_match_jax(tmp_path):
@@ -345,6 +387,10 @@ _VERBS = {
              ["ev_locs_join.hdf5"]),
     "join-k": (["join", "{d}/ev2_locs.hdf5", "{d}/ev_locs.hdf5", "-k"],
                ["ev2_locs_join.hdf5"]),
+    # tables of different fields: the _link file's extra fields are NaN
+    # in the plain file's rows
+    "join-link": (["join", "{d}/ev_link.hdf5", "{d}/ev2_locs.hdf5"],
+                  ["ev_link_join.hdf5"]),
     "groupprops": (["groupprops", "{d}/ev_dark.hdf5"],
                    ["ev_dark_groupprops.hdf5"]),
     "pc": (["pc", "{d}/ev_locs.hdf5", "-b", "0.1", "-r", "5"],

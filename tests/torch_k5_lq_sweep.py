@@ -6,7 +6,7 @@ fit:
     python3 tests/torch_k5_lq_sweep.py [--against OLD/winfit_lq.cu]
                                        [--variants all|none|R,T;...]
 
-The constants are those of picasso_torch/csrc/winfit_lq_queue.cuh: the
+The constants are those of picasso_torch/csrc/lq_queue.cuh: the
 refill threshold R (PICASSO_K5LQ_REFILL: free slots of a warp that
 refill together) and the threads a block T (PICASSO_K5LQ_THREADS), as
 a grid. The script builds the package's kernels (picasso_torch/_build.py)
@@ -144,7 +144,7 @@ def build_variants(out_dir, variants, against: str | None) -> dict:
 
 
 SASS_KERNELS = {"one pass": "winfit_lq_kernelILi7ELi128EtE",
-                "queue": "winfit_lq_queue_kernelILi7ELi128EtE"}
+                "queue": "lq_queue_kernelILi7ELi128ENS_12ChunkWindowsItEE"}
 
 
 def sass_counts(lib_path, nvcc) -> dict:

@@ -4,7 +4,7 @@ NVIDIA GPU, at box 7 from u16 chunks:
 
     python3 tests/torch_k5_queue_sweep.py
 
-The constants are those of picasso_torch/csrc/winfit_mle_queue.cuh: the
+The constants are those of picasso_torch/csrc/mle_queue.cuh: the
 refill threshold R (PICASSO_K5Q_REFILL: free slots of a warp that refill
 together) and the launch bounds (PICASSO_K5Q_THREADS a block,
 PICASSO_K5Q_MIN_BLOCKS resident a SM), as a grid. The script builds the
