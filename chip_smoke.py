@@ -9,23 +9,27 @@ Phases, each of which raises on failure (exit code != 0):
    sm_90a), with ptxas' registers and spills per kernel instance;
 3. kernels against their plain PyTorch versions on the card, at the
    main paths' shapes, on 131,072 spots of tests/torch_data.make_spots
-   (box 7): the MLE fit kernel in its single-pass mode (K1) and in the
-   phase schedule (K2), for the methods sigmaxy and sigma, K2 == K1 bit
-   for bit; the LM fit kernel in its single-pass mode (K3) and in the
-   phase schedule (K6), K6 == K3 bit for bit; K2 and K3 as work queues
-   on the ROIs (csrc/roi_mle_queue.cu + the CRLB/LL pass,
-   csrc/roi_lq_queue.cu; lane refill and a warp-cooperative straggler
-   tail) == K1/K2 (sigmaxy, sigma) and K3/K6 bit for bit there and on
-   make_spots at boxes 5, 9, 11, 13 and 15, with their times, bounds,
-   cooperative steps, registers, spills and resident blocks (none may
-   spill at box 7); the fused cut+fit kernel
+   (box 7): the MLE fit kernel's one-thread pass (csrc/mle_fit.cu FULL,
+   the fixed point every MLE kernel equals bit for bit) and its phase
+   schedule (K2), for the methods sigmaxy and sigma, K2 == the one pass
+   bit for bit; the LM fit kernel in its single-pass mode (K3) and in the
+   phase schedule (K6), K6 == K3 bit for bit; K1, the MLE work queue
+   with the CRLB/LL in the kernel (csrc/roi_mle_fit.cu, 1 launch a fit),
+   and K3 as a work queue (csrc/roi_lq_queue.cu), both with lane refill
+   and a warp-cooperative straggler tail, == the one pass / K2 (sigmaxy,
+   sigma) and K3/K6 bit for bit there and on make_spots at boxes 5, 9,
+   11, 13 and 15, with their times (K1 in turns with the one pass),
+   bounds, cooperative steps, registers, spills and resident blocks
+   (none may spill at box 7); the fused
+   cut+fit kernel
    (K5: MLE sigmaxy and sigma as the work queue with its CRLB/LL pass,
    in one pass and in the phase schedule, LM as the work queue with its
    cooperative tail) on the same spots laid out as a u16 and an f32
    frame chunk, K5 == K1/K2/K3 bit for bit there, with
    the queues' times, shares of their bounds, registers, spills and
-   resident blocks per SM; the sigmaxy fit in rounds of 8
-   (K7, a schedule of K2's modes), K7 == K1 bit for bit; the identify
+   resident blocks per SM; K7, the sigmaxy fit in rounds of 8 on the
+   TPU and one launch of K1's kernel here, == the one pass bit for bit
+   (its plain version keeps the rounds); the identify
    kernel (K4) on one 256-frame 256x256 u16 chunk and on a (32, 2048,
    2048) chunk tiled 8x8 from its frames (torch_parity.compare_tiles),
    also timed per call in runs of 20 back-to-back calls, with its ptxas
@@ -37,15 +41,18 @@ Phases, each of which raises on failure (exit code != 0):
    (2 launches a chunk) launched, every other fit not; then its first
    chunk re-run through the plain versions on the card and held to the
    tolerances of tests/torch_parity.py; on that chunk K5 (queue, phases,
-   one pass) == the gather route (cut, photons, K2 or K1) bit for bit
-   from u16 and f32 frames at two camera-constant pairs, K7 == K1 and
-   K2 == K1 bit for bit, the routes timed in turns, the queue's time
+   one pass) == the gather route (cut, photons, K2, K1 or the one pass)
+   bit for bit from u16 and f32 frames at two camera-constant pairs, K7
+   == K1 == the one pass bit for bit, the routes timed in turns, the
+   queue's time
    without the spots that run to max_it and on those spots alone, and
    the time of each stage of one chunk;
-5. the MLE slice with mle_method="sigma" on the same movie: K4 and K5 in
-   phases (3 launches a chunk; the chain's sigma route, ops/fused.py
-   MLE_FITS) launched on it, no other fit, sx == sy in every loc, its
-   first chunk equal to a re-run and held against the plain sigma fit;
+5. the MLE slice with mle_method="sigma" on the same movie: K4 and K5
+   on the chain's sigma route (ops/fused.py MLE_FITS: the work queue, 2
+   launches a chunk, or the phases, 3) launched on it, no other fit, sx
+   == sy in every loc, its first chunk equal to a re-run and held
+   against the plain sigma fit; K5's phases and its work queue for sigma
+   in 5 alternating turns on chunk 0 (the rule behind MLE_FITS);
 6. the LQ slice: localize(fitting_method="gausslq") on the same movie,
    with K4 and K5 LM's work queue launched on it, no other fit; its
    first chunk re-run through the plain versions on the card and held
@@ -84,17 +91,20 @@ Phases, each of which raises on failure (exit code != 0):
    movies' locs equal, chunk 0's photons equal to the CPU run and within
    torch_parity.compare_avg_photons of the f32 pairwise sum;
 10. identify + fit2D: identify == the fused slice's hit list; fit2D
-   gaussmle runs K2 on the route of ops/mle_cuda.ROI_FITS (the work
-   queue: 2 launches a 262,144-spot block; K2's phases: 3) and equals
-   the MLE slice (K5's queue) bit for bit; fit2D gausslq runs K3 at
-   max_it 30 on the route of ops/lq_cuda.ROI_FIT (1 launch a block) and
-   equals K5's LM queue at max_it 30 bit for bit, and the LQ slice on
-   the spots that converge within 30 steps; on the first 262,144-ROI
-   block the ROI queues == the one-thread kernels bit for bit (MLE at
-   max_it 100 and 6, where most fits are stragglers; LM at 30 and 100),
-   the routes timed in 5 alternating turns (the rule behind the route
-   constants), each kernel's ms, bound and plain ms there, and the MLE
-   tail split (the spots at max_it alone, K2's phases and the queue);
+   gaussmle runs the route of ops/mle_cuda.ROI_FITS (K1: 1 launch a
+   262,144-spot block; K2's phases: 3) and equals the
+   MLE slice (K5's queue) bit for bit; fit2D gausslq runs K3 at max_it
+   30 on the route of ops/lq_cuda.ROI_FIT (1 launch a block) and equals
+   K5's LM queue at max_it 30 bit for bit, and the LQ slice on the spots
+   that converge within 30 steps; on the first 262,144-ROI block K1 and
+   K2 == the one pass bit for bit (MLE at max_it 100 and 6, where most
+   fits are stragglers) and the LM queue == K3 and K6 (at 30 and 100);
+   the card's sigmaxy fits there and on the later blocks within
+   torch_parity.compare_fits of the plain fit, its sigma fits within
+   compare_fits_dense (the gate for dense ROIs); the routes timed in 5
+   alternating turns (the rule behind the route constants), each
+   kernel's ms, bound and plain ms there, and the MLE tail split (the
+   spots at max_it alone: K2's phases and K1);
 11. astigmatic 3D: localize_3D (MLE and LQ) on the astigmatic recipe of
    tests/torch_data.py (2048 frames of 256x256, made alongside the
    build) with K4 and K5 launched, zfit's wall on the card, the card's
@@ -653,8 +663,8 @@ def main() -> int:
         make_bench_movie, make_spots, spots_chunk, tiled_chunk, write_tiff,
     )
     from torch_parity import (
-        compare_avg_photons, compare_fits, compare_hits, compare_lq_fits,
-        compare_tiles,
+        compare_avg_photons, compare_fits, compare_fits_dense, compare_hits,
+        compare_lq_fits, compare_tiles,
     )
 
     dev = torch.device("cuda")
@@ -702,30 +712,36 @@ def main() -> int:
     spots_np = spots_t.cpu().numpy()
     as_np = lambda out: [a.cpu().numpy() for a in out]  # noqa: E731
     ms, stats, bounds = {}, {}, {}
-    ref = {}  # method -> (plain, K1, K2) on make_spots
+    # method -> (plain, the one-thread pass, K2) on make_spots; the one
+    # pass (mle_fit.cu FULL) is the fixed point every MLE kernel equals
+    ref = {}
     for method in ("sigmaxy", "sigma"):
         tag = "" if method == "sigmaxy" else " sigma"
         plain = as_np(mle._fit_core(spots_t, EPS, MAX_IT, method))
-        k1 = as_np(mle_cuda.fit_t(spots_t, EPS, MAX_IT, method))
+        one = as_np(mle_cuda.fit_one_pass_t(spots_t, EPS, MAX_IT, method))
         torch.cuda.synchronize()
-        stats["K1" + tag] = compare_fits(plain, k1, MAX_IT, f"K1{tag} vs plain")
+        stats["K1 one pass" + tag] = compare_fits(
+            plain, one, MAX_IT, f"one pass{tag} vs plain")
         k2 = as_np(mle_cuda.fit_boundary_t(spots_t, EPS, MAX_IT, method))
-        _assert_equal(k1, k2, f"K2{tag} vs K1{tag}")
+        _assert_equal(k2, one, f"K2{tag} vs the one pass{tag}")
         stats["K2" + tag] = compare_fits(plain, k2, MAX_IT, f"K2{tag} vs plain")
-        ref[method] = plain, k1, k2
-        print(f"K1{tag} vs plain:", json.dumps(stats["K1" + tag]))
+        ref[method] = plain, one, k2
+        print(f"one pass{tag} vs plain:",
+              json.dumps(stats["K1 one pass" + tag]))
         print(f"K2{tag} vs plain:", json.dumps(stats["K2" + tag]),
-              f"| K2{tag} == K1{tag} bit for bit")
+              f"| K2{tag} == the one pass{tag} bit for bit")
         ms["plain_fit" + tag] = _median_ms(
             lambda: mle._fit_core(spots_t, EPS, MAX_IT, method))
-        ms["K1" + tag] = _median_ms(
-            lambda: mle_cuda.fit_t(spots_t, EPS, MAX_IT, method))
+        ms["K1 one pass" + tag] = _median_ms(
+            lambda: mle_cuda.fit_one_pass_t(spots_t, EPS, MAX_IT, method))
         ms["K2" + tag] = _median_ms(
             lambda: mle_cuda.fit_boundary_t(spots_t, EPS, MAX_IT, method))
         bounds["K1" + tag] = bounds["K2" + tag] = _fit_bound(
-            N_SPOTS, float(k1[3].sum()), mle_flops_per_spot_iter, 56)
-        print(f"K1{tag}/K2{tag} fit {N_SPOTS} spots (iterations mean "
-              f"{k1[3].mean():.2f}): K1 {ms['K1' + tag]:.3f} ms, K2 "
+            N_SPOTS, float(one[3].sum()), mle_flops_per_spot_iter, 56)
+        bounds["K1 one pass" + tag] = bounds["K1" + tag]
+        print(f"one pass{tag}/K2{tag} fit {N_SPOTS} spots (iterations mean "
+              f"{one[3].mean():.2f}): one pass "
+              f"{ms['K1 one pass' + tag]:.3f} ms, K2 "
               f"{ms['K2' + tag]:.3f} ms, plain {ms['plain_fit' + tag]:.3f} "
               f"ms, bound {bounds['K1' + tag][0]:.4f} ms "
               f"({bounds['K1' + tag][1]})")
@@ -753,30 +769,36 @@ def main() -> int:
           f"{ms['K6']:.3f} ms, plain {ms['plain_lq']:.3f} ms, bound "
           f"{bounds['K3'][0]:.4f} ms ({bounds['K3'][1]})")
 
-    # K2 and K3 as work queues on the same ROIs (csrc/roi_mle_queue.cu +
-    # mle_fit.cu's CRLB/LL pass, csrc/roi_lq_queue.cu): == K1/K2 and K3/K6
-    # bit for bit, with their cooperative steps; the same work as the
-    # one-thread kernels, so the same bounds
+    # K1: the work queue with the CRLB/LL in the kernel (roi_mle_fit.cu),
+    # == the one pass bit for bit, one launch a fit; timed in turns with
+    # the one pass (tests/torch_k1_queue_sweep.py times it against the
+    # queue that writes a carry + the CRLB/LL pass)
     for method in ("sigmaxy", "sigma"):
         tag = "" if method == "sigmaxy" else " sigma"
-        plain, k1, k2 = ref[method]
+        plain, one, _ = ref[method]
         coop = torch.zeros(1, dtype=torch.int32, device=dev)
-        q = as_np(mle_cuda.fit_queue_t(spots_t, EPS, MAX_IT, method,
-                                       coop_steps=coop))
-        _assert_equal(q, k1, f"K2 queue{tag} vs K1{tag}")
-        _assert_equal(q, k2, f"K2 queue{tag} vs K2{tag}")
-        stats["K2 queue" + tag] = compare_fits(plain, q, MAX_IT,
-                                               f"K2 queue{tag} vs plain")
-        ms["K2 queue" + tag] = _median_ms(
-            lambda: mle_cuda.fit_queue_t(spots_t, EPS, MAX_IT, method))
-        bounds["K2 queue" + tag] = bounds["K1" + tag]
+        before = mle_cuda.fit_t.launches
+        k1 = as_np(mle_cuda.fit_t(spots_t, EPS, MAX_IT, method,
+                                  coop_steps=coop))
+        if mle_cuda.fit_t.launches - before != 1:
+            raise AssertionError("K1 took more than one launch")
+        _assert_equal(k1, one, f"K1{tag} vs the one pass{tag}")
+        stats["K1" + tag] = compare_fits(plain, k1, MAX_IT,
+                                         f"K1{tag} vs plain")
+        fns = (lambda: mle_cuda.fit_t(spots_t, EPS, MAX_IT, method),
+               lambda: mle_cuda.fit_one_pass_t(spots_t, EPS, MAX_IT, method))
+        turns = _turns([fns[i] for i in (0, 1, 1, 0)])
+        ms["K1" + tag] = statistics.median(turns[0:4:3])
+        k1_turns = {"K1": [turns[0], turns[3]],
+                    "one pass": [turns[1], turns[2]]}
         b_ms = bounds["K1" + tag][0]
-        print(f"K2 queue{tag} (roi_mle_queue + CRLB/LL pass) == K1 == K2 "
-              f"bit for bit; fit {N_SPOTS} spots: {ms['K2 queue' + tag]:.3f}"
-              f" ms ({b_ms / ms['K2 queue' + tag]:.1%} of the bound "
-              f"{b_ms:.4f} ms), K2 {ms['K2' + tag]:.3f} ms, plain "
-              f"{ms['plain_fit' + tag]:.3f} ms; cooperative steps "
-              f"{int(coop.item())}; kernel {mle_cuda.queue_info(BOX, method)}")
+        print(f"K1{tag} (roi_mle_fit, 1 launch) == the one pass bit for bit;"
+              f" fit {N_SPOTS} spots: {ms['K1' + tag]:.3f} ms "
+              f"({b_ms / ms['K1' + tag]:.1%} of the bound {b_ms:.4f} ms "
+              f"({bounds['K1' + tag][1]})), plain {ms['plain_fit' + tag]:.3f}"
+              f" ms; cooperative steps {int(coop.item())}; ms in turns (A B B "
+              f"A): {json.dumps(k1_turns)}; kernel "
+              f"{mle_cuda.queue_info(BOX, method)}")
     coop = torch.zeros(1, dtype=torch.int32, device=dev)
     k3q = lq_cuda.fit_queue_t(spots_t, MAX_IT, FTOL,
                               coop_steps=coop).cpu().numpy()
@@ -798,21 +820,21 @@ def main() -> int:
         sp = torch.from_numpy(np.ascontiguousarray(
             make_spots(8192, box, seed=box).transpose(1, 2, 0))).to(dev)
         for method in ("sigmaxy", "sigma"):
-            q = as_np(mle_cuda.fit_queue_t(sp, EPS, MAX_IT, method))
-            _assert_equal(q, as_np(mle_cuda.fit_t(sp, EPS, MAX_IT, method)),
-                          f"box {box} K2 queue {method} vs K1")
-            _assert_equal(q, as_np(mle_cuda.fit_boundary_t(sp, EPS, MAX_IT,
-                                                           method)),
-                          f"box {box} K2 queue {method} vs K2")
+            one = as_np(mle_cuda.fit_one_pass_t(sp, EPS, MAX_IT, method))
+            for fit in (mle_cuda.fit_t, mle_cuda.fit_boundary_t):
+                _assert_equal(as_np(fit(sp, EPS, MAX_IT, method)), one,
+                              f"box {box} {fit.__name__} {method} vs the one "
+                              "pass")
         q = lq_cuda.fit_queue_t(sp, MAX_IT, FTOL).cpu().numpy()
         for other in (lq_cuda.fit_t, lq_cuda.fit_boundary_t):
             if not np.array_equal(q, other(sp, MAX_IT, FTOL).cpu().numpy(),
                                   equal_nan=True):
                 raise AssertionError(f"box {box} K3 queue != {other.__name__}")
-    print("boxes 5, 9, 11, 13, 15 (8192 make_spots each): K2 queue == K1 == "
-          "K2 (sigmaxy, sigma), K3 queue == K3 == K6, bit for bit")
+    print("boxes 5, 9, 11, 13, 15 (8192 make_spots each): K1, K2 == the one "
+          "pass (sigmaxy, sigma), K3 queue == K3 == K6, bit for bit")
     for box in (5, 7, 9, 11, 13, 15):
-        rows = {m: mle_cuda.queue_info(box, m) for m in ("sigmaxy", "sigma")}
+        rows = {f"K1 {m}": mle_cuda.queue_info(box, m)
+                for m in ("sigmaxy", "sigma")}
         rows["lq"] = lq_cuda.queue_info(box)
         print(f"  ROI queues box {box} (registers, local bytes, blocks a SM):",
               json.dumps({k: (v["registers"], v["local_bytes"],
@@ -825,7 +847,7 @@ def main() -> int:
 
     # K5 on the same spots laid out as u16 and f32 frame chunks: with
     # baseline 0 and factor 1 its photons are the spots themselves, so it
-    # equals K1 (one pass), K2 (phases) and K3 bit for bit
+    # equals the one pass, K2 (phases) and K3 bit for bit
     def upload_chunk(dtype):
         frames, hits = spots_chunk(spots, dtype)
         return (torch.from_numpy(frames).to(dev),
@@ -840,7 +862,7 @@ def main() -> int:
             plain, k1, k2 = ref[method]
             _assert_equal(as_np(winfit_cuda.fit_mle_t(win, *hits, 0.0, 1.0,
                                                       **kw)),
-                          k1, f"K5{tag} one pass ({name}) vs K1{tag}")
+                          k1, f"K5{tag} one pass ({name}) vs the one pass")
             k5 = as_np(winfit_cuda.fit_mle_boundary_t(win, *hits, 0.0, 1.0,
                                                       **kw))
             _assert_equal(k5, k2, f"K5{tag} phases ({name}) vs K2{tag}")
@@ -848,7 +870,7 @@ def main() -> int:
                                              f"K5{tag} ({name}) vs plain")
             kq = as_np(winfit_cuda.fit_mle_queue_t(win, *hits, 0.0, 1.0,
                                                    **kw))
-            _assert_equal(kq, k1, f"K5 queue{tag} ({name}) vs K1{tag}")
+            _assert_equal(kq, k1, f"K5 queue{tag} ({name}) vs the one pass")
             _assert_equal(kq, k2, f"K5 queue{tag} ({name}) vs K2{tag}")
             stats["K5 queue" + tag] = compare_fits(
                 plain, kq, MAX_IT, f"K5 queue{tag} ({name}) vs plain")
@@ -862,7 +884,8 @@ def main() -> int:
             plain_lq, k5lqq, spots_np, f"K5 lq queue ({name}) vs plain")
         coop_make_spots = int(coop.item())
         print(f"K5 on make_spots as a {name} chunk {tuple(win.shape)}: "
-              "queue, one pass and phases == K1 and K2 (sigmaxy, sigma), "
+              "queue, one pass and phases == the one pass and K2 (sigmaxy, "
+              "sigma), "
               "LM queue == K3, bit for bit; LM queue cooperative steps "
               f"{coop_make_spots}")
     for key in ("K5 queue", "K5 queue sigma", "K5", "K5 sigma",
@@ -930,25 +953,32 @@ def main() -> int:
             print("  K5 lq ptxas:", row)
     del win, hits
 
-    # K7: the sigmaxy fit in rounds of ROUND_IT, a schedule of K2's modes
+    # K7: the sigmaxy fit in rounds of ROUND_IT on the TPU; on the card one
+    # launch of K1's work queue, whose slots take the next spot as their
+    # own converges (no rounds); its plain version keeps the rounds
     before = mle_cuda.fit_multiround_t.launches
     k7 = as_np(mle_cuda.fit_multiround_t(spots_t, EPS, MAX_IT, ROUND_IT))
     k7_calls = mle_cuda.fit_multiround_t.launches - before
-    _assert_equal(k7, ref["sigmaxy"][1], "K7 vs K1")
+    _assert_equal(k7, ref["sigmaxy"][1], "K7 vs the one pass")
     _assert_equal(as_np(_plain_multiround(spots_t, MAX_IT)),
                   ref["sigmaxy"][0], "plain K7 vs the plain fit")
     stats["K7"] = compare_fits(ref["sigmaxy"][0], k7, MAX_IT, "K7 vs plain")
-    if k7_calls != 13:
-        raise AssertionError(f"K7 took {k7_calls} launches, not 13")
-    ms["K7"] = _median_ms(
-        lambda: mle_cuda.fit_multiround_t(spots_t, EPS, MAX_IT, ROUND_IT))
+    if k7_calls != 1:
+        raise AssertionError(f"K7 took {k7_calls} launches, not 1")
+    # in turns with K1 (the same kernel) on the same spots: K7 K1 K1 K7
+    k7_turns = _turns([
+        lambda: mle_cuda.fit_multiround_t(spots_t, EPS, MAX_IT, ROUND_IT),
+        lambda: mle_cuda.fit_t(spots_t, EPS, MAX_IT)][i] for i in (0, 1, 1, 0))
+    ms["K7"] = statistics.median(k7_turns[0:4:3])
     ms["plain K7"] = _median_ms(lambda: _plain_multiround(spots_t, MAX_IT))
     bounds["K7"] = bounds["K1"]
-    print(f"K7 (rounds of {ROUND_IT}, {k7_calls} launches a fit) == K1 bit "
-          f"for bit, plain K7 == plain fit; fit {N_SPOTS} spots: K7 "
-          f"{ms['K7']:.3f} ms, plain {ms['plain K7']:.3f} ms, bound "
-          f"{bounds['K7'][0]:.4f} ms ({bounds['K7'][1]}); K7 vs plain:",
-          json.dumps(stats["K7"]))
+    print(f"K7 (rounds of {ROUND_IT} on the TPU; {k7_calls} launch a fit "
+          f"here) == K1 == the one pass bit for bit, plain K7 == plain fit; "
+          f"fit {N_SPOTS} spots: K7 {ms['K7']:.3f} ms "
+          f"({bounds['K7'][0] / ms['K7']:.1%} of the bound; in turns K7 K1 "
+          f"K1 K7: {json.dumps([round(x, 4) for x in k7_turns])}),"
+          f" plain {ms['plain K7']:.3f} ms, bound {bounds['K7'][0]:.4f} ms "
+          f"({bounds['K7'][1]}); K7 vs plain:", json.dumps(stats["K7"]))
 
     (movie, bench_sites), movie_s = movie_job.result()
     print(f"movie {movie.shape} {movie.dtype}: {movie_s:.1f} s to generate "
@@ -1000,8 +1030,8 @@ def main() -> int:
 
     camera = {"Baseline": 0, "Sensitivity": 1, "Gain": 1, "Pixelsize": 130}
     params = {"Min. Net Gradient": MIN_NG, "Box Size": BOX}
-    counters = {"K1": mle_cuda.fit_t, "K2": mle_cuda.fit_boundary_t,
-                "K2 queue": mle_cuda.fit_queue_t,
+    counters = {"K1": mle_cuda.fit_t, "K1 one pass": mle_cuda.fit_one_pass_t,
+                "K2": mle_cuda.fit_boundary_t,
                 "K3": lq_cuda.fit_t, "K6": lq_cuda.fit_boundary_t,
                 "K3 queue": lq_cuda.fit_queue_t,
                 "K4": identify_cuda.identify_tiles,
@@ -1120,11 +1150,12 @@ def main() -> int:
             what = f"chunk 0 {method} (baseline {b}, factor {c})"
             r = winfit_cuda.photons_t(chunk, *hits_k, BOX, b, c)
             k2g = as_np(mle_cuda.fit_boundary_t(r, EPS, MAX_IT, method))
-            _assert_equal(as_np(mle_cuda.fit_t(r, EPS, MAX_IT, method)), k2g,
-                          f"{what}: K1 vs K2")
+            for fit in (mle_cuda.fit_t, mle_cuda.fit_one_pass_t):
+                _assert_equal(as_np(fit(r, EPS, MAX_IT, method)), k2g,
+                              f"{what}: {fit.__name__} vs K2")
             _assert_equal(as_np(winfit_cuda.fit_mle_t(chunk, *hits_k, b, c,
                                                       **kw)),
-                          k2g, f"{what}: K5 one pass vs cut + photons + K1")
+                          k2g, f"{what}: K5 one pass vs cut + photons + K2")
             for src in (chunk, chunk32):
                 _assert_equal(as_np(winfit_cuda.fit_mle_boundary_t(
                     src, *hits_k, b, c, **kw)), k2g,
@@ -1154,25 +1185,28 @@ def main() -> int:
               f"{np.percentile(it, 50):.0f} p90 {np.percentile(it, 90):.0f}, "
               f"{np.mean(it == MAX_IT):.4f} at max_it, mean {it.mean():.2f})"
               f": K5 (queue, phases from u16 and f32; one pass) == cut + "
-              f"photons + K2 == K1 bit for bit; route ms in turn A "
+              f"photons + K2 == K1 == the one pass bit for bit; route ms in "
+              f"turn A "
               f"gather+K2, B K5 phases, D K5 queue, C K5 one pass, C, D, B, "
               f"A: {[round(t, 4) for t in route_ms]}; queue without the "
               f"{int(at_max.sum())} max_it spots, on them alone, alone, "
               f"without: {[round(t, 4) for t in tail_ms]}")
 
-    # K7 on the chunk's ROIs: == K1 bit for bit, timed in turns with K2
+    # K7 on the chunk's ROIs: == K1 == the one pass bit for bit, timed in
+    # turns with K2
     k7d = as_np(mle_cuda.fit_multiround_t(rois["sigmaxy"], EPS, MAX_IT,
                                           ROUND_IT))
-    _assert_equal(k7d, as_np(mle_cuda.fit_t(rois["sigmaxy"], EPS, MAX_IT)),
-                  "chunk 0: K7 vs K1")
+    for fit in (mle_cuda.fit_t, mle_cuda.fit_one_pass_t):
+        _assert_equal(k7d, as_np(fit(rois["sigmaxy"], EPS, MAX_IT)),
+                      f"chunk 0: K7 vs {fit.__name__}")
     routes = (
         lambda: mle_cuda.fit_boundary_t(rois["sigmaxy"], EPS, MAX_IT),
         lambda: mle_cuda.fit_multiround_t(rois["sigmaxy"], EPS, MAX_IT,
                                           ROUND_IT),
     )
     k7_ms = _turns(routes[i] for i in (0, 1, 1, 0))
-    print(f"chunk 0 ROIs: K7 == K1 bit for bit; ms in turn K2, K7, K7, K2: "
-          f"{[round(t, 4) for t in k7_ms]}")
+    print(f"chunk 0 ROIs: K7 (1 launch) == K1 == the one pass bit for bit; "
+          f"ms in turn K2, K7, K7, K2: {[round(t, 4) for t in k7_ms]}")
 
     # the stages of one chunk on the card, each alone
     tiles = identify_cuda.identify_tiles(chunk, MIN_NG, BOX)
@@ -1194,9 +1228,12 @@ def main() -> int:
 
     # 5. the MLE slice with mle_method="sigma" ---------------------------
     locs_sig, _, launches_sig = run_slice("gaussmle", mle_method="sigma")
-    # the sigma route: K4, then K5 in phases in its sigma mode, which beat
-    # the work queue on the dense chunk (ops/fused.py MLE_FITS)
-    check_route("sigma slice", launches_sig, "K5 mle phases", 3)
+    # the sigma route: K4, then K5 on the route of ops/fused.py
+    # MLE_FITS["sigma"]: the work queue (2 launches a chunk) or K5's phases
+    # (3), whichever had the lower median in this phase's turns
+    sig_queue = fused.MLE_FITS["sigma"] is winfit_cuda.fit_mle_queue_t
+    sig_key = "K5 mle queue" if sig_queue else "K5 mle phases"
+    check_route("sigma slice", launches_sig, sig_key, 2 if sig_queue else 3)
     if not np.array_equal(locs_sig["sx"], locs_sig["sy"]):
         raise AssertionError("sigma slice: sx != sy, not the sigma fit")
     ker_s = [a.cpu().numpy() for a in fused.identify_cut_fit(
@@ -1217,6 +1254,26 @@ def main() -> int:
     )
     print(f"sigma slice chunk 0 vs plain: {len(pairs)} matched hits;",
           json.dumps(sig_chunk_stats))
+    # the sigma route in ROUTE_TURNS alternating turns on chunk 0's hits:
+    # K5's phases against its work queue (the rule behind MLE_FITS)
+    sig_kw = dict(box=BOX, eps=EPS, max_it=MAX_IT, method="sigma")
+    turns = _alternate((
+        lambda: winfit_cuda.fit_mle_boundary_t(chunk, *hits_k, 0.0, 1.0,
+                                               **sig_kw),
+        lambda: winfit_cuda.fit_mle_queue_t(chunk, *hits_k, 0.0, 1.0,
+                                            **sig_kw)))
+    sig_route = {"turns_ms": {"K5 phases": [round(t, 4) for t in turns[0]],
+                              "K5 queue": [round(t, 4) for t in turns[1]]},
+                 "route": ("queue" if statistics.median(turns[1])
+                           < statistics.median(turns[0]) else "phases"),
+                 "route_set": "queue" if sig_queue else "phases",
+                 "launches": launches_sig[sig_key]}
+    print(f"sigma route on chunk 0 ({len(hits_k[0])} hits, {ROUTE_TURNS} "
+          "alternating turns):", json.dumps(sig_route))
+    if sig_route["route"] != sig_route["route_set"]:
+        print(f"note: K5 sigma: this run's turns favour the "
+              f"{sig_route['route']}, MLE_FITS takes the "
+              f"{sig_route['route_set']}")
 
     # 6. the LQ slice ----------------------------------------------------
     locs_lq, wall_lq, launches_lq = run_slice("gausslq")
@@ -1608,11 +1665,12 @@ def main() -> int:
         movie, info2d, dict(camera), ids, BOX, fitting_method="gaussmle",
         device="cuda"))
     # the launches follow the routes of ops/mle_cuda.ROI_FITS and
-    # ops/lq_cuda.ROI_FIT: the MLE queue 2 a block, K2's phases 3, the LM
-    # (queue or one pass) 1
-    mle_queue = mle_cuda.ROI_FITS["sigmaxy"] is mle_cuda.fit_queue_t
-    k2_key = "K2 queue" if mle_queue else "K2"
-    n_k2 = (2 if mle_queue else 3) * -(-len(ids) // gaussmle._CHUNK)
+    # ops/lq_cuda.ROI_FIT: K1 1 a block, K2's phases 3, the LM (queue or
+    # one pass) 1
+    k2_key, per_block = {
+        mle_cuda.fit_t: ("K1", 1),
+        mle_cuda.fit_boundary_t: ("K2", 3)}[mle_cuda.ROI_FITS["sigmaxy"]]
+    n_k2 = per_block * -(-len(ids) // gaussmle._CHUNK)
     if (launches_k2[k2_key] != n_k2
             or any(v for k, v in launches_k2.items() if k != k2_key)):
         raise AssertionError(f"fit2D MLE did not run through {k2_key} only:"
@@ -1660,54 +1718,67 @@ def main() -> int:
           f"{conv.mean():.4%} of spots that converge within 30 steps")
 
     # the first fit2D block (262,144 ROIs, cut and converted as
-    # gaussmle.gaussmle does): the ROI queues == the one-thread kernels
-    # bit for bit (MLE at max_it MAX_IT and STRAGGLER_IT, LM at 30 and
-    # MAX_IT); the routes in ROUTE_TURNS alternating turns, which set
-    # ops/mle_cuda.ROI_FITS and ops/lq_cuda.ROI_FIT (the queue iff its
-    # median is lower); each kernel's ms, bound and plain ms; the MLE
-    # straggler tail: the max_it spots alone against the whole
-    raw = localize.get_spots_raw(movie, ids[:gaussmle._CHUNK], BOX,
-                                 device="cuda")
-    block = identify.as_float32(torch.from_numpy(raw).to(dev)).permute(
-        1, 2, 0).contiguous()
+    # gaussmle.gaussmle does): K1 and K2's phases == the one-thread pass
+    # bit for bit (MLE at max_it MAX_IT and STRAGGLER_IT), the ROI LM
+    # queue == K3 and K6 (at 30 and MAX_IT); the card's MLE fits against
+    # the plain fit (sigmaxy within compare_fits, sigma, on these dense
+    # ROIs, within compare_fits_dense), here and on the later blocks,
+    # which played no part in choosing the fit body's roundings; the
+    # routes in ROUTE_TURNS alternating turns, which set
+    # ops/mle_cuda.ROI_FITS (the lower median of K2's phases and K1) and
+    # ops/lq_cuda.ROI_FIT (the queue iff its median is lower); each
+    # kernel's ms, bound and plain ms; the MLE straggler tail: the max_it
+    # spots alone
+    def cut_block(k):
+        raw = localize.get_spots_raw(
+            movie, ids[k * gaussmle._CHUNK:(k + 1) * gaussmle._CHUNK], BOX,
+            device="cuda")
+        return identify.as_float32(torch.from_numpy(raw).to(dev)).permute(
+            1, 2, 0).contiguous()
+
+    def hold_to_plain(what, plain, card, method):
+        """sigmaxy within compare_fits, sigma within compare_fits_dense
+        (and whether also within compare_fits)."""
+        gate = compare_fits if method == "sigmaxy" else compare_fits_dense
+        out = gate(plain, card, MAX_IT, f"{what} {method}: the card vs plain")
+        try:
+            compare_fits(plain, card, MAX_IT)
+            tight = True
+        except AssertionError:
+            tight = False
+        print(f"{what} {method}: the card vs plain ({gate.__name__}; within "
+              f"compare_fits: {tight}):", json.dumps(out))
+        return out
+
+    block = cut_block(0)
     nb = block.shape[-1]
-    del raw
     fit2d = {}
+    mle_routes = {"K2 phases": mle_cuda.fit_boundary_t, "K1": mle_cuda.fit_t}
     for method in ("sigmaxy", "sigma"):
         tag = "" if method == "sigmaxy" else " sigma"
         coop = {}
         for m in (MAX_IT, STRAGGLER_IT):
-            c = torch.zeros(1, dtype=torch.int32, device=dev)
-            q = as_np(mle_cuda.fit_queue_t(block, EPS, m, method,
-                                           coop_steps=c))
-            k1b = as_np(mle_cuda.fit_t(block, EPS, m, method))
-            _assert_equal(q, k1b, f"fit2D block {method} max_it {m}: K2 "
-                          "queue vs K1")
-            _assert_equal(q, as_np(mle_cuda.fit_boundary_t(block, EPS, m,
-                                                           method)),
-                          f"fit2D block {method} max_it {m}: K2 queue vs K2")
-            coop[m] = (int(c.item()), float(np.mean(k1b[3] == m)))
+            c1 = torch.zeros(1, dtype=torch.int32, device=dev)
+            one = as_np(mle_cuda.fit_one_pass_t(block, EPS, m, method))
+            k1b = as_np(mle_cuda.fit_t(block, EPS, m, method, coop_steps=c1))
+            _assert_equal(k1b, one, f"fit2D block {method} max_it {m}: K1 "
+                          "vs the one pass")
+            _assert_equal(as_np(mle_cuda.fit_boundary_t(block, EPS, m,
+                                                        method)), one,
+                          f"fit2D block {method} max_it {m}: K2 vs the one "
+                          "pass")
+            coop[m] = {"K1": int(c1.item()),
+                       "at max_it": float(np.mean(one[3] == m))}
             if m == MAX_IT:
-                it_b = k1b[3]
-                plain_b = as_np(mle._fit_core(block, EPS, MAX_IT, method))
-                what = f"fit2D block {method}: K2 queue vs plain"
-                if method == "sigmaxy":  # fit2D's method
-                    stats["K2 queue fit2D"] = compare_fits(plain_b, q,
-                                                           MAX_IT, what)
-                else:
-                    # the one-thread sigma fits of the commit before the
-                    # ROI queues were as far from the plain fit on these
-                    # ROIs (PERF.md, ROADMAP queue 3): shown, not held
-                    try:
-                        compare_fits(plain_b, q, MAX_IT, what)
-                        print(f"{what}: within compare_fits")
-                    except AssertionError as e:
-                        print(f"{what}: open fault (ROADMAP queue 3): {e}")
-        fns = (lambda: mle_cuda.fit_boundary_t(block, EPS, MAX_IT, method),
-               lambda: mle_cuda.fit_queue_t(block, EPS, MAX_IT, method))
-        turns = _alternate(fns, ROUTE_TURNS)
-        ms["K2 fit2D" + tag], ms["K2 queue fit2D" + tag] = (
-            statistics.median(t) for t in turns)
+                it_b = one[3]
+                stats["K1 fit2D" + tag] = hold_to_plain(
+                    "fit2D block", as_np(mle._fit_core(block, EPS, MAX_IT,
+                                                       method)), k1b, method)
+        turns = _alternate([(lambda f=f: f(block, EPS, MAX_IT, method))
+                            for f in mle_routes.values()], ROUTE_TURNS)
+        med = {k: statistics.median(t) for k, t in zip(mle_routes, turns)}
+        ms["K2 fit2D" + tag] = med["K2 phases"]
+        ms["K1 fit2D" + tag] = med["K1"]
         bounds["fit2D" + tag] = _fit_bound(nb, float(it_b.sum()),
                                            mle_flops_per_spot_iter, 56)
         ms["plain fit2D" + tag] = _median_ms(
@@ -1716,29 +1787,35 @@ def main() -> int:
         stuck = block[:, :, at_max].contiguous()
         tail = [round(t, 4) for t in _turns(
             [(lambda f=f: f(stuck, EPS, MAX_IT, method))
-             for f in (mle_cuda.fit_boundary_t, mle_cuda.fit_queue_t,
-                       mle_cuda.fit_queue_t, mle_cuda.fit_boundary_t)])]
+             for f in (mle_cuda.fit_boundary_t, mle_cuda.fit_t,
+                       mle_cuda.fit_t, mle_cuda.fit_boundary_t)])]
         fit2d[method] = {
-            "turns_ms": {"K2 phases": [round(t, 4) for t in turns[0]],
-                         "K2 queue": [round(t, 4) for t in turns[1]]},
-            "route": ("queue" if ms["K2 queue fit2D" + tag]
-                      < ms["K2 fit2D" + tag] else "phases"),
-            "route_set": ("queue" if mle_cuda.ROI_FITS[method]
-                          is mle_cuda.fit_queue_t else "phases"),
+            "turns_ms": {k: [round(t, 4) for t in v]
+                         for k, v in zip(mle_routes, turns)},
+            "route": min(med, key=med.get),
+            "route_set": next(k for k, f in mle_routes.items()
+                              if f is mle_cuda.ROI_FITS[method]),
             "tail_split_ms": {"spots at max_it": int(at_max.sum()),
-                              "alone K2, queue, queue, K2": tail},
+                              "alone K2, K1, K1, K2": tail},
         }
         b_ms = bounds["fit2D" + tag][0]
         print(f"fit2D block {method} ({nb} ROIs, iterations mean "
               f"{it_b.mean():.2f}, {np.mean(it_b == MAX_IT):.4f} at max_it): "
-              f"K2 queue == K1 == K2 bit for bit at max_it {MAX_IT} and "
+              f"K1, K2 == the one pass bit for bit at max_it {MAX_IT} and "
               f"{STRAGGLER_IT} (cooperative steps, share at max_it: "
-              f"{coop}); K2 phases {ms['K2 fit2D' + tag]:.4f} ms, queue "
-              f"{ms['K2 queue fit2D' + tag]:.4f} ms (medians of "
-              f"{ROUTE_TURNS} turns), bound {b_ms:.4f} ms "
-              f"({b_ms / ms['K2 queue fit2D' + tag]:.1%} of the queue, "
-              f"{b_ms / ms['K2 fit2D' + tag]:.1%} of the phases), plain "
+              f"{json.dumps(coop)}); medians of {ROUTE_TURNS} turns: K2 "
+              f"phases {med['K2 phases']:.4f} ms, K1 {med['K1']:.4f} ms; "
+              f"bound {b_ms:.4f} ms ({b_ms / med['K1']:.1%} of K1, "
+              f"{b_ms / med['K2 phases']:.1%} of the phases), plain "
               f"{ms['plain fit2D' + tag]:.3f} ms;", json.dumps(fit2d[method]))
+    for k in range(1, -(-len(ids) // gaussmle._CHUNK)):
+        later = cut_block(k)
+        for method in ("sigmaxy", "sigma"):
+            hold_to_plain(f"fit2D block {k + 1} ({later.shape[-1]} ROIs)",
+                          as_np(mle._fit_core(later, EPS, MAX_IT, method)),
+                          as_np(mle_cuda.fit_t(later, EPS, MAX_IT, method)),
+                          method)
+        del later
     for m in (30, MAX_IT):
         c = torch.zeros(1, dtype=torch.int32, device=dev)
         q = lq_cuda.fit_queue_t(block, m, FTOL, coop_steps=c).cpu().numpy()
@@ -1929,6 +2006,7 @@ def main() -> int:
     mle_src, lq_src = ("picasso_torch/csrc/mle_fit.cu",
                        "picasso_torch/csrc/lq_fit.cu")
     win_src = "picasso_torch/csrc/winfit_mle.cu"
+    fit_src = "picasso_torch/csrc/roi_mle_fit.cu"
     queue_src = "picasso_torch/csrc/winfit_mle_queue.cu"
     win_tpu = "picasso_tpu/ops/winfit_pallas.py:108"
     kernels = [
@@ -1953,21 +2031,11 @@ def main() -> int:
               "picasso_tpu/ops/identify_pallas.py:58", "K4", k4_err,
               "plain K4"),
         entry("K5 one pass", "K5 winfit_mle sigmaxy (single pass)", win_src,
-              win_tpu, "K5 mle one pass", stats["K1"]["xy_max_all"],
+              win_tpu, "K5 mle one pass", stats["K1 one pass"]["xy_max_all"],
               "plain K5", "sigmaxy"),
         entry("K5 one pass sigma", "K5 winfit_mle sigma (single pass)",
               win_src, win_tpu, "K5 mle one pass",
-              stats["K1 sigma"]["xy_max_all"], "plain K5 sigma", "sigma"),
-        entry("K2 queue", "K2 roi_mle_queue sigmaxy (work queue, "
-              "cooperative tail, + CRLB/LL pass)",
-              "picasso_torch/csrc/roi_mle_queue.cu",
-              "picasso_tpu/ops/mle_pallas.py:256", "K2 queue",
-              stats["K2 queue"]["xy_max_all"], "plain_fit", "sigmaxy"),
-        entry("K2 queue sigma", "K2 roi_mle_queue sigma (work queue, "
-              "cooperative tail, + CRLB/LL pass)",
-              "picasso_torch/csrc/roi_mle_queue.cu",
-              "picasso_tpu/ops/mle_pallas.py:256", "K2 queue",
-              stats["K2 queue sigma"]["xy_max_all"], "plain_fit sigma",
+              stats["K1 one pass sigma"]["xy_max_all"], "plain K5 sigma",
               "sigma"),
         entry("K3 queue", "K3 roi_lq_queue (work queue, cooperative tail)",
               "picasso_torch/csrc/roi_lq_queue.cu",
@@ -1985,15 +2053,26 @@ def main() -> int:
         entry("K6", "K6 lq_fit (phases 16/50/100)", lq_src,
               "picasso_tpu/ops/lq_pallas.py:93", "K6",
               stats["K6"]["xy_p100"], "plain_lq"),
-        entry("K1", "K1 mle_fit sigmaxy (single pass)", mle_src,
+        entry("K1", "K1 roi_mle_fit sigmaxy (work queue, cooperative "
+              "tail, CRLB/LL in the kernel)", fit_src,
               "picasso_tpu/ops/mle_pallas.py:36", "K1",
               stats["K1"]["xy_max_all"], "plain_fit", "sigmaxy"),
-        entry("K1 sigma", "K1 mle_fit sigma (single pass)", mle_src,
+        entry("K1 sigma", "K1 roi_mle_fit sigma (work queue, cooperative "
+              "tail, CRLB/LL in the kernel)", fit_src,
               "picasso_tpu/ops/mle_pallas.py:36", "K1",
               stats["K1 sigma"]["xy_max_all"], "plain_fit sigma", "sigma"),
-        entry("K7", f"K7 mle_fit sigmaxy (rounds of {ROUND_IT})", mle_src,
+        entry("K7", "K7 roi_mle_fit sigmaxy (one launch; rounds of "
+              f"{ROUND_IT} on the TPU)", fit_src,
               "picasso_tpu/ops/mle_pallas.py:511", "K7",
               stats["K7"]["xy_max_all"], "plain K7", "sigmaxy"),
+        entry("K1 one pass", "K1 one pass mle_fit sigmaxy (one thread a "
+              "spot)", mle_src, "picasso_tpu/ops/mle_pallas.py:36",
+              "K1 one pass", stats["K1 one pass"]["xy_max_all"], "plain_fit",
+              "sigmaxy"),
+        entry("K1 one pass sigma", "K1 one pass mle_fit sigma (one thread "
+              "a spot)", mle_src, "picasso_tpu/ops/mle_pallas.py:36",
+              "K1 one pass", stats["K1 one pass sigma"]["xy_max_all"],
+              "plain_fit sigma", "sigma"),
     ]
     for k in kernels:  # the LM kernel's time on chunk 0 too
         if k["name"].startswith("K5 winfit_lq"):
@@ -2001,9 +2080,8 @@ def main() -> int:
             k["chunk0_bound_ms"] = chunk_bound[0]
     # the fit kernels of fit2D on its first 262,144-ROI block too
     for name, key, block_key in (
-            ("K2 roi_mle_queue sigmaxy (", "K2 queue fit2D", "fit2D"),
-            ("K2 roi_mle_queue sigma (", "K2 queue fit2D sigma",
-             "fit2D sigma"),
+            ("K1 roi_mle_fit sigmaxy (", "K1 fit2D", "fit2D"),
+            ("K1 roi_mle_fit sigma (", "K1 fit2D sigma", "fit2D sigma"),
             ("K2 mle_fit sigmaxy (", "K2 fit2D", "fit2D"),
             ("K2 mle_fit sigma (", "K2 fit2D sigma", "fit2D sigma"),
             ("K3 roi_lq_queue", "K3 queue fit2D", "fit2D lq"),

@@ -77,14 +77,14 @@ SIGNATURES = {
     "picasso_winfit_lq_queue_info": [
         _I, _I, _P,                            # dtype, box, int info[7]
     ],
-    "picasso_roi_mle_queue": [
+    "picasso_roi_mle_fit": [
         _P, _LL, _I, _F, _I, _LL,              # spots, n, box, eps, max_it, n_valid
-        _I, _P,                                # method, counter
-        _P, _P, _P, _P, _P,                    # carry: theta old done iters max_step
+        _I, _P,                                # method, counters and flags
+        _P, _P, _P, _P,                        # out: theta, crlb, ll, iters
         _P,                                    # coop steps or null
         _P,                                    # stream
     ],
-    "picasso_roi_mle_queue_info": [
+    "picasso_roi_mle_fit_info": [
         _I, _I, _P,                            # box, method, int info[8]
     ],
     "picasso_roi_lq_queue": [

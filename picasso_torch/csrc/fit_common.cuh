@@ -115,7 +115,8 @@ struct ChunkWindows {
   }
 };
 
-// K2/K3 as work queues: spot n of the lanes-last (S, S, N) f32 photon
+// The ROI work queues (K1 and K7, roi_mle_fit.cu; K3, roi_lq_queue.cu):
+// spot n of the lanes-last (S, S, N) f32 photon
 // batch, copied as it is. A refill claims consecutive spot indices, so
 // the claiming lanes of a warp read each pixel from neighbouring
 // addresses. Spots at or above n_valid start converged, as in K1/K3.

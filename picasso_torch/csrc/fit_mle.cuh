@@ -1,11 +1,12 @@
 // MLE fit of the integrated 2D Gaussian for one spot, one thread per
 // spot (sm_90a): the body of the K1/K2 kernels (mle_fit.cu), of the
 // fused cut+fit kernel K5 (winfit_mle.cu) and of the MLE work queues
-// (mle_queue.cuh: K5's and K2's), templated on the source the spot's
+// (mle_queue.cuh: K5's and K1's), templated on the source the spot's
 // pixels come from (fit_common.cuh). Its pieces (an edge and a point of
 // an axis, a row of the Newton sums, the fold of a row, the update) are
 // the units the work queues' cooperative tail spreads over a group of
-// lanes.
+// lanes; its epilogue (CRLB, log-likelihood, the outputs) ends K1's one
+// pass, K2's FINISH phase and the K1/K7 work queue (roi_mle_fit.cu).
 //
 // It runs picasso_tpu/ops/mle._fit_core: moment initialiser, up to
 // max_it Newton steps with per-parameter max_step clamps, per-spot
@@ -61,6 +62,23 @@ constexpr float kInvSqrtPi = 0.56418958354775628f;  // 1 / sqrt(pi)
 // (and the instruction nvcc picks for 1.0f / x): __fdiv_rn(1.0f, x) gives
 // the same number through the general division's longer sequence, ~20%
 // more again.
+
+// A row's model and its column sums, pg * psf + bg and v * fa + c
+// (mle_row): for sigma the product is rounded before the add, as the
+// plain version and the JAX package form them; for sigmaxy, as every
+// other a * b + c of the body, they are one __fmaf_rn. Fused, the sigma
+// fits on the first of the smoke movie's dense fit2D blocks sat 2.8x
+// further from the plain fit than JAX's (x/y 5.0e-4 px against 1.8e-4) and 3.4x
+// further from the plain fit in f64 than the plain f32 fit; unfused
+// (both; either alone is not enough) they are within
+// torch_parity.compare_fits there. The sigmaxy fits gain nothing from it
+// on the movie's four blocks (unfused, their sx/sy leave compare_fits on
+// one, fused on none), and would pay 8-11% more time. The other bodies
+// are built by tests/torch_k1_queue_sweep.py (PERF.md).
+template <bool SIG>
+__device__ __forceinline__ float row_fma(float a, float b, float c) {
+  return SIG ? __fadd_rn(__fmul_rn(a, b), c) : __fmaf_rn(a, b, c);
+}
 
 __device__ __forceinline__ float erfc_from_exp(float a, float e) {
   const float x = __fmul_rn(fabsf(a), kInvSqrt2);
@@ -276,7 +294,7 @@ __device__ __forceinline__ void mle_row(const Src& px, int j, float pg,
 #pragma unroll
   for (int i = 0; i < S; ++i) {
     const float data = px(j, i);
-    const float model = __fmaf_rn(pg, f[1][i], bg);
+    const float model = row_fma<SIG>(pg, f[1][i], bg);
     const bool valid = model > 10e-3f;
     const float r = __frcp_rn(model);
     const float dr = data * r;
@@ -292,7 +310,7 @@ __device__ __forceinline__ void mle_row(const Src& px, int j, float pg,
       if (t == 5 || t >= 9)
         c[t] = i == 0 ? v : c[t] + v;
       else
-        c[t] = i == 0 ? v * fa : __fmaf_rn(v, fa, c[t]);
+        c[t] = i == 0 ? v * fa : row_fma<SIG>(v, fa, c[t]);
     }
   }
 }
@@ -458,6 +476,19 @@ __device__ void run_rounds(const Src& px, float* th, float* old, float& done,
 // Cholesky of ops/linalg.py) and Poisson log-likelihood (ops/mle.py
 // _crlb_and_likelihood). Fisher entry (p, q) is
 // sp*sq * sum_j Ap[j]*Aq[j] * sum_i W[j,i] * Bp[i]*Bq[i].
+//
+// Like the Newton step, its arithmetic leaves no product that meets an
+// add to the compiler: every product that is summed is __fmul_rn and
+// every such sum __fadd_rn / __fsub_rn, in the plain version's order, so
+// each of its callers (the one-thread pass and FINISH of mle_fit.cu and
+// winfit_mle.cu, and the epilogue of roi_mle_fit.cu's queue) forms the
+// same numbers wherever the compiler places it. The rows run in a loop
+// that is not unrolled, each row's y factors formed from its two edges
+// (the previous row's upper edge carried): unrolled, the box x box
+// pixels with their two logarithms were ~6,200 of the 13,000 SASS
+// instructions of the queue kernel that holds it (NVIDIA H100, box 7
+// sigmaxy), and that kernel ran at half the speed of the same queue
+// without it (PERF.md).
 __device__ __forceinline__ int bcol(int p) {
   return p == 0 ? 0 : (p == 3 ? 2 : (p == 4 ? 3 : 1));
 }
@@ -467,53 +498,66 @@ __device__ void crlb_ll(const Src& px, const float* th, float* crlb,
                         float& ll) {
   constexpr int P = SIG ? 5 : 6;
   const float ph = th[2], bg = th[3];
+  const float sy = th[SIG ? 4 : 5];
   float psf_x[S], dmu_x[S], d2mu_x[S], dsig_x[S], d2sig_x[S];
-  float psf_y[S], dmu_y[S], d2mu_y[S], dsig_y[S], d2sig_y[S];
   axis_terms<S, SIG>(th[0], th[4], psf_x, dmu_x, d2mu_x, dsig_x, d2sig_x);
-  axis_terms<S, SIG>(th[1], th[SIG ? 4 : 5], psf_y, dmu_y, d2mu_y, dsig_y,
-                     d2sig_y);
+  float isy, ny;
+  axis_scale(sy, isy, ny);
   // Separable first-derivative terms t = 0..5: row factor A[t], column
   // factor bcol(t), scale sc[t]. sigmaxy: term t is parameter t. sigma:
   // terms 4 and 5 are the two halves of d/dsigma (parameter 4). Distinct
   // column factors: 0 dmu_x, 1 psf_x, 2 ones, 3 dsig_x.
   float m[6][6];
   float ll_acc = 0.0f;
-#pragma unroll
+  float a0, e0, q0;  // row j's lower edge
+  mle_edge<S>(0, th[1], isy, a0, e0, q0);
+#pragma unroll 1
   for (int j = 0; j < S; ++j) {
+    float a1, e1, q1;  // its upper edge
+    mle_edge<S>(j + 1, th[1], isy, a1, e1, q1);
+    float py, dy, d2y, sgy, s2y;
+    mle_point<SIG>(j, th[1], sy, isy, ny, a0, a1, e0, e1, q0, q1, py, dy,
+                   d2y, sgy, s2y);
+    a0 = a1;
+    e0 = e1;
+    q0 = q1;
+    const float pgy = __fmul_rn(ph, py);
     float t[4][4];
     float ll_row = 0.0f;
 #pragma unroll
     for (int i = 0; i < S; ++i) {
       const float data = px(j, i);
-      const float model = ph * psf_y[j] * psf_x[i] + bg;
-      const float w = 1.0f / model;
+      const float model = __fadd_rn(__fmul_rn(pgy, psf_x[i]), bg);
+      const float w = __frcp_rn(model);
       const float b[4] = {dmu_x[i], psf_x[i], 1.0f, dsig_x[i]};
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
         for (int c = a; c < 4; ++c) {
-          const float v = w * (b[a] * b[c]);
-          t[a][c] = i == 0 ? v : t[a][c] + v;
+          const float v = __fmul_rn(w, __fmul_rn(b[a], b[c]));
+          t[a][c] = i == 0 ? v : __fadd_rn(t[a][c], v);
         }
-      float lli = data > 0.0f
-                      ? ((data * logf(model) - model) - data * logf(data)) +
-                            data
-                      : -model;
+      float lli =
+          data > 0.0f
+              ? __fadd_rn(__fsub_rn(__fsub_rn(__fmul_rn(data, logf(model)),
+                                              model),
+                                    __fmul_rn(data, logf(data))),
+                          data)
+              : -model;
       if (!(model > 0.0f)) lli = 0.0f;
-      ll_row = i == 0 ? lli : ll_row + lli;
+      ll_row = i == 0 ? lli : __fadd_rn(ll_row, lli);
     }
-    const float A[6] = {psf_y[j], dmu_y[j], psf_y[j],
-                        1.0f,     psf_y[j], dsig_y[j]};
+    const float A[6] = {py, dy, py, 1.0f, py, sgy};
 #pragma unroll
     for (int p = 0; p < 6; ++p)
 #pragma unroll
       for (int q = p; q < 6; ++q) {
         const int a = min(bcol(p), bcol(q));
         const int c = max(bcol(p), bcol(q));
-        const float v = (A[p] * A[q]) * t[a][c];
-        m[p][q] = j == 0 ? v : m[p][q] + v;
+        const float v = __fmul_rn(__fmul_rn(A[p], A[q]), t[a][c]);
+        m[p][q] = j == 0 ? v : __fadd_rn(m[p][q], v);
       }
-    ll_acc = j == 0 ? ll_row : ll_acc + ll_row;
+    ll_acc = j == 0 ? ll_row : __fadd_rn(ll_acc, ll_row);
   }
   const float sc[6] = {ph, ph, 1.0f, 1.0f, ph, ph};
   // Fisher matrix (upper triangle): sum over the term pairs of each
@@ -522,13 +566,19 @@ __device__ void crlb_ll(const Src& px, const float* th, float* crlb,
 #pragma unroll
   for (int p = 0; p < P; ++p)
 #pragma unroll
-    for (int q = p; q < P; ++q) M[p][q] = (sc[p] * sc[q]) * m[p][q];
+    for (int q = p; q < P; ++q)
+      M[p][q] = __fmul_rn(__fmul_rn(sc[p], sc[q]), m[p][q]);
   if constexpr (SIG) {
 #pragma unroll
-    for (int p = 0; p < 4; ++p)
-      M[p][4] = (sc[p] * ph) * m[p][4] + (sc[p] * ph) * m[p][5];
-    const float pp = ph * ph;
-    M[4][4] = ((pp * m[4][4] + pp * m[4][5]) + pp * m[4][5]) + pp * m[5][5];
+    for (int p = 0; p < 4; ++p) {
+      const float s4 = __fmul_rn(sc[p], ph);
+      M[p][4] = __fadd_rn(__fmul_rn(s4, m[p][4]), __fmul_rn(s4, m[p][5]));
+    }
+    const float pp = __fmul_rn(ph, ph);
+    M[4][4] = __fadd_rn(
+        __fadd_rn(__fadd_rn(__fmul_rn(pp, m[4][4]), __fmul_rn(pp, m[4][5])),
+                  __fmul_rn(pp, m[4][5])),
+        __fmul_rn(pp, m[5][5]));
   }
   float dinv[P];
 #pragma unroll
@@ -539,39 +589,63 @@ __device__ void crlb_ll(const Src& px, const float* th, float* crlb,
 #pragma unroll
   for (int i = 0; i < P; ++i)
 #pragma unroll
-    for (int j = 0; j <= i; ++j) L[i][j] = (M[j][i] * dinv[i]) * dinv[j];
+    for (int j = 0; j <= i; ++j)
+      L[i][j] = __fmul_rn(__fmul_rn(M[j][i], dinv[i]), dinv[j]);
 #pragma unroll
   for (int j = 0; j < P; ++j) {
     float s = L[j][j];
 #pragma unroll
-    for (int k = 0; k < j; ++k) s = s - L[j][k] * L[j][k];
+    for (int k = 0; k < j; ++k) s = __fsub_rn(s, __fmul_rn(L[j][k], L[j][k]));
     L[j][j] = sqrtf(s);
     const float inv_d = 1.0f / L[j][j];
 #pragma unroll
     for (int i = j + 1; i < P; ++i) {
       float si = L[i][j];
 #pragma unroll
-      for (int k = 0; k < j; ++k) si = si - L[i][k] * L[j][k];
-      L[i][j] = si * inv_d;
+      for (int k = 0; k < j; ++k)
+        si = __fsub_rn(si, __fmul_rn(L[i][k], L[j][k]));
+      L[i][j] = __fmul_rn(si, inv_d);
     }
   }
 #pragma unroll
   for (int k = 0; k < P; ++k) {
     float z[P];
     z[k] = 1.0f / L[k][k];
-    float acc = z[k] * z[k];
+    float acc = __fmul_rn(z[k], z[k]);
 #pragma unroll
     for (int j = k + 1; j < P; ++j) {
-      float s = -(L[j][k] * z[k]);
+      float s = -__fmul_rn(L[j][k], z[k]);
 #pragma unroll
-      for (int mm = k + 1; mm < j; ++mm) s = s - L[j][mm] * z[mm];
+      for (int mm = k + 1; mm < j; ++mm)
+        s = __fsub_rn(s, __fmul_rn(L[j][mm], z[mm]));
       z[j] = s / L[j][j];
-      acc = acc + z[j] * z[j];
+      acc = __fadd_rn(acc, __fmul_rn(z[j], z[j]));
     }
-    crlb[k] = acc * (dinv[k] * dinv[k]);
+    crlb[k] = __fmul_rn(acc, __fmul_rn(dinv[k], dinv[k]));
   }
   if constexpr (SIG) crlb[5] = crlb[4];
   ll = ll_acc;
+}
+
+// A finished spot's outputs: its CRLB and log-likelihood (crlb_ll) and
+// theta (with SIG sx == sy, the sigma row twice), written with its
+// iteration count at index n of theta/crlb (6, N), ll and iters (N,).
+template <int S, bool SIG, class Src>
+__device__ __forceinline__ void mle_epilogue(const Src& px, long long n,
+                                             long long N, float* th,
+                                             float iters, float* theta_out,
+                                             float* crlb_out, float* ll_out,
+                                             int* iters_out) {
+  float crlb[6], ll;
+  crlb_ll<S, SIG>(px, th, crlb, ll);
+  if (SIG) th[5] = th[4];
+#pragma unroll
+  for (int p = 0; p < 6; ++p) {
+    theta_out[p * N + n] = th[p];
+    crlb_out[p * N + n] = crlb[p];
+  }
+  ll_out[n] = ll;
+  iters_out[n] = (int)iters;
 }
 
 // The fit of spot n in one mode. FULL/START initialise from the pixels,
@@ -614,16 +688,8 @@ __device__ __forceinline__ void mle_fit_spot(
     iters_c[n] = iters;
     return;
   }
-  float crlb[6], ll;
-  crlb_ll<S, SIG>(px, th, crlb, ll);
-  if (SIG) th[5] = th[4];
-#pragma unroll
-  for (int p = 0; p < 6; ++p) {
-    theta_out[p * N + n] = th[p];
-    crlb_out[p * N + n] = crlb[p];
-  }
-  ll_out[n] = ll;
-  iters_out[n] = (int)iters;
+  mle_epilogue<S, SIG>(px, n, N, th, iters, theta_out, crlb_out, ll_out,
+                       iters_out);
 }
 
 }  // namespace

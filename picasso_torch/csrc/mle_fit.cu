@@ -2,20 +2,18 @@
 // thread per spot (sm_90a).
 //
 // Replaces the Pallas TPU kernels of picasso_tpu/ops/mle_pallas.py:
-//   K1  _tile_kernel                       (fit_pallas_t)
 //   K2  _start_phase_kernel, _resume_phase_kernel, _finish_phase_kernel
-//                                          (fit_pallas_boundary_t)
-//   K7  _first_round_kernel, _resume_round_kernel, _finalize_kernel
-//                                          (fit_pallas_multiround), as a
-//       schedule of the START/RESUME/FINISH modes (ops/mle_cuda.py)
-// The fit itself is fit_mle.cuh (shared with the fused cut+fit kernel
-// K5, winfit_mle.cu, and the work queues of mle_queue.cuh, whose K2
-// queue, roi_mle_queue.cu, ends with this file's FINISH mode); this file
-// reads the spots from the (S, S, N) f32
-// batch, where neighbouring spots sit on neighbouring addresses, so
-// each Newton step's box*box reads coalesce. The phase schedules (host
-// side) stop threads of converged spots from sitting idle in warps that
-// still iterate.
+//       (fit_pallas_boundary_t), as the START/RESUME/FINISH modes
+// and its FULL mode, the one-thread pass of K1 (_tile_kernel,
+// fit_pallas_t), is the fixed point that the work queues equal bit for
+// bit (ops/mle_cuda.fit_one_pass_t, on no path): K1 and K7 run as
+// roi_mle_fit.cu's queue. The fit itself is fit_mle.cuh (shared with
+// the fused cut+fit kernel K5, winfit_mle.cu, and the work queues of
+// mle_queue.cuh); this file reads the spots from the (S, S, N) f32 batch,
+// where neighbouring spots sit on neighbouring addresses, so each Newton
+// step's box*box reads coalesce. The phase schedule (host side) stops
+// threads of converged spots from sitting idle in warps that still
+// iterate.
 //
 // Boxes 5-15 are instantiated. At box 3 the sigmaxy fit has six
 // parameters for nine pixels and mostly does not converge, so no

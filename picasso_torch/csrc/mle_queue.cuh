@@ -1,18 +1,20 @@
 // The MLE fit (sigmaxy and sigma) as a work queue (sm_90a): one
 // persistent launch with lane refill and a warp-cooperative straggler
 // tail, templated on where a spot's pixels come from (fit_common.cuh's
-// source policies). Two sources instantiate it:
+// source policies) and on where the CRLB/LL runs. Two sources
+// instantiate it:
 //   ChunkWindows  K5, the fused cut + photon conversion + fit of a hit
 //                 list from a frame chunk (winfit_mle_queue.cu, _f32.cu);
-//   RoiBatch      K2 as a queue, the fit of a cut (S, S, N) f32 ROI batch
-//                 (roi_mle_queue.cu), fit2D's MLE.
+//   RoiBatch      the fit of a cut (S, S, N) f32 ROI batch, K1 and K7,
+//                 as one launch with the CRLB/LL in the queue
+//                 (roi_mle_fit.cu).
 //
 // Replaces, on the main paths, the Pallas TPU kernels
 // picasso_tpu/ops/winfit_pallas.py _mle_kernel (fit_mle_t) and
-// picasso_tpu/ops/mle_pallas.py _start/_resume/_finish_phase_kernel
-// (fit_pallas_boundary_t), and with them the phase schedule that the TPU
-// needs (launches ending at 16/50/100 steps with host permutes between
-// them). A TPU lane cannot take new work when its spot converges, so the
+// picasso_tpu/ops/mle_pallas.py _tile_kernel (fit_pallas_t) and the
+// rounds of fit_pallas_multiround, and with them the phase schedule that
+// the TPU needs (launches ending at given steps with host permutes
+// between them). A TPU lane cannot take new work when its spot converges, so the
 // JAX package reorders lanes stragglers first between launches. A SIMT
 // lane can: each warp owns 32 lane slots, and a slot whose spot has
 // converged (or reached max_it) takes the next spot from a device-side
@@ -51,16 +53,21 @@
 //     in row order from shuffled operands (the row sums and the y
 //     factors, not their products) and runs the same update, clamps,
 //     constraints and convergence test, so the group holds one theta;
-//   - a finished spot writes the carry of K2 (theta, old, done, iters,
+//   - K5: a finished spot writes its carry (theta, old, done, iters,
 //     max_step) at its own index, in input order; the CRLB and
-//     log-likelihood then run for all N spots as the FINISH mode at k = 0
-//     of the matching one-thread kernel (winfit_mle.cu, mle_fit.cu),
-//     uniform work with no permutation.
-// Each spot runs the same pieces of fit_mle.cuh in the same order as K1
-// (init_theta, Newton steps with the test against `old`, crlb_ll), with
-// the same correctly rounded operations; only which lanes run them, and
-// when, differs. So the result equals K1, K2, K7 and the gather route
-// bit for bit.
+//     log-likelihood then run for all N spots as winfit_mle.cu's FINISH
+//     mode at k = 0, uniform work with no permutation;
+//   - with CRLB (K1, K7: roi_mle_fit.cu), the handoff: a finished spot
+//     writes its theta and iteration count and a ready flag, and each
+//     warp whose fits are done runs the CRLB/LL of 32 consecutive spots
+//     at a time, one a lane, reading each ROI again from the batch, while
+//     other warps still fit their stragglers: no carry is written and no
+//     second launch.
+// Each spot runs the same pieces of fit_mle.cuh in the same order as the
+// one-thread pass (init_theta, Newton steps with the test against `old`,
+// crlb_ll), with the same correctly rounded operations; only which lanes
+// run them, and when, differs. So the result equals the one-thread pass
+// (mle_fit.cu FULL), K2's phases and the gather route bit for bit.
 //
 // Left out, on purpose:
 //   - tensor cores: the per-pixel work (model, 1/model, two
@@ -76,7 +83,7 @@
 // The constants below are the measured choice (PERF.md); the macros only
 // let tests/torch_k5_queue_sweep.py build the variants it times (and
 // winfit_mle_queue.cuh's PICASSO_K5Q_TAIL tests/torch_mle_tail_sweep.py).
-// The ROI queue (roi_mle_queue.cu) takes the tail for both methods.
+// The ROI queue (roi_mle_fit.cu) takes the tail for both methods.
 // PICASSO_K5Q_ONLY_BOX restricts a build to one box.
 
 #pragma once
@@ -94,13 +101,17 @@
 #endif
 
 // Arguments of one queue launch, whatever the source: n spots, the
-// counter `next` (zero before the launch), the carry written at each
+// counter `next` (zero before the launch), the carry (K5) written at each
 // spot's index (theta, old, max_step (R, n), done, iters (n,) f32), and
 // coop_steps (one int32 on the card, or null), which gains the
 // spot-steps taken in the cooperative tail. With info set, the launch
 // helper describes the instance (threads, resident blocks per SM,
 // registers, local bytes, refill, min blocks, SMs, the lanes of a
-// cooperative group or 0 without the tail) and launches nothing.
+// cooperative group or 0 without the tail) and launches nothing. A
+// queue with the CRLB in it (CRLB below) writes the outputs theta_o,
+// crlb_o (6, n), ll_o (n,) f32 and iters_o (n,) int32 instead of the
+// carry, with a second counter next2 and a ready flag a spot (ready),
+// all zero before the launch.
 struct MleQueueArgs {
   long long n;
   float eps;
@@ -110,6 +121,9 @@ struct MleQueueArgs {
   int* coop_steps;
   int* info;
   cudaStream_t stream;
+  float *theta_o, *crlb_o, *ll_o;
+  int* iters_o;
+  int *next2, *ready;
 };
 
 namespace {
@@ -118,6 +132,12 @@ namespace {
 constexpr int kRefill = PICASSO_K5Q_REFILL;
 // __launch_bounds__' minimum resident blocks per SM
 constexpr int kMinBlocks = PICASSO_K5Q_MIN_BLOCKS;
+// The __launch_bounds__ minimum of the queue with the CRLB/LL in it at
+// boxes <= 7: the CRLB/LL after the fit loop would take the kernel to
+// 174-178 registers and 2 blocks a SM, where the loop itself runs in
+// 156-160 and 3 (PERF.md).
+constexpr int kFitMinBlocks = 3;
+
 // the stage of a block stays within this, so two blocks fit on an SM
 constexpr int kStageBytes = 113 * 1024;
 constexpr unsigned kAll = 0xffffffffu;
@@ -203,12 +223,14 @@ __device__ __forceinline__ void store_carry(long long n, long long N,
 // The cooperative tail of a drained warp whose busy slots (the lanes of
 // busy, at most 32/G) carry th, old, ms, done, iters, n: group g adopts
 // the g-th busy slot and runs its spot to convergence or max_it, then
-// writes its carry. Called by the whole warp; returns with every slot
-// finished.
-template <int S, bool SIG, int T>
+// writes its carry, or with RET hands its theta and iteration count
+// back to the slot's owner (th, iters of the owner's lane; other lanes'
+// th, old, ms, done and iters are left meaningless). Called by the
+// whole warp; returns with every slot finished.
+template <int S, bool SIG, int T, bool RET>
 __device__ __forceinline__ void mle_coop_tail(
     const float* stage, unsigned busy, float* th, float* old, float* ms,
-    float done, float iters, long long n, long long N, float limit,
+    float& done, float& iters, long long n, long long N, float limit,
     float eps, float* theta_c, float* old_c, float* done_c, float* iters_c,
     float* ms_c, int* coop_steps) {
   constexpr int G = mle_group<S>();
@@ -238,7 +260,7 @@ __device__ __forceinline__ void mle_coop_tail(
   while (__any_sync(kAll, active)) {
     const bool go = active && !(done > 0.5f) && iters < limit;
     if (active && !go) {
-      if (adopted && gl == 0)
+      if (!RET && adopted && gl == 0)
         store_carry<R>(n, N, th, old, ms, done, iters, theta_c, old_c,
                        done_c, iters_c, ms_c);
       active = false;
@@ -257,13 +279,91 @@ __device__ __forceinline__ void mle_coop_tail(
   }
   if (coop_steps != nullptr && adopted && gl == 0)
     atomicAdd(coop_steps, taken);
+  if constexpr (RET) {
+    // a busy lane's spot is its group's: the group's first lane holds it
+    const int from = (__popc(busy & ((1u << lane) - 1u)) * G) & 31;
+#pragma unroll
+    for (int p = 0; p < R; ++p) th[p] = __shfl_sync(kAll, th[p], from);
+    iters = __shfl_sync(kAll, iters, from);
+  }
 }
 
-template <int S, bool SIG, int T, bool TAIL, class Source>
-__global__ void __launch_bounds__(T, kMinBlocks) mle_queue_kernel(
-    const Source src, long long N, float eps, int max_it,
-    int* __restrict__ next, float* theta_c, float* old_c, float* done_c,
-    float* iters_c, float* ms_c, int* coop_steps) {
+// The queue with the CRLB/LL in it: a finished spot's theta (with SIG
+// the sigma row twice) and iteration count.
+template <bool SIG>
+__device__ __forceinline__ void store_fit(long long n, long long N,
+                                          const float* th, float iters,
+                                          float* theta_o, int* iters_o) {
+#pragma unroll
+  for (int p = 0; p < 6; ++p) theta_o[p * N + n] = th[SIG && p == 5 ? 4 : p];
+  iters_o[n] = (int)iters;
+}
+
+// Set the ready flag of spot pub (if >= 0) after this lane's earlier
+// writes (its theta and iters): one fence for the warp's lanes whose spots
+// finished in its last trip. Called by the whole warp.
+__device__ __forceinline__ void publish(int* ready, long long pub) {
+  __threadfence();
+  if (pub >= 0) atomicExch(ready + pub, 1);
+}
+
+// The CRLB/LL of the queue with it in it: a warp whose fits are done
+// takes 32 consecutive spots at a time from the second counter next2
+// (one a lane), waits until each is finished (its ready flag, set by
+// whichever warp fitted it), and runs its CRLB and log-likelihood from
+// its theta and its ROI in the batch. Every spot is claimed by a running
+// warp before any warp gets here (the first counter has passed N), so
+// each wait ends.
+template <int S, bool SIG>
+__device__ __forceinline__ void handoff_epilogue(
+    const float* __restrict__ spots, long long N, int* next2,
+    const int* ready, const float* theta_o, float* crlb_o, float* ll_o) {
+  const unsigned lane = threadIdx.x & 31u;
+  while (true) {
+    int base = 0;
+    if (lane == 0) base = atomicAdd(next2, 32);
+    base = __shfl_sync(kAll, base, 0);
+    if ((long long)base >= N) break;
+    const long long m = (long long)base + lane;
+    if (m < N) {
+      int flag = 0;
+      while (true) {
+        asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+                     : "=r"(flag)
+                     : "l"(ready + m)
+                     : "memory");
+        if (flag != 0) break;
+        __nanosleep(64);
+      }
+      float th[6], crlb[6], ll;
+#pragma unroll
+      for (int p = 0; p < 6; ++p) th[p] = __ldcg(theta_o + p * N + m);
+      crlb_ll<S, SIG>(LanesLast<S>{spots + m, N}, th, crlb, ll);
+#pragma unroll
+      for (int p = 0; p < 6; ++p) crlb_o[p * N + m] = crlb[p];
+      ll_o[m] = ll;
+    }
+  }
+}
+
+// The queue. Without CRLB (K5) a finished spot writes its carry at once
+// and frees its slot; the CRLB/LL pass is a second launch (FINISH). With
+// CRLB (roi_mle_fit.cu) a finished spot writes its theta and iteration
+// count and sets its ready flag; once a warp's fits are done it runs the
+// CRLB/LL of 32 spots at a time (handoff_epilogue), while other warps
+// still fit their stragglers.
+template <int S, bool CRLB>
+constexpr int queue_min_blocks() {
+  return CRLB && S <= 7 ? kFitMinBlocks : kMinBlocks;
+}
+
+template <int S, bool SIG, int T, bool TAIL, bool CRLB, class Source>
+__global__ void __launch_bounds__(T, (queue_min_blocks<S, CRLB>()))
+    mle_queue_kernel(const Source src, long long N, float eps, int max_it,
+                     int* __restrict__ next, float* theta_c, float* old_c,
+                     float* done_c, float* iters_c, float* ms_c,
+                     int* coop_steps, float* theta_o, float* crlb_o,
+                     float* ll_o, int* iters_o, int* next2, int* ready) {
   extern __shared__ float stage[];
   constexpr int R = SIG ? 5 : 6;
   const unsigned lane = threadIdx.x & 31u;
@@ -273,11 +373,19 @@ __global__ void __launch_bounds__(T, kMinBlocks) mle_queue_kernel(
   const float limit = (float)max_it;
   float th[6], old[6], ms[6], done = 0.0f, iters = 0.0f;
   long long n = -1;      // this slot's spot; -1 while the slot is free
+  long long pub = -1;    // CRLB: its spot finished last trip, flag unset
   bool drained = false;  // the counter has passed N (uniform in the warp)
   while (true) {
     const unsigned free_mask = __ballot_sync(kAll, n < 0);
     const int n_free = __popc(free_mask);
-    if (!drained && (n_free >= kRefill || n_free == 32)) {
+    const bool refill = !drained && (n_free >= kRefill || n_free == 32);
+    if constexpr (CRLB) {
+      if (__any_sync(kAll, pub >= 0)) {
+        publish(ready, pub);
+        pub = -1;
+      }
+    }
+    if (refill) {
       int base = 0;
       if (lane == 0) base = atomicAdd(next, n_free);
       base = __shfl_sync(kAll, base, 0);
@@ -297,9 +405,13 @@ __global__ void __launch_bounds__(T, kMinBlocks) mle_queue_kernel(
     if (busy == 0u && drained) break;
     if constexpr (TAIL) {
       if (drained && __popc(busy) <= 32 / mle_group<S>()) {
-        mle_coop_tail<S, SIG, T>(stage, busy, th, old, ms, done, iters, n,
-                                 N, limit, eps, theta_c, old_c, done_c,
-                                 iters_c, ms_c, coop_steps);
+        mle_coop_tail<S, SIG, T, CRLB>(stage, busy, th, old, ms, done, iters,
+                                       n, N, limit, eps, theta_c, old_c,
+                                       done_c, iters_c, ms_c, coop_steps);
+        if constexpr (CRLB) {
+          if (n >= 0) store_fit<SIG>(n, N, th, iters, theta_o, iters_o);
+          publish(ready, n);
+        }
         break;
       }
     }
@@ -309,19 +421,27 @@ __global__ void __launch_bounds__(T, kMinBlocks) mle_queue_kernel(
       if constexpr (Source::kMayStartDone) run = run && !(done > 0.5f);
       if (run) newton_trip<S, SIG>(px, th, old, done, iters, ms, eps);
       if (done > 0.5f || !(iters < limit)) {
-        store_carry<R>(n, N, th, old, ms, done, iters, theta_c, old_c,
-                       done_c, iters_c, ms_c);
+        if constexpr (CRLB) {
+          store_fit<SIG>(n, N, th, iters, theta_o, iters_o);
+          pub = n;
+        } else {
+          store_carry<R>(n, N, th, old, ms, done, iters, theta_c, old_c,
+                         done_c, iters_c, ms_c);
+        }
         n = -1;
       }
     }
   }
+  if constexpr (CRLB)
+    handoff_epilogue<S, SIG>(src.spots, N, next2, ready, theta_o, crlb_o,
+                             ll_o);
 }
 
-template <int S, bool SIG, bool TAIL, class Source>
+template <int S, bool SIG, bool TAIL, bool CRLB, class Source>
 int mle_queue_launch(const Source& src, const MleQueueArgs& a) {
   constexpr int T = queue_threads<S>();
   constexpr int smem = S * S * T * (int)sizeof(float);
-  const auto kernel = mle_queue_kernel<S, SIG, T, TAIL, Source>;
+  const auto kernel = mle_queue_kernel<S, SIG, T, TAIL, CRLB, Source>;
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024)
     err = cudaFuncSetAttribute(
@@ -340,7 +460,8 @@ int mle_queue_launch(const Source& src, const MleQueueArgs& a) {
     if (err != cudaSuccess) return (int)err;
     const int info[kMleQueueInfo] = {
         T,       per_sm,     attr.numRegs, (int)attr.localSizeBytes,
-        kRefill, kMinBlocks, sms,          TAIL ? mle_group<S>() : 0};
+        kRefill, queue_min_blocks<S, CRLB>(), sms,
+        TAIL ? mle_group<S>() : 0};
     for (int i = 0; i < kMleQueueInfo; ++i) a.info[i] = info[i];
     return 0;
   }
@@ -348,24 +469,26 @@ int mle_queue_launch(const Source& src, const MleQueueArgs& a) {
   const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
   const unsigned int blocks =
       (unsigned int)(need < resident ? need : resident);
-  kernel<<<blocks, T, smem, a.stream>>>(src, a.n, a.eps, a.max_it, a.next,
-                                        a.theta_c, a.old_c, a.done_c,
-                                        a.iters_c, a.ms_c, a.coop_steps);
+  kernel<<<blocks, T, smem, a.stream>>>(
+      src, a.n, a.eps, a.max_it, a.next, a.theta_c, a.old_c, a.done_c,
+      a.iters_c, a.ms_c, a.coop_steps, a.theta_o, a.crlb_o, a.ll_o,
+      a.iters_o, a.next2, a.ready);
   return (int)cudaGetLastError();
 }
 
 // Dispatch on box and method (0 sigmaxy, 1 sigma; TAIL_XY / TAIL_SIG:
-// whether that method's instances take the cooperative tail);
-// cudaErrorInvalidValue for a box without an instance.
-template <bool TAIL_XY, bool TAIL_SIG, class Source>
+// whether that method's instances take the cooperative tail; CRLB: the
+// CRLB/LL in the queue, not the carry out); cudaErrorInvalidValue for a
+// box without an instance.
+template <bool TAIL_XY, bool TAIL_SIG, bool CRLB = false, class Source>
 int mle_queue_dispatch(const Source& src, int box, int method,
                        const MleQueueArgs& a) {
   if (method < 0 || method > 1) return (int)cudaErrorInvalidValue;
   switch (box) {
-#define PICASSO_MLEQ_CASE(S)                                            \
-  case S:                                                               \
-    return method == 1 ? mle_queue_launch<S, true, TAIL_SIG>(src, a)    \
-                       : mle_queue_launch<S, false, TAIL_XY>(src, a);
+#define PICASSO_MLEQ_CASE(S)                                               \
+  case S:                                                                  \
+    return method == 1 ? mle_queue_launch<S, true, TAIL_SIG, CRLB>(src, a) \
+                       : mle_queue_launch<S, false, TAIL_XY, CRLB>(src, a);
 #ifdef PICASSO_K5Q_ONLY_BOX
     PICASSO_MLEQ_CASE(PICASSO_K5Q_ONLY_BOX)
 #else

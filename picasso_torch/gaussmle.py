@@ -3,9 +3,10 @@
 
 Counterpart of picasso_tpu/gaussmle.py (gaussmle :21, locs_from_fits
 :66, sigma_uncertainty :119). Fits run on ``device`` through the route
-of ops/mle_cuda.ROI_FITS for the method (K2 as a work queue, or K2's
-phase schedule). Locs tables are numpy structured arrays with the columns and
-dtypes of the JAX package's DataFrame.
+of ops/mle_cuda.ROI_FITS for the method (K1's work queue with the
+CRLB/LL in it, or K2's phase schedule). Locs tables are numpy
+structured arrays with the columns and dtypes of the JAX package's
+DataFrame.
 """
 
 from __future__ import annotations

@@ -225,9 +225,9 @@ def fit2D(
     device="cuda",
 ):
     """Fit the identified spots in 2D on ``device``
-    (picasso/localize.py:1344): MLE through K2 (gaussmle.gaussmle, the
-    route of ops/mle_cuda.ROI_FITS), LM through K3 (gausslq.fit_spots,
-    max_it 30 as in picasso_tpu, the route of ops/lq_cuda.ROI_FIT), avg by
+    (picasso/localize.py:1344): MLE on the route of ops/mle_cuda.ROI_FITS
+    (gaussmle.gaussmle), LM through K3 (gausslq.fit_spots, max_it 30 as
+    in picasso_tpu, the route of ops/lq_cuda.ROI_FIT), avg by
     a device sum (avgroi.fit_spots). ``spots`` are pre-cut raw ROIs (from
     stream.identify_and_cut), so the movie is not read again. Returns
     (locs, fit info block | camera_info), or (None, {}) if aborted;

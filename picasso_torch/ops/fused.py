@@ -28,16 +28,15 @@ from picasso_torch.ops.identify_cuda import identify_tiles
 #: package's, picasso_tpu/ops/fused.py:707)
 LQ_FTOL = 1e-6
 
-#: K5's MLE route for each method, the faster in chip_smoke.py's turns on
-#: the smoke movie's dense first chunk (PERF.md): the work queue (one
-#: persistent launch with lane refill, then the CRLB/LL pass) for
-#: sigmaxy; sigma keeps K2's phase schedule, because its fits are short
-#: and the queue's straggler tail (a spot claimed late that runs to
-#: max_it) then outweighed what the queue saved. The queue has taken its
-#: stragglers cooperatively since (csrc/mle_queue.cuh); the route is to
-#: be timed again (ROADMAP).
+#: K5's MLE route for each method, by chip_smoke.py's alternating turns
+#: on the smoke movie's dense first chunk (PERF.md): the work queue (one
+#: persistent launch with lane refill, then the CRLB/LL pass) for both.
+#: For sigma the queue's stragglers run cooperatively
+#: (csrc/mle_queue.cuh); its turns against K2's phase schedule flip
+#: between runs by a few per cent, ahead on the whole, so it keeps the
+#: queue.
 MLE_FITS = {"sigmaxy": winfit_cuda.fit_mle_queue_t,
-            "sigma": winfit_cuda.fit_mle_boundary_t}
+            "sigma": winfit_cuda.fit_mle_queue_t}
 
 
 def identify_cut_fit(frames, minimum_ng, baseline: float, factor: float,

@@ -1,22 +1,26 @@
 """Wrappers of the CUDA MLE fit kernels on a cut ROI batch, for the
-methods ``sigmaxy`` and ``sigma``: csrc/mle_fit.cu's K1, the
-single-pass fit, and K2, the same fit split into resumable phases with
-stragglers-first lane order between them; K2 as a work queue
-(csrc/roi_mle_queue.cu, one persistent launch with lane refill and a
-warp-cooperative straggler tail, then mle_fit.cu's CRLB/LL pass); and
-K7, the sigmaxy fit in fixed rounds, as a schedule of K2's phase modes.
-:data:`ROI_FITS` is fit2D's route per method (gaussmle.gaussmle).
+methods ``sigmaxy`` and ``sigma``: K1 and K7 as one work-queue launch
+with the CRLB and log-likelihood in it (csrc/roi_mle_fit.cu: lane
+refill, a warp-cooperative straggler tail, then the handoff: each
+finished spot's theta and a ready flag, and warps whose fits are done
+run the CRLB/LL of 32 spots at a time); K2, the fit split into
+resumable phases with stragglers-first lane order between them
+(csrc/mle_fit.cu's START/RESUME/FINISH modes); and the one-thread pass
+(mle_fit.cu's FULL mode, :func:`fit_one_pass_t`), on no path: the fixed
+point the queue equals bit for bit. :data:`ROI_FITS` is fit2D's route
+per method (gaussmle.gaussmle).
 
 Counterpart of picasso_tpu/ops/mle_pallas.py (fit_pallas_t,
 fit_pallas_boundary_t, fit_pallas_multiround). A CUDA tensor launches
 the kernel or raises; a CPU tensor runs the plain PyTorch version of the
-same phases (ops/mle.py). Nothing here falls back from one to the other.
+same fit or phases (ops/mle.py). Nothing here falls back from one to
+the other.
 
-Launch counts (plain integers): ``fit_t.launches`` counts the kernel's
-single-pass (FULL) launches, ``fit_boundary_t.launches`` the phase
-(START/RESUME/FINISH) launches of the K2 schedule,
-``fit_queue_t.launches`` the work queue's launches and its CRLB/LL pass
-(2 a fit), ``fit_multiround_t.launches`` those of the K7 schedule.
+Launch counts (plain integers): ``fit_t.launches`` and
+``fit_multiround_t.launches`` count roi_mle_fit.cu's launches (1 a
+fit), ``fit_one_pass_t.launches`` the one-thread pass (FULL),
+``fit_boundary_t.launches`` the phase (START/RESUME/FINISH) launches of
+the K2 schedule.
 """
 
 from __future__ import annotations
@@ -89,11 +93,14 @@ def _launch(mode: int, spots_t, eps: float, k: int, n_valid, method: str,
     return carry if outs is None else outs
 
 
-def fit_t(spots_t: torch.Tensor, eps: float, max_it: int,
-          method: str = "sigmaxy", n_valid=None):
-    """K1: fit a lanes-last (S, S, N) f32 batch in one pass. Returns
-    (theta (6, N), crlb (6, N), ll (N,), iters (N,) i32). Lanes at index
-    >= ``n_valid`` start converged."""
+def fit_one_pass_t(spots_t: torch.Tensor, eps: float, max_it: int,
+                   method: str = "sigmaxy", n_valid=None):
+    """The one-thread pass (mle_fit.cu FULL, the first port of K1): fit
+    a lanes-last (S, S, N) f32 batch, one thread a spot, fit, CRLB and
+    LL in one launch. Returns (theta (6, N), crlb (6, N), ll (N,), iters
+    (N,) i32). Lanes at index >= ``n_valid`` start converged. On no
+    path: the work queues (:func:`fit_t`, K5's) and K2's phases equal it
+    bit for bit."""
     _mle._check_method(method)
     if not on_cuda(spots_t):
         return _mle._fit_core(spots_t, eps, max_it, method, n_valid)
@@ -101,6 +108,68 @@ def fit_t(spots_t: torch.Tensor, eps: float, max_it: int,
     if spots_t.shape[-1] == 0:
         return _empty_fit(0, spots_t.device)
     out = _launch(FULL, spots_t, eps, max_it, n_valid, method)
+    fit_one_pass_t.launches += 1
+    return out
+
+
+fit_one_pass_t.launches = 0
+
+
+def _launch_fit(lib, spots_t, eps: float, max_it: int, method: str,
+                n_valid, coop_steps=None):
+    """One launch of roi_mle_fit.cu's queue (of ``lib``) with its counter
+    zeroed here; returns (theta, crlb, ll, iters) in input order."""
+    s, _, n = spots_t.shape
+    dev = spots_t.device
+    theta, crlb, ll, iters = (
+        torch.empty((6, n), dtype=torch.float32, device=dev),
+        torch.empty((6, n), dtype=torch.float32, device=dev),
+        torch.empty((n,), dtype=torch.float32, device=dev),
+        torch.empty((n,), dtype=torch.int32, device=dev))
+    # the queue's two counters and a ready flag a spot, zeroed
+    counter = torch.zeros(n + 2, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.picasso_roi_mle_fit(
+            spots_t.data_ptr(), n, s, float(eps), int(max_it),
+            n if n_valid is None else int(n_valid), _METHOD_ID[method],
+            counter.data_ptr(), theta.data_ptr(), crlb.data_ptr(),
+            ll.data_ptr(), iters.data_ptr(),
+            None if coop_steps is None else coop_steps.data_ptr(), stream,
+        )
+    _build.check(status, "roi_mle_fit")
+    return theta, crlb, ll, iters
+
+
+def _check_coop(coop_steps, spots_t) -> None:
+    if coop_steps is not None and (coop_steps.device != spots_t.device
+                                   or coop_steps.dtype != torch.int32):
+        raise ValueError("coop_steps must be an int32 tensor on the card")
+
+
+def fit_t(spots_t: torch.Tensor, eps: float, max_it: int,
+          method: str = "sigmaxy", n_valid=None, coop_steps=None):
+    """K1: fit a lanes-last (S, S, N) f32 batch with its CRLB and
+    log-likelihood in one launch of roi_mle_fit.cu's work queue: a lane
+    whose spot has converged or reached max_it takes the next spot from a
+    device counter, a drained warp's lanes run its last spots in groups
+    (the cooperative tail), and each finished spot writes its theta and
+    a ready flag; a warp whose fits are done then computes the CRLB and
+    LL of 32 consecutive spots at a time, one a lane, reading each ROI
+    again from the batch (the handoff). Returns (theta (6, N), crlb (6, N), ll (N,), iters (N,)
+    i32), equal to :func:`fit_one_pass_t` bit for bit. Lanes at index >=
+    ``n_valid`` start converged. ``coop_steps`` (one int32 on the card,
+    or None) gains the spot-steps taken in the cooperative tail. On the
+    CPU it is the plain fit, uncounted."""
+    _mle._check_method(method)
+    if not on_cuda(spots_t):
+        return _mle._fit_core(spots_t, eps, max_it, method, n_valid)
+    check_spots(spots_t)
+    _check_coop(coop_steps, spots_t)
+    if spots_t.shape[-1] == 0:
+        return _empty_fit(0, spots_t.device)
+    out = _launch_fit(_build.library(), spots_t, eps, max_it, method,
+                      n_valid, coop_steps)
     fit_t.launches += 1
     return out
 
@@ -110,12 +179,12 @@ fit_t.launches = 0
 
 def fit_boundary_t(spots_t: torch.Tensor, eps: float, max_it: int,
                    method: str = "sigmaxy", n_valid=None):
-    """K2: the fit of :func:`fit_t` run as phases that end at
+    """K2: the fit of :func:`fit_one_pass_t` run as phases that end at
     :func:`default_boundaries`. Before each later phase the lanes are
     stably reordered stragglers first, so the warps of converged spots
     retire together; the order is undone at the end. Every lane's
     trajectory is independent of its position, so the result equals
-    :func:`fit_t` bit for bit."""
+    :func:`fit_one_pass_t` bit for bit."""
     return _fit_phases(spots_t, eps, max_it, method, n_valid,
                        default_boundaries(max_it))
 
@@ -125,17 +194,30 @@ fit_boundary_t.launches = 0
 
 def fit_multiround_t(spots_t: torch.Tensor, eps: float, max_it: int,
                      round_it: int = 8):
-    """K7: the sigmaxy fit of :func:`fit_t` in rounds of ``round_it``
-    iterations with the lanes stably reordered stragglers first between
-    rounds (the argsort of ``done`` of picasso_tpu's
-    fit_pallas_multiround), then the CRLB and log-likelihood: a schedule
-    of the phase modes of K2, 1 START, RESUMEs and 1 FINISH (13 launches
-    at max_it 100), which does the last round and the CRLB pass in one
-    launch. Equals :func:`fit_t` bit for bit. A fit of max_it <=
-    round_it is one pass of :func:`fit_t`. Nothing in the port routes to
-    it, as nothing in the JAX package does."""
-    return _fit_phases(spots_t, eps, max_it, "sigmaxy", None,
-                       range(round_it, max_it, round_it), fit_multiround_t)
+    """K7: picasso_tpu's fit_pallas_multiround, the sigmaxy fit in rounds
+    of ``round_it`` iterations with the lanes stably reordered
+    stragglers first between rounds (the argsort of ``done``), then the
+    CRLB and log-likelihood. A TPU lane cannot take new work when its
+    spot converges, so the rounds gather the spots still running into
+    whole vregs. A lane of the card can: on a CUDA tensor K7 is one
+    launch of :func:`fit_t`'s work queue, in which a slot whose spot is
+    done takes the next one, so no round boundary, argsort or permute is
+    left to do and the result does not depend on ``round_it`` (kept for
+    JAX's signature); counted on ``fit_multiround_t.launches`` (1 a
+    fit). On the CPU it is the rounds schedule over the plain phases
+    (ops/mle.py), uncounted. Equals :func:`fit_one_pass_t` bit for bit
+    either way. Nothing in the port routes to it, as nothing in the JAX
+    package does."""
+    if not on_cuda(spots_t):
+        return _fit_phases(spots_t, eps, max_it, "sigmaxy", None,
+                           range(round_it, max_it, round_it))
+    check_spots(spots_t)
+    if spots_t.shape[-1] == 0:
+        return _empty_fit(0, spots_t.device)
+    out = _launch_fit(_build.library(), spots_t, eps, max_it, "sigmaxy",
+                      None)
+    fit_multiround_t.launches += 1
+    return out
 
 
 fit_multiround_t.launches = 0
@@ -151,7 +233,7 @@ def _fit_phases(spots_t, eps, max_it, method, n_valid, boundaries,
         check_spots(spots_t)
     ends = phase_ends(boundaries, max_it)
     if not ends:
-        return fit_t(spots_t, eps, max_it, method, n_valid)
+        return fit_one_pass_t(spots_t, eps, max_it, method, n_valid)
     if spots_t.shape[-1] == 0:
         return _empty_fit(0, spots_t.device)
 
@@ -172,78 +254,23 @@ QUEUE_INFO = ("threads", "blocks_per_sm", "registers", "local_bytes",
 
 
 def queue_info(box: int, method: str = "sigmaxy", lib=None) -> dict:
-    """What the ROI queue kernel's instance for ``box`` and ``method`` is
-    on the current card: the :data:`QUEUE_INFO` fields (threads a block,
-    resident blocks per SM, registers and local spill bytes a thread, the
-    refill threshold, the launch bounds' minimum blocks, the card's SMs,
-    the lanes of a cooperative group)."""
+    """What :func:`fit_t`'s queue kernel (roi_mle_fit.cu, of ``lib``) is
+    for ``box`` and ``method`` on the current card: the
+    :data:`QUEUE_INFO` fields (threads a block, resident blocks per SM,
+    registers and local spill bytes a thread, the refill threshold, the
+    launch bounds' minimum blocks, the card's SMs, the lanes of a
+    cooperative group)."""
     lib = lib or _build.library()
     info = (ctypes.c_int * len(QUEUE_INFO))()
-    _build.check(lib.picasso_roi_mle_queue_info(box, _METHOD_ID[method], info),
-                 "roi_mle_queue_info")
+    _build.check(lib.picasso_roi_mle_fit_info(box, _METHOD_ID[method], info),
+                 "roi_mle_fit_info")
     return dict(zip(QUEUE_INFO, info))
 
 
-def _launch_queue(lib, spots_t, eps: float, max_it: int, method: str,
-                  n_valid, coop_steps=None):
-    """One launch of the ROI queue kernel of ``lib``, with its counter
-    zeroed here; returns the carry (theta, old, done, iters, max_step) in
-    input order."""
-    s, _, n = spots_t.shape
-    dev = spots_t.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    r = _ROWS[method]
-    carry = (torch.empty((r, n), **f32), torch.empty((r, n), **f32),
-             torch.empty((1, n), **f32), torch.empty((1, n), **f32),
-             torch.empty((r, n), **f32))
-    counter = torch.zeros(1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.picasso_roi_mle_queue(
-            spots_t.data_ptr(), n, s, float(eps), int(max_it),
-            n if n_valid is None else int(n_valid), _METHOD_ID[method],
-            counter.data_ptr(), *[c.data_ptr() for c in carry],
-            None if coop_steps is None else coop_steps.data_ptr(), stream,
-        )
-    _build.check(status, "roi_mle_queue")
-    return carry
-
-
-def fit_queue_t(spots_t: torch.Tensor, eps: float, max_it: int,
-                method: str = "sigmaxy", n_valid=None, coop_steps=None):
-    """K2 as a work queue: fit a lanes-last (S, S, N) f32 batch in one
-    persistent launch in which each lane of a warp takes the next spot
-    from a device counter once its spot has converged or reached max_it,
-    and a drained warp's lanes run its last spots in groups (the
-    cooperative tail); each spot's carry is written at its index, then
-    mle_fit.cu's FINISH mode at k = 0 computes the CRLB and
-    log-likelihood of all N spots (2 launches). Arguments and returns as
-    :func:`fit_t`, and equal to it and to :func:`fit_boundary_t` bit for
-    bit: each spot runs the same steps with the same arithmetic, only the
-    lanes that run them differ. ``coop_steps`` (one int32 on the card, or
-    None) gains the spot-steps taken in the cooperative tail. On the CPU
-    it is the plain fit, uncounted."""
-    _mle._check_method(method)
-    if not on_cuda(spots_t):
-        return _mle._fit_core(spots_t, eps, max_it, method, n_valid)
-    check_spots(spots_t)
-    if coop_steps is not None and (coop_steps.device != spots_t.device
-                                   or coop_steps.dtype != torch.int32):
-        raise ValueError("coop_steps must be an int32 tensor on the card")
-    if spots_t.shape[-1] == 0:
-        return _empty_fit(0, spots_t.device)
-    carry = _launch_queue(_build.library(), spots_t, eps, max_it, method,
-                          n_valid, coop_steps)
-    fit_queue_t.launches += 1
-    out = _launch(FINISH, spots_t, eps, 0, n_valid, method, carry)
-    fit_queue_t.launches += 1
-    return out
-
-
-fit_queue_t.launches = 0
-
-#: fit2D's MLE route per method (gaussmle.gaussmle): the work queue
-#: (:func:`fit_queue_t`) or K2's phases (:func:`fit_boundary_t`), the
-#: one with the lower median in chip_smoke.py's turns on the first
-#: 262,144-ROI block of its movie (PERF.md). Both equal K1 bit for bit.
-ROI_FITS = {"sigmaxy": fit_queue_t, "sigma": fit_queue_t}
+#: fit2D's MLE route per method (gaussmle.gaussmle): K2's phases
+#: (:func:`fit_boundary_t`) or K1's work queue (:func:`fit_t`), the one
+#: with the lower median in chip_smoke.py's turns on the first
+#: 262,144-ROI block of its movie (PERF.md; gaps under 1% that flip
+#: between runs keep the route). Both equal the one-thread pass bit for
+#: bit.
+ROI_FITS = {"sigmaxy": fit_boundary_t, "sigma": fit_t}

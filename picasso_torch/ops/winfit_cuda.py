@@ -15,14 +15,14 @@ each thread loads its window from the chunk itself. A CUDA chunk
 launches the kernel or raises; a CPU chunk takes the gather route.
 Nothing here falls back from one to the other.
 
-The chain (ops/fused.identify_cut_fit, MLE_FITS) fits the sigmaxy
-method through :func:`fit_mle_queue_t` (one persistent launch in which a
-lane whose spot has converged takes the next hit and a drained warp's
-lanes run its last spots in groups, then one CRLB/LL pass)
-and the sigma method through :func:`fit_mle_boundary_t` (K2's phase
-schedule run on K5), the faster of the two for each on the card (PERF.md).
-:func:`fit_mle_t` (one pass, one thread per spot) is off the main path;
-chip_smoke.py holds all three against each other. The LM fit is
+The chain (ops/fused.identify_cut_fit, MLE_FITS) fits both methods
+through :func:`fit_mle_queue_t` (one persistent launch in which a lane
+whose spot has converged takes the next hit, and, for sigma, a drained
+warp's lanes run its last spots in groups; then one CRLB/LL pass), the
+faster on the card (PERF.md). :func:`fit_mle_boundary_t` (K2's phase
+schedule run on K5) and :func:`fit_mle_t` (one pass, one thread per
+spot) are off the main path; chip_smoke.py holds all three against each
+other. The LM fit is
 :func:`fit_lq_queue_t` (one persistent launch with lane refill and a
 cooperative straggler tail), equal to K3 (ops/lq_cuda.fit_t) on the
 gather route's ROIs bit for bit.
@@ -175,7 +175,7 @@ def fit_mle_boundary_t(frames, f, y, x, baseline: float, factor: float, *,
     (3, N) hit list, not a ROI batch, are reordered stragglers first, and
     each phase loads its windows anew. Equals :func:`fit_mle_t` bit for
     bit. On the CPU each phase takes the gather route (cut, photons, the
-    plain phase). The chain's route for the sigma method."""
+    plain phase). Off the chain's routes (ops/fused.MLE_FITS)."""
     _mle._check_method(method)
     cuda = on_cuda(frames)
     hits = _hit_list(frames, f, y, x, box, cuda)
@@ -252,7 +252,7 @@ def _launch_queue(lib, frames, hits, baseline, factor, box, eps, max_it,
 def fit_mle_queue_t(frames, f, y, x, baseline: float, factor: float, *,
                     box: int, eps: float, max_it: int,
                     method: str = "sigmaxy"):
-    """K5 MLE as a work queue, the chain's sigmaxy route: one persistent
+    """K5 MLE as a work queue, the chain's route: one persistent
     launch in which each lane of a warp takes the next hit from a device
     counter once its spot has converged or reached max_it, a drained
     warp's lanes run its last spots in groups (the cooperative tail), and

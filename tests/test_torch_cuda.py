@@ -53,8 +53,9 @@ def test_fit_kernel_matches_plain(dev, box):
     k1 = _np(mle_cuda.fit_t(sp, EPS, MAX_IT))
     k2 = _np(mle_cuda.fit_boundary_t(sp, EPS, MAX_IT))
     compare_fits(plain, k1, MAX_IT)
-    for a, b in zip(k1, k2):
-        np.testing.assert_array_equal(a, b)
+    for other in (k2, _np(mle_cuda.fit_one_pass_t(sp, EPS, MAX_IT))):
+        for a, b in zip(k1, other):
+            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("box", [5, 7, 9, 11, 13, 15])
@@ -66,8 +67,10 @@ def test_sigma_fit_kernel_matches_plain(dev, box):
     k1 = _np(mle_cuda.fit_t(sp, EPS, MAX_IT, "sigma"))
     k2 = _np(mle_cuda.fit_boundary_t(sp, EPS, MAX_IT, "sigma"))
     compare_fits(plain, k1, MAX_IT)
-    for a, b in zip(k1, k2):
-        np.testing.assert_array_equal(a, b)
+    for other in (k2, _np(mle_cuda.fit_one_pass_t(sp, EPS, MAX_IT,
+                                                  "sigma"))):
+        for a, b in zip(k1, other):
+            np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(k1[0][5], k1[0][4])
 
 
@@ -98,12 +101,12 @@ def test_lq_kernel_n_valid_and_resume(dev):
 
 def test_fit_kernel_refuses_box3(dev):
     """At box 3 the sigmaxy fit mostly does not converge (six parameters,
-    nine pixels), so no box-3 kernel is built; the wrapper raises."""
+    nine pixels), so no box-3 kernel is built; the wrappers raise."""
     sp = torch.ones((3, 3, 64), device=dev)
-    with pytest.raises(ValueError, match="boxes"):
-        mle_cuda.fit_t(sp, EPS, MAX_IT)
-    with pytest.raises(ValueError, match="boxes"):
-        mle_cuda.fit_boundary_t(sp, EPS, MAX_IT)
+    for fit in (mle_cuda.fit_t, mle_cuda.fit_one_pass_t,
+                mle_cuda.fit_boundary_t, mle_cuda.fit_multiround_t):
+        with pytest.raises(ValueError, match="boxes"):
+            fit(sp, EPS, MAX_IT)
 
 
 def test_fit_kernel_n_valid_and_resume(dev):
@@ -113,8 +116,10 @@ def test_fit_kernel_n_valid_and_resume(dev):
     sp[:, :, 900:] = 1.0
     a = _np(mle_cuda.fit_t(sp, EPS, 12, n_valid=900))
     b = _np(mle_cuda._fit_phases(sp, EPS, 12, "sigmaxy", 900, (3, 7)))
-    for x, y in zip(a, b):
+    c = _np(mle_cuda.fit_one_pass_t(sp, EPS, 12, n_valid=900))
+    for x, y, z in zip(a, b, c):
         np.testing.assert_array_equal(x, y)
+        np.testing.assert_array_equal(x, z)
     assert a[3][900:].max() == 0
 
 
@@ -179,7 +184,8 @@ def _fit_launches():
             winfit_cuda.fit_mle_t.launches,
             winfit_cuda.fit_mle_boundary_t.launches,
             winfit_cuda.fit_mle_queue_t.launches,
-            winfit_cuda.fit_lq_queue_t.launches)
+            winfit_cuda.fit_lq_queue_t.launches,
+            mle_cuda.fit_one_pass_t.launches)
 
 
 def test_chunk_without_hits_launches_no_fit(dev):
@@ -213,7 +219,8 @@ def _chunk(spots, dtype, dev):
 def test_winfit_kernel_matches_plain_and_the_gather_route(dev, box, dtype):
     """K5 (MLE sigmaxy and sigma, one pass and phases; LM) from a u16 or
     f32 chunk against its plain version (cut, photons, plain fit) within
-    the tolerances, and equal to cut + photons + K1/K2/K3 bit for bit."""
+    the tolerances, and equal to cut + photons + the one-thread pass
+    (K1's first port), K2 and K3 bit for bit."""
     frames, hits = _chunk(make_spots(2048, box, seed=box + 3), dtype, dev)
     rois = winfit_cuda.photons_t(frames, *hits, box, BASELINE, FACTOR)
     for method in ("sigmaxy", "sigma"):
@@ -224,7 +231,7 @@ def test_winfit_kernel_matches_plain_and_the_gather_route(dev, box, dtype):
         for other in (
             winfit_cuda.fit_mle_boundary_t(frames, *hits, BASELINE, FACTOR,
                                            **kw),
-            mle_cuda.fit_t(rois, EPS, MAX_IT, method),
+            mle_cuda.fit_one_pass_t(rois, EPS, MAX_IT, method),
             mle_cuda.fit_boundary_t(rois, EPS, MAX_IT, method),
         ):
             for a, b in zip(k5, _np(other)):
@@ -273,15 +280,17 @@ def _assert_same(a, b):
 @pytest.mark.parametrize("dtype", [np.uint16, np.float32])
 @pytest.mark.parametrize("box", [5, 7, 9, 11, 13, 15])
 def test_queue_kernel_equals_k1(dev, box, dtype):
-    """K5's work queue (both methods) from a u16 or f32 chunk equals K1
-    on the gather route's ROIs and K5's single pass bit for bit."""
+    """K5's work queue (both methods) from a u16 or f32 chunk equals the
+    one-thread pass (K1's first port) on the gather route's ROIs and
+    K5's single pass bit for bit."""
     frames, hits = _chunk(make_spots(2048, box, seed=box + 5), dtype, dev)
     rois = winfit_cuda.photons_t(frames, *hits, box, BASELINE, FACTOR)
     for method in ("sigmaxy", "sigma"):
         kw = dict(box=box, eps=EPS, max_it=MAX_IT, method=method)
         q = _np(winfit_cuda.fit_mle_queue_t(frames, *hits, BASELINE, FACTOR,
                                             **kw))
-        _assert_same(q, _np(mle_cuda.fit_t(rois, EPS, MAX_IT, method)))
+        _assert_same(q, _np(mle_cuda.fit_one_pass_t(rois, EPS, MAX_IT,
+                                                    method)))
         _assert_same(q, _np(winfit_cuda.fit_mle_t(frames, *hits, BASELINE,
                                                   FACTOR, **kw)))
 
@@ -289,7 +298,8 @@ def test_queue_kernel_equals_k1(dev, box, dtype):
 @pytest.mark.parametrize("n", [0, 1, 31, 33, 131072])
 def test_queue_kernel_at_any_hit_count(dev, n):
     """Fewer hits than a warp, one more than a warp, and the smoke's
-    131,072: the queue kernel equals K1; no hit launches nothing."""
+    131,072: the queue kernel equals the one-thread pass; no hit launches
+    nothing."""
     frames, hits = _chunk(make_spots(max(n, 1), 7, seed=n), np.uint16, dev)
     hits = [h[:n] for h in hits]
     before = winfit_cuda.fit_mle_queue_t.launches
@@ -299,14 +309,14 @@ def test_queue_kernel_at_any_hit_count(dev, n):
     assert winfit_cuda.fit_mle_queue_t.launches - before == (2 if n else 0)
     rois = winfit_cuda.photons_t(frames, *hits, 7, BASELINE, FACTOR)
     if n:
-        _assert_same(q, _np(mle_cuda.fit_t(rois, EPS, MAX_IT)))
+        _assert_same(q, _np(mle_cuda.fit_one_pass_t(rois, EPS, MAX_IT)))
 
 
 @pytest.mark.parametrize("max_it", [12, MAX_IT])
 def test_queue_kernel_with_max_it_stragglers(dev, max_it):
     """A dense chunk where spots run to max_it (many at 12): the queue
-    equals cut + photons + K2 and K1 bit for bit, both methods, at two
-    camera-constant pairs."""
+    equals cut + photons + K2 and the one-thread pass bit for bit, both
+    methods, at two camera-constant pairs."""
     movie = make_bench_movie(48, 128, 300, 0.5, np.random.default_rng(13))
     chunk = identify.upload_frames(movie, dev)
     f, y, x, _ = identify.compact(
@@ -319,7 +329,8 @@ def test_queue_kernel_with_max_it_stragglers(dev, max_it):
             rois = winfit_cuda.photons_t(chunk, f, y, x, 7, b, c)
             _assert_same(q, _np(mle_cuda.fit_boundary_t(rois, EPS, max_it,
                                                         method)))
-            _assert_same(q, _np(mle_cuda.fit_t(rois, EPS, max_it, method)))
+            _assert_same(q, _np(mle_cuda.fit_one_pass_t(rois, EPS, max_it,
+                                                        method)))
             if max_it == 12:
                 assert (q[3] == max_it).any() and (q[3] < max_it).any()
 
@@ -482,10 +493,11 @@ def _rois(n, box, seed, dev):
 
 
 def _roi_mle_all(sp, max_it, method, eps=EPS, n_valid=None, coop=None):
-    """K2 as a work queue, K1 and K2's phases on the ROI batch sp."""
+    """K1 (the work queue with the CRLB/LL in it), the one-thread pass
+    and K2's phases on the ROI batch sp."""
     return [_np(f(sp, eps, max_it, method, n_valid, **kw)) for f, kw in (
-        (mle_cuda.fit_queue_t, dict(coop_steps=coop)), (mle_cuda.fit_t, {}),
-        (mle_cuda.fit_boundary_t, {}))]
+        (mle_cuda.fit_t, dict(coop_steps=coop)),
+        (mle_cuda.fit_one_pass_t, {}), (mle_cuda.fit_boundary_t, {}))]
 
 
 def _roi_lq_all(sp, max_it, n_valid=None, coop=None):
@@ -502,9 +514,10 @@ def _assert_all_same(outs):
 
 @pytest.mark.parametrize("box", [5, 7, 9, 11, 13, 15])
 def test_roi_queue_kernels_equal_k1_k2_and_k3_k6(dev, box):
-    """K2 as a work queue (sigmaxy and sigma) equals K1 and K2's phases,
-    and K3 as a work queue equals K3 and K6, bit for bit on make_spots;
-    the last spots of each warp run in the cooperative tail."""
+    """K1's work queue (sigmaxy and sigma) equals the one-thread pass and
+    K2's phases, and K3 as a work queue equals K3 and K6, bit for bit on
+    make_spots; the last spots of each warp run in the cooperative
+    tail."""
     sp = _rois(2048, box, box + 9, dev)
     for method in ("sigmaxy", "sigma"):
         coop = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -519,16 +532,16 @@ def test_roi_queue_kernels_equal_k1_k2_and_k3_k6(dev, box):
 def test_roi_queue_kernels_at_any_spot_count(dev, n):
     """Fewer spots than a warp (its lanes go cooperative at once), one
     more than a warp, and one more than fit2D's block of 262,144: the
-    queues equal the one-thread kernels; the MLE queue is 2 launches a
-    fit, the LM queue 1, and no spot launches nothing."""
+    queues equal the one-thread kernels; K1 is 1 launch a fit, the LM
+    queue 1, and no spot launches nothing."""
     sp = _rois(n, 7, n + 1, dev)
-    before = mle_cuda.fit_queue_t.launches, lq_cuda.fit_queue_t.launches
+    before = (mle_cuda.fit_t.launches, lq_cuda.fit_queue_t.launches)
     outs = _roi_mle_all(sp, MAX_IT, "sigmaxy")
     lq_outs = _roi_lq_all(sp, MAX_IT)
     assert outs[0][0].shape == (6, n) and outs[0][3].dtype == np.int32
     assert lq_outs[0].shape == (6, n)
-    assert (mle_cuda.fit_queue_t.launches - before[0],
-            lq_cuda.fit_queue_t.launches - before[1]) == ((2, 1) if n
+    assert (mle_cuda.fit_t.launches - before[0],
+            lq_cuda.fit_queue_t.launches - before[1]) == ((1, 1) if n
                                                           else (0, 0))
     _assert_all_same(outs)
     _assert_lq_equal(lq_outs)
@@ -557,9 +570,9 @@ def test_roi_queue_kernels_on_a_dense_chunk(dev, max_it):
 def test_roi_queue_kernels_when_every_spot_runs_to_max_it(dev):
     """At eps 0 no MLE fit converges, so every spot runs to max_it; with
     2051 spots the last warp to claim holds 3 of them, whose lanes go
-    cooperative at once: the queue equals K1 and K2's phases, with
-    cooperative steps. The LM queue likewise on the chunk's spots still
-    running after 3 steps."""
+    cooperative at once: K1's queue equals the one-thread pass and K2's
+    phases, with cooperative steps. The LM queue likewise on the chunk's
+    spots still running after 3 steps."""
     sp = _rois(2051, 7, 40, dev)
     for method in ("sigmaxy", "sigma"):
         coop = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -575,8 +588,9 @@ def test_roi_queue_kernels_when_every_spot_runs_to_max_it(dev):
 
 def test_roi_queue_kernels_n_valid_and_nan(dev):
     """Spots at or above n_valid start converged (their initial theta,
-    0 iterations), and a NaN ROI gives the one-thread kernels' NaNs: the
-    queues equal K1/K2 and K3/K6 bit for bit."""
+    0 iterations), and a NaN ROI gives the one-thread kernels' NaNs:
+    K1's queue equals the one-thread pass and K2's phases, and K3's
+    queue K3 and K6, bit for bit."""
     sp = _rois(500, 7, 41, dev)
     sp[:, :, 17] = float("nan")
     sp[3, 2, 250] = float("nan")
@@ -595,7 +609,7 @@ def test_roi_queue_kernels_refuse_other_boxes_and_dtypes(dev):
                         "contiguous"),
                        (torch.zeros((7, 5, 8), device=dev), "S, S, N")):
         with pytest.raises(ValueError, match=match):
-            mle_cuda.fit_queue_t(bad, EPS, 10)
+            mle_cuda.fit_t(bad, EPS, 10)
         with pytest.raises(ValueError, match=match):
             lq_cuda.fit_queue_t(bad, 10)
 
@@ -625,16 +639,44 @@ def test_lq_one_thread_kernels_equal_after_the_split(dev):
 
 def test_multiround_schedule_equals_the_single_pass(dev):
     """K7 (rounds of 4 over 20 iterations, some spots still running at
-    each boundary) equals K1 bit for bit."""
+    each boundary) is one launch of K1's work queue on the card and
+    equals the one-thread pass bit for bit."""
     sp = torch.from_numpy(np.ascontiguousarray(
         make_spots(4096, seed=12).transpose(1, 2, 0))).to(dev)
     before = mle_cuda.fit_multiround_t.launches
     k7 = _np(mle_cuda.fit_multiround_t(sp, EPS, 20, round_it=4))
-    assert mle_cuda.fit_multiround_t.launches - before == 5
-    k1 = _np(mle_cuda.fit_t(sp, EPS, 20))
+    assert mle_cuda.fit_multiround_t.launches - before == 1
+    k1 = _np(mle_cuda.fit_one_pass_t(sp, EPS, 20))
     assert (k1[3] > 4).any() and (k1[3] <= 4).any()
     for a, b in zip(k7, k1):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("max_it", [0, 1, 2])
+def test_k1_queue_at_small_max_it(dev, max_it):
+    """K1's work queue at max_it 0 (every spot's CRLB at its initial
+    theta), 1 and 2, with spots padded past n_valid: equal to the
+    one-thread pass bit for bit, both methods, one launch a fit, and K7
+    likewise; an empty batch launches nothing."""
+    sp = _rois(3000, 7, 60 + max_it, dev)
+    for method in ("sigmaxy", "sigma"):
+        for n_valid in (None, 2900):
+            before = mle_cuda.fit_t.launches
+            got = _np(mle_cuda.fit_t(sp, EPS, max_it, method, n_valid))
+            assert mle_cuda.fit_t.launches - before == 1
+            _assert_same(got, _np(mle_cuda.fit_one_pass_t(sp, EPS, max_it,
+                                                          method, n_valid)))
+            assert (got[3] <= max_it).all()
+    before = mle_cuda.fit_multiround_t.launches
+    _assert_same(_np(mle_cuda.fit_multiround_t(sp, EPS, max_it)),
+                 _np(mle_cuda.fit_one_pass_t(sp, EPS, max_it)))
+    assert mle_cuda.fit_multiround_t.launches - before == 1
+    empty = sp[:, :, :0].contiguous()
+    before = mle_cuda.fit_t.launches, mle_cuda.fit_multiround_t.launches
+    assert _np(mle_cuda.fit_t(empty, EPS, max_it))[0].shape == (6, 0)
+    assert _np(mle_cuda.fit_multiround_t(empty, EPS, max_it))[3].shape == (0,)
+    assert (mle_cuda.fit_t.launches,
+            mle_cuda.fit_multiround_t.launches) == before
 
 
 def test_undrift_on_the_card_matches_the_cpu(dev):
@@ -681,10 +723,12 @@ def test_sigma_slice_on_the_card_matches_the_cpu(dev):
     before = _fit_launches()
     g = localize.localize(movie, dict(cam), par, fitting_method="gaussmle",
                           mle_method="sigma", device=dev)
-    # the chain's route: K5 in phases, no other fit
+    # the chain's route (fused.MLE_FITS): K5's work queue or its phases,
+    # no other fit
+    i = 6 if fused.MLE_FITS["sigma"] is winfit_cuda.fit_mle_queue_t else 5
     after = _fit_launches()
-    assert after[5] > before[5]
-    assert after[:5] + after[6:] == before[:5] + before[6:]
+    assert after[i] > before[i]
+    assert after[:i] + after[i + 1:] == before[:i] + before[i + 1:]
     c = localize.localize(movie, dict(cam), par, fitting_method="gaussmle",
                           mle_method="sigma", device="cpu")
     np.testing.assert_array_equal(g["frame"], c["frame"])

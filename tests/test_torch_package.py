@@ -101,10 +101,10 @@ def test_sources_hash_and_cover_every_entry():
             "fit_mle.cuh", "fit_lq.cuh", "winfit_mle_queue.cu",
             "winfit_mle_queue_f32.cu", "winfit_mle_queue.cuh",
             "link_walk.cu", "mle_queue.cuh", "lq_queue.cuh",
-            "roi_mle_queue.cu", "roi_lq_queue.cu"} <= set(names)
-    assert {"picasso_roi_mle_queue", "picasso_roi_mle_queue_info",
-            "picasso_roi_lq_queue",
-            "picasso_roi_lq_queue_info"} <= set(_build.SIGNATURES)
+            "roi_lq_queue.cu", "roi_mle_fit.cu"} <= set(names)
+    assert {"picasso_roi_lq_queue", "picasso_roi_lq_queue_info",
+            "picasso_roi_mle_fit",
+            "picasso_roi_mle_fit_info"} <= set(_build.SIGNATURES)
     text = "".join(p.read_text() for p in _build.sources())
     for entry in _build.SIGNATURES:
         assert f'extern "C" int {entry}(' in text
@@ -113,8 +113,9 @@ def test_sources_hash_and_cover_every_entry():
     assert len(_build.source_hash()) == 16
 
 
-@pytest.mark.parametrize("wrapper", ["fit_t", "fit_boundary_t",
-                                     "fit_multiround_t", "fit_queue_t",
+@pytest.mark.parametrize("wrapper", ["fit_t", "fit_one_pass_t",
+                                     "fit_boundary_t",
+                                     "fit_multiround_t",
                                      "identify", "lq_fit_t",
                                      "lq_fit_boundary_t", "lq_fit_queue_t",
                                      "winfit_fit_mle_t",
@@ -155,8 +156,9 @@ def test_wrappers_do_not_fall_back_off_the_cpu(wrapper):
 
 
 def _counts():
-    return (mle_cuda.fit_t.launches, mle_cuda.fit_boundary_t.launches,
-            mle_cuda.fit_multiround_t.launches, mle_cuda.fit_queue_t.launches,
+    return (mle_cuda.fit_t.launches, mle_cuda.fit_one_pass_t.launches,
+            mle_cuda.fit_boundary_t.launches,
+            mle_cuda.fit_multiround_t.launches,
             lq_cuda.fit_t.launches, lq_cuda.fit_boundary_t.launches,
             lq_cuda.fit_queue_t.launches,
             identify_cuda.identify_tiles.launches,
@@ -171,8 +173,8 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     spots = torch.rand((7, 7, 8)) * 100 + 10
     mle_cuda.fit_boundary_t(spots, 1e-3, 20)
     mle_cuda.fit_t(spots, 1e-3, 20, "sigma")
+    mle_cuda.fit_one_pass_t(spots, 1e-3, 20)
     mle_cuda.fit_multiround_t(spots, 1e-3, 20)
-    mle_cuda.fit_queue_t(spots, 1e-3, 20, "sigma")
     lq_cuda.fit_t(spots, 20)
     lq_cuda.fit_boundary_t(spots, 20)
     lq_cuda.fit_queue_t(spots, 20)
@@ -192,7 +194,7 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     assert before == _counts()
 
 
-@pytest.mark.parametrize("route", ["phases", "queue"])
+@pytest.mark.parametrize("route", ["phases", "k1"])
 def test_fit2d_routes_on_the_cpu_match_jax(monkeypatch, route):
     """gaussmle.gaussmle (both methods) and lq.fit_spots_batched on the
     CPU equal picasso_tpu's fits within compare_fits / compare_lq_fits
@@ -204,8 +206,7 @@ def test_fit2d_routes_on_the_cpu_match_jax(monkeypatch, route):
     from picasso_tpu.ops import lq as jlq
     from torch_parity import compare_fits, compare_lq_fits
 
-    mle_fit = (mle_cuda.fit_boundary_t if route == "phases"
-               else mle_cuda.fit_queue_t)
+    mle_fit = {"phases": mle_cuda.fit_boundary_t, "k1": mle_cuda.fit_t}[route]
     monkeypatch.setattr(mle_cuda, "ROI_FITS",
                         {"sigmaxy": mle_fit, "sigma": mle_fit})
     monkeypatch.setattr(lq_cuda, "ROI_FIT", lq_cuda.fit_t if route ==

@@ -170,7 +170,7 @@ def main() -> int:
              for method in ("sigmaxy", "sigma")]
     for what, method in cases:
         frames, hits = inputs[what]
-        k1 = [a.cpu().numpy() for a in mle_cuda.fit_t(
+        k1 = [a.cpu().numpy() for a in mle_cuda.fit_one_pass_t(
             wc.photons_t(frames, *hits, BOX, 0.0, 1.0), EPS, MAX_IT, method)]
         for key, lib in loaded.items():
             got = [a.cpu().numpy()

@@ -246,7 +246,7 @@ def main() -> int:
         "fit2D block": block,
     }
     methods = ("sigmaxy", "sigma")
-    k1 = {(what, m): as_np(mle_cuda.fit_t(sp, EPS, MAX_IT, m))
+    k1 = {(what, m): as_np(mle_cuda.fit_one_pass_t(sp, EPS, MAX_IT, m))
           for what, sp in inputs.items() for m in methods}
     if "earlier" in libs:
         for (what, m), new in k1.items():

@@ -22,8 +22,11 @@ rows are not part of the convergence test). So:
   their paths amplify f32 differences): |d x/y| p90 <= 1e-4 px, p99 <=
   1e-3 px and max <= 0.1 px.
 JAX's own fit on the CPU and the plain PyTorch fit differ by as much on
-dense DNA-PAINT ROIs (the measured maxima are in PERF.md, Findings), so
-these bounds hold the port to the spread of the fit itself.
+dense DNA-PAINT ROIs of chunk 0 (the measured maxima are in PERF.md,
+Findings), so these bounds hold the port to the spread of the fit
+itself there and on make_spots. On fit2D's dense blocks (the ROIs of
+the smoke movie, where JAX and the plain fit differ beyond these bounds)
+the fits are held by :func:`compare_fits_dense`.
 
 LQ fits (theta (6, N) rows [x, y, photons, bg, sx, sy], x/y relative to
 the box centre): see :func:`compare_lq_fits`.
@@ -48,11 +51,13 @@ CRLB_REL = 2e-3
 STUCK_XY = {90: 1e-4, 99: 1e-3, 100: 0.1}  # percentile -> px
 
 
-def compare_fits(ref, got, max_it: int = 100, what: str = "fits") -> dict:
-    """Hold ``got`` to ``ref`` (numpy theta, crlb, ll, iters). Raises
-    AssertionError with the measured maxima when out of tolerance;
-    returns them otherwise (``*_all``: over all spots; ``stuck_*``: over
-    the spots at max_it on both sides)."""
+def fit_stats(ref, got, max_it: int = 100) -> dict:
+    """The distances between two MLE fits (numpy theta, crlb, ll, iters)
+    that :func:`compare_fits` and :func:`compare_fits_dense` bound
+    (``*_all``: over all spots; ``stuck_*``: over the spots at max_it on
+    both sides; ``bg_excess`` / ``ll_excess``: the largest |d bg| / (1e-3
+    + 1e-3 |bg|) and |d ll| / (5e-3 + 1e-4 |ll|) over the spots converged
+    at the same iteration, at most 1 within compare_fits)."""
     th_r, cr_r, ll_r, it_r = (np.asarray(a) for a in ref)
     th_g, cr_g, ll_g, it_g = (np.asarray(a) for a in got)
     same = (it_r == it_g) & (it_r < max_it)
@@ -64,7 +69,7 @@ def compare_fits(ref, got, max_it: int = 100, what: str = "fits") -> dict:
     dsxy = np.abs(th_r[4:6] - th_g[4:6])
     rel_cr = np.abs(cr_r - cr_g) / np.abs(cr_r)
     dll = np.abs(ll_r - ll_g)
-    stats = {
+    return {
         "n": int(th_r.shape[1]),
         "iters_equal": float(np.mean(it_r == it_g)),
         "converged": float(np.mean(it_r < max_it)),
@@ -75,11 +80,27 @@ def compare_fits(ref, got, max_it: int = 100, what: str = "fits") -> dict:
         "sxy_max": float(dsxy[:, same].max(initial=0.0)),
         "crlb_rel": float(rel_cr[:, same].max(initial=0.0)),
         "ll_abs": float(dll[same].max(initial=0.0)),
+        "bg_excess": float((dbg[same] / (1e-3 + 1e-3 * np.abs(
+            th_r[3, same]))).max(initial=0.0)),
+        "ll_excess": float((dll[same] / (5e-3 + 1e-4 * np.abs(
+            ll_r[same]))).max(initial=0.0)),
         "n_stuck": int(stuck.sum()),
         **{f"stuck_xy_p{q}": float(np.percentile(dxy_spot[stuck], q))
            if stuck.any() else 0.0 for q in STUCK_XY},
         "xy_max_all": float(dxy.max(initial=0.0)),
     }
+
+
+def compare_fits(ref, got, max_it: int = 100, what: str = "fits") -> dict:
+    """Hold ``got`` to ``ref`` (numpy theta, crlb, ll, iters). Raises
+    AssertionError with the measured maxima when out of tolerance;
+    returns them otherwise (:func:`fit_stats`)."""
+    th_r, ll_r, it_r = (np.asarray(ref[i]) for i in (0, 2, 3))
+    th_g, ll_g, it_g = (np.asarray(got[i]) for i in (0, 2, 3))
+    same = (it_r == it_g) & (it_r < max_it)
+    dbg = np.abs(th_r[3] - th_g[3])
+    dll = np.abs(ll_r - ll_g)
+    stats = fit_stats(ref, got, max_it)
     ok = (
         stats["iters_equal"] >= 0.99
         and stats["xy_rms_all"] <= 1e-3
@@ -93,6 +114,69 @@ def compare_fits(ref, got, max_it: int = 100, what: str = "fits") -> dict:
     )
     if not ok:
         raise AssertionError(f"{what}: out of tolerance: {stats}")
+    return stats
+
+
+# compare_fits_dense: the JAX-vs-plain maxima on fit2D's dense blocks
+# (both methods, four blocks, tests/torch_fit2d_block_spread.py) and the
+# margin
+DENSE_MEASURED = {"xy_max": 1.762e-4, "photons_rel": 1.143e-3,
+                  "bg_excess": 2.415, "sxy_max": 4.796e-4,
+                  "crlb_rel": 1.367e-3, "ll_excess": 5.592,
+                  "xy_rms_all": 2.135e-4, "stuck_xy_p90": 8.821e-6,
+                  "stuck_xy_p99": 1.616e-4, "stuck_xy_p100": 3.558e-2}
+DENSE_MARGIN = 2.0
+# compare_fits' own bounds, in fit_stats' keys
+_FIT_BOUNDS = {"xy_max": XY_SAME, "photons_rel": PHOTONS_REL,
+               "bg_excess": 1.0, "sxy_max": SXY_SAME, "crlb_rel": CRLB_REL,
+               "ll_excess": 1.0, "xy_rms_all": 1e-3,
+               **{f"stuck_xy_p{q}": b for q, b in STUCK_XY.items()}}
+DENSE_FITS = {k: max(_FIT_BOUNDS[k], DENSE_MARGIN * v)
+              for k, v in DENSE_MEASURED.items()}
+
+
+def compare_fits_dense(ref, got, max_it: int = 100,
+                       what: str = "dense fits") -> dict:
+    """Hold ``got`` to ``ref`` on dense ROIs (overlapping emitters, fitted
+    widths and backgrounds far from make_spots'), where the fit itself is
+    less well conditioned than on the ROIs :func:`compare_fits` was set
+    on: the same distances (:func:`fit_stats`), each bounded by the
+    larger of compare_fits' bound and DENSE_MARGIN times the largest
+    distance between two references on such ROIs; iters equal for >= 99%
+    of spots, as there. Raises AssertionError with the distances when out
+    of tolerance; returns them otherwise.
+
+    The references: picasso_tpu's gaussmle (JAX on the CPU) against the
+    port's plain fit (ops/mle._fit_core, CPU) on the ROIs of chip_smoke.py's
+    movie as fit2D cuts them (box 7, eps 1e-3, max_it 100), in its four
+    blocks of 262,144 (the last 172,976) ROIs
+    (tests/torch_fit2d_block_spread.py --block 0..3), the largest over the
+    blocks of each method (sigmaxy / sigma): same-step x/y 1.61e-4 /
+    1.76e-4 px, photons 4.45e-4 / 1.14e-3 relative, bg 2.42 / 1.23 times
+    compare_fits' bound, sx/sy 2.78e-4 / 4.80e-4, CRLB 7.60e-4 / 1.37e-3
+    relative, ll 0.71 / 5.59 times compare_fits' bound; x/y RMS over all
+    spots 2.1e-4 / 1.9e-4; at max_it x/y p90 8.8e-6 / 2.5e-6, p99 1.6e-4
+    / 7.4e-5, max 1.2e-2 / 3.6e-2 px; iters equal >= 99.92% / 99.95%.
+    A maximum over one block is a poor estimate of this heavy-tailed
+    spread: the first block alone gave sigma's photons 1.8e-4 and ll 0.67,
+    and the second block's sigma fits then fell outside a gate set on the
+    first (photons 1.14e-3, ll 5.59; the other blocks 0.50-0.67). Neither
+    reference is the exact fit: against the plain fit in f64 (the larger
+    over the first two blocks) the plain f32 fit is at x/y 1.07e-4 / 7.9e-5 and JAX at 5.5e-5
+    / 2.5e-4, so two f32 fits differ by about the sum of such errors. The
+    margin of 2 covers the sampling spread of a maximum over a block; a
+    third implementation further from the plain fit than that is a fault
+    to find, not a wider bound. So the gate is: x/y 3.52e-4 px, photons
+    2.29e-3, bg 4.83 and ll 11.2 times compare_fits' bound, sx/sy 9.59e-4,
+    CRLB 2.73e-3; the RMS and the max_it percentiles keep compare_fits'
+    bounds, which are the larger."""
+    stats = fit_stats(ref, got, max_it)
+    bad = {k: (stats[k], b) for k, b in DENSE_FITS.items() if stats[k] > b}
+    if stats["iters_equal"] < 0.99:
+        bad["iters_equal"] = (stats["iters_equal"], 0.99)
+    if bad:
+        raise AssertionError(f"{what}: out of the dense tolerance "
+                             f"(distance, bound) {bad}: {stats}")
     return stats
 
 
