@@ -12,8 +12,9 @@ Phases, each of which raises on failure (exit code != 0):
    (box 7): the MLE fit kernel's one-thread pass (csrc/mle_fit.cu FULL,
    the fixed point every MLE kernel equals bit for bit) and its phase
    schedule (K2), for the methods sigmaxy and sigma, K2 == the one pass
-   bit for bit; the LM fit kernel in its single-pass mode (K3) and in the
-   phase schedule (K6), K6 == K3 bit for bit; K1, the MLE work queue
+   bit for bit; the LM fit kernel's one pass (K3, csrc/lq_fit.cu) and
+   K6, JAX's fit in phases, which here is one launch of the LM work queue
+   (csrc/roi_lq_queue.cu), K6 == K3 bit for bit; K1, the MLE work queue
    with the CRLB/LL in the kernel (csrc/roi_mle_fit.cu, 1 launch a fit),
    and K3 as a work queue (csrc/roi_lq_queue.cu), both with lane refill
    and a warp-cooperative straggler tail, == the one pass / K2 (sigmaxy,
@@ -126,7 +127,17 @@ Phases, each of which raises on failure (exit code != 0):
    of the full field (card == CPU within 1e-9 on a 32 x 32 px
    viewport), the local density at 0.5 px (== cKDTree.query_ball_point),
    the pair correlation of phase 13's events at -b 0.1 -r 10 (== the CPU
-   on a 48 px crop) and their nearest neighbours (== cKDTree.query).
+   on a 48 px crop) and their nearest neighbours (== cKDTree.query);
+15. the checks of localize -db (check_nena, check_kinetics, check_drift)
+   on the undrifted MLE locs on the card, each against the CPU, and a
+   summary row of them written to a database in a temporary directory
+   and read back with sqlite3 (its declared types and values);
+16. align_rcc on two channels, the undrifted MLE locs and a copy moved
+   by ALIGN_OFFSET px, with each site's locs moved off the pixel
+   lattice by a random sub-pixel amount (the movie's sites sit on
+   integer pixels, where RCC at oversampling 1 cannot see a sub-pixel
+   offset) and as they are: the offset left off the lattice under 0.1
+   px, the card against the CPU within DRIFT_AGREE, the walls.
 IMS and STK movies are checked on the CPU only (tests/test_torch_io.py):
 the machine with the card has no h5py.
 The line before the last is the JSON record of every kernel (bound_ms:
@@ -640,6 +651,150 @@ def stats_phase(locs, info, events, smi: str):
     return walls
 
 
+def db_phase(locs, info, counted, smi: str):
+    """15. the checks of ``localize -db`` on the card: localize.check_nena,
+    check_kinetics and check_drift on the undrifted MLE locs with every
+    count set to 0 just before (the host walk of link launched once, no
+    kernel), each against the same call on the CPU (NeNA and the mean
+    event length equal, as phases 13-14 hold the histogram and the
+    chains; the drift within DRIFT_AGREE, as phase 7); then a summary
+    row of those values (localize._summary) through
+    localize._save_file_summary into a database in a temporary directory,
+    read back with sqlite3: the declared types pandas' to_sql gives and
+    the values. Returns (launches, walls)."""
+    import sqlite3
+
+    import torch
+
+    from picasso_torch import localize
+
+    checks = {
+        "nena": lambda d: localize.check_nena(locs, info, device=d),
+        "kinetics": lambda d: localize.check_kinetics(locs, info, device=d),
+        "drift": lambda d: localize.check_drift(locs, info, device=d),
+    }
+    card, cpu, walls = {}, {}, {}
+
+    def on_card():
+        for name, fn in checks.items():
+            t0 = time.perf_counter()
+            card[name] = fn("cuda")
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+
+    _, _, launches = counted(on_card)
+    for name, fn in checks.items():
+        t0 = time.perf_counter()
+        cpu[name] = fn("cpu")
+        walls[name + " cpu"] = time.perf_counter() - t0
+    d_drift = float(np.abs(np.subtract(card["drift"], cpu["drift"])).max())
+    if (card["nena"] != cpu["nena"] or card["kinetics"] != cpu["kinetics"]
+            or d_drift > DRIFT_AGREE or not np.isfinite(card["nena"])):
+        raise AssertionError(f"-db checks: card {card} against the CPU {cpu}")
+    if any(v for k, v in launches.items() if k != "link walk") or (
+            launches["link walk"] != 1):
+        raise AssertionError(f"-db checks launched {launches}")
+    with tempfile.TemporaryDirectory(prefix=".smoke-db-", dir=ROOT) as tmp:
+        movie_file = os.path.join(tmp, "movie.raw")
+        open(movie_file, "wb").close()
+        db = os.path.join(tmp, "app_0410.db")
+        summary = localize._summary(
+            locs, info, movie_file, os.path.join(tmp, "movie_locs.hdf5"),
+            drift=card["drift"], len_mean=card["kinetics"],
+            nena=card["nena"], device="cuda")
+        keep = localize._db_filename
+        localize._db_filename = lambda: db
+        try:
+            localize._save_file_summary(summary)
+        finally:
+            localize._db_filename = keep
+        con = sqlite3.connect(db)
+        try:
+            types = {r[1]: r[2] for r in con.execute(
+                'PRAGMA table_info("files")')}
+            row = con.execute('SELECT "n_locs", "nena_px", "len_mean", '
+                              '"z_mean" FROM "files"').fetchall()
+        finally:
+            con.close()
+    want = {"x_mean": "REAL", "n_locs": "INTEGER", "frames": "INTEGER",
+            "pixelsize": "TEXT", "nena_nm": "TEXT", "z_mean": "TEXT",
+            "filename": "TEXT", "file_created": "TIMESTAMP",
+            "entry_created": "TIMESTAMP"}
+    if (list(types) != list(summary) or any(types[k] != v for k, v in
+                                            want.items())
+            or row != [(len(locs), card["nena"], card["kinetics"], None)]):
+        raise AssertionError(f"-db row: {types} {row}")
+    print(f"-db checks ({smi}) on {len(locs)} undrifted locs, card (CPU) "
+          f"s: NeNA {walls['nena']:.3f} ({walls['nena cpu']:.3f}), "
+          f"kinetics {walls['kinetics']:.3f} ({walls['kinetics cpu']:.3f}), "
+          f"drift in {info[0]['Frames'] // 10}-frame segments "
+          f"{walls['drift']:.3f} ({walls['drift cpu']:.3f}); NeNA "
+          f"{card['nena']:.5f} px and mean length {card['kinetics']:.4f} "
+          f"frames == the CPU, mean drift {card['drift']} (card - CPU max "
+          f"{d_drift:.3g} px); launches {launches}; files row of "
+          f"{len(types)} columns read back with its declared types")
+    return launches, walls
+
+
+ALIGN_OFFSET = (0.37, -0.21)  # px, (x, y) of the second channel
+
+
+def align_phase(locs, info, sites, smi: str):
+    """16. align_rcc on the card: two channels, the undrifted MLE locs
+    and a copy moved by ALIGN_OFFSET, each run on the card and on the
+    CPU (card vs CPU within DRIFT_AGREE). make_bench_movie puts every
+    site on an integer pixel, where the oversampling-1 render that RCC
+    correlates bins a site's locs at a fixed phase and cannot resolve a
+    sub-pixel offset (the reference's algorithm, on the CPU too), so the
+    gated run first moves each site's locs by a random sub-pixel
+    amount (the same in both channels) off that lattice: its offset left
+    (the mean of channel 2 - channel 1) under DRIFT_RESID; the run on
+    the lattice is reported. Returns the walls."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    from picasso_torch import postprocess
+
+    _, near = cKDTree(sites[:, ::-1].astype(np.float64)).query(
+        np.column_stack([locs["x"], locs["y"]]))
+    dither = np.random.default_rng(16).uniform(0, 1, (len(sites), 2))
+    off_lattice = locs.copy()
+    off_lattice["x"] += dither[near, 0]
+    off_lattice["y"] += dither[near, 1]
+    walls, resid = {}, {}
+    for what, base in (("off the lattice", off_lattice),
+                       ("on the lattice", locs)):
+        moved = base.copy()
+        moved["x"] += ALIGN_OFFSET[0]
+        moved["y"] += ALIGN_OFFSET[1]
+        channels, infos = [base, moved], [info, info]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card, (hx, hy) = postprocess.align_rcc(
+            channels, infos, return_shifts=True, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cpu = postprocess.align_rcc(channels, infos, device="cpu")
+        walls[what] = t1 - t0
+        walls[what + " cpu"] = time.perf_counter() - t1
+        resid[what] = {c: float(np.mean(card[1][c] - card[0][c]))
+                       for c in ("x", "y")}
+        agree = max(float(np.abs(a[c] - b[c]).max())
+                    for a, b in zip(card, cpu) for c in ("x", "y"))
+        print(f"align_rcc {what} ({smi}): 2 channels of {len(locs)} locs, "
+              f"offset {ALIGN_OFFSET} px: card {walls[what]:.3f} s, CPU "
+              f"{walls[what + ' cpu']:.3f} s, {len(hx)} passes (mean shifts "
+              f"x {[round(float(v), 5) for v in hx]}, y "
+              f"{[round(float(v), 5) for v in hy]}); offset left x "
+              f"{resid[what]['x']:.5f} y {resid[what]['y']:.5f} px; card vs "
+              f"CPU max |d| {agree:.3g} px")
+        if agree > DRIFT_AGREE:
+            raise AssertionError(f"align_rcc {what}: card vs CPU {agree} px")
+    if max(map(abs, resid["off the lattice"].values())) > DRIFT_RESID:
+        raise AssertionError(f"align_rcc: offset left {resid}")
+    return walls
+
+
 def main() -> int:
     import torch
 
@@ -750,12 +905,17 @@ def main() -> int:
     k3 = lq_cuda.fit_t(spots_t, MAX_IT, FTOL).cpu().numpy()
     torch.cuda.synchronize()
     stats["K3"] = compare_lq_fits(plain_lq, k3, spots_np, "K3 vs plain")
+    before = (lq_cuda.fit_boundary_t.launches, lq_cuda.fit_queue_t.launches)
     k6 = lq_cuda.fit_boundary_t(spots_t, MAX_IT, FTOL).cpu().numpy()
+    if (lq_cuda.fit_boundary_t.launches - before[0],
+            lq_cuda.fit_queue_t.launches - before[1]) != (1, 0):
+        raise AssertionError("K6 is not one launch counted on itself")
     if not np.array_equal(k3, k6, equal_nan=True):
         raise AssertionError("K6 != K3 bit for bit")
     stats["K6"] = compare_lq_fits(plain_lq, k6, spots_np, "K6 vs plain")
     print("K3 vs plain:", json.dumps(stats["K3"]))
-    print("K6 vs plain:", json.dumps(stats["K6"]), "| K6 == K3 bit for bit")
+    print("K6 vs plain:", json.dumps(stats["K6"]), "| K6 == K3 bit for bit,"
+          " 1 launch (roi_lq_queue)")
     lq_it, _, lq_reused = lq_iters(spots_t, MAX_IT)
     ms["plain_lq"] = _median_ms(lambda: lq._lm_core(spots_t, MAX_IT, FTOL))
     ms["K3"] = _median_ms(lambda: lq_cuda.fit_t(spots_t, MAX_IT, FTOL))
@@ -810,6 +970,12 @@ def main() -> int:
     ms["K3 queue"] = _median_ms(lambda: lq_cuda.fit_queue_t(spots_t, MAX_IT,
                                                             FTOL))
     bounds["K3 queue"] = bounds["K3"]
+    # K6 is the queue's launch: the two in turns (K6 Q Q K6)
+    fns = (lambda: lq_cuda.fit_boundary_t(spots_t, MAX_IT, FTOL),
+           lambda: lq_cuda.fit_queue_t(spots_t, MAX_IT, FTOL))
+    k6_turns = _turns([fns[i] for i in (0, 1, 1, 0)])
+    print(f"K6 and the K3 queue in turns (K6 Q Q K6), ms: "
+          f"{[round(t, 4) for t in k6_turns]}")
     print(f"K3 queue (roi_lq_queue) == K3 == K6 bit for bit; fit {N_SPOTS} "
           f"spots: {ms['K3 queue']:.3f} ms ({bounds['K3'][0] / ms['K3 queue']:.1%}"
           f" of the bound), K3 {ms['K3']:.3f} ms, plain {ms['plain_lq']:.3f} "
@@ -1830,17 +1996,19 @@ def main() -> int:
                 lq._lm_core(block, 30, FTOL).cpu().numpy(), q,
                 block.cpu().numpy(), "fit2D block: K3 queue vs plain")
     fns = (lambda: lq_cuda.fit_t(block, 30, FTOL),
-           lambda: lq_cuda.fit_queue_t(block, 30, FTOL))
+           lambda: lq_cuda.fit_queue_t(block, 30, FTOL),
+           lambda: lq_cuda.fit_boundary_t(block, 30, FTOL))
     turns = _alternate(fns, ROUTE_TURNS)
-    ms["K3 fit2D"], ms["K3 queue fit2D"] = (statistics.median(t)
-                                            for t in turns)
+    ms["K3 fit2D"], ms["K3 queue fit2D"], ms["K6 fit2D"] = (
+        statistics.median(t) for t in turns)
     it30, _, reused30 = lq_iters(block, 30)
     bounds["fit2D lq"] = lq_fit_bound(nb, float(it30.sum()),
                                       float(reused30.sum()))
     ms["plain fit2D lq"] = _median_ms(lambda: lq._lm_core(block, 30, FTOL))
     fit2d["lq"] = {
         "turns_ms": {"K3": [round(t, 4) for t in turns[0]],
-                     "K3 queue": [round(t, 4) for t in turns[1]]},
+                     "K3 queue": [round(t, 4) for t in turns[1]],
+                     "K6": [round(t, 4) for t in turns[2]]},
         "route": ("queue" if ms["K3 queue fit2D"] < ms["K3 fit2D"]
                   else "one pass"),
         "route_set": ("queue" if lq_cuda.ROI_FIT is lq_cuda.fit_queue_t
@@ -1850,6 +2018,7 @@ def main() -> int:
     print(f"fit2D block LM at max_it 30: K3 queue == K3 == K6 bit for bit "
           f"at max_it 30 and {MAX_IT} (cooperative steps at 30: {coop_lq});"
           f" K3 {ms['K3 fit2D']:.4f} ms, queue {ms['K3 queue fit2D']:.4f} ms"
+          f", K6 {ms['K6 fit2D']:.4f} ms"
           f" (medians of {ROUTE_TURNS} turns), bound {b_ms:.4f} ms "
           f"({b_ms / ms['K3 queue fit2D']:.1%} of the queue, "
           f"{b_ms / ms['K3 fit2D']:.1%} of K3), plain "
@@ -1974,10 +2143,18 @@ def main() -> int:
     stats_phase(undrifted, info, events, smi)
     print(f"phases 13-14: {t14 - t13:.1f} s and "
           f"{time.perf_counter() - t14:.1f} s ({smi})")
+    # 15. the checks of localize -db, and a summary row ------------------
+    t15 = time.perf_counter()
+    launches_db, _ = db_phase(undrifted, info, counted, smi)
+    # 16. align_rcc on two channels --------------------------------------
+    t16 = time.perf_counter()
+    align_phase(undrifted, info, bench_sites, smi)
+    print(f"phases 15-16: {t16 - t15:.1f} s and "
+          f"{time.perf_counter() - t16:.1f} s ({smi})")
     print("host code (no kernel):", json.dumps({
         "name": "link_walk", "source": "picasso_torch/csrc/link_walk.cu",
         "replaces": "picasso_tpu/native/picasso_native.cpp:38",
-        "launches": launches_link["link walk"]}))
+        "launches": launches_link["link walk"] + launches_db["link walk"]}))
     tiff_dir.cleanup()
     paths = {"mle": launches_mle, "mle-sigma": launches_sig,
              "lq": launches_lq, "tiff": launches_tif,
@@ -1985,7 +2162,8 @@ def main() -> int:
              "identify": launches_id, "fiducials": launches_fid,
              "fit2D-mle": launches_k2,
              "fit2D-lq": launches_k3, "3d-mle": paths3d["gaussmle"],
-             "3d-lq": paths3d["gausslq"], "link": launches_link}
+             "3d-lq": paths3d["gausslq"], "link": launches_link,
+             "db": launches_db}
     print("launches by path:", json.dumps(paths))
 
     # the kernels line -----------------------------------------------------
@@ -2050,7 +2228,8 @@ def main() -> int:
         entry("K3", "K3 lq_fit (single pass)", lq_src,
               "picasso_tpu/ops/lq_pallas.py:25", "K3",
               stats["K3"]["xy_p100"], "plain_lq"),
-        entry("K6", "K6 lq_fit (phases 16/50/100)", lq_src,
+        entry("K6", "K6 roi_lq_queue (one launch; phases 16/50/100 on "
+              "the TPU)", "picasso_torch/csrc/roi_lq_queue.cu",
               "picasso_tpu/ops/lq_pallas.py:93", "K6",
               stats["K6"]["xy_p100"], "plain_lq"),
         entry("K1", "K1 roi_mle_fit sigmaxy (work queue, cooperative "
@@ -2085,7 +2264,8 @@ def main() -> int:
             ("K2 mle_fit sigmaxy (", "K2 fit2D", "fit2D"),
             ("K2 mle_fit sigma (", "K2 fit2D sigma", "fit2D sigma"),
             ("K3 roi_lq_queue", "K3 queue fit2D", "fit2D lq"),
-            ("K3 lq_fit (single", "K3 fit2D", "fit2D lq")):
+            ("K3 lq_fit (single", "K3 fit2D", "fit2D lq"),
+            ("K6 roi_lq_queue", "K6 fit2D", "fit2D lq")):
         k = next(k for k in kernels if k["name"].startswith(name))
         k["fit2d_block_ms"] = ms[key]
         k["fit2d_block_bound_ms"] = bounds[block_key][0]

@@ -2,9 +2,10 @@
 
 Counterpart of picasso_tpu/__main__.py for the verbs ported so far:
 
-    python -m picasso_torch localize movie.ome.tif [-d 1000]
+    python -m picasso_torch localize movie.ome.tif [-d 1000] [-db]
         [-a mle|lq|lq-gpu|avg|mle-3d|lq-3d|lq-gpu-3d -zc calib.yaml]
         [--device cuda|cpu]
+    python -m picasso_torch align a_locs.hdf5 b_locs.hdf5 [...]
     python -m picasso_torch toraw "*.tif"
     python -m picasso_torch undrift "*_locs.hdf5" [-s 1000 | -f drift.txt]
     python -m picasso_torch aim "*_locs.hdf5" [-s 100 -i 0.154 -r 0.462]
@@ -27,7 +28,11 @@ and takes the JAX CLI's flags and defaults plus ``--device`` (default
 ``-3d`` methods fit z with the calibration YAML of ``-zc``. After saving
 ``<movie>_locs.hdf5`` it runs RCC drift correction with segments of
 ``-d`` frames (default 1000, 0 to skip), writing ``<movie>_locs_drift.txt``
-and ``<movie>_locs_undrift.hdf5``, as the JAX CLI does. ``toraw``
+and ``<movie>_locs_undrift.hdf5``, as the JAX CLI does; with ``-db`` it
+then summarizes ``<movie>_locs.hdf5`` (column means and stds, NeNA,
+event length, RCC drift) into the ``files`` table of
+``~/.picasso/app_0410.db``. ``align`` aligns the channels of two or more
+locs files by RCC and writes ``<base>_align.hdf5`` for each. ``toraw``
 converts TIFF movies matching a pattern to .raw + .yaml, one file per
 multi-file series. ``undrift`` (RCC, or ``-f`` a drift file), ``aim``
 and ``undrift_fiducials`` correct the drift of saved locs files and
@@ -74,10 +79,6 @@ def _toraw(args):
 
 
 def _localize(args, parser):
-    if args.database:
-        parser.error(
-            "-db is not ported yet (ROADMAP queue 1 item 14: server)"
-        )
     if args.files is None:
         parser.error("localize needs a movie file or pattern")
     is_3d = args.fit_method.endswith("-3d")
@@ -128,6 +129,8 @@ def _localize(args, parser):
                 print(f"RCC undrift failed: {e}")
             else:
                 _undrift_rcc_single(out, args.drift, device)
+        if args.database:
+            localize.add_file_to_db(path, out, device=device)
 
 
 def _undrift_rcc_single(path: str, segmentation, device, fromfile=None):
@@ -285,6 +288,28 @@ def _clusterfilter(args):
             "Generated by": "Picasso Filter", "Parameter": args.parameter,
             "Min": args.minval, "Max": args.maxval}])
         print(f"Filter {len(locs)} -> {len(kept)}: {out}")
+
+
+def _align(args):
+    from picasso_torch import io, lib, postprocess
+
+    device = lib.resolve_device(args.device)
+    paths = []
+    for pattern in args.files:
+        paths.extend(sorted(glob.glob(pattern)))
+    if len(paths) < 2:
+        print("align requires at least two files")
+        return
+    locs_list, infos = [], []
+    for path in paths:
+        locs, info = io.load_locs(path)
+        locs_list.append(locs)
+        infos.append(info)
+    aligned = postprocess.align_rcc(locs_list, infos, device=device)
+    for path, locs, info in zip(paths, aligned, infos):
+        out = _out_path(path, "_align")
+        io.save_locs(out, locs, info + [{"Generated by": "Picasso Align"}])
+        print(f"Aligned -> {out}")
 
 
 def _join(args):
@@ -487,6 +512,10 @@ def main(argv=None):
     p.add_argument("minval", type=float)
     p.add_argument("maxval", type=float)
 
+    p = subparsers.add_parser("align", help="align channels by RCC")
+    p.add_argument("files", nargs="+")
+    _device_arg(p)
+
     p = subparsers.add_parser("join", help="join hdf5 files")
     p.add_argument("files", nargs="+")
     p.add_argument("-k", "--keep-frames", action="store_true")
@@ -520,7 +549,8 @@ def main(argv=None):
              "aim": _aim, "undrift_fiducials": _undrift_fiducials,
              "link": _link, "dark": _dark, "nneighbor": _nneighbor,
              "density": _density, "clusterfilter": _clusterfilter,
-             "join": _join, "groupprops": _groupprops, "pc": _pc,
+             "align": _align, "join": _join, "groupprops": _groupprops,
+             "pc": _pc,
              "cluster_combine": _cluster_combine,
              "cluster_combine_dist": _cluster_combine_dist}
     if args.command in verbs:

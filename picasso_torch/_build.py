@@ -45,9 +45,8 @@ SIGNATURES = {
         _P,                                    # stream
     ],
     "picasso_lq_fit": [
-        _P, _LL, _I, _F, _I, _I, _LL,          # spots, n, box, ftol, k, mode, n_valid
-        _P, _P, _P, _P,                        # theta (carry or out), lam, cost, done
-        _P,                                    # stream
+        _P, _LL, _I, _F, _I, _LL,              # spots, n, box, ftol, k, n_valid
+        _P, _P,                                # theta out, stream
     ],
     "picasso_winfit_mle": [
         _P, _I, _LL, _LL, _LL,                 # frames, dtype, B, Y, X

@@ -1,7 +1,7 @@
 // Least-squares fit of the plain elliptic 2D Gaussian by
-// Levenberg-Marquardt for one spot (sm_90a): the body of the K3/K6
-// kernels (lq_fit.cu, one thread a spot) and of the LM work queues
-// (lq_queue.cuh: K5's and K3's), templated on the source the
+// Levenberg-Marquardt for one spot (sm_90a): the body of K3's one pass
+// (lq_fit.cu, one thread a spot) and of the LM work queues
+// (lq_queue.cuh: K5's, and K3's and K6's), templated on the source the
 // spot's pixels come from (fit_common.cuh). Its pieces
 // (an axis point, a row of J^T r, a row of the cost, the fold of a row,
 // the damped step) are the units the work queue's cooperative tail
@@ -359,28 +359,19 @@ __device__ __forceinline__ void lm_step(const Src& px, float* th,
                     ftol);
 }
 
-// The LM fit of spot n in one mode. FULL/START initialise from the
-// pixels, RESUME loads the carry (theta (6, N), lam/cost/done (N,)); FULL
-// writes theta only, START/RESUME the whole carry.
+// The LM fit of spot n in one pass (one thread): initialise from the
+// pixels, up to k iterations, theta (6, N) out. Spots at index >= n_valid
+// start done.
 template <int S, class Src>
 __device__ __forceinline__ void lq_fit_spot(const Src& px, long long n,
                                             long long N, float ftol, int k,
-                                            int mode, long long n_valid,
-                                            float* theta, float* lam_c,
-                                            float* cost_c, float* done_c) {
-  float th[6], lam, cst, done;
-  if (mode == kResume) {
-#pragma unroll
-    for (int p = 0; p < 6; ++p) th[p] = theta[p * N + n];
-    lam = lam_c[n];
-    cst = cost_c[n];
-    done = done_c[n];
-  } else {
-    lq_init_theta<S>(px, th);
-    cst = cost<S>(px, th);
-    lam = 1e-3f;
-    done = n >= n_valid ? 1.0f : 0.0f;
-  }
+                                            long long n_valid,
+                                            float* theta) {
+  float th[6];
+  lq_init_theta<S>(px, th);
+  float cst = cost<S>(px, th);
+  float lam = 1e-3f;
+  float done = n >= n_valid ? 1.0f : 0.0f;
   float a[21], jtr[6];
   bool fresh = true;
   for (int kk = 0; kk < k; ++kk) {
@@ -389,10 +380,6 @@ __device__ __forceinline__ void lq_fit_spot(const Src& px, long long n,
   }
 #pragma unroll
   for (int p = 0; p < 6; ++p) theta[p * N + n] = th[p];
-  if (mode == kFull) return;
-  lam_c[n] = lam;
-  cost_c[n] = cst;
-  done_c[n] = done;
 }
 
 }  // namespace

@@ -4,11 +4,17 @@
 // with the RoiBatch source (each slot stages its spot's photons from the
 // batch as they are).
 //
-// Replaces the Pallas TPU kernel picasso_tpu/ops/lq_pallas.py
-// _tile_kernel (fit_pallas_t) on fit2D's LM path, where the port ran it
-// as lq_fit.cu's FULL mode, one thread a spot (lq_queue.cuh says what the
-// queue and its tail do instead). Boxes 5-15 are instantiated, as for
-// lq_fit.cu.
+// Replaces the Pallas TPU kernels of picasso_tpu/ops/lq_pallas.py:
+//   K3  _tile_kernel (fit_pallas_t), on fit2D's LM path, where the port
+//       ran it as lq_fit.cu's one pass, one thread a spot;
+//   K6  _lm_start_kernel, _lm_resume_kernel (fit_pallas_boundary_t), the
+//       same fit in phases with the unconverged lanes moved to the front
+//       between them, since a TPU lane cannot take new work; here a slot
+//       takes the next spot when its own is done, so K6 is one launch of
+//       this queue (ops/lq_cuda.fit_boundary_t) and has no phases.
+// lq_queue.cuh says what the queue and its tail do. Bound by operations
+// (the LM steps; a box-7 ROI is 196 B read once). Boxes 5-15 are
+// instantiated, as for lq_fit.cu.
 
 #include "lq_queue.cuh"
 

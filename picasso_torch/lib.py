@@ -7,7 +7,8 @@ check_if_in_polygon :148, merge_locs :110, check_if_in_rectangle
 :170, get_pick_rectangle_corners :213, minimize_shifts :445, MockProgress
 :670, progress_reporter :731, get_pick_polygon_corners :828). Locs are
 numpy structured arrays with the record layout of the HDF5 ``"locs"``
-dataset.
+dataset; :func:`series_mean_std` gives a column the mean and std that
+the JAX package's pandas columns give.
 """
 
 from __future__ import annotations
@@ -141,25 +142,52 @@ def merge_locs(locs_list: list[np.ndarray],
     return out
 
 
-def minimize_shifts(shifts_x: np.ndarray, shifts_y: np.ndarray):
+def series_mean_std(values: np.ndarray):
+    """pandas' Series.mean() and Series.std() (NaN skipped, ddof 1) of a
+    locs column, in its arithmetic, as numpy scalars: a float column sums
+    its mean in its own type and its variance in f64 by two passes,
+    rounded to its type before the root; an integer column works in
+    f64."""
+    v = np.asarray(values)
+    with np.errstate(all="ignore"):
+        if v.dtype.kind == "f":
+            ok = ~np.isnan(v)
+            v = np.where(ok, v, v.dtype.type(0))
+            count = v.dtype.type(ok.sum())
+            mean = v.sum(dtype=v.dtype) / count
+        else:
+            ok = np.ones(len(v), bool)
+            count = np.float64(len(v))
+            mean = v.sum(dtype=np.float64) / count
+            v = v.astype(np.float64)
+        if count <= 1:
+            return mean, v.dtype.type(np.nan)
+        avg = v.sum(dtype=np.float64) / count
+        sqr = np.where(ok, (avg - v) ** 2, 0.0)
+        var = v.dtype.type(sqr.sum(dtype=np.float64) / (count - 1))
+    return mean, np.sqrt(var)
+
+
+def minimize_shifts(shifts_x: np.ndarray, shifts_y: np.ndarray,
+                    shifts_z: np.ndarray | None = None):
     """Per-segment shifts from all-pairs relative shifts (n, n) by least
     squares, the RCC "redundancy" step (picasso/lib.py:2034): the pair ->
     interval incidence matrix solved with pinv, then cumulative sums from
-    the first segment. Returns (shift_y, shift_x)."""
+    the first segment. Returns (shift_y, shift_x), and shift_z when
+    ``shifts_z`` is given."""
     n = shifts_x.shape[0]
-    rij = np.zeros((n * (n - 1) // 2, 2))
+    pairs = [shifts_y, shifts_x] + ([] if shifts_z is None else [shifts_z])
+    rij = np.zeros((n * (n - 1) // 2, len(pairs)))
     A = np.zeros((n * (n - 1) // 2, n - 1))
     k = 0
     for i in range(n - 1):
         for j in range(i + 1, n):
-            rij[k, 0] = shifts_y[i, j]
-            rij[k, 1] = shifts_x[i, j]
+            rij[k] = [p[i, j] for p in pairs]
             A[k, i:j] = 1
             k += 1
     Dj = np.linalg.pinv(A) @ rij
-    shift_y = np.insert(np.cumsum(Dj[:, 0]), 0, 0)
-    shift_x = np.insert(np.cumsum(Dj[:, 1]), 0, 0)
-    return shift_y, shift_x
+    return tuple(np.insert(np.cumsum(Dj[:, d]), 0, 0)
+                 for d in range(len(pairs)))
 
 
 def check_if_in_polygon(x, y, X, Y) -> np.ndarray:

@@ -1,9 +1,13 @@
 """Identify + fit spots: the ``identify``, ``fit2D``, ``localize`` and
-``localize_3D`` entry points of the port, and ``identify_in_image``.
+``localize_3D`` entry points of the port, ``identify_in_image``, and the
+summary database of ``localize -db``.
 
 Counterpart of picasso_tpu/localize.py (_id_frame_chunk :60,
 identify_in_image :71, identify :134, get_spots :290, get_spots_raw
-:326, fit2D :346, localize :516, localize_3D :668). ``localize`` with
+:326, fit2D :346, localize :516, localize_3D :668; MEAN_COLS and
+SET_COLS :41, check_nena :736, check_kinetics :749, check_drift :758,
+get_file_summary :779, _db_filename :838, _save_file_summary :849,
+add_file_to_db :859). ``localize`` with
 a Gaussian fitter runs the fused chain per frame chunk (ops/fused.py) on
 ``device``: on a CUDA device through the hand-written kernels, on the
 CPU through their plain PyTorch versions. ``avg`` identifies (K4), cuts
@@ -39,6 +43,18 @@ from picasso_torch import __version__, avgroi, gausslq, gaussmle, lib
 _ID_CHUNK_BYTES = 64e6
 
 _GAUSS_METHODS = ("gausslq", "gausslq-gpu", "gaussmle")
+
+# the localization columns whose means and stds the summary database
+# keeps, and the settings it copies from the info (picasso/localize.py:52)
+MEAN_COLS = [
+    "frame", "x", "y", "photons", "sx", "sy", "bg", "lpx", "lpy",
+    "ellipticity", "net_gradient", "z", "d_zcalib", "lpz",
+]
+SET_COLS = [
+    "Frames", "Height", "Width", "Box Size", "Min. Net Gradient",
+    "Pixelsize",
+]
+MAX_LOCS = int(1e6)
 
 
 def _id_frame_chunk(height: int, width: int) -> int:
@@ -410,3 +426,192 @@ def localize_3D(
         else "gausslq",
         progress_callback=fit_z_progress_callback, device=device,
     )
+
+
+# ---------------------------------------------------------------------------
+# The per-file summary database of ``localize -db``
+# (picasso/localize.py:2037-2258)
+# ---------------------------------------------------------------------------
+
+
+def check_nena(locs: np.ndarray, info, callback=None, *, device="cuda"
+               ) -> float:
+    """NeNA localization precision in px of the first MAX_LOCS locs, NaN
+    if its fit fails (picasso/localize.py:2037). The distance histogram
+    runs on ``device`` and raises as it would; only the host fit's
+    failure gives NaN (JAX catches every exception)."""
+    from picasso_torch import postprocess
+
+    locs = locs[:MAX_LOCS]
+    hist = postprocess._next_frame_neighbor_distance_histogram(
+        locs, callback, device=device)
+    try:
+        _, nena_px = postprocess._nena_fit(locs, *hist)
+    except Exception:
+        nena_px = float("nan")
+    return float(nena_px)
+
+
+def check_kinetics(locs: np.ndarray, info, *, device="cuda") -> float:
+    """Mean binding-event length in frames of the first MAX_LOCS locs,
+    linked at link's defaults on ``device`` (picasso/localize.py:2073)."""
+    from picasso_torch import postprocess
+
+    linked = postprocess.link(locs[:MAX_LOCS], info, device=device)
+    return float(np.mean(linked["len"]))
+
+
+def check_drift(locs: np.ndarray, info, callback=None, *, device="cuda"):
+    """Mean RCC drift (x, y) in px, on locs subsampled to MAX_LOCS, in
+    segments of a tenth of the movie (picasso/localize.py:2096), on
+    ``device``. ``callback`` is accepted for JAX's signature."""
+    from picasso_torch import postprocess
+
+    locs = locs[::max(1, len(locs) // MAX_LOCS)]
+    n_frames = lib.get_from_metadata(info, "Frames")
+    drift, _ = postprocess.undrift(locs, info, max(1, n_frames // 10),
+                                   device=device)
+    return float(drift["x"].mean()), float(drift["y"].mean())
+
+
+def get_file_summary(file: str, file_hdf: str | None, drift=None,
+                     len_mean=None, nena=None, *, device="cuda") -> dict:
+    """The summary of one localization file (picasso/localize.py:2144):
+    :func:`_summary` of the locs in ``file_hdf`` (by default ``<file
+    base>_locs.hdf5``)."""
+    import os
+
+    from picasso_torch import io
+
+    if file_hdf is None:
+        file_hdf = os.path.splitext(file)[0] + "_locs.hdf5"
+    locs, info = io.load_locs(file_hdf)
+    return _summary(locs, info, file, file_hdf, drift, len_mean, nena,
+                    device=device)
+
+
+def _summary(locs: np.ndarray, info, file: str, file_hdf: str, drift=None,
+             len_mean=None, nena=None, *, device="cuda") -> dict:
+    """The summary row of ``locs``: the mean and std of each of MEAN_COLS
+    (NaN for a missing column), the SET_COLS settings from the info (NaN
+    if absent), the checks (NeNA, event length, drift; each computed on
+    ``device`` unless given), the counts, the file names and the times
+    of ``file`` and of the entry."""
+    import os
+    from datetime import datetime
+
+    summary = {}
+    for col in MEAN_COLS:
+        mean, std = (lib.series_mean_std(locs[col])
+                     if col in locs.dtype.names else (np.nan, np.nan))
+        summary[col + "_mean"] = float(mean)
+        summary[col + "_std"] = float(std)
+    for col in SET_COLS:
+        for inf in info:
+            if col in inf:
+                summary[col.lower()] = inf[col]
+    for col in SET_COLS:
+        summary.setdefault(col.lower(), float("nan"))
+    nena_px = check_nena(locs, info, device=device) if nena is None else nena
+    if len_mean is None:
+        len_mean = check_kinetics(locs, info, device=device)
+    drift_x, drift_y = (check_drift(locs, info, device=device)
+                        if drift is None else drift)
+    summary["len_mean"] = len_mean
+    summary["n_locs"] = len(locs)
+    summary["locs_frame"] = len(locs) / summary["frames"]
+    summary["drift_x"] = drift_x
+    summary["drift_y"] = drift_y
+    summary["nena_px"] = nena_px
+    summary["nena_nm"] = nena_px * summary["pixelsize"]
+    summary["filename"] = os.path.normpath(file)
+    summary["filename_hdf"] = file_hdf
+    summary["file_created"] = datetime.fromtimestamp(os.path.getmtime(file))
+    summary["entry_created"] = datetime.now()
+    return summary
+
+
+def _db_filename() -> str:
+    """The SQLite database under ~/.picasso (picasso/localize.py:2221)."""
+    import os
+
+    picasso_dir = os.path.join(os.path.expanduser("~"), ".picasso")
+    os.makedirs(picasso_dir, exist_ok=True)
+    return os.path.abspath(os.path.join(picasso_dir, "app_0410.db"))
+
+
+def _missing(value) -> bool:
+    return value is None or (isinstance(value, (float, np.floating))
+                             and np.isnan(value))
+
+
+def _sql_type(value) -> str:
+    """The SQLite type that pandas' DataFrame.to_sql declares for a
+    one-row object column holding ``value`` (pandas.io.sql.SQLiteTable
+    _sql_type_name: lib.infer_dtype with missing values skipped; a column
+    of NaN/None only is TEXT), for the kinds a summary holds."""
+    from datetime import datetime
+
+    if _missing(value):
+        return "TEXT"
+    if isinstance(value, (bool, np.bool_, int, np.integer)):
+        return "INTEGER"
+    if isinstance(value, (float, np.floating)):
+        return "REAL"
+    if isinstance(value, datetime):
+        return "TIMESTAMP"
+    return "TEXT"
+
+
+def _sql_value(value):
+    """``value`` as pandas' to_sql hands it to sqlite3: NaN and None as
+    NULL, a datetime as ``isoformat(" ")`` text, anything else as it is
+    (a numpy scalar then goes in as its bytes, a BLOB)."""
+    from datetime import datetime
+
+    if _missing(value):
+        return None
+    if isinstance(value, datetime):
+        return value.isoformat(" ")
+    return value
+
+
+def _quote(name: str) -> str:
+    return '"' + name.replace('"', '""') + '"'
+
+
+def _save_file_summary(summary: dict) -> None:
+    """Append the summary as one row of the ``files`` table of
+    :func:`_db_filename` (picasso/localize.py:2242) with sqlite3 alone:
+    the table, if it is new, gets the columns in the summary's order with
+    the types pandas' to_sql declares (:func:`_sql_type`); an existing
+    table keeps its own; the values go in as pandas passes them
+    (:func:`_sql_value`)."""
+    import sqlite3
+
+    cols = ", ".join(_quote(k) for k in summary)
+    con = sqlite3.connect(_db_filename())
+    try:
+        with con:
+            exists = con.execute(
+                "SELECT name FROM sqlite_master WHERE type IN ('table', "
+                "'view') AND name=?", ("files",)).fetchone()
+            if not exists:
+                con.execute("CREATE TABLE " + _quote("files") + " (\n"
+                            + ",\n  ".join(f"{_quote(k)} {_sql_type(v)}"
+                                            for k, v in summary.items())
+                            + "\n)")
+            con.execute(
+                f"INSERT INTO {_quote('files')} ({cols}) VALUES "
+                f"({', '.join('?' * len(summary))})",
+                [_sql_value(v) for v in summary.values()])
+    finally:
+        con.close()
+
+
+def add_file_to_db(file: str, file_hdf: str | None, drift=None,
+                   len_mean=None, nena=None, *, device="cuda") -> None:
+    """Summarize a localization file on ``device`` and append it to the
+    summary database (picasso/localize.py:2250)."""
+    _save_file_summary(get_file_summary(file, file_hdf, drift, len_mean,
+                                        nena, device=device))

@@ -1,6 +1,7 @@
 """Batched least-squares fit of the plain elliptic 2D Gaussian by
 Levenberg–Marquardt: the plain PyTorch version of the fit that
-csrc/lq_fit.cu runs on the card.
+csrc/lq_fit.cu and the LM work queues (csrc/lq_queue.cuh) run on the
+card.
 
 Counterpart of picasso_tpu/ops/lq.py (the reference's scipy leastsq and
 Gpufit GAUSS_2D_ELLIPTIC paths, picasso/gausslq.py:206-395). Parameters
@@ -14,8 +15,8 @@ column factor (over x), so J^T J needs only 1D dot products and J^T r
 one pass over the spot. Every sum over a box axis is a sequential sum
 in the JAX order (columns i folded into per-row accumulators, then the
 rows), so a lane's result does not depend on where it sits in the batch
-and the phase schedule (ops/lq_cuda.fit_boundary_t) reproduces
-:func:`_lm_core` bit for bit.
+and the phase schedule (ops/lq_cuda.fit_boundary_t on the CPU)
+reproduces :func:`_lm_core` bit for bit.
 """
 
 from __future__ import annotations

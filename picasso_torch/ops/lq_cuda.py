@@ -1,19 +1,19 @@
-"""Wrappers of the CUDA LM fit kernels on a cut ROI batch:
-csrc/lq_fit.cu's K3, the single-pass fit, and K6, the same fit split
-into resumable phases with stragglers-first lane order between them;
-and K3 as a work queue (csrc/roi_lq_queue.cu, one persistent launch with
-lane refill and a cooperative straggler tail). :data:`ROI_FIT` is
-fit2D's route (ops/lq.fit_spots_batched).
+"""Wrappers of the CUDA LM fit kernels on a cut ROI batch: K3 as a
+work queue (csrc/roi_lq_queue.cu, one persistent launch with lane refill
+and a cooperative straggler tail, :func:`fit_queue_t`); K6, JAX's fit in
+phases, which on the card is one launch of the same queue
+(:func:`fit_boundary_t`); and the one-thread pass (csrc/lq_fit.cu,
+:func:`fit_t`), the fixed point both equal bit for bit. :data:`ROI_FIT`
+is fit2D's route (ops/lq.fit_spots_batched).
 
 Counterpart of picasso_tpu/ops/lq_pallas.py (fit_pallas_t,
 fit_pallas_boundary_t). A CUDA tensor launches the kernel or raises; a
-CPU tensor runs the plain PyTorch version of the same phases
+CPU tensor runs the plain PyTorch version of the same fit or phases
 (ops/lq.py). Nothing here falls back from one to the other.
 
-Launch counts (plain integers): ``fit_t.launches`` counts the kernel's
-single-pass (FULL) launches, ``fit_boundary_t.launches`` the phase
-(START/RESUME) launches of the K6 schedule, ``fit_queue_t.launches``
-the work queue's (1 a fit).
+Launch counts (plain integers): ``fit_t.launches`` counts the one-thread
+pass's launches, ``fit_boundary_t.launches`` and ``fit_queue_t.launches``
+the work queue's launched for each (1 a fit).
 """
 
 from __future__ import annotations
@@ -25,55 +25,32 @@ import torch
 from picasso_torch import _build
 from picasso_torch.ops import lq as _lq
 from picasso_torch.ops._fit_common import (
-    FULL, RESUME, START, check_spots, default_boundaries, on_cuda, phase_ends,
+    RESUME, START, check_spots, default_boundaries, on_cuda, phase_ends,
     run_phases,
 )
 
 
-def _launch(mode: int, spots_t, ftol: float, k: int, n_valid, carry=None):
-    """One launch of the LM kernel on ``spots_t``'s card. FULL returns
-    theta (6, N); START returns the carry (theta, lam, cost, done), and
-    RESUME updates the given carry in place and returns it."""
-    lib = _build.library()
-    s, _, n = spots_t.shape
-    dev = spots_t.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    if mode == RESUME:
-        for c in carry:
-            if (c.device != dev or c.dtype != torch.float32
-                    or not c.is_contiguous()):
-                raise ValueError(
-                    "LM carry must be contiguous float32 on the spots' device"
-                )
-    elif mode == START:
-        carry = (torch.empty((6, n), **f32), torch.empty((1, n), **f32),
-                 torch.empty((1, n), **f32), torch.empty((1, n), **f32))
-    else:
-        carry = (torch.empty((6, n), **f32),)
-    ptrs = [c.data_ptr() for c in carry] + [None] * (4 - len(carry))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.picasso_lq_fit(
-            spots_t.data_ptr(), n, s, float(ftol), int(k), mode,
-            n if n_valid is None else int(n_valid), *ptrs, stream,
-        )
-    _build.check(status, "lq_fit")
-    return carry[0] if mode == FULL else carry
-
-
 def fit_t(spots_t: torch.Tensor, max_it: int, ftol: float = 1e-6,
           n_valid=None) -> torch.Tensor:
-    """K3: LM-fit a lanes-last (S, S, N) f32 batch in one pass. Returns
-    theta (6, N), x/y relative to the box centre. Lanes at index >=
-    ``n_valid`` start done."""
+    """K3 in one pass, one thread a spot (lq_fit.cu): LM-fit a
+    lanes-last (S, S, N) f32 batch. Returns theta (6, N), x/y relative
+    to the box centre. Lanes at index >= ``n_valid`` start done."""
     if not on_cuda(spots_t):
         return _lq._lm_core(spots_t, max_it, ftol, n_valid)
     check_spots(spots_t)
-    if spots_t.shape[-1] == 0:
-        return torch.zeros((6, 0), dtype=torch.float32, device=spots_t.device)
-    out = _launch(FULL, spots_t, ftol, max_it, n_valid)
+    s, _, n = spots_t.shape
+    theta = torch.empty((6, n), dtype=torch.float32, device=spots_t.device)
+    if n == 0:
+        return theta
+    with torch.cuda.device(spots_t.device):
+        stream = torch.cuda.current_stream(spots_t.device).cuda_stream
+        status = _build.library().picasso_lq_fit(
+            spots_t.data_ptr(), n, s, float(ftol), int(max_it),
+            n if n_valid is None else int(n_valid), theta.data_ptr(), stream,
+        )
+    _build.check(status, "lq_fit")
     fit_t.launches += 1
-    return out
+    return theta
 
 
 fit_t.launches = 0
@@ -81,40 +58,49 @@ fit_t.launches = 0
 
 def fit_boundary_t(spots_t: torch.Tensor, max_it: int, ftol: float = 1e-6,
                    n_valid=None) -> torch.Tensor:
-    """K6: the fit of :func:`fit_t` run as phases that end at
-    ``default_boundaries(max_it)``, as K2's. Before each later phase the
-    lanes are stably reordered stragglers first; the order is undone at
-    the end. Every lane's trajectory is independent of its position, so
-    the result equals :func:`fit_t` bit for bit."""
+    """K6: picasso_tpu's fit_pallas_boundary_t, the fit of :func:`fit_t`
+    in phases that end at ``default_boundaries(max_it)`` with the lanes
+    stably reordered stragglers first between phases (the argsort of
+    ``done``, and a permute of the spots and the carry). A TPU lane
+    cannot take new work when its spot converges, so the phases gather
+    the spots still running into whole vregs. A lane of the card can: on
+    a CUDA tensor K6 is one launch of :func:`fit_queue_t`'s work queue,
+    in which a slot whose spot is done takes the next one, so no phase
+    boundary, argsort or permute is left to do and the result does not
+    depend on the boundaries; counted on ``fit_boundary_t.launches`` (1
+    a fit). On the CPU it is the phase schedule over the plain
+    ops/lq._lm_init/_lm_rounds, uncounted. Equals :func:`fit_t` bit for
+    bit either way."""
     return _fit_phases(spots_t, max_it, ftol, n_valid,
                        default_boundaries(max_it))
 
 
+fit_boundary_t.launches = 0
+
+
 def _fit_phases(spots_t, max_it, ftol, n_valid, boundaries):
-    """The K6 schedule with phases ending at ``boundaries``."""
-    cuda = on_cuda(spots_t)
-    if cuda:
+    """K6 with phases ending at ``boundaries``: on the card one launch of
+    the work queue (the boundaries do not exist there), on the CPU the
+    phase schedule."""
+    if on_cuda(spots_t):
         check_spots(spots_t)
+        theta = _launch_queue(spots_t, max_it, ftol, n_valid)
+        if spots_t.shape[-1]:
+            fit_boundary_t.launches += 1
+        return theta
     ends = phase_ends(boundaries, max_it)
     if not ends:
-        return fit_t(spots_t, max_it, ftol, n_valid)
+        return _lq._lm_core(spots_t, max_it, ftol, n_valid)
     if spots_t.shape[-1] == 0:
-        return torch.zeros((6, 0), dtype=torch.float32, device=spots_t.device)
+        return torch.zeros((6, 0), dtype=torch.float32)
 
     def phase(mode, spots, k, carry):
-        if cuda:
-            out = _launch(mode, spots, ftol, k, n_valid, carry)
-            fit_boundary_t.launches += 1
-            return out
         if mode == START:
             carry = _lq._lm_init(spots, n_valid)
         return _lq._lm_rounds(spots, *carry, k, ftol)
 
     carry, inv = run_phases(phase, spots_t, max_it, ends, 3, RESUME)
     return carry[0][:, inv]
-
-
-fit_boundary_t.launches = 0
 
 
 QUEUE_INFO = ("threads", "blocks_per_sm", "registers", "local_bytes",
@@ -134,6 +120,26 @@ def queue_info(box: int, lib=None) -> dict:
     return dict(zip(QUEUE_INFO, info))
 
 
+def _launch_queue(spots_t, max_it, ftol, n_valid, coop_steps=None):
+    """One launch of roi_lq_queue.cu's work queue on ``spots_t``'s card
+    (none for an empty batch); returns theta (6, N) in input order."""
+    s, _, n = spots_t.shape
+    theta = torch.empty((6, n), dtype=torch.float32, device=spots_t.device)
+    if n == 0:
+        return theta
+    counter = torch.zeros(1, dtype=torch.int32, device=spots_t.device)
+    with torch.cuda.device(spots_t.device):
+        stream = torch.cuda.current_stream(spots_t.device).cuda_stream
+        status = _build.library().picasso_roi_lq_queue(
+            spots_t.data_ptr(), n, s, float(ftol), int(max_it),
+            n if n_valid is None else int(n_valid), counter.data_ptr(),
+            theta.data_ptr(),
+            None if coop_steps is None else coop_steps.data_ptr(), stream,
+        )
+    _build.check(status, "roi_lq_queue")
+    return theta
+
+
 def fit_queue_t(spots_t: torch.Tensor, max_it: int, ftol: float = 1e-6,
                 n_valid=None, coop_steps=None) -> torch.Tensor:
     """K3 as a work queue: LM-fit a lanes-last (S, S, N) f32 batch in one
@@ -150,21 +156,9 @@ def fit_queue_t(spots_t: torch.Tensor, max_it: int, ftol: float = 1e-6,
     if coop_steps is not None and (coop_steps.device != spots_t.device
                                    or coop_steps.dtype != torch.int32):
         raise ValueError("coop_steps must be an int32 tensor on the card")
-    s, _, n = spots_t.shape
-    theta = torch.empty((6, n), dtype=torch.float32, device=spots_t.device)
-    if n == 0:
-        return theta
-    counter = torch.zeros(1, dtype=torch.int32, device=spots_t.device)
-    with torch.cuda.device(spots_t.device):
-        stream = torch.cuda.current_stream(spots_t.device).cuda_stream
-        status = _build.library().picasso_roi_lq_queue(
-            spots_t.data_ptr(), n, s, float(ftol), int(max_it),
-            n if n_valid is None else int(n_valid), counter.data_ptr(),
-            theta.data_ptr(),
-            None if coop_steps is None else coop_steps.data_ptr(), stream,
-        )
-    _build.check(status, "roi_lq_queue")
-    fit_queue_t.launches += 1
+    theta = _launch_queue(spots_t, max_it, ftol, n_valid, coop_steps)
+    if spots_t.shape[-1]:
+        fit_queue_t.launches += 1
     return theta
 
 

@@ -7,7 +7,8 @@ Counterpart of picasso_tpu/postprocess.py (get_index_blocks :58,
 get_block_locs_at :84, picked_locs :106, n_segments :1159, segment
 :1171, undrift :1204, undrift_from_picked :1246 with
 _undrift_from_picked_coordinate :1261, undrift_from_fiducials :1299,
-apply_drift :1351; and the statistics and linking: distance_histogram
+apply_drift :1351; align :1373, align_from_picked :1399, align_rcc
+:1538; and the statistics and linking: distance_histogram
 :540, pair_correlation :584, compute_local_density :600,
 _next_frame_neighbor_distance_histogram :632, nena :677, frc :724, _frc
 :773, dark_times :826, compute_dark_times :856, link :920 with the
@@ -334,6 +335,116 @@ def undrift_from_fiducials(locs: np.ndarray, info: list[dict],
 
 
 # ---------------------------------------------------------------------------
+# Channel alignment
+# ---------------------------------------------------------------------------
+
+
+def _shift(locs: np.ndarray, name: str, shift) -> None:
+    """Subtract ``shift`` from the field ``name`` in place, in the
+    field's dtype (a pandas column minus a numpy scalar keeps the
+    column's dtype and rounds the scalar to it first)."""
+    locs[name] -= locs.dtype[name].type(shift)
+
+
+def align(locs: list[np.ndarray], infos: list, display: bool = False, *,
+          apply_shifts: bool = True, return_shifts: bool = False,
+          device="cuda"):
+    """One RCC pass across channels (picasso/postprocess.py:3296): the
+    ``smooth`` render of each channel on ``device`` (the same shape for
+    every channel), the redundant cross-correlation of those images
+    (imageprocess.rcc), and with ``apply_shifts`` each channel's shift
+    subtracted from its x and y in place, as JAX's pandas columns are.
+    Returns the locs, and with ``return_shifts`` (shift_x, shift_y) too.
+    ``display`` is accepted for JAX's signature."""
+    device = lib.resolve_device(device)
+    images = torch.stack([
+        render.render_t(render.columns(locs_, ("x", "y"), device), info_,
+                        blur_method="smooth")[1]
+        for locs_, info_ in zip(locs, infos)])
+    shift_y, shift_x = imageprocess.rcc(images)
+    if apply_shifts:
+        for locs_, dx, dy in zip(locs, shift_x, shift_y):
+            _shift(locs_, "y", dy)
+            _shift(locs_, "x", dx)
+    if return_shifts:
+        return locs, (shift_x, shift_y)
+    return locs
+
+
+def align_rcc(locs: list[np.ndarray], infos: list, display: bool = False,
+              return_shifts: bool = False, *, device="cuda"):
+    """RCC alignment of copies of the channels, repeated until every
+    channel's |dx| + |dy| is at most 0.001 px or 5 passes have run
+    (picasso/postprocess.py:3352). Returns the aligned locs, and with
+    ``return_shifts`` (the mean x shift of each pass, the mean y
+    shift)."""
+    locs = [locs_.copy() for locs_ in locs]
+    convergence = 0.001
+    shift_x_hist, shift_y_hist = [], []
+    for _ in range(5):
+        _, (sx, sy) = align(locs, infos, apply_shifts=False,
+                            return_shifts=True, device=device)
+        completed = True
+        for locs_, dx, dy in zip(locs, sx, sy):
+            if abs(dx) + abs(dy) > convergence:
+                completed = False
+            _shift(locs_, "x", dx)
+            _shift(locs_, "y", dy)
+        shift_x_hist.append(np.mean(sx))
+        shift_y_hist.append(np.mean(sy))
+        if completed:
+            break
+    if return_shifts:
+        return locs, (shift_x_hist, shift_y_hist)
+    return locs
+
+
+def align_from_picked(all_locs: list[np.ndarray], infos: list, *,
+                      picks: list, pick_shape: str = "Circle",
+                      pick_size: float | None = None,
+                      return_shifts: bool = False, index_blocks=None):
+    """Align channels by the centres of mass of picked regions
+    (picasso/postprocess.py:3446): for every pair of channels the mean
+    over the picks of the difference of their centres of mass (a pick
+    without locs left out) in y, x and, when every channel's first pick
+    has z, in z; those pair shifts solved jointly by the RCC redundancy
+    step (lib.minimize_shifts), and each channel's shift subtracted from
+    a copy of it. Circles take ``pick_size`` as their diameter. On the
+    host, in numpy, as in JAX. Returns the aligned locs, and with
+    ``return_shifts`` the shifts (y, x[, z]) per channel."""
+    if pick_shape not in PICK_SHAPES:
+        raise ValueError(f"Invalid pick shape: {pick_shape}")
+    size = pick_size / 2 if pick_shape == "Circle" else pick_size
+    pl = [picked_locs(locs_, info_, picks, pick_shape, pick_size=size,
+                      add_group=False,
+                      index_blocks=index_blocks[ch] if index_blocks else None)
+          for ch, (locs_, info_) in enumerate(zip(all_locs, infos))]
+
+    def pair_shifts(name):
+        coms = [np.array([lib.series_mean_std(p[name])[0] if len(p)
+                          else np.nan for p in channel]) for channel in pl]
+        n = len(coms)
+        shifts = np.zeros((n, n))
+        for i in range(n - 1):
+            for j in range(i + 1, n):
+                shifts[i, j] = np.nanmean(coms[j] - coms[i])
+        return shifts
+
+    dz = (pair_shifts("z") if all("z" in channel[0].dtype.names
+                                  for channel in pl) else None)
+    shift = lib.minimize_shifts(pair_shifts("x"), pair_shifts("y"), dz)
+    aligned = []
+    for ch, locs_ in enumerate(all_locs):
+        out = locs_.copy()
+        for name, d in zip(("y", "x", "z"), shift):
+            _shift(out, name, d[ch])
+        aligned.append(out)
+    if return_shifts:
+        return aligned, shift
+    return aligned
+
+
+# ---------------------------------------------------------------------------
 # Localization statistics: pair distances, local density, NeNA, FRC,
 # nearest neighbours
 # ---------------------------------------------------------------------------
@@ -494,6 +605,11 @@ def nena(locs: np.ndarray, info=None, callback=None, *, device="cuda"):
     (result dict, s)."""
     bin_centers, dnfl = _next_frame_neighbor_distance_histogram(
         locs, callback, device=device)
+    return _nena_fit(locs, bin_centers, dnfl)
+
+
+def _nena_fit(locs: np.ndarray, bin_centers: np.ndarray, dnfl: np.ndarray):
+    """:func:`nena`'s fit of the distance histogram, on the host."""
 
     def func(d, delta_a, s, ac, dc, sc):
         a = ac + delta_a

@@ -87,13 +87,23 @@ def test_lq_kernel_matches_plain(dev, box):
 
 
 def test_lq_kernel_n_valid_and_resume(dev):
+    """K6 with any boundaries is one launch of the LM work queue, counted
+    on fit_boundary_t only, and equals the one pass bit for bit: the
+    result does not depend on the boundaries; lanes at n_valid and
+    beyond keep their initial parameters."""
     sp = torch.from_numpy(np.ascontiguousarray(
         make_spots(1000, seed=1).transpose(1, 2, 0)
     )).to(dev)
     sp[:, :, 900:] = 1.0  # degenerate: zero width, NaN cost
     a = lq_cuda.fit_t(sp, 12, FTOL, n_valid=900).cpu().numpy()
-    b = lq_cuda._fit_phases(sp, 12, FTOL, 900, (3, 7)).cpu().numpy()
-    np.testing.assert_array_equal(a, b)
+    for ends in ((3, 7), (), (1, 2, 5, 11), lq_cuda.default_boundaries(12)):
+        before = (lq_cuda.fit_boundary_t.launches, lq_cuda.fit_queue_t.launches,
+                  lq_cuda.fit_t.launches)
+        b = lq_cuda._fit_phases(sp, 12, FTOL, 900, ends).cpu().numpy()
+        assert (lq_cuda.fit_boundary_t.launches - before[0],
+                lq_cuda.fit_queue_t.launches - before[1],
+                lq_cuda.fit_t.launches - before[2]) == (1, 0, 0)
+        np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(
         a[:, 900:], lq.initial_parameters_t(sp).cpu().numpy()[:, 900:])
     assert np.isfinite(a[:, :900]).all()

@@ -171,13 +171,15 @@ def test_cli_profile_writes_a_trace(tmp_path, movie):
 
 @pytest.mark.parametrize("method", ["lq-3d", "avg"])
 def test_cli_unported_fit_methods_exit_2(tmp_path, method):
-    """Both methods run now (test_cli_avg_and_3d_match_the_jax_cli);
-    what stays refused exits 2 before any work: a -3d method without a
-    calibration (-zc), and -db (the server is not ported)."""
+    """Both methods run now (test_cli_avg_and_3d_match_the_jax_cli), and
+    so does -db (tests/test_torch_db.py); what stays refused exits 2
+    before any work: a -3d method without a calibration (-zc), and a
+    call without a movie (here with -db)."""
+    movie = [] if method == "avg" else [str(tmp_path / "x.raw")]
     args = ["-zc", ""] if method.endswith("-3d") else ["-db"]
     with pytest.raises(SystemExit) as exc:
-        cli.main(["localize", str(tmp_path / "x.raw"), "-d", "0",
-                  "-a", method, "--device", "cpu", *args])
+        cli.main(["localize", *movie, "-d", "0", "-a", method, "--device",
+                  "cpu", *args])
     assert exc.value.code == 2
 
 

@@ -113,6 +113,17 @@ def test_sources_hash_and_cover_every_entry():
     assert len(_build.source_hash()) == 16
 
 
+def test_lq_fit_keeps_only_its_one_pass():
+    """K6 is one launch of the LM work queue on the card, so lq_fit.cu
+    keeps only K3's one pass: no START/RESUME mode and no carry in its C
+    entry (spots, n, box, ftol, k, n_valid, theta, stream) or in the fit
+    body it instantiates."""
+    assert len(_build.SIGNATURES["picasso_lq_fit"]) == 8
+    for name in ("lq_fit.cu", "fit_lq.cuh"):
+        text = (_build.CSRC / name).read_text()
+        assert "kResume" not in text and "kStart" not in text, name
+
+
 @pytest.mark.parametrize("wrapper", ["fit_t", "fit_one_pass_t",
                                      "fit_boundary_t",
                                      "fit_multiround_t",
