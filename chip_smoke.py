@@ -137,7 +137,18 @@ Phases, each of which raises on failure (exit code != 0):
    lattice by a random sub-pixel amount (the movie's sites sit on
    integer pixels, where RCC at oversampling 1 cannot see a sub-pixel
    offset) and as they are: the offset left off the lattice under 0.1
-   px, the card against the CPU within DRIFT_AGREE, the walls.
+   px, the card against the CPU within DRIFT_AGREE, the walls;
+17. clustering (picasso_torch.clusterer; no kernel, the label sweep on
+   the host, csrc/cluster_sweep.cu): through the entry points, with every
+   count set to 0 just before, the SMLM clusterer (2D, frame analysis)
+   on the undrifted MLE locs and its cluster centers, the SMLM clusterer
+   in 3D on the localize_3D MLE locs (radius_z from their lpz), DBSCAN on
+   the undrifted locs and HDBSCAN on a 32 x 32 px window of them; then
+   the walls split (counts, neighbourhood max, the maxima's lists, the
+   sweep; DBSCAN's passes; HDBSCAN's core distances, Prim and the host
+   tree), and on a 64 x 64 px window the card's labels equal the CPU's
+   for SMLM (2D, 3D) and DBSCAN, HDBSCAN's on the 32 x 32 px window, the
+   centers within torch_parity.CENTERS_ULPS.
 IMS and STK movies are checked on the CPU only (tests/test_torch_io.py):
 the machine with the card has no h5py.
 The line before the last is the JSON record of every kernel (bound_ms:
@@ -203,6 +214,16 @@ DENSITY_R = 0.5  # px
 PC_BIN, PC_RMAX = 0.1, 10.0  # the pc verb's defaults
 CROP = 48  # px, the crop of the events on which pc is held to the CPU
 FRC_VIEW = ((112.0, 112.0), (144.0, 144.0))  # 32 x 32 px, card vs CPU
+# clustering (phase 17): the SMLM clusterer's radius, about 3x the NeNA of
+# the undrifted MLE locs (0.01676 px, phase 15), its min. locs, DBSCAN's
+# radius and density, HDBSCAN's min. cluster size and samples; the windows
+# (x0, y0, side) px where the card is held to the CPU (HDBSCAN's O(N^2)
+# Prim runs on the smaller one), and radius_z as a multiple of the median
+# lpz of the localize_3D MLE locs
+CLUSTER_R, CLUSTER_MIN = 0.05, 10
+HDBSCAN_MIN = 10
+WINDOW_64, WINDOW_32 = (96.0, 96.0, 64.0), (112.0, 112.0, 32.0)
+RADIUS_Z_LPZ = 3.0
 
 
 def _median_ms(fn, reps: int = 5, calls: int = 1) -> float:
@@ -795,6 +816,207 @@ def align_phase(locs, info, sites, smi: str):
     return walls
 
 
+def _window(locs, window):
+    x0, y0, side = window
+    return locs[(locs["x"] >= x0) & (locs["x"] < x0 + side)
+                & (locs["y"] >= y0) & (locs["y"] < y0 + side)]
+
+
+def cluster_phase(locs, info, locs3d, info3d, sites, counted, smi: str):
+    """17. clustering on the card. The main path through the entry
+    points with every count set to 0 just before (the host sweep of
+    csrc/cluster_sweep.cu launched once a SMLM run, no kernel): the SMLM
+    clusterer with frame analysis on ``locs`` (2D) and its centers, on
+    ``locs3d`` (3D, radius_z RADIUS_Z_LPZ x their median lpz), DBSCAN on
+    ``locs``, HDBSCAN on their WINDOW_32; then the SMLM 2D run split into
+    its passes (with the pairs the cells offered), DBSCAN's passes and
+    HDBSCAN's parts, and the RMS radius of the locs around their site's
+    mean (``sites``: the movie's, (row, column)); then on WINDOW_64
+    (HDBSCAN: WINDOW_32) the card against the CPU: labels and clustered
+    tables equal, centers within CENTERS_ULPS. Returns (launches,
+    walls)."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    from picasso_torch import clusterer
+    from picasso_torch.ops import cluster as cluster_ops
+    from picasso_torch.ops import neighbors
+    from torch_parity import CENTERS_ULPS, compare_tables_ulps
+
+    px = info3d[0]["Pixelsize"]
+    lpz = float(np.nanmedian(locs3d["lpz"]))
+    radius_z = round(RADIUS_Z_LPZ * lpz / px, 3)
+    win32 = _window(locs, WINDOW_32)
+    walls, out = {}, {}
+    sync = torch.cuda.synchronize
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        sync()
+        walls[name] = time.perf_counter() - t0
+
+    def main_path():
+        step("smlm 2d", lambda: clusterer.cluster(
+            locs, CLUSTER_R, CLUSTER_MIN, True, return_info=True,
+            device="cuda"))
+        step("centers", lambda: clusterer.find_cluster_centers(
+            out["smlm 2d"][0], device="cuda"))
+        step("smlm 3d", lambda: clusterer.cluster(
+            locs3d, CLUSTER_R, CLUSTER_MIN, True, radius_z=radius_z,
+            pixelsize=px, return_info=True, device="cuda"))
+        step("dbscan", lambda: clusterer.dbscan(
+            locs, CLUSTER_R, CLUSTER_MIN, return_info=True, device="cuda"))
+        step("hdbscan", lambda: clusterer.hdbscan(
+            win32, HDBSCAN_MIN, HDBSCAN_MIN, return_info=True,
+            device="cuda"))
+
+    _, wall, launches = counted(main_path)
+    if launches["cluster sweep"] != 2 or any(
+            v for k, v in launches.items() if k != "cluster sweep"):
+        raise AssertionError(f"clustering launched {launches}")
+    c2d, i2d = out["smlm 2d"]
+    centers = out["centers"]
+    c3d, i3d = out["smlm 3d"]
+    dbs, idb = out["dbscan"]
+    hdb, ihd = out["hdbscan"]
+    for what, cl, inf in (("SMLM 2D", c2d, i2d), ("SMLM 3D", c3d, i3d),
+                          ("DBSCAN", dbs, idb), ("HDBSCAN", hdb, ihd)):
+        if not (len(cl) and inf["Number of clusters"] > 0
+                and np.isfinite(cl["x"]).all()):
+            raise AssertionError(f"{what}: no clusters ({inf})")
+    if len(centers) != i2d["Number of clusters"] or not (
+            np.isfinite(centers["x"]).all() and (centers["n_locs"]
+                                                 >= CLUSTER_MIN).all()):
+        raise AssertionError("cluster centers: not one finite row a cluster")
+    # the SMLM 2D run split into its passes on the card
+    X = torch.from_numpy(np.column_stack([locs["x"], locs["y"]]).astype(
+        np.float32)).cuda()
+    split = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        split[name] = time.perf_counter() - t0
+        return r
+
+    n_pairs = timed("cells", lambda: sum(
+        len(i) for i, _ in neighbors.pairs(X, CLUSTER_R)))
+    counts = timed("counts", lambda: neighbors.cluster_counts(X, CLUSTER_R))
+    max_nb = timed("max", lambda: neighbors.radius_max(X, CLUSTER_R, counts))
+    lm = torch.nonzero((counts > CLUSTER_MIN) & (counts == max_nb))[:, 0]
+    csr = timed("lists", lambda: neighbors.neighbour_lists(X, CLUSTER_R, lm))
+    timed("sweep", lambda: cluster_ops.sweep(lm, *csr, len(X)))
+    Xd = torch.from_numpy(np.column_stack([locs["x"], locs["y"]]).astype(
+        np.float64)).cuda()
+    _, passes = timed("dbscan", lambda: cluster_ops.dbscan_labels(
+        Xd, CLUSTER_R, CLUSTER_MIN))
+    # how the locs spread around their site, and the sites that hold
+    # more than one cluster, against the clusters at larger radii
+    xy = np.column_stack([locs["x"], locs["y"]]).astype(np.float64)
+    sites_xy = np.unique(sites, axis=0)[:, ::-1].astype(np.float64)
+    tree = cKDTree(sites_xy)
+    near = tree.query(xy)[1]
+    dev2 = np.zeros(len(xy))
+    for c in range(2):
+        mean = (np.bincount(near, xy[:, c], len(sites_xy))
+                / np.maximum(np.bincount(near, minlength=len(sites_xy)), 1))
+        dev2 += (xy[:, c] - mean[near]) ** 2
+    spread = np.percentile(np.sqrt(dev2), [50, 90, 99])
+    per_site = np.bincount(tree.query(np.column_stack(
+        [centers["x"], centers["y"]]))[1], minlength=len(sites_xy))
+    wider = {r: clusterer.cluster(locs, r, CLUSTER_MIN, True, return_info=True,
+                                  device="cuda")[1]["Number of clusters"]
+             for r in (2 * CLUSTER_R, 4 * CLUSTER_R)}
+    hparts = {}
+    Xh = np.column_stack([win32["x"], win32["y"]])
+    clusterer._hdbscan(Xh, HDBSCAN_MIN, HDBSCAN_MIN, device="cuda",
+                       walls=hparts)
+    print(f"clustering ({smi}): main path {wall:.3f} s, launches {launches}")
+    print(f"  SMLM 2D: {len(locs)} locs, r {CLUSTER_R} px, min. locs "
+          f"{CLUSTER_MIN}, frame analysis: {i2d['Number of clusters']} "
+          f"clusters against {len(sites_xy)} sites ({np.sum(per_site > 1)} "
+          f"sites hold more than one; the locs' distance to their site's "
+          f"mean, percentiles 50/90/99: {spread.round(4).tolist()} px; at "
+          f"r {list(wider)} px {list(wider.values())} clusters), "
+          f"{len(c2d)} locs clustered "
+          f"({i2d['Fraction of rejected locs (%)']:.2f}% rejected), "
+          f"{len(lm)} local maxima, {n_pairs} pairs tested: card "
+          f"{walls['smlm 2d']:.3f} s (split: cells alone "
+          f"{split['cells']:.3f}, counts {split['counts']:.3f}, max "
+          f"{split['max']:.3f}, maxima's lists {split['lists']:.3f} "
+          f"({int(csr[2].numel())} neighbours), sweep with readback "
+          f"{split['sweep']:.3f} s); find_cluster_centers "
+          f"{walls['centers']:.3f} s")
+    print(f"  SMLM 3D: {len(locs3d)} locs, radius_z {radius_z} px ("
+          f"{RADIUS_Z_LPZ} x the median lpz {lpz:.2f} nm / {px} nm): "
+          f"{i3d['Number of clusters']} clusters, {len(c3d)} locs: card "
+          f"{walls['smlm 3d']:.3f} s")
+    print(f"  DBSCAN: r {CLUSTER_R} px, min. density {CLUSTER_MIN}: "
+          f"{idb['Number of clusters']} clusters, {len(dbs)} locs: card "
+          f"{walls['dbscan']:.3f} s; {passes} passes of the components to "
+          f"their fixed point (labels alone {split['dbscan']:.3f} s)")
+    print(f"  HDBSCAN: {len(win32)} locs of the {WINDOW_32} window, min. "
+          f"cluster size and samples {HDBSCAN_MIN}: "
+          f"{ihd['Number of clusters']} clusters, {len(hdb)} locs: card "
+          f"{walls['hdbscan']:.3f} s (again, split: core distances "
+          f"{hparts['core']:.3f}, Prim {hparts['prim']:.3f}, host tree "
+          f"{hparts['tree']:.3f} s)")
+    # the card against the CPU on the windows
+    w64, w64_3d = _window(locs, WINDOW_64), _window(locs3d, WINDOW_64)
+    checks = {
+        "SMLM 2D": lambda d: clusterer.cluster(w64, CLUSTER_R, CLUSTER_MIN,
+                                               True, device=d),
+        "SMLM 3D": lambda d: clusterer.cluster(
+            w64_3d, CLUSTER_R, CLUSTER_MIN, True, radius_z=radius_z,
+            pixelsize=px, device=d),
+        "DBSCAN": lambda d: clusterer.dbscan(w64, CLUSTER_R, CLUSTER_MIN,
+                                             device=d),
+        "HDBSCAN": lambda d: clusterer.hdbscan(win32, HDBSCAN_MIN,
+                                               HDBSCAN_MIN, device=d),
+    }
+    cmp = {}
+    for what, fn in checks.items():
+        if what == "HDBSCAN":  # the card's run is the main path's
+            card, t_card = hdb, walls["hdbscan"]
+        else:
+            t0 = time.perf_counter()
+            card = fn("cuda")
+            sync()
+            t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = fn("cpu")
+        t_cpu = time.perf_counter() - t0
+        if card.dtype != cpu.dtype or not all(
+                np.array_equal(card[n], cpu[n]) for n in card.dtype.names):
+            raise AssertionError(f"{what}: the card's clustered locs differ "
+                                 "from the CPU's")
+        cmp[what] = (len(card), len(np.unique(card["group"])), t_card, t_cpu)
+        if what == "SMLM 2D":
+            t0 = time.perf_counter()
+            ctr = clusterer.find_cluster_centers(card, device="cuda")
+            sync()
+            t1 = time.perf_counter()
+            ctr_cpu = clusterer.find_cluster_centers(card, device="cpu")
+            t2 = time.perf_counter()
+            differ = compare_tables_ulps(ctr, ctr_cpu, CENTERS_ULPS,
+                                         "cluster centers card vs CPU")
+            cmp["centers"] = (len(ctr), differ, t1 - t0, t2 - t1)
+    print(f"  card == CPU ({smi}): " + "; ".join(
+        f"{k} {v[0]} locs in {v[1]} clusters, card {v[2]:.3f} s, CPU "
+        f"{v[3]:.3f} s" for k, v in cmp.items() if k != "centers")
+        + f" (SMLM and DBSCAN on {len(w64)} / {len(w64_3d)} (3D) locs of "
+        f"the {WINDOW_64} window, HDBSCAN on the {WINDOW_32} one); centers "
+        f"of {cmp['centers'][0]} clusters within {CENTERS_ULPS} ulps "
+        f"({cmp['centers'][1]} float cells differ), card "
+        f"{cmp['centers'][2]:.3f} s, CPU {cmp['centers'][3]:.3f} s")
+    walls.update({"split " + k: v for k, v in split.items()})
+    walls.update({"hdbscan " + k: v for k, v in hparts.items()})
+    return launches, walls
+
+
 def main() -> int:
     import torch
 
@@ -809,8 +1031,8 @@ def main() -> int:
         postprocess, render, zfit,
     )
     from picasso_torch.ops import (
-        fused, identify, identify_cuda, link, lq, lq_cuda, mle, mle_cuda,
-        winfit_cuda,
+        cluster, fused, identify, identify_cuda, link, lq, lq_cuda, mle,
+        mle_cuda, winfit_cuda,
     )
     from picasso_torch.ops._fit_common import FINISH
     from torch_data import (
@@ -1205,7 +1427,8 @@ def main() -> int:
                 "K5 mle phases": winfit_cuda.fit_mle_boundary_t,
                 "K5 mle queue": winfit_cuda.fit_mle_queue_t,
                 "K5 lq queue": winfit_cuda.fit_lq_queue_t,
-                "K7": mle_cuda.fit_multiround_t, "link walk": link.walk}
+                "K7": mle_cuda.fit_multiround_t, "link walk": link.walk,
+                "cluster sweep": cluster.sweep}
 
     n_chunks = -(-len(movie) // CHUNK)
 
@@ -2149,12 +2372,20 @@ def main() -> int:
     # 16. align_rcc on two channels --------------------------------------
     t16 = time.perf_counter()
     align_phase(undrifted, info, bench_sites, smi)
-    print(f"phases 15-16: {t16 - t15:.1f} s and "
-          f"{time.perf_counter() - t16:.1f} s ({smi})")
-    print("host code (no kernel):", json.dumps({
+    # 17. clustering -----------------------------------------------------
+    t17 = time.perf_counter()
+    launches_cl, _ = cluster_phase(undrifted, info, locs3d_by["gaussmle"],
+                                   info3d, bench_sites, counted, smi)
+    print(f"phases 15-16: {t16 - t15:.1f} s and {t17 - t16:.1f} s, phase "
+          f"17: {time.perf_counter() - t17:.1f} s ({smi})")
+    print("host code (no kernel):", json.dumps([{
         "name": "link_walk", "source": "picasso_torch/csrc/link_walk.cu",
         "replaces": "picasso_tpu/native/picasso_native.cpp:38",
-        "launches": launches_link["link walk"] + launches_db["link walk"]}))
+        "launches": launches_link["link walk"] + launches_db["link walk"]}, {
+        "name": "cluster_sweep",
+        "source": "picasso_torch/csrc/cluster_sweep.cu",
+        "replaces": "picasso_tpu/native/picasso_native.cpp:392",
+        "launches": launches_cl["cluster sweep"]}]))
     tiff_dir.cleanup()
     paths = {"mle": launches_mle, "mle-sigma": launches_sig,
              "lq": launches_lq, "tiff": launches_tif,
@@ -2163,7 +2394,7 @@ def main() -> int:
              "fit2D-mle": launches_k2,
              "fit2D-lq": launches_k3, "3d-mle": paths3d["gaussmle"],
              "3d-lq": paths3d["gausslq"], "link": launches_link,
-             "db": launches_db}
+             "db": launches_db, "cluster": launches_cl}
     print("launches by path:", json.dumps(paths))
 
     # the kernels line -----------------------------------------------------

@@ -21,6 +21,10 @@ Counterpart of picasso_tpu/__main__.py for the verbs ported so far:
     python -m picasso_torch join a.hdf5 b.hdf5 [-k]
     python -m picasso_torch cluster_combine "*.hdf5"
     python -m picasso_torch cluster_combine_dist "*_comb.hdf5"
+    python -m picasso_torch smlm_cluster "*_locs.hdf5" RADIUS MIN_LOCS
+        [-z RADIUS_Z] [-f 0|1]
+    python -m picasso_torch dbscan "*_locs.hdf5" RADIUS DENSITY
+    python -m picasso_torch hdbscan "*_locs.hdf5" MIN_CLUSTER MIN_SAMPLES
 
 ``localize`` reads .raw, .tif/.tiff series, .ims, .stk and .nd2 movies
 and takes the JAX CLI's flags and defaults plus ``--device`` (default
@@ -43,9 +47,12 @@ text beside it; ``render`` writes ``<base>.png`` through matplotlib.
 ``pc`` (``_pc.csv``), ``nneighbor`` (``_nn.csv``), ``clusterfilter``
 (``_filter.hdf5``), ``join`` (``<first>_join.hdf5``), ``cluster_combine``
 (``_comb.hdf5``) and ``cluster_combine_dist`` (``_cdist.hdf5``) write the
-JAX CLI's files with its info blocks and messages. Every verb after
-localize but ``toraw``, ``join`` and ``clusterfilter`` takes ``--device``
-too.
+JAX CLI's files with its info blocks and messages; so do the clusterers
+``smlm_cluster`` (``_clustered.hdf5``, ``_cluster_centers.hdf5``),
+``dbscan`` (``_dbscan.hdf5``, ``_dbscan_centers.hdf5``) and ``hdbscan``
+(``_hdbscan.hdf5``, ``_hdbscan_centers.hdf5``), which need no sklearn.
+Every verb after localize but ``toraw``, ``join`` and ``clusterfilter``
+takes ``--device`` too.
 """
 
 from __future__ import annotations
@@ -386,6 +393,54 @@ def _cluster_combine_dist(args):
         print(f"Cluster combine dist -> {out}")
 
 
+def _clusterer_verb(args, run, suffix: str, centers_suffix: str,
+                    message: str):
+    """A clusterer verb: each file clustered by ``run(locs, pixelsize,
+    device)`` (-> locs, info block), written to ``<base><suffix>.hdf5``
+    with its cluster centers in ``<base><centers_suffix>.hdf5``."""
+    from picasso_torch import clusterer, io, lib
+
+    device = lib.resolve_device(args.device)
+    for path in _iter_files(args.files):
+        locs, info = io.load_locs(path)
+        pixelsize = lib.get_from_metadata(info, "Pixelsize", 130)
+        clustered, cinfo = run(locs, pixelsize, device)
+        out = _out_path(path, suffix)
+        io.save_locs(out, clustered, info + [cinfo])
+        centers = clusterer.find_cluster_centers(clustered, pixelsize,
+                                                 device=device)
+        io.save_locs(_out_path(path, centers_suffix), centers,
+                     info + [cinfo])
+        print(f"{message} -> {out}")
+
+
+def _dbscan(args):
+    from picasso_torch import clusterer
+
+    _clusterer_verb(args, lambda locs, px, device: clusterer.dbscan(
+        locs, args.radius, args.density, pixelsize=px, return_info=True,
+        device=device), "_dbscan", "_dbscan_centers", "DBSCAN")
+
+
+def _hdbscan(args):
+    from picasso_torch import clusterer
+
+    _clusterer_verb(args, lambda locs, px, device: clusterer.hdbscan(
+        locs, args.min_cluster, args.min_samples, pixelsize=px,
+        return_info=True, device=device), "_hdbscan", "_hdbscan_centers",
+        "HDBSCAN")
+
+
+def _smlm_cluster(args):
+    from picasso_torch import clusterer
+
+    _clusterer_verb(args, lambda locs, px, device: clusterer.cluster(
+        locs, radius_xy=args.radius, min_locs=args.min_locs,
+        frame_analysis=bool(args.basic_fa), radius_z=args.radius_z,
+        pixelsize=px, return_info=True, device=device), "_clustered",
+        "_cluster_centers", "SMLM cluster")
+
+
 @contextlib.contextmanager
 def _profile(trace_dir: str | None):
     """torch.profiler trace of the command into ``trace_dir``."""
@@ -541,6 +596,26 @@ def main(argv=None):
     p.add_argument("files")
     _device_arg(p)
 
+    p = subparsers.add_parser("dbscan", help="DBSCAN clustering")
+    p.add_argument("files")
+    p.add_argument("radius", type=float)
+    p.add_argument("density", type=int)
+    _device_arg(p)
+
+    p = subparsers.add_parser("hdbscan", help="HDBSCAN clustering")
+    p.add_argument("files")
+    p.add_argument("min_cluster", type=int)
+    p.add_argument("min_samples", type=int)
+    _device_arg(p)
+
+    p = subparsers.add_parser("smlm_cluster", help="SMLM clustering")
+    p.add_argument("files")
+    p.add_argument("radius", type=float)
+    p.add_argument("min_locs", type=int)
+    p.add_argument("-z", "--radius-z", type=float, default=None)
+    p.add_argument("-f", "--basic-fa", type=int, default=0)
+    _device_arg(p)
+
     args = parser.parse_args(argv)
     if args.command is None:
         parser.print_help()
@@ -552,7 +627,9 @@ def main(argv=None):
              "align": _align, "join": _join, "groupprops": _groupprops,
              "pc": _pc,
              "cluster_combine": _cluster_combine,
-             "cluster_combine_dist": _cluster_combine_dist}
+             "cluster_combine_dist": _cluster_combine_dist,
+             "dbscan": _dbscan, "hdbscan": _hdbscan,
+             "smlm_cluster": _smlm_cluster}
     if args.command in verbs:
         verbs[args.command](args)
         return

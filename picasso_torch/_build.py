@@ -102,6 +102,9 @@ SIGNATURES = {
     "picasso_link_walk": [
         _P, _P, _LL, _P,                       # offsets, succ, n, out (host)
     ],
+    "picasso_cluster_sweep": [
+        _P, _P, _P, _P, _LL, _P,               # maxima, starts, stops, cols, m,
+    ],                                         # labels (host)
 }
 
 

@@ -1,9 +1,11 @@
-"""The masks and smoothing that the Fourier ring correlation uses.
+"""The masks and smoothing that the Fourier ring correlation uses, and
+Otsu's threshold of the clusterer's areas.
 
 Counterpart of picasso_tpu/masking.py:255-293 (threshold_tukey,
-loess_smooth); the rest of that module (the image masks of the Mask
-tool) is not ported. The Tukey mask is made on the image's device from
-its 1D window, the LOESS runs on the host on a 1D curve.
+loess_smooth) and :174 (threshold_otsu, which the clusterer's areas
+use); the rest of that module (the image masks of the Mask tool) is not
+ported. The Tukey mask is made on the image's device from its 1D window,
+the LOESS and Otsu's threshold run on the host.
 """
 
 from __future__ import annotations
@@ -67,3 +69,21 @@ def loess_smooth(arr, span: int = 5) -> np.ndarray:
         slope = cov / var if var > 0 else 0.0
         out[i] = ym + slope * (i - xm)
     return out
+
+
+def _histogram(image, bins: int = 256):
+    counts, edges = np.histogram(np.asarray(image).ravel(), bins=bins)
+    return counts.astype(np.float64), (edges[:-1] + edges[1:]) / 2.0
+
+
+def threshold_otsu(image: np.ndarray) -> float:
+    """Otsu's threshold: the bin centre of a 256-bin histogram that
+    maximizes the between-class variance (picasso_tpu/masking.py:174)."""
+    counts, centers = _histogram(image)
+    w1 = np.cumsum(counts)
+    w2 = np.cumsum(counts[::-1])[::-1]
+    m1 = np.cumsum(counts * centers) / np.maximum(w1, 1e-12)
+    m2 = (np.cumsum((counts * centers)[::-1])
+          / np.maximum(w2[::-1], 1e-12))[::-1]
+    var_between = w1[:-1] * w2[1:] * (m1[:-1] - m2[1:]) ** 2
+    return float(centers[np.argmax(var_between)])

@@ -2,18 +2,24 @@
 radius, blocked tiles for the k nearest neighbours.
 
 Counterpart of picasso_tpu/ops/neighbors.py (knn :123,
-pairwise_distance_histogram :324, radius_count :401), whose O(N^2)
-distance tiles serve the TPU, and of the cKDTree route that
+pairwise_distance_histogram :324, radius_count :401, radius_max :474),
+whose O(N^2) distance tiles serve the TPU, and of the cKDTree route that
 picasso_tpu/postprocess.py takes off a TPU (distance_histogram :540,
 compute_local_density :600, nn_analysis :1661). The port holds to the
 cKDTree route: distances in f64 from the input coordinates, compared as
-squares against the squared radius (cKDTree tests d^2 <= r * r).
+squares against the squared radius (cKDTree tests d^2 <= r * r). The
+SMLM clusterer's passes (:func:`cluster_counts`, :func:`radius_max`,
+:func:`neighbour_lists`) hold to the native core of
+picasso_tpu/native/picasso_native.cpp:338-345 instead: f32 coordinates,
+d^2 = dx*dx + dy*dy (+ dz*dz) summed in f32 and compared in f64 with
+radius * radius (:func:`native_within`).
 
 Cells: the points sorted by one packed int64 key, (lead fields such as
 group and frame, cell row, cell column), with square cells of side a
 little over the radius (:data:`CELL_MARGIN`), so that a neighbour lies
-in the 3 x 3 cells around a point's own. For a fixed row those are one
-index range of the sorted keys, found with ``torch.searchsorted``.
+in the 3 x 3 cells around a point's own (3 x 3 x 3 in 3D, where the z
+cell is a lead field). For a fixed row those are one index range of the
+sorted keys, found with ``torch.searchsorted``.
 Candidate pairs are expanded from the ranges in chunks of about a pair
 budget (``repeat_interleave`` over the range lengths) and tested
 exactly; nothing of size N x M is made. The cells are only a filter.
@@ -99,11 +105,12 @@ class CellIndex:
         rank[self.order] = torch.arange(len(rank), device=rank.device)
         return rank
 
-    def row_range(self, offsets: Sequence[int]):
+    def row_range(self, offsets: Sequence[int], key=None):
         """(lo, hi) of the sorted positions in the three cells (column - 1
         .. column + 1) of the row a point's own fields plus ``offsets``
-        (one per field but the column) name."""
-        base = self.key.clone()
+        (one per field but the column) name; for the points of ``key``
+        (a subset of :attr:`key`) when given."""
+        base = (self.key if key is None else key).clone()
         for o, m in zip(offsets, self.mult[:-1]):
             if o:
                 base += o * m
@@ -145,42 +152,150 @@ def expand(lo: torch.Tensor, hi: torch.Tensor,
         start, done = end, upto
 
 
+def grid(x: torch.Tensor, y: torch.Tensor, radius: float,
+         z: torch.Tensor | None = None) -> CellIndex:
+    """The cells of side :func:`cell_side` (``radius``) of the points, the
+    z cell (when ``z`` is given) as their lead field."""
+    cell = cell_side(radius)
+    lead = []
+    if z is not None:
+        cz = _cells(z, cell)
+        lo = int(cz.min()) if len(cz) else 0
+        hi = int(cz.max()) if len(cz) else 0
+        lead = [(cz - lo + 1, hi - lo + 3)]
+    return CellIndex(x, y, cell, lead)
+
+
+def _offsets(three_d: bool, half: bool) -> list[tuple[int, ...]]:
+    """The rows (dz, dy) around a point's own to search: all of them, or
+    for unordered pairs once, those after its own row in the key order."""
+    rows = [(dz, dy) for dz in ((-1, 0, 1) if three_d else (0,))
+            for dy in (-1, 0, 1)]
+    if half:
+        rows = [r for r in rows if r > (0, 0)]
+    return [r[1:] if not three_d else r for r in rows]
+
+
 def half_pairs(x: torch.Tensor, y: torch.Tensor, radius: float,
-               budget: int = PAIR_BUDGET):
+               budget: int = PAIR_BUDGET, z: torch.Tensor | None = None):
     """Every unordered pair of points in neighbouring cells, once: the
     rest of a point's own row after it (its cell and the next), and the
-    three cells of the next row. Yields (i, j) index chunks; the caller
-    tests the distance."""
-    cells = CellIndex(x, y, cell_side(radius))
-    rank = cells.rank()
-    _, hi0 = cells.row_range((0,))
-    lo1, hi1 = cells.row_range((1,))
-    lo = torch.stack([rank + 1, lo1], 1)
-    hi = torch.stack([hi0, hi1], 1)
+    three cells of each later row around it (the next row; in 3D also
+    the three rows of the next z layer). Yields (i, j) index chunks; the
+    caller tests the distance."""
+    cells = grid(x, y, radius, z)
+    own = (0, 0) if z is not None else (0,)
+    _, hi0 = cells.row_range(own)
+    ranges = [cells.row_range(o) for o in _offsets(z is not None, True)]
+    lo = torch.stack([cells.rank() + 1] + [r[0] for r in ranges], 1)
+    hi = torch.stack([hi0] + [r[1] for r in ranges], 1)
     order = cells.order
     for i, pos in expand(lo, hi, budget):
         yield i, order[pos]
 
 
-def _d2(x, y, i, j) -> torch.Tensor:
-    """Squared distances of the pairs in f64, (dx^2 + dy^2) as cKDTree
-    sums them."""
-    dx = x[i] - x[j]
-    dy = y[i] - y[j]
-    return dx * dx + dy * dy
+def _columns(X: torch.Tensor):
+    """(x, y, z or None) of an (n, 2) or (n, 3) coordinate tensor."""
+    if X.ndim != 2 or X.shape[1] not in (2, 3):
+        raise ValueError(f"coordinates must be (n, 2) or (n, 3), got "
+                         f"{tuple(X.shape)}")
+    return X[:, 0], X[:, 1], (X[:, 2] if X.shape[1] == 3 else None)
+
+
+def pairs(X: torch.Tensor, radius: float, budget: int = PAIR_BUDGET):
+    """:func:`half_pairs` of the 2 or 3 columns of ``X``."""
+    x, y, z = _columns(X)
+    yield from half_pairs(x, y, radius, budget, z)
+
+
+def pair_d2(X: torch.Tensor, i: torch.Tensor, j: torch.Tensor
+            ) -> torch.Tensor:
+    """Squared distances of the pairs (i, j) of the points ``X`` in their
+    dtype, (dx*dx + dy*dy) + dz*dz one op at a time (no fused
+    multiply-add), as the native core, sklearn and cKDTree sum them."""
+    d2 = None
+    for c in range(X.shape[1]):
+        d = X[i, c] - X[j, c]
+        d2 = d * d if d2 is None else d2 + d * d
+    return d2
+
+
+def native_within(X: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
+                  radius: float) -> torch.Tensor:
+    """The pairs (i, j) of the f32 points ``X`` within ``radius`` by the
+    native core's test: :func:`pair_d2` in f32 compared as f64 with
+    radius * radius in f64 (picasso_native.cpp:338-345, :366)."""
+    return pair_d2(X, i, j).to(torch.float64) <= float(radius) * float(radius)
+
+
+def cluster_counts(X: torch.Tensor, radius: float,
+                   budget: int = PAIR_BUDGET) -> torch.Tensor:
+    """For each f32 point of ``X`` (n, 2|3), the points within ``radius``
+    by :func:`native_within`, the point itself included; int64 on its
+    device."""
+    counts = torch.ones(len(X), dtype=torch.int64, device=X.device)
+    for i, j in pairs(X, radius, budget):
+        one = native_within(X, i, j, radius).to(torch.int64)
+        counts.index_add_(0, i, one)
+        counts.index_add_(0, j, one)
+    return counts
+
+
+def radius_max(X: torch.Tensor, radius: float, values: torch.Tensor,
+               budget: int = PAIR_BUDGET) -> torch.Tensor:
+    """For each f32 point of ``X``, the max of ``values`` over the points
+    within ``radius`` by :func:`native_within`, the point itself
+    included (the neighbourhood max of the SMLM clusterer)."""
+    out = values.clone()
+    for i, j in pairs(X, radius, budget):
+        ok = native_within(X, i, j, radius)
+        # a pair outside the radius offers the point's own value
+        out.scatter_reduce_(0, i, torch.where(ok, values[j], values[i]),
+                            "amax")
+        out.scatter_reduce_(0, j, torch.where(ok, values[i], values[j]),
+                            "amax")
+    return out
+
+
+def neighbour_lists(X: torch.Tensor, radius: float, rows: torch.Tensor,
+                    budget: int = PAIR_BUDGET):
+    """The neighbours of the points ``rows`` (int64 indices into ``X``)
+    by :func:`native_within`, each point itself left out, as a CSR in the
+    order of ``rows``: (starts, stops, cols) int64 on the device, the
+    neighbours of rows[k] cols[starts[k]:stops[k]]. Only these rows'
+    pairs are expanded."""
+    x, y, z = _columns(X)
+    cells = grid(x, y, radius, z)
+    key = cells.key[rows]
+    ranges = [cells.row_range(o, key) for o in _offsets(z is not None, False)]
+    lo = torch.stack([r[0] for r in ranges], 1)
+    hi = torch.stack([r[1] for r in ranges], 1)
+    counts = torch.zeros(len(rows), dtype=torch.int64, device=X.device)
+    cols = []
+    for k, pos in expand(lo, hi, budget):
+        i, j = rows[k], cells.order[pos]
+        ok = native_within(X, i, j, radius) & (i != j)
+        counts.index_add_(0, k[ok], torch.ones_like(k[ok]))
+        cols.append(j[ok])
+    stops = torch.cumsum(counts, 0)
+    cols = (torch.cat(cols) if cols else
+            torch.zeros(0, dtype=torch.int64, device=X.device))
+    return stops - counts, stops, cols
 
 
 def radius_count(x: torch.Tensor, y: torch.Tensor, radius: float,
-                 budget: int = PAIR_BUDGET) -> torch.Tensor:
-    """For each point, the other points within ``radius`` (d^2 <=
-    radius^2 in f64, as cKDTree.query_ball_point less the point itself);
-    int64 on the points' device."""
-    x, y = x.to(torch.float64), y.to(torch.float64)
-    counts = torch.zeros(len(x), dtype=torch.int64, device=x.device)
+                 budget: int = PAIR_BUDGET,
+                 z: torch.Tensor | None = None) -> torch.Tensor:
+    """For each point (2D, or 3D with ``z``), the other points within
+    ``radius``: d^2 (:func:`pair_d2` in f64 from the coordinates) <=
+    radius^2, as cKDTree.query_ball_point and sklearn's KDTree count
+    them, less the point itself; int64 on the points' device."""
+    X = torch.stack([c.to(torch.float64) for c in (x, y, z)
+                     if c is not None], 1)
+    counts = torch.zeros(len(X), dtype=torch.int64, device=X.device)
     r2 = float(radius) * float(radius)
-    for i, j in half_pairs(x, y, radius, budget):
-        ok = _d2(x, y, i, j) <= r2
-        one = ok.to(torch.int64)
+    for i, j in pairs(X, radius, budget):
+        one = (pair_d2(X, i, j) <= r2).to(torch.int64)
         counts.index_add_(0, i, one)
         counts.index_add_(0, j, one)
     return counts
@@ -201,14 +316,14 @@ def pairwise_distance_histogram(x: torch.Tensor, y: torch.Tensor,
     """Histogram (n_bins,) int64 of the distances of every unordered pair
     below n_bins * bin_size, in the bins of
     :func:`histogram_thresholds`."""
-    x, y = x.to(torch.float64), y.to(torch.float64)
+    X = torch.stack([x.to(torch.float64), y.to(torch.float64)], 1)
     hist = torch.zeros(n_bins, dtype=torch.int64, device=x.device)
     if n_bins <= 0 or len(x) < 2:
         return hist
     thr = torch.from_numpy(histogram_thresholds(bin_size, n_bins)[1:]).to(
         x.device)
-    for i, j in half_pairs(x, y, n_bins * bin_size, budget):
-        b = torch.searchsorted(thr, _d2(x, y, i, j), side="left")
+    for i, j in pairs(X, n_bins * bin_size, budget):
+        b = torch.searchsorted(thr, pair_d2(X, i, j), side="left")
         b = b[b < n_bins]
         hist += torch.bincount(b, minlength=n_bins)
     return hist

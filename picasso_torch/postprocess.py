@@ -13,7 +13,8 @@ apply_drift :1351; align :1373, align_from_picked :1399, align_rcc
 _next_frame_neighbor_distance_histogram :632, nena :677, frc :724, _frc
 :773, dark_times :826, compute_dark_times :856, link :920 with the
 native link_groups, _link_loc_groups :979, cluster_combine :1067,
-cluster_combine_dist :1109, groupprops :1579, nn_analysis :1661). Locs
+cluster_combine_dist :1109, groupprops :1579, nn_analysis :1661, resi
+:1687). Locs
 are numpy structured arrays. For RCC their columns go to ``device``
 once, each segment is rendered there with the Gaussian blur
 (render.render_t), the pair correlations run there
@@ -1122,3 +1123,86 @@ def cluster_combine_dist(locs: np.ndarray, pixelsize: float | None = None, *,
     else:
         out = _set_field(out, "min_dist", nn2(xy))
     return out
+
+
+# ---------------------------------------------------------------------------
+# RESI
+# ---------------------------------------------------------------------------
+
+
+def resi(locs: list[np.ndarray], infos: list, radius_xy, radius_z=None,
+         min_locs=10, apply_fa: bool = True,
+         save_clustered_locs: bool = False,
+         save_cluster_centers: bool = False, resi_path: str | None = None,
+         output_paths: list[str] | None = None,
+         suffix_locs: str = "_clustered",
+         suffix_centers: str = "_cluster_centers", progress_callback=None,
+         *, device="cuda") -> tuple[np.ndarray, list[dict]]:
+    """RESI (picasso/postprocess.py:3742): each channel SMLM-clustered
+    (clusterer.cluster with frame analysis ``apply_fa``) on ``device``,
+    its cluster centers tagged with ``resi_channel_id`` (int8), the
+    channels concatenated as pd.concat does (lib.merge_locs) and
+    ``group`` renamed ``cluster_id``. ``radius_xy``, ``radius_z`` and
+    ``min_locs`` are one value or one per channel."""
+    import os
+
+    from picasso_torch import __version__, clusterer, io
+
+    n_channels = len(locs)
+    if n_channels < 2:
+        raise ValueError(
+            f"RESI requires at least 2 channels, but got {n_channels}."
+            " Consider using SMLM Clusterer for single-channel"
+            " clustering.")
+
+    def as_list(v, name):
+        if isinstance(v, (int, float)):
+            return [v] * n_channels
+        if len(v) != n_channels:
+            raise ValueError(f"{name} list length ({len(v)}) must match "
+                             f"number of channels ({n_channels})")
+        return list(v)
+
+    radius_xy = as_list(radius_xy, "radius_xy")
+    min_locs = as_list(min_locs, "min_locs")
+    if radius_z is not None:
+        radius_z = as_list(radius_z, "radius_z")
+    centers_all, channel_params = [], []
+    for c in range(n_channels):
+        if callable(progress_callback):
+            progress_callback(c)
+        elif progress_callback == "console":
+            print(f"RESI: clustering channel {c + 1}/{n_channels}")
+        pixelsize = lib.get_from_metadata(infos[c], "Pixelsize", default=130)
+        rz = radius_z[c] if radius_z is not None else None
+        clustered = clusterer.cluster(
+            locs[c], radius_xy=radius_xy[c], min_locs=min_locs[c],
+            frame_analysis=apply_fa, radius_z=rz, pixelsize=pixelsize,
+            device=device)
+        centers = clusterer.find_cluster_centers(clustered, pixelsize,
+                                                 device=device)
+        base = (os.path.splitext(output_paths[c])[0] if output_paths
+                else None)
+        if save_clustered_locs and base:
+            io.save_locs(base + suffix_locs + ".hdf5", clustered, infos[c])
+        if save_cluster_centers and base:
+            io.save_locs(base + suffix_centers + ".hdf5", centers, infos[c])
+        centers_all.append(_with_fields(centers, [(
+            "resi_channel_id", np.full(len(centers), c, np.int8))]))
+        channel_params.append({
+            "Channel": c,
+            "Radius xy (px)": radius_xy[c],
+            "Radius z (px)": radius_z[c] if radius_z is not None else None,
+            "Min locs": min_locs[c],
+        })
+    resi_centers = lib.merge_locs(centers_all)
+    resi_centers = resi_centers.view([
+        ("cluster_id" if n == "group" else n, resi_centers.dtype[n])
+        for n in resi_centers.dtype.names])
+    resi_info = list(infos[0]) + [{
+        "Generated by": f"Picasso v{__version__} RESI",
+        "Channels": channel_params,
+    }]
+    if resi_path is not None:
+        io.save_locs(resi_path, resi_centers, resi_info)
+    return resi_centers, resi_info

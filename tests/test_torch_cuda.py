@@ -1071,3 +1071,63 @@ def test_statistics_on_the_card_equal_the_cpu(dev):
     np.testing.assert_allclose(fg["frc_curve"], fc["frc_curve"], rtol=0,
                                atol=1e-9)
     assert abs(fg["resolution"] / fc["resolution"] - 1) <= 1e-6
+
+
+def test_cluster_sweep_library_equals_its_python_twin(dev):
+    """csrc/cluster_sweep.cu (host code in the kernel library) == its
+    Python twin on random maxima with overlapping neighbourhoods, one
+    launch counted."""
+    from picasso_torch.ops import cluster
+
+    rng = np.random.default_rng(5)
+    n, m = 2000, 300
+    lm = np.sort(rng.choice(n, m, replace=False)).astype(np.int64)
+    sizes = rng.integers(0, 60, m)
+    stops = np.cumsum(sizes).astype(np.int64)
+    starts = stops - sizes
+    cols = rng.integers(0, n, int(sizes.sum())).astype(np.int64)
+    before = cluster.sweep.launches
+    got = cluster.sweep(*(_t(a).to(dev) for a in (lm, starts, stops, cols)),
+                        n)
+    assert cluster.sweep.launches == before + 1
+    np.testing.assert_array_equal(
+        got, cluster.sweep_plain(lm, starts, stops, cols, n))
+
+
+@pytest.mark.parametrize("what", ["smlm 2d", "smlm 3d", "dbscan", "dbscan 3d",
+                                  "hdbscan"])
+def test_clusterers_on_the_card_equal_the_cpu(dev, what):
+    """The clustered locs on the card equal the CPU's (the SMLM sweep in
+    the library, once a run); the SMLM centers within CENTERS_ULPS."""
+    from picasso_torch import clusterer
+    from picasso_torch.ops import cluster
+    from torch_data import make_event_locs
+    from torch_parity import CENTERS_ULPS, compare_tables_ulps
+
+    locs, _ = make_event_locs(9, n_sites=60, frames=1500, size=32)
+    if what.endswith("3d"):
+        z = np.random.default_rng(1).normal(0, 40, len(locs))
+        locs = postprocess._with_fields(locs, [("z", z.astype(np.float32))])
+    run = {
+        "smlm 2d": lambda d: clusterer.cluster(locs, 0.1, 5, True, device=d),
+        "smlm 3d": lambda d: clusterer.cluster(
+            locs, 0.1, 5, True, radius_z=0.3, pixelsize=130, device=d),
+        "dbscan": lambda d: clusterer.dbscan(locs, 0.08, 8, device=d),
+        "dbscan 3d": lambda d: clusterer.dbscan(locs, 0.08, 8, pixelsize=130,
+                                                radius_z=0.3, device=d),
+        "hdbscan": lambda d: clusterer.hdbscan(locs[:4000], 10, 10,
+                                               device=d),
+    }[what]
+    before = cluster.sweep.launches
+    card = run(dev)
+    assert cluster.sweep.launches == before + what.startswith("smlm")
+    cpu = run("cpu")
+    assert card.dtype == cpu.dtype and len(card) > 0
+    for n in card.dtype.names:
+        np.testing.assert_array_equal(card[n], cpu[n], err_msg=n)
+    if what.startswith("smlm"):
+        px = 130 if what.endswith("3d") else None
+        compare_tables_ulps(
+            clusterer.find_cluster_centers(card, px, device=dev),
+            clusterer.find_cluster_centers(card, px, device="cpu"),
+            CENTERS_ULPS, "centers")

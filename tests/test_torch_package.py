@@ -1,7 +1,7 @@
 """picasso_torch as a package: it and chip_smoke.py never import JAX,
-picasso_tpu or the JAX package's bench, its kernels build only from
-source with nvcc, and its kernel wrappers never fall back to the plain
-versions for a tensor that is not on the CPU."""
+picasso_tpu, the JAX package's bench, pandas or sklearn, its kernels
+build only from source with nvcc, and its kernel wrappers never fall
+back to the plain versions for a tensor that is not on the CPU."""
 
 from __future__ import annotations
 
@@ -51,22 +51,40 @@ def test_every_module_imports_without_jax():
     for m in ("ops.mle_cuda", "ops.lq_cuda", "ops.winfit_cuda",
               "ops.render_ops", "render", "imageprocess", "postprocess",
               "io", "stream", "avgroi", "zfit", "aim", "ops.neighbors",
-              "ops.link", "masking"):
+              "ops.link", "masking", "clusterer", "ops.cluster"):
         assert "picasso_torch." + m in mods
     smoke = _smoke_imports()
     assert "torch_data" in smoke and "torch_parity" in smoke
     top = {m.split(".")[0] for m in smoke}
-    assert not top & {"jax", "jaxlib", "picasso_tpu", "bench", "pandas"}, smoke
+    assert not top & {"jax", "jaxlib", "picasso_tpu", "bench", "pandas",
+                      "sklearn"}, smoke
     code = (
         "import importlib, sys\n"
         f"for m in {mods + smoke!r}: importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m in ('jax', 'bench', 'pandas') "
-        "or m.startswith(('jax.', 'jaxlib', 'picasso_tpu', 'pandas.'))]\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'bench', 'pandas', "
+        "'sklearn') or m.startswith(('jax.', 'jaxlib', 'picasso_tpu', "
+        "'pandas.', 'sklearn.'))]\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"
     )
     env = dict(os.environ,
                PYTHONPATH=os.pathsep.join([ROOT, os.path.join(ROOT, "tests")]))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_clusterer_imports_no_jax_pandas_or_sklearn():
+    """picasso_torch.clusterer (DBSCAN and HDBSCAN without sklearn) and
+    its verbs' module, imported alone, pull in none of jax, picasso_tpu,
+    pandas or sklearn."""
+    code = (
+        "import sys, picasso_torch.clusterer, picasso_torch.__main__\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
+        "'jaxlib', 'picasso_tpu', 'pandas', 'sklearn')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -133,7 +151,8 @@ def test_lq_fit_keeps_only_its_one_pass():
                                      "winfit_fit_mle_boundary_t",
                                      "winfit_fit_mle_queue_t",
                                      "winfit_fit_lq_queue_t",
-                                     "identify_in_image", "link_walk"])
+                                     "identify_in_image", "link_walk",
+                                     "cluster_sweep"])
 def test_wrappers_do_not_fall_back_off_the_cpu(wrapper):
     """A tensor on any device but the CPU goes to the kernel or raises;
     the plain version is never taken for it."""
@@ -150,6 +169,11 @@ def test_wrappers_do_not_fall_back_off_the_cpu(wrapper):
     elif wrapper == "link_walk":
         off = torch.zeros(3, dtype=torch.int64, device="meta")
         call = lambda: link.walk(off, off)  # noqa: E731
+    elif wrapper == "cluster_sweep":
+        from picasso_torch.ops import cluster
+
+        off = torch.zeros(3, dtype=torch.int64, device="meta")
+        call = lambda: cluster.sweep(off, off, off, off, 3)  # noqa: E731
     elif wrapper == "identify_in_image":
         image = torch.empty((32, 32), device="meta")
         call = lambda: localize.identify_in_image(  # noqa: E731

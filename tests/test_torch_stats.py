@@ -4,8 +4,9 @@ FRC (frc, masking.threshold_tukey, masking.loess_smooth,
 imageprocess.radial_sum), groupprops, cluster_combine,
 cluster_combine_dist, lib.merge_locs, io.load_clusters,
 io.save_datasets, and the CLI verbs link, dark, density, nneighbor,
-clusterfilter, join, groupprops, pc, cluster_combine and
-cluster_combine_dist against the JAX CLI.
+clusterfilter, join, groupprops, pc, cluster_combine,
+cluster_combine_dist, smlm_cluster, dbscan and hdbscan against the JAX
+CLI.
 
 Tolerances, with what was measured on the CPU (numpy 2, pandas 3, torch
 2.13):
@@ -47,6 +48,7 @@ from picasso_torch import io as tio
 from picasso_torch import lib as tlib
 from picasso_torch import masking as tmask
 from picasso_torch import postprocess as tpost
+from test_torch_cluster import compare_centers
 from test_torch_link import _f64, jax_order
 from torch_data import make_event_locs
 
@@ -398,6 +400,16 @@ _VERBS = {
     "cluster_combine": (["cluster_combine", "{d}/cl.hdf5"], ["cl_comb.hdf5"]),
     "cluster_combine_dist": (["cluster_combine_dist", "{d}/cl_comb_in.hdf5"],
                              ["cl_comb_in_cdist.hdf5"]),
+    "smlm_cluster": (["smlm_cluster", "{d}/ev_locs.hdf5", "0.1", "5"],
+                     ["ev_locs_clustered.hdf5",
+                      "ev_locs_cluster_centers.hdf5"]),
+    "smlm_cluster-3d-fa": (["smlm_cluster", "{d}/cl.hdf5", "0.2", "5", "-z",
+                            "0.5", "-f", "1"],
+                           ["cl_clustered.hdf5", "cl_cluster_centers.hdf5"]),
+    "dbscan": (["dbscan", "{d}/ev_locs.hdf5", "0.1", "5"],
+               ["ev_locs_dbscan.hdf5", "ev_locs_dbscan_centers.hdf5"]),
+    "hdbscan": (["hdbscan", "{d}/ev_locs.hdf5", "10", "10"],
+                ["ev_locs_hdbscan.hdf5", "ev_locs_hdbscan_centers.hdf5"]),
 }
 
 
@@ -410,7 +422,9 @@ def _datasets(path):
 def test_cli_verbs_match_the_jax_cli(tmp_path, verb, capsys):
     """The port's verb (--device cpu where it takes one) and the JAX
     CLI's: the same files and messages; HDF5 fields and YAML equal
-    (groupprops and cluster_combine within their ulps); CSVs equal."""
+    (groupprops and cluster_combine within their ulps, cluster centers
+    as tests/test_torch_cluster.compare_centers holds them); CSVs
+    equal."""
     from picasso_torch import __main__ as tmain
     from picasso_tpu import __main__ as jmain
 
@@ -433,6 +447,10 @@ def test_cli_verbs_match_the_jax_cli(tmp_path, verb, capsys):
             continue
         dt, dj = _datasets(t / name), _datasets(j / name)
         assert dt.keys() == dj.keys()
+        if name.endswith("_centers.hdf5"):
+            compare_centers(dt["locs"], dj["locs"],
+                            _datasets(t / produced[0])["locs"])
+            dt = {}
         for key in dt:
             a, b = dt[key], dj[key]
             assert a.dtype == b.dtype and len(a) == len(b) > 0

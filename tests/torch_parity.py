@@ -362,6 +362,14 @@ def compare_avg_photons(ref, got, spots, what: str = "avg photons") -> float:
     return worst
 
 
+#: cluster centers (clusterer.find_cluster_centers) of one table on two
+#: devices, or against pandas, in f32 ulps of each value: a mean is an f64
+#: segment sum rounded to f32 once on either side (pandas: an f32 Kahan
+#: sum, tests/test_torch_cluster.py); the ellipticity, sx / sy of two means
+#: below 1, moves by two ulps where a mean moves by one
+CENTERS_ULPS = 4
+
+
 def compare_tables_ulps(got: np.ndarray, ref: np.ndarray, ulps: int = 1,
                         what: str = "table") -> int:
     """Hold a locs table ``got`` to ``ref`` (same fields and dtypes):
