@@ -148,7 +148,23 @@ Phases, each of which raises on failure (exit code != 0):
    sweep; DBSCAN's passes; HDBSCAN's core distances, Prim and the host
    tree), and on a 64 x 64 px window the card's labels equal the CPU's
    for SMLM (2D, 3D) and DBSCAN, HDBSCAN's on the 32 x 32 px window, the
-   centers within torch_parity.CENTERS_ULPS.
+   centers within torch_parity.CENTERS_ULPS;
+18. the analyses of grouped locs (no kernel; plain torch on the card):
+   N_ORIGAMI DNA-PAINT origami (tests/torch_data.make_origami_locs,
+   ~0.48 M locs), DBSCAN (ORIGAMI_R, ORIGAMI_DENSITY) into one cluster an
+   origami, G5M (g5m.g5m, the batched EM of ops/gmm.py) and particle
+   averaging (average.average, the device route, AVG_IT iterations at
+   AVG_PX nm), each with every count set to 0 just before; G5M against
+   the true sites and averaging against the true rotations under the
+   bounds above; the walls split (G5M: the EM per K, the BIC readbacks,
+   the host tables, the host-route fallbacks; the kernels and the time
+   of one E+M step; averaging per iteration: rotations and histograms,
+   FFTs and picks, the host rest); then the card against the CPU on
+   N_CARD_CPU origami: G5M under torch_parity.compare_g5m (molecules per
+   cluster equal but at BIC near ties; a cluster fit with the same K,
+   start and steps within G5M_SAME_ULPS f32 ulps and its integer fields
+   equal; another start or step count only at an EM near tie);
+   averaging's first picks equal but at near ties.
 IMS and STK movies are checked on the CPU only (tests/test_torch_io.py):
 the machine with the card has no h5py.
 The line before the last is the JSON record of every kernel (bound_ms:
@@ -224,6 +240,26 @@ CLUSTER_R, CLUSTER_MIN = 0.05, 10
 HDBSCAN_MIN = 10
 WINDOW_64, WINDOW_32 = (96.0, 96.0, 64.0), (112.0, 112.0, 32.0)
 RADIUS_Z_LPZ = 3.0
+# phase 18: one field of view of DNA-PAINT origami
+# (tests/torch_data.make_origami_locs), DBSCAN's radius (px) and density
+# that make each origami one cluster (sites 0.154 px apart, neighbours
+# at least 3 px), averaging's display pixel (nm) and iterations; the
+# gates, written before the first chip run from the CPU runs of the same
+# recipe (PERF.md): the share of true sites within G5M_PX of a
+# G5M center and of centers within G5M_PX of a site (CPU, 64 origami:
+# 0.9986 and 1.0), the share of origami whose rotation relative to the
+# consensus lies within 2 angle steps of the truth (CPU, 1000 origami,
+# seeds 0-5: 0.969-0.998) and of the truth or its turn by pi (1.0)
+N_ORIGAMI, ORIGAMI_SEED = 1000, 0
+ORIGAMI_R, ORIGAMI_DENSITY = 0.1, 10
+AVG_PX, AVG_IT = 5.0, 3
+G5M_PX, G5M_SITES, G5M_CENTERS = 0.05, 0.95, 0.98
+ROT_SHARE, ROT_SHARE_PI = 0.9, 0.98
+# card == CPU on the first N_CARD_CPU origami: G5M under
+# tests/torch_parity.compare_g5m's bounds, averaging's first picks equal
+# but at near-tie correlations (relative)
+N_CARD_CPU = 64
+PICK_TIE = 1e-5
 
 
 def _median_ms(fn, reps: int = 5, calls: int = 1) -> float:
@@ -1015,6 +1051,221 @@ def cluster_phase(locs, info, locs3d, info3d, sites, counted, smi: str):
     walls.update({"split " + k: v for k, v in split.items()})
     walls.update({"hdbscan " + k: v for k, v in hparts.items()})
     return launches, walls
+
+
+def _step_kernels(fn) -> tuple[int | None, int]:
+    """(the CUDA kernels one call of ``fn`` launches, by torch.profiler,
+    None where it records no device event; the aten ops it dispatches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Ops.n += 1
+            return func(*args, **(kwargs or {}))
+
+    torch.cuda.synchronize()
+    with Ops():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return (kernels or None), Ops.n
+
+
+def origami_phase(counted, smi: str):
+    """18. the analyses of grouped locs on the card: DBSCAN of N_ORIGAMI
+    origami, G5M and averaging through the entry points, each counted
+    from 0 (no kernel may launch), held to the truth, the walls split;
+    then card == CPU on N_CARD_CPU origami. Returns (launches of G5M,
+    launches of averaging)."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    from picasso_torch import average, clusterer, g5m, lib
+    from picasso_torch.ops import gmm
+    from torch_data import make_origami_locs, rigid_rotations, rotation_share
+    from torch_parity import G5M_BIC_TIE, G5M_SAME_ULPS, compare_g5m
+
+    t0 = time.perf_counter()
+    locs, info, truth = make_origami_locs(N_ORIGAMI, ORIGAMI_SEED)
+    t_make = time.perf_counter() - t0
+    (clustered, cinfo), wall_db, launches_db = counted(
+        lambda: clusterer.dbscan(locs, ORIGAMI_R, ORIGAMI_DENSITY,
+                                 return_info=True, device="cuda"))
+    ids, rows = lib.group_rows(clustered["group"])
+    means = np.array([[clustered["x"][r].mean(), clustered["y"][r].mean()]
+                      for r in rows])
+    dist, origami = cKDTree(truth["centers"]).query(means)
+    if not (len(ids) == N_ORIGAMI and len(np.unique(origami)) == N_ORIGAMI
+            and dist.max() < 0.1):
+        raise AssertionError(f"DBSCAN: {len(ids)} clusters for {N_ORIGAMI} "
+                             f"origami ({len(np.unique(origami))} hit)")
+    rec = {}
+    (centers, g5m_locs, g5m_info), wall_g5m, launches_g5m = counted(
+        lambda: g5m.g5m(clustered, info, device="cuda", record=rec))
+    avg_walls = []
+    averaged, wall_avg, launches_avg = counted(
+        lambda: average.average(clustered, info,
+                                display_pixel_size=AVG_PX,
+                                iterations=AVG_IT, device="cuda",
+                                walls=avg_walls))
+    for what, launches in (("DBSCAN", launches_db), ("G5M", launches_g5m),
+                           ("averaging", launches_avg)):
+        if any(launches.values()):
+            raise AssertionError(f"{what} launched {launches}")
+    # G5M against the truth
+    sites = truth["sites"].reshape(-1, 2)
+    xy = np.column_stack([centers["x"], centers["y"]]).astype(np.float64)
+    if not (np.isfinite(xy).all() and len(xy)):
+        raise AssertionError("G5M: no finite centers")
+    found = float(np.mean(cKDTree(xy).query(sites)[0] < G5M_PX))
+    true_c = float(np.mean(cKDTree(sites).query(xy)[0] < G5M_PX))
+    per = np.bincount(centers["group_input"], minlength=int(ids.max()) + 1)[
+        ids]
+    k_fit = np.bincount([f[0] for f in rec["fit"].values()])
+    em_s = sum(rec["em"].values())
+    kernels, ops, step_ms, step_bound, step_rows = _step_kernels_of_origami(
+        clustered, info, gmm, g5m, _step_kernels)
+    print(f"origami ({smi}): {N_ORIGAMI} origami, {len(locs)} locs (made "
+          f"in {t_make:.2f} s); DBSCAN r {ORIGAMI_R} px, density "
+          f"{ORIGAMI_DENSITY}: {len(ids)} clusters, one an origami, "
+          f"{len(clustered)} locs, card {wall_db:.3f} s")
+    buckets = {b: len(ix) for b, ix in sorted(g5m._buckets(
+        [len(r) for r in rows]).items())}
+    print(f"  G5M (batched; origami a size bucket {buckets}): "
+          f"{len(centers)} molecules after the postprocess filter, "
+          f"molecules an origami {np.bincount(per).tolist()} (index: count); "
+          f"true sites within {G5M_PX} px of a center {found:.4f}, centers "
+          f"within {G5M_PX} px of a site {true_c:.4f}; K of the fits "
+          f"{k_fit.tolist()} (index: K), K reached {max(rec['em'])}")
+    print(f"  G5M walls: total {wall_g5m:.3f} s = EM {em_s:.3f} s (per K: "
+          + json.dumps({k: round(v, 4) for k, v in rec["em"].items()})
+          + f") + BIC readbacks {rec['bic']:.3f} s + host tables "
+          f"{rec['convert']:.3f} s + host-route fallbacks {rec['host']:.3f} "
+          f"s ({rec['host_clusters']} clusters) + the rest; "
+          f"{rec['steps']} E+M steps on {rec['row_steps']} rows, "
+          f"{1e6 * em_s / rec['steps']:.1f} us of EM wall a step; one E+M "
+          f"step (K 11, {step_rows} rows of 512): {kernels} kernels "
+          f"(torch.profiler), {ops} aten ops, {step_ms:.4f} ms (median of 5"
+          f" CUDA-event runs; bound {step_bound[0]:.4f} ms, "
+          f"{step_bound[1]})")
+    # averaging against the truth
+    a_step = average._workspace(average.com_align(clustered), info,
+                                AVG_PX)[3][1]
+    rec_rot = rigid_rotations(clustered, averaged, rows)
+    share, share_pi, consensus = rotation_share(
+        rec_rot, truth["angles"][origami], 2 * a_step)
+    print(f"  averaging: {len(ids)} groups, {AVG_IT} iterations at {AVG_PX} "
+          f"nm (angle step {a_step:.4f} rad): card {wall_avg:.3f} s, per "
+          "iteration " + json.dumps([{k: round(v, 4) for k, v in w.items()}
+                                     for w in avg_walls])
+          + f"; rotations within 2 steps of the truth {share:.4f}, or of "
+          f"its turn by pi {share_pi:.4f} (consensus {consensus:.4f} rad)")
+    if found < G5M_SITES or true_c < G5M_CENTERS:
+        raise AssertionError(f"G5M: sites found {found}, centers true "
+                             f"{true_c} against {G5M_SITES}, {G5M_CENTERS}")
+    if share < ROT_SHARE or share_pi < ROT_SHARE_PI:
+        raise AssertionError(f"averaging: rotation shares {share}, "
+                             f"{share_pi} against {ROT_SHARE}, "
+                             f"{ROT_SHARE_PI}")
+    # the card against the CPU on the first N_CARD_CPU origami
+    sub = clustered[np.isin(clustered["group"], ids[:N_CARD_CPU])]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        r = {}
+        t1 = time.perf_counter()
+        out = g5m.g5m(sub, info, postprocess=False, device=dev, record=r)
+        torch.cuda.synchronize()
+        runs[dev] = out[0], r, time.perf_counter() - t1
+    (cc, rc, tc), (cp, rp, tp) = runs["cuda"], runs["cpu"]
+    agree = compare_g5m(cc, rc, cp, rp, sub, what="G5M card vs CPU")
+    print(f"  G5M card == CPU ({smi}) on {N_CARD_CPU} origami "
+          f"({len(sub)} locs, no postprocess filter): card {tc:.3f} s, CPU "
+          f"{tp:.3f} s ({len(cc)} / {len(cp)} molecules); BIC near ties "
+          f"(within {G5M_BIC_TIE}) {agree['bic_ties']}; clusters fit with "
+          f"the same K, start and steps: centers at most "
+          f"{agree['worst_same']:.3e} px apart (bound {agree['same_px']:.3e}"
+          f" px, {G5M_SAME_ULPS} f32 ulps); with another start or step count"
+          f" at an EM near tie (K, start, steps card / CPU, px): "
+          f"{agree['stepped']}; n_locs a half apart {agree['n_locs_half']}")
+    # averaging: the first iteration's picks from the same inputs
+    sub_c = average.com_align(sub)
+    x, y, grows, angles, ov, t_min, t_max = average._workspace(sub_c, info,
+                                                               AVG_PX)
+    _, image = average._render_hist_square(x, y, ov, t_min, t_max)
+    picks, aligned = {}, {}
+    for dev in ("cuda", "cpu"):
+        picks[dev] = []
+        aligned[dev] = average._align_groups_device(
+            x.copy(), y.copy(), grows, angles, ov, t_min, t_max, image,
+            image.shape[0] / 2, dev, picks=picks[dev])
+    (bc, vc, sc), (bp, vp, sp) = ((np.concatenate(p) for p in zip(*picks[d]))
+                                  for d in ("cuda", "cpu"))
+    differ = np.nonzero(bc != bp)[0]
+    for g in differ:
+        if not (vc[g] - sc[g] <= PICK_TIE * abs(vc[g])
+                or vp[g] - sp[g] <= PICK_TIE * abs(vp[g])):
+            raise AssertionError(f"averaging card vs CPU: group {g} picks "
+                                 f"{bc[g]} / {bp[g]}, not a near tie")
+    full = {}
+    for dev in ("cuda", "cpu"):
+        t1 = time.perf_counter()
+        full[dev] = average.average(sub, info, display_pixel_size=AVG_PX,
+                                    iterations=AVG_IT, device=dev)
+        full[dev + " s"] = time.perf_counter() - t1
+    dxy = max(np.abs(full["cuda"][c] - full["cpu"][c]).max()
+              for c in ("x", "y"))
+    print(f"  averaging card == CPU on {N_CARD_CPU} origami: first "
+          f"iteration picks differ in {len(differ)} of {len(grows)} groups "
+          f"(each a near tie within {PICK_TIE}); after {AVG_IT} iterations "
+          f"the largest x/y difference {dxy:.3e} px; card "
+          f"{full['cuda s']:.3f} s, CPU {full['cpu s']:.3f} s")
+    return launches_g5m, launches_avg
+
+
+def _step_kernels_of_origami(clustered, info, gmm, g5m, kernels_in):
+    """One E+M step (ops/gmm._step) at K 11 on every cluster of
+    ``clustered`` of at most 512 locs, padded to 512, one start: (its
+    kernels, its aten ops, its ms, its bound (ms, by), the rows)."""
+    import torch
+
+    from picasso_torch import lib
+
+    _, rows = lib.group_rows(clustered["group"])
+    preps = [g5m._prep_group(clustered[r], min_locs=10, pixelsize=info[0][
+        "Pixelsize"], max_locs_per_cluster=np.inf, loc_prec_handle="local")
+        for r in rows]
+    preps = [p for p in preps if len(p[0]) <= 512]
+    X, mask, lp = (torch.from_numpy(a).cuda() for a in gmm.pad_clusters(
+        [p[0] for p in preps], [p[1] for p in preps], 512))
+    u = torch.from_numpy(np.random.default_rng(0).random((len(X), 11))).cuda()
+    bounds = tuple(torch.tensor(b, device="cuda") for b in (0.8, 1.5))
+    centers = gmm._kmeanspp(X, mask, u)
+    d2 = gmm._sqsum(X[:, :, None, :] - centers[:, None, :, :])
+    one_hot = torch.nn.functional.one_hot(d2.argmin(2), 11).float()
+    params = gmm._m_step(X, mask, torch.log(one_hot), lp, bounds, True, True)
+    R = len(X)
+    state = (params, torch.full((R,), -torch.inf, device="cuda"),
+             torch.zeros(R, dtype=torch.bool, device="cuda"),
+             torch.zeros(R, dtype=torch.int32, device="cuda"))
+
+    def step():
+        return gmm._step(X, mask, lp, bounds, True, True, *state)
+
+    kernels, ops = kernels_in(step)
+    # the step's least time: its inputs (X, mask, lp) read once, and ~30
+    # operations a (row, point, component) (E: the distances, the log
+    # density, the log-sum-exp; M: the sums of the responsibilities, the
+    # means, the variances and the local precisions)
+    bound = _bound(30.0 * R * 512 * 11, R * 512 * (4 * 2 + 1 + 4))
+    return kernels, ops, _median_ms(step), bound, R
 
 
 def main() -> int:
@@ -2376,8 +2627,12 @@ def main() -> int:
     t17 = time.perf_counter()
     launches_cl, _ = cluster_phase(undrifted, info, locs3d_by["gaussmle"],
                                    info3d, bench_sites, counted, smi)
+    # 18. the analyses of grouped locs: G5M and averaging ---------------
+    t18 = time.perf_counter()
+    launches_g5m, launches_avg = origami_phase(counted, smi)
     print(f"phases 15-16: {t16 - t15:.1f} s and {t17 - t16:.1f} s, phase "
-          f"17: {time.perf_counter() - t17:.1f} s ({smi})")
+          f"17: {t18 - t17:.1f} s, phase 18: {time.perf_counter() - t18:.1f}"
+          f" s ({smi})")
     print("host code (no kernel):", json.dumps([{
         "name": "link_walk", "source": "picasso_torch/csrc/link_walk.cu",
         "replaces": "picasso_tpu/native/picasso_native.cpp:38",
@@ -2394,7 +2649,8 @@ def main() -> int:
              "fit2D-mle": launches_k2,
              "fit2D-lq": launches_k3, "3d-mle": paths3d["gaussmle"],
              "3d-lq": paths3d["gausslq"], "link": launches_link,
-             "db": launches_db, "cluster": launches_cl}
+             "db": launches_db, "cluster": launches_cl,
+             "g5m": launches_g5m, "average": launches_avg}
     print("launches by path:", json.dumps(paths))
 
     # the kernels line -----------------------------------------------------

@@ -25,6 +25,7 @@ Counterpart of picasso_tpu/__main__.py for the verbs ported so far:
         [-z RADIUS_Z] [-f 0|1]
     python -m picasso_torch dbscan "*_locs.hdf5" RADIUS DENSITY
     python -m picasso_torch hdbscan "*_locs.hdf5" MIN_CLUSTER MIN_SAMPLES
+    python -m picasso_torch g5m "*_dbscan.hdf5" [-m 10] [-zc calib.yaml]
 
 ``localize`` reads .raw, .tif/.tiff series, .ims, .stk and .nd2 movies
 and takes the JAX CLI's flags and defaults plus ``--device`` (default
@@ -51,6 +52,8 @@ JAX CLI's files with its info blocks and messages; so do the clusterers
 ``smlm_cluster`` (``_clustered.hdf5``, ``_cluster_centers.hdf5``),
 ``dbscan`` (``_dbscan.hdf5``, ``_dbscan_centers.hdf5``) and ``hdbscan``
 (``_hdbscan.hdf5``, ``_hdbscan_centers.hdf5``), which need no sklearn.
+``g5m`` maps the molecules of grouped locs (``_g5m.hdf5``, the
+molecules; ``_g5m_locs.hdf5``, the locs labelled by molecule).
 Every verb after localize but ``toraw``, ``join`` and ``clusterfilter``
 takes ``--device`` too.
 """
@@ -441,6 +444,26 @@ def _smlm_cluster(args):
         "_cluster_centers", "SMLM cluster")
 
 
+def _g5m(args):
+    from picasso_torch import g5m, io, lib
+
+    device = lib.resolve_device(args.device)
+    calibration = None
+    if args.zc:
+        import yaml
+
+        with open(args.zc) as f:
+            calibration = yaml.full_load(f)
+    for path in _iter_files(args.files):
+        locs, info = io.load_locs(path)
+        centers, clustered, new_info = g5m.g5m(
+            locs, info, min_locs=args.min_locs, calibration=calibration,
+            callback_parent="console", device=device)
+        io.save_locs(_out_path(path, "_g5m"), centers, new_info)
+        io.save_locs(_out_path(path, "_g5m_locs"), clustered, new_info)
+        print(f"G5M -> {_out_path(path, '_g5m')}")
+
+
 @contextlib.contextmanager
 def _profile(trace_dir: str | None):
     """torch.profiler trace of the command into ``trace_dir``."""
@@ -616,6 +639,13 @@ def main(argv=None):
     p.add_argument("-f", "--basic-fa", type=int, default=0)
     _device_arg(p)
 
+    p = subparsers.add_parser(
+        "g5m", help="G5M molecular mapping (constrained GMM)")
+    p.add_argument("files")
+    p.add_argument("-m", "--min-locs", type=int, default=10)
+    p.add_argument("-zc", "--zc", type=str, default="")
+    _device_arg(p)
+
     args = parser.parse_args(argv)
     if args.command is None:
         parser.print_help()
@@ -629,7 +659,7 @@ def main(argv=None):
              "cluster_combine": _cluster_combine,
              "cluster_combine_dist": _cluster_combine_dist,
              "dbscan": _dbscan, "hdbscan": _hdbscan,
-             "smlm_cluster": _smlm_cluster}
+             "smlm_cluster": _smlm_cluster, "g5m": _g5m}
     if args.command in verbs:
         verbs[args.command](args)
         return

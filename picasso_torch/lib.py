@@ -4,8 +4,9 @@ on numpy structured arrays, progress reporting and device resolution.
 Counterpart of the parts of picasso_tpu/lib.py that the localize path
 and the picks use (get_from_metadata :41, ensure_sanity :82,
 check_if_in_polygon :148, merge_locs :110, check_if_in_rectangle
-:170, get_pick_rectangle_corners :213, minimize_shifts :445, MockProgress
-:670, progress_reporter :731, get_pick_polygon_corners :828). Locs are
+:170, get_pick_rectangle_corners :213, find_local_minima :345,
+minimize_shifts :445, MockProgress :670, progress_reporter :731,
+get_pick_polygon_corners :828). Locs are
 numpy structured arrays with the record layout of the HDF5 ``"locs"``
 dataset; :func:`series_mean_std` gives a column the mean and std that
 the JAX package's pandas columns give.
@@ -188,6 +189,22 @@ def minimize_shifts(shifts_x: np.ndarray, shifts_y: np.ndarray,
     Dj = np.linalg.pinv(A) @ rij
     return tuple(np.insert(np.cumsum(Dj[:, d]), 0, 0)
                  for d in range(len(pairs)))
+
+
+def group_rows(group: np.ndarray) -> tuple[np.ndarray, list[np.ndarray]]:
+    """(the sorted group ids, each group's rows in ascending order)."""
+    order = np.argsort(group, kind="stable")
+    ids, starts = np.unique(group[order], return_index=True)
+    return ids, np.split(order, starts[1:])
+
+
+def find_local_minima(arr: np.ndarray) -> np.ndarray:
+    """Indices of strict local minima of a 1D array
+    (picasso/lib.py:1243)."""
+    arr = np.asarray(arr)
+    if len(arr) < 3:
+        return np.array([], dtype=int)
+    return np.nonzero((arr[1:-1] < arr[:-2]) & (arr[1:-1] < arr[2:]))[0] + 1
 
 
 def check_if_in_polygon(x, y, X, Y) -> np.ndarray:

@@ -1131,3 +1131,59 @@ def test_clusterers_on_the_card_equal_the_cpu(dev, what):
             clusterer.find_cluster_centers(card, px, device=dev),
             clusterer.find_cluster_centers(card, px, device="cpu"),
             CENTERS_ULPS, "centers")
+
+
+def test_g5m_on_the_card_matches_the_cpu(dev):
+    """G5M's batched route on 16 origami: the card held to the CPU by
+    torch_parity.compare_g5m (molecules per cluster equal but at BIC near
+    ties, a cluster fit alike within G5M_SAME_ULPS f32 ulps, another fit
+    only at an EM near tie); the host route (4 origami) equal bit for
+    bit."""
+    from picasso_torch import clusterer, g5m
+    from torch_data import make_origami_locs
+    from torch_parity import compare_g5m
+
+    locs, info, _ = make_origami_locs(16, 2)
+    grouped = clusterer.dbscan(locs, 0.1, 10, device="cpu")
+    rec_card, rec_cpu = {}, {}
+    card = g5m.g5m(grouped, info, postprocess=False, device=dev,
+                   record=rec_card)[0]
+    cpu = g5m.g5m(grouped, info, postprocess=False, device="cpu",
+                  record=rec_cpu)[0]
+    assert card.dtype == cpu.dtype and len(card) >= 16 * 10
+    compare_g5m(card, rec_card, cpu, rec_cpu, grouped)
+    few = grouped[grouped["group"] < 4]
+    for a, b in zip(g5m.g5m(few, info, device=dev)[:2],
+                    g5m.g5m(few, info, device="cpu")[:2]):
+        for n in a.dtype.names:
+            np.testing.assert_array_equal(a[n], b[n], err_msg=n)
+
+
+def test_average_on_the_card_matches_the_cpu(dev):
+    """Averaging's device route on 64 origami: the first iteration's picks
+    on the card equal the CPU's but for near ties (1e-5 relative), and
+    x, y after two iterations within 1e-3 px."""
+    from picasso_torch import average
+    from torch_data import make_origami_locs, origami_groups
+
+    locs, info, truth = make_origami_locs(64, 1)
+    locs = origami_groups(locs, truth)
+    x, y, rows, angles, ov, t_min, t_max = average._workspace(
+        average.com_align(locs), info, 5.0)
+    _, image = average._render_hist_square(x, y, ov, t_min, t_max)
+    picks = {}
+    for d in (dev, "cpu"):
+        picks[str(d)] = []
+        average._align_groups_device(x.copy(), y.copy(), rows, angles, ov,
+                                     t_min, t_max, image,
+                                     image.shape[0] / 2, d,
+                                     picks=picks[str(d)])
+    (bc, vc, sc), (bp, vp, sp) = ((np.concatenate(p) for p in zip(*v))
+                                  for v in picks.values())
+    for g in np.nonzero(bc != bp)[0]:
+        assert (vc[g] - sc[g] <= 1e-5 * abs(vc[g])
+                or vp[g] - sp[g] <= 1e-5 * abs(vp[g]))
+    a = average.average(locs, info, iterations=2, device=dev)
+    b = average.average(locs, info, iterations=2, device="cpu")
+    for c in ("x", "y"):
+        np.testing.assert_allclose(a[c], b[c], rtol=0, atol=1e-3)

@@ -51,7 +51,8 @@ def test_every_module_imports_without_jax():
     for m in ("ops.mle_cuda", "ops.lq_cuda", "ops.winfit_cuda",
               "ops.render_ops", "render", "imageprocess", "postprocess",
               "io", "stream", "avgroi", "zfit", "aim", "ops.neighbors",
-              "ops.link", "masking", "clusterer", "ops.cluster"):
+              "ops.link", "masking", "clusterer", "ops.cluster", "g5m",
+              "ops.gmm", "average"):
         assert "picasso_torch." + m in mods
     smoke = _smoke_imports()
     assert "torch_data" in smoke and "torch_parity" in smoke
@@ -80,6 +81,22 @@ def test_clusterer_imports_no_jax_pandas_or_sklearn():
     pandas or sklearn."""
     code = (
         "import sys, picasso_torch.clusterer, picasso_torch.__main__\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
+        "'jaxlib', 'picasso_tpu', 'pandas', 'sklearn')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", ["g5m", "ops.gmm", "average"])
+def test_analysis_module_imports_no_jax_pandas_or_sklearn(module):
+    """picasso_torch.g5m, .ops.gmm and .average, each imported alone,
+    pull in none of jax, picasso_tpu, pandas or sklearn."""
+    code = (
+        f"import sys, picasso_torch.{module}\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
         "'jaxlib', 'picasso_tpu', 'pandas', 'sklearn')]\n"
         "assert not bad, bad\n"

@@ -147,6 +147,137 @@ def make_event_locs(seed: int = 0, n_sites: int = 24, frames: int = 300,
     return locs, info
 
 
+#: DNA-PAINT origami (make_origami_locs): sites on a 3 x 4 grid at 20 nm
+#: (in px at 130 nm/px), one corner left out, so that the 11 sites have no
+#: rotational symmetry; binding events a site, their lengths (frames) and
+#: the acquisition
+ORIGAMI_PITCH = 20.0 / 130.0
+ORIGAMI_EVENTS = (6, 10)
+ORIGAMI_EVENT_FRAMES = (3, 8)
+ORIGAMI_FRAMES = 20000
+ORIGAMI_SPACING = 4.0  # px between the origami's lattice points
+ORIGAMI_LP = (0.02, 0.04)  # px, the locs' precisions
+
+
+def origami_template() -> np.ndarray:
+    """The 11 sites (x, y) px of one origami about their centroid: rows
+    of 4 at y = 0, 1, 2 pitches, the corner (3, 2) left out."""
+    xy = np.array([(c, r) for r in range(3) for c in range(4)
+                   if (c, r) != (3, 2)], np.float64) * ORIGAMI_PITCH
+    return xy - xy.mean(0)
+
+
+def make_origami_locs(n_origami: int, seed: int = 0):
+    """DNA-PAINT origami locs, their info and the truth.
+
+    Each origami is origami_template() at a random rotation, centred on a
+    square lattice of ORIGAMI_SPACING px jittered by up to 0.5 px, so
+    neighbours lie at least 3 px apart. Each site binds in 6-10 events of
+    3-8 frames at uniform times over ORIGAMI_FRAMES frames, one loc a
+    frame; a loc's lpx, lpy are uniform in ORIGAMI_LP and it scatters by
+    N(0, lpx), N(0, lpy); photons, widths, background and the other fields
+    as localize writes them (EVENT_DTYPE without ``group``). Sorted by
+    frame. Returns (locs, info, truth): truth holds ``sites`` (n, 11, 2)
+    px, ``angles`` (n,) rad and ``centers`` (n, 2) px."""
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(np.sqrt(n_origami)))
+    lattice = np.stack(np.meshgrid(np.arange(side), np.arange(side)),
+                       -1).reshape(-1, 2)[:n_origami]
+    centers = ((lattice + 1) * ORIGAMI_SPACING
+               + rng.uniform(-0.5, 0.5, (n_origami, 2)))
+    angles = rng.uniform(0, 2 * np.pi, n_origami)
+    c, s = np.cos(angles), np.sin(angles)
+    t = origami_template()
+    sites = np.stack([c[:, None] * t[:, 0] - s[:, None] * t[:, 1],
+                      s[:, None] * t[:, 0] + c[:, None] * t[:, 1]], -1)
+    sites += centers[:, None, :]
+    n_sites = n_origami * len(t)
+    n_ev = rng.integers(ORIGAMI_EVENTS[0], ORIGAMI_EVENTS[1] + 1, n_sites)
+    ev_site = np.repeat(np.arange(n_sites), n_ev)
+    length = rng.integers(ORIGAMI_EVENT_FRAMES[0],
+                          ORIGAMI_EVENT_FRAMES[1] + 1, len(ev_site))
+    start = rng.integers(0, ORIGAMI_FRAMES - length + 1)
+    site = np.repeat(ev_site, length)
+    first = np.repeat(np.cumsum(length) - length, length)
+    frame = np.repeat(start, length) + np.arange(len(site)) - first
+    order = np.argsort(frame, kind="stable")
+    site, frame = site[order], frame[order]
+    n = len(site)
+    names = [nm for nm in EVENT_DTYPE.names if nm != "group"]
+    locs = np.zeros(n, [(nm, EVENT_DTYPE[nm]) for nm in names])
+    lp = rng.uniform(*ORIGAMI_LP, (n, 2))
+    xy = sites.reshape(-1, 2)[site]
+    locs["frame"] = frame
+    locs["x"] = xy[:, 0] + rng.normal(0, 1, n) * lp[:, 0]
+    locs["y"] = xy[:, 1] + rng.normal(0, 1, n) * lp[:, 1]
+    locs["lpx"], locs["lpy"] = lp[:, 0], lp[:, 1]
+    locs["photons"] = rng.uniform(2000, 8000, n)
+    locs["bg"] = rng.uniform(10, 50, n)
+    locs["sx"] = rng.uniform(0.9, 1.3, n)
+    locs["sy"] = rng.uniform(0.9, 1.3, n)
+    locs["net_gradient"] = rng.uniform(4000, 20000, n)
+    locs["likelihood"] = rng.uniform(-300, -100, n)
+    locs["iterations"] = rng.integers(3, 40, n)
+    size = int((side + 1) * ORIGAMI_SPACING)
+    info = [{"Frames": ORIGAMI_FRAMES, "Width": size, "Height": size,
+             "Pixelsize": 130}]
+    return locs, info, {"sites": sites, "angles": angles,
+                        "centers": centers}
+
+
+def origami_groups(locs: np.ndarray, truth: dict) -> np.ndarray:
+    """make_origami_locs' locs with a ``group`` field (int32): the index of
+    the origami whose centre is nearest each loc."""
+    from scipy.spatial import cKDTree
+
+    near = cKDTree(truth["centers"]).query(np.column_stack(
+        [locs["x"], locs["y"]]))[1]
+    out = np.empty(len(locs), locs.dtype.descr + [("group", "<i4")])
+    for n in locs.dtype.names:
+        out[n] = locs[n]
+    out["group"] = near
+    return out
+
+
+def rigid_rotations(before: np.ndarray, after: np.ndarray,
+                    rows: list) -> np.ndarray:
+    """Each group's rotation (rad) from the (x, y) of ``before`` to those
+    of ``after`` (the same rows), by a least-squares rigid fit of its
+    rows ``rows[g]`` about their means."""
+    out = np.empty(len(rows))
+    for g, r in enumerate(rows):
+        p = np.column_stack([before["x"][r], before["y"][r]]).astype(
+            np.float64)
+        q = np.column_stack([after["x"][r], after["y"][r]]).astype(
+            np.float64)
+        p -= p.mean(0)
+        q -= q.mean(0)
+        out[g] = np.arctan2(np.sum(p[:, 0] * q[:, 1] - p[:, 1] * q[:, 0]),
+                            np.sum(p[:, 0] * q[:, 0] + p[:, 1] * q[:, 1]))
+    return out
+
+
+def _wrap(a):
+    return (a + np.pi) % (2 * np.pi) - np.pi
+
+
+def rotation_share(recovered: np.ndarray, true: np.ndarray,
+                   tol: float) -> tuple[float, float, float]:
+    """(the share of groups whose recovered rotation, relative to the
+    consensus, lies within ``tol`` rad of the true relative rotation; the
+    share within ``tol`` of it or of it turned by pi; the consensus).
+    Averaging turns origami g, made at ``true[g]``, by -true[g] + c for
+    one c, so c is the circular median of recovered + true (the angle
+    with the least summed circular distance to them). An origami turned
+    by pi matches 10 of its 11 sites, so alignment may take that pose."""
+    d = _wrap(recovered + true)
+    cost = np.abs(_wrap(d[:, None] - d[None, :])).sum(0)
+    c = d[int(np.argmin(cost))]
+    off = np.abs(_wrap(d - c))
+    return (float(np.mean(off <= tol)),
+            float(np.mean(np.minimum(off, np.pi - off) <= tol)), float(c))
+
+
 def spots_chunk(spots: np.ndarray, dtype, cells: int = 36):
     """The (n, S, S) spots laid out as S x S cells, ``cells`` x ``cells``
     a frame: a (B, cells * S, cells * S) chunk of ``dtype`` (zeros where

@@ -396,3 +396,105 @@ def compare_tables_ulps(got: np.ndarray, ref: np.ndarray, ulps: int = 1,
             raise AssertionError(f"{what}: {name} beyond {ulps} ulp(s)")
         differ += int(np.count_nonzero(d))
     return differ
+
+
+#: G5M's batched route on two devices (g5m.g5m with ``record``): the
+#: kmeans++ draws are the same by design, so a cluster's fit differs only
+#: at a near tie. A cluster whose chosen K's BIC lies within G5M_BIC_TIE
+#: (relative) of another K's may have another molecule count. A cluster
+#: fit with the same (K, start, steps) on both devices has its centers
+#: within G5M_SAME_ULPS f32 ulps of the largest coordinate: one EM from
+#: the same centers moves them by 2 ulps at 30 px on the CPU
+#: (tests/test_torch_g5m.EM_M, measured 7.6e-6 px), the card by 3.2 at
+#: 128 px (4.83e-5 px on an H100, chip_smoke.py phase 18). A cluster fit
+#: with another start or step count must sit within G5M_EM_TIE of a tie
+#: in the lower bound (a step's |change| against the convergence
+#: tolerance, or the two best starts; the bound of
+#: tests/test_torch_g5m.EM_LB on two EMs' lower bounds) on either
+#: device, and its centers within G5M_STEPPED_PX (the bound of the JAX
+#: package's batched-against-serial test).
+G5M_BIC_TIE = 1e-5
+G5M_SAME_ULPS = 4
+G5M_EM_TIE = 3e-5
+G5M_STEPPED_PX = 0.02
+
+
+def _center_distance(a: np.ndarray, b: np.ndarray, cols) -> float:
+    """The largest distance from a center of ``a`` to the nearest of
+    ``b`` and back."""
+    from scipy.spatial import cKDTree
+
+    pa = np.column_stack([a[c] for c in cols]).astype(np.float64)
+    pb = np.column_stack([b[c] for c in cols]).astype(np.float64)
+    return float(max(cKDTree(pb).query(pa)[0].max(),
+                     cKDTree(pa).query(pb)[0].max()))
+
+
+def compare_g5m(got: np.ndarray, got_record: dict, ref: np.ndarray,
+                ref_record: dict, locs: np.ndarray,
+                what: str = "G5M") -> dict:
+    """Hold the centers ``got`` of g5m.g5m (postprocess=False) on one
+    device to ``ref`` on another, both run on ``locs`` with ``record``,
+    under the G5M_* bounds above. Molecules per cluster equal but at BIC
+    near ties; for a cluster fit alike, centers within the ulp bound,
+    ``n_events`` and ``group_input`` equal and ``n_locs`` equal but
+    where a component's weight times the cluster's locs lies within 1e-3
+    of a half (the count rounds half to even on a value a few ulps
+    apart). Returns the BIC ties, the clusters fit with another start or
+    step count (group, fit, fit, px), the bound and the largest distance
+    of the clusters fit alike, and the n_locs a half apart."""
+    cols = ["x", "y"] + (["z"] if "z" in locs.dtype.names else [])
+    same_px = G5M_SAME_ULPS * float(np.spacing(np.float32(max(
+        np.abs(locs[c]).max() for c in cols))))
+    if got_record["group_input"] != ref_record["group_input"]:
+        raise AssertionError(f"{what}: other clusters fit")
+
+    def bic_tie(r, i):
+        b = r["bics"].get(i, {})
+        k = r["fit"][i][0] if i in r["fit"] else None
+        if k is None or len(b) < 2:
+            return False
+        other = min(v for kk, v in b.items() if kk != k)
+        return abs(b[k] - other) <= G5M_BIC_TIE * abs(b[k])
+
+    out = {"bic_ties": [], "stepped": [], "same_px": same_px,
+           "worst_same": 0.0, "n_locs_half": 0}
+    for i, g in enumerate(got_record["group_input"]):
+        a, b = got[got["group_input"] == g], ref[ref["group_input"] == g]
+        if bic_tie(got_record, i) or bic_tie(ref_record, i):
+            out["bic_ties"].append((g, len(a), len(b)))
+            continue
+        if len(a) != len(b):
+            raise AssertionError(f"{what}: cluster {g} has {len(a)} and "
+                                 f"{len(b)} molecules")
+        if not len(a):
+            continue
+        d = _center_distance(a, b, cols)
+        fa, fb = got_record["fit"].get(i), ref_record["fit"].get(i)
+        if fa != fb:
+            tie = min(got_record["tie"].get(i, np.inf),
+                      ref_record["tie"].get(i, np.inf))
+            if tie > G5M_EM_TIE or d > G5M_STEPPED_PX:
+                raise AssertionError(
+                    f"{what}: cluster {g} fit {fa} and {fb}, {tie:.2e} "
+                    f"from an EM tie, centers {d:.3e} px apart")
+            out["stepped"].append((g, fa, fb, d))
+            continue
+        out["worst_same"] = max(out["worst_same"], d)
+        if d > same_px:
+            raise AssertionError(f"{what}: cluster {g} fit alike {fa}, "
+                                 f"centers {d:.3e} px apart (bound "
+                                 f"{same_px:.3e})")
+        order = np.argsort(a["x"]), np.argsort(b["x"])
+        for n in ("n_events", "group_input"):
+            if not np.array_equal(a[n][order[0]], b[n][order[1]]):
+                raise AssertionError(f"{what}: {n} of cluster {g} differs")
+        na, nb = a["n_locs"][order[0]], b["n_locs"][order[1]]
+        if not np.array_equal(na, nb):
+            n = np.count_nonzero(locs["group"] == g)
+            frac = np.abs(got_record["models"][i].weights * n % 1 - 0.5)
+            if not (np.abs(na - nb) <= 1).all() or frac.min() > 1e-3:
+                raise AssertionError(f"{what}: n_locs of cluster {g} "
+                                     "differ")
+            out["n_locs_half"] += 1
+    return out
