@@ -164,7 +164,20 @@ Phases, each of which raises on failure (exit code != 0):
    cluster equal but at BIC near ties; a cluster fit with the same K,
    start and steps within G5M_SAME_ULPS f32 ulps and its integer fields
    equal; another start or step count only at an EM near tie);
-   averaging's first picks equal but at near ties.
+   averaging's first picks equal but at near ties;
+19. SPINNA through the API (no kernel; plain torch on the card,
+   picasso_torch.spinna and ops/spinna_batch.py), with every count set
+   to 0 just before each fit: (a) the cell-scale field of
+   tests/torch_data.SPINNA_CELL, brute force over its 231 candidates
+   (best proportions within SPINNA_POINTS of the truth) and
+   coarse-to-fine, the wall and candidates/s, the batched scorer's
+   chunk, pads and peak memory, one chunk split by CUDA events into
+   simulate / kNN / KS, and the scorer's bound (_spinna_bound); (b)
+   bench.py's SPINNA recipe (1089 candidates, N_sim 4) after a warm call,
+   its best monomer share within SPINNA_BENCH_POINTS of the truth, and
+   fit_bayesian at its defaults with the bootstrap; (c) the card against
+   the CPU on N_SPINNA_CARD_CPU candidates of (a) and of a tenth of it in
+   3D, one seed, within torch_parity.compare_spinna_scores.
 IMS and STK movies are checked on the CPU only (tests/test_torch_io.py):
 the machine with the card has no h5py.
 The line before the last is the JSON record of every kernel (bound_ms:
@@ -260,6 +273,19 @@ ROT_SHARE, ROT_SHARE_PI = 0.9, 0.98
 # but at near-tie correlations (relative)
 N_CARD_CPU = 64
 PICK_TIE = 1e-5
+# phase 19: SPINNA on the cell-scale field of tests/torch_data.SPINNA_CELL
+# (5000 A in 1500 monomers, 1000 dimers at 20 nm and 500 trimers with 20
+# nm sides, 30 / 40 / 30 % by target), the search space at granularity 21
+# (231 candidates), N_sim 3; brute force's best proportions within
+# SPINNA_POINTS of the truth (JAX's host scorer found them exactly on this
+# field at seeds 19 and 20). bench.py's recipe (:1184-1221): monomer + 20
+# nm dimer, 300 + 250 in 4 x 4 um, LE 0.9, unc 2, N_sim 4, its 33 x 33
+# grid; the best monomer share within SPINNA_BENCH_POINTS of the truth,
+# 37.5 % (JAX's host scorer: 37.7 %). Card == CPU on N_SPINNA_CARD_CPU
+# candidates of the field at N_sim 1 and on a tenth of it in 3D.
+SPINNA_GRANULARITY, SPINNA_NSIM = 21, 3
+SPINNA_POINTS, SPINNA_BENCH_POINTS = 10.0, 12.0
+N_SPINNA_CARD_CPU = 8
 
 
 def _median_ms(fn, reps: int = 5, calls: int = 1) -> float:
@@ -1228,6 +1254,185 @@ def origami_phase(counted, smi: str):
           f"the largest x/y difference {dxy:.3e} px; card "
           f"{full['cuda s']:.3f} s, CPU {full['cpu s']:.3f} s")
     return launches_g5m, launches_avg
+
+
+def _spinna_bound(scorer, rows) -> tuple[float, str, float]:
+    """The batched scorer's least time (ms) for the candidates ``rows``:
+    the distances between the points each candidate keeps (N_sim x
+    kept_1 x kept_2 a target pair, from BatchedScorer.kept_counts) at 3 D
+    operations each over the f32 peak, or those points (coordinates and a
+    mask) read once and the scores written over the memory rate; and the
+    ms of the bytes its distance tiles move as the package forms them, at
+    each chunk's width (per axis a difference written, squared in place
+    and summed, then k min-extractions read: 24 D - 12 + 4 k B a pair)."""
+    kept = scorer.kept_counts(rows).astype(np.float64)
+    pairs = tiles = 0.0
+    for i1, i2, k in scorer.pair_keys:
+        pairs += scorer.N_sim * float(np.sum(kept[:, i1] * kept[:, i2]))
+        for s in range(0, len(rows), scorer.chunk):
+            w = np.maximum(kept[s:s + scorer.chunk].max(0), 1)
+            tiles += (len(kept[s:s + scorer.chunk]) * scorer.N_sim * w[i1]
+                      * w[i2] * (24 * scorer.dim - 12 + 4 * k))
+    inputs = scorer.N_sim * kept.sum() * (4 * scorer.dim + 1) + 8 * len(rows)
+    b_ms, by = _bound(3.0 * scorer.dim * pairs, inputs)
+    return b_ms, by, tiles / PEAK_BYTES * 1e3
+
+
+def _pct(props) -> list:
+    return np.round(np.asarray(props, np.float64), 2).tolist()
+
+
+def _chunk_split(scorer, rows) -> dict:
+    """One chunk of the scorer split by CUDA events: simulate, kNN, KS
+    (ms, medians of 3 after a warm-up)."""
+    import torch
+
+    times = {"simulate": [], "kNN": [], "KS": []}
+    width = np.maximum(scorer.kept_counts(rows).max(0), 1)  # as score()
+    for rep in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        coords, masks = scorer.simulate(rows, 7, 0, width)
+        ev[1].record()
+        knn, eff = scorer.knn_pairs(coords, masks)
+        ev[2].record()
+        scorer.ks_scores(knn, eff, len(rows))
+        ev[3].record()
+        torch.cuda.synchronize()
+        if rep:
+            for i, k in enumerate(times):
+                times[k].append(ev[i].elapsed_time(ev[i + 1]))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def spinna_phase(counted, smi: str):
+    """19. SPINNA on the card through the API (no kernel; plain torch):
+    (a) the cell-scale field, brute force and coarse-to-fine, the scorer's
+    chunks, pads, peak memory, a chunk's split and its bound; (b)
+    bench.py's recipe: candidates/s after a warm call, fit_bayesian at its
+    defaults with the bootstrap; (c) card == CPU. Returns the launches of
+    every kernel over the phase's fits."""
+    import torch
+
+    from picasso_torch import spinna
+    from torch_data import SPINNA_CELL, spinna_cell
+    from torch_parity import (
+        SPINNA_KS_STEPS, compare_spinna_scores, spinna_sample_sizes,
+    )
+
+    launches = {}
+
+    def run(fn):
+        out, wall, n = counted(fn)
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+        return out, wall
+
+    # (a) the cell-scale field
+    mixer, gt = spinna_cell(spinna)
+    n_obs = len(gt["A"])
+    rows = mixer.convert_N_structures_to_array(spinna.generate_N_structures(
+        mixer.structures, {"A": sum(c * n for c, n in zip(
+            SPINNA_CELL["counts"], (1, 2, 3)))}, SPINNA_GRANULARITY))
+    truth = mixer.convert_counts_to_props(np.array(SPINNA_CELL["counts"]))
+    sp = spinna.SPINNA(mixer, gt, N_sim=SPINNA_NSIM, device="cuda")
+    sp.NN_scorer(rows[:4])  # the first launches of each torch op
+    scorer = sp._get_batched_scorer(rows)
+    torch.cuda.reset_peak_memory_stats()
+    np.random.seed(20)
+    (props_bf, score_bf, scores_bf), wall_bf = run(
+        lambda: sp.fit_stoichiometry(rows, fitting_mode="brute-force",
+                                     return_scores=True))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    np.random.seed(21)
+    (props_cf, score_cf, scores_cf), wall_cf = run(
+        lambda: sp.fit_stoichiometry(rows, fitting_mode="coarse-to-fine",
+                                     return_scores=True))
+    split = _chunk_split(scorer, rows[:scorer.chunk])
+    b_ms, b_by, tile_ms = _spinna_bound(scorer, rows)
+    cb_ms, cb_by, ctile_ms = _spinna_bound(scorer, rows[:scorer.chunk])
+    n_chunks = -(-len(rows) // scorer.chunk)
+    print(f"SPINNA ({smi}) (a) cell-scale field: {n_obs} observed A of "
+          f"5000 in {SPINNA_CELL['side'] / 1000:.0f} x "
+          f"{SPINNA_CELL['side'] / 1000:.0f} um, truth "
+          f"{_pct(truth)} %, {len(rows)} candidates, N_sim "
+          f"{SPINNA_NSIM}; brute force {wall_bf:.3f} s = "
+          f"{len(rows) / wall_bf:.1f} candidates/s, best "
+          f"{_pct(props_bf)} % (KS {score_bf:.4f}); coarse-to-fine "
+          f"{wall_cf:.3f} s over {len(scores_cf)} fine candidates, best "
+          f"{_pct(props_cf)} % (KS {score_cf:.4f})")
+    print(f"  scorer ({smi}): chunk {scorer.chunk} candidates, {n_chunks} "
+          f"chunks, pads N_pad {scorer.N_pad} P {scorer.P} (a chunk's width"
+          f" its largest kept count, {int(scorer.kept_counts(rows).max())} "
+          f"at most), kNN block "
+          f"{scorer.block}; peak memory {peak:.2f} GiB; one chunk "
+          f"(CUDA events): simulate {split['simulate']:.2f} ms, kNN "
+          f"{split['kNN']:.2f} ms, KS {split['KS']:.2f} ms (bound "
+          f"{cb_ms:.3f} ms by {cb_by}, its tiles' bytes {ctile_ms:.2f} ms); "
+          f"all {len(rows)}: bound {b_ms:.3f} ms by {b_by}, tiles' bytes "
+          f"{tile_ms:.2f} ms")
+    if np.abs(props_bf - truth).max() > SPINNA_POINTS:
+        raise AssertionError(f"SPINNA (a): brute force {props_bf} against "
+                             f"{truth}")
+    # (b) bench.py's recipe
+    monomer = spinna.Structure("monomer")
+    monomer.define_coordinates("A", [0.0], [0.0], [0.0])
+    dimer = spinna.Structure("dimer")
+    dimer.define_coordinates("A", [-10.0, 10.0], [0.0, 0.0], [0.0, 0.0])
+    bmixer = spinna.StructureMixer([monomer, dimer], label_unc={"A": 2.0},
+                                   le={"A": 0.9}, width=4000.0, height=4000.0)
+    np.random.seed(0)
+    bgt = bmixer.run_simulation([300, 250])
+    bsp = spinna.SPINNA(bmixer, bgt, N_sim=4, device="cuda")
+    N = np.array([[a * 16, b * 14] for a in range(33) for b in range(33)])
+    bsp.NN_scorer(N)  # warm
+    (_, bscores), wall_b = run(lambda: bsp.NN_scorer(N))
+    bprops = bmixer.convert_counts_to_props(N[int(np.argmin(bscores))])
+    np.random.seed(22)
+    ((bay_props, bay_sem), (bay_score, bay_ssem)), wall_bay = run(
+        lambda: bsp.fit_bayesian(N, bootstrap=True))
+    bscorer = bsp._get_batched_scorer(N)
+    bb_ms, bb_by, btile_ms = _spinna_bound(bscorer, N)
+    print(f"  (b) bench.py's recipe ({smi}): {len(N)} candidates, N_sim 4: "
+          f"{wall_b:.3f} s = {len(N) / wall_b:.1f} candidates/s (chunk "
+          f"{bscorer.chunk}, P {bscorer.P}; bound {bb_ms:.3f} ms by {bb_by},"
+          f" tiles' bytes {btile_ms:.2f} ms); best monomer share "
+          f"{bprops[0]:.2f} % (truth 37.5); fit_bayesian (20 + 80) with the "
+          f"bootstrap {wall_bay:.3f} s: {_pct(bay_props)} % +- "
+          f"{_pct(bay_sem)}, KS {bay_score:.4f} +- "
+          f"{bay_ssem:.4f}")
+    if not (np.isfinite(bscores).all() and np.isfinite(scores_bf).all()
+            and np.isfinite(bay_score)):
+        raise AssertionError("SPINNA (b): non-finite scores")
+    if abs(bprops[0] - 37.5) > SPINNA_BENCH_POINTS:
+        raise AssertionError(f"SPINNA (b): monomer share {bprops[0]}")
+    # (c) the card against the CPU
+    for what, (m, g), sub in (
+            ("field", (mixer, gt), rows[::29][:N_SPINNA_CARD_CPU]),
+            ("3D tenth", spinna_cell(spinna, 0.1, depth=500.0,
+                                     random_rot_mode="3D"), None)):
+        space = rows if sub is not None else m.convert_N_structures_to_array(
+            spinna.generate_N_structures(m.structures, {"A": 500}, 21))
+        sub = space[::29][:N_SPINNA_CARD_CPU] if sub is None else sub
+        res = {}
+        for d in ("cuda", "cpu"):
+            s1 = spinna.SPINNA(m, g, N_sim=1, device=d)
+            sc = s1._get_batched_scorer(space)
+            t1 = time.perf_counter()
+            res[d] = sc.score(sub, seed=23)
+            res[d + " s"] = time.perf_counter() - t1
+        n1 = spinna_sample_sizes(sc, sc.simulate(sub, 23)[1])
+        agree = compare_spinna_scores(res["cuda"], res["cpu"], n1,
+                                      f"SPINNA card vs CPU ({what})")
+        print(f"  (c) card == CPU ({smi}), {what}, {len(sub)} candidates, "
+              f"N_sim 1: largest difference {agree['max_abs']:.3e} "
+              f"({agree['max_steps']:.2f} ECDF steps, bound "
+              f"{SPINNA_KS_STEPS} / n1), equal bit for bit "
+              f"{agree['equal']:.3f}; card {res['cuda s']:.3f} s, CPU "
+              f"{res['cpu s']:.3f} s")
+    if any(launches.values()):
+        raise AssertionError(f"SPINNA launched {launches}")
+    return launches
 
 
 def _step_kernels_of_origami(clustered, info, gmm, g5m, kernels_in):
@@ -2630,9 +2835,12 @@ def main() -> int:
     # 18. the analyses of grouped locs: G5M and averaging ---------------
     t18 = time.perf_counter()
     launches_g5m, launches_avg = origami_phase(counted, smi)
+    # 19. SPINNA ----------------------------------------------------------
+    t19 = time.perf_counter()
+    launches_spinna = spinna_phase(counted, smi)
     print(f"phases 15-16: {t16 - t15:.1f} s and {t17 - t16:.1f} s, phase "
-          f"17: {t18 - t17:.1f} s, phase 18: {time.perf_counter() - t18:.1f}"
-          f" s ({smi})")
+          f"17: {t18 - t17:.1f} s, phase 18: {t19 - t18:.1f} s, phase 19: "
+          f"{time.perf_counter() - t19:.1f} s ({smi})")
     print("host code (no kernel):", json.dumps([{
         "name": "link_walk", "source": "picasso_torch/csrc/link_walk.cu",
         "replaces": "picasso_tpu/native/picasso_native.cpp:38",
@@ -2650,7 +2858,8 @@ def main() -> int:
              "fit2D-lq": launches_k3, "3d-mle": paths3d["gaussmle"],
              "3d-lq": paths3d["gausslq"], "link": launches_link,
              "db": launches_db, "cluster": launches_cl,
-             "g5m": launches_g5m, "average": launches_avg}
+             "g5m": launches_g5m, "average": launches_avg,
+             "spinna": launches_spinna}
     print("launches by path:", json.dumps(paths))
 
     # the kernels line -----------------------------------------------------

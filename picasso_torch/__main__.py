@@ -26,6 +26,10 @@ Counterpart of picasso_tpu/__main__.py for the verbs ported so far:
     python -m picasso_torch dbscan "*_locs.hdf5" RADIUS DENSITY
     python -m picasso_torch hdbscan "*_locs.hdf5" MIN_CLUSTER MIN_SAMPLES
     python -m picasso_torch g5m "*_dbscan.hdf5" [-m 10] [-zc calib.yaml]
+    python -m picasso_torch spinna structures.yaml A_locs.hdf5 [B.hdf5 ...]
+        [-g 11 -u 3 -l 1 -W WIDTH -H HEIGHT -n 1 -m coarse-to-fine]
+    python -m picasso_torch spinna-batch parameters.csv [-b] [-v]
+        [-m bayesian]
 
 ``localize`` reads .raw, .tif/.tiff series, .ims, .stk and .nd2 movies
 and takes the JAX CLI's flags and defaults plus ``--device`` (default
@@ -54,6 +58,10 @@ JAX CLI's files with its info blocks and messages; so do the clusterers
 (``_hdbscan.hdf5``, ``_hdbscan_centers.hdf5``), which need no sklearn.
 ``g5m`` maps the molecules of grouped locs (``_g5m.hdf5``, the
 molecules; ``_g5m_locs.hdf5``, the locs labelled by molecule).
+``spinna`` fits the stoichiometry of the structures of a YAML file to
+one locs file a target and prints the best proportions and KS score;
+``spinna-batch`` runs one fit a row of a parameters CSV into a new
+``<parameters>__fitting_results`` folder.
 Every verb after localize but ``toraw``, ``join`` and ``clusterfilter``
 takes ``--device`` too.
 """
@@ -464,6 +472,45 @@ def _g5m(args):
         print(f"G5M -> {_out_path(path, '_g5m')}")
 
 
+def _spinna(args):
+    import numpy as np
+
+    from picasso_torch import io, lib, spinna
+
+    device = lib.resolve_device(args.device)
+    structures, targets = spinna.load_structures(args.structures)
+    exp_data = {}
+    for t, p in zip(targets, args.files):
+        locs, _ = io.load_locs(p)
+        px = 130
+        exp_data[t] = np.column_stack([locs["x"] * px, locs["y"] * px])
+    mixer = spinna.StructureMixer(
+        structures, label_unc={"ALL": args.label_unc}, le={"ALL": args.le},
+        width=args.width, height=args.height)
+    N_total = {t: int(len(exp_data[t]) / args.le) for t in targets}
+    space = spinna.generate_N_structures(structures, N_total,
+                                         args.granularity)
+    spin = spinna.SPINNA(mixer, exp_data, N_sim=args.nsim, device=device)
+    props, score = spin.fit(space, fitting_mode=args.mode,
+                            callback="console")[:2]
+    print("SPINNA best fit:")
+    for n, p in zip(mixer.get_structure_names(), np.atleast_1d(props)):
+        print(f"  {n}: {p:.1f} %")
+    print(f"KS score: {score:.4f}")
+
+
+def _spinna_batch(args):
+    from picasso_torch import spinna
+
+    summary = spinna.batch_analysis(
+        args.parameters, bootstrap=args.bootstrap, verbose=args.verbose,
+        fitting_mode=args.mode, device=args.device)
+    columns = list(dict.fromkeys(k for row in summary for k in row))
+    print("  ".join(columns))
+    for row in summary:
+        print("  ".join(str(row.get(c, "")) for c in columns))
+
+
 @contextlib.contextmanager
 def _profile(trace_dir: str | None):
     """torch.profiler trace of the command into ``trace_dir``."""
@@ -646,6 +693,30 @@ def main(argv=None):
     p.add_argument("-zc", "--zc", type=str, default="")
     _device_arg(p)
 
+    modes = ["coarse-to-fine", "bayesian", "brute-force"]
+    p = subparsers.add_parser("spinna", help="SPINNA stoichiometry fitting")
+    p.add_argument("structures", help="structures .yaml file")
+    p.add_argument("files", nargs="+", help="one locs file per target")
+    p.add_argument("-g", "--granularity", type=int, default=11)
+    p.add_argument("-u", "--label-unc", type=float, default=3.0)
+    p.add_argument("-l", "--le", type=float, default=1.0)
+    p.add_argument("-W", "--width", type=float, default=None)
+    p.add_argument("-H", "--height", type=float, default=None)
+    p.add_argument("-n", "--nsim", type=int, default=1)
+    p.add_argument("-m", "--mode", choices=modes, default="coarse-to-fine")
+    _device_arg(p)
+
+    p = subparsers.add_parser(
+        "spinna-batch", help="SPINNA batch analysis from a CSV parameters "
+        "file (one fit per row; LE fitting rows supported)")
+    p.add_argument("parameters", help="parameters .csv file")
+    p.add_argument("-b", "--bootstrap", action="store_true",
+                   help="bootstrap SEMs")
+    p.add_argument("-v", "--verbose", action="store_true",
+                   help="per-row console progress")
+    p.add_argument("-m", "--mode", choices=modes, default="bayesian")
+    _device_arg(p)
+
     args = parser.parse_args(argv)
     if args.command is None:
         parser.print_help()
@@ -659,7 +730,8 @@ def main(argv=None):
              "cluster_combine": _cluster_combine,
              "cluster_combine_dist": _cluster_combine_dist,
              "dbscan": _dbscan, "hdbscan": _hdbscan,
-             "smlm_cluster": _smlm_cluster, "g5m": _g5m}
+             "smlm_cluster": _smlm_cluster, "g5m": _g5m,
+             "spinna": _spinna, "spinna-batch": _spinna_batch}
     if args.command in verbs:
         verbs[args.command](args)
         return

@@ -779,13 +779,14 @@ def g5m(locs: np.ndarray, info: list[dict], *, min_locs: int = MIN_LOCS,
         max_rounds_without_best_bic: int = MAX_ROUNDS_WITHOUT_BEST_BIC,
         bootstrap_check: bool = False, calibration: dict | None = None,
         postprocess: bool = True, max_locs_per_cluster: float = np.inf,
-        callback_parent=None, device="cuda",
+        asynch: bool = True, callback_parent=None, device="cuda",
         record: dict | None = None):
     """Run G5M over all clusters (groups) of ``locs``; returns (centers,
     clustered_locs, info) (picasso/g5m.py:2511). From BATCH_MIN_GROUPS
     groups the batched EM runs on ``device``; below, the host route. The
     device is resolved first, whatever the route: ``"cuda"`` without a
-    card raises.
+    card raises. ``asynch`` is accepted for the reference's API and
+    ignored, as JAX does.
     ``record``, where given, gains the batched route's split and fits
     (_fit_clusters_batched; a cluster's index there is its place in
     ``group_input``), its ``models`` and the seconds of the result tables

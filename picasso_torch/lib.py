@@ -5,8 +5,8 @@ Counterpart of the parts of picasso_tpu/lib.py that the localize path
 and the picks use (get_from_metadata :41, ensure_sanity :82,
 check_if_in_polygon :148, merge_locs :110, check_if_in_rectangle
 :170, get_pick_rectangle_corners :213, find_local_minima :345,
-minimize_shifts :445, MockProgress :670, progress_reporter :731,
-get_pick_polygon_corners :828). Locs are
+minimize_shifts :445, deprecation_warning :479, MockProgress :670,
+progress_reporter :731, get_pick_polygon_corners :828). Locs are
 numpy structured arrays with the record layout of the HDF5 ``"locs"``
 dataset; :func:`series_mean_std` gives a column the mean and std that
 the JAX package's pandas columns give.
@@ -251,6 +251,11 @@ def get_pick_polygon_corners(pick):
     if len(pick) < 3 or pick[0] != pick[-1]:
         return None, None
     return [p[0] for p in pick], [p[1] for p in pick]
+
+
+def deprecation_warning(message: str) -> None:
+    """Print a deprecation notice (picasso/lib.py convention)."""
+    print(message)
 
 
 class MockProgress:

@@ -1187,3 +1187,32 @@ def test_average_on_the_card_matches_the_cpu(dev):
     b = average.average(locs, info, iterations=2, device="cpu")
     for c in ("x", "y"):
         np.testing.assert_allclose(a[c], b[c], rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("kw", [{}, {"depth": 500.0,
+                                      "random_rot_mode": "3D"}])
+def test_spinna_scores_on_the_card_match_the_cpu(dev, kw):
+    """SPINNA's batched scorer on 8 candidates of a tenth of the smoke's
+    cell-scale field (2D; and 3D with 3D rotations), one seed: the same
+    keep masks, coordinates within an f32 ulp, the scores within
+    torch_parity.compare_spinna_scores."""
+    from picasso_torch import spinna
+    from torch_data import spinna_cell
+    from torch_parity import compare_spinna_scores, spinna_sample_sizes
+
+    mixer, gt = spinna_cell(spinna, 0.1, **kw)
+    space = mixer.convert_N_structures_to_array(spinna.generate_N_structures(
+        mixer.structures, {"A": 500}, 21))
+    rows = space[::29][:8]
+    out = {}
+    for d in (dev, "cpu"):
+        sp = spinna.SPINNA(mixer, gt, N_sim=1, device=d)
+        scorer = sp._get_batched_scorer(space)
+        coords, masks = scorer.simulate(rows, seed=5)
+        out[str(d)] = (scorer.score(rows, seed=5), coords, masks)
+    (sc, cc, mc), (sp_, cp, mp) = out[str(dev)], out["cpu"]
+    for t in mc:
+        np.testing.assert_array_equal(mc[t].cpu().numpy(), mp[t].numpy())
+        np.testing.assert_allclose(cc[t].cpu().numpy(), cp[t].numpy(),
+                                   rtol=2**-23, atol=1e-3)
+    compare_spinna_scores(sc, sp_, spinna_sample_sizes(scorer, mp))

@@ -52,7 +52,7 @@ def test_every_module_imports_without_jax():
               "ops.render_ops", "render", "imageprocess", "postprocess",
               "io", "stream", "avgroi", "zfit", "aim", "ops.neighbors",
               "ops.link", "masking", "clusterer", "ops.cluster", "g5m",
-              "ops.gmm", "average"):
+              "ops.gmm", "average", "spinna", "ops.spinna_batch"):
         assert "picasso_torch." + m in mods
     smoke = _smoke_imports()
     assert "torch_data" in smoke and "torch_parity" in smoke
@@ -91,10 +91,13 @@ def test_clusterer_imports_no_jax_pandas_or_sklearn():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("module", ["g5m", "ops.gmm", "average"])
+@pytest.mark.parametrize("module", ["g5m", "ops.gmm", "average", "spinna",
+                                    "ops.spinna_batch", "ops.neighbors"])
 def test_analysis_module_imports_no_jax_pandas_or_sklearn(module):
-    """picasso_torch.g5m, .ops.gmm and .average, each imported alone,
-    pull in none of jax, picasso_tpu, pandas or sklearn."""
+    """picasso_torch.g5m, .ops.gmm, .average, .spinna (with its Gaussian
+    process), .ops.spinna_batch and .ops.neighbors (knn_masked,
+    ks_2samp_masked), each imported alone, pull in none of jax,
+    picasso_tpu, pandas or sklearn."""
     code = (
         f"import sys, picasso_torch.{module}\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "

@@ -481,3 +481,41 @@ def write_tiff(path, frames: np.ndarray, *, bigtiff: bool = False,
             next_ifd = 0 if i == n - 1 else extra_pos + len(extra)
             f.write(struct.pack(bo + n_fmt, len(entries)) + body
                     + struct.pack(bo + off_fmt, next_ifd) + extra)
+
+
+# SPINNA: target "A" in a monomer, a dimer at 20 nm and an equilateral
+# trimer with 20 nm sides; the cell-scale field holds 1500 / 1000 / 500 of
+# them (5000 A: 30 / 40 / 30 % by target, 50 A per um^2) in a 10 x 10 um
+# CSR ROI, labelled at LE 0.8 with 5 nm label uncertainty
+SPINNA_CELL = {"counts": (1500, 1000, 500), "side": 10000.0, "le": 0.8,
+               "unc": 5.0, "seed": 19}
+
+
+def spinna_structures(spinna, d: float = 20.0) -> list:
+    """The monomer, dimer and trimer of target "A" (``spinna`` is the
+    port's module or JAX's)."""
+    h = d * np.sqrt(3) / 2
+    shapes = {"monomer": ([0.0], [0.0]),
+              "dimer": ([-d / 2, d / 2], [0.0, 0.0]),
+              "trimer": ([-d / 2, d / 2, 0.0], [-h / 3, -h / 3, 2 * h / 3])}
+    out = []
+    for name, (x, y) in shapes.items():
+        s = spinna.Structure(name)
+        s.define_coordinates("A", x, y, [0.0] * len(x))
+        out.append(s)
+    return out
+
+
+def spinna_cell(spinna, scale: float = 1.0, **kw):
+    """(mixer, ground truth) of the cell-scale field, its area (and so the
+    counts) scaled by ``scale``, drawn under np.random.seed; ``kw``
+    (depth, random_rot_mode) go to the mixer."""
+    c = SPINNA_CELL
+    side = c["side"] * np.sqrt(scale)
+    mixer = spinna.StructureMixer(spinna_structures(spinna),
+                                  label_unc={"A": c["unc"]},
+                                  le={"A": c["le"]}, width=side, height=side,
+                                  **kw)
+    np.random.seed(c["seed"])
+    counts = [int(round(n * scale)) for n in c["counts"]]
+    return mixer, mixer.run_simulation(counts)

@@ -498,3 +498,47 @@ def compare_g5m(got: np.ndarray, got_record: dict, ref: np.ndarray,
                                      "differ")
             out["n_locs_half"] += 1
     return out
+
+
+# SPINNA's batched scorer on two devices (card and CPU) with one seed.
+# The devices draw the same 32-bit words (ops/spinna_batch.py keys them by
+# candidate); uniforms, the coordinates' f32 arithmetic, the per-axis kNN
+# sums, the roots (correctly rounded on both) and the KS counts are exact.
+# Only the f64 transcendentals of the draws (Box-Muller's log and cos, the
+# angles' cos and sin, the quaternion's root) may differ by an ulp between
+# the libms, and a coordinate moves by an f32 ulp only where that crosses
+# an f32 rounding. A distance that then crosses a ground-truth value moves
+# one KS statistic by one ECDF step, 1/n1; a score, a mean of statistics,
+# may move by SPINNA_KS_STEPS such steps at most.
+SPINNA_KS_STEPS = 4
+
+
+def spinna_sample_sizes(scorer, masks: dict) -> np.ndarray:
+    """The smallest KS sample of each candidate (the valid rows of its
+    pairs over the repeats) of BatchedScorer.simulate's ``masks``."""
+    sizes = []
+    for i1, i2, _ in scorer.pair_keys:
+        m1, m2 = (masks[scorer.targets[i]].cpu().numpy() for i in (i1, i2))
+        eff = m1 & (m2.sum(1) > 0)[:, None]
+        sizes.append(eff.reshape(-1, scorer.N_sim * m1.shape[1]).sum(1))
+    return np.min(sizes, axis=0)
+
+
+def compare_spinna_scores(got, ref, n1, what: str = "SPINNA scores") -> dict:
+    """Hold scores ``got`` to ``ref`` of the same candidates and seed:
+    each within SPINNA_KS_STEPS / n1 of its candidate's smallest sample
+    n1 (:func:`spinna_sample_sizes`). Returns the largest difference, it
+    in ECDF steps and the share of scores equal bit for bit."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    n1 = np.maximum(np.asarray(n1, np.float64), 1)
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{what}: shapes {got.shape} / {ref.shape} or "
+                             "non-finite scores")
+    diff = np.abs(got - ref)
+    steps = diff * n1
+    if (steps > SPINNA_KS_STEPS).any():
+        i = int(np.argmax(steps))
+        raise AssertionError(f"{what}: candidate {i} {got[i]!r} / {ref[i]!r}"
+                             f", {steps[i]:.2f} ECDF steps of 1/{n1[i]:.0f}")
+    return {"max_abs": float(diff.max()), "max_steps": float(steps.max()),
+            "equal": float(np.mean(diff == 0))}
