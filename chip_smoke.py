@@ -177,7 +177,37 @@ Phases, each of which raises on failure (exit code != 0):
    its best monomer share within SPINNA_BENCH_POINTS of the truth, and
    fit_bayesian at its defaults with the bootstrap; (c) the card against
    the CPU on N_SPINNA_CARD_CPU candidates of (a) and of a tenth of it in
-   3D, one seed, within torch_parity.compare_spinna_scores.
+   3D, one seed, within torch_parity.compare_spinna_scores;
+20. the rest of the localize API, nanotron, average3 and simulate
+   through the API (no kernel is new): (a) on the slices' movie,
+   identify_by_frame_number and identify_in_frame on API_FRAMES equal to
+   identify's rows, localize with perf= (the wall split printed) equal
+   to the MLE slice bit for bit, localize_fused with frame_chunk
+   API_FRAME_CHUNK equal to the default bit for bit, an abort_callback
+   that fires at the second chunk returning (None, None), the unit
+   camera as 0-d arrays through identify + fit2D equal to the MLE slice
+   bit for bit (path ``camera-array``), and the legacy fit of chunk 0's
+   identifications (path ``fit``) related to fit2D's locs as ROADMAP
+   queue 3 records (x/y in-box offsets swapped, box // 2 added, sx/sy
+   swapped) within FIT_OFFSET_ABS px; (b) closed loop: simulate.
+   simulate_movie (host) at SIM_CONFIGS, then localize on the card, more
+   than SIM_MIN_LOCS locs with their median distance to the nearest
+   site below SIM_MEDIAN_PX; (c) nanotron on two DNA-PAINT origami
+   designs (origami_template() and its first two rows,
+   N_NANO_PICKS picks a class, NANO_RADIUS px, oversampling
+   NANO_OVERSAMPLING: 40 x 40 images), train_model at its defaults on
+   N_NANO_TRAIN picks a class, held-out accuracy at least NANO_ACCURACY,
+   predict_structure timed a pick; the card against the CPU from the
+   same weights for NANO_CARD_CPU_EPOCHS epochs within
+   torch_parity.compare_mlp; (d) average3: JAX's recipe
+   (torch_data.make_average3_locs) at N_AVG3_GROUPS groups with JAX's
+   gates (the spread falls by more than AVG3_SPREAD_FALL, the std of the
+   groups' z means below AVG3_Z_STD nm), and N_ORIGAMI3D 3D origami
+   (torch_data.make_origami3d_locs) at average3's defaults with the z
+   gate, each pass's wall split; the card against the CPU pass by pass
+   within torch_parity.compare_average3 (the recipe whole, the first
+   N_AVG3_CARD_CPU origami). Paths ``simulate`` (the simulation),
+   ``nanotron`` and ``average3`` launch no kernel.
 IMS and STK movies are checked on the CPU only (tests/test_torch_io.py):
 the machine with the card has no h5py.
 The line before the last is the JSON record of every kernel (bound_ms:
@@ -286,6 +316,31 @@ PICK_TIE = 1e-5
 SPINNA_GRANULARITY, SPINNA_NSIM = 21, 3
 SPINNA_POINTS, SPINNA_BENCH_POINTS = 10.0, 12.0
 N_SPINNA_CARD_CPU = 8
+# phase 20: the frames on which the legacy identification API is held to
+# identify, the frame chunk held to the default, and the bound of the
+# legacy fit's relation to fit2D (two f32 ulps of a coordinate below 256
+# px); the closed loop's simulations (JAX's tests/test_simulate.py recipe,
+# then a 64 x 64 px, 1000-frame, 32-site movie), their localize settings
+# and JAX's gates; nanotron's data (picks a class, the training picks,
+# the pick radius (px) and oversampling, the seeds of the two designs),
+# its accuracy gate, the epochs of card == CPU and the picks
+# predict_structure is timed on; average3's groups of JAX's recipe, its
+# 3D origami and those held card == CPU, and JAX's gates
+API_FRAMES = (0, 1, 1000, 2047)
+API_FRAME_CHUNK = 128
+FIT_OFFSET_ABS = 2 * float(np.spacing(np.float32(256)))
+SIM_CONFIGS = (
+    dict(n_sites=16, imagesize=32, frames=400, taud=3000, photonrate=60,
+         seed=7),
+    dict(n_sites=32, imagesize=64, frames=1000, taud=3000, photonrate=60,
+         seed=7),
+)
+SIM_MIN_NG, SIM_MIN_LOCS, SIM_MEDIAN_PX = 3000, 50, 1.0
+N_NANO_PICKS, N_NANO_TRAIN = 500, 400
+NANO_RADIUS, NANO_OVERSAMPLING, NANO_SEEDS = 0.5, 40, (31, 32)
+NANO_ACCURACY, NANO_CARD_CPU_EPOCHS, N_PREDICT = 0.95, 5, 20
+N_AVG3_GROUPS, N_ORIGAMI3D, N_AVG3_CARD_CPU = 1000, 1000, 64
+AVG3_SPREAD_FALL, AVG3_Z_STD = 0.3, 10.0
 
 
 def _median_ms(fn, reps: int = 5, calls: int = 1) -> float:
@@ -1471,6 +1526,306 @@ def _step_kernels_of_origami(clustered, info, gmm, g5m, kernels_in):
     # means, the variances and the local precisions)
     bound = _bound(30.0 * R * 512 * 11, R * 512 * (4 * 2 + 1 + 4))
     return kernels, ops, _median_ms(step), bound, R
+
+
+def _sum_launches(*runs) -> dict:
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
+def _equal_arrays(a: list, b: list, what: str) -> None:
+    """Equal bit for bit, NaN where NaN, array by array (a structured
+    array field by field, its dtype too)."""
+    if len(a) != len(b):
+        raise AssertionError(f"{what}: {len(a)} outputs against {len(b)}")
+    for k, (x, y) in enumerate(zip(a, b)):
+        x, y = np.asarray(x), np.asarray(y)
+        names = x.dtype.names
+        if names:
+            if x.dtype != y.dtype:
+                raise AssertionError(f"{what}: dtypes {x.dtype}, {y.dtype}")
+            _equal_arrays([x[n] for n in names], [y[n] for n in names],
+                          what)
+        elif x.shape != y.shape or not np.array_equal(x, y, equal_nan=True):
+            raise AssertionError(f"{what}: output {k} not equal bit for bit")
+
+
+def localize_api_phase(movie, locs, ids, camera, params, counted,
+                       smi: str) -> dict:
+    """20 (a). The rest of the localize API on the slices' movie: the
+    legacy identification against identify's rows, localize's perf=,
+    frame_chunk and abort_callback of localize_fused, a camera of 0-d
+    arrays (path ``camera-array``) and the legacy fit (path ``fit``).
+    Returns the launches of those two paths."""
+    import torch
+
+    from picasso_torch import localize
+    from picasso_torch.ops import fused
+
+    t0 = time.perf_counter()
+    for f in API_FRAMES:
+        rows = ids[ids["frame"] == f]
+        got = localize.identify_by_frame_number(movie, MIN_NG, BOX, f,
+                                                device="cuda")
+        y, x, ng = localize.identify_in_frame(movie[f], MIN_NG, BOX,
+                                              device="cuda")
+        if not (np.array_equal(got, rows) and np.array_equal(y, rows["y"])
+                and np.array_equal(x, rows["x"])
+                and np.array_equal(ng, rows["net_gradient"])):
+            raise AssertionError(f"legacy identification of frame {f} "
+                                 "differs from identify's rows")
+    t_id = time.perf_counter() - t0
+    perf = {}
+    got, wall, _ = counted(lambda: localize.localize(
+        movie, dict(camera), params, fitting_method="gaussmle", perf=perf,
+        device="cuda"))
+    _equal_arrays([got], [locs], "localize(perf=) vs the MLE slice")
+    perf128 = {}
+    base = fused.localize_fused(movie, MIN_NG, BOX, camera, device="cuda")
+    chunked = fused.localize_fused(movie, MIN_NG, BOX, camera,
+                                   frame_chunk=API_FRAME_CHUNK, perf=perf128,
+                                   device="cuda")
+    _equal_arrays([chunked[0], *chunked[1]], [base[0], *base[1]],
+                  f"frame_chunk={API_FRAME_CHUNK} vs the default")
+    polls = []
+
+    def abort():
+        polls.append(1)
+        return len(polls) >= 2
+
+    aborted = fused.localize_fused(movie, MIN_NG, BOX, camera,
+                                   frame_chunk=API_FRAME_CHUNK,
+                                   abort_callback=abort, device="cuda")
+    if aborted[0] is not None or aborted[1] is not None or len(polls) != 2:
+        raise AssertionError("abort_callback at the second chunk did not "
+                             "stop localize_fused")
+    cam0 = {k: np.array(v) for k, v in camera.items()}
+    got0, wall0, launches_cam = counted(lambda: localize.localize(
+        movie, cam0, params, fitting_method="gaussmle", device="cuda"))
+    _equal_arrays([got0], [locs],
+                  "the 0-d camera (identify + fit2D) vs the MLE slice")
+    ids0 = ids[ids["frame"] < CHUNK]
+    legacy, wall_fit, launches_fit = counted(lambda: localize.fit(
+        movie, dict(camera), ids0, BOX, device="cuda"))
+    ref, _ = localize.fit2D(movie, [{"Frames": len(movie)}], dict(camera),
+                            ids0, BOX, fitting_method="gaussmle",
+                            device="cuda")
+    torch.cuda.synchronize()
+    h = BOX // 2
+    f64 = lambda a: np.asarray(a, np.float64)  # noqa: E731
+    dx = np.abs(f64(legacy["x"]) - (f64(ref["y"]) - ids0["y"] + ids0["x"]
+                                     + h))
+    dy = np.abs(f64(legacy["y"]) - (f64(ref["x"]) - ids0["x"] + ids0["y"]
+                                     + h))
+    if not (max(dx.max(), dy.max()) <= FIT_OFFSET_ABS
+            and np.array_equal(legacy["sx"], ref["sy"])
+            and np.array_equal(legacy["sy"], ref["sx"])
+            and np.array_equal(legacy["photons"], ref["photons"])
+            and np.array_equal(legacy["frame"], ref["frame"])):
+        raise AssertionError(f"legacy fit vs fit2D: x/y off the relation by "
+                             f"{dx.max():.3e} / {dy.max():.3e} px (bound "
+                             f"{FIT_OFFSET_ABS:.3e}) or sx/sy not swapped")
+    print(f"localize API ({smi}): identify_by_frame_number and "
+          f"identify_in_frame on frames {list(API_FRAMES)} == identify's "
+          f"rows ({t_id:.3f} s); localize MLE with perf= {wall:.3f} s == "
+          f"the MLE slice bit for bit, perf " + json.dumps(perf))
+    print(f"  localize_fused frame_chunk={API_FRAME_CHUNK} == the default "
+          "bit for bit, perf " + json.dumps(perf128) + "; abort_callback "
+          "at the second chunk -> (None, None)")
+    print(f"  camera of 0-d arrays (identify + fit2D, host photons) "
+          f"{wall0:.3f} s == the MLE slice bit for bit, launches "
+          f"{launches_cam}")
+    print(f"  legacy fit of chunk 0's {len(ids0)} ids {wall_fit:.3f} s, "
+          f"launches {launches_fit}: x = fit2D's y offset + x + {h}, y = "
+          f"fit2D's x offset + y + {h} within {max(dx.max(), dy.max()):.3e} "
+          f"px (bound {FIT_OFFSET_ABS:.3e}), sx/sy swapped, photons equal")
+    return {"fit": launches_fit, "camera-array": launches_cam}
+
+
+def simulate_phase(counted, smi: str) -> dict:
+    """20 (b). Closed loop: simulate.simulate_movie on the host at each of
+    SIM_CONFIGS, then MLE localize on the card against the sites.
+    Returns the launches of the simulations (path ``simulate``)."""
+    from scipy.spatial import cKDTree
+
+    from picasso_torch import localize, simulate
+
+    cam = {"Baseline": 0, "Sensitivity": 1, "Gain": 1, "Pixelsize": 130}
+    runs = []
+    for cfg in SIM_CONFIGS:
+        (movie, sites, info), wall_sim, launches = counted(
+            lambda: simulate.simulate_movie(**cfg))
+        runs.append(launches)
+        locs, wall_loc, launches_loc = counted(lambda: localize.localize(
+            movie, dict(cam), {"Min. Net Gradient": SIM_MIN_NG,
+                               "Box Size": BOX},
+            movie_info=[info], fitting_method="gaussmle", device="cuda"))
+        d, _ = cKDTree(sites).query(np.column_stack([locs["x"], locs["y"]]))
+        med = float(np.median(d)) if len(d) else float("inf")
+        print(f"closed loop ({smi}): simulate_movie({cfg}) {movie.shape} "
+              f"on the host {wall_sim:.3f} s; localize MLE on the card "
+              f"{wall_loc:.3f} s, {len(locs)} locs, median distance to the "
+              f"nearest site {med:.4f} px, within 1 px "
+              f"{np.mean(d < 1):.4f}; launches {launches_loc}")
+        if not (len(locs) > SIM_MIN_LOCS and med < SIM_MEDIAN_PX
+                and launches_loc["K4"] and launches_loc["K5 mle queue"]):
+            raise AssertionError(f"closed loop {cfg}: {len(locs)} locs, "
+                                 f"median {med} px")
+    return _sum_launches(*runs)
+
+
+def nanotron_phase(counted, smi: str) -> dict:
+    """20 (c). nanotron on two origami designs: prepare_data, train_model
+    at its defaults and predict_structure on the card (path
+    ``nanotron``), held-out accuracy, then card == CPU from the same
+    weights. Returns the path's launches."""
+    import torch
+
+    from picasso_torch import nanotron
+    from torch_data import (make_origami_locs, origami_groups,
+                            origami_rows_template)
+    from torch_parity import compare_mlp
+
+    groups = {}
+    for label, tmpl, seed in ((0, None, NANO_SEEDS[0]),
+                              (1, origami_rows_template(), NANO_SEEDS[1])):
+        locs, _, truth = make_origami_locs(N_NANO_PICKS, seed, template=tmpl)
+        groups[label] = origami_groups(locs, truth)
+    walls = {}
+
+    def main_path():
+        data = {}
+        t0 = time.perf_counter()
+        for label, g in groups.items():
+            data[label] = np.stack(nanotron.prepare_data(
+                g, label, NANO_RADIUS, NANO_OVERSAMPLING, device="cuda",
+                walls=walls)[0])
+        walls["prepare"] = time.perf_counter() - t0
+        n_tr = 4 * N_NANO_TRAIN
+        X_tr = np.concatenate([d[:n_tr] for d in data.values()])
+        X_te = np.concatenate([d[n_tr:] for d in data.values()])
+        y_tr = np.repeat(list(data), n_tr)
+        y_te = np.repeat(list(data), [len(d) - n_tr for d in data.values()])
+        t0 = time.perf_counter()
+        model = nanotron.train_model(list(X_tr), list(y_tr), device="cuda")
+        torch.cuda.synchronize()
+        walls["train"] = time.perf_counter() - t0
+        acc = model.score(X_te, y_te)
+        held = [(label, pick) for label in groups
+                for pick in range(N_NANO_TRAIN,
+                                  N_NANO_TRAIN + N_PREDICT // 2)]
+        t0 = time.perf_counter()
+        preds = [nanotron.predict_structure(
+            model, groups[label], pick, NANO_RADIUS, NANO_OVERSAMPLING,
+            device="cuda")[0][0] for label, pick in held]
+        walls["predict"] = time.perf_counter() - t0
+        return model, acc, X_tr, y_tr, X_te, preds, held, data
+
+    (model, acc, X_tr, y_tr, X_te, preds, held, data), wall, launches = (
+        counted(main_path))
+    # predict_structure renders a pick as prepare_data's unturned image
+    want = [model.predict(data[label][4 * pick][None])[0]
+            for label, pick in held]
+    steps = model.max_iter * (len(X_tr) // min(model.batch_size, len(X_tr)))
+    print(f"nanotron ({smi}): {N_NANO_PICKS} origami picks a class (11 and "
+          f"8 sites), {X_tr.shape[1]}-pixel images; prepare_data "
+          f"{walls['prepare']:.3f} s (render {walls['render']:.3f} s, "
+          f"rotations {walls['rotations']:.3f} s); train_model "
+          f"{walls['train']:.3f} s, {steps} steps = "
+          f"{steps / walls['train']:.1f} steps/s, loss "
+          f"{model.loss_curve_[0]:.4g} -> {model.loss_curve_[-1]:.4g}; "
+          f"held-out accuracy {acc:.4f} on "
+          f"{len(X_te)} images; predict_structure "
+          f"{1e3 * walls['predict'] / len(held):.2f} ms a pick; "
+          f"launches {launches}")
+    if acc < NANO_ACCURACY or preds != want:
+        raise AssertionError(f"nanotron: held-out accuracy {acc} (gate "
+                             f"{NANO_ACCURACY}) or predict_structure differs")
+    init = nanotron.init_params([X_tr.shape[1], 100, 2], seed=0)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        m = nanotron.MLPClassifier(max_iter=NANO_CARD_CPU_EPOCHS,
+                                   device=dev).fit(X_tr, y_tr, params=init)
+        runs[dev] = m, time.perf_counter() - t0
+    (mc, tc), (mp, tp) = runs["cuda"], runs["cpu"]
+    stats = compare_mlp(mc.loss_curve_, mp.loss_curve_, mc.predict(X_te),
+                        mp.predict(X_te), what="nanotron card vs CPU")
+    print(f"  card == CPU from the same weights, {NANO_CARD_CPU_EPOCHS} "
+          f"epochs: card {tc:.3f} s, CPU {tp:.3f} s; " + json.dumps(stats))
+    return launches
+
+
+def average3_phase(counted, smi: str) -> dict:
+    """20 (d). average3 on the card: JAX's recipe with JAX's gates and 3D
+    origami at the defaults (path ``average3``), each pass's wall split,
+    card == CPU pass by pass. Returns the path's launches."""
+    from picasso_torch import average3, lib
+    from torch_data import (make_average3_locs, make_origami3d_locs,
+                            rigid_rotations, rotation_share, xy_spread)
+    from torch_parity import compare_average3_passes
+
+    def z_std(locs):
+        _, rows = lib.group_rows(locs["group"])
+        return float(np.std([np.mean(locs["z"][r], dtype=np.float64)
+                             for r in rows], ddof=1))
+
+    def split(walls):
+        return json.dumps([{k: (round(v, 4) if isinstance(v, float) else v)
+                            for k, v in w.items()} for w in walls])
+
+    info_l = [{"Frames": 100, "Height": 64, "Width": 64, "Pixelsize": 130}]
+    recipe = make_average3_locs(N_AVG3_GROUPS)
+    kw = dict(iterations=2, oversampling=8, rot_axes=("z",))
+    walls, picks = [], []
+    out, wall, launches_l = counted(lambda: average3.average3(
+        recipe, info_l, device="cuda", walls=walls, picks=picks, **kw))
+    spread = (xy_spread(recipe), xy_spread(out))
+    picks_cpu = []
+    t0 = time.perf_counter()
+    average3.average3(recipe, info_l, device="cpu", picks=picks_cpu, **kw)
+    t_cpu = time.perf_counter() - t0
+    held = compare_average3_passes(picks, picks_cpu,
+                                   "average3 recipe card vs CPU")
+    print(f"average3 ({smi}): JAX's recipe, {N_AVG3_GROUPS} groups "
+          f"({len(recipe)} locs), 2 iterations about z at oversampling 8: "
+          f"card {wall:.3f} s, CPU {t_cpu:.3f} s; spread {spread[0]:.4f} -> "
+          f"{spread[1]:.4f}, z means' std {z_std(recipe):.3f} -> "
+          f"{z_std(out):.3g} nm; card == CPU: {held}; passes {split(walls)}")
+    if not (spread[1] < spread[0] - AVG3_SPREAD_FALL
+            and z_std(out) < AVG3_Z_STD):
+        raise AssertionError(f"average3 recipe: spread {spread}, z std "
+                             f"{z_std(out)}")
+    origami, info_o, truth = make_origami3d_locs(N_ORIGAMI3D, ORIGAMI_SEED)
+    walls, picks = [], []
+    out, wall, launches_o = counted(lambda: average3.average3(
+        origami, info_o, device="cuda", walls=walls, picks=picks))
+    centred = average3._com_align3(origami)
+    ids, rows = lib.group_rows(origami["group"])
+    share = rotation_share(rigid_rotations(centred, out, rows),
+                           truth["angles"][ids],
+                           2 * average3._workspace(centred, 130, 10.0,
+                                                   None)[2][1])
+    print(f"  {N_ORIGAMI3D} 3D origami ({len(origami)} locs) at the "
+          f"defaults (3 iterations, oversampling 10, axes z, x, y): card "
+          f"{wall:.3f} s; z means' std {z_std(origami):.3f} -> "
+          f"{z_std(out):.3f} nm; spread (centred) {xy_spread(centred):.4f} "
+          f"-> {xy_spread(out):.4f}; in-plane rotations within 2 angle steps"
+          f" of the truth {share[0]:.4f}, or of its turn by pi {share[1]:.4f}"
+          f"; passes {split(walls)}")
+    if z_std(out) >= AVG3_Z_STD:
+        raise AssertionError(f"average3 origami: z std {z_std(out)}")
+    sub = origami[np.isin(origami["group"], ids[:N_AVG3_CARD_CPU])]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = []
+        t0 = time.perf_counter()
+        average3.average3(sub, info_o, device=dev, picks=p)
+        runs[dev] = p, time.perf_counter() - t0
+    held = compare_average3_passes(runs["cuda"][0], runs["cpu"][0],
+                                   "average3 origami card vs CPU")
+    print(f"  card == CPU on {N_AVG3_CARD_CPU} origami: card "
+          f"{runs['cuda'][1]:.3f} s, CPU {runs['cpu'][1]:.3f} s; {held}")
+    return _sum_launches(launches_l, launches_o)
 
 
 def main() -> int:
@@ -2838,9 +3193,22 @@ def main() -> int:
     # 19. SPINNA ----------------------------------------------------------
     t19 = time.perf_counter()
     launches_spinna = spinna_phase(counted, smi)
+    # 20. the localize API, simulate, nanotron, average3 ----------------
+    t20 = time.perf_counter()
+    launches_api = localize_api_phase(movie, locs, ids, camera, params,
+                                      counted, smi)
+    t20b = time.perf_counter()
+    launches_sim = simulate_phase(counted, smi)
+    t20c = time.perf_counter()
+    launches_nano = nanotron_phase(counted, smi)
+    t20d = time.perf_counter()
+    launches_avg3 = average3_phase(counted, smi)
+    t21 = time.perf_counter()
     print(f"phases 15-16: {t16 - t15:.1f} s and {t17 - t16:.1f} s, phase "
           f"17: {t18 - t17:.1f} s, phase 18: {t19 - t18:.1f} s, phase 19: "
-          f"{time.perf_counter() - t19:.1f} s ({smi})")
+          f"{t20 - t19:.1f} s, phase 20: {t21 - t20:.1f} s ((a) "
+          f"{t20b - t20:.1f}, (b) {t20c - t20b:.1f}, (c) {t20d - t20c:.1f}, "
+          f"(d) {t21 - t20d:.1f}) ({smi})")
     print("host code (no kernel):", json.dumps([{
         "name": "link_walk", "source": "picasso_torch/csrc/link_walk.cu",
         "replaces": "picasso_tpu/native/picasso_native.cpp:38",
@@ -2859,7 +3227,19 @@ def main() -> int:
              "3d-lq": paths3d["gausslq"], "link": launches_link,
              "db": launches_db, "cluster": launches_cl,
              "g5m": launches_g5m, "average": launches_avg,
-             "spinna": launches_spinna}
+             "spinna": launches_spinna, **launches_api,
+             "simulate": launches_sim, "nanotron": launches_nano,
+             "average3": launches_avg3}
+    for path in ("simulate", "nanotron", "average3"):
+        if any(paths[path].values()):
+            raise AssertionError(f"path {path} launched {paths[path]}")
+    fit_key = {mle_cuda.fit_t: "K1", mle_cuda.fit_boundary_t: "K2"}[
+        mle_cuda.ROI_FITS["sigmaxy"]]
+    for path in ("fit", "camera-array"):
+        if not paths[path][fit_key] or (path == "camera-array"
+                                        and paths[path]["K4"] != n_chunks):
+            raise AssertionError(f"path {path} did not run through "
+                                 f"{fit_key}: {paths[path]}")
     print("launches by path:", json.dumps(paths))
 
     # the kernels line -----------------------------------------------------

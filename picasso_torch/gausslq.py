@@ -3,7 +3,8 @@
 Counterpart of picasso_tpu/gausslq.py (fit_spot :27, fit_spots :34,
 fit_spots_parallel :54, fit_spots_gpufit :84, locs_from_fits :100,
 locs_from_fits_gpufit :145, localization_precision :187,
-sigma_uncertainty :211). The reference's scipy, process-pool and Gpufit
+sigma_uncertainty :211, _initial_parameters_gpufit :228,
+initial_parameters_gpufit :247). The reference's scipy, process-pool and Gpufit
 paths are one batched LM fit here (ops/lq.fit_spots_batched), run on
 ``device`` through K3 on the route of ops/lq_cuda.ROI_FIT. Locs
 tables are numpy structured arrays with the columns and dtypes of the
@@ -165,3 +166,30 @@ def sigma_uncertainty(sigma, sigma_orth, photons, bg) -> np.ndarray:
         * (512 / 81 + (64 * np.pi * sa * sa_orth * bg) / (3 * photons))
     )
     return np.sqrt(var_sa2 / (4 * sigma**2))
+
+
+def _initial_parameters_gpufit(spots: np.ndarray, size: int) -> np.ndarray:
+    """Initial parameters in Gpufit's layout, (amplitude, x, y, sx, sy,
+    bg) a spot in f32 (picasso/gausslq.py:128)."""
+    center = (size / 2.0) - 0.5
+    initial_width = max(size / 5.0, 1.0)
+    spot_max = np.amax(spots, axis=(1, 2))
+    spot_min = np.amin(spots, axis=(1, 2))
+    initial = np.empty((len(spots), 6), dtype=np.float32)
+    initial[:, 0] = spot_max - spot_min
+    initial[:, 1] = center
+    initial[:, 2] = center
+    initial[:, 3] = initial_width
+    initial[:, 4] = initial_width
+    initial[:, 5] = spot_min
+    return initial
+
+
+def initial_parameters_gpufit(spots: np.ndarray, size: int) -> np.ndarray:
+    """Deprecated alias of :func:`_initial_parameters_gpufit`
+    (picasso/gausslq.py:115)."""
+    lib.deprecation_warning(
+        "Deprecation warning: This function will become private in "
+        "v0.11.0. Use _initial_parameters_gpufit instead."
+    )
+    return _initial_parameters_gpufit(spots, size)

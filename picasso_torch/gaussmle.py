@@ -1,8 +1,9 @@
 """MLE Gaussian fitting API of the port (Smith et al., Nature Methods
 2010).
 
-Counterpart of picasso_tpu/gaussmle.py (gaussmle :21, locs_from_fits
-:66, sigma_uncertainty :119). Fits run on ``device`` through the route
+Counterpart of picasso_tpu/gaussmle.py (gaussmle :21, gaussmle_async
+:51, locs_from_fits :66, sigma_uncertainty :119, _mean_filter :135,
+mean_filter :153). Fits run on ``device`` through the route
 of ops/mle_cuda.ROI_FITS for the method (K1's work queue with the
 CRLB/LL in it, or K2's phase schedule). Locs tables are numpy
 structured arrays with the columns and dtypes of the JAX package's
@@ -67,6 +68,16 @@ def gaussmle(
     return theta.T.copy(), crlb.T.copy(), ll, iters
 
 
+def gaussmle_async(spots: np.ndarray, eps: float, max_it: int,
+                   method: Literal["sigma", "sigmaxy"] = "sigmaxy", *,
+                   device="cuda"):
+    """The reference's thread-pool launcher (picasso/gaussmle.py:478) as
+    a finished call: ([N], thetas, CRLBs, log-likelihoods, iterations)."""
+    thetas, CRLBs, likelihoods, iterations = gaussmle(
+        spots, eps, max_it, method=method, device=device)
+    return [len(spots)], thetas, CRLBs, likelihoods, iterations
+
+
 def locs_from_fits(
     identifications: np.ndarray,
     theta: np.ndarray,
@@ -120,3 +131,23 @@ def sigma_uncertainty(sigma, sigma_orth, photons, bg) -> np.ndarray:
         1 + 8 * tau + np.sqrt((8 * tau) / (1 + 2 * tau))
     )
     return np.sqrt(delta_sigma_sq)
+
+
+def _mean_filter(spot: np.ndarray, size: int) -> np.ndarray:
+    """3x3 edge-clipped mean of a size x size patch in f64 on the host
+    (picasso/gaussmle.py:62), the background initializer's smoothing,
+    which the batched fits carry out on the device."""
+    spot = np.asarray(spot, dtype=np.float64)
+    padded = np.pad(spot, 1)
+    sums = sum(padded[1 + di:1 + di + size, 1 + dj:1 + dj + size]
+               for di in (-1, 0, 1) for dj in (-1, 0, 1))
+    rows = np.minimum(np.arange(size) + 2, size) - np.maximum(
+        np.arange(size) - 1, 0)
+    return sums / (rows[:, None] * rows[None, :])
+
+
+def mean_filter(spot: np.ndarray, size: int) -> np.ndarray:
+    """Deprecated alias of :func:`_mean_filter` (picasso/gaussmle.py:52)."""
+    print("mean_filter is deprecated and will become a private function "
+          "in v0.11.0. Use _mean_filter instead.")
+    return _mean_filter(spot, size)

@@ -3,9 +3,9 @@ on numpy structured arrays, progress reporting and device resolution.
 
 Counterpart of the parts of picasso_tpu/lib.py that the localize path
 and the picks use (get_from_metadata :41, ensure_sanity :82,
-check_if_in_polygon :148, merge_locs :110, check_if_in_rectangle
-:170, get_pick_rectangle_corners :213, find_local_minima :345,
-minimize_shifts :445, deprecation_warning :479, MockProgress :670,
+is_loc_at :133, locs_at :143, check_if_in_polygon :148, merge_locs
+:110, check_if_in_rectangle :170, get_pick_rectangle_corners :213,
+find_local_minima :345, minimize_shifts :445, deprecation_warning :479, MockProgress :670,
 progress_reporter :731, get_pick_polygon_corners :828). Locs are
 numpy structured arrays with the record layout of the HDF5 ``"locs"``
 dataset; :func:`series_mean_std` gives a column the mean and std that
@@ -205,6 +205,19 @@ def find_local_minima(arr: np.ndarray) -> np.ndarray:
     if len(arr) < 3:
         return np.array([], dtype=int)
     return np.nonzero((arr[1:-1] < arr[:-2]) & (arr[1:-1] < arr[2:]))[0] + 1
+
+
+def is_loc_at(x: float, y: float, locs: np.ndarray, r: float) -> np.ndarray:
+    """Boolean mask of the locs within radius r of (x, y)
+    (picasso/lib.py:1836), in the dtype of the x and y columns."""
+    dx = locs["x"] - x
+    dy = locs["y"] - y
+    return dx * dx + dy * dy < r * r
+
+
+def locs_at(x: float, y: float, locs: np.ndarray, r: float) -> np.ndarray:
+    """The locs within radius r of (x, y) (picasso/lib.py:1861)."""
+    return locs[is_loc_at(x, y, locs, r)]
 
 
 def check_if_in_polygon(x, y, X, Y) -> np.ndarray:

@@ -3,16 +3,24 @@
 summary database of ``localize -db``.
 
 Counterpart of picasso_tpu/localize.py (_id_frame_chunk :60,
-identify_in_image :71, identify :134, get_spots :290, get_spots_raw
-:326, fit2D :346, localize :516, localize_3D :668; MEAN_COLS and
+identify_in_image :71, identify_in_frame :82, identify_by_frame_number
+:96, identify :134, picks_to_identifications :257, get_spots :290,
+get_spots_raw :326, fit2D :346, fit :462, fit_async :473,
+locs_from_fits :486, localize :516, localize_3D :668; MEAN_COLS and
 SET_COLS :41, check_nena :736, check_kinetics :749, check_drift :758,
 get_file_summary :779, _db_filename :838, _save_file_summary :849,
-add_file_to_db :859). ``localize`` with
-a Gaussian fitter runs the fused chain per frame chunk (ops/fused.py) on
-``device``: on a CUDA device through the hand-written kernels, on the
-CPU through their plain PyTorch versions. ``avg`` identifies (K4), cuts
-the ROIs and sums them (avgroi.py); a lazy movie does so in one pass
-(stream.identify_and_cut).
+add_file_to_db :859, local_maxima :875, gradient_at :889, net_gradient
+:898, identify_async :913, identifications_from_futures :940,
+locs_to_identifications :949, save_file_summary :976). ``localize`` with
+a Gaussian fitter and a scalar camera runs the fused chain per frame
+chunk (ops/fused.py) on ``device``: on a CUDA device through the
+hand-written kernels, on the CPU through their plain PyTorch versions.
+``avg``, and any fitter with a camera whose values are arrays, identify
+(K4) and then fit2D; a lazy movie does so in one pass
+(stream.identify_and_cut). A camera value that is an array (a 0-d
+array, or a per-pixel map) converts ROIs to photons on the host with
+numpy's broadcasting, as in JAX: a map that does not broadcast against
+the (N, box, box) ROIs raises numpy's ValueError.
 The fitters: ``gausslq`` and ``gausslq-gpu`` (the LM fit, the default),
 ``gaussmle`` (methods ``sigmaxy`` and ``sigma``) and ``avg``.
 
@@ -80,12 +88,7 @@ def _scalar_camera(camera_info: dict) -> bool:
                for k in ("Baseline", "Sensitivity", "Gain"))
 
 
-def _check_camera(camera_info: dict) -> None:
-    if not _scalar_camera(camera_info):
-        raise NotImplementedError(
-            "per-pixel camera calibration is not ported yet (ROADMAP "
-            "queue 1 item 6: localize/fit2D)"
-        )
+def _default_pixelsize(camera_info: dict) -> None:
     if "Pixelsize" not in camera_info:
         warnings.warn(
             "Camera info in fit2D does not contain 'Pixelsize'; "
@@ -194,13 +197,14 @@ def get_spots(movie, identifications: np.ndarray, box: int,
               camera_info: dict, device="cuda") -> np.ndarray:
     """(N, box, box) ROIs in photons (picasso/localize.py:1115): from an
     in-RAM movie cut on ``device``, from a lazy one on the host. A
-    C-contiguous u16 array converts with one factor (picasso_tpu's
-    native cut), anything else in three roundings
-    (ops/identify.to_photons)."""
+    C-contiguous u16 array with a scalar camera converts with one factor
+    (picasso_tpu's native cut), anything else in three roundings with
+    numpy's broadcasting (ops/identify.to_photons)."""
     from picasso_torch.ops.identify import to_photons, to_photons_one_factor
 
     raw = get_spots_raw(movie, identifications, box, device=device)
-    if (_is_array(movie) and np.asarray(movie).dtype == np.uint16
+    if (_scalar_camera(camera_info) and _is_array(movie)
+            and np.asarray(movie).dtype == np.uint16
             and np.asarray(movie).flags.c_contiguous):
         return to_photons_one_factor(raw, camera_info)
     return to_photons(raw, camera_info)
@@ -245,7 +249,9 @@ def fit2D(
     (gaussmle.gaussmle), LM through K3 (gausslq.fit_spots, max_it 30 as
     in picasso_tpu, the route of ops/lq_cuda.ROI_FIT), avg by
     a device sum (avgroi.fit_spots). ``spots`` are pre-cut raw ROIs (from
-    stream.identify_and_cut), so the movie is not read again. Returns
+    stream.identify_and_cut), so the movie is not read again. A camera
+    whose values are arrays converts the ROIs on the host (get_spots,
+    ops/identify.to_photons), a scalar one on the device. Returns
     (locs, fit info block | camera_info), or (None, {}) if aborted;
     ``multiprocess`` is accepted for the reference's signature."""
     from picasso_torch.ops.identify import to_photons
@@ -257,16 +263,17 @@ def fit2D(
     assert eps > 0 and max_it > 0
     assert mle_method in ("sigma", "sigmaxy")
     device = lib.resolve_device(device)
-    _check_camera(camera_info)
-    gauss = fitting_method in _GAUSS_METHODS
+    _default_pixelsize(camera_info)
+    # the raw ROIs convert on the device only for a scalar camera
+    raw = fitting_method in _GAUSS_METHODS and _scalar_camera(camera_info)
     conversion = (float(camera_info["Baseline"]),
                   float(camera_info["Sensitivity"])
-                  / float(camera_info["Gain"]))
+                  / float(camera_info["Gain"])) if raw else None
     if spots is not None:
-        if not (gauss and spots.dtype == np.uint16):
+        if not (raw and spots.dtype == np.uint16):
             spots, conversion = to_photons(spots, camera_info), None
-    elif gauss and (movie if isinstance(movie, np.ndarray)
-                    else np.asarray(movie[0])).dtype == np.uint16:
+    elif raw and (movie if isinstance(movie, np.ndarray)
+                  else np.asarray(movie[0])).dtype == np.uint16:
         spots = get_spots_raw(movie, identifications, box, device=device)
     else:
         spots = get_spots(movie, identifications, box, camera_info,
@@ -314,21 +321,24 @@ def localize(
     identification_progress_callback=None,
     fit_progress_callback=None,
     return_info: bool = False,
+    perf: dict | None = None,
     device="cuda",
 ):
     """Identify and fit spots in 2D on ``device`` (picasso/localize.py
     :1682). ``parameters`` holds "Min. Net Gradient" and "Box Size".
     Returns the locs structured array, with the info chain when
-    ``return_info``. The Gaussian fitters run the fused chain;
-    ``avg`` runs ``identify`` + ``fit2D``, or one pass of
+    ``return_info``; None if the fused chain was aborted. The Gaussian
+    fitters with a scalar camera run the fused chain, which fills
+    ``perf`` (ops/fused.localize_fused); ``avg``, or a camera whose values
+    are arrays, runs ``identify`` + ``fit2D``, or one pass of
     stream.identify_and_cut + ``fit2D`` on a lazy movie."""
     from picasso_torch.ops import fused as _fused
 
     if movie_info is None:
         movie_info = []
-    _check_camera(camera_info)
+    _default_pixelsize(camera_info)
     minimum_ng, box = parameters["Min. Net Gradient"], parameters["Box Size"]
-    if fitting_method == "avg":
+    if fitting_method == "avg" or not _scalar_camera(camera_info):
         device = lib.resolve_device(device)
         spots = None
         if _is_array(movie):
@@ -345,7 +355,8 @@ def localize(
                 device=device)
         locs, fit_info = fit2D(
             movie, movie_info, camera_info, identifications, box,
-            fitting_method="avg", progress_callback=fit_progress_callback,
+            fitting_method=fitting_method, eps=eps, max_it=max_it,
+            mle_method=mle_method, progress_callback=fit_progress_callback,
             spots=spots, device=device)
     else:
         identifications, fits = _fused.localize_fused(
@@ -353,8 +364,10 @@ def localize(
             fitting_method=fitting_method, eps=eps, max_it=max_it,
             mle_method=mle_method, roi=roi, frame_bounds=frame_bounds,
             progress_callback=identification_progress_callback,
-            device=device,
+            perf=perf, device=device,
         )
+        if identifications is None:
+            return None
         theta, crlb, ll, iters = fits
         if fitting_method == "gaussmle":
             locs = gaussmle.locs_from_fits(identifications, theta, crlb, ll,
@@ -615,3 +628,219 @@ def add_file_to_db(file: str, file_hdf: str | None, drift=None,
     summary database (picasso/localize.py:2250)."""
     _save_file_summary(get_file_summary(file, file_hdf, drift, len_mean,
                                         nena, device=device))
+
+
+def save_file_summary(summary: dict) -> None:
+    """Alias of :func:`_save_file_summary` (picasso/localize.py:2233)."""
+    _save_file_summary(summary)
+
+
+# ---------------------------------------------------------------------------
+# The legacy identify and fit API (deprecated names in the reference)
+# ---------------------------------------------------------------------------
+
+
+#: identifications for refitting picks or locs: the columns and dtypes of
+#: the JAX package's DataFrames
+_REFIT_IDS_DTYPE = [("frame", np.int64), ("x", np.int64), ("y", np.int64),
+                    ("net_gradient", np.float64), ("n_id", np.int64)]
+
+
+def _ids(n: int) -> np.ndarray:
+    from picasso_torch.ops.fused import _IDS_DTYPE
+
+    return np.zeros(n, dtype=_IDS_DTYPE)
+
+
+def identify_in_frame(frame, minimum_ng: float, box: int, roi=None, *,
+                      device="cuda"):
+    """Local maxima and net gradients of one frame through K4 on
+    ``device``, cropped to ``roi`` and shifted back
+    (picasso/localize.py:295). Returns numpy (y, x, net_gradient)."""
+    from picasso_torch.ops.identify import identify_frames
+
+    _, y, x, ng = identify_frames(np.asarray(frame, np.float32)[None],
+                                  minimum_ng, box, roi=roi, device=device)
+    return y, x, ng
+
+
+def identify_by_frame_number(movie, minimum_ng: float, box: int,
+                             frame_number: int, *, roi=None,
+                             frame_bounds=None, lock=None, device="cuda"):
+    """The identifications (frame, x, y, net_gradient) of one frame of a
+    movie (picasso/localize.py:340); none if the frame lies outside
+    ``frame_bounds``, whose upper bound is inclusive. ``lock`` is
+    accepted for the reference's signature."""
+    device = lib.resolve_device(device)
+    if frame_bounds is not None:
+        lo = frame_bounds[0] if frame_bounds[0] is not None else 0
+        hi = frame_bounds[1] if frame_bounds[1] is not None else len(movie)
+        if not (max(lo, 0) <= frame_number <= min(hi, len(movie))):
+            return _ids(0)
+    y, x, ng = identify_in_frame(np.asarray(movie[frame_number]), minimum_ng,
+                                 box, roi, device=device)
+    ids = _ids(len(x))
+    ids["frame"] = frame_number
+    ids["x"], ids["y"], ids["net_gradient"] = x, y, ng
+    return ids
+
+
+def picks_to_identifications(picks, *, n_frames: int | None = None,
+                             drift: np.ndarray | None = None) -> np.ndarray:
+    """One identification a frame at each circular pick's centre (shifted
+    by ``drift``, a structured array with x and y a frame, rounded to
+    pixels), for refitting picked positions (picasso/localize.py:752):
+    (frame, x, y, net_gradient 0, n_id the pick's index)."""
+    if n_frames is None and drift is not None:
+        n_frames = len(drift)
+    if n_frames is None:
+        raise ValueError("Either n_frames or drift must be provided.")
+    ids = np.zeros(len(picks) * n_frames, _REFIT_IDS_DTYPE)
+    for n_id, (x0, y0) in enumerate(picks):
+        x = np.full(n_frames, x0, dtype=float)
+        y = np.full(n_frames, y0, dtype=float)
+        if drift is not None:
+            x = x + drift["x"]
+            y = y + drift["y"]
+        rows = slice(n_id * n_frames, (n_id + 1) * n_frames)
+        ids["frame"][rows] = np.arange(n_frames)
+        ids["x"][rows] = np.round(x).astype(int)
+        ids["y"][rows] = np.round(y).astype(int)
+        ids["n_id"][rows] = n_id
+    return ids
+
+
+def local_maxima(frame, box: int, *, device="cuda"):
+    """(y, x) of the local maxima of one frame (picasso/localize.py:84):
+    the maxima map of ops/identify.identify_maps on ``device``, before
+    any threshold or tile reduction."""
+    import torch
+
+    from picasso_torch.ops.identify import identify_maps
+
+    maxima, _ = identify_maps(torch.from_numpy(np.ascontiguousarray(
+        frame, np.float32)[None]).to(lib.resolve_device(device)), box)
+    return np.nonzero(maxima[0].cpu().numpy())
+
+
+def gradient_at(frame, y, x, i):
+    """Central-difference gradient (gy, gx) at one pixel
+    (picasso/localize.py:137)."""
+    frame = np.asarray(frame)
+    gy = float(frame[y + 1, x]) - float(frame[y - 1, x])
+    gx = float(frame[y, x + 1]) - float(frame[y, x - 1])
+    return gy, gx
+
+
+def net_gradient(frame, y, x, box, uy, ux):
+    """Net gradient at the given maxima on the host, f32 sums of f64
+    terms (picasso/localize.py:184)."""
+    frame = np.asarray(frame, np.float64)
+    half = box // 2
+    ng = np.zeros(len(x), np.float32)
+    for i, (yi, xi) in enumerate(zip(y, x)):
+        for ki, k in enumerate(range(yi - half, yi + half + 1)):
+            for li, m in enumerate(range(xi - half, xi + half + 1)):
+                if k == yi and m == xi:
+                    continue
+                gy, gx = gradient_at(frame, k, m, i)
+                ng[i] += gy * uy[ki, li] + gx * ux[ki, li]
+    return ng
+
+
+def identify_async(movie, minimum_ng, box, *, roi=None, frame_bounds=None,
+                   device="cuda"):
+    """The reference's threaded launcher (picasso/localize.py:482) as a
+    finished call: ``identify`` on ``device``, returned as ([n_frames],
+    [a completed future of the identifications])."""
+    from picasso_torch.gausslq import _CompletedFuture
+
+    ids = identify(movie, minimum_ng, box, roi=roi,
+                   frame_bounds=frame_bounds, device=device)
+    return [len(movie)], [_CompletedFuture(ids)]
+
+
+def identifications_from_futures(futures) -> np.ndarray:
+    """The futures' identifications joined and sorted stably by frame
+    (picasso/localize.py:457)."""
+    ids = np.concatenate([f.result() for f in futures])
+    return ids[np.argsort(ids["frame"], kind="stable")]
+
+
+def locs_to_identifications(locs: np.ndarray, movie_info: list[dict],
+                            n_frames: int) -> np.ndarray:
+    """Each loc's pixel as identifications over the frames within
+    ``n_frames`` of its own, for refitting (picasso/localize.py:857):
+    (frame, x, y, net_gradient 101, n_id the loc's index + 1). As in the
+    JAX package a loc within ``n_frames`` of either end of the movie is
+    dropped, not clipped."""
+    assert isinstance(n_frames, int) and n_frames >= 0
+    max_frames = lib.get_from_metadata(movie_info, "Frames",
+                                       raise_error=True)
+    f = locs["frame"].astype(np.int64)
+    keep = np.nonzero((f > n_frames) & (f < max_frames - n_frames))[0]
+    span = 2 * n_frames + 1
+    ids = np.zeros(len(keep) * span, _REFIT_IDS_DTYPE)
+    ids["frame"] = (f[keep][:, None]
+                    + np.arange(-n_frames, n_frames + 1)).ravel()
+    for c in ("x", "y"):
+        ids[c] = np.repeat(np.round(locs[c][keep].astype(np.float64)), span)
+    ids["net_gradient"] = 101.0
+    ids["n_id"] = np.repeat(keep + 1, span)
+    return ids
+
+
+def fit(movie, camera_info: dict, identifications: np.ndarray, box: int,
+        eps: float = 0.001, max_it: int = 100, method="sigmaxy", *,
+        device="cuda") -> np.ndarray:
+    """The reference's deprecated MLE fit (picasso/localize.py:1148):
+    get_spots and gaussmle.gaussmle on ``device``, then the legacy
+    :func:`locs_from_fits`. Held to the JAX package, which reads
+    gaussmle's theta (x, y, photons, bg, sx, sy) in the legacy order (y,
+    x, ..., sy, sx) without the box offset, so its x/y in-box offsets
+    and sx/sy are swapped and it lies box // 2 px further along both
+    axes than fit2D (ROADMAP queue 3)."""
+    device = lib.resolve_device(device)
+    spots = get_spots(movie, identifications, box, camera_info,
+                      device=device)
+    theta, CRLBs, likelihoods, iterations = gaussmle.gaussmle(
+        spots, eps, max_it, method=method, device=device)
+    return locs_from_fits(identifications, theta, CRLBs, likelihoods,
+                          iterations, box)
+
+
+def fit_async(movie, camera_info: dict, identifications: np.ndarray,
+              box: int, eps: float = 0.001, max_it: int = 100,
+              method="sigmaxy", *, device="cuda"):
+    """The reference's deprecated MLE launcher (picasso/localize.py:1214)
+    as a finished call: ([N], thetas, CRLBs, likelihoods, iterations)."""
+    device = lib.resolve_device(device)
+    lib.deprecation_warning(
+        "Deprecation warning: this function will be removed in v0.11.0."
+        " Use localize.fit2D instead."
+    )
+    spots = get_spots(movie, identifications, box, camera_info,
+                      device=device)
+    return gaussmle.gaussmle_async(spots, eps, max_it, method=method,
+                                   device=device)
+
+
+def locs_from_fits(identifications: np.ndarray, theta, CRLBs, likelihoods,
+                   iterations, box) -> np.ndarray:
+    """The legacy locs table (picasso/localize.py:1281): theta's columns
+    read as (y, x, photons, bg, sy, sx), added to the identifications'
+    pixels without a box offset, sorted by frame."""
+    return lib.locs_table([
+        ("frame", np.uint32, identifications["frame"]),
+        ("x", np.float32, theta[:, 1] + identifications["x"]),
+        ("y", np.float32, theta[:, 0] + identifications["y"]),
+        ("photons", np.float32, theta[:, 2]),
+        ("sx", np.float32, theta[:, 5]),
+        ("sy", np.float32, theta[:, 4]),
+        ("bg", np.float32, theta[:, 3]),
+        ("lpx", np.float32, np.sqrt(CRLBs[:, 1])),
+        ("lpy", np.float32, np.sqrt(CRLBs[:, 0])),
+        ("net_gradient", np.float32, identifications["net_gradient"]),
+        ("likelihood", np.float32, likelihoods),
+        ("iterations", np.int32, iterations),
+    ], "frame")

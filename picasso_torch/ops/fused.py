@@ -14,6 +14,7 @@ itself, so no ROI batch is written between the stages.
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Callable, Literal
 
 import numpy as np
@@ -116,15 +117,28 @@ def localize_fused(
     mle_method: Literal["sigma", "sigmaxy"] = "sigmaxy",
     roi: tuple[tuple[int, int], tuple[int, int]] | None = None,
     frame_bounds: tuple[int, int] | None = None,
+    frame_chunk: int | None = None,
+    prefetch_depth: int = 2,
     progress_callback: Callable[[int], None] | Literal["console"] | None = None,
+    abort_callback: Callable[[], bool] | None = None,
+    perf: dict | None = None,
     device="cuda",
 ):
     """Localize a (possibly lazy) movie chunk by chunk on ``device``.
 
-    A background thread decodes the next chunk while the device works on
-    the current one (stream.device_chunks). Returns ``(identifications,
-    (theta, crlb, ll, iters))``: identifications a structured array
-    (frame, x, y, net_gradient), theta/crlb (n, 6), rows aligned."""
+    A background thread decodes up to ``prefetch_depth`` chunks of
+    ``frame_chunk`` frames (stream.frame_chunk_for's by default) ahead
+    while the device works on the current one (stream.device_chunks).
+    Returns ``(identifications, (theta, crlb, ll, iters))``:
+    identifications a structured array (frame, x, y, net_gradient),
+    theta/crlb (n, 6), rows aligned; ``(None, None)`` if
+    ``abort_callback()``, polled before each chunk, turns true. ``perf``,
+    where given, gets the JAX package's wall split of the loop
+    (picasso_tpu/ops/fused.py:1308-1321): ``n_chunks``, ``frame_chunk``,
+    the seconds waiting for decoded chunks (``decode_wait_s``), uploading
+    them (``upload_dispatch_s``), issuing the chain (``chain_dispatch_s``),
+    reading its results back (``drain_s``, the blocking readback on a
+    card), the rest (``other_s``) and ``total_s``."""
     from picasso_torch import lib
     from picasso_torch.stream import device_chunks
 
@@ -141,14 +155,39 @@ def localize_fused(
         float(camera_info["Sensitivity"]) / float(camera_info["Gain"])
     ))
     blocks = []
+    timers = {}
+    t_chain = t_drain = 0.0
+    t_run0 = time.perf_counter()
     with contextlib.closing(device_chunks(
             movie, device, roi=roi, frame_bounds=frame_bounds,
-            progress_callback=progress_callback,
-            description="Localizing")) as chunks:
+            frame_chunk=frame_chunk, prefetch_depth=prefetch_depth,
+            progress_callback=progress_callback, description="Localizing",
+            timers=timers)) as chunks:
         for offset, chunk in chunks:
-            blocks.append((offset, identify_cut_fit_packed(
+            if abort_callback is not None and abort_callback():
+                return None, None
+            t0 = time.perf_counter()
+            packed = identify_cut_fit_packed(
                 chunk, minimum_ng, baseline, factor, box=box, eps=eps,
-                max_it=max_it, method=method).cpu().numpy()))
+                max_it=max_it, method=method)
+            t1 = time.perf_counter()
+            blocks.append((offset, packed.cpu().numpy()))
+            t_chain += t1 - t0
+            t_drain += time.perf_counter() - t1
+    if perf is not None and timers:
+        total = time.perf_counter() - t_run0
+        waits = (timers["decode_wait_s"], timers["upload_dispatch_s"],
+                 t_chain, t_drain)
+        perf.update({
+            "n_chunks": timers["n_chunks"],
+            "frame_chunk": timers["frame_chunk"],
+            "decode_wait_s": round(waits[0], 3),
+            "upload_dispatch_s": round(waits[1], 3),
+            "chain_dispatch_s": round(t_chain, 3),
+            "drain_s": round(t_drain, 3),
+            "other_s": round(total - sum(waits), 3),
+            "total_s": round(total, 3),
+        })
     rows = 10 if method == "lq" else 18
     block = np.concatenate([np.zeros((rows, 0), np.float32)]
                            + [p for _, p in blocks], axis=1)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import queue
 import threading
+import time
 from typing import Callable, Literal
 
 import numpy as np
@@ -96,19 +97,23 @@ def frame_range(n_frames: int, frame_bounds) -> list[int]:
     return [f for f in range(n_frames) if lo <= f <= hi]
 
 
-def chunk_bounds(frames_idx: list[int], height: int, width: int,
-                 frame_chunk: int | None = None) -> list[tuple[int, int]]:
-    """(first, end) frames of each chunk: ~64 MB of f32 frames
-    (localize._id_frame_chunk), split evenly and rounded up to 32
-    frames, so no chunk is a short tail."""
+def frame_chunk_for(n_frames: int, height: int, width: int) -> int:
+    """Frames a chunk by default (picasso_tpu/ops/fused.py:1190-1195):
+    ~64 MB of f32 frames (localize._id_frame_chunk), the ``n_frames``
+    split evenly, rounded up to 32 frames when there is more than one
+    chunk, so no chunk is a short tail."""
     from picasso_torch.localize import _id_frame_chunk
 
-    if frame_chunk is None:
-        n_chunks = max(1, -(-len(frames_idx) // _id_frame_chunk(height,
-                                                                  width)))
-        frame_chunk = -(-len(frames_idx) // n_chunks)
-        if n_chunks > 1:
-            frame_chunk = -(-frame_chunk // 32) * 32
+    n_chunks = max(1, -(-n_frames // _id_frame_chunk(height, width)))
+    frame_chunk = -(-n_frames // n_chunks)
+    if n_chunks > 1:
+        frame_chunk = -(-frame_chunk // 32) * 32
+    return frame_chunk
+
+
+def chunk_bounds(frames_idx: list[int],
+                 frame_chunk: int) -> list[tuple[int, int]]:
+    """(first, end) frames of each chunk of ``frame_chunk`` frames."""
     return [(frames_idx[s],
              frames_idx[min(s + frame_chunk, len(frames_idx)) - 1] + 1)
             for s in range(0, len(frames_idx), frame_chunk)]
@@ -116,11 +121,15 @@ def chunk_bounds(frames_idx: list[int], height: int, width: int,
 
 def device_chunks(movie, device, *, roi=None, frame_bounds=None,
                   frame_chunk: int | None = None, prefetch_depth: int = 2,
-                  progress_callback=None, description: str = ""):
+                  progress_callback=None, description: str = "",
+                  timers: dict | None = None):
     """Yield ``(first_frame, chunk)`` for the frames within
     ``frame_bounds``: each chunk (B, Y, X), cropped to ``roi``, uploaded
     once to ``device`` by ops/identify.upload_frames while the next one
-    decodes in the background."""
+    decodes in the background. ``timers``, where given, gets the chunk
+    geometry (``n_chunks``, ``frame_chunk``) and accumulates the seconds
+    spent waiting for decoded chunks (``decode_wait_s``) and uploading
+    them (``upload_dispatch_s``)."""
     from picasso_torch import lib
     from picasso_torch.ops.identify import upload_frames
 
@@ -131,17 +140,31 @@ def device_chunks(movie, device, *, roi=None, frame_bounds=None,
     if roi is not None:
         (y0, x0), (y1, x1) = roi
         height, width = y1 - y0, x1 - x0
-    prefetcher = ChunkPrefetcher(
-        movie, chunk_bounds(frames_idx, height, width, frame_chunk),
-        prefetch_depth)
+    if frame_chunk is None:
+        frame_chunk = frame_chunk_for(len(frames_idx), height, width)
+    bounds = chunk_bounds(frames_idx, frame_chunk)
+    if timers is None:
+        timers = {}
+    timers.update(n_chunks=len(bounds), frame_chunk=frame_chunk,
+                  decode_wait_s=0.0, upload_dispatch_s=0.0)
+    prefetcher = ChunkPrefetcher(movie, bounds, prefetch_depth)
     try:
         with lib.progress_reporter(progress_callback, len(frames_idx),
                                    description) as rep:
             done = 0
-            for offset, batch in prefetcher:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    offset, batch = next(prefetcher)
+                except StopIteration:
+                    break
+                t1 = time.perf_counter()
                 if roi is not None:
                     batch = batch[:, y0:y1, x0:x1]
-                yield offset, upload_frames(batch, device)
+                chunk = upload_frames(batch, device)
+                timers["decode_wait_s"] += t1 - t0
+                timers["upload_dispatch_s"] += time.perf_counter() - t1
+                yield offset, chunk
                 done += len(batch)
                 rep.set_value(done)
                 if callable(progress_callback):

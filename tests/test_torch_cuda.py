@@ -1216,3 +1216,110 @@ def test_spinna_scores_on_the_card_match_the_cpu(dev, kw):
         np.testing.assert_allclose(cc[t].cpu().numpy(), cp[t].numpy(),
                                    rtol=2**-23, atol=1e-3)
     compare_spinna_scores(sc, sp_, spinna_sample_sizes(scorer, mp))
+
+
+def test_legacy_api_and_camera_arrays_on_the_card(dev):
+    """The legacy identification and fit on the card: identify_by_frame_
+    number == identify's rows, the legacy fit through the fit2D route's
+    kernel (mle_cuda.ROI_FITS) related to fit2D as ROADMAP queue 3
+    records, the unit camera as 0-d arrays == the scalar camera's fused
+    slice bit for bit, and frame_chunk == the default bit for bit."""
+    cam = {"Baseline": 0, "Sensitivity": 1, "Gain": 1, "Pixelsize": 130}
+    params = {"Min. Net Gradient": 4000, "Box Size": 7}
+    movie = make_bench_movie(96, 64, 40, 0.5, np.random.default_rng(21))
+    ids = localize.identify(movie, 4000, 7, device="cuda")
+    for f in (0, 50, 95):
+        np.testing.assert_array_equal(localize.identify_by_frame_number(
+            movie, 4000, 7, f, device="cuda"), ids[ids["frame"] == f])
+    fit = mle_cuda.ROI_FITS["sigmaxy"]
+    fit.launches = 0
+    legacy = localize.fit(movie, dict(cam), ids, 7, device="cuda")
+    assert fit.launches > 0
+    ref, _ = localize.fit2D(movie, [{}], dict(cam), ids, 7,
+                            fitting_method="gaussmle", device="cuda")
+    np.testing.assert_allclose(
+        legacy["x"].astype(np.float64),
+        ref["y"].astype(np.float64) - ids["y"] + ids["x"] + 3, rtol=0,
+        atol=2e-5)
+    np.testing.assert_array_equal(legacy["sx"], ref["sy"])
+    scalar = localize.localize(movie, dict(cam), params,
+                               fitting_method="gaussmle", device="cuda")
+    zero_d = localize.localize(movie, {k: np.array(v) for k, v in
+                                       cam.items()}, params,
+                               fitting_method="gaussmle", device="cuda")
+    for c in scalar.dtype.names:
+        np.testing.assert_array_equal(zero_d[c], scalar[c], err_msg=c)
+    perf = {}
+    a = fused.localize_fused(movie, 4000, 7, cam, device="cuda")
+    b = fused.localize_fused(movie, 4000, 7, cam, frame_chunk=32, perf=perf,
+                             device="cuda")
+    np.testing.assert_array_equal(a[0], b[0])
+    for x, y in zip(a[1], b[1]):
+        np.testing.assert_array_equal(x, y)
+    assert perf["n_chunks"] == 3 and perf["drain_s"] >= 0
+
+
+def test_simulate_then_localize_on_the_card(dev):
+    from scipy.spatial import cKDTree
+
+    from picasso_torch import simulate
+
+    movie, sites, info = simulate.simulate_movie(
+        n_sites=16, imagesize=32, frames=400, taud=3000, photonrate=60,
+        seed=7)
+    locs = localize.localize(
+        movie, {"Baseline": 0, "Sensitivity": 1, "Gain": 1,
+                "Pixelsize": 130}, {"Min. Net Gradient": 3000, "Box Size": 7},
+        movie_info=[info], fitting_method="gaussmle", device="cuda")
+    d, _ = cKDTree(sites).query(np.column_stack([locs["x"], locs["y"]]))
+    assert len(locs) > 50 and np.median(d) < 1.0
+
+
+def test_nanotron_on_the_card_matches_the_cpu(dev):
+    """Two origami designs, 24 picks each: the renders card vs CPU
+    within 1e-6 of their maximum, and 5 epochs from the same weights on
+    each within torch_parity.compare_mlp."""
+    from picasso_torch import nanotron
+    from torch_data import (make_origami_locs, origami_groups,
+                            origami_rows_template)
+    from torch_parity import compare_mlp
+
+    data = {"cuda": [], "cpu": []}
+    for label, tmpl, seed in ((0, None, 31), (1, origami_rows_template(), 32)):
+        locs, _, truth = make_origami_locs(24, seed, template=tmpl)
+        picks = origami_groups(locs, truth)
+        for d in data:
+            data[d] += nanotron.prepare_data(picks, label, 0.5, 40,
+                                             device=d)[0]
+    X = np.stack(data["cpu"])
+    np.testing.assert_allclose(np.stack(data["cuda"]), X, rtol=0,
+                               atol=1e-6 * X.max())
+    y = np.repeat([0, 1], 96)
+    init = nanotron.init_params([1600, 100, 2], seed=0)
+    models = {d: nanotron.MLPClassifier(max_iter=5, batch_size=32,
+                                        device=d).fit(X, y, params=init)
+              for d in ("cuda", "cpu")}
+    compare_mlp(models["cuda"].loss_curve_, models["cpu"].loss_curve_,
+                models["cuda"].predict(X), models["cpu"].predict(X),
+                what="nanotron card vs CPU")
+
+
+def test_average3_on_the_card_matches_the_cpu(dev):
+    """JAX's recipe at 64 groups and 24 3D origami at the defaults: every
+    pass's picks card vs CPU within torch_parity.compare_average3."""
+    from picasso_torch import average3
+    from torch_data import make_average3_locs, make_origami3d_locs
+    from torch_parity import compare_average3_passes
+
+    info = [{"Frames": 100, "Height": 64, "Width": 64, "Pixelsize": 130}]
+    origami, info_o, _ = make_origami3d_locs(24, 0)
+    for locs, inf, kw in (
+            (make_average3_locs(64), info,
+             dict(iterations=2, oversampling=8, rot_axes=("z",))),
+            (origami, info_o, {})):
+        picks = {}
+        for d in ("cuda", "cpu"):
+            picks[d] = []
+            average3.average3(locs, inf, device=d, picks=picks[d], **kw)
+        compare_average3_passes(picks["cuda"], picks["cpu"],
+                                "average3 card vs CPU")

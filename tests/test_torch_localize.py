@@ -195,15 +195,18 @@ def test_cuda_without_a_card_raises(tmp_path, movie):
 
 
 def test_localize_unported_methods_raise(movie):
-    """A per-pixel camera calibration is still refused, by localize for
-    every fitter (avg included) and by fit2D."""
+    """A per-pixel (H, W) camera calibration is refused where the JAX
+    package refuses it: numpy's ValueError when the map meets the (N,
+    box, box) ROIs, by localize for every fitter (avg included) and by
+    fit2D (cameras whose values are arrays that broadcast run:
+    tests/test_torch_localize_api.py)."""
     per_pixel = dict(CAMERA, Baseline=np.zeros(movie.shape[1:]))
     for method in ("gaussmle", "avg"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="broadcast"):
             tloc.localize(movie, dict(per_pixel), PARAMS,
                           fitting_method=method, device="cpu")
     ids = tloc.identify(movie[:2], MIN_NG, 7, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="broadcast"):
         tloc.fit2D(movie, _movie_info(movie), dict(per_pixel), ids, 7,
                    device="cpu")
 

@@ -52,7 +52,8 @@ def test_every_module_imports_without_jax():
               "ops.render_ops", "render", "imageprocess", "postprocess",
               "io", "stream", "avgroi", "zfit", "aim", "ops.neighbors",
               "ops.link", "masking", "clusterer", "ops.cluster", "g5m",
-              "ops.gmm", "average", "spinna", "ops.spinna_batch"):
+              "ops.gmm", "average", "spinna", "ops.spinna_batch",
+              "nanotron", "average3", "simulate"):
         assert "picasso_torch." + m in mods
     smoke = _smoke_imports()
     assert "torch_data" in smoke and "torch_parity" in smoke
@@ -102,6 +103,27 @@ def test_analysis_module_imports_no_jax_pandas_or_sklearn(module):
         f"import sys, picasso_torch.{module}\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
         "'jaxlib', 'picasso_tpu', 'pandas', 'sklearn')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", ["nanotron", "average3", "simulate"])
+def test_workflow_module_imports_no_jax_flax_optax_pandas_or_sklearn(module):
+    """picasso_torch.nanotron (the MLP, Adam and the model files),
+    .average3 and .simulate, each imported alone and with a model loaded
+    or a movie simulated, pull in none of jax, flax, optax, picasso_tpu,
+    pandas or sklearn."""
+    use = {"nanotron": "m.init_params([4, 3, 2]); m.Adam([], 1e-3)",
+           "average3": "m.rotate_axis('x', 1.0, 2.0, 3.0, 0.5, 130)",
+           "simulate": "m.simulate_movie(2, 16, 4, seed=1)"}[module]
+    code = (
+        f"import sys, picasso_torch.{module} as m\n{use}\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
+        "'jaxlib', 'flax', 'optax', 'picasso_tpu', 'pandas', 'sklearn')]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -167,18 +167,30 @@ def origami_template() -> np.ndarray:
     return xy - xy.mean(0)
 
 
-def make_origami_locs(n_origami: int, seed: int = 0):
+def origami_rows_template(rows: int = 2) -> np.ndarray:
+    """The first ``rows`` rows of origami_template()'s lattice, all 4
+    sites a row (8 sites for 2 rows), about their centroid: a second
+    origami design for nanotron's classes."""
+    xy = np.array([(c, r) for r in range(rows) for c in range(4)],
+                  np.float64) * ORIGAMI_PITCH
+    return xy - xy.mean(0)
+
+
+def make_origami_locs(n_origami: int, seed: int = 0,
+                      template: np.ndarray | None = None):
     """DNA-PAINT origami locs, their info and the truth.
 
-    Each origami is origami_template() at a random rotation, centred on a
+    Each origami is ``template`` (by default origami_template(); the
+    default leaves every draw as it was) at a random rotation, centred on a
     square lattice of ORIGAMI_SPACING px jittered by up to 0.5 px, so
     neighbours lie at least 3 px apart. Each site binds in 6-10 events of
     3-8 frames at uniform times over ORIGAMI_FRAMES frames, one loc a
     frame; a loc's lpx, lpy are uniform in ORIGAMI_LP and it scatters by
     N(0, lpx), N(0, lpy); photons, widths, background and the other fields
     as localize writes them (EVENT_DTYPE without ``group``). Sorted by
-    frame. Returns (locs, info, truth): truth holds ``sites`` (n, 11, 2)
-    px, ``angles`` (n,) rad and ``centers`` (n, 2) px."""
+    frame. Returns (locs, info, truth): truth holds ``sites`` (n, sites,
+    2) px, ``angles`` (n,) rad, ``centers`` (n, 2) px and ``site`` (each
+    loc's index into the sites of all origami)."""
     rng = np.random.default_rng(seed)
     side = int(np.ceil(np.sqrt(n_origami)))
     lattice = np.stack(np.meshgrid(np.arange(side), np.arange(side)),
@@ -187,7 +199,7 @@ def make_origami_locs(n_origami: int, seed: int = 0):
                + rng.uniform(-0.5, 0.5, (n_origami, 2)))
     angles = rng.uniform(0, 2 * np.pi, n_origami)
     c, s = np.cos(angles), np.sin(angles)
-    t = origami_template()
+    t = origami_template() if template is None else np.asarray(template)
     sites = np.stack([c[:, None] * t[:, 0] - s[:, None] * t[:, 1],
                       s[:, None] * t[:, 0] + c[:, None] * t[:, 1]], -1)
     sites += centers[:, None, :]
@@ -222,7 +234,38 @@ def make_origami_locs(n_origami: int, seed: int = 0):
     info = [{"Frames": ORIGAMI_FRAMES, "Width": size, "Height": size,
              "Pixelsize": 130}]
     return locs, info, {"sites": sites, "angles": angles,
-                        "centers": centers}
+                        "centers": centers, "site": site}
+
+
+#: 3D origami (make_origami3d_locs): the z (nm) of origami_template()'s
+#: rows, each origami's z offset and each loc's z scatter in its lateral
+#: precisions (the astigmatic z precision is ~3 times the lateral one)
+ORIGAMI_Z_ROWS = (0.0, 40.0, 80.0)
+ORIGAMI_Z_OFFSET = 20.0
+ORIGAMI_Z_LP = 3.0
+
+
+def make_origami3d_locs(n_origami: int, seed: int = 0):
+    """make_origami_locs(n_origami, seed) grouped by origami_groups, with
+    a ``z`` field (nm, f32): the lattice's rows at ORIGAMI_Z_ROWS, an
+    offset of N(0, ORIGAMI_Z_OFFSET) for each origami and a scatter of
+    N(0, ORIGAMI_Z_LP lpx x 130) for each loc, drawn from a stream of
+    their own (seed + 1). Returns (locs, info, truth), truth with
+    ``z_offsets`` (n,) nm."""
+    locs, info, truth = make_origami_locs(n_origami, seed)
+    grouped = origami_groups(locs, truth)
+    rng = np.random.default_rng(seed + 1)
+    offsets = rng.normal(0, ORIGAMI_Z_OFFSET, n_origami)
+    row = np.rint(origami_template()[:, 1] / ORIGAMI_PITCH + 1).astype(int)
+    per = len(row)
+    z = (np.asarray(ORIGAMI_Z_ROWS)[row[truth["site"] % per]]
+         + offsets[truth["site"] // per]
+         + rng.normal(0, 1, len(locs)) * ORIGAMI_Z_LP * locs["lpx"] * 130)
+    out = np.empty(len(locs), grouped.dtype.descr + [("z", "<f4")])
+    for n in grouped.dtype.names:
+        out[n] = grouped[n]
+    out["z"] = z
+    return out, info, dict(truth, z_offsets=offsets)
 
 
 def origami_groups(locs: np.ndarray, truth: dict) -> np.ndarray:
@@ -519,3 +562,55 @@ def spinna_cell(spinna, scale: float = 1.0, **kw):
     np.random.seed(c["seed"])
     counts = [int(round(n * scale)) for n in c["counts"]]
     return mixer, mixer.run_simulation(counts)
+
+
+#: tests/test_average3.py's L-shaped 3D template (px, px, nm), which
+#: breaks every rotational symmetry
+AVERAGE3_TEMPLATE = np.array([[0.0, 0.0, 0.0], [0.8, 0.0, 0.0],
+                              [1.6, 0.0, 0.0], [0.0, 0.7, 0.0],
+                              [0.0, 0.0, 120.0]])
+AVERAGE3_DTYPE = np.dtype([
+    ("frame", np.uint32), ("x", np.float32), ("y", np.float32),
+    ("z", np.float32), ("photons", np.float32), ("sx", np.float32),
+    ("sy", np.float32), ("bg", np.float32), ("lpx", np.float32),
+    ("lpy", np.float32), ("group", np.int32)])
+
+
+def make_average3_locs(n_groups: int = 14, locs_per_site: int = 12,
+                       noise: float = 0.03, seed: int = 2) -> np.ndarray:
+    """tests/test_average3.py's dataset without pandas, the same draws in
+    the same order: each group the template turned about z by a uniform
+    angle and moved by N(0, 0.15) px and N(0, 20) nm, each site's locs
+    scattered by ``noise`` px (z: ``noise`` x 130 nm)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    true_angles = rng.uniform(0, 2 * np.pi, n_groups)
+    for g in range(n_groups):
+        c, s = np.cos(true_angles[g]), np.sin(true_angles[g])
+        t = AVERAGE3_TEMPLATE
+        x, y, z = c * t[:, 0] - s * t[:, 1], s * t[:, 0] + c * t[:, 1], t[:, 2]
+        dx, dy = rng.normal(0, 0.15, 2)
+        dz = rng.normal(0, 20.0)
+        for px, py, pz in zip(x, y, z):
+            for _ in range(locs_per_site):
+                rows.append((g, px + dx + rng.normal(0, noise),
+                             py + dy + rng.normal(0, noise),
+                             pz + dz + rng.normal(0, noise * 130)))
+    arr = np.array(rows)
+    locs = np.zeros(len(arr), AVERAGE3_DTYPE)
+    locs["frame"] = np.arange(len(arr))
+    locs["x"], locs["y"], locs["z"] = arr[:, 1], arr[:, 2], arr[:, 3]
+    locs["photons"], locs["sx"], locs["sy"], locs["bg"] = 1000, 1, 1, 5
+    locs["lpx"] = locs["lpy"] = 0.03
+    locs["group"] = arr[:, 0]
+    return locs
+
+
+def xy_spread(locs: np.ndarray) -> float:
+    """tests/test_average3.py's group spread without pandas: the entropy
+    of the locs' xy histogram in 60 x 60 bins over [-3, 3] px, which
+    falls as the groups align into common sharp peaks."""
+    H, *_ = np.histogram2d(locs["x"], locs["y"], bins=60,
+                           range=[[-3, 3], [-3, 3]])
+    p = H / H.sum()
+    return float(-np.sum(p[p > 0] * np.log(p[p > 0])))

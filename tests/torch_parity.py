@@ -542,3 +542,79 @@ def compare_spinna_scores(got, ref, n1, what: str = "SPINNA scores") -> dict:
                              f", {steps[i]:.2f} ECDF steps of 1/{n1[i]:.0f}")
     return {"max_abs": float(diff.max()), "max_steps": float(steps.max()),
             "equal": float(np.mean(diff == 0))}
+
+
+# nanotron's MLP (picasso_torch/nanotron.py): two runs of the same
+# training from the same weights on the same data (the port against JAX
+# on the CPU, the card against the CPU) sum their f32 products in other
+# orders, and Adam carries the differences on; the per-epoch mean losses
+# stay within MLP_LOSS_REL of each other over a few epochs, and the
+# predictions of every image are equal
+MLP_LOSS_REL = 1e-4
+
+
+def compare_mlp(got_curve, ref_curve, got_pred, ref_pred,
+                what: str = "MLP") -> dict:
+    """Hold a training run's loss curve and predictions to another's.
+    Raises AssertionError with the measured numbers when out of
+    tolerance; returns them otherwise."""
+    got_curve, ref_curve = (np.asarray(c, np.float64)
+                            for c in (got_curve, ref_curve))
+    rel = np.abs(got_curve - ref_curve) / np.abs(ref_curve)
+    stats = {"epochs": len(ref_curve), "loss_rel": float(rel.max(initial=0)),
+             "predictions_differ": int(np.sum(np.asarray(got_pred)
+                                              != np.asarray(ref_pred)))}
+    if (got_curve.shape != ref_curve.shape or stats["loss_rel"] > MLP_LOSS_REL
+            or stats["predictions_differ"]):
+        raise AssertionError(f"{what}: out of tolerance: {stats}")
+    return stats
+
+
+# average3's scans (picasso_torch/average3.py): the correlations of two
+# runs (the port's torch.fft against JAX's numpy FFT, the card's cuFFT
+# against the CPU) differ in their last bits, so where a group's best
+# and second-best correlation values lie within AVERAGE3_TIE_REL of each
+# other the runs may pick other (angle, pixel)s; every other group must
+# pick the same
+AVERAGE3_TIE_REL = 1e-5
+
+
+def compare_average3(differ, picks, what: str = "average3 picks") -> dict:
+    """Hold two runs of one rotation-scan pass to each other: ``differ``
+    (G,) marks the groups whose pick or moved coordinates differ, and
+    ``picks`` lists the (best index, best value, second-best value)
+    arrays (G,) of one or both runs. Each differing group must be a near
+    tie (best - second <= AVERAGE3_TIE_REL |best|) in one of them.
+    Raises AssertionError otherwise; returns the counts."""
+    differ = np.asarray(differ, bool)
+    tie = np.zeros(len(differ), bool)
+    for _, val, second in picks:
+        val, second = np.asarray(val, np.float64), np.asarray(second,
+                                                              np.float64)
+        tie |= val - second <= AVERAGE3_TIE_REL * np.abs(val)
+    bad = np.nonzero(differ & ~tie)[0]
+    stats = {"groups": len(differ), "differ": int(differ.sum()),
+             "near_ties": int(tie.sum())}
+    if len(bad):
+        raise AssertionError(f"{what}: groups {bad.tolist()[:10]} differ "
+                             f"and are not near ties: {stats}")
+    return stats
+
+
+def compare_average3_passes(picks_a, picks_b, what: str = "average3") -> str:
+    """Hold two average3 runs' passes (their ``picks=`` lists) to each
+    other with compare_average3 while their inputs are equal: up to and
+    including the first pass whose picks differ (at near ties); later
+    passes start from other locs. Returns what was held."""
+    held = 0
+    for k, (pa, pb) in enumerate(zip(picks_a, picks_b)):
+        differ = np.asarray(pa[0]) != np.asarray(pb[0])
+        compare_average3(differ, [pa, pb], what=f"{what} pass {k}")
+        held += 1
+        if differ.any():
+            return (f"{held} passes held, pass {k} differs in "
+                    f"{int(differ.sum())} near ties")
+    if len(picks_a) != len(picks_b):
+        raise AssertionError(f"{what}: {len(picks_a)} passes against "
+                             f"{len(picks_b)}")
+    return f"all {held} passes' picks equal"
