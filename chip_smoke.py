@@ -207,7 +207,25 @@ Phases, each of which raises on failure (exit code != 0):
    gate, each pass's wall split; the card against the CPU pass by pass
    within torch_parity.compare_average3 (the recipe whole, the first
    N_AVG3_CARD_CPU origami). Paths ``simulate`` (the simulation),
-   ``nanotron`` and ``average3`` launch no kernel.
+   ``nanotron`` and ``average3`` launch no kernel;
+21. the pick analyses and the Mask tool through the API (no kernel;
+   plain torch on the card, host numpy/scipy where JAX uses the host) on
+   phase 18's N_ORIGAMI origami: (a) pick_similar from circles of PICK_D
+   px on the first N_SEED_PICKS true centres on the card and the CPU,
+   held by torch_parity.compare_similar_picks, every pick within
+   SIMILAR_TRUTH_PX of a true centre, then on the card alone on
+   CAMERA_ORIGAMI origami (~2 M locs), the same gate, the walls split
+   into the seeds' statistics, the walks and the host filter; (b)
+   pick_properties (PROPS_RADIUS px circles, PROPS_DARK, PROPS_INFLUX),
+   evaluate_picks and pick_kinetics of (a)'s picks, card == CPU (fits
+   and counts equal, floats within one f32 ulp), pick_properties split
+   into one link + dark_times on the card, the host fits and groupprops;
+   (c) remove_locs_in_picks (host): the rows left and the picked rows
+   make up the input; combine_locs_in_picks card == CPU within one ulp;
+   (d) generate_image (MASK_PX nm, blur MASK_BLUR nm) card == CPU bit for
+   bit, mask_image by every method of THRESHOLD_METHODS the CPU image's,
+   mask_locs in + out = all. Paths ``picks`` ((a)-(c) on the card; the
+   host link walk only) and ``mask`` launch no kernel.
 IMS and STK movies are checked on the CPU only (tests/test_torch_io.py):
 the machine with the card has no h5py.
 The line before the last is the JSON record of every kernel (bound_ms:
@@ -341,6 +359,16 @@ NANO_RADIUS, NANO_OVERSAMPLING, NANO_SEEDS = 0.5, 40, (31, 32)
 NANO_ACCURACY, NANO_CARD_CPU_EPOCHS, N_PREDICT = 0.95, 5, 20
 N_AVG3_GROUPS, N_ORIGAMI3D, N_AVG3_CARD_CPU = 1000, 1000, 64
 AVG3_SPREAD_FALL, AVG3_Z_STD = 0.3, 10.0
+# phase 21: picks and masks on phase 18's origami field: the seed picks
+# (circles of PICK_D px on the true centres of the first N_SEED_PICKS
+# origami), the camera-sized field of CAMERA_ORIGAMI origami, the truth
+# gate (px; JAX's CPU run on the 1000 origami: 254 picks, the farthest
+# 0.033 px from a centre), the circles of pick_properties (radius px),
+# its dark time and influx rate, and the Mask tool's pixel and blur (nm)
+PICK_D, N_SEED_PICKS, CAMERA_ORIGAMI, CAMERA_SEED = 1.0, 20, 4096, 1
+SIMILAR_TRUTH_PX = 0.05
+PROPS_RADIUS, PROPS_DARK, PROPS_INFLUX = 0.5, 3, 0.03
+MASK_PX, MASK_BLUR = 65.0, 100.0
 
 
 def _median_ms(fn, reps: int = 5, calls: int = 1) -> float:
@@ -1828,6 +1856,196 @@ def average3_phase(counted, smi: str) -> dict:
     return _sum_launches(launches_l, launches_o)
 
 
+def picks_phase(counted, smi: str) -> tuple[dict, dict]:
+    """21. The pick analyses and the Mask tool on phase 18's origami
+    field: (a) pick_similar from N_SEED_PICKS seed circles on the card and
+    the CPU, held by torch_parity.compare_similar_picks and to the truth,
+    then on the card alone on a camera-sized field; (b) pick_properties,
+    evaluate_picks and pick_kinetics of (a)'s picks, card == CPU; (c)
+    remove_locs_in_picks (host) and combine_locs_in_picks, card == CPU;
+    (d) generate_image card == CPU bit for bit, mask_image by every method
+    and mask_locs. Returns the launches of the paths ``picks`` ((a)-(c)
+    on the card) and ``mask`` ((d))."""
+    from scipy.spatial import cKDTree
+
+    from picasso_torch import lib, masking, postprocess
+    from torch_data import make_origami_locs
+    from torch_parity import compare_similar_picks, compare_tables_ulps
+
+    pool = ThreadPoolExecutor(1)
+    camera_job = pool.submit(make_origami_locs, CAMERA_ORIGAMI, CAMERA_SEED)
+    locs, info, truth = make_origami_locs(N_ORIGAMI, ORIGAMI_SEED)
+
+    def similar(field, field_info, field_truth, dev):
+        """pick_similar from circles on the field's first N_SEED_PICKS
+        true centres."""
+        rec = {}
+        seeds = [tuple(map(float, c))
+                 for c in field_truth["centers"][:N_SEED_PICKS]]
+        out = postprocess.pick_similar(field, field_info, seeds, PICK_D,
+                                       device=dev, record=rec)
+        return out, rec
+
+    def farthest(picks, centers):
+        return float(cKDTree(centers).query(np.array(picks, np.float64))[
+            0].max()) if picks else float("inf")
+
+    def walls(rec):
+        return json.dumps({k: round(v, 4) for k, v in rec["walls"].items()})
+
+    # (a) pick similar
+    (picks, rec), wall_sim, launches_sim = counted(
+        lambda: similar(locs, info, truth, "cuda"))
+    t0 = time.perf_counter()
+    picks_cpu, rec_cpu = similar(locs, info, truth, "cpu")
+    wall_sim_cpu = time.perf_counter() - t0
+    held = compare_similar_picks(picks, rec, picks_cpu, rec_cpu,
+                                 "pick_similar card vs CPU")
+    far = (farthest(picks, truth["centers"]),
+           farthest(picks_cpu, truth["centers"]))
+    print(f"picks ({smi}): pick_similar on {N_ORIGAMI} origami "
+          f"({len(locs)} locs) from {N_SEED_PICKS} circles of {PICK_D} px: "
+          f"{len(picks)} picks (CPU {len(picks_cpu)}), card {wall_sim:.3f} s"
+          f" {walls(rec)} ({int(rec['started'].sum())} of "
+          f"{len(rec['started'])} candidates walked, at most "
+          f"{int(rec['steps'].max())} steps), CPU {wall_sim_cpu:.3f} s "
+          f"{walls(rec_cpu)}; card vs CPU: {held['matched']} matched, at "
+          f"most {held['worst_px']:.3e} px apart (bound "
+          f"{held['same_px']:.3e}), near ties paired {held['stepped']}, "
+          f"alone {held['got_alone']} / {held['ref_alone']}; farthest "
+          f"from a true centre {far[0]:.4f} / {far[1]:.4f} px")
+    c_locs, c_info, c_truth = camera_job.result()
+    pool.shutdown()
+    (c_picks, c_rec), wall_cam, launches_cam = counted(
+        lambda: similar(c_locs, c_info, c_truth, "cuda"))
+    c_far = farthest(c_picks, c_truth["centers"])
+    print(f"  camera-sized field: {CAMERA_ORIGAMI} origami ({len(c_locs)} "
+          f"locs, {c_info[0]['Width']} x {c_info[0]['Height']} px): "
+          f"{len(c_picks)} picks, card {wall_cam:.3f} s {walls(c_rec)} "
+          f"({int(c_rec['started'].sum())} of {len(c_rec['started'])} "
+          f"candidates walked); farthest from a true centre {c_far:.4f} px")
+    if max(far + (c_far,)) > SIMILAR_TRUTH_PX or not (picks and c_picks):
+        raise AssertionError(f"pick_similar: picks {far}, {c_far} px from "
+                             f"a true centre (bound {SIMILAR_TRUTH_PX})")
+    # (b) pick properties
+    picked = postprocess.picked_locs(locs, info, picks, "Circle",
+                                     PROPS_RADIUS)
+    areas = lib.pick_areas("Circle", picks, 2 * PROPS_RADIUS)
+    kw = dict(max_dark_time=PROPS_DARK)
+    props, wall_props, launches_props = counted(
+        lambda: postprocess.pick_properties(
+            picked, info, influx_rate=PROPS_INFLUX, pick_areas=areas,
+            device="cuda", **kw))
+    t0 = time.perf_counter()
+    props_cpu = postprocess.pick_properties(
+        picked, info, influx_rate=PROPS_INFLUX, pick_areas=areas,
+        device="cpu", **kw)
+    wall_props_cpu = time.perf_counter() - t0
+    fits = ("pick_area_um2", "n_units", "locs", "length_cdf", "dark_cdf",
+            "qpaint_idx_cdf")
+    stats = [n for n in props.dtype.names if n not in fits]
+    ulp_props = compare_tables_ulps(props[stats], props_cpu[stats], 1,
+                                    "pick_properties card vs CPU")
+    for n in fits:
+        if not np.array_equal(props[n], props_cpu[n]):
+            raise AssertionError(f"pick_properties: {n} card != CPU")
+    evals, wall_eval, launches_eval = counted(
+        lambda: postprocess.evaluate_picks(picked, info, device="cuda",
+                                           **kw))
+    evals_cpu = postprocess.evaluate_picks(picked, info, device="cpu", **kw)
+    kin, wall_kin, launches_kin = counted(
+        lambda: postprocess.pick_kinetics(picked, info, device="cuda", **kw))
+    kin_cpu = postprocess.pick_kinetics(picked, info, device="cpu", **kw)
+    for a, b in list(zip(evals[:6], evals_cpu[:6])) + list(zip(kin[:3],
+                                                               kin_cpu[:3])):
+        if not np.array_equal(a, b, equal_nan=True):
+            raise AssertionError("evaluate_picks / pick_kinetics: card != "
+                                 "CPU")
+    ulp_ev = (compare_tables_ulps(evals[6], evals_cpu[6], 1, "events"),
+              compare_tables_ulps(kin[3], kin_cpu[3], 1, "events"))
+    # the split of pick_properties: one link + dark_times on the card, the
+    # fits a pick at a time on the host, groupprops on the card
+    split = {}
+    t0 = time.perf_counter()
+    events, pick = postprocess._pick_events(picked, info, PROPS_DARK, "cuda")
+    split["link + dark_times"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _, rows in postprocess._pick_spans(pick):
+        lib.estimate_kinetic_rate(events["len"][rows])
+        lib.estimate_kinetic_rate(events["dark"][rows])
+    split["host fits"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    postprocess.groupprops(kin[3], device="cuda")
+    split["groupprops"] = time.perf_counter() - t0
+    print(f"  pick_properties of {len(picked)} picks ({sum(map(len, picked))}"
+          f" locs in circles of {PROPS_RADIUS} px, max_dark_time "
+          f"{PROPS_DARK}, influx {PROPS_INFLUX}): {len(props)} rows, card "
+          f"{wall_props:.3f} s (" + ", ".join(
+              f"{k} {v:.3f} s" for k, v in split.items())
+          + f"), CPU {wall_props_cpu:.3f} s; median n_units "
+          f"{float(np.median(props['n_units'])):.3f}; evaluate_picks card "
+          f"{wall_eval:.3f} s, pick_kinetics card {wall_kin:.3f} s; card =="
+          f" CPU: fits and counts equal, group statistics within one f32 "
+          f"ulp ({ulp_props} cells differ), events ({ulp_ev[0]}, "
+          f"{ulp_ev[1]} cells differ)")
+    # (c) remove and combine
+    t0 = time.perf_counter()
+    left = postprocess.remove_locs_in_picks(
+        locs, info, picks=picks, pick_shape="Circle", pick_size=PICK_D)
+    wall_rm = time.perf_counter() - t0
+    rows = postprocess._picked_rows(locs, info, picks, "Circle", PICK_D / 2)
+    keep = np.ones(len(locs), bool)
+    keep[rows] = False
+    if not (len(left) + len(rows) == len(locs)
+            and np.array_equal(left, locs[keep])):
+        raise AssertionError("remove_locs_in_picks: the rows left and the "
+                             "picked rows are not the input")
+    ckw = dict(picks=picks, pick_shape="Circle", pick_size=PICK_D)
+    combined, wall_comb, launches_comb = counted(
+        lambda: postprocess.combine_locs_in_picks(locs, info, device="cuda",
+                                                  **ckw))
+    t0 = time.perf_counter()
+    combined_cpu = postprocess.combine_locs_in_picks(locs, info,
+                                                     device="cpu", **ckw)
+    wall_comb_cpu = time.perf_counter() - t0
+    ulp_comb = compare_tables_ulps(combined, combined_cpu, 1,
+                                   "combine_locs_in_picks card vs CPU")
+    print(f"  remove_locs_in_picks (host) {wall_rm:.3f} s: {len(left)} left "
+          f"+ {len(rows)} picked = {len(locs)}; combine_locs_in_picks: "
+          f"{len(combined)} events of {len(picks)} picks, card "
+          f"{wall_comb:.3f} s, CPU {wall_comb_cpu:.3f} s; card == CPU "
+          f"within one f32 ulp ({ulp_comb} cells differ)")
+    # (d) the Mask tool
+    image, wall_img, launches_mask = counted(lambda: masking.generate_image(
+        locs, info, MASK_PX, MASK_BLUR, device="cuda"))
+    t0 = time.perf_counter()
+    image_cpu = masking.generate_image(locs, info, MASK_PX, MASK_BLUR,
+                                       device="cpu")
+    wall_img_cpu = time.perf_counter() - t0
+    if not np.array_equal(image, image_cpu):
+        raise AssertionError("generate_image: card != CPU")
+    t0 = time.perf_counter()
+    masks = {m: masking.mask_image(image, m)
+             for m in masking.THRESHOLD_METHODS}
+    wall_masks = time.perf_counter() - t0
+    for m, mask in masks.items():
+        if not np.array_equal(mask, masking.mask_image(image_cpu, m)):
+            raise AssertionError(f"mask_image {m}: card's image != CPU's")
+    inside, outside = masking.mask_locs(locs, masks["otsu"], info=info)
+    if len(inside) + len(outside) != len(locs):
+        raise AssertionError("mask_locs: inside + outside != all")
+    print(f"  mask: generate_image at {MASK_PX} nm, blur {MASK_BLUR} nm, "
+          f"{image.shape}: card {wall_img:.3f} s, CPU {wall_img_cpu:.3f} s, "
+          f"equal bit for bit; mask_image by the {len(masks)} methods "
+          f"{wall_masks:.3f} s (mask shares " + json.dumps(
+              {m: round(float(v.mean()), 4) for m, v in masks.items()})
+          + f"), each the CPU image's; mask_locs (otsu): {len(inside)} in + "
+          f"{len(outside)} out")
+    return (_sum_launches(launches_sim, launches_cam, launches_props,
+                          launches_eval, launches_kin, launches_comb),
+            launches_mask)
+
+
 def main() -> int:
     import torch
 
@@ -3204,15 +3422,19 @@ def main() -> int:
     t20d = time.perf_counter()
     launches_avg3 = average3_phase(counted, smi)
     t21 = time.perf_counter()
+    # 21. the pick analyses and the Mask tool -----------------------------
+    launches_picks, launches_mask = picks_phase(counted, smi)
+    t22 = time.perf_counter()
     print(f"phases 15-16: {t16 - t15:.1f} s and {t17 - t16:.1f} s, phase "
           f"17: {t18 - t17:.1f} s, phase 18: {t19 - t18:.1f} s, phase 19: "
           f"{t20 - t19:.1f} s, phase 20: {t21 - t20:.1f} s ((a) "
           f"{t20b - t20:.1f}, (b) {t20c - t20b:.1f}, (c) {t20d - t20c:.1f}, "
-          f"(d) {t21 - t20d:.1f}) ({smi})")
+          f"(d) {t21 - t20d:.1f}), phase 21: {t22 - t21:.1f} s ({smi})")
     print("host code (no kernel):", json.dumps([{
         "name": "link_walk", "source": "picasso_torch/csrc/link_walk.cu",
         "replaces": "picasso_tpu/native/picasso_native.cpp:38",
-        "launches": launches_link["link walk"] + launches_db["link walk"]}, {
+        "launches": launches_link["link walk"] + launches_db["link walk"]
+        + launches_picks["link walk"]}, {
         "name": "cluster_sweep",
         "source": "picasso_torch/csrc/cluster_sweep.cu",
         "replaces": "picasso_tpu/native/picasso_native.cpp:392",
@@ -3229,10 +3451,13 @@ def main() -> int:
              "g5m": launches_g5m, "average": launches_avg,
              "spinna": launches_spinna, **launches_api,
              "simulate": launches_sim, "nanotron": launches_nano,
-             "average3": launches_avg3}
-    for path in ("simulate", "nanotron", "average3"):
+             "average3": launches_avg3, "picks": launches_picks,
+             "mask": launches_mask}
+    for path in ("simulate", "nanotron", "average3", "mask"):
         if any(paths[path].values()):
             raise AssertionError(f"path {path} launched {paths[path]}")
+    if any(v for k, v in launches_picks.items() if k != "link walk"):
+        raise AssertionError(f"path picks launched {launches_picks}")
     fit_key = {mle_cuda.fit_t: "K1", mle_cuda.fit_boundary_t: "K2"}[
         mle_cuda.ROI_FITS["sigmaxy"]]
     for path in ("fit", "camera-array"):

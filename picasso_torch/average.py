@@ -219,26 +219,6 @@ def build_group_index(locs: np.ndarray) -> scipy.sparse.lil_matrix:
     return group_index
 
 
-def _group_mean_f32(values: np.ndarray, rows: list) -> np.ndarray:
-    """pandas' groupby mean of an f32 column, one value a group: the
-    rows summed in order in f32 with Kahan compensation, over the f32
-    count."""
-    counts = np.array([len(r) for r in rows])
-    sumx = np.zeros(len(rows), np.float32)
-    comp = np.zeros(len(rows), np.float32)
-    pos = np.zeros((len(rows), counts.max(initial=0)), np.int64)
-    for g, r in enumerate(rows):
-        pos[g, :len(r)] = r
-    for k in range(counts.max(initial=0)):
-        g = np.nonzero(counts > k)[0]
-        yv = values[pos[g, k]] - comp[g]
-        t = sumx[g] + yv
-        c = t - sumx[g] - yv
-        comp[g] = np.where(np.isnan(c), np.float32(0), c)
-        sumx[g] = t
-    return sumx / counts.astype(np.float32)
-
-
 def com_align(locs: np.ndarray, group_index=None) -> np.ndarray:
     """Center each group at the origin (picasso/average.py:223): each
     loc's x and y less its group's mean."""
@@ -248,7 +228,7 @@ def com_align(locs: np.ndarray, group_index=None) -> np.ndarray:
     for i, r in enumerate(rows):
         inv[r] = i
     for c in ("x", "y"):
-        locs[c] = locs[c] - _group_mean_f32(locs[c], rows)[inv]
+        locs[c] = locs[c] - lib.group_mean(locs[c], rows)[inv]
     return locs
 
 

@@ -30,7 +30,6 @@ import numpy as np
 import torch
 
 from picasso_torch import lib
-from picasso_torch.average import _group_mean_f32
 
 #: rotation axis -> the projection plane whose image the scan correlates
 ROT_PLANES = {"z": "xy", "x": "yz", "y": "xz"}
@@ -98,7 +97,7 @@ def _com_align3(locs: np.ndarray) -> np.ndarray:
     for i, r in enumerate(rows):
         inv[r] = i
     for c in ("x", "y", "z"):
-        locs[c] = locs[c] - _group_mean_f32(locs[c], rows)[inv]
+        locs[c] = locs[c] - lib.group_mean(locs[c], rows)[inv]
     return locs
 
 

@@ -3,8 +3,8 @@
 conversion, the YAML info chain and the HDF5 ``"locs"`` table.
 
 Counterpart of picasso_tpu/io.py (load_info :48, save_info :60,
-save_locs :81, load_locs :102, load_clusters :131, save_datasets :140,
-save_drift :282, load_drift :288,
+save_locs :81, load_locs :102, load_clusters :131, save_datasets :140, load_picks
+:209, save_picks :248, save_drift :282, load_drift :288,
 AbstractPicassoMovie :397, load_raw :447, TiffMap :476, STKMovie :661,
 STKMultiMovie :689, TiffMultiMap :760, load_tif :846, IMSMovie :862,
 load_ims :992, load_ims_all :1007, the ND2 metadata helpers :1232-:1376,
@@ -836,6 +836,67 @@ def save_datasets(path: str, info: list[dict], **kwargs) -> None:
         for key, val in kwargs.items():
             f.create_dataset(key, data=val)
     save_info(os.path.splitext(path)[0] + ".yaml", info)
+
+
+def load_picks(path: str, pixelsize: float | None = None):
+    """Pick regions from a Render picks file (picasso/io.py:446):
+    (picks, shape, size in camera px, None for polygons). A size saved
+    in nm is divided by ``pixelsize`` (1 if not given); a file with
+    centres and a diameter but no shape holds circles."""
+    import yaml
+
+    if not path.endswith(".yaml"):
+        raise AssertionError("Picks should be stored in a .yaml file.")
+    with open(path, "r") as f:
+        regions = yaml.full_load(f)
+    if "Shape" in regions:
+        shape = regions["Shape"]
+    elif "Centers" in regions and "Diameter" in regions:
+        shape = "Circle"
+    else:
+        raise ValueError("Unrecognized picks file")
+    pixelsize = 1 if pixelsize is None else pixelsize
+    size = None
+    if shape == "Circle":
+        picks = regions["Centers"]
+        size = (regions["Diameter (nm)"] / pixelsize
+                if "Diameter (nm)" in regions else regions["Diameter"])
+    elif shape == "Rectangle":
+        picks = regions["Center-Axis-Points"]
+        size = (regions["Width (nm)"] / pixelsize
+                if "Width (nm)" in regions else regions["Width"])
+    elif shape == "Polygon":
+        picks = regions["Vertices"]
+    elif shape == "Square":
+        picks = regions["Centers"]
+        size = regions["Side Length (nm)"] / pixelsize
+    else:
+        raise ValueError("Unrecognized pick shape")
+    return picks, shape, size
+
+
+#: the picks file's keys of each shape: (picks, size in nm)
+_PICK_KEYS = {"Circle": ("Centers", "Diameter (nm)"),
+              "Rectangle": ("Center-Axis-Points", "Width (nm)"),
+              "Polygon": ("Vertices", None),
+              "Square": ("Centers", "Side Length (nm)")}
+
+
+def save_picks(path: str, picks: list, shape: str,
+               size: float | None = None, pixelsize: float = 1.0) -> None:
+    """Pick regions as the Render picks file that :func:`load_picks`
+    reads (picasso/io.py:248), the size in nm."""
+    import yaml
+
+    if shape not in _PICK_KEYS:
+        raise ValueError("Unrecognized pick shape")
+    key, size_key = _PICK_KEYS[shape]
+    regions = {key: picks}
+    if size_key is not None:
+        regions[size_key] = size * pixelsize
+    regions["Shape"] = shape
+    with open(path, "w") as f:
+        yaml.dump(regions, f)
 
 
 def save_drift(path: str, drift: np.ndarray) -> None:

@@ -4,9 +4,14 @@ on numpy structured arrays, progress reporting and device resolution.
 Counterpart of the parts of picasso_tpu/lib.py that the localize path
 and the picks use (get_from_metadata :41, ensure_sanity :82,
 is_loc_at :133, locs_at :143, check_if_in_polygon :148, merge_locs
-:110, check_if_in_rectangle :170, get_pick_rectangle_corners :213,
-find_local_minima :345, minimize_shifts :445, deprecation_warning :479, MockProgress :670,
-progress_reporter :731, get_pick_polygon_corners :828). Locs are
+:110, check_if_in_rectangle :170, the pick areas :181-204 and :534,
+get_pick_rectangle_corners :213, overwrite_metadata :235,
+unfold_localizations_square :249, sync_groups :288, the kinetic fits
+:307-334, find_local_minima :345, minimize_shifts :445,
+deprecation_warning :479, locs_in_polygon :513, locs_in_rectangle :524,
+permutation_test :618, plot_cumulative_exponential_fit :641,
+MockProgress :670, progress_reporter :731, get_pick_polygon_corners
+:828). Locs are
 numpy structured arrays with the record layout of the HDF5 ``"locs"``
 dataset; :func:`series_mean_std` gives a column the mean and std that
 the JAX package's pandas columns give.
@@ -63,6 +68,11 @@ def ensure_sanity(locs: np.ndarray, info: list[dict]) -> np.ndarray:
     """Drop rows with a non-finite value, rows outside the field of view
     and rows with a negative precision/photon/width column
     (picasso/lib.py:1786)."""
+    return locs[sane_rows(locs, info)]
+
+
+def sane_rows(locs: np.ndarray, info: list[dict]) -> np.ndarray:
+    """The boolean mask of the rows that :func:`ensure_sanity` keeps."""
     for key in ("Width", "Height", "Frames"):
         if get_from_metadata(info, key) is None:
             raise KeyError(f"Metadata is missing required key: '{key}'")
@@ -75,7 +85,7 @@ def ensure_sanity(locs: np.ndarray, info: list[dict]) -> np.ndarray:
     for name in _NONNEGATIVE_COLUMNS:
         if name in locs.dtype.names:
             keep &= locs[name] >= 0
-    return locs[keep]
+    return keep
 
 
 def locs_table(cols: list, sort_key: str) -> np.ndarray:
@@ -198,6 +208,27 @@ def group_rows(group: np.ndarray) -> tuple[np.ndarray, list[np.ndarray]]:
     return ids, np.split(order, starts[1:])
 
 
+def group_mean(values: np.ndarray, rows: list) -> np.ndarray:
+    """pandas' groupby mean of a float column, one value a group: the
+    rows summed in order in the column's dtype with Kahan compensation,
+    over the count in that dtype."""
+    ft = values.dtype.type
+    counts = np.array([len(r) for r in rows])
+    sumx = np.zeros(len(rows), ft)
+    comp = np.zeros(len(rows), ft)
+    pos = np.zeros((len(rows), counts.max(initial=0)), np.int64)
+    for g, r in enumerate(rows):
+        pos[g, :len(r)] = r
+    for k in range(counts.max(initial=0)):
+        g = np.nonzero(counts > k)[0]
+        yv = values[pos[g, k]] - comp[g]
+        t = sumx[g] + yv
+        c = t - sumx[g] - yv
+        comp[g] = np.where(np.isnan(c), ft(0), c)
+        sumx[g] = t
+    return sumx / counts.astype(ft)
+
+
 def find_local_minima(arr: np.ndarray) -> np.ndarray:
     """Indices of strict local minima of a 1D array
     (picasso/lib.py:1243)."""
@@ -264,6 +295,200 @@ def get_pick_polygon_corners(pick):
     if len(pick) < 3 or pick[0] != pick[-1]:
         return None, None
     return [p[0] for p in pick], [p[1] for p in pick]
+
+
+def polygon_area(X, Y) -> float:
+    """Shoelace area of the polygon with corners (X, Y), in f64
+    (picasso/lib.py:2228)."""
+    X = np.asarray(X, dtype=np.float64)
+    Y = np.asarray(Y, dtype=np.float64)
+    return 0.5 * abs(np.dot(X, np.roll(Y, -1)) - np.dot(Y, np.roll(X, -1)))
+
+
+def pick_areas_polygon(picks: list) -> np.ndarray:
+    """Areas of polygon picks; a pick of fewer than 3 corners is left
+    out (picasso/lib.py:2303)."""
+    areas = []
+    for pick in picks:
+        pick = np.asarray(pick)
+        if len(pick) < 3:
+            continue
+        areas.append(polygon_area(pick[:, 0], pick[:, 1]))
+    return np.array(areas)
+
+
+def pick_areas_circle(picks: list, r: float) -> np.ndarray:
+    """Areas of circular picks of radius ``r`` (picasso/lib.py:2270)."""
+    return np.pi * r**2 * np.ones(len(picks))
+
+
+def pick_areas_rectangle(picks: list, w: float) -> np.ndarray:
+    """Areas of rectangular picks ((start, end), width ``w``)
+    (picasso/lib.py:2285)."""
+    return np.array([np.hypot(xe - xs, ye - ys) * w
+                     for (xs, ys), (xe, ye) in picks])
+
+
+def pick_areas(pick_shape: str, picks: list,
+               pick_size: float | None = None) -> np.ndarray:
+    """Areas of picks of any shape in camera px^2 (picasso/lib.py:2303);
+    ``pick_size`` is a circle's diameter, a rectangle's width or a
+    square's side. An unknown shape raises ValueError."""
+    if pick_shape == "Circle":
+        return pick_areas_circle(picks, pick_size / 2)
+    if pick_shape == "Rectangle":
+        return pick_areas_rectangle(picks, pick_size)
+    if pick_shape == "Polygon":
+        return pick_areas_polygon(picks)
+    if pick_shape == "Square":
+        return pick_size**2 * np.ones(len(picks))
+    raise ValueError(f"Unknown pick shape: {pick_shape}")
+
+
+def locs_in_polygon(locs: np.ndarray, X, Y) -> np.ndarray:
+    """The locs within the polygon with corners (X, Y)."""
+    return locs[check_if_in_polygon(locs["x"], locs["y"], X, Y)]
+
+
+def locs_in_rectangle(locs: np.ndarray, X, Y) -> np.ndarray:
+    """The locs within the (rotated) rectangle with corners (X, Y)."""
+    return locs[check_if_in_rectangle(locs["x"], locs["y"], X, Y)]
+
+
+def overwrite_metadata(info: list[dict], key, value) -> list[dict]:
+    """A deep copy of ``info`` with ``key`` set in the newest block that
+    holds it, else in the last block (picasso/lib.py:918)."""
+    from copy import deepcopy
+
+    info = deepcopy(info)
+    for block in info[::-1]:
+        if key in block:
+            block[key] = value
+            return info
+    info[-1][key] = value
+    return info
+
+
+def unfold_localizations_square(locs: np.ndarray, info: list[dict], *,
+                                n_square: int = 10, spacing: float = 1):
+    """Tile the groups onto a square grid of ``n_square`` columns,
+    ``spacing`` px apart (picasso/lib.py:2547). Returns (locs, info with
+    the new Width and Height). In JAX's pandas arithmetic: the groups
+    renumbered 0.. in sorted order (int64), each group's mean
+    (:func:`group_mean`) taken from x + Width / 2 in the column's dtype,
+    then the
+    grid offsets added in f64 (so x and y become f64) and the whole
+    field moved by its mean and then its minimum."""
+    if "group" not in locs.dtype.names:
+        raise AssertionError("Localizations must contain a 'group' column.")
+    _, rows = group_rows(locs["group"])
+    group = np.empty(len(locs), np.int64)
+    for new, r in enumerate(rows):
+        group[r] = new
+    cols = {"group": group}
+    centre = {"x": get_from_metadata(info, "Width", raise_error=True) / 2,
+              "y": get_from_metadata(info, "Height", raise_error=True) / 2}
+    offset = {"x": np.mod(group, n_square) * spacing,
+              "y": np.floor(group / n_square) * spacing}
+    for c in ("x", "y"):
+        v = locs[c]
+        v = (v + v.dtype.type(centre[c])) - group_mean(v, rows)[group]
+        v = v + offset[c]
+        v = v - v.sum() / len(v)
+        cols[c] = v + np.abs(v.min())
+    out = np.empty(len(locs), [(n, cols[n].dtype if n in cols else
+                                locs.dtype[n]) for n in locs.dtype.names])
+    for n in locs.dtype.names:
+        out[n] = cols[n] if n in cols else locs[n]
+    info = overwrite_metadata(info, "Width", int(np.ceil(out["x"].max())))
+    info = overwrite_metadata(info, "Height", int(np.ceil(out["y"].max())))
+    return out, info
+
+
+def sync_groups(locs: list[np.ndarray]) -> list[np.ndarray]:
+    """Each table with only the groups that every table holds
+    (picasso/lib.py:2616)."""
+    if not all("group" in loc.dtype.names for loc in locs):
+        raise AssertionError(
+            "All localization lists must contain a 'group' column.")
+    unique = [np.unique(loc["group"]) for loc in locs]
+    common = np.array(sorted(set(unique[0]).intersection(*unique)))
+    return [loc[np.isin(loc["group"], common)] for loc in locs]
+
+
+def cumulative_exponential(x, a: float, t: float, c: float):
+    """a (1 - exp(-x / t)) + c, the model of a binding-kinetics CDF."""
+    return a * (1 - np.exp(-x / t)) + c
+
+
+def fit_cum_exp(data) -> dict:
+    """A cumulative exponential fit to the sorted durations ``data`` by
+    scipy's curve_fit within bounds (picasso/lib.py:1273)."""
+    from scipy import optimize
+
+    data = np.sort(np.asarray(data, dtype=np.float64))
+    n = len(data)
+    y = np.arange(1, n + 1)
+    data_min, data_max = data.min(), data.max()
+    p0 = [n, float(np.mean(data)), data_min]
+    bounds = ([0, data_min, 0], [np.inf, data_max, np.inf])
+    popt, _ = optimize.curve_fit(cumulative_exponential, data, y, p0=p0,
+                                 bounds=bounds)
+    return {"best_values": {"a": popt[0], "t": popt[1], "c": popt[2]},
+            "data": data,
+            "best_fit": cumulative_exponential(data, *popt)}
+
+
+def estimate_kinetic_rate(data) -> float:
+    """The mean bright or dark time of ``data``: the time constant of
+    :func:`fit_cum_exp` from three distinct values, else the mean
+    (picasso/lib.py:1325)."""
+    data = np.asarray(data, dtype=np.float64)
+    if len(data) > 2:
+        if data.max() - data.min() == 0:
+            return float(np.nanmean(data))
+        return float(fit_cum_exp(data)["best_values"]["t"])
+    return float(np.nanmean(data))
+
+
+def permutation_test(arr1, arr2, iterations: int = 1000):
+    """Two-sample KS permutation test: (the observed statistic, the
+    permutation p-value, scipy's KS p-value); the permutations come from
+    the global np.random stream, as in JAX (picasso/lib.py
+    permutation_test)."""
+    from scipy import stats
+
+    arr1, arr2 = np.asarray(arr1), np.asarray(arr2)
+    n1 = len(arr1)
+    combined = np.concatenate([arr1, arr2])
+    obs_d, ks_pval = stats.ks_2samp(arr1, arr2)
+    null = np.empty(iterations)
+    for i in range(iterations):
+        shuffled = np.random.permutation(combined)
+        null[i], _ = stats.ks_2samp(shuffled[:n1], shuffled[n1:])
+    p_perm = float(np.sum(null >= obs_d) / iterations)
+    return float(obs_d), p_perm, float(ks_pval)
+
+
+def plot_cumulative_exponential_fit(data, fit_result: dict, fig=None,
+                                    ax=None):
+    """The sorted data and the fit of :func:`fit_cum_exp`
+    (picasso/lib.py:1360); matplotlib is imported here."""
+    import matplotlib.pyplot as plt
+
+    if fig is None or ax is None:
+        fig, ax = plt.subplots()
+    else:
+        ax.clear()
+    srt = np.sort(np.asarray(data))
+    ax.plot(srt, np.arange(1, len(srt) + 1), ".", label="data")
+    ax.plot(fit_result["data"], fit_result["best_fit"], label="fit")
+    t = fit_result["best_values"]["t"]
+    ax.set_title(f"mean time: {t:.1f} frames")
+    ax.set_xlabel("time (frames)")
+    ax.set_ylabel("cumulative counts")
+    ax.legend()
+    return fig
 
 
 def deprecation_warning(message: str) -> None:

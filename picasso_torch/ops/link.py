@@ -11,7 +11,9 @@ each loc's candidates once, on the device:
 
 - :func:`window_pairs`: the pairs (i, j) of locs of one group with
   frame_i < frame_j <= frame_i + window whose cells (side a little over
-  the radius) touch, keyed by (group, frame, cell row, cell column);
+  the radius) touch, keyed by (group, cell row, cell column, frame), so
+  that each of the 3 x 3 cells around a loc gives one run of frames
+  (:func:`window_ranges`): nine ranges a loc, whatever the window;
 - :func:`successors`: of those, the pairs the native test accepts (x and
   y cast to f32 first, then in f64 dx^2 and dy^2 each against d_max^2
   and dx^2 + dy^2 <= d_max^2), as a CSR (offsets, successors) in index
@@ -37,27 +39,55 @@ from picasso_torch.ops.neighbors import (
 )
 
 
+def window_ranges(frame: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                  group: torch.Tensor, radius: float, window: int):
+    """The candidates of :func:`window_pairs` as ranges: (lo, hi) (n, 9)
+    int64 positions into ``order``, the locs sorted by the key (group,
+    cell row, cell column, frame), with row k of (lo, hi) the ranges of
+    loc order[k], and ``order`` itself. A loc's nine ranges hold the locs
+    of the 3 x 3 cells around its own with frames in (frame, frame +
+    window], one contiguous run of a cell's locs, which sort by frame.
+    So the ranges a loc takes do not depend on ``window``, which is
+    clipped to the frame span of the input (as is the key's frame field,
+    so a window of 10**9 frames needs no more key bits than one of 1).
+    The locs search in the key's order, so that neighbouring searches
+    read neighbouring keys."""
+    g = torch.unique(group, return_inverse=True)[1]
+    f0 = int(frame.min())
+    span = int(frame.max()) - f0 + 1
+    window = min(int(window), span)
+    fr = frame - f0
+    cells = CellIndex(x, y, cell_side(radius),
+                      lead=[(g, int(g.max()) + 1)], trail=[(fr, span)])
+    _, m_row, m_col, _ = cells.mult
+    fr = fr[cells.order]
+    base = cells.sorted_key - fr
+    first = fr + 1
+    last = torch.clamp(fr + window, max=span - 1)
+    lo, hi = [], []
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            cell = base + dy * m_row + dx * m_col
+            lo.append(torch.searchsorted(cells.sorted_key, cell + first,
+                                         side="left"))
+            hi.append(torch.searchsorted(cells.sorted_key, cell + last,
+                                         side="right"))
+    return torch.stack(lo, 1), torch.stack(hi, 1), cells.order
+
+
 def window_pairs(frame: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                  group: torch.Tensor, radius: float, window: int,
                  budget: int = PAIR_BUDGET):
     """Chunks (i, j) of every pair of locs of one group, j in the
     ``window`` frames after i's, whose cells of side
-    :func:`~picasso_torch.ops.neighbors.cell_side` (``radius``) touch.
-    ``frame`` and ``group`` are int64, ``x`` and ``y`` f64."""
-    n = len(frame)
-    if n == 0 or window < 1:
+    :func:`~picasso_torch.ops.neighbors.cell_side` (``radius``) touch,
+    expanded from :func:`window_ranges`. ``frame`` and ``group`` are
+    int64, ``x`` and ``y`` f64."""
+    if len(frame) == 0 or window < 1:
         return
-    g = torch.unique(group, return_inverse=True)[1]
-    f0 = int(frame.min())
-    span = int(frame.max()) - f0 + 1 + window
-    cells = CellIndex(x, y, cell_side(radius),
-                      lead=[(g, int(g.max()) + 1), (frame - f0, span)])
-    ranges = [cells.row_range((0, df, dy)) for df in range(1, window + 1)
-              for dy in (-1, 0, 1)]
-    lo = torch.stack([r[0] for r in ranges], 1)
-    hi = torch.stack([r[1] for r in ranges], 1)
-    for i, pos in expand(lo, hi, budget):
-        yield i, cells.order[pos]
+    lo, hi, order = window_ranges(frame, x, y, group, radius, window)
+    for k, pos in expand(lo, hi, budget):
+        yield order[k], order[pos]
 
 
 def successors(frame: torch.Tensor, x: torch.Tensor, y: torch.Tensor,

@@ -64,24 +64,32 @@ def cell_side(radius: float) -> float:
 
 
 class CellIndex:
-    """Points sorted by the packed key (lead..., cell row, cell column).
+    """Points sorted by the packed key (lead..., cell row, cell column,
+    trail...).
 
-    ``lead`` holds (values, size) pairs of int64 fields with values in
-    [0, size); the cell row and column are padded by one cell on either
-    side, so a query one row or column beyond the points stays inside
-    its own field."""
+    ``lead`` and ``trail`` hold (values, size) pairs of int64 fields with
+    values in [0, size); the cell row and column are padded by one cell
+    on either side, so a query one row or column beyond the points stays
+    inside its own field. With ``trail`` fields the points of one cell
+    are sorted by them (:func:`~picasso_torch.ops.link.window_ranges`);
+    :meth:`row_range` takes an index without them."""
 
     def __init__(self, x: torch.Tensor, y: torch.Tensor, cell: float,
-                 lead: Sequence[tuple[torch.Tensor, int]] = ()):
+                 lead: Sequence[tuple[torch.Tensor, int]] = (),
+                 trail: Sequence[tuple[torch.Tensor, int]] = ()):
         if not cell > 0:
             raise ValueError(f"cell side must be > 0, got {cell}")
         n = len(x)
         cx, cy = _cells(x, cell), _cells(y, cell)
+        self.cell = cell
+        self.grid = []
         fields = list(lead)
         for c in (cy, cx):
             lo = int(c.min()) if n else 0
             hi = int(c.max()) if n else 0
+            self.grid.append((lo, hi - lo + 3))
             fields.append((c - lo + 1, hi - lo + 3))
+        fields += list(trail)
         bits = sum(np.log2(max(size, 1)) for _, size in fields)
         if bits > 62:
             raise ValueError(
@@ -104,6 +112,17 @@ class CellIndex:
         rank = torch.empty_like(self.order)
         rank[self.order] = torch.arange(len(rank), device=rank.device)
         return rank
+
+    def key_of(self, qx: torch.Tensor, qy: torch.Tensor) -> torch.Tensor:
+        """The keys of other points (qx, qy), for an index without lead or
+        trail fields: their cells clamped to the padded grid, whose border
+        rows and columns hold no point, so that a point beyond the grid
+        still finds every indexed point within one cell of it through
+        :meth:`row_range`."""
+        key = torch.zeros(len(qx), dtype=torch.int64, device=qx.device)
+        for q, (lo, size), m in zip((qy, qx), self.grid, self.mult):
+            key += (_cells(q, self.cell) - lo + 1).clamp(0, size - 1) * m
+        return key
 
     def row_range(self, offsets: Sequence[int], key=None):
         """(lo, hi) of the sorted positions in the three cells (column - 1
@@ -150,6 +169,27 @@ def expand(lo: torch.Tensor, hi: torch.Tensor,
                                - first[rep])
             yield start + torch.div(rep, R, rounding_mode="floor"), pos
         start, done = end, upto
+
+
+def ball_pairs(cells: CellIndex, xs: torch.Tensor, ys: torch.Tensor,
+               qx: torch.Tensor, qy: torch.Tensor, radius: float,
+               budget: int = PAIR_BUDGET):
+    """Chunks (centre index, position in the cells' order, d^2, within)
+    of the candidate pairs of the f64 centres (qx, qy) and the points of
+    ``cells`` (a :func:`grid` of ``radius``; ``xs``, ``ys`` their f64
+    coordinates in its order): every point of the 3 x 3 cells around a
+    centre's, ``within`` by cKDTree.query_ball_point's test, d^2 = dx*dx
+    + dy*dy in f64 <= radius^2 (a point at exactly the radius counts)."""
+    key = cells.key_of(qx, qy)
+    ranges = [cells.row_range((dy,), key) for dy in (-1, 0, 1)]
+    lo = torch.stack([r[0] for r in ranges], 1)
+    hi = torch.stack([r[1] for r in ranges], 1)
+    r2 = float(radius) * float(radius)
+    for q, pos in expand(lo, hi, budget):
+        dx = xs[pos] - qx[q]
+        dy = ys[pos] - qy[q]
+        d2 = dx * dx + dy * dy
+        yield q, pos, d2, d2 <= r2
 
 
 def grid(x: torch.Tensor, y: torch.Tensor, radius: float,

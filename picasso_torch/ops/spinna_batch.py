@@ -45,6 +45,7 @@ import math
 import numpy as np
 import torch
 
+from picasso_torch import lib
 from picasso_torch.ops.neighbors import knn_masked, ks_2samp_masked
 
 #: b-block of the kNN distance tiles (JAX :45 takes 512; on the H100 the
@@ -192,12 +193,13 @@ class BatchedScorer:
     """
 
     def __init__(self, mixer, dists_gt, N_sim: int, max_counts,
-                 max_points=None, device="cpu"):
+                 max_points=None, device="cuda"):
         """``max_counts``: per-structure largest count over the search
         space (each structure's pad); ``max_points``: per-target largest
         total of placed points over it, which sets the pad ``P`` the kept
-        points are compacted to (JAX :108-116)."""
-        self.device = torch.device(device)
+        points are compacted to (JAX :108-116). ``device`` is resolved by
+        lib.resolve_device: without a card, "cuda" raises."""
+        self.device = lib.resolve_device(device)
         self.mixer = mixer
         self.N_sim = max(1, int(N_sim))
         self.n_structures = len(mixer.structures)

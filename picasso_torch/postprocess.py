@@ -139,13 +139,19 @@ def get_index_blocks(locs: np.ndarray, info: list[dict], size: float):
     sorted by (y block, x block), so each block is one contiguous range.
     Returns (locs, size, x_index, y_index, block_starts, block_ends, K,
     L) (picasso/postprocess.py:37)."""
-    locs = lib.ensure_sanity(locs, info)
+    return _index_blocks(locs, info, size)[0]
+
+
+def _index_blocks(locs: np.ndarray, info: list[dict], size: float):
+    """(:func:`get_index_blocks`, the position in ``locs`` of each of its
+    rows)."""
+    rows = np.nonzero(lib.sane_rows(locs, info))[0]
+    locs = locs[rows]
     x_index = np.uint32(locs["x"] / size)
     y_index = np.uint32(locs["y"] / size)
     order = np.lexsort([x_index, y_index])
     locs, x_index, y_index = locs[order], x_index[order], y_index[order]
-    K = int(np.ceil(info[0]["Height"] / size))
-    L = int(np.ceil(info[0]["Width"] / size))
+    K, L = _index_blocks_shape(info, size)
     block_starts = np.zeros((K, L), np.uint32)
     block_ends = np.zeros((K, L), np.uint32)
     if len(locs):
@@ -156,7 +162,13 @@ def get_index_blocks(locs: np.ndarray, info: list[dict], size: float):
         ids = np.clip(flat[run_starts], 0, K * L - 1)
         block_starts.reshape(-1)[ids] = run_starts
         block_ends.reshape(-1)[ids] = run_ends
-    return locs, size, x_index, y_index, block_starts, block_ends, K, L
+    return ((locs, size, x_index, y_index, block_starts, block_ends, K, L),
+            rows[order])
+
+
+def _index_blocks_shape(info: list[dict], size: float) -> tuple[int, int]:
+    return (int(np.ceil(info[0]["Height"] / size)),
+            int(np.ceil(info[0]["Width"] / size)))
 
 
 def get_block_locs_at(x: float, y: float, index_blocks) -> np.ndarray:
@@ -192,7 +204,8 @@ def picked_locs(locs: np.ndarray, info: list[dict], picks: list,
     rectangles ((start, end), width ``pick_size``) gain their rotated
     coordinates ``x_pick_rot``/``y_pick_rot``; polygons that are not
     closed are left out; squares are ``pick_size`` wide. ``add_group``
-    adds the pick's index as the int32 field ``group``. The sort by
+    sets the int32 field ``group`` to the pick's index (in place of a
+    ``group`` the locs hold, as JAX's column assignment). The sort by
     frame is stable: rows within a frame keep their order (JAX's pandas
     quicksort may reorder them)."""
     if pick_shape not in PICK_SHAPES:
@@ -206,19 +219,14 @@ def picked_locs(locs: np.ndarray, info: list[dict], picks: list,
         locs = index_blocks[0]
     x, y = locs["x"], locs["y"]
     with lib.progress_reporter(callback, len(picks), "Picking locs") as rep:
-        for i, pick in enumerate(picks):
+        for i, idx in _pick_rows(x, y, picks, pick_shape, pick_size,
+                                 index_blocks):
+            rep.set_value(i + 1)
+            if idx is None:
+                continue
             extra = []
-            if pick_shape == "Circle":
-                px, py = pick
-                idx = get_block_locs_at(px, py, index_blocks)
-                idx = idx[(x[idx] - px) ** 2 + (y[idx] - py) ** 2
-                          < pick_size**2]
-            elif pick_shape == "Rectangle":
-                (xs, ys), (xe, ye) = pick
-                X, Y = lib.get_pick_rectangle_corners(xs, ys, xe, ye,
-                                                      pick_size)
-                idx = np.nonzero(lib.check_if_in_rectangle(
-                    x, y, np.array(X), np.array(Y)))[0]
+            if pick_shape == "Rectangle":
+                (xs, ys), (xe, ye) = picks[i]
                 # in the columns' dtype, as pandas takes the scalars
                 ft = x.dtype.type
                 angle = 0.5 * np.pi - np.arctan2(ye - ys, xe - xs)
@@ -226,26 +234,41 @@ def picked_locs(locs: np.ndarray, info: list[dict], picks: list,
                 dx, dy = x[idx] - ft(xs), y[idx] - ft(ys)
                 extra = [("x_pick_rot", dx * cos - dy * sin),
                          ("y_pick_rot", dx * sin + dy * cos)]
-            elif pick_shape == "Polygon":
-                X, Y = lib.get_pick_polygon_corners([tuple(p) for p in pick])
-                if X is None:
-                    rep.set_value(i + 1)
-                    continue
-                idx = np.nonzero(lib.check_if_in_polygon(
-                    x, y, np.asarray(X), np.asarray(Y)))[0]
-            else:
-                px, py = pick
-                half = pick_size / 2
-                idx = np.nonzero((x > px - half) & (x < px + half)
-                                 & (y > py - half) & (y < py + half))[0]
             if add_group:
                 extra.append(("group", np.full(len(idx), i, np.int32)))
             group = locs[idx]
-            if extra:
-                group = _with_fields(group, extra)
+            for name, values in extra:
+                group = _set_field(group, name, values)
             out.append(group[np.argsort(group["frame"], kind="stable")])
-            rep.set_value(i + 1)
     return out
+
+
+def _pick_rows(x: np.ndarray, y: np.ndarray, picks: list, pick_shape: str,
+               pick_size, index_blocks=None):
+    """For each pick, (its index, the rows of (x, y) within it), the rows
+    None for a polygon that is not closed. Circles (radius ``pick_size``)
+    search the 3x3 blocks of ``index_blocks`` around their centre, and
+    (x, y) are then the columns of the blocks' locs."""
+    for i, pick in enumerate(picks):
+        if pick_shape == "Circle":
+            px, py = pick
+            idx = get_block_locs_at(px, py, index_blocks)
+            idx = idx[(x[idx] - px) ** 2 + (y[idx] - py) ** 2 < pick_size**2]
+        elif pick_shape == "Rectangle":
+            (xs, ys), (xe, ye) = pick
+            X, Y = lib.get_pick_rectangle_corners(xs, ys, xe, ye, pick_size)
+            idx = np.nonzero(lib.check_if_in_rectangle(
+                x, y, np.array(X), np.array(Y)))[0]
+        elif pick_shape == "Polygon":
+            X, Y = lib.get_pick_polygon_corners([tuple(p) for p in pick])
+            idx = None if X is None else np.nonzero(lib.check_if_in_polygon(
+                x, y, np.asarray(X), np.asarray(Y)))[0]
+        else:
+            px, py = pick
+            half = pick_size / 2
+            idx = np.nonzero((x > px - half) & (x < px + half)
+                             & (y > py - half) & (y < py + half))[0]
+        yield i, idx
 
 
 def undrift_from_picked(picked: list[np.ndarray], info: list[dict]
@@ -1206,3 +1229,682 @@ def resi(locs: list[np.ndarray], infos: list, radius_xy, radius_z=None,
     if resi_path is not None:
         io.save_locs(resi_path, resi_centers, resi_info)
     return resi_centers, resi_info
+
+
+# ---------------------------------------------------------------------------
+# Pick analyses: similar picks, removal and combination, qPAINT kinetics
+# ---------------------------------------------------------------------------
+
+#: pick_similar's walk ends once a move is at most this in x and in y
+#: (px), or after this many steps (picasso/postprocess.py:267-279)
+SIMILAR_TOL = 1e-3
+SIMILAR_MAX_STEPS = 500
+
+
+class _Balls:
+    """The locs in cells for pick_similar's balls of radius ``r``: their
+    f64 coordinates in the cells' order."""
+
+    def __init__(self, x: torch.Tensor, y: torch.Tensor, r: float):
+        self.cells = neighbors.grid(x, y, r)
+        self.x, self.y = x[self.cells.order], y[self.cells.order]
+        self.r = r
+
+    def pairs(self, qx: torch.Tensor, qy: torch.Tensor):
+        return neighbors.ball_pairs(self.cells, self.x, self.y, qx, qy,
+                                    self.r)
+
+
+def _ball_stats(balls: _Balls, qx: torch.Tensor, qy: torch.Tensor):
+    """For each f64 centre (qx, qy): the locs within the radius, the f64
+    sums of their x and y, and the least | d - r | of any candidate loc
+    (how near a loc lies to the ball's edge)."""
+    K, dev = len(qx), qx.device
+    n = torch.zeros(K, dtype=torch.int64, device=dev)
+    sx = torch.zeros(K, dtype=torch.float64, device=dev)
+    sy = torch.zeros(K, dtype=torch.float64, device=dev)
+    edge = torch.full((K,), np.inf, dtype=torch.float64, device=dev)
+    for q, pos, d2, ok in balls.pairs(qx, qy):
+        edge.scatter_reduce_(0, q, (d2.sqrt() - balls.r).abs(), "amin")
+        q, pos = q[ok], pos[ok]
+        n.index_add_(0, q, torch.ones_like(q))
+        sx.index_add_(0, q, balls.x[pos])
+        sy.index_add_(0, q, balls.y[pos])
+    return n, sx, sy, edge
+
+
+def _ball_rmsd(balls: _Balls, qx: torch.Tensor, qy: torch.Tensor,
+               n: torch.Tensor, mx: torch.Tensor,
+               my: torch.Tensor) -> torch.Tensor:
+    """The f32 rmsd of the locs within the radius of each centre about
+    their f32 means (mx, my), as JAX's numpy forms it: dx, dy, dx^2 +
+    dy^2 in f32, their mean (here an f64 sum over the count) and the
+    root in f32."""
+    ss = torch.zeros(len(qx), dtype=torch.float64, device=qx.device)
+    for q, pos, _, ok in balls.pairs(qx, qy):
+        q, pos = q[ok], pos[ok]
+        dx = balls.x[pos].to(torch.float32) - mx[q]
+        dy = balls.y[pos].to(torch.float32) - my[q]
+        ss.index_add_(0, q, (dx * dx + dy * dy).to(torch.float64))
+    return torch.sqrt((ss / n.clamp_min(1)).to(torch.float32))
+
+
+def _similar_walks(x: np.ndarray, y: np.ndarray, cand: np.ndarray, r: float,
+                   n_start: float, dev) -> dict:
+    """pick_similar's walks of every hex-grid candidate at once on
+    ``dev``: a candidate with at least ``n_start`` locs within ``r``
+    starts at their mean, and each step moves every walking centre to the
+    mean of the locs within ``r`` of it, until both moves are at most
+    SIMILAR_TOL, after SIMILAR_MAX_STEPS steps, or at one loc left
+    (picasso/postprocess.py:260-279). Returns numpy arrays over the
+    candidates: ``started``, the final ``com`` (K, 2) f32, the locs ``n``
+    within ``r`` of it and their ``rmsd`` (f32), ``steps``, and the near
+    ties: ``edge``, the least | d - r | of a loc over the walk's balls,
+    and ``move``, the least | move - SIMILAR_TOL | of a test."""
+    balls = _Balls(torch.from_numpy(x.astype(np.float64)).to(dev),
+                   torch.from_numpy(y.astype(np.float64)).to(dev), r)
+    cx = torch.from_numpy(np.ascontiguousarray(cand[:, 0])).to(dev)
+    cy = torch.from_numpy(np.ascontiguousarray(cand[:, 1])).to(dev)
+    K = len(cand)
+    n0, sx, sy, _ = _ball_stats(balls, cx, cy)
+    started = n0 >= n_start
+    s = torch.nonzero(started).flatten()
+    f32 = torch.float32
+    com_x = (sx[s] / n0[s]).to(f32)
+    com_y = (sy[s] / n0[s]).to(f32)
+    # JAX compares the f32 mean with the grid point as an f32 number
+    prev_x, prev_y = cx[s].to(f32), cy[s].to(f32)
+    tol = torch.tensor(SIMILAR_TOL, dtype=f32, device=dev)
+    steps = torch.zeros(len(s), dtype=torch.int64, device=dev)
+    edge = torch.full((len(s),), np.inf, dtype=torch.float64, device=dev)
+    move = torch.full((len(s),), np.inf, dtype=torch.float64, device=dev)
+    active = torch.ones(len(s), dtype=torch.bool, device=dev)
+    while True:
+        a = torch.nonzero(active).flatten()
+        if len(a) == 0:
+            break
+        dx = (com_x[a] - prev_x[a]).abs()
+        dy = (com_y[a] - prev_y[a]).abs()
+        gap = torch.minimum((dx - tol).abs(), (dy - tol).abs())
+        move[a] = torch.minimum(move[a], gap.to(torch.float64))
+        go = (dx > tol) | (dy > tol)
+        steps[a[go]] += 1
+        a = a[go & (steps[a] <= SIMILAR_MAX_STEPS)]
+        active.zero_()
+        active[a] = True
+        if len(a) == 0:
+            break
+        prev_x[a], prev_y[a] = com_x[a], com_y[a]
+        n, sx, sy, e = _ball_stats(balls, com_x[a].to(torch.float64),
+                                   com_y[a].to(torch.float64))
+        edge[a] = torch.minimum(edge[a], e)
+        moved = n > 1
+        active[a[~moved]] = False
+        a, n = a[moved], n[moved]
+        com_x[a] = (sx[moved] / n).to(f32)
+        com_y[a] = (sy[moved] / n).to(f32)
+    qx, qy = com_x.to(torch.float64), com_y.to(torch.float64)
+    n, sx, sy, e = _ball_stats(balls, qx, qy)
+    edge = torch.minimum(edge, e)
+    rmsd = _ball_rmsd(balls, qx, qy, n, (sx / n.clamp_min(1)).to(f32),
+                      (sy / n.clamp_min(1)).to(f32))
+    out = {"started": started.cpu().numpy(),
+           "com": np.full((K, 2), np.nan, np.float32),
+           "n": np.zeros(K, np.int64),
+           "rmsd": np.full(K, np.nan, np.float32),
+           "steps": np.zeros(K, np.int64),
+           "edge": np.full(K, np.inf), "move": np.full(K, np.inf)}
+    s = s.cpu().numpy()
+    out["com"][s] = torch.stack([com_x, com_y], 1).cpu().numpy()
+    for key, v in (("n", n), ("rmsd", rmsd), ("steps", steps),
+                   ("edge", edge), ("move", move)):
+        out[key][s] = v.cpu().numpy()
+    return out
+
+
+def pick_similar(locs: np.ndarray, info: list[dict], picks: list, d: float,
+                 std_range: float = 2.0, index_blocks=None, *, device="cuda",
+                 record: dict | None = None) -> list:
+    """Circular picks of diameter ``d`` over the field of view whose loc
+    count and rmsd lie within ``std_range`` standard deviations of those
+    of the given ``picks`` (picasso/postprocess.py:212). The picks'
+    statistics are taken on the host as JAX takes them (cKDTree, a loc
+    at distance <= d / 2 counts, f32 means); the walks of every candidate
+    of the hex grid to its local centre of mass run at once on ``device``
+    (:func:`_similar_walks`); then, in JAX's candidate order on the host,
+    the test of the final count and rmsd and the suppression of a pick
+    closer than ``d`` to one accepted before it. Returns [(x, y)] f32.
+    The device's sums round the centres in another order than numpy's, so
+    a centre may differ from JAX's by a few f32 ulps, and a pick at a
+    near tie may differ (tests/torch_parity.compare_similar_picks).
+    ``index_blocks`` is accepted and ignored, as in JAX. ``record``, if
+    given, receives every candidate's walk (:func:`_similar_walks`),
+    ``dup_d2`` (the squared distance to the nearest pick accepted before
+    it), ``dup_of``, ``accepted``, the ``bounds`` and the ``walls`` (s)
+    of the seeds' statistics, the walks and the host filter."""
+    import time
+
+    from scipy.spatial import cKDTree
+
+    device = lib.resolve_device(device)
+    t0 = time.perf_counter()
+    r = d / 2
+    d2 = d**2
+    x, y = locs["x"], locs["y"]
+    tree = cKDTree(np.column_stack([x, y]))
+    n_locs_list, rmsd_list = [], []
+    for px, py in picks:
+        idx = tree.query_ball_point([px, py], r)
+        n_locs_list.append(len(idx))
+        if len(idx) > 1:
+            dx = x[idx] - np.mean(x[idx])
+            dy = y[idx] - np.mean(y[idx])
+            rmsd_list.append(np.sqrt(np.mean(dx**2 + dy**2)))
+        else:
+            rmsd_list.append(0.0)
+    mean_n, std_n = np.mean(n_locs_list), np.std(n_locs_list)
+    mean_rmsd, std_rmsd = np.mean(rmsd_list), np.std(rmsd_list)
+    min_n = mean_n - std_range * std_n
+    max_n = mean_n + std_range * std_n
+    min_rmsd = mean_rmsd - std_range * std_rmsd
+    max_rmsd = mean_rmsd + std_range * std_rmsd
+    width, height = info[0]["Width"], info[0]["Height"]
+    gx = np.arange(r, width, d * np.sqrt(3) / 2)
+    cand = [(cx, cy) for i, cx in enumerate(gx)
+            for cy in np.arange(r + (i % 2) * r, height, d)]
+    cand = np.array(cand, np.float64).reshape(-1, 2)
+    t1 = time.perf_counter()
+    walks = _similar_walks(x, y, cand, r, max(2, min_n), device)
+    t2 = time.perf_counter()
+    K = len(cand)
+    dup_d2 = np.full(K, np.inf, np.float32)
+    dup_of = np.full(K, -1, np.int64)
+    accepted = np.zeros(K, bool)
+    out_x, out_y, out_k = [], [], []
+    for k in np.nonzero(walks["started"])[0]:
+        n, rmsd = walks["n"][k], walks["rmsd"][k]
+        if not (min_n <= n <= max_n) or n < 2:
+            continue
+        if not (min_rmsd <= rmsd <= max_rmsd):
+            continue
+        comx, comy = walks["com"][k]
+        if out_x:
+            dist2 = ((comx - np.array(out_x, np.float32)) ** 2
+                     + (comy - np.array(out_y, np.float32)) ** 2)
+            j = int(np.argmin(dist2))
+            dup_d2[k], dup_of[k] = dist2[j], out_k[j]
+            if np.any(dist2 < d2):
+                dup_of[k] = out_k[int(np.argmax(dist2 < d2))]
+                continue
+        accepted[k] = True
+        out_x.append(comx)
+        out_y.append(comy)
+        out_k.append(k)
+    if record is not None:
+        record.update(walks)
+        record.update(candidates=cand, dup_d2=dup_d2, dup_of=dup_of,
+                      accepted=accepted, radius=r, d=d,
+                      bounds=(min_n, max_n, min_rmsd, max_rmsd),
+                      walls={"seeds": t1 - t0, "walks": t2 - t1,
+                             "filter": time.perf_counter() - t2})
+    return list(zip(out_x, out_y))
+
+
+def rmsd_at_com(locs_xy: np.ndarray) -> float:
+    """The rmsd of the locs (2, n) about their centre of mass, in their
+    dtype, as a Python float (picasso/postprocess.py:948)."""
+    com_x = np.mean(locs_xy[0])
+    com_y = np.mean(locs_xy[1])
+    return float(np.sqrt(np.mean((locs_xy[0] - com_x) ** 2
+                                 + (locs_xy[1] - com_y) ** 2)))
+
+
+def _check_pick_shape(pick_shape: str, pick_size, needs_size) -> None:
+    if pick_shape not in PICK_SHAPES:
+        raise ValueError(f"Invalid pick shape: {pick_shape}")
+    if pick_shape in needs_size and not isinstance(pick_size, (int, float)):
+        raise ValueError(f"a {pick_shape} pick needs a pick_size")
+
+
+def _picked_rows(locs: np.ndarray, info: list[dict], picks: list,
+                 pick_shape: str, pick_size, index_blocks=None) -> np.ndarray:
+    """The positions in ``locs`` of the locs that :func:`picked_locs`
+    finds in any pick, ascending. Circles (radius ``pick_size``) search
+    the blocks of ``index_blocks``' size, built anew from ``locs`` so that
+    each row keeps its position (the rows of equal blocks sort alike)."""
+    rows = None
+    if pick_shape == "Circle":
+        size = pick_size if index_blocks is None else index_blocks[1]
+        index_blocks, rows = _index_blocks(locs, info, size)
+        locs = index_blocks[0]
+    found = [idx for _, idx in _pick_rows(locs["x"], locs["y"], picks,
+                                          pick_shape, pick_size, index_blocks)
+             if idx is not None]
+    found = np.concatenate([np.zeros(0, np.int64)] + found)
+    return np.unique(found if rows is None else rows[found])
+
+
+def remove_locs_in_picks(locs: np.ndarray, info: list[dict], *, picks: list,
+                         pick_shape: str, pick_size: float | None = None,
+                         index_blocks=None) -> np.ndarray:
+    """The locs outside every pick, in their order (picasso/
+    postprocess.py:315); ``pick_size`` is a circle's diameter. JAX drops
+    the picked rows by their index labels, which a circle's pick carries
+    through the sanity filter and the block sort: here the picks' rows
+    are found by their positions (:func:`_picked_rows`), on the host."""
+    _check_pick_shape(pick_shape, pick_size, ("Circle", "Rectangle",
+                                              "Square"))
+    if pick_shape == "Circle":
+        pick_size = pick_size / 2
+    else:
+        index_blocks = None
+    keep = np.ones(len(locs), bool)
+    keep[_picked_rows(locs, info, picks, pick_shape, pick_size,
+                      index_blocks)] = False
+    return locs[keep]
+
+
+def _by_pick(events: np.ndarray) -> np.ndarray:
+    """Events of one link call over all picks (``group`` the pick) in the
+    order of one call a pick: stably by pick, so each pick's events keep
+    their order of first frame as its own call gives it."""
+    return events[np.argsort(events["group"], kind="stable")]
+
+
+def combine_locs_in_picks(locs: np.ndarray, info: list[dict], *,
+                          picks: list, pick_shape: str,
+                          pick_size: float | None = None,
+                          index_blocks=None, progress_callback=None,
+                          device="cuda") -> np.ndarray:
+    """All locs of each pick linked into events with r_max 1e9 and a
+    dark time of 10**9 frames, ambiguous lengths kept, ``group`` the pick
+    (picasso/postprocess.py:344). JAX links one pick at a time; here all
+    picks go to one ``link`` call on ``device`` with ``group`` the pick,
+    since link never joins locs of two groups."""
+    device = lib.resolve_device(device)
+    _check_pick_shape(pick_shape, pick_size, ("Circle", "Rectangle",
+                                              "Square"))
+    size = pick_size / 2 if pick_shape == "Circle" else pick_size
+    picked = [p for p in picked_locs(
+        locs, info, picks, pick_shape, size, add_group=True,
+        index_blocks=index_blocks, callback=progress_callback) if len(p)]
+    if not picked:
+        return locs[:0].copy()
+    linked = link(np.concatenate(picked), info, r_max=1e9,
+                  max_dark_time=10**9, remove_ambiguous_lengths=False,
+                  device=device)
+    return _by_pick(linked)
+
+
+def _without_field(locs: np.ndarray, name: str) -> np.ndarray:
+    out = np.empty(len(locs), [(n, locs.dtype[n]) for n in locs.dtype.names
+                               if n != name])
+    for n in out.dtype.names:
+        out[n] = locs[n]
+    return out
+
+
+def _pick_events(picked: list[np.ndarray], info: list[dict],
+                 max_dark_time: int, device):
+    """The events of every pick with their dark times, as JAX's loop over
+    the picks gives them one pick after another (link with r_max 999999
+    where a pick has no ``len``, then compute_dark_times), and the index
+    of each event's pick. All picks are linked in one call on ``device``
+    and their dark times taken in one, keyed by (pick, group): neither
+    joins two keys. The picks are tables of one dtype."""
+    ks = [k for k, p in enumerate(picked) if len(p)]
+    if not ks:
+        return None, np.zeros(0, np.int64)
+    cat = np.concatenate([picked[k] for k in ks])
+    pick = np.repeat(np.array(ks, np.int64), [len(picked[k]) for k in ks])
+    names = cat.dtype.names
+    pairs = np.zeros(len(cat), [("pick", np.int64), ("group", np.int64)])
+    pairs["pick"] = pick
+    if "group" in names:
+        pairs["group"] = cat["group"]
+    keys, key = np.unique(pairs, return_inverse=True)
+    events = _set_field(cat, "group", key.ravel().astype(np.int64))
+    if "len" not in names:
+        events = link(events, info, r_max=999999,
+                      max_dark_time=max_dark_time, device=device)
+    key = events["group"]
+    events = events[np.argsort(keys["pick"][key], kind="stable")]
+    key = events["group"]
+    dark = dark_times(events, key, device=device)
+    if "group" in names:
+        events = _set_field(events, "group",
+                            keys["group"][key].astype(cat.dtype["group"]))
+    else:
+        events = _without_field(events, "group")
+    keep = dark != -1
+    events = _set_field(events, "dark", dark)[keep]
+    return events, keys["pick"][key][keep]
+
+
+def _pick_spans(pick: np.ndarray):
+    """(pick index, slice) of each run of one pick in ``pick`` (sorted)."""
+    ids, starts = np.unique(pick, return_index=True)
+    stops = np.append(starts[1:], len(pick))
+    return [(int(k), slice(a, b)) for k, a, b in zip(ids, starts, stops)]
+
+
+def _no_columns() -> np.ndarray:
+    """An empty table without columns (JAX's empty pd.DataFrame())."""
+    return np.zeros(0, np.dtype([]))
+
+
+def pick_kinetics(picked_locs_list: list[np.ndarray], info: list[dict], *,
+                  max_dark_time: int = 3, progress_callback=None,
+                  device="cuda"):
+    """Bright and dark times of each pick by the cumulative-exponential
+    fit (picasso/postprocess.py:451): (length, dark, no_locs, out_locs),
+    one entry a pick that has events with a dark time and whose fits do
+    not raise RuntimeError, as JAX skips the others. The picks are
+    linked and their dark times taken on ``device`` in one call each
+    (:func:`_pick_events`); the fits run a pick at a time on the host
+    with scipy."""
+    device = lib.resolve_device(device)
+    events, pick = _pick_events(picked_locs_list, info, max_dark_time,
+                                device)
+    length, dark, no_locs, out = [], [], [], []
+    with lib.progress_reporter(progress_callback, len(picked_locs_list),
+                               "Calculating kinetics") as rep:
+        for k, rows in _pick_spans(pick):
+            rep.set_value(k + 1)
+            ev = events[rows]
+            try:
+                l_ = lib.estimate_kinetic_rate(ev["len"])
+                d_ = lib.estimate_kinetic_rate(ev["dark"])
+            except RuntimeError:
+                continue
+            length.append(l_)
+            dark.append(d_)
+            no_locs.append(len(ev))
+            out.append(ev)
+    out_locs = np.concatenate(out) if out else _no_columns()
+    return np.array(length), np.array(dark), np.array(no_locs), out_locs
+
+
+def evaluate_picks(picked_locs_list: list[np.ndarray], info: list[dict], *,
+                   max_dark_time: int = 3, progress_callback=None,
+                   device="cuda"):
+    """Per pick: the number of locs N, of events with a dark time, the
+    rmsd (times Pixelsize) and rmsd_z of the locs, and the bright and dark
+    times by the cumulative-exponential fit, NaN where a pick has none
+    (picasso/postprocess.py:381). Returns (N, n_events, rmsd, rmsd_z,
+    length, dark, events). Linking and the dark times run on ``device``
+    in one call each (:func:`_pick_events`); the fits on the host."""
+    import warnings
+
+    device = lib.resolve_device(device)
+    pixelsize = lib.get_from_metadata(info, "Pixelsize", default=1.0)
+    n_picks = len(picked_locs_list)
+    N, n_events, rmsd, rmsd_z, length, dark = (np.full(n_picks, np.nan)
+                                               for _ in range(6))
+    has_z = bool(n_picks) and "z" in picked_locs_list[0].dtype.names
+    events, pick = _pick_events(picked_locs_list, info, max_dark_time,
+                                device)
+    spans = dict(_pick_spans(pick))
+    new_locs = []
+    with warnings.catch_warnings(), lib.progress_reporter(
+            progress_callback, n_picks, "Evaluating picks") as rep:
+        warnings.simplefilter("ignore", category=RuntimeWarning)
+        for i, pick_locs in enumerate(picked_locs_list):
+            rep.set_value(i + 1)
+            if not len(pick_locs):
+                continue
+            N[i] = len(pick_locs)
+            rmsd[i] = rmsd_at_com(np.stack([pick_locs["x"],
+                                            pick_locs["y"]])) * pixelsize
+            if has_z:
+                z = pick_locs["z"]
+                rmsd_z[i] = np.sqrt(np.mean((z - z.mean()) ** 2))
+            if i not in spans:
+                continue
+            ev = events[spans[i]]
+            n_events[i] = len(ev)
+            length[i] = lib.estimate_kinetic_rate(ev["len"])
+            dark[i] = lib.estimate_kinetic_rate(ev["dark"])
+            new_locs.append(ev)
+    new_locs = np.concatenate(new_locs) if new_locs else _no_columns()
+    return N, n_events, rmsd, rmsd_z, length, dark, new_locs
+
+
+def pick_properties(picked_locs_list: list[np.ndarray], info: list[dict], *,
+                    max_dark_time: int = 3, influx_rate: float = 0.03,
+                    pick_areas=None, kinetics_progress=None,
+                    groupprops_progress=None, device="cuda") -> np.ndarray:
+    """Per pick: groupprops of its events (:func:`pick_kinetics`), then
+    ``pick_area_um2`` (``pick_areas`` as given, when given), the qPAINT
+    number of binding sites ``n_units`` = 1 / (influx_rate * dark), the
+    events ``locs``, ``length_cdf``, ``dark_cdf`` and ``qpaint_idx_cdf``
+    = 1 / dark (picasso/postprocess.py:503), on ``device``."""
+    import warnings
+
+    device = lib.resolve_device(device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        length, dark, no_locs, out_locs = pick_kinetics(
+            picked_locs_list, info, max_dark_time=max_dark_time,
+            progress_callback=kinetics_progress, device=device)
+        props = groupprops(out_locs, callback=groupprops_progress,
+                           device=device)
+        cols = []
+        if pick_areas is not None:
+            cols.append(("pick_area_um2", pick_areas))
+        cols += [("n_units", 1 / (influx_rate * dark)), ("locs", no_locs),
+                 ("length_cdf", length), ("dark_cdf", dark),
+                 ("qpaint_idx_cdf", dark**-1.0)]
+    for name, values in cols:
+        values = np.asarray(values)
+        if values.ndim and len(values) != len(props):
+            raise ValueError(f"Length of values ({len(values)}) does not "
+                             f"match length of index ({len(props)})")
+        props = _set_field(props, name, np.broadcast_to(values, len(props)))
+    return props
+
+
+# ---------------------------------------------------------------------------
+# FRET
+# ---------------------------------------------------------------------------
+
+
+def calculate_fret(acc_locs: np.ndarray, don_locs: np.ndarray):
+    """The FRET efficiency trace of one pick from its acceptor and donor
+    locs (picasso/postprocess.py:1617), on the host: each channel's trace
+    photons - bg a frame (where a frame repeats, its last loc), the
+    efficiency acc / (acc + don) kept where it lies in (0, 1). Returns
+    (fret_dict, f_locs): f_locs the donor locs of those frames with the
+    field ``fret``, or an empty list when there are none."""
+    if len(acc_locs) == 0:
+        max_frames = don_locs["frame"].max()
+    elif len(don_locs) == 0:
+        max_frames = acc_locs["frame"].max()
+    else:
+        max_frames = max(acc_locs["frame"].max(), don_locs["frame"].max())
+    xvec = np.arange(max_frames + 1)
+    acc_trace = np.zeros(len(xvec))
+    don_trace = np.zeros(len(xvec))
+    acc_trace[acc_locs["frame"]] = acc_locs["photons"] - acc_locs["bg"]
+    don_trace[don_locs["frame"]] = don_locs["photons"] - don_locs["bg"]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        fret_trace = acc_trace / (acc_trace + don_trace)
+    selector = (fret_trace > 0) & (fret_trace < 1)
+    fret_events = fret_trace[selector]
+    fret_timepoints = np.arange(len(fret_trace))[selector]
+    f_locs = []
+    if len(fret_timepoints) > 0:
+        f_locs = np.concatenate([don_locs[don_locs["frame"] == t]
+                                 for t in fret_timepoints])
+        if len(f_locs) != len(fret_events):
+            raise ValueError(
+                f"Length of values ({len(fret_events)}) does not match "
+                f"length of index ({len(f_locs)})")
+        f_locs = _with_fields(f_locs, [("fret", np.array(fret_events))])
+    fret_dict = {"fret_events": np.array(fret_events),
+                 "fret_timepoints": fret_timepoints, "acc_trace": acc_trace,
+                 "don_trace": don_trace, "frames": xvec,
+                 "maxframes": max_frames}
+    return fret_dict, f_locs
+
+
+# ---------------------------------------------------------------------------
+# Plots (matplotlib imported inside)
+# ---------------------------------------------------------------------------
+
+
+def plot_drift(drift: np.ndarray, pixelsize: float = 1.0, fig=None):
+    """The drift trajectory against the frame, and y against x
+    (picasso/postprocess.py:1465)."""
+    import matplotlib.pyplot as plt
+
+    if fig is None:
+        fig = plt.figure(figsize=(8, 4))
+    ax = fig.add_subplot(121)
+    frames = np.arange(len(drift))
+    ax.plot(frames, drift["x"] * pixelsize, label="x")
+    ax.plot(frames, drift["y"] * pixelsize, label="y")
+    if "z" in drift.dtype.names:
+        ax.plot(frames, drift["z"], label="z")
+    ax.set_xlabel("frame")
+    ax.set_ylabel("drift (nm)" if pixelsize != 1 else "drift (px)")
+    ax.legend()
+    ax2 = fig.add_subplot(122)
+    ax2.plot(drift["x"] * pixelsize, drift["y"] * pixelsize, lw=0.5)
+    ax2.set_xlabel("x")
+    ax2.set_ylabel("y")
+    ax2.set_aspect("equal")
+    return fig
+
+
+def plot_nena(nena_result: dict, fig=None):
+    """The NeNA histogram and its fit (picasso/postprocess.py:1489)."""
+    import matplotlib.pyplot as plt
+
+    if fig is None:
+        fig = plt.figure()
+    ax = fig.add_subplot(111)
+    ax.semilogx(nena_result["d"], nena_result["data"], label="data")
+    ax.semilogx(nena_result["d"], nena_result["best_fit"], label="fit")
+    s = nena_result["best_values"]["s"]
+    ax.set_title(f"NeNA precision: {s:.4f} px")
+    ax.set_xlabel("distance (px)")
+    ax.set_ylabel("counts")
+    ax.legend()
+    return fig
+
+
+def plot_frc(frc_result: dict, fig=None):
+    """The FRC curve, its smoothed form, the 1/7 threshold and the
+    resolution (picasso/postprocess.py:1511)."""
+    import matplotlib.pyplot as plt
+
+    if fig is None:
+        fig = plt.figure()
+    ax = fig.add_subplot(111)
+    q = frc_result["frequencies"]
+    ax.plot(q, frc_result["frc_curve"], color="gray", alpha=0.5,
+            label="FRC curve")
+    ax.plot(q, frc_result["frc_curve_smooth"], label="Smoothed")
+    ax.axhline(1 / 7, color="black", linewidth=1.0, linestyle="--",
+               label="1/7 threshold")
+    res = frc_result["resolution"]
+    ax.set_xlabel("Spatial frequency (nm^-1)")
+    ax.set_ylabel("FRC")
+    if res is not None:
+        ax.set_title(f"FIRE resolution: {res:.2f} nm")
+    ax.legend()
+    return fig
+
+
+# ---------------------------------------------------------------------------
+# Deprecated public aliases of the reference (picasso/postprocess.py:97/
+# 802/890/932/1165/2422/2664), as JAX keeps them
+# ---------------------------------------------------------------------------
+
+
+def index_blocks_shape(info: list[dict], size: float) -> tuple[int, int]:
+    """Deprecated: the (rows, columns) of the block index
+    (picasso/postprocess.py:97)."""
+    lib.deprecation_warning(
+        "Deprecation warning: This function will become private in "
+        "v0.11.0. Use _index_blocks_shape instead.")
+    return _index_blocks_shape(info, size)
+
+
+def n_block_locs_at(x_range: int, y_range: int, K: int, L: int,
+                    block_starts: np.ndarray, block_ends: np.ndarray) -> int:
+    """Deprecated: the locs in the 3 x 3 blocks around block (y_range,
+    x_range), uint32 (picasso/postprocess.py:802). Block row and column 0
+    are left out, as the reference leaves them out here."""
+    lib.deprecation_warning(
+        "Deprecation warning: This function will become private in "
+        "v0.11.0. Use the block index returned by get_index_blocks.")
+    total = np.uint32(0)
+    for k in range(y_range - 1, y_range + 2):
+        if 0 < k < K:
+            for m in range(x_range - 1, x_range + 2):
+                if 0 < m < L:
+                    total += np.uint32(block_ends[k][m] - block_starts[k][m])
+    return total
+
+
+def get_block_locs_at_numba(x_index: int, y_index: int, locs_xy: np.ndarray,
+                            block_starts: np.ndarray, block_ends: np.ndarray,
+                            K: int, L: int) -> np.ndarray:
+    """Deprecated: the columns of ``locs_xy`` (2, N), sorted by block, in
+    the 3 x 3 blocks around block (y_index, x_index)
+    (picasso/postprocess.py:890)."""
+    chunks = [np.arange(block_starts[k, m], block_ends[k, m], dtype=np.uint32)
+              for k in range(y_index - 1, y_index + 2) if 0 <= k < K
+              for m in range(x_index - 1, x_index + 2)
+              if 0 <= m < L and block_ends[k, m] > block_starts[k, m]]
+    idx = np.concatenate(chunks) if chunks else np.empty(0, np.uint32)
+    return locs_xy[:, idx]
+
+
+def locs_at_numba(x: float, y: float, locs_xy: np.ndarray, r: float
+                  ) -> np.ndarray:
+    """Deprecated: the columns of ``locs_xy`` within ``r`` of (x, y)
+    (picasso/postprocess.py:932)."""
+    dx = locs_xy[0] - x
+    dy = locs_xy[1] - y
+    return locs_xy[:, dx**2 + dy**2 < r**2]
+
+
+def next_frame_neighbor_distance_histogram(locs: np.ndarray, callback=None,
+                                           *, device="cuda"):
+    """Deprecated alias of :func:`_next_frame_neighbor_distance_histogram`
+    (picasso/postprocess.py:1165)."""
+    lib.deprecation_warning(
+        "Deprecation warning: This function will become private in "
+        "v0.11.0. Use _next_frame_neighbor_distance_histogram instead.")
+    return _next_frame_neighbor_distance_histogram(locs, callback,
+                                                   device=device)
+
+
+def get_link_groups(frame: np.ndarray, x: np.ndarray, y: np.ndarray,
+                    d_max: float, max_dark_time: int, group: np.ndarray, *,
+                    device="cuda") -> np.ndarray:
+    """Deprecated: the chain ids of locs sorted by frame, as
+    :func:`link_groups` (picasso/postprocess.py:2422)."""
+    lib.deprecation_warning(
+        "Deprecation warning: This function will become private in "
+        "v0.11.0. Use _get_link_groups instead.")
+    return link_groups(frame, x, y, group, d_max, max_dark_time,
+                       device=device)
+
+
+def link_loc_groups(locs: np.ndarray, info: list[dict],
+                    link_group: np.ndarray,
+                    remove_ambiguous_lengths: bool = True, *,
+                    device="cuda") -> np.ndarray:
+    """Deprecated: the events of chain ids ``link_group`` of locs sorted
+    by frame (picasso/postprocess.py:2664), aggregated on ``device``."""
+    lib.deprecation_warning(
+        "Deprecation warning: This function will become private in "
+        "v0.11.0. Use _link_loc_groups instead.")
+    device = lib.resolve_device(device)
+    return _link_loc_groups(
+        locs, info, torch.from_numpy(np.asarray(link_group)).to(device),
+        remove_ambiguous_lengths)

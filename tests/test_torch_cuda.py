@@ -1323,3 +1323,79 @@ def test_average3_on_the_card_matches_the_cpu(dev):
             average3.average3(locs, inf, device=d, picks=picks[d], **kw)
         compare_average3_passes(picks["cuda"], picks["cpu"],
                                 "average3 card vs CPU")
+
+
+def test_similar_picks_on_the_card_match_the_cpu(dev):
+    """pick_similar on 64 origami from 20 seed picks: the card's walks
+    against the CPU's under torch_parity.compare_similar_picks, every pick
+    within 0.05 px of a true centre."""
+    from scipy.spatial import cKDTree
+
+    from torch_data import make_origami_locs
+    from torch_parity import compare_similar_picks
+
+    locs, info, truth = make_origami_locs(64, 0)
+    seeds = [tuple(c) for c in truth["centers"][:20]]
+    runs = {}
+    for d in ("cuda", "cpu"):
+        rec = {}
+        runs[d] = postprocess.pick_similar(locs, info, seeds, 1.0, device=d,
+                                           record=rec), rec
+    out = compare_similar_picks(*runs["cuda"], *runs["cpu"],
+                                what="pick_similar card vs CPU")
+    assert out["matched"] > 10
+    got = np.array(runs["cuda"][0], np.float64)
+    assert cKDTree(truth["centers"]).query(got)[0].max() < 0.05
+
+
+def test_picks_kinetics_and_properties_on_the_card_match_the_cpu(dev):
+    """pick_properties, evaluate_picks, pick_kinetics and
+    combine_locs_in_picks on 64 origami's picks: the card equals the CPU,
+    the events' and the group statistics' floats within one f32 ulp (f64
+    atomics), the kinetic fits and counts bit for bit."""
+    from torch_data import make_origami_locs
+    from torch_parity import compare_tables_ulps
+
+    locs, info, truth = make_origami_locs(64, 1)
+    picks = [tuple(map(float, c)) for c in truth["centers"]]
+    picked = postprocess.picked_locs(locs, info, picks, "Circle", 0.5)
+    props = {d: postprocess.pick_properties(picked, info, device=d)
+             for d in ("cuda", "cpu")}
+    stats = [n for n in props["cpu"].dtype.names if n not in (
+        "n_units", "locs", "length_cdf", "dark_cdf", "qpaint_idx_cdf")]
+    compare_tables_ulps(props["cuda"][stats], props["cpu"][stats], 1,
+                        "pick_properties card vs CPU")
+    for n in ("n_units", "locs", "length_cdf", "dark_cdf"):
+        np.testing.assert_array_equal(props["cuda"][n], props["cpu"][n])
+    ev = {d: postprocess.evaluate_picks(picked, info, device=d)
+          for d in ("cuda", "cpu")}
+    for a, b in zip(ev["cuda"][:6], ev["cpu"][:6]):
+        np.testing.assert_array_equal(a, b)
+    compare_tables_ulps(ev["cuda"][6], ev["cpu"][6], 1, "evaluate_picks")
+    kin = {d: postprocess.pick_kinetics(picked, info, device=d)
+           for d in ("cuda", "cpu")}
+    for a, b in zip(kin["cuda"][:3], kin["cpu"][:3]):
+        np.testing.assert_array_equal(a, b)
+    kw = dict(picks=picks, pick_shape="Circle", pick_size=1.0)
+    compare_tables_ulps(
+        postprocess.combine_locs_in_picks(locs, info, device="cuda", **kw),
+        postprocess.combine_locs_in_picks(locs, info, device="cpu", **kw), 1,
+        "combine_locs_in_picks card vs CPU")
+
+
+def test_mask_on_the_card_equals_the_cpu(dev):
+    """generate_image renders on the card the CPU's image bit for bit;
+    mask_image of it by every method, and mask_locs, are the CPU's."""
+    from picasso_torch import masking
+    from torch_data import make_origami_locs
+
+    locs, info, _ = make_origami_locs(64, 2)
+    image = {d: masking.generate_image(locs, info, 65.0, 100.0, device=d)
+             for d in ("cuda", "cpu")}
+    np.testing.assert_array_equal(image["cuda"], image["cpu"])
+    for method in masking.THRESHOLD_METHODS:
+        mask = masking.mask_image(image["cuda"], method)
+        np.testing.assert_array_equal(
+            mask, masking.mask_image(image["cpu"], method))
+    inside, outside = masking.mask_locs(locs, mask, info=info)
+    assert len(inside) + len(outside) == len(locs)

@@ -257,3 +257,51 @@ def test_dark_times_without_group_and_without_len():
                         jpost.compute_dark_times(df))
     with pytest.raises(AttributeError, match="link localizations first"):
         tpost.compute_dark_times(locs, device="cpu")
+
+
+@pytest.mark.parametrize("max_dark_time", [3, 999_999, 10**9])
+def test_link_with_any_dark_time_matches_jax(max_dark_time):
+    """r_max 1e9 (every loc of a group within reach) at the dark times of
+    the pick analyses: combine_locs_in_picks' 10**9, evaluate_picks'
+    r_max 999999 at its default 3, and 999,999; the events equal JAX's
+    (its native walk visits every pair); beyond the movie's length a
+    group's chains are as many as its locs in its busiest frame."""
+    locs, info = make_event_locs(15)
+    kw = dict(r_max=1e9, max_dark_time=max_dark_time,
+              remove_ambiguous_lengths=False)
+    got = tpost.link(jax_order(locs), info, device="cpu", **kw)
+    ref = jpost.link(pd.DataFrame.from_records(locs), info, **kw)
+    _assert_table_equal(got, ref)
+    if max_dark_time > info[0]["Frames"]:
+        busiest = sum(np.unique(locs["frame"][locs["group"] == g],
+                                return_counts=True)[1].max()
+                      for g in np.unique(locs["group"]))
+        assert len(got) == busiest
+
+
+def test_window_ranges_do_not_grow_with_the_window():
+    """ops/link.window_ranges: nine ranges a loc whatever the window (the
+    3 x 3 cells, each one run of frames), a window beyond the frame span
+    gives the ranges of the span itself, and the pairs of a 10**9-frame
+    window are every later loc of the group in touching cells."""
+    locs = make_event_locs(16, n_sites=8, frames=120, size=10)[0]
+    cols = [_t(locs["frame"].astype(np.int64)),
+            _t(locs["x"].astype(np.float64)), _t(locs["y"].astype(np.float64)),
+            _t(locs["group"].astype(np.int64))]
+    n = len(locs)
+    span = int(locs["frame"].max()) - int(locs["frame"].min()) + 1
+    shapes = {}
+    for window in (1, 4, span, 10**6, 10**9 + 1):
+        lo, hi, _ = link_ops.window_ranges(*cols, 1e9, window)
+        shapes[window] = (tuple(lo.shape), tuple(hi.shape))
+        if window >= span:
+            lo_s, hi_s, _ = link_ops.window_ranges(*cols, 1e9, span)
+            assert torch.equal(lo, lo_s) and torch.equal(hi, hi_s)
+    assert set(shapes.values()) == {((n, 9), (n, 9))}
+    pairs = np.concatenate([np.stack([i.numpy(), j.numpy()], 1) for i, j in
+                            link_ops.window_pairs(*cols, 1e9, 10**9 + 1)])
+    frame, g = locs["frame"].astype(np.int64), locs["group"]
+    want = {(a, b) for a in range(n) for b in range(n)
+            if frame[b] > frame[a] and g[a] == g[b]}
+    assert set(map(tuple, pairs.tolist())) == want
+    assert len(pairs) == len(want)

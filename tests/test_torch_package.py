@@ -1,5 +1,5 @@
 """picasso_torch as a package: it and chip_smoke.py never import JAX,
-picasso_tpu, the JAX package's bench, pandas or sklearn, its kernels
+picasso_tpu, the JAX package's bench, pandas, sklearn or skimage, its kernels
 build only from source with nvcc, and its kernel wrappers never fall
 back to the plain versions for a tensor that is not on the CPU."""
 
@@ -55,17 +55,30 @@ def test_every_module_imports_without_jax():
               "ops.gmm", "average", "spinna", "ops.spinna_batch",
               "nanotron", "average3", "simulate"):
         assert "picasso_torch." + m in mods
+    from picasso_torch import io, lib, masking, postprocess
+
+    for module, names in ((postprocess, (
+            "pick_similar", "remove_locs_in_picks", "combine_locs_in_picks",
+            "evaluate_picks", "pick_kinetics", "pick_properties",
+            "calculate_fret", "plot_drift", "link_loc_groups")),
+            (masking, ("mask_locs", "generate_image", "mask_image",
+                       "THRESHOLD_METHODS", "threshold_yen")),
+            (lib, ("pick_areas", "estimate_kinetic_rate",
+                   "unfold_localizations_square")),
+            (io, ("load_picks", "save_picks"))):
+        for name in names:
+            assert hasattr(module, name), (module.__name__, name)
     smoke = _smoke_imports()
     assert "torch_data" in smoke and "torch_parity" in smoke
     top = {m.split(".")[0] for m in smoke}
     assert not top & {"jax", "jaxlib", "picasso_tpu", "bench", "pandas",
-                      "sklearn"}, smoke
+                      "sklearn", "skimage"}, smoke
     code = (
         "import importlib, sys\n"
         f"for m in {mods + smoke!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m in ('jax', 'bench', 'pandas', "
-        "'sklearn') or m.startswith(('jax.', 'jaxlib', 'picasso_tpu', "
-        "'pandas.', 'sklearn.'))]\n"
+        "'sklearn', 'skimage') or m.startswith(('jax.', 'jaxlib', "
+        "'picasso_tpu', 'pandas.', 'sklearn.', 'skimage.'))]\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"
     )

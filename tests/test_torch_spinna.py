@@ -874,6 +874,22 @@ def test_entry_points_need_the_card_or_cpu(tmp_path):
     assert not any("fitting_results" in p.name for p in tmp_path.iterdir())
 
 
+def test_batched_scorer_defaults_to_the_card():
+    """ops/spinna_batch.BatchedScorer built without ``device`` resolves
+    "cuda" through lib.resolve_device, as JAX's scorer runs on the
+    default device: without a card it raises, with one it is on it; with
+    device="cpu" it is on the CPU."""
+    _, (mt, gt) = _pair(seed=1)
+    sp = ts.SPINNA(mt, gt, N_sim=2, **CPU)
+    args = (mt, sp.dists_gt, 2, np.array([4, 4]))
+    assert tb.BatchedScorer(*args, device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert tb.BatchedScorer(*args).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            tb.BatchedScorer(*args)
+
+
 def test_g5m_accepts_asynch_in_both_packages():
     """g5m(locs, info, asynch=False) runs in the port as in JAX (4
     groups, the host route: equal tables)."""

@@ -38,6 +38,17 @@ ROI cuts and each photon-conversion route equal picasso_tpu bit for bit
 (picasso_torch/zfit.py) equals picasso_tpu bit for bit on the same locs,
 and the card the CPU; end to end, z differs only where a 2D fit's width
 does, by at most tests/test_torch_zfit.Z_DIFF_NM.
+
+The pick analyses and the Mask tool (tests/test_torch_{picks,masking}.py):
+bit for bit with JAX on the CPU the lib pick geometry and kinetic fits,
+FRET, the thresholds and masks, generate_image, remove_locs_in_picks'
+surviving rows, and the events, dark times and kinetic fits of
+combine_locs_in_picks, pick_kinetics, evaluate_picks and pick_properties
+given JAX's row order (one loc a frame in a pick, or
+tests/test_torch_link.jax_order); pick_properties' group statistics
+within one f32 ulp (as groupprops, :func:`compare_tables_ulps`); the
+card against the CPU the same, its events within one ulp; pick_similar
+by :func:`compare_similar_picks`.
 """
 
 from __future__ import annotations
@@ -618,3 +629,96 @@ def compare_average3_passes(picks_a, picks_b, what: str = "average3") -> str:
         raise AssertionError(f"{what}: {len(picks_a)} passes against "
                              f"{len(picks_b)}")
     return f"all {held} passes' picks equal"
+
+
+#: pick_similar (postprocess.pick_similar) on two devices, or the port
+#: against JAX's loop on the CPU. The statistics of the given picks and
+#: the hex grid are the same numbers on both sides. A walk's centre is an
+#: f32 mean: JAX sums the locs in f32 pairwise in cKDTree's order, the
+#: port in f64 rounded once (atomics on the card), so a centre may differ
+#: by an f32 ulp or so of the largest coordinate; the same picks come out
+#: in the same order with centres within SIMILAR_SAME_ULPS such ulps
+#: (measured: 1 ulp at 132 px on the CPU, make_origami_locs(1000, 0)).
+#: A candidate may come out on one side only, or with its centre up to
+#: SIMILAR_STEPPED_PX away, at a recorded near tie, where a centre that
+#: differs by same_px (SIMILAR_SAME_ULPS ulps) may flip a test: a loc
+#: within same_px of a ball's edge during the walk, a move within 2
+#: same_px of the walk's tolerance (another step count), an rmsd within
+#: SIMILAR_SAME_ULPS f32 ulps of its bound, a distance to an accepted
+#: pick within 2 same_px of d, or the suppression by a pick that is a
+#: near tie itself. The bounds on a count are integers against the same
+#: f64 numbers on both sides, so a count flips only at a ball's edge.
+SIMILAR_SAME_ULPS = 4
+SIMILAR_STEPPED_PX = 0.01
+
+
+def similar_ties(record: dict, same_px: float) -> np.ndarray:
+    """The candidates of a pick_similar ``record`` at a near tie (above),
+    in the candidates' order (a suppression inherits its pick's tie)."""
+    lo_n, hi_n, lo_r, hi_r = record["bounds"]
+    rmsd = record["rmsd"].astype(np.float64)
+    with np.errstate(invalid="ignore"):
+        tie = ((record["edge"] <= same_px)
+               | (record["move"] <= 2 * same_px)
+               | (np.abs(np.sqrt(record["dup_d2"].astype(np.float64))
+                         - record["d"]) <= 2 * same_px))
+        for b in (lo_r, hi_r):
+            tie |= np.abs(rmsd - b) <= SIMILAR_SAME_ULPS * float(
+                np.spacing(np.float32(abs(b))))
+    tie &= record["started"]
+    for k in np.nonzero(record["dup_of"] >= 0)[0]:
+        tie[k] |= tie[record["dup_of"][k]]
+    return tie
+
+
+def compare_similar_picks(got: list, got_record: dict, ref: list,
+                          ref_record: dict | None = None,
+                          what: str = "pick_similar") -> dict:
+    """Hold the picks ``got`` of pick_similar (with its ``record``) to
+    ``ref`` (another device's with its record, or JAX's list) under the
+    rule above: walked in order, a pair within same_px matches; a pick at
+    a near tie of its side may pair with one up to SIMILAR_STEPPED_PX
+    away or stand alone; a pick of ``ref`` alone is a near tie of
+    ``ref_record``, or without one lies within SIMILAR_STEPPED_PX of a
+    candidate of ``got_record`` at a near tie. Returns the matched count,
+    the bound and the largest distance of the matches, and the picks
+    paired at a tie or alone on either side."""
+    cand = got_record["candidates"]
+    same_px = SIMILAR_SAME_ULPS * float(np.spacing(np.float32(
+        np.abs(cand).max())))
+    g = np.array(got, np.float64).reshape(-1, 2)
+    r = np.array(ref, np.float64).reshape(-1, 2)
+    gk = np.nonzero(got_record["accepted"])[0]
+    tie_g = similar_ties(got_record, same_px)
+    if ref_record is not None:
+        rk = np.nonzero(ref_record["accepted"])[0]
+        tie_r = similar_ties(ref_record, same_px)
+    tied_com = got_record["com"][tie_g].astype(np.float64)
+    out = {"matched": 0, "same_px": same_px, "worst_px": 0.0,
+           "stepped": [], "got_alone": [], "ref_alone": []}
+    i = j = 0
+    while i < len(g) or j < len(r):
+        d = (np.abs(g[i] - r[j]).max() if i < len(g) and j < len(r)
+             else np.inf)
+        ti = i < len(g) and tie_g[gk[i]]
+        tj = (j < len(r) and ref_record is not None and tie_r[rk[j]])
+        if d <= same_px:
+            out["matched"] += 1
+            out["worst_px"] = max(out["worst_px"], float(d))
+            i, j = i + 1, j + 1
+        elif (ti or tj) and d <= SIMILAR_STEPPED_PX:
+            out["stepped"].append((i, j, float(d)))
+            i, j = i + 1, j + 1
+        elif ti:
+            out["got_alone"].append(i)
+            i += 1
+        elif j < len(r) and (tj or (ref_record is None and len(tied_com) and
+                                    np.abs(tied_com - r[j]).max(1).min()
+                                    <= SIMILAR_STEPPED_PX)):
+            out["ref_alone"].append(j)
+            j += 1
+        else:
+            raise AssertionError(
+                f"{what}: pick {i} of {len(g)} and {j} of {len(r)} differ "
+                f"by {d:.3e} px (bound {same_px:.3e}) at no near tie")
+    return out
