@@ -226,6 +226,25 @@ Phases, each of which raises on failure (exit code != 0):
    bit, mask_image by every method of THRESHOLD_METHODS the CPU image's,
    mask_locs in + out = all. Paths ``picks`` ((a)-(c) on the card; the
    host link walk only) and ``mask`` launch no kernel.
+22. the rest of render and io (no kernel; plain torch on the card, the
+   scene's colours, the render index and the exporters on the host) on
+   phase 11's localize_3D MLE locs with z and lpz in camera px: (a) every
+   blur of the field at RENDER_OVERSAMPLING tilted by TILT and by (0, 0,
+   0) on the card with walls, peak memory and the mass in view, the
+   covariance splat split into rotation, covariances and bucket splats
+   with its bucket counts, and on WINDOW_3D the card against the CPU
+   (histograms, smooth, convolve equal but for the locs on a bin edge,
+   counted; the splats within rtol 1e-5 + atol 1e-6); (b) render_hist3d
+   and render_hist3d_anisotropic (axial HIST3D_Z_OVERSAMPLING) of the
+   field over the locs' z range, the total the in-view count, card ==
+   CPU on the window; (c) render_scene of the MLE and LQ locs with LUT
+   colours and of the MLE locs with a LUT colormap at SCENE_PX nm, the
+   window card vs CPU within one level; (d) build_render_index of the
+   undrifted MLE slice and query_viewport of INDEX_VIEWS against a
+   brute-force test of the index's blocks; (e) the five text exporters
+   of the 3D locs into a temporary folder of the checkout, import_ts of
+   the ThunderSTORM file back (frames equal, x and y within 2 f32 ulps).
+   Path ``render3d`` launches no kernel;
 IMS and STK movies are checked on the CPU only (tests/test_torch_io.py):
 the machine with the card has no h5py.
 The line before the last is the JSON record of every kernel (bound_ms:
@@ -369,6 +388,27 @@ PICK_D, N_SEED_PICKS, CAMERA_ORIGAMI, CAMERA_SEED = 1.0, 20, 4096, 1
 SIMILAR_TRUTH_PX = 0.05
 PROPS_RADIUS, PROPS_DARK, PROPS_INFLUX = 0.5, 3, 0.03
 MASK_PX, MASK_BLUR = 65.0, 100.0
+# phase 22: rotated and 3D renders, the scene, the render index and the
+# exporters on phase 11's localize_3D locs: the tilt (Euler angles, rad);
+# the window where the card is held to the CPU (80 x 80 px, ~85,000 of
+# the locs in view: both sides on JAX's device route, from
+# ops/render_ops.DEVICE_MIN_LOCS); the axial oversampling of the
+# anisotropic 3D histogram; the scene's display pixel (nm, oversampling
+# 10 at 130 nm); and the viewports (y0, x0), (y1, x1) px of the render
+# index's queries, the last the whole field (bypassed)
+TILT = (0.3, 0.5, 0.2)
+# the min. blur (px) of phase 22's renders, as a user sets it in Render:
+# each splat at least 0.5 display px wide, so that its sum over the pixel
+# centres is within a few % of its mass wherever the loc sits (the
+# movie's sites sit on the camera's grid: at 0.2 display px a loc on a
+# pixel corner sums to 0.70; at 0 and 0.02 px the untilted splats of
+# this phase keep 62% and 71% of the mass, at 0.05 px 99.4%)
+RENDER3D_MIN_BLUR = 0.05
+WINDOW_3D = ((88.0, 88.0), (168.0, 168.0))
+HIST3D_Z_OVERSAMPLING = 5.0
+SCENE_PX = 13.0
+INDEX_VIEWS = (((100.0, 100.0), (120.0, 130.0)), ((0.0, 0.0), (40.0, 40.0)),
+               ((200.5, 10.2), (255.9, 60.3)), ((0.0, 0.0), (256.0, 256.0)))
 
 
 def _median_ms(fn, reps: int = 5, calls: int = 1) -> float:
@@ -2046,6 +2086,278 @@ def picks_phase(counted, smi: str) -> tuple[dict, dict]:
             launches_mask)
 
 
+def _timed(fn):
+    """(fn(), wall seconds) between two synchronizes of the card."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _moved(locs, window, ang, oversampling, dev) -> int:
+    """The locs of a rotated view whose display pixel (f32, as the device
+    route truncates it) or in-view test differs card vs CPU: a loc on a
+    bin edge after the rotation's last-ulp roundings."""
+    from picasso_torch import render
+
+    (y0, x0), (y1, x1) = window
+    out = []
+    for d in (dev, "cpu"):
+        x, y, in_view, _ = render._rotate(
+            render.columns(locs, ("x", "y", "z"), d), oversampling, x0, x1,
+            y0, y1, ang)
+        full = np.full((len(locs), 2), -1, np.int64)
+        full[in_view.cpu().numpy()] = np.stack(
+            [x.float().long().cpu().numpy(), y.float().long().cpu().numpy()],
+            1)
+        out.append(full)
+    return int((out[0] != out[1]).any(1).sum())
+
+
+def render3d_phase(locs3d, locs3d_lq, info3d, locs2d, info2d, counted,
+                   smi: str, dev="cuda") -> dict:
+    """22. The rest of render and io on phase 11's localize_3D locs (z and
+    lpz in camera px for the rotated views): (a) every blur of the whole
+    field at RENDER_OVERSAMPLING tilted by TILT and by (0, 0, 0) on the
+    card (walls, peak memory, the mass in view), the covariance splat's
+    wall split into rotation, covariances and bucket splats with the
+    bucket counts; on WINDOW_3D the card against the CPU, histograms,
+    smooth and convolve equal but for the locs on a bin edge (counted),
+    the splats within rtol 1e-5 + atol 1e-6; (b) render_hist3d and
+    render_hist3d_anisotropic of the whole field over the locs' z range
+    on the card, the total the in-view count, card == CPU on the window;
+    (c) render_scene of two channels (MLE, LQ) with LUT colours and one
+    with a LUT colormap, the whole field on the card, the window card vs
+    CPU within one level; (d) build_render_index on the undrifted MLE
+    slice's locs and query_viewport of INDEX_VIEWS against a brute-force
+    test of the index's blocks; (e) the text exporters of the 3D locs
+    into a temporary folder and import_ts of the ThunderSTORM file back.
+    Returns the launches of the path ``render3d`` ((a)-(c))."""
+    import torch
+
+    from picasso_torch import io, render, spatial_index
+    from picasso_torch.ops import render_ops
+
+    px = info3d[0]["Pixelsize"]
+    locs = locs3d.copy()
+    for c in ("z", "lpz"):
+        locs[c] = locs3d[c] / px
+    runs = []
+    os_ = RENDER_OVERSAMPLING
+    field = ((0, 0), (info3d[0]["Height"], info3d[0]["Width"]))
+
+    # (a) rotated views
+    for ang in (TILT, (0.0, 0.0, 0.0)):
+        line = []
+        for blur in render.BLUR_METHODS:
+            torch.cuda.reset_peak_memory_stats()
+            (n, img), wall, launches = counted(lambda: render.render(
+                locs, info3d, os_, blur_method=blur, ang=ang,
+                min_blur_width=RENDER3D_MIN_BLUR, device=dev))
+            runs.append(launches)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            # the counts are the locs in view (less any truncated onto the
+            # far edge); a blur keeps most of their mass, a splat's sum
+            # over pixel centres is near 1 a loc on average
+            mass = float(img.astype(np.float64).sum())
+            lo, hi = ((n - 2, n) if blur is None else (0.95 * n, n * (
+                1 + 1e-5)) if blur in ("smooth", "convolve") else
+                (0.95 * n, 1.05 * n))
+            if not (np.isfinite(img).all() and lo <= mass <= hi):
+                raise AssertionError(f"rotated render {blur} {ang}: mass "
+                                     f"{mass} of {n} locs in view")
+            line.append(f"{blur} {wall:.3f} s ({peak:.2f} GiB, mass "
+                        f"{mass / n:.4f})")
+        lp = np.percentile(locs["lpx"], [0, 1, 50, 99])
+        print(f"render3d ({smi}): {len(locs)} 3D locs, z and lpz in px "
+              f"(lpx percentiles 0/1/50/99 {np.round(lp, 5).tolist()} px, "
+              f"median lpz {float(np.median(locs['lpz'])):.5f} px), min. "
+              f"blur {RENDER3D_MIN_BLUR} px, the field at oversampling {os_} "
+              f"{img.shape} turned by {ang}, {n} in view: card "
+              + "; ".join(line))
+    cols = render.columns(locs, ("x", "y", "z", "lpx", "lpy", "lpz"), dev)
+    R = render.to_rotation(TILT).as_matrix()
+    (x, y, in_view, _), t_rot = _timed(lambda: render._rotate(
+        cols, os_, 0, field[1][1], 0, field[1][0], TILT))
+    sx, sy, sz = (os_ * torch.clamp(cols[c], min=RENDER3D_MIN_BLUR)[in_view]
+                  for c in ("lpx", "lpy", "lpz"))
+    for blur in ("gaussian", "gaussian_iso"):
+        if blur == "gaussian_iso":
+            sx = sy = (sx + sy) / 2
+        covs, t_cov = _timed(lambda: render._rotated_covariances(sx, sy, sz,
+                                                                 R))
+        _, t_splat = _timed(lambda: render_ops.gaussian_splat_cov(
+            x, y, covs, *img.shape))
+        need = (2 * 3.0 * torch.sqrt(torch.maximum(covs[:, 0, 0], covs[
+            :, 1, 1])) + 2).cpu().numpy()
+        edges = [0, 8, 16, 32, 64, np.inf]
+        buckets = {f"W{w}": int(((need > a) & (need <= b)).sum()) for w, a, b
+                   in zip((8, 16, 32, 64, 128), edges[:-1], edges[1:])}
+        print(f"  {blur} split: rotation {t_rot:.4f} s, covariances "
+              f"{t_cov:.4f} s, bucket splats {t_splat:.4f} s; locs by "
+              f"bucket {json.dumps(buckets)}")
+    (wy0, wx0), (wy1, wx1) = WINDOW_3D
+    moved = _moved(locs, WINDOW_3D, TILT, os_, dev)
+    line = []
+    for blur in render.BLUR_METHODS:
+        kw = dict(viewport=WINDOW_3D, blur_method=blur, ang=TILT,
+                  min_blur_width=RENDER3D_MIN_BLUR)
+        (n_g, g), wall, launches = counted(lambda: render.render(
+            locs, info3d, os_, device=dev, **kw))
+        runs.append(launches)
+        t0 = time.perf_counter()
+        n_c, c = render.render(locs, info3d, os_, device="cpu", **kw)
+        wall_c = time.perf_counter() - t0
+        if min(n_g, n_c) < render_ops.DEVICE_MIN_LOCS or abs(n_g - n_c) > \
+                moved:
+            raise AssertionError(f"render3d window {blur}: {n_g} / {n_c} in "
+                                 "view")
+        d = np.abs(g.astype(np.float64) - c)
+        if blur in (None, "smooth", "convolve"):
+            ok = (d.max() == 0 if moved == 0
+                  else d.sum() <= 2 * moved * (1 + 1e-6))
+            held = f"equal {d.max() == 0}"
+        else:
+            ok = bool((d <= 1e-6 + 1e-5 * np.abs(c)).all())
+            held = f"max|d|/max {d.max() / c.max():.3g}"
+        if not ok:
+            raise AssertionError(f"render3d window {blur}: card vs CPU")
+        line.append(f"{blur} card {wall:.3f} s, CPU {wall_c:.3f} s, {held}")
+    print(f"  window {WINDOW_3D} ({n_g} locs in view), card vs CPU, {moved} "
+          "locs on a bin edge: " + "; ".join(line))
+
+    # (b) 3D histograms
+    x, y, z = locs3d["x"], locs3d["y"], locs3d["z"]
+    inside = (x > 0) & (y > 0) & (x < field[1][1]) & (y < field[1][0])
+    z_lo, z_hi = float(z[inside].min()) - 1.0, float(z[inside].max()) + 1.0
+    for name, extra in (("render_hist3d", ()),
+                        ("render_hist3d_anisotropic",
+                         (HIST3D_Z_OVERSAMPLING,))):
+        fn = getattr(render, name)
+        torch.cuda.reset_peak_memory_stats()
+        (n, vol), wall, launches = counted(lambda: fn(
+            x, y, z, os_, *extra, 0, 0, field[1][0], field[1][1], z_lo, z_hi,
+            px, device=dev))
+        runs.append(launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        total = int(vol.sum(dtype=np.float64))
+        shape = vol.shape
+        del vol
+        win = (os_, *extra, wy0, wx0, wy1, wx1, z_lo, z_hi, px)
+        (n_g, g), wall_w, launches = counted(lambda: fn(x, y, z, *win,
+                                                        device=dev))
+        runs.append(launches)
+        n_c, c = fn(x, y, z, *win, device="cpu")
+        if total != n or n_g != n_c or not np.array_equal(g, c):
+            raise AssertionError(f"{name}: total {total} of {n} in view, or "
+                                 "the window's card != CPU")
+        print(f"  {name}: {shape} ({np.prod(shape) * 4 / 2**30:.2f} GiB f32)"
+              f" of {n} locs, z {z_lo:.1f}..{z_hi:.1f} nm: card {wall:.3f} s"
+              f" (readback included), peak {peak:.2f} GiB, total == in view; "
+              f"window {g.shape} card {wall_w:.3f} s == CPU ({n_g} locs)")
+
+    # (c) the scene
+    # LUTs that rise by less than a level an index: a value on an index's
+    # edge card vs CPU then moves its colour by one level at most
+    luts = [render.solid_to_lut((1.0, 0.35, 0.0)), render.stops_to_lut(
+        [(0.0, 0.0, 0.0, 0.0), (0.5, 0.2, 0.4, 0.45), (1.0, 0.65, 0.85, 0.9)])]
+    for what, scene_locs, scene_info, kw in (
+            ("MLE + LQ, LUT colours", [locs3d, locs3d_lq], [info3d, info3d],
+             dict(colors=luts)),
+            ("MLE, LUT colormap", locs3d, info3d,
+             dict(single_channel_colormap=luts[1]))):
+        kw.update(disp_px_size=SCENE_PX, blur_method="gaussian")
+        (rgb, n), wall, launches = counted(lambda: render.render_scene(
+            scene_locs, scene_info, device=dev, **kw))
+        runs.append(launches)
+        (rgb_g, n_g), wall_w, launches = counted(lambda: render.render_scene(
+            scene_locs, scene_info, viewport=WINDOW_3D, device=dev, **kw))
+        runs.append(launches)
+        rgb_c, n_c = render.render_scene(scene_locs, scene_info,
+                                         viewport=WINDOW_3D, device="cpu",
+                                         **kw)
+        d = np.abs(rgb_g.astype(int) - rgb_c)
+        side = int(np.ceil(px / SCENE_PX * field[1][0]))
+        if n_g != n_c or d.max() > 1 or rgb.shape != (side, side, 3):
+            raise AssertionError(
+                f"render_scene {what}: card vs CPU ({n_g} / {n_c} locs, "
+                f"{int(d.any(2).sum())} pixels differ by up to {d.max()}; "
+                f"shape {rgb.shape})")
+        print(f"  render_scene {what}: {rgb.shape} of {n} locs, card "
+              f"{wall:.3f} s; window {rgb_g.shape} card {wall_w:.3f} s vs "
+              f"CPU: {int(d.any(2).sum())} pixels differ, by at most "
+              f"{int(d.max())} level")
+
+    # (d) the render index
+    pyramid, wall = _timed(lambda: spatial_index.build_render_index(locs2d,
+                                                                    info2d))
+    line = []
+    for vp in INDEX_VIEWS:
+        got, wall_q = _timed(lambda: spatial_index.query_viewport(pyramid,
+                                                                  vp))
+        (y0, x0), (y1, x1) = vp
+        if got is None:
+            area = (y1 - y0) * (x1 - x0) / (pyramid.width * pyramid.height)
+            if area < 0.1:
+                raise AssertionError(f"query_viewport {vp}: bypassed")
+            line.append(f"{vp} bypassed {wall_q * 1e3:.3f} ms")
+            continue
+        lvl = spatial_index._select_level(pyramid, vp)
+        size = pyramid.block_sizes[lvl]
+        K, L = pyramid.block_starts[lvl].shape
+        bx = np.clip(np.floor(locs2d["x"] / size), 0, L - 1)
+        by = np.clip(np.floor(locs2d["y"] / size), 0, K - 1)
+        blocks = np.nonzero(
+            (bx >= max(0, np.floor(x0 / size)))
+            & (bx <= min(L - 1, np.floor(x1 / size)))
+            & (by >= max(0, np.floor(y0 / size)))
+            & (by <= min(K - 1, np.floor(y1 / size))))[0]
+        in_vp = np.nonzero((locs2d["x"] >= x0) & (locs2d["x"] < x1)
+                           & (locs2d["y"] >= y0) & (locs2d["y"] < y1))[0]
+        got = np.sort(got.astype(np.int64))
+        if not (np.array_equal(got, blocks) and np.isin(in_vp, got).all()):
+            raise AssertionError(f"query_viewport {vp}: not the locs of its "
+                                 "blocks")
+        line.append(f"{vp} {len(got)} locs ({len(in_vp)} inside) "
+                    f"{wall_q * 1e3:.3f} ms")
+    print(f"  render index of {len(locs2d)} locs: build {wall:.3f} s; "
+          "queries == the brute-force blocks: " + "; ".join(line))
+
+    # (e) the exporters
+    with tempfile.TemporaryDirectory(prefix=".smoke-export-",
+                                     dir=ROOT) as folder:
+        line = []
+        for name, ext in (("export_ts", "_ts.csv"),
+                          ("export_txt_imagej", "_ij.txt"),
+                          ("export_txt_nis", "_nis.txt"),
+                          ("export_xyz_chimera", ".xyz"),
+                          ("export_3d_visp", ".3d")):
+            path = os.path.join(folder, "locs" + ext)
+            t0 = time.perf_counter()
+            getattr(io, name)(path, locs3d, info3d)
+            line.append(f"{name} {time.perf_counter() - t0:.3f} s "
+                        f"{os.path.getsize(path) / 2**20:.1f} MiB")
+        t0 = time.perf_counter()
+        back, back_info = io.import_ts(os.path.join(folder, "locs_ts.csv"),
+                                       pixelsize=px)
+        wall = time.perf_counter() - t0
+    ok = len(back) == len(locs3d) and np.array_equal(back["frame"],
+                                                      locs3d["frame"])
+    for c in ("x", "y"):
+        ulps = np.abs(back[c].view(np.int32).astype(np.int64)
+                      - locs3d[c].view(np.int32))
+        ok &= bool(ulps.max() <= 2)
+    if not ok:
+        raise AssertionError("import_ts: the export does not come back")
+    print(f"  exports of {len(locs3d)} 3D locs: " + "; ".join(line)
+          + f"; import_ts {wall:.3f} s, frames equal, x and y within 2 f32 "
+          "ulps")
+    return _sum_launches(*runs)
+
+
 def main() -> int:
     import torch
 
@@ -3425,11 +3737,17 @@ def main() -> int:
     # 21. the pick analyses and the Mask tool -----------------------------
     launches_picks, launches_mask = picks_phase(counted, smi)
     t22 = time.perf_counter()
+    # 22. rotated and 3D renders, the scene, the render index, exports --
+    torch.cuda.empty_cache()
+    launches_r3d = render3d_phase(locs3d_by["gaussmle"], locs3d_by["gausslq"],
+                                  info3d, undrifted, info, counted, smi)
+    t23 = time.perf_counter()
     print(f"phases 15-16: {t16 - t15:.1f} s and {t17 - t16:.1f} s, phase "
           f"17: {t18 - t17:.1f} s, phase 18: {t19 - t18:.1f} s, phase 19: "
           f"{t20 - t19:.1f} s, phase 20: {t21 - t20:.1f} s ((a) "
           f"{t20b - t20:.1f}, (b) {t20c - t20b:.1f}, (c) {t20d - t20c:.1f}, "
-          f"(d) {t21 - t20d:.1f}), phase 21: {t22 - t21:.1f} s ({smi})")
+          f"(d) {t21 - t20d:.1f}), phase 21: {t22 - t21:.1f} s, phase 22: "
+          f"{t23 - t22:.1f} s ({smi})")
     print("host code (no kernel):", json.dumps([{
         "name": "link_walk", "source": "picasso_torch/csrc/link_walk.cu",
         "replaces": "picasso_tpu/native/picasso_native.cpp:38",
@@ -3452,8 +3770,8 @@ def main() -> int:
              "spinna": launches_spinna, **launches_api,
              "simulate": launches_sim, "nanotron": launches_nano,
              "average3": launches_avg3, "picks": launches_picks,
-             "mask": launches_mask}
-    for path in ("simulate", "nanotron", "average3", "mask"):
+             "mask": launches_mask, "render3d": launches_r3d}
+    for path in ("simulate", "nanotron", "average3", "mask", "render3d"):
         if any(paths[path].values()):
             raise AssertionError(f"path {path} launched {paths[path]}")
     if any(v for k, v in launches_picks.items() if k != "link walk"):

@@ -30,6 +30,10 @@ Counterpart of picasso_tpu/__main__.py for the verbs ported so far:
         [-g 11 -u 3 -l 1 -W WIDTH -H HEIGHT -n 1 -m coarse-to-fine]
     python -m picasso_torch spinna-batch parameters.csv [-b] [-v]
         [-m bayesian]
+    python -m picasso_torch csv2hdf "*.csv" -p PIXELSIZE
+    python -m picasso_torch hdf2csv|hdf2ts|hdf2imagej|hdf2nis|hdf2chimera|
+        hdf2visp "*_locs.hdf5"
+    python -m picasso_torch toims "*.tif" [--stacked]
 
 ``localize`` reads .raw, .tif/.tiff series, .ims, .stk and .nd2 movies
 and takes the JAX CLI's flags and defaults plus ``--device`` (default
@@ -62,14 +66,20 @@ molecules; ``_g5m_locs.hdf5``, the locs labelled by molecule).
 one locs file a target and prints the best proportions and KS score;
 ``spinna-batch`` runs one fit a row of a parameters CSV into a new
 ``<parameters>__fitting_results`` folder.
-Every verb after localize but ``toraw``, ``join`` and ``clusterfilter``
-takes ``--device`` too.
+``csv2hdf`` imports ThunderSTORM CSVs (``-p`` the pixel size, nm) as
+``<base>.hdf5``; ``hdf2csv`` writes every field of a locs file as
+``<base>.csv``; ``hdf2ts`` (``_ts.csv``), ``hdf2imagej`` (``_ij.txt``),
+``hdf2nis`` (``_nis.txt``), ``hdf2chimera`` (``.xyz``) and ``hdf2visp``
+(``.3d``) export for ThunderSTORM, ImageJ, NIS Elements, Chimera and
+ViSP; ``toims`` writes a movie as Bitplane Imaris ``<base>.ims``. Every
+verb after localize but ``toraw``, ``join``, ``clusterfilter``, these
+conversions and ``toims`` takes ``--device`` too. ``localize --profile
+DIR`` writes a torch.profiler trace (profiling.trace).
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import glob
 import os
 
@@ -511,21 +521,59 @@ def _spinna_batch(args):
         print("  ".join(str(row.get(c, "")) for c in columns))
 
 
-@contextlib.contextmanager
-def _profile(trace_dir: str | None):
-    """torch.profiler trace of the command into ``trace_dir``."""
-    if not trace_dir:
-        yield
-        return
-    import torch
+def _toims(args):
+    from picasso_torch import io
 
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(trace_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    for path in sorted(glob.glob(args.files)):
+        movie, info = io.load_movie(path)
+        out = os.path.splitext(path)[0] + ".ims"
+        io.write_ims(out, movie[:], info, stacked=args.stacked)
+        print(f"Wrote {out}")
+
+
+def _csv2hdf(args):
+    from picasso_torch import io
+
+    for path in _iter_files(args.files):
+        locs, info = io.import_ts(path, pixelsize=args.pixelsize)
+        out = os.path.splitext(path)[0] + ".hdf5"
+        io.save_locs(out, locs, info)
+        print(f"Imported -> {out}")
+
+
+def _hdf2csv(args):
+    from picasso_torch import io, lib
+
+    for path in _iter_files(args.files):
+        locs, _ = io.load_locs(path)
+        out = os.path.splitext(path)[0] + ".csv"
+        lib.write_table(out, {n: locs[n] for n in locs.dtype.names})
+        print(f"Exported -> {out}")
+
+
+# the exporting verbs: (io function, output suffix, label, help)
+_EXPORTS = {
+    "hdf2ts": ("export_ts", "_ts.csv", "ThunderSTORM",
+               "export to ThunderSTORM csv"),
+    "hdf2imagej": ("export_txt_imagej", "_ij.txt", "ImageJ",
+                   "export to ImageJ txt"),
+    "hdf2nis": ("export_txt_nis", "_nis.txt", "NIS",
+                "export to NIS Elements txt"),
+    "hdf2chimera": ("export_xyz_chimera", ".xyz", "Chimera",
+                    "export to Chimera xyz"),
+    "hdf2visp": ("export_3d_visp", ".3d", "ViSP", "export to ViSP 3d"),
+}
+
+
+def _export(args):
+    from picasso_torch import io
+
+    name, ext, label, _ = _EXPORTS[args.command]
+    for path in _iter_files(args.files):
+        locs, info = io.load_locs(path)
+        out = os.path.splitext(path)[0] + ext
+        getattr(io, name)(out, locs, info)
+        print(f"Exported ({label}) -> {out}")
 
 
 def main(argv=None):
@@ -538,6 +586,11 @@ def main(argv=None):
         "toraw", help="convert TIFF movies into raw format"
     )
     p.add_argument("files", help="path pattern of movie files")
+    p = subparsers.add_parser(
+        "toims", help="convert movies into Bitplane Imaris .ims")
+    p.add_argument("files", help="path pattern of movie files")
+    p.add_argument("--stacked", action="store_true",
+                   help="write all frames as one z-stack TimePoint")
     p = subparsers.add_parser(
         "localize", help="identify and fit single molecule spots"
     )
@@ -717,11 +770,22 @@ def main(argv=None):
     p.add_argument("-m", "--mode", choices=modes, default="bayesian")
     _device_arg(p)
 
+    p = subparsers.add_parser("csv2hdf", help="import ThunderSTORM csv")
+    p.add_argument("files")
+    p.add_argument("-p", "--pixelsize", type=float, required=True,
+                   help="camera pixel size in nm")
+    p = subparsers.add_parser("hdf2csv", help="export to csv")
+    p.add_argument("files")
+    for name, (*_, helptext) in _EXPORTS.items():
+        p = subparsers.add_parser(name, help=helptext)
+        p.add_argument("files")
+
     args = parser.parse_args(argv)
     if args.command is None:
         parser.print_help()
         return
-    verbs = {"toraw": _toraw, "render": _render, "undrift": _undrift,
+    verbs = {"toraw": _toraw, "toims": _toims, "render": _render,
+             "undrift": _undrift,
              "aim": _aim, "undrift_fiducials": _undrift_fiducials,
              "link": _link, "dark": _dark, "nneighbor": _nneighbor,
              "density": _density, "clusterfilter": _clusterfilter,
@@ -731,12 +795,16 @@ def main(argv=None):
              "cluster_combine_dist": _cluster_combine_dist,
              "dbscan": _dbscan, "hdbscan": _hdbscan,
              "smlm_cluster": _smlm_cluster, "g5m": _g5m,
-             "spinna": _spinna, "spinna-batch": _spinna_batch}
-    if args.command in verbs:
-        verbs[args.command](args)
-        return
-    with _profile(args.profile):
-        _localize(args, localize_parser)
+             "spinna": _spinna, "spinna-batch": _spinna_batch,
+             "csv2hdf": _csv2hdf, "hdf2csv": _hdf2csv,
+             **dict.fromkeys(_EXPORTS, _export)}
+    from picasso_torch import profiling
+
+    with profiling.trace(getattr(args, "profile", None)):
+        if args.command in verbs:
+            verbs[args.command](args)
+        else:
+            _localize(args, localize_parser)
 
 
 def _device_arg(p) -> None:

@@ -46,7 +46,7 @@ from scipy.spatial import ConvexHull, QhullError
 from picasso_torch import __version__, lib, masking
 from picasso_torch.ops import cluster as cluster_ops
 from picasso_torch.ops import neighbors
-from picasso_torch.postprocess import _seg_moments, _segments, _set_field
+from picasso_torch.postprocess import _seg_moments, _segments
 
 
 def _columns(locs: np.ndarray, names) -> np.ndarray:
@@ -136,7 +136,7 @@ def extract_valid_labels(locs: np.ndarray, labels: np.ndarray) -> np.ndarray:
     """``locs`` with the field ``group`` (in place of one there, else
     appended) set to ``labels`` in their dtype, without the unclustered
     (-1) locs (picasso/clusterer.py:665)."""
-    out = _set_field(locs, "group", labels)
+    out = lib.append_to_rec(locs, labels, "group")
     return out[out["group"] != -1]
 
 
@@ -156,7 +156,7 @@ def cluster(locs: np.ndarray, radius_xy: float, min_locs: int,
             raise ValueError(
                 "Camera pixel size and clustering radius in z must be"
                 " specified for 3D clustering.")
-        locs = _set_field(locs, "z", locs["z"] / pixelsize)
+        locs = lib.append_to_rec(locs, locs["z"] / pixelsize, "z")
         labels = cluster_3D(locs, radius_xy, radius_z, min_locs,
                             frame_analysis, device=device)
     else:
@@ -164,7 +164,7 @@ def cluster(locs: np.ndarray, radius_xy: float, min_locs: int,
                             device=device)
     locs = extract_valid_labels(locs, labels)
     if has_z:
-        locs = _set_field(locs, "z", locs["z"] * pixelsize)
+        locs = lib.append_to_rec(locs, locs["z"] * pixelsize, "z")
     info = {
         "Generated by": f"Picasso v{__version__} SMLM clusterer",
         "Number of clusters": (len(np.unique(locs["group"])) if len(locs)
@@ -729,6 +729,7 @@ def cluster_center(grouplocs: np.ndarray, pixelsize: float | None = None,
     """Deprecated single-group center (picasso/clusterer.py:900): the one
     row of :func:`find_cluster_centers` of ``grouplocs`` as one group, as
     a list of floats (pandas' row of mixed columns is f64)."""
-    locs = _set_field(grouplocs, "group", np.zeros(len(grouplocs), np.int64))
+    locs = lib.append_to_rec(grouplocs, np.zeros(len(grouplocs), np.int64),
+                             "group")
     row = find_cluster_centers(locs, pixelsize, device=device)[0]
     return [float(row[n]) for n in row.dtype.names]

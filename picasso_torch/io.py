@@ -1,19 +1,26 @@
 """Movie and localization-table I/O of the port: the lazy movie readers
 (raw, TIFF series, MetaMorph STK, Bitplane IMS, Nikon ND2), raw
-conversion, the YAML info chain and the HDF5 ``"locs"`` table.
+conversion, the YAML info chain, the HDF5 ``"locs"`` table and the other
+tables, the auxiliary files (picks, drift, identifications, spots,
+calibrations, masks, user settings, the camera config), the Imaris
+writers and the exporters.
 
 Counterpart of picasso_tpu/io.py (load_info :48, save_info :60,
-save_locs :81, load_locs :102, load_clusters :131, save_datasets :140, load_picks
-:209, save_picks :248, save_drift :282, load_drift :288,
-AbstractPicassoMovie :397, load_raw :447, TiffMap :476, STKMovie :661,
-STKMultiMovie :689, TiffMultiMap :760, load_tif :846, IMSMovie :862,
-load_ims :992, load_ims_all :1007, the ND2 metadata helpers :1232-:1376,
+generated_by :69, save_locs :81, load_locs :102, save/load_identifications
+:115/:125, load_clusters :131, save_datasets :140, save/load_spots
+:149/:173, load_filter :193, load_picks :209, save_picks :248, save_drift
+:282, load_drift :288, load_calibration :303, load_mask :317, the user
+settings and config :332-:391, AbstractPicassoMovie :397, load_raw :447,
+TiffMap :476, STKMovie :661, STKMultiMovie :689, TiffMultiMap :760,
+load_tif :846, IMSMovie :862, load_ims :992, load_ims_all :1007, the
+Imaris writers :1028-:1216, the ND2 metadata helpers :1232-:1376,
 ND2Movie :1380, load_stk :1460, load_movie :1472, the raw conversion
-:1493-:1540, save_raw :1696). The files written are byte-compatible with
-picasso_tpu.io's, and the readers return the same frames and info.
-``h5py``, ``yaml`` and ``nd2`` are imported inside the functions that
-need them, so the localize path itself needs only numpy, torch and
-scipy.
+:1493-:1540, the exporters and import_ts :1547-:1746, save_raw :1696).
+The files written are byte-compatible with picasso_tpu.io's (the
+exporters' text byte for byte, pandas' number formats without pandas),
+and the readers return the same frames and info. ``h5py``, ``yaml``,
+``imageio`` and ``nd2`` are imported inside the functions that need
+them, so the localize path itself needs only numpy, torch and scipy.
 """
 
 from __future__ import annotations
@@ -924,3 +931,480 @@ def load_drift(path: str) -> np.ndarray:
     for i, c in enumerate(out.dtype.names):
         out[c] = drift[:, i]
     return out
+
+
+def generated_by(step: str) -> dict:
+    """The provenance block each pipeline stage appends to the info
+    chain: {"Generated by": "Picasso v<version> <step>"}."""
+    return {"Generated by": f"Picasso v{__version__} {step}"}
+
+
+def _read_dataset(path: str, key: str) -> np.ndarray:
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        if key not in f:
+            raise KeyError(f"File {path} does not contain a '{key}' dataset.")
+        return f[key][()]
+
+
+def save_identifications(path: str, identifications: np.ndarray,
+                         info: list[dict]) -> None:
+    """Spot identifications (a structured array) as the HDF5
+    ``"identifications"`` dataset plus the YAML info chain
+    (picasso/io.py:2167)."""
+    save_datasets(path, info, identifications=identifications)
+
+
+def load_identifications(path: str):
+    """The identifications and info chain that
+    :func:`save_identifications` wrote (picasso/io.py:2191)."""
+    return _read_dataset(path, "identifications"), load_info(path)
+
+
+def _spots_ext(path: str) -> str:
+    ext = os.path.splitext(path)[1].lower()
+    if ext not in (".npy", ".tif", ".tiff"):
+        raise ValueError(
+            f"Unsupported spots format '{ext}'; use .npy or .tif.")
+    return ext
+
+
+def save_spots(path: str, spots: np.ndarray, info: list[dict]) -> None:
+    """Cut spot ROIs (N, box, box) as .npy, or as a multi-page f32 .tif
+    through imageio, with a YAML info sidecar (the Localize GUI's "Save
+    spots", picasso/gui/localize.py:2762)."""
+    if _spots_ext(path) == ".npy":
+        np.save(path, spots)
+    else:
+        import warnings
+
+        import imageio
+
+        with warnings.catch_warnings():
+            # imageio's bundled tifffile warns about its own deprecation
+            warnings.simplefilter("ignore", DeprecationWarning)
+            imageio.mimwrite(path, np.asarray(spots, np.float32))
+    save_info(os.path.splitext(path)[0] + ".yaml", info)
+
+
+def load_spots(path: str):
+    """The spot ROIs and info chain that :func:`save_spots` wrote."""
+    if _spots_ext(path) == ".npy":
+        spots = np.load(path)
+    else:
+        import warnings
+
+        import imageio
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            spots = np.asarray(imageio.mimread(path))
+    return spots, load_info(path)
+
+
+def load_filter(path: str):
+    """A locs-like table from the first of the datasets ``"locs"``,
+    ``"groups"`` and ``"clusters"`` that the file holds, without a sanity
+    filter, and its info chain (picasso/io.py:2260)."""
+    for key in ("locs", "groups", "clusters"):
+        try:
+            return _read_dataset(path, key), load_info(path)
+        except KeyError:
+            continue
+    raise KeyError(f"No recognized dataset in {path}.")
+
+
+def load_calibration(path: str) -> dict:
+    """A 3D astigmatism calibration YAML; KeyError without its X or Y
+    coefficients (picasso/io.py:249)."""
+    import yaml
+
+    with open(path, "r") as f:
+        calibration = yaml.full_load(f)
+    for key in ("X Coefficients", "Y Coefficients"):
+        if key not in calibration:
+            raise KeyError(f"Calibration file is missing '{key}'; not a "
+                           "valid 3D calibration.")
+    return calibration
+
+
+def load_mask(path: str):
+    """A SPINNA density mask (.npy) normalised to sum 1 in f64, and the
+    first block of its info; TypeError for a mask SPINNA did not make
+    (picasso/io.py:411)."""
+    mask = np.float64(np.load(path))
+    mask = mask / mask.sum()
+    info = load_info(os.path.splitext(path)[0] + ".yaml")[0]
+    if "SPINNA" not in info.get("Generated by", ""):
+        raise TypeError("Please load a mask provided by Picasso SPINNA")
+    return mask, info
+
+
+# --- user settings and the camera config ------------------------------------
+
+
+def _user_settings_filename() -> str:
+    return os.path.join(os.path.expanduser("~"), ".picasso", "settings.yaml")
+
+
+def _to_autodict(d: dict) -> lib.AutoDict:
+    out = lib.AutoDict()
+    for k, v in d.items():
+        out[k] = _to_autodict(v) if isinstance(v, dict) else v
+    return out
+
+
+def _to_dict(node: dict) -> dict:
+    return {k: _to_dict(v) if isinstance(v, dict) else v
+            for k, v in node.items()}
+
+
+def load_user_settings() -> lib.AutoDict:
+    """~/.picasso/settings.yaml as nested AutoDicts, empty if there is
+    none (picasso/io.py:564)."""
+    import yaml
+
+    try:
+        with open(_user_settings_filename(), "r") as f:
+            settings = yaml.full_load(f)
+    except FileNotFoundError:
+        settings = None
+    return _to_autodict(settings or {})
+
+
+def save_user_settings(settings: dict) -> None:
+    """Write the user settings to ~/.picasso/settings.yaml as plain
+    nested dicts (picasso/io.py:620)."""
+    import yaml
+
+    filename = _user_settings_filename()
+    os.makedirs(os.path.dirname(filename), exist_ok=True)
+    with open(filename, "w") as f:
+        yaml.dump(_to_dict(settings), f, default_flow_style=False)
+
+
+def _config_path() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "config.yaml")
+
+
+def save_config(CONFIG: dict) -> None:
+    """The camera config as ``config.yaml`` beside the package
+    (picasso/io.py:217)."""
+    import yaml
+
+    with open(_config_path(), "w") as f:
+        yaml.dump(CONFIG, f, default_flow_style=False)
+
+
+def load_config() -> dict:
+    """The camera config that :func:`save_config` wrote, or {}."""
+    import yaml
+
+    try:
+        with open(_config_path(), "r") as f:
+            return yaml.full_load(f) or {}
+    except FileNotFoundError:
+        return {}
+
+
+# --- Bitplane Imaris --------------------------------------------------------
+
+
+def _ims_attr(value) -> np.ndarray:
+    """A value as Imaris' byte-array string attribute (as
+    :func:`_ims_image_attr` reads it)."""
+    return np.frombuffer(str(value).encode(), dtype="|S1").copy()
+
+
+def _ims_write_info(f, *, x, y, z, n_channels, n_timepoints, extents,
+                    channel_names):
+    """The DataSetInfo groups of Imaris 5.5's HDF5 layout."""
+    for k, v in {"ImarisDataSet": "ImarisDataSet", "ImarisVersion": "5.5.0",
+                 "DataSetDirectoryName": "DataSet",
+                 "DataSetInfoDirectoryName": "DataSetInfo",
+                 "ThumbnailDirectoryName": "Thumbnail"}.items():
+        f.attrs[k] = _ims_attr(v)
+    f.attrs["NumberOfDataSets"] = np.uint32(1)
+    dsi = f.create_group("DataSetInfo")
+    img = dsi.create_group("Image")
+    for k, v in (("X", x), ("Y", y), ("Z", z), ("Noc", n_channels),
+                 ("Unit", "um"), *extents.items(),
+                 ("Description", "picasso_torch export")):
+        img.attrs[k] = _ims_attr(v)
+    colors = {"Red": "1.000 0.000 0.000", "Green": "0.000 1.000 0.000",
+              "Blue": "0.000 0.000 1.000"}
+    for ci, name in enumerate(channel_names):
+        ch = dsi.create_group(f"Channel {ci}")
+        ch.attrs["Name"] = _ims_attr(name)
+        ch.attrs["ColorMode"] = _ims_attr("BaseColor")
+        ch.attrs["ColorOpacity"] = _ims_attr("1.000")
+        ch.attrs["Color"] = _ims_attr(colors.get(name, "1.000 1.000 1.000"))
+    tinfo = dsi.create_group("TimeInfo")
+    tinfo.attrs["DatasetTimePoints"] = _ims_attr(n_timepoints)
+    tinfo.attrs["FileTimePoints"] = _ims_attr(n_timepoints)
+    for t in range(n_timepoints):
+        tinfo.attrs[f"TimePoint{t + 1}"] = _ims_attr(
+            f"2000-01-01 00:00:{t % 60:02d}.000")
+    f.create_group("Thumbnail")
+
+
+def _ims_write_block(group, data) -> None:
+    """One channel block: the gzip'd ``Data`` with its size and
+    histogram attributes."""
+    group.create_dataset("Data", data=data, compression="gzip",
+                         compression_opts=2, chunks=True)
+    z, y, x = data.shape
+    group.attrs["ImageSizeX"] = _ims_attr(x)
+    group.attrs["ImageSizeY"] = _ims_attr(y)
+    group.attrs["ImageSizeZ"] = _ims_attr(z)
+    group.attrs["HistogramMin"] = _ims_attr(f"{float(data.min()):.3f}")
+    group.attrs["HistogramMax"] = _ims_attr(f"{float(data.max()):.3f}")
+
+
+def write_ims(path: str, movie, info: list[dict] | None = None, *,
+              pixelsize: float | None = None, channel_name: str = "Red",
+              stacked: bool = False) -> None:
+    """A (T, Y, X) movie as a Bitplane Imaris ``.ims`` file with h5py
+    (the reference's ImarisWriter, picasso/ext/bitplane.py:323): one
+    ``TimePoint`` group a frame with (1, Y, X) blocks, or with
+    ``stacked`` all frames as one z-stack under ``TimePoint 0``, the two
+    layouts :class:`IMSMovie` reads. Extents in um from the pixel size
+    (the info's, else 130 nm; bitplane.py:399-404)."""
+    import h5py
+
+    movie = np.asarray(movie)
+    if movie.ndim != 3:
+        raise ValueError("movie must be (frames, Y, X)")
+    T, Y, X = movie.shape
+    if pixelsize is None and info:
+        pixelsize = lib.get_from_metadata(info, "Pixelsize", default=None)
+    px_um = (pixelsize or 130.0) / 1000.0
+    z = T if stacked else 1
+    extents = {"ExtMin0": 0.0, "ExtMin1": 0.0, "ExtMin2": -z * px_um / 2,
+               "ExtMax0": X * px_um, "ExtMax1": Y * px_um,
+               "ExtMax2": z * px_um / 2}
+    with h5py.File(path, "w") as f:
+        _ims_write_info(f, x=X, y=Y, z=z, n_channels=1,
+                        n_timepoints=1 if stacked else T, extents=extents,
+                        channel_names=[channel_name])
+        level = f.create_group("DataSet").create_group("ResolutionLevel 0")
+        if stacked:
+            _ims_write_block(level.create_group("TimePoint 0").create_group(
+                "Channel 0"), movie)
+        else:
+            for t in range(T):
+                _ims_write_block(level.create_group(
+                    f"TimePoint {t}").create_group("Channel 0"),
+                    movie[t:t + 1])
+
+
+def numpy_to_imaris(array: np.ndarray, filename: str, colors,
+                    oversampling: float, viewport, info: list[dict],
+                    z_min: float, z_max: float, pixelsize: float) -> None:
+    """A rendered (C, Z, Y, X) or (C, Y, X) volume as an Imaris file, one
+    channel a colour name (picasso/ext/bitplane.py:323; extents as
+    bitplane.py:399-428)."""
+    import h5py
+
+    array = np.asarray(array)
+    if array.ndim == 3:
+        array = array[:, None, :, :]
+    C, Z, Y, X = array.shape
+    (y_min, x_min), (y_max, x_max) = viewport
+    first = info[0] if info else {}
+    x_0 = x_min * pixelsize / 1000 + first.get("ExtMin0", 0.0)
+    y_0 = y_min * pixelsize / 1000 + first.get("ExtMin1", 0.0)
+    x_1 = x_max * pixelsize / 1000 + first.get("ExtMin0", 0.0)
+    y_1 = y_max * pixelsize / 1000 + first.get("ExtMin1", 0.0)
+    z_base = (first.get("ExtMin2", 0.0) + first.get("ExtMax2", 0.0)) / 2
+    if z_min == z_max == 0:
+        z_0 = z_base - (Z / 2) * pixelsize / 1000 / oversampling
+        z_1 = z_base + (Z / 2) * pixelsize / 1000 / oversampling
+    else:
+        z_0 = z_base + z_min / 1000
+        z_1 = z_base + z_max / 1000
+    extents = {"ExtMin0": x_0, "ExtMin1": y_0, "ExtMin2": z_0,
+               "ExtMax0": x_1, "ExtMax1": y_1, "ExtMax2": z_1}
+    with h5py.File(filename, "w") as f:
+        _ims_write_info(f, x=X, y=Y, z=Z, n_channels=C, n_timepoints=1,
+                        extents=extents, channel_names=list(colors))
+        tp = f.create_group("DataSet").create_group(
+            "ResolutionLevel 0").create_group("TimePoint 0")
+        for ci in range(C):
+            _ims_write_block(tp.create_group(f"Channel {ci}"), array[ci])
+
+
+# --- exporters and the ThunderSTORM import (picasso/io.py:2291-2538) --------
+
+
+def _savetxt(f, cols, fmt: list[str], delimiter: str = " ") -> None:
+    """np.savetxt(f, column_stack(cols), fmt, delimiter, newline="\\r\\n")
+    into a binary file: the same bytes (each row ``fmt % row``, the cells
+    as Python numbers equal to numpy's), formatted from lists, which is
+    several times faster than savetxt's loop over numpy rows."""
+    row = delimiter.join(fmt) + "\r\n"
+    f.write("".join(row % r for r in zip(*(np.asarray(c).tolist()
+                                           for c in cols))).encode("latin1"))
+
+
+def export_ts(path: str, locs: np.ndarray, info: list[dict]) -> None:
+    """The locs as a ThunderSTORM CSV (picasso/io.py:2291): id, frame
+    from 1, x and y in nm, z as the table holds it, the sigmas, photons,
+    background and the mean lateral precision in nm, each column in its
+    dtype as pandas writes it."""
+    pixelsize = lib.get_from_metadata(info, "Pixelsize", 130)
+    names = locs.dtype.names
+    out = {"id": np.arange(len(locs)), "frame": locs["frame"] + 1,
+           "x [nm]": locs["x"] * pixelsize, "y [nm]": locs["y"] * pixelsize}
+    if "z" in names:
+        out["z [nm]"] = locs["z"]
+    if "sx" in names:
+        out["sigma_x [nm]"] = locs["sx"] * pixelsize
+        out["sigma_y [nm]"] = locs["sy"] * pixelsize
+        out["sigma [nm]"] = (locs["sx"] + locs["sy"]) / 2 * pixelsize
+    if "photons" in names:
+        out["intensity [photon]"] = locs["photons"]
+    if "bg" in names:
+        out["offset [photon]"] = locs["bg"]
+    if "lpx" in names:
+        out["uncertainty_xy [nm]"] = ((locs["lpx"] + locs["lpy"]) / 2
+                                      * pixelsize)
+    lib.write_table(path, out)
+
+
+def export_thunderstorm(path, locs, info):
+    """:func:`export_ts` under the reference's name."""
+    export_ts(path, locs, info)
+
+
+def export_txt_imagej(path: str, locs: np.ndarray, info=None) -> None:
+    """frame, x, y as text for ImageJ, three spaces apart, CRLF lines
+    (picasso/io.py:2380)."""
+    with open(path, "wb") as f:
+        _savetxt(f, [locs[c] for c in ("frame", "x", "y")],
+                 ["%.1i", "%.5f", "%.5f"], "   ")
+
+
+def export_txt_nis(path: str, locs: np.ndarray, info: list[dict]) -> None:
+    """Tab-separated text for NIS Elements with a header, CRLF lines
+    (picasso/io.py:2410): X, Y (and Z) and Width in nm, background and
+    photons rounded half to even, frames from 1; every cell formatted
+    from the table's common dtype, as pandas' to_numpy gives it."""
+    pixelsize = lib.get_from_metadata(info, "Pixelsize", raise_error=True)
+    has_z = "z" in locs.dtype.names
+    one = np.ones(len(locs), np.int64)
+    cols = {"X": locs["x"] * pixelsize, "Y": locs["y"] * pixelsize}
+    if has_z:
+        cols["Z"] = locs["z"]
+    cols.update(Channel=one, Width=locs["sx"] * pixelsize,
+                BG=np.round(locs["bg"]).astype(int), Length=one,
+                Area=np.round(locs["photons"]).astype(int),
+                Frame=locs["frame"].astype(int) + 1)
+    dtype = np.result_type(*cols.values())
+    fmt = (["%.2f", "%.2f"] + (["%.2f"] if has_z else [])
+           + ["%.i", "%.2f", "%.i", "%.i", "%.i", "%.i"])
+    with open(path, "wb") as f:
+        f.write("\t".join(cols).encode() + b"\r\n")
+        _savetxt(f, [c.astype(dtype) for c in cols.values()], fmt, "\t")
+
+
+def _xyz_or_warn(locs: np.ndarray, target: str) -> bool:
+    if "z" not in locs.dtype.names:
+        import warnings
+
+        warnings.warn(f"No z coordinate found; cannot export to {target}.")
+        return False
+    return True
+
+
+def export_xyz_chimera(path: str, locs: np.ndarray, info: list[dict]) -> None:
+    """Molecule, x, y (nm) and z, tab-separated for Chimera, CRLF lines
+    (picasso/io.py:2460); without z it warns and writes nothing."""
+    pixelsize = lib.get_from_metadata(info, "Pixelsize", raise_error=True)
+    if not _xyz_or_warn(locs, ".xyz for Chimera"):
+        return
+    out = [np.ones(len(locs)), locs["x"] * pixelsize, locs["y"] * pixelsize,
+           locs["z"]]
+    dtype = np.result_type(*out)
+    with open(path, "wb") as f:
+        f.write(b"Molecule export\r\n")
+        _savetxt(f, [c.astype(dtype) for c in out],
+                 ["%i", "%.5f", "%.5f", "%.5f"], "\t")
+
+
+def export_3d_visp(path: str, locs: np.ndarray, info: list[dict]) -> None:
+    """x, y (nm), z, photons and frame for ViSP, CRLF lines
+    (picasso/io.py:2500); without z it warns and writes nothing."""
+    pixelsize = lib.get_from_metadata(info, "Pixelsize", raise_error=True)
+    if not _xyz_or_warn(locs, ".3d for ViSP"):
+        return
+    out = [locs["x"] * pixelsize, locs["y"] * pixelsize, locs["z"],
+           locs["photons"], locs["frame"].astype(int)]
+    dtype = np.result_type(*out)
+    with open(path, "wb") as f:
+        _savetxt(f, [c.astype(dtype) for c in out],
+                 ["%.1f", "%.1f", "%.1f", "%.1f", "%d"])
+
+
+# the ThunderSTORM columns import_ts reads: (column, field, scale by 1 /
+# pixel size), in the order the fields are added
+_TS_COLUMNS = (("intensity [photon]", "photons", False),
+               ("offset [photon]", "bg", False),
+               ("sigma_x [nm]", "sx", True), ("sigma_y [nm]", "sy", True),
+               ("sigma [nm]", "sx", True),
+               ("uncertainty_xy [nm]", "lpx", True))
+
+
+def _read_ts(path: str) -> dict[str, np.ndarray]:
+    """A CSV's columns by header name, as f64 (an empty cell NaN)."""
+    import csv
+    from io import StringIO
+
+    with open(path, newline="") as f:
+        header = next(csv.reader(f))
+        body = f.read()
+    if not body.strip():
+        table = np.empty((0, len(header)))
+    else:
+        try:
+            table = np.loadtxt(StringIO(body), delimiter=",", quotechar='"',
+                               ndmin=2)
+        except ValueError:  # empty cells, which pandas reads as NaN
+            table = np.array([[float(v) if v.strip() else np.nan
+                               for v in row]
+                              for row in csv.reader(StringIO(body))])
+    return {name: table[:, i] for i, name in enumerate(header)}
+
+
+def import_ts(path: str, pixelsize: float = 130.0):
+    """A ThunderSTORM CSV as a locs table (picasso/io.py:2539): frame from
+    0 (uint32), x and y in camera pixels and photons, bg, sx, sy, lpx,
+    lpy where the CSV has them (f32; sy and lpy copied from sx and lpx
+    where it has one sigma or precision), with an info block of the
+    field's size. z is not read."""
+    ts = _read_ts(path)
+    cols = {"frame": (ts["frame"] - 1).astype(np.uint32),
+            "x": (ts["x [nm]"] / pixelsize).astype(np.float32),
+            "y": (ts["y [nm]"] / pixelsize).astype(np.float32)}
+    for src, dst, scaled in _TS_COLUMNS:
+        if src in ts and dst not in cols:
+            cols[dst] = (ts[src] * (1 / pixelsize if scaled else 1.0)).astype(
+                np.float32)
+    if "sx" in cols and "sy" not in cols:
+        cols["sy"] = cols["sx"]
+    if "lpx" in cols and "lpy" not in cols:
+        cols["lpy"] = cols["lpx"]
+    locs = np.empty(len(cols["x"]), [(k, v.dtype) for k, v in cols.items()])
+    for k, v in cols.items():
+        locs[k] = v
+    n = len(locs)
+    info = [{
+        "Frames": int(locs["frame"].max()) + 1 if n else 0,
+        "Height": int(np.ceil(locs["y"].max())) + 1 if n else 1,
+        "Width": int(np.ceil(locs["x"].max())) + 1 if n else 1,
+        "Pixelsize": pixelsize,
+        "Generated by": f"Picasso v{__version__} ImportTS",
+    }]
+    return locs, info

@@ -11,7 +11,11 @@ unfold_localizations_square :249, sync_groups :288, the kinetic fits
 deprecation_warning :479, locs_in_polygon :513, locs_in_rectangle :524,
 permutation_test :618, plot_cumulative_exponential_fit :641,
 MockProgress :670, progress_reporter :731, get_pick_polygon_corners
-:828). Locs are
+:828) and of its readers' and filters' helpers (AutoDict :28,
+append_to_rec :100, calculate_optimal_bins :364, hist2d :412,
+extract_filter_steps :550, apply_filter_steps :605, locs_glob_map :748,
+REQUIRED_COLUMNS :784, hist2d_numba :807, is_path_available :814,
+remove_from_rec :836, unpack_calibration :849). Locs are
 numpy structured arrays with the record layout of the HDF5 ``"locs"``
 dataset; :func:`series_mean_std` gives a column the mean and std that
 the JAX package's pandas columns give.
@@ -19,11 +23,31 @@ the JAX package's pandas columns give.
 
 from __future__ import annotations
 
+import csv
+import glob
+import os
 import sys
 from typing import Any, Callable, Literal
 
 import numpy as np
 import torch
+
+
+# Columns that every locs table must carry for 3D analysis
+REQUIRED_COLUMNS = ["frame", "x", "y", "z", "lpx", "lpy", "lpz"]
+
+
+class AutoDict(dict):
+    """A dict that creates nested AutoDicts on missing keys
+    (picasso/lib.py:608)."""
+
+    def __getitem__(self, key):
+        try:
+            return super().__getitem__(key)
+        except KeyError:
+            value = type(self)()
+            self[key] = value
+            return value
 
 
 def resolve_device(device) -> torch.device:
@@ -106,6 +130,46 @@ def locs_table(cols: list, sort_key: str) -> np.ndarray:
         buf = buf[:, np.argsort(k, kind="stable")]
     dtype = np.dtype([(name, dt) for name, dt, _ in cols])
     return np.ascontiguousarray(buf.T).view(dtype)[:, 0]
+
+
+def append_to_rec(locs: np.ndarray, data, name: str) -> np.ndarray:
+    """``locs`` with the field ``name`` set to ``data`` in its dtype: in
+    place of an existing field of that name (its position kept, as a
+    pandas column assignment does), else appended (picasso/lib.py:1660).
+    A new array; ``locs`` is not changed."""
+    data = np.asarray(data)
+    names = locs.dtype.names
+    dtype = [(n, data.dtype if n == name else locs.dtype[n]) for n in names]
+    if name not in names:
+        dtype.append((name, data.dtype))
+    out = np.empty(len(locs), dtype)
+    for n in names:
+        if n != name:
+            out[n] = locs[n]
+    out[name] = data
+    return out
+
+
+def drop_fields(locs: np.ndarray, names) -> np.ndarray:
+    """``locs`` without the fields ``names``, the others in order."""
+    out = np.empty(len(locs), [(n, locs.dtype[n]) for n in locs.dtype.names
+                               if n not in names])
+    for n in out.dtype.names:
+        out[n] = locs[n]
+    return out
+
+
+def remove_from_rec(rec_array, name):
+    """Deprecated recarray column removal (picasso/lib.py:2087)."""
+    from numpy.lib.recfunctions import drop_fields as _drop
+
+    deprecation_warning(
+        "remove_from_rec is deprecated: localization tables are pandas"
+        " DataFrames now, so drop columns with"
+        " locs.drop(columns='name') instead. The recarray helper will"
+        " go away in a future release."
+    )
+    return _drop(rec_array, name, usemask=False, asrecarray=True)
 
 
 def merge_locs(locs_list: list[np.ndarray],
@@ -540,3 +604,224 @@ def progress_reporter(
     if progress == "console":
         return ConsoleProgress(total, description)
     return MockProgress()
+
+
+# --- histograms -------------------------------------------------------------
+
+
+def calculate_optimal_bins(data: np.ndarray, max_n_bins: int | None = None,
+                           sample_size: int = 1_000_000) -> np.ndarray:
+    """Display bin edges sized by the Freedman–Diaconis rule (width = 2
+    IQR n^(-1/3); picasso/lib.py:1540). The IQR comes from a subsample
+    drawn with default_rng(0) above ``sample_size`` values; integer data
+    never bins finer than 1, and the first edge sits half a bin below the
+    minimum."""
+    data = np.asarray(data)
+    n = len(data)
+    if n == 0:
+        return np.array([0.0, 1.0])
+    is_float = data.dtype.kind == "f"
+    lo = np.nanmin(data) if is_float else data.min()
+    hi = np.nanmax(data) if is_float else data.max()
+    sample = data
+    if n > sample_size:
+        idx = np.random.default_rng(0).choice(n, sample_size, replace=False)
+        sample = data[idx]
+    if is_float:
+        sample = sample[np.isfinite(sample)]
+        if not len(sample):
+            return np.array([lo - 1.0, hi + 1.0])
+    q1, q3 = np.quantile(sample, [0.25, 0.75])
+    iqr = q3 - q1
+    if iqr == 0:
+        return np.array([data[0] - 1.0, data[0] + 1.0])
+    width = 2.0 * iqr / np.cbrt(n)
+    if data.dtype.kind in "ui":
+        width = max(width, 1)
+    start = lo - width / 2
+    try:
+        n_bins = int((hi - start) / width)
+    except (ValueError, OverflowError):
+        n_bins = 10
+    if max_n_bins:
+        n_bins = min(n_bins, max_n_bins)
+    return np.linspace(start, hi, n_bins)
+
+
+def hist2d(x, y, x_min: float, x_max: float, y_min: float, y_max: float,
+           nx: int, ny: int) -> np.ndarray:
+    """Uniform-bin 2D histogram on the host, counts[ix, iy]; values on
+    the right edge fall into the last bin, as in np.histogram2d
+    (picasso/lib.py:1602)."""
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    finite = np.isfinite(x) & np.isfinite(y)
+    x, y = x[finite], y[finite]
+    dx = (x_max - x_min) / nx
+    dy = (y_max - y_min) / ny
+    ix = ((x - x_min) / dx).astype(np.int64)
+    iy = ((y - y_min) / dy).astype(np.int64)
+    ix[ix == nx] = nx - 1
+    iy[iy == ny] = ny - 1
+    keep = (ix >= 0) & (ix < nx) & (iy >= 0) & (iy < ny)
+    counts = np.bincount(ix[keep] * ny + iy[keep], minlength=nx * ny)
+    return counts.reshape(nx, ny)
+
+
+def hist2d_numba(x, y, x_min, x_max, y_min, y_max, nx, ny):
+    """:func:`hist2d` under the reference's name (picasso/lib.py:1603)."""
+    return hist2d(x, y, x_min, x_max, y_min, y_max, nx, ny)
+
+
+# --- filters recorded in the info chain --------------------------------------
+
+
+def extract_filter_steps(info: list[dict], current_columns):
+    """The [min, max] ranges that Filter stages recorded in the info
+    chain (intersected where a field is filtered twice), the fields they
+    removed, and the filtered fields the table no longer has
+    (picasso/lib.py:923)."""
+    current = set(current_columns)
+    ranges: dict[str, list[float]] = {}
+    to_remove: list[str] = []
+    missing: list[str] = []
+
+    def add(col, lo, hi):
+        if col not in current:
+            missing.append(col)
+            return
+        lo, hi = float(lo), float(hi)
+        if col in ranges:
+            ranges[col][0] = max(ranges[col][0], lo)
+            ranges[col][1] = min(ranges[col][1], hi)
+        else:
+            ranges[col] = [lo, hi]
+
+    for d in info:
+        if not isinstance(d, dict):
+            continue
+        if "Filter" not in str(get_from_metadata(d, "Generated by",
+                                                 default="")):
+            continue
+        entries = d.get("Filters", None)
+        if isinstance(entries, list):
+            # the Filter app's list of {Column, Min, Max}
+            for e in entries:
+                if e.get("Column") is not None:
+                    add(e["Column"], e["Min"], e["Max"])
+            continue
+        for key, value in d.items():
+            if key == "Generated by":
+                continue
+            if key == "Removed columns" and isinstance(value, list):
+                to_remove.extend(c for c in value if c in current)
+            elif (isinstance(value, (list, tuple)) and len(value) == 2
+                  and all(isinstance(v, (int, float)) for v in value)):
+                add(key, *value)
+    return ranges, to_remove, missing
+
+
+def apply_filter_steps(locs: np.ndarray, info: list[dict]):
+    """Apply the filters recorded in the info chain
+    (:func:`extract_filter_steps`; picasso/lib.py:998): each range
+    keeps the values strictly inside it. Returns (locs, ranges,
+    removed fields, missing fields)."""
+    ranges, to_remove, missing = extract_filter_steps(info,
+                                                      locs.dtype.names)
+    for field, (xmin, xmax) in ranges.items():
+        locs = locs[(locs[field] > xmin) & (locs[field] < xmax)]
+    if to_remove:
+        locs = drop_fields(locs, to_remove)
+    return locs, ranges, to_remove, missing
+
+
+# --- files ------------------------------------------------------------------
+
+
+def write_csv(path: str, columns: list[str], rows) -> None:
+    """A CSV as pandas' to_csv writes it: a header row, then ``rows`` of
+    strings, quoted where needed, each line ending in a newline."""
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(columns)
+        w.writerows(rows)
+
+
+def csv_strings(values) -> np.ndarray:
+    """A column's cells as pandas' to_csv writes them without a
+    float_format: the shortest repr of each value in the column's own
+    dtype (an f32 0.1 as "0.1"), NaN as an empty cell."""
+    values = np.asarray(values)
+    out = values.astype(str)
+    if values.dtype.kind == "f":
+        out[np.isnan(values)] = ""
+    return out
+
+
+def write_table(path: str, table: dict) -> None:
+    """``pd.DataFrame(table).to_csv(path, index=False)`` of a dict of
+    equal-length columns. Numeric cells need no quoting, so a numeric
+    table of two or more columns is joined as text, which is several
+    times faster than csv's writer; other tables go through it."""
+    cells = [csv_strings(v) for v in table.values()]
+    if len(cells) < 2 or any(np.asarray(v).dtype.kind not in "biuf"
+                             for v in table.values()):
+        write_csv(path, list(table), zip(*cells))
+        return
+    with open(path, "w", newline="") as f:
+        csv.writer(f, lineterminator="\n").writerow(list(table))
+        f.writelines(",".join(row) + "\n"
+                     for row in zip(*(c.tolist() for c in cells)))
+
+
+def locs_glob_map(func: Callable, pattern: str, args=(), kwargs=None,
+                  extension: str = "") -> list:
+    """``func(locs, info, path, *args, **kwargs)`` on every locs file that
+    matches ``pattern``; with ``extension`` each result (locs, info) is
+    saved as ``<base>_<extension>.hdf5`` (picasso/lib.py:2112)."""
+    from picasso_torch import io
+
+    results = []
+    for path in glob.glob(pattern):
+        locs, info = io.load_locs(path)
+        result = func(locs, info, path, *args, **(kwargs or {}))
+        if extension:
+            out_locs, out_info = result
+            io.save_locs(os.path.splitext(path)[0] + "_" + extension
+                         + ".hdf5", out_locs, out_info)
+        results.append(result)
+    return results
+
+
+def is_path_available(path, *, check_ext="", parent=None):
+    """For ``path``, or its base with each extension of ``check_ext``,
+    whether nothing exists there yet (picasso/lib.py:1121). ``parent``
+    (the reference's Qt overwrite prompt) is accepted and never
+    prompts."""
+    if check_ext:
+        if isinstance(check_ext, str):
+            check_ext = [check_ext]
+        paths = [os.path.splitext(path)[0] + ext for ext in check_ext]
+    else:
+        paths = [path]
+    return [not os.path.exists(p) for p in paths]
+
+
+def unpack_calibration(calibration, pixelsize):
+    """Deprecated 3D-calibration unpacking for G5M: per-z spot
+    width/height from the polynomial coefficients, the z grid in camera
+    pixels, and the magnification factor (picasso/lib.py:1488)."""
+    deprecation_warning(
+        "unpack_calibration is deprecated and slated for removal:"
+        " 3D G5M now consumes the x/y polynomial coefficients"
+        " directly and no longer needs the unpacked grid."
+    )
+    cx = calibration["X Coefficients"]
+    cy = calibration["Y Coefficients"]
+    z_step_size = calibration["Step size in nm"]
+    n_frames = calibration["Number of frames"]
+    mag_factor = calibration["Magnification factor"]
+    z_total_range = (n_frames - 1) * z_step_size
+    z_range = -(np.arange(n_frames) * z_step_size - z_total_range / 2)
+    spot_size = np.stack((np.polyval(cx, z_range), np.polyval(cy, z_range)))
+    return spot_size, z_range / pixelsize, mag_factor

@@ -1,10 +1,13 @@
-"""Rendering primitives of the port on the device: the histogram
-scatter-add, the per-loc Gaussian splat and the separable Gaussian
+"""Rendering primitives of the port on the device: the 2D and 3D
+histogram scatter-adds, the per-loc Gaussian splats (separable, and of a
+general 2x2 covariance for rotated views) and the separable Gaussian
 filter of the ``smooth`` and ``convolve`` blurs, in plain PyTorch.
 
-Counterpart of picasso_tpu/ops/render_ops.py (hist2d :40, gaussian_splat
-:289 with its host loop _splat_bucket_host :138, its tile splat
-_splat_tiles_kernel :437 and its bucketed _splat_bucket_device :97) and
+Counterpart of picasso_tpu/ops/render_ops.py (hist2d :40, hist3d :73,
+gaussian_splat_cov :227 with its host loop _splat_cov_host :202 and its
+bucketed _splat_cov_bucket_device :157, gaussian_splat :289 with its
+host loop _splat_bucket_host :138, its tile splat _splat_tiles_kernel
+:437 and its bucketed _splat_bucket_device :97) and
 of the filter that picasso_tpu/render.py:269 (_fftconvolve) takes from
 scipy.ndimage. Every window follows the reference's _draw_gaussian_loc
 (picasso/render.py:495): rows [int(y - 3 sy), int(y + 3 sy + 1)) and
@@ -63,6 +66,27 @@ def hist2d(x: torch.Tensor, y: torch.Tensor, ny: int, nx: int) -> torch.Tensor:
     img.index_add_(0, flat, torch.ones(flat.shape, dtype=torch.float32,
                                        device=x.device))
     return img[:-1].view(ny, nx)
+
+
+def hist3d(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor, ny: int,
+           nx: int, nz: int) -> torch.Tensor:
+    """Counts of the locs per voxel of a (ny, nx, nz) volume, truncated
+    as :func:`hist2d` truncates (f32 from :data:`DEVICE_MIN_LOCS` locs
+    on). z keeps the reference's quirk that JAX reproduces: its bins are
+    shifted up by their own minimum (picasso/render.py:490)."""
+    if len(x) >= DEVICE_MIN_LOCS:
+        x, y, z = (t.to(torch.float32) for t in (x, y, z))
+    xi, yi, zi = (t.to(torch.int64) for t in (x, y, z))
+    if len(zi):
+        zi = zi + zi.min()
+    ok = ((xi >= 0) & (xi < nx) & (yi >= 0) & (yi < ny) & (zi >= 0)
+          & (zi < nz))
+    size = ny * nx * nz
+    flat = torch.where(ok, (yi * nx + xi) * nz + zi, size)
+    img = torch.zeros(size + 1, dtype=torch.float32, device=x.device)
+    img.index_add_(0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                                       device=x.device))
+    return img[:-1].view(ny, nx, nz)
 
 
 def _windows(x, y, ox, oy, ny: int, nx: int):
@@ -157,6 +181,97 @@ def gaussian_splat(x: torch.Tensor, y: torch.Tensor, sx: torch.Tensor,
             _splat_bucket(img, x[i], y[i], sx[i], sy[i],
                           tuple(w[i] for w in win), W, nx, device_route)
         lo, W = W, 2 * W
+    return img[:-1].view(ny, nx).to(torch.float32)
+
+
+def _splat_cov_bucket(img, x, y, inv, norm, win, W: int, nx: int) -> None:
+    """Add the Gaussians of inverse covariances ``inv`` (inv00, inv01,
+    inv11) of locs whose windows ``win`` fit (W, W) to the flat image
+    ``img`` (ny * nx + 1 slots, the last one dropped), in the dtype of
+    ``x``, the quadratic form in the order of JAX's device route."""
+    i_min, i_max, j_min, j_max = win
+    inv00, inv01, inv11 = (v[:, None, None] for v in inv)
+    k = torch.arange(W, device=x.device)
+    rows = i_min[:, None] + k[None, :]  # (n, W)
+    cols = j_min[:, None] + k[None, :]
+    dy = (rows.to(x.dtype) + 0.5) - y[:, None]
+    dx = (cols.to(x.dtype) + 0.5) - x[:, None]
+    q = (inv00 * (dx * dx)[:, None, :]
+         + 2.0 * inv01 * dy[:, :, None] * dx[:, None, :]
+         + inv11 * (dy * dy)[:, :, None])
+    ok = (rows < i_max[:, None])[:, :, None] & (cols < j_max[:, None])[:,
+                                                                      None]
+    vals = torch.where(ok, norm[:, None, None] * torch.exp(-0.5 * q), 0.0)
+    flat = torch.where(ok, rows[:, :, None] * nx + cols[:, None, :],
+                       img.numel() - 1)
+    img.index_add_(0, flat.reshape(-1), vals.reshape(-1).to(img.dtype))
+
+
+def gaussian_splat_cov(x: torch.Tensor, y: torch.Tensor, covs: torch.Tensor,
+                       ny: int, nx: int) -> torch.Tensor:
+    """Each loc as a 2D Gaussian of its own (2, 2) covariance ``covs``
+    (n, 2, 2): the splat of rotated views, whose 3D covariances are
+    rotated and projected to 2D (picasso/render.py:579-680). The inverse,
+    the norm 1 / (2 pi sqrt(det)) and the window offsets 3 sqrt(c00), 3
+    sqrt(c11) are formed in f64, as JAX forms them; a covariance whose
+    determinant is not above 0 renders nothing. Below
+    :data:`DEVICE_MIN_LOCS` locs JAX's host route: f64 coordinates, rows
+    [int(y - ey), int(y + ey + 1)) and columns [int(x - ex), int(x + ex)
+    + 1) clamped to the image, each window whole, the weights summed in
+    f64 and rounded once (JAX rounds after each loc). From it JAX's
+    device route, all in f32: the locs in buckets of W = 8, 16, ..., TILE
+    pixels by 2 max(ex, ey) + 2, the offsets clamped to (W - 2) / 2, the
+    last bucket taking the rest; each bucket in batches of about
+    ``_BATCH_PIXELS`` window pixels."""
+    f64 = torch.float64
+    c00, c01, c11 = (covs[:, i, j].to(f64) for i, j in ((0, 0), (0, 1),
+                                                         (1, 1)))
+    det = c00 * c11 - c01 * c01
+    ok = det > 0
+    d = torch.where(ok, det, 1.0)
+    inv = (torch.where(ok, c11 / d, 0.0), torch.where(ok, -c01 / d, 0.0),
+           torch.where(ok, c00 / d, 0.0))
+    norm = torch.where(ok, 1.0 / (2 * math.pi * torch.sqrt(
+        det.clamp(min=1e-30))), 0.0)
+    ex = DRAW_MAX_SIGMA * torch.sqrt(c00.clamp(min=0))
+    ey = DRAW_MAX_SIGMA * torch.sqrt(c11.clamp(min=0))
+    device_route = len(x) >= DEVICE_MIN_LOCS
+    ft = torch.float32 if device_route else f64
+    x, y, norm, ox, oy = (t.to(ft) for t in (x, y, norm, ex, ey))
+    inv = tuple(v.to(ft) for v in inv)
+    img = torch.zeros(ny * nx + 1, dtype=ft, device=x.device)
+
+    def splat(sel, W, win):
+        """The locs ``sel`` in batches; ``win`` holds their windows."""
+        step = max(1, _BATCH_PIXELS // (W * W))
+        for s in range(0, len(sel), step):
+            i = sel[s:s + step]
+            _splat_cov_bucket(img, x[i], y[i], tuple(v[i] for v in inv),
+                              norm[i], tuple(w[s:s + step] for w in win), W,
+                              nx)
+
+    if device_route:
+        need = 2 * torch.maximum(ex, ey) + 2
+        left = ok
+        for W in (8, 16, 32, 64, TILE):
+            take = left & (need <= W) if W < TILE else left
+            left = left & ~take
+            sel = torch.nonzero(take).squeeze(1)
+            cap = (W - 2) / 2.0
+            xs, ys = x[sel], y[sel]
+            oxs, oys = ox[sel].clamp(max=cap), oy[sel].clamp(max=cap)
+            splat(sel, W, _clamped(ys - oys, ys + oys + 1, xs - oxs,
+                                   xs + oxs, ny, nx))
+    else:
+        win = _clamped(y - oy, y + oy + 1, x - ox, x + ox, ny, nx)
+        extent = torch.where(ok, torch.maximum(win[1] - win[0],
+                                               win[3] - win[2]), 0)
+        W, lo = 8, 0
+        top = int(extent.max()) if len(x) else 0
+        while lo < top:
+            sel = torch.nonzero((extent > lo) & (extent <= W)).squeeze(1)
+            splat(sel, W, tuple(w[sel] for w in win))
+            lo, W = W, 2 * W
     return img[:-1].view(ny, nx).to(torch.float32)
 
 

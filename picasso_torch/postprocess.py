@@ -238,7 +238,7 @@ def picked_locs(locs: np.ndarray, info: list[dict], picks: list,
                 extra.append(("group", np.full(len(idx), i, np.int32)))
             group = locs[idx]
             for name, values in extra:
-                group = _set_field(group, name, values)
+                group = lib.append_to_rec(group, values, name)
             out.append(group[np.argsort(group["frame"], kind="stable")])
     return out
 
@@ -474,20 +474,6 @@ def align_from_picked(all_locs: list[np.ndarray], infos: list, *,
 # ---------------------------------------------------------------------------
 
 
-def _set_field(locs: np.ndarray, name: str, values) -> np.ndarray:
-    """``locs`` with the field ``name`` set to ``values`` in their dtype:
-    in place of an existing field of that name (its position kept, as a
-    pandas column assignment does), else appended."""
-    values = np.asarray(values)
-    if name not in locs.dtype.names:
-        return _with_fields(locs, [(name, values)])
-    out = np.empty(len(locs), [(n, values.dtype if n == name else
-                                locs.dtype[n]) for n in locs.dtype.names])
-    for n in locs.dtype.names:
-        out[n] = values if n == name else locs[n]
-    return out
-
-
 def _xy(locs: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:
     return tuple(torch.from_numpy(np.ascontiguousarray(locs[c])).to(
         device, torch.float64) for c in ("x", "y"))
@@ -531,7 +517,8 @@ def compute_local_density(locs: np.ndarray, info: list[dict], radius: float,
     locs = lib.ensure_sanity(locs, info)
     x, y = _xy(locs, device)
     counts = neighbors.radius_count(x, y, radius)
-    return _set_field(locs, "density", counts.cpu().numpy().astype(np.uint32))
+    return lib.append_to_rec(locs, counts.cpu().numpy().astype(np.uint32),
+                             "density")
 
 
 def nn_analysis(X1: np.ndarray, X2: np.ndarray, nn_count: int, *,
@@ -848,7 +835,7 @@ def link(locs: np.ndarray, info: list[dict], r_max: float = 0.05,
             extra.append(("photon_rate", np.array([], np.float32)))
         out = locs
         for name, v in extra:
-            out = _set_field(out, name, v)
+            out = lib.append_to_rec(out, v, name)
         return out
     if combine_mode != "average":
         raise NotImplementedError(
@@ -991,7 +978,7 @@ def compute_dark_times(locs: np.ndarray, group=None, *, device="cuda"
         raise AttributeError(
             "Length not found. Please link localizations first.")
     dark = dark_times(locs, group, device=device)
-    return _set_field(locs, "dark", dark)[dark != -1]
+    return lib.append_to_rec(locs, dark, "dark")[dark != -1]
 
 
 # ---------------------------------------------------------------------------
@@ -1141,10 +1128,10 @@ def cluster_combine_dist(locs: np.ndarray, pixelsize: float | None = None, *,
     out = locs
     if has_z:
         z = locs["z"] / np.asarray(pixelsize).astype(locs["z"].dtype)
-        out = _set_field(out, "min_dist", nn2(xy + [z]))
-        out = _set_field(out, "mind_dist_xy", nn2(xy))
+        out = lib.append_to_rec(out, nn2(xy + [z]), "min_dist")
+        out = lib.append_to_rec(out, nn2(xy), "mind_dist_xy")
     else:
-        out = _set_field(out, "min_dist", nn2(xy))
+        out = lib.append_to_rec(out, nn2(xy), "min_dist")
     return out
 
 
@@ -1536,14 +1523,6 @@ def combine_locs_in_picks(locs: np.ndarray, info: list[dict], *,
     return _by_pick(linked)
 
 
-def _without_field(locs: np.ndarray, name: str) -> np.ndarray:
-    out = np.empty(len(locs), [(n, locs.dtype[n]) for n in locs.dtype.names
-                               if n != name])
-    for n in out.dtype.names:
-        out[n] = locs[n]
-    return out
-
-
 def _pick_events(picked: list[np.ndarray], info: list[dict],
                  max_dark_time: int, device):
     """The events of every pick with their dark times, as JAX's loop over
@@ -1563,7 +1542,7 @@ def _pick_events(picked: list[np.ndarray], info: list[dict],
     if "group" in names:
         pairs["group"] = cat["group"]
     keys, key = np.unique(pairs, return_inverse=True)
-    events = _set_field(cat, "group", key.ravel().astype(np.int64))
+    events = lib.append_to_rec(cat, key.ravel().astype(np.int64), "group")
     if "len" not in names:
         events = link(events, info, r_max=999999,
                       max_dark_time=max_dark_time, device=device)
@@ -1572,12 +1551,12 @@ def _pick_events(picked: list[np.ndarray], info: list[dict],
     key = events["group"]
     dark = dark_times(events, key, device=device)
     if "group" in names:
-        events = _set_field(events, "group",
-                            keys["group"][key].astype(cat.dtype["group"]))
+        events = lib.append_to_rec(
+            events, keys["group"][key].astype(cat.dtype["group"]), "group")
     else:
-        events = _without_field(events, "group")
+        events = lib.drop_fields(events, ["group"])
     keep = dark != -1
-    events = _set_field(events, "dark", dark)[keep]
+    events = lib.append_to_rec(events, dark, "dark")[keep]
     return events, keys["pick"][key][keep]
 
 
@@ -1700,7 +1679,8 @@ def pick_properties(picked_locs_list: list[np.ndarray], info: list[dict], *,
         if values.ndim and len(values) != len(props):
             raise ValueError(f"Length of values ({len(values)}) does not "
                              f"match length of index ({len(props)})")
-        props = _set_field(props, name, np.broadcast_to(values, len(props)))
+        props = lib.append_to_rec(props, np.broadcast_to(values, len(props)),
+                                  name)
     return props
 
 

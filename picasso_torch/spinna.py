@@ -127,13 +127,6 @@ find_target_counts = _find_target_counts
 get_structures_permutation = _get_structures_permutation
 
 
-def _write_csv(path: str, columns: list[str], rows) -> None:
-    with open(path, "w", newline="") as f:
-        w = csv.writer(f, lineterminator="\n")
-        w.writerow(columns)
-        w.writerows(rows)
-
-
 def generate_N_structures(structures, N_total: dict, granularity: int,
                           save: str = "") -> dict:
     """The stoichiometry search space: every non-negative integer count
@@ -182,7 +175,7 @@ def generate_N_structures(structures, N_total: dict, granularity: int,
         N_structures = N_structures.astype(np.int32)
         out = {s.title: N_structures[:, i] for i, s in enumerate(structures)}
     if save:
-        _write_csv(save, list(out), zip(*out.values()))
+        lib.write_csv(save, list(out), zip(*out.values()))
     return out
 
 
@@ -1071,10 +1064,10 @@ class SPINNA:
                 props = props.reshape(1, -1)
             names = self.mixer.get_structure_names()
             table = np.hstack((N_structures, props, scores.reshape(-1, 1)))
-            _write_csv(save, [f"N_{n}" for n in names]
-                       + [f"Prop_{n}" for n in names]
-                       + ["Kolmogorov-Smirnov statistic"],
-                       ([repr(float(v)) for v in row] for row in table))
+            lib.write_csv(save, [f"N_{n}" for n in names]
+                          + [f"Prop_{n}" for n in names]
+                          + ["Kolmogorov-Smirnov statistic"],
+                          ([repr(float(v)) for v in row] for row in table))
         if bootstrap:
             result = self._run_bootstrap(N_structures, opt_N, opt_props,
                                          score, callback)
@@ -1493,8 +1486,8 @@ def _write_summary(path: str, summary: list[dict]) -> None:
     as_float = {c: any(c not in row for row in summary) or any(
         isinstance(row.get(c), (float, np.floating)) for row in summary)
         for c in columns}
-    _write_csv(path, columns, ([_csv_cell(row.get(c), as_float[c])
-                                for c in columns] for row in summary))
+    lib.write_csv(path, columns, ([_csv_cell(row.get(c), as_float[c])
+                                   for c in columns] for row in summary))
 
 
 def batch_analysis(parameters_filename: str, asynch: bool = True,

@@ -1399,3 +1399,79 @@ def test_mask_on_the_card_equals_the_cpu(dev):
             mask, masking.mask_image(image["cpu"], method))
     inside, outside = masking.mask_locs(locs, mask, info=info)
     assert len(inside) + len(outside) == len(locs)
+
+
+def _locs3d(n, seed):
+    """3D locs over a 64 px field, z and lpz in camera pixels."""
+    rng = np.random.default_rng(seed)
+    locs = np.zeros(n, [("frame", np.uint32), ("x", np.float32),
+                        ("y", np.float32), ("z", np.float32),
+                        ("lpx", np.float32), ("lpy", np.float32),
+                        ("lpz", np.float32)])
+    locs["x"], locs["y"] = rng.uniform(-1, 65, (2, n))
+    locs["z"] = rng.uniform(-3, 3, n)
+    locs["lpx"], locs["lpy"] = rng.uniform(0.02, 0.3, (2, n))
+    locs["lpz"] = rng.uniform(0.05, 0.6, n)
+    return locs, [{"Frames": 10, "Height": 64, "Width": 64,
+                   "Pixelsize": 130}]
+
+
+@pytest.mark.parametrize("blur", [None, "gaussian", "gaussian_iso", "smooth",
+                                  "convolve"])
+@pytest.mark.parametrize("device_route", [False, True])
+def test_render3d_rotated_view_on_the_card_matches_the_cpu(
+        dev, blur, device_route, monkeypatch):
+    """A tilted view of every blur on both of JAX's routes: histograms,
+    smooth and convolve equal (the rotation in f64 on either side), the
+    covariance splats within 1e-5 of the image max."""
+    from picasso_torch import render
+    from picasso_torch.ops import render_ops
+
+    if device_route:
+        monkeypatch.setattr(render_ops, "DEVICE_MIN_LOCS", 0)
+    locs, info = _locs3d(6000, 8)
+    kw = dict(oversampling=5.3, viewport=((3.3, 2.7), (60.1, 61.9)),
+              blur_method=blur, ang=(0.3, 0.5, 0.2), min_blur_width=0.01)
+    ng, g = render.render(locs, info, device=dev, **kw)
+    nc, c = render.render(locs, info, device="cpu", **kw)
+    assert ng == nc > 4000
+    if blur in (None, "smooth", "convolve"):
+        np.testing.assert_array_equal(g, c)
+    else:
+        assert np.abs(g - c).max() <= 1e-5 * c.max()
+
+
+def test_render3d_hist3d_on_the_card_equals_the_cpu(dev, monkeypatch):
+    from picasso_torch import render
+    from picasso_torch.ops import render_ops
+
+    locs, _ = _locs3d(20000, 9)
+    args = (locs["x"], locs["y"], locs["z"] * 130, 3.0, 2.0, 1.0, 60.0, 62.0,
+            -300.0, 320.0, 130)
+    for threshold in (render_ops.DEVICE_MIN_LOCS, 0):
+        monkeypatch.setattr(render_ops, "DEVICE_MIN_LOCS", threshold)
+        ng, g = render.render_hist3d(*args, device=dev)
+        nc, c = render.render_hist3d(*args, device="cpu")
+        assert ng == nc == g.sum() and g.shape == c.shape
+        np.testing.assert_array_equal(g, c)
+
+
+def test_scene_on_the_card_matches_the_cpu(dev):
+    """Two channels with LUT colours and one with a LUT colormap, as the
+    card's machine (no matplotlib) renders them: within one level."""
+    from picasso_torch import render
+
+    chans = [_locs3d(4000, s) for s in (10, 11)]
+    # LUTs that rise by less than a level an index
+    luts = [render.solid_to_lut((1, 0.4, 0)), render.stops_to_lut(
+        [(0, 0, 0, 0), (0.5, 0.2, 0.4, 0.45), (1, 0.65, 0.85, 0.9)])]
+    for locs, info, kw in (
+            ([c[0] for c in chans], [c[1] for c in chans],
+             dict(colors=luts)),
+            (chans[0][0], chans[0][1],
+             dict(single_channel_colormap=luts[1]))):
+        kw.update(disp_px_size=20.0, blur_method="gaussian")
+        g = render.render_scene(locs, info, device=dev, **kw)
+        c = render.render_scene(locs, info, device="cpu", **kw)
+        assert g[1] == c[1] and g[0].shape == c[0].shape
+        assert np.abs(g[0].astype(int) - c[0]).max() <= 1

@@ -53,7 +53,8 @@ def test_every_module_imports_without_jax():
               "io", "stream", "avgroi", "zfit", "aim", "ops.neighbors",
               "ops.link", "masking", "clusterer", "ops.cluster", "g5m",
               "ops.gmm", "average", "spinna", "ops.spinna_batch",
-              "nanotron", "average3", "simulate"):
+              "nanotron", "average3", "simulate", "spatial_index",
+              "profiling"):
         assert "picasso_torch." + m in mods
     from picasso_torch import io, lib, masking, postprocess
 
@@ -64,7 +65,12 @@ def test_every_module_imports_without_jax():
             (masking, ("mask_locs", "generate_image", "mask_image",
                        "THRESHOLD_METHODS", "threshold_yen")),
             (lib, ("pick_areas", "estimate_kinetic_rate",
-                   "unfold_localizations_square")),
+                   "unfold_localizations_square", "AutoDict",
+                   "append_to_rec", "remove_from_rec",
+                   "calculate_optimal_bins", "hist2d", "hist2d_numba",
+                   "extract_filter_steps", "apply_filter_steps",
+                   "locs_glob_map", "REQUIRED_COLUMNS", "is_path_available",
+                   "unpack_calibration")),
             (io, ("load_picks", "save_picks"))):
         for name in names:
             assert hasattr(module, name), (module.__name__, name)
