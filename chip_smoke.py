@@ -245,6 +245,24 @@ Phases, each of which raises on failure (exit code != 0):
    of the 3D locs into a temporary folder of the checkout, import_ts of
    the ThunderSTORM file back (frames equal, x and y within 2 f32 ulps).
    Path ``render3d`` launches no kernel;
+23. several devices in one process (picasso_torch/parallel): (a) a mesh
+   of every visible card, or MESH_SHARDS logical shards (in turns) of
+   the one card, its cards and shards printed; (b) the main
+   path, localize_fused MLE sigmaxy on the smoke movie over the mesh and
+   on one card in MESH_TURNS turns, hits equal and theta/crlb/ll/iters
+   bit for bit, both walls, the K4/K5 launches a shard (path ``mesh``);
+   (c) fit_mle_sharded (both methods) and fit_lq_sharded on N_SPOTS
+   make_spots == gaussmle / fit_spots_batched on one card bit for bit
+   (paths ``mesh-fits``, ``mesh-fits-sigma``); (d) identify_sharded ==
+   identify_frames, render_hist_sharded's sum == the locs in view,
+   pair_xcorrs_sharded on phase 7's segments against pair_xcorrs (path
+   ``mesh-stages``), spinna_score_sharded on phase 19's candidates bit for
+   bit, fit_g5m_clusters_sharded on a bucket of phase 18's origami
+   against the unsharded fit (the clusters equal bit for bit reported)
+   and g5m over the mesh by compare_g5m (``mesh-spinna``,
+   ``mesh-g5m``: no kernel); (e) dryrun_multichip over the mesh
+   (``mesh-dryrun``); with two or more cards, each shard's outputs on its
+   own card;
 IMS and STK movies are checked on the CPU only (tests/test_torch_io.py):
 the machine with the card has no h5py.
 The line before the last is the JSON record of every kernel (bound_ms:
@@ -397,6 +415,16 @@ MASK_PX, MASK_BLUR = 65.0, 100.0
 # 10 at 130 nm); and the viewports (y0, x0), (y1, x1) px of the render
 # index's queries, the last the whole field (bypassed)
 TILT = (0.3, 0.5, 0.2)
+# phase 23: several devices in one process (picasso_torch/parallel): the
+# shards a mesh holds when one card is visible (logical shards, in
+# turns), the turns of the main path on one card and over the
+# mesh, the seed of the SPINNA draws, and G5M's K and starts of the
+# direct bucket fit
+MESH_SHARDS = 4
+MESH_TURNS = 3
+MESH_SPINNA_SEED = 23
+MESH_G5M_K, MESH_G5M_STARTS = 11, 3
+
 # the min. blur (px) of phase 22's renders, as a user sets it in Render:
 # each splat at least 0.5 display px wide, so that its sum over the pixel
 # centres is within a few % of its mass wherever the loc sits (the
@@ -1376,7 +1404,7 @@ def origami_phase(counted, smi: str):
           f"(each a near tie within {PICK_TIE}); after {AVG_IT} iterations "
           f"the largest x/y difference {dxy:.3e} px; card "
           f"{full['cuda s']:.3f} s, CPU {full['cpu s']:.3f} s")
-    return launches_g5m, launches_avg
+    return launches_g5m, launches_avg, (clustered, info, ids)
 
 
 def _spinna_bound(scorer, rows) -> tuple[float, str, float]:
@@ -2356,6 +2384,265 @@ def render3d_phase(locs3d, locs3d_lq, info3d, locs2d, info2d, counted,
           + f"; import_ts {wall:.3f} s, frames equal, x and y within 2 f32 "
           "ulps")
     return _sum_launches(*runs)
+
+
+def _rows_equal(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Row i of a equals row i of b bit for bit (NaN equals NaN)."""
+    a, b = a.reshape(len(a), -1), b.reshape(len(b), -1)
+    eq = a == b
+    if np.issubdtype(a.dtype, np.floating):
+        eq |= np.isnan(a) & np.isnan(b)
+    return eq.all(1)
+
+
+def _equal_fits(a, b) -> bool:
+    return all(np.array_equal(x, y, equal_nan=True) for x, y in zip(a, b))
+
+
+def mesh_phase(movie, camera, segs, origami, counted, smi: str) -> dict:
+    """23. Several devices in one process (picasso_torch/parallel): (a) a
+    mesh of every visible card, or MESH_SHARDS logical shards of the one
+    card; (b) the main path, localize_fused (MLE sigmaxy, box 7, the CLI's
+    settings) on the smoke movie over the mesh and on one card in turns,
+    hits and fits bit for bit, K4/K5 launches a shard; (c) the sharded
+    MLE (both methods) and LM fits of make_spots against the unsharded
+    routes bit for bit; (d) identify, the summed histogram, RCC's pair
+    correlations of phase 7, SPINNA's candidates of phase 19 (bit for
+    bit) and G5M on phase 18's origami (a bucket against the unsharded
+    fit, reported; g5m by compare_g5m); (e) the dry run; with two or more cards, each shard's
+    outputs on its own card. Returns the launches by path."""
+    import torch
+
+    from picasso_torch import g5m, gaussmle, imageprocess, spinna
+    from picasso_torch.ops import fused, gmm, identify, identify_cuda, lq
+    from picasso_torch.parallel import mesh as pmesh
+    from picasso_torch.parallel.dryrun import dryrun_multichip
+    from torch_data import SPINNA_CELL, make_spots, spinna_cell
+    from torch_parity import compare_fits, compare_g5m
+
+    # (a) the mesh
+    n_cards = torch.cuda.device_count()
+    mesh = (pmesh.default_mesh() if n_cards > 1
+            else pmesh.Mesh(["cuda:0"] * MESH_SHARDS))
+    distinct = len(set(mesh.devices))
+    print(f"mesh ({smi}): {mesh!r}: {distinct} distinct card(s), "
+          f"{mesh.size} shards"
+          + ("; logical shards of one card, so its walls measure the "
+             "sharding's overhead, not a speed-up across cards"
+             if distinct == 1 else ""))
+    paths = {}
+    one = "cuda:0"
+
+    # (b) the main path, over the mesh and on one card, in turns
+    def localize_on(dev):
+        return fused.localize_fused(
+            movie, MIN_NG, BOX, camera, fitting_method="gaussmle",
+            mle_method="sigmaxy", eps=EPS, max_it=MAX_IT, device=dev)
+
+    walls = {"one card": [], "mesh": []}
+    for turn in range(MESH_TURNS):
+        (ids1, fit1), w1, l1 = counted(lambda: localize_on(one))
+        mesh.reset_launches()
+        (idsm, fitm), wm, lm = counted(lambda: localize_on(mesh))
+        walls["one card"].append(round(w1, 4))
+        walls["mesh"].append(round(wm, 4))
+        if turn == 0:
+            paths["mesh"], shard_launches = lm, [
+                {k.rsplit(".", 1)[1]: v for k, v in d.items()}
+                for d in mesh.launches]
+            ref_ids, ref_fit, ids_m, fit_m = ids1, fit1, idsm, fitm
+    for name in ref_ids.dtype.names:
+        if not np.array_equal(ids_m[name], ref_ids[name]):
+            raise AssertionError(f"mesh localize: hits differ ({name})")
+    fits_equal = _equal_fits(fit_m, ref_fit)
+    if not fits_equal:
+        # the work queues would depend on how a batch is composed
+        stats = compare_fits([a.T for a in ref_fit[:2]] + list(ref_fit[2:]),
+                             [a.T for a in fit_m[:2]] + list(fit_m[2:]),
+                             MAX_IT, "mesh localize vs one card")
+        print("  mesh localize fits NOT bit for bit; compare_fits:",
+              json.dumps(stats))
+    n_chunks = -(-len(movie) // CHUNK)
+    for i, d in enumerate(shard_launches):
+        if (d.get("identify_tiles") != n_chunks
+                or d.get("fit_mle_queue_t") != 2 * n_chunks):
+            raise AssertionError(f"mesh shard {i} launches {d}")
+    print(f"  localize_fused MLE sigmaxy, {len(movie)} frames, "
+          f"{len(ref_ids)} hits: hits equal, theta/crlb/ll/iters "
+          f"{'bit for bit' if fits_equal else 'within compare_fits'}; walls "
+          f"(s, in turns) one card {walls['one card']}, mesh "
+          f"{walls['mesh']}; launches a shard "
+          f"{json.dumps(shard_launches)}, in all {json.dumps(paths['mesh'])}")
+
+    # (c) the spot-sharded fits on make_spots
+    spots = make_spots(N_SPOTS, BOX, seed=0)
+    fit_walls = {}
+    for method in ("sigmaxy", "sigma"):
+        got, w, launches = counted(lambda: pmesh.fit_mle_sharded(
+            spots, EPS, MAX_IT, method, mesh))
+        ref, w1, _ = counted(lambda: gaussmle.gaussmle(
+            spots, EPS, MAX_IT, method, device=one))
+        if not _equal_fits(got, ref):
+            raise AssertionError(f"fit_mle_sharded {method} != gaussmle")
+        paths["mesh-fits" + ("-sigma" if method == "sigma" else "")] = (
+            launches)
+        fit_walls[method] = (round(w, 4), round(w1, 4))
+    got, w, launches = counted(lambda: pmesh.fit_lq_sharded(
+        spots, 30, FTOL, mesh))
+    ref, w1, _ = counted(lambda: lq.fit_spots_batched(spots, 30,
+                                                      device=one))
+    if not np.array_equal(got, ref, equal_nan=True):
+        raise AssertionError("fit_lq_sharded != fit_spots_batched")
+    for k, v in launches.items():
+        paths["mesh-fits"][k] += v
+    fit_walls["lq"] = (round(w, 4), round(w1, 4))
+    print(f"  fit_mle_sharded (sigmaxy, sigma) and fit_lq_sharded (max_it "
+          f"30) on {N_SPOTS} make_spots == gaussmle / fit_spots_batched "
+          f"on one card bit for bit; walls (mesh, one card) s "
+          f"{json.dumps(fit_walls)}; launches "
+          f"{json.dumps(paths['mesh-fits'])}, sigma "
+          f"{json.dumps(paths['mesh-fits-sigma'])}")
+
+    # (d) the other sharded stages
+    stage = {}
+
+    def run_stages():
+        out = {}
+        out["identify"] = pmesh.identify_sharded(movie, MIN_NG, BOX,
+                                                 mesh=mesh)
+        x = (fit_m[0][:, 0] + ids_m["x"] - BOX // 2).astype(np.float32)
+        y = (fit_m[0][:, 1] + ids_m["y"] - BOX // 2).astype(np.float32)
+        out["xy"] = x, y
+        out["hist"] = pmesh.render_hist_sharded(x, y, movie.shape[1:],
+                                                mesh=mesh)
+        ii, jj = np.triu_indices(len(segs), k=1)
+        out["pairs"] = ii, jj
+        out["xcorr"] = pmesh.pair_xcorrs_sharded(segs, ii, jj, mesh=mesh)
+        return out
+
+    out, w_st, paths["mesh-stages"] = counted(run_stages)
+    ids_ref = identify.identify_frames(movie, MIN_NG, BOX, device=one)
+    for a, b in zip(out["identify"], ids_ref):
+        if not np.array_equal(a, b):
+            raise AssertionError("identify_sharded != identify_frames")
+    x, y = out["xy"]
+    H, W = movie.shape[1:]
+    in_view = int(np.sum((x >= 0) & (x < W) & (y >= 0) & (y < H)))
+    one_shard = pmesh.render_hist_sharded(x, y, (H, W),
+                                          mesh=pmesh.Mesh([one]))
+    if out["hist"].sum() != in_view or not np.array_equal(out["hist"],
+                                                          one_shard):
+        raise AssertionError(f"render_hist_sharded: {out['hist'].sum()} "
+                             f"counts of {in_view} locs in view")
+    crops = imageprocess.pair_xcorrs(segs, None)[0]
+    xc_diff = float(np.abs(out["xcorr"] - crops).max())
+    if xc_diff > 1e-9 * float(np.abs(crops).max()):
+        raise AssertionError(f"pair_xcorrs_sharded: {xc_diff} from "
+                             "pair_xcorrs")
+    stage["stages"] = round(w_st, 4)
+    print(f"  identify_sharded {len(out['identify'][0])} hits == "
+          f"identify_frames; render_hist_sharded {H}x{W}: {in_view} locs "
+          f"in view == its sum == one shard's; pair_xcorrs_sharded "
+          f"{len(out['pairs'][0])} pairs of {tuple(segs.shape)}: max |d| "
+          f"{xc_diff:.3e} from pair_xcorrs ({'bit for bit' if xc_diff == 0 else 'cuFFT batches'}); "
+          f"{w_st:.3f} s")
+
+    # SPINNA: phase 19's cell-scale candidates
+    mixer, gt = spinna_cell(spinna)
+    rows = mixer.convert_N_structures_to_array(spinna.generate_N_structures(
+        mixer.structures, {"A": sum(c * n for c, n in zip(
+            SPINNA_CELL["counts"], (1, 2, 3)))}, SPINNA_GRANULARITY))
+    scorer = spinna.SPINNA(mixer, gt, N_sim=SPINNA_NSIM,
+                           device=one)._get_batched_scorer(rows)
+    scores_1, w1, _ = counted(lambda: scorer.score(rows, MESH_SPINNA_SEED))
+    scores_m, wm, paths["mesh-spinna"] = counted(
+        lambda: pmesh.spinna_score_sharded(scorer, rows, MESH_SPINNA_SEED,
+                                           mesh))
+    if not np.array_equal(scores_m, scores_1):
+        raise AssertionError("spinna_score_sharded != score")
+    print(f"  spinna_score_sharded {len(rows)} candidates (N_sim "
+          f"{SPINNA_NSIM}) == the scorer on one card bit for bit; mesh "
+          f"{wm:.3f} s, one card {w1:.3f} s")
+
+    # G5M: phase 18's origami, a bucket direct and g5m routed
+    clustered, info, ids = origami
+    sub = clustered[np.isin(clustered["group"], ids[:N_CARD_CPU])]
+    preps = [g5m._prep_group(sub[sub["group"] == g], min_locs=g5m.MIN_LOCS,
+                             pixelsize=130, max_locs_per_cluster=np.inf,
+                             loc_prec_handle="local")
+             for g in ids[:N_CARD_CPU]]
+    preps = [p for p in preps if p is not None]
+    bucket = max(len(p[0]) for p in preps)
+    X, mask, lp = gmm.pad_clusters([p[0] for p in preps],
+                                   [p[1] for p in preps], bucket)
+    u = gmm.kmeans_uniforms(len(X), MESH_G5M_K, MESH_G5M_STARTS, 42)
+    kw = dict(K=MESH_G5M_K, sigma_bounds=(g5m.MIN_SIGMA_FACTOR,
+                                          g5m.MAX_SIGMA_FACTOR),
+              isotropic=preps[0][2].isotropic, loc_local=True,
+              min_locs=g5m.MIN_LOCS)
+    got, wm, _ = counted(lambda: pmesh.fit_g5m_clusters_sharded(
+        X, mask, lp, u, mesh=mesh, **kw))
+    ref, w1, _ = counted(lambda: [a.cpu().numpy() for a in
+                                  gmm.fit_g5m_batched(*(
+                                      torch.from_numpy(a).to(one)
+                                      for a in (X, mask, lp, u)), **kw)])
+    if any(a.shape != b.shape for a, b in zip(got, ref)):
+        raise AssertionError("fit_g5m_clusters_sharded: shapes differ")
+    # the same draws, but the card's reductions over a cluster's points
+    # may split by the batch's shape: reported here, gated by compare_g5m
+    # on g5m below
+    same = np.all([_rows_equal(a, b) for a, b in zip(got, ref)], axis=0)
+    alike = (got[7] == ref[7]) & (got[6] == ref[6]).all(1)
+    d_means = float(np.abs(got[1] - ref[1])[alike].max(initial=0.0))
+    runs = {}
+    for name, dev in (("mesh", mesh), ("one card", one)):
+        r = {}
+        res, w, launches = counted(lambda: g5m.g5m(
+            sub, info, postprocess=False, device=dev, record=r))
+        runs[name] = res[0], r, w
+        if name == "mesh":
+            paths["mesh-g5m"] = launches
+    agree = compare_g5m(runs["mesh"][0], runs["mesh"][1],
+                        runs["one card"][0], runs["one card"][1], sub,
+                        what="G5M mesh vs one card")
+    print(f"  fit_g5m_clusters_sharded {len(X)} clusters (bucket {bucket},"
+          f" K {MESH_G5M_K}, {MESH_G5M_STARTS} starts) against "
+          f"fit_g5m_batched on one card: {int(same.sum())} clusters bit for "
+          f"bit, {int(alike.sum())} with the same valid components and ok, "
+          f"their means at most {d_means:.3e} px apart (mesh {wm:.3f} s, "
+          f"one card {w1:.3f} s); g5m on "
+          f"{N_CARD_CPU} origami over the mesh {runs['mesh'][2]:.3f} s, one"
+          f" card {runs['one card'][2]:.3f} s, compare_g5m: worst "
+          f"{agree['worst_same']:.3e} px, stepped {agree['stepped']}, BIC "
+          f"ties {agree['bic_ties']}")
+
+    # (e) the dry run
+    line, w, paths["mesh-dryrun"] = counted(
+        lambda: dryrun_multichip(mesh.size, devices=list(mesh.devices)))
+    print(f"  dry run {w:.3f} s")
+
+    # each shard's outputs on its own card
+    if distinct > 1:
+        def where(i, lo, hi):
+            chunk = pmesh.upload(identify.host_frames(movie[lo:hi]),
+                                 mesh.devices[i])
+            tiles = identify_cuda.identify_tiles(chunk, MIN_NG, BOX)
+            return torch.cuda.current_device(), tiles[0].device
+
+        made = mesh.run(where, *zip(*pmesh._split(CHUNK, mesh.size)))
+        for d, (cur, dev) in zip(mesh.devices, made):
+            if not (cur == d.index and dev == d):
+                raise AssertionError(f"a shard of {d} ran on {cur}, {dev}")
+        print(f"  each shard's outputs on its own card: {made}")
+    else:
+        print("  each shard's outputs on its own card: not checked (one "
+              "card visible)")
+    for name, launches in paths.items():
+        if name.startswith("mesh-") and name not in (
+                "mesh-fits", "mesh-fits-sigma", "mesh-stages",
+                "mesh-dryrun") and any(launches.values()):
+            raise AssertionError(f"path {name} launched {launches}")
+    return paths
 
 
 def main() -> int:
@@ -3719,7 +4006,7 @@ def main() -> int:
                                    info3d, bench_sites, counted, smi)
     # 18. the analyses of grouped locs: G5M and averaging ---------------
     t18 = time.perf_counter()
-    launches_g5m, launches_avg = origami_phase(counted, smi)
+    launches_g5m, launches_avg, origami = origami_phase(counted, smi)
     # 19. SPINNA ----------------------------------------------------------
     t19 = time.perf_counter()
     launches_spinna = spinna_phase(counted, smi)
@@ -3742,6 +4029,10 @@ def main() -> int:
     launches_r3d = render3d_phase(locs3d_by["gaussmle"], locs3d_by["gausslq"],
                                   info3d, undrifted, info, counted, smi)
     t23 = time.perf_counter()
+    # 23. several devices in one process ----------------------------------
+    launches_mesh = mesh_phase(movie, camera, segs, origami, counted, smi)
+    t24 = time.perf_counter()
+    print(f"phase 23: {t24 - t23:.1f} s ({smi})")
     print(f"phases 15-16: {t16 - t15:.1f} s and {t17 - t16:.1f} s, phase "
           f"17: {t18 - t17:.1f} s, phase 18: {t19 - t18:.1f} s, phase 19: "
           f"{t20 - t19:.1f} s, phase 20: {t21 - t20:.1f} s ((a) "
@@ -3770,7 +4061,8 @@ def main() -> int:
              "spinna": launches_spinna, **launches_api,
              "simulate": launches_sim, "nanotron": launches_nano,
              "average3": launches_avg3, "picks": launches_picks,
-             "mask": launches_mask, "render3d": launches_r3d}
+             "mask": launches_mask, "render3d": launches_r3d,
+             **launches_mesh}
     for path in ("simulate", "nanotron", "average3", "mask", "render3d"):
         if any(paths[path].values()):
             raise AssertionError(f"path {path} launched {paths[path]}")
@@ -3792,7 +4084,8 @@ def main() -> int:
         every path, or, for an MLE fit of one ``method``, on the paths
         of that method (the counters are shared by both methods)."""
         on = {p: v[counter] for p, v in paths.items()
-              if method is None or (p == "mle-sigma") == (method == "sigma")}
+              if method is None
+              or p.endswith("-sigma") == (method == "sigma")}
         b_ms, b_by = bounds[key]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(on.values()),

@@ -10,6 +10,7 @@ prebuilt fallback: without ``nvcc`` the build raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -17,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -177,10 +179,20 @@ def build() -> tuple[Path, float]:
     return lib, time.perf_counter() - t0
 
 
-@functools.cache
+_LIBRARY_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built at first use) with its C
-    signatures declared."""
+    signatures declared. Safe under threads (the mesh's shard workers,
+    picasso_torch/parallel/mesh.py): the first caller builds and loads it
+    while the others wait."""
+    with _LIBRARY_LOCK:
+        return _load()
+
+
+@functools.cache
+def _load() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
@@ -190,6 +202,37 @@ def library() -> ctypes.CDLL:
     lib.picasso_error_string.argtypes = [ctypes.c_int]
     lib.picasso_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_COUNT_LOCK = threading.Lock()
+_TALLY = threading.local()
+
+
+def count_launch(fn, n: int = 1) -> None:
+    """Add ``n`` to the launch count ``fn.launches`` of a kernel wrapper,
+    exactly under threads, and to the tally of the calling thread where
+    :func:`tally` opened one."""
+    with _COUNT_LOCK:
+        fn.launches += n
+    counts = getattr(_TALLY, "counts", None)
+    if counts is not None:
+        key = f"{fn.__module__}.{fn.__name__}"
+        counts[key] = counts.get(key, 0) + n
+
+
+@contextlib.contextmanager
+def tally():
+    """Count the launches made by this thread inside the block: yields a
+    dict {"module.wrapper": launches} that fills as it runs."""
+    outer = getattr(_TALLY, "counts", None)
+    _TALLY.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _TALLY.counts = outer
+        if outer is not None:
+            for key, n in counts.items():
+                outer[key] = outer.get(key, 0) + n
 
 
 def check(status: int, what: str) -> None:

@@ -657,7 +657,8 @@ def _fit_clusters_batched(Xs, lps, *, min_locs, sigma_bounds,
                           loc_prec_handle, max_rounds_without_best_bic,
                           model_cls, calibration, seed=42, progress=None,
                           device="cuda", record=None):
-    """Fit all clusters with the batched EM (ops/gmm.py) on ``device``.
+    """Fit all clusters with the batched EM (ops/gmm.py) on ``device``
+    (or split over the shards of a mesh, parallel/mesh.route).
 
     Each bucket runs the BIC growth over K on the host with per-cluster
     rounds; each K fits the bucket's clusters still growing, all their
@@ -677,7 +678,9 @@ def _fit_clusters_batched(Xs, lps, *, min_locs, sigma_bounds,
     with ``record`` is the card synchronized after each K's EM, to time
     it.
     """
-    device = torch.device(device)
+    from picasso_torch.parallel.mesh import g5m_shards, route
+
+    device, mesh = route(device, spread=False)
     sync = (torch.cuda.synchronize
             if device.type == "cuda" and record is not None
             else (lambda *a: None))
@@ -692,8 +695,9 @@ def _fit_clusters_batched(Xs, lps, *, min_locs, sigma_bounds,
         idxs = np.asarray(idxs)
         X, mask, lp = gmm.pad_clusters([Xs[i] for i in idxs],
                                        [lps[i] for i in idxs], bucket)
-        Xd, maskd, lpd = (torch.from_numpy(a).to(device)
-                          for a in (X, mask, lp))
+        if mesh is None:
+            Xd, maskd, lpd = (torch.from_numpy(a).to(device)
+                              for a in (X, mask, lp))
         n_pts = np.array([len(Xs[i]) for i in idxs])
         n_max = np.minimum(N_COMPONENTS_MAX, n_pts // min_locs)
         G = len(idxs)
@@ -707,29 +711,41 @@ def _fit_clusters_batched(Xs, lps, *, min_locs, sigma_bounds,
             if not active.any():
                 break
             act = np.nonzero(active)[0]
-            u = np.stack([
-                np.random.default_rng((seed, K, s)).random((len(Xs), K))
-                for s in range(max(K, 3))])[:, idxs[act]]
+            u = gmm.kmeans_uniforms(len(Xs), K, max(K, 3), seed)[
+                :, idxs[act]]
             t0 = time.perf_counter()
-            sel = torch.from_numpy(act).to(device)
-            res = gmm.fit_g5m_batched(
-                Xd[sel], maskd[sel], lpd[sel], torch.from_numpy(u).to(device),
-                K=K, sigma_bounds=tuple(sigma_bounds), isotropic=isotropic,
-                loc_local=loc_local, min_locs=min_locs, stats=stats)
-            sync()
-            t1 = time.perf_counter()
-            w, m, cv, pc, lb, conv, valid, ok = res
-            bic = gmm.bic_batched(Xd[sel], maskd[sel], w, m, pc, valid,
-                                  isotropic).cpu().numpy()
-            w, m, cv, pc, lb, conv, valid, ok = (
-                a.cpu().numpy() for a in (w, m, cv, pc, lb, conv, valid, ok))
-            t2 = time.perf_counter()
+            if mesh is not None:
+                # the clusters split over the shards, each fit with its
+                # BICs on its device (the shards' walls count as EM)
+                w, m, cv, pc, lb, conv, valid, ok, bic = g5m_shards(
+                    X[act], mask[act], lp[act], u, K=K,
+                    sigma_bounds=sigma_bounds, isotropic=isotropic,
+                    loc_local=loc_local, min_locs=min_locs, mesh=mesh,
+                    bic=True, stats=stats)
+                t1 = t2 = time.perf_counter()
+            else:
+                sel = torch.from_numpy(act).to(device)
+                res = gmm.fit_g5m_batched(
+                    Xd[sel], maskd[sel], lpd[sel],
+                    torch.from_numpy(u).to(device), K=K,
+                    sigma_bounds=tuple(sigma_bounds), isotropic=isotropic,
+                    loc_local=loc_local, min_locs=min_locs, stats=stats)
+                sync()
+                t1 = time.perf_counter()
+                w, m, cv, pc, lb, conv, valid, ok = res
+                bic = gmm.bic_batched(Xd[sel], maskd[sel], w, m, pc, valid,
+                                      isotropic).cpu().numpy()
+                w, m, cv, pc, lb, conv, valid, ok = (
+                    a.cpu().numpy()
+                    for a in (w, m, cv, pc, lb, conv, valid, ok))
+                t2 = time.perf_counter()
             wall["em"][K] = wall["em"].get(K, 0.0) + t1 - t0
             wall["bic"] += t2 - t1
             if record is not None:
-                start = stats["best_start"].cpu().numpy()
-                steps = stats["best_steps"].cpu().numpy()
-                tie = stats["best_tie"].cpu().numpy()
+                start, steps, tie = (
+                    np.asarray(stats[k].cpu() if torch.is_tensor(stats[k])
+                               else stats[k])
+                    for k in ("best_start", "best_steps", "best_tie"))
                 for j, gi in enumerate(act):
                     wall["bics"].setdefault(int(idxs[gi]), {})[K] = float(
                         bic[j])
@@ -786,12 +802,16 @@ def g5m(locs: np.ndarray, info: list[dict], *, min_locs: int = MIN_LOCS,
     groups the batched EM runs on ``device``; below, the host route. The
     device is resolved first, whatever the route: ``"cuda"`` without a
     card raises. ``asynch`` is accepted for the reference's API and
-    ignored, as JAX does.
+    ignored, as JAX does. ``"cuda"`` is one card however many are
+    visible; a mesh given (parallel/mesh.route) splits each batched EM's
+    clusters over its shards.
     ``record``, where given, gains the batched route's split and fits
     (_fit_clusters_batched; a cluster's index there is its place in
     ``group_input``), its ``models`` and the seconds of the result tables
     (``convert``)."""
-    device = lib.resolve_device(device)
+    from picasso_torch.parallel.mesh import route
+
+    device, mesh = route(device, spread=False)
     assert loc_prec_handle in ("local", "abs")
     assert len(sigma_bounds) == 2
     assert sigma_bounds[0] <= sigma_bounds[1]
@@ -826,7 +846,8 @@ def g5m(locs: np.ndarray, info: list[dict], *, min_locs: int = MIN_LOCS,
                     loc_prec_handle=loc_prec_handle,
                     max_rounds_without_best_bic=max_rounds_without_best_bic,
                     model_cls=preps[0][2], calibration=calibration,
-                    progress=rep.set_value, device=device, record=record)
+                    progress=rep.set_value,
+                    device=device if mesh is None else mesh, record=record)
                 t0 = time.perf_counter()
                 for lg, model in zip(group_locs, models):
                     if model is None or len(model.valid_idx) == 0:

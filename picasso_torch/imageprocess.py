@@ -108,26 +108,49 @@ def segment_pairs(n: int) -> list[tuple[int, int]]:
     return [(i, j) for i in range(n - 1) for j in range(i + 1, n)]
 
 
-def pair_xcorrs(segments: torch.Tensor, max_shift: int | None):
-    """The cross-correlations of every segment pair, cropped to the
-    ``max_shift`` centre: each (Y, X) segment is FFT'd once in f64 on its
-    device, the pair products and inverse FFTs run in chunks of pairs
-    (as picasso_tpu's rcc :165), and the crops come back as one numpy
-    (n_pairs, h, w) array. Returns (crops, (Y_, X_))."""
-    n, Y, X = segments.shape
-    F = torch.fft.fft2(segments.to(torch.float64))
-    Y_, X_ = _crop_offsets((Y, X), max_shift)
-    pairs = segment_pairs(n)
+#: pair correlation pixels (pairs x Y x X) above which a mesh splits the
+#: pairs over its shards (picasso_tpu/imageprocess.py:26 and :157-159;
+#: below it JAX correlates on the host, and the port on one device)
+DEVICE_PAIR_PIXELS = 32e6
+
+
+def xcorr_pairs(F: torch.Tensor, ii, jj, offsets) -> np.ndarray:
+    """The cropped correlations fftshift(Re(ifft2(F_i conj(F_j)))) /
+    sqrt(Y X) of the pairs (ii, jj) of segment FFTs F (n, Y, X) on their
+    device, in chunks of pairs (as picasso_tpu's rcc :165); returns the
+    crops of ``offsets`` (Y_, X_) as one numpy array."""
+    _, Y, X = F.shape
+    Y_, X_ = offsets
     chunk = max(1, int(256e6 / (Y * X * 4)))
-    crops = []
-    for start in range(0, len(pairs), chunk):
-        batch = pairs[start:start + chunk]
-        ii = torch.tensor([p[0] for p in batch], device=F.device)
-        jj = torch.tensor([p[1] for p in batch], device=F.device)
-        xc = torch.fft.ifft2(F[ii] * torch.conj(F[jj])).real / np.sqrt(Y * X)
+    crops = [torch.zeros((0, Y - 2 * Y_, X - 2 * X_), dtype=torch.float64)]
+    for start in range(0, len(ii), chunk):
+        i = torch.as_tensor(ii[start:start + chunk], device=F.device)
+        j = torch.as_tensor(jj[start:start + chunk], device=F.device)
+        xc = torch.fft.ifft2(F[i] * torch.conj(F[j])).real / np.sqrt(Y * X)
         xc = torch.fft.fftshift(xc, dim=(1, 2))
         crops.append(xc[:, Y_:Y - Y_, X_:X - X_].cpu())
-    return torch.cat(crops).numpy(), (Y_, X_)
+    return torch.cat(crops).numpy()
+
+
+def pair_xcorrs(segments: torch.Tensor, max_shift: int | None, mesh=None):
+    """The cross-correlations of every segment pair, cropped to the
+    ``max_shift`` centre: each (Y, X) segment is FFT'd once in f64 on its
+    device and the pairs correlate there (:func:`xcorr_pairs`); with a
+    ``mesh`` (picasso_torch.parallel.mesh.Mesh) and more than
+    :data:`DEVICE_PAIR_PIXELS` pair pixels, the pairs split over its
+    shards (mesh.pair_xcorrs_crops). Returns (crops (n_pairs, h, w)
+    numpy, (Y_, X_))."""
+    n, Y, X = segments.shape
+    offsets = _crop_offsets((Y, X), max_shift)
+    pairs = segment_pairs(n)
+    ii = np.array([p[0] for p in pairs], np.int64)
+    jj = np.array([p[1] for p in pairs], np.int64)
+    if mesh is not None and len(pairs) * Y * X > DEVICE_PAIR_PIXELS:
+        from picasso_torch.parallel.mesh import pair_xcorrs_crops
+
+        return pair_xcorrs_crops(segments, ii, jj, mesh, offsets), offsets
+    F = torch.fft.fft2(segments.to(torch.float64))
+    return xcorr_pairs(F, ii, jj, offsets), offsets
 
 
 def peak_shifts(crops: np.ndarray, offsets, shape, empty: np.ndarray):
@@ -148,16 +171,17 @@ def peak_shifts(crops: np.ndarray, offsets, shape, empty: np.ndarray):
     return shifts_y, shifts_x
 
 
-def rcc(segments, max_shift: int | None = None):
+def rcc(segments, max_shift: int | None = None, mesh=None):
     """Redundant cross-correlation (Wang, Schnitzbauer et al., Opt.
     Express 2014; picasso/imageprocess.py:160) of (n, Y, X) segments (a
-    tensor on its device, or arrays): all pair shifts, solved to
-    per-segment drift by least squares. Returns (shift_y, shift_x)."""
+    tensor on its device, or arrays): all pair shifts (over ``mesh``'s
+    shards as :func:`pair_xcorrs` routes them), solved to per-segment
+    drift by least squares. Returns (shift_y, shift_x)."""
     seg = segments if isinstance(segments, torch.Tensor) else (
         torch.from_numpy(np.stack(segments).astype(np.float32)))
     seg = seg.to(torch.float32)
     empty = (seg.sum(dim=(1, 2)) == 0).cpu().numpy()
-    crops, offsets = pair_xcorrs(seg, max_shift)
+    crops, offsets = pair_xcorrs(seg, max_shift, mesh)
     shifts_y, shifts_x = peak_shifts(crops, offsets, tuple(seg.shape[1:]),
                                      empty)
     return lib.minimize_shifts(shifts_x, shifts_y)

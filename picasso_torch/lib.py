@@ -52,7 +52,13 @@ class AutoDict(dict):
 
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; raises if it names CUDA and no card
-    is visible (the port never moves work to the CPU by itself)."""
+    is visible (the port never moves work to the CPU by itself), and for
+    a mesh (picasso_torch.parallel.mesh.Mesh), which only the entry
+    points that split their work take (parallel/mesh.route): a mesh is
+    never narrowed to one of its devices."""
+    if hasattr(device, "devices") and hasattr(device, "run"):
+        raise TypeError(f"{device!r}: this entry point runs on one device; "
+                        "pass one of the mesh's devices")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

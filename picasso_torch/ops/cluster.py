@@ -80,7 +80,7 @@ def sweep(lm_idx: torch.Tensor, starts: torch.Tensor, stops: torch.Tensor,
     status = _build.library().picasso_cluster_sweep(
         *(a.ctypes.data_as(ctypes.c_void_p) for a in args), len(lm),
         labels.ctypes.data_as(ctypes.c_void_p))
-    sweep.launches += 1
+    _build.count_launch(sweep)
     _build.check(status, "cluster_sweep")
     return labels
 

@@ -80,6 +80,14 @@ def identify_cut_fit_packed(frames, minimum_ng, baseline: float,
                      dim=0)
 
 
+def photon_factors(camera_info: dict) -> tuple[float, float]:
+    """(baseline, sensitivity / gain) of a scalar camera, each rounded to
+    f32 as the chain takes them."""
+    return (float(np.float32(float(camera_info["Baseline"]))),
+            float(np.float32(float(camera_info["Sensitivity"])
+                             / float(camera_info["Gain"]))))
+
+
 _IDS_DTYPE = [
     ("frame", np.int64), ("x", np.int64), ("y", np.int64),
     ("net_gradient", np.float32),
@@ -138,8 +146,16 @@ def localize_fused(
     the seconds waiting for decoded chunks (``decode_wait_s``), uploading
     them (``upload_dispatch_s``), issuing the chain (``chain_dispatch_s``),
     reading its results back (``drain_s``, the blocking readback on a
-    card), the rest (``other_s``) and ``total_s``."""
-    from picasso_torch import lib
+    card), the rest (``other_s``) and ``total_s``.
+
+    ``device`` may be a mesh (picasso_torch.parallel.mesh.Mesh), and
+    ``"cuda"`` with several cards visible is :func:`~picasso_torch.
+    parallel.mesh.default_mesh` (``"cuda:N"`` pins one card): each
+    chunk's frames then split over the shards, which upload their part
+    and run the chain on their device (mesh.fused_chain_program); the
+    shards' uploads, chains and readbacks count as ``chain_dispatch_s``
+    and the gathering of their hits as ``drain_s``."""
+    from picasso_torch.parallel.mesh import fused_chain_program, route
     from picasso_torch.stream import device_chunks
 
     if fitting_method in ("gausslq", "gausslq-gpu"):
@@ -149,29 +165,34 @@ def localize_fused(
         method = mle_method
     else:
         raise ValueError(f"no fused chain for {fitting_method!r}")
-    device = lib.resolve_device(device)
-    baseline = float(np.float32(float(camera_info["Baseline"])))
-    factor = float(np.float32(
-        float(camera_info["Sensitivity"]) / float(camera_info["Gain"])
-    ))
+    device, mesh = route(device)
+    baseline, factor = photon_factors(camera_info)
     blocks = []
     timers = {}
     t_chain = t_drain = 0.0
     t_run0 = time.perf_counter()
     with contextlib.closing(device_chunks(
-            movie, device, roi=roi, frame_bounds=frame_bounds,
-            frame_chunk=frame_chunk, prefetch_depth=prefetch_depth,
+            movie, device if mesh is None else None, roi=roi,
+            frame_bounds=frame_bounds, frame_chunk=frame_chunk,
+            prefetch_depth=prefetch_depth,
             progress_callback=progress_callback, description="Localizing",
             timers=timers)) as chunks:
         for offset, chunk in chunks:
             if abort_callback is not None and abort_callback():
                 return None, None
             t0 = time.perf_counter()
-            packed = identify_cut_fit_packed(
-                chunk, minimum_ng, baseline, factor, box=box, eps=eps,
-                max_it=max_it, method=method)
+            if mesh is None:
+                packed = identify_cut_fit_packed(
+                    chunk, minimum_ng, baseline, factor, box=box, eps=eps,
+                    max_it=max_it, method=method)
+            else:
+                per_dev = -(-len(chunk) // mesh.size)
+                packed = fused_chain_program(
+                    mesh, per_dev, box, 0, eps, max_it, method)(
+                        chunk, minimum_ng, baseline, factor)
             t1 = time.perf_counter()
-            blocks.append((offset, packed.cpu().numpy()))
+            blocks.append((offset, packed.cpu().numpy() if mesh is None
+                           else np.concatenate(packed, axis=1)))
             t_chain += t1 - t0
             t_drain += time.perf_counter() - t1
     if perf is not None and timers:

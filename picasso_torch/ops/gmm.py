@@ -381,6 +381,14 @@ def bic_batched(X, mask, weights, means, prec, valid, isotropic):
     return n_params * torch.log(n) - 2 * mean_score * n
 
 
+def kmeans_uniforms(G: int, K: int, n_init: int, seed: int) -> np.ndarray:
+    """(n_init, G, K) f64 kmeans++ uniforms keyed by cluster index: start
+    s's rows from ``default_rng((seed, K, s))``, so a cluster draws the
+    same on every device and in any batch."""
+    return np.stack([np.random.default_rng((seed, K, s)).random((G, K))
+                     for s in range(n_init)])
+
+
 def pad_clusters(Xs, lps, bucket: int):
     """Stack variable-size clusters into (G, bucket, ...) + mask."""
     G = len(Xs)

@@ -150,14 +150,19 @@ def identify_frames(
     return f + frame_offset, y, x, ng
 
 
-def upload_frames(frames: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A (B, Y, X) numpy chunk on ``device`` in a dtype the identify
+def host_frames(frames: np.ndarray) -> np.ndarray:
+    """A (B, Y, X) numpy chunk, contiguous, in a dtype the identify
     kernel reads: u16 stays u16, anything else becomes f32 (exact for
     integers below 2^24)."""
     frames = np.ascontiguousarray(frames)
     if frames.dtype != np.uint16:
         frames = frames.astype(np.float32)
-    return torch.from_numpy(frames).to(device)
+    return frames
+
+
+def upload_frames(frames: np.ndarray, device: torch.device) -> torch.Tensor:
+    """:func:`host_frames` of a (B, Y, X) numpy chunk on ``device``."""
+    return torch.from_numpy(host_frames(frames)).to(device)
 
 
 def cut_spots_numpy(movie, ids_frame: np.ndarray, ids_x: np.ndarray,

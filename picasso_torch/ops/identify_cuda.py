@@ -62,7 +62,7 @@ def identify_tiles(frames: torch.Tensor, minimum_ng, box: int):
             float(np.float32(minimum_ng)), mask.data_ptr(), loc.data_ptr(),
             ng.data_ptr(), stream,
         )
-    identify_tiles.launches += 1
+    _build.count_launch(identify_tiles)
     _build.check(status, "identify_tiles")
     return mask, loc, ng
 

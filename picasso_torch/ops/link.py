@@ -174,7 +174,7 @@ def walk_host(off: np.ndarray, nxt: np.ndarray) -> np.ndarray:
         off.ctypes.data_as(ctypes.c_void_p),
         nxt.ctypes.data_as(ctypes.c_void_p), n,
         out.ctypes.data_as(ctypes.c_void_p))
-    walk.launches += 1
+    _build.count_launch(walk)
     _build.check(status, "link_walk")
     return out
 

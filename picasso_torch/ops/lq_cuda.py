@@ -49,7 +49,7 @@ def fit_t(spots_t: torch.Tensor, max_it: int, ftol: float = 1e-6,
             n if n_valid is None else int(n_valid), theta.data_ptr(), stream,
         )
     _build.check(status, "lq_fit")
-    fit_t.launches += 1
+    _build.count_launch(fit_t)
     return theta
 
 
@@ -86,7 +86,7 @@ def _fit_phases(spots_t, max_it, ftol, n_valid, boundaries):
         check_spots(spots_t)
         theta = _launch_queue(spots_t, max_it, ftol, n_valid)
         if spots_t.shape[-1]:
-            fit_boundary_t.launches += 1
+            _build.count_launch(fit_boundary_t)
         return theta
     ends = phase_ends(boundaries, max_it)
     if not ends:
@@ -158,7 +158,7 @@ def fit_queue_t(spots_t: torch.Tensor, max_it: int, ftol: float = 1e-6,
         raise ValueError("coop_steps must be an int32 tensor on the card")
     theta = _launch_queue(spots_t, max_it, ftol, n_valid, coop_steps)
     if spots_t.shape[-1]:
-        fit_queue_t.launches += 1
+        _build.count_launch(fit_queue_t)
     return theta
 
 

@@ -108,7 +108,7 @@ def fit_one_pass_t(spots_t: torch.Tensor, eps: float, max_it: int,
     if spots_t.shape[-1] == 0:
         return _empty_fit(0, spots_t.device)
     out = _launch(FULL, spots_t, eps, max_it, n_valid, method)
-    fit_one_pass_t.launches += 1
+    _build.count_launch(fit_one_pass_t)
     return out
 
 
@@ -170,7 +170,7 @@ def fit_t(spots_t: torch.Tensor, eps: float, max_it: int,
         return _empty_fit(0, spots_t.device)
     out = _launch_fit(_build.library(), spots_t, eps, max_it, method,
                       n_valid, coop_steps)
-    fit_t.launches += 1
+    _build.count_launch(fit_t)
     return out
 
 
@@ -216,7 +216,7 @@ def fit_multiround_t(spots_t: torch.Tensor, eps: float, max_it: int,
         return _empty_fit(0, spots_t.device)
     out = _launch_fit(_build.library(), spots_t, eps, max_it, "sigmaxy",
                       None)
-    fit_multiround_t.launches += 1
+    _build.count_launch(fit_multiround_t)
     return out
 
 
@@ -240,7 +240,7 @@ def _fit_phases(spots_t, eps, max_it, method, n_valid, boundaries,
     def phase(mode, spots, k, carry):
         if cuda:
             out = _launch(mode, spots, eps, k, n_valid, method, carry)
-            counter.launches += 1
+            _build.count_launch(counter)
             return out
         return _mle._fit_phase(mode, spots, eps, k, method, n_valid, carry)
 

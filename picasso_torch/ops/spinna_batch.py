@@ -40,12 +40,13 @@ jax.random's: the batched scores agree with JAX's in distribution
 
 from __future__ import annotations
 
+import copy
 import math
+import threading
 
 import numpy as np
 import torch
 
-from picasso_torch import lib
 from picasso_torch.ops.neighbors import knn_masked, ks_2samp_masked
 
 #: b-block of the kNN distance tiles (JAX :45 takes 512; on the H100 the
@@ -198,8 +199,14 @@ class BatchedScorer:
         space (each structure's pad); ``max_points``: per-target largest
         total of placed points over it, which sets the pad ``P`` the kept
         points are compacted to (JAX :108-116). ``device`` is resolved by
-        lib.resolve_device: without a card, "cuda" raises."""
-        self.device = lib.resolve_device(device)
+        parallel/mesh.route: without a card, "cuda" raises, and it is
+        one card however many are visible; a mesh splits :meth:`score`'s
+        candidates over its shards (mesh.spinna_score_sharded), the
+        scorer's tensors on its first device."""
+        from picasso_torch.parallel.mesh import route
+
+        self.device, self.mesh = route(device, spread=False)
+        self._copies, self._copies_lock = {}, threading.Lock()
         self.mixer = mixer
         self.N_sim = max(1, int(N_sim))
         self.n_structures = len(mixer.structures)
@@ -269,6 +276,29 @@ class BatchedScorer:
         per_cand = 3 * p_max * self.block * self.N_sim
         self.chunk = int(np.clip(_tile_budget(self.device) // per_cand, 1,
                                  MAX_CHUNK))
+
+    def on(self, device) -> "BatchedScorer":
+        """This scorer's copy on ``device`` with no mesh, as a mesh's
+        shard scores (made once a device, with this scorer's chunk)."""
+        device = torch.device(device)
+        with self._copies_lock:
+            out = self._copies.get(device)
+            if out is None:
+                out = copy.copy(self)
+                out.device, out.mesh = device, None
+                out._copies, out._copies_lock = {}, threading.Lock()
+                out.spec = []
+                for spec in self.spec:
+                    spec = dict(spec, templates={
+                        t: (x.to(device), le, unc)
+                        for t, (x, le, unc) in spec["templates"].items()})
+                    if spec["mask"] is not None:
+                        spec["cdf"] = spec["cdf"].to(device)
+                    out.spec.append(spec)
+                out.pairs = [(pk, j, gt.to(device))
+                             for pk, j, gt in self.pairs]
+                self._copies[device] = out
+        return out
 
     # -- the random half ----------------------------------------------------
     def _simulate_structure(self, si: int, counts: torch.Tensor,
@@ -437,24 +467,33 @@ class BatchedScorer:
         B = next(iter(masks.values())).shape[0] // self.N_sim
         return self.ks_scores(*self.knn_pairs(coords, masks), B)
 
-    def score(self, N_rows, seed: int | None = None,
-              progress=None) -> np.ndarray:
-        """Score candidates (N, n_structures) -> (N,) f64. Every chunk is
-        queued before any is read back; ``progress(done)`` is called as
-        each is read."""
+    def score(self, N_rows, seed: int | None = None, progress=None,
+              first: int = 0) -> np.ndarray:
+        """Score candidates (N, n_structures) -> (N,) f64, row i drawn as
+        candidate ``first`` + i. Every chunk is queued before any is read
+        back; ``progress(done)`` is called as each is read. With a mesh
+        the candidates split over its shards, and ``progress`` is called
+        once at the end."""
         N_rows = np.asarray(N_rows, np.int64)
         if N_rows.ndim == 1:
             N_rows = N_rows.reshape(1, -1)
         if seed is None:
             seed = int(np.random.randint(0, 2**31 - 1))
+        if self.mesh is not None:
+            from picasso_torch.parallel.mesh import spinna_score_sharded
+
+            out = spinna_score_sharded(self, N_rows, seed, self.mesh, first)
+            if progress is not None:
+                progress(len(N_rows))
+            return out
         pending = []
         kept = self.kept_counts(N_rows)
         for start in range(0, len(N_rows), self.chunk):
             stop = min(start + self.chunk, len(N_rows))
             # the distance tiles as wide as the chunk's largest kept count
             width = np.maximum(kept[start:stop].max(0), 1)
-            coords, masks = self.simulate(N_rows[start:stop], seed, start,
-                                          width)
+            coords, masks = self.simulate(N_rows[start:stop], seed,
+                                          first + start, width)
             pending.append((stop, self.score_coords(coords, masks)))
             del coords, masks
         out = np.empty(len(N_rows), np.float64)

@@ -160,7 +160,7 @@ def fit_mle_t(frames, f, y, x, baseline: float, factor: float, *, box: int,
         return _empty_fit(frames.device)
     out = _launch_mle(FULL, frames, hits, baseline, factor, box, eps, max_it,
                       method)
-    fit_mle_t.launches += 1
+    _build.count_launch(fit_mle_t)
     return out
 
 
@@ -190,7 +190,7 @@ def fit_mle_boundary_t(frames, f, y, x, baseline: float, factor: float, *,
         if cuda:
             out = _launch_mle(mode, frames, hits, baseline, factor, box, eps,
                               k, method, carry)
-            fit_mle_boundary_t.launches += 1
+            _build.count_launch(fit_mle_boundary_t)
             return out
         spots = photons_t(frames, *hits, box, baseline, factor)
         return _mle._fit_phase(mode, spots, eps, k, method, None, carry)
@@ -272,10 +272,10 @@ def fit_mle_queue_t(frames, f, y, x, baseline: float, factor: float, *,
         return _empty_fit(frames.device)
     carry = _launch_queue(_build.library(), frames, hits, baseline, factor,
                           box, eps, max_it, method)
-    fit_mle_queue_t.launches += 1
+    _build.count_launch(fit_mle_queue_t)
     out = _launch_mle(FINISH, frames, hits, baseline, factor, box, eps, 0,
                       method, carry)
-    fit_mle_queue_t.launches += 1
+    _build.count_launch(fit_mle_queue_t)
     return out
 
 
@@ -347,7 +347,7 @@ def fit_lq_queue_t(frames, f, y, x, baseline: float, factor: float, *,
         return torch.empty((6, 0), dtype=torch.float32, device=frames.device)
     theta = _launch_lq_queue(_build.library(), frames, hits, baseline, factor,
                              box, max_it, ftol, coop_steps)
-    fit_lq_queue_t.launches += 1
+    _build.count_launch(fit_lq_queue_t)
     return theta
 
 

@@ -91,11 +91,17 @@ def undrift(locs: np.ndarray, info: list[dict], segmentation: int, *,
     shifts by least squares, then a spline of order min(3, n - 1) through
     the segment centres gives the drift of every frame. Returns (drift
     (Frames,) with fields x, y in f64, the locs with the drift
-    subtracted)."""
+    subtracted). ``device`` may be a mesh, or ``"cuda"`` with several
+    cards visible (parallel/mesh.route): the segments render on its
+    first device and the pair correlations split over its shards
+    (imageprocess.pair_xcorrs)."""
+    from picasso_torch.parallel.mesh import route
+
+    device, mesh = route(device)
     bounds, segments = segment(
         locs, info, segmentation,
         {"blur_method": "gaussian", "min_blur_width": 1}, device=device)
-    shift_y, shift_x = imageprocess.rcc(segments, 32)
+    shift_y, shift_x = imageprocess.rcc(segments, 32, mesh)
     t = (bounds[1:] + bounds[:-1]) / 2
     k = min(3, len(t) - 1)
     t_inter = np.arange(info[0]["Frames"])

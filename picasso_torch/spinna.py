@@ -932,12 +932,16 @@ def expected_improvement(mu, std, best_y) -> np.ndarray:
 class SPINNA:
     """Fit structure stoichiometries by comparing simulated and
     experimental NND distributions (KS statistic). ``device`` (resolved
-    here: "cuda" without a card raises) runs the batched scorer."""
+    here by parallel/mesh.route: "cuda" without a card raises, and is one
+    card however many are visible) runs the batched scorer; a mesh given
+    splits its candidates over the shards."""
 
     def __init__(self, mixer: StructureMixer, gt_coords: dict,
                  N_sim: int = 1, progress_title: str = "Spinning structures",
                  device="cuda"):
-        self.device = lib.resolve_device(device)
+        from picasso_torch.parallel.mesh import route
+
+        self.device, self.mesh = route(device, spread=False)
         if not isinstance(mixer, StructureMixer):
             raise TypeError("Initialize the class with StructureMixer.")
         self.mixer = mixer
@@ -993,7 +997,8 @@ class SPINNA:
             return cached[2]
         scorer = BatchedScorer(self.mixer, self.dists_gt, self.N_sim,
                                max_counts, max_points=max_points,
-                               device=self.device)
+                               device=(self.device if self.mesh is None
+                                       else self.mesh))
         self._batched_cache = (buckets, self.dists_gt, scorer)
         return scorer
 

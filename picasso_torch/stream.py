@@ -125,8 +125,9 @@ def device_chunks(movie, device, *, roi=None, frame_bounds=None,
                   timers: dict | None = None):
     """Yield ``(first_frame, chunk)`` for the frames within
     ``frame_bounds``: each chunk (B, Y, X), cropped to ``roi``, uploaded
-    once to ``device`` by ops/identify.upload_frames while the next one
-    decodes in the background. ``timers``, where given, gets the chunk
+    once to ``device`` by ops/identify.upload_frames (or, for ``device``
+    None, the host array, as a mesh's shards upload their parts) while
+    the next one decodes in the background. ``timers``, where given, gets the chunk
     geometry (``n_chunks``, ``frame_chunk``) and accumulates the seconds
     spent waiting for decoded chunks (``decode_wait_s``) and uploading
     them (``upload_dispatch_s``)."""
@@ -161,7 +162,8 @@ def device_chunks(movie, device, *, roi=None, frame_bounds=None,
                 t1 = time.perf_counter()
                 if roi is not None:
                     batch = batch[:, y0:y1, x0:x1]
-                chunk = upload_frames(batch, device)
+                chunk = batch if device is None else upload_frames(batch,
+                                                                   device)
                 timers["decode_wait_s"] += t1 - t0
                 timers["upload_dispatch_s"] += time.perf_counter() - t1
                 yield offset, chunk

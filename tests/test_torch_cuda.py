@@ -1475,3 +1475,59 @@ def test_scene_on_the_card_matches_the_cpu(dev):
         c = render.render_scene(locs, info, device="cpu", **kw)
         assert g[1] == c[1] and g[0].shape == c[0].shape
         assert np.abs(g[0].astype(int) - c[0]).max() <= 1
+
+
+def _mesh(n=4):
+    from picasso_torch.parallel import mesh as pmesh
+
+    if torch.cuda.device_count() > 1:
+        return pmesh.default_mesh()
+    return pmesh.Mesh(["cuda:0"] * n)
+
+
+@pytest.mark.parametrize("method", ["sigmaxy", "sigma", "lq"])
+def test_mesh_localize_equals_one_card(dev, method):
+    """localize_fused over a mesh (logical shards on one card, in
+    turns) == on one card, hits and fits bit for bit; each shard
+    launched K4 once a chunk and its fit."""
+    mesh = _mesh()
+    movie = make_bench_movie(48, 128, 300, 0.5, np.random.default_rng(13))
+    cam = {"Baseline": 0, "Sensitivity": 1, "Gain": 1}
+    kw = dict(fitting_method="gausslq" if method == "lq" else "gaussmle",
+              mle_method="sigmaxy" if method == "lq" else method,
+              frame_chunk=16, max_it=MAX_IT)
+    one = fused.localize_fused(movie, 4000, 7, cam, device="cuda:0", **kw)
+    mesh.reset_launches()
+    got = fused.localize_fused(movie, 4000, 7, cam, device=mesh, **kw)
+    for name in one[0].dtype.names:
+        np.testing.assert_array_equal(got[0][name], one[0][name])
+    for a, b in zip(got[1], one[1]):
+        np.testing.assert_array_equal(a, b)
+    fit = ("fit_lq_queue_t" if method == "lq" else "fit_mle_queue_t")
+    for d in mesh.launches:
+        counts = {k.rsplit(".", 1)[1]: v for k, v in d.items()}
+        assert counts["identify_tiles"] == 3
+        assert counts[fit] == 3 * (1 if method == "lq" else 2)
+
+
+def test_mesh_fits_equal_the_routes(dev):
+    from picasso_torch import gaussmle
+    from picasso_torch.parallel import mesh as pmesh
+
+    mesh = _mesh()
+    spots = make_spots(4000, 7, seed=5)
+    for method in ("sigmaxy", "sigma"):
+        got = pmesh.fit_mle_sharded(spots, EPS, MAX_IT, method, mesh)
+        ref = gaussmle.gaussmle(spots, EPS, MAX_IT, method, device="cuda:0")
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(
+        pmesh.fit_lq_sharded(spots, 30, FTOL, mesh),
+        lq.fit_spots_batched(spots, 30, device="cuda:0"))
+
+
+def test_mesh_dryrun_on_the_card(dev):
+    from picasso_torch.parallel.dryrun import dryrun_multichip
+
+    mesh = _mesh()
+    assert "OK" in dryrun_multichip(mesh.size, devices=list(mesh.devices))

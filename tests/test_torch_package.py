@@ -54,7 +54,7 @@ def test_every_module_imports_without_jax():
               "ops.link", "masking", "clusterer", "ops.cluster", "g5m",
               "ops.gmm", "average", "spinna", "ops.spinna_batch",
               "nanotron", "average3", "simulate", "spatial_index",
-              "profiling"):
+              "profiling", "parallel", "parallel.mesh", "parallel.dryrun"):
         assert "picasso_torch." + m in mods
     from picasso_torch import io, lib, masking, postprocess
 
@@ -154,6 +154,9 @@ def test_workflow_module_imports_no_jax_flax_optax_pandas_or_sklearn(module):
 def test_import_touches_no_cuda():
     code = (
         "import torch, picasso_torch, picasso_torch.ops.fused\n"
+        "import picasso_torch.parallel, picasso_torch.parallel.dryrun\n"
+        "from picasso_torch.parallel import mesh\n"
+        "mesh.Mesh(['cpu'] * 4)\n"
         "assert not torch.cuda.is_initialized()\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -170,6 +173,93 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
     assert not any((tmp_path / "build").rglob(_build.LIB_NAME))
+
+
+def test_library_builds_once_under_threads(monkeypatch, tmp_path):
+    """The mesh's shard workers may reach the kernel library first at the
+    same moment: one builds and loads it while the others wait, and all
+    get the same library. Without nvcc every thread gets the build's
+    error and nothing is cached."""
+    import threading
+    import time
+    import types
+
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "CUDA_ROOT", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    _build._load.cache_clear()
+    errors, libs = [], []
+
+    def call():
+        try:
+            libs.append(_build.library())
+        except RuntimeError as e:
+            errors.append(str(e))
+
+    def run_threads(n=8):
+        threads = [threading.Thread(target=call) for _ in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+
+    run_threads()
+    assert len(errors) == 8 and not libs
+    assert all("nvcc not found" in e for e in errors)
+    builds = []
+
+    def fake_build():
+        builds.append(threading.get_ident())
+        time.sleep(0.2)  # the others arrive while this one builds
+        return tmp_path / _build.LIB_NAME, 1.0
+
+    class FakeLib:
+        def __getattr__(self, name):
+            fn = types.SimpleNamespace()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(_build, "build", fake_build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: FakeLib())
+    try:
+        run_threads()
+        assert len(builds) == 1 and len(libs) == 8
+        assert all(lib is libs[0] for lib in libs)
+    finally:
+        _build._load.cache_clear()
+
+
+def test_launch_counts_are_exact_under_threads():
+    """count_launch adds under a lock, and a thread's tally counts only
+    its own launches."""
+    import threading
+
+    def kernel():
+        pass
+
+    kernel.launches = 0
+    tallies = []
+
+    def work():
+        with _build.tally() as counts:
+            for _ in range(20000):
+                _build.count_launch(kernel)
+        tallies.append(counts)
+
+    threads = [threading.Thread(target=work) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert kernel.launches == 8 * 20000
+    key = f"{__name__}.kernel"
+    assert [t[key] for t in tallies] == [20000] * 8
+    with _build.tally() as outer:
+        _build.count_launch(kernel, 2)
+        with _build.tally() as inner:
+            _build.count_launch(kernel)
+    assert inner == {key: 1} and outer == {key: 3}
 
 
 def test_sources_hash_and_cover_every_entry():
