@@ -263,8 +263,25 @@ Phases, each of which raises on failure (exit code != 0):
    ``mesh-g5m``: no kernel); (e) dryrun_multichip over the mesh
    (``mesh-dryrun``); with two or more cards, each shard's outputs on its
    own card;
+24. the folder watcher (picasso_torch/server/watcher.py) on the card: the
+   smoke movie of phase 4 as one movie.ome.tif in a temporary folder of
+   the checkout; watcher.watch(folder, poll_s=0, max_iterations=1,
+   device="cuda") with every count set to 0 just before it and
+   io.save_locs replaced by a capture (the machine has no h5py); the log
+   has the movie's Processed line and no FAILED line, K4 launched once a
+   chunk and K5's MLE work queue twice a chunk, no other fit (path
+   ``watcher``); the captured locs equal a direct localize.localize on
+   the card of io.load_movie of the file with the watcher's parameters
+   (min. net gradient 5000, box 7, baseline 0, sensitivity 1, gain 1,
+   pixel size 130) bit for bit, and the path is JAX's
+   ``<movie without its last extension>_locs.hdf5`` beside the movie;
+   the watcher's wall is printed with its split (discovery,
+   wait_for_change's 2 s, the load, localize).
 IMS and STK movies are checked on the CPU only (tests/test_torch_io.py):
-the machine with the card has no h5py.
+the machine with the card has no h5py. It has no matplotlib either, so
+none of picasso_torch.gui's apps runs there (tests/test_torch_gui_apps.py
+holds them to the JAX package's on the CPU), and the CLI's verbs run on
+the CPU only.
 The line before the last is the JSON record of every kernel (bound_ms:
 the larger of the FLOPs this run's inputs need over 67 TFLOP/s f32 and
 the bytes read once and written once over 3.35 TB/s, NVIDIA's H100 SXM
@@ -2645,6 +2662,83 @@ def mesh_phase(movie, camera, segs, origami, counted, smi: str) -> dict:
     return paths
 
 
+def watcher_phase(movie, counted, check_route, smi: str) -> dict:
+    """24. The folder watcher on the card: the movie written as one
+    movie.ome.tif in a temporary folder of the checkout, watched once
+    with every count set to 0 just before; io.save_locs captured; the
+    locs held bit for bit to a direct localize of the same file. Returns
+    the launches."""
+    from picasso_torch import io, localize
+    from picasso_torch.server import watcher
+    from torch_data import write_tiff
+
+    camera = {"Baseline": 0, "Sensitivity": 1, "Gain": 1, "Pixelsize": 130}
+    params = {"Min. Net Gradient": 5000, "Box Size": 7}
+    split = dict.fromkeys(("discovery", "wait", "load", "localize"), 0.0)
+
+    def timed(name, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                split[name] += time.perf_counter() - t0
+        return call
+
+    saved = []
+    keep = {(watcher, "check_new"): watcher.check_new,
+            (watcher, "wait_for_change"): watcher.wait_for_change,
+            (io, "load_movie"): io.load_movie,
+            (localize, "localize"): localize.localize,
+            (io, "save_locs"): io.save_locs}
+    with tempfile.TemporaryDirectory(prefix=".smoke-watch-", dir=ROOT) as tmp:
+        path = os.path.join(tmp, "movie.ome.tif")
+        t0 = time.perf_counter()
+        write_tiff(path, movie)
+        t_write = time.perf_counter() - t0
+        log = os.path.join(tmp, "watch.log")
+        watcher.check_new = timed("discovery", keep[watcher, "check_new"])
+        watcher.wait_for_change = timed("wait",
+                                        keep[watcher, "wait_for_change"])
+        io.load_movie = timed("load", keep[io, "load_movie"])
+        localize.localize = timed("localize", keep[localize, "localize"])
+        io.save_locs = lambda p, locs, info: saved.append((p, locs, info))
+        try:
+            _, wall, launches = counted(lambda: watcher.watch(
+                tmp, logfile=log, poll_s=0, max_iterations=1,
+                device="cuda"))
+        finally:
+            for (module, name), fn in keep.items():
+                setattr(module, name, fn)
+        with open(log) as f:
+            lines = f.read().splitlines()
+        src, movie_info = io.load_movie(path)
+        direct, info = localize.localize(
+            src, dict(camera), params, movie_info=movie_info,
+            fitting_method="gaussmle", return_info=True, device="cuda")
+    if (not any(" Processed " + path in ln for ln in lines)
+            or any(" FAILED " in ln for ln in lines)):
+        raise AssertionError(f"watcher log: {lines}")
+    check_route("watcher", launches, "K5 mle queue", 2)
+    if len(saved) != 1:
+        raise AssertionError(f"watcher saved {len(saved)} files")
+    out, locs, saved_info = saved[0]
+    if out != os.path.splitext(path)[0] + "_locs.hdf5":
+        raise AssertionError(f"watcher saved to {out}")
+    if (len(locs) == 0 or locs.dtype != direct.dtype or saved_info != info
+            or any(not np.array_equal(locs[n], direct[n], equal_nan=True)
+                   for n in direct.dtype.names)):
+        raise AssertionError("watcher locs differ from a direct localize")
+    print(f"watcher ({smi}): {len(locs)} locs from {len(movie)} frames == a "
+          f"direct localize bit for bit, saved as "
+          f"{os.path.basename(out)}; wall {wall:.3f} s: discovery "
+          f"{split['discovery']:.4f}, wait_for_change {split['wait']:.3f}, "
+          f"load {split['load']:.4f}, localize {split['localize']:.3f} s "
+          f"(the TIFF written in {t_write:.3f} s before); launches "
+          f"{launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4033,6 +4127,9 @@ def main() -> int:
     launches_mesh = mesh_phase(movie, camera, segs, origami, counted, smi)
     t24 = time.perf_counter()
     print(f"phase 23: {t24 - t23:.1f} s ({smi})")
+    # 24. the folder watcher ---------------------------------------------
+    launches_watch = watcher_phase(movie, counted, check_route, smi)
+    print(f"phase 24: {time.perf_counter() - t24:.1f} s ({smi})")
     print(f"phases 15-16: {t16 - t15:.1f} s and {t17 - t16:.1f} s, phase "
           f"17: {t18 - t17:.1f} s, phase 18: {t19 - t18:.1f} s, phase 19: "
           f"{t20 - t19:.1f} s, phase 20: {t21 - t20:.1f} s ((a) "
@@ -4062,7 +4159,7 @@ def main() -> int:
              "simulate": launches_sim, "nanotron": launches_nano,
              "average3": launches_avg3, "picks": launches_picks,
              "mask": launches_mask, "render3d": launches_r3d,
-             **launches_mesh}
+             **launches_mesh, "watcher": launches_watch}
     for path in ("simulate", "nanotron", "average3", "mask", "render3d"):
         if any(paths[path].values()):
             raise AssertionError(f"path {path} launched {paths[path]}")

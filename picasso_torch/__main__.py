@@ -34,6 +34,15 @@ Counterpart of picasso_tpu/__main__.py for the verbs ported so far:
     python -m picasso_torch hdf2csv|hdf2ts|hdf2imagej|hdf2nis|hdf2chimera|
         hdf2visp "*_locs.hdf5"
     python -m picasso_torch toims "*.tif" [--stacked]
+    python -m picasso_torch server
+    python -m picasso_torch filter|design|simulate|average|average3|
+        nanotron|rotation
+
+``server`` runs the Streamlit pages of picasso_torch/server/app.py (it
+needs the optional ``streamlit`` package). The seven GUI verbs open
+``design`` and ``simulate`` where there is a display and an interactive
+matplotlib backend, and otherwise say how to run picasso_torch.gui's
+apps from Python, as the JAX CLI does.
 
 ``localize`` reads .raw, .tif/.tiff series, .ims, .stk and .nd2 movies
 and takes the JAX CLI's flags and defaults plus ``--device`` (default
@@ -82,6 +91,7 @@ from __future__ import annotations
 import argparse
 import glob
 import os
+import sys
 
 # -a choices to localize's fitting_method (picasso_tpu/__main__.py:69-77)
 _METHOD_MAP = {"mle": "gaussmle", "lq": "gausslq", "lq-gpu": "gausslq-gpu",
@@ -576,6 +586,54 @@ def _export(args):
         print(f"Exported ({label}) -> {out}")
 
 
+def _server(args):
+    import subprocess
+
+    app = os.path.join(os.path.dirname(os.path.abspath(__file__)), "server",
+                       "app.py")
+    subprocess.run([sys.executable, "-m", "streamlit", "run", app])
+
+
+_GUI_VERBS = ("filter", "design", "simulate", "average", "average3",
+              "nanotron", "rotation")
+
+
+def _gui_stub(args):
+    """Open the matplotlib app of a GUI verb where there is a display and
+    an interactive backend; otherwise say how to run the apps from
+    Python (picasso_tpu/__main__.py:626)."""
+    launchers = {
+        "design": lambda gui: gui.DesignApp(),
+        "simulate": lambda gui: gui.SimulateApp(),
+    }
+    has_display = (sys.platform in ("darwin", "win32")
+                   or bool(os.environ.get("DISPLAY"))
+                   or bool(os.environ.get("WAYLAND_DISPLAY")))
+    interactive = False
+    if has_display:
+        try:
+            import matplotlib
+            import matplotlib.pyplot as plt
+
+            interactive = matplotlib.get_backend().lower() != "agg"
+        except Exception:
+            interactive = False
+    launcher = launchers.get(args.command)
+    if interactive and launcher is not None:
+        from picasso_torch import gui
+
+        launcher(gui)
+        plt.show()
+        return
+    print(
+        f"'{args.command}' runs from python: picasso_torch.gui provides "
+        "RotationApp / AverageApp / Average3App / SimulateApp / DesignApp "
+        "/ SpinnaApp / NanotronApp / ToRawApp (matplotlib, any backend). "
+        "All processing is also available headlessly through this CLI, "
+        "and outputs are file-compatible with the reference Picasso GUI."
+    )
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         "picasso-torch",
@@ -780,6 +838,10 @@ def main(argv=None):
         p = subparsers.add_parser(name, help=helptext)
         p.add_argument("files")
 
+    subparsers.add_parser("server", help="monitoring server (streamlit)")
+    for verb in _GUI_VERBS:
+        subparsers.add_parser(verb, help=f"{verb} (GUI app)")
+
     args = parser.parse_args(argv)
     if args.command is None:
         parser.print_help()
@@ -797,7 +859,8 @@ def main(argv=None):
              "smlm_cluster": _smlm_cluster, "g5m": _g5m,
              "spinna": _spinna, "spinna-batch": _spinna_batch,
              "csv2hdf": _csv2hdf, "hdf2csv": _hdf2csv,
-             **dict.fromkeys(_EXPORTS, _export)}
+             **dict.fromkeys(_EXPORTS, _export), "server": _server,
+             **dict.fromkeys(_GUI_VERBS, _gui_stub)}
     from picasso_torch import profiling
 
     with profiling.trace(getattr(args, "profile", None)):

@@ -40,6 +40,9 @@ MAX_ROUNDS_WITHOUT_BEST_BIC = 3
 MIN_SIGMA_FACTOR = 0.8
 MAX_SIGMA_FACTOR = 1.5
 N_COMPONENTS_MAX = 100
+# the reference's process-pool chunk size (picasso/g5m.py:58); the port
+# fits clusters in batches, and keeps the name for the reference's API
+N_TASKS = 500
 # groups from which g5m takes the batched route, as JAX (g5m.py:983-986)
 BATCH_MIN_GROUPS = 8
 

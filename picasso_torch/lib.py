@@ -15,7 +15,12 @@ MockProgress :670, progress_reporter :731, get_pick_polygon_corners
 append_to_rec :100, calculate_optimal_bins :364, hist2d :412,
 extract_filter_steps :550, apply_filter_steps :605, locs_glob_map :748,
 REQUIRED_COLUMNS :784, hist2d_numba :807, is_path_available :814,
-remove_from_rec :836, unpack_calibration :849). Locs are
+remove_from_rec :836, unpack_calibration :849), and the rest of its
+names: n_futures_done :484, is_hexadecimal, get_colors :502,
+TqdmProgress :695, the constants and type aliases :781-799, the sound
+notification settings :886-920, the QC plots :941-1065 (matplotlib
+imported inside each), ProgressDialog :1100 (a tqdm bar), ProgressType
+and QtOnlyAttributeError :1157-1186. Locs are
 numpy structured arrays with the record layout of the HDF5 ``"locs"``
 dataset; :func:`series_mean_std` gives a column the mean and std that
 the JAX package's pandas columns give.
@@ -566,10 +571,48 @@ def deprecation_warning(message: str) -> None:
     print(message)
 
 
+def n_futures_done(futures) -> int:
+    """Count finished futures (picasso/lib.py:2083)."""
+    return sum(f.done() for f in futures)
+
+
+def is_hexadecimal(text: str) -> bool:
+    """True if text is a #RRGGBB hex colour."""
+    if not isinstance(text, str) or not text.startswith("#"):
+        return False
+    if len(text) != 7:
+        return False
+    try:
+        int(text[1:], 16)
+        return True
+    except ValueError:
+        return False
+
+
+def get_colors(n_channels: int) -> list[tuple[float, float, float]]:
+    """Evenly hue-spaced RGB colours for multichannel display."""
+    import colorsys
+
+    return [colorsys.hsv_to_rgb(i / n_channels, 1.0, 1.0)
+            for i in range(n_channels)]
+
+
 class MockProgress:
     """No-op progress reporter (picasso/lib.py:426)."""
 
+    def __init__(self, *a, **kw):
+        pass
+
     def set_value(self, value):
+        pass
+
+    def update(self, n=1):
+        pass
+
+    def close(self):
+        pass
+
+    def zero_progress(self, description: str | None = None):
         pass
 
     def __enter__(self):
@@ -598,6 +641,99 @@ class ConsoleProgress(MockProgress):
         sys.stderr.write("\n")
         sys.stderr.flush()
         return False
+
+
+class TqdmProgress:
+    """tqdm-backed progress reporter (picasso/lib.py:464)."""
+
+    def __init__(self, total: int, description: str = "", **kw):
+        from tqdm import tqdm
+
+        self._tqdm = tqdm(total=total, desc=description, **kw)
+        self._value = 0
+
+    def set_value(self, value: int):
+        delta = value - self._value
+        if delta > 0:
+            self._tqdm.update(delta)
+            self._value = value
+
+    def update(self, n: int = 1):
+        self._value += n
+        self._tqdm.update(n)
+
+    def close(self):
+        self._tqdm.close()
+
+    def zero_progress(self, description: str | None = None):
+        if description is not None:
+            self._tqdm.set_description(description)
+        self._tqdm.reset()
+        self._value = 0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+class ProgressDialog:
+    """Headless stand-in for the reference's Qt progress dialog
+    (picasso/lib.py:307): its constructor and methods (``set_value``,
+    ``zero_progress``, ``close``, ``get_iterator``) over a tqdm bar."""
+
+    def __init__(self, description, minimum, maximum, parent=None):
+        from tqdm import tqdm
+
+        self.description_base = description
+        self._minimum = minimum
+        self._maximum = maximum
+        self._bar = tqdm(total=maximum - minimum, desc=description,
+                         leave=False)
+        self._value = minimum
+
+    def value(self):
+        return self._value
+
+    def maximum(self):
+        return self._maximum
+
+    def set_value(self, value):
+        self._value = value
+        self._bar.n = value - self._minimum
+        self._bar.refresh()
+
+    def setLabelText(self, description):
+        self.description_base = description
+        self._bar.set_description(description)
+
+    def zero_progress(self, description=None):
+        if description:
+            self.setLabelText(description)
+        self.set_value(self._minimum)
+
+    def get_iterator(self, start=None, end=None):
+        start = self._value if start is None else start
+        end = self._maximum if end is None else end
+        return range(start, end)
+
+    def close(self):
+        self._bar.close()
+
+    def closeEvent(self, event=None):
+        self.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+ProgressType = ProgressDialog | MockProgress | TqdmProgress
 
 
 def progress_reporter(
@@ -831,3 +967,240 @@ def unpack_calibration(calibration, pixelsize):
     z_range = -(np.arange(n_frames) * z_step_size - z_total_range / 2)
     spot_size = np.stack((np.polyval(cx, z_range), np.polyval(cy, z_range)))
     return spot_size, z_range / pixelsize, mag_factor
+
+
+# --- constants and type aliases (picasso/lib.py:46-83) ----------------------
+
+SOUND_NOTIFICATION_DURATION = 60  # seconds
+
+IntArray1D = np.ndarray
+IntArray2D = np.ndarray
+IntArray3D = np.ndarray
+FloatArray1D = np.ndarray
+FloatArray2D = np.ndarray
+FloatArray3D = np.ndarray
+BoolArray1D = np.ndarray
+BoolArray2D = np.ndarray
+Array3x3 = np.ndarray
+# strings, as in the JAX package: the port never imports pandas
+SeriesOrFloatArray1D = "pd.Series | np.ndarray"
+SeriesOrIntArray1D = "pd.Series | np.ndarray"
+
+
+# --- sound notifications: the settings without Qt (picasso/lib.py:765-840)
+
+
+def _sound_notification_dir() -> str:
+    return os.path.join(os.path.dirname(os.path.realpath(__file__)), "gui",
+                        "notification_sounds")
+
+
+def get_sound_notification_path():
+    """Path of the configured notification sound, or None when unset,
+    missing, or not an mp3/wav (picasso/lib.py:765)."""
+    from picasso_torch import io
+
+    settings = io.load_user_settings()
+    if "Sound_notification" not in settings:
+        settings["Sound_notification"]["filename"] = None
+        io.save_user_settings(settings)
+    filename = settings["Sound_notification"]["filename"]
+    if filename is None:
+        return None
+    path = os.path.join(_sound_notification_dir(), filename)
+    if not os.path.isfile(path):
+        return None
+    if os.path.splitext(filename)[1].lower() not in (".mp3", ".wav"):
+        return None
+    return path
+
+
+def get_available_sound_notifications():
+    """File names of the bundled notification sounds, after "None"
+    (picasso/lib.py:795)."""
+    sounds_dir = _sound_notification_dir()
+    filenames = []
+    if os.path.isdir(sounds_dir):
+        filenames = sorted(
+            f for f in os.listdir(sounds_dir)
+            if os.path.isfile(os.path.join(sounds_dir, f))
+            and os.path.splitext(f)[1].lower() in (".mp3", ".wav"))
+    return ["None"] + filenames
+
+
+def set_sound_notification(selection) -> None:
+    """Keep the selected notification sound in the user settings
+    (picasso/lib.py:815): a file name, or an object with
+    ``objectName()`` as the reference's Qt actions have."""
+    from picasso_torch import io
+
+    if hasattr(selection, "objectName"):
+        selection = selection.objectName()
+    if selection == "None":
+        selection = None
+    settings = io.load_user_settings()
+    settings["Sound_notification"]["filename"] = selection
+    io.save_user_settings(settings)
+
+
+# --- QC plots (picasso/lib.py:1385, :2381, :2504) ---------------------------
+
+
+def plot_trace(locs: np.ndarray, info, *, fig=None, include_photons=True,
+               return_trace=False):
+    """Per-frame trace of one binding site: x, y, ON/OFF and photons
+    (picasso/lib.py:1385)."""
+    import matplotlib.pyplot as plt
+
+    n_rows = 4 if include_photons else 3
+    if fig is None:
+        fig, axes = plt.subplots(n_rows, 1, figsize=(5, 5),
+                                 constrained_layout=True, sharex=True)
+    else:
+        fig.clear()
+        axes = fig.subplots(n_rows, sharex=True)
+    n_frames = get_from_metadata(info, "Frames", raise_error=True)
+    xvec = np.arange(n_frames)
+    yvec = np.zeros(n_frames, dtype=int)
+    yvec[locs["frame"]] = 1
+    yvec_ph = np.zeros(n_frames)
+    if "photons" in locs.dtype.names:
+        yvec_ph[locs["frame"]] = locs["photons"]
+    trace_data = (xvec, yvec, yvec_ph) if include_photons else (xvec, yvec)
+
+    axes[0].scatter(locs["frame"], locs["x"], s=2)
+    axes[0].set_title("X-pos vs frame")
+    axes[0].set_xlim(0, n_frames)
+    axes[0].set_ylabel("X-pos [Px]")
+    axes[1].scatter(locs["frame"], locs["y"], s=2)
+    axes[1].set_title("Y-pos vs frame")
+    axes[1].set_ylabel("Y-pos [Px]")
+    axes[2].plot(xvec, yvec, linewidth=1)
+    axes[2].fill_between(xvec, 0, yvec, facecolor="red")
+    axes[2].set_title("Localizations")
+    axes[2].set_xlabel("Frames")
+    axes[2].set_ylabel("ON")
+    axes[2].set_yticks([0, 1])
+    axes[2].set_ylim([-0.1, 1.1])
+    if include_photons:
+        axes[3].plot(xvec, yvec_ph, linewidth=1)
+        axes[3].set_title("Photons")
+        axes[3].set_xlabel("Frames")
+        axes[3].set_ylabel("Photons")
+        axes[3].set_ylim([0, max(yvec_ph.max(), 1) * 1.1])
+    if return_trace:
+        return fig, trace_data
+    return fig
+
+
+def plot_subclustering_check(clustered_n_events, sparse_n_events,
+                             plot_path="", return_fig=False,
+                             clustering_dist=None, sparse_dist=None):
+    """Event-count histograms of clustered and sparse molecules with a
+    KS/permutation test in the title, the companion of
+    ``clusterer.test_subclustering`` (picasso/lib.py:2381)."""
+    import matplotlib.pyplot as plt
+
+    clustered_n_events = np.asarray(clustered_n_events)
+    sparse_n_events = np.asarray(sparse_n_events)
+    has_clustered = len(clustered_n_events) > 0
+    has_sparse = len(sparse_n_events) > 0
+    fig, ax = plt.subplots(1, figsize=(6, 4), constrained_layout=True)
+    populations = [
+        (has_clustered, clustered_n_events, clustering_dist, "<",
+         "Clustered", "C0"),
+        (has_sparse, sparse_n_events, sparse_dist, ">", "Sparse", "C1"),
+    ]
+    for present, events, dist, sign, name, color in populations:
+        if not present:
+            continue
+        vals, counts = np.unique(events, return_counts=True)
+        label = f"{name} {events.mean():.1f} +/- {events.std():.1f}"
+        if dist is not None:
+            label = (f"{name} (d {sign} {dist:.1f} nm) "
+                     f"{events.mean():.1f} +/- {events.std():.1f}")
+        ax.bar(vals, counts, width=0.8, alpha=0.5, label=label, color=color)
+        ax.axvline(events.mean(), color=color, linestyle="--")
+    if has_clustered or has_sparse:
+        all_events = np.concatenate((sparse_n_events, clustered_n_events))
+        min_bin, max_bin = np.percentile(all_events, [2.5, 97.5])
+        ax.set_xlabel("Number of events")
+        ax.set_ylabel("Counts")
+        ax.set_xlim(min_bin - 1, max_bin + 1)
+        ax.legend()
+    if has_clustered and has_sparse:
+        stat, p_perm, p = permutation_test(clustered_n_events,
+                                           sparse_n_events)
+        p_str = r"$p_{value}$"
+        title = (f"KS test: stat={stat:.4f}\n"
+                 f"permutation {p_str}={p_perm:.4f}\n"
+                 f"theoretical {p_str}={p:.4f}")
+    elif has_clustered or has_sparse:
+        title = ("Only one population found, no statistical test "
+                 "performed; adjust distance parameters.")
+    else:
+        title = ("No molecules found in either population, adjust "
+                 "distance parameters.")
+    ax.set_title(title, fontsize=10)
+    if len(plot_path):
+        if isinstance(plot_path, str):
+            plot_path = [plot_path]
+        for path in plot_path:
+            fig.savefig(path, dpi=300)
+    if return_fig:
+        return fig, ax
+    plt.close(fig)
+    return None, None
+
+
+def plot_rel_sigma_check(mols: np.ndarray, info, path) -> None:
+    """Histograms of the relative sigmas of G5M molecules (a panel a
+    dimension in 3D), saved to ``path`` (picasso/lib.py:2504)."""
+    import matplotlib.pyplot as plt
+
+    if "z" in mols.dtype.names:
+        fig, axes = plt.subplots(3, 1, figsize=(6, 8),
+                                 constrained_layout=True)
+        bins = calculate_optimal_bins(np.concatenate([
+            mols["rel_sigma_x"], mols["rel_sigma_y"], mols["rel_sigma_z"]]))
+        for i, dim in enumerate("xyz"):
+            axes[i].hist(mols[f"rel_sigma_{dim}"], bins=bins,
+                         color=f"C{i}", alpha=0.7)
+            axes[i].set_xlabel(f"Relative sigma {dim}")
+            axes[i].set_ylabel("Counts")
+    else:
+        fig, ax = plt.subplots(1, figsize=(6, 4), constrained_layout=True)
+        ax.hist(mols["rel_sigma"],
+                bins=calculate_optimal_bins(mols["rel_sigma"]),
+                color="C0", alpha=0.7)
+        ax.set_xlabel("Relative sigma")
+        ax.set_ylabel("Counts")
+    fig.savefig(path, dpi=300)
+    plt.close(fig)
+
+
+# --- the reference's Qt-only names ------------------------------------------
+
+_QT_ONLY_NAMES = {
+    "Dialog", "GenericPlotWindow", "HelpButton", "LogDoubleSpinBox",
+    "MetadataDialog", "RemoveColumnsDialog", "ScrollableGroupBox",
+    "StatusDialog", "UserSettingsDialog", "adjust_widget_size",
+    "cancel_dialogs", "get_save_filename_ext_dialog",
+    "install_excepthook",
+}
+
+
+class QtOnlyAttributeError(AttributeError):
+    """Raised for the reference's names that exist only with Qt. An
+    AttributeError, so that hasattr() and getattr(..., default) still
+    probe for them."""
+
+
+def __getattr__(name):
+    if name in _QT_ONLY_NAMES:
+        raise QtOnlyAttributeError(
+            f"lib.{name} is a Qt widget/helper in the reference "
+            "(picasso/lib.py); the port has no Qt. Its apps live in "
+            "picasso_torch.gui and run on matplotlib.")
+    raise AttributeError(
+        f"module 'picasso_torch.lib' has no attribute {name!r}")

@@ -6,11 +6,12 @@ Counterpart of picasso_tpu/localize.py (_id_frame_chunk :60,
 identify_in_image :71, identify_in_frame :82, identify_by_frame_number
 :96, identify :134, picks_to_identifications :257, get_spots :290,
 get_spots_raw :326, fit2D :346, fit :462, fit_async :473,
-locs_from_fits :486, localize :516, localize_3D :668; MEAN_COLS and
-SET_COLS :41, check_nena :736, check_kinetics :749, check_drift :758,
-get_file_summary :779, _db_filename :838, _save_file_summary :849,
-add_file_to_db :859, local_maxima :875, gradient_at :889, net_gradient
-:898, identify_async :913, identifications_from_futures :940,
+locs_from_fits :486, localize :516, localize_3D :668;
+LOCALIZATION_COLUMNS :23, MEAN_COLS and SET_COLS :41, check_nena :736,
+check_kinetics :749, check_drift :758, get_file_summary :779,
+_db_filename :838, _save_file_summary :849, add_file_to_db :859,
+local_maxima :875, gradient_at :889, net_gradient :898, identify_async
+:913, identifications_from_futures :940,
 locs_to_identifications :949, save_file_summary :976). ``localize`` with
 a Gaussian fitter and a scalar camera runs the fused chain per frame
 chunk (ops/fused.py) on ``device``: on a CUDA device through the
@@ -52,12 +53,17 @@ _ID_CHUNK_BYTES = 64e6
 
 _GAUSS_METHODS = ("gausslq", "gausslq-gpu", "gaussmle")
 
-# the localization columns whose means and stds the summary database
-# keeps, and the settings it copies from the info (picasso/localize.py:52)
-MEAN_COLS = [
-    "frame", "x", "y", "photons", "sx", "sy", "bg", "lpx", "lpy",
-    "ellipticity", "net_gradient", "z", "d_zcalib", "lpz",
-]
+# the localization columns by kind (picasso/localize.py:52-71); the
+# summary database keeps the means and stds of MEAN_COLS and copies
+# SET_COLS from the info
+LOCALIZATION_COLUMNS = {
+    "Base": ["frame", "x", "y", "photons", "sx", "sy", "bg", "lpx", "lpy",
+             "ellipticity", "net_gradient"],
+    "3D only": ["z", "d_zcalib", "lpz"],
+    "Picked spots only": ["n_id"],
+    "MLE only": ["log_likelihood", "iterations"],
+}
+MEAN_COLS = LOCALIZATION_COLUMNS["Base"] + LOCALIZATION_COLUMNS["3D only"]
 SET_COLS = [
     "Frames", "Height", "Width", "Box Size", "Min. Net Gradient",
     "Pixelsize",

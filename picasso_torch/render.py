@@ -10,10 +10,13 @@ _render_gaussian :156, _render_gaussian_iso :197, _render_smooth :235,
 _render_convolve :248, _fftconvolve :269, render_hist_anisotropic :284,
 render_hist3d_anisotropic :298, the rotations :368-411, the viewport
 algebra :419-471, the contrast and colours :479-610, the scene :619-736
-and the public aliases and helpers :743-821. The drawing helpers of the
-GUI (scale bar, legend, minimap, picks, Qt images, animations) are not
-ported. Locs are numpy structured arrays; their columns go to ``device``
-once, in the dtype they carry, and the images are made there
+and the public aliases and helpers :743-821; of the GUI's drawing
+helpers, those the rotation window calls: build_animation :346,
+draw_rotation :983, draw_rotation_angles :1003 and _export_image :1037.
+The other drawing helpers of the GUI (scale bar, legend, minimap,
+picks, Qt images) are not ported yet. Locs are numpy structured arrays;
+their columns go to ``device`` once, in the dtype they carry, and the
+images are made there
 (ops/render_ops.py): the in-view test and the display transform run in
 that dtype (f64 after a drift correction), as in JAX, and ops/render_ops
 takes JAX's route by the number of locs in view. A rotated view rotates
@@ -360,6 +363,98 @@ def closest_rotvec(rotation, reference):
             candidates.append(ax * (t + 2 * np.pi * kk))
     d = [np.linalg.norm(c - reference) for c in candidates]
     return candidates[int(np.argmin(d))]
+
+
+# --- the rotation window's drawing (picasso/render.py:2604-2693, :3411) -----
+
+
+def _draw_text(rgb, text, xy, color, fontsize=16, bg=None):
+    """Rasterize text into an RGB array with PIL (the headless stand-in
+    for QPainter.drawText)."""
+    from PIL import Image, ImageDraw, ImageFont
+
+    img = Image.fromarray(rgb)
+    draw = ImageDraw.Draw(img)
+    try:
+        font = ImageFont.load_default(size=fontsize)
+    except TypeError:  # older Pillow: a fixed-size bitmap font
+        font = ImageFont.load_default()
+    if bg is not None:
+        bbox = draw.textbbox(xy, text, font=font)
+        pad = 4
+        draw.rectangle((bbox[0] - pad, bbox[1] - pad, bbox[2] + pad,
+                        bbox[3] + pad), fill=tuple(bg))
+    draw.text(xy, text, fill=tuple(color), font=font)
+    return np.asarray(img)
+
+
+def _draw_line(rgb, p0, p1, color):
+    """Burn a 1-px line into an RGB array."""
+    h, w = rgb.shape[:2]
+    n = int(max(abs(p1[0] - p0[0]), abs(p1[1] - p0[1]), 1)) + 1
+    xs = np.linspace(p0[0], p1[0], n).round().astype(int)
+    ys = np.linspace(p0[1], p1[1], n).round().astype(int)
+    ok = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    rgb[ys[ok], xs[ok]] = color
+    return rgb
+
+
+def draw_rotation(rgb: np.ndarray, ang, axis_length: int = 30,
+                  axis_center: tuple[int, int] = (50, -50)) -> np.ndarray:
+    """The rotated x/y/z axis tripod (red/cyan/green), by default in the
+    bottom-left corner (picasso/render.py:2604)."""
+    rgb = rgb.copy()
+    h, w = rgb.shape[:2]
+    x = axis_center[0] if axis_center[0] >= 0 else w + axis_center[0]
+    y = axis_center[1] if axis_center[1] >= 0 else h + axis_center[1]
+    rotated = to_rotation(ang).apply(np.eye(3) * axis_length).astype(int)
+    colors = [(255, 0, 0), (0, 255, 255), (0, 255, 0)]
+    for (ex, ey, _), color in zip(rotated, colors):
+        _draw_line(rgb, (x, y), (x + ex, y + ey), color)
+    return rgb
+
+
+def draw_rotation_angles(rgb: np.ndarray, ang,
+                         color=(255, 255, 255)) -> np.ndarray:
+    """The rotation angles in degrees as text in the bottom-right corner
+    (picasso/render.py:2693)."""
+    h, w = rgb.shape[:2]
+    angx, angy, angz = [int(np.round(a * 180 / np.pi)) for a in ang]
+    text = f"{angx} {angy} {angz}"
+    x = w - len(text) * 8 - 10
+    y = h - 20
+    return _draw_text(np.ascontiguousarray(rgb).copy(), text, (x, y - 12),
+                      color, fontsize=12)
+
+
+def build_animation(path: str, frames: list[np.ndarray], fps: int = 30
+                    ) -> None:
+    """Write rendered RGB frames to a movie file with imageio
+    (picasso/render.py:3411): a GIF always, an mp4 with an ffmpeg
+    backend."""
+    import imageio
+
+    if path.lower().endswith(".gif"):
+        # imageio v3 takes the frame duration (ms) for GIF, not fps
+        imageio.mimsave(path, frames, duration=1000.0 / fps, loop=0)
+    else:
+        imageio.mimsave(path, frames, fps=fps)
+
+
+def _export_image(image: np.ndarray, path) -> None:
+    """Write an RGB array to a vector or raster file through matplotlib,
+    the headless stand-in for the reference's QPdfWriter/QSvgGenerator
+    painters (picasso/render.py:1640/1666). The port has no Qt, so the
+    image is always a numpy array."""
+    import matplotlib.pyplot as plt
+
+    h, w = image.shape[:2]
+    fig = plt.figure(figsize=(w / 100, h / 100), dpi=100)
+    ax = fig.add_axes([0, 0, 1, 1])
+    ax.imshow(image, interpolation="nearest")
+    ax.axis("off")
+    fig.savefig(path, dpi=100)
+    plt.close(fig)
 
 
 # --- viewport algebra (picasso/render.py:1807-2038) -------------------------

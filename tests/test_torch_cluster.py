@@ -36,7 +36,6 @@ import torch
 from scipy.spatial import cKDTree
 
 from picasso_tpu import clusterer as jclust
-from picasso_tpu import native
 from picasso_tpu import postprocess as jpost
 from picasso_tpu.ops import neighbors as jnb
 from picasso_torch import clusterer as tclust
@@ -44,6 +43,7 @@ from picasso_torch import postprocess as tpost
 from picasso_torch.ops import cluster as cluster_ops
 from picasso_torch.ops import neighbors as tnb
 from torch_data import make_event_locs
+from torch_native import loaded_native
 from torch_parity import CENTERS_ULPS
 
 MEAN_ULPS = 2
@@ -155,7 +155,7 @@ def test_sweep_twin_matches_the_native_sweep():
     starts = stops - sizes
     cols = rng.integers(0, n, int(sizes.sum())).astype(np.int64)
     want = np.full(n, -1, np.int32)
-    native.cluster_label_sweep(lm, starts, stops, cols, want)
+    loaded_native().cluster_label_sweep(lm, starts, stops, cols, want)
     np.testing.assert_array_equal(
         cluster_ops.sweep_plain(lm, starts, stops, cols, n), want)
     before = cluster_ops.sweep.launches

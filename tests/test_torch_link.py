@@ -21,11 +21,11 @@ import pandas as pd
 import pytest
 import torch
 
-from picasso_tpu import native
 from picasso_tpu import postprocess as jpost
 from picasso_torch import postprocess as tpost
 from picasso_torch.ops import link as link_ops
 from torch_data import make_event_locs
+from torch_native import loaded_native
 
 
 @pytest.fixture(autouse=True)
@@ -73,17 +73,53 @@ def _assert_table_equal(got: np.ndarray, ref: pd.DataFrame) -> None:
 def test_link_groups_equal_native(seed, d_max, tol):
     locs = jax_order(make_event_locs(seed)[0])
     args = (locs["frame"], locs["x"], locs["y"], locs["group"], d_max, tol)
-    want = native.link_groups(*args)
+    want = loaded_native().link_groups(*args)
     got = tpost.link_groups(*args, device="cpu")
     assert got.dtype == np.int32
     np.testing.assert_array_equal(got, want)
+
+
+def test_loaded_native_restores_a_lost_build_race(monkeypatch):
+    """A process left without the native library (another process was
+    still writing it when this one imported picasso_tpu.native) gets it
+    back from torch_native.loaded_native, with the same answers."""
+    native = loaded_native()
+    locs = jax_order(make_event_locs(0)[0])
+    args = (locs["frame"], locs["x"], locs["y"], locs["group"], 1.0, 1)
+    sweep = (np.array([1, 4], np.int64), np.array([0, 2], np.int64),
+             np.array([2, 3], np.int64), np.array([0, 2, 4], np.int64))
+
+    def answers():
+        labels = np.full(6, -1, np.int32)
+        native.cluster_label_sweep(*sweep, labels)
+        return native.link_groups(*args), labels
+
+    before = answers()
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "AVAILABLE", False)
+    with pytest.raises(AttributeError):
+        native.link_groups(*args)
+    assert loaded_native() is native
+    assert native.AVAILABLE and native._lib is not None
+    for got, want in zip(answers(), before):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_loaded_native_raises_when_the_library_stays_missing(monkeypatch):
+    """If loading again fails too, the helper says so; it never skips."""
+    native = loaded_native()
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "AVAILABLE", False)
+    monkeypatch.setattr(native, "_load", lambda: None)
+    with pytest.raises(RuntimeError, match="libpicasso_native"):
+        loaded_native()
 
 
 def test_link_groups_of_f64_coordinates_cast_to_f32_as_native():
     locs = jax_order(_f64(make_event_locs(2)[0]))
     args = (locs["frame"], locs["x"], locs["y"], locs["group"], 0.1, 1)
     np.testing.assert_array_equal(tpost.link_groups(*args, device="cpu"),
-                                  native.link_groups(*args))
+                                  loaded_native().link_groups(*args))
 
 
 @pytest.mark.parametrize("budget", [1, 7, 1000])
@@ -108,8 +144,8 @@ def test_successors_in_chunks_equal_brute_force(budget):
         np.testing.assert_array_equal(succ[off[i]:off[i + 1]], np.nonzero(ok)[0])
     np.testing.assert_array_equal(
         link_ops.walk(_t(off), _t(succ)).numpy(),
-        native.link_groups(locs["frame"], locs["x"], locs["y"], locs["group"],
-                           d_max, tol))
+        loaded_native().link_groups(locs["frame"], locs["x"], locs["y"],
+                                    locs["group"], d_max, tol))
 
 
 def test_successors_on_cell_edges_negative_coordinates_and_one_cell():
@@ -139,7 +175,8 @@ def test_successors_on_cell_edges_negative_coordinates_and_one_cell():
                                           np.nonzero(ok)[0])
         np.testing.assert_array_equal(
             link_ops.walk(_t(off), _t(succ)).numpy(),
-            native.link_groups(frame, xx, yy, g.astype(np.int32), d_max, 1))
+            loaded_native().link_groups(frame, xx, yy, g.astype(np.int32),
+                                        d_max, 1))
 
 
 @pytest.mark.parametrize("f64", [False, True])
@@ -219,8 +256,8 @@ def test_link_rows_in_frame_keep_their_order():
     locs, info = make_event_locs(10)
     shuffled = locs[np.random.default_rng(1).permutation(len(locs))]
     stable = shuffled[np.argsort(shuffled["frame"], kind="stable")]
-    ids = native.link_groups(stable["frame"], stable["x"], stable["y"],
-                             stable["group"], 1.0, 1)
+    ids = loaded_native().link_groups(stable["frame"], stable["x"],
+                                      stable["y"], stable["group"], 1.0, 1)
     got = tpost.link(shuffled, info, r_max=1.0, max_dark_time=1,
                      remove_ambiguous_lengths=False, device="cpu")
     assert len(got) == ids.max() + 1

@@ -26,11 +26,16 @@ from picasso_torch.ops import (
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# a Streamlit script: it raises ImportError without streamlit, so it is
+# checked by its source (test_server_app_is_checked_by_source)
+SCRIPTS = ("picasso_torch.server.app",)
+
+
 def _modules():
     return sorted(
         m.name for m in pkgutil.walk_packages(
             picasso_torch.__path__, "picasso_torch."
-        )
+        ) if m.name not in SCRIPTS
     )
 
 
@@ -54,7 +59,10 @@ def test_every_module_imports_without_jax():
               "ops.link", "masking", "clusterer", "ops.cluster", "g5m",
               "ops.gmm", "average", "spinna", "ops.spinna_batch",
               "nanotron", "average3", "simulate", "spatial_index",
-              "profiling", "parallel", "parallel.mesh", "parallel.dryrun"):
+              "profiling", "parallel", "parallel.mesh", "parallel.dryrun",
+              "design", "design_sequences", "updater", "server",
+              "server.db", "server.watcher", "gui", "gui.base", "gui.apps",
+              "gui.plugins"):
         assert "picasso_torch." + m in mods
     from picasso_torch import io, lib, masking, postprocess
 
@@ -149,6 +157,47 @@ def test_workflow_module_imports_no_jax_flax_optax_pandas_or_sklearn(module):
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", ["design", "design_sequences", "updater",
+                                    "server", "server.db", "server.watcher",
+                                    "gui", "gui.base", "gui.apps",
+                                    "gui.plugins"])
+def test_frontend_module_imports_no_jax_pandas_or_sklearn(module):
+    """The port's design tools, updater, server query layer and watcher,
+    and its GUI apps, each imported alone, pull in none of jax,
+    picasso_tpu, bench, pandas or sklearn (nor matplotlib, which the apps
+    import in their constructors)."""
+    code = (
+        f"import sys, picasso_torch.{module}\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
+        "'jaxlib', 'picasso_tpu', 'bench', 'pandas', 'sklearn', "
+        "'matplotlib')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_server_app_is_checked_by_source():
+    """server/app.py imports, at any depth, nothing of jax, picasso_tpu,
+    bench, pandas or sklearn, and its imports of the port name
+    picasso_torch (its ImportError without streamlit:
+    tests/test_torch_frontends.py)."""
+    path = os.path.join(ROOT, "picasso_torch", "server", "app.py")
+    tree = ast.parse(open(path).read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module)
+    top = {n.split(".")[0] for n in names}
+    assert not top & {"jax", "jaxlib", "picasso_tpu", "bench", "pandas",
+                      "sklearn"}, names
+    assert {"streamlit", "picasso_torch"} <= top
 
 
 def test_import_touches_no_cuda():

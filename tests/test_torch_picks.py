@@ -617,21 +617,24 @@ def _public(path: str) -> set:
     return {n for n in names if not n.startswith("_")}
 
 
-# render's drawing helpers of the GUI, left for the GUI's port
+# render's drawing helpers of the render GUI, left for its port
 RENDER_GUI_NAMES = {
-    "draw_scalebar", "build_animation", "map_to_view",
-    "get_rectangle_pick_polygon", "draw_points", "draw_picks",
-    "POLYGON_POINTER_SIZE", "adjust_viewport_decorator", "draw_legend",
-    "draw_minimap", "draw_rotation", "draw_rotation_angles", "rgb_to_qimage",
-    "export_qimage_to_pdf", "export_qimage_to_svg"}
+    "draw_scalebar", "map_to_view", "get_rectangle_pick_polygon",
+    "draw_points", "draw_picks", "POLYGON_POINTER_SIZE",
+    "adjust_viewport_decorator", "draw_legend", "draw_minimap",
+    "rgb_to_qimage", "export_qimage_to_pdf", "export_qimage_to_svg"}
 
 
-@pytest.mark.parametrize("module", ["postprocess", "masking", "io",
-                                    "spatial_index", "profiling", "render"])
+@pytest.mark.parametrize("module", [
+    "postprocess", "masking", "io", "spatial_index", "profiling", "render",
+    "lib", "localize", "gausslq", "g5m", "design", "design_sequences",
+    "updater", "server/__init__", "server/db", "server/watcher",
+    "server/app", "gui/base", "gui/apps", "gui/plugins/__init__"])
 def test_every_public_name_of_the_module_is_ported(module):
     """Every top-level public function, class and constant of
     picasso_tpu/<module>.py exists in picasso_torch/<module>.py (render's
-    but the GUI's drawing helpers)."""
+    but the render GUI's drawing helpers). The sources are parsed, so
+    the Streamlit script and the apps import nothing."""
     missing = _public(f"picasso_tpu/{module}.py") - _public(
         f"picasso_torch/{module}.py")
     if module == "render":
