@@ -277,11 +277,32 @@ Phases, each of which raises on failure (exit code != 0):
    ``<movie without its last extension>_locs.hdf5`` beside the movie;
    the watcher's wall is printed with its split (discovery,
    wait_for_change's 2 s, the load, localize).
+25. the render GUI's and the movie browser's calls on the card. The
+   machine with the card has no matplotlib, which the apps' constructors
+   import, so the phase builds picasso_torch.gui's RenderApp and
+   LocalizeApp without a figure, with the state their constructors set
+   (the apps' defaults), and calls their methods that reach the device:
+   (a) RenderApp.render_scene of two channels, phase 7's undrifted MLE
+   locs and phase 6's LQ locs, with LUT colours (render.stops_to_lut),
+   blur smooth, oversampling 8, the whole field of view and then one
+   ZOOM_STEP zoom in (dynamic oversampling): each frame's float images
+   within RENDER_AGREE of the same app's on the CPU and the RGB within one
+   level; draw_picks, draw_points (with get_rectangle_pick_polygon's
+   corners), draw_scalebar, draw_legend and draw_minimap on the card's
+   and the CPU's zoomed frames, the painted pixels equal; rgb_to_qimage
+   raises ImportError (no PyQt6) (path ``render-gui``, no kernel);
+   (b) LocalizeApp's preview (identify_current, frame 0 with an ROI) by
+   compare_hits against the CPU's, localize_movie at the app's defaults
+   (gausslq, its camera, min. net gradient 5000, box 7) == phase 6's LQ
+   locs above 5000 bit for bit, identify + fit2D (gausslq) from those
+   identifications == K5's LM queue at max_it 30 on the same hits bit
+   for bit (path ``localize-gui``: K4 once a chunk of each call and once
+   for the preview, K5's LM queue once a chunk, K3's queue once a block).
 IMS and STK movies are checked on the CPU only (tests/test_torch_io.py):
-the machine with the card has no h5py. It has no matplotlib either, so
-none of picasso_torch.gui's apps runs there (tests/test_torch_gui_apps.py
-holds them to the JAX package's on the CPU), and the CLI's verbs run on
-the CPU only.
+the machine with the card has no h5py, and the CLI's verbs run on the
+CPU only. The apps' figures are held to the JAX package's on the CPU
+(tests/test_torch_gui_apps.py, test_torch_render_gui.py,
+test_torch_gui_panels.py, test_torch_viewers.py).
 The line before the last is the JSON record of every kernel (bound_ms:
 the larger of the FLOPs this run's inputs need over 67 TFLOP/s f32 and
 the bytes read once and written once over 3.35 TB/s, NVIDIA's H100 SXM
@@ -2739,6 +2760,226 @@ def watcher_phase(movie, counted, check_route, smi: str) -> dict:
     return launches
 
 
+def _without_figure(cls, **state):
+    """An app of picasso_torch.gui with ``state``, the state its
+    constructor sets, but no figure: the constructors import matplotlib,
+    which the card's machine does not have, so phase 25 calls the apps'
+    methods that reach the device on an instance built without one."""
+    app = cls.__new__(cls)
+    app.__dict__.update(state)
+    return app
+
+
+def render_gui_phase(mle, lq, info, sites, counted, smi: str) -> dict:
+    """25 (a). The render window's frame on the card (path
+    ``render-gui``): RenderApp.render_scene on two channels, the
+    undrifted MLE locs and the LQ slice's, as the app holds them (blur
+    ``smooth``, oversampling 8, the whole field of view; channel colours
+    LUTs of render.stops_to_lut, as a colormap by name wants matplotlib),
+    then after one ZOOM_STEP zoom in (the app's dynamic oversampling);
+    each frame's images within RENDER_AGREE of the CPU app's, the RGB
+    within one level; the render window's painters (picks, points, a
+    rectangular pick's corners, scale bar, legend, minimap) on the card's
+    and the CPU's frames, their pixels equal; rgb_to_qimage raises
+    without PyQt6. Returns the launches."""
+    from picasso_torch import render
+    from picasso_torch.gui import render_app
+
+    info = [dict(info[0], Pixelsize=130)]
+    luts = [render.stops_to_lut([(0.0, 0.0, 0.0, 0.0), (1.0, 1.0, 0.4, 0.1)]),
+            render.stops_to_lut([(0.0, 0.0, 0.0, 0.0), (0.5, 0.1, 0.5, 0.6),
+                                 (1.0, 0.3, 0.9, 1.0)])]
+    t0 = time.perf_counter()
+    channels = [render_app.Channel(locs, info) for locs in (mle, lq)]
+    for ch, lut in zip(channels, luts):
+        ch.color = lut
+    t_index = time.perf_counter() - t0
+    full = ((0.0, 0.0), (float(info[0]["Height"]), float(info[0]["Width"])))
+    apps = {where: _without_figure(
+        render_app.RenderApp, device=dev, channels=channels,
+        current_channel=0, blur_method="smooth", colormap="hot",
+        oversampling=8.0, dynamic_oversampling=True, min_blur_width=0.0,
+        contrast=None, invert_colors=False, _fast_render_masks={},
+        slicer_on=False, viewport=full)
+        for where, dev in (("card", "cuda"), ("cpu", "cpu"))}
+    images = []
+    keep = render.scale_contrast
+
+    def record(image, *a, **k):
+        images.append(np.array(image))
+        return keep(image, *a, **k)
+
+    frames, walls, oversampling, runs = {}, {}, {}, []
+    render.scale_contrast = record
+    try:
+        for view in ("full", "zoom"):
+            for where, app in apps.items():
+                if view == "zoom":
+                    app.viewport = render.zoom_viewport(
+                        app.viewport, 1 / render_app.ZOOM_STEP, None)
+                    app._follow_zoom()
+                if where == "card":
+                    (rgb, n), wall, launches = counted(app.render_scene)
+                    runs.append(launches)
+                else:
+                    t0 = time.perf_counter()
+                    rgb, n = app.render_scene()
+                    wall = time.perf_counter() - t0
+                frames[view, where] = (rgb, n, images.pop())
+                walls[view, where] = wall
+                oversampling[view] = app.oversampling
+    finally:
+        render.scale_contrast = keep
+    agree = RENDER_AGREE["smooth"]
+    for view in ("full", "zoom"):
+        (rgb_g, n_g, raw_g), (rgb_c, n_c, raw_c) = (frames[view, d]
+                                                     for d in apps)
+        rel = float(np.abs(raw_g - raw_c).max() / raw_c.max())
+        d = np.abs(rgb_g.astype(int) - rgb_c)
+        print(f"  render-gui {view}: {rgb_g.shape} of {n_g} locs, "
+              f"oversampling {oversampling[view]:.4f}, card "
+              f"{walls[view, 'card']:.3f} s (CPU {walls[view, 'cpu']:.3f} "
+              f"s); images max|d|/max {rel:.3g}, RGB "
+              f"{int(d.any(2).sum())} pixels differ by up to {int(d.max())}")
+        if (n_g != n_c or raw_g.shape != raw_c.shape or rel > agree
+                or d.max() > 1 or not raw_c.max() > 0):
+            raise AssertionError(f"render-gui {view}: the card's frame is not"
+                                 " the CPU's")
+    # the painters on the zoomed frames of the card and of the CPU
+    vp = apps["card"].viewport
+    picks = [(float(c), float(r)) for r, c in sites[:64]]
+    corners = render.get_rectangle_pick_polygon(100.0, 110.0, 150.0, 140.0,
+                                                4.0)
+    disp_px = 130 / apps["card"].oversampling
+    colors = [tuple(int(v) for v in np.round(255 * lut[-1, :3]))
+              for lut in luts]
+
+    def paint(rgb):
+        rgb = render.draw_picks(rgb, picks, 2.0, vp)
+        rgb = render.draw_points(rgb, picks + corners, vp,
+                                 color=(0, 255, 0))
+        rgb = render.draw_scalebar(rgb, 130, disp_px)
+        rgb = render.draw_legend(rgb, ["MLE", "LQ"], colors)
+        return render.draw_minimap(rgb, vp, (256.0, 256.0))
+
+    t0 = time.perf_counter()
+    painted = {where: paint(frames["zoom", where][0]) for where in apps}
+    t_paint = time.perf_counter() - t0
+    shape = painted["card"].shape
+    where = np.zeros(shape[:2], bool)
+    for fill in (0, 255):
+        plain = np.full(shape, fill, np.uint8)
+        where |= (paint(plain) != plain).any(2)
+    if not (where.sum() > 0 and np.array_equal(painted["card"][where],
+                                               painted["cpu"][where])):
+        raise AssertionError("render-gui: the painted pixels differ")
+    try:
+        render.rgb_to_qimage(painted["card"])
+        raise AssertionError("render-gui: rgb_to_qimage did not raise")
+    except ImportError:
+        pass
+    launches = _sum_launches(*runs)
+    print(f"render-gui ({smi}): two channels of {len(mle)} + {len(lq)} locs,"
+          f" index {t_index:.3f} s; {int(where.sum())} painted pixels equal "
+          f"on the card's and the CPU's frames ({t_paint:.3f} s for both); "
+          f"rgb_to_qimage raises ImportError; launches {launches}")
+    return launches
+
+
+def localize_gui_phase(movie, locs_lq, counted, n_chunks: int,
+                       smi: str) -> dict:
+    """25 (b). The movie browser's calls on the card at LocalizeApp's
+    defaults (path ``localize-gui``): the preview (identify_current on
+    frame 0 with an ROI) by compare_hits against the CPU's;
+    localize_movie (gausslq, the app's camera, min. net gradient 5000,
+    box 7) == the LQ slice of phase 6 on its hits above 5000 bit for bit
+    (K5's LM fit is the same for a spot in any chunk); identify at the
+    app's settings, then fit2D from those identifications (gausslq) ==
+    K5's LM queue at fit2D's max_it 30 on the same hits bit for bit, as
+    phase 10 holds it. Returns the launches."""
+    import inspect
+
+    import torch
+
+    from picasso_torch import gausslq, localize
+    from picasso_torch.gui import viewers
+    from picasso_torch.gui.base import StatusLog
+    from picasso_torch.ops import identify, lq, lq_cuda, winfit_cuda
+    from torch_parity import compare_hits
+
+    defaults = inspect.signature(viewers.LocalizeApp.__init__).parameters
+    min_ng = defaults["min_net_gradient"].default
+    box = defaults["box"].default
+    info = [{"Frames": len(movie), "Height": movie.shape[1],
+             "Width": movie.shape[2], "Pixelsize": 130}]
+    roi = ((32, 48), (200, 224))
+    apps = {where: _without_figure(
+        viewers.LocalizeApp, movie=movie, info=info, device=dev,
+        min_net_gradient=min_ng, box=box, frame_number=0, roi=None,
+        contrast_percentiles=(0.5, 99.5),
+        camera_info={"Baseline": 0.0, "Sensitivity": 1.0, "Gain": 1.0,
+                     "Qe": 1.0, "Pixelsize": 130},
+        fitting_method="gausslq", status=StatusLog())
+        for where, dev in (("card", "cuda"), ("cpu", "cpu"))}
+    app = apps["card"]
+    for a in apps.values():  # set_roi without its redraw
+        a.roi = roi
+    (frame, x, y, ng), wall_p, run_p = counted(app.identify_current)
+    _, xc, yc, ngc = apps["cpu"].identify_current()
+    for a in apps.values():  # clear_roi without its redraw
+        a.roi = None
+    pairs = compare_hits([np.zeros(len(xc), int), yc, xc, ngc],
+                         [np.zeros(len(x), int), y, x, ng], min_ng,
+                         "localize-gui preview")
+    (got, _), wall_l, run_l = counted(app.localize_movie)
+    want = locs_lq[locs_lq["net_gradient"] > np.float32(min_ng)]
+    if not (len(got) == len(want) > 0 and got.dtype == want.dtype and all(
+            np.array_equal(got[c], want[c], equal_nan=True)
+            for c in want.dtype.names)):
+        raise AssertionError("localize-gui: localize_movie differs from the "
+                             "LQ slice's locs above the app's gradient")
+    ids, wall_i, run_i = counted(lambda: localize.identify(
+        movie, min_ng, box, device="cuda"))
+    (fit, _), wall_f, run_f = counted(lambda: localize.fit2D(
+        movie, info, dict(app.camera_info), ids, box,
+        fitting_method=app.fitting_method, device="cuda"))
+    whole = identify.upload_frames(movie, torch.device("cuda"))
+    hits = [torch.from_numpy(np.ascontiguousarray(ids[c])).to("cuda")
+            for c in ("frame", "y", "x")]
+    lq30 = winfit_cuda.fit_lq_queue_t(whole, *hits, 0.0, 1.0, box=box,
+                                      max_it=30, ftol=FTOL).cpu().numpy()
+    del whole, hits
+    ref = gausslq.locs_from_fits(ids, lq30.T, box, False)
+    if len(ids) != len(got) or any(
+            not np.array_equal(fit[c], ref[c], equal_nan=True)
+            for c in ref.dtype.names):
+        raise AssertionError("localize-gui: fit2D differs from K5's LM queue "
+                             "at max_it 30 on the same hits")
+    # K4 once a chunk (the preview's one frame is one chunk), K5's LM
+    # queue once a chunk of localize_movie, no other kernel
+    for what, run, n_k5 in (("preview", run_p, 0), ("localize", run_l,
+                                                    n_chunks),
+                            ("identify", run_i, 0)):
+        n_k4 = 1 if what == "preview" else n_chunks
+        if (run["K4"] != n_k4 or run["K5 lq queue"] != n_k5 or any(
+                v for k, v in run.items() if k not in ("K4", "K5 lq queue"))):
+            raise AssertionError(f"localize-gui {what}: launches {run}")
+    k3_key = "K3 queue" if lq_cuda.ROI_FIT is lq_cuda.fit_queue_t else "K3"
+    if (run_f[k3_key] != -(-len(ids) // lq._CHUNK)
+            or any(v for k, v in run_f.items() if k != k3_key)):
+        raise AssertionError(f"localize-gui fit2D: launches {run_f}")
+    launches = _sum_launches(run_p, run_l, run_i, run_f)
+    print(f"localize-gui ({smi}), LocalizeApp's defaults (min. net gradient "
+          f"{min_ng:g}, box {box}, {app.fitting_method}, camera "
+          f"{app.camera_info}): preview of frame 0 in ROI {roi}: "
+          f"{len(x)} spots, {len(pairs)} matched with the CPU's, "
+          f"{wall_p * 1e3:.2f} ms; localize_movie {len(got)} locs in "
+          f"{wall_l:.3f} s == the LQ slice's above {min_ng:g} bit for bit; "
+          f"identify {wall_i:.3f} s; fit2D {wall_f:.3f} s == K5's LM queue at"
+          f" max_it 30 bit for bit; launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4129,7 +4370,17 @@ def main() -> int:
     print(f"phase 23: {t24 - t23:.1f} s ({smi})")
     # 24. the folder watcher ---------------------------------------------
     launches_watch = watcher_phase(movie, counted, check_route, smi)
-    print(f"phase 24: {time.perf_counter() - t24:.1f} s ({smi})")
+    t25 = time.perf_counter()
+    print(f"phase 24: {t25 - t24:.1f} s ({smi})")
+    # 25. the render window's frame and the movie browser's calls --------
+    launches_rgui = render_gui_phase(undrifted, locs_lq, info, bench_sites,
+                                     counted, smi)
+    t25b = time.perf_counter()
+    launches_lgui = localize_gui_phase(movie, locs_lq, counted, n_chunks,
+                                       smi)
+    print(f"phase 25: {time.perf_counter() - t25:.1f} s ((a) render-gui "
+          f"{t25b - t25:.1f}, (b) localize-gui "
+          f"{time.perf_counter() - t25b:.1f}) ({smi})")
     print(f"phases 15-16: {t16 - t15:.1f} s and {t17 - t16:.1f} s, phase "
           f"17: {t18 - t17:.1f} s, phase 18: {t19 - t18:.1f} s, phase 19: "
           f"{t20 - t19:.1f} s, phase 20: {t21 - t20:.1f} s ((a) "
@@ -4159,8 +4410,10 @@ def main() -> int:
              "simulate": launches_sim, "nanotron": launches_nano,
              "average3": launches_avg3, "picks": launches_picks,
              "mask": launches_mask, "render3d": launches_r3d,
-             **launches_mesh, "watcher": launches_watch}
-    for path in ("simulate", "nanotron", "average3", "mask", "render3d"):
+             **launches_mesh, "watcher": launches_watch,
+             "render-gui": launches_rgui, "localize-gui": launches_lgui}
+    for path in ("simulate", "nanotron", "average3", "mask", "render3d",
+                 "render-gui"):
         if any(paths[path].values()):
             raise AssertionError(f"path {path} launched {paths[path]}")
     if any(v for k, v in launches_picks.items() if k != "link walk"):

@@ -627,10 +627,11 @@ def _gui_stub(args):
         return
     print(
         f"'{args.command}' runs from python: picasso_torch.gui provides "
-        "RotationApp / AverageApp / Average3App / SimulateApp / DesignApp "
-        "/ SpinnaApp / NanotronApp / ToRawApp (matplotlib, any backend). "
-        "All processing is also available headlessly through this CLI, "
-        "and outputs are file-compatible with the reference Picasso GUI."
+        "RenderApp / LocalizeApp / FilterApp / RotationApp / AverageApp / "
+        "Average3App / SimulateApp / DesignApp / SpinnaApp / NanotronApp / "
+        "ToRawApp (matplotlib, any backend). All processing is also "
+        "available headlessly through this CLI, and outputs are "
+        "file-compatible with the reference Picasso GUI."
     )
 
 

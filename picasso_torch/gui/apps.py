@@ -14,8 +14,8 @@ default) and passes it to the port's call: ``render.render``,
 raise, as every entry point of the port does. matplotlib is imported in
 the constructors; every app builds on the Agg backend.
 
-The plugin surface comes from picasso_torch.gui.base (the JAX package
-imports it through gui/viewers.py, which the port does not have yet).
+The plugin surface comes from picasso_torch.gui.base, which
+gui/viewers.py imports too, as the JAX package's does.
 RotationApp passes the table as it holds it to the rotated render, z in
 nm beside x and y in camera pixels, as the JAX package's window does
 (picasso_tpu/gui/apps.py:64-74; render.locs_rotation).
@@ -28,15 +28,7 @@ import os
 import numpy as np
 
 from picasso_torch import io, lib, render
-from picasso_torch.gui.base import _PluginHost
-
-
-def _has(locs: np.ndarray, name: str) -> bool:
-    return name in (locs.dtype.names or ())
-
-
-def _n_groups(locs: np.ndarray) -> int:
-    return len(np.unique(locs["group"]))
+from picasso_torch.gui.base import _has, _n_groups, _PluginHost
 
 
 class RotationApp(_PluginHost):

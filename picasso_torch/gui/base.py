@@ -1,9 +1,20 @@
 """What the port's matplotlib apps share (picasso_tpu/gui/base.py): the
-plugin surface and the status log."""
+plugin surface, the status log and two questions they ask of a locs
+array."""
 
 from __future__ import annotations
 
+import numpy as np
+
 from picasso_torch.gui import plugins as _plugins
+
+
+def _has(locs: np.ndarray, name: str) -> bool:
+    return name in (locs.dtype.names or ())
+
+
+def _n_groups(locs: np.ndarray) -> int:
+    return len(np.unique(locs["group"]))
 
 
 class _PluginHost:

@@ -11,10 +11,11 @@ _render_convolve :248, _fftconvolve :269, render_hist_anisotropic :284,
 render_hist3d_anisotropic :298, the rotations :368-411, the viewport
 algebra :419-471, the contrast and colours :479-610, the scene :619-736
 and the public aliases and helpers :743-821; of the GUI's drawing
-helpers, those the rotation window calls: build_animation :346,
-draw_rotation :983, draw_rotation_angles :1003 and _export_image :1037.
-The other drawing helpers of the GUI (scale bar, legend, minimap,
-picks, Qt images) are not ported yet. Locs are numpy structured arrays;
+helpers, those of the rotation window (build_animation :346,
+draw_rotation :983, draw_rotation_angles :1003) and of the render window
+(draw_scalebar :321, map_to_view :770, get_rectangle_pick_polygon :781,
+draw_points :824, draw_picks :838, the legend, minimap and Qt helpers
+:868-1076). Locs are numpy structured arrays;
 their columns go to ``device`` once, in the dtype they carry, and the
 images are made there
 (ops/render_ops.py): the in-view test and the display transform run in
@@ -160,9 +161,14 @@ def render_t(cols: dict[str, torch.Tensor], info, oversampling: float = 1.0,
     nx = int(np.ceil(oversampling * (x_max - x_min)))
     if ang is None:
         x, y = cols["x"], cols["y"]
-        in_view = (x > x_min) & (y > y_min) & (x < x_max) & (y < y_max)
-        x = oversampling * (x[in_view] - x_min)
-        y = oversampling * (y[in_view] - y_min)
+        in_view = ((_promoted(x, x_min) > x_min)
+                   & (_promoted(y, y_min) > y_min)
+                   & (_promoted(x, x_max) < x_max)
+                   & (_promoted(y, y_max) < y_max))
+        x = _promoted(x[in_view], x_min) - x_min
+        y = _promoted(y[in_view], y_min) - y_min
+        x = oversampling * _promoted(x, oversampling)
+        y = oversampling * _promoted(y, oversampling)
     else:
         x, y, in_view, _ = _rotate(cols, oversampling, x_min, x_max, y_min,
                                    y_max, ang)
@@ -194,6 +200,17 @@ def render_t(cols: dict[str, torch.Tensor], info, oversampling: float = 1.0,
     sz = oversampling * torch.clamp(lpz, min=min_blur_width)[in_view]
     covs = _rotated_covariances(sx, sy, sz, to_rotation(ang).as_matrix())
     return n, render_ops.gaussian_splat_cov(x, y, covs, ny, nx)
+
+
+def _promoted(t: torch.Tensor, scalar) -> torch.Tensor:
+    """``t`` in the dtype numpy computes ``t`` with ``scalar`` in, as
+    JAX's in-view test and display transform do on the host (NEP 50: a
+    numpy scalar keeps its type, a Python number takes the array's), so
+    a viewport of np.float64 bounds, as the viewport algebra makes them,
+    moves f32 locs to f64 there as in JAX."""
+    dt = np.result_type(np.dtype(str(t.dtype).removeprefix("torch.")),
+                        scalar)
+    return t.to(getattr(torch, dt.name))
 
 
 def _rotated_covariances(sx, sy, sz, R: np.ndarray) -> torch.Tensor:
@@ -441,13 +458,22 @@ def build_animation(path: str, frames: list[np.ndarray], fps: int = 30
         imageio.mimsave(path, frames, fps=fps)
 
 
-def _export_image(image: np.ndarray, path) -> None:
-    """Write an RGB array to a vector or raster file through matplotlib,
-    the headless stand-in for the reference's QPdfWriter/QSvgGenerator
-    painters (picasso/render.py:1640/1666). The port has no Qt, so the
-    image is always a numpy array."""
+def _export_image(image, path) -> None:
+    """Write an RGB array, or a QImage where Qt is present, to a vector
+    or raster file through matplotlib, the headless stand-in for the
+    reference's QPdfWriter/QSvgGenerator painters
+    (picasso/render.py:1640/1666)."""
     import matplotlib.pyplot as plt
 
+    if not isinstance(image, np.ndarray):  # a QImage, by its methods
+        ptr = image.constBits()
+        ptr.setsize(image.sizeInBytes())
+        h, w = image.height(), image.width()
+        bpp = image.depth() // 8  # 3 for RGB888, 4 for (A)RGB32
+        rows = np.frombuffer(ptr, np.uint8).reshape(h, image.bytesPerLine())
+        arr = rows[:, :w * bpp].reshape(h, w, bpp)
+        # (A)RGB32 is BGRA in little-endian memory
+        image = arr[..., 2::-1] if bpp == 4 else arr[..., :3]
     h, w = image.shape[:2]
     fig = plt.figure(figsize=(w / 100, h / 100), dpi=100)
     ax = fig.add_axes([0, 0, 1, 1])
@@ -455,6 +481,176 @@ def _export_image(image: np.ndarray, path) -> None:
     ax.axis("off")
     fig.savefig(path, dpi=100)
     plt.close(fig)
+
+
+# --- the render window's drawing (picasso/render.py:2040-2727, :3047) -------
+# numpy and PIL stand-ins for the reference's QImage painters; each takes
+# and returns a uint8 RGB array, on the host
+
+POLYGON_POINTER_SIZE = 16  # must be even (picasso/render.py:34)
+
+
+def map_to_view(x: float, y: float, viewport, width: int, height: int
+                ) -> tuple[int, int]:
+    """Camera-pixel coordinates -> display-pixel coordinates of a
+    rendered viewport image (picasso/render.py:2040)."""
+    (y_min, x_min), (y_max, x_max) = viewport
+    cx = int((x - x_min) / (x_max - x_min) * width)
+    cy = int((y - y_min) / (y_max - y_min) * height)
+    return cx, cy
+
+
+def get_rectangle_pick_polygon(start_x, start_y, end_x, end_y, width,
+                               return_most_right=False):
+    """Corner polygon of a rectangular pick (picasso/render.py:2054), or
+    its rightmost corner."""
+    X, Y = lib.get_pick_rectangle_corners(start_x, start_y, end_x, end_y,
+                                          width)
+    if return_most_right:
+        i = int(np.argmax(X))
+        return X[i], Y[i]
+    return list(zip(X + [X[0]], Y + [Y[0]]))
+
+
+def draw_scalebar(rgb: np.ndarray, pixelsize: float, disp_px_size: float,
+                  length_nm: float | None = None, margin: int = 10,
+                  height_px: int = 5) -> np.ndarray:
+    """A white scale bar burnt into the bottom-right corner
+    (picasso/render.py:2428)."""
+    rgb = rgb.copy()
+    h, w = rgb.shape[:2]
+    if length_nm is None:
+        length_nm = optimal_scalebar_length(disp_px_size, w)
+    length_px = min(int(round(length_nm / disp_px_size)), w - 2 * margin)
+    y1 = h - margin
+    y0 = y1 - height_px
+    x1 = w - margin
+    x0 = x1 - length_px
+    rgb[max(y0, 0):y1, max(x0, 0):x1] = 255
+    return rgb
+
+
+def draw_points(rgb: np.ndarray, points, viewport, color=(255, 255, 0)
+                ) -> np.ndarray:
+    """3 x 3 point markers at camera-pixel positions (picasso/render.py
+    :2550-like)."""
+    rgb = rgb.copy()
+    h, w = rgb.shape[:2]
+    for x, y in points:
+        cx, cy = map_to_view(x, y, viewport, w, h)
+        if 1 <= cx < w - 1 and 1 <= cy < h - 1:
+            rgb[cy - 1:cy + 2, cx - 1:cx + 2] = color
+    return rgb
+
+
+def draw_picks(rgb: np.ndarray, picks, pick_diameter: float, viewport,
+               color=(255, 255, 0)) -> np.ndarray:
+    """Outlines of circular picks (picasso/render.py:2230-like)."""
+    rgb = rgb.copy()
+    h, w = rgb.shape[:2]
+    (y_min, x_min), (y_max, x_max) = viewport
+    px_per_cam_x = w / (x_max - x_min)
+    for x, y in picks:
+        cx, cy = map_to_view(x, y, viewport, w, h)
+        r = pick_diameter / 2 * px_per_cam_x
+        theta = np.linspace(0, 2 * np.pi, max(16, int(4 * r)))
+        xs = (cx + r * np.cos(theta)).astype(int)
+        ys = (cy + r * np.sin(theta)).astype(int)
+        ok = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+        rgb[ys[ok], xs[ok]] = color
+    return rgb
+
+
+def _draw_rect(rgb, x, y, width, height, color):
+    """Burn a 1-px rectangle outline into an RGB array."""
+    _draw_line(rgb, (x, y), (x + width, y), color)
+    _draw_line(rgb, (x, y + height), (x + width, y + height), color)
+    _draw_line(rgb, (x, y), (x, y + height), color)
+    _draw_line(rgb, (x + width, y), (x + width, y + height), color)
+    return rgb
+
+
+def adjust_viewport_decorator(func):
+    """Fit the viewport to the image's aspect ratio before the wrapped
+    painter runs; image and viewport are its first two arguments
+    (picasso/render.py:2014)."""
+
+    def wrapper(image, viewport, *args, **kwargs):
+        h, w = np.asarray(image).shape[:2]
+        return func(image, adjust_viewport_to_aspect_ratio(viewport, h / w),
+                    *args, **kwargs)
+
+    return wrapper
+
+
+def draw_legend(rgb: np.ndarray, channel_names: list[str],
+                channel_colors: list[tuple[int, int, int]],
+                init_pos: tuple[int, int] = (12, 26), dy: int = 24,
+                padding: int = 4, text_fontsize: int = 16) -> np.ndarray:
+    """Each channel's name in its colour on a black box, in the top-left
+    corner (picasso/render.py:2480)."""
+    assert len(channel_names) == len(channel_colors), (
+        "Length of channel_names must match number of channels in "
+        "dataset.")
+    rgb = np.ascontiguousarray(rgb).copy()
+    x, y = init_pos
+    for name, color in zip(channel_names, channel_colors):
+        rgb = _draw_text(rgb, name, (x, y - text_fontsize), color,
+                         fontsize=text_fontsize, bg=(0, 0, 0))
+        y += dy
+    return rgb
+
+
+@adjust_viewport_decorator
+def draw_minimap(rgb: np.ndarray, viewport,
+                 max_viewport_size: tuple[float, float],
+                 color_main=(255, 255, 0), color_frame=(255, 255, 255),
+                 length_minimap: int = 100,
+                 margin: tuple[int, int] = (20, 20)) -> np.ndarray:
+    """Where the viewport sits within the whole field of view, in the
+    top-right corner (picasso/render.py:2550)."""
+    rgb = rgb.copy()
+    movie_height, movie_width = max_viewport_size
+    height_minimap = int(movie_height / movie_width * length_minimap)
+    x = rgb.shape[1] - length_minimap - margin[0]
+    y = margin[1]
+    _draw_rect(rgb, x, y, length_minimap, height_minimap, color_frame)
+    length = max(5, int(viewport_width(viewport) / movie_width
+                        * length_minimap))
+    height = max(5, int(viewport_height(viewport) / movie_height
+                        * height_minimap))
+    x_vp = int(viewport[0][1] / movie_width * length_minimap)
+    y_vp = int(viewport[0][0] / movie_height * height_minimap)
+    _draw_rect(rgb, x + x_vp, y + y_vp, length, height, color_main)
+    return rgb
+
+
+def rgb_to_qimage(rgb: np.ndarray):
+    """A uint8 RGB array as a QImage (picasso/render.py:3047). Qt only:
+    raises ImportError where PyQt6 is not installed."""
+    try:
+        from PyQt6 import QtGui
+    except ImportError as e:
+        raise ImportError(
+            "rgb_to_qimage requires PyQt6, which is not installed. Use "
+            "the numpy RGB image directly, or PIL for file export.") from e
+    rgb = np.ascontiguousarray(rgb)
+    h, w = rgb.shape[:2]
+    image = QtGui.QImage(rgb.data, w, h, 3 * w,
+                         QtGui.QImage.Format.Format_RGB888)
+    return image.copy()
+
+
+def export_qimage_to_pdf(image, path: str) -> None:
+    """A rendered image (numpy RGB or QImage) as PDF
+    (picasso/render.py:1640)."""
+    _export_image(image, path)
+
+
+def export_qimage_to_svg(image, path: str) -> None:
+    """A rendered image (numpy RGB or QImage) as SVG
+    (picasso/render.py:1666)."""
+    _export_image(image, path)
 
 
 # --- viewport algebra (picasso/render.py:1807-2038) -------------------------

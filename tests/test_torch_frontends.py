@@ -514,9 +514,29 @@ def test_cli_gui_verbs_without_a_display_match_jax(monkeypatch, capsys, verb):
     assert tail in got and tail in want
     from picasso_torch import gui
 
-    for app in ("RotationApp", "AverageApp", "SimulateApp", "DesignApp",
-                "SpinnaApp", "NanotronApp", "ToRawApp"):
+    for app in ("RenderApp", "LocalizeApp", "FilterApp", "RotationApp",
+                "AverageApp", "SimulateApp", "DesignApp", "SpinnaApp",
+                "NanotronApp", "ToRawApp"):
         assert app in got and app in want and hasattr(gui, app)
+
+
+@pytest.mark.parametrize("verb", ["filter", "rotation"])
+def test_cli_gui_stub_names_every_app_as_jax(monkeypatch, capsys, verb):
+    """The message is JAX's, for the port's package and with the port's
+    Average3App beside AverageApp: the render window, the movie browser
+    and the filter first."""
+    from picasso_torch import __main__ as tcli
+    from picasso_tpu import __main__ as jcli
+
+    for var in ("DISPLAY", "WAYLAND_DISPLAY"):
+        monkeypatch.delenv(var, raising=False)
+    tcli.main([verb])
+    got = capsys.readouterr().out
+    jcli.main([verb])
+    want = capsys.readouterr().out
+    assert got == want.replace("picasso_tpu", "picasso_torch").replace(
+        "AverageApp / ", "AverageApp / Average3App / ")
+    assert "provides RenderApp / LocalizeApp / FilterApp / " in got
 
 
 def test_cli_server_runs_streamlit_as_jax(monkeypatch):

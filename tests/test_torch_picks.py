@@ -617,30 +617,41 @@ def _public(path: str) -> set:
     return {n for n in names if not n.startswith("_")}
 
 
-# render's drawing helpers of the render GUI, left for its port
-RENDER_GUI_NAMES = {
-    "draw_scalebar", "map_to_view", "get_rectangle_pick_polygon",
-    "draw_points", "draw_picks", "POLYGON_POINTER_SIZE",
-    "adjust_viewport_decorator", "draw_legend", "draw_minimap",
-    "rgb_to_qimage", "export_qimage_to_pdf", "export_qimage_to_svg"}
-
-
 @pytest.mark.parametrize("module", [
     "postprocess", "masking", "io", "spatial_index", "profiling", "render",
     "lib", "localize", "gausslq", "g5m", "design", "design_sequences",
     "updater", "server/__init__", "server/db", "server/watcher",
-    "server/app", "gui/base", "gui/apps", "gui/plugins/__init__"])
+    "server/app", "gui/base", "gui/apps", "gui/plugins/__init__",
+    "gui/render_app", "gui/panels", "gui/viewers", "gui/__init__"])
 def test_every_public_name_of_the_module_is_ported(module):
     """Every top-level public function, class and constant of
-    picasso_tpu/<module>.py exists in picasso_torch/<module>.py (render's
-    but the render GUI's drawing helpers). The sources are parsed, so
-    the Streamlit script and the apps import nothing."""
+    picasso_tpu/<module>.py exists in picasso_torch/<module>.py, render's
+    drawing helpers of the render window included. The sources are
+    parsed, so the Streamlit script and the apps import nothing."""
     missing = _public(f"picasso_tpu/{module}.py") - _public(
         f"picasso_torch/{module}.py")
-    if module == "render":
-        assert RENDER_GUI_NAMES <= _public("picasso_tpu/render.py")
-        missing -= RENDER_GUI_NAMES
     assert not missing, sorted(missing)
+
+
+def _imported(path: str) -> set:
+    tree = ast.parse(open(os.path.join(ROOT, path)).read())
+    return {a.asname or a.name for node in tree.body
+            if isinstance(node, ast.ImportFrom) for a in node.names}
+
+
+@pytest.mark.parametrize("module", ["gui/__init__", "gui/viewers"])
+def test_the_gui_modules_export_what_jax_does(module):
+    """The names gui/__init__ and gui/viewers import for their users
+    (the apps, the panels, the re-exported RenderApp) are the port's
+    too, and picasso_torch.gui holds them."""
+    from picasso_torch import gui
+
+    names = _imported(f"picasso_tpu/{module}.py") - {"annotations"}
+    assert names - _imported(f"picasso_torch/{module}.py") == set()
+    if module == "gui/__init__":
+        assert {"RenderApp", "LocalizeApp", "FilterApp", "InfoPanel"} <= names
+        for name in names:
+            assert callable(getattr(gui, name)), name
 
 
 def test_pick_and_lib_names_are_ported():
