@@ -298,6 +298,29 @@ Phases, each of which raises on failure (exit code != 0):
    identifications == K5's LM queue at max_it 30 on the same hits bit
    for bit (path ``localize-gui``: K4 once a chunk of each call and once
    for the preview, K5's LM queue once a chunk, K3's queue once a block).
+26. every box on the card (anybox_phase): (a) localize at box 17 (MLE
+   sigmaxy, sigma, LQ) and 21 (MLE) on tests/torch_data.make_wide_movie
+   (2048 frames of 256 x 256, ~100,000 spots 2.5 px wide, made alongside
+   the build) through K4 at any box (csrc/identify_anybox.cu), the
+   any-box cut (cut_anybox.cu) and the any-box fits (mle_anybox.cu,
+   lq_anybox.cu), each launched once a chunk and no other kernel (paths
+   ``box17-mle``, ``box17-mle-sigma``, ``box17-lq``, ``box21-mle``), hits
+   == the plain versions on the card (compare_hits) and fits within
+   compare_fits / compare_lq_fits; fit2D at box 17 on the MLE slice's
+   identifications, both fitters (paths ``box17-fit2D-mle``,
+   ``box17-fit2D-lq``: the any-box fit only), held likewise; walls and
+   spots/s; (b) bit for bit: the any-box MLE (both methods) and LM
+   bodies == the templated K1 / K3 queues at boxes 5-15 (make_spots, 8192
+   a box), K4 at any box == identify.cu at 3-15 on phase 3's chunk, the
+   any-box cut + fits == K5's queues at 7 and 15, and at box 3 K1, K2,
+   K7, K5 (queue, phases, one pass), K3's queue, K6 and K5's LM queue ==
+   the one-thread passes on 131,072 make_spots, held to the plain fits by
+   compare_fits_max_it (max_it 5) and compare_lq_fits' box-3 bounds, the
+   any-box bodies == those passes at box 3 too and timed in turns with
+   K1 and K3's queue there; then the any-box kernels timed at box 17
+   (make_spots, 131,072, made alongside the build; K4 on the wide
+   movie's first chunk, its bound counted from its maxima) against their
+   plain versions for the kernels line.
 IMS and STK movies are checked on the CPU only (tests/test_torch_io.py):
 the machine with the card has no h5py, and the CLI's verbs run on the
 CPU only. The apps' figures are held to the JAX package's on the CPU
@@ -497,6 +520,25 @@ def _median_ms(fn, reps: int = 5, calls: int = 1) -> float:
     return statistics.median(times)
 
 
+def _once_ms(fn, warm: bool = True):
+    """(fn() of a first call, the CUDA-event time in ms of a second): a
+    steady-state time of one call after a warm-up that also gives the
+    output, for a plain version whose one call takes seconds and whose
+    output is the reference of the kernel's check. ``warm=False``: the
+    caller has just run the same work on the same inputs, so one timed
+    call gives both."""
+    import torch
+
+    out = fn() if warm else None
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    last = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return (last if out is None else out), start.elapsed_time(end)
+
+
 def mle_flops_per_spot_iter(box: int) -> float:
     """FLOPs of one Newton step of one spot (the analytic count of
     bench.py:136, exp/erfc at 8 FLOPs each)."""
@@ -536,12 +578,12 @@ def _bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 def _fit_bound(n: int, iters_sum: float, per_iter, out_bytes: int,
-               in_bytes: int = BOX * BOX * 4):
-    """Bound of a fit of n box-7 spots: the iterations these spots need
-    plus one for the initialiser and the final pass, each spot's input
-    read once (by default its f32 ROI; K5 reads a u16 window and three
-    i32 hit indices) and its results written once."""
-    return _bound((iters_sum + n) * per_iter(BOX),
+               in_bytes: int = BOX * BOX * 4, box: int = BOX):
+    """Bound of a fit of n spots (box 7 by default): the iterations these
+    spots need plus one for the initialiser and the final pass, each
+    spot's input read once (by default its f32 ROI; K5 reads a u16 window
+    and three i32 hit indices) and its results written once."""
+    return _bound((iters_sum + n) * per_iter(box),
                   n * (in_bytes + out_bytes))
 
 
@@ -549,15 +591,16 @@ K5_IN_BYTES = BOX * BOX * 2 + 3 * 4  # u16 window + (f, y, x) int32
 
 
 def lq_fit_bound(n: int, steps: float, reused: float,
-                 in_bytes: int = BOX * BOX * 4):
-    """Bound of an LM fit of n box-7 spots that takes ``steps`` steps in
-    all, ``reused`` of them right after a rejected step of the same spot
-    (:func:`lq_iters`): a full step each and one more a spot for the
+                 in_bytes: int = BOX * BOX * 4, box: int = BOX):
+    """Bound of an LM fit of n spots (box 7 by default) that takes
+    ``steps`` steps in all, ``reused`` of them right after a rejected
+    step of the same spot (:func:`lq_iters`): a full step each and one
+    more a spot for the
     initialiser, less the normal equations of each reused step, which
     the function need not form again; each spot's input read once and
     its theta (24 B) written once."""
-    return _bound((steps + n) * lq_flops_per_spot_iter(BOX)
-                  - reused * lq_normal_flops(BOX), n * (in_bytes + 24))
+    return _bound((steps + n) * lq_flops_per_spot_iter(box)
+                  - reused * lq_normal_flops(box), n * (in_bytes + 24))
 
 
 K4_CALLS = 20  # back-to-back K4 calls of its extra timing
@@ -2980,6 +3023,405 @@ def localize_gui_phase(movie, locs_lq, counted, n_chunks: int,
     return launches
 
 
+# phase 26: every box on the card. The wide movie
+# (tests/torch_data.make_wide_movie: 2048 frames of 256 x 256, 100 sites
+# at least 17 px apart, spots of 2.5 px over 17 x 17 px, ~100,000 of
+# them) localized as WIDE_SLICES (path, box, method) with WIDE_MIN_NG
+# (its spots' net gradient is ~11,000-11,800 at boxes 17 and 21, the
+# background maxima's below 3,000); ANY_SPOTS make_spots a box of the
+# bit-for-bit checks of the any-box bodies; the box whose kernels are
+# timed on N_SPOTS make_spots
+WIDE_SLICES = (("box17-mle", 17, "sigmaxy"), ("box17-mle-sigma", 17, "sigma"),
+               ("box17-lq", 17, "lq"), ("box21-mle", 21, "sigmaxy"))
+WIDE_MIN_NG = 5000
+ANY_SPOTS = 8192
+TIMED_BOX = 17
+
+
+def _plain_hits(movie, box: int, dev):
+    """The plain versions of K4 and the cut on the card, chunk by chunk:
+    (hits [frame, y, x, ng] numpy, the photon ROIs (S, S, N) of all
+    chunks on the card, one batch)."""
+    import torch
+
+    from picasso_torch.ops import identify, winfit_cuda
+
+    hits, rois = [], []
+    for off in range(0, len(movie), CHUNK):
+        frames = identify.upload_frames(movie[off:off + CHUNK], dev)
+        f, y, x, ng = identify.compact(*identify.identify_tiles_plain(
+            frames, WIDE_MIN_NG, box), box)
+        rois.append(winfit_cuda.photons_t(frames, f, y, x, box, 0.0, 1.0))
+        hits.append([a.cpu().numpy() for a in (f + off, y, x, ng)])
+    return [np.concatenate(c) for c in zip(*hits)], torch.cat(rois, -1)
+
+
+def _plain_fits(rois, method: str) -> list:
+    """The plain fit of the ROIs as one batch (the plain fits are
+    launch-bound: one call on all spots takes about what one chunk's
+    does): numpy (theta, crlb, ll, iters), or for "lq" (theta, the
+    ROIs)."""
+    from picasso_torch.ops import fused, lq, mle
+
+    return [a.cpu().numpy() for a in (
+        (lq._lm_core(rois, MAX_IT, fused.LQ_FTOL), rois) if method == "lq"
+        else mle._fit_core(rois, EPS, MAX_IT, method))]
+
+
+def _locs_fields(locs) -> list:
+    """(theta, crlb, ll, iters) rows-first of an MLE locs table (x/y in
+    the frame, the CRLB from the uncertainties)."""
+    return [np.stack([locs[c] for c in ("x", "y", "photons", "bg", "sx",
+                                        "sy")]),
+            np.stack([locs[c] for c in ("lpx", "lpy", "photons_unc",
+                                        "bg_unc", "sx_unc", "sy_unc")]) ** 2,
+            locs["log_likelihood"], locs["iterations"]]
+
+
+def anybox_phase(wide, chunk, timed_spots, counted, smi: str):
+    """26. Every box on the card. (a) localize at box 17 (MLE sigmaxy,
+    sigma, LQ) and 21 (MLE) on the wide movie, each through K4 at any box
+    (csrc/identify_anybox.cu), the any-box cut (cut_anybox.cu) and fit
+    (mle_anybox.cu, lq_anybox.cu) with their launches counted, its hits
+    and fits held to the plain versions on the card (compare_hits,
+    compare_fits / compare_lq_fits); fit2D at box 17 on the MLE slice's
+    identifications, both fitters, held likewise. (b) bit for bit: the
+    any-box bodies == the templated queues at 5-15, K4 at any box ==
+    identify.cu at 3-15 on phase 3's chunk, the any-box cut + fit == K5
+    at 7 and 15, and box 3's K1, K2, K7, K3, K6 and K5 == the one-thread
+    passes, held to the plain fits by compare_fits_max_it and
+    compare_lq_fits' box-3 bounds. ``timed_spots``: make_spots(N_SPOTS,
+    TIMED_BOX, seed=0), on which the any-box kernels are timed (made
+    alongside the build). Returns (launches by path, ms, bounds, errors)
+    of the kernels line."""
+    import torch
+
+    from picasso_torch import gausslq, gaussmle, localize
+    from picasso_torch.ops import (
+        fused, identify, identify_cuda, lq, lq_cuda, mle, mle_cuda,
+        winfit_cuda,
+    )
+    from torch_data import make_spots, spots_chunk
+    from torch_parity import (
+        STUCK_XY_MAX_BOX17, compare_fits, compare_fits_max_it, compare_hits,
+        compare_lq_fits, compare_tiles,
+    )
+
+    dev = torch.device("cuda")
+    as_np = lambda out: [a.cpu().numpy() for a in out]  # noqa: E731
+    camera = {"Baseline": 0, "Sensitivity": 1, "Gain": 1, "Pixelsize": 130}
+    info = [{"Frames": len(wide), "Height": wide.shape[1],
+             "Width": wide.shape[2]}]
+    n_chunks = -(-len(wide) // CHUNK)
+    paths, ms, bounds, errs = {}, {}, {}, {}
+    t0 = time.perf_counter()
+
+    # (a) the slices ------------------------------------------------------
+    kernel_ids, plain_hits = {}, {}
+    for path, box, method in WIDE_SLICES:
+        kw = dict(fitting_method="gausslq" if method == "lq" else "gaussmle",
+                  mle_method="sigmaxy" if method == "lq" else method)
+        params = {"Min. Net Gradient": WIDE_MIN_NG, "Box Size": box}
+        # the chain's (ids, fits) of this very run, caught on their way
+        # from ops/fused.localize_fused to localize's locs
+        chain, real = [], fused.localize_fused
+
+        def caught(*a, **k):
+            chain.append(real(*a, **k))
+            return chain[-1]
+
+        fused.localize_fused = caught
+        try:
+            locs, wall, launches = counted(lambda: localize.localize(
+                wide, dict(camera), params, device="cuda", **kw))
+        finally:
+            fused.localize_fused = real
+        fit = "lq anybox" if method == "lq" else "mle anybox"
+        on = {k for k, v in launches.items() if v}
+        if on != {"K4 anybox", "cut anybox", fit} or any(
+                launches[k] != n_chunks for k in on):
+            raise AssertionError(f"box {box} {method} slice did not run "
+                                 f"through the any-box kernels: {launches}")
+        if len(chain) != 1:
+            raise AssertionError(f"box {box} {method}: localize called "
+                                 f"localize_fused {len(chain)} times")
+        ids, fits = chain[0]
+        t_p = time.perf_counter()
+        if box not in plain_hits:
+            plain_hits[box] = _plain_hits(wide, box, dev)
+        plain_fits = _plain_fits(plain_hits[box][1], method)
+        t_p = time.perf_counter() - t_p
+        cols = ("frame", "y", "x", "net_gradient")
+        pairs = compare_hits(plain_hits[box][0], [ids[c] for c in cols],
+                             WIDE_MIN_NG, f"box {box} {method} hits")
+        pi, ki = pairs[:, 0], pairs[:, 1]
+        offset = 0 if method == "lq" else box // 2
+        if len(locs) != len(ids) or not np.array_equal(
+                locs["x"], (fits[0][:, 0] + ids["x"] - offset).astype(
+                    np.float32)):
+            raise AssertionError(f"box {box} {method}: localize's locs are "
+                                 "not the chain's")
+        if method == "lq":
+            st = compare_lq_fits(plain_fits[0][:, pi], fits[0][ki].T,
+                                 plain_fits[1][..., pi], f"box {box} lq")
+            errs[path] = st["xy_p100"]
+        else:
+            st = compare_fits([plain_fits[0][:, pi], plain_fits[1][:, pi],
+                               plain_fits[2][pi], plain_fits[3][pi]],
+                              [fits[0][ki].T, fits[1][ki].T, fits[2][ki],
+                               fits[3][ki]], MAX_IT, f"box {box} {method}")
+            errs[path] = st["xy_max_all"]
+        paths[path] = launches
+        kernel_ids[path] = ids
+        del plain_fits
+        print(f"box {box} {method} slice: {len(locs)} locs from {len(wide)} "
+              f"frames in {wall:.3f} s = {len(wide) / wall:.1f} frames/s, "
+              f"{len(locs) / wall:.0f} spots/s; any-box launches "
+              f"{ {k: launches[k] for k in sorted(on)} }; hits == plain "
+              f"({len(pairs)}; the plain versions {t_p:.1f} s), fits vs "
+              f"plain: {json.dumps(st)} ({smi})")
+    del plain_hits
+    torch.cuda.empty_cache()
+    # fit2D at box 17 on the MLE slice's identifications, both fitters
+    ids, box = kernel_ids["box17-mle"], 17
+    spots = localize.get_spots(wide, ids, box, dict(camera), device="cuda")
+    sp = torch.from_numpy(np.ascontiguousarray(
+        spots.transpose(1, 2, 0))).to(dev)
+    for method in ("gaussmle", "gausslq"):
+        (locs, _), wall, launches = counted(lambda: localize.fit2D(
+            wide, info, dict(camera), ids, box, fitting_method=method,
+            device="cuda"))
+        fit = "lq anybox" if method == "gausslq" else "mle anybox"
+        on = {k for k, v in launches.items() if v}
+        if on != {fit}:
+            raise AssertionError(f"fit2D {method} at box {box} did not run "
+                                 f"through the any-box fit: {launches}")
+        t_p = time.perf_counter()
+        if method == "gaussmle":
+            th, cr, ll, it = as_np(mle._fit_core(sp, EPS, MAX_IT))
+            ref = gaussmle.locs_from_fits(ids, th.T, cr.T, ll, it, box)
+            st = compare_fits(_locs_fields(ref), _locs_fields(locs), MAX_IT,
+                              f"fit2D {method} box {box}")
+            errs["fit2D-mle"] = st["xy_max_all"]
+        else:
+            th = lq._lm_core(sp, 30, FTOL).cpu().numpy()
+            ref = gausslq.locs_from_fits(ids, th.T, box, False)
+
+            def rel(t):
+                return np.stack([t["x"] - ids["x"], t["y"] - ids["y"],
+                                 t["photons"], t["bg"], t["sx"],
+                                 t["sy"]]).astype(np.float32)
+
+            st = compare_lq_fits(rel(ref), rel(locs), sp.cpu().numpy(),
+                                 f"fit2D {method} box {box}")
+            errs["fit2D-lq"] = st["xy_p100"]
+        t_p = time.perf_counter() - t_p
+        paths[f"box{box}-fit2D-{method[5:]}"] = launches
+        print(f"fit2D {method} at box {box}: {len(locs)} locs in {wall:.3f} s"
+              f" = {len(locs) / wall:.0f} spots/s; launches "
+              f"{ {k: launches[k] for k in sorted(on)} }; vs plain ("
+              f"{t_p:.1f} s) {json.dumps(st)} ({smi})")
+    del sp, spots
+    t_a = time.perf_counter()
+
+    # (b) bit for bit -----------------------------------------------------
+    for box in (5, 7, 9, 11, 13, 15):
+        sp = torch.from_numpy(np.ascontiguousarray(make_spots(
+            ANY_SPOTS, box, seed=box).transpose(1, 2, 0))).to(dev)
+        for method in ("sigmaxy", "sigma"):
+            _assert_equal(as_np(mle_cuda.fit_anybox_t(sp, EPS, MAX_IT,
+                                                      method)),
+                          as_np(mle_cuda.fit_t(sp, EPS, MAX_IT, method)),
+                          f"mle anybox {method} vs K1 at box {box}")
+        _assert_equal([lq_cuda.fit_anybox_t(sp, MAX_IT).cpu().numpy()],
+                      [lq_cuda.fit_queue_t(sp, MAX_IT).cpu().numpy()],
+                      f"lq anybox vs K3 at box {box}")
+    for box in identify_cuda.BOXES:
+        _assert_equal(as_np(identify_cuda.identify_tiles_anybox(chunk, MIN_NG,
+                                                                box)),
+                      as_np(identify_cuda.identify_tiles(chunk, MIN_NG, box)),
+                      f"K4 anybox vs K4 at box {box}")
+    for box in (7, 15):
+        frames, hits = spots_chunk(make_spots(ANY_SPOTS, box, seed=box + 1),
+                                   np.uint16)
+        frames = torch.from_numpy(frames).to(dev)
+        hits = [torch.from_numpy(h).to(dev) for h in hits]
+        cut = winfit_cuda.cut_anybox_t(frames, *hits, box, 1.5, 0.8)
+        for method in ("sigmaxy", "sigma"):
+            _assert_equal(as_np(mle_cuda.fit_anybox_t(cut, EPS, MAX_IT,
+                                                      method)),
+                          as_np(winfit_cuda.fit_mle_queue_t(
+                              frames, *hits, 1.5, 0.8, box=box, eps=EPS,
+                              max_it=MAX_IT, method=method)),
+                          f"cut + mle anybox {method} vs K5 at box {box}")
+        _assert_equal([lq_cuda.fit_anybox_t(cut, MAX_IT).cpu().numpy()],
+                      [winfit_cuda.fit_lq_queue_t(
+                          frames, *hits, 1.5, 0.8, box=box,
+                          max_it=MAX_IT).cpu().numpy()],
+                      f"cut + lq anybox vs K5 at box {box}")
+    # box 3: every templated kernel == the one-thread passes
+    spots3 = make_spots(N_SPOTS, 3, seed=0)
+    sp = torch.from_numpy(np.ascontiguousarray(
+        spots3.transpose(1, 2, 0))).to(dev)
+    frames, hits = spots_chunk(spots3, np.uint16)
+    frames = torch.from_numpy(frames).to(dev)
+    hits = [torch.from_numpy(h).to(dev) for h in hits]
+    box3 = {}
+    for method in ("sigmaxy", "sigma"):
+        one = as_np(mle_cuda.fit_one_pass_t(sp, EPS, MAX_IT, method))
+        if method == "sigmaxy":
+            iters3 = float(one[3].sum())
+        kw = dict(box=3, eps=EPS, max_it=MAX_IT, method=method)
+        for name, out in (
+                ("K1", mle_cuda.fit_t(sp, EPS, MAX_IT, method)),
+                ("K2", mle_cuda.fit_boundary_t(sp, EPS, MAX_IT, method)),
+                ("K5 queue", winfit_cuda.fit_mle_queue_t(frames, *hits, 0.0,
+                                                         1.0, **kw)),
+                ("K5 phases", winfit_cuda.fit_mle_boundary_t(
+                    frames, *hits, 0.0, 1.0, **kw)),
+                ("K5 one pass", winfit_cuda.fit_mle_t(frames, *hits, 0.0,
+                                                      1.0, **kw))):
+            _assert_equal(as_np(out), one, f"box 3 {name} {method}")
+        box3[method] = compare_fits_max_it(
+            as_np(mle._fit_core(sp, EPS, 5, method)),
+            as_np(mle_cuda.fit_t(sp, EPS, 5, method)), 5,
+            f"box 3 K1 {method} vs plain")
+        box3[method + " at max_it"] = float(np.mean(one[3] == MAX_IT))
+    _assert_equal(as_np(mle_cuda.fit_multiround_t(sp, EPS, MAX_IT)),
+                  as_np(mle_cuda.fit_one_pass_t(sp, EPS, MAX_IT)),
+                  "box 3 K7")
+    # box 3's K1 (sigmaxy) and K3 queue: their plain fits and bounds
+    _, ms["plain K1 box 3"] = _once_ms(lambda: mle._fit_core(sp, EPS, MAX_IT))
+    bounds["K1 box 3"] = _fit_bound(N_SPOTS, iters3, mle_flops_per_spot_iter,
+                                    6 * 4 * 2 + 8, 3 * 3 * 4, 3)
+    # lq_iters runs the plain LM's steps on this batch: the timed plain
+    # call after it is warm
+    steps, _, reused = lq_iters(sp, MAX_IT)
+    plain_lq, ms["plain K3 queue box 3"] = _once_ms(
+        lambda: lq._lm_core(sp, MAX_IT, FTOL), warm=False)
+    bounds["K3 queue box 3"] = lq_fit_bound(N_SPOTS, float(steps.sum()),
+                                            float(reused.sum()), 3 * 3 * 4, 3)
+    k3 = lq_cuda.fit_t(sp, MAX_IT).cpu().numpy()
+    for name, out in (("K3 queue", lq_cuda.fit_queue_t(sp, MAX_IT)),
+                      ("K6", lq_cuda.fit_boundary_t(sp, MAX_IT)),
+                      ("K5 lq queue", winfit_cuda.fit_lq_queue_t(
+                          frames, *hits, 0.0, 1.0, box=3, max_it=MAX_IT))):
+        _assert_equal([out.cpu().numpy()], [k3], f"box 3 {name}")
+    box3["lq"] = compare_lq_fits(plain_lq.cpu().numpy(), k3,
+                                 spots3.transpose(1, 2, 0), "box 3 K3",
+                                 box3=True)
+    # the any-box bodies take box 3 too: equal there, and timed in two
+    # turns with the templated kernels that box 3 is routed to (the
+    # lesser median of each)
+    _assert_equal(as_np(mle_cuda.fit_anybox_t(sp, EPS, MAX_IT)),
+                  as_np(mle_cuda.fit_one_pass_t(sp, EPS, MAX_IT)),
+                  "box 3 mle anybox")
+    _assert_equal([lq_cuda.fit_anybox_t(sp, MAX_IT).cpu().numpy()], [k3],
+                  "box 3 lq anybox")
+    for key, fn in 2 * (
+            ("K1 box 3", lambda: mle_cuda.fit_t(sp, EPS, MAX_IT)),
+            ("mle anybox box 3", lambda: mle_cuda.fit_anybox_t(sp, EPS,
+                                                               MAX_IT)),
+            ("K3 queue box 3", lambda: lq_cuda.fit_queue_t(sp, MAX_IT)),
+            ("lq anybox box 3", lambda: lq_cuda.fit_anybox_t(sp, MAX_IT))):
+        ms[key] = min(ms.get(key, float("inf")), _median_ms(fn))
+    for key in ("K1 box 3", "K3 queue box 3"):
+        box3[key] = {"ms": ms[key], "plain_ms": ms["plain " + key],
+                     "bound_ms": bounds[key][0]}
+    box3["mle anybox box 3 ms"] = ms["mle anybox box 3"]
+    box3["lq anybox box 3 ms"] = ms["lq anybox box 3"]
+    print("any-box bodies == K1/K3 queues at boxes 5-15 and == K5 at 7, 15, "
+          "K4 any-box == K4 at 3-15, bit for bit; box 3: K1, K2, K7, K5 "
+          "(queue, phases, one pass), K3's queue, K6 and K5's LM queue == "
+          "the one-thread passes bit for bit; vs plain:", json.dumps(box3))
+    del sp, frames, hits
+    t_b = time.perf_counter()
+
+    # the kernels line at box 17 on N_SPOTS make_spots -------------------
+    box, spots = TIMED_BOX, timed_spots
+    sp = torch.from_numpy(np.ascontiguousarray(
+        spots.transpose(1, 2, 0))).to(dev)
+    n = N_SPOTS
+    for method in ("sigmaxy", "sigma"):
+        key = "mle anybox" + ("" if method == "sigmaxy" else " sigma")
+        out = as_np(mle_cuda.fit_anybox_t(sp, EPS, MAX_IT, method))
+        plain, ms["plain " + key] = _once_ms(
+            lambda: mle._fit_core(sp, EPS, MAX_IT, method))
+        st = compare_fits(as_np(plain), out, MAX_IT, f"{key} on make_spots",
+                          stuck_max=STUCK_XY_MAX_BOX17)
+        errs[key] = st["xy_max_all"]
+        ms[key] = _median_ms(lambda: mle_cuda.fit_anybox_t(sp, EPS, MAX_IT,
+                                                           method))
+        bounds[key] = _fit_bound(n, float(out[3].sum()),
+                                 mle_flops_per_spot_iter, 6 * 4 * 2 + 8,
+                                 box * box * 4, box)
+    th = lq_cuda.fit_anybox_t(sp, MAX_IT).cpu().numpy()
+    steps, _, reused = lq_iters(sp, MAX_IT)  # warms the plain LM, as above
+    plain, ms["plain lq anybox"] = _once_ms(
+        lambda: lq._lm_core(sp, MAX_IT, FTOL), warm=False)
+    st = compare_lq_fits(plain.cpu().numpy(), th, spots.transpose(1, 2, 0),
+                         "lq anybox on make_spots")
+    errs["lq anybox"] = st["xy_p100"]
+    ms["lq anybox"] = _median_ms(lambda: lq_cuda.fit_anybox_t(sp, MAX_IT))
+    bounds["lq anybox"] = lq_fit_bound(n, float(steps.sum()),
+                                       float(reused.sum()), box * box * 4,
+                                       box)
+    del sp
+    frames, hits = spots_chunk(spots, np.uint16)
+    frames = torch.from_numpy(frames).to(dev)
+    hits = [torch.from_numpy(h).to(dev) for h in hits]
+    cut = winfit_cuda.cut_anybox_t(frames, *hits, box, 0.0, 1.0)
+    plain_cut = winfit_cuda.photons_t(frames, *hits, box, 0.0, 1.0)
+    errs["cut anybox"] = float((cut - plain_cut).abs().max())
+    ms["cut anybox"] = _median_ms(
+        lambda: winfit_cuda.cut_anybox_t(frames, *hits, box, 0.0, 1.0))
+    ms["plain cut anybox"] = _median_ms(
+        lambda: winfit_cuda.photons_t(frames, *hits, box, 0.0, 1.0))
+    # u16 window and (f, y, x) int32 read, the f32 ROI written; 2 FLOPs a
+    # pixel
+    bounds["cut anybox"] = _bound(2 * n * box * box,
+                                  n * (box * box * 6 + 12))
+    del frames, hits, cut, plain_cut
+    # K4 at box 17 on the wide movie's first chunk
+    first = identify.upload_frames(wide[:CHUNK], dev)
+    tiles = as_np(identify_cuda.identify_tiles_anybox(first, WIDE_MIN_NG,
+                                                      box))
+    plain, ms["plain K4 anybox"] = _once_ms(
+        lambda: identify.identify_tiles_plain(first, WIDE_MIN_NG, box))
+    plain = as_np(plain)
+    compare_tiles(tiles, plain, f"K4 anybox at box {box}")
+    errs["K4 anybox"] = float(np.abs(tiles[2] - plain[2]).max())
+    ms["K4 anybox"] = _median_ms(
+        lambda: identify_cuda.identify_tiles_anybox(first, WIDE_MIN_NG, box))
+    # what the function needs on this chunk: the box^2 - 1 compares of
+    # the maxima test at each pixel it tests, and the net gradient (4
+    # FLOPs a window position and 2) only at the local maxima, counted
+    # from the kernel's tiles at no threshold; the u16 chunk read, the
+    # tiles written
+    h = box // 2
+    tested = len(first) * (first.shape[1] - 2 * h - 1) * (
+        first.shape[2] - 2 * h - 1)
+    maxima = int(identify_cuda.identify_tiles_anybox(
+        first, float("-inf"), box)[0].sum())
+    bounds["K4 anybox"] = _bound(
+        tested * (box * box - 1) + maxima * (4 * (box * box - 1) + 2),
+        first.numel() * 2 + tiles[0].size * 9)
+    print(f"K4 anybox at box {box}: {tested} pixels tested, {maxima} local "
+          f"maxima, {int(tiles[0].sum())} hits")
+    del first
+    torch.cuda.empty_cache()
+    for key in ("mle anybox", "mle anybox sigma", "lq anybox", "cut anybox",
+                "K4 anybox"):
+        print(f"{key} at box {box}: {ms[key]:.4f} ms, plain "
+              f"{ms['plain ' + key]:.3f} ms, bound {bounds[key][0]:.4f} ms "
+              f"({bounds[key][1]}, {bounds[key][0] / ms[key]:.1%} of it), "
+              f"max abs err vs plain {errs[key]} ({smi})")
+    print(f"phase 26: {time.perf_counter() - t0:.1f} s ((a) {t_a - t0:.1f}, "
+          f"(b) {t_b - t_a:.1f}, timings {time.perf_counter() - t_b:.1f}) "
+          f"({smi})")
+    return paths, ms, bounds, errs
+
+
 def main() -> int:
     import torch
 
@@ -3000,7 +3442,8 @@ def main() -> int:
     from picasso_torch.ops._fit_common import FINISH
     from torch_data import (
         CALIB_3D, fiducial_tracks, free_positions, make_astig_movie,
-        make_bench_movie, make_spots, spots_chunk, tiled_chunk, write_tiff,
+        make_bench_movie, make_spots, make_wide_movie, spots_chunk,
+        tiled_chunk, write_tiff,
     )
     from torch_parity import (
         compare_avg_photons, compare_fits, compare_fits_dense, compare_hits,
@@ -3035,9 +3478,16 @@ def main() -> int:
                                np.random.default_rng(17))
         return out, time.perf_counter() - t0
 
-    movie_pool = ThreadPoolExecutor(2)
+    def make_wide():
+        t0 = time.perf_counter()
+        out = make_wide_movie(2048, 256, 100, 0.5, np.random.default_rng(23))
+        return out, time.perf_counter() - t0
+
+    movie_pool = ThreadPoolExecutor(3)
     movie_job = movie_pool.submit(make_movie)
     astig_job = movie_pool.submit(make_astig)
+    wide_job = movie_pool.submit(make_wide)
+    timed_job = movie_pool.submit(make_spots, N_SPOTS, TIMED_BOX, seed=0)
     lib_path, build_s = _build.build()
     print(f"build: {build_s:.1f} s -> {lib_path}")
     for row in _ptxas_table((lib_path.parent / "build.log").read_text()):
@@ -3391,7 +3841,11 @@ def main() -> int:
                 "K5 mle queue": winfit_cuda.fit_mle_queue_t,
                 "K5 lq queue": winfit_cuda.fit_lq_queue_t,
                 "K7": mle_cuda.fit_multiround_t, "link walk": link.walk,
-                "cluster sweep": cluster.sweep}
+                "cluster sweep": cluster.sweep,
+                "K4 anybox": identify_cuda.identify_tiles_anybox,
+                "mle anybox": mle_cuda.fit_anybox_t,
+                "lq anybox": lq_cuda.fit_anybox_t,
+                "cut anybox": winfit_cuda.cut_anybox_t}
 
     n_chunks = -(-len(movie) // CHUNK)
 
@@ -4219,7 +4673,6 @@ def main() -> int:
 
     # 11. astigmatic 3D ---------------------------------------------------
     (astig, sites, z_true), astig_s = astig_job.result()
-    movie_pool.shutdown()
     print(f"astigmatic movie {astig.shape}: {astig_s:.1f} s to generate "
           "(alongside the build)")
     from scipy.spatial import cKDTree
@@ -4381,6 +4834,19 @@ def main() -> int:
     print(f"phase 25: {time.perf_counter() - t25:.1f} s ((a) render-gui "
           f"{t25b - t25:.1f}, (b) localize-gui "
           f"{time.perf_counter() - t25b:.1f}) ({smi})")
+    # 26. every box: box 17 and 21 on the wide movie, box 3 and the
+    # any-box kernels bit for bit ----------------------------------------
+    wide, wide_s = wide_job.result()
+    timed_spots = timed_job.result()
+    movie_pool.shutdown()
+    print(f"wide movie {wide.shape} {wide.dtype}: {wide_s:.1f} s to "
+          "generate (alongside the build)")
+    torch.cuda.empty_cache()
+    launches_any, ms_any, bounds_any, errs_any = anybox_phase(
+        wide, chunk, timed_spots, counted, smi)
+    ms.update(ms_any)
+    bounds.update(bounds_any)
+    del wide, timed_spots
     print(f"phases 15-16: {t16 - t15:.1f} s and {t17 - t16:.1f} s, phase "
           f"17: {t18 - t17:.1f} s, phase 18: {t19 - t18:.1f} s, phase 19: "
           f"{t20 - t19:.1f} s, phase 20: {t21 - t20:.1f} s ((a) "
@@ -4411,7 +4877,8 @@ def main() -> int:
              "average3": launches_avg3, "picks": launches_picks,
              "mask": launches_mask, "render3d": launches_r3d,
              **launches_mesh, "watcher": launches_watch,
-             "render-gui": launches_rgui, "localize-gui": launches_lgui}
+             "render-gui": launches_rgui, "localize-gui": launches_lgui,
+             **launches_any}
     for path in ("simulate", "nanotron", "average3", "mask", "render3d",
                  "render-gui"):
         if any(paths[path].values()):
@@ -4433,7 +4900,7 @@ def main() -> int:
         """One kernel's record; its launches are those of ``counter`` on
         every path, or, for an MLE fit of one ``method``, on the paths
         of that method (the counters are shared by both methods)."""
-        on = {p: v[counter] for p, v in paths.items()
+        on = {p: v.get(counter, 0) for p, v in paths.items()
               if method is None
               or p.endswith("-sigma") == (method == "sigma")}
         b_ms, b_by = bounds[key]
@@ -4515,6 +4982,42 @@ def main() -> int:
               "K1 one pass", stats["K1 one pass sigma"]["xy_max_all"],
               "plain_fit sigma", "sigma"),
     ]
+    any_tpu = {"mle": "picasso_tpu/ops/mle_pallas.py:36",
+               "lq": "picasso_tpu/ops/lq_pallas.py:25"}
+    kernels += [
+        entry("mle anybox", f"mle_anybox sigmaxy (any box, one thread a "
+              f"spot, CRLB/LL; timed at box {TIMED_BOX})",
+              "picasso_torch/csrc/mle_anybox.cu", any_tpu["mle"],
+              "mle anybox", errs_any["mle anybox"], "plain mle anybox",
+              "sigmaxy"),
+        entry("mle anybox sigma", f"mle_anybox sigma (any box, one thread "
+              f"a spot, CRLB/LL; timed at box {TIMED_BOX})",
+              "picasso_torch/csrc/mle_anybox.cu", any_tpu["mle"],
+              "mle anybox", errs_any["mle anybox sigma"],
+              "plain mle anybox sigma", "sigma"),
+        entry("lq anybox", f"lq_anybox (any box, one thread a spot; timed "
+              f"at box {TIMED_BOX})", "picasso_torch/csrc/lq_anybox.cu",
+              any_tpu["lq"], "lq anybox", errs_any["lq anybox"],
+              "plain lq anybox"),
+        entry("cut anybox", f"cut_anybox (K5's window load and photons at "
+              f"any box; timed at box {TIMED_BOX})",
+              "picasso_torch/csrc/cut_anybox.cu", win_tpu, "cut anybox",
+              errs_any["cut anybox"], "plain cut anybox"),
+        entry("K4 anybox", f"K4 identify_anybox (any box, one thread a "
+              f"pixel; timed at box {TIMED_BOX})",
+              "picasso_torch/csrc/identify_anybox.cu",
+              "picasso_tpu/ops/identify_pallas.py:58", "K4 anybox",
+              errs_any["K4 anybox"], "plain K4 anybox"),
+    ]
+    for name, key, plain in (
+            ("K1 roi_mle_fit sigmaxy (", "K1 box 3", "K1 box 3"),
+            ("K3 roi_lq_queue", "K3 queue box 3", "K3 queue box 3"),
+            ("mle_anybox sigmaxy", "mle anybox box 3", "K1 box 3"),
+            ("lq_anybox", "lq anybox box 3", "K3 queue box 3")):
+        k = next(k for k in kernels if k["name"].startswith(name))
+        k["box3_ms"] = ms[key]
+        k["box3_plain_ms"] = ms["plain " + plain]
+        k["box3_bound_ms"] = bounds[plain][0]
     for k in kernels:  # the LM kernel's time on chunk 0 too
         if k["name"].startswith("K5 winfit_lq"):
             k["chunk0_ms"] = ms["K5 lq queue chunk 0"]

@@ -96,6 +96,26 @@ SIGNATURES = {
     "picasso_roi_lq_queue_info": [
         _I, _P,                                # box, int info[7]
     ],
+    "picasso_mle_anybox": [
+        _P, _LL, _I, _F, _I, _LL, _I,          # spots, n, box, eps, max_it,
+        _P, _P, _P, _P, _P,                    # n_valid, method; work, out:
+        _P,                                    # theta crlb ll iters; stream
+    ],
+    "picasso_lq_anybox": [
+        _P, _LL, _I, _F, _I, _LL,              # spots, n, box, ftol, max_it,
+        _P, _P, _P,                            # n_valid; work, theta, stream
+    ],
+    "picasso_cut_anybox": [
+        _P, _I, _LL, _LL, _LL,                 # frames, dtype, B, Y, X
+        _P, _LL, _I, _F, _F,                   # hits, n, box, baseline, factor
+        _P, _P,                                # out (box, box, n), stream
+    ],
+    "picasso_identify_anybox": [
+        _P, _I, _LL, _LL, _LL, _I, _F,         # frames, dtype, B, Y, X, box, min_ng
+        _P, _P,                                # unit vectors uy, ux (box, box)
+        _P, _P, _P,                            # tile mask, loc, ng (zeroed)
+        _P,                                    # stream
+    ],
     "picasso_identify_tiles": [
         _P, _I, _LL, _LL, _LL, _I, _F,         # frames, dtype, B, Y, X, box, min_ng
         _P, _P, _P,                            # tile mask, loc, ng

@@ -13,7 +13,9 @@
 //              photons, and by the ROI work queues (roi_*_queue.cu) from
 //              the (S, S, N) batch.
 // The body is the same template for both, so a source changes where a
-// pixel comes from and nothing of the arithmetic.
+// pixel comes from and nothing of the arithmetic. The any-box bodies
+// (fit_mle_any.cuh, fit_lq_any.cuh) read through AnyBox, the lanes-last
+// batch at a run-time box.
 
 #pragma once
 
@@ -46,6 +48,24 @@ struct LanesLast {
   long long N;
   __device__ __forceinline__ float operator()(int y, int x) const {
     return __ldg(p + (long long)(y * S + x) * N);
+  }
+};
+
+// The any-box bodies (fit_any.cuh): a spot of the lanes-last (s, s, N)
+// batch at a box s known only at run time, read from global memory at
+// each use, and the spot's column of a lanes-last (rows, s, N) f32
+// workspace (the per-axis factors that the templated bodies keep in
+// S-sized register arrays).
+struct AnyBox {
+  const float* p;  // spots + n
+  float* w;        // work + n
+  long long N;
+  int s;
+  __device__ __forceinline__ float operator()(int y, int x) const {
+    return __ldg(p + (long long)(y * s + x) * N);
+  }
+  __device__ __forceinline__ float& at(int row, int i) const {
+    return w[(long long)(row * s + i) * N];
   }
 };
 

@@ -5,7 +5,8 @@
 // spot's pixels come from (fit_common.cuh). Its pieces
 // (an axis point, a row of J^T r, a row of the cost, the fold of a row,
 // the damped step) are the units the work queue's cooperative tail
-// spreads over a group of lanes.
+// spreads over a group of lanes. The any-box body (fit_lq_any.cuh) is
+// built from the same pieces, with the box a run-time value.
 //
 // It runs picasso_tpu/ops/lq._lm_core: moment initialiser, then up to
 // max_it LM iterations on the damped 6x6 normal equations (Marquardt
@@ -52,12 +53,13 @@ constexpr float kNorm = 0.3989422804014327f;  // 1 / sqrt(2 pi)
 // would depend on what the compiler sees of both, and so on the place.
 
 // Point k of an axis factor (ops/lq._axis_factors): g = norm/sigma *
-// exp(-u^2/2), u = (k - S/2 - mu)/sigma, inv = 1/sigma; when D, its
-// derivatives dg = d/dmu and ds = d/dsigma.
-template <int S, bool D>
-__device__ __forceinline__ void axis_point(int k, float mu, float inv,
-                                           float& g, float& dg, float& ds) {
-  const float d = __fsub_rn((float)(k - S / 2), mu);
+// exp(-u^2/2), u = (k - half - mu)/sigma with half = box / 2, inv =
+// 1/sigma; when D, its derivatives dg = d/dmu and ds = d/dsigma.
+template <bool D>
+__device__ __forceinline__ void axis_point(int half, int k, float mu,
+                                           float inv, float& g, float& dg,
+                                           float& ds) {
+  const float d = __fsub_rn((float)(k - half), mu);
   const float u = __fmul_rn(d, inv);
   const float uu = __fmul_rn(u, u);
   g = __fmul_rn(__fmul_rn(kNorm, inv), expf(__fmul_rn(-0.5f, uu)));
@@ -67,28 +69,34 @@ __device__ __forceinline__ void axis_point(int k, float mu, float inv,
   }
 }
 
-// Row j of the J^T r pass: the column sums over i, in order, of r *
-// dgx, r * gx, r * dsx and r, r = px(j, i) - (pg * gx[i] + bg).
+// Pixel i of row j of the J^T r pass, r = data - (pg * gx + bg), into
+// the row's column sums of r * dgx, r * gx, r * dsx and r.
+__device__ __forceinline__ void jtr_pixel(bool first, float data, float pg,
+                                          float bg, float gx, float dgx,
+                                          float dsx, float* c) {
+  const float r = __fsub_rn(data, __fmaf_rn(pg, gx, bg));
+  if (first) {
+    c[0] = __fmul_rn(r, dgx);
+    c[1] = __fmul_rn(r, gx);
+    c[2] = __fmul_rn(r, dsx);
+    c[3] = r;
+  } else {
+    c[0] = __fmaf_rn(r, dgx, c[0]);
+    c[1] = __fmaf_rn(r, gx, c[1]);
+    c[2] = __fmaf_rn(r, dsx, c[2]);
+    c[3] = __fadd_rn(c[3], r);
+  }
+}
+
+// Row j of the J^T r pass: the column sums over i, in order.
 template <int S, class Src>
 __device__ __forceinline__ void jtr_row(const Src& px, int j, float pg,
                                         float bg, const float* gx,
                                         const float* dgx, const float* dsx,
                                         float* c) {
 #pragma unroll
-  for (int i = 0; i < S; ++i) {
-    const float r = __fsub_rn(px(j, i), __fmaf_rn(pg, gx[i], bg));
-    if (i == 0) {
-      c[0] = __fmul_rn(r, dgx[i]);
-      c[1] = __fmul_rn(r, gx[i]);
-      c[2] = __fmul_rn(r, dsx[i]);
-      c[3] = r;
-    } else {
-      c[0] = __fmaf_rn(r, dgx[i], c[0]);
-      c[1] = __fmaf_rn(r, gx[i], c[1]);
-      c[2] = __fmaf_rn(r, dsx[i], c[2]);
-      c[3] = __fadd_rn(c[3], r);
-    }
-  }
+  for (int i = 0; i < S; ++i)
+    jtr_pixel(i == 0, px(j, i), pg, bg, gx[i], dgx[i], dsx[i], c);
 }
 
 // Fold row j's column sums c into the six row dots, rows in order.
@@ -112,23 +120,64 @@ __device__ __forceinline__ void jtr_fold(bool first, float gy, float dgy,
   }
 }
 
-// J^T r from the row dots, and the undamped lower triangle of J^T J
-// (a[p * (p + 1) / 2 + q], q <= p) from 1D dot products of the axis
-// factors. Row factors (over y): 0 gy, 1 dgy, 2 ones, 3 dsy; column
-// factors (over x): 0 dgx, 1 gx, 2 ones, 3 dsx. Parameter p uses row
-// factor ar[p], column factor bc[p] and scale photons (x, y, sx, sy) or
-// 1 (photons, bg).
-template <int S>
-__device__ __forceinline__ void normal_matrix(
-    const float* gx, const float* dgx, const float* dsx, const float* gy,
-    const float* dgy, const float* dsy, float ph, const float* jd, float* a,
-    float* jtr) {
+// Point k's step of the 1D dot products: the row factors' (ra) and the
+// column factors' (cb) pair products, upper triangle, into sa / sb.
+__device__ __forceinline__ void dot_point(bool first, const float* ra,
+                                          const float* cb, float (&sa)[4][4],
+                                          float (&sb)[4][4]) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int v = u; v < 4; ++v) {
+      sa[u][v] = first ? __fmul_rn(ra[u], ra[v])
+                       : __fmaf_rn(ra[u], ra[v], sa[u][v]);
+      sb[u][v] = first ? __fmul_rn(cb[u], cb[v])
+                       : __fmaf_rn(cb[u], cb[v], sb[u][v]);
+    }
+}
+
+// J^T r and the lower triangle of J^T J from the row dots jd and the dot
+// products sa / sb (upper triangle).
+__device__ __forceinline__ void normal_assemble(float (&sa)[4][4],
+                                                float (&sb)[4][4], float ph,
+                                                const float* jd, float* a,
+                                                float* jtr) {
   jtr[0] = __fmul_rn(ph, jd[0]);
   jtr[1] = __fmul_rn(ph, jd[1]);
   jtr[2] = jd[2];
   jtr[3] = jd[3];
   jtr[4] = __fmul_rn(ph, jd[4]);
   jtr[5] = __fmul_rn(ph, jd[5]);
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int v = 0; v < u; ++v) {
+      sa[u][v] = sa[v][u];
+      sb[u][v] = sb[v][u];
+    }
+  const int ar[6] = {0, 1, 0, 2, 0, 3};
+  const int bc[6] = {0, 1, 1, 2, 3, 1};
+  const float sc[6] = {ph, ph, 1.0f, 1.0f, ph, ph};
+#pragma unroll
+  for (int p = 0; p < 6; ++p)
+#pragma unroll
+    for (int q = 0; q <= p; ++q)
+      a[p * (p + 1) / 2 + q] =
+          __fmul_rn(__fmul_rn(__fmul_rn(sc[q], sc[p]), sa[ar[q]][ar[p]]),
+                    sb[bc[q]][bc[p]]);
+}
+
+// J^T r from the row dots, and the undamped lower triangle of J^T J
+// (a[p * (p + 1) / 2 + q], q <= p) from 1D dot products of the axis
+// factors. Row factors (over y): 0 gy, 1 dgy, 2 ones, 3 dsy; column
+// factors (over x): 0 dgx, 1 gx, 2 ones, 3 dsx. Parameter p uses row
+// factor ar[p], column factor bc[p] and scale photons (x, y, sx, sy) or
+// 1 (photons, bg) (normal_assemble).
+template <int S>
+__device__ __forceinline__ void normal_matrix(
+    const float* gx, const float* dgx, const float* dsx, const float* gy,
+    const float* dgy, const float* dsy, float ph, const float* jd, float* a,
+    float* jtr) {
   float sa[4][4], sb[4][4];
 #pragma unroll
   for (int u = 0; u < 4; ++u)
@@ -144,19 +193,10 @@ __device__ __forceinline__ void normal_matrix(
         acc_b = k == 0 ? __fmul_rn(cb[u], cb[v])
                        : __fmaf_rn(cb[u], cb[v], acc_b);
       }
-      sa[u][v] = sa[v][u] = acc_a;
-      sb[u][v] = sb[v][u] = acc_b;
+      sa[u][v] = acc_a;
+      sb[u][v] = acc_b;
     }
-  const int ar[6] = {0, 1, 0, 2, 0, 3};
-  const int bc[6] = {0, 1, 1, 2, 3, 1};
-  const float sc[6] = {ph, ph, 1.0f, 1.0f, ph, ph};
-#pragma unroll
-  for (int p = 0; p < 6; ++p)
-#pragma unroll
-    for (int q = 0; q <= p; ++q)
-      a[p * (p + 1) / 2 + q] =
-          __fmul_rn(__fmul_rn(__fmul_rn(sc[q], sc[p]), sa[ar[q]][ar[p]]),
-                    sb[bc[q]][bc[p]]);
+  normal_assemble(sa, sb, ph, jd, a, jtr);
 }
 
 // The normal equations of one spot at theta th, one thread
@@ -171,8 +211,8 @@ __device__ __forceinline__ void normal_equations(const Src& px,
   const float ix = __fdiv_rn(1.0f, th[4]), iy = __fdiv_rn(1.0f, th[5]);
 #pragma unroll
   for (int k = 0; k < S; ++k) {
-    axis_point<S, true>(k, th[0], ix, gx[k], dgx[k], dsx[k]);
-    axis_point<S, true>(k, th[1], iy, gy[k], dgy[k], dsy[k]);
+    axis_point<true>(S / 2, k, th[0], ix, gx[k], dgx[k], dsx[k]);
+    axis_point<true>(S / 2, k, th[1], iy, gy[k], dgy[k], dsy[k]);
   }
   const float ph = th[2], bg = th[3];
   float jd[6];
@@ -185,16 +225,21 @@ __device__ __forceinline__ void normal_equations(const Src& px,
   normal_matrix<S>(gx, dgx, dsx, gy, dgy, dsy, ph, jd, a, jtr);
 }
 
+// Pixel i of row j of the sum of squared residuals.
+__device__ __forceinline__ float cost_pixel(bool first, float data, float pg,
+                                            float bg, float gx, float row) {
+  const float r = __fsub_rn(data, __fmaf_rn(pg, gx, bg));
+  return first ? __fmul_rn(r, r) : __fmaf_rn(r, r, row);
+}
+
 // Row j of the sum of squared residuals: over i in order.
 template <int S, class Src>
 __device__ __forceinline__ float cost_row(const Src& px, int j, float pg,
                                           float bg, const float* gx) {
   float row = 0.0f;
 #pragma unroll
-  for (int i = 0; i < S; ++i) {
-    const float r = __fsub_rn(px(j, i), __fmaf_rn(pg, gx[i], bg));
-    row = i == 0 ? __fmul_rn(r, r) : __fmaf_rn(r, r, row);
-  }
+  for (int i = 0; i < S; ++i)
+    row = cost_pixel(i == 0, px(j, i), pg, bg, gx[i], row);
   return row;
 }
 
@@ -206,8 +251,8 @@ __device__ float cost(const Src& px, const float* th) {
   const float ix = __fdiv_rn(1.0f, th[4]), iy = __fdiv_rn(1.0f, th[5]);
 #pragma unroll
   for (int k = 0; k < S; ++k) {
-    axis_point<S, false>(k, th[0], ix, gx[k], unused, unused);
-    axis_point<S, false>(k, th[1], iy, gy[k], unused, unused);
+    axis_point<false>(S / 2, k, th[0], ix, gx[k], unused, unused);
+    axis_point<false>(S / 2, k, th[1], iy, gy[k], unused, unused);
   }
   float total = 0.0f;
 #pragma unroll
@@ -218,10 +263,58 @@ __device__ float cost(const Src& px, const float* th) {
   return total;
 }
 
+// The initialiser's sums, explicitly rounded like the LM step (the
+// unrolled template and the any-box loop, fit_lq_any.cuh, then form the
+// same numbers whatever the compiler would fuse): pixel (y, x) with
+// photons above the background v into the total and the first moments
+// (lq_moments), and into the second moments about the centre of mass
+// (lq_moments2).
+__device__ __forceinline__ void lq_moments(bool first, float v, int y, int x,
+                                           float& total, float& ysum,
+                                           float& xsum) {
+  total = first ? v : __fadd_rn(total, v);
+  ysum = first ? __fmul_rn(v, (float)y) : __fmaf_rn(v, (float)y, ysum);
+  xsum = first ? __fmul_rn(v, (float)x) : __fmaf_rn(v, (float)x, xsum);
+}
+
+__device__ __forceinline__ void lq_moments2(bool first, float v, int y,
+                                            int x, float y_com, float x_com,
+                                            float& syy, float& sxx) {
+  const float dy = __fsub_rn((float)y, y_com), dx = __fsub_rn((float)x, x_com);
+  const float yy = __fmul_rn(dy, dy), xx = __fmul_rn(dx, dx);
+  syy = first ? __fmul_rn(v, yy) : __fmaf_rn(v, yy, syy);
+  sxx = first ? __fmul_rn(v, xx) : __fmaf_rn(v, xx, sxx);
+}
+
+// The centre of mass of a box s (a box without photons takes its middle
+// and 0.01 photons).
+__device__ __forceinline__ void lq_com(int s, float& total, float ysum,
+                                      float xsum, float& y_com,
+                                      float& x_com) {
+  y_com = ysum / total;
+  x_com = xsum / total;
+  if (total <= 0.0f) {
+    total = 0.01f;
+    y_com = x_com = (s - 1) / 2.0f;
+  }
+}
+
+// theta of the initialiser, x/y relative to the box centre half.
+__device__ __forceinline__ void lq_init_store(int half, float x_com,
+                                              float y_com, float total,
+                                              float bg, float sxx, float syy,
+                                              float* th) {
+  th[0] = x_com - (float)half;
+  th[1] = y_com - (float)half;
+  th[2] = nmax(total, 1.0f);
+  th[3] = bg;
+  th[4] = sqrtf(sxx / total);
+  th[5] = sqrtf(syy / total);
+}
+
 // Moment initialiser (ops/lq.initial_parameters_t).
 template <int S, class Src>
 __device__ void lq_init_theta(const Src& px, float* th) {
-  constexpr int half = S / 2;
   float bg = 0.0f;
 #pragma unroll
   for (int y = 0; y < S; ++y)
@@ -234,35 +327,18 @@ __device__ void lq_init_theta(const Src& px, float* th) {
 #pragma unroll
   for (int y = 0; y < S; ++y)
 #pragma unroll
-    for (int x = 0; x < S; ++x) {
-      const float v = px(y, x) - bg;
-      const bool first = y == 0 && x == 0;
-      total = first ? v : total + v;
-      ysum = first ? v * (float)y : ysum + v * (float)y;
-      xsum = first ? v * (float)x : xsum + v * (float)x;
-    }
-  float y_com = ysum / total, x_com = xsum / total;
-  if (total <= 0.0f) {
-    total = 0.01f;
-    y_com = x_com = (S - 1) / 2.0f;
-  }
+    for (int x = 0; x < S; ++x)
+      lq_moments(y == 0 && x == 0, px(y, x) - bg, y, x, total, ysum, xsum);
+  float y_com, x_com;
+  lq_com(S, total, ysum, xsum, y_com, x_com);
   float syy = 0.0f, sxx = 0.0f;
 #pragma unroll
   for (int y = 0; y < S; ++y)
 #pragma unroll
-    for (int x = 0; x < S; ++x) {
-      const float v = px(y, x) - bg;
-      const float dy = (float)y - y_com, dx = (float)x - x_com;
-      const bool first = y == 0 && x == 0;
-      syy = first ? v * (dy * dy) : syy + v * (dy * dy);
-      sxx = first ? v * (dx * dx) : sxx + v * (dx * dx);
-    }
-  th[0] = x_com - (float)half;
-  th[1] = y_com - (float)half;
-  th[2] = nmax(total, 1.0f);
-  th[3] = bg;
-  th[4] = sqrtf(sxx / total);
-  th[5] = sqrtf(syy / total);
+    for (int x = 0; x < S; ++x)
+      lq_moments2(y == 0 && x == 0, px(y, x) - bg, y, x, y_com, x_com, syy,
+                  sxx);
+  lq_init_store(S / 2, x_com, y_com, total, bg, sxx, syy, th);
 }
 
 // The damped step from the normal equations (a, jtr) and the damping

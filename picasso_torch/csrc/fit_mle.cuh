@@ -7,6 +7,9 @@
 // the units the work queues' cooperative tail spreads over a group of
 // lanes; its epilogue (CRLB, log-likelihood, the outputs) ends K1's one
 // pass, K2's FINISH phase and the K1/K7 work queue (roi_mle_fit.cu).
+// The any-box body (fit_mle_any.cuh) is built from the same pieces, with
+// the box a run-time value (mle_edge, mle_update and the per-pixel and
+// per-row pieces take it so).
 //
 // It runs picasso_tpu/ops/mle._fit_core: moment initialiser, up to
 // max_it Newton steps with per-parameter max_step clamps, per-spot
@@ -90,14 +93,13 @@ __device__ __forceinline__ float erfc_from_exp(float a, float e) {
   return __fmul_rn(__fmul_rn(t, p), e);
 }
 
-// Edge k = 0..S of an axis (ops/gaussian.py fused_axis_terms): the
-// standardised edge a = (k - mu - 1/2) / sigma (the last, k = S, is
-// (S - 1 - mu + 1/2) / sigma), its exponential and its erfc.
-template <int S>
-__device__ __forceinline__ void mle_edge(int k, float mu, float inv_s,
+// Edge k = 0..s of an axis of box s (ops/gaussian.py fused_axis_terms):
+// the standardised edge a = (k - mu - 1/2) / sigma (the last, k = s, is
+// (s - 1 - mu + 1/2) / sigma), its exponential and its erfc.
+__device__ __forceinline__ void mle_edge(int s, int k, float mu, float inv_s,
                                          float& a, float& e, float& q) {
-  a = k < S ? __fmul_rn(__fsub_rn(__fsub_rn((float)k, mu), 0.5f), inv_s)
-            : __fmul_rn(__fadd_rn(__fsub_rn((float)(S - 1), mu), 0.5f),
+  a = k < s ? __fmul_rn(__fsub_rn(__fsub_rn((float)k, mu), 0.5f), inv_s)
+            : __fmul_rn(__fadd_rn(__fsub_rn((float)(s - 1), mu), 0.5f),
                         inv_s);
   e = expf(__fmul_rn(__fmul_rn(-0.5f, a), a));
   q = erfc_from_exp(a, e);
@@ -168,7 +170,7 @@ __device__ __forceinline__ void axis_terms(float mu, float sigma, float* psf,
   axis_scale(sigma, inv_s, norm);
   float a8[S + 1], e8[S + 1], q8[S + 1];
 #pragma unroll
-  for (int k = 0; k <= S; ++k) mle_edge<S>(k, mu, inv_s, a8[k], e8[k], q8[k]);
+  for (int k = 0; k <= S; ++k) mle_edge(S, k, mu, inv_s, a8[k], e8[k], q8[k]);
 #pragma unroll
   for (int k = 0; k < S; ++k)
     mle_point<ISO>(k, mu, sigma, inv_s, norm, a8[k], a8[k + 1], e8[k],
@@ -176,61 +178,27 @@ __device__ __forceinline__ void axis_terms(float mu, float sigma, float* psf,
                    dsig[k], d2sig[k]);
 }
 
-// Moment initialiser (ops/mle.py initial_theta_sigmaxy_t, _init_state)
-// and max_step.
-template <int S, bool SIG, class Src>
-__device__ void init_theta(const Src& px, float* th, float* ms) {
-  float total = 0.0f, ysum = 0.0f, xsum = 0.0f;
-#pragma unroll
-  for (int y = 0; y < S; ++y)
-#pragma unroll
-    for (int x = 0; x < S; ++x) {
-      const float v = px(y, x);
-      total += v;
-      ysum += v * (float)y;
-      xsum += v * (float)x;
-    }
-  float y_com = ysum / total, x_com = xsum / total;
+// The centre of mass of a box s from its sums (a box without photons
+// takes its middle and 0.01 photons).
+__device__ __forceinline__ void init_com(int s, float& total, float ysum,
+                                        float xsum, float& y_com,
+                                        float& x_com) {
+  y_com = ysum / total;
+  x_com = xsum / total;
   if (total <= 0.0f) {
     total = 0.01f;
-    y_com = x_com = (S - 1) / 2.0f;
+    y_com = x_com = (s - 1) / 2.0f;
   }
-  // background: min of the 3x3 edge-clipped mean filter
-  float rows[S][S];
-#pragma unroll
-  for (int y = 0; y < S; ++y)
-#pragma unroll
-    for (int x = 0; x < S; ++x) {
-      const float up = y > 0 ? px(y - 1, x) : 0.0f;
-      const float dn = y < S - 1 ? px(y + 1, x) : 0.0f;
-      rows[y][x] = (up + px(y, x)) + dn;
-    }
-  float bg = 0.0f;
-#pragma unroll
-  for (int y = 0; y < S; ++y)
-#pragma unroll
-    for (int x = 0; x < S; ++x) {
-      const float lf = x > 0 ? rows[y][x - 1] : 0.0f;
-      const float rt = x < S - 1 ? rows[y][x + 1] : 0.0f;
-      const float cy = (y == 0 || y == S - 1) ? 2.0f : 3.0f;
-      const float cx = (x == 0 || x == S - 1) ? 2.0f : 3.0f;
-      const float v = ((lf + rows[y][x]) + rt) / (cy * cx);
-      bg = (y == 0 && x == 0) ? v : nmin(bg, v);
-    }
-  const float photons = nmax(total - (float)(S * S) * bg, 1.0f);
-  // second moments of the centre column (along y) and row (along x)
-  constexpr int half = S / 2;
-  float cnum = 0.0f, cden = 0.0f, rnum = 0.0f, rden = 0.0f;
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    const float d2 = (float)((k - half) * (k - half));
-    const float c = px(k, half) - bg;
-    const float r = px(half, k) - bg;
-    cnum = k == 0 ? d2 * c : cnum + d2 * c;
-    cden = k == 0 ? c : cden + c;
-    rnum = k == 0 ? d2 * r : rnum + d2 * r;
-    rden = k == 0 ? r : rden + r;
-  }
+}
+
+// theta and max_step of the initialiser from its moments: the widths
+// from the second moments of the centre column (cnum / cden) and row
+// (rnum / rden).
+template <bool SIG>
+__device__ __forceinline__ void init_store(float x_com, float y_com,
+                                          float photons, float bg,
+                                          float cnum, float cden, float rnum,
+                                          float rden, float* th, float* ms) {
   float sy = sqrtf(cnum / cden), sx = sqrtf(rnum / rden);
   if (!(isfinite(sy) && sy != 0.0f)) sy = 0.01f;
   if (!(isfinite(sx) && sx != 0.0f)) sx = 0.01f;
@@ -256,10 +224,97 @@ __device__ void init_theta(const Src& px, float* th, float* ms) {
   }
 }
 
+// The initialiser's sums, explicitly rounded like the Newton step (the
+// unrolled template and the any-box loop then form the same numbers: as
+// plain operators, a diagonal pixel's v * y and v * x are one product,
+// which the compiler fuses into neither sum): pixel (y, x) with photons
+// v into the total and the first moments, and a second moment's term.
+__device__ __forceinline__ void moment_pixel(float v, int y, int x,
+                                             float& total, float& ysum,
+                                             float& xsum) {
+  total = __fadd_rn(total, v);
+  ysum = __fmaf_rn(v, (float)y, ysum);
+  xsum = __fmaf_rn(v, (float)x, xsum);
+}
+
+__device__ __forceinline__ float moment2(bool first, float d2, float c,
+                                         float acc) {
+  return first ? __fmul_rn(d2, c) : __fmaf_rn(d2, c, acc);
+}
+
+// Photons from the total less the background of s x s pixels.
+__device__ __forceinline__ float init_photons(int s, float total, float bg) {
+  return nmax(__fmaf_rn(-(float)(s * s), bg, total), 1.0f);
+}
+
+// Moment initialiser (ops/mle.py initial_theta_sigmaxy_t, _init_state)
+// and max_step.
+template <int S, bool SIG, class Src>
+__device__ void init_theta(const Src& px, float* th, float* ms) {
+  float total = 0.0f, ysum = 0.0f, xsum = 0.0f;
+#pragma unroll
+  for (int y = 0; y < S; ++y)
+#pragma unroll
+    for (int x = 0; x < S; ++x) moment_pixel(px(y, x), y, x, total, ysum, xsum);
+  float y_com, x_com;
+  init_com(S, total, ysum, xsum, y_com, x_com);
+  // background: min of the 3x3 edge-clipped mean filter
+  float rows[S][S];
+#pragma unroll
+  for (int y = 0; y < S; ++y)
+#pragma unroll
+    for (int x = 0; x < S; ++x) {
+      const float up = y > 0 ? px(y - 1, x) : 0.0f;
+      const float dn = y < S - 1 ? px(y + 1, x) : 0.0f;
+      rows[y][x] = (up + px(y, x)) + dn;
+    }
+  float bg = 0.0f;
+#pragma unroll
+  for (int y = 0; y < S; ++y)
+#pragma unroll
+    for (int x = 0; x < S; ++x) {
+      const float lf = x > 0 ? rows[y][x - 1] : 0.0f;
+      const float rt = x < S - 1 ? rows[y][x + 1] : 0.0f;
+      const float cy = (y == 0 || y == S - 1) ? 2.0f : 3.0f;
+      const float cx = (x == 0 || x == S - 1) ? 2.0f : 3.0f;
+      const float v = ((lf + rows[y][x]) + rt) / (cy * cx);
+      bg = (y == 0 && x == 0) ? v : nmin(bg, v);
+    }
+  const float photons = init_photons(S, total, bg);
+  // second moments of the centre column (along y) and row (along x)
+  constexpr int half = S / 2;
+  float cnum = 0.0f, cden = 0.0f, rnum = 0.0f, rden = 0.0f;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const float d2 = (float)((k - half) * (k - half));
+    const float c = px(k, half) - bg;
+    const float r = px(half, k) - bg;
+    cnum = moment2(k == 0, d2, c, cnum);
+    cden = k == 0 ? c : cden + c;
+    rnum = moment2(k == 0, d2, r, rnum);
+    rden = k == 0 ? r : rden + r;
+  }
+  init_store<SIG>(x_com, y_com, photons, bg, cnum, cden, rnum, rden, th, ms);
+}
+
 // The column factors of the Newton sums, over i = 0..S-1, formed once a
 // step from the x axis's: rows dmu, psf, dsig, d2mu, d2sig, then the
 // products dmu^2, psf^2, dsig^2 and dsig * psf (sigma's d3 factor).
 constexpr int kCols = 9;
+__device__ __forceinline__ void mle_column(float psf, float dmu, float d2mu,
+                                           float dsig, float d2sig,
+                                           float* f) {
+  f[0] = dmu;
+  f[1] = psf;
+  f[2] = dsig;
+  f[3] = d2mu;
+  f[4] = d2sig;
+  f[5] = dmu * dmu;
+  f[6] = psf * psf;
+  f[7] = dsig * dsig;
+  f[8] = dsig * psf;
+}
+
 template <int S>
 __device__ __forceinline__ void mle_columns(const float* psf_x,
                                             const float* dmu_x,
@@ -269,23 +324,44 @@ __device__ __forceinline__ void mle_columns(const float* psf_x,
                                             float (&f)[kCols][S]) {
 #pragma unroll
   for (int i = 0; i < S; ++i) {
-    f[0][i] = dmu_x[i];
-    f[1][i] = psf_x[i];
-    f[2][i] = dsig_x[i];
-    f[3][i] = d2mu_x[i];
-    f[4][i] = d2sig_x[i];
-    f[5][i] = dmu_x[i] * dmu_x[i];
-    f[6][i] = psf_x[i] * psf_x[i];
-    f[7][i] = dsig_x[i] * dsig_x[i];
-    f[8][i] = dsig_x[i] * psf_x[i];
+    float col[kCols];
+    mle_column(psf_x[i], dmu_x[i], d2mu_x[i], dsig_x[i], d2sig_x[i], col);
+#pragma unroll
+    for (int t = 0; t < kCols; ++t) f[t][i] = col[t];
+  }
+}
+
+// Pixel i of row j of the Newton sums: its data, pg = photons *
+// psf_y[j], bg and its column factors f (mle_column) into the eleven
+// column sums c0..c5, d0..d4 (first: the row's first pixel). sigmaxy: d3
+// = d4 = sum df; sigma: d3 = sum df * dPSF * psf.
+template <bool SIG>
+__device__ __forceinline__ void mle_pixel(bool first, float data, float pg,
+                                          float bg, const float* f,
+                                          float* c) {
+  const float model = row_fma<SIG>(pg, f[1], bg);
+  const bool valid = model > 10e-3f;
+  const float r = __frcp_rn(model);
+  const float dr = data * r;
+  const float cf = nmin(valid ? __fsub_rn(dr, 1.0f) : 0.0f, 10e4f);
+  const float df = nmin(valid ? dr * r : 0.0f, 10e4f);
+  const float e3 = SIG ? __fmul_rn(df, f[8]) : df;
+#pragma unroll
+  for (int t = 0; t < 11; ++t) {
+    // c0..c4 and d0..d2 take a column factor (rows 0-4 and 5-7 of f);
+    // c5, d3, d4 are plain sums (of cf, e3, df)
+    const float v = t < 6 ? cf : (t == 9 ? e3 : df);
+    const float fa = f[t < 5 ? t : t - 1];
+    if (t == 5 || t >= 9)
+      c[t] = first ? v : c[t] + v;
+    else
+      c[t] = first ? v * fa : row_fma<SIG>(v, fa, c[t]);
   }
 }
 
 // Row j of the Newton sums (the JAX package's row accumulators
-// Tc/Td[j]): the eleven column sums c0..c5, d0..d4 over i = 0..S-1, in
-// order, with pg = photons * psf_y[j] and the column factors f
-// (mle_columns). sigmaxy: d3 = d4 = sum df; sigma: d3 = sum df * dPSF *
-// psf.
+// Tc/Td[j]): the eleven column sums over i = 0..S-1, in order, with the
+// column factors f (mle_columns).
 template <int S, bool SIG, class Src>
 __device__ __forceinline__ void mle_row(const Src& px, int j, float pg,
                                         float bg,
@@ -293,25 +369,10 @@ __device__ __forceinline__ void mle_row(const Src& px, int j, float pg,
                                         float* c) {
 #pragma unroll
   for (int i = 0; i < S; ++i) {
-    const float data = px(j, i);
-    const float model = row_fma<SIG>(pg, f[1][i], bg);
-    const bool valid = model > 10e-3f;
-    const float r = __frcp_rn(model);
-    const float dr = data * r;
-    const float cf = nmin(valid ? __fsub_rn(dr, 1.0f) : 0.0f, 10e4f);
-    const float df = nmin(valid ? dr * r : 0.0f, 10e4f);
-    const float e3 = SIG ? __fmul_rn(df, f[8][i]) : df;
+    float fi[kCols];
 #pragma unroll
-    for (int t = 0; t < 11; ++t) {
-      // c0..c4 and d0..d2 take a column factor (rows 0-4 and 5-7 of f);
-      // c5, d3, d4 are plain sums (of cf, e3, df)
-      const float v = t < 6 ? cf : (t == 9 ? e3 : df);
-      const float fa = f[t < 5 ? t : t - 1][i];
-      if (t == 5 || t >= 9)
-        c[t] = i == 0 ? v : c[t] + v;
-      else
-        c[t] = i == 0 ? v * fa : row_fma<SIG>(v, fa, c[t]);
-    }
+    for (int t = 0; t < kCols; ++t) fi[t] = f[t][i];
+    mle_pixel<SIG>(i == 0, px(j, i), pg, bg, fi, c);
   }
 }
 
@@ -344,9 +405,10 @@ __device__ __forceinline__ void mle_fold(bool first, float py, float dy,
 
 // The update from the row dots (ops/mle.py _newton_step_sigmaxy, or
 // with SIG _newton_step_sigma): numerators and denominators, the clamped
-// step, the constraints (picasso/gaussmle.py:880-884).
-template <int S, bool SIG>
-__device__ __forceinline__ void mle_update(const float* a, float* th,
+// step, the constraints (picasso/gaussmle.py:880-884); sigma is held
+// within the box s.
+template <bool SIG>
+__device__ __forceinline__ void mle_update(int s, const float* a, float* th,
                                            const float* ms) {
   constexpr int R = SIG ? 5 : 6;
   enum {
@@ -396,7 +458,7 @@ __device__ __forceinline__ void mle_update(const float* a, float* th,
   th[2] = nmax(th[2], 1.0f);
   th[3] = nmax(th[3], 0.01f);
   if constexpr (SIG) {
-    th[4] = nmin(nmax(th[4], 0.01f), (float)S);
+    th[4] = nmin(nmax(th[4], 0.01f), (float)s);
   } else {
     th[4] = nmax(th[4], 0.01f);
     th[5] = nmax(th[5], 0.01f);
@@ -425,7 +487,7 @@ __device__ void newton_step(const Src& px, float* th, const float* ms) {
     mle_fold(j == 0, psf_y[j], dmu_y[j], d2mu_y[j], dsig_y[j], d2sig_y[j], c,
              a);
   }
-  mle_update<S, SIG>(a, th, ms);
+  mle_update<SIG>(S, a, th, ms);
 }
 
 // After a Newton step of a lane that has not converged (ops/mle.py
@@ -493,72 +555,56 @@ __device__ __forceinline__ int bcol(int p) {
   return p == 0 ? 0 : (p == 3 ? 2 : (p == 4 ? 3 : 1));
 }
 
-template <int S, bool SIG, class Src>
-__device__ void crlb_ll(const Src& px, const float* th, float* crlb,
-                        float& ll) {
-  constexpr int P = SIG ? 5 : 6;
-  const float ph = th[2], bg = th[3];
-  const float sy = th[SIG ? 4 : 5];
-  float psf_x[S], dmu_x[S], d2mu_x[S], dsig_x[S], d2sig_x[S];
-  axis_terms<S, SIG>(th[0], th[4], psf_x, dmu_x, d2mu_x, dsig_x, d2sig_x);
-  float isy, ny;
-  axis_scale(sy, isy, ny);
-  // Separable first-derivative terms t = 0..5: row factor A[t], column
-  // factor bcol(t), scale sc[t]. sigmaxy: term t is parameter t. sigma:
-  // terms 4 and 5 are the two halves of d/dsigma (parameter 4). Distinct
-  // column factors: 0 dmu_x, 1 psf_x, 2 ones, 3 dsig_x.
-  float m[6][6];
-  float ll_acc = 0.0f;
-  float a0, e0, q0;  // row j's lower edge
-  mle_edge<S>(0, th[1], isy, a0, e0, q0);
-#pragma unroll 1
-  for (int j = 0; j < S; ++j) {
-    float a1, e1, q1;  // its upper edge
-    mle_edge<S>(j + 1, th[1], isy, a1, e1, q1);
-    float py, dy, d2y, sgy, s2y;
-    mle_point<SIG>(j, th[1], sy, isy, ny, a0, a1, e0, e1, q0, q1, py, dy,
-                   d2y, sgy, s2y);
-    a0 = a1;
-    e0 = e1;
-    q0 = q1;
-    const float pgy = __fmul_rn(ph, py);
-    float t[4][4];
-    float ll_row = 0.0f;
+// Pixel i of row j of the CRLB/LL sums: the W-weighted products of the
+// column factors (dmu_x, psf_x, 1, dsig_x), upper triangle, and the
+// pixel's log-likelihood term, pgy = photons * psf_y[j].
+__device__ __forceinline__ void crlb_pixel(bool first, float data, float pgy,
+                                           float psf, float dmu, float dsig,
+                                           float bg, float (&t)[4][4],
+                                           float& ll_row) {
+  const float model = __fadd_rn(__fmul_rn(pgy, psf), bg);
+  const float w = __frcp_rn(model);
+  const float b[4] = {dmu, psf, 1.0f, dsig};
 #pragma unroll
-    for (int i = 0; i < S; ++i) {
-      const float data = px(j, i);
-      const float model = __fadd_rn(__fmul_rn(pgy, psf_x[i]), bg);
-      const float w = __frcp_rn(model);
-      const float b[4] = {dmu_x[i], psf_x[i], 1.0f, dsig_x[i]};
+  for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = a; c < 4; ++c) {
-          const float v = __fmul_rn(w, __fmul_rn(b[a], b[c]));
-          t[a][c] = i == 0 ? v : __fadd_rn(t[a][c], v);
-        }
-      float lli =
-          data > 0.0f
-              ? __fadd_rn(__fsub_rn(__fsub_rn(__fmul_rn(data, logf(model)),
-                                              model),
-                                    __fmul_rn(data, logf(data))),
-                          data)
-              : -model;
-      if (!(model > 0.0f)) lli = 0.0f;
-      ll_row = i == 0 ? lli : __fadd_rn(ll_row, lli);
+    for (int c = a; c < 4; ++c) {
+      const float v = __fmul_rn(w, __fmul_rn(b[a], b[c]));
+      t[a][c] = first ? v : __fadd_rn(t[a][c], v);
     }
-    const float A[6] = {py, dy, py, 1.0f, py, sgy};
+  float lli = data > 0.0f
+                  ? __fadd_rn(__fsub_rn(__fsub_rn(__fmul_rn(data, logf(model)),
+                                                  model),
+                                        __fmul_rn(data, logf(data))),
+                              data)
+                  : -model;
+  if (!(model > 0.0f)) lli = 0.0f;
+  ll_row = first ? lli : __fadd_rn(ll_row, lli);
+}
+
+// Fold row j's sums t (crlb_pixel) with its y factors (psf, dmu, dsig at
+// j) into the term-pair sums m (first: row 0).
+__device__ __forceinline__ void crlb_fold(bool first, float py, float dy,
+                                          float sgy, const float (&t)[4][4],
+                                          float (&m)[6][6]) {
+  const float A[6] = {py, dy, py, 1.0f, py, sgy};
 #pragma unroll
-    for (int p = 0; p < 6; ++p)
+  for (int p = 0; p < 6; ++p)
 #pragma unroll
-      for (int q = p; q < 6; ++q) {
-        const int a = min(bcol(p), bcol(q));
-        const int c = max(bcol(p), bcol(q));
-        const float v = __fmul_rn(__fmul_rn(A[p], A[q]), t[a][c]);
-        m[p][q] = j == 0 ? v : __fadd_rn(m[p][q], v);
-      }
-    ll_acc = j == 0 ? ll_row : __fadd_rn(ll_acc, ll_row);
-  }
+    for (int q = p; q < 6; ++q) {
+      const int a = min(bcol(p), bcol(q));
+      const int c = max(bcol(p), bcol(q));
+      const float v = __fmul_rn(__fmul_rn(A[p], A[q]), t[a][c]);
+      m[p][q] = first ? v : __fadd_rn(m[p][q], v);
+    }
+}
+
+// The CRLB from the term-pair sums m: the Fisher matrix, its
+// equilibration and Cholesky factor, and the diagonal of its inverse.
+template <bool SIG>
+__device__ __forceinline__ void crlb_solve(const float (&m)[6][6], float ph,
+                                           float* crlb) {
+  constexpr int P = SIG ? 5 : 6;
   const float sc[6] = {ph, ph, 1.0f, 1.0f, ph, ph};
   // Fisher matrix (upper triangle): sum over the term pairs of each
   // parameter pair, in the order of ops/mle.py _crlb_and_likelihood
@@ -624,6 +670,46 @@ __device__ void crlb_ll(const Src& px, const float* th, float* crlb,
     crlb[k] = __fmul_rn(acc, __fmul_rn(dinv[k], dinv[k]));
   }
   if constexpr (SIG) crlb[5] = crlb[4];
+}
+
+template <int S, bool SIG, class Src>
+__device__ void crlb_ll(const Src& px, const float* th, float* crlb,
+                        float& ll) {
+  const float ph = th[2], bg = th[3];
+  const float sy = th[SIG ? 4 : 5];
+  float psf_x[S], dmu_x[S], d2mu_x[S], dsig_x[S], d2sig_x[S];
+  axis_terms<S, SIG>(th[0], th[4], psf_x, dmu_x, d2mu_x, dsig_x, d2sig_x);
+  float isy, ny;
+  axis_scale(sy, isy, ny);
+  // Separable first-derivative terms t = 0..5: row factor A[t], column
+  // factor bcol(t), scale sc[t]. sigmaxy: term t is parameter t. sigma:
+  // terms 4 and 5 are the two halves of d/dsigma (parameter 4). Distinct
+  // column factors: 0 dmu_x, 1 psf_x, 2 ones, 3 dsig_x.
+  float m[6][6];
+  float ll_acc = 0.0f;
+  float a0, e0, q0;  // row j's lower edge
+  mle_edge(S, 0, th[1], isy, a0, e0, q0);
+#pragma unroll 1
+  for (int j = 0; j < S; ++j) {
+    float a1, e1, q1;  // its upper edge
+    mle_edge(S, j + 1, th[1], isy, a1, e1, q1);
+    float py, dy, d2y, sgy, s2y;
+    mle_point<SIG>(j, th[1], sy, isy, ny, a0, a1, e0, e1, q0, q1, py, dy,
+                   d2y, sgy, s2y);
+    a0 = a1;
+    e0 = e1;
+    q0 = q1;
+    const float pgy = __fmul_rn(ph, py);
+    float t[4][4];
+    float ll_row = 0.0f;
+#pragma unroll
+    for (int i = 0; i < S; ++i)
+      crlb_pixel(i == 0, px(j, i), pgy, psf_x[i], dmu_x[i], dsig_x[i], bg, t,
+                 ll_row);
+    crlb_fold(j == 0, py, dy, sgy, t, m);
+    ll_acc = j == 0 ? ll_row : __fadd_rn(ll_acc, ll_row);
+  }
+  crlb_solve<SIG>(m, ph, crlb);
   ll = ll_acc;
 }
 

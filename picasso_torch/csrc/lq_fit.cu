@@ -9,7 +9,8 @@
 // neighbouring spots sit on neighbouring addresses, so each iteration's
 // box*box reads coalesce.
 //
-// Boxes 5-15 are instantiated, as for the MLE fit.
+// The odd boxes 3-15 are instantiated, as for the MLE fit (other boxes:
+// lq_anybox.cu).
 
 #include "fit_lq.cuh"
 
@@ -45,6 +46,7 @@ extern "C" int picasso_lq_fit(const void* spots, long long n, int box,
     lq_fit_kernel<S><<<blocks, threads, 0, st>>>(s, n, ftol, k, n_valid,   \
                                                  th);                      \
     break;
+    PICASSO_LQ_CASE(3)
     PICASSO_LQ_CASE(5)
     PICASSO_LQ_CASE(7)
     PICASSO_LQ_CASE(9)

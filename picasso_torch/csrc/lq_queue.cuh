@@ -35,7 +35,7 @@
 //     writes theta at its spot's index;
 //   - the cooperative tail: once the counter is drained for a warp and
 //     at most 32/G of its slots are busy, its lanes form groups of G
-//     (G >= S: 8 at boxes 5-7, 16 at 9-15) and group g runs the g-th
+//     (G >= S: 8 at boxes 3-7, 16 at 9-15) and group g runs the g-th
 //     busy slot's spot to its end. The carry comes by __shfl_sync from
 //     the slot's owner, the pixels are read from the owner's column of
 //     the stage. Lane k < S forms point k of both axes and the group
@@ -122,8 +122,8 @@ template <int S, int G, class Src>
 __device__ __forceinline__ void coop_normal_equations(
     const Src& px, int k, const float* th, bool upd, float* a, float* jtr) {
   float mx, mdx, msx, my, mdy, msy;
-  axis_point<S, true>(k, th[0], __fdiv_rn(1.0f, th[4]), mx, mdx, msx);
-  axis_point<S, true>(k, th[1], __fdiv_rn(1.0f, th[5]), my, mdy, msy);
+  axis_point<true>(S / 2, k, th[0], __fdiv_rn(1.0f, th[4]), mx, mdx, msx);
+  axis_point<true>(S / 2, k, th[1], __fdiv_rn(1.0f, th[5]), my, mdy, msy);
   float gx[S], gy[S], dgx[S], dgy[S], dsx[S], dsy[S];
 #pragma unroll
   for (int i = 0; i < S; ++i) {
@@ -159,8 +159,10 @@ template <int S, int G, class Src>
 __device__ __forceinline__ float coop_cost(const Src& px, int k,
                                            const float* th) {
   float mx, my, unused;
-  axis_point<S, false>(k, th[0], __fdiv_rn(1.0f, th[4]), mx, unused, unused);
-  axis_point<S, false>(k, th[1], __fdiv_rn(1.0f, th[5]), my, unused, unused);
+  axis_point<false>(S / 2, k, th[0], __fdiv_rn(1.0f, th[4]), mx, unused,
+                    unused);
+  axis_point<false>(S / 2, k, th[1], __fdiv_rn(1.0f, th[5]), my, unused,
+                    unused);
   float gx[S];
 #pragma unroll
   for (int i = 0; i < S; ++i) gx[i] = __shfl_sync(kLqAll, mx, i, G);
@@ -338,6 +340,7 @@ int lq_queue_dispatch(const Source& src, int box, const LqQueueArgs& a) {
 #ifdef PICASSO_K5LQ_ONLY_BOX
     PICASSO_LQQ_CASE(PICASSO_K5LQ_ONLY_BOX)
 #else
+    PICASSO_LQQ_CASE(3)
     PICASSO_LQQ_CASE(5)
     PICASSO_LQQ_CASE(7)
     PICASSO_LQQ_CASE(9)

@@ -15,9 +15,11 @@
 // threads of converged spots from sitting idle in warps that still
 // iterate.
 //
-// Boxes 5-15 are instantiated. At box 3 the sigmaxy fit has six
-// parameters for nine pixels and mostly does not converge, so no
-// reference can check a box-3 kernel; the plain version still takes it.
+// The odd boxes 3-15 are instantiated; every other box >= 3 takes the
+// any-box kernel (mle_anybox.cu). At box 3 the sigmaxy fit has six
+// parameters for nine pixels and mostly runs to max_it, so its f32 paths
+// drift apart from any other summation order's (JAX's, the plain
+// version's); the work queues still equal this pass bit for bit there.
 
 #include "fit_mle.cuh"
 
@@ -88,6 +90,7 @@ extern "C" int picasso_mle_fit(const void* spots, long long n, int box,
       launch<S, false>(s, n, eps, k, mode, n_valid, tc, oc, dc, ic, mc, to,  \
                        co, lo, io, st);                                      \
     break;
+    PICASSO_FIT_CASE(3)
     PICASSO_FIT_CASE(5)
     PICASSO_FIT_CASE(7)
     PICASSO_FIT_CASE(9)

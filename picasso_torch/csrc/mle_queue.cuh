@@ -43,7 +43,7 @@
 //     load coalesces);
 //   - with TAIL, the cooperative tail: once the counter is drained for a
 //     warp and at most 32/G of its slots are busy, its lanes form groups
-//     of G (G >= S + 1: 8 at boxes 5-7, 16 at 9-15) and group g runs the
+//     of G (G >= S + 1: 8 at boxes 3-7, 16 at 9-15) and group g runs the
 //     g-th busy slot's spot to its end. The carry comes by __shfl_sync
 //     from the slot's owner, the pixels from the owner's column of the
 //     stage. One Newton step splits so: lane k <= S forms edge k of both
@@ -170,8 +170,8 @@ __device__ __forceinline__ void coop_newton_step(const Src& px, int gl,
   axis_scale(sx, isx, nx);
   axis_scale(sy, isy, ny);
   float ax, ex, qx, ay, ey, qy;
-  mle_edge<S>(ke, th[0], isx, ax, ex, qx);
-  mle_edge<S>(ke, th[1], isy, ay, ey, qy);
+  mle_edge(S, ke, th[0], isx, ax, ex, qx);
+  mle_edge(S, ke, th[1], isy, ay, ey, qy);
   auto at = [](float v, int src) { return __shfl_sync(kAll, v, src, G); };
   float pt_x[5], pt_y[5];  // psf, dmu, d2mu, dsig, d2sig at point k
   mle_point<SIG>(k, th[0], sx, isx, nx, at(ax, k), at(ax, k + 1), at(ex, k),
@@ -198,7 +198,7 @@ __device__ __forceinline__ void coop_newton_step(const Src& px, int gl,
     mle_fold(j == 0, at(pt_y[0], j), at(pt_y[1], j), at(pt_y[2], j),
              at(pt_y[3], j), at(pt_y[4], j), cj, a);
   }
-  mle_update<S, SIG>(a, th, ms);
+  mle_update<SIG>(S, a, th, ms);
 }
 
 // Write a finished spot's carry at its index n.
@@ -492,6 +492,7 @@ int mle_queue_dispatch(const Source& src, int box, int method,
 #ifdef PICASSO_K5Q_ONLY_BOX
     PICASSO_MLEQ_CASE(PICASSO_K5Q_ONLY_BOX)
 #else
+    PICASSO_MLEQ_CASE(3)
     PICASSO_MLEQ_CASE(5)
     PICASSO_MLEQ_CASE(7)
     PICASSO_MLEQ_CASE(9)

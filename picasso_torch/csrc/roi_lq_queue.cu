@@ -13,8 +13,8 @@
 //       takes the next spot when its own is done, so K6 is one launch of
 //       this queue (ops/lq_cuda.fit_boundary_t) and has no phases.
 // lq_queue.cuh says what the queue and its tail do. Bound by operations
-// (the LM steps; a box-7 ROI is 196 B read once). Boxes 5-15 are
-// instantiated, as for lq_fit.cu.
+// (the LM steps; a box-7 ROI is 196 B read once). The odd boxes 3-15
+// are instantiated, as for lq_fit.cu.
 
 #include "lq_queue.cuh"
 

@@ -25,7 +25,8 @@
 // this queue takes the next spot as soon as its own is done, so one
 // launch does what K7's rounds do. The one-thread pass (mle_fit.cu
 // FULL, ops/mle_cuda.fit_one_pass_t) stays the fixed point this kernel
-// equals bit for bit. Boxes 5-15 are instantiated.
+// equals bit for bit. The odd boxes 3-15 are instantiated (other boxes:
+// mle_anybox.cu).
 
 #include "mle_queue.cuh"
 

@@ -88,6 +88,7 @@ int winfit_mle_dispatch(const Tin* frames, int box, int method,
     else                                                \
       winfit_mle_launch<S, false>(frames, a);           \
     break;
+    PICASSO_WINFIT_CASE(3)
     PICASSO_WINFIT_CASE(5)
     PICASSO_WINFIT_CASE(7)
     PICASSO_WINFIT_CASE(9)

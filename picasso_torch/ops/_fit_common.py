@@ -1,13 +1,18 @@
 """What the fit wrappers share (ops/mle_cuda.py, ops/lq_cuda.py,
-ops/winfit_cuda.py): the boxes their kernels are built for, the check of
-a spot batch, and the phase schedule of K2, K5, K6 and K7 (the phase
-boundaries and the stragglers-first lane order between phases)."""
+ops/winfit_cuda.py): the boxes their templated kernels are built for,
+the check of a spot batch, and the phase schedule of K2, K5, K6 and K7
+(the phase boundaries and the stragglers-first lane order between
+phases)."""
 
 from __future__ import annotations
 
 import torch
 
-BOXES = (5, 7, 9, 11, 13, 15)  # box 3: see csrc/mle_fit.cu
+#: the boxes of the templated fit kernels; a CUDA batch of any other box
+#: >= MIN_BOX goes to the any-box kernels (csrc/mle_anybox.cu,
+#: lq_anybox.cu, cut_anybox.cu)
+BOXES = (3, 5, 7, 9, 11, 13, 15)
+MIN_BOX = 3
 # the kernels' modes (csrc/fit_common.cuh)
 FULL, START, RESUME, FINISH = 0, 1, 2, 3
 
@@ -21,17 +26,32 @@ def on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no fit kernel for tensors on {t.device}")
 
 
+def check_box(box: int) -> None:
+    """Raise for a box the CUDA fit kernels do not take (below
+    :data:`MIN_BOX`)."""
+    if box < MIN_BOX:
+        raise ValueError(
+            f"the CUDA fit kernels take boxes >= {MIN_BOX}, got {box}")
+
+
 def check_spots(spots_t: torch.Tensor) -> None:
     """Raise unless ``spots_t`` is a contiguous f32 (S, S, N) batch of a
-    box the fit kernels are built for."""
+    box the fit kernels take."""
     if spots_t.ndim != 3 or spots_t.shape[0] != spots_t.shape[1]:
         raise ValueError(f"spots must be (S, S, N), got {tuple(spots_t.shape)}")
-    if spots_t.shape[0] not in BOXES:
-        raise ValueError(
-            f"the CUDA fit kernels take boxes {BOXES}, got {spots_t.shape[0]}"
-        )
+    check_box(spots_t.shape[0])
     if spots_t.dtype != torch.float32 or not spots_t.is_contiguous():
         raise ValueError("spots must be contiguous float32")
+
+
+def any_box(spots_t: torch.Tensor) -> bool:
+    """True for a CUDA batch (checked) of a box without a templated
+    kernel, which the wrappers route to the any-box kernels; False for a
+    CPU batch or a templated box."""
+    if not on_cuda(spots_t):
+        return False
+    check_spots(spots_t)
+    return spots_t.shape[0] not in BOXES
 
 
 def default_boundaries(max_it: int) -> tuple[int, ...]:

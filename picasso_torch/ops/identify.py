@@ -169,11 +169,14 @@ def cut_spots_numpy(movie, ids_frame: np.ndarray, ids_x: np.ndarray,
                     ids_y: np.ndarray, box: int) -> np.ndarray:
     """(N, box, box) ROIs around the centres on the host, in the movie's
     dtype (picasso_tpu/ops/identify.py:732): one fancy-index gather from
-    an array, frame by frame from a lazy movie. Centres are not clamped;
-    identify never yields one within box // 2 of an edge."""
+    an array, frame by frame from a lazy movie. A ROI starts box // 2
+    pixels before its centre, so at an even box it ends box // 2 - 1
+    after it, as picasso_tpu's native cut and its fused chain's row
+    gather take it. Centres are not clamped; identify never yields one
+    within box // 2 of an edge."""
     r = box // 2
     if isinstance(movie, np.ndarray) or hasattr(movie, "__array__"):
-        offs = np.arange(-r, r + 1)
+        offs = np.arange(box) - r
         yy = ids_y[:, None, None] + offs[None, :, None]
         xx = ids_x[:, None, None] + offs[None, None, :]
         return np.asarray(movie)[ids_frame[:, None, None], yy, xx]
@@ -185,7 +188,7 @@ def cut_spots_numpy(movie, ids_frame: np.ndarray, ids_x: np.ndarray,
         frame = np.asarray(movie[int(frame_number)])
         for k in order[lo:hi]:
             yc, xc = ids_y[k], ids_x[k]
-            spots[k] = frame[yc - r:yc + r + 1, xc - r:xc + r + 1]
+            spots[k] = frame[yc - r:yc - r + box, xc - r:xc - r + box]
     return spots
 
 

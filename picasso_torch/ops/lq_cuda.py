@@ -4,7 +4,10 @@ and a cooperative straggler tail, :func:`fit_queue_t`); K6, JAX's fit in
 phases, which on the card is one launch of the same queue
 (:func:`fit_boundary_t`); and the one-thread pass (csrc/lq_fit.cu,
 :func:`fit_t`), the fixed point both equal bit for bit. :data:`ROI_FIT`
-is fit2D's route (ops/lq.fit_spots_batched).
+is fit2D's route (ops/lq.fit_spots_batched). These take the boxes of
+``_fit_common.BOXES``; a CUDA batch of any other box >= 3 goes to
+:func:`fit_anybox_t` (csrc/lq_anybox.cu: the box a launch argument, one
+thread a spot), whichever of them is called.
 
 Counterpart of picasso_tpu/ops/lq_pallas.py (fit_pallas_t,
 fit_pallas_boundary_t). A CUDA tensor launches the kernel or raises; a
@@ -13,7 +16,8 @@ CPU tensor runs the plain PyTorch version of the same fit or phases
 
 Launch counts (plain integers): ``fit_t.launches`` counts the one-thread
 pass's launches, ``fit_boundary_t.launches`` and ``fit_queue_t.launches``
-the work queue's launched for each (1 a fit).
+the work queue's launched for each (1 a fit), ``fit_anybox_t.launches``
+the any-box kernel's (1 a fit, whichever wrapper routed to it).
 """
 
 from __future__ import annotations
@@ -25,9 +29,41 @@ import torch
 from picasso_torch import _build
 from picasso_torch.ops import lq as _lq
 from picasso_torch.ops._fit_common import (
-    RESUME, START, check_spots, default_boundaries, on_cuda, phase_ends,
-    run_phases,
+    RESUME, START, any_box, check_spots, default_boundaries, on_cuda,
+    phase_ends, run_phases,
 )
+
+
+def fit_anybox_t(spots_t: torch.Tensor, max_it: int, ftol: float = 1e-6,
+                 n_valid=None) -> torch.Tensor:
+    """The LM fit at any box >= 3 (csrc/lq_anybox.cu): LM-fit a
+    lanes-last (S, S, N) f32 batch, one thread a spot, the box a launch
+    argument, with a (7, S, N) f32 workspace for the axis factors.
+    Returns theta (6, N), x/y relative to the box centre, at boxes 5-15
+    equal to :func:`fit_t` bit for bit. Lanes at index >= ``n_valid``
+    start done. The other wrappers route a CUDA batch of a box outside
+    ``BOXES`` here. On the CPU it is the plain fit, uncounted."""
+    if not on_cuda(spots_t):
+        return _lq._lm_core(spots_t, max_it, ftol, n_valid)
+    check_spots(spots_t)
+    s, _, n = spots_t.shape
+    theta = torch.empty((6, n), dtype=torch.float32, device=spots_t.device)
+    if n == 0:
+        return theta
+    work = torch.empty((7, s, n), dtype=torch.float32, device=spots_t.device)
+    with torch.cuda.device(spots_t.device):
+        stream = torch.cuda.current_stream(spots_t.device).cuda_stream
+        status = _build.library().picasso_lq_anybox(
+            spots_t.data_ptr(), n, s, float(ftol), int(max_it),
+            n if n_valid is None else int(n_valid), work.data_ptr(),
+            theta.data_ptr(), stream,
+        )
+    _build.check(status, "lq_anybox")
+    _build.count_launch(fit_anybox_t)
+    return theta
+
+
+fit_anybox_t.launches = 0
 
 
 def fit_t(spots_t: torch.Tensor, max_it: int, ftol: float = 1e-6,
@@ -37,7 +73,8 @@ def fit_t(spots_t: torch.Tensor, max_it: int, ftol: float = 1e-6,
     to the box centre. Lanes at index >= ``n_valid`` start done."""
     if not on_cuda(spots_t):
         return _lq._lm_core(spots_t, max_it, ftol, n_valid)
-    check_spots(spots_t)
+    if any_box(spots_t):
+        return fit_anybox_t(spots_t, max_it, ftol, n_valid)
     s, _, n = spots_t.shape
     theta = torch.empty((6, n), dtype=torch.float32, device=spots_t.device)
     if n == 0:
@@ -82,8 +119,9 @@ def _fit_phases(spots_t, max_it, ftol, n_valid, boundaries):
     """K6 with phases ending at ``boundaries``: on the card one launch of
     the work queue (the boundaries do not exist there), on the CPU the
     phase schedule."""
+    if any_box(spots_t):
+        return fit_anybox_t(spots_t, max_it, ftol, n_valid)
     if on_cuda(spots_t):
-        check_spots(spots_t)
         theta = _launch_queue(spots_t, max_it, ftol, n_valid)
         if spots_t.shape[-1]:
             _build.count_launch(fit_boundary_t)
@@ -152,7 +190,8 @@ def fit_queue_t(spots_t: torch.Tensor, max_it: int, ftol: float = 1e-6,
     the CPU it is the plain fit, uncounted."""
     if not on_cuda(spots_t):
         return _lq._lm_core(spots_t, max_it, ftol, n_valid)
-    check_spots(spots_t)
+    if any_box(spots_t):
+        return fit_anybox_t(spots_t, max_it, ftol, n_valid)
     if coop_steps is not None and (coop_steps.device != spots_t.device
                                    or coop_steps.dtype != torch.int32):
         raise ValueError("coop_steps must be an int32 tensor on the card")

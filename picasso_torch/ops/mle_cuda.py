@@ -8,7 +8,11 @@ resumable phases with stragglers-first lane order between them
 (csrc/mle_fit.cu's START/RESUME/FINISH modes); and the one-thread pass
 (mle_fit.cu's FULL mode, :func:`fit_one_pass_t`), on no path: the fixed
 point the queue equals bit for bit. :data:`ROI_FITS` is fit2D's route
-per method (gaussmle.gaussmle).
+per method (gaussmle.gaussmle). These take the boxes of
+``_fit_common.BOXES``; a CUDA batch of any other box >= 3 goes to
+:func:`fit_anybox_t` (csrc/mle_anybox.cu: the box a launch argument, one
+thread a spot, fit, CRLB and LL in one launch), whichever of them is
+called.
 
 Counterpart of picasso_tpu/ops/mle_pallas.py (fit_pallas_t,
 fit_pallas_boundary_t, fit_pallas_multiround). A CUDA tensor launches
@@ -20,7 +24,8 @@ Launch counts (plain integers): ``fit_t.launches`` and
 ``fit_multiround_t.launches`` count roi_mle_fit.cu's launches (1 a
 fit), ``fit_one_pass_t.launches`` the one-thread pass (FULL),
 ``fit_boundary_t.launches`` the phase (START/RESUME/FINISH) launches of
-the K2 schedule.
+the K2 schedule, ``fit_anybox_t.launches`` the any-box kernel's (1 a
+fit, whichever wrapper routed to it).
 """
 
 from __future__ import annotations
@@ -32,8 +37,8 @@ import torch
 from picasso_torch import _build
 from picasso_torch.ops import mle as _mle
 from picasso_torch.ops._fit_common import (
-    FINISH, FULL, START, check_spots, default_boundaries, on_cuda, phase_ends,
-    run_phases,
+    FINISH, FULL, START, any_box, check_spots, default_boundaries, on_cuda,
+    phase_ends, run_phases,
 )
 
 _METHOD_ID = {"sigmaxy": 0, "sigma": 1}
@@ -93,6 +98,46 @@ def _launch(mode: int, spots_t, eps: float, k: int, n_valid, method: str,
     return carry if outs is None else outs
 
 
+def fit_anybox_t(spots_t: torch.Tensor, eps: float, max_it: int,
+                 method: str = "sigmaxy", n_valid=None):
+    """The MLE fit at any box >= 3 (csrc/mle_anybox.cu): fit a lanes-last
+    (S, S, N) f32 batch, one thread a spot, the box a launch argument,
+    fit, CRLB and LL in one launch, with a (9, S, N) f32 workspace for
+    the x axis's factors. Returns (theta (6, N), crlb (6, N), ll (N,),
+    iters (N,) i32), at boxes 5-15 equal to :func:`fit_one_pass_t` bit for
+    bit. Lanes at index >= ``n_valid`` start converged. The other
+    wrappers route a CUDA batch of a box outside ``BOXES`` here. On the
+    CPU it is the plain fit, uncounted."""
+    _mle._check_method(method)
+    if not on_cuda(spots_t):
+        return _mle._fit_core(spots_t, eps, max_it, method, n_valid)
+    check_spots(spots_t)
+    s, _, n = spots_t.shape
+    if n == 0:
+        return _empty_fit(0, spots_t.device)
+    dev = spots_t.device
+    work = torch.empty((9, s, n), dtype=torch.float32, device=dev)
+    theta, crlb, ll, iters = (
+        torch.empty((6, n), dtype=torch.float32, device=dev),
+        torch.empty((6, n), dtype=torch.float32, device=dev),
+        torch.empty((n,), dtype=torch.float32, device=dev),
+        torch.empty((n,), dtype=torch.int32, device=dev))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = _build.library().picasso_mle_anybox(
+            spots_t.data_ptr(), n, s, float(eps), int(max_it),
+            n if n_valid is None else int(n_valid), _METHOD_ID[method],
+            work.data_ptr(), theta.data_ptr(), crlb.data_ptr(),
+            ll.data_ptr(), iters.data_ptr(), stream,
+        )
+    _build.check(status, "mle_anybox")
+    _build.count_launch(fit_anybox_t)
+    return theta, crlb, ll, iters
+
+
+fit_anybox_t.launches = 0
+
+
 def fit_one_pass_t(spots_t: torch.Tensor, eps: float, max_it: int,
                    method: str = "sigmaxy", n_valid=None):
     """The one-thread pass (mle_fit.cu FULL, the first port of K1): fit
@@ -104,7 +149,8 @@ def fit_one_pass_t(spots_t: torch.Tensor, eps: float, max_it: int,
     _mle._check_method(method)
     if not on_cuda(spots_t):
         return _mle._fit_core(spots_t, eps, max_it, method, n_valid)
-    check_spots(spots_t)
+    if any_box(spots_t):
+        return fit_anybox_t(spots_t, eps, max_it, method, n_valid)
     if spots_t.shape[-1] == 0:
         return _empty_fit(0, spots_t.device)
     out = _launch(FULL, spots_t, eps, max_it, n_valid, method)
@@ -164,7 +210,8 @@ def fit_t(spots_t: torch.Tensor, eps: float, max_it: int,
     _mle._check_method(method)
     if not on_cuda(spots_t):
         return _mle._fit_core(spots_t, eps, max_it, method, n_valid)
-    check_spots(spots_t)
+    if any_box(spots_t):
+        return fit_anybox_t(spots_t, eps, max_it, method, n_valid)
     _check_coop(coop_steps, spots_t)
     if spots_t.shape[-1] == 0:
         return _empty_fit(0, spots_t.device)
@@ -211,7 +258,8 @@ def fit_multiround_t(spots_t: torch.Tensor, eps: float, max_it: int,
     if not on_cuda(spots_t):
         return _fit_phases(spots_t, eps, max_it, "sigmaxy", None,
                            range(round_it, max_it, round_it))
-    check_spots(spots_t)
+    if any_box(spots_t):
+        return fit_anybox_t(spots_t, eps, max_it)
     if spots_t.shape[-1] == 0:
         return _empty_fit(0, spots_t.device)
     out = _launch_fit(_build.library(), spots_t, eps, max_it, "sigmaxy",
@@ -229,8 +277,9 @@ def _fit_phases(spots_t, eps, max_it, method, n_valid, boundaries,
     launches count on ``counter.launches``."""
     _mle._check_method(method)
     cuda = on_cuda(spots_t)
-    if cuda:
-        check_spots(spots_t)
+    if any_box(spots_t):
+        # one launch: the phases equal it by construction
+        return fit_anybox_t(spots_t, eps, max_it, method, n_valid)
     ends = phase_ends(boundaries, max_it)
     if not ends:
         return fit_one_pass_t(spots_t, eps, max_it, method, n_valid)

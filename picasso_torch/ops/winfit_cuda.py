@@ -27,11 +27,22 @@ other. The LM fit is
 cooperative straggler tail), equal to K3 (ops/lq_cuda.fit_t) on the
 gather route's ROIs bit for bit.
 
+A hit's window starts box // 2 pixels before its centre, so at an even
+box it ends box // 2 - 1 after it (:func:`cut_rois_t`). The kernels
+above take the boxes of ``_fit_common.BOXES``; on the card every other
+box >= 3 is cut by :func:`cut_anybox_t` (csrc/cut_anybox.cu: the same
+clamp and photon conversion, the box a launch argument) and fitted by
+the any-box kernels (ops/mle_cuda.fit_anybox_t, ops/lq_cuda.fit_anybox_t),
+whichever of the fits is called.
+
 Launch counts (plain integers): ``fit_mle_queue_t.launches`` counts the
 queue kernel's launches and its CRLB/LL pass (2 a fit),
 ``fit_mle_t.launches`` the MLE kernel's single-pass (FULL) launches,
 ``fit_mle_boundary_t.launches`` its phase launches,
-``fit_lq_queue_t.launches`` the LM queue kernel's (1 a fit).
+``fit_lq_queue_t.launches`` the LM queue kernel's (1 a fit),
+``cut_anybox_t.launches`` the any-box cut's (1 a fit at such a box,
+whichever fit routed to it; its fit counts on the any-box fit's own
+counter).
 """
 
 from __future__ import annotations
@@ -42,10 +53,11 @@ import torch
 
 from picasso_torch import _build
 from picasso_torch.ops import lq as _lq
+from picasso_torch.ops import lq_cuda, mle_cuda
 from picasso_torch.ops import mle as _mle
 from picasso_torch.ops._fit_common import (
-    BOXES, FINISH, FULL, START, default_boundaries, on_cuda, phase_ends,
-    run_phases,
+    BOXES, FINISH, FULL, START, check_box, default_boundaries, on_cuda,
+    phase_ends, run_phases,
 )
 
 _DTYPE_ID = {torch.uint16: 0, torch.float32: 1}
@@ -56,15 +68,17 @@ _ROWS = {"sigmaxy": 6, "sigma": 5}  # carry rows (parameters)
 def cut_rois_t(frames: torch.Tensor, f, y, x, box: int) -> torch.Tensor:
     """Raw (box, box, N) ROIs [y, x, n] around hit centres (f, y, x)
     from a (B, Y, X) chunk, in the chunk's dtype (u16 comes back as
-    int32). The centre is clamped as picasso_tpu's gather_wincols clamps
-    it (f to [0, B-1], y to [r, Y-r-1], x to [r, X-r-1]), so a window
-    never leaves the chunk and a negative index never wraps."""
+    int32), each starting box // 2 = r pixels before its centre (at an
+    even box it ends r - 1 after it, as picasso_tpu's gather_wincols
+    takes it). The centre is clamped as gather_wincols clamps it (f to
+    [0, B-1], y to [r, Y-r-1], x to [r, X-r-1]), so a window never leaves
+    the chunk and a negative index never wraps."""
     r = box // 2
     B, Y, X = frames.shape
     f = f.long().clamp(0, B - 1)
     y = y.long().clamp(r, Y - r - 1)
     x = x.long().clamp(r, X - r - 1)
-    offs = torch.arange(-r, r + 1, device=frames.device)
+    offs = torch.arange(box, device=frames.device) - r
     src = frames.view(torch.int16) if frames.dtype == torch.uint16 else frames
     rows = y[None, :] + offs[:, None]  # (S, N)
     cols = x[None, :] + offs[:, None]
@@ -93,13 +107,59 @@ def _hit_list(frames, f, y, x, box: int, cuda: bool) -> torch.Tensor:
                          f"f32 chunk, got {frames.dtype} {tuple(frames.shape)}")
     if not frames.is_contiguous():
         raise ValueError("the frame chunk must be contiguous")
-    if box not in BOXES:
-        raise ValueError(f"the CUDA fit kernels take boxes {BOXES}, got {box}")
-    if min(frames.shape[1:]) < box:
+    check_box(box)
+    if min(frames.shape[1:]) < 2 * (box // 2) + 1:  # the clamp's range
         raise ValueError(f"frames {tuple(frames.shape)} smaller than the box")
     if hits.device != frames.device:
         raise ValueError("hits and frames must be on one device")
     return hits.to(torch.int32).contiguous()
+
+
+def _cut(frames, hits, box: int, baseline, factor) -> torch.Tensor:
+    """One launch of the any-box cut over the (3, N) hit list (N > 0):
+    the (box, box, N) f32 photon ROIs, counted on
+    :func:`cut_anybox_t`."""
+    n = hits.shape[1]
+    out = torch.empty((box, box, n), dtype=torch.float32,
+                      device=frames.device)
+    B, Y, X = frames.shape
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream(frames.device).cuda_stream
+        status = _build.library().picasso_cut_anybox(
+            frames.data_ptr(), _DTYPE_ID[frames.dtype], B, Y, X,
+            hits.data_ptr(), n, box, float(baseline), float(factor),
+            out.data_ptr(), stream,
+        )
+    _build.check(status, "cut_anybox")
+    _build.count_launch(cut_anybox_t)
+    return out
+
+
+def cut_anybox_t(frames, f, y, x, box: int, baseline: float,
+                 factor: float) -> torch.Tensor:
+    """K5's window load and photon conversion at any box >= 3 on the card
+    (csrc/cut_anybox.cu): the lanes-last (box, box, N) f32 photon ROIs of
+    the hits (f, y, x) of the (B, Y, X) u16 or f32 chunk, rounded as the
+    templated K5 stages them and equal to :func:`photons_t`, its plain
+    version (which a CPU chunk takes, uncounted), bit for bit."""
+    cuda = on_cuda(frames)
+    hits = _hit_list(frames, f, y, x, box, cuda)
+    if not cuda:
+        return photons_t(frames, *hits, box, baseline, factor)
+    if hits.shape[1] == 0:
+        return torch.empty((box, box, 0), dtype=torch.float32,
+                           device=frames.device)
+    return _cut(frames, hits, box, baseline, factor)
+
+
+cut_anybox_t.launches = 0
+
+
+def _anybox_mle(frames, hits, baseline, factor, box, eps, max_it, method):
+    """A CUDA chunk's MLE fit at a box without a templated kernel: the
+    any-box cut, then the any-box fit (2 launches)."""
+    spots = _cut(frames, hits, box, baseline, factor)
+    return mle_cuda.fit_anybox_t(spots, eps, max_it, method)
 
 
 def _launch_mle(mode: int, frames, hits, baseline, factor, box, eps, k,
@@ -158,8 +218,11 @@ def fit_mle_t(frames, f, y, x, baseline: float, factor: float, *, box: int,
                               eps, max_it, method)
     if hits.shape[1] == 0:
         return _empty_fit(frames.device)
-    out = _launch_mle(FULL, frames, hits, baseline, factor, box, eps, max_it,
-                      method)
+    if box not in BOXES:
+        return _anybox_mle(frames, hits, baseline, factor, box, eps, max_it,
+                           method)
+    out = _launch_mle(FULL, frames, hits, baseline, factor, box, eps,
+                      max_it, method)
     _build.count_launch(fit_mle_t)
     return out
 
@@ -185,11 +248,15 @@ def fit_mle_boundary_t(frames, f, y, x, baseline: float, factor: float, *,
                          max_it=max_it, method=method)
     if hits.shape[1] == 0:
         return _empty_fit(frames.device)
+    if cuda and box not in BOXES:
+        # one launch: the phases equal it by construction
+        return _anybox_mle(frames, hits, baseline, factor, box, eps, max_it,
+                           method)
 
     def phase(mode, hits, k, carry):
         if cuda:
-            out = _launch_mle(mode, frames, hits, baseline, factor, box, eps,
-                              k, method, carry)
+            out = _launch_mle(mode, frames, hits, baseline, factor,
+                              box, eps, k, method, carry)
             _build.count_launch(fit_mle_boundary_t)
             return out
         spots = photons_t(frames, *hits, box, baseline, factor)
@@ -270,6 +337,9 @@ def fit_mle_queue_t(frames, f, y, x, baseline: float, factor: float, *,
                               eps, max_it, method)
     if hits.shape[1] == 0:
         return _empty_fit(frames.device)
+    if box not in BOXES:
+        return _anybox_mle(frames, hits, baseline, factor, box, eps, max_it,
+                           method)
     carry = _launch_queue(_build.library(), frames, hits, baseline, factor,
                           box, eps, max_it, method)
     _build.count_launch(fit_mle_queue_t)
@@ -345,6 +415,9 @@ def fit_lq_queue_t(frames, f, y, x, baseline: float, factor: float, *,
         raise ValueError("coop_steps must be an int32 tensor on the card")
     if hits.shape[1] == 0:
         return torch.empty((6, 0), dtype=torch.float32, device=frames.device)
+    if box not in BOXES:
+        return lq_cuda.fit_anybox_t(
+            _cut(frames, hits, box, baseline, factor), max_it, ftol)
     theta = _launch_lq_queue(_build.library(), frames, hits, baseline, factor,
                              box, max_it, ftol, coop_steps)
     _build.count_launch(fit_lq_queue_t)

@@ -25,7 +25,8 @@ from picasso_torch.ops import (
     fused, identify, identify_cuda, lq, lq_cuda, mle, mle_cuda, winfit_cuda,
 )
 from torch_parity import (
-    compare_fits, compare_hits, compare_lq_fits, compare_tiles,
+    compare_fits, compare_fits_max_it, compare_hits, compare_lq_fits,
+    compare_tiles,
 )
 
 pytestmark = pytest.mark.cuda
@@ -110,13 +111,16 @@ def test_lq_kernel_n_valid_and_resume(dev):
 
 
 def test_fit_kernel_refuses_box3(dev):
-    """At box 3 the sigmaxy fit mostly does not converge (six parameters,
-    nine pixels), so no box-3 kernel is built; the wrappers raise."""
-    sp = torch.ones((3, 3, 64), device=dev)
-    for fit in (mle_cuda.fit_t, mle_cuda.fit_one_pass_t,
-                mle_cuda.fit_boundary_t, mle_cuda.fit_multiround_t):
-        with pytest.raises(ValueError, match="boxes"):
-            fit(sp, EPS, MAX_IT)
+    """The fit kernels take every box from 3 (box 3 templated since the
+    any-box slice, test_box3_fits_equal_the_one_thread_pass); below it
+    the wrappers raise."""
+    for s in (1, 2):
+        sp = torch.ones((s, s, 64), device=dev)
+        for fit in (mle_cuda.fit_t, mle_cuda.fit_one_pass_t,
+                    mle_cuda.fit_boundary_t, mle_cuda.fit_multiround_t,
+                    mle_cuda.fit_anybox_t):
+            with pytest.raises(ValueError, match="boxes"):
+                fit(sp, EPS, MAX_IT)
 
 
 def test_fit_kernel_n_valid_and_resume(dev):
@@ -184,8 +188,9 @@ def test_identify_kernel_refuses_other_inputs(dev):
     with pytest.raises(ValueError, match="uint16 or float32"):
         identify_cuda.identify_tiles(frames, 3000.0, 7)
     frames = torch.zeros((2, 32, 32), dtype=torch.uint16, device=dev)
-    with pytest.raises(ValueError, match="boxes"):
-        identify_cuda.identify_tiles(frames, 3000.0, 17)
+    for box in (1, 2):
+        with pytest.raises(ValueError, match="boxes"):
+            identify_cuda.identify_tiles(frames, 3000.0, box)
 
 
 def _fit_launches():
@@ -367,7 +372,10 @@ def test_queue_kernel_refuses_other_dtypes_and_boxes(dev):
                                     **kw)
     frames = torch.zeros((2, 32, 32), dtype=torch.uint16, device=dev)
     with pytest.raises(ValueError, match="boxes"):
-        winfit_cuda.fit_mle_queue_t(frames, hit, hit, hit, 0.0, 1.0, box=3,
+        winfit_cuda.fit_mle_queue_t(frames, hit, hit, hit, 0.0, 1.0, box=1,
+                                    **kw)
+    with pytest.raises(ValueError, match="smaller than the box"):
+        winfit_cuda.fit_mle_queue_t(frames, hit, hit, hit, 0.0, 1.0, box=33,
                                     **kw)
 
 
@@ -485,7 +493,10 @@ def test_lq_queue_kernel_refuses_other_dtypes_and_boxes(dev):
                                    max_it=10)
     frames = torch.zeros((2, 32, 32), dtype=torch.uint16, device=dev)
     with pytest.raises(ValueError, match="boxes"):
-        winfit_cuda.fit_lq_queue_t(frames, hit, hit, hit, 0.0, 1.0, box=3,
+        winfit_cuda.fit_lq_queue_t(frames, hit, hit, hit, 0.0, 1.0, box=1,
+                                   max_it=10)
+    with pytest.raises(ValueError, match="smaller than the box"):
+        winfit_cuda.fit_lq_queue_t(frames, hit, hit, hit, 0.0, 1.0, box=33,
                                    max_it=10)
 
 
@@ -612,7 +623,7 @@ def test_roi_queue_kernels_n_valid_and_nan(dev):
 
 
 def test_roi_queue_kernels_refuse_other_boxes_and_dtypes(dev):
-    for bad, match in ((torch.zeros((3, 3, 8), device=dev), "boxes"),
+    for bad, match in ((torch.zeros((2, 2, 8), device=dev), "boxes"),
                        (torch.zeros((7, 7, 8), dtype=torch.float64,
                                     device=dev), "float32"),
                        (torch.zeros((7, 8, 7), device=dev).transpose(1, 2),
@@ -1531,3 +1542,171 @@ def test_mesh_dryrun_on_the_card(dev):
 
     mesh = _mesh()
     assert "OK" in dryrun_multichip(mesh.size, devices=list(mesh.devices))
+
+
+# --- every box: box 3 templated, the any-box kernels elsewhere ----------
+
+
+def _counts():
+    return {f: f.launches for f in (
+        mle_cuda.fit_anybox_t, lq_cuda.fit_anybox_t, winfit_cuda.cut_anybox_t,
+        identify_cuda.identify_tiles_anybox, mle_cuda.fit_t,
+        mle_cuda.fit_one_pass_t, mle_cuda.fit_boundary_t,
+        mle_cuda.fit_multiround_t, lq_cuda.fit_t, lq_cuda.fit_queue_t,
+        lq_cuda.fit_boundary_t, identify_cuda.identify_tiles,
+        winfit_cuda.fit_mle_queue_t, winfit_cuda.fit_lq_queue_t)}
+
+
+def _launched(before):
+    """{"module.wrapper": launches} of the wrappers counted since
+    ``before`` (:func:`_counts`)."""
+    return {f"{f.__module__.rsplit('.', 1)[1]}.{f.__name__}": f.launches - n
+            for f, n in before.items() if f.launches - n}
+
+
+@pytest.mark.parametrize("box", [5, 7, 9, 11, 13, 15])
+def test_anybox_fits_equal_the_templated_kernels(dev, box):
+    """The any-box MLE (both methods, with the CRLB/LL) and LM bodies at
+    the templated boxes equal the one-thread passes bit for bit: their
+    rounding order is the templated body's."""
+    sp = _rois(2048, box, box + 40, dev)
+    for method in ("sigmaxy", "sigma"):
+        _assert_same(_np(mle_cuda.fit_anybox_t(sp, EPS, MAX_IT, method)),
+                     _np(mle_cuda.fit_one_pass_t(sp, EPS, MAX_IT, method)))
+    np.testing.assert_array_equal(
+        lq_cuda.fit_anybox_t(sp, MAX_IT).cpu().numpy(),
+        lq_cuda.fit_t(sp, MAX_IT).cpu().numpy())
+
+
+def test_box3_fits_equal_the_one_thread_pass(dev):
+    """Box 3 in the templated kernels: K1's queue, K2's phases, K7 and the
+    any-box body == the one-thread pass, the LM queue == K3's one pass,
+    bit for bit; against the plain fit by compare_fits_max_it (max_it 5)
+    and compare_lq_fits' box-3 bounds."""
+    sp = _rois(8192, 3, 3, dev)
+    for method in ("sigmaxy", "sigma"):
+        one = _np(mle_cuda.fit_one_pass_t(sp, EPS, MAX_IT, method))
+        for fit in (mle_cuda.fit_t, mle_cuda.fit_boundary_t,
+                    mle_cuda.fit_anybox_t):
+            _assert_same(_np(fit(sp, EPS, MAX_IT, method)), one)
+        compare_fits_max_it(_np(mle._fit_core(sp, EPS, 5, method)),
+                            _np(mle_cuda.fit_t(sp, EPS, 5, method)), 5)
+    _assert_same(_np(mle_cuda.fit_multiround_t(sp, EPS, MAX_IT)),
+                 _np(mle_cuda.fit_one_pass_t(sp, EPS, MAX_IT)))
+    k3 = lq_cuda.fit_t(sp, 30).cpu().numpy()
+    np.testing.assert_array_equal(lq_cuda.fit_queue_t(sp, 30).cpu().numpy(),
+                                  k3)
+    compare_lq_fits(lq._lm_core(sp, 30, FTOL).cpu().numpy(), k3,
+                    sp.cpu().numpy(), "box 3", box3=True)
+
+
+@pytest.mark.parametrize("box", [8, 17, 21])
+def test_anybox_fits_route_count_and_match_plain(dev, box):
+    """At a box without a templated kernel every fit wrapper goes to the
+    any-box kernel (one launch, counted there, none of its own) and
+    matches the plain fit."""
+    sp = _rois(1024, box, box, dev)
+    for method in ("sigmaxy", "sigma"):
+        plain = _np(mle._fit_core(sp, EPS, MAX_IT, method))
+        for fit in (mle_cuda.fit_t, mle_cuda.fit_one_pass_t,
+                    mle_cuda.fit_boundary_t):
+            before = _counts()
+            got = _np(fit(sp, EPS, MAX_IT, method))
+            assert _launched(before) == {"mle_cuda.fit_anybox_t": 1}
+            compare_fits(plain, got, MAX_IT)
+    before = _counts()
+    mle_cuda.fit_multiround_t(sp, EPS, MAX_IT)
+    assert _launched(before) == {"mle_cuda.fit_anybox_t": 1}
+    plain = lq._lm_core(sp, MAX_IT, FTOL).cpu().numpy()
+    for fit in (lq_cuda.fit_t, lq_cuda.fit_queue_t, lq_cuda.fit_boundary_t):
+        before = _counts()
+        got = fit(sp, MAX_IT).cpu().numpy()
+        assert _launched(before) == {"lq_cuda.fit_anybox_t": 1}
+        compare_lq_fits(plain, got, sp.cpu().numpy())
+
+
+@pytest.mark.parametrize("box", [3, 5, 7, 9, 11, 13, 15, 17, 21, 31, 8])
+def test_identify_anybox_kernel(dev, box):
+    """K4 at any box: == the templated K4 bit for bit at 3-15, == the
+    plain version (compare_tiles) at every box, on small frames at the
+    K4 shapes; counted on its own counter, and identify_tiles routes
+    boxes without a template to it."""
+    rng = np.random.default_rng(box)
+    for shape in K4_SHAPES:
+        x = torch.from_numpy(small_frames(shape, rng).astype(np.uint16)).to(
+            dev)
+        before = _counts()
+        k = _np(identify_cuda.identify_tiles_anybox(x, 3000.0, box))
+        assert _launched(before) == {
+            "identify_cuda.identify_tiles_anybox": 1}
+        compare_tiles(k, _np(identify.identify_tiles_plain(x, 3000.0, box)),
+                      f"box {box} {shape}")
+        before = _counts()
+        routed = _np(identify_cuda.identify_tiles(x, 3000.0, box))
+        templated = box in identify_cuda.BOXES
+        assert _launched(before) == {"identify_cuda." + (
+            "identify_tiles" if templated else "identify_tiles_anybox"): 1}
+        _assert_same(routed, k)
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.float32])
+@pytest.mark.parametrize("box", [7, 8, 15, 17])
+def test_cut_anybox_and_the_fused_fits_at_any_box(dev, box, dtype):
+    """The any-box cut == the gather route's ROIs bit for bit; K5's
+    wrappers at a box without a template = cut + any-box fit (counted
+    there), equal to the any-box fits of those ROIs; at 7 and 15 the cut
+    feeds the any-box bodies to the templated K5's numbers."""
+    spots = make_spots(2048, box, seed=box + 5)
+    frames, hits = _chunk(spots, dtype, dev)
+    rois = winfit_cuda.photons_t(frames, *hits, box, BASELINE, FACTOR)
+    before = _counts()
+    cut = winfit_cuda.cut_anybox_t(frames, *hits, box, BASELINE, FACTOR)
+    assert _launched(before) == {"winfit_cuda.cut_anybox_t": 1}
+    np.testing.assert_array_equal(cut.cpu().numpy(), rois.cpu().numpy())
+    for method in ("sigmaxy", "sigma"):
+        kw = dict(box=box, eps=EPS, max_it=MAX_IT, method=method)
+        want = _np(mle_cuda.fit_anybox_t(cut, EPS, MAX_IT, method))
+        for fit in (winfit_cuda.fit_mle_queue_t, winfit_cuda.fit_mle_t,
+                    winfit_cuda.fit_mle_boundary_t):
+            got = _np(fit(frames, *hits, BASELINE, FACTOR, **kw))
+            _assert_same(got, want)
+    lq_want = lq_cuda.fit_anybox_t(cut, 30, FTOL).cpu().numpy()
+    before = _counts()
+    got = winfit_cuda.fit_lq_queue_t(frames, *hits, BASELINE, FACTOR,
+                                     box=box, max_it=30)
+    templated = box in identify_cuda.BOXES
+    assert _launched(before) == ({"winfit_cuda.fit_lq_queue_t": 1}
+                                 if templated else
+                                 {"winfit_cuda.cut_anybox_t": 1,
+                                  "lq_cuda.fit_anybox_t": 1})
+    np.testing.assert_array_equal(got.cpu().numpy(), lq_want)
+
+
+@pytest.mark.parametrize("method", ["gaussmle", "gausslq"])
+def test_localize_at_box_17_on_the_card_matches_the_cpu(dev, method):
+    """localize at box 17 (make_wide_movie): hits equal, fits within the
+    tolerances of the plain path, through K4 any-box, the any-box cut
+    and fit."""
+    from torch_data import make_wide_movie
+
+    movie = make_wide_movie(32, 96, 12, 0.5, np.random.default_rng(23))
+    cam = {"Baseline": 0, "Sensitivity": 1, "Gain": 1}
+    kw = dict(fitting_method=method, max_it=MAX_IT)
+    before = _counts()
+    ids, fits = fused.localize_fused(movie, 5000, 17, cam, device="cuda",
+                                     **kw)
+    launched = _launched(before)
+    ref_ids, ref = fused.localize_fused(movie, 5000, 17, cam, device="cpu",
+                                        **kw)
+    fit = "mle_cuda" if method == "gaussmle" else "lq_cuda"
+    assert set(launched) == {"identify_cuda.identify_tiles_anybox",
+                             "winfit_cuda.cut_anybox_t", f"{fit}.fit_anybox_t"}
+    cols = ("frame", "y", "x", "net_gradient")
+    compare_hits([ref_ids[c] for c in cols], [ids[c] for c in cols], 5000)
+    assert len(ids) == len(ref_ids) >= 100
+    if method == "gaussmle":
+        compare_fits([ref[0].T, ref[1].T, ref[2], ref[3]],
+                     [fits[0].T, fits[1].T, fits[2], fits[3]], MAX_IT)
+    else:  # compare_lq_fits' x/y percentiles
+        dxy = np.abs(fits[0][:, :2] - ref[0][:, :2]).max(axis=1)
+        assert np.percentile(dxy, 99) <= 2e-3 and dxy.max() <= 1.0

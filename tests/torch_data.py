@@ -40,10 +40,13 @@ CALIB_3D = {
 def make_spots(n: int, box: int = 7, seed: int = 0) -> np.ndarray:
     """(n, box, box) f32 Poisson samples of elliptic Gaussian spots:
     centre within +-0.5 px of the box centre, widths 0.9-1.4 px, 2000-8000
-    photons over a background of 5-30 photons/pixel."""
+    photons over a background of 5-30 photons/pixel. The box centre is
+    pixel box // 2, as the fits take it, so an even box is box pixels
+    wide too (its centre sits half a pixel past the middle); an odd
+    box's draws are those of bench.make_spots."""
     rng = np.random.default_rng(seed)
     half = box // 2
-    grid = np.arange(-half, half + 1, dtype=np.float64)
+    grid = np.arange(box, dtype=np.float64) - half
     x0 = rng.uniform(-0.5, 0.5, n)
     y0 = rng.uniform(-0.5, 0.5, n)
     sx = rng.uniform(0.9, 1.4, n)
@@ -83,6 +86,44 @@ def make_bench_movie(n_frames, size, n_sites, p_on, rng, return_sites=False):
         spots = rng.poisson(psf * 900, (len(on), 7, 7)).astype(np.uint16)
         np.add.at(movie[fidx], (on[:, :1, None] + yy, on[:, 1:, None] + xx),
                   spots)
+    return (movie, sites) if return_sites else movie
+
+
+def make_wide_movie(n_frames, size, n_sites, p_on, rng, width: float = 2.5,
+                    peak: float = 300.0, min_dist: float = 17.0,
+                    return_sites=False):
+    """(n_frames, size, size) u16 movie of wide spots, the input of the
+    large-box localize runs: Poisson(30) camera background, ``n_sites``
+    binding sites at sub-pixel positions drawn uniformly at least
+    ``min_dist`` px apart and 10 px inside the field (drawn one by one,
+    a draw too close to an earlier site drawn again), each on with
+    probability ``p_on`` per frame, its spot a Gaussian of ``width`` px
+    and ``peak`` photons (~11,800 in all) over a 17 x 17 footprint,
+    Poisson-sampled. With ``return_sites`` also the sites (n_sites, 2)
+    float (row, column) of the spot centres."""
+    sites = []
+    for _ in range(1000 * n_sites):
+        c = rng.uniform(10.0, size - 11.0, 2)
+        if all(np.hypot(*(c - o)) >= min_dist for o in sites):
+            sites.append(c)
+            if len(sites) == n_sites:
+                break
+    if len(sites) < n_sites:
+        raise ValueError(f"only {len(sites)} of {n_sites} sites fit")
+    sites = np.array(sites)
+    movie = rng.poisson(30, (n_frames, size, size)).astype(np.uint16)
+    base = np.floor(sites).astype(int)  # the footprint's centre pixel
+    off = np.arange(-8, 9)
+    dy = off[None, :] + base[:, :1] - sites[:, :1]  # (n, 17)
+    dx = off[None, :] + base[:, 1:] - sites[:, 1:]
+    psf = peak * np.exp(-(dy[:, :, None] ** 2 + dx[:, None, :] ** 2)
+                        / (2 * width**2))
+    for fidx in range(n_frames):
+        on = rng.random(n_sites) < p_on
+        spots = rng.poisson(psf[on]).astype(np.uint16)
+        b = base[on]
+        np.add.at(movie[fidx], (b[:, :1, None] + off[:, None],
+                                b[:, 1:, None] + off), spots)
     return (movie, sites) if return_sites else movie
 
 

@@ -60,6 +60,16 @@ PHOTONS_REL = 2e-4
 SXY_SAME = 5e-4
 CRLB_REL = 2e-3
 STUCK_XY = {90: 1e-4, 99: 1e-3, 100: 0.1}  # percentile -> px
+# make_spots(131072, 17, 0) at max_it 100: 2110 spots run to max_it on
+# both sides, and one of them (spot 129202) ends 0.159 px from the plain
+# fit both in JAX (CPU) and in the any-box kernel (card); p99 1.2e-5 px.
+# compare_fits(stuck_max=) holds that input's stuck spots at twice it.
+# It replaces only the largest stuck distance: a kernel wrong beyond
+# rounding still fails there on the 98.4% of spots that converge
+# (iters_equal 0.99, XY_SAME, PHOTONS_REL, SXY_SAME, CRLB_REL, bg, ll) and
+# on the stuck spots' p90 / p99 (1e-4 / 1e-3 px: about the 211th / 22nd
+# largest of the 2110)
+STUCK_XY_MAX_BOX17 = 0.32
 
 
 def fit_stats(ref, got, max_it: int = 100) -> dict:
@@ -102,10 +112,12 @@ def fit_stats(ref, got, max_it: int = 100) -> dict:
     }
 
 
-def compare_fits(ref, got, max_it: int = 100, what: str = "fits") -> dict:
+def compare_fits(ref, got, max_it: int = 100, what: str = "fits",
+                 stuck_max: float = None) -> dict:
     """Hold ``got`` to ``ref`` (numpy theta, crlb, ll, iters). Raises
     AssertionError with the measured maxima when out of tolerance;
-    returns them otherwise (:func:`fit_stats`)."""
+    returns them otherwise (:func:`fit_stats`). ``stuck_max`` replaces
+    the max of STUCK_XY (:data:`STUCK_XY_MAX_BOX17`)."""
     th_r, ll_r, it_r = (np.asarray(ref[i]) for i in (0, 2, 3))
     th_g, ll_g, it_g = (np.asarray(got[i]) for i in (0, 2, 3))
     same = (it_r == it_g) & (it_r < max_it)
@@ -121,7 +133,9 @@ def compare_fits(ref, got, max_it: int = 100, what: str = "fits") -> dict:
         and stats["sxy_max"] <= SXY_SAME
         and stats["crlb_rel"] <= CRLB_REL
         and bool(np.all(dll[same] <= 5e-3 + 1e-4 * np.abs(ll_r[same])))
-        and all(stats[f"stuck_xy_p{q}"] <= b for q, b in STUCK_XY.items())
+        and all(stats[f"stuck_xy_p{q}"] <= (
+            stuck_max if q == 100 and stuck_max is not None else b)
+            for q, b in STUCK_XY.items())
     )
     if not ok:
         raise AssertionError(f"{what}: out of tolerance: {stats}")
@@ -264,7 +278,8 @@ def lq_cost(theta: np.ndarray, spots_t: np.ndarray) -> np.ndarray:
         return ((spots_t - model) ** 2).sum(axis=(0, 1))
 
 
-def compare_lq_fits(ref, got, spots_t, what: str = "lq fits") -> dict:
+def compare_lq_fits(ref, got, spots_t, what: str = "lq fits",
+                    box3: bool = False) -> dict:
     """Hold LQ theta ``got`` (6, N) to ``ref`` on the lanes-last spots
     ``spots_t`` (S, S, N). Raises AssertionError with the measured
     numbers when out of tolerance; returns them otherwise.
@@ -299,6 +314,8 @@ def compare_lq_fits(ref, got, spots_t, what: str = "lq fits") -> dict:
     32-frame test movie: x/y p99 4.5e-4, max 8.3e-3 px; cost rel max
     3.9e-4. On 8192 make_spots (all converge within 20 iterations) x/y
     max 9.6e-5 px, photons rel max 1.7e-4, cost rel max 1.6e-6.
+    With ``box3`` the cost's and bg's p99 bounds are
+    :data:`LQ_COST_REL_P99_BOX3` and :data:`LQ_BG_P99_BOX3`.
     """
     ref, got = np.asarray(ref), np.asarray(got)
     box = spots_t.shape[0]
@@ -339,12 +356,65 @@ def compare_lq_fits(ref, got, spots_t, what: str = "lq fits") -> dict:
         and all(stats[f"xy_p{q}"] <= b for q, b in LQ_XY.items())
         and max(stats["photons_rel_p99"], stats["sx_rel_p99"],
                 stats["sy_rel_p99"]) <= LQ_REL_P99
-        and stats["bg_p99"] <= LQ_BG_P99
+        and stats["bg_p99"] <= (LQ_BG_P99_BOX3 if box3 else LQ_BG_P99)
         and stats["xy_far"] <= LQ_XY_FAR[1]
-        and stats["cost_rel_p99"] <= LQ_COST_REL_P99
+        and stats["cost_rel_p99"] <= (LQ_COST_REL_P99_BOX3 if box3
+                                      else LQ_COST_REL_P99)
         and stats["cost_far"] <= LQ_COST_FAR[1]
     )
     if not good:
+        raise AssertionError(f"{what}: out of tolerance: {stats}")
+    return stats
+
+
+# box 3: six parameters on nine pixels. The LM fit's final cost and its
+# bg spread more there: JAX vs the plain version on make_spots (2048 at
+# seed 3, 8192 at seed 0) cost rel p99 1.5e-5 and 2.2e-5, bg p99 5.9e-3
+# and 5.3e-3; in fit2D on 296 spots of make_bench_movie's first 16
+# frames cost rel p99 2.5e-5, bg p99 1.1e-2; every other field of
+# compare_lq_fits within its bound
+LQ_COST_REL_P99_BOX3 = 1e-4
+LQ_BG_P99_BOX3 = 3e-2
+# box 3 MLE fits, held at a max_it where every spot is still on its way
+# (compare_fits_max_it): relative p99 of photons, bg, sx and sy
+MAX_IT_REL_P99 = 1e-4
+
+
+def compare_fits_max_it(ref, got, max_it: int, what: str = "fits") -> dict:
+    """Hold MLE fits of spots that run to max_it, compare_fits' max_it
+    branch for all of them: box 3, where the sigmaxy fit has six
+    parameters for nine pixels and the sigma fit's width steps by +-1 px
+    (the reference's zero-denominator quirk), so most spots never
+    converge and their f32 paths drift apart with every step (JAX vs the
+    plain version at max_it 100: x/y p99 0.64 px). Held at a small
+    max_it (5), over all spots: iters equal for >= 99%; x/y |d| p90 <=
+    1e-4, p99 <= 1e-3, max <= 0.1 px (STUCK_XY); photons, bg, sx, sy
+    relative |d| p99 <= :data:`MAX_IT_REL_P99`; ll at p99 within
+    compare_fits' bound (5e-3 + 1e-4 |ll|). The CRLB is not held:
+    the Fisher matrix is near singular there (NaN on one side only for
+    up to 5% of the spots, relative p99 0.1-1 on the rest). Measured JAX
+    vs plain on make_spots (2048 at seed 3, 8192 at seed 0), max_it 5:
+    iters all equal, x/y p99 1.9e-6-7.2e-6, max 1.5e-2 px; photons, bg,
+    sx, sy rel p99 <= 1.4e-5."""
+    th_r, ll_r, it_r = (np.asarray(ref[i]) for i in (0, 2, 3))
+    th_g, ll_g, it_g = (np.asarray(got[i]) for i in (0, 2, 3))
+    dxy = np.abs(th_r[:2] - th_g[:2]).max(axis=0)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        rel = np.abs(th_r[2:6] - th_g[2:6]) / np.abs(th_r[2:6])
+        ll_excess = np.abs(ll_r - ll_g) / (5e-3 + 1e-4 * np.abs(ll_r))
+    stats = {
+        "n": int(th_r.shape[1]),
+        "iters_equal": float(np.mean(it_r == it_g)),
+        "at_max_it": float(np.mean((it_r == max_it) & (it_g == max_it))),
+        **{f"xy_p{q}": float(np.percentile(dxy, q)) for q in STUCK_XY},
+        "rel_p99": float(np.nanpercentile(rel, 99, axis=1).max()),
+        "ll_excess_p99": float(np.nanpercentile(ll_excess, 99)),
+    }
+    ok = (stats["iters_equal"] >= 0.99
+          and all(stats[f"xy_p{q}"] <= b for q, b in STUCK_XY.items())
+          and stats["rel_p99"] <= MAX_IT_REL_P99
+          and stats["ll_excess_p99"] <= 1.0)
+    if not ok:
         raise AssertionError(f"{what}: out of tolerance: {stats}")
     return stats
 
