@@ -302,25 +302,33 @@ Phases, each of which raises on failure (exit code != 0):
    sigmaxy, sigma, LQ) and 21 (MLE) on tests/torch_data.make_wide_movie
    (2048 frames of 256 x 256, ~100,000 spots 2.5 px wide, made alongside
    the build) through K4 at any box (csrc/identify_anybox.cu), the
-   any-box cut (cut_anybox.cu) and the any-box fits (mle_anybox.cu,
-   lq_anybox.cu), each launched once a chunk and no other kernel (paths
-   ``box17-mle``, ``box17-mle-sigma``, ``box17-lq``, ``box21-mle``), hits
-   == the plain versions on the card (compare_hits) and fits within
-   compare_fits / compare_lq_fits; fit2D at box 17 on the MLE slice's
-   identifications, both fitters (paths ``box17-fit2D-mle``,
-   ``box17-fit2D-lq``: the any-box fit only), held likewise; walls and
-   spots/s; (b) bit for bit: the any-box MLE (both methods) and LM
-   bodies == the templated K1 / K3 queues at boxes 5-15 (make_spots, 8192
-   a box), K4 at any box == identify.cu at 3-15 on phase 3's chunk, the
-   any-box cut + fits == K5's queues at 7 and 15, and at box 3 K1, K2,
-   K7, K5 (queue, phases, one pass), K3's queue, K6 and K5's LM queue ==
-   the one-thread passes on 131,072 make_spots, held to the plain fits by
-   compare_fits_max_it (max_it 5) and compare_lq_fits' box-3 bounds, the
-   any-box bodies == those passes at box 3 too and timed in turns with
-   K1 and K3's queue there; then the any-box kernels timed at box 17
-   (make_spots, 131,072, made alongside the build; K4 on the wide
+   any-box cut (cut_anybox.cu) and the any-box fits (the MLE work queue
+   mle_anybox_queue.cu, lq_anybox.cu), each launched once a chunk and no
+   other kernel (paths ``box17-mle``, ``box17-mle-sigma``, ``box17-lq``,
+   ``box21-mle``), hits == the plain versions on the card (compare_hits)
+   and fits within compare_fits / compare_lq_fits; fit2D at box 17 on
+   the MLE slice's identifications, both fitters (paths
+   ``box17-fit2D-mle``, ``box17-fit2D-lq``: the any-box fit only), held
+   likewise; walls and spots/s; the box-17 MLE chain split a chunk
+   (upload, K4, compaction, cut, fit; ms of each of the 8 chunks); (b)
+   bit for bit: the any-box MLE queue == its one-thread pass
+   (mle_anybox.cu) at boxes 4, 8, 16, 17, 21 (make_spots, 8192 a box)
+   and 45 (2048; no stage: the pixels from the batch), both methods; the
+   queue, the one-thread pass and the LM body == the templated K1 / K3
+   queues at boxes 5-15; K4 at any box == identify.cu at 3-15 on phase
+   3's chunk and == its direct kernel at 4, 17 and 21 on the wide
+   movie's first chunk, there within compare_tiles of the plain version,
+   and at box 97, where no tile fits, K4 (the direct kernel) within
+   compare_tiles of it on 4 of its frames; the any-box cut + fits == K5's queues at 7 and 15; and at box 3 K1,
+   K2, K7, K5 (queue, phases, one pass), K3's queue, K6 and K5's LM queue
+   == the one-thread passes on 131,072 make_spots, held to the plain
+   fits by compare_fits_max_it (max_it 5) and compare_lq_fits' box-3
+   bounds, the any-box bodies == those passes at box 3 too and timed in
+   turns with K1 and K3's queue there; then the any-box kernels timed at
+   box 17 (make_spots, 131,072, made alongside the build; K4 on the wide
    movie's first chunk, its bound counted from its maxima) against their
-   plain versions for the kernels line.
+   plain versions, the MLE queue in turns with its one-thread pass and K4
+   with its direct kernel, for the kernels line.
 IMS and STK movies are checked on the CPU only (tests/test_torch_io.py):
 the machine with the card has no h5py, and the CLI's verbs run on the
 CPU only. The apps' figures are held to the JAX package's on the CPU
@@ -741,7 +749,8 @@ def _ptxas_table(log: str) -> list[str]:
     rows, name = [], None
     for line in log.splitlines():
         m = re.search(r"entry function '.*?((?:identify|lq_fit|mle_fit|"
-                      r"mle_queue|winfit_mle|lq_queue)_kernel)"
+                      r"mle_queue|winfit_mle|lq_queue|mle_any_queue|"
+                      r"identify_any)_kernel)"
                       r"I(\w+?)EEv", line)
         if m:
             args = re.sub(r"NS_\d+ChunkWindowsI(\w)EE", r"Chunk<\1>",
@@ -3036,6 +3045,19 @@ WIDE_SLICES = (("box17-mle", 17, "sigmaxy"), ("box17-mle-sigma", 17, "sigma"),
 WIDE_MIN_NG = 5000
 ANY_SPOTS = 8192
 TIMED_BOX = 17
+# boxes at which the any-box MLE queue is held to its one-thread pass
+# (make_spots, ANY_SPOTS a box), and the box above the stage's shared
+# memory (the pixels read from the batch) with its spots
+QUEUE_BOXES = (4, 8, 16, 17, 21)
+NO_STAGE_BOX, NO_STAGE_SPOTS = 45, 2048
+# a box at which no tile of the any-box K4 fits (96 and above), on the
+# wide chunk's first frames
+NO_TILE_BOX, NO_TILE_FRAMES = 97, 4
+# the separable maxima test's compares a tested pixel (csrc/
+# identify_anybox.cu): along each axis the prefix and the suffix maxima
+# and two window maxima (8), the whole row's (2), the centre's four
+# comparisons (4)
+K4_SEPARABLE_OPS = 14
 
 
 def _plain_hits(movie, box: int, dev):
@@ -3082,18 +3104,25 @@ def anybox_phase(wide, chunk, timed_spots, counted, smi: str):
     """26. Every box on the card. (a) localize at box 17 (MLE sigmaxy,
     sigma, LQ) and 21 (MLE) on the wide movie, each through K4 at any box
     (csrc/identify_anybox.cu), the any-box cut (cut_anybox.cu) and fit
-    (mle_anybox.cu, lq_anybox.cu) with their launches counted, its hits
-    and fits held to the plain versions on the card (compare_hits,
+    (mle_anybox_queue.cu, lq_anybox.cu) with their launches counted, its
+    hits and fits held to the plain versions on the card (compare_hits,
     compare_fits / compare_lq_fits); fit2D at box 17 on the MLE slice's
-    identifications, both fitters, held likewise. (b) bit for bit: the
-    any-box bodies == the templated queues at 5-15, K4 at any box ==
-    identify.cu at 3-15 on phase 3's chunk, the any-box cut + fit == K5
-    at 7 and 15, and box 3's K1, K2, K7, K3, K6 and K5 == the one-thread
-    passes, held to the plain fits by compare_fits_max_it and
-    compare_lq_fits' box-3 bounds. ``timed_spots``: make_spots(N_SPOTS,
-    TIMED_BOX, seed=0), on which the any-box kernels are timed (made
-    alongside the build). Returns (launches by path, ms, bounds, errors)
-    of the kernels line."""
+    identifications, both fitters, held likewise; the box-17 MLE chain
+    split a chunk. (b) bit for bit: the any-box MLE queue == its
+    one-thread pass at QUEUE_BOXES and NO_STAGE_BOX, the any-box bodies
+    == the templated queues at 5-15, K4 at any box == identify.cu at 3-15
+    on phase 3's chunk and == its direct kernel at 4, 17 and 21 on the
+    wide chunk (within compare_tiles of the plain version there), K4 at
+    NO_TILE_BOX (the direct kernel, no tile fitting) within compare_tiles
+    of the plain version, the any-box cut + fit == K5 at 7 and 15, and
+    box 3's K1, K2, K7, K3, K6
+    and K5 == the one-thread passes, held to the plain fits by
+    compare_fits_max_it and compare_lq_fits' box-3 bounds.
+    ``timed_spots``: make_spots(N_SPOTS, TIMED_BOX, seed=0), on which the
+    any-box kernels are timed (made alongside the build), the MLE queue
+    in turns with its one-thread pass and K4 with its direct kernel.
+    Returns (launches by path, ms, bounds, errors) of the kernels
+    line."""
     import torch
 
     from picasso_torch import gausslq, gaussmle, localize
@@ -3222,17 +3251,62 @@ def anybox_phase(wide, chunk, timed_spots, counted, smi: str):
               f"{ {k: launches[k] for k in sorted(on)} }; vs plain ("
               f"{t_p:.1f} s) {json.dumps(st)} ({smi})")
     del sp, spots
+    # the box-17 MLE chain split a chunk: each stage of each chunk of the
+    # wide movie alone (the CUDA-event timing of a second call, after one
+    # on the same input), as ops/fused runs it at a box without a
+    # template
+    box, split = 17, {k: [] for k in ("upload", "K4", "compaction", "cut",
+                                      "fit")}
+    for off in range(0, len(wide), CHUNK):
+        host = wide[off:off + CHUNK]
+        frames, t = _once_ms(lambda: identify.upload_frames(host, dev),
+                             warm=True)
+        split["upload"].append(t)
+        tiles, t = _once_ms(lambda: identify_cuda.identify_tiles(
+            frames, WIDE_MIN_NG, box), warm=True)
+        split["K4"].append(t)
+        hits, t = _once_ms(lambda: identify.compact(*tiles, box),
+                           warm=True)
+        split["compaction"].append(t)
+        rois, t = _once_ms(lambda: winfit_cuda.cut_anybox_t(
+            frames, *hits[:3], box, 0.0, 1.0), warm=True)
+        split["cut"].append(t)
+        _, t = _once_ms(lambda: mle_cuda.fit_anybox_t(rois, EPS, MAX_IT),
+                        warm=True)
+        split["fit"].append(t)
+    del frames, tiles, hits, rois
+    print(f"box {box} MLE chain a chunk (ms, chunks 0-{n_chunks - 1}; mean):",
+          json.dumps({k: [[round(t, 4) for t in v], round(float(np.mean(v)),
+                                                          4)]
+                      for k, v in split.items()}), f"({smi})")
     t_a = time.perf_counter()
 
     # (b) bit for bit -----------------------------------------------------
+    # the any-box MLE queue == its one-thread pass; at NO_STAGE_BOX its
+    # slots read the pixels from the batch
+    for box in (*QUEUE_BOXES, NO_STAGE_BOX):
+        n_any = NO_STAGE_SPOTS if box == NO_STAGE_BOX else ANY_SPOTS
+        stage = mle_cuda.anybox_queue_config(box)["stage"]
+        if (stage == "shared") != (box != NO_STAGE_BOX):
+            raise AssertionError(f"the any-box queue's stage at box {box}: "
+                                 f"{stage}")
+        sp = torch.from_numpy(np.ascontiguousarray(make_spots(
+            n_any, box, seed=box).transpose(1, 2, 0))).to(dev)
+        for method in ("sigmaxy", "sigma"):
+            _assert_equal(as_np(mle_cuda.fit_anybox_t(sp, EPS, MAX_IT,
+                                                      method)),
+                          as_np(mle_cuda.fit_anybox_one_pass_t(
+                              sp, EPS, MAX_IT, method)),
+                          f"mle anybox queue {method} vs the one-thread "
+                          f"pass at box {box}")
     for box in (5, 7, 9, 11, 13, 15):
         sp = torch.from_numpy(np.ascontiguousarray(make_spots(
             ANY_SPOTS, box, seed=box).transpose(1, 2, 0))).to(dev)
         for method in ("sigmaxy", "sigma"):
-            _assert_equal(as_np(mle_cuda.fit_anybox_t(sp, EPS, MAX_IT,
-                                                      method)),
-                          as_np(mle_cuda.fit_t(sp, EPS, MAX_IT, method)),
-                          f"mle anybox {method} vs K1 at box {box}")
+            k1 = as_np(mle_cuda.fit_t(sp, EPS, MAX_IT, method))
+            for fit in (mle_cuda.fit_anybox_t, mle_cuda.fit_anybox_one_pass_t):
+                _assert_equal(as_np(fit(sp, EPS, MAX_IT, method)), k1,
+                              f"{fit.__name__} {method} vs K1 at box {box}")
         _assert_equal([lq_cuda.fit_anybox_t(sp, MAX_IT).cpu().numpy()],
                       [lq_cuda.fit_queue_t(sp, MAX_IT).cpu().numpy()],
                       f"lq anybox vs K3 at box {box}")
@@ -3241,6 +3315,26 @@ def anybox_phase(wide, chunk, timed_spots, counted, smi: str):
                                                                 box)),
                       as_np(identify_cuda.identify_tiles(chunk, MIN_NG, box)),
                       f"K4 anybox vs K4 at box {box}")
+    first = identify.upload_frames(wide[:CHUNK], dev)
+    for box in (4, 17, 21):
+        tiles = as_np(identify_cuda.identify_tiles_anybox(first, WIDE_MIN_NG,
+                                                          box))
+        _assert_equal(tiles, as_np(identify_cuda.identify_tiles_anybox_direct(
+            first, WIDE_MIN_NG, box)), f"K4 anybox vs its direct kernel at "
+                          f"box {box}")
+        compare_tiles(tiles, as_np(identify.identify_tiles_plain(
+            first, WIDE_MIN_NG, box)), f"K4 anybox vs plain at box {box}")
+    # a box at which no tile of the any-box K4 fits in a block's shared
+    # memory: identify_tiles takes the direct kernel
+    big = first[:NO_TILE_FRAMES]
+    if identify_cuda.anybox_tile_fits(NO_TILE_BOX):
+        raise AssertionError(f"a K4 tile fits box {NO_TILE_BOX}")
+    compare_tiles(as_np(identify_cuda.identify_tiles(big, WIDE_MIN_NG,
+                                                     NO_TILE_BOX)),
+                  as_np(identify.identify_tiles_plain(big, WIDE_MIN_NG,
+                                                      NO_TILE_BOX)),
+                  f"K4 (the direct kernel) vs plain at box {NO_TILE_BOX}")
+    del big
     for box in (7, 15):
         frames, hits = spots_chunk(make_spots(ANY_SPOTS, box, seed=box + 1),
                                    np.uint16)
@@ -3338,23 +3432,41 @@ def anybox_phase(wide, chunk, timed_spots, counted, smi: str):
     t_b = time.perf_counter()
 
     # the kernels line at box 17 on N_SPOTS make_spots -------------------
+    # the any-box MLE queue in turns with its one-thread pass
     box, spots = TIMED_BOX, timed_spots
     sp = torch.from_numpy(np.ascontiguousarray(
         spots.transpose(1, 2, 0))).to(dev)
     n = N_SPOTS
     for method in ("sigmaxy", "sigma"):
-        key = "mle anybox" + ("" if method == "sigmaxy" else " sigma")
-        out = as_np(mle_cuda.fit_anybox_t(sp, EPS, MAX_IT, method))
+        tag = "" if method == "sigmaxy" else " sigma"
+        key, one_key = "mle anybox" + tag, "mle anybox one pass" + tag
+        coop = torch.zeros(1, dtype=torch.int32, device=dev)
+        out = as_np(mle_cuda.fit_anybox_t(sp, EPS, MAX_IT, method,
+                                          coop_steps=coop))
+        _assert_equal(out, as_np(mle_cuda.fit_anybox_one_pass_t(
+            sp, EPS, MAX_IT, method)), f"{key} vs the one-thread pass on "
+            "make_spots")
         plain, ms["plain " + key] = _once_ms(
             lambda: mle._fit_core(sp, EPS, MAX_IT, method))
+        ms["plain " + one_key] = ms["plain " + key]
         st = compare_fits(as_np(plain), out, MAX_IT, f"{key} on make_spots",
                           stuck_max=STUCK_XY_MAX_BOX17)
-        errs[key] = st["xy_max_all"]
-        ms[key] = _median_ms(lambda: mle_cuda.fit_anybox_t(sp, EPS, MAX_IT,
-                                                           method))
-        bounds[key] = _fit_bound(n, float(out[3].sum()),
-                                 mle_flops_per_spot_iter, 6 * 4 * 2 + 8,
-                                 box * box * 4, box)
+        errs[key] = errs[one_key] = st["xy_max_all"]
+        one_t, queue_t = _alternate((
+            lambda: mle_cuda.fit_anybox_one_pass_t(sp, EPS, MAX_IT, method),
+            lambda: mle_cuda.fit_anybox_t(sp, EPS, MAX_IT, method)))
+        ms[one_key] = statistics.median(one_t)
+        ms[key] = statistics.median(queue_t)
+        bounds[key] = bounds[one_key] = _fit_bound(
+            n, float(out[3].sum()), mle_flops_per_spot_iter, 6 * 4 * 2 + 8,
+            box * box * 4, box)
+        print(f"{key} at box {box}: {int((out[3] == MAX_IT).sum())} fits at "
+              f"max_it, {int(out[3].sum())} steps, {int(coop)} of them in "
+              f"the cooperative tail; in turns one-thread pass / queue (ms): "
+              f"{[round(t, 4) for t in one_t]} / "
+              f"{[round(t, 4) for t in queue_t]}; queue config "
+              f"{mle_cuda.anybox_queue_config(box)}, "
+              f"{mle_cuda.anybox_queue_info(box, method)} ({smi})")
     th = lq_cuda.fit_anybox_t(sp, MAX_IT).cpu().numpy()
     steps, _, reused = lq_iters(sp, MAX_IT)  # warms the plain LM, as above
     plain, ms["plain lq anybox"] = _once_ms(
@@ -3382,36 +3494,54 @@ def anybox_phase(wide, chunk, timed_spots, counted, smi: str):
     bounds["cut anybox"] = _bound(2 * n * box * box,
                                   n * (box * box * 6 + 12))
     del frames, hits, cut, plain_cut
-    # K4 at box 17 on the wide movie's first chunk
-    first = identify.upload_frames(wide[:CHUNK], dev)
+    # K4 at box 17 on the wide movie's first chunk, in turns with its
+    # direct kernel
     tiles = as_np(identify_cuda.identify_tiles_anybox(first, WIDE_MIN_NG,
                                                       box))
     plain, ms["plain K4 anybox"] = _once_ms(
         lambda: identify.identify_tiles_plain(first, WIDE_MIN_NG, box))
+    ms["plain K4 anybox direct"] = ms["plain K4 anybox"]
     plain = as_np(plain)
     compare_tiles(tiles, plain, f"K4 anybox at box {box}")
-    errs["K4 anybox"] = float(np.abs(tiles[2] - plain[2]).max())
-    ms["K4 anybox"] = _median_ms(
-        lambda: identify_cuda.identify_tiles_anybox(first, WIDE_MIN_NG, box))
-    # what the function needs on this chunk: the box^2 - 1 compares of
-    # the maxima test at each pixel it tests, and the net gradient (4
-    # FLOPs a window position and 2) only at the local maxima, counted
-    # from the kernel's tiles at no threshold; the u16 chunk read, the
-    # tiles written
+    errs["K4 anybox"] = errs["K4 anybox direct"] = float(
+        np.abs(tiles[2] - plain[2]).max())
+    direct_t, new_t = _alternate((
+        lambda: identify_cuda.identify_tiles_anybox_direct(first, WIDE_MIN_NG,
+                                                           box),
+        lambda: identify_cuda.identify_tiles_anybox(first, WIDE_MIN_NG,
+                                                    box)))
+    ms["K4 anybox direct"] = statistics.median(direct_t)
+    ms["K4 anybox"] = statistics.median(new_t)
+    # what the function needs on this chunk: the separable maxima test's
+    # K4_SEPARABLE_OPS compares at each pixel it tests, and the net
+    # gradient (4 FLOPs a window position and 2) only at the local
+    # maxima, counted from the kernel's tiles at no threshold; the u16
+    # chunk read once, the tiles written once. (PR 23 charged box^2 - 1
+    # compares a tested pixel: the direct test's count, printed beside.)
     h = box // 2
     tested = len(first) * (first.shape[1] - 2 * h - 1) * (
         first.shape[2] - 2 * h - 1)
     maxima = int(identify_cuda.identify_tiles_anybox(
         first, float("-inf"), box)[0].sum())
-    bounds["K4 anybox"] = _bound(
-        tested * (box * box - 1) + maxima * (4 * (box * box - 1) + 2),
-        first.numel() * 2 + tiles[0].size * 9)
+    ng_ops = maxima * (4 * (box * box - 1) + 2)
+    k4_bytes = first.numel() * 2 + tiles[0].size * 9
+    bounds["K4 anybox"] = bounds["K4 anybox direct"] = _bound(
+        tested * K4_SEPARABLE_OPS + ng_ops, k4_bytes)
+    direct_bound = _bound(tested * (box * box - 1) + ng_ops, k4_bytes)
     print(f"K4 anybox at box {box}: {tested} pixels tested, {maxima} local "
-          f"maxima, {int(tiles[0].sum())} hits")
+          f"maxima, {int(tiles[0].sum())} hits; == the direct kernel and "
+          f"within compare_tiles of plain; in turns direct / new (ms): "
+          f"{[round(t, 4) for t in direct_t]} / "
+          f"{[round(t, 4) for t in new_t]}; tile "
+          f"{identify_cuda.anybox_tile_shape(box)}; bound "
+          f"{bounds['K4 anybox'][0]:.4f} ms ({bounds['K4 anybox'][1]}; the "
+          f"direct test's count {direct_bound[0]:.4f} ms, "
+          f"{direct_bound[1]}) ({smi})")
     del first
     torch.cuda.empty_cache()
-    for key in ("mle anybox", "mle anybox sigma", "lq anybox", "cut anybox",
-                "K4 anybox"):
+    for key in ("mle anybox", "mle anybox sigma", "mle anybox one pass",
+                "mle anybox one pass sigma", "lq anybox", "cut anybox",
+                "K4 anybox", "K4 anybox direct"):
         print(f"{key} at box {box}: {ms[key]:.4f} ms, plain "
               f"{ms['plain ' + key]:.3f} ms, bound {bounds[key][0]:.4f} ms "
               f"({bounds[key][1]}, {bounds[key][0] / ms[key]:.1%} of it), "
@@ -3843,7 +3973,9 @@ def main() -> int:
                 "K7": mle_cuda.fit_multiround_t, "link walk": link.walk,
                 "cluster sweep": cluster.sweep,
                 "K4 anybox": identify_cuda.identify_tiles_anybox,
+                "K4 anybox direct": identify_cuda.identify_tiles_anybox_direct,
                 "mle anybox": mle_cuda.fit_anybox_t,
+                "mle anybox one pass": mle_cuda.fit_anybox_one_pass_t,
                 "lq anybox": lq_cuda.fit_anybox_t,
                 "cut anybox": winfit_cuda.cut_anybox_t}
 
@@ -4984,17 +5116,29 @@ def main() -> int:
     ]
     any_tpu = {"mle": "picasso_tpu/ops/mle_pallas.py:36",
                "lq": "picasso_tpu/ops/lq_pallas.py:25"}
+    any_src = "picasso_torch/csrc/mle_anybox_queue.cu"
+    one_src = "picasso_torch/csrc/mle_anybox.cu"
+    k4_src = "picasso_torch/csrc/identify_anybox.cu"
     kernels += [
-        entry("mle anybox", f"mle_anybox sigmaxy (any box, one thread a "
-              f"spot, CRLB/LL; timed at box {TIMED_BOX})",
-              "picasso_torch/csrc/mle_anybox.cu", any_tpu["mle"],
-              "mle anybox", errs_any["mle anybox"], "plain mle anybox",
+        entry("mle anybox", f"mle_anybox_queue sigmaxy (any box, work queue, "
+              f"stage, cooperative tail, CRLB/LL in the kernel; timed at box "
+              f"{TIMED_BOX})", any_src, any_tpu["mle"], "mle anybox",
+              errs_any["mle anybox"], "plain mle anybox", "sigmaxy"),
+        entry("mle anybox sigma", f"mle_anybox_queue sigma (any box, work "
+              f"queue, stage, cooperative tail, CRLB/LL in the kernel; timed "
+              f"at box {TIMED_BOX})", any_src, any_tpu["mle"], "mle anybox",
+              errs_any["mle anybox sigma"], "plain mle anybox sigma",
+              "sigma"),
+        entry("mle anybox one pass", f"mle_anybox sigmaxy (any box, one "
+              f"thread a spot, CRLB/LL; timed at box {TIMED_BOX})", one_src,
+              any_tpu["mle"], "mle anybox one pass",
+              errs_any["mle anybox one pass"], "plain mle anybox one pass",
               "sigmaxy"),
-        entry("mle anybox sigma", f"mle_anybox sigma (any box, one thread "
-              f"a spot, CRLB/LL; timed at box {TIMED_BOX})",
-              "picasso_torch/csrc/mle_anybox.cu", any_tpu["mle"],
-              "mle anybox", errs_any["mle anybox sigma"],
-              "plain mle anybox sigma", "sigma"),
+        entry("mle anybox one pass sigma", f"mle_anybox sigma (any box, one "
+              f"thread a spot, CRLB/LL; timed at box {TIMED_BOX})", one_src,
+              any_tpu["mle"], "mle anybox one pass",
+              errs_any["mle anybox one pass sigma"],
+              "plain mle anybox one pass sigma", "sigma"),
         entry("lq anybox", f"lq_anybox (any box, one thread a spot; timed "
               f"at box {TIMED_BOX})", "picasso_torch/csrc/lq_anybox.cu",
               any_tpu["lq"], "lq anybox", errs_any["lq anybox"],
@@ -5003,16 +5147,20 @@ def main() -> int:
               f"any box; timed at box {TIMED_BOX})",
               "picasso_torch/csrc/cut_anybox.cu", win_tpu, "cut anybox",
               errs_any["cut anybox"], "plain cut anybox"),
-        entry("K4 anybox", f"K4 identify_anybox (any box, one thread a "
-              f"pixel; timed at box {TIMED_BOX})",
-              "picasso_torch/csrc/identify_anybox.cu",
+        entry("K4 anybox", f"K4 identify_anybox (any box, staged tile, "
+              f"separable maxima, the net gradient at maxima; timed at box "
+              f"{TIMED_BOX})", k4_src,
               "picasso_tpu/ops/identify_pallas.py:58", "K4 anybox",
               errs_any["K4 anybox"], "plain K4 anybox"),
+        entry("K4 anybox direct", f"K4 identify_anybox_direct (any box, one "
+              f"thread a pixel; timed at box {TIMED_BOX})", k4_src,
+              "picasso_tpu/ops/identify_pallas.py:58", "K4 anybox direct",
+              errs_any["K4 anybox direct"], "plain K4 anybox direct"),
     ]
     for name, key, plain in (
             ("K1 roi_mle_fit sigmaxy (", "K1 box 3", "K1 box 3"),
             ("K3 roi_lq_queue", "K3 queue box 3", "K3 queue box 3"),
-            ("mle_anybox sigmaxy", "mle anybox box 3", "K1 box 3"),
+            ("mle_anybox_queue sigmaxy", "mle anybox box 3", "K1 box 3"),
             ("lq_anybox", "lq anybox box 3", "K3 queue box 3")):
         k = next(k for k in kernels if k["name"].startswith(name))
         k["box3_ms"] = ms[key]

@@ -101,6 +101,18 @@ SIGNATURES = {
         _P, _P, _P, _P, _P,                    # n_valid, method; work, out:
         _P,                                    # theta crlb ll iters; stream
     ],
+    "picasso_mle_anybox_queue": [
+        _P, _LL, _I, _F, _I, _LL, _I,          # spots, n, box, eps, max_it,
+                                               # n_valid, method
+        _I, _I, _I,                            # group, stage, cols in shared
+        _P, _P, _LL,                           # counters and flags; work,
+                                               # its slots
+        _P, _P, _P, _P,                        # out: theta, crlb, ll, iters
+        _P, _P,                                # coop steps or null, stream
+    ],
+    "picasso_mle_anybox_queue_info": [
+        _I, _I, _I, _I, _P,                    # box, method, stage, cols,
+    ],                                         # int info[6]
     "picasso_lq_anybox": [
         _P, _LL, _I, _F, _I, _LL,              # spots, n, box, ftol, max_it,
         _P, _P, _P,                            # n_valid; work, theta, stream
@@ -111,6 +123,13 @@ SIGNATURES = {
         _P, _P,                                # out (box, box, n), stream
     ],
     "picasso_identify_anybox": [
+        _P, _I, _LL, _LL, _LL, _I, _F,         # frames, dtype, B, Y, X, box, min_ng
+        _P, _P,                                # unit vectors uy, ux (box, box)
+        _I, _I,                                # tile rows, log2 tile columns
+        _P, _P, _P,                            # tile mask, loc, ng (zeroed)
+        _P,                                    # stream
+    ],
+    "picasso_identify_anybox_direct": [
         _P, _I, _LL, _LL, _LL, _I, _F,         # frames, dtype, B, Y, X, box, min_ng
         _P, _P,                                # unit vectors uy, ux (box, box)
         _P, _P, _P,                            # tile mask, loc, ng (zeroed)

@@ -1,5 +1,6 @@
 // The MLE fit (sigmaxy and sigma) of one spot at a box known only at run
-// time, one thread a spot (sm_90a): the body of mle_anybox.cu, for the
+// time (sm_90a): the body of the any-box work queue (mle_anybox_queue.cu,
+// a slot's spot) and of the one-thread pass (mle_anybox.cu), for the
 // boxes that fit_mle.cuh's templates are not built for (any box >= 3
 // and < 5, or above 15, or even).
 //
@@ -8,14 +9,16 @@
 // mle_pixel, mle_fold, mle_update, mle_converge, crlb_pixel, crlb_fold,
 // crlb_solve); only where the per-spot arrays live differs. The
 // templated body holds the ROI and the x axis's column factors in
-// S-sized register arrays, which a run-time box cannot size. Here the
-// pixels are read from the lanes-last (s, s, N) batch in each pixel loop
-// (neighbouring spots on neighbouring addresses, so a warp's read of one
-// pixel coalesces), the nine column factors of the x axis go to the
-// spot's column of a lanes-last (9, s, N) workspace once a step, and the
-// y axis's factors are formed row by row from the row's two edges, the
-// lower carried from the row before (as crlb_ll does). At boxes 5-15
-// chip_smoke.py holds it to the templated queue bit for bit.
+// S-sized register arrays, which a run-time box cannot size. Here a
+// source B (AnyBox below; the queue's slot sources) gives the pixels
+// as b(y, x) and five column factors of the x axis as b.at(row, i),
+// formed once a step; the y axis's factors are formed row by row from
+// the row's two edges, the lower carried from the row before (as crlb_ll
+// does). The one-thread pass reads the pixels from the lanes-last
+// (s, s, N) batch in each pixel loop and keeps the column factors in a
+// lanes-last (5, s, N) workspace; the queue reads the pixels from its
+// stage and the column factors from shared memory. At boxes 5-15
+// chip_smoke.py holds both to the templated queue bit for bit.
 //
 // Every sum of products is explicitly rounded, here and in the template
 // (the initialiser's too: moment_pixel, moment2, init_photons), so the
@@ -25,9 +28,9 @@
 // them.
 //
 // What bounds it on the card: as the templated body, issued FP32
-// instructions, now with the pixel and column-factor loads from L1/L2 at
-// every Newton step (10 loads a pixel). A simple kernel that is right;
-// shared-memory ROI tiles are the next step (ROADMAP).
+// instructions; through AnyBox also the pixel and column-factor loads
+// from L1/L2 at every Newton step (6 loads a pixel), which the queue
+// coalesces and moves to shared memory.
 
 #pragma once
 
@@ -36,8 +39,9 @@
 namespace {
 
 // Moment initialiser (init_theta) at box b.s.
-template <bool SIG>
-__device__ void any_init_theta(const AnyBox& b, float* th, float* ms) {
+template <bool SIG, class B>
+__device__ __forceinline__ void any_init_theta(const B& b, float* th,
+                                               float* ms) {
   const int s = b.s;
   float total = 0.0f, ysum = 0.0f, xsum = 0.0f;
   for (int y = 0; y < s; ++y)
@@ -77,10 +81,17 @@ __device__ void any_init_theta(const AnyBox& b, float* th, float* ms) {
   init_store<SIG>(x_com, y_com, photons, bg, cnum, cden, rnum, rden, th, ms);
 }
 
-// The x axis's column factors (mle_column) at mu, sigma into workspace
-// rows 0-8.
-template <bool SIG>
-__device__ void any_columns(const AnyBox& b, float mu, float sigma) {
+// The column factors that the any-box bodies keep a column: the first
+// five of mle_column's (dmu, psf, dsig, d2mu, d2sig); the four products
+// after them are formed again where a pixel reads them (any_mle_row),
+// the same products of the same operands.
+constexpr int kAnyCols = 5;
+
+// The x axis's column factors (mle_column's first kAnyCols) at mu,
+// sigma into workspace rows 0-4.
+template <bool SIG, class B>
+__device__ __forceinline__ void any_columns(const B& b, float mu,
+                                            float sigma) {
   float inv_s, norm;
   axis_scale(sigma, inv_s, norm);
   float a0, e0, q0;
@@ -93,7 +104,7 @@ __device__ void any_columns(const AnyBox& b, float mu, float sigma) {
                    p[1], p[2], p[3], p[4]);
     mle_column(p[0], p[1], p[2], p[3], p[4], f);
 #pragma unroll
-    for (int t = 0; t < kCols; ++t) b.at(t, k) = f[t];
+    for (int t = 0; t < kAnyCols; ++t) b.at(t, k) = f[t];
     a0 = a1;
     e0 = e1;
     q0 = q1;
@@ -118,23 +129,26 @@ __device__ __forceinline__ void any_row_point(int s, int j, float mu,
 }
 
 // Row j of the Newton sums (mle_row) from the workspace's column factors.
-template <bool SIG>
-__device__ __forceinline__ void any_mle_row(const AnyBox& b, int j, float pg,
+template <bool SIG, class B>
+__device__ __forceinline__ void any_mle_row(const B& b, int j, float pg,
                                             float bg, float* c) {
   auto pixel = [&](bool first, int i) {
     float f[kCols];
-#pragma unroll
-    for (int t = 0; t < kCols; ++t) f[t] = b.at(t, i);
+    mle_column(b.at(1, i), b.at(0, i), b.at(3, i), b.at(2, i), b.at(4, i),
+               f);
     mle_pixel<SIG>(first, b(j, i), pg, bg, f, c);
   };
   pixel(true, 0);
+  // unrolled: independent pixels overlap their latency; each column sum
+  // still adds its pixels in order
+#pragma unroll 4
   for (int i = 1; i < b.s; ++i) pixel(false, i);
 }
 
 // One Newton update (newton_step) at box b.s.
-template <bool SIG>
-__device__ void any_newton_step(const AnyBox& b, float* th,
-                                const float* ms) {
+template <bool SIG, class B>
+__device__ __forceinline__ void any_newton_step(const B& b, float* th,
+                                                const float* ms) {
   any_columns<SIG>(b, th[0], th[4]);
   const float sy = th[SIG ? 4 : 5];
   float isy, ny;
@@ -155,9 +169,9 @@ __device__ void any_newton_step(const AnyBox& b, float* th,
 
 // CRLB and log-likelihood (crlb_ll) at box b.s; overwrites the
 // workspace's column factors with those at th.
-template <bool SIG>
-__device__ void any_crlb_ll(const AnyBox& b, const float* th, float* crlb,
-                            float& ll) {
+template <bool SIG, class B>
+__device__ __forceinline__ void any_crlb_ll(const B& b, const float* th,
+                                            float* crlb, float& ll) {
   const float ph = th[2], bg = th[3];
   const float sy = th[SIG ? 4 : 5];
   any_columns<SIG>(b, th[0], th[4]);
@@ -176,6 +190,7 @@ __device__ void any_crlb_ll(const AnyBox& b, const float* th, float* crlb,
     // column factors: 0 dmu, 1 psf, 2 dsig (mle_column)
     crlb_pixel(true, b(j, 0), pgy, b.at(1, 0), b.at(0, 0), b.at(2, 0), bg, t,
                ll_row);
+#pragma unroll 4
     for (int i = 1; i < b.s; ++i)
       crlb_pixel(false, b(j, i), pgy, b.at(1, i), b.at(0, i), b.at(2, i), bg,
                  t, ll_row);

@@ -1,20 +1,16 @@
 // The MLE fit (sigmaxy and sigma) with its CRLB and log-likelihood at
-// any box, the box a launch argument (sm_90a): one launch, one thread a
-// spot, on a lanes-last (S, S, N) f32 batch. The body is fit_mle_any.cuh,
-// which forms fit_mle.cuh's numbers in its order without S-sized
-// register arrays.
+// any box, the box a launch argument, one thread a spot (sm_90a): the
+// any-box one-thread pass, on a lanes-last (S, S, N) f32 batch. The body
+// is fit_mle_any.cuh, which forms fit_mle.cuh's numbers in its order
+// without S-sized register arrays.
 //
-// Replaces, at the boxes that mle_fit.cu and roi_mle_fit.cu are not
-// built for, the Pallas TPU kernels of picasso_tpu/ops/mle_pallas.py:
-//   K1  _tile_kernel (fit_pallas_t);
-//   K2  _start_phase_kernel, _resume_phase_kernel, _finish_phase_kernel
-//       (fit_pallas_boundary_t): one launch, which the phases equal by
-//       construction (a lane's trajectory does not depend on the phase
-//       boundaries);
-//   K7  _first_round_kernel, _resume_round_kernel, _finalize_kernel
-//       (fit_pallas_multiround), likewise one launch;
-// and, fed by cut_anybox.cu's ROIs, the MLE half of K5
-// (picasso_tpu/ops/winfit_pallas.py _mle_kernel).
+// It was the first port, at the boxes that mle_fit.cu and roi_mle_fit.cu
+// are not built for, of the Pallas TPU kernels of
+// picasso_tpu/ops/mle_pallas.py (K1 _tile_kernel, K2's phase kernels, K7's
+// round kernels) and of K5's MLE half; mle_anybox_queue.cu replaces it
+// on every path. It stays off every path, as mle_fit.cu's FULL mode does
+// at the templated boxes: the fixed point the any-box work queue equals
+// bit for bit (ops/mle_cuda.fit_anybox_one_pass_t).
 
 #include "fit_mle_any.cuh"
 
@@ -35,7 +31,7 @@ __global__ void __launch_bounds__(128)
 
 // Fit n spots, lanes-last (box, box, n) f32, box >= 3, one thread a spot:
 // init, up to max_it Newton steps, CRLB and LL. method 0 sigmaxy, 1
-// sigma. work is (9, box, n) f32 on the card, scratch. Outputs as
+// sigma. work is (5, box, n) f32 on the card, scratch. Outputs as
 // picasso_mle_fit's FULL mode: theta, crlb (6, n) f32, ll (n,) f32,
 // iters (n,) int32; spots at index >= n_valid start converged. Returns
 // cudaGetLastError() after the launch.

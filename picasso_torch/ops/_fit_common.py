@@ -13,6 +13,11 @@ import torch
 #: lq_anybox.cu, cut_anybox.cu)
 BOXES = (3, 5, 7, 9, 11, 13, 15)
 MIN_BOX = 3
+#: the shared bytes a block may opt in to on an H100 (227 KB), against
+#: which the any-box kernels choose their launch configurations
+#: (ops/mle_cuda.anybox_queue_config, ops/identify_cuda.anybox_tile_shape;
+#: their entries check the card's own limit)
+SHARED_LIMIT = 232_448
 # the kernels' modes (csrc/fit_common.cuh)
 FULL, START, RESUME, FINISH = 0, 1, 2, 3
 

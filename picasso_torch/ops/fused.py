@@ -58,7 +58,8 @@ def identify_cut_fit(frames, minimum_ng, baseline: float, factor: float,
     against each other and the gather route on the same chunk
     (PERF.md). At a box without a templated kernel (even, or above 15)
     the same calls run K4, the cut and the fit as the any-box kernels
-    (identify_cuda.identify_tiles_anybox, winfit_cuda.cut_anybox_t)."""
+    (identify_cuda.identify_tiles_anybox, or at boxes of 96 and above its
+    direct kernel, winfit_cuda.cut_anybox_t)."""
     f, y, x, ng = compact(*identify_tiles(frames, minimum_ng, box), box)
     if method != "lq":
         return (f, y, x, ng, *MLE_FITS[method](

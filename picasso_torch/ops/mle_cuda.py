@@ -10,9 +10,11 @@ resumable phases with stragglers-first lane order between them
 point the queue equals bit for bit. :data:`ROI_FITS` is fit2D's route
 per method (gaussmle.gaussmle). These take the boxes of
 ``_fit_common.BOXES``; a CUDA batch of any other box >= 3 goes to
-:func:`fit_anybox_t` (csrc/mle_anybox.cu: the box a launch argument, one
-thread a spot, fit, CRLB and LL in one launch), whichever of them is
-called.
+:func:`fit_anybox_t` (csrc/mle_anybox_queue.cu: the same work queue
+with the box a launch argument, its launch arguments from
+:func:`anybox_queue_config`), whichever of them is called. The any-box
+one-thread pass (csrc/mle_anybox.cu, :func:`fit_anybox_one_pass_t`) is
+on no path: the fixed point the any-box queue equals bit for bit.
 
 Counterpart of picasso_tpu/ops/mle_pallas.py (fit_pallas_t,
 fit_pallas_boundary_t, fit_pallas_multiround). A CUDA tensor launches
@@ -24,21 +26,23 @@ Launch counts (plain integers): ``fit_t.launches`` and
 ``fit_multiround_t.launches`` count roi_mle_fit.cu's launches (1 a
 fit), ``fit_one_pass_t.launches`` the one-thread pass (FULL),
 ``fit_boundary_t.launches`` the phase (START/RESUME/FINISH) launches of
-the K2 schedule, ``fit_anybox_t.launches`` the any-box kernel's (1 a
-fit, whichever wrapper routed to it).
+the K2 schedule, ``fit_anybox_t.launches`` the any-box queue's (1 a
+fit, whichever wrapper routed to it), ``fit_anybox_one_pass_t.launches``
+the any-box one-thread pass's.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from picasso_torch import _build
 from picasso_torch.ops import mle as _mle
 from picasso_torch.ops._fit_common import (
-    FINISH, FULL, START, any_box, check_spots, default_boundaries, on_cuda,
-    phase_ends, run_phases,
+    FINISH, FULL, SHARED_LIMIT, START, any_box, check_box, check_spots,
+    default_boundaries, on_cuda, phase_ends, run_phases,
 )
 
 _METHOD_ID = {"sigmaxy": 0, "sigma": 1}
@@ -52,6 +56,15 @@ def _empty_fit(n: int, device):
         torch.zeros((n,), dtype=torch.float32, device=device),
         torch.zeros((n,), dtype=torch.int32, device=device),
     )
+
+
+def _fit_outputs(n: int, dev):
+    """Empty (theta (6, n), crlb (6, n), ll (n,), iters (n,) i32) on
+    ``dev``."""
+    return (torch.empty((6, n), dtype=torch.float32, device=dev),
+            torch.empty((6, n), dtype=torch.float32, device=dev),
+            torch.empty((n,), dtype=torch.float32, device=dev),
+            torch.empty((n,), dtype=torch.int32, device=dev))
 
 
 def _launch(mode: int, spots_t, eps: float, k: int, n_valid, method: str,
@@ -98,16 +111,16 @@ def _launch(mode: int, spots_t, eps: float, k: int, n_valid, method: str,
     return carry if outs is None else outs
 
 
-def fit_anybox_t(spots_t: torch.Tensor, eps: float, max_it: int,
-                 method: str = "sigmaxy", n_valid=None):
-    """The MLE fit at any box >= 3 (csrc/mle_anybox.cu): fit a lanes-last
-    (S, S, N) f32 batch, one thread a spot, the box a launch argument,
-    fit, CRLB and LL in one launch, with a (9, S, N) f32 workspace for
-    the x axis's factors. Returns (theta (6, N), crlb (6, N), ll (N,),
-    iters (N,) i32), at boxes 5-15 equal to :func:`fit_one_pass_t` bit for
-    bit. Lanes at index >= ``n_valid`` start converged. The other
-    wrappers route a CUDA batch of a box outside ``BOXES`` here. On the
-    CPU it is the plain fit, uncounted."""
+def fit_anybox_one_pass_t(spots_t: torch.Tensor, eps: float, max_it: int,
+                          method: str = "sigmaxy", n_valid=None):
+    """The any-box one-thread pass (csrc/mle_anybox.cu): fit a lanes-last
+    (S, S, N) f32 batch at any box >= 3, one thread a spot, the box a
+    launch argument, fit, CRLB and LL in one launch, with a (5, S, N) f32
+    workspace for the x axis's factors. Returns (theta (6, N), crlb (6,
+    N), ll (N,), iters (N,) i32), at boxes 5-15 equal to
+    :func:`fit_one_pass_t` bit for bit. Lanes at index >= ``n_valid``
+    start converged. On no path: the fixed point :func:`fit_anybox_t`
+    equals bit for bit. On the CPU it is the plain fit, uncounted."""
     _mle._check_method(method)
     if not on_cuda(spots_t):
         return _mle._fit_core(spots_t, eps, max_it, method, n_valid)
@@ -116,12 +129,8 @@ def fit_anybox_t(spots_t: torch.Tensor, eps: float, max_it: int,
     if n == 0:
         return _empty_fit(0, spots_t.device)
     dev = spots_t.device
-    work = torch.empty((9, s, n), dtype=torch.float32, device=dev)
-    theta, crlb, ll, iters = (
-        torch.empty((6, n), dtype=torch.float32, device=dev),
-        torch.empty((6, n), dtype=torch.float32, device=dev),
-        torch.empty((n,), dtype=torch.float32, device=dev),
-        torch.empty((n,), dtype=torch.int32, device=dev))
+    work = torch.empty((5, s, n), dtype=torch.float32, device=dev)
+    theta, crlb, ll, iters = _fit_outputs(n, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = _build.library().picasso_mle_anybox(
@@ -131,11 +140,153 @@ def fit_anybox_t(spots_t: torch.Tensor, eps: float, max_it: int,
             ll.data_ptr(), iters.data_ptr(), stream,
         )
     _build.check(status, "mle_anybox")
-    _build.count_launch(fit_anybox_t)
+    _build.count_launch(fit_anybox_one_pass_t)
     return theta, crlb, ll, iters
 
 
+fit_anybox_one_pass_t.launches = 0
+
+#: where the any-box queue's slots read a spot's pixels (its C entry's
+#: stage argument): the lanes-last batch, or a stage in shared memory
+STAGES = ("batch", "shared")
+#: threads a block of the any-box queue (csrc/mle_anybox_queue.cu
+#: kAnyThreads, a compile-time constant, as are its refill threshold and
+#: where its tail starts; :func:`anybox_queue_info` reads the build's)
+ANYBOX_THREADS = 32
+#: the column factors the any-box bodies keep a column
+#: (csrc/fit_mle_any.cuh kAnyCols)
+ANYBOX_COLS = 5
+#: fields of :func:`anybox_queue_info`, in picasso_mle_anybox_queue_info's
+#: order
+ANYBOX_QUEUE_INFO = ("threads", "blocks_per_sm", "registers",
+                     "local_bytes", "shared_bytes", "sms")
+
+
+def anybox_queue_smem(box: int, stage: str, cols_shared: bool,
+                      threads: int = ANYBOX_THREADS) -> int:
+    """Shared bytes a block of ``threads`` of the any-box queue takes: a
+    shared stage of box * box pixels a slot with a pixel stride of
+    threads + 1 words, and the five column factors a column a slot
+    (csrc/mle_anybox_queue.cu's any_queue_smem)."""
+    return 4 * ((box * box * (threads + 1) if stage == "shared" else 0)
+                + (ANYBOX_COLS * box * threads if cols_shared else 0))
+
+
+def anybox_queue_config(box: int) -> dict:
+    """The any-box queue's launch arguments at ``box``, worked out from
+    the box against :data:`SHARED_LIMIT`:
+
+    - ``stage``: where the slots read a spot's pixels, one of
+      :data:`STAGES`: a stage in shared memory while a block's fits
+      (boxes up to 41), else the batch;
+    - ``cols_shared``: the x axis's column factors in shared memory where
+      they fit beside the stage (all boxes but 40, 41 and those above
+      363), else in a per-slot global scratch;
+    - ``group``: the lanes of a cooperative group, the least of 8, 16 and
+      32 that is >= box + 1, else 32, whose lanes then loop over the
+      points and rows (``rounds`` of 32);
+
+    with ``shared_bytes`` (:func:`anybox_queue_smem`)."""
+    check_box(box)
+    stage = "shared" if anybox_queue_smem(
+        box, "shared", False) <= SHARED_LIMIT else "batch"
+    cols_shared = anybox_queue_smem(box, stage, True) <= SHARED_LIMIT
+    group = next((g for g in (8, 16, 32) if g >= box + 1), 32)
+    return {"stage": stage, "cols_shared": cols_shared, "group": group,
+            "rounds": -(-box // group),
+            "shared_bytes": anybox_queue_smem(box, stage, cols_shared)}
+
+
+@functools.cache
+def _resident_slots(lib, box: int, method: str, stage: str,
+                    device_index: int) -> int:
+    """Slots the any-box queue of ``lib``, with its column factors in
+    global memory, keeps resident on the card (its launch's blocks at
+    most): SMs x resident blocks a SM x threads."""
+    with torch.cuda.device(device_index):
+        info = anybox_queue_info(box, method, {
+            "stage": stage, "cols_shared": False}, lib)
+    return info["sms"] * max(info["blocks_per_sm"], 1) * info["threads"]
+
+
+def _launch_anybox(lib, spots_t, eps: float, max_it: int, method: str,
+                   n_valid, cfg: dict, coop_steps=None):
+    """One launch of mle_anybox_queue.cu's queue (of ``lib``) with the
+    launch arguments ``cfg`` (:func:`anybox_queue_config`'s keys), its
+    counters zeroed and its per-slot scratch (the column factors outside
+    shared memory) made here; returns (theta, crlb, ll, iters)."""
+    s, _, n = spots_t.shape
+    dev = spots_t.device
+    theta, crlb, ll, iters = _fit_outputs(n, dev)
+    counter = torch.zeros(n + 2, dtype=torch.int32, device=dev)
+    work, slots = None, 0
+    if not cfg["cols_shared"]:  # a slot's column factors in global memory
+        slots = min(-(-n // 32) * 32, _resident_slots(
+            lib, s, method, cfg["stage"],
+            dev.index if dev.index is not None else
+            torch.cuda.current_device()))
+        work = torch.empty((ANYBOX_COLS, s, slots), dtype=torch.float32,
+                           device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.picasso_mle_anybox_queue(
+            spots_t.data_ptr(), n, s, float(eps), int(max_it),
+            n if n_valid is None else int(n_valid), _METHOD_ID[method],
+            cfg["group"], STAGES.index(cfg["stage"]),
+            int(cfg["cols_shared"]), counter.data_ptr(),
+            None if work is None else work.data_ptr(), slots,
+            theta.data_ptr(), crlb.data_ptr(), ll.data_ptr(),
+            iters.data_ptr(),
+            None if coop_steps is None else coop_steps.data_ptr(), stream,
+        )
+    _build.check(status, "mle_anybox_queue")
+    return theta, crlb, ll, iters
+
+
+def fit_anybox_t(spots_t: torch.Tensor, eps: float, max_it: int,
+                 method: str = "sigmaxy", n_valid=None, coop_steps=None):
+    """The MLE fit at any box >= 3 (csrc/mle_anybox_queue.cu): fit a
+    lanes-last (S, S, N) f32 batch with its CRLB and log-likelihood in one
+    launch of the any-box work queue (lane refill, each spot staged in
+    shared memory, the cooperative tail, the CRLB/LL handoff), the box a
+    launch argument, its launch arguments :func:`anybox_queue_config`'s.
+    Returns (theta (6, N), crlb (6, N), ll (N,), iters (N,) i32), equal
+    to :func:`fit_anybox_one_pass_t` bit for bit (and at boxes 5-15 to
+    :func:`fit_one_pass_t`). Lanes at index >= ``n_valid`` start
+    converged. ``coop_steps`` (one int32 on the card, or None) gains the
+    spot-steps taken in the cooperative tail. The other wrappers route a
+    CUDA batch of a box outside ``BOXES`` here. On the CPU it is the
+    plain fit, uncounted."""
+    _mle._check_method(method)
+    if not on_cuda(spots_t):
+        return _mle._fit_core(spots_t, eps, max_it, method, n_valid)
+    check_spots(spots_t)
+    _check_coop(coop_steps, spots_t)
+    if spots_t.shape[-1] == 0:
+        return _empty_fit(0, spots_t.device)
+    out = _launch_anybox(_build.library(), spots_t, eps, max_it, method,
+                         n_valid, anybox_queue_config(spots_t.shape[0]),
+                         coop_steps)
+    _build.count_launch(fit_anybox_t)
+    return out
+
+
 fit_anybox_t.launches = 0
+
+
+def anybox_queue_info(box: int, method: str = "sigmaxy", cfg=None,
+                      lib=None) -> dict:
+    """What the any-box queue's kernel (of ``lib``) is for ``box``,
+    ``method`` and the launch arguments ``cfg`` (its ``stage`` and
+    ``cols_shared``; by default :func:`anybox_queue_config`'s) on the
+    current card: the :data:`ANYBOX_QUEUE_INFO` fields."""
+    lib = lib or _build.library()
+    cfg = cfg or anybox_queue_config(box)
+    info = (ctypes.c_int * len(ANYBOX_QUEUE_INFO))()
+    _build.check(lib.picasso_mle_anybox_queue_info(
+        box, _METHOD_ID[method], STAGES.index(cfg["stage"]),
+        int(cfg["cols_shared"]), info), "mle_anybox_queue_info")
+    return dict(zip(ANYBOX_QUEUE_INFO, info))
 
 
 def fit_one_pass_t(spots_t: torch.Tensor, eps: float, max_it: int,
@@ -167,11 +318,7 @@ def _launch_fit(lib, spots_t, eps: float, max_it: int, method: str,
     zeroed here; returns (theta, crlb, ll, iters) in input order."""
     s, _, n = spots_t.shape
     dev = spots_t.device
-    theta, crlb, ll, iters = (
-        torch.empty((6, n), dtype=torch.float32, device=dev),
-        torch.empty((6, n), dtype=torch.float32, device=dev),
-        torch.empty((n,), dtype=torch.float32, device=dev),
-        torch.empty((n,), dtype=torch.int32, device=dev))
+    theta, crlb, ll, iters = _fit_outputs(n, dev)
     # the queue's two counters and a ready flag a spot, zeroed
     counter = torch.zeros(n + 2, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):

@@ -33,7 +33,10 @@ from picasso_tpu import localize as jloc
 from picasso_torch import gausslq as tq
 from picasso_torch import gaussmle as tg
 from picasso_torch import localize as tloc
-from picasso_torch.ops import lq_cuda, mle_cuda, winfit_cuda
+from picasso_torch.ops import (
+    identify, identify_cuda, lq_cuda, mle_cuda, winfit_cuda,
+)
+from picasso_torch.ops._fit_common import SHARED_LIMIT
 from torch_data import make_bench_movie, make_spots, make_wide_movie
 from torch_parity import (
     compare_fits, compare_fits_max_it, compare_hits, compare_lq_fits,
@@ -47,6 +50,11 @@ BOX3_MAX_IT = 5
 # box 3 and ~11,000-11,800 at 17 and 21, the background maxima's below
 # 250; on make_bench_movie at box 3 (fit2D, localize) the suite's 4000
 MIN_NG = {3: 400, 17: 5000, 21: 5000}
+# the least share of converged MLE fits of make_spots at a box (0.95
+# elsewhere): in a 21 x 21 box 15-20% of its ~1 px spots' sigmaxy fits
+# reach max_it 100 (80% of 96 and 85% of 256 converge; sigma all), and
+# compare_fits holds those by its max_it branch
+CONVERGED = {21: 0.75}
 BENCH_MIN_NG = 4000
 
 
@@ -91,9 +99,9 @@ def _hold_mle(ref, got, box, max_it, what):
 
 
 @pytest.mark.parametrize("method", ["sigmaxy", "sigma"])
-@pytest.mark.parametrize("box", [3, 8, 17])
+@pytest.mark.parametrize("box", [3, 8, 17, 21])
 def test_gaussmle_matches_jax_at_any_box(box, method):
-    spots = make_spots(256, box, seed=box)
+    spots = make_spots(96 if box == 21 else 256, box, seed=box)
     max_it = BOX3_MAX_IT if box == 3 else 100
     j = jg.gaussmle(spots, EPS, max_it, method)
     t = tg.gaussmle(spots, EPS, max_it, method, device="cpu")
@@ -102,7 +110,7 @@ def test_gaussmle_matches_jax_at_any_box(box, method):
     got = [t[0].T, t[1].T, t[2], t[3]]
     stats = _hold_mle(ref, got, box, max_it, f"box {box} {method}")
     if box != 3:
-        assert stats["converged"] >= 0.95
+        assert stats["converged"] >= CONVERGED.get(box, 0.95)
 
 
 @pytest.mark.parametrize("box", [3, 8, 17])
@@ -217,12 +225,69 @@ def test_plain_versions_take_any_box(box):
     np.testing.assert_array_equal(
         rois, winfit_cuda.photons_t(frames, f, c, c, box, 1.5, 0.8))
     np.testing.assert_array_equal(rois, (sp - 1.5) * 0.8)
-    counts = (mle_cuda.fit_anybox_t.launches, lq_cuda.fit_anybox_t.launches)
-    for fit in (mle_cuda.fit_t, mle_cuda.fit_anybox_t):
+    fits = (mle_cuda.fit_anybox_t, mle_cuda.fit_anybox_one_pass_t,
+            lq_cuda.fit_anybox_t, identify_cuda.identify_tiles_anybox,
+            identify_cuda.identify_tiles_anybox_direct)
+    counts = [f.launches for f in fits]
+    for fit in (mle_cuda.fit_t, mle_cuda.fit_anybox_t,
+                mle_cuda.fit_anybox_one_pass_t):
         a = fit(sp, EPS, 20)
         for x, y in zip(a, mle_cuda._mle._fit_core(sp, EPS, 20, "sigmaxy")):
             np.testing.assert_array_equal(x, y)
     np.testing.assert_array_equal(lq_cuda.fit_anybox_t(sp, 20),
                                   lq_cuda.fit_t(sp, 20))
-    assert counts == (mle_cuda.fit_anybox_t.launches,
-                      lq_cuda.fit_anybox_t.launches)
+    plain = identify.identify_tiles_plain(frames, 100.0, box)
+    for k4 in (identify_cuda.identify_tiles_anybox,
+               identify_cuda.identify_tiles_anybox_direct):
+        for x, y in zip(k4(frames, 100.0, box), plain):
+            np.testing.assert_array_equal(x, y)
+    assert counts == [f.launches for f in fits]
+
+
+@pytest.mark.parametrize("box", [*range(3, 66), 95, 96, 97, 101, 255, 363,
+                                 364])
+def test_anybox_launch_configurations(box):
+    """The launch arguments of the any-box kernels at every box from 3 to
+    65 and at large boxes, from their pure-Python choosers: the MLE
+    queue's (ops/mle_cuda.anybox_queue_config) and K4's output tile
+    (ops/identify_cuda.anybox_tile_shape). A block's shared bytes stay
+    within the 232,448 a block may hold; the queue's threads are a
+    multiple of 32; the cooperative group is a power of two of 8 to 32
+    lanes, >= box + 1, else a whole warp that loops over ceil(box / 32)
+    rounds; the slots read the pixels from a stage in shared memory
+    while one warp's fits (box <= 41), else from the batch; the column
+    factors sit in shared memory where they fit beside it (all boxes
+    but 40, 41 and those above 363). K4 takes ANYBOX_TILE where two
+    blocks of it fit a SM, else its longer side halved until they do
+    (one block where no tile of two fits); from box 96, where no tile
+    fits, it has none and identify_tiles takes the direct kernel."""
+    limit = SHARED_LIMIT
+    assert mle_cuda.ANYBOX_THREADS % 32 == 0
+    cfg = mle_cuda.anybox_queue_config(box)
+    assert cfg["shared_bytes"] == mle_cuda.anybox_queue_smem(
+        box, cfg["stage"], cfg["cols_shared"]) <= limit
+    g = cfg["group"]
+    assert g in (8, 16, 32)
+    assert g >= box + 1 or (g == 32 and cfg["rounds"] == -(-box // 32))
+    assert g == min(x for x in (8, 16, 32, 64) if x >= min(box + 1, 32))
+    assert cfg["stage"] == ("shared" if box <= 41 else "batch")
+    assert cfg["cols_shared"] == (box < 40 or 42 <= box <= 363)
+    # the other place of the column factors passes the limit, or is the
+    # global scratch
+    assert not cfg["cols_shared"] or mle_cuda.anybox_queue_smem(
+        box, cfg["stage"], False) < cfg["shared_bytes"]
+    assert identify_cuda.anybox_tile_fits(box) == (box < 96)
+    if box >= 96:
+        with pytest.raises(ValueError, match="no tile"):
+            identify_cuda.anybox_tile_shape(box)
+        return
+    oy, ox = identify_cuda.anybox_tile_shape(box)
+    assert ox in (32, 64, 128, 256) and oy >= 1
+    budget = limit // 2
+    if identify_cuda.anybox_tile_bytes(box, 1, 32) > budget:
+        budget = limit
+    assert identify_cuda.anybox_tile_bytes(box, oy, ox) <= budget
+    toy, tox = identify_cuda.ANYBOX_TILE
+    assert (oy, ox) == (toy, tox) or (
+        identify_cuda.anybox_tile_bytes(box, toy, tox) > budget)
+    assert oy <= toy and ox <= tox

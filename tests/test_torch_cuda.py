@@ -1549,8 +1549,10 @@ def test_mesh_dryrun_on_the_card(dev):
 
 def _counts():
     return {f: f.launches for f in (
-        mle_cuda.fit_anybox_t, lq_cuda.fit_anybox_t, winfit_cuda.cut_anybox_t,
-        identify_cuda.identify_tiles_anybox, mle_cuda.fit_t,
+        mle_cuda.fit_anybox_t, mle_cuda.fit_anybox_one_pass_t,
+        lq_cuda.fit_anybox_t, winfit_cuda.cut_anybox_t,
+        identify_cuda.identify_tiles_anybox,
+        identify_cuda.identify_tiles_anybox_direct, mle_cuda.fit_t,
         mle_cuda.fit_one_pass_t, mle_cuda.fit_boundary_t,
         mle_cuda.fit_multiround_t, lq_cuda.fit_t, lq_cuda.fit_queue_t,
         lq_cuda.fit_boundary_t, identify_cuda.identify_tiles,
@@ -1566,13 +1568,16 @@ def _launched(before):
 
 @pytest.mark.parametrize("box", [5, 7, 9, 11, 13, 15])
 def test_anybox_fits_equal_the_templated_kernels(dev, box):
-    """The any-box MLE (both methods, with the CRLB/LL) and LM bodies at
-    the templated boxes equal the one-thread passes bit for bit: their
-    rounding order is the templated body's."""
+    """The any-box MLE queue and one-thread pass (both methods, with the
+    CRLB/LL) and the any-box LM body at the templated boxes equal the
+    one-thread passes bit for bit: their rounding order is the templated
+    body's."""
     sp = _rois(2048, box, box + 40, dev)
     for method in ("sigmaxy", "sigma"):
-        _assert_same(_np(mle_cuda.fit_anybox_t(sp, EPS, MAX_IT, method)),
-                     _np(mle_cuda.fit_one_pass_t(sp, EPS, MAX_IT, method)))
+        one = _np(mle_cuda.fit_one_pass_t(sp, EPS, MAX_IT, method))
+        _assert_same(_np(mle_cuda.fit_anybox_t(sp, EPS, MAX_IT, method)), one)
+        _assert_same(_np(mle_cuda.fit_anybox_one_pass_t(sp, EPS, MAX_IT,
+                                                        method)), one)
     np.testing.assert_array_equal(
         lq_cuda.fit_anybox_t(sp, MAX_IT).cpu().numpy(),
         lq_cuda.fit_t(sp, MAX_IT).cpu().numpy())
@@ -1600,6 +1605,61 @@ def test_box3_fits_equal_the_one_thread_pass(dev):
                     sp.cpu().numpy(), "box 3", box3=True)
 
 
+# launch arguments of the any-box MLE queue beside its default: every
+# place of the pixels with the column factors in shared and in global
+# memory
+ANYBOX_VARIANTS = ({}, *({"stage": st, "cols_shared": co}
+                         for st in ("batch", "shared") for co in (True, False)))
+
+
+@pytest.mark.parametrize("box", [4, 8, 16, 17, 21, 45])
+def test_anybox_queue_equals_the_one_thread_pass(dev, box):
+    """The any-box MLE work queue (both methods) with its default launch
+    arguments and the variants of ANYBOX_VARIANTS (those whose shared
+    bytes fit) equals the any-box one-thread pass bit for bit; lanes at
+    n_valid and beyond start converged; at box 45 a stage in shared
+    memory does not fit, and the tail's lanes loop over two rounds."""
+    n = 512 if box == 45 else 2048
+    sp = _rois(n, box, box + 60, dev)
+    lib = mle_cuda._build.library()
+    for method in ("sigmaxy", "sigma"):
+        one = _np(mle_cuda.fit_anybox_one_pass_t(sp, EPS, MAX_IT, method))
+        for kw in ANYBOX_VARIANTS:
+            cfg = dict(mle_cuda.anybox_queue_config(box), **kw)
+            if mle_cuda.anybox_queue_smem(box, cfg["stage"],
+                                          cfg["cols_shared"]) > \
+                    mle_cuda.SHARED_LIMIT:
+                continue
+            coop = torch.zeros(1, dtype=torch.int32, device=dev)
+            _assert_same(_np(mle_cuda._launch_anybox(
+                lib, sp, EPS, MAX_IT, method, None, cfg, coop)), one)
+        before = _counts()
+        _assert_same(_np(mle_cuda.fit_anybox_t(sp, EPS, MAX_IT, method)), one)
+        assert _launched(before) == {"mle_cuda.fit_anybox_t": 1}
+        n_valid = n - 64
+        one = _np(mle_cuda.fit_anybox_one_pass_t(sp, EPS, MAX_IT, method,
+                                                 n_valid))
+        assert one[3][n_valid:].max() == 0
+        _assert_same(_np(mle_cuda.fit_anybox_t(sp, EPS, MAX_IT, method,
+                                               n_valid)), one)
+
+
+def test_anybox_queue_refuses_what_it_does_not_take(dev):
+    """The any-box queue's entry refuses launch arguments outside its
+    range (a group below box + 1 short of a warp, shared bytes above the
+    card's limit), and reports its compile-time threads a block."""
+    lib = mle_cuda._build.library()
+    for box, kw in ((17, {"group": 16}), (45, {"stage": "shared"}),
+                    (40, {"cols_shared": True})):
+        sp = _rois(256, box, 3, dev)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            mle_cuda._launch_anybox(lib, sp, EPS, MAX_IT, "sigmaxy", None,
+                                    dict(mle_cuda.anybox_queue_config(box),
+                                         **kw))
+    assert mle_cuda.anybox_queue_info(17)["threads"] == \
+        mle_cuda.ANYBOX_THREADS
+
+
 @pytest.mark.parametrize("box", [8, 17, 21])
 def test_anybox_fits_route_count_and_match_plain(dev, box):
     """At a box without a templated kernel every fit wrapper goes to the
@@ -1625,28 +1685,83 @@ def test_anybox_fits_route_count_and_match_plain(dev, box):
         compare_lq_fits(plain, got, sp.cpu().numpy())
 
 
-@pytest.mark.parametrize("box", [3, 5, 7, 9, 11, 13, 15, 17, 21, 31, 8])
+# output tiles of the any-box K4 beside its default
+K4_ANY_TILES = ((1, 32), (7, 32), (32, 64), (64, 128), (16, 256))
+
+
+@pytest.mark.parametrize("box", [3, 5, 7, 9, 11, 13, 15, 17, 21, 31, 8, 4])
 def test_identify_anybox_kernel(dev, box):
-    """K4 at any box: == the templated K4 bit for bit at 3-15, == the
-    plain version (compare_tiles) at every box, on small frames at the
-    K4 shapes; counted on its own counter, and identify_tiles routes
-    boxes without a template to it."""
+    """K4 at any box: == the templated K4 bit for bit at 3-15 and == the
+    direct kernel bit for bit at every box, in its default tile and those
+    of K4_ANY_TILES, == the plain version (compare_tiles), on small
+    frames at the K4 shapes, u16 and f32 with NaN pixels; counted on its
+    own counter, and identify_tiles routes boxes without a template to
+    it."""
     rng = np.random.default_rng(box)
     for shape in K4_SHAPES:
-        x = torch.from_numpy(small_frames(shape, rng).astype(np.uint16)).to(
-            dev)
-        before = _counts()
-        k = _np(identify_cuda.identify_tiles_anybox(x, 3000.0, box))
-        assert _launched(before) == {
-            "identify_cuda.identify_tiles_anybox": 1}
-        compare_tiles(k, _np(identify.identify_tiles_plain(x, 3000.0, box)),
-                      f"box {box} {shape}")
+        frames = small_frames(shape, rng)
+        nan = frames.astype(np.float32)
+        nan[:, ::7, ::5] = np.nan
+        got = []
+        for x in (torch.from_numpy(frames.astype(np.uint16)).to(dev),
+                  torch.from_numpy(nan).to(dev)):
+            before = _counts()
+            k = _np(identify_cuda.identify_tiles_anybox(x, 3000.0, box))
+            got.append(k)
+            assert _launched(before) == {
+                "identify_cuda.identify_tiles_anybox": 1}
+            compare_tiles(k, _np(identify.identify_tiles_plain(x, 3000.0,
+                                                               box)),
+                          f"box {box} {shape}")
+            _assert_same(k, _np(identify_cuda.identify_tiles_anybox_direct(
+                x, 3000.0, box)))
+            for tile in K4_ANY_TILES:  # those whose shared bytes fit
+                if identify_cuda.anybox_tile_bytes(box, *tile) <= \
+                        identify_cuda.SHARED_LIMIT:
+                    _assert_same(_np(identify_cuda._anybox_launch(
+                        x, 3000.0, box, tile)), k)
+        x = torch.from_numpy(frames.astype(np.uint16)).to(dev)
         before = _counts()
         routed = _np(identify_cuda.identify_tiles(x, 3000.0, box))
         templated = box in identify_cuda.BOXES
         assert _launched(before) == {"identify_cuda." + (
             "identify_tiles" if templated else "identify_tiles_anybox"): 1}
-        _assert_same(routed, k)
+        _assert_same(routed, got[0])
+
+
+@pytest.mark.parametrize("box", [96, 101])
+def test_identify_routes_a_box_without_a_tile_to_the_direct_kernel(dev, box):
+    """At a box where no tile of the any-box K4 fits in a block's shared
+    memory (96 and above), identify_tiles launches the direct kernel
+    (counted there) and matches the plain version, and
+    identify_tiles_anybox raises; the fused chain at that box (K4, the
+    any-box cut and MLE queue) finds the CPU's hits, a bright centre
+    pixel among them."""
+    assert not identify_cuda.anybox_tile_fits(box)
+    rng = np.random.default_rng(box)
+    frames = small_frames((3, box + 40, box + 57), rng, spots=3)
+    # a bright pixel at each frame's centre, a local maximum that the
+    # border admits whatever the spots
+    frames[:, frames.shape[1] // 2, frames.shape[2] // 2] += 5000
+    x = torch.from_numpy(frames.astype(np.uint16)).to(dev)
+    before = _counts()
+    got = _np(identify_cuda.identify_tiles(x, 100.0, box))
+    assert _launched(before) == {
+        "identify_cuda.identify_tiles_anybox_direct": 1}
+    compare_tiles(got, _np(identify.identify_tiles_plain(x, 100.0, box)),
+                  f"box {box}")
+    with pytest.raises(ValueError, match="no tile"):
+        identify_cuda.identify_tiles_anybox(x, 100.0, box)
+    kw = dict(box=box, eps=EPS, max_it=MAX_IT)
+    before = _counts()
+    out = fused.identify_cut_fit(x, float("-inf"), 0.0, 1.0, **kw)
+    assert set(_launched(before)) == {
+        "identify_cuda.identify_tiles_anybox_direct",
+        "winfit_cuda.cut_anybox_t", "mle_cuda.fit_anybox_t"}
+    ref = fused.identify_cut_fit(x.cpu(), float("-inf"), 0.0, 1.0, **kw)
+    compare_hits([a.cpu().numpy() for a in ref[:4]],
+                 [a.cpu().numpy() for a in out[:4]], float("-inf"))
+    assert len(out[0]) > 0 and np.isfinite(out[4].cpu().numpy()).all()
 
 
 @pytest.mark.parametrize("dtype", [np.uint16, np.float32])
