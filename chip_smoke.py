@@ -302,20 +302,23 @@ Phases, each of which raises on failure (exit code != 0):
    sigmaxy, sigma, LQ) and 21 (MLE) on tests/torch_data.make_wide_movie
    (2048 frames of 256 x 256, ~100,000 spots 2.5 px wide, made alongside
    the build) through K4 at any box (csrc/identify_anybox.cu), the
-   any-box cut (cut_anybox.cu) and the any-box fits (the MLE work queue
-   mle_anybox_queue.cu, lq_anybox.cu), each launched once a chunk and no
+   any-box cut (cut_anybox.cu) and the any-box fits (the work queues
+   mle_anybox_queue.cu, lq_anybox_queue.cu), each launched once a chunk and no
    other kernel (paths ``box17-mle``, ``box17-mle-sigma``, ``box17-lq``,
    ``box21-mle``), hits == the plain versions on the card (compare_hits)
    and fits within compare_fits / compare_lq_fits; fit2D at box 17 on
    the MLE slice's identifications, both fitters (paths
    ``box17-fit2D-mle``, ``box17-fit2D-lq``: the any-box fit only), held
-   likewise; walls and spots/s; the box-17 MLE chain split a chunk
-   (upload, K4, compaction, cut, fit; ms of each of the 8 chunks); (b)
-   bit for bit: the any-box MLE queue == its one-thread pass
+   likewise; walls and spots/s; the box-17 MLE and LQ chains split a
+   chunk (upload, K4, compaction, cut, fit; ms of each of the 8 chunks);
+   (b) bit for bit: the any-box MLE queue == its one-thread pass
    (mle_anybox.cu) at boxes 4, 8, 16, 17, 21 (make_spots, 8192 a box)
    and 45 (2048; no stage: the pixels from the batch), both methods; the
-   queue, the one-thread pass and the LM body == the templated K1 / K3
-   queues at boxes 5-15; K4 at any box == identify.cu at 3-15 on phase
+   any-box LM queue == its one-thread pass (lq_anybox.cu) at the same
+   boxes and 120 (256 spots; no stage); the tiled cut
+   == its direct kernel == photons_t at 4, 7, 15, 17, 21, u16 and f32;
+   the MLE queue and one-thread pass and both LM kernels == the
+   templated K1 / K3 queues at boxes 5-15; K4 at any box == identify.cu at 3-15 on phase
    3's chunk and == its direct kernel at 4, 17 and 21 on the wide
    movie's first chunk, there within compare_tiles of the plain version,
    and at box 97, where no tile fits, K4 (the direct kernel) within
@@ -327,8 +330,9 @@ Phases, each of which raises on failure (exit code != 0):
    turns with K1 and K3's queue there; then the any-box kernels timed at
    box 17 (make_spots, 131,072, made alongside the build; K4 on the wide
    movie's first chunk, its bound counted from its maxima) against their
-   plain versions, the MLE queue in turns with its one-thread pass and K4
-   with its direct kernel, for the kernels line.
+   plain versions, the MLE and LM queues in turns with their one-thread
+   passes, the cut and K4 with their direct kernels, for the kernels
+   line.
 IMS and STK movies are checked on the CPU only (tests/test_torch_io.py):
 the machine with the card has no h5py, and the CLI's verbs run on the
 CPU only. The apps' figures are held to the JAX package's on the CPU
@@ -526,6 +530,35 @@ def _median_ms(fn, reps: int = 5, calls: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+#: calls in a torch.profiler trace of :func:`_kernel_device_ms`
+PROFILED_CALLS = 10
+
+
+def _kernel_device_ms(fn, name: str):
+    """The device time in ms of one call of the kernels whose name holds
+    ``name``, from a torch.profiler trace of PROFILED_CALLS calls of
+    ``fn`` after a warm-up (the kernel alone, without the host work or
+    other launches of its wrapper), or None where the trace shows no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_CALLS):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(ev, "device_time_total",
+                        getattr(ev, "cuda_time_total", 0.0))
+                for ev in prof.key_averages() if name in ev.key)
+    return total / PROFILED_CALLS / 1e3 if total else None
+
+
+def _ms_or_not(t) -> str:
+    return "not measured" if t is None else f"{t:.4f} ms"
 
 
 def _once_ms(fn, warm: bool = True):
@@ -750,7 +783,7 @@ def _ptxas_table(log: str) -> list[str]:
     for line in log.splitlines():
         m = re.search(r"entry function '.*?((?:identify|lq_fit|mle_fit|"
                       r"mle_queue|winfit_mle|lq_queue|mle_any_queue|"
-                      r"identify_any)_kernel)"
+                      r"identify_any|lq_any_queue|cut_any)_kernel)"
                       r"I(\w+?)EEv", line)
         if m:
             args = re.sub(r"NS_\d+ChunkWindowsI(\w)EE", r"Chunk<\1>",
@@ -3050,6 +3083,13 @@ TIMED_BOX = 17
 # memory (the pixels read from the batch) with its spots
 QUEUE_BOXES = (4, 8, 16, 17, 21)
 NO_STAGE_BOX, NO_STAGE_SPOTS = 45, 2048
+# a box above the LM queue's last one whose group stages fit a block's
+# shared bytes (ops/lq_cuda.anybox_queue_config: 117), held there on its
+# spots
+LQ_NO_STAGE_BOX, LQ_NO_STAGE_SPOTS = 120, 256
+# boxes at which the tiled cut is held to its direct kernel and the
+# plain version, u16 and f32 chunks
+CUT_BOXES = (4, 7, 15, 17, 21)
 # a box at which no tile of the any-box K4 fits (96 and above), on the
 # wide chunk's first frames
 NO_TILE_BOX, NO_TILE_FRAMES = 97, 4
@@ -3104,12 +3144,14 @@ def anybox_phase(wide, chunk, timed_spots, counted, smi: str):
     """26. Every box on the card. (a) localize at box 17 (MLE sigmaxy,
     sigma, LQ) and 21 (MLE) on the wide movie, each through K4 at any box
     (csrc/identify_anybox.cu), the any-box cut (cut_anybox.cu) and fit
-    (mle_anybox_queue.cu, lq_anybox.cu) with their launches counted, its
-    hits and fits held to the plain versions on the card (compare_hits,
-    compare_fits / compare_lq_fits); fit2D at box 17 on the MLE slice's
-    identifications, both fitters, held likewise; the box-17 MLE chain
-    split a chunk. (b) bit for bit: the any-box MLE queue == its
-    one-thread pass at QUEUE_BOXES and NO_STAGE_BOX, the any-box bodies
+    (mle_anybox_queue.cu, lq_anybox_queue.cu) with their launches
+    counted, its hits and fits held to the plain versions on the card
+    (compare_hits, compare_fits / compare_lq_fits); fit2D at box 17 on
+    the MLE slice's identifications, both fitters, held likewise; the
+    box-17 MLE and LQ chains split a chunk. (b) bit for bit: the any-box
+    MLE queue == its one-thread pass at QUEUE_BOXES and NO_STAGE_BOX,
+    the LM queue == its one-thread pass there and at LQ_NO_STAGE_BOX, the
+    tiled cut == its direct kernel == photons_t at CUT_BOXES, the any-box bodies
     == the templated queues at 5-15, K4 at any box == identify.cu at 3-15
     on phase 3's chunk and == its direct kernel at 4, 17 and 21 on the
     wide chunk (within compare_tiles of the plain version there), K4 at
@@ -3119,8 +3161,9 @@ def anybox_phase(wide, chunk, timed_spots, counted, smi: str):
     and K5 == the one-thread passes, held to the plain fits by
     compare_fits_max_it and compare_lq_fits' box-3 bounds.
     ``timed_spots``: make_spots(N_SPOTS, TIMED_BOX, seed=0), on which the
-    any-box kernels are timed (made alongside the build), the MLE queue
-    in turns with its one-thread pass and K4 with its direct kernel.
+    any-box kernels are timed (made alongside the build), the MLE and LM
+    queues in turns with their one-thread passes, the cut and K4 with
+    their direct kernels.
     Returns (launches by path, ms, bounds, errors) of the kernels
     line."""
     import torch
@@ -3251,12 +3294,12 @@ def anybox_phase(wide, chunk, timed_spots, counted, smi: str):
               f"{ {k: launches[k] for k in sorted(on)} }; vs plain ("
               f"{t_p:.1f} s) {json.dumps(st)} ({smi})")
     del sp, spots
-    # the box-17 MLE chain split a chunk: each stage of each chunk of the
-    # wide movie alone (the CUDA-event timing of a second call, after one
-    # on the same input), as ops/fused runs it at a box without a
-    # template
+    # the box-17 MLE and LQ chains split a chunk: each stage of each
+    # chunk of the wide movie alone (the CUDA-event timing of a second
+    # call, after one on the same input), as ops/fused runs it at a box
+    # without a template; both fits on the same cut
     box, split = 17, {k: [] for k in ("upload", "K4", "compaction", "cut",
-                                      "fit")}
+                                      "fit", "fit lq")}
     for off in range(0, len(wide), CHUNK):
         host = wide[off:off + CHUNK]
         frames, t = _once_ms(lambda: identify.upload_frames(host, dev),
@@ -3274,11 +3317,18 @@ def anybox_phase(wide, chunk, timed_spots, counted, smi: str):
         _, t = _once_ms(lambda: mle_cuda.fit_anybox_t(rois, EPS, MAX_IT),
                         warm=True)
         split["fit"].append(t)
+        _, t = _once_ms(lambda: lq_cuda.fit_anybox_t(rois, MAX_IT,
+                                                     fused.LQ_FTOL),
+                        warm=True)
+        split["fit lq"].append(t)
     del frames, tiles, hits, rois
-    print(f"box {box} MLE chain a chunk (ms, chunks 0-{n_chunks - 1}; mean):",
-          json.dumps({k: [[round(t, 4) for t in v], round(float(np.mean(v)),
-                                                          4)]
-                      for k, v in split.items()}), f"({smi})")
+    for chain, fit in (("MLE", "fit"), ("LQ", "fit lq")):
+        cols = ("upload", "K4", "compaction", "cut", fit)
+        print(f"box {box} {chain} chain a chunk (ms, chunks 0-"
+              f"{n_chunks - 1}; mean):",
+              json.dumps({k.split()[0]: [[round(t, 4) for t in split[k]],
+                                         round(float(np.mean(split[k])), 4)]
+                          for k in cols}), f"({smi})")
     t_a = time.perf_counter()
 
     # (b) bit for bit -----------------------------------------------------
@@ -3299,6 +3349,22 @@ def anybox_phase(wide, chunk, timed_spots, counted, smi: str):
                               sp, EPS, MAX_IT, method)),
                           f"mle anybox queue {method} vs the one-thread "
                           f"pass at box {box}")
+    # the any-box LM queue == its one-thread pass (with lanes at n_valid
+    # and beyond starting done in tests/test_torch_cuda.py); at
+    # LQ_NO_STAGE_BOX its groups read the pixels from the batch
+    for box in (*QUEUE_BOXES, NO_STAGE_BOX, LQ_NO_STAGE_BOX):
+        n_any = LQ_NO_STAGE_SPOTS if box == LQ_NO_STAGE_BOX else ANY_SPOTS
+        stage = lq_cuda.anybox_queue_config(box)["stage"]
+        if (stage == "shared") != (box != LQ_NO_STAGE_BOX):
+            raise AssertionError(f"the any-box LM queue's stage at box "
+                                 f"{box}: {stage}")
+        sp = torch.from_numpy(np.ascontiguousarray(make_spots(
+            n_any, box, seed=box).transpose(1, 2, 0))).to(dev)
+        _assert_equal([lq_cuda.fit_anybox_t(sp, MAX_IT).cpu().numpy()],
+                      [lq_cuda.fit_anybox_one_pass_t(sp, MAX_IT).cpu(
+                      ).numpy()], f"lq anybox queue vs the one-thread pass "
+                      f"at box {box}")
+    del sp
     for box in (5, 7, 9, 11, 13, 15):
         sp = torch.from_numpy(np.ascontiguousarray(make_spots(
             ANY_SPOTS, box, seed=box).transpose(1, 2, 0))).to(dev)
@@ -3307,9 +3373,10 @@ def anybox_phase(wide, chunk, timed_spots, counted, smi: str):
             for fit in (mle_cuda.fit_anybox_t, mle_cuda.fit_anybox_one_pass_t):
                 _assert_equal(as_np(fit(sp, EPS, MAX_IT, method)), k1,
                               f"{fit.__name__} {method} vs K1 at box {box}")
-        _assert_equal([lq_cuda.fit_anybox_t(sp, MAX_IT).cpu().numpy()],
-                      [lq_cuda.fit_queue_t(sp, MAX_IT).cpu().numpy()],
-                      f"lq anybox vs K3 at box {box}")
+        k3 = [lq_cuda.fit_queue_t(sp, MAX_IT).cpu().numpy()]
+        for fit in (lq_cuda.fit_anybox_t, lq_cuda.fit_anybox_one_pass_t):
+            _assert_equal([fit(sp, MAX_IT).cpu().numpy()], k3,
+                          f"lq {fit.__name__} vs K3's queue at box {box}")
     for box in identify_cuda.BOXES:
         _assert_equal(as_np(identify_cuda.identify_tiles_anybox(chunk, MIN_NG,
                                                                 box)),
@@ -3335,6 +3402,21 @@ def anybox_phase(wide, chunk, timed_spots, counted, smi: str):
                                                       NO_TILE_BOX)),
                   f"K4 (the direct kernel) vs plain at box {NO_TILE_BOX}")
     del big
+    # the tiled cut == its direct kernel == the plain version
+    for box in CUT_BOXES:
+        for dtype in (np.uint16, np.float32):
+            frames, hits = spots_chunk(make_spots(ANY_SPOTS, box,
+                                                  seed=box + 2), dtype)
+            frames = torch.from_numpy(frames).to(dev)
+            hits = [torch.from_numpy(h).to(dev) for h in hits]
+            cut = winfit_cuda.cut_anybox_t(frames, *hits, box, 1.5, 0.8)
+            for other, what in (
+                    (winfit_cuda.cut_anybox_direct_t, "its direct kernel"),
+                    (winfit_cuda.photons_t, "the plain version")):
+                if not torch.equal(cut, other(frames, *hits, box, 1.5, 0.8)):
+                    raise AssertionError(
+                        f"the tiled cut at box {box} ({dtype.__name__}) is "
+                        f"not {what} bit for bit")
     for box in (7, 15):
         frames, hits = spots_chunk(make_spots(ANY_SPOTS, box, seed=box + 1),
                                    np.uint16)
@@ -3425,7 +3507,10 @@ def anybox_phase(wide, chunk, timed_spots, counted, smi: str):
     box3["mle anybox box 3 ms"] = ms["mle anybox box 3"]
     box3["lq anybox box 3 ms"] = ms["lq anybox box 3"]
     print("any-box bodies == K1/K3 queues at boxes 5-15 and == K5 at 7, 15, "
-          "K4 any-box == K4 at 3-15, bit for bit; box 3: K1, K2, K7, K5 "
+          f"the MLE and LM queues == their one-thread passes at "
+          f"{QUEUE_BOXES}, {NO_STAGE_BOX} and {LQ_NO_STAGE_BOX} (LM), the "
+          f"tiled cut == its direct kernel == plain at {CUT_BOXES} (u16, "
+          "f32), K4 any-box == K4 at 3-15, bit for bit; box 3: K1, K2, K7, K5 "
           "(queue, phases, one pass), K3's queue, K6 and K5's LM queue == "
           "the one-thread passes bit for bit; vs plain:", json.dumps(box3))
     del sp, frames, hits
@@ -3467,32 +3552,74 @@ def anybox_phase(wide, chunk, timed_spots, counted, smi: str):
               f"{[round(t, 4) for t in queue_t]}; queue config "
               f"{mle_cuda.anybox_queue_config(box)}, "
               f"{mle_cuda.anybox_queue_info(box, method)} ({smi})")
+    # the any-box LM queue in turns with its one-thread pass
     th = lq_cuda.fit_anybox_t(sp, MAX_IT).cpu().numpy()
+    _assert_equal([th], [lq_cuda.fit_anybox_one_pass_t(sp, MAX_IT).cpu(
+    ).numpy()], "lq anybox vs the one-thread pass on make_spots")
     steps, _, reused = lq_iters(sp, MAX_IT)  # warms the plain LM, as above
     plain, ms["plain lq anybox"] = _once_ms(
         lambda: lq._lm_core(sp, MAX_IT, FTOL), warm=False)
+    ms["plain lq anybox one pass"] = ms["plain lq anybox"]
     st = compare_lq_fits(plain.cpu().numpy(), th, spots.transpose(1, 2, 0),
                          "lq anybox on make_spots")
-    errs["lq anybox"] = st["xy_p100"]
-    ms["lq anybox"] = _median_ms(lambda: lq_cuda.fit_anybox_t(sp, MAX_IT))
-    bounds["lq anybox"] = lq_fit_bound(n, float(steps.sum()),
-                                       float(reused.sum()), box * box * 4,
-                                       box)
+    errs["lq anybox"] = errs["lq anybox one pass"] = st["xy_p100"]
+    one_t, queue_t = _alternate((
+        lambda: lq_cuda.fit_anybox_one_pass_t(sp, MAX_IT),
+        lambda: lq_cuda.fit_anybox_t(sp, MAX_IT)))
+    ms["lq anybox one pass"] = statistics.median(one_t)
+    ms["lq anybox"] = statistics.median(queue_t)
+    bounds["lq anybox"] = bounds["lq anybox one pass"] = lq_fit_bound(
+        n, float(steps.sum()), float(reused.sum()), box * box * 4, box)
+    print(f"lq anybox at box {box}: {int((steps == MAX_IT).sum())} fits at "
+          f"max_it, {int(steps.sum())} steps ({int(reused.sum())} after a "
+          f"rejected step), the longest {int(steps.max())}; in turns "
+          f"one-thread pass / queue (ms): {[round(t, 4) for t in one_t]} / "
+          f"{[round(t, 4) for t in queue_t]}; queue config "
+          f"{lq_cuda.anybox_queue_config(box)}, "
+          f"{lq_cuda.anybox_queue_info(box)} ({smi})")
     del sp
+    # the tiled cut in turns with its direct kernel, each through its
+    # wrapper on the u16 chunk and the int64 hit rows, as the path calls
+    # it (compaction's rows; the tiled cut reads them in place, the
+    # direct kernel's wrapper stacks them into its int32 list): the
+    # kernels line takes one median of single calls of each, as earlier
+    # slices did; each kernel alone is its device time in a
+    # torch.profiler trace, printed beside
     frames, hits = spots_chunk(spots, np.uint16)
     frames = torch.from_numpy(frames).to(dev)
     hits = [torch.from_numpy(h).to(dev) for h in hits]
+    assert all(h.dtype == torch.int64 for h in hits)
     cut = winfit_cuda.cut_anybox_t(frames, *hits, box, 0.0, 1.0)
     plain_cut = winfit_cuda.photons_t(frames, *hits, box, 0.0, 1.0)
-    errs["cut anybox"] = float((cut - plain_cut).abs().max())
-    ms["cut anybox"] = _median_ms(
-        lambda: winfit_cuda.cut_anybox_t(frames, *hits, box, 0.0, 1.0))
-    ms["plain cut anybox"] = _median_ms(
+    if not torch.equal(cut, winfit_cuda.cut_anybox_direct_t(
+            frames, *hits, box, 0.0, 1.0)):
+        raise AssertionError("the tiled cut is not its direct kernel on "
+                             "make_spots")
+    errs["cut anybox"] = errs["cut anybox direct"] = float(
+        (cut - plain_cut).abs().max())
+    cuts = (lambda: winfit_cuda.cut_anybox_direct_t(frames, *hits, box, 0.0,
+                                                    1.0),
+            lambda: winfit_cuda.cut_anybox_t(frames, *hits, box, 0.0, 1.0))
+    direct_t, tiled_t = _alternate(cuts)
+    ms["cut anybox direct"] = _median_ms(cuts[0])
+    ms["cut anybox"] = _median_ms(cuts[1])
+    alone = [_kernel_device_ms(fn, name) for fn, name in
+             zip(cuts, ("cut_any_direct_kernel", "cut_any_kernel"))]
+    ms["plain cut anybox"] = ms["plain cut anybox direct"] = _median_ms(
         lambda: winfit_cuda.photons_t(frames, *hits, box, 0.0, 1.0))
-    # u16 window and (f, y, x) int32 read, the f32 ROI written; 2 FLOPs a
+    # u16 window and (f, y, x) int64 read, the f32 ROI written; 2 FLOPs a
     # pixel
-    bounds["cut anybox"] = _bound(2 * n * box * box,
-                                  n * (box * box * 6 + 12))
+    bounds["cut anybox"] = bounds["cut anybox direct"] = _bound(
+        2 * n * box * box, n * (box * box * 6 + 24))
+    print(f"cut anybox at box {box}: {n} hits of a {tuple(frames.shape)} "
+          f"u16 chunk, int64 rows; == its direct kernel; a call through "
+          f"the wrapper, median: direct {ms['cut anybox direct']:.4f}, "
+          f"tiled {ms['cut anybox']:.4f}; in turns direct / tiled (ms): "
+          f"{[round(t, 4) for t in direct_t]} / "
+          f"{[round(t, 4) for t in tiled_t]}; the kernel alone (device "
+          f"time, torch.profiler, a call of {PROFILED_CALLS}): direct "
+          f"{_ms_or_not(alone[0])}, tiled {_ms_or_not(alone[1])}; config "
+          f"{winfit_cuda.anybox_cut_config(box)} ({smi})")
     del frames, hits, cut, plain_cut
     # K4 at box 17 on the wide movie's first chunk, in turns with its
     # direct kernel
@@ -3540,7 +3667,8 @@ def anybox_phase(wide, chunk, timed_spots, counted, smi: str):
     del first
     torch.cuda.empty_cache()
     for key in ("mle anybox", "mle anybox sigma", "mle anybox one pass",
-                "mle anybox one pass sigma", "lq anybox", "cut anybox",
+                "mle anybox one pass sigma", "lq anybox",
+                "lq anybox one pass", "cut anybox", "cut anybox direct",
                 "K4 anybox", "K4 anybox direct"):
         print(f"{key} at box {box}: {ms[key]:.4f} ms, plain "
               f"{ms['plain ' + key]:.3f} ms, bound {bounds[key][0]:.4f} ms "
@@ -3977,7 +4105,9 @@ def main() -> int:
                 "mle anybox": mle_cuda.fit_anybox_t,
                 "mle anybox one pass": mle_cuda.fit_anybox_one_pass_t,
                 "lq anybox": lq_cuda.fit_anybox_t,
-                "cut anybox": winfit_cuda.cut_anybox_t}
+                "lq anybox one pass": lq_cuda.fit_anybox_one_pass_t,
+                "cut anybox": winfit_cuda.cut_anybox_t,
+                "cut anybox direct": winfit_cuda.cut_anybox_direct_t}
 
     n_chunks = -(-len(movie) // CHUNK)
 
@@ -5139,14 +5269,25 @@ def main() -> int:
               any_tpu["mle"], "mle anybox one pass",
               errs_any["mle anybox one pass sigma"],
               "plain mle anybox one pass sigma", "sigma"),
-        entry("lq anybox", f"lq_anybox (any box, one thread a spot; timed "
-              f"at box {TIMED_BOX})", "picasso_torch/csrc/lq_anybox.cu",
-              any_tpu["lq"], "lq anybox", errs_any["lq anybox"],
-              "plain lq anybox"),
+        entry("lq anybox", f"lq_anybox_queue (any box, work queue, a "
+              f"group of lanes a spot, stage; timed at box {TIMED_BOX})",
+              "picasso_torch/csrc/lq_anybox_queue.cu", any_tpu["lq"],
+              "lq anybox", errs_any["lq anybox"], "plain lq anybox"),
+        entry("lq anybox one pass", f"lq_anybox (any box, one thread a "
+              f"spot; timed at box {TIMED_BOX})",
+              "picasso_torch/csrc/lq_anybox.cu", any_tpu["lq"],
+              "lq anybox one pass", errs_any["lq anybox one pass"],
+              "plain lq anybox one pass"),
         entry("cut anybox", f"cut_anybox (K5's window load and photons at "
-              f"any box; timed at box {TIMED_BOX})",
-              "picasso_torch/csrc/cut_anybox.cu", win_tpu, "cut anybox",
+              f"any box, a tile of hits through shared memory; timed at box "
+              f"{TIMED_BOX})", "picasso_torch/csrc/cut_anybox.cu",
+              "picasso_tpu/ops/winfit_pallas.py:78", "cut anybox",
               errs_any["cut anybox"], "plain cut anybox"),
+        entry("cut anybox direct", f"cut_anybox_direct (K5's window load "
+              f"and photons at any box, one thread a pixel; timed at box "
+              f"{TIMED_BOX})", "picasso_torch/csrc/cut_anybox.cu",
+              "picasso_tpu/ops/winfit_pallas.py:78", "cut anybox direct",
+              errs_any["cut anybox direct"], "plain cut anybox direct"),
         entry("K4 anybox", f"K4 identify_anybox (any box, staged tile, "
               f"separable maxima, the net gradient at maxima; timed at box "
               f"{TIMED_BOX})", k4_src,
@@ -5161,7 +5302,7 @@ def main() -> int:
             ("K1 roi_mle_fit sigmaxy (", "K1 box 3", "K1 box 3"),
             ("K3 roi_lq_queue", "K3 queue box 3", "K3 queue box 3"),
             ("mle_anybox_queue sigmaxy", "mle anybox box 3", "K1 box 3"),
-            ("lq_anybox", "lq anybox box 3", "K3 queue box 3")):
+            ("lq_anybox_queue", "lq anybox box 3", "K3 queue box 3")):
         k = next(k for k in kernels if k["name"].startswith(name))
         k["box3_ms"] = ms[key]
         k["box3_plain_ms"] = ms["plain " + plain]

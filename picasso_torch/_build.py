@@ -117,7 +117,23 @@ SIGNATURES = {
         _P, _LL, _I, _F, _I, _LL,              # spots, n, box, ftol, max_it,
         _P, _P, _P,                            # n_valid; work, theta, stream
     ],
+    "picasso_lq_anybox_queue": [
+        _P, _LL, _I, _F, _I, _LL,              # spots, n, box, ftol, max_it,
+                                               # n_valid
+        _I, _I,                                # stage, threads
+        _P, _P, _P,                            # counter, theta out, stream
+    ],
+    "picasso_lq_anybox_queue_info": [
+        _I, _I, _I, _P,                        # box, stage, threads,
+    ],                                         # int info[7]
     "picasso_cut_anybox": [
+        _P, _I, _LL, _LL, _LL,                 # frames, dtype, B, Y, X
+        _P, _LL, _P, _LL, _P, _LL,             # int64 rows f, y, x, strides
+        _LL, _I, _F, _F,                       # n, box, baseline, factor
+        _I, _I,                                # hits a tile, rows a band
+        _P, _P,                                # out (box, box, n), stream
+    ],
+    "picasso_cut_anybox_direct": [
         _P, _I, _LL, _LL, _LL,                 # frames, dtype, B, Y, X
         _P, _LL, _I, _F, _F,                   # hits, n, box, baseline, factor
         _P, _P,                                # out (box, box, n), stream

@@ -20,20 +20,24 @@
 
 namespace {
 
-// Moment initialiser (lq_init_theta) at box b.s.
+// Moment initialiser (lq_init_theta) at box b.s: the pixels in row-major
+// order, as the template's.
 __device__ void any_lq_init_theta(const AnyBox& b, float* th) {
-  const int s = b.s, nn = s * s;
+  const int s = b.s;
   float bg = b(0, 0);
-  for (int p = 1; p < nn; ++p) bg = nmin(bg, b(p / s, p % s));
+  for (int y = 0; y < s; ++y)
+    for (int x = y == 0 ? 1 : 0; x < s; ++x) bg = nmin(bg, b(y, x));
   float total = 0.0f, ysum = 0.0f, xsum = 0.0f;
-  for (int p = 0; p < nn; ++p)
-    lq_moments(p == 0, b(p / s, p % s) - bg, p / s, p % s, total, ysum, xsum);
+  for (int y = 0; y < s; ++y)
+    for (int x = 0; x < s; ++x)
+      lq_moments(y == 0 && x == 0, b(y, x) - bg, y, x, total, ysum, xsum);
   float y_com, x_com;
   lq_com(s, total, ysum, xsum, y_com, x_com);
   float syy = 0.0f, sxx = 0.0f;
-  for (int p = 0; p < nn; ++p)
-    lq_moments2(p == 0, b(p / s, p % s) - bg, p / s, p % s, y_com, x_com, syy,
-                sxx);
+  for (int y = 0; y < s; ++y)
+    for (int x = 0; x < s; ++x)
+      lq_moments2(y == 0 && x == 0, b(y, x) - bg, y, x, y_com, x_com, syy,
+                  sxx);
   lq_init_store(s / 2, x_com, y_com, total, bg, sxx, syy, th);
 }
 

@@ -9,13 +9,14 @@ from __future__ import annotations
 import torch
 
 #: the boxes of the templated fit kernels; a CUDA batch of any other box
-#: >= MIN_BOX goes to the any-box kernels (csrc/mle_anybox.cu,
-#: lq_anybox.cu, cut_anybox.cu)
+#: >= MIN_BOX goes to the any-box kernels (csrc/mle_anybox_queue.cu,
+#: lq_anybox_queue.cu, cut_anybox.cu)
 BOXES = (3, 5, 7, 9, 11, 13, 15)
 MIN_BOX = 3
 #: the shared bytes a block may opt in to on an H100 (227 KB), against
 #: which the any-box kernels choose their launch configurations
-#: (ops/mle_cuda.anybox_queue_config, ops/identify_cuda.anybox_tile_shape;
+#: (ops/mle_cuda.anybox_queue_config, ops/lq_cuda.anybox_queue_config,
+#: ops/winfit_cuda.anybox_cut_config, ops/identify_cuda.anybox_tile_shape;
 #: their entries check the card's own limit)
 SHARED_LIMIT = 232_448
 # the kernels' modes (csrc/fit_common.cuh)

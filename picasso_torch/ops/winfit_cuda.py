@@ -31,9 +31,11 @@ A hit's window starts box // 2 pixels before its centre, so at an even
 box it ends box // 2 - 1 after it (:func:`cut_rois_t`). The kernels
 above take the boxes of ``_fit_common.BOXES``; on the card every other
 box >= 3 is cut by :func:`cut_anybox_t` (csrc/cut_anybox.cu: the same
-clamp and photon conversion, the box a launch argument) and fitted by
-the any-box kernels (ops/mle_cuda.fit_anybox_t, ops/lq_cuda.fit_anybox_t),
-whichever of the fits is called.
+clamp and photon conversion, the box a launch argument, a block a tile
+of hits written lanes-last through shared memory; its first form, one
+thread a pixel, is :func:`cut_anybox_direct_t`, on no path) and fitted
+by the any-box kernels (ops/mle_cuda.fit_anybox_t,
+ops/lq_cuda.fit_anybox_t), whichever of the fits is called.
 
 Launch counts (plain integers): ``fit_mle_queue_t.launches`` counts the
 queue kernel's launches and its CRLB/LL pass (2 a fit),
@@ -42,7 +44,7 @@ queue kernel's launches and its CRLB/LL pass (2 a fit),
 ``fit_lq_queue_t.launches`` the LM queue kernel's (1 a fit),
 ``cut_anybox_t.launches`` the any-box cut's (1 a fit at such a box,
 whichever fit routed to it; its fit counts on the any-box fit's own
-counter).
+counter), ``cut_anybox_direct_t.launches`` its first form's.
 """
 
 from __future__ import annotations
@@ -56,8 +58,8 @@ from picasso_torch.ops import lq as _lq
 from picasso_torch.ops import lq_cuda, mle_cuda
 from picasso_torch.ops import mle as _mle
 from picasso_torch.ops._fit_common import (
-    BOXES, FINISH, FULL, START, check_box, default_boundaries, on_cuda,
-    phase_ends, run_phases,
+    BOXES, FINISH, FULL, SHARED_LIMIT, START, check_box, default_boundaries,
+    on_cuda, phase_ends, run_phases,
 )
 
 _DTYPE_ID = {torch.uint16: 0, torch.float32: 1}
@@ -96,12 +98,9 @@ def photons_t(frames, f, y, x, box: int, baseline: float,
             * factor).contiguous()
 
 
-def _hit_list(frames, f, y, x, box: int, cuda: bool) -> torch.Tensor:
-    """The (3, N) hit list rows f, y, x; on the card int32 and
-    contiguous (the kernels' layout), after the checks of a launch."""
-    hits = torch.stack([f, y, x])
-    if not cuda:
-        return hits
+def _check_launch(frames, rows, box: int) -> None:
+    """The checks of a launch of a cut or fused kernel over the hit rows
+    ``rows`` (f, y, x) of ``frames``."""
     if frames.ndim != 3 or frames.dtype not in _DTYPE_ID:
         raise ValueError("the fused cut+fit kernels take a (B, Y, X) u16 or "
                          f"f32 chunk, got {frames.dtype} {tuple(frames.shape)}")
@@ -110,27 +109,98 @@ def _hit_list(frames, f, y, x, box: int, cuda: bool) -> torch.Tensor:
     check_box(box)
     if min(frames.shape[1:]) < 2 * (box // 2) + 1:  # the clamp's range
         raise ValueError(f"frames {tuple(frames.shape)} smaller than the box")
-    if hits.device != frames.device:
+    if any(r.device != frames.device for r in rows):
         raise ValueError("hits and frames must be on one device")
-    return hits.to(torch.int32).contiguous()
 
 
-def _cut(frames, hits, box: int, baseline, factor) -> torch.Tensor:
-    """One launch of the any-box cut over the (3, N) hit list (N > 0):
-    the (box, box, N) f32 photon ROIs, counted on
-    :func:`cut_anybox_t`."""
-    n = hits.shape[1]
+def _hit_list(frames, f, y, x, box: int, cuda: bool) -> torch.Tensor:
+    """The (3, N) hit list rows f, y, x; on the card int32 and
+    contiguous (the templated kernels' layout), after the checks of a
+    launch."""
+    hits = torch.stack([f, y, x])
+    if cuda:
+        _check_launch(frames, (hits,), box)
+        hits = hits.to(torch.int32).contiguous()
+    return hits
+
+
+def _hit_rows(frames, f, y, x, box: int) -> tuple:
+    """The hit rows f, y, x of a CUDA chunk for the any-box cut, after
+    the checks of a launch: int64 as compaction gives them (other
+    integers converted), which the cut reads in place, each at its
+    stride (:func:`_launch_cut`), with no stack or cast before it."""
+    rows = (f, y, x)
+    if not (f.ndim == 1 and f.shape == y.shape == x.shape):
+        raise ValueError("the hit rows f, y, x must be 1-D of one length")
+    _check_launch(frames, rows, box)
+    return tuple(r.to(torch.int64) for r in rows)
+
+
+#: hits a block of the any-box cut may take, the most first (a pixel's
+#: hits one store: 128 B at 32, a 32-B sector at 8)
+CUT_TILES = (32, 16, 8)
+#: the shared bytes a block of the any-box cut may take: a third of what
+#: a block may hold, so that three blocks share an SM
+CUT_SHARED = SHARED_LIMIT // 3
+
+
+def anybox_cut_smem(box: int, hits: int, rows: int) -> int:
+    """Dynamic shared bytes a block of the any-box cut takes: a band of
+    ``rows`` window rows as [pixel][hit], a pixel's hits at the stride
+    hits + 1 (csrc/cut_anybox.cu's cut_smem; the hits' window origins sit
+    in 256 B of static shared memory beside it)."""
+    return 4 * rows * box * (hits + 1)
+
+
+def anybox_cut_config(box: int) -> dict:
+    """The any-box cut's launch arguments at ``box``, worked out from the
+    box against :data:`CUT_SHARED`: ``hits`` a block, the most of
+    :data:`CUT_TILES` for which a band of one window row fits, and
+    ``rows`` a band, the window in ``bands`` bands of equal rows (one
+    band up to box 24 at 32 hits); with ``shared_bytes``. Raises where
+    no tile fits (boxes above 2152)."""
+    if box < 1:
+        raise ValueError(f"the any-box cut takes boxes >= 1, got {box}")
+    for hits in CUT_TILES:
+        most = min(box, CUT_SHARED // (4 * box * (hits + 1)))
+        if most >= 1:
+            bands = -(-box // most)
+            rows = -(-box // bands)
+            return {"hits": hits, "rows": rows, "bands": bands,
+                    "shared_bytes": anybox_cut_smem(box, hits, rows)}
+    raise ValueError(f"box {box}: no tile of the any-box cut fits")
+
+
+def _launch_cut(lib, frames, rows, box: int, baseline, factor,
+                cfg: dict) -> torch.Tensor:
+    """One launch of cut_anybox.cu's tiled cut (of ``lib``: the
+    package's, or a -D build of tests/torch_anybox_sweep.py) over the
+    int64 hit rows ``rows`` (f, y, x; N > 0, each read at its stride)
+    with the launch arguments ``cfg`` (:func:`anybox_cut_config`'s
+    ``hits`` and ``rows``): the (box, box, N) f32 photon ROIs."""
+    f, y, x = rows
+    n = f.shape[0]
     out = torch.empty((box, box, n), dtype=torch.float32,
                       device=frames.device)
     B, Y, X = frames.shape
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream(frames.device).cuda_stream
-        status = _build.library().picasso_cut_anybox(
+        status = lib.picasso_cut_anybox(
             frames.data_ptr(), _DTYPE_ID[frames.dtype], B, Y, X,
-            hits.data_ptr(), n, box, float(baseline), float(factor),
-            out.data_ptr(), stream,
+            f.data_ptr(), f.stride(0), y.data_ptr(), y.stride(0),
+            x.data_ptr(), x.stride(0), n, box, float(baseline),
+            float(factor), cfg["hits"], cfg["rows"], out.data_ptr(), stream,
         )
     _build.check(status, "cut_anybox")
+    return out
+
+
+def _cut(frames, rows, box: int, baseline, factor) -> torch.Tensor:
+    """The any-box cut of :func:`_hit_rows`' int64 rows (N > 0) with
+    :func:`anybox_cut_config`'s launch arguments, counted on
+    :func:`cut_anybox_t`."""
+    out = _launch_cut(_build.library(), frames, rows, box, baseline, factor,
+                      anybox_cut_config(box))
     _build.count_launch(cut_anybox_t)
     return out
 
@@ -138,27 +208,63 @@ def _cut(frames, hits, box: int, baseline, factor) -> torch.Tensor:
 def cut_anybox_t(frames, f, y, x, box: int, baseline: float,
                  factor: float) -> torch.Tensor:
     """K5's window load and photon conversion at any box >= 3 on the card
-    (csrc/cut_anybox.cu): the lanes-last (box, box, N) f32 photon ROIs of
-    the hits (f, y, x) of the (B, Y, X) u16 or f32 chunk, rounded as the
-    templated K5 stages them and equal to :func:`photons_t`, its plain
-    version (which a CPU chunk takes, uncounted), bit for bit."""
-    cuda = on_cuda(frames)
-    hits = _hit_list(frames, f, y, x, box, cuda)
-    if not cuda:
-        return photons_t(frames, *hits, box, baseline, factor)
-    if hits.shape[1] == 0:
+    (csrc/cut_anybox.cu: a block a tile of hits, the windows read by rows
+    and written lanes-last through shared memory, its launch arguments
+    :func:`anybox_cut_config`'s): the lanes-last (box, box, N) f32 photon
+    ROIs of the hits (f, y, x) of the (B, Y, X) u16 or f32 chunk, rounded
+    as the templated K5 stages them and equal to :func:`photons_t`, its
+    plain version (which a CPU chunk takes, uncounted), bit for bit."""
+    if not on_cuda(frames):
+        return photons_t(frames, f, y, x, box, baseline, factor)
+    rows = _hit_rows(frames, f, y, x, box)
+    if rows[0].shape[0] == 0:
         return torch.empty((box, box, 0), dtype=torch.float32,
                            device=frames.device)
-    return _cut(frames, hits, box, baseline, factor)
+    return _cut(frames, rows, box, baseline, factor)
 
 
 cut_anybox_t.launches = 0
 
 
-def _anybox_mle(frames, hits, baseline, factor, box, eps, max_it, method):
+def cut_anybox_direct_t(frames, f, y, x, box: int, baseline: float,
+                        factor: float) -> torch.Tensor:
+    """The first form of :func:`cut_anybox_t` (csrc/cut_anybox.cu's
+    picasso_cut_anybox_direct: one thread a pixel, the spot index
+    fastest), the same ROIs bit for bit; on no path (chip_smoke.py times
+    the two in turns). On the CPU it is :func:`photons_t`, uncounted."""
+    cuda = on_cuda(frames)
+    hits = _hit_list(frames, f, y, x, box, cuda)
+    if not cuda:
+        return photons_t(frames, *hits, box, baseline, factor)
+    n = hits.shape[1]
+    out = torch.empty((box, box, n), dtype=torch.float32,
+                      device=frames.device)
+    if n == 0:
+        return out
+    B, Y, X = frames.shape
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream(frames.device).cuda_stream
+        status = _build.library().picasso_cut_anybox_direct(
+            frames.data_ptr(), _DTYPE_ID[frames.dtype], B, Y, X,
+            hits.data_ptr(), n, box, float(baseline), float(factor),
+            out.data_ptr(), stream,
+        )
+    _build.check(status, "cut_anybox_direct")
+    _build.count_launch(cut_anybox_direct_t)
+    return out
+
+
+cut_anybox_direct_t.launches = 0
+
+
+def _anybox_mle(frames, f, y, x, baseline, factor, box, eps, max_it,
+                method):
     """A CUDA chunk's MLE fit at a box without a templated kernel: the
-    any-box cut, then the any-box fit (2 launches)."""
-    spots = _cut(frames, hits, box, baseline, factor)
+    any-box cut, then the any-box fit (2 launches; none without hits)."""
+    rows = _hit_rows(frames, f, y, x, box)
+    if rows[0].shape[0] == 0:
+        return _empty_fit(frames.device)
+    spots = _cut(frames, rows, box, baseline, factor)
     return mle_cuda.fit_anybox_t(spots, eps, max_it, method)
 
 
@@ -212,15 +318,15 @@ def fit_mle_t(frames, f, y, x, baseline: float, factor: float, *, box: int,
     :func:`photons_t`, bit for bit."""
     _mle._check_method(method)
     cuda = on_cuda(frames)
+    if cuda and box not in BOXES:
+        return _anybox_mle(frames, f, y, x, baseline, factor, box, eps,
+                           max_it, method)
     hits = _hit_list(frames, f, y, x, box, cuda)
     if not cuda:
         return _mle._fit_core(photons_t(frames, *hits, box, baseline, factor),
                               eps, max_it, method)
     if hits.shape[1] == 0:
         return _empty_fit(frames.device)
-    if box not in BOXES:
-        return _anybox_mle(frames, hits, baseline, factor, box, eps, max_it,
-                           method)
     out = _launch_mle(FULL, frames, hits, baseline, factor, box, eps,
                       max_it, method)
     _build.count_launch(fit_mle_t)
@@ -241,17 +347,17 @@ def fit_mle_boundary_t(frames, f, y, x, baseline: float, factor: float, *,
     plain phase). Off the chain's routes (ops/fused.MLE_FITS)."""
     _mle._check_method(method)
     cuda = on_cuda(frames)
-    hits = _hit_list(frames, f, y, x, box, cuda)
     ends = phase_ends(default_boundaries(max_it), max_it)
     if not ends:
         return fit_mle_t(frames, f, y, x, baseline, factor, box=box, eps=eps,
                          max_it=max_it, method=method)
-    if hits.shape[1] == 0:
-        return _empty_fit(frames.device)
     if cuda and box not in BOXES:
         # one launch: the phases equal it by construction
-        return _anybox_mle(frames, hits, baseline, factor, box, eps, max_it,
-                           method)
+        return _anybox_mle(frames, f, y, x, baseline, factor, box, eps,
+                           max_it, method)
+    hits = _hit_list(frames, f, y, x, box, cuda)
+    if hits.shape[1] == 0:
+        return _empty_fit(frames.device)
 
     def phase(mode, hits, k, carry):
         if cuda:
@@ -331,15 +437,15 @@ def fit_mle_queue_t(frames, f, y, x, baseline: float, factor: float, *,
     gather route (cut, photons, the plain fit)."""
     _mle._check_method(method)
     cuda = on_cuda(frames)
+    if cuda and box not in BOXES:
+        return _anybox_mle(frames, f, y, x, baseline, factor, box, eps,
+                           max_it, method)
     hits = _hit_list(frames, f, y, x, box, cuda)
     if not cuda:
         return _mle._fit_core(photons_t(frames, *hits, box, baseline, factor),
                               eps, max_it, method)
     if hits.shape[1] == 0:
         return _empty_fit(frames.device)
-    if box not in BOXES:
-        return _anybox_mle(frames, hits, baseline, factor, box, eps, max_it,
-                           method)
     carry = _launch_queue(_build.library(), frames, hits, baseline, factor,
                           box, eps, max_it, method)
     _build.count_launch(fit_mle_queue_t)
@@ -406,18 +512,22 @@ def fit_lq_queue_t(frames, f, y, x, baseline: float, factor: float, *,
     that run them differ. ``coop_steps`` (one int32 on the card, or None) gains the spot-steps
     taken in the cooperative tail. On the CPU it is the gather route."""
     cuda = on_cuda(frames)
-    hits = _hit_list(frames, f, y, x, box, cuda)
     if not cuda:
-        return _lq._lm_core(photons_t(frames, *hits, box, baseline, factor),
-                            max_it, ftol)
+        return _lq._lm_core(photons_t(frames, f, y, x, box, baseline,
+                                      factor), max_it, ftol)
     if coop_steps is not None and (coop_steps.device != frames.device
                                    or coop_steps.dtype != torch.int32):
         raise ValueError("coop_steps must be an int32 tensor on the card")
-    if hits.shape[1] == 0:
-        return torch.empty((6, 0), dtype=torch.float32, device=frames.device)
+    empty = torch.empty((6, 0), dtype=torch.float32, device=frames.device)
     if box not in BOXES:
+        rows = _hit_rows(frames, f, y, x, box)
+        if rows[0].shape[0] == 0:
+            return empty
         return lq_cuda.fit_anybox_t(
-            _cut(frames, hits, box, baseline, factor), max_it, ftol)
+            _cut(frames, rows, box, baseline, factor), max_it, ftol)
+    hits = _hit_list(frames, f, y, x, box, cuda)
+    if hits.shape[1] == 0:
+        return empty
     theta = _launch_lq_queue(_build.library(), frames, hits, baseline, factor,
                              box, max_it, ftol, coop_steps)
     _build.count_launch(fit_lq_queue_t)

@@ -1550,7 +1550,8 @@ def test_mesh_dryrun_on_the_card(dev):
 def _counts():
     return {f: f.launches for f in (
         mle_cuda.fit_anybox_t, mle_cuda.fit_anybox_one_pass_t,
-        lq_cuda.fit_anybox_t, winfit_cuda.cut_anybox_t,
+        lq_cuda.fit_anybox_t, lq_cuda.fit_anybox_one_pass_t,
+        winfit_cuda.cut_anybox_t, winfit_cuda.cut_anybox_direct_t,
         identify_cuda.identify_tiles_anybox,
         identify_cuda.identify_tiles_anybox_direct, mle_cuda.fit_t,
         mle_cuda.fit_one_pass_t, mle_cuda.fit_boundary_t,
@@ -1642,6 +1643,52 @@ def test_anybox_queue_equals_the_one_thread_pass(dev, box):
         assert one[3][n_valid:].max() == 0
         _assert_same(_np(mle_cuda.fit_anybox_t(sp, EPS, MAX_IT, method,
                                                n_valid)), one)
+    _assert_lq_queue_equals_the_one_pass(sp, box, lib)
+
+
+# launch arguments of the any-box LM queue beside its default: every
+# place of the pixels and threads a block (its group and claim are
+# compile-time constants; tests/torch_anybox_sweep.py holds their -D
+# builds to the one-thread pass)
+LQ_ANYBOX_VARIANTS = ({}, *({"stage": st, "threads": t}
+                            for st in ("batch", "shared")
+                            for t in (32, 64, 128)))
+
+
+def _assert_lq_queue_equals_the_one_pass(sp, box, lib):
+    """The any-box LM queue with its default launch arguments and the
+    variants of LQ_ANYBOX_VARIANTS (those whose shared bytes fit) equals
+    the any-box one-thread pass bit for bit, also with lanes at n_valid
+    and beyond starting done; counted on its own counter."""
+    n = sp.shape[-1]
+    for n_valid in (None, n - 64):
+        one = lq_cuda.fit_anybox_one_pass_t(sp, MAX_IT, FTOL,
+                                            n_valid).cpu().numpy()
+        for kw in LQ_ANYBOX_VARIANTS:
+            cfg = dict(lq_cuda.anybox_queue_config(box), **kw)
+            if lq_cuda.anybox_queue_smem(box, cfg["stage"], cfg["threads"]) \
+                    > lq_cuda.SHARED_LIMIT:
+                continue
+            np.testing.assert_array_equal(lq_cuda._launch_anybox(
+                lib, sp, MAX_IT, FTOL, n_valid, cfg).cpu().numpy(), one)
+        before = _counts()
+        np.testing.assert_array_equal(
+            lq_cuda.fit_anybox_t(sp, MAX_IT, FTOL, n_valid).cpu().numpy(),
+            one)
+        assert _launched(before) == {"lq_cuda.fit_anybox_t": 1}
+
+
+def test_lq_anybox_queue_reads_the_batch_where_no_stage_fits(dev):
+    """At box 120 a warp's group stages pass the shared bytes a block may
+    hold: the LM queue's groups read the pixels from the batch (15
+    rounds of 8 points and rows a lane) and still equal the one-thread
+    pass bit for bit."""
+    box = 120
+    assert lq_cuda.anybox_queue_config(117)["stage"] == "shared"
+    assert lq_cuda.anybox_queue_config(box)["stage"] == "batch"
+    sp = _rois(96, box, 11, dev)
+    lib = mle_cuda._build.library()
+    _assert_lq_queue_equals_the_one_pass(sp, box, lib)
 
 
 def test_anybox_queue_refuses_what_it_does_not_take(dev):
@@ -1658,6 +1705,26 @@ def test_anybox_queue_refuses_what_it_does_not_take(dev):
                                          **kw))
     assert mle_cuda.anybox_queue_info(17)["threads"] == \
         mle_cuda.ANYBOX_THREADS
+    # the LM queue's entry: a stage above the card's limit, threads it
+    # is not built for
+    for box, kw in ((120, {"stage": "shared"}), (17, {"threads": 96}),
+                    (17, {"threads": 256})):
+        sp = _rois(256, box, 3, dev)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            lq_cuda._launch_anybox(lib, sp, MAX_IT, FTOL, None, dict(
+                lq_cuda.anybox_queue_config(box), **kw))
+    info = lq_cuda.anybox_queue_info(17)
+    assert info["threads"] == lq_cuda.anybox_queue_config(17)["threads"]
+    assert info["group"] == lq_cuda.ANYBOX_GROUP
+    assert info["shared_bytes"] == \
+        lq_cuda.anybox_queue_config(17)["shared_bytes"]
+    # the tiled cut's entry: a tile that is not a power of two up to 32,
+    # a band of more rows than the box
+    frames, hits = _chunk(make_spots(64, 17, seed=3), np.uint16, dev)
+    for cfg in ({"hits": 3, "rows": 17}, {"hits": 64, "rows": 17},
+                {"hits": 32, "rows": 18}, {"hits": 32, "rows": 0}):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            winfit_cuda._launch_cut(lib, frames, hits, 17, 0.0, 1.0, cfg)
 
 
 @pytest.mark.parametrize("box", [8, 17, 21])
@@ -1678,11 +1745,27 @@ def test_anybox_fits_route_count_and_match_plain(dev, box):
     mle_cuda.fit_multiround_t(sp, EPS, MAX_IT)
     assert _launched(before) == {"mle_cuda.fit_anybox_t": 1}
     plain = lq._lm_core(sp, MAX_IT, FTOL).cpu().numpy()
-    for fit in (lq_cuda.fit_t, lq_cuda.fit_queue_t, lq_cuda.fit_boundary_t):
+    for fit in (lq_cuda.fit_t, lq_cuda.fit_queue_t, lq_cuda.fit_boundary_t,
+                lq_cuda.fit_anybox_t):
         before = _counts()
         got = fit(sp, MAX_IT).cpu().numpy()
         assert _launched(before) == {"lq_cuda.fit_anybox_t": 1}
         compare_lq_fits(plain, got, sp.cpu().numpy())
+    # the fused chain at this box: K4 any-box, the tiled cut and the
+    # any-box fit once each, the first forms not at all
+    movie = make_bench_movie(4, 2 * box + 24, 6, 0.5,
+                             np.random.default_rng(box))
+    frames = identify.upload_frames(movie, dev)
+    for method in ("lq", "sigmaxy"):
+        before = _counts()
+        out = fused.identify_cut_fit(frames, 100.0, 0.0, 1.0, box=box,
+                                     eps=EPS, max_it=MAX_IT, method=method)
+        fit = "lq_cuda" if method == "lq" else "mle_cuda"
+        k4 = ("identify_cuda.identify_tiles_anybox" if box not in
+              identify_cuda.BOXES else "identify_cuda.identify_tiles")
+        want = {k4: 1, "winfit_cuda.cut_anybox_t": 1,
+                f"{fit}.fit_anybox_t": 1} if len(out[0]) else {k4: 1}
+        assert _launched(before) == want
 
 
 # output tiles of the any-box K4 beside its default
@@ -1764,20 +1847,55 @@ def test_identify_routes_a_box_without_a_tile_to_the_direct_kernel(dev, box):
     assert len(out[0]) > 0 and np.isfinite(out[4].cpu().numpy()).all()
 
 
+# launch arguments of the tiled cut beside its default: fewer hits a
+# tile, the window in bands of rows
+CUT_VARIANTS = ({"hits": 8, "rows": 1}, {"hits": 16, "rows": 3},
+                {"hits": 32, "rows": 5}, {"hits": 1, "rows": 2})
+
+
 @pytest.mark.parametrize("dtype", [np.uint16, np.float32])
-@pytest.mark.parametrize("box", [7, 8, 15, 17])
+@pytest.mark.parametrize("box", [4, 7, 8, 15, 17, 21])
 def test_cut_anybox_and_the_fused_fits_at_any_box(dev, box, dtype):
-    """The any-box cut == the gather route's ROIs bit for bit; K5's
-    wrappers at a box without a template = cut + any-box fit (counted
-    there), equal to the any-box fits of those ROIs; at 7 and 15 the cut
-    feeds the any-box bodies to the templated K5's numbers."""
-    spots = make_spots(2048, box, seed=box + 5)
+    """The tiled any-box cut (its default tile and those of CUT_VARIANTS,
+    a last tile short of hits; on int64 hit rows as compaction gives
+    them, one of them strided, on int32 rows, and on rows of stride 0) ==
+    its direct kernel == the gather route's ROIs bit for bit, each
+    counted on its own counter; K5's wrappers at a
+    box without a template = cut + any-box fit (counted there), equal to
+    the any-box fits of those ROIs; at 7 and 15 the cut feeds the any-box
+    bodies to the templated K5's numbers."""
+    spots = make_spots(2045, box, seed=box + 5)
     frames, hits = _chunk(spots, dtype, dev)
     rois = winfit_cuda.photons_t(frames, *hits, box, BASELINE, FACTOR)
     before = _counts()
     cut = winfit_cuda.cut_anybox_t(frames, *hits, box, BASELINE, FACTOR)
     assert _launched(before) == {"winfit_cuda.cut_anybox_t": 1}
     np.testing.assert_array_equal(cut.cpu().numpy(), rois.cpu().numpy())
+    before = _counts()
+    direct = winfit_cuda.cut_anybox_direct_t(frames, *hits, box, BASELINE,
+                                             FACTOR)
+    assert _launched(before) == {"winfit_cuda.cut_anybox_direct_t": 1}
+    np.testing.assert_array_equal(direct.cpu().numpy(), rois.cpu().numpy())
+    lib = winfit_cuda._build.library()
+    assert all(h.dtype == torch.int64 for h in hits)
+    for cfg in CUT_VARIANTS:
+        cfg = dict(cfg, rows=min(cfg["rows"], box))
+        np.testing.assert_array_equal(winfit_cuda._launch_cut(
+            lib, frames, hits, box, BASELINE, FACTOR, cfg).cpu().numpy(),
+            rois.cpu().numpy())
+    # rows of an (N, 3) list (torch.nonzero's, stride 3), int32 rows, and
+    # every hit in one frame as an expanded row (stride 0)
+    strided = torch.stack(hits, 1).unbind(1)
+    assert strided[0].stride(0) == 3
+    zero = torch.zeros(1, dtype=torch.int64, device=dev).expand(
+        len(hits[0]))
+    for rows in (strided, [h.to(torch.int32) for h in hits],
+                 (zero, hits[1], hits[2])):
+        np.testing.assert_array_equal(
+            winfit_cuda.cut_anybox_t(frames, *rows, box, BASELINE,
+                                     FACTOR).cpu().numpy(),
+            winfit_cuda.photons_t(frames, *rows, box, BASELINE,
+                                  FACTOR).cpu().numpy())
     for method in ("sigmaxy", "sigma"):
         kw = dict(box=box, eps=EPS, max_it=MAX_IT, method=method)
         want = _np(mle_cuda.fit_anybox_t(cut, EPS, MAX_IT, method))

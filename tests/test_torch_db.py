@@ -39,6 +39,7 @@ from picasso_tpu import io as jio
 from picasso_tpu import localize as jloc
 from picasso_torch import localize as tloc
 from torch_data import make_bench_movie, make_event_locs
+from torch_native import loaded_native
 
 DRIFT_AGREE = 1e-5  # px
 CLI_RTOL = 1e-4
@@ -51,6 +52,17 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _native_loaded():
+    """picasso_tpu.localize.get_spots (and fit2D, fit and localize through
+    it) converts a C-contiguous u16 movie with one factor only while
+    picasso_tpu.native is loaded, and in three roundings otherwise; the
+    port mirrors the one-factor route. A test process that lost the
+    native library's build race would hold the port to the other route:
+    load the library first (torch_native.loaded_native)."""
+    loaded_native()
 
 
 def _events(seed: int = 40):

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from torch_data import make_bench_movie
+from torch_native import loaded_native
 from picasso_tpu import io as jio
 from picasso_tpu import lib as jlib
 from picasso_tpu import localize as jloc
@@ -40,6 +41,17 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _native_loaded():
+    """picasso_tpu.localize.get_spots (and fit2D, fit and localize through
+    it) converts a C-contiguous u16 movie with one factor only while
+    picasso_tpu.native is loaded, and in three roundings otherwise; the
+    port mirrors the one-factor route. A test process that lost the
+    native library's build race would hold the port to the other route:
+    load the library first (torch_native.loaded_native)."""
+    loaded_native()
 
 
 @pytest.fixture(scope="module")
@@ -362,6 +374,30 @@ def test_get_spots_match_jax_per_route(movie2, tiff_series, route):
     np.testing.assert_array_equal(
         tloc.get_spots(src, ids, 7, dict(CAM2), device="cpu"),
         jloc.get_spots(jsrc, ids_df, 7, dict(CAM2)))
+
+
+def test_get_spots_follows_jaxs_native_route(movie2, monkeypatch):
+    """picasso_tpu's get_spots converts a C-contiguous u16 movie with a
+    scalar camera in one factor when picasso_tpu.native is loaded and in
+    three roundings when it is not, and the two differ on CAM2; the
+    port's get_spots equals the native route bit for bit, which is why
+    the JAX side of these tests must have the library loaded
+    (_native_loaded)."""
+    from picasso_tpu import native
+
+    ids = tloc.identify(movie2, MIN_NG, 7, device="cpu")
+    ids_df = pd.DataFrame(ids)
+    assert native.AVAILABLE
+    one_factor = jloc.get_spots(movie2, ids_df, 7, dict(CAM2))
+    monkeypatch.setattr(native, "AVAILABLE", False)
+    three_roundings = jloc.get_spots(movie2, ids_df, 7, dict(CAM2))
+    monkeypatch.undo()
+    assert native.AVAILABLE
+    assert one_factor.shape == three_roundings.shape == (len(ids), 7, 7)
+    assert not np.array_equal(one_factor, three_roundings)
+    np.testing.assert_allclose(one_factor, three_roundings, rtol=1e-6)
+    np.testing.assert_array_equal(
+        tloc.get_spots(movie2, ids, 7, dict(CAM2), device="cpu"), one_factor)
 
 
 def test_identify_never_needs_the_cut_clamp(movie2):

@@ -57,6 +57,7 @@ from picasso_torch import localize as tloc
 from picasso_torch import postprocess as tpost
 from picasso_torch import render as trender
 from torch_data import make_bench_movie
+from torch_native import loaded_native
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CAMERA = {"Baseline": 0, "Sensitivity": 1, "Gain": 1, "Pixelsize": 130}
@@ -75,6 +76,17 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _native_loaded():
+    """picasso_tpu.localize.get_spots (and fit2D, fit and localize through
+    it) converts a C-contiguous u16 movie with one factor only while
+    picasso_tpu.native is loaded, and in three roundings otherwise; the
+    port mirrors the one-factor route. A test process that lost the
+    native library's build race would hold the port to the other route:
+    load the library first (torch_native.loaded_native)."""
+    loaded_native()
 
 
 def _info(frames, size):

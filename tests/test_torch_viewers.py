@@ -56,6 +56,7 @@ from tests.test_torch_zfit import (  # noqa: E402
     Z_DIFF_NM, _simulated_astig_movie,
 )
 from torch_data import CALIB_3D, make_bench_movie  # noqa: E402
+from torch_native import loaded_native  # noqa: E402
 from torch_parity import (  # noqa: E402
     compare_fits, compare_hits, compare_lq_fits,
 )
@@ -73,6 +74,17 @@ def _one_thread():
     yield
     torch.set_num_threads(n)
     plt.close("all")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _native_loaded():
+    """picasso_tpu.localize.get_spots (and fit2D, fit and localize through
+    it) converts a C-contiguous u16 movie with one factor only while
+    picasso_tpu.native is loaded, and in three roundings otherwise; the
+    port mirrors the one-factor route. A test process that lost the
+    native library's build race would hold the port to the other route:
+    load the library first (torch_native.loaded_native)."""
+    loaded_native()
 
 
 @pytest.fixture(scope="module")

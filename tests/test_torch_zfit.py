@@ -22,6 +22,7 @@ from picasso_torch import gaussmle as tg
 from picasso_torch import localize as tl
 from picasso_torch import zfit as tz
 from torch_data import CALIB_3D, make_astig_movie
+from torch_native import loaded_native
 
 #: z of the port against picasso_tpu end to end, where the 2D fit's sx or
 #: sy differs in the last ulps (measured: max 0.18 nm on the simulated
@@ -37,6 +38,17 @@ def _threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _native_loaded():
+    """picasso_tpu.localize.get_spots (and fit2D, fit and localize through
+    it) converts a C-contiguous u16 movie with one factor only while
+    picasso_tpu.native is loaded, and in three roundings otherwise; the
+    port mirrors the one-factor route. A test process that lost the
+    native library's build race would hold the port to the other route:
+    load the library first (torch_native.loaded_native)."""
+    loaded_native()
 
 
 @pytest.fixture(scope="module")

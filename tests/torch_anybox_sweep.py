@@ -2,7 +2,7 @@
 """Sweep of the any-box kernels' launch configurations on one NVIDIA GPU:
 
     python3 tests/torch_anybox_sweep.py [--rounds N] [--spots N]
-                                        [--boxes 9,17,21]
+        [--boxes 9,17,21] [--lq-boxes 16,17,21] [--only mle,k4,lq,cut]
 
 The any-box MLE work queue (csrc/mle_anybox_queue.cu,
 ops/mle_cuda.fit_anybox_t) keeps its threads a block, its refill
@@ -35,6 +35,33 @@ the direct kernel in the same rounds; K4's fastest tile and the direct
 kernel also in runs of 20 calls and by their device time in a
 torch.profiler trace, and the clock cycles of each of K4's steps (a
 build of csrc/identify_anybox.cu alone with -DPICASSO_K4ANY_CLOCKS).
+The any-box LM work queue (csrc/lq_anybox_queue.cu, ops/lq_cuda.
+fit_anybox_t) keeps its group (8 lanes) and its claim (all a warp's free
+groups together) as compile-time constants, and takes where its pixels
+live and its threads a block as launch arguments (ops/lq_cuda.
+anybox_queue_config works them out from the box): at each box of
+``--lq-boxes`` the package's build at its configuration, at 32 threads
+and with the pixels read from the batch, beside builds of
+csrc/lq_anybox_queue.cu alone with -DPICASSO_LQANY_GROUP=4, 16 and 32
+(below the box a group's lanes loop over the points and rows),
+-DPICASSO_LQANY_REFILL=1 (each group claiming alone) at groups of 4, 8
+and 16, and -DPICASSO_LQANY_MIN_BLOCKS=1 and 8 (resident blocks a SM
+asked of ptxas; the package's asks 6), each held to the one-thread pass
+(ops/lq_cuda.fit_anybox_one_pass_t) bit for bit and timed in rounds
+beside it; then a build with -DPICASSO_LQANY_CLOCKS gives a trip's clock
+cycles split into the claim, the stage, the initialiser, the axis
+points, the rows and their fold, the solve (dot sums, assembly, damped
+step, acceptance) and the cost. (A lane a spot, the measured alternative
+to the groups, lost at box 17 and left the source; PERF.md has its
+times.) The any-box cut (csrc/cut_anybox.cu, ops/winfit_cuda.
+cut_anybox_t) takes its hits a tile and rows a band as launch
+arguments: at the same boxes on spots_chunk(make_spots(``--spots``, box,
+0)) as a u16 chunk and its int64 hit rows, tiles of 8, 16 and 32 hits,
+whole windows and bands of 4 rows, and builds of csrc/cut_anybox.cu
+alone with -DPICASSO_CUT_BATCH=8 and 16 (a lane's reads in flight; the
+package's 4), beside its direct kernel (cut_anybox_direct_t), each held
+to photons_t bit for bit. ``--only``
+picks the kernels swept (all by default).
 Prints the card, each variant's registers, spills, shared bytes and
 resident blocks a SM, the cooperative tail's spot-steps, one JSON line
 a variant, and the fastest configuration a box and method; exits
@@ -55,7 +82,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-EPS, MAX_IT, MIN_NG = 1e-3, 100, 5000
+EPS, MAX_IT, MIN_NG, FTOL = 1e-3, 100, 5000, 1e-6
 # compile-time variants of the MLE queue beside the package's build
 # (threads 32, refill 16, the tail from 4 busy slots a group): their
 # PICASSO_ANYQ_THREADS, _REFILL and _TAIL
@@ -353,6 +380,200 @@ def sweep_k4(chunk, rounds: int, smi: str) -> list:
     return out
 
 
+# builds of csrc/lq_anybox_queue.cu alone beside the package's (a group
+# of 8 lanes, all a warp's free groups claiming together, 6 blocks a SM
+# asked of ptxas): their -D flags
+LQ_BUILDS = {
+    **{f"g{g}": [f"-DPICASSO_LQANY_GROUP={g}"] for g in (4, 16, 32)},
+    **{f"g{g} each alone": [f"-DPICASSO_LQANY_GROUP={g}",
+                            "-DPICASSO_LQANY_REFILL=1"] for g in (4, 8, 16)},
+    "min blocks 1": ["-DPICASSO_LQANY_MIN_BLOCKS=1"],
+    "min blocks 8": ["-DPICASSO_LQANY_MIN_BLOCKS=8"],
+    "clocks": ["-DPICASSO_LQANY_CLOCKS"]}
+# builds of csrc/cut_anybox.cu alone: their -D flags
+CUT_BUILDS = {"batch 8": ["-DPICASSO_CUT_BATCH=8"],
+              "batch 16": ["-DPICASSO_CUT_BATCH=16"]}
+CUT_TILES = (8, 16, 32)
+CUT_BAND = 4  # rows a band of the banded cut variants
+
+
+def build_alone(source: str, builds: dict, entries, tag: str) -> dict:
+    """Build csrc/``source`` alone once a variant of ``builds`` (name ->
+    -D flags; all at once, into picasso_torch/.build/anybox-sweep/),
+    print their ptxas rows; returns name -> loaded library with the C
+    signatures of ``entries``."""
+    import ctypes
+
+    from chip_smoke import _ptxas_table
+    from picasso_torch import _build
+
+    out_dir = _build.BUILD_ROOT / "anybox-sweep"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name, flags in builds.items():
+        lib = out_dir / f"lib{tag}_{name.replace(' ', '_')}.so"
+        jobs[name] = (lib, subprocess.Popen(
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", *flags,
+             "-o", str(lib), str(_build.CSRC / source)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for name, (path, proc) in jobs.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{err[-4000:]}")
+        for row in _ptxas_table(out + err):
+            print(f"  ptxas ({name}):", row)
+        lib = ctypes.CDLL(str(path))
+        for fn in entries:
+            getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def lq_variants(box: int, builds: dict) -> dict:
+    """name -> (library, launch arguments) of the LM queue at ``box``: the
+    package's build at its configuration, at 32 threads a block and with
+    the pixels read from the batch; every -D build of LQ_BUILDS but the
+    clocks at the configuration (the pixels staged: at these boxes every
+    group's stages fit)."""
+    from picasso_torch import _build
+    from picasso_torch.ops import lq_cuda
+
+    base = lq_cuda.anybox_queue_config(box)
+    out = {"package": (_build.library(), base),
+           "package t32": (_build.library(), dict(base, threads=32)),
+           "package batch": (_build.library(), dict(base, stage="batch"))}
+    for name, lib in builds.items():
+        if name != "clocks":
+            out[name] = (lib, base)
+    return out
+
+
+def sweep_lq(box: int, n: int, rounds: int, smi: str, builds: dict) -> dict:
+    import torch
+
+    from picasso_torch.ops import lq_cuda
+    from torch_data import make_spots
+
+    sp = torch.from_numpy(np.ascontiguousarray(
+        make_spots(n, box, seed=0).transpose(1, 2, 0))).to("cuda")
+    default = "package"
+    one = lq_cuda.fit_anybox_one_pass_t(sp, MAX_IT, FTOL)
+    variants = lq_variants(box, builds)
+    info = {}
+    for name, (lib, cfg) in variants.items():
+        got = lq_cuda._launch_anybox(lib, sp, MAX_IT, FTOL, None, cfg)
+        if not torch.equal(got.nan_to_num(7.0), one.nan_to_num(7.0)):
+            raise AssertionError(f"LM queue box {box} {name}: differs from "
+                                 "the one-thread pass bit for bit")
+        info[name] = lq_cuda.anybox_queue_info(box, cfg, lib)
+    fns = {name: (lambda lib=lib, cfg=cfg: lq_cuda._launch_anybox(
+        lib, sp, MAX_IT, FTOL, None, cfg))
+        for name, (lib, cfg) in variants.items()}
+    fns["one-thread pass"] = lambda: lq_cuda.fit_anybox_one_pass_t(
+        sp, MAX_IT, FTOL)
+    ms = in_rounds(fns, rounds)
+    for name, (_, cfg) in variants.items():
+        print(json.dumps({"kernel": "lq anybox queue", "box": box,
+                          "variant": name, "config": cfg, "ms": ms[name],
+                          **info[name], "card": smi}))
+    best = min(variants, key=ms.get)
+    out = {"box": box, "default": default, "fastest": best,
+           "fastest_ms": ms[best], "default_ms": ms[default],
+           "one_pass_ms": ms["one-thread pass"], "card": smi}
+    print(json.dumps({"lq anybox queue summary": out}))
+    return out
+
+
+def lq_clocks(box: int, n: int, lib) -> dict:
+    """A trip's clock cycles of the LM queue's clocks build at ``box``
+    (lane 0 of each warp sums each part; the package's group and claim):
+    the mean cycles of a warp's trip in each part, the trips and
+    warps."""
+    import ctypes
+
+    import torch
+
+    from picasso_torch.ops import lq_cuda
+    from torch_data import make_spots
+
+    fn = lib.picasso_lq_anybox_queue_clocks
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sp = torch.from_numpy(np.ascontiguousarray(
+        make_spots(n, box, seed=0).transpose(1, 2, 0))).to("cuda")
+    clocks = (ctypes.c_ulonglong * 10)()
+    parts = ("claim", "stage", "initialiser", "axis points",
+             "rows and fold", "solve", "cost", "rest")
+    fn(clocks)  # zero them
+    lq_cuda._launch_anybox(lib, sp, MAX_IT, FTOL, None,
+                           lq_cuda.anybox_queue_config(box))
+    torch.cuda.synchronize()
+    fn(clocks)
+    trips = max(int(clocks[8]), 1)
+    row = {"box": box, "group": lq_cuda.ANYBOX_GROUP,
+           "warps": int(clocks[9]), "trips": int(clocks[8]),
+           "cycles_a_trip": {p: round(clocks[k] / trips, 1)
+                             for k, p in enumerate(parts)}}
+    print(json.dumps({"lq anybox queue trip": row}))
+    return row
+
+
+def sweep_cut(box: int, n: int, rounds: int, smi: str,
+              builds: dict) -> dict:
+    import torch
+
+    from picasso_torch.ops import winfit_cuda
+    from torch_data import make_spots, spots_chunk
+
+    frames, hits = spots_chunk(make_spots(n, box, seed=0), np.uint16)
+    frames = torch.from_numpy(frames).to("cuda")
+    hits = [torch.from_numpy(h).to("cuda") for h in hits]  # int64 rows
+    plain = winfit_cuda.photons_t(frames, *hits, box, 0.0, 1.0)
+    base = winfit_cuda.anybox_cut_config(box)
+    fns = {"direct": lambda: winfit_cuda.cut_anybox_direct_t(
+        frames, *hits, box, 0.0, 1.0)}
+    cfgs = {}
+    for tile in CUT_TILES:
+        for rows in (base["rows"], CUT_BAND):
+            cfg = {"hits": tile, "rows": min(rows, box)}
+            if winfit_cuda.anybox_cut_smem(box, **cfg) > \
+                    winfit_cuda.SHARED_LIMIT:
+                continue
+            cfgs[f"hits {tile} rows {cfg['rows']}"] = cfg
+    from picasso_torch import _build
+
+    libs = {name: _build.library() for name in cfgs}
+    for build, lib in builds.items():
+        cfgs[build] = dict(base)
+        libs[build] = lib
+    for name, cfg in cfgs.items():
+        if not torch.equal(winfit_cuda._launch_cut(
+                libs[name], frames, hits, box, 0.0, 1.0, cfg), plain):
+            raise AssertionError(f"cut box {box} {name}: differs from "
+                                 "photons_t")
+        fns[name] = (lambda cfg=cfg, lib=libs[name]: winfit_cuda._launch_cut(
+            lib, frames, hits, box, 0.0, 1.0, cfg))
+    if not torch.equal(fns["direct"](), plain):
+        raise AssertionError(f"direct cut box {box} differs from photons_t")
+    ms = in_rounds(fns, rounds)
+    for name, t in ms.items():
+        print(json.dumps({"kernel": "cut anybox", "box": box, "variant": name,
+                          "config": cfgs.get(name), "ms": t,
+                          "shared_bytes": None if name == "direct" else
+                          winfit_cuda.anybox_cut_smem(
+                              box, cfgs[name]["hits"], cfgs[name]["rows"]),
+                          "card": smi}))
+    best = min(cfgs, key=ms.get)
+    out = {"box": box, "default": base, "fastest": best,
+           "fastest_ms": ms[best],
+           "default_ms": ms[f"hits {base['hits']} rows {base['rows']}"],
+           "direct_ms": ms["direct"], "card": smi}
+    print(json.dumps({"cut anybox summary": out}))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -360,7 +581,10 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--spots", type=int, default=131072)
     ap.add_argument("--boxes", default="9,17,21")
+    ap.add_argument("--lq-boxes", default="16,17,21")
+    ap.add_argument("--only", default="mle,k4,lq,cut")
     args = ap.parse_args()
+    only = set(args.only.split(","))
     if not torch.cuda.is_available():
         print("torch_anybox_sweep: no CUDA device", file=sys.stderr)
         return 2
@@ -376,32 +600,64 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print("card (nvidia-smi name, power.limit):", smi)
     t0 = time.perf_counter()
-    builds = {}
-    variants = threading.Thread(
-        target=lambda: builds.update(build_mle_variants()))
-    variants.start()  # alongside the package's build
+    builds, lq_builds, cut_builds = {}, {}, {}
+    jobs = [threading.Thread(target=lambda: builds.update(
+        build_mle_variants()))] if "mle" in only else []
+    if "lq" in only:
+        jobs.append(threading.Thread(target=lambda: lq_builds.update(
+            build_alone("lq_anybox_queue.cu", LQ_BUILDS, (
+                "picasso_lq_anybox_queue", "picasso_lq_anybox_queue_info"),
+                "lqany"))))
+    if "cut" in only:
+        jobs.append(threading.Thread(target=lambda: cut_builds.update(
+            build_alone("cut_anybox.cu", CUT_BUILDS, ("picasso_cut_anybox",),
+                        "cut"))))
+    for job in jobs:
+        job.start()  # alongside the package's build
     lib_path, build_s = _build.build()
-    variants.join()
-    if len(builds) != len(MLE_BUILDS):
+    for job in jobs:
+        job.join()
+    if "mle" in only and len(builds) != len(MLE_BUILDS):
         raise RuntimeError("a variant of the MLE queue did not build")
+    if "lq" in only and len(lq_builds) != len(LQ_BUILDS):
+        raise RuntimeError("a variant of the LM queue did not build")
+    if "cut" in only and len(cut_builds) != len(CUT_BUILDS):
+        raise RuntimeError("a variant of the cut did not build")
     print(f"build: {build_s:.1f} s -> {lib_path}; the variants "
           f"{time.perf_counter() - t0:.1f} s")
     from chip_smoke import _ptxas_table
 
     for row in _ptxas_table((lib_path.parent / "build.log").read_text()):
-        if row.startswith(("mle_any_queue", "identify_any")):
+        if row.startswith(("mle_any_queue", "identify_any", "lq_any_queue",
+                           "cut_any")):
             print("  ptxas:", row)
     # the SASS of the sigmaxy queue with its stage and column factors in
-    # shared memory, and of K4 at any box on u16 frames
+    # shared memory, of K4 at any box on u16 frames, of the LM queue (a
+    # group of 32, shared stage) and of the cut on u16 frames
     for needle in ("mle_any_queue_kernelILb0ELi1ELb1E",
-                   "identify_any_kernelIt"):
+                   "identify_any_kernelIt", "lq_any_queue_kernelILi8ELi1E",
+                   "cut_any_kernelItiE"):
         print("  SASS", needle, json.dumps(sass_counts(lib_path, needle)))
-    summaries = [sweep_mle(int(b), args.spots, args.rounds, smi, builds)
-                 for b in args.boxes.split(",") if b]
-    movie = make_wide_movie(256, 256, 100, 0.5, np.random.default_rng(23))
-    chunk = identify.upload_frames(movie, torch.device("cuda"))
-    summaries += sweep_k4(chunk, args.rounds, smi)
-    summaries.append({"K4 steps at box 17": k4_steps(chunk)})
+    summaries = []
+    if "mle" in only:
+        summaries += [sweep_mle(int(b), args.spots, args.rounds, smi, builds)
+                      for b in args.boxes.split(",") if b]
+    if "lq" in only:
+        for b in args.lq_boxes.split(","):
+            summaries.append(sweep_lq(int(b), args.spots, args.rounds, smi,
+                                      lq_builds))
+        summaries.append({"LM queue trips at box 17": lq_clocks(
+            17, args.spots, lq_builds["clocks"])})
+    if "cut" in only:
+        summaries += [sweep_cut(int(b), args.spots, args.rounds, smi,
+                                cut_builds)
+                      for b in args.lq_boxes.split(",")]
+    if "k4" in only:
+        movie = make_wide_movie(256, 256, 100, 0.5,
+                                np.random.default_rng(23))
+        chunk = identify.upload_frames(movie, torch.device("cuda"))
+        summaries += sweep_k4(chunk, args.rounds, smi)
+        summaries.append({"K4 steps at box 17": k4_steps(chunk)})
     print(json.dumps({"summaries": summaries,
                       "seconds": time.perf_counter() - t0}))
     return 0
