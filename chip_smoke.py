@@ -332,7 +332,20 @@ Phases, each of which raises on failure (exit code != 0):
    movie's first chunk, its bound counted from its maxima) against their
    plain versions, the MLE and LM queues in turns with their one-thread
    passes, the cut and K4 with their direct kernels, for the kernels
-   line.
+   line; (c) boxes 1 and 2 (small_box_phase): gaussmle (sigmaxy,
+   sigma) and gausslq.fit_spots on make_spots(131072, box, 0), fit2D
+   (MLE, LQ, avg) of the bench movie's box-3 identifications on its
+   first 256 frames (paths ``box1-mle``, ``box1-mle-sigma``,
+   ``box1-lq``, ``box1-fit2D-mle``, ``box1-fit2D-lq``,
+   ``box1-fit2D-avg`` and ``box2-*``: the any-box MLE or LM queue once,
+   avg none), each == the any-box one-thread pass bit for bit, held to
+   the plain fits by the tests' comparisons (box 1 compare_fits_max_it
+   at max_it 5 and the LM bit for bit; box 2 compare_fits_rounding /
+   compare_lq_fits_rounding against the plain fit in f64), avg within
+   compare_avg_photons; the tiled cut == its direct kernel == photons_t
+   (u16, f32); identify refused (ValueError) at both boxes; the queues
+   and the cut timed in turns with their first forms (the kernels
+   line's ``box1_*`` and ``box2_*`` keys).
 IMS and STK movies are checked on the CPU only (tests/test_torch_io.py):
 the machine with the card has no h5py, and the CLI's verbs run on the
 CPU only. The apps' figures are held to the JAX package's on the CPU
@@ -3140,7 +3153,243 @@ def _locs_fields(locs) -> list:
             locs["log_likelihood"], locs["iterations"]]
 
 
-def anybox_phase(wide, chunk, timed_spots, counted, smi: str):
+# boxes 1 and 2 (phase 26 (c)): the MLE held to the plain fit at
+# SMALL_MAX_IT (as box 3), the LM at fit2D's max_it; the bench movie's
+# first SMALL_FRAMES frames give fit2D its box-3 identifications
+SMALL_BOXES = (1, 2)
+SMALL_MAX_IT, SMALL_LQ_IT, SMALL_FRAMES = 5, 30, CHUNK
+
+
+def _hold_small_mle(sp, got, method: str, what: str) -> dict:
+    """The any-box MLE queue's fit ``got`` of the box-1 or box-2 batch
+    ``sp`` at SMALL_MAX_IT held to the plain fit as
+    tests/test_torch_cuda.py holds it: at box 1 by compare_fits_max_it,
+    at box 2 by compare_fits_rounding against the plain fit in f64.
+    Returns the distances to the plain fit (``pair``) and, at box 2, to
+    the fit in f64 (``got``) and the plain fit's (``ref``)."""
+    from picasso_torch.ops import mle
+    from torch_parity import compare_fits_max_it, compare_fits_rounding
+
+    as_np = lambda out: [a.cpu().numpy() for a in out]  # noqa: E731
+    plain = as_np(mle._fit_core(sp, EPS, SMALL_MAX_IT, method))
+    if sp.shape[0] == 1:
+        return {"pair": compare_fits_max_it(plain, got, SMALL_MAX_IT, what)}
+    exact = as_np(mle._fit_core(sp.double(), EPS, SMALL_MAX_IT, method))
+    return compare_fits_rounding(exact, plain, got, SMALL_MAX_IT, what)
+
+
+def _hold_small_lq(sp, got, what: str) -> dict:
+    """The any-box LM queue's fit ``got`` (theta at SMALL_LQ_IT) held to
+    the plain fit: at box 1 bit for bit, at box 2 by
+    compare_lq_fits_rounding against the plain fit in f64. Returns the
+    distances as :func:`_hold_small_mle` does."""
+    from picasso_torch.ops import lq
+    from torch_parity import compare_lq_fits_rounding
+
+    plain = lq._lm_core(sp, SMALL_LQ_IT, FTOL).cpu().numpy()
+    if sp.shape[0] == 1:
+        if not np.array_equal(got, plain, equal_nan=True):
+            raise AssertionError(f"{what}: not the plain fit bit for bit")
+        return {"pair": {"xy_p100": 0.0}}
+    exact = lq._lm_core(sp.double(), SMALL_LQ_IT, FTOL).cpu().numpy()
+    return compare_lq_fits_rounding(exact, plain, got,
+                                    sp.double().cpu().numpy(), what)
+
+
+def small_box_phase(bench, counted, smi: str):
+    """26 (c). Boxes 1 and 2 on the card, at each: gaussmle (sigmaxy,
+    sigma) and gausslq on make_spots(N_SPOTS, box, 0), and fit2D (MLE,
+    LQ, avg) of the ROIs of the bench movie's box-3 identifications on
+    its first SMALL_FRAMES frames, through the entry points with their
+    launches counted (paths ``box1-mle``, ``box1-mle-sigma``,
+    ``box1-lq``, ``box1-fit2D-mle``, ``box1-fit2D-lq``,
+    ``box1-fit2D-avg``, and ``box2-*``); each fit == the any-box one-thread
+    pass bit for bit, the queues held to the plain fits at SMALL_MAX_IT
+    (MLE) and SMALL_LQ_IT (LM) by the tests' comparisons (box 1:
+    compare_fits_max_it, the LM bit for bit; box 2: against the plain
+    fit in f64, compare_fits_rounding / compare_lq_fits_rounding), avg
+    within compare_avg_photons; the tiled cut == its direct kernel ==
+    photons_t (u16, f32); identify raises a ValueError at the box; the
+    MLE queue (both methods) and the LM queue timed in turns with their
+    one-thread passes, the cut with its direct kernel. Returns (launches
+    by path, ms, bounds, errs, a summary a box)."""
+    import torch
+
+    from picasso_torch import avgroi, gausslq, gaussmle, localize
+    from picasso_torch.ops import lq, lq_cuda, mle, mle_cuda, winfit_cuda
+    from torch_data import make_spots, spots_chunk
+    from torch_parity import compare_avg_photons
+
+    dev = torch.device("cuda")
+    as_np = lambda out: [a.cpu().numpy() for a in out]  # noqa: E731
+    camera = {"Baseline": 0, "Sensitivity": 1, "Gain": 1, "Pixelsize": 130}
+    frames = bench[:SMALL_FRAMES]
+    info = [{"Frames": len(frames), "Height": frames.shape[1],
+             "Width": frames.shape[2]}]
+    ids = localize.identify(frames, MIN_NG, 3, device="cuda")
+    paths, ms, bounds, errs, summary = {}, {}, {}, {}, {}
+    n = N_SPOTS
+
+    def only(launches, keys, what):
+        on = {k for k, v in launches.items() if v}
+        if on != set(keys):
+            raise AssertionError(f"{what} did not run through {keys} "
+                                 f"only: {launches}")
+
+    for box in SMALL_BOXES:
+        tag = f"box{box}"
+        got_box = summary[tag] = {"ids": len(ids)}
+        spots = make_spots(n, box, seed=0)
+        sp = torch.from_numpy(np.ascontiguousarray(
+            spots.transpose(1, 2, 0))).to(dev)
+        # (1) the entry points, counted; each == the one-thread pass
+        for method in ("sigmaxy", "sigma"):
+            path = f"{tag}-mle" + ("-sigma" if method == "sigma" else "")
+            out, wall, paths[path] = counted(lambda: gaussmle.gaussmle(
+                spots, EPS, MAX_IT, method, device="cuda"))
+            only(paths[path], ["mle anybox"], path)
+            one = as_np(mle_cuda.fit_anybox_one_pass_t(sp, EPS, MAX_IT,
+                                                       method))
+            _assert_equal([out[0].T, out[1].T, out[2], out[3]], one,
+                          f"{path}: gaussmle vs the one-thread pass")
+            sig = " sigma" if method == "sigma" else ""
+            key, one_key = "mle anybox" + sig, "mle anybox one pass" + sig
+            st = _hold_small_mle(sp, as_np(mle_cuda.fit_anybox_t(
+                sp, EPS, SMALL_MAX_IT, method)), method, f"{path} vs plain")
+            errs[f"{key} {tag}"] = errs[f"{one_key} {tag}"] = \
+                st["pair"]["xy_p100"]
+            got_box[path] = {"s": round(wall, 4), "at_max_it": float(
+                np.mean(one[3] == MAX_IT)), "held": st}
+            # in turns with the one-thread pass; the plain fit once
+            one_t, queue_t = _alternate((
+                lambda: mle_cuda.fit_anybox_one_pass_t(sp, EPS, MAX_IT,
+                                                       method),
+                lambda: mle_cuda.fit_anybox_t(sp, EPS, MAX_IT, method)))
+            ms[f"{key} {tag}"] = statistics.median(queue_t)
+            ms[f"{one_key} {tag}"] = statistics.median(one_t)
+            _, ms[f"plain {key} {tag}"] = _once_ms(
+                lambda: mle._fit_core(sp, EPS, MAX_IT, method))
+            ms[f"plain {one_key} {tag}"] = ms[f"plain {key} {tag}"]
+            bounds[f"{key} {tag}"] = bounds[f"{one_key} {tag}"] = _fit_bound(
+                n, float(one[3].sum()), mle_flops_per_spot_iter,
+                6 * 4 * 2 + 8, box * box * 4, box)
+        theta, wall, paths[f"{tag}-lq"] = counted(lambda: gausslq.fit_spots(
+            spots, device="cuda"))
+        only(paths[f"{tag}-lq"], ["lq anybox"], f"{tag}-lq")
+        one = lq_cuda.fit_anybox_one_pass_t(sp, SMALL_LQ_IT).cpu().numpy()
+        _assert_equal([theta.T], [one], f"{tag}-lq: fit_spots vs the "
+                      "one-thread pass")
+        st = _hold_small_lq(sp, one, f"{tag}-lq vs plain")
+        errs[f"lq anybox {tag}"] = errs[f"lq anybox one pass {tag}"] = \
+            st["pair"]["xy_p100"]
+        got_box[f"{tag}-lq"] = {"s": round(wall, 4), "held": st}
+        one_t, queue_t = _alternate((
+            lambda: lq_cuda.fit_anybox_one_pass_t(sp, SMALL_LQ_IT),
+            lambda: lq_cuda.fit_anybox_t(sp, SMALL_LQ_IT)))
+        ms[f"lq anybox {tag}"] = statistics.median(queue_t)
+        ms[f"lq anybox one pass {tag}"] = statistics.median(one_t)
+        steps, _, reused = lq_iters(sp, SMALL_LQ_IT)
+        _, ms[f"plain lq anybox {tag}"] = _once_ms(
+            lambda: lq._lm_core(sp, SMALL_LQ_IT, FTOL), warm=False)
+        ms[f"plain lq anybox one pass {tag}"] = ms[f"plain lq anybox {tag}"]
+        bounds[f"lq anybox {tag}"] = bounds[f"lq anybox one pass {tag}"] = \
+            lq_fit_bound(n, float(steps.sum()), float(reused.sum()),
+                         box * box * 4, box)
+        # (2) fit2D of the bench movie's box-3 identifications
+        rois = localize.get_spots(frames, ids, box, dict(camera),
+                                  device="cuda")
+        rt = torch.from_numpy(np.ascontiguousarray(
+            rois.transpose(1, 2, 0))).to(dev)
+        for method, key in (("gaussmle", "mle anybox"),
+                            ("gausslq", "lq anybox"), ("avg", None)):
+            path = f"{tag}-fit2D-{method[5:] if key else 'avg'}"
+            (locs, _), wall, paths[path] = counted(lambda: localize.fit2D(
+                frames, info, dict(camera), ids, box, fitting_method=method,
+                device="cuda"))
+            only(paths[path], [key] if key else [], path)
+            if method == "gaussmle":
+                one = as_np(mle_cuda.fit_anybox_one_pass_t(rt, EPS, MAX_IT))
+                ref = gaussmle.locs_from_fits(ids, one[0].T, one[1].T,
+                                              one[2], one[3], box)
+                st = _hold_small_mle(rt, as_np(mle_cuda.fit_anybox_t(
+                    rt, EPS, SMALL_MAX_IT)), "sigmaxy", f"{path} vs plain")
+            elif method == "gausslq":
+                one = lq_cuda.fit_anybox_one_pass_t(rt, SMALL_LQ_IT)
+                ref = gausslq.locs_from_fits(ids, one.cpu().numpy().T, box,
+                                             False)
+                st = _hold_small_lq(rt, one.cpu().numpy(), f"{path} vs "
+                                    "plain")
+            else:
+                ref = avgroi.locs_from_fits(ids, avgroi.fit_spots(
+                    rois, device="cpu"), box, False)
+                st = {"photons_rel": compare_avg_photons(
+                    ref["photons"], locs["photons"], rois, path)}
+                for c in ("x", "y", "sx", "sy"):
+                    if not np.array_equal(locs[c], ref[c]):
+                        raise AssertionError(f"{path}: {c} differs")
+                ref = None
+            if ref is not None and not all(
+                    np.array_equal(locs[c], ref[c], equal_nan=True)
+                    for c in ref.dtype.names):
+                raise AssertionError(f"{path}: fit2D's locs are not the "
+                                     "one-thread pass's bit for bit")
+            got_box[path] = {"locs": len(locs), "s": round(wall, 4),
+                             "held": st}
+        # (3) the tiled cut == its direct kernel == photons_t
+        for dtype in (np.uint16, np.float32):
+            chunk, hits = spots_chunk(spots, dtype)
+            chunk = torch.from_numpy(chunk).to(dev)
+            hits = [torch.from_numpy(h).to(dev) for h in hits]
+            cut = winfit_cuda.cut_anybox_t(chunk, *hits, box, 1.5, 0.8)
+            for other, what in (
+                    (winfit_cuda.cut_anybox_direct_t, "its direct kernel"),
+                    (winfit_cuda.photons_t, "the plain version")):
+                if not torch.equal(cut, other(chunk, *hits, box, 1.5, 0.8)):
+                    raise AssertionError(
+                        f"the tiled cut at box {box} ({dtype.__name__}) is "
+                        f"not {what} bit for bit")
+        # timed on the u16 chunk, as the path cuts it
+        chunk = torch.from_numpy(spots_chunk(spots, np.uint16)[0]).to(dev)
+        direct_t, tiled_t = _alternate((
+            lambda: winfit_cuda.cut_anybox_direct_t(chunk, *hits, box, 0.0,
+                                                    1.0),
+            lambda: winfit_cuda.cut_anybox_t(chunk, *hits, box, 0.0, 1.0)))
+        ms[f"cut anybox {tag}"] = statistics.median(tiled_t)
+        ms[f"cut anybox direct {tag}"] = statistics.median(direct_t)
+        _, ms[f"plain cut anybox {tag}"] = _once_ms(
+            lambda: winfit_cuda.photons_t(chunk, *hits, box, 0.0, 1.0))
+        ms[f"plain cut anybox direct {tag}"] = ms[f"plain cut anybox {tag}"]
+        bounds[f"cut anybox {tag}"] = bounds[f"cut anybox direct {tag}"] = \
+            _bound(2 * n * box * box, n * (box * box * 6 + 24))
+        errs[f"cut anybox {tag}"] = errs[f"cut anybox direct {tag}"] = 0.0
+        # (4) identify refuses the box on the card, as picasso_tpu's
+        try:
+            localize.identify(frames[:4], MIN_NG, box, device="cuda")
+        except ValueError as e:
+            got_box["identify"] = str(e)
+        else:
+            raise AssertionError(f"identify took box {box} on the card")
+        for key, one_key in (
+                ("mle anybox", "mle anybox one pass"),
+                ("mle anybox sigma", "mle anybox one pass sigma"),
+                ("lq anybox", "lq anybox one pass"),
+                ("cut anybox", "cut anybox direct")):
+            print(f"{key} at box {box}: {ms[f'{key} {tag}']:.4f} ms, "
+                  f"{one_key} {ms[f'{one_key} {tag}']:.4f} ms (in turns), "
+                  f"plain {ms[f'plain {key} {tag}']:.3f} ms, bound "
+                  f"{bounds[f'{key} {tag}'][0]:.4f} ms "
+                  f"({bounds[f'{key} {tag}'][1]}, "
+                  f"{bounds[f'{key} {tag}'][0] / ms[f'{key} {tag}']:.1%} of "
+                  f"it) ({smi})")
+        del sp, rt, chunk, hits, cut
+        print(f"box {box}: the entry points through the any-box kernels, "
+              "each == the one-thread pass, the tiled cut == its direct "
+              "kernel == plain (u16, f32), identify refused:",
+              json.dumps(got_box), f"({smi})")
+    return paths, ms, bounds, errs, summary
+
+
+def anybox_phase(wide, chunk, timed_spots, bench, counted, smi: str):
     """26. Every box on the card. (a) localize at box 17 (MLE sigmaxy,
     sigma, LQ) and 21 (MLE) on the wide movie, each through K4 at any box
     (csrc/identify_anybox.cu), the any-box cut (cut_anybox.cu) and fit
@@ -3674,9 +3923,13 @@ def anybox_phase(wide, chunk, timed_spots, counted, smi: str):
               f"{ms['plain ' + key]:.3f} ms, bound {bounds[key][0]:.4f} ms "
               f"({bounds[key][1]}, {bounds[key][0] / ms[key]:.1%} of it), "
               f"max abs err vs plain {errs[key]} ({smi})")
+    t_c = time.perf_counter()
+    small = small_box_phase(bench, counted, smi)
+    for have, more in zip((paths, ms, bounds, errs), small):
+        have.update(more)
     print(f"phase 26: {time.perf_counter() - t0:.1f} s ((a) {t_a - t0:.1f}, "
-          f"(b) {t_b - t_a:.1f}, timings {time.perf_counter() - t_b:.1f}) "
-          f"({smi})")
+          f"(b) {t_b - t_a:.1f}, timings {t_c - t_b:.1f}, (c) boxes 1 and 2 "
+          f"{time.perf_counter() - t_c:.1f}) ({smi})")
     return paths, ms, bounds, errs
 
 
@@ -5105,7 +5358,7 @@ def main() -> int:
           "generate (alongside the build)")
     torch.cuda.empty_cache()
     launches_any, ms_any, bounds_any, errs_any = anybox_phase(
-        wide, chunk, timed_spots, counted, smi)
+        wide, chunk, timed_spots, movie, counted, smi)
     ms.update(ms_any)
     bounds.update(bounds_any)
     del wide, timed_spots
@@ -5307,6 +5560,33 @@ def main() -> int:
         k["box3_ms"] = ms[key]
         k["box3_plain_ms"] = ms["plain " + plain]
         k["box3_bound_ms"] = bounds[plain][0]
+    # the any-box kernels at boxes 1 and 2 (phase 26 (c)): time, plain,
+    # bound and the launches on the paths of that box
+    for name, key, method in (
+            ("mle_anybox_queue sigmaxy (", "mle anybox", "sigmaxy"),
+            ("mle_anybox_queue sigma (", "mle anybox sigma", "sigma"),
+            ("mle_anybox sigmaxy (", "mle anybox one pass", "sigmaxy"),
+            ("mle_anybox sigma (", "mle anybox one pass sigma", "sigma"),
+            ("lq_anybox_queue (", "lq anybox", None),
+            ("lq_anybox (", "lq anybox one pass", None),
+            ("cut_anybox (", "cut anybox", None),
+            ("cut_anybox_direct (", "cut anybox direct", None)):
+        k = next(k for k in kernels if k["name"].startswith(name))
+        # both methods count on one counter; the first forms on none of
+        # these paths
+        counter = "mle anybox" if key == "mle anybox sigma" else key
+        for box in SMALL_BOXES:
+            tag = f"box{box}"
+            k[f"{tag}_launches"] = sum(
+                v.get(counter, 0) for p, v in paths.items()
+                if p.startswith(tag + "-") and (
+                    method is None
+                    or p.endswith("-sigma") == (method == "sigma")))
+            k[f"{tag}_ms"] = ms[f"{key} {tag}"]
+            k[f"{tag}_plain_ms"] = ms[f"plain {key} {tag}"]
+            k[f"{tag}_bound_ms"], k[f"{tag}_bound_by"] = \
+                bounds[f"{key} {tag}"]
+            k[f"{tag}_max_abs_err"] = errs_any[f"{key} {tag}"]
     for k in kernels:  # the LM kernel's time on chunk 0 too
         if k["name"].startswith("K5 winfit_lq"):
             k["chunk0_ms"] = ms["K5 lq queue chunk 0"]

@@ -1,8 +1,8 @@
 // The MLE fit (sigmaxy and sigma) of one spot at a box known only at run
 // time (sm_90a): the body of the any-box work queue (mle_anybox_queue.cu,
 // a slot's spot) and of the one-thread pass (mle_anybox.cu), for the
-// boxes that fit_mle.cuh's templates are not built for (any box >= 3
-// and < 5, or above 15, or even).
+// boxes that fit_mle.cuh's templates are not built for (any box >= 1
+// but the odd boxes 3-15).
 //
 // It forms the same numbers as fit_mle.cuh's one-thread pass, in the
 // same order, from the same pieces (mle_edge, mle_point, mle_column,

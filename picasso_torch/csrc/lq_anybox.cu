@@ -28,7 +28,7 @@ __global__ void __launch_bounds__(128)
 
 }  // namespace
 
-// LM-fit n spots, lanes-last (box, box, n) f32, box >= 3, one thread a
+// LM-fit n spots, lanes-last (box, box, n) f32, box >= 1, one thread a
 // spot: init, up to max_it iterations, theta (6, n) f32 out, x/y
 // relative to the box centre; spots at index >= n_valid start done. work
 // is (7, box, n) f32 on the card, scratch. Returns cudaGetLastError()
@@ -36,7 +36,7 @@ __global__ void __launch_bounds__(128)
 extern "C" int picasso_lq_anybox(const void* spots, long long n, int box,
                                  float ftol, int max_it, long long n_valid,
                                  void* work, void* theta, void* stream) {
-  if (n <= 0 || n > (long long)0x7fffffff * 128 || box < 3 || max_it < 0 ||
+  if (n <= 0 || n > (long long)0x7fffffff * 128 || box < 1 || max_it < 0 ||
       work == nullptr)
     return (int)cudaErrorInvalidValue;
   const int threads = 128;

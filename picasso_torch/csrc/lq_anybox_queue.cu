@@ -1,6 +1,6 @@
 // The Levenberg-Marquardt fit at any box as one work-queue launch
 // (sm_90a): what roi_lq_queue.cu (lq_queue.cuh) does at the templated
-// boxes 3-15, for every other box >= 3 (even, or above 15), on a
+// boxes 3-15, for every other box >= 1 (1, 2, even, or above 15), on a
 // lanes-last (s, s, N) f32 ROI batch, the box a launch argument.
 //
 // Replaces, at the boxes that lq_fit.cu and roi_lq_queue.cu are not built
@@ -628,7 +628,7 @@ long long lq_any_area(int s, int stage) {
 }
 
 bool lq_any_valid(int box, int stage, int threads) {
-  return box >= 3 && (stage == kLqBatch || stage == kLqShared) &&
+  return box >= 1 && (stage == kLqBatch || stage == kLqShared) &&
          (threads == 32 || threads == 64 || threads == 128);
 }
 
@@ -643,7 +643,7 @@ int lq_any_run(const LqAnyArgs& a, int stage, int threads, int* info,
 
 }  // namespace
 
-// LM-fit n spots, lanes-last (box, box, n) f32, box >= 3, through the
+// LM-fit n spots, lanes-last (box, box, n) f32, box >= 1, through the
 // any-box work queue: theta (6, n) f32 out, x/y relative to the box
 // centre, each spot at its own index; spots at index >= n_valid start
 // done. Launch configuration (ops/lq_cuda.anybox_queue_config): stage,

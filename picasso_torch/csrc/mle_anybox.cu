@@ -29,7 +29,7 @@ __global__ void __launch_bounds__(128)
 
 }  // namespace
 
-// Fit n spots, lanes-last (box, box, n) f32, box >= 3, one thread a spot:
+// Fit n spots, lanes-last (box, box, n) f32, box >= 1, one thread a spot:
 // init, up to max_it Newton steps, CRLB and LL. method 0 sigmaxy, 1
 // sigma. work is (5, box, n) f32 on the card, scratch. Outputs as
 // picasso_mle_fit's FULL mode: theta, crlb (6, n) f32, ll (n,) f32,
@@ -40,7 +40,7 @@ extern "C" int picasso_mle_anybox(const void* spots, long long n, int box,
                                   int method, void* work, void* theta,
                                   void* crlb, void* ll, void* iters,
                                   void* stream) {
-  if (n <= 0 || n > (long long)0x7fffffff * 128 || box < 3 || max_it < 0 ||
+  if (n <= 0 || n > (long long)0x7fffffff * 128 || box < 1 || max_it < 0 ||
       method < 0 || method > 1 || work == nullptr)
     return (int)cudaErrorInvalidValue;
   const int threads = 128;

@@ -1,7 +1,7 @@
 // The MLE fit (sigmaxy and sigma) with its CRLB and log-likelihood at any
 // box, the box a launch argument, as one work-queue launch (sm_90a): what
 // roi_mle_fit.cu (mle_queue.cuh) does at the templated boxes 3-15, for
-// every other box >= 3, on a lanes-last (s, s, N) f32 ROI batch.
+// every other box >= 1, on a lanes-last (s, s, N) f32 ROI batch.
 //
 // Replaces, at the boxes that mle_fit.cu and roi_mle_fit.cu are not
 // built for, the Pallas TPU kernels of picasso_tpu/ops/mle_pallas.py:
@@ -473,14 +473,14 @@ int any_queue_dispatch(const AnyQueueArgs& a, int method, int px, bool cols,
 }
 
 bool any_queue_valid(int box, int method, int group, int stage) {
-  return box >= 3 && method >= 0 && method <= 1 && stage >= kPxBatch &&
+  return box >= 1 && method >= 0 && method <= 1 && stage >= kPxBatch &&
          stage <= kPxShared && (group == 8 || group == 16 || group == 32) &&
          (group >= box + 1 || group == 32);
 }
 
 }  // namespace
 
-// Fit n spots, lanes-last (box, box, n) f32, box >= 3, through the work
+// Fit n spots, lanes-last (box, box, n) f32, box >= 1, through the work
 // queue with the CRLB/LL in it. Launch configuration: group (the lanes
 // of a cooperative group: 8, 16 or 32, >= box + 1 unless 32), stage
 // (where the slots read the pixels: 0 the batch, 1 a stage in shared

@@ -2,17 +2,18 @@
 ops/winfit_cuda.py): the boxes their templated kernels are built for,
 the check of a spot batch, and the phase schedule of K2, K5, K6 and K7
 (the phase boundaries and the stragglers-first lane order between
-phases)."""
+phases). The fits take any box >= 1, as the JAX package's do; identify
+has its own minimum (ops/identify.MIN_BOX, 3)."""
 
 from __future__ import annotations
 
 import torch
 
 #: the boxes of the templated fit kernels; a CUDA batch of any other box
-#: >= MIN_BOX goes to the any-box kernels (csrc/mle_anybox_queue.cu,
-#: lq_anybox_queue.cu, cut_anybox.cu)
+#: >= MIN_BOX (1 and 2 among them) goes to the any-box kernels
+#: (csrc/mle_anybox_queue.cu, lq_anybox_queue.cu, cut_anybox.cu)
 BOXES = (3, 5, 7, 9, 11, 13, 15)
-MIN_BOX = 3
+MIN_BOX = 1
 #: the shared bytes a block may opt in to on an H100 (227 KB), against
 #: which the any-box kernels choose their launch configurations
 #: (ops/mle_cuda.anybox_queue_config, ops/lq_cuda.anybox_queue_config,
@@ -34,7 +35,7 @@ def on_cuda(t: torch.Tensor) -> bool:
 
 def check_box(box: int) -> None:
     """Raise for a box the CUDA fit kernels do not take (below
-    :data:`MIN_BOX`)."""
+    :data:`MIN_BOX`: 0 and negative boxes)."""
     if box < MIN_BOX:
         raise ValueError(
             f"the CUDA fit kernels take boxes >= {MIN_BOX}, got {box}")

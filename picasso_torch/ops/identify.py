@@ -14,6 +14,14 @@ matched to the reference (picasso/localize.py:98/:203):
   Y-1/X-1 (numba negative indexing).
 Hits are at least h+1 apart, so each aligned (T, T) tile, T = h+1, holds
 at most one. The net gradient is one form only: direct shifted sums.
+
+Identify takes boxes >= :data:`MIN_BOX` (3), as the JAX package's does:
+below it picasso_tpu's maps come out of shape (its box-1 maxima (B, 0,
+0), its box-2 net gradient (B, Y + 1, X + 1)) and its identify raises a
+TypeError. Here :func:`identify_tiles_plain` and the CUDA kernels raise
+a ValueError there, and :func:`identify_maps`, whose maxima alone JAX's
+local_maxima reads, raises at box 1 as JAX's maps do and gives box 2's
+maxima (equal to JAX's).
 """
 
 from __future__ import annotations
@@ -21,6 +29,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+#: the least box identify takes on either device (ops/identify_cuda.py)
+MIN_BOX = 3
+
+
+def check_box(box: int) -> None:
+    """Raise for a box below :data:`MIN_BOX`, where the JAX package's
+    identify fails too."""
+    if box < MIN_BOX:
+        raise ValueError(f"identify takes boxes >= {MIN_BOX}, got {box}")
 
 
 def _unit_vector_masks(box: int) -> tuple[np.ndarray, np.ndarray]:
@@ -51,7 +69,10 @@ def as_float32(frames: torch.Tensor) -> torch.Tensor:
 
 def identify_maps(frames: torch.Tensor, box: int):
     """(maxima, ng) maps of a (B, Y, X) batch: maxima (B, Y, X) bool
-    (eligibility applied), ng (B, Y, X) f32 at every pixel."""
+    (eligibility applied), ng (B, Y, X) f32 at every pixel. Raises below
+    box 2, where JAX's maps do (a box-1 window has no neighbours)."""
+    if box < 2:
+        raise ValueError(f"the identify maps take boxes >= 2, got {box}")
     f = as_float32(frames)
     B, Y, X = f.shape
     h = box // 2
@@ -108,7 +129,9 @@ def tile_reduce(mask: torch.Tensor, ng: torch.Tensor, box: int):
 
 
 def identify_tiles_plain(frames: torch.Tensor, minimum_ng, box: int):
-    """Plain version of the identify kernel (csrc/identify.cu)."""
+    """Plain version of the identify kernel (csrc/identify.cu); raises
+    below :data:`MIN_BOX`."""
+    check_box(box)
     maxima, ng = identify_maps(frames, box)
     return tile_reduce(maxima & (ng > float(np.float32(minimum_ng))), ng, box)
 

@@ -29,9 +29,9 @@ import numpy as np
 import torch
 
 from picasso_torch import _build
-from picasso_torch.ops._fit_common import MIN_BOX, SHARED_LIMIT
+from picasso_torch.ops._fit_common import SHARED_LIMIT
 from picasso_torch.ops.identify import (
-    _unit_vector_masks, identify_tiles_plain,
+    _unit_vector_masks, check_box, identify_tiles_plain,
 )
 
 BOXES = (3, 5, 7, 9, 11, 13, 15)
@@ -56,9 +56,7 @@ def _check(frames: torch.Tensor, box: int) -> bool:
             f"the identify kernel takes contiguous uint16 or float32 "
             f"frames, got {frames.dtype}"
         )
-    if box < MIN_BOX:
-        raise ValueError(
-            f"the identify kernels take boxes >= {MIN_BOX}, got {box}")
+    check_box(box)
     if frames.shape[0] > _MAX_FRAMES:
         raise ValueError(
             f"at most {_MAX_FRAMES} frames per launch, got {frames.shape[0]}")

@@ -5,7 +5,7 @@ phases, which on the card is one launch of the same queue
 (:func:`fit_boundary_t`); and the one-thread pass (csrc/lq_fit.cu,
 :func:`fit_t`), the fixed point both equal bit for bit. :data:`ROI_FIT`
 is fit2D's route (ops/lq.fit_spots_batched). These take the boxes of
-``_fit_common.BOXES``; a CUDA batch of any other box >= 3 goes to
+``_fit_common.BOXES``; a CUDA batch of any other box >= 1 goes to
 :func:`fit_anybox_t` (csrc/lq_anybox_queue.cu: the box a launch
 argument, a work queue in which a group of lanes steps each spot, its
 launch arguments from :func:`anybox_queue_config`), whichever of them is
@@ -168,7 +168,7 @@ def _launch_anybox(lib, spots_t, max_it: int, ftol: float, n_valid,
 
 def fit_anybox_t(spots_t: torch.Tensor, max_it: int, ftol: float = 1e-6,
                  n_valid=None) -> torch.Tensor:
-    """The LM fit at any box >= 3 (csrc/lq_anybox_queue.cu): LM-fit a
+    """The LM fit at any box >= 1 (csrc/lq_anybox_queue.cu): LM-fit a
     lanes-last (S, S, N) f32 batch in one launch of the any-box work
     queue, in which a group of lanes steps each spot from its stage in
     shared memory and takes the next claimed spot when its own ends, the

@@ -9,7 +9,7 @@ resumable phases with stragglers-first lane order between them
 (mle_fit.cu's FULL mode, :func:`fit_one_pass_t`), on no path: the fixed
 point the queue equals bit for bit. :data:`ROI_FITS` is fit2D's route
 per method (gaussmle.gaussmle). These take the boxes of
-``_fit_common.BOXES``; a CUDA batch of any other box >= 3 goes to
+``_fit_common.BOXES``; a CUDA batch of any other box >= 1 goes to
 :func:`fit_anybox_t` (csrc/mle_anybox_queue.cu: the same work queue
 with the box a launch argument, its launch arguments from
 :func:`anybox_queue_config`), whichever of them is called. The any-box
@@ -114,7 +114,7 @@ def _launch(mode: int, spots_t, eps: float, k: int, n_valid, method: str,
 def fit_anybox_one_pass_t(spots_t: torch.Tensor, eps: float, max_it: int,
                           method: str = "sigmaxy", n_valid=None):
     """The any-box one-thread pass (csrc/mle_anybox.cu): fit a lanes-last
-    (S, S, N) f32 batch at any box >= 3, one thread a spot, the box a
+    (S, S, N) f32 batch at any box >= 1, one thread a spot, the box a
     launch argument, fit, CRLB and LL in one launch, with a (5, S, N) f32
     workspace for the x axis's factors. Returns (theta (6, N), crlb (6,
     N), ll (N,), iters (N,) i32), at boxes 5-15 equal to
@@ -245,7 +245,7 @@ def _launch_anybox(lib, spots_t, eps: float, max_it: int, method: str,
 
 def fit_anybox_t(spots_t: torch.Tensor, eps: float, max_it: int,
                  method: str = "sigmaxy", n_valid=None, coop_steps=None):
-    """The MLE fit at any box >= 3 (csrc/mle_anybox_queue.cu): fit a
+    """The MLE fit at any box >= 1 (csrc/mle_anybox_queue.cu): fit a
     lanes-last (S, S, N) f32 batch with its CRLB and log-likelihood in one
     launch of the any-box work queue (lane refill, each spot staged in
     shared memory, the cooperative tail, the CRLB/LL handoff), the box a

@@ -30,7 +30,7 @@ gather route's ROIs bit for bit.
 A hit's window starts box // 2 pixels before its centre, so at an even
 box it ends box // 2 - 1 after it (:func:`cut_rois_t`). The kernels
 above take the boxes of ``_fit_common.BOXES``; on the card every other
-box >= 3 is cut by :func:`cut_anybox_t` (csrc/cut_anybox.cu: the same
+box >= 1 is cut by :func:`cut_anybox_t` (csrc/cut_anybox.cu: the same
 clamp and photon conversion, the box a launch argument, a block a tile
 of hits written lanes-last through shared memory; its first form, one
 thread a pixel, is :func:`cut_anybox_direct_t`, on no path) and fitted
@@ -207,7 +207,7 @@ def _cut(frames, rows, box: int, baseline, factor) -> torch.Tensor:
 
 def cut_anybox_t(frames, f, y, x, box: int, baseline: float,
                  factor: float) -> torch.Tensor:
-    """K5's window load and photon conversion at any box >= 3 on the card
+    """K5's window load and photon conversion at any box >= 1 on the card
     (csrc/cut_anybox.cu: a block a tile of hits, the windows read by rows
     and written lanes-last through shared memory, its launch arguments
     :func:`anybox_cut_config`'s): the lanes-last (box, box, N) f32 photon

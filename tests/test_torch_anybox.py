@@ -1,6 +1,6 @@
 """The port's plain path held to picasso_tpu at boxes outside the
-templated CUDA kernels' set: box 3 (where the MLE runs to max_it), an
-even box (8) and the large boxes 17 and 21, on the CPU.
+templated CUDA kernels' set: boxes 1 and 2, box 3 (where the MLE runs to
+max_it), an even box (8) and the large boxes 17 and 21, on the CPU.
 
 The JAX package fits any box > 0. On the card the port routes these
 boxes to the any-box kernels (csrc/*_anybox.cu), held to the plain
@@ -17,7 +17,24 @@ come out (Y + 1, X + 1)), so box 8 is held in the fits, and in fit2D on
 the port's identifications, not in identify or localize. fit2D and
 localize take make_wide_movie's wide spots at 8 and 17 and the narrow
 spots of make_bench_movie at 3 (a wide spot's LM widths leave a 3 x 3
-box, where compare_lq_fits holds only fits that stay in it).
+box, where compare_lq_fits holds only fits that stay in it), and at 1
+and 2 the identifications found at 3.
+
+Boxes 1 and 2 (six parameters on one or four pixels): at box 1 the MLE
+is held by compare_fits_max_it at max_it 5 and the LM bit for bit (no LM
+step is finite there, so each fit is its initialiser; compare_lq_fits
+holds only fits with widths in (0, box), and these have none). At box 2
+f32 rounding alone leaves those bounds: the port's plain MLE (sigmaxy)
+in f32 against the same fit in f64 is at rel p99 0.17 and x/y p99
+9.9e-3 px at max_it 5, its LM at photons rel p99 2.0e-2, so box 2 is
+held twice: the two packages' fits in f64 by compare_fits_max_it and
+compare_lq_fits (their bounds unchanged: the same algebra, x/y within
+7.6e-11 px), and the f32
+fits through the public entries by compare_fits_rounding /
+compare_lq_fits_rounding against picasso_tpu's fit in f64 (the port's
+f32 fit no further from it than twice JAX's, or within the f32 bounds).
+Identify raises at boxes 1 and 2 on both packages
+(test_identify_refuses_boxes_1_and_2).
 """
 
 from __future__ import annotations
@@ -27,9 +44,14 @@ import pandas as pd
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
 import picasso_tpu.gausslq as jq
 import picasso_tpu.gaussmle as jg
 from picasso_tpu import localize as jloc
+from picasso_tpu.ops import identify as jidentify
+from picasso_tpu.ops import lq as jlq
+from picasso_tpu.ops import mle as jmle
 from picasso_torch import gausslq as tq
 from picasso_torch import gaussmle as tg
 from picasso_torch import localize as tloc
@@ -40,14 +62,27 @@ from picasso_torch.ops._fit_common import SHARED_LIMIT
 from torch_data import make_bench_movie, make_spots, make_wide_movie
 from torch_native import loaded_native
 from torch_parity import (
-    compare_fits, compare_fits_max_it, compare_hits, compare_lq_fits,
-    lq_sane,
+    LQ_SANE_ONE_SIDE, compare_avg_photons, compare_fits, compare_fits_max_it,
+    compare_fits_rounding, compare_hits, compare_lq_fits,
+    compare_lq_fits_rounding, lq_sane,
 )
 
 CAMERA = {"Baseline": 0, "Sensitivity": 1, "Gain": 1, "Pixelsize": 130}
 EPS = 1e-3
-# max_it of the box-3 MLE comparisons (compare_fits_max_it)
+# max_it of the box-3 MLE comparisons (compare_fits_max_it), and of boxes
+# 1 and 2
 BOX3_MAX_IT = 5
+# the boxes below identify's (picasso_tpu's identify raises there)
+SMALL_BOXES = (1, 2)
+# make_spots a box-2 fit is held on by the rounding comparisons: their
+# bounds are tail statistics of the spread (x/y p99, the largest), whose
+# ratio between two f32 fits settles with a few thousand spots
+BOX2_SPOTS = 4096
+# the LM's steps at which the two packages' box-2 fits in f64 are held by
+# compare_lq_fits: the f64 cost has not yet fallen to ~0 (four pixels,
+# six parameters: from 5 steps on its relative distance is one of two
+# vanishing numbers)
+BOX2_LQ_F64_IT = 3
 # min. net gradient a box on make_wide_movie: its spots' ng is 550-990 at
 # box 3 and ~11,000-11,800 at 17 and 21, the background maxima's below
 # 250; on make_bench_movie at box 3 (fit2D, localize) the suite's 4000
@@ -93,7 +128,7 @@ def narrow_movie():
 
 def _fit_movie(box, wide_movie, narrow_movie):
     """(movie, min. net gradient, identify box) of fit2D and localize."""
-    if box == 3:
+    if box <= 3:
         return narrow_movie, BENCH_MIN_NG, 3
     return wide_movie, MIN_NG[17], 17
 
@@ -104,25 +139,65 @@ def _movie_info(movie):
              "Width": movie.shape[2]}]
 
 
-def _hold_mle(ref, got, box, max_it, what):
-    """(theta, crlb, ll, iters) rows-first, by the box's comparison."""
-    if box == 3:
+def _hold_mle(ref, got, box, max_it, what, exact=None):
+    """(theta, crlb, ll, iters) rows-first, by the box's comparison (at
+    box 2 against ``exact``, picasso_tpu's fit in f64)."""
+    if box == 2:
+        return compare_fits_rounding(exact, ref, got, max_it, what)
+    if box <= 3:
         return compare_fits_max_it(ref, got, max_it, what)
     return compare_fits(ref, got, max_it, what)
 
 
+def _f64(spots_t) -> np.ndarray:
+    return np.asarray(spots_t, np.float64)
+
+
+def _jax_mle_f64(spots_t, max_it: int, method: str = "sigmaxy") -> list:
+    """picasso_tpu's plain MLE (ops/mle._fit_core) of lanes-last spots in
+    f64, numpy (theta, crlb, ll, iters)."""
+    with jax.enable_x64():
+        return [np.asarray(a) for a in jmle._fit_core(
+            jnp.asarray(_f64(spots_t)), EPS, max_it, method)]
+
+
+def _jax_lq_f64(spots_t, max_it: int = 30) -> np.ndarray:
+    """picasso_tpu's plain LM (ops/lq._lm_core) of lanes-last spots in
+    f64, theta (6, N)."""
+    with jax.enable_x64():
+        return np.asarray(jlq._lm_core(jnp.asarray(_f64(spots_t)), max_it,
+                                       1e-6))
+
+
 @pytest.mark.parametrize("method", ["sigmaxy", "sigma"])
-@pytest.mark.parametrize("box", [3, 8, 17, 21])
+@pytest.mark.parametrize("box", [1, 2, 3, 8, 17, 21])
 def test_gaussmle_matches_jax_at_any_box(box, method):
-    spots = make_spots(96 if box == 21 else 256, box, seed=box)
-    max_it = BOX3_MAX_IT if box == 3 else 100
+    """gaussmle against picasso_tpu's. Boxes 1-3 at max_it 5 (box 1:
+    every fit stops after one step, x/y equal, rel p99 2.1e-7, the CRLB
+    NaN on both sides: one pixel's Fisher matrix is singular); at box 2
+    the f32 fits by compare_fits_rounding against JAX's fit in f64
+    (measured on these 4096 spots, JAX / the port against it: sigmaxy
+    x/y p99 1.05e-2 / 9.9e-3 px, max 8.2 / 6.7 px, rel p99 0.33 / 0.17,
+    iters equal 98.6% / 99.2% of spots; sigma x/y p99 7.5e-4 / 6.8e-4
+    px), and the two packages' fits in f64 by compare_fits_max_it (x/y
+    within 7.6e-11 px sigmaxy, 1.1e-12 sigma)."""
+    n = {21: 96, 2: BOX2_SPOTS}.get(box, 256)
+    spots = make_spots(n, box, seed=box)
+    max_it = BOX3_MAX_IT if box <= 3 else 100
     j = jg.gaussmle(spots, EPS, max_it, method)
     t = tg.gaussmle(spots, EPS, max_it, method, device="cpu")
     ref = [np.asarray(j[0]).T, np.asarray(j[1]).T, np.asarray(j[2]),
            np.asarray(j[3])]
     got = [t[0].T, t[1].T, t[2], t[3]]
-    stats = _hold_mle(ref, got, box, max_it, f"box {box} {method}")
-    if box != 3:
+    exact = None
+    if box == 2:
+        spots_t = spots.transpose(1, 2, 0)
+        exact = _jax_mle_f64(spots_t, max_it, method)
+        compare_fits_max_it(exact, [a.numpy() for a in mle_cuda._mle._fit_core(
+            torch.from_numpy(_f64(spots_t)), EPS, max_it, method)], max_it,
+            f"box 2 {method} in f64")
+    stats = _hold_mle(ref, got, box, max_it, f"box {box} {method}", exact)
+    if box > 3:
         assert stats["converged"] >= CONVERGED.get(box, 0.95)
 
 
@@ -142,7 +217,20 @@ def _fold_widths(theta: np.ndarray) -> np.ndarray:
 WIDE_LQ_BOX, WIDE_LQ_SPOTS = 45, 32
 
 
-@pytest.mark.parametrize("box", [3, 8, 16, 17, WIDE_LQ_BOX])
+def _hold_lq(ref, got, spots_t, box, what, exact=None):
+    """LQ theta (6, N) by the box's comparison: at box 1 bit for bit
+    (each fit is its initialiser, widths 0), at box 2 against ``exact``,
+    picasso_tpu's fit in f64."""
+    if box == 1:
+        np.testing.assert_array_equal(got, ref)
+        assert not lq_sane(ref, box).any()
+        return None
+    if box == 2:
+        return compare_lq_fits_rounding(exact, ref, got, spots_t, what)
+    return compare_lq_fits(ref, got, spots_t, what, box == 3)
+
+
+@pytest.mark.parametrize("box", [1, 2, 3, 8, 16, 17, WIDE_LQ_BOX])
 def test_gausslq_matches_jax_at_any_box(box):
     """The plain LM fit, which the card's any-box LM kernels are held to
     bit for bit there, against JAX's on the CPU. At box 45 both packages'
@@ -152,12 +240,38 @@ def test_gausslq_matches_jax_at_any_box(box):
     cannot hold over all spots there: the widths are folded on both
     sides, both packages must leave the box on the same spots, at most
     an eighth of them, and compare_lq_fits (its bounds unchanged) holds
-    the spots both keep in the box."""
+    the spots both keep in the box. At box 1 the single pixel gives the
+    initialiser widths of 0, every LM step is non-finite and dropped, and
+    the fits are equal bit for bit. At box 2 the f32 fits by
+    compare_lq_fits_rounding against JAX's in f64 (measured on these
+    4096 spots, JAX / the port against it: x/y p99 3.6e-3 / 5.5e-3 px,
+    photons rel p99 1.4e-2 / 2.0e-2, sx 2.9e-2 / 4.9e-2, 97.9% of fits
+    sane on both sides), and the two packages' fits in f64 at
+    BOX2_LQ_F64_IT steps by compare_lq_fits on the spots both keep in
+    the box (98.2% of them; as at box 45 the spots that leave it are
+    held, here to compare_lq_fits' share sane on one side only, 1 of the
+    4096): x/y within 1.7e-11 px, cost rel p99 2.1e-10."""
     wide = box == WIDE_LQ_BOX
-    spots = make_spots(WIDE_LQ_SPOTS if wide else 256, box, seed=box + 1)
+    n = {WIDE_LQ_BOX: WIDE_LQ_SPOTS, 2: BOX2_SPOTS}.get(box, 256)
+    spots = make_spots(n, box, seed=box + 1)
     spots_t = np.ascontiguousarray(spots.transpose(1, 2, 0))
     ref = np.asarray(jq.fit_spots(spots)).T
     got = tq.fit_spots(spots, device="cpu").T
+    if box in SMALL_BOXES:
+        exact = None
+        if box == 2:
+            exact = _jax_lq_f64(spots_t)
+            f64_ref = _jax_lq_f64(spots_t, BOX2_LQ_F64_IT)
+            f64_got = lq_cuda._lq._lm_core(torch.from_numpy(_f64(spots_t)),
+                                           BOX2_LQ_F64_IT, 1e-6).numpy()
+            sane = lq_sane(f64_ref, box), lq_sane(f64_got, box)
+            assert np.mean(sane[0] ^ sane[1]) <= LQ_SANE_ONE_SIDE
+            inside = sane[0] & sane[1]
+            assert inside.mean() >= 7 / 8
+            compare_lq_fits(f64_ref[:, inside], f64_got[:, inside],
+                            spots_t[..., inside], "box 2 in f64", True)
+        _hold_lq(ref, got, _f64(spots_t), box, f"box {box}", exact)
+        return
     if wide:
         ref, got = _fold_widths(ref), _fold_widths(got)
         inside = lq_sane(ref, box)
@@ -179,6 +293,79 @@ def test_identify_matches_jax_at_any_box(wide_movie, box):
     assert len(ref[0]) == len(got[0])
 
 
+@pytest.mark.parametrize("box", SMALL_BOXES)
+def test_identify_refuses_boxes_1_and_2(narrow_movie, box):
+    """Identify below box 3: picasso_tpu's raises a TypeError (its box-1
+    maxima come out (B, 0, 0), its box-2 net gradient (B, Y + 1, X + 1)),
+    the port's a ValueError, at each entry point, on the CPU as on the
+    card (tests/test_torch_cuda.py); where JAX's returns without
+    identifying (no frame within the bounds) so does the port's, and
+    local_maxima and identify_maps, which read only the maxima at box 2,
+    give JAX's maxima there and raise at box 1 as JAX's do."""
+    movie = narrow_movie[:4]
+    frame = movie[1]
+    calls = {
+        "identify": (lambda m: m.identify(movie, BENCH_MIN_NG, box),
+                     lambda m: m.identify(movie, BENCH_MIN_NG, box,
+                                          device="cpu")),
+        "identify_in_image": (
+            lambda m: m.identify_in_image(frame, BENCH_MIN_NG, box),
+            lambda m: m.identify_in_image(frame, BENCH_MIN_NG, box,
+                                          device="cpu")),
+        "identify_in_frame": (
+            lambda m: m.identify_in_frame(frame, BENCH_MIN_NG, box,
+                                          ((4, 4), (40, 48))),
+            lambda m: m.identify_in_frame(frame, BENCH_MIN_NG, box,
+                                          ((4, 4), (40, 48)), device="cpu")),
+        "identify_by_frame_number": (
+            lambda m: m.identify_by_frame_number(movie, BENCH_MIN_NG, box, 1),
+            lambda m: m.identify_by_frame_number(movie, BENCH_MIN_NG, box, 1,
+                                                 device="cpu")),
+        "identify_async": (
+            lambda m: m.identify_async(movie, BENCH_MIN_NG, box),
+            lambda m: m.identify_async(movie, BENCH_MIN_NG, box,
+                                       device="cpu")),
+    }
+    for name, (j, t) in calls.items():
+        with pytest.raises(TypeError):
+            j(jloc)
+        with pytest.raises(ValueError, match="boxes >= 3"):
+            t(tloc)
+    frames = torch.from_numpy(movie.astype(np.float32))
+    with pytest.raises(ValueError, match="boxes >= 3"):
+        identify.identify_tiles_plain(frames, BENCH_MIN_NG, box)
+    with pytest.raises(TypeError):
+        jidentify.identify_frames(movie, BENCH_MIN_NG, box)
+    # no frame within the bounds: neither package identifies, neither
+    # raises
+    assert len(jloc.identify(movie, BENCH_MIN_NG, box,
+                             frame_bounds=(10, 20))) == 0
+    assert len(tloc.identify(movie, BENCH_MIN_NG, box, frame_bounds=(10, 20),
+                             device="cpu")) == 0
+    assert len(jloc.identify_by_frame_number(
+        movie, BENCH_MIN_NG, box, 3, frame_bounds=(0, 1))) == 0
+    assert len(tloc.identify_by_frame_number(
+        movie, BENCH_MIN_NG, box, 3, frame_bounds=(0, 1), device="cpu")) == 0
+    # the maxima alone
+    if box == 1:
+        with pytest.raises(TypeError):
+            jloc.local_maxima(frame, box)
+        with pytest.raises(ValueError, match="boxes >= 2"):
+            tloc.local_maxima(frame, box, device="cpu")
+        with pytest.raises(ValueError, match="boxes >= 2"):
+            identify.identify_maps(frames, box)
+        return
+    ref = jloc.local_maxima(frame, box)
+    got = tloc.local_maxima(frame, box, device="cpu")
+    assert len(ref[0]) > 0
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(
+        identify.identify_maps(frames, box)[0].numpy(),
+        np.asarray(jidentify.identify_maps(jnp.asarray(frames.numpy()),
+                                           box)[0]))
+
+
 def _mle_fields(locs):
     """(theta, crlb, ll, iters) rows-first from an MLE locs table: x/y in
     the frame (both sides share the identifications), the CRLB from the
@@ -190,14 +377,20 @@ def _mle_fields(locs):
     return theta, crlb, locs["log_likelihood"], locs["iterations"]
 
 
-@pytest.mark.parametrize("fitting_method", ["gaussmle", "gausslq"])
-@pytest.mark.parametrize("box", [3, 8, 17])
+@pytest.mark.parametrize("fitting_method", ["gaussmle", "gausslq", "avg"])
+@pytest.mark.parametrize("box", [1, 2, 3, 8, 17])
 def test_fit2d_matches_jax_at_any_box(wide_movie, narrow_movie, box,
                                      fitting_method):
     """fit2D of the same identifications (at box 8 the port's at box 17,
-    as picasso_tpu's identify raises at an even box), MLE sigmaxy or LQ;
-    at an even box the ROIs start box // 2 before the centre on both
-    sides (picasso_tpu's native cut)."""
+    at boxes 1 and 2 those at 3, as picasso_tpu's identify raises at an
+    even box and below 3), MLE sigmaxy, LQ or avg; at an even box the
+    ROIs start box // 2 before the centre on both sides (picasso_tpu's
+    native cut). Boxes 1-3 as in test_gaussmle_matches_jax_at_any_box and
+    test_gausslq_matches_jax_at_any_box, box 2 against JAX's fit of the
+    ROIs in f64 (on these 296 ROIs, JAX / the port against it: MLE x/y
+    p99 3.3e-3 / 3.2e-3 px, LQ x/y p99 5.9e-4 / 1.0e-3 px, sx rel p99
+    3.5e-3 / 6.5e-3); avg photons
+    within compare_avg_photons and its other columns equal."""
     movie, min_ng, find = _fit_movie(box, wide_movie, narrow_movie)
     found = tloc.identify(movie, min_ng, find, device="cpu")
     # an n_id a row: both sides' locs then come in the rows' order
@@ -214,21 +407,37 @@ def test_fit2d_matches_jax_at_any_box(wide_movie, narrow_movie, box,
     j = j.to_records(index=False)
     assert len(t) == len(j) == len(ids) >= 30
     np.testing.assert_array_equal(t["frame"], j["frame"])
-    if fitting_method == "gaussmle":
-        _hold_mle(_mle_fields(j), _mle_fields(t), box, max_it, f"box {box}")
-        return
-    # LQ theta with x/y relative to the identification, and the ROIs
+    # the ROIs, and x/y relative to the identification (the box centre)
     spots = tloc.get_spots(movie, ids, box, dict(CAMERA), device="cpu")
     assert spots.shape[1:] == (box, box)
+    spots_t = np.ascontiguousarray(spots.transpose(1, 2, 0))
+    if fitting_method == "avg":
+        compare_avg_photons(j["photons"], t["photons"], spots)
+        for c in ("x", "y", "sx", "sy"):
+            np.testing.assert_array_equal(t[c], j[c])
+        return
+    if fitting_method == "gaussmle":
+        exact = None
+        if box == 2:  # in the locs' fields: x/y in the frame
+            th, cr, ll, it = _jax_mle_f64(spots_t, max_it)
+            th = th.copy()
+            th[0] += ids["x"] - box // 2
+            th[1] += ids["y"] - box // 2
+            exact = [th, cr, ll, it]
+        _hold_mle(_mle_fields(j), _mle_fields(t), box, max_it, f"box {box}",
+                  exact)
+        return
 
     def theta(locs):
         return np.stack([locs["x"] - ids["x"], locs["y"] - ids["y"],
                          locs["photons"], locs["bg"], locs["sx"],
                          locs["sy"]]).astype(np.float32)
 
-    compare_lq_fits(theta(j), theta(t),
-                    np.ascontiguousarray(spots.transpose(1, 2, 0)),
-                    f"box {box}", box == 3)
+    if box in SMALL_BOXES:
+        _hold_lq(theta(j), theta(t), _f64(spots_t), box, f"box {box}",
+                 _jax_lq_f64(spots_t) if box == 2 else None)
+        return
+    compare_lq_fits(theta(j), theta(t), spots_t, f"box {box}", box == 3)
 
 
 def _by_position(locs: np.ndarray) -> np.ndarray:
@@ -253,11 +462,12 @@ def test_localize_slice_matches_jax_at_any_box(wide_movie, narrow_movie,
     _hold_mle(_mle_fields(j), _mle_fields(t), box, max_it, f"box {box}")
 
 
-@pytest.mark.parametrize("box", [3, 8, 17])
+@pytest.mark.parametrize("box", [1, 2, 3, 8, 17])
 def test_plain_versions_take_any_box(box):
     """The plain versions of the any-box kernels on the CPU: the K5 cut
     equals the gather route, and each fit wrapper is its plain fit,
-    uncounted."""
+    uncounted; K4's plain version and wrappers raise at boxes 1 and 2,
+    as picasso_tpu's identify does."""
     spots = make_spots(64, box, seed=7)
     sp = torch.from_numpy(np.ascontiguousarray(spots.transpose(1, 2, 0)))
     # each spot a frame (one pixel wider at an even box, which the centre
@@ -286,18 +496,24 @@ def test_plain_versions_take_any_box(box):
             np.testing.assert_array_equal(x, y)
     for fit in (lq_cuda.fit_anybox_t, lq_cuda.fit_anybox_one_pass_t):
         np.testing.assert_array_equal(fit(sp, 20), lq_cuda.fit_t(sp, 20))
-    plain = identify.identify_tiles_plain(frames, 100.0, box)
-    for k4 in (identify_cuda.identify_tiles_anybox,
-               identify_cuda.identify_tiles_anybox_direct):
-        for x, y in zip(k4(frames, 100.0, box), plain):
-            np.testing.assert_array_equal(x, y)
+    k4s = (identify_cuda.identify_tiles_anybox,
+           identify_cuda.identify_tiles_anybox_direct)
+    if box < identify.MIN_BOX:
+        for k4 in (identify.identify_tiles_plain, *k4s):
+            with pytest.raises(ValueError, match="boxes >= 3"):
+                k4(frames, 100.0, box)
+    else:
+        plain = identify.identify_tiles_plain(frames, 100.0, box)
+        for k4 in k4s:
+            for x, y in zip(k4(frames, 100.0, box), plain):
+                np.testing.assert_array_equal(x, y)
     assert counts == [f.launches for f in fits]
 
 
-@pytest.mark.parametrize("box", [*range(3, 66), 95, 96, 97, 101, 255, 363,
+@pytest.mark.parametrize("box", [*range(1, 66), 95, 96, 97, 101, 255, 363,
                                  364])
 def test_anybox_launch_configurations(box):
-    """The launch arguments of the any-box kernels at every box from 3 to
+    """The launch arguments of the any-box kernels at every box from 1 to
     65 and at large boxes, from their pure-Python choosers: the MLE
     queue's (ops/mle_cuda.anybox_queue_config) and K4's output tile
     (ops/identify_cuda.anybox_tile_shape). A block's shared bytes stay
@@ -310,7 +526,8 @@ def test_anybox_launch_configurations(box):
     but 40, 41 and those above 363). K4 takes ANYBOX_TILE where two
     blocks of it fit a SM, else its longer side halved until they do
     (one block where no tile of two fits); from box 96, where no tile
-    fits, it has none and identify_tiles takes the direct kernel."""
+    fits, it has none and identify_tiles takes the direct kernel (K4 from
+    box 3, the least identify takes)."""
     limit = SHARED_LIMIT
     assert mle_cuda.ANYBOX_THREADS % 32 == 0
     cfg = mle_cuda.anybox_queue_config(box)
@@ -326,6 +543,8 @@ def test_anybox_launch_configurations(box):
     # global scratch
     assert not cfg["cols_shared"] or mle_cuda.anybox_queue_smem(
         box, cfg["stage"], False) < cfg["shared_bytes"]
+    if box < identify.MIN_BOX:
+        return
     assert identify_cuda.anybox_tile_fits(box) == (box < 96)
     if box >= 96:
         with pytest.raises(ValueError, match="no tile"):
@@ -343,12 +562,12 @@ def test_anybox_launch_configurations(box):
     assert oy <= toy and ox <= tox
 
 
-@pytest.mark.parametrize("box", [*range(3, 66), 95, 96, 97, 101, 117, 118,
+@pytest.mark.parametrize("box", [*range(1, 66), 95, 96, 97, 101, 117, 118,
                                  255, 363, 364])
 def test_lq_queue_and_cut_launch_configurations(box):
     """The launch arguments of the any-box LM queue
     (ops/lq_cuda.anybox_queue_config) and of the tiled cut
-    (ops/winfit_cuda.anybox_cut_config) at every box from 3 to 65 and at
+    (ops/winfit_cuda.anybox_cut_config) at every box from 1 to 65 and at
     large boxes, from their pure-Python choosers. The LM queue's group
     is ANYBOX_GROUP (8) lanes, whose lanes loop over ceil(box / 8)
     rounds (the group, and the claim of all a warp's free groups
@@ -399,7 +618,7 @@ def test_the_cut_reads_the_hit_rows_in_place():
     to the kernel as they are, strides included (the rows of an (N, 3)
     torch.nonzero list are views of stride 3; an expanded row has stride
     0), with no stack or cast before the launch; other integers become
-    int64; rows of unequal length, a box below 3 and a frame narrower
+    int64; rows of unequal length, a box below 1 and a frame narrower
     than the box raise."""
     frames = torch.zeros((4, 32, 32), dtype=torch.uint16)
     hits = torch.tensor([[0, 10, 12], [3, 20, 5], [1, 16, 16]])
@@ -417,8 +636,10 @@ def test_the_cut_reads_the_hit_rows_in_place():
     assert all(torch.equal(g, r) for g, r in zip(small, rows))
     with pytest.raises(ValueError, match="one length"):
         winfit_cuda._hit_rows(frames, rows[0][:2], *rows[1:], 17)
-    with pytest.raises(ValueError):
-        winfit_cuda._hit_rows(frames, *rows, 2)
+    with pytest.raises(ValueError, match="boxes >= 1"):
+        winfit_cuda._hit_rows(frames, *rows, 0)
+    for box in (1, 2):  # the fits take every box
+        assert len(winfit_cuda._hit_rows(frames, *rows, box)) == 3
     with pytest.raises(ValueError, match="smaller than the box"):
         winfit_cuda._hit_rows(frames, *rows, 33)
 

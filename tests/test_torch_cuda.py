@@ -25,13 +25,17 @@ from picasso_torch.ops import (
     fused, identify, identify_cuda, lq, lq_cuda, mle, mle_cuda, winfit_cuda,
 )
 from torch_parity import (
-    compare_fits, compare_fits_max_it, compare_hits, compare_lq_fits,
-    compare_tiles,
+    compare_fits, compare_fits_max_it, compare_fits_rounding, compare_hits,
+    compare_lq_fits, compare_lq_fits_rounding, compare_tiles,
 )
 
 pytestmark = pytest.mark.cuda
 EPS, MAX_IT, FTOL = 1e-3, 100, 1e-6
 BASELINE, FACTOR = 1.5, 0.8
+# boxes 1 and 2 (below identify's 3): the MLE held at SMALL_MAX_IT (as
+# box 3), the LM at fit2D's max_it, on SMALL_SPOTS spots (the rounding
+# comparisons' tail statistics settle with a few thousand)
+SMALL_MAX_IT, SMALL_LQ_IT, SMALL_SPOTS = 5, 30, 8192
 
 
 @pytest.fixture
@@ -110,17 +114,58 @@ def test_lq_kernel_n_valid_and_resume(dev):
     assert np.isfinite(a[:, :900]).all()
 
 
+def _hold_small_mle(sp, got, method: str):
+    """An MLE fit of the box-1 or box-2 batch ``sp`` (numpy theta, crlb,
+    ll, iters at SMALL_MAX_IT) held to the plain fit: at box 1 by
+    compare_fits_max_it, at box 2 by compare_fits_rounding against the
+    plain fit in f64 (f32 rounding alone moves box-2 fits beyond
+    compare_fits_max_it's bounds, tests/test_torch_anybox.py)."""
+    plain = _np(mle._fit_core(sp, EPS, SMALL_MAX_IT, method))
+    if sp.shape[0] == 1:
+        return compare_fits_max_it(plain, got, SMALL_MAX_IT)
+    exact = _np(mle._fit_core(sp.double(), EPS, SMALL_MAX_IT, method))
+    return compare_fits_rounding(exact, plain, got, SMALL_MAX_IT)
+
+
+def _hold_small_lq(sp, got):
+    """An LM fit of the box-1 or box-2 batch ``sp`` (theta at SMALL_LQ_IT)
+    held to the plain fit: at box 1 bit for bit (no step is finite, each
+    fit is its initialiser), at box 2 by compare_lq_fits_rounding against
+    the plain fit in f64."""
+    plain = lq._lm_core(sp, SMALL_LQ_IT, FTOL).cpu().numpy()
+    if sp.shape[0] == 1:
+        return np.testing.assert_array_equal(got, plain)
+    exact = lq._lm_core(sp.double(), SMALL_LQ_IT, FTOL).cpu().numpy()
+    return compare_lq_fits_rounding(exact, plain, got,
+                                    sp.double().cpu().numpy())
+
+
 def test_fit_kernel_refuses_box3(dev):
-    """The fit kernels take every box from 3 (box 3 templated since the
-    any-box slice, test_box3_fits_equal_the_one_thread_pass); below it
-    the wrappers raise."""
+    """The fit kernels take every box from 1 (box 3 templated since the
+    any-box slice, test_box3_fits_equal_the_one_thread_pass; boxes 1 and
+    2 in the any-box queue): at s = 1 and 2 every MLE wrapper fits
+    through one launch of the any-box queue and is held to the plain fit
+    (_hold_small_mle); a batch of box 0 raises."""
     for s in (1, 2):
-        sp = torch.ones((s, s, 64), device=dev)
-        for fit in (mle_cuda.fit_t, mle_cuda.fit_one_pass_t,
-                    mle_cuda.fit_boundary_t, mle_cuda.fit_multiround_t,
-                    mle_cuda.fit_anybox_t):
-            with pytest.raises(ValueError, match="boxes"):
-                fit(sp, EPS, MAX_IT)
+        sp = _rois(SMALL_SPOTS, s, s + 80, dev)
+        for method in ("sigmaxy", "sigma"):
+            for fit in (mle_cuda.fit_t, mle_cuda.fit_one_pass_t,
+                        mle_cuda.fit_boundary_t, mle_cuda.fit_anybox_t,
+                        mle_cuda.fit_multiround_t):
+                if fit is mle_cuda.fit_multiround_t and method == "sigma":
+                    continue  # K7 fits sigmaxy only
+                args = (() if fit is mle_cuda.fit_multiround_t
+                        else (method,))
+                before = _counts()
+                got = _np(fit(sp, EPS, SMALL_MAX_IT, *args))
+                assert _launched(before) == {"mle_cuda.fit_anybox_t": 1}
+                _hold_small_mle(sp, got, method)
+    sp = torch.ones((0, 0, 64), device=dev)
+    for fit in (mle_cuda.fit_t, mle_cuda.fit_one_pass_t,
+                mle_cuda.fit_boundary_t, mle_cuda.fit_multiround_t,
+                mle_cuda.fit_anybox_t):
+        with pytest.raises(ValueError, match="boxes"):
+            fit(sp, EPS, MAX_IT)
 
 
 def test_fit_kernel_n_valid_and_resume(dev):
@@ -372,11 +417,22 @@ def test_queue_kernel_refuses_other_dtypes_and_boxes(dev):
                                     **kw)
     frames = torch.zeros((2, 32, 32), dtype=torch.uint16, device=dev)
     with pytest.raises(ValueError, match="boxes"):
-        winfit_cuda.fit_mle_queue_t(frames, hit, hit, hit, 0.0, 1.0, box=1,
+        winfit_cuda.fit_mle_queue_t(frames, hit, hit, hit, 0.0, 1.0, box=0,
                                     **kw)
     with pytest.raises(ValueError, match="smaller than the box"):
         winfit_cuda.fit_mle_queue_t(frames, hit, hit, hit, 0.0, 1.0, box=33,
                                     **kw)
+    # boxes 1 and 2 fit: the any-box cut and MLE queue, equal to the
+    # queue on the cut's ROIs bit for bit
+    for box in (1, 2):
+        frames, hits = _chunk(make_spots(64, box, seed=box), np.uint16, dev)
+        before = _counts()
+        got = _np(winfit_cuda.fit_mle_queue_t(frames, *hits, 0.0, 1.0,
+                                              box=box, **kw))
+        assert _launched(before) == {"winfit_cuda.cut_anybox_t": 1,
+                                     "mle_cuda.fit_anybox_t": 1}
+        _assert_same(got, _np(mle_cuda.fit_anybox_t(winfit_cuda.photons_t(
+            frames, *hits, box, 0.0, 1.0), EPS, 10)))
 
 
 def test_queue_kernel_at_box_7_does_not_spill(dev):
@@ -493,11 +549,23 @@ def test_lq_queue_kernel_refuses_other_dtypes_and_boxes(dev):
                                    max_it=10)
     frames = torch.zeros((2, 32, 32), dtype=torch.uint16, device=dev)
     with pytest.raises(ValueError, match="boxes"):
-        winfit_cuda.fit_lq_queue_t(frames, hit, hit, hit, 0.0, 1.0, box=1,
+        winfit_cuda.fit_lq_queue_t(frames, hit, hit, hit, 0.0, 1.0, box=0,
                                    max_it=10)
     with pytest.raises(ValueError, match="smaller than the box"):
         winfit_cuda.fit_lq_queue_t(frames, hit, hit, hit, 0.0, 1.0, box=33,
                                    max_it=10)
+    # boxes 1 and 2 fit: the any-box cut and LM queue, equal to the queue
+    # on the cut's ROIs bit for bit
+    for box in (1, 2):
+        frames, hits = _chunk(make_spots(64, box, seed=box), np.uint16, dev)
+        before = _counts()
+        got = winfit_cuda.fit_lq_queue_t(frames, *hits, 0.0, 1.0, box=box,
+                                         max_it=10)
+        assert _launched(before) == {"winfit_cuda.cut_anybox_t": 1,
+                                     "lq_cuda.fit_anybox_t": 1}
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), lq_cuda.fit_anybox_t(winfit_cuda.photons_t(
+                frames, *hits, box, 0.0, 1.0), 10).cpu().numpy())
 
 
 def test_lq_queue_kernel_at_box_7_does_not_spill(dev):
@@ -623,7 +691,21 @@ def test_roi_queue_kernels_n_valid_and_nan(dev):
 
 
 def test_roi_queue_kernels_refuse_other_boxes_and_dtypes(dev):
-    for bad, match in ((torch.zeros((2, 2, 8), device=dev), "boxes"),
+    """K1's and K3's queue wrappers refuse a batch of box 0, of another
+    dtype, not contiguous or not (S, S, N); a (2, 2, 8) batch fits,
+    through the any-box queues, equal to their one-thread passes."""
+    sp = _rois(8, 2, 3, dev)
+    before = _counts()
+    _assert_same(_np(mle_cuda.fit_t(sp, EPS, 10)),
+                 _np(mle_cuda.fit_anybox_one_pass_t(sp, EPS, 10)))
+    np.testing.assert_array_equal(
+        lq_cuda.fit_queue_t(sp, 10).cpu().numpy(),
+        lq_cuda.fit_anybox_one_pass_t(sp, 10).cpu().numpy())
+    assert _launched(before) == {"mle_cuda.fit_anybox_t": 1,
+                                 "mle_cuda.fit_anybox_one_pass_t": 1,
+                                 "lq_cuda.fit_anybox_t": 1,
+                                 "lq_cuda.fit_anybox_one_pass_t": 1}
+    for bad, match in ((torch.zeros((0, 0, 8), device=dev), "boxes"),
                        (torch.zeros((7, 7, 8), dtype=torch.float64,
                                     device=dev), "float32"),
                        (torch.zeros((7, 8, 7), device=dev).transpose(1, 2),
@@ -977,6 +1059,43 @@ def test_identify_in_image_runs_k4(dev):
     np.testing.assert_array_equal(g[0], c[0])
     np.testing.assert_array_equal(g[1], c[1])
     np.testing.assert_allclose(g[2], c[2], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("box", [1, 2])
+def test_identify_refuses_boxes_1_and_2_on_the_card(dev, box):
+    """Every identify entry point raises a ValueError at boxes 1 and 2 on
+    the card, as on the CPU (tests/test_torch_anybox.py, where
+    picasso_tpu's raises too), launching no kernel; local_maxima raises
+    at box 1 and gives the CPU's maxima at box 2."""
+    movie = make_bench_movie(4, 64, 6, 0.5, np.random.default_rng(box))
+    frame = movie[1]
+    frames = identify.upload_frames(movie, dev)
+    before = _counts()
+    for call in (
+            lambda: localize.identify(movie, 100.0, box, device="cuda"),
+            lambda: localize.identify_in_image(frame, 100.0, box,
+                                               device="cuda"),
+            lambda: localize.identify_in_frame(frame, 100.0, box,
+                                               ((4, 4), (40, 48)),
+                                               device="cuda"),
+            lambda: localize.identify_by_frame_number(movie, 100.0, box, 1,
+                                                      device="cuda"),
+            lambda: localize.identify_async(movie, 100.0, box,
+                                            device="cuda"),
+            lambda: identify_cuda.identify_tiles(frames, 100.0, box),
+            lambda: identify_cuda.identify_tiles_anybox(frames, 100.0, box),
+            lambda: identify_cuda.identify_tiles_anybox_direct(frames, 100.0,
+                                                               box)):
+        with pytest.raises(ValueError, match="boxes >= 3"):
+            call()
+    assert _launched(before) == {}
+    if box == 1:
+        with pytest.raises(ValueError, match="boxes >= 2"):
+            localize.local_maxima(frame, box, device="cuda")
+        return
+    for a, b in zip(localize.local_maxima(frame, box, device="cuda"),
+                    localize.local_maxima(frame, box, device="cpu")):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_fiducials_on_the_card_equal_the_cpu(dev):
@@ -1613,13 +1732,15 @@ ANYBOX_VARIANTS = ({}, *({"stage": st, "cols_shared": co}
                          for st in ("batch", "shared") for co in (True, False)))
 
 
-@pytest.mark.parametrize("box", [4, 8, 16, 17, 21, 45])
+@pytest.mark.parametrize("box", [1, 2, 4, 8, 16, 17, 21, 45])
 def test_anybox_queue_equals_the_one_thread_pass(dev, box):
     """The any-box MLE work queue (both methods) with its default launch
     arguments and the variants of ANYBOX_VARIANTS (those whose shared
     bytes fit) equals the any-box one-thread pass bit for bit; lanes at
     n_valid and beyond start converged; at box 45 a stage in shared
-    memory does not fit, and the tail's lanes loop over two rounds."""
+    memory does not fit, and the tail's lanes loop over two rounds; at
+    boxes 1 and 2 every pixel lies on the border (at box 1 the CRLB is
+    NaN, one pixel's Fisher matrix singular, in both)."""
     n = 512 if box == 45 else 2048
     sp = _rois(n, box, box + 60, dev)
     lib = mle_cuda._build.library()
@@ -1727,35 +1848,55 @@ def test_anybox_queue_refuses_what_it_does_not_take(dev):
             winfit_cuda._launch_cut(lib, frames, hits, 17, 0.0, 1.0, cfg)
 
 
-@pytest.mark.parametrize("box", [8, 17, 21])
+@pytest.mark.parametrize("box", [1, 2, 8, 17, 21])
 def test_anybox_fits_route_count_and_match_plain(dev, box):
     """At a box without a templated kernel every fit wrapper goes to the
     any-box kernel (one launch, counted there, none of its own) and
-    matches the plain fit."""
-    sp = _rois(1024, box, box, dev)
+    matches the plain fit (at boxes 1 and 2 by _hold_small_mle /
+    _hold_small_lq). The fused chain at that box runs K4 any-box, the
+    cut and the fit; at boxes 1 and 2 its identify raises, as
+    picasso_tpu's, and nothing is launched."""
+    small = box < identify.MIN_BOX
+    sp = _rois(SMALL_SPOTS if small else 1024, box, box, dev)
+    max_it = SMALL_MAX_IT if small else MAX_IT
     for method in ("sigmaxy", "sigma"):
-        plain = _np(mle._fit_core(sp, EPS, MAX_IT, method))
+        plain = _np(mle._fit_core(sp, EPS, max_it, method))
         for fit in (mle_cuda.fit_t, mle_cuda.fit_one_pass_t,
                     mle_cuda.fit_boundary_t):
             before = _counts()
-            got = _np(fit(sp, EPS, MAX_IT, method))
+            got = _np(fit(sp, EPS, max_it, method))
             assert _launched(before) == {"mle_cuda.fit_anybox_t": 1}
-            compare_fits(plain, got, MAX_IT)
+            if small:
+                _hold_small_mle(sp, got, method)
+            else:
+                compare_fits(plain, got, MAX_IT)
     before = _counts()
-    mle_cuda.fit_multiround_t(sp, EPS, MAX_IT)
+    mle_cuda.fit_multiround_t(sp, EPS, max_it)
     assert _launched(before) == {"mle_cuda.fit_anybox_t": 1}
-    plain = lq._lm_core(sp, MAX_IT, FTOL).cpu().numpy()
+    lq_it = SMALL_LQ_IT if small else MAX_IT
+    plain = lq._lm_core(sp, lq_it, FTOL).cpu().numpy()
     for fit in (lq_cuda.fit_t, lq_cuda.fit_queue_t, lq_cuda.fit_boundary_t,
                 lq_cuda.fit_anybox_t):
         before = _counts()
-        got = fit(sp, MAX_IT).cpu().numpy()
+        got = fit(sp, lq_it).cpu().numpy()
         assert _launched(before) == {"lq_cuda.fit_anybox_t": 1}
-        compare_lq_fits(plain, got, sp.cpu().numpy())
+        if small:
+            _hold_small_lq(sp, got)
+        else:
+            compare_lq_fits(plain, got, sp.cpu().numpy())
     # the fused chain at this box: K4 any-box, the tiled cut and the
     # any-box fit once each, the first forms not at all
     movie = make_bench_movie(4, 2 * box + 24, 6, 0.5,
                              np.random.default_rng(box))
     frames = identify.upload_frames(movie, dev)
+    if small:
+        for method in ("lq", "sigmaxy"):
+            before = _counts()
+            with pytest.raises(ValueError, match="boxes >= 3"):
+                fused.identify_cut_fit(frames, 100.0, 0.0, 1.0, box=box,
+                                       eps=EPS, max_it=MAX_IT, method=method)
+            assert _launched(before) == {}
+        return
     for method in ("lq", "sigmaxy"):
         before = _counts()
         out = fused.identify_cut_fit(frames, 100.0, 0.0, 1.0, box=box,
@@ -1854,7 +1995,7 @@ CUT_VARIANTS = ({"hits": 8, "rows": 1}, {"hits": 16, "rows": 3},
 
 
 @pytest.mark.parametrize("dtype", [np.uint16, np.float32])
-@pytest.mark.parametrize("box", [4, 7, 8, 15, 17, 21])
+@pytest.mark.parametrize("box", [1, 2, 4, 7, 8, 15, 17, 21])
 def test_cut_anybox_and_the_fused_fits_at_any_box(dev, box, dtype):
     """The tiled any-box cut (its default tile and those of CUT_VARIANTS,
     a last tile short of hits; on int64 hit rows as compaction gives
@@ -1863,7 +2004,9 @@ def test_cut_anybox_and_the_fused_fits_at_any_box(dev, box, dtype):
     counted on its own counter; K5's wrappers at a
     box without a template = cut + any-box fit (counted there), equal to
     the any-box fits of those ROIs; at 7 and 15 the cut feeds the any-box
-    bodies to the templated K5's numbers."""
+    bodies to the templated K5's numbers; at box 2 a window starts one
+    pixel before its centre (picasso_tpu's native cut), at box 1 it is
+    the centre pixel."""
     spots = make_spots(2045, box, seed=box + 5)
     frames, hits = _chunk(spots, dtype, dev)
     rois = winfit_cuda.photons_t(frames, *hits, box, BASELINE, FACTOR)

@@ -317,6 +317,41 @@ def compare_lq_fits(ref, got, spots_t, what: str = "lq fits",
     With ``box3`` the cost's and bg's p99 bounds are
     :data:`LQ_COST_REL_P99_BOX3` and :data:`LQ_BG_P99_BOX3`.
     """
+    stats = lq_stats(ref, got, spots_t)
+    if not _lq_within(stats, _lq_bounds(box3)):
+        raise AssertionError(f"{what}: out of tolerance: {stats}")
+    return stats
+
+
+def _lq_bounds(box3: bool = False) -> dict:
+    """compare_lq_fits' bounds on the distances of :func:`lq_stats`."""
+    return {**{f"xy_p{q}": b for q, b in LQ_XY.items()},
+            "photons_rel_p99": LQ_REL_P99, "sx_rel_p99": LQ_REL_P99,
+            "sy_rel_p99": LQ_REL_P99,
+            "bg_p99": LQ_BG_P99_BOX3 if box3 else LQ_BG_P99,
+            "xy_far": LQ_XY_FAR[1],
+            "cost_rel_p99": LQ_COST_REL_P99_BOX3 if box3 else LQ_COST_REL_P99,
+            "cost_far": LQ_COST_FAR[1]}
+
+
+def _lq_within(stats: dict, bounds: dict, finite_differ: float = 0,
+               unsane: float = 1 - LQ_SANE_BOTH,
+               one_side: float = LQ_SANE_ONE_SIDE) -> bool:
+    """compare_lq_fits' test of :func:`lq_stats`' ``stats`` against the
+    distance ``bounds`` (:func:`_lq_bounds`) and the shares: at most
+    ``finite_differ`` spots finite on one side only, at most ``unsane``
+    of them not sane on both sides, at most ``one_side`` sane on one
+    side only."""
+    return (stats["finite_differ"] <= finite_differ
+            and 1 - stats["sane_both"] <= unsane
+            and stats["sane_one_side"] <= one_side
+            and all(stats[k] <= b for k, b in bounds.items()))
+
+
+def lq_stats(ref, got, spots_t) -> dict:
+    """The distances and shares between two LQ fits (6, N) on the
+    lanes-last spots ``spots_t`` that :func:`compare_lq_fits` bounds
+    (``finite_differ``: the spots finite on one side only)."""
     ref, got = np.asarray(ref), np.asarray(got)
     box = spots_t.shape[0]
     fin_r, fin_g = np.isfinite(ref).all(0), np.isfinite(got).all(0)
@@ -348,22 +383,8 @@ def compare_lq_fits(ref, got, spots_t, what: str = "lq fits",
         "cost_far": (float(np.mean(c_rel > LQ_COST_FAR[0]))
                      if c_rel.size else 0.0),
         "xy_max_all": float(np.nanmax(np.abs(ref[:2] - got[:2]), initial=0.0)),
+        "finite_differ": int((fin_r != fin_g).sum()),
     }
-    good = (
-        np.array_equal(fin_r, fin_g)
-        and stats["sane_both"] >= LQ_SANE_BOTH
-        and stats["sane_one_side"] <= LQ_SANE_ONE_SIDE
-        and all(stats[f"xy_p{q}"] <= b for q, b in LQ_XY.items())
-        and max(stats["photons_rel_p99"], stats["sx_rel_p99"],
-                stats["sy_rel_p99"]) <= LQ_REL_P99
-        and stats["bg_p99"] <= (LQ_BG_P99_BOX3 if box3 else LQ_BG_P99)
-        and stats["xy_far"] <= LQ_XY_FAR[1]
-        and stats["cost_rel_p99"] <= (LQ_COST_REL_P99_BOX3 if box3
-                                      else LQ_COST_REL_P99)
-        and stats["cost_far"] <= LQ_COST_FAR[1]
-    )
-    if not good:
-        raise AssertionError(f"{what}: out of tolerance: {stats}")
     return stats
 
 
@@ -396,26 +417,117 @@ def compare_fits_max_it(ref, got, max_it: int, what: str = "fits") -> dict:
     vs plain on make_spots (2048 at seed 3, 8192 at seed 0), max_it 5:
     iters all equal, x/y p99 1.9e-6-7.2e-6, max 1.5e-2 px; photons, bg,
     sx, sy rel p99 <= 1.4e-5."""
+    stats = max_it_stats(ref, got, max_it)
+    ok = (stats["iters_equal"] >= 0.99
+          and all(stats[k] <= b for k, b in MAX_IT_BOUNDS.items()))
+    if not ok:
+        raise AssertionError(f"{what}: out of tolerance: {stats}")
+    return stats
+
+
+#: compare_fits_max_it's bounds on the distances of :func:`max_it_stats`
+MAX_IT_BOUNDS = {**{f"xy_p{q}": b for q, b in STUCK_XY.items()},
+                 "rel_p99": MAX_IT_REL_P99, "ll_excess_p99": 1.0}
+
+
+def max_it_stats(ref, got, max_it: int) -> dict:
+    """The distances between two MLE fits (numpy theta, crlb, ll, iters)
+    that :func:`compare_fits_max_it` bounds, over all spots."""
     th_r, ll_r, it_r = (np.asarray(ref[i]) for i in (0, 2, 3))
     th_g, ll_g, it_g = (np.asarray(got[i]) for i in (0, 2, 3))
     dxy = np.abs(th_r[:2] - th_g[:2]).max(axis=0)
     with np.errstate(invalid="ignore", divide="ignore"):
         rel = np.abs(th_r[2:6] - th_g[2:6]) / np.abs(th_r[2:6])
         ll_excess = np.abs(ll_r - ll_g) / (5e-3 + 1e-4 * np.abs(ll_r))
-    stats = {
+    return {
         "n": int(th_r.shape[1]),
         "iters_equal": float(np.mean(it_r == it_g)),
         "at_max_it": float(np.mean((it_r == max_it) & (it_g == max_it))),
         **{f"xy_p{q}": float(np.percentile(dxy, q)) for q in STUCK_XY},
+        "xy_far": float(np.mean(dxy > STUCK_XY[100])),
         "rel_p99": float(np.nanpercentile(rel, 99, axis=1).max()),
         "ll_excess_p99": float(np.nanpercentile(ll_excess, 99)),
     }
-    ok = (stats["iters_equal"] >= 0.99
-          and all(stats[f"xy_p{q}"] <= b for q, b in STUCK_XY.items())
-          and stats["rel_p99"] <= MAX_IT_REL_P99
-          and stats["ll_excess_p99"] <= 1.0)
+
+
+# boxes 1 and 2 (six parameters on one or four pixels): how much further
+# from the fit in f64 an f32 fit may lie than the reference's f32 fit
+ROUNDING_MARGIN = 2.0
+
+
+def compare_fits_rounding(exact, ref, got, max_it: int,
+                          what: str = "fits") -> dict:
+    """Hold f32 MLE fits ``got`` where f32 rounding alone moves a fit
+    beyond :func:`compare_fits_max_it`'s bounds: box 2, where the sigmaxy
+    fit has six parameters for four pixels and a Newton step's clamp
+    flips its sign on the rounding of a near-zero denominator (the port's
+    plain fit in f32 against the same fit in f64 on 4096 make_spots at
+    max_it 5: rel p99 0.17, x/y p99 9.9e-3 px,
+    tests/test_torch_anybox.py). ``exact`` is the fit in f64 and ``ref`` the
+    reference's fit in f32 (numpy theta, crlb, ll, iters): ``got`` must
+    lie as close to ``exact`` as ``ref`` does, up to ROUNDING_MARGIN (two
+    f32 fits, each a rounding of the f64 one), or within
+    compare_fits_max_it's bounds: each distance of :func:`max_it_stats`
+    but the largest, d(exact, got) <= max(bound, ROUNDING_MARGIN *
+    d(exact, ref)); the share of spots further than compare_fits_max_it's
+    largest distance (0.1 px) from exact at most max(LQ_XY_FAR's share,
+    ROUNDING_MARGIN times ref's); the share of spots whose iteration
+    count differs from exact's at most max(1%, ROUNDING_MARGIN times
+    ref's). The largest distance is reported, not bounded: one runaway
+    fit decides it (on the card, one of 131,072 box-2 sigma fits ended
+    17.2 px from the f64 fit, the plain f32 fit's furthest 4.0 px, while
+    the two f32 fits were within 1.2e-6 px at p99). ``exact`` must be
+    the same fit: its own f64 counterpart is held to it by
+    compare_fits_max_it (the JAX package's and the port's plain fits in
+    f64 at box 2, max_it 5: x/y within 7.6e-11 px). The CRLB is not
+    held, as in
+    compare_fits_max_it. Returns the three max_it_stats: ``ref`` and
+    ``got`` against exact, and ``pair`` (ref against got)."""
+    s_ref = max_it_stats(exact, ref, max_it)
+    s_got = max_it_stats(exact, got, max_it)
+    limits = {k: max(b, ROUNDING_MARGIN * s_ref[k])
+              for k, b in MAX_IT_BOUNDS.items() if k != "xy_p100"}
+    limits["xy_far"] = max(LQ_XY_FAR[1], ROUNDING_MARGIN * s_ref["xy_far"])
+    ok = (1 - s_got["iters_equal"] <= max(
+        0.01, ROUNDING_MARGIN * (1 - s_ref["iters_equal"]))
+        and all(s_got[k] <= b for k, b in limits.items()))
+    stats = {"ref": s_ref, "got": s_got,
+             "pair": max_it_stats(ref, got, max_it)}
     if not ok:
-        raise AssertionError(f"{what}: out of tolerance: {stats}")
+        raise AssertionError(f"{what}: further from the f64 fit than "
+                             f"{ROUNDING_MARGIN} x the reference: {stats}")
+    return stats
+
+
+def compare_lq_fits_rounding(exact, ref, got, spots_t,
+                             what: str = "lq fits") -> dict:
+    """Hold f32 LQ fits ``got`` (6, N) where f32 rounding alone moves a
+    fit beyond :func:`compare_lq_fits`' bounds: box 2, six parameters on
+    four pixels, where the LM drives the cost towards 0 (so its relative
+    distance says little) and some fits leave the box (the port's plain
+    LM in f32 against the same in f64 on 4096 make_spots: photons rel
+    p99 2.0e-2 at max_it 30). As :func:`compare_fits_rounding`: ``exact``
+    is the fit in f64,
+    ``ref`` the reference's in f32, and each distance of :func:`lq_stats`
+    but the largest (reported, not bounded: its share beyond 1e-2 px is)
+    d(exact, got) <= max(compare_lq_fits' box-3 bound, ROUNDING_MARGIN *
+    d(exact, ref)); the spots finite on one side only, the share not sane
+    on both sides and the share sane on one side only each at most
+    ROUNDING_MARGIN times ref's, or compare_lq_fits' limit. Returns the
+    three lq_stats (``ref``, ``got``, ``pair``)."""
+    s_ref = lq_stats(exact, ref, spots_t)
+    s_got = lq_stats(exact, got, spots_t)
+    limits = {k: max(b, ROUNDING_MARGIN * s_ref[k])
+              for k, b in _lq_bounds(True).items() if k != "xy_p100"}
+    ok = _lq_within(
+        s_got, limits, ROUNDING_MARGIN * s_ref["finite_differ"],
+        max(1 - LQ_SANE_BOTH, ROUNDING_MARGIN * (1 - s_ref["sane_both"])),
+        max(LQ_SANE_ONE_SIDE, ROUNDING_MARGIN * s_ref["sane_one_side"]))
+    stats = {"ref": s_ref, "got": s_got,
+             "pair": lq_stats(ref, got, spots_t)}
+    if not ok:
+        raise AssertionError(f"{what}: further from the f64 fit than "
+                             f"{ROUNDING_MARGIN} x the reference: {stats}")
     return stats
 
 
