@@ -19,6 +19,7 @@ import torch
 from scipy.optimize import curve_fit
 
 from picasso_torch import lib
+from picasso_torch.profiling import span
 
 
 def _as_tensor(image) -> torch.Tensor:
@@ -176,15 +177,20 @@ def rcc(segments, max_shift: int | None = None, mesh=None):
     Express 2014; picasso/imageprocess.py:160) of (n, Y, X) segments (a
     tensor on its device, or arrays): all pair shifts (over ``mesh``'s
     shards as :func:`pair_xcorrs` routes them), solved to per-segment
-    drift by least squares. Returns (shift_y, shift_x)."""
+    drift by least squares. Returns (shift_y, shift_x). Its steps run
+    in the spans ``picasso.undrift.xcorr``, ``.peak_fit`` and ``.solve``
+    (profiling.span)."""
     seg = segments if isinstance(segments, torch.Tensor) else (
         torch.from_numpy(np.stack(segments).astype(np.float32)))
     seg = seg.to(torch.float32)
-    empty = (seg.sum(dim=(1, 2)) == 0).cpu().numpy()
-    crops, offsets = pair_xcorrs(seg, max_shift, mesh)
-    shifts_y, shifts_x = peak_shifts(crops, offsets, tuple(seg.shape[1:]),
-                                     empty)
-    return lib.minimize_shifts(shifts_x, shifts_y)
+    with span("picasso.undrift.xcorr"):
+        empty = (seg.sum(dim=(1, 2)) == 0).cpu().numpy()
+        crops, offsets = pair_xcorrs(seg, max_shift, mesh)
+    with span("picasso.undrift.peak_fit"):
+        shifts_y, shifts_x = peak_shifts(crops, offsets,
+                                         tuple(seg.shape[1:]), empty)
+    with span("picasso.undrift.solve"):
+        return lib.minimize_shifts(shifts_x, shifts_y)
 
 
 def percentile_linear(values: torch.Tensor, q: float):

@@ -46,6 +46,7 @@ from typing import Callable, Literal
 import numpy as np
 
 from picasso_torch import __version__, avgroi, gausslq, gaussmle, lib
+from picasso_torch.profiling import span
 
 # f32 bytes per identification batch; frames per chunk adapt to the
 # frame size (a 256x256 movie takes 244-frame chunks, evened to 256)
@@ -335,7 +336,9 @@ def localize(
     Returns the locs structured array, with the info chain when
     ``return_info``; None if the fused chain was aborted. The Gaussian
     fitters with a scalar camera run the fused chain, which fills
-    ``perf`` (ops/fused.localize_fused); ``avg``, or a camera whose values
+    ``perf`` (ops/fused.localize_fused) and runs in the span
+    ``picasso.localize``, its locs table in ``picasso.localize.
+    locs_table`` (profiling.span); ``avg``, or a camera whose values
     are arrays, runs ``identify`` + ``fit2D``, or one pass of
     stream.identify_and_cut + ``fit2D`` on a lazy movie."""
     from picasso_torch.ops import fused as _fused
@@ -365,22 +368,24 @@ def localize(
             mle_method=mle_method, progress_callback=fit_progress_callback,
             spots=spots, device=device)
     else:
-        identifications, fits = _fused.localize_fused(
-            movie, minimum_ng, box, camera_info,
-            fitting_method=fitting_method, eps=eps, max_it=max_it,
-            mle_method=mle_method, roi=roi, frame_bounds=frame_bounds,
-            progress_callback=identification_progress_callback,
-            perf=perf, device=device,
-        )
-        if identifications is None:
-            return None
-        theta, crlb, ll, iters = fits
-        if fitting_method == "gaussmle":
-            locs = gaussmle.locs_from_fits(identifications, theta, crlb, ll,
-                                           iters, box)
-        else:
-            locs = gausslq.locs_from_fits(identifications, theta, box,
-                                          camera_info["Gain"] > 1)
+        with span("picasso.localize"):
+            identifications, fits = _fused.localize_fused(
+                movie, minimum_ng, box, camera_info,
+                fitting_method=fitting_method, eps=eps, max_it=max_it,
+                mle_method=mle_method, roi=roi, frame_bounds=frame_bounds,
+                progress_callback=identification_progress_callback,
+                perf=perf, device=device,
+            )
+            if identifications is None:
+                return None
+            theta, crlb, ll, iters = fits
+            with span("picasso.localize.locs_table"):
+                if fitting_method == "gaussmle":
+                    locs = gaussmle.locs_from_fits(identifications, theta,
+                                                   crlb, ll, iters, box)
+                else:
+                    locs = gausslq.locs_from_fits(identifications, theta, box,
+                                                  camera_info["Gain"] > 1)
         if callable(fit_progress_callback):
             fit_progress_callback(len(identifications))
         fit_info = {

@@ -24,6 +24,11 @@ from picasso_torch.ops import winfit_cuda
 from picasso_torch.ops.mle import _check_method
 from picasso_torch.ops.identify import compact
 from picasso_torch.ops.identify_cuda import identify_tiles
+from picasso_torch.profiling import span
+
+#: the loop's parts of ``perf`` that sum with ``other_s`` to ``total_s``
+_LOOP_PARTS = ("decode_wait_s", "upload_dispatch_s", "chain_dispatch_s",
+               "drain_s")
 
 #: the LM fit's convergence tolerance in the fused chain (the JAX
 #: package's, picasso_tpu/ops/fused.py:707)
@@ -60,14 +65,16 @@ def identify_cut_fit(frames, minimum_ng, baseline: float, factor: float,
     the same calls run K4, the cut and the fit as the any-box kernels
     (identify_cuda.identify_tiles_anybox, or at boxes of 96 and above its
     direct kernel, winfit_cuda.cut_anybox_t)."""
-    f, y, x, ng = compact(*identify_tiles(frames, minimum_ng, box), box)
-    if method != "lq":
-        return (f, y, x, ng, *MLE_FITS[method](
-            frames, f, y, x, baseline, factor, box=box, eps=eps,
-            max_it=max_it, method=method))
-    return f, y, x, ng, winfit_cuda.fit_lq_queue_t(
-        frames, f, y, x, baseline, factor, box=box, max_it=max_it,
-        ftol=LQ_FTOL)
+    with span("picasso.fused.identify"):
+        f, y, x, ng = compact(*identify_tiles(frames, minimum_ng, box), box)
+    with span("picasso.fused.fit"):
+        if method != "lq":
+            return (f, y, x, ng, *MLE_FITS[method](
+                frames, f, y, x, baseline, factor, box=box, eps=eps,
+                max_it=max_it, method=method))
+        return f, y, x, ng, winfit_cuda.fit_lq_queue_t(
+            frames, f, y, x, baseline, factor, box=box, max_it=max_it,
+            ftol=LQ_FTOL)
 
 
 def identify_cut_fit_packed(frames, minimum_ng, baseline: float,
@@ -79,8 +86,9 @@ def identify_cut_fit_packed(frames, minimum_ng, baseline: float,
     integers far below 2^24, exact in f32)."""
     out = identify_cut_fit(frames, minimum_ng, baseline, factor, box=box,
                            eps=eps, max_it=max_it, method=method)
-    return torch.cat([torch.atleast_2d(r).to(torch.float32) for r in out],
-                     dim=0)
+    with span("picasso.fused.pack"):
+        return torch.cat([torch.atleast_2d(r).to(torch.float32)
+                          for r in out], dim=0)
 
 
 def photon_factors(camera_info: dict) -> tuple[float, float]:
@@ -149,7 +157,12 @@ def localize_fused(
     the seconds waiting for decoded chunks (``decode_wait_s``), uploading
     them (``upload_dispatch_s``), issuing the chain (``chain_dispatch_s``),
     reading its results back (``drain_s``, the blocking readback on a
-    card), the rest (``other_s``) and ``total_s``.
+    card), the rest (``other_s``) and ``total_s``, and the bytes of
+    frames uploaded (``upload_bytes``). Each part is its span's host
+    time (profiling.span): ``picasso.stream.decode_wait``, ``picasso.
+    stream.upload``, ``picasso.fused.chain`` (or ``.mesh_chain``) and
+    ``picasso.fused.drain``; after the loop, ``picasso.localize.gather``
+    holds the concatenation of the payloads into the returned arrays.
 
     ``device`` may be a mesh (picasso_torch.parallel.mesh.Mesh), and
     ``"cuda"`` with several cards visible is :func:`~picasso_torch.
@@ -171,57 +184,55 @@ def localize_fused(
     device, mesh = route(device)
     baseline, factor = photon_factors(camera_info)
     blocks = []
-    timers = {}
-    t_chain = t_drain = 0.0
+    loop = None if perf is None else {}
     t_run0 = time.perf_counter()
     with contextlib.closing(device_chunks(
             movie, device if mesh is None else None, roi=roi,
             frame_bounds=frame_bounds, frame_chunk=frame_chunk,
             prefetch_depth=prefetch_depth,
             progress_callback=progress_callback, description="Localizing",
-            timers=timers)) as chunks:
+            perf=loop)) as chunks:
         for offset, chunk in chunks:
             if abort_callback is not None and abort_callback():
                 return None, None
-            t0 = time.perf_counter()
             if mesh is None:
-                packed = identify_cut_fit_packed(
-                    chunk, minimum_ng, baseline, factor, box=box, eps=eps,
-                    max_it=max_it, method=method)
+                with span("picasso.fused.chain", loop, "chain_dispatch_s"):
+                    packed = identify_cut_fit_packed(
+                        chunk, minimum_ng, baseline, factor, box=box,
+                        eps=eps, max_it=max_it, method=method)
+                with span("picasso.fused.drain", loop, "drain_s"):
+                    packed = packed.cpu().numpy()
             else:
                 per_dev = -(-len(chunk) // mesh.size)
-                packed = fused_chain_program(
-                    mesh, per_dev, box, 0, eps, max_it, method)(
-                        chunk, minimum_ng, baseline, factor)
-            t1 = time.perf_counter()
-            blocks.append((offset, packed.cpu().numpy() if mesh is None
-                           else np.concatenate(packed, axis=1)))
-            t_chain += t1 - t0
-            t_drain += time.perf_counter() - t1
-    if perf is not None and timers:
+                with span("picasso.fused.mesh_chain", loop,
+                          "chain_dispatch_s"):
+                    packed = fused_chain_program(
+                        mesh, per_dev, box, 0, eps, max_it, method)(
+                            chunk, minimum_ng, baseline, factor)
+                with span("picasso.fused.drain", loop, "drain_s"):
+                    packed = np.concatenate(packed, axis=1)
+            blocks.append((offset, packed))
+    if loop:
         total = time.perf_counter() - t_run0
-        waits = (timers["decode_wait_s"], timers["upload_dispatch_s"],
-                 t_chain, t_drain)
-        perf.update({
-            "n_chunks": timers["n_chunks"],
-            "frame_chunk": timers["frame_chunk"],
-            "decode_wait_s": round(waits[0], 3),
-            "upload_dispatch_s": round(waits[1], 3),
-            "chain_dispatch_s": round(t_chain, 3),
-            "drain_s": round(t_drain, 3),
-            "other_s": round(total - sum(waits), 3),
-            "total_s": round(total, 3),
-        })
-    rows = 10 if method == "lq" else 18
-    block = np.concatenate([np.zeros((rows, 0), np.float32)]
-                           + [p for _, p in blocks], axis=1)
-    ids = make_ids([(off, p[0], p[1], p[2], p[3]) for off, p in blocks], roi)
-    n = block.shape[1]
-    if method == "lq":
-        # the JAX package's LQ tuple: crlb, ll and iters are zeros
-        return ids, (block[4:10].T.copy(), np.zeros((n, 6), np.float32),
-                     np.zeros(n, np.float32), np.zeros(n, np.int32))
-    return ids, (
-        block[4:10].T.copy(), block[10:16].T.copy(), block[16].copy(),
-        block[17].astype(np.int32),
-    )
+        parts = {k: loop.get(k, 0.0) for k in _LOOP_PARTS}
+        perf.update(n_chunks=loop["n_chunks"],
+                    frame_chunk=loop["frame_chunk"],
+                    **{k: round(v, 3) for k, v in parts.items()},
+                    other_s=round(total - sum(parts.values()), 3),
+                    total_s=round(total, 3),
+                    upload_bytes=loop["upload_bytes"])
+    with span("picasso.localize.gather"):
+        rows = 10 if method == "lq" else 18
+        block = np.concatenate([np.zeros((rows, 0), np.float32)]
+                               + [p for _, p in blocks], axis=1)
+        ids = make_ids([(off, p[0], p[1], p[2], p[3]) for off, p in blocks],
+                       roi)
+        n = block.shape[1]
+        if method == "lq":
+            # the JAX package's LQ tuple: crlb, ll and iters are zeros
+            return ids, (block[4:10].T.copy(), np.zeros((n, 6), np.float32),
+                         np.zeros(n, np.float32), np.zeros(n, np.int32))
+        return ids, (
+            block[4:10].T.copy(), block[10:16].T.copy(), block[16].copy(),
+            block[17].astype(np.int32),
+        )

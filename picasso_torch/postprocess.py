@@ -39,6 +39,7 @@ from scipy.optimize import curve_fit
 from picasso_torch import imageprocess, lib, masking, render
 from picasso_torch.ops import link as link_ops
 from picasso_torch.ops import neighbors
+from picasso_torch.profiling import span
 
 DRIFT_DTYPE = np.dtype([("x", np.float64), ("y", np.float64)])
 
@@ -73,13 +74,15 @@ def segment(locs: np.ndarray, info: list[dict], segmentation: int,
     kwargs = kwargs or {}
     names = ("x", "y", "lpx", "lpy") if kwargs.get("blur_method") else (
         "x", "y")
-    cols = render.columns(locs, names, device)
-    frames = torch.from_numpy(locs["frame"].astype(np.int64)).to(device)
-    segments = torch.zeros((n_seg, Y, X), dtype=torch.float32, device=device)
-    for i in range(n_seg):
-        sel = (frames >= int(bounds[i])) & (frames < int(bounds[i + 1]))
-        _, segments[i] = render.render_t({k: v[sel] for k, v in cols.items()},
-                                         info, **kwargs)
+    with span("picasso.undrift.segment"):
+        cols = render.columns(locs, names, device)
+        frames = torch.from_numpy(locs["frame"].astype(np.int64)).to(device)
+        segments = torch.zeros((n_seg, Y, X), dtype=torch.float32,
+                               device=device)
+        for i in range(n_seg):
+            sel = (frames >= int(bounds[i])) & (frames < int(bounds[i + 1]))
+            _, segments[i] = render.render_t(
+                {k: v[sel] for k, v in cols.items()}, info, **kwargs)
     return bounds, segments
 
 
@@ -94,23 +97,28 @@ def undrift(locs: np.ndarray, info: list[dict], segmentation: int, *,
     subtracted). ``device`` may be a mesh, or ``"cuda"`` with several
     cards visible (parallel/mesh.route): the segments render on its
     first device and the pair correlations split over its shards
-    (imageprocess.pair_xcorrs)."""
+    (imageprocess.pair_xcorrs). Runs in the span ``picasso.undrift``,
+    its steps in ``picasso.undrift.segment``, ``.xcorr``, ``.peak_fit``,
+    ``.solve`` and ``.apply`` (profiling.span)."""
     from picasso_torch.parallel.mesh import route
 
     device, mesh = route(device)
-    bounds, segments = segment(
-        locs, info, segmentation,
-        {"blur_method": "gaussian", "min_blur_width": 1}, device=device)
-    shift_y, shift_x = imageprocess.rcc(segments, 32, mesh)
-    t = (bounds[1:] + bounds[:-1]) / 2
-    k = min(3, len(t) - 1)
-    t_inter = np.arange(info[0]["Frames"])
-    drift = np.empty(len(t_inter), DRIFT_DTYPE)
-    drift["x"] = interpolate.InterpolatedUnivariateSpline(t, shift_x, k=k)(
-        t_inter)
-    drift["y"] = interpolate.InterpolatedUnivariateSpline(t, shift_y, k=k)(
-        t_inter)
-    return drift, apply_drift(locs, info, drift=drift)
+    with span("picasso.undrift"):
+        bounds, segments = segment(
+            locs, info, segmentation,
+            {"blur_method": "gaussian", "min_blur_width": 1}, device=device)
+        shift_y, shift_x = imageprocess.rcc(segments, 32, mesh)
+        with span("picasso.undrift.solve"):
+            t = (bounds[1:] + bounds[:-1]) / 2
+            k = min(3, len(t) - 1)
+            t_inter = np.arange(info[0]["Frames"])
+            drift = np.empty(len(t_inter), DRIFT_DTYPE)
+            drift["x"] = interpolate.InterpolatedUnivariateSpline(
+                t, shift_x, k=k)(t_inter)
+            drift["y"] = interpolate.InterpolatedUnivariateSpline(
+                t, shift_y, k=k)(t_inter)
+        with span("picasso.undrift.apply"):
+            return drift, apply_drift(locs, info, drift=drift)
 
 
 def apply_drift(locs: np.ndarray, info: list[dict], *, drift) -> np.ndarray:

@@ -1,22 +1,47 @@
-"""Tracing and stage timing of the port: a ``torch.profiler`` trace of a
-block of code, named spans on its timeline, and a host wall-clock stage
-log.
+"""Tracing of the port: a ``torch.profiler`` trace of a block of code,
+and named spans on its timeline that also time their block on the host.
 
-Counterpart of picasso_tpu/profiling.py (trace :32, annotate :52,
-StageTimer :71), with torch.profiler in place of jax.profiler:
+Counterpart of picasso_tpu/profiling.py (trace :32, annotate :52), with
+torch.profiler in place of jax.profiler:
 
     from picasso_torch import profiling
 
     with profiling.trace("/tmp/picasso_trace"):
         locs = localize.localize(movie, camera_info, params)
 
-    @profiling.annotate("fit-chunk")
+    with profiling.span("picasso.stream.upload", perf, "upload_dispatch_s"):
+        chunk = upload_frames(batch, device)
+
+    @profiling.annotate("my-stage")
     def my_stage(...): ...
 
 or from the CLI: ``python -m picasso_torch localize movie.raw --profile
 DIR``. The trace is a Chrome trace, ``DIR/trace.json``, of the host and,
 where a card is present, of its kernels (CUPTI). Unlike JAX, no
 environment variable turns tracing on: only the argument does.
+
+A span is a ``record_function`` on the profiler's clock, the clock of
+the device's events in the same trace, opened only while a profiler is
+recording (off, a span costs one flag read); with a ``perf`` dict it
+also adds its block's host seconds to ``perf[key]``, profiler or not.
+The program writes no trace itself: the profiler keeps the spans and
+writes them when it stops. Spans are named ``picasso.<layer>.<step>``:
+
+- localize: ``picasso.localize`` (the fused call), ``picasso.stream.
+  decode_wait`` and ``picasso.stream.upload`` (each chunk),
+  ``picasso.fused.chain`` (the chain of one chunk on one device:
+  ``picasso.fused.identify``, ``.fit``, ``.pack``) or ``picasso.fused.
+  mesh_chain`` (over a mesh's shards), ``picasso.fused.drain`` (its
+  readback), then ``picasso.localize.gather`` (the payloads into ids
+  and fit columns) and ``picasso.localize.locs_table``;
+- undrift: ``picasso.undrift`` (the call), ``picasso.undrift.segment``
+  (the renders), ``.xcorr`` (the pair correlations to the host),
+  ``.peak_fit`` (the host peak fits), ``.solve`` (least squares and the
+  splines) and ``.apply`` (``apply_drift``).
+
+A span is never left open across a generator's ``yield``, and spans
+opened in a worker thread are not in the trace: they belong on the
+thread that runs the profiled block.
 """
 
 from __future__ import annotations
@@ -27,6 +52,8 @@ import os
 import time
 
 import torch
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
 
 
 @contextlib.contextmanager
@@ -52,41 +79,45 @@ def trace(log_dir: str | None = None, create_perfetto_link: bool = False):
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+class span:
+    """Context manager: the block as the span ``name`` on a recording
+    profiler's timeline (no ``record_function`` otherwise), and, where
+    ``perf`` is a dict, its host seconds added to ``perf[key]``."""
+
+    __slots__ = ("name", "perf", "key", "_rf", "_t0")
+
+    def __init__(self, name: str, perf: dict | None = None,
+                 key: str | None = None):
+        self.name, self.perf, self.key = name, perf, key
+
+    def __enter__(self):
+        self._rf = None
+        if _profiler_enabled():
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
+        if self.perf is not None:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.perf is not None:
+            self.perf[self.key] = (self.perf.get(self.key, 0.0)
+                                   + time.perf_counter() - self._t0)
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        return False
+
+
 def annotate(name: str):
-    """Decorator: run a function inside ``torch.profiler.record_function
-    (name)``, a labelled span on the profile's timeline."""
+    """Decorator: run a function inside :class:`span` ``name``, a
+    labelled span on a recording profile's timeline."""
 
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
-            with torch.profiler.record_function(name):
+            with span(name):
                 return fn(*args, **kwargs)
 
         return wrapper
 
     return deco
-
-
-class StageTimer:
-    """Lightweight wall-clock stage log (host side): collects
-    (stage, seconds) pairs for pipeline summaries."""
-
-    def __init__(self):
-        self.stages: list[tuple[str, float]] = []
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.stages.append((name, time.perf_counter() - t0))
-
-    def report(self) -> str:
-        total = sum(dt for _, dt in self.stages)
-        lines = [
-            f"{name}: {dt:.3f}s ({dt / total * 100:.0f}%)"
-            for name, dt in self.stages
-        ]
-        lines.append(f"total: {total:.3f}s")
-        return "\n".join(lines)

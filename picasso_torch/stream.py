@@ -13,7 +13,6 @@ from __future__ import annotations
 import contextlib
 import queue
 import threading
-import time
 from typing import Callable, Literal
 
 import numpy as np
@@ -122,17 +121,20 @@ def chunk_bounds(frames_idx: list[int],
 def device_chunks(movie, device, *, roi=None, frame_bounds=None,
                   frame_chunk: int | None = None, prefetch_depth: int = 2,
                   progress_callback=None, description: str = "",
-                  timers: dict | None = None):
+                  perf: dict | None = None):
     """Yield ``(first_frame, chunk)`` for the frames within
     ``frame_bounds``: each chunk (B, Y, X), cropped to ``roi``, uploaded
     once to ``device`` by ops/identify.upload_frames (or, for ``device``
     None, the host array, as a mesh's shards upload their parts) while
-    the next one decodes in the background. ``timers``, where given, gets the chunk
-    geometry (``n_chunks``, ``frame_chunk``) and accumulates the seconds
-    spent waiting for decoded chunks (``decode_wait_s``) and uploading
-    them (``upload_dispatch_s``)."""
+    the next one decodes in the background. ``perf``, where given, gets
+    the chunk geometry (``n_chunks``, ``frame_chunk``) and accumulates
+    the seconds spent waiting for decoded chunks (``decode_wait_s``,
+    span ``picasso.stream.decode_wait``), uploading them
+    (``upload_dispatch_s``, span ``picasso.stream.upload``) and the
+    bytes uploaded (``upload_bytes``)."""
     from picasso_torch import lib
     from picasso_torch.ops.identify import upload_frames
+    from picasso_torch.profiling import span
 
     frames_idx = frame_range(len(movie), frame_bounds)
     if not frames_idx:
@@ -144,28 +146,32 @@ def device_chunks(movie, device, *, roi=None, frame_bounds=None,
     if frame_chunk is None:
         frame_chunk = frame_chunk_for(len(frames_idx), height, width)
     bounds = chunk_bounds(frames_idx, frame_chunk)
-    if timers is None:
-        timers = {}
-    timers.update(n_chunks=len(bounds), frame_chunk=frame_chunk,
-                  decode_wait_s=0.0, upload_dispatch_s=0.0)
+    if perf is not None:
+        perf.update(n_chunks=len(bounds), frame_chunk=frame_chunk,
+                    decode_wait_s=0.0, upload_dispatch_s=0.0,
+                    upload_bytes=0)
     prefetcher = ChunkPrefetcher(movie, bounds, prefetch_depth)
     try:
         with lib.progress_reporter(progress_callback, len(frames_idx),
                                    description) as rep:
             done = 0
             while True:
-                t0 = time.perf_counter()
-                try:
-                    offset, batch = next(prefetcher)
-                except StopIteration:
+                with span("picasso.stream.decode_wait", perf,
+                          "decode_wait_s"):
+                    item = next(prefetcher, None)
+                if item is None:
                     break
-                t1 = time.perf_counter()
+                offset, batch = item
                 if roi is not None:
                     batch = batch[:, y0:y1, x0:x1]
-                chunk = batch if device is None else upload_frames(batch,
-                                                                   device)
-                timers["decode_wait_s"] += t1 - t0
-                timers["upload_dispatch_s"] += time.perf_counter() - t1
+                if device is None:
+                    chunk = batch
+                else:
+                    with span("picasso.stream.upload", perf,
+                              "upload_dispatch_s"):
+                        chunk = upload_frames(batch, device)
+                    if perf is not None:
+                        perf["upload_bytes"] += int(batch.nbytes)
                 yield offset, chunk
                 done += len(batch)
                 rep.set_value(done)

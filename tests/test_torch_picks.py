@@ -617,6 +617,12 @@ def _public(path: str) -> set:
     return {n for n in names if not n.startswith("_")}
 
 
+#: public names of the JAX package that the port leaves out on purpose:
+#: nothing in the port reads a host stage log (its spans time the steps,
+#: picasso_torch/profiling.py)
+LEFT_OUT = {"profiling": {"StageTimer"}}
+
+
 @pytest.mark.parametrize("module", [
     "postprocess", "masking", "io", "spatial_index", "profiling", "render",
     "lib", "localize", "gausslq", "g5m", "design", "design_sequences",
@@ -626,10 +632,15 @@ def _public(path: str) -> set:
 def test_every_public_name_of_the_module_is_ported(module):
     """Every top-level public function, class and constant of
     picasso_tpu/<module>.py exists in picasso_torch/<module>.py, render's
-    drawing helpers of the render window included. The sources are
-    parsed, so the Streamlit script and the apps import nothing."""
-    missing = _public(f"picasso_tpu/{module}.py") - _public(
-        f"picasso_torch/{module}.py")
+    drawing helpers of the render window included, but for the names of
+    :data:`LEFT_OUT`, which JAX's module has and the port's has not. The
+    sources are parsed, so the Streamlit script and the apps import
+    nothing."""
+    jax_names = _public(f"picasso_tpu/{module}.py")
+    torch_names = _public(f"picasso_torch/{module}.py")
+    left_out = LEFT_OUT.get(module, set())
+    assert left_out <= jax_names and not left_out & torch_names
+    missing = jax_names - torch_names - left_out
     assert not missing, sorted(missing)
 
 

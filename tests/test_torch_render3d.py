@@ -468,8 +468,7 @@ def test_render_index_matches_jax_bit_for_bit(n, size):
 
 def test_profiling_traces_annotates_and_times(tmp_path):
     """trace writes a Chrome trace holding the annotated span (JAX writes
-    TensorBoard files there); no directory, no trace; StageTimer's report
-    reads as JAX's."""
+    TensorBoard files there); no directory, no trace."""
     @tprof.annotate("render3d-span")
     def work():
         return torch.ones(64).sum()
@@ -490,17 +489,6 @@ def test_profiling_traces_annotates_and_times(tmp_path):
         with tprof.trace(str(tmp_path / "raised")):
             raise ValueError
     assert os.path.exists(tmp_path / "raised" / "trace.json")
-    reports = []
-    for mod in (tprof, jprof):
-        timer = mod.StageTimer()
-        with timer.stage("a"):
-            pass
-        with timer.stage("b"):
-            pass
-        timer.stages = [("a", 0.25), ("b", 0.75)]
-        reports.append(timer.report())
-    assert reports[0] == reports[1] == (
-        "a: 0.250s (25%)\nb: 0.750s (75%)\ntotal: 1.000s")
 
 
 def test_rotated_and_3d_entry_points_need_the_card_or_cpu():
