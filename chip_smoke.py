@@ -65,10 +65,15 @@ Phases, each of which raises on failure (exit code != 0):
    chunk's stages;
 7. RCC undrift on the card: postprocess.undrift(device="cuda") of the
    MLE slice's locs with a known drift added, its residual against that
-   drift, its agreement with the same call on the CPU, and its wall
-   split (render, pair FFTs, peak fits);
+   drift, its agreement with the same call on the CPU, its wall split
+   (render, pair FFTs, peak fits), and one launch of apply_drift's
+   record kernel (csrc/records.cu) in it, no other counted kernel; the
+   record kernel on those locs and that drift == its plain version on
+   the card bit for bit, its device time beside its bytes bound and the
+   plain version's time;
 7a. a drift file: the RCC drift through io.save_drift and
-   io.load_drift, applied again, equal to undrift's locs bit for bit;
+   io.load_drift, applied again on the card, equal to undrift's locs bit
+   for bit;
 7b. AIM 2D: aim.aim (segments of 100 frames, two rounds) on the drifted
    locs on the card, its wall split into the device counts and the host
    rest, equal to the CPU run bit for bit, the residual against the
@@ -1024,7 +1029,8 @@ def stats_phase(locs, info, events, smi: str):
 def db_phase(locs, info, counted, smi: str):
     """15. the checks of ``localize -db`` on the card: localize.check_nena,
     check_kinetics and check_drift on the undrifted MLE locs with every
-    count set to 0 just before (the host walk of link launched once, no
+    count set to 0 just before (the host walk of link launched once, and
+    apply_drift's record kernel once, in check_drift's undrift; no other
     kernel), each against the same call on the CPU (NeNA and the mean
     event length equal, as phases 13-14 hold the histogram and the
     chains; the drift within DRIFT_AGREE, as phase 7); then a summary
@@ -1061,8 +1067,8 @@ def db_phase(locs, info, counted, smi: str):
     if (card["nena"] != cpu["nena"] or card["kinetics"] != cpu["kinetics"]
             or d_drift > DRIFT_AGREE or not np.isfinite(card["nena"])):
         raise AssertionError(f"-db checks: card {card} against the CPU {cpu}")
-    if any(v for k, v in launches.items() if k != "link walk") or (
-            launches["link walk"] != 1):
+    if ({k: v for k, v in launches.items() if v}
+            != {"link walk": 1, "apply_drift records": 1}):
         raise AssertionError(f"-db checks launched {launches}")
     with tempfile.TemporaryDirectory(prefix=".smoke-db-", dir=ROOT) as tmp:
         movie_file = os.path.join(tmp, "movie.raw")
@@ -3948,7 +3954,7 @@ def main() -> int:
     )
     from picasso_torch.ops import (
         cluster, fused, identify, identify_cuda, link, lq, lq_cuda, mle,
-        mle_cuda, winfit_cuda,
+        mle_cuda, records, winfit_cuda,
     )
     from picasso_torch.ops._fit_common import FINISH
     from torch_data import (
@@ -4360,7 +4366,8 @@ def main() -> int:
                 "lq anybox": lq_cuda.fit_anybox_t,
                 "lq anybox one pass": lq_cuda.fit_anybox_one_pass_t,
                 "cut anybox": winfit_cuda.cut_anybox_t,
-                "cut anybox direct": winfit_cuda.cut_anybox_direct_t}
+                "cut anybox direct": winfit_cuda.cut_anybox_direct_t,
+                "apply_drift records": records.apply_drift_records}
 
     n_chunks = -(-len(movie) // CHUNK)
 
@@ -4729,14 +4736,17 @@ def main() -> int:
     empty = (segs.sum(dim=(1, 2)) == 0).cpu().numpy()
     imageprocess.peak_shifts(crops, offsets, tuple(segs.shape[1:]), empty)
     t3 = time.perf_counter()
-    drift_g, undrifted = postprocess.undrift(drifted, info, SEGMENTATION,
-                                             device="cuda")
-    torch.cuda.synchronize()
+    (drift_g, undrifted), wall_g, launches_undrift = counted(
+        lambda: postprocess.undrift(drifted, info, SEGMENTATION,
+                                    device="cuda"))
     t4 = time.perf_counter()
     drift_c, _ = postprocess.undrift(drifted, info, SEGMENTATION,
                                      device="cpu")
-    t5 = time.perf_counter()
-    wall_g, wall_c = t4 - t3, t5 - t4
+    wall_c = time.perf_counter() - t4
+    if ({k: v for k, v in launches_undrift.items() if v}
+            != {"apply_drift records": 1}):
+        raise AssertionError("undrift did not launch the record kernel "
+                             f"once and nothing else: {launches_undrift}")
     resid, agree = {}, {}
     for c in ("x", "y"):
         d = drift_g[c] - inj[c]
@@ -4753,6 +4763,38 @@ def main() -> int:
                              "disagrees with the CPU")
     if not (np.isfinite(undrifted["x"]).all() and len(undrifted) == len(locs)):
         raise AssertionError("undrift: locs lost or not finite")
+    # the record kernel on these locs and this drift: == its plain version
+    # on the card bit for bit; its device time, bytes bound and the plain
+    # version's time
+    layout, table = records.drift_layout(drifted.dtype, drift_g)
+    recs = records.upload(drifted, dev)
+    table_d = torch.from_numpy(table).to(dev)
+    rec_kernel = records.apply_drift_records(recs, layout, table_d)
+    rec_plain = records.apply_drift_records_plain(recs, layout, table_d)
+    if not torch.equal(rec_kernel, rec_plain):
+        raise AssertionError("the record kernel differs from its plain "
+                             "version")
+    rec_bytes = len(drifted) * (layout.in_size + layout.out_dtype.itemsize)
+    rec_entry = {
+        "name": "R apply_drift_records (a tile of records staged through "
+                "shared memory)", "route": "cuda",
+        "source": "picasso_torch/csrc/records.cu",
+        "replaces": "none (picasso_tpu/postprocess.py:1351 is pandas)",
+        "launches": launches_undrift["apply_drift records"],
+        "path": "undrift", "max_abs_err": 0.0,
+        "ms": _kernel_device_ms(
+            lambda: records.apply_drift_records(recs, layout, table_d),
+            "apply_drift_kernel"),
+        "plain_ms": _median_ms(lambda: records.apply_drift_records_plain(
+            recs, layout, table_d)),
+        "bound_ms": rec_bytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+        "library_ms": None, "records": len(drifted)}
+    del recs, table_d, rec_kernel, rec_plain
+    print(f"record kernel, {len(drifted)} records of {layout.in_size} -> "
+          f"{layout.out_dtype.itemsize} B: == plain bit for bit, device "
+          f"{_ms_or_not(rec_entry['ms'])}, bound {rec_entry['bound_ms']:.4f}"
+          f" ms (bytes), plain {rec_entry['plain_ms']:.4f} ms; launches in "
+          f"undrift {rec_entry['launches']}")
 
     # 7a. a drift file ---------------------------------------------------
     # the RCC drift through save_drift and load_drift, applied again:
@@ -4761,7 +4803,8 @@ def main() -> int:
     drift_path = os.path.join(drift_dir.name, "movie_locs_drift.txt")
     io.save_drift(drift_path, drift_g)
     from_file = postprocess.apply_drift(drifted, info,
-                                        drift=io.load_drift(drift_path))
+                                        drift=io.load_drift(drift_path),
+                                        device="cuda")
     drift_dir.cleanup()
     for name in undrifted.dtype.names:
         if not np.array_equal(from_file[name], undrifted[name]):
@@ -5604,6 +5647,7 @@ def main() -> int:
         k["fit2d_block_ms"] = ms[key]
         k["fit2d_block_bound_ms"] = bounds[block_key][0]
         k["fit2d_block_plain_ms"] = ms["plain " + block_key]
+    kernels.append(rec_entry)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s after the start")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

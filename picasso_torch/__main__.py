@@ -181,7 +181,8 @@ def _undrift_rcc_single(path: str, segmentation, device, fromfile=None):
     locs, info = io.load_locs(path)
     if fromfile:
         locs = postprocess.apply_drift(locs, info,
-                                       drift=io.load_drift(fromfile))
+                                       drift=io.load_drift(fromfile),
+                                       device=device)
         new_info = info + [{"Generated by": "Picasso Undrift (from file)"}]
     else:
         drift, locs = postprocess.undrift(locs, info, int(segmentation),

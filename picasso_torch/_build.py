@@ -156,6 +156,14 @@ SIGNATURES = {
         _P, _P, _P,                            # tile mask, loc, ng
         _P,                                    # stream
     ],
+    "picasso_apply_drift_records": [
+        _P, _LL, _I, _P, _I,                   # in, n, in_size, out, out_size
+        _P, _I, _I, _I, _I,                    # segments, their count; frame
+                                               # offset, bytes, signed
+        _P, _LL, _I,                           # drift (frames, k) f64
+        _I, _I, _P,                            # tile, word bytes, bad flag
+        _P,                                    # stream
+    ],
     "picasso_link_walk": [
         _P, _P, _LL, _P,                       # offsets, succ, n, out (host)
     ],

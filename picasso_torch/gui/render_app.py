@@ -1497,7 +1497,8 @@ class RenderApp(_PluginHost):
             raise ValueError("Pick fiducials first.")
         ch.push_undo("undrift from picked")
         drift = postprocess.undrift_from_picked(picked, ch.info)
-        ch.locs = postprocess.apply_drift(ch.locs, ch.info, drift=drift)
+        ch.locs = postprocess.apply_drift(ch.locs, ch.info, drift=drift,
+                                            device=self.device)
         ch.drift = drift
         self._record("Undrift from picked", {"Number of picks": len(picked)})
         ch.rebuild_index()
@@ -1537,7 +1538,8 @@ class RenderApp(_PluginHost):
         drift = io.load_drift(path)
         ch = self.channel
         ch.push_undo("apply drift")
-        ch.locs = postprocess.apply_drift(ch.locs, ch.info, drift=drift)
+        ch.locs = postprocess.apply_drift(ch.locs, ch.info, drift=drift,
+                                            device=self.device)
         ch.drift = drift
         self._record("Apply drift", {"Drift file": path})
         ch.rebuild_index()

@@ -15,13 +15,16 @@ _next_frame_neighbor_distance_histogram :632, nena :677, frc :724, _frc
 native link_groups, _link_loc_groups :979, cluster_combine :1067,
 cluster_combine_dist :1109, groupprops :1579, nn_analysis :1661, resi
 :1687). Locs
-are numpy structured arrays. For RCC their columns go to ``device``
-once, each segment is rendered there with the Gaussian blur
-(render.render_t), the pair correlations run there
-(imageprocess.pair_xcorrs), and the peak fits, the least squares and
-the spline run on the host. The picks and the drift from them run on
-the host in numpy, as in JAX (a few hundred picks, one trace each); only
-the fiducial search renders and identifies on ``device``. AIM is
+are numpy structured arrays. For RCC their records go to ``device``
+once (ops/records.upload), each segment is rendered there with the
+Gaussian blur (render.render_t) from columns taken out of the records
+there, the pair correlations run there (imageprocess.pair_xcorrs), the
+peak fits, the least squares and the spline run on the host, and the
+drift is subtracted from the records on ``device``
+(ops/records.apply_drift_records), which come back once. The picks and
+the drift from them run on the host in numpy, as in JAX (a few hundred
+picks, one trace each); only the fiducial search renders and identifies
+on ``device``, and the drift is subtracted there. AIM is
 aim.py. Linking finds its candidates on ``device`` (ops/link.py) and
 walks them on the host; the pair statistics run on ``device`` by cell
 lists or blocked tiles (ops/neighbors.py), held to JAX's cKDTree route;
@@ -38,7 +41,7 @@ from scipy.optimize import curve_fit
 
 from picasso_torch import imageprocess, lib, masking, render
 from picasso_torch.ops import link as link_ops
-from picasso_torch.ops import neighbors
+from picasso_torch.ops import neighbors, records
 from picasso_torch.profiling import span
 
 DRIFT_DTYPE = np.dtype([("x", np.float64), ("y", np.float64)])
@@ -65,8 +68,18 @@ def segment(locs: np.ndarray, info: list[dict], segmentation: int,
     <= frame < bounds[i + 1], bounds = linspace(0, Frames - 1, n + 1) as
     uint32, as in the reference (so the last frame is in none). Returns
     (bounds, segments (n, Height, Width) f32 tensor on ``device``);
-    ``kwargs`` go to render.render_t."""
+    ``kwargs`` go to render.render_t. The locs go to ``device`` as their
+    records (ops/records.upload)."""
     device = lib.resolve_device(device)
+    return _segment(records.upload(locs, device), locs.dtype, info,
+                    segmentation, kwargs)
+
+
+def _segment(recs: torch.Tensor, dtype: np.dtype, info: list[dict],
+             segmentation: int, kwargs: dict | None = None):
+    """:func:`segment` of locs already on the device as (N, itemsize)
+    records of ``dtype``: the columns the renders read are taken from
+    the records there."""
     Y, X = info[0]["Height"], info[0]["Width"]
     n_frames = info[0]["Frames"]
     n_seg = n_segments(info, segmentation)
@@ -75,10 +88,10 @@ def segment(locs: np.ndarray, info: list[dict], segmentation: int,
     names = ("x", "y", "lpx", "lpy") if kwargs.get("blur_method") else (
         "x", "y")
     with span("picasso.undrift.segment"):
-        cols = render.columns(locs, names, device)
-        frames = torch.from_numpy(locs["frame"].astype(np.int64)).to(device)
+        cols = {n: records.column(recs, dtype, n) for n in names}
+        frames = records.column(recs, dtype, "frame")
         segments = torch.zeros((n_seg, Y, X), dtype=torch.float32,
-                               device=device)
+                               device=recs.device)
         for i in range(n_seg):
             sel = (frames >= int(bounds[i])) & (frames < int(bounds[i + 1]))
             _, segments[i] = render.render_t(
@@ -97,16 +110,21 @@ def undrift(locs: np.ndarray, info: list[dict], segmentation: int, *,
     subtracted). ``device`` may be a mesh, or ``"cuda"`` with several
     cards visible (parallel/mesh.route): the segments render on its
     first device and the pair correlations split over its shards
-    (imageprocess.pair_xcorrs). Runs in the span ``picasso.undrift``,
-    its steps in ``picasso.undrift.segment``, ``.xcorr``, ``.peak_fit``,
+    (imageprocess.pair_xcorrs). The locs cross to that device once, as
+    their records, and the drift is subtracted there
+    (ops/records.apply_drift_records); the corrected records cross back
+    once. Runs in the span ``picasso.undrift``, its steps in
+    ``picasso.undrift.upload``, ``.segment``, ``.xcorr``, ``.peak_fit``,
     ``.solve`` and ``.apply`` (profiling.span)."""
     from picasso_torch.parallel.mesh import route
 
     device, mesh = route(device)
     with span("picasso.undrift"):
-        bounds, segments = segment(
-            locs, info, segmentation,
-            {"blur_method": "gaussian", "min_blur_width": 1}, device=device)
+        with span("picasso.undrift.upload"):
+            recs = records.upload(locs, device)
+        bounds, segments = _segment(
+            recs, locs.dtype, info, segmentation,
+            {"blur_method": "gaussian", "min_blur_width": 1})
         shift_y, shift_x = imageprocess.rcc(segments, 32, mesh)
         with span("picasso.undrift.solve"):
             t = (bounds[1:] + bounds[:-1]) / 2
@@ -118,27 +136,33 @@ def undrift(locs: np.ndarray, info: list[dict], segmentation: int, *,
             drift["y"] = interpolate.InterpolatedUnivariateSpline(
                 t, shift_y, k=k)(t_inter)
         with span("picasso.undrift.apply"):
-            return drift, apply_drift(locs, info, drift=drift)
+            return drift, _apply_drift(recs, locs.dtype, drift)
 
 
-def apply_drift(locs: np.ndarray, info: list[dict], *, drift) -> np.ndarray:
+def apply_drift(locs: np.ndarray, info: list[dict], *, drift,
+                device="cuda") -> np.ndarray:
     """Subtract the per-frame drift (a structured array with fields x, y
-    and maybe z, or an (n, 2 or 3) array of those columns) from the
-    locs' coordinates (picasso/postprocess.py:3171). As in the JAX
-    package, whose pandas columns turn f64 there, the corrected x, y (and
-    z) are f64 fields."""
-    if drift.dtype.names is None:
-        d = {c: drift[:, i] for i, c in enumerate(("x", "y", "z")[
-            :drift.shape[1]])}
-    else:
-        d = {c: drift[c] for c in drift.dtype.names}
-    moved = [c for c in ("x", "y", "z") if c in locs.dtype.names and c in d]
-    out = np.empty(len(locs), [(n, np.float64 if n in moved else locs.dtype[n])
-                               for n in locs.dtype.names])
-    frames = locs["frame"]
-    for n in locs.dtype.names:
-        out[n] = locs[n] - d[n][frames] if n in moved else locs[n]
-    return out
+    and maybe z, or an (n, 2 or 3) array of those columns, taken in f64)
+    from the locs' coordinates (picasso/postprocess.py:3171). As in the
+    JAX package, whose pandas columns turn f64 there, the corrected x, y
+    (and z) are f64 fields, each the f64 coordinate minus the drift of
+    its frame, bit for bit as numpy subtracts them field by field. The
+    records go to ``device`` once and back once, rewritten there: on the
+    card by csrc/records.cu, on the CPU by its plain version
+    (ops/records.apply_drift_records_plain). A frame outside the drift
+    raises IndexError; a negative frame of a signed type counts from the
+    end, as numpy's indexing does."""
+    device = lib.resolve_device(device)
+    return _apply_drift(records.upload(locs, device), locs.dtype, drift)
+
+
+def _apply_drift(recs: torch.Tensor, dtype: np.dtype, drift) -> np.ndarray:
+    """:func:`apply_drift` of locs already on a device as (N, itemsize)
+    records of ``dtype``."""
+    layout, table = records.drift_layout(dtype, drift)
+    out = records.apply_drift_records(
+        recs, layout, torch.from_numpy(table).to(recs.device))
+    return records.download(out, layout.out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -369,7 +393,8 @@ def undrift_from_fiducials(locs: np.ndarray, info: list[dict],
         "Number of picks": len(picks),
         "Pick radius (nm)": pick_radius * pixelsize,
     }]
-    return apply_drift(locs, info, drift=drift), new_info, drift
+    return (apply_drift(locs, info, drift=drift, device=device), new_info,
+            drift)
 
 
 # ---------------------------------------------------------------------------

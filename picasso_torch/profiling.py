@@ -34,10 +34,11 @@ writes them when it stops. Spans are named ``picasso.<layer>.<step>``:
   mesh_chain`` (over a mesh's shards), ``picasso.fused.drain`` (its
   readback), then ``picasso.localize.gather`` (the payloads into ids
   and fit columns) and ``picasso.localize.locs_table``;
-- undrift: ``picasso.undrift`` (the call), ``picasso.undrift.segment``
-  (the renders), ``.xcorr`` (the pair correlations to the host),
-  ``.peak_fit`` (the host peak fits), ``.solve`` (least squares and the
-  splines) and ``.apply`` (``apply_drift``).
+- undrift: ``picasso.undrift`` (the call), ``picasso.undrift.upload``
+  (the locs' records to the device), ``.segment`` (the renders),
+  ``.xcorr`` (the pair correlations to the host), ``.peak_fit`` (the
+  host peak fits), ``.solve`` (least squares and the splines) and
+  ``.apply`` (``apply_drift`` on the device and the records back).
 
 A span is never left open across a generator's ``yield``, and spans
 opened in a worker thread are not in the trace: they belong on the

@@ -44,6 +44,7 @@ LOCALIZE_NEST = {
 }
 UNDRIFT_NEST = {
     "picasso.undrift": None,
+    "picasso.undrift.upload": "picasso.undrift",
     "picasso.undrift.segment": "picasso.undrift",
     "picasso.undrift.xcorr": "picasso.undrift",
     "picasso.undrift.peak_fit": "picasso.undrift",

@@ -1,7 +1,8 @@
 """Drift correction of the port held against picasso_tpu on the CPU:
 RCC (picasso_torch.render, imageprocess, lib.minimize_shifts,
 postprocess, io.save_drift and the CLI's default ``-d 1000``), drift
-files (io.load_drift), picks and fiducials (postprocess.picked_locs,
+files (io.load_drift), apply_drift over many record layouts and every
+drift form (byte for byte), picks and fiducials (postprocess.picked_locs,
 undrift_from_picked, undrift_from_fiducials, imageprocess.find_fiducials,
 localize.identify_in_image), and the CLI verbs ``undrift``, ``aim``,
 ``undrift_fiducials`` and ``render`` against the JAX CLI.
@@ -58,6 +59,10 @@ from picasso_torch import postprocess as tpost
 from picasso_torch import render as trender
 from torch_data import make_bench_movie
 from torch_native import loaded_native
+from torch_records_data import DRIFT_FORMS, DTYPES
+from torch_records_data import MLE as RECORDS_MLE
+from torch_records_data import N_FRAMES as RECORDS_FRAMES
+from torch_records_data import make_drift, make_locs, same_bytes
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CAMERA = {"Baseline": 0, "Sensitivity": 1, "Gain": 1, "Pixelsize": 130}
@@ -223,20 +228,82 @@ def test_apply_drift_and_save_drift_byte_compatible(tmp_path):
     drift["x"], drift["y"] = rng.normal(size=(2, 100))
     drift_df = pd.DataFrame({"x": drift["x"], "y": drift["y"]})
     info = _info(100, 32)
-    t = tpost.apply_drift(locs, info, drift=drift)
+    t = tpost.apply_drift(locs, info, drift=drift, device="cpu")
     j = jpost.apply_drift(pd.DataFrame.from_records(locs), info,
                           drift=drift_df).to_records(index=False)
     assert t.dtype == j.dtype
     for name in t.dtype.names:
         np.testing.assert_array_equal(t[name], j[name])
     t2 = tpost.apply_drift(locs, info, drift=np.column_stack(
-        [drift["x"], drift["y"]]))
+        [drift["x"], drift["y"]]), device="cpu")
     np.testing.assert_array_equal(t2, t)
     tio.save_drift(str(tmp_path / "t.txt"), drift)
     jio.save_drift(str(tmp_path / "j.txt"), drift_df)
     assert (tmp_path / "t.txt").read_bytes() == (tmp_path / "j.txt"
                                                  ).read_bytes()
     assert b"\r\n" in (tmp_path / "t.txt").read_bytes()
+
+
+def _jax_apply_drift(locs, drift):
+    """picasso_tpu's apply_drift of ``locs`` (a structured array) as a
+    plain structured array: pandas' columns, the drift as a DataFrame
+    or an (n, 2 or 3) array."""
+    if drift.dtype.names is not None:
+        drift = pd.DataFrame.from_records(drift)
+    out = jpost.apply_drift(pd.DataFrame.from_records(locs), [{}],
+                            drift=drift).to_records(index=False)
+    return np.asarray(out, np.dtype(out.dtype.descr))
+
+
+@pytest.mark.parametrize("form", DRIFT_FORMS)
+@pytest.mark.parametrize("kind", list(DTYPES))
+def test_apply_drift_matches_jax_on_every_record_layout(kind, form):
+    """The plain version of the record rewrite (the CPU's apply_drift)
+    against JAX's pandas columns byte for byte: the MLE, LQ and 3D
+    dtypes, int64 frames, a padded and aligned dtype with y already f64,
+    fields at odd and even offsets, × every drift form."""
+    locs = make_locs(DTYPES[kind], 1000, seed=len(kind))
+    drift = make_drift(form, seed=3)
+    want = _jax_apply_drift(locs, drift)
+    same_bytes(tpost.apply_drift(locs, [{}], drift=drift, device="cpu"),
+               want)
+    moved = {"x", "y"} | ({"z"} if form in ("rec3", "array3")
+                          and "z" in locs.dtype.names else set())
+    assert {n for n in want.dtype.names
+            if want.dtype[n] == np.float64} >= moved
+
+
+@pytest.mark.parametrize("case", ["non-contiguous", "negative-frames",
+                                  "one", "empty"])
+def test_apply_drift_matches_jax_on_odd_inputs(case):
+    if case == "non-contiguous":
+        locs = make_locs(RECORDS_MLE, 3000, seed=1)[::3]
+        assert not locs.flags.c_contiguous
+    elif case == "negative-frames":
+        locs = make_locs(DTYPES["mle-int64-frame"], 1000, seed=2,
+                         negative_frames=True)
+        assert (locs["frame"] < 0).any()
+    elif case == "one":
+        locs = make_locs(DTYPES["packed-odd"], 1, seed=3)
+    else:
+        locs = make_locs(RECORDS_MLE, 0, seed=3)
+    drift = make_drift("rec2", seed=4)
+    same_bytes(tpost.apply_drift(locs, [{}], drift=drift, device="cpu"),
+               _jax_apply_drift(locs, drift))
+
+
+@pytest.mark.parametrize("kind,frame", [
+    ("mle", RECORDS_FRAMES), ("mle-int64-frame", RECORDS_FRAMES),
+    ("mle-int64-frame", -RECORDS_FRAMES - 1)])
+def test_apply_drift_raises_index_error_for_a_frame_outside_as_jax(kind,
+                                                                    frame):
+    locs = make_locs(DTYPES[kind], 50, seed=5)
+    locs["frame"][17] = frame
+    drift = make_drift("rec2", seed=6)
+    with pytest.raises(IndexError):
+        _jax_apply_drift(locs, drift)
+    with pytest.raises(IndexError, match="out of bounds"):
+        tpost.apply_drift(locs, [{}], drift=drift, device="cpu")
 
 
 def _run_cli(module, tmp_path, *extra):
